@@ -1,0 +1,303 @@
+// K2 — CAVLC slot coder: the intra core's level tensors -> (value, length)
+// codeword slots for the 27 residual blocks of every MB (34 slots each)
+// and the 20 MB-syntax slots.
+//
+// Replaces docker_nvidia_glx_desktop_tpu/ops/cavlc_device.py:416
+// frame_block_slots (code_blocks :247, nc_grid :388,
+// intra_mb_syntax_slots :548); the slots are equal to it.
+//
+// What bounds it: the sequential per-block CAVLC loops (level VLC with
+// adaptive suffixLength, run_before with zerosLeft), not bytes: it reads
+// ~4 KB and writes ~7.5 KB of slots per MB.  Pass 1 (one thread per MB)
+// counts total_coeff per block with the cbp gates; pass 2 runs one thread
+// per 4x4 block (27 per MB) with its loops in registers and the tables in
+// constant memory, plus one thread per MB for the syntax slots.
+#include "common.cuh"
+
+namespace {
+
+constexpr int BLOCKS = 27, SLOTS = 34, SYN = 20;
+constexpr int INFO = 32;     // per-MB scratch words written by pass 1
+
+// (length << 16 | bits) tables, uploaded once by cavlc_upload_tables.
+__constant__ int c_ct[5 * 17 * 4];
+__constant__ int c_tz[16 * 16];
+__constant__ int c_tzc[3 * 4];
+__constant__ int c_rb[57];
+__constant__ int c_cbp_cn[48];
+
+struct Levels {
+  const int *luma_dc, *luma_ac, *cb_dc, *cb_ac, *cr_dc, *cr_ac, *pred_mode;
+  const uint8_t* mb_i4;
+  const int *i4_modes, *luma_i4;
+};
+
+// scratch word layout per MB (pass 1 -> pass 2)
+enum { TC_LUMA = 0, TC_CB = 16, TC_CR = 20, CBP_LUMA = 24, CBP_LUMA4 = 25,
+       CBP_CHROMA = 26, GRP_ANY = 27 };
+
+__global__ void mb_info_kernel(Levels L, int* info, int nmb) {
+  const int mb = blockIdx.x * blockDim.x + threadIdx.x;
+  if (mb >= nmb) return;
+  int* o = info + mb * INFO;
+  const bool i4 = L.mb_i4[mb];
+  bool cbp_luma = false;
+  for (int k = 0; k < 16 * 15; ++k) cbp_luma |= L.luma_ac[mb * 240 + k] != 0;
+  int grp[4] = {0, 0, 0, 0}, cbp4 = 0;
+  for (int g = 0; g < 4; ++g) {
+    for (int k = 0; k < 64; ++k) grp[g] |= L.luma_i4[mb * 256 + g * 64 + k] != 0;
+    cbp4 |= grp[g] << g;
+  }
+  bool ac_any = false, dc_any = false;
+  for (int k = 0; k < 60; ++k)
+    ac_any |= (L.cb_ac[mb * 60 + k] != 0) | (L.cr_ac[mb * 60 + k] != 0);
+  for (int k = 0; k < 4; ++k)
+    dc_any |= (L.cb_dc[mb * 4 + k] != 0) | (L.cr_dc[mb * 4 + k] != 0);
+  const int cbp_c = ac_any ? 2 : (dc_any ? 1 : 0);
+  for (int b = 0; b < 16; ++b) {      // blkIdx -> raster position
+    int tc = 0;
+    const bool gate = i4 ? grp[b >> 2] : cbp_luma;
+    if (gate) {
+      if (i4) {
+        for (int k = 0; k < 16; ++k) tc += L.luma_i4[(mb * 16 + b) * 16 + k] != 0;
+      } else {
+        for (int k = 0; k < 15; ++k) tc += L.luma_ac[(mb * 16 + b) * 15 + k] != 0;
+      }
+    }
+    o[TC_LUMA + c_blk_y[b] * 4 + c_blk_x[b]] = tc;
+  }
+  for (int q = 0; q < 4; ++q) {
+    int tcb = 0, tcr = 0;
+    if (cbp_c == 2) {
+      for (int k = 0; k < 15; ++k) {
+        tcb += L.cb_ac[(mb * 4 + q) * 15 + k] != 0;
+        tcr += L.cr_ac[(mb * 4 + q) * 15 + k] != 0;
+      }
+    }
+    o[TC_CB + q] = tcb;
+    o[TC_CR + q] = tcr;
+  }
+  o[CBP_LUMA] = cbp_luma;
+  o[CBP_LUMA4] = cbp4;
+  o[CBP_CHROMA] = cbp_c;
+  o[GRP_ANY] = grp[0] | (grp[1] << 1) | (grp[2] << 2) | (grp[3] << 3);
+}
+
+// nC of the block at (by, bx) of a w x w total_coeff grid (spec 9.2.1):
+// above only inside the MB, left across into the previous MB.
+__device__ int nc_of(const int* grid, const int* left_grid, int w, int by, int bx) {
+  const bool a_ok = bx > 0 || left_grid != nullptr;
+  const bool b_ok = by > 0;
+  const int na = bx > 0 ? grid[by * w + bx - 1] : (a_ok ? left_grid[by * w + w - 1] : 0);
+  const int nb = b_ok ? grid[(by - 1) * w + bx] : 0;
+  if (a_ok && b_ok) return (na + nb + 1) >> 1;
+  if (a_ok) return na;
+  if (b_ok) return nb;
+  return 0;
+}
+
+// One level codeword (9.2.2.1), all escape tiers up to level_prefix 17.
+__device__ void level_vlc(int code, int sl, unsigned* val, int* len) {
+  const int slm = max(sl, 1);
+  const int prefix = code >> slm;
+  const int esc_base = (15 << sl) + (sl == 0 ? 15 : 0);
+  const int b16 = esc_base + (1 << 13) - 4096;
+  const int b17 = esc_base + (1 << 14) - 4096;
+  unsigned ev;
+  int el;
+  if (code < esc_base + 4096) { ev = (1u << 12) | (unsigned)(code - esc_base); el = 28; }
+  else if (code < b16 + (1 << 13)) { ev = (1u << 13) | (unsigned)(code - b16); el = 30; }
+  else { ev = (1u << 14) | (unsigned)(code - b17); el = 32; }
+  if (sl == 0) {
+    if (code < 14) { *val = 1; *len = code + 1; }
+    else if (code < 30) { *val = (1u << 4) | (unsigned)(code - 14); *len = 19; }
+    else { *val = ev; *len = el; }
+  } else if (prefix < 15) {
+    *val = (1u << slm) | (unsigned)(code & ((1 << slm) - 1));
+    *len = prefix + 1 + sl;
+  } else {
+    *val = ev; *len = el;
+  }
+}
+
+// Code one block's 16 scan-order levels into 34 slots.
+__device__ void code_block(const int* lv, int nc, bool is_cdc, int max_coeff,
+                           bool gate, int* vals, int* lens) {
+  int rv[19], rp[16], total = 0;
+  for (int k = 15; k >= 0; --k)
+    if (lv[k] != 0) { rv[total] = lv[k]; rp[total] = k; ++total; }
+  for (int j = total; j < 16; ++j) { rv[j] = 0; rp[j] = 0; }
+  rv[16] = rv[17] = rv[18] = 0;
+  const bool c0 = total > 0 && abs(rv[0]) == 1;
+  const bool c1 = c0 && total > 1 && abs(rv[1]) == 1;
+  const bool c2 = c1 && total > 2 && abs(rv[2]) == 1;
+  const int t1 = (int)c0 + (int)c1 + (int)c2;
+  const int cls = is_cdc ? 4 : (nc < 2 ? 0 : (nc < 4 ? 1 : (nc < 8 ? 2 : 3)));
+  const int ct = c_ct[(cls * 17 + total) * 4 + t1];
+  vals[0] = ct & 0xFFFF; lens[0] = ct >> 16;
+  const int s0 = rv[0] < 0, s1 = rv[1] < 0, s2 = rv[2] < 0;
+  vals[1] = t1 == 0 ? 0 : (t1 == 1 ? s0 : (t1 == 2 ? (s0 << 1) | s1 : (s0 << 2) | (s1 << 1) | s2));
+  lens[1] = t1;
+  // remaining levels, highest frequency first
+  int sl = (total > 10 && t1 < 3) ? 1 : 0;
+  bool first = true;
+  const int n_levels = total - t1;
+  for (int j = 0; j < 16; ++j) {
+    if (j >= n_levels) { vals[2 + j] = 0; lens[2 + j] = 0; continue; }
+    const int level = rv[t1 + j];
+    int code = level > 0 ? 2 * level - 2 : -2 * level - 1;
+    if (first && t1 < 3) code -= 2;
+    unsigned v;
+    int l;
+    level_vlc(code, sl, &v, &l);
+    vals[2 + j] = (int)v; lens[2 + j] = l;
+    int sl_new = max(sl, 1);
+    if (abs(level) > (3 << max(sl_new - 1, 0)) && sl_new < 6) ++sl_new;
+    sl = sl_new;
+    first = false;
+  }
+  // total_zeros
+  const int tz = total > 0 ? rp[0] + 1 - total : 0;
+  const int tzi = min(max(total - 1, 0), 15);
+  const int tzp = is_cdc ? c_tzc[min(tzi, 2) * 4 + min(max(tz, 0), 3)]
+                         : c_tz[tzi * 16 + min(max(tz, 0), 15)];
+  const bool tz_emit = total > 0 && total < max_coeff;
+  vals[18] = tz_emit ? tzp & 0xFFFF : 0;
+  lens[18] = tz_emit ? tzp >> 16 : 0;
+  // run_before
+  int zeros_left = tz;
+  for (int k = 0; k < 15; ++k) {
+    const int next = k + 1 < 16 ? rp[k + 1] : 0;
+    const int run = min(max(rp[k] - next - 1, 0), 14);
+    const bool active = k <= total - 2 && zeros_left > 0;
+    int rbp = 0;
+    if (active) {
+      const int row = min(max(min(zeros_left, 7) - 1, 0), 6);
+      rbp = c_rb[row < 6 ? row * 7 + min(run, 6) : 42 + run];
+    }
+    vals[19 + k] = rbp & 0xFFFF;
+    lens[19 + k] = rbp >> 16;
+    zeros_left -= run;
+  }
+  if (!gate)
+    for (int s = 0; s < SLOTS; ++s) lens[s] = 0;
+}
+
+__device__ int ue_len(int code_num) { return 2 * (32 - __clz(code_num + 1)) - 1; }
+
+__device__ int mode_raster(const Levels& L, int mb, int by, int bx) {
+  if (!L.mb_i4[mb]) return 2;
+  // raster (by, bx) -> blkIdx
+  const int blk = (by >> 1) * 8 + (bx >> 1) * 4 + (by & 1) * 2 + (bx & 1);
+  return L.i4_modes[mb * 16 + blk];
+}
+
+__device__ void syntax_slots(const Levels& L, const int* info, int mb, bool has_left,
+                             int* vals, int* lens) {
+  const bool i4 = L.mb_i4[mb];
+  for (int b = 0; b < 16; ++b) {
+    const int bx = c_blk_x[b], by = c_blk_y[b];
+    const bool a_ok = bx > 0 || has_left, b_ok = by > 0;
+    int pred = 2;
+    if (a_ok && b_ok) {
+      const int ma = bx > 0 ? mode_raster(L, mb, by, bx - 1) : mode_raster(L, mb - 1, by, 3);
+      pred = min(ma, mode_raster(L, mb, by - 1, bx));
+    }
+    const int m = L.i4_modes[mb * 16 + b];
+    const bool flag = m == pred;
+    vals[1 + b] = flag ? 1 : m - (m > pred);
+    lens[1 + b] = i4 ? (flag ? 1 : 4) : 0;
+  }
+  const int cl = info[CBP_LUMA], cc = info[CBP_CHROMA];
+  const int mbt16 = 1 + L.pred_mode[mb] + 4 * cc + 12 * cl;
+  vals[0] = i4 ? 1 : mbt16 + 1;
+  lens[0] = i4 ? 1 : ue_len(mbt16);
+  const int cbp = info[CBP_LUMA4] + 16 * cc;
+  const int cn = c_cbp_cn[cbp];
+  vals[17] = 1; lens[17] = 1;
+  vals[18] = cn + 1;
+  lens[18] = i4 ? ue_len(cn) : 0;
+  vals[19] = 1;
+  lens[19] = (i4 && cbp == 0) ? 0 : 1;
+}
+
+__global__ void slots_kernel(Levels L, const int* info, int* values, int* lengths,
+                             int* syn_vals, int* syn_lens, int nmb, int nc) {
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= nmb * (BLOCKS + 1)) return;
+  const int mb = gid / (BLOCKS + 1), j = gid % (BLOCKS + 1);
+  const bool has_left = mb % nc != 0;
+  const int* inf = info + mb * INFO;
+  const int* linf = has_left ? info + (mb - 1) * INFO : nullptr;
+  if (j == BLOCKS) {
+    syntax_slots(L, inf, mb, has_left, syn_vals + mb * SYN, syn_lens + mb * SYN);
+    return;
+  }
+  const bool i4 = L.mb_i4[mb];
+  const int cbp_c = inf[CBP_CHROMA];
+  int lv[16];
+  for (int k = 0; k < 16; ++k) lv[k] = 0;
+  int nc_ctx = 0, max_coeff = 15;
+  bool is_cdc = false, gate = true;
+  if (j == 0) {                                   // luma DC (I16)
+    for (int k = 0; k < 16; ++k) lv[k] = L.luma_dc[mb * 16 + k];
+    nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, 0, 0);
+    max_coeff = 16;
+    gate = !i4;
+  } else if (j <= 16) {                           // luma blocks, blkIdx order
+    const int b = j - 1;
+    if (i4) {
+      for (int k = 0; k < 16; ++k) lv[k] = L.luma_i4[(mb * 16 + b) * 16 + k];
+    } else {
+      for (int k = 0; k < 15; ++k) lv[k] = L.luma_ac[(mb * 16 + b) * 15 + k];
+    }
+    nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, c_blk_y[b], c_blk_x[b]);
+    max_coeff = i4 ? 16 : 15;
+    gate = i4 ? ((inf[GRP_ANY] >> (b >> 2)) & 1) : inf[CBP_LUMA];
+  } else if (j <= 18) {                           // chroma DC
+    const int* dc = j == 17 ? L.cb_dc : L.cr_dc;
+    for (int k = 0; k < 4; ++k) lv[k] = dc[mb * 4 + k];
+    is_cdc = true;
+    max_coeff = 4;
+    gate = cbp_c > 0;
+  } else {                                        // chroma AC
+    const int p = (j - 19) >> 2, q = (j - 19) & 3;
+    const int* ac = p ? L.cr_ac : L.cb_ac;
+    for (int k = 0; k < 15; ++k) lv[k] = ac[(mb * 4 + q) * 15 + k];
+    const int off = p ? TC_CR : TC_CB;
+    nc_ctx = nc_of(inf + off, linf ? linf + off : nullptr, 2, q >> 1, q & 1);
+    gate = cbp_c == 2;
+  }
+  const int base = (mb * BLOCKS + j) * SLOTS;
+  code_block(lv, nc_ctx, is_cdc, max_coeff, gate, values + base, lengths + base);
+}
+
+}  // namespace
+
+extern "C" int cavlc_upload_tables(const int* ct, const int* tz, const int* tzc,
+                                   const int* rb, const int* cbp_cn) {
+  cudaError_t e;
+  if ((e = cudaMemcpyToSymbol(c_ct, ct, sizeof(c_ct))) != cudaSuccess) return e;
+  if ((e = cudaMemcpyToSymbol(c_tz, tz, sizeof(c_tz))) != cudaSuccess) return e;
+  if ((e = cudaMemcpyToSymbol(c_tzc, tzc, sizeof(c_tzc))) != cudaSuccess) return e;
+  if ((e = cudaMemcpyToSymbol(c_rb, rb, sizeof(c_rb))) != cudaSuccess) return e;
+  return cudaMemcpyToSymbol(c_cbp_cn, cbp_cn, sizeof(c_cbp_cn));
+}
+
+extern "C" int cavlc_slots_launch(
+    const int* luma_dc, const int* luma_ac, const int* cb_dc, const int* cb_ac,
+    const int* cr_dc, const int* cr_ac, const int* pred_mode, const uint8_t* mb_i4,
+    const int* i4_modes, const int* luma_i4, int* values, int* lengths,
+    int* syn_vals, int* syn_lens, int* scratch, int nr, int nc, cudaStream_t stream) {
+  const int nmb = nr * nc;
+  if (nmb <= 0) return 0;
+  const Levels L{luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode,
+                 mb_i4, i4_modes, luma_i4};
+  mb_info_kernel<<<(nmb + 127) / 128, 128, 0, stream>>>(L, scratch, nmb);
+  int e = dngd_last_error();
+  if (e) return e;
+  const int n = nmb * (BLOCKS + 1);
+  slots_kernel<<<(n + 127) / 128, 128, 0, stream>>>(L, scratch, values, lengths,
+                                                    syn_vals, syn_lens, nmb, nc);
+  return dngd_last_error();
+}

@@ -1,0 +1,20 @@
+// Shared pieces of the port's CUDA kernels: the C error-string export
+// every library carries, and the H.264 integer transform / quant helpers.
+#pragma once
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+extern "C" const char* dngd_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}
+
+// Launch check: a refused launch never runs and synchronize() would not
+// report it, so every entry point returns this to the Python wrapper.
+static inline int dngd_last_error() {
+  return static_cast<int>(cudaGetLastError());
+}
+
+// luma4x4BlkIdx -> (bx, by), spec 6.4.3; zigzag scan of a 4x4 block.
+__constant__ int c_blk_x[16] = {0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3};
+__constant__ int c_blk_y[16] = {0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3};
+__constant__ int c_zz[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};

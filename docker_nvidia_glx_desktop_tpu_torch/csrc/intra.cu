@@ -1,0 +1,455 @@
+// K1 — H.264 intra core: I16x16 DC/H + I4x4 fast modes, chroma DC
+// prediction, 4x4 integer transform, DC Hadamards, quant/dequant and the
+// normative reconstruction of one frame.
+//
+// Replaces docker_nvidia_glx_desktop_tpu/ops/h264_device.py:555
+// encode_intra_frame_yuv (i16_modes="auto", tune="off"); bit-exact with it.
+//
+// What bounds it: the dependency chain, not bytes or operations.  Every
+// MB row is its own slice, so rows are independent, but inside a row each
+// MB predicts from the left MB's reconstruction.  One CUDA block owns one
+// MB row and walks its MB columns in order; inside an MB its threads take
+// the 4x4 blocks and the candidates of each stage (I16 DC and H: 32
+// threads; chroma: 8; I4x4 row 0: 3 candidates, four blocks in sequence;
+// I4x4 rows 1-3: 4 blocks x 3 candidates), separated by __syncthreads.
+// Known limit: a 1080p frame has 68 MB rows, so 68 blocks run on 132 SMs
+// and each walks 120 MBs of ~20 barrier-separated stages.
+#include "common.cuh"
+
+namespace {
+
+constexpr int NT = 64;               // threads per block (one MB row)
+constexpr int ILLEGAL = 1 << 30;     // bit estimate of an unavailable mode
+constexpr int I4_SIG_BITS = 44;      // I_NxN signalling bias vs I16
+
+// MF and V per qp%6, by coefficient position class (a, b, c).
+__constant__ int c_mf[3][6] = {{13107, 11916, 10082, 9362, 8192, 7282},
+                               {5243, 4660, 4194, 3647, 3355, 2893},
+                               {8066, 7490, 6554, 5825, 5243, 4559}};
+__constant__ int c_v[3][6] = {{10, 11, 13, 14, 16, 18},
+                              {16, 18, 20, 23, 25, 29},
+                              {13, 14, 16, 18, 20, 23}};
+// raster (by, bx) -> luma4x4BlkIdx
+__constant__ int c_raster_idx[16] = {0, 1, 4, 5, 2, 3, 6, 7,
+                                     8, 9, 12, 13, 10, 11, 14, 15};
+__constant__ int c_mode_row0[3] = {1, 8, 2};    // H, HU, DC (left)
+__constant__ int c_mode_rows[3] = {0, 3, 7};    // V, DDL, VL
+
+__device__ __forceinline__ int pos_class(int i) {   // i = row*4 + col
+  const int r = (i >> 2) & 1, c = i & 1;
+  return (r == 0 && c == 0) ? 0 : ((r == 1 && c == 1) ? 1 : 2);
+}
+
+// floor(log2(a)), a >= 1, as the reference computes it: XLA's float32
+// log2 on the CPU lands just below the integer at 8192 and 32768.
+__device__ __forceinline__ int flog2(int a) {
+  return 31 - __clz(a) - ((a == 8192 || a == 32768) ? 1 : 0);
+}
+
+__device__ int level_bits(const int* lv) {
+  int s = 0;
+  for (int k = 0; k < 16; ++k) {
+    const int a = abs(lv[k]);
+    if (a) s += 3 + 2 * flog2(a);
+  }
+  return s;
+}
+
+// Cf . X . Cf^T, X row-major 4x4.
+__device__ void fdct4(const int* x, int* w) {
+  int t[16];
+  for (int j = 0; j < 4; ++j) {
+    const int s03 = x[j] + x[12 + j], d03 = x[j] - x[12 + j];
+    const int s12 = x[4 + j] + x[8 + j], d12 = x[4 + j] - x[8 + j];
+    t[j] = s03 + s12; t[4 + j] = 2 * d03 + d12;
+    t[8 + j] = s03 - s12; t[12 + j] = d03 - 2 * d12;
+  }
+  for (int i = 0; i < 4; ++i) {
+    const int* a = t + 4 * i;
+    const int s03 = a[0] + a[3], d03 = a[0] - a[3];
+    const int s12 = a[1] + a[2], d12 = a[1] - a[2];
+    w[4 * i] = s03 + s12; w[4 * i + 1] = 2 * d03 + d12;
+    w[4 * i + 2] = s03 - s12; w[4 * i + 3] = d03 - 2 * d12;
+  }
+}
+
+// Spec 8.5.12.2: rows first, then columns, then (x + 32) >> 6.
+__device__ void idct4(const int* d, int* r) {
+  int f[16];
+  for (int i = 0; i < 4; ++i) {
+    const int* a = d + 4 * i;
+    const int e0 = a[0] + a[2], e1 = a[0] - a[2];
+    const int e2 = (a[1] >> 1) - a[3], e3 = a[1] + (a[3] >> 1);
+    f[4 * i] = e0 + e3; f[4 * i + 1] = e1 + e2;
+    f[4 * i + 2] = e1 - e2; f[4 * i + 3] = e0 - e3;
+  }
+  for (int j = 0; j < 4; ++j) {
+    const int g0 = f[j] + f[8 + j], g1 = f[j] - f[8 + j];
+    const int g2 = (f[4 + j] >> 1) - f[12 + j], g3 = f[4 + j] + (f[12 + j] >> 1);
+    r[j] = (g0 + g3 + 32) >> 6; r[4 + j] = (g1 + g2 + 32) >> 6;
+    r[8 + j] = (g1 - g2 + 32) >> 6; r[12 + j] = (g0 - g3 + 32) >> 6;
+  }
+}
+
+// H . X . H^T (4x4 Hadamard, no scaling).
+__device__ void had4(const int* x, int* w) {
+  int t[16];
+  for (int j = 0; j < 4; ++j) {
+    const int s01 = x[j] + x[4 + j], d01 = x[j] - x[4 + j];
+    const int s23 = x[8 + j] + x[12 + j], d23 = x[8 + j] - x[12 + j];
+    t[j] = s01 + s23; t[4 + j] = s01 - s23;
+    t[8 + j] = d01 - d23; t[12 + j] = d01 + d23;
+  }
+  for (int i = 0; i < 4; ++i) {
+    const int* a = t + 4 * i;
+    const int s01 = a[0] + a[1], d01 = a[0] - a[1];
+    const int s23 = a[2] + a[3], d23 = a[2] - a[3];
+    w[4 * i] = s01 + s23; w[4 * i + 1] = s01 - s23;
+    w[4 * i + 2] = d01 - d23; w[4 * i + 3] = d01 + d23;
+  }
+}
+
+__device__ void had2(const int* x, int* w) {    // x = [a b; c d]
+  w[0] = x[0] + x[1] + x[2] + x[3];
+  w[1] = x[0] - x[1] + x[2] - x[3];
+  w[2] = x[0] + x[1] - x[2] - x[3];
+  w[3] = x[0] - x[1] - x[2] + x[3];
+}
+
+__device__ __forceinline__ int quant(int w, int mf, int f, int qbits) {
+  const int l = (abs(w) * mf + f) >> qbits;
+  return w < 0 ? -l : l;
+}
+
+struct Qp {
+  int m, s, qbits, f;
+  __device__ Qp(int qp)
+      : m(qp % 6), s(qp / 6), qbits(15 + qp / 6), f((1 << (15 + qp / 6)) / 3) {}
+  __device__ int q(int w, int i) const { return quant(w, c_mf[pos_class(i)][m], f, qbits); }
+  __device__ int dq(int l, int i) const { return l * c_v[pos_class(i)][m] * (1 << s); }
+  __device__ int q_dc(int w) const { return quant(w, c_mf[0][m], 2 * f, qbits + 1); }
+};
+
+struct Smem {
+  int ysrc[256];
+  int csrc[2][64];
+  int yl[16];                 // left MB's recon column (luma)
+  int cl[2][8];               // ... and chroma
+  // I16 candidates: 0 = DC, 1 = Horizontal
+  int ac16[2][16][16];        // [cand][raster block][coef], DC zeroed
+  int dcraw[2][16];
+  int bits_ac[2][16];
+  int dcl16[2][16];
+  int dcy[2][16];
+  int bits_dc[2];
+  int rec16[2][256];
+  // chroma
+  int acc[2][4][16];
+  int dcrawc[2][4];
+  int dclc[2][4];
+  int dcc[2][4];
+  int recc[2][64];
+  // I4x4
+  int rec4[256];
+  int clv[12][16];            // candidate levels (raster coef order)
+  int cpred[12][16];
+  int cbits[12];
+  int mode4[16];              // raster block order
+  int lvz4[16][16];           // raster block, zigzag levels
+  int bits4;
+  int sel_h, use4;
+};
+
+__device__ void i4_finish(Smem& s, const Qp& Q, int k, int mode, int bx, int by) {
+  int wr[16], res[16];
+  for (int i = 0; i < 16; ++i) wr[i] = Q.dq(s.clv[k][i], i);
+  idct4(wr, res);
+  for (int i = 0; i < 16; ++i) {
+    const int v = s.cpred[k][i] + res[i];
+    s.rec4[(by * 4 + (i >> 2)) * 16 + bx * 4 + (i & 3)] = min(max(v, 0), 255);
+  }
+  const int rb = by * 4 + bx;
+  s.mode4[rb] = mode;
+  for (int i = 0; i < 16; ++i) s.lvz4[rb][i] = s.clv[k][c_zz[i]];
+}
+
+__device__ void i4_candidate(Smem& s, const Qp& Q, int slot, int bx, int by,
+                             const int* pred, bool legal) {
+  int x[16], w[16];
+  for (int i = 0; i < 16; ++i) {
+    x[i] = s.ysrc[(by * 4 + (i >> 2)) * 16 + bx * 4 + (i & 3)] - pred[i];
+    s.cpred[slot][i] = pred[i];
+  }
+  fdct4(x, w);
+  for (int i = 0; i < 16; ++i) s.clv[slot][i] = Q.q(w[i], i);
+  s.cbits[slot] = legal ? level_bits(s.clv[slot]) : ILLEGAL;
+}
+
+__global__ void __launch_bounds__(NT) intra_frame_kernel(
+    const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
+    const uint8_t* __restrict__ cr, int* luma_dc, int* luma_ac, int* cb_dc,
+    int* cb_ac, int* cr_dc, int* cr_ac, int* pred_mode, uint8_t* mb_i4,
+    int* i4_modes, int* luma_i4, uint8_t* ry, uint8_t* rcb, uint8_t* rcr,
+    int nc, int qp, int qpc) {
+  __shared__ Smem s;
+  const int r = blockIdx.x, t = threadIdx.x;
+  const int W = nc * 16, Wc = nc * 8;
+  const Qp Q(qp), QC(qpc);
+  uint8_t* const rc[2] = {rcb, rcr};
+  int* const c_dc[2] = {cb_dc, cr_dc};
+  int* const c_ac[2] = {cb_ac, cr_ac};
+  // the first MB has no left neighbour: its unavailable candidates read
+  // zeros, as the reference's scan carry starts at zeros
+  if (t < 16) s.yl[t] = 0;
+  else if (t < 32) s.cl[(t - 16) >> 3][(t - 16) & 7] = 0;
+
+  for (int c = 0; c < nc; ++c) {
+    const bool has_left = c > 0;
+    const int mbi = r * nc + c;
+    for (int i = t; i < 256; i += NT)
+      s.ysrc[i] = y[(r * 16 + (i >> 4)) * W + c * 16 + (i & 15)];
+    for (int i = t; i < 128; i += NT) {
+      const int p = i >> 6, k = i & 63;
+      s.csrc[p][k] = (p ? cr : cb)[(r * 8 + (k >> 3)) * Wc + c * 8 + (k & 7)];
+    }
+    if (t == 0) s.bits4 = 0;
+    __syncthreads();
+
+    // --- I16 candidates and chroma: transform + AC quant -------------
+    if (t < 32) {
+      const int cand = t >> 4, b = t & 15, by = b >> 2, bx = b & 3;
+      int pred_dc = 128;
+      if (has_left) {
+        int sum = 0;
+        for (int i = 0; i < 16; ++i) sum += s.yl[i];
+        pred_dc = (sum + 8) >> 4;
+      }
+      int x[16], w[16];
+      for (int i = 0; i < 16; ++i) {
+        const int yy = by * 4 + (i >> 2);
+        x[i] = s.ysrc[yy * 16 + bx * 4 + (i & 3)] - (cand ? s.yl[yy] : pred_dc);
+      }
+      fdct4(x, w);
+      s.dcraw[cand][b] = w[0];
+      s.ac16[cand][b][0] = 0;
+      for (int i = 1; i < 16; ++i) s.ac16[cand][b][i] = Q.q(w[i], i);
+      s.bits_ac[cand][b] = level_bits(s.ac16[cand][b]);
+    } else if (t < 40) {
+      const int p = (t - 32) >> 2, q = (t - 32) & 3, by = q >> 1, bx = q & 1;
+      int pred = 128;
+      if (has_left) {
+        const int* l = s.cl[p] + 4 * by;
+        pred = (l[0] + l[1] + l[2] + l[3] + 2) >> 2;
+      }
+      int x[16], w[16];
+      for (int i = 0; i < 16; ++i)
+        x[i] = s.csrc[p][(by * 4 + (i >> 2)) * 8 + bx * 4 + (i & 3)] - pred;
+      fdct4(x, w);
+      s.dcrawc[p][q] = w[0];
+      s.acc[p][q][0] = 0;
+      for (int i = 1; i < 16; ++i) s.acc[p][q][i] = QC.q(w[i], i);
+    }
+    __syncthreads();
+
+    // --- DC Hadamards: quant, inverse, dequant ------------------------
+    if (t < 2) {
+      int wd2[16], dcl[16], fd[16];
+      had4(s.dcraw[t], wd2);
+      for (int i = 0; i < 16; ++i) {
+        const int a = abs(wd2[i]) >> 1;
+        dcl[i] = Q.q_dc(wd2[i] < 0 ? -a : a);
+        s.dcl16[t][i] = dcl[i];
+      }
+      s.bits_dc[t] = level_bits(dcl);
+      had4(dcl, fd);
+      for (int i = 0; i < 16; ++i) {
+        const int v00 = c_v[0][Q.m];
+        s.dcy[t][i] = qp >= 12 ? fd[i] * v00 * (1 << (Q.s - 2))
+                               : (fd[i] * v00 + (1 << (1 - Q.s))) >> (2 - Q.s);
+      }
+    } else if (t < 4) {
+      const int p = t - 2;
+      int wd[4], dcl[4], fd[4];
+      had2(s.dcrawc[p], wd);
+      for (int q = 0; q < 4; ++q) {
+        dcl[q] = QC.q_dc(wd[q]);
+        s.dclc[p][q] = dcl[q];
+      }
+      had2(dcl, fd);
+      for (int q = 0; q < 4; ++q)
+        s.dcc[p][q] = (fd[q] * c_v[0][QC.m] * (1 << QC.s)) >> 1;
+    }
+    __syncthreads();
+
+    // --- I16 and chroma reconstruction --------------------------------
+    if (t < 32) {
+      const int cand = t >> 4, b = t & 15, by = b >> 2, bx = b & 3;
+      int pred_dc = 128;
+      if (has_left) {
+        int sum = 0;
+        for (int i = 0; i < 16; ++i) sum += s.yl[i];
+        pred_dc = (sum + 8) >> 4;
+      }
+      int wr[16], res[16];
+      wr[0] = s.dcy[cand][b];
+      for (int i = 1; i < 16; ++i) wr[i] = Q.dq(s.ac16[cand][b][i], i);
+      idct4(wr, res);
+      for (int i = 0; i < 16; ++i) {
+        const int yy = by * 4 + (i >> 2);
+        const int v = (cand ? s.yl[yy] : pred_dc) + res[i];
+        s.rec16[cand][yy * 16 + bx * 4 + (i & 3)] = min(max(v, 0), 255);
+      }
+    } else if (t < 40) {
+      const int p = (t - 32) >> 2, q = (t - 32) & 3, by = q >> 1, bx = q & 1;
+      int pred = 128;
+      if (has_left) {
+        const int* l = s.cl[p] + 4 * by;
+        pred = (l[0] + l[1] + l[2] + l[3] + 2) >> 2;
+      }
+      int wr[16], res[16];
+      wr[0] = s.dcc[p][q];
+      for (int i = 1; i < 16; ++i) wr[i] = QC.dq(s.acc[p][q][i], i);
+      idct4(wr, res);
+      for (int i = 0; i < 16; ++i) {
+        const int v = pred + res[i];
+        s.recc[p][(by * 4 + (i >> 2)) * 8 + bx * 4 + (i & 3)] = min(max(v, 0), 255);
+      }
+    }
+
+    // --- I4x4 block row 0: H / HU / DC(left), sequential along bx ------
+    for (int bx = 0; bx < 4; ++bx) {
+      __syncthreads();
+      if (t < 3) {
+        int l[4];
+        for (int k = 0; k < 4; ++k)
+          l[k] = bx == 0 ? s.yl[k] : s.rec4[k * 16 + bx * 4 - 1];
+        const bool avail = bx > 0 || has_left;
+        int pred[16];
+        if (t == 0) {
+          for (int i = 0; i < 16; ++i) pred[i] = l[i >> 2];
+        } else if (t == 1) {
+          const int z[8] = {(l[0] + l[1] + 1) >> 1, (l[0] + 2 * l[1] + l[2] + 2) >> 2,
+                            (l[1] + l[2] + 1) >> 1, (l[1] + 2 * l[2] + l[3] + 2) >> 2,
+                            (l[2] + l[3] + 1) >> 1, (l[2] + 3 * l[3] + 2) >> 2,
+                            l[3], l[3]};
+          for (int i = 0; i < 16; ++i) pred[i] = z[min((i & 3) + 2 * (i >> 2), 7)];
+        } else {
+          const int dc = avail ? (l[0] + l[1] + l[2] + l[3] + 2) >> 2 : 128;
+          for (int i = 0; i < 16; ++i) pred[i] = dc;
+        }
+        i4_candidate(s, Q, t, bx, 0, pred, t == 2 || avail);
+      }
+      __syncthreads();
+      if (t == 0) {
+        int k = 0;
+        for (int j = 1; j < 3; ++j)
+          if (s.cbits[j] < s.cbits[k]) k = j;
+        i4_finish(s, Q, k, c_mode_row0[k], bx, 0);
+        s.bits4 += min(s.cbits[k], 1 << 24);
+      }
+    }
+
+    // --- I4x4 block rows 1-3: V / DDL / VL, four blocks in parallel ---
+    for (int by = 1; by < 4; ++by) {
+      __syncthreads();
+      if (t < 12) {
+        const int bx = t / 3, cand = t % 3;
+        const int* above = s.rec4 + (by * 4 - 1) * 16 + bx * 4;
+        const bool tr_avail =
+            bx < 3 && c_raster_idx[(by - 1) * 4 + bx + 1] < c_raster_idx[by * 4 + bx];
+        int p[8];
+        for (int k = 0; k < 4; ++k) {
+          p[k] = above[k];
+          p[4 + k] = tr_avail ? above[4 + k] : above[3];
+        }
+        int pred[16];
+        for (int i = 0; i < 16; ++i) {
+          const int yy = i >> 2, xx = i & 3;
+          if (cand == 0) {
+            pred[i] = p[xx];
+          } else if (cand == 1) {
+            const int j = xx + yy;
+            pred[i] = j == 6 ? (p[6] + 3 * p[7] + 2) >> 2
+                             : (p[j] + 2 * p[j + 1] + p[j + 2] + 2) >> 2;
+          } else {
+            const int j = xx + (yy >> 1);
+            pred[i] = (yy & 1) ? (p[j] + 2 * p[j + 1] + p[j + 2] + 2) >> 2
+                               : (p[j] + p[j + 1] + 1) >> 1;
+          }
+        }
+        i4_candidate(s, Q, t, bx, by, pred, true);
+      }
+      __syncthreads();
+      if (t < 4) {
+        int k = 3 * t;
+        for (int j = 1; j < 3; ++j)
+          if (s.cbits[3 * t + j] < s.cbits[k]) k = 3 * t + j;
+        i4_finish(s, Q, k, c_mode_rows[k - 3 * t], t, by);
+        atomicAdd(&s.bits4, s.cbits[k]);
+      }
+    }
+    __syncthreads();
+
+    // --- decisions: I16 DC vs H, then I16 vs I4 -----------------------
+    if (t == 0) {
+      int b_dc = s.bits_dc[0], b_h = s.bits_dc[1];
+      for (int b = 0; b < 16; ++b) {
+        b_dc += s.bits_ac[0][b];
+        b_h += s.bits_ac[1][b];
+      }
+      const bool use_h = has_left && b_h < b_dc;
+      s.sel_h = use_h;
+      s.use4 = s.bits4 + I4_SIG_BITS < (use_h ? b_h : b_dc);
+    }
+    __syncthreads();
+
+    const int sel = s.sel_h, use4 = s.use4;
+    const int* yrec = use4 ? s.rec4 : s.rec16[sel];
+    if (t < 16) {
+      s.yl[t] = yrec[t * 16 + 15];
+    } else if (t < 32) {
+      const int p = (t - 16) >> 3, k = (t - 16) & 7;
+      s.cl[p][k] = s.recc[p][k * 8 + 7];
+    }
+    for (int i = t; i < 256; i += NT) {
+      ry[(r * 16 + (i >> 4)) * W + c * 16 + (i & 15)] = (uint8_t)yrec[i];
+      const int blk = i >> 4, k = i & 15;    // blkIdx, zigzag position
+      const int rb = c_blk_y[blk] * 4 + c_blk_x[blk];
+      luma_i4[(mbi * 16 + blk) * 16 + k] = s.lvz4[rb][k];
+      if (k > 0) luma_ac[(mbi * 16 + blk) * 15 + k - 1] = s.ac16[sel][rb][c_zz[k]];
+    }
+    for (int i = t; i < 128; i += NT) {
+      const int p = i >> 6, k = i & 63;
+      rc[p][(r * 8 + (k >> 3)) * Wc + c * 8 + (k & 7)] = (uint8_t)s.recc[p][k];
+      if (k < 60) {
+        const int q = k / 15, j = k % 15 + 1;
+        c_ac[p][(mbi * 4 + q) * 15 + j - 1] = s.acc[p][q][c_zz[j]];
+      }
+    }
+    if (t < 16) {
+      luma_dc[mbi * 16 + t] = s.dcl16[sel][c_zz[t]];
+      i4_modes[mbi * 16 + t] = s.mode4[c_blk_y[t] * 4 + c_blk_x[t]];
+    } else if (t < 24) {
+      const int p = (t - 16) >> 2, q = (t - 16) & 3;
+      c_dc[p][mbi * 4 + q] = s.dclc[p][q];
+    } else if (t == 24) {
+      pred_mode[mbi] = sel ? 1 : 2;
+      mb_i4[mbi] = (uint8_t)use4;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int intra_frame_launch(
+    const uint8_t* y, const uint8_t* cb, const uint8_t* cr, int* luma_dc,
+    int* luma_ac, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac,
+    int* pred_mode, uint8_t* mb_i4, int* i4_modes, int* luma_i4, uint8_t* ry,
+    uint8_t* rcb, uint8_t* rcr, int nr, int nc, int qp, int qpc,
+    cudaStream_t stream) {
+  if (nr <= 0 || nc <= 0) return 0;
+  intra_frame_kernel<<<nr, NT, 0, stream>>>(
+      y, cb, cr, luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode,
+      mb_i4, i4_modes, luma_i4, ry, rcb, rcr, nc, qp, qpc);
+  return dngd_last_error();
+}

@@ -1,0 +1,166 @@
+// K3 — bit packer: a frame's CAVLC codeword slots -> the flat buffer of
+// row RBSPs (4-byte aligned) behind a metadata header of big-endian words.
+//
+// Replaces docker_nvidia_glx_desktop_tpu/ops/cavlc_device.py:629
+// pack_frame with ops/bitmerge.py slots_to_words :87, merge_pieces_dense
+// :107, merge_pieces_tree :157, the row compaction and META :681-714.
+// The bytes up to META_WORDS*4 + 4*total_words equal the reference's, and
+// the overflow flag trips at the same caps (256-bit block and MB syntax,
+// 2048-bit MB, FLAT_CAP_WORDS in all).
+//
+// What bounds it: bytes.  It reads the slot arrays once (~60 MB at 1080p)
+// and writes ~0.5 MB.  No merge tree: per-MB bit counts (one thread per
+// MB), a scan along each row (one thread per row) and over the rows (one
+// thread), then one thread per coded piece (MB syntax or 4x4 block, and
+// the slice header and stop bits of each row) OR-ing its codewords into
+// the big-endian words at their bit offsets.  Codewords never share a
+// bit, so the atomic ORs commute.
+#include "common.cuh"
+
+namespace {
+
+constexpr int BLOCKS = 27, SLOTS = 34, SYN = 20, HDR = 3;
+constexpr int PIECES = BLOCKS + 1;
+constexpr int BLOCK_CAP = 256, MB_CAP = 2048;
+constexpr int META_WORDS = 1024, MAX_META_ROWS = 510;
+constexpr int FLAT_CAP_WORDS = 1 << 17;
+constexpr int FLAT_BYTES = 4 * (META_WORDS + FLAT_CAP_WORDS);
+
+struct Scratch {
+  int* piece_off;   // [nmb * PIECES] bit offset of each piece in its MB
+  int* mb_bits;     // [nmb]
+  int* mb_off;      // [nmb] bit offset of each MB in its row
+  int* body_bits;   // [nr] header + MBs
+  int* pad;         // [nr] alignment zeros after the stop bit
+  int* row_bytes;   // [nr]
+  int* word_off;    // [nr]
+  int* flags;       // [0] overflow
+  Scratch(int* s, int nmb, int nr)
+      : piece_off(s), mb_bits(s + nmb * PIECES), mb_off(mb_bits + nmb),
+        body_bits(mb_off + nmb), pad(body_bits + nr), row_bytes(pad + nr),
+        word_off(row_bytes + nr), flags(word_off + nr) {}
+};
+
+__device__ __forceinline__ unsigned bswap(unsigned x) { return __byte_perm(x, 0, 0x0123); }
+
+__global__ void mb_bits_kernel(const int* lengths, const int* syn_lens, Scratch S, int nmb) {
+  const int mb = blockIdx.x * blockDim.x + threadIdx.x;
+  if (mb >= nmb) return;
+  bool ovf = false;
+  int bits = 0;
+  for (int k = 0; k < SYN; ++k) bits += syn_lens[mb * SYN + k];
+  ovf |= bits > BLOCK_CAP;
+  S.piece_off[mb * PIECES] = 0;
+  int off = bits;
+  for (int j = 0; j < BLOCKS; ++j) {
+    S.piece_off[mb * PIECES + 1 + j] = off;
+    int b = 0;
+    for (int k = 0; k < SLOTS; ++k) b += lengths[(mb * BLOCKS + j) * SLOTS + k];
+    ovf |= b > BLOCK_CAP;
+    off += b;
+  }
+  ovf |= off > MB_CAP;
+  S.mb_bits[mb] = off;
+  if (ovf) atomicOr(S.flags, 1);
+}
+
+__global__ void row_scan_kernel(const int* hdr_lens, Scratch S, int nr, int nc) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= nr) return;
+  int off = hdr_lens[r * HDR] + hdr_lens[r * HDR + 1] + hdr_lens[r * HDR + 2];
+  for (int c = 0; c < nc; ++c) {
+    S.mb_off[r * nc + c] = off;
+    off += S.mb_bits[r * nc + c];
+  }
+  const int pad = (8 - ((off + 1) % 8)) % 8;
+  S.body_bits[r] = off;
+  S.pad[r] = pad;
+  S.row_bytes[r] = (off + pad + 1) / 8;
+}
+
+__global__ void meta_kernel(Scratch S, uint8_t* flat, int nr) {
+  unsigned* meta = reinterpret_cast<unsigned*>(flat);
+  long long total = 0;
+  for (int r = 0; r < nr; ++r) {
+    S.word_off[r] = (int)total;
+    meta[2 + r] = bswap((unsigned)S.row_bytes[r]);
+    meta[2 + MAX_META_ROWS + r] = bswap((unsigned)total);
+    total += (S.row_bytes[r] + 3) / 4;
+  }
+  const bool ovf = S.flags[0] != 0 || total > FLAT_CAP_WORDS;
+  meta[0] = bswap(ovf ? 1u : 0u);
+  meta[1] = bswap((unsigned)total);
+}
+
+__device__ __forceinline__ void or_word(unsigned* words, long long k, unsigned x) {
+  if (x && k < FLAT_CAP_WORDS) atomicOr(words + k, bswap(x));
+}
+
+// MSB-first: the codeword's last bit lands at bit (pos + len - 1).
+__device__ void place(unsigned* words, long long pos, unsigned v, int len) {
+  const long long w = pos >> 5;
+  const int end = (int)(pos & 31) + len;
+  if (end <= 32) {
+    or_word(words, w, v << (32 - end));
+  } else {
+    or_word(words, w, v >> (end - 32));
+    or_word(words, w + 1, v << (64 - end));
+  }
+}
+
+__global__ void scatter_kernel(const int* values, const int* lengths, const int* syn_vals,
+                               const int* syn_lens, const int* hdr_vals, const int* hdr_lens,
+                               Scratch S, uint8_t* flat, int nr, int nc) {
+  unsigned* words = reinterpret_cast<unsigned*>(flat) + META_WORDS;
+  const int nmb = nr * nc;
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid < nmb * PIECES) {
+    const int mb = gid / PIECES, j = gid % PIECES, r = mb / nc;
+    long long pos = 32LL * S.word_off[r] + S.mb_off[mb] + S.piece_off[gid];
+    const int* v = j == 0 ? syn_vals + mb * SYN : values + (mb * BLOCKS + j - 1) * SLOTS;
+    const int* l = j == 0 ? syn_lens + mb * SYN : lengths + (mb * BLOCKS + j - 1) * SLOTS;
+    const int n = j == 0 ? SYN : SLOTS;
+    for (int k = 0; k < n; ++k) {
+      if (l[k] > 0) {
+        place(words, pos, (unsigned)v[k], l[k]);
+        pos += l[k];
+      }
+    }
+  } else if (gid < nmb * PIECES + nr) {
+    const int r = gid - nmb * PIECES;
+    long long pos = 32LL * S.word_off[r];
+    for (int k = 0; k < HDR; ++k) {
+      const int len = hdr_lens[r * HDR + k];
+      if (len > 0) {
+        place(words, pos, (unsigned)hdr_vals[r * HDR + k], len);
+        pos += len;
+      }
+    }
+    // rbsp trailing bits: the stop bit '1', then zeros to the byte
+    place(words, 32LL * S.word_off[r] + S.body_bits[r], 1u << S.pad[r], S.pad[r] + 1);
+  }
+}
+
+}  // namespace
+
+extern "C" int pack_frame_launch(const int* values, const int* lengths, const int* syn_vals,
+                                 const int* syn_lens, const int* hdr_vals, const int* hdr_lens,
+                                 uint8_t* flat, int* scratch, int nr, int nc,
+                                 cudaStream_t stream) {
+  const int nmb = nr * nc;
+  if (nmb <= 0 || nr > MAX_META_ROWS) return cudaErrorInvalidValue;
+  Scratch S(scratch, nmb, nr);
+  int e;
+  if ((e = cudaMemsetAsync(flat, 0, FLAT_BYTES, stream))) return e;
+  if ((e = cudaMemsetAsync(S.flags, 0, 8 * sizeof(int), stream))) return e;
+  mb_bits_kernel<<<(nmb + 127) / 128, 128, 0, stream>>>(lengths, syn_lens, S, nmb);
+  if ((e = dngd_last_error())) return e;
+  row_scan_kernel<<<(nr + 63) / 64, 64, 0, stream>>>(hdr_lens, S, nr, nc);
+  if ((e = dngd_last_error())) return e;
+  meta_kernel<<<1, 1, 0, stream>>>(S, flat, nr);
+  if ((e = dngd_last_error())) return e;
+  const int n = nmb * PIECES + nr;
+  scatter_kernel<<<(n + 127) / 128, 128, 0, stream>>>(values, lengths, syn_vals, syn_lens,
+                                                      hdr_vals, hdr_lens, S, flat, nr, nc);
+  return dngd_last_error();
+}

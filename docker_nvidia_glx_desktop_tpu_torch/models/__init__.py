@@ -1,0 +1,34 @@
+"""Codec model families (the ``WEBRTC_ENCODER`` element equivalents)."""
+
+from .base import EncodedFrame, Encoder  # noqa: F401
+from .h264 import H264Encoder, resolve_device  # noqa: F401
+
+
+def make_encoder(cfg, width: int, height: int, device=None):
+    """Codec from the config surface (WEBRTC_ENCODER + ENCODER_* knobs),
+    on the card unless ``device`` says otherwise.  Returns (encoder,
+    codec_name).  Only ``tpuh264enc`` with device entropy is ported; the
+    other codecs raise NotImplementedError."""
+    codec = cfg.codec
+    if codec == "tpuh264enc":
+        entropy = cfg.encoder_entropy
+        if entropy not in ("device", "cabac", "native", "python"):
+            raise ValueError(f"unknown ENCODER_ENTROPY {entropy!r}")
+        enc = H264Encoder(width, height, qp=cfg.encoder_qp, mode="cavlc",
+                          entropy=entropy, host_color=True,
+                          gop=cfg.encoder_gop,
+                          bitrate_kbps=cfg.encoder_bitrate_kbps,
+                          fps=cfg.refresh, deblock=True,
+                          intra_modes=cfg.encoder_intra_modes,
+                          superstep_chunk=cfg.encoder_chunk,
+                          spatial_shards=getattr(
+                              cfg, "encoder_spatial_shards", None),
+                          tune=getattr(cfg, "encoder_tune", None),
+                          device=device)
+        return enc, "h264_cavlc"
+    if codec in ("tpumjpegenc", "tpuvp8enc"):
+        raise NotImplementedError(
+            f"{codec} is not ported to the PyTorch/CUDA package yet "
+            "(ROADMAP queue 1 items 12-13)")
+    raise ValueError(f"unknown WEBRTC_ENCODER {cfg.webrtc_encoder!r} "
+                     f"(resolved: {codec!r})")

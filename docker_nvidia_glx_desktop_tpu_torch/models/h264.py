@@ -1,0 +1,578 @@
+"""H.264 encoder, all-intra device-entropy path (``gop == 1``).
+
+Per frame: cv2 (or numpy where cv2 is absent) converts RGB to padded
+BT.601 YUV 4:2:0 on the host; one submit uploads the planes and runs the
+intra core (K1, ``ops/h264_device``), the CAVLC slot coder (K2,
+``ops/cavlc_device``), the bit packer (K3, ``ops/bitmerge``) and the
+content stats (K4, ``ops/content_stats``) on the card; collect pulls a
+bucketed prefix of the flat buffer and builds the Annex-B access unit.
+A frame whose bits overflow the packer's static caps is coded on the host
+(``_encode_host_entropy``).  The bytes equal the reference encoder's
+(``docker_nvidia_glx_desktop_tpu/models/h264.py``) frame by frame.
+
+Every other setting of the reference encoder — ``gop > 1``, host or CABAC
+entropy, ``tune != "off"``, the super-step chunk ring, spatial shards,
+the damage mask, the non-default intra mode sets, device colour — raises
+NotImplementedError naming its ROADMAP item; nothing falls back quietly.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..bitstream import h264 as syn
+from ..bitstream import h264_entropy
+from ..obs import content as obsc
+from ..ops import cavlc_device, content_stats, h264_device
+from ..utils.hostcolor import rgb_to_yuv420_host
+from ..utils.mathutil import round_up
+from .base import EncodedFrame, Encoder
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; without CUDA that raises (no quiet CPU
+    fallback).  Pass ``"cpu"`` to run the plain PyTorch versions."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: pass device='cpu' to "
+                           "run the encoder's plain PyTorch path")
+    return dev
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch/CUDA encoder yet "
+        f"(ROADMAP queue 1 item {item})")
+
+
+class RateController:
+    """Leaky-bucket (VBV-style) qp control toward ENCODER_BITRATE_KBPS.
+
+    The virtual buffer drains at the target rate and fills with each
+    coded frame; qp is chosen BEFORE encoding from the buffer level plus
+    a per-frame-type size prediction (intra frames run ~3-6x a P frame:
+    exactly the burst a pure average-tracking controller lets through,
+    flooding the client at every GOP boundary or scene cut).
+
+    qp still moves on a quantized ladder within [base-6, base+18] so the
+    jit cache sees a small bounded set of distinct qp values (each
+    distinct qp is one compile of the static-qp device stage).  Size
+    prediction uses per-type EMAs normalized to base qp via the standard
+    +6-qp-halves-bits model, so a scene cut's oversized frame raises the
+    NEXT frames' qp immediately, and the pre-encode VBV check raises qp
+    for a frame the prediction says would overflow the buffer.
+    """
+
+    STEPS = (-6, -4, -2, 0, 2, 4, 6, 8, 10, 12, 14, 16, 18)
+    TARGET_FILL = 0.5           # steer the bucket toward half full
+    DRAIN_FRAMES = 30           # spread fill-error correction over ~0.5-1 s
+    MAX_INFLIGHT = 8            # > any pipeline depth; deeper = orphans
+
+    def __init__(self, base_qp: int, bitrate_kbps: int, fps: float,
+                 vbv_s: float = 0.75):
+        import collections
+
+        self.base_qp = base_qp
+        self.target_bits = bitrate_kbps * 1000.0 / max(fps, 1.0)
+        self.vbv_cap = bitrate_kbps * 1000.0 * vbv_s
+        self.level = 0.0                        # bucket fill (bits)
+        self._ema = {True: None, False: None}   # per-type, base-qp units
+        self._step_idx = self.STEPS.index(0)
+        self._avg = None                        # long-term bits/frame EMA
+        # (keyframe, step_idx) per in-flight frame: the pipelined serving
+        # loop calls qp_for(N+1) before update(N) arrives from collect
+        self._pending = collections.deque()
+        # damage-driven encode (ops/damage_mask): rolling damage
+        # fraction fed by the gating plan so a calm->spike transition
+        # can pre-empt the burst (see note_damage)
+        self._damage_ema = None
+
+    def note_damage(self, frac: float, spike: float = 0.85) -> None:
+        """Damage-plane consumer: after a long-calm stretch (the masked
+        encoder has been emitting near-empty frames, so the per-type
+        size EMAs and the VBV level have drifted toward 'P frames are
+        free'), a full-frame damage spike lands an intra-sized P burst
+        BEFORE update() can react.  Seeing the spike at SUBMIT time —
+        the damage grid is computed host-side before qp_for — lets the
+        controller take one ladder step from the NEXT frame on (a
+        pipeline-depth's worth of frames earlier than the collect-side
+        update loop would).  Rises jump the EMA
+        immediately (spike detection must not lag); decays are slow
+        (spike-recovery headroom, mirroring the capacity charge)."""
+        frac = min(max(float(frac), 0.0), 1.0)
+        prev = self._damage_ema
+        calm = prev is not None and prev < spike / 4.0
+        self._damage_ema = (frac if prev is None or frac >= prev
+                            else 0.9 * prev + 0.1 * frac)
+        if calm and frac >= spike \
+                and self._step_idx < len(self.STEPS) - 1:
+            self._step_idx += 1
+
+    def _eff_step(self, step_idx: int) -> int:
+        """The qp offset ACTUALLY applied at this ladder step after the
+        [0, 51] clamp — size scaling must use the coded qp, not the
+        nominal ladder value (base qp near either end otherwise skews the
+        EMAs by up to the full clamp distance)."""
+        return min(51, max(0, self.base_qp + self.STEPS[step_idx])) \
+            - self.base_qp
+
+    def _norm(self, bits: float, qp: float) -> float:
+        """Measured bits -> equivalent at base_qp (+6 qp halves bits)."""
+        return bits * 2.0 ** ((qp - self.base_qp) / 6.0)
+
+    def _predict(self, keyframe: bool, step_idx: int) -> float:
+        ema = self._ema[keyframe]
+        if ema is None:
+            # no sample yet: assume intra ~4x the per-frame budget
+            ema = self.target_bits * (4.0 if keyframe else 1.0)
+        return ema * 2.0 ** (-self._eff_step(step_idx) / 6.0)
+
+    def qp_for(self, keyframe: bool) -> int:
+        """qp for the NEXT frame; remembers the type for update()."""
+        idx = self._step_idx
+        # pre-encode VBV guard: this frame's allowance is the per-frame
+        # budget plus a share of the bucket's distance from its target
+        # fill — an over-full bucket (a scene cut just landed) DEMANDS
+        # under-budget frames until it drains, not merely on-budget ones.
+        allowed = max(
+            self.target_bits
+            + (self.TARGET_FILL * self.vbv_cap - self.level)
+            / self.DRAIN_FRAMES,
+            0.1 * self.target_bits)
+        while (idx < len(self.STEPS) - 1
+               and self._predict(keyframe, idx) > allowed):
+            idx += 1
+        self._pending.append((keyframe, idx))
+        # a failed encode never reaches update(), which is what pops; an
+        # entry deeper than any possible pipeline is an orphan — resync so
+        # one swallowed exception can't shift keyframe/P attribution of
+        # the size EMAs for the rest of the session
+        while len(self._pending) > self.MAX_INFLIGHT:
+            self._pending.popleft()
+        return min(51, max(0, self.base_qp + self.STEPS[idx]))
+
+    @property
+    def pending_count(self) -> int:
+        return len(self._pending)
+
+    def mark(self) -> int:
+        """Snapshot the in-flight reservation depth before an encode
+        attempt; pass to :meth:`rollback_to` if the attempt raises."""
+        return len(self._pending)
+
+    def rollback_to(self, n: int) -> None:
+        """Forget reservations made since :meth:`mark` returned ``n`` —
+        the failed attempt never reaches update(), and an orphaned entry
+        would shift keyframe/P attribution of the size EMAs for the rest
+        of the session."""
+        while len(self._pending) > n:
+            self._pending.pop()
+
+    def repeat_last_reservation(self) -> None:
+        """Duplicate the newest in-flight reservation — the super-step
+        ring stages a whole GOP-chunk at ONE qp (qp is a static jit arg,
+        so per-frame qp movement inside a chunk would recompile), and
+        each staged frame still needs its own reservation so the
+        per-frame update() pops stay aligned with keyframe/P
+        attribution."""
+        if self._pending:
+            self._pending.append(self._pending[-1])
+            while len(self._pending) > self.MAX_INFLIGHT:
+                self._pending.popleft()
+
+    def drop_oldest_pending(self) -> None:
+        """Forget the OLDEST in-flight reservation after a collect-side
+        failure — collects complete in FIFO order, so the frame that just
+        failed is the deque head.  (Submit-side failures roll back via
+        mark()/rollback_to instead: they must not pop when qp_for was
+        never reached.)"""
+        if self._pending:
+            self._pending.popleft()
+
+    @property
+    def qp(self) -> int:
+        return min(51, max(0, self.base_qp + self.STEPS[self._step_idx]))
+
+    def update(self, frame_bits: int, mean_qp: float = None) -> None:
+        """Fold a coded frame into the model.  ``mean_qp`` (tune=hq):
+        the frame's MEAN CODED qp — adaptive quantization moves the
+        coded plane away from the nominal ladder value, and the
+        +6-qp-halves-bits normalization must use what was actually
+        coded or the per-type EMAs skew by the AQ offset."""
+        import math
+
+        kf, used_idx = (self._pending.popleft() if self._pending
+                        else (True, self._step_idx))
+        used_qp = (float(mean_qp) if mean_qp is not None
+                   else self.base_qp + self._eff_step(used_idx))
+        norm = self._norm(frame_bits, used_qp)
+        prev = self._ema[kf]
+        self._ema[kf] = norm if prev is None else 0.7 * prev + 0.3 * norm
+        self.level = max(0.0, self.level + frame_bits - self.target_bits)
+
+        # long-term trend: hold the MIX (GOP-weighted average) on budget
+        self._avg = (frame_bits if self._avg is None
+                     else 0.85 * self._avg + 0.15 * frame_bits)
+        err = math.log2(max(self._avg, 1.0) / max(self.target_bits, 1.0))
+        if err > 0.25 and self._step_idx < len(self.STEPS) - 1:
+            self._step_idx += 1                 # over budget -> coarser
+        elif err < -0.25 and self._step_idx > 0:
+            self._step_idx -= 1                 # under budget -> finer
+
+
+def _pinned_prefetch(t: torch.Tensor):
+    """Start the device->host copy of a pull prefix at submit time; the
+    collect then waits on its event instead of a blocking pull."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+class H264Encoder(Encoder):
+    codec = "h264"
+
+    def __init__(self, width: int, height: int, qp: int = 26,
+                 mode: str = "cavlc", entropy: str = "device",
+                 keep_recon: bool = False, host_color: bool = True,
+                 gop: int = 1, bitrate_kbps: int = 0, fps: float = 60.0,
+                 deblock: bool = False, intra_modes: str = None,
+                 superstep_chunk: int = None, spatial_shards=None,
+                 tune: str = None, damage_mask: bool = None, device=None):
+        """Same arguments as the reference encoder, plus ``device``
+        (``None`` = the card).  Only the all-intra device-entropy path is
+        built: see the module docstring for what raises."""
+        super().__init__(width, height)
+        if mode != "cavlc":
+            raise _not_ported(f"h264 mode {mode!r}", "17")
+        if entropy == "cabac":
+            raise _not_ported("entropy='cabac'", "7")
+        if entropy != "device":
+            raise _not_ported(f"entropy={entropy!r}", "17")
+        if int(gop) > 1:
+            raise _not_ported(f"gop={gop} (P frames)", "4")
+        if intra_modes not in (None, "auto"):
+            raise _not_ported(f"intra_modes={intra_modes!r}", "17")
+        if not host_color:
+            raise _not_ported("device colour conversion", "17")
+        if tune is None:
+            tune = os.environ.get("ENCODER_TUNE", "off") or "off"
+        if tune != "off":
+            raise _not_ported(f"tune={tune!r}", "10")
+        if superstep_chunk is None:
+            superstep_chunk = int(
+                os.environ.get("ENCODER_SUPERSTEP_CHUNK", "0") or 0)
+        if int(superstep_chunk) >= 2:
+            raise _not_ported("the super-step chunk ring", "8")
+        if spatial_shards is None:
+            spatial_shards = os.environ.get("ENCODER_SPATIAL_SHARDS", "0")
+        if (str(spatial_shards).strip() or "0") not in ("0", "1", "off"):
+            raise _not_ported("spatial shards", "11")
+        if damage_mask is None:
+            damage_mask = os.environ.get("DNGD_DAMAGE_MASK", "").strip() \
+                .lower() in ("1", "true", "yes", "on")
+        if damage_mask:
+            raise _not_ported("the damage mask", "9")
+        self.device = resolve_device(device)
+        self.qp = qp
+        self.mode = mode
+        self.entropy = entropy
+        self.keep_recon = keep_recon
+        self.gop = 1
+        self.deblock = bool(deblock)
+        self._deblock_idc = 2 if self.deblock else 1
+        self.tune = self._ktune = "off"
+        self.last_recon = None
+        self.pad_w = round_up(width, 16)
+        self.pad_h = round_up(height, 16)
+        self.mb_w = self.pad_w // 16
+        self.mb_h = self.pad_h // 16
+        self._sps = syn.sps_rbsp(width, height, profile="baseline")
+        self._pps = syn.pps_rbsp(init_qp=qp, cabac=False)
+        self._hdr_slots_cache = {}
+        # lineage state carried by export_state/import_state (the GOP
+        # fields stay at their all-intra values)
+        self._frame_num = 0
+        self._gop_pos = 0
+        self._force_idr = False
+        self._idr_count = 0
+        self._rate = (RateController(qp, bitrate_kbps, fps)
+                      if bitrate_kbps > 0 else None)
+        self.degrade_qp_offset = 0
+        # recent pull sizes -> decaying max: the pull prefix must cover
+        # the largest recent frame, or a mispredict costs a second pull
+        self._pull_hist = collections.deque(maxlen=8)
+        self._pull_guess = None
+        self._p_pull_guess = None
+        # content plane: previous ingest luma, per-frame stats handles
+        # keyed by frame index, the last collected frame's stats dict
+        self._content_prev_y = None
+        self._content_last = None
+        self._content_pending = {}
+        self._content_meta = None
+        self._content_n = 0
+
+    def headers(self) -> bytes:
+        return (syn.nal_unit(syn.NAL_SPS, self._sps)
+                + syn.nal_unit(syn.NAL_PPS, self._pps))
+
+    # -- content & quality telemetry -----------------------------------
+
+    def _content_submit(self, y: torch.Tensor) -> None:
+        """Launch the stats kernel for one frame; sets ``_content_last``
+        to a device-handle dict (None when disabled or cadence-skipped).
+        A kernel fault raises and fails the frame."""
+        self._content_last = None
+        if not obsc.enabled():
+            self._content_prev_y = None
+            return
+        self._content_n += 1
+        prev = self._content_prev_y
+        # the previous ingest advances even on skipped frames, so damage
+        # stays strictly frame-to-frame
+        self._content_prev_y = y
+        if (self._content_n - 1) % obsc.sample_every():
+            return
+        # the first ingest has no reference: self-diff so activity still
+        # lands, and null the damage fields at finish
+        first = prev is None or tuple(prev.shape) != tuple(y.shape)
+        vec, grid = content_stats.frame_stats(
+            y, y if first else prev, obsc.damage_thr_sad())
+        self._content_last = {"vec": vec, "grid": grid,
+                              "frame_type": "intra", "first": first}
+
+    def _content_stash(self, idx: int) -> None:
+        h = self._content_last
+        self._content_last = None
+        if h is not None:
+            if len(self._content_pending) > 32:
+                self._content_pending.clear()
+            self._content_pending[idx] = h
+
+    def _content_finish(self, token, data: bytes) -> None:
+        self._content_meta = None
+        if not obsc.enabled():
+            return
+        h = self._content_pending.pop(token[1], None)
+        if h is None:
+            return
+        stats = content_stats.vec_to_stats(h["vec"].cpu().numpy(),
+                                           h["grid"].cpu().numpy(),
+                                           self.pad_h * self.pad_w)
+        if h["first"]:
+            stats["damage_fraction"] = None
+            stats["damage_grid"] = None
+        if stats.get("mode") is None and stats.get("mbs"):
+            # intra frames carry no mode tensors: every MB is intra
+            stats["mode"] = {"skip": 0.0, "inter": 0.0, "intra": 1.0}
+        stats["frame_type"] = h["frame_type"]
+        stats["au_bytes"] = len(data)
+        stats["tier"] = self._ktune
+        self._content_meta = stats
+
+    def pop_content_stats(self):
+        """Content stats of the LAST collected frame (cleared by the pop)."""
+        m = self._content_meta
+        self._content_meta = None
+        return m
+
+    # -- device entropy path -------------------------------------------
+
+    # Pull granularity for the flat buffer (64 KiB prefix buckets).
+    _PULL_BUCKET = 1 << 16
+
+    def _host_yuv420(self, rgb):
+        """Padded (y, cb, cr) uint8 planes from the host converter: cv2
+        where present, numpy where not."""
+        h, w = rgb.shape[:2]
+        if h % 2 or w % 2:
+            raise _not_ported("odd frame geometry (device colour)", "17")
+        return rgb_to_yuv420_host(rgb, self.pad_h, self.pad_w,
+                                  float_fallback=True)
+
+    def _eff_qp(self) -> int:
+        qp = self.qp if self._rate is None else self._rate.qp_for(True)
+        off = self.degrade_qp_offset
+        return min(51, max(0, qp + off)) if off else qp
+
+    def _hdr_slots(self, idr_pic_id: int, qp_delta: int = 0):
+        key = (0, idr_pic_id, qp_delta)  # (frame_num, idr_pic_id, qp_delta)
+        slots = self._hdr_slots_cache.get(key)
+        if slots is None:
+            hv, hl = cavlc_device.slice_header_slots(
+                self.mb_h, self.mb_w, frame_num=key[0], idr_pic_id=key[1],
+                qp_delta=qp_delta, deblocking_idc=self._deblock_idc)
+            slots = (torch.from_numpy(hv.view(np.int32)).to(self.device),
+                     torch.from_numpy(hl).to(self.device))
+            self._hdr_slots_cache[key] = slots
+        return slots
+
+    def _upload(self, planes):
+        return tuple(torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
+                     for p in planes)
+
+    def _submit_device(self, rgb, idr_pic_id: int):
+        """Launch the device stage without waiting for it."""
+        qp = self._eff_qp()
+        hv, hl = self._hdr_slots(idr_pic_id, qp_delta=qp - self.qp)
+        planes = self._host_yuv420(rgb)
+        y, cb, cr = self._upload(planes)
+        levels = h264_device.encode_intra_frame_yuv(y, cb, cr, qp)
+        flat = cavlc_device.pack_frame(
+            *cavlc_device.frame_block_slots(levels), hv, hl)
+        self._content_submit(y)
+        recon = None
+        if self.keep_recon:
+            recon = tuple(levels[k].cpu().numpy()
+                          for k in ("recon_y", "recon_cb", "recon_cr"))
+        guess = self._pull_guess or 4 * self._PULL_BUCKET
+        prefix = _pinned_prefetch(flat[:cavlc_device.META_WORDS * 4 + guess])
+        return (rgb, idr_pic_id, qp, planes, flat, prefix, recon)
+
+    def _collect_device(self, submitted) -> bytes:
+        """Wait for the device stage and assemble the Annex-B access unit."""
+        rgb, idr_pic_id, qp, planes, flat, (prefix, ev), recon = submitted
+        if recon is not None:
+            self.last_recon = recon
+        if ev is not None:
+            ev.synchronize()
+        base = cavlc_device.META_WORDS * 4
+        buf = prefix.numpy()
+        meta = cavlc_device.FlatMeta(buf, self.mb_h)
+        if meta.overflow:
+            # reuse the exact device inputs (planes + rate-controlled qp)
+            return self._encode_host_entropy(idr_pic_id, planes, qp)
+        need = 4 * meta.total_words
+        bucket = self._PULL_BUCKET
+        self._pull_hist.append(need)
+        self._pull_guess = -(-max(self._pull_hist) // bucket) * bucket
+        if need > len(buf) - base:
+            extra = -(-need // bucket) * bucket
+            buf = flat[:base + extra].cpu().numpy()
+        return cavlc_device.assemble_annexb(buf, meta, headers=self.headers())
+
+    def _encode_host_entropy(self, idr_pic_id: int, planes, qp: int) -> bytes:
+        """Overflow fallback: the intra core again on the same planes and
+        qp, then the Python CAVLC coder on the host."""
+        levels = h264_device.encode_intra_frame_yuv(*self._upload(planes), qp)
+        if self.keep_recon:
+            self.last_recon = tuple(levels[k].cpu().numpy()
+                                    for k in ("recon_y", "recon_cb",
+                                              "recon_cr"))
+        levels = {k: v.cpu().numpy() for k, v in levels.items()
+                  if not k.startswith("recon")}
+        return h264_entropy.encode_intra_picture(
+            levels, frame_num=0, idr_pic_id=idr_pic_id,
+            sps=self._sps, pps=self._pps, with_headers=True,
+            qp_delta=qp - self.qp, deblocking_idc=self._deblock_idc,
+            qp_map=None, slice_qp=qp)
+
+    def request_keyframe(self) -> None:
+        """Every frame of the all-intra path is an IDR already."""
+        self._force_idr = True
+
+    # -- checkpoint/restore --------------------------------------------
+
+    def export_state(self) -> dict:
+        """Host-side stream lineage (schema ``models/base.CKPT_SCHEMA``):
+        the reference encoder's keys, so either side imports the other's."""
+        st = super().export_state()
+        st.update({
+            "gop_pos": self._gop_pos,
+            "frame_num": self._frame_num,
+            "idr_count": self._idr_count,
+            "qp_offset": self.degrade_qp_offset,
+            "pull_guess": self._pull_guess,
+            "p_pull_guess": self._p_pull_guess,
+        })
+        if self._rate is not None:
+            st["rate"] = {
+                "level": self._rate.level,
+                "ema_key": self._rate._ema[True],
+                "ema_p": self._rate._ema[False],
+                "step_idx": self._rate._step_idx,
+                "avg": self._rate._avg,
+            }
+        return st
+
+    def import_state(self, state: dict) -> None:
+        super().import_state(state)        # geometry check + force IDR
+        self._gop_pos = int(state.get("gop_pos", 0))
+        self._frame_num = int(state.get("frame_num", 0))
+        self._idr_count = int(state.get("idr_count", 0))
+        self.degrade_qp_offset = int(state.get("qp_offset", 0))
+        if state.get("pull_guess"):
+            self._pull_guess = int(state["pull_guess"])
+        if state.get("p_pull_guess"):
+            self._p_pull_guess = int(state["p_pull_guess"])
+        rate = state.get("rate")
+        if rate is not None and self._rate is not None:
+            self._rate.level = float(rate["level"])
+            self._rate._ema[True] = rate["ema_key"]
+            self._rate._ema[False] = rate["ema_p"]
+            self._rate._step_idx = int(rate["step_idx"])
+            self._rate._avg = rate["avg"]
+            self._rate._pending.clear()    # in-flight frames are gone
+
+    # -- entry points ----------------------------------------------------
+
+    def encode(self, rgb) -> EncodedFrame:
+        t0 = time.perf_counter()
+        n0 = self._rate.mark() if self._rate is not None else 0
+        try:
+            data = self._collect_device(
+                self._submit_device(rgb, self.frame_index % 2))
+        except Exception:
+            if self._rate is not None:
+                self._rate.rollback_to(n0)
+            raise
+        if self._rate is not None:
+            self._rate.update(len(data) * 8)
+        ms = (time.perf_counter() - t0) * 1e3
+        ef = EncodedFrame(data=data, keyframe=True,
+                          frame_index=self.frame_index, codec=self.codec,
+                          width=self.width, height=self.height, encode_ms=ms)
+        self.frame_index += 1
+        return ef
+
+    def encode_submit(self, rgb):
+        """Start encoding a frame; returns an opaque token.  The device
+        work runs while the caller prepares the next frame."""
+        idx = self.frame_index
+        self.frame_index += 1
+        t0 = time.perf_counter()
+        n0 = self._rate.mark() if self._rate is not None else 0
+        try:
+            sub = self._submit_device(rgb, idx % 2)
+        except Exception:
+            if self._rate is not None:
+                self._rate.rollback_to(n0)
+            self._force_idr = True
+            raise
+        self._content_stash(idx)
+        return ("intra", idx, t0, True, sub)
+
+    def encode_collect(self, token) -> EncodedFrame:
+        kind, idx, t0, key, payload = token
+        try:
+            data = self._collect_device(payload)
+        except Exception:
+            if self._rate is not None:
+                self._rate.drop_oldest_pending()
+            self._force_idr = True
+            raise
+        if self._rate is not None:
+            self._rate.update(len(data) * 8)
+        self._content_finish(token, data)
+        ms = (time.perf_counter() - t0) * 1e3
+        return EncodedFrame(data=data, keyframe=key, frame_index=idx,
+                            codec=self.codec, width=self.width,
+                            height=self.height, encode_ms=ms)

@@ -1,0 +1,111 @@
+"""Build and call the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for
+``sm_90a`` into ``build/lib<name>.so`` beside the package (git-ignored)
+and loaded with ``ctypes``.  Every entry point has a plain C interface:
+device pointers, then ints, then the CUDA stream, and returns a
+``cudaError_t`` (0 = launched).  Nothing is built when the package is
+imported: a machine without ``nvcc`` or a card imports and tests the
+plain PyTorch versions only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+KERNEL_SOURCES = ("intra", "cavlc", "pack", "content")
+
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _paths(name: str):
+    return (os.path.join(CSRC, f"{name}.cu"),
+            os.path.join(BUILD, f"lib{name}.so"))
+
+
+def _stale(name: str) -> bool:
+    """No library yet, or one older than any source (the header too)."""
+    out = _paths(name)[1]
+    return not os.path.exists(out) or os.path.getmtime(out) < max(
+        os.path.getmtime(os.path.join(CSRC, f)) for f in os.listdir(CSRC))
+
+
+def build(names=KERNEL_SOURCES, verbose: bool = False) -> dict:
+    """Compile the stale sources, one ``nvcc`` per source, all at once.
+    Returns {name: compiler output}; raises if any build fails."""
+    os.makedirs(BUILD, exist_ok=True)
+    procs = {}
+    for name in names:
+        if not _stale(name):
+            continue
+        src, out = _paths(name)
+        cmd = [nvcc()] + _NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
+            + ["-o", out + ".tmp", src]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       out)
+    logs, failed = {}, []
+    for name, (p, out) in procs.items():
+        logs[name] = p.communicate()[0]
+        if p.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(out + ".tmp", out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            if _stale(name):
+                build((name,))
+            lib = ctypes.CDLL(_paths(name)[1])
+            lib.dngd_error_string.restype = ctypes.c_char_p
+            lib.dngd_error_string.argtypes = [ctypes.c_int]
+            _libs[name] = lib
+        return lib
+
+
+def launch(lib_name: str, fn_name: str, tensors, ints, device) -> None:
+    """Call ``fn_name(ptrs..., ints..., stream)`` of ``lib<lib_name>.so``
+    on the current stream of ``device``; raises on a non-zero return."""
+    for t in tensors:
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{fn_name}: every tensor must be contiguous "
+                             f"on {device}")
+    lib = library(lib_name)
+    fn = getattr(lib, fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * len(tensors)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(*[t.data_ptr() for t in tensors], *[int(i) for i in ints],
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {err} "
+                           f"({lib.dngd_error_string(err).decode()})")

@@ -1,0 +1,135 @@
+"""Bit packer (K3): a frame's CAVLC codeword slots -> one flat buffer of
+row RBSPs with a metadata header.
+
+Replaces the reference's ``ops/cavlc_device.py`` ``pack_frame`` and the
+``ops/bitmerge.py`` hierarchy it runs (``slots_to_words``,
+``merge_pieces_dense``, ``merge_pieces_tree``, row compaction, META).
+Only the output bytes carry over, not the TPU's scatter-free merge tree:
+every codeword's bit offset is a prefix sum of the slot lengths along its
+row, and the codeword is OR-ed into the row's words at that offset.
+
+The flat buffer is META_WORDS big-endian uint32 words — [0] overflow flag,
+[1] total_words, [2:2+R] row bytes, [2+MAX_META_ROWS:...+R] row word
+offsets, [META_QP_SUM_WORD] summed per-MB qp (0 under tune=off) — then
+the rows' RBSPs, each starting on a 4-byte boundary, capped at
+FLAT_CAP_WORDS words.  The overflow flag trips where the reference's
+static caps do: a block or the MB syntax above 256 bits, an MB above
+2048 bits, or more than FLAT_CAP_WORDS words in all; the caller then
+codes the frame on the host.  Past ``META_WORDS*4 + 4*total_words`` the
+buffer is zero.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+
+BLOCK_CAP_BITS = 256      # reference L1 buffer: 8 words per block
+MB_CAP_BITS = 2048        # reference L2 buffer: 64 words per MB
+META_WORDS = 1024
+MAX_META_ROWS = 510
+META_QP_SUM_WORD = 2 + 2 * MAX_META_ROWS          # = 1022 < META_WORDS
+FLAT_CAP_WORDS = 1 << 17  # 512 KiB bitstream cap
+FLAT_BYTES = 4 * (META_WORDS + FLAT_CAP_WORDS)
+
+
+def _be_bytes(words: torch.Tensor) -> torch.Tensor:
+    """int64 words (< 2^32) -> big-endian uint8 bytes."""
+    b = torch.stack([(words >> 24) & 0xFF, (words >> 16) & 0xFF,
+                     (words >> 8) & 0xFF, words & 0xFF], dim=-1)
+    return b.reshape(-1).to(torch.uint8)
+
+
+def pack_frame_plain(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens):
+    """Plain PyTorch version of K3.  Slot values are placed at the prefix
+    sum of the lengths before them; OR equals ADD because the codewords
+    of a row never share a bit."""
+    dev = values.device
+    nr, nc = syn_vals.shape[:2]
+    lengths = lengths.long()
+    syn_lens = syn_lens.long()
+    hdr_lens = hdr_lens.long()
+    blk_bits = lengths.sum(dim=3)                           # (R, C, 27)
+    syn_bits = syn_lens.sum(dim=2)                          # (R, C)
+    mb_bits = syn_bits + blk_bits.sum(dim=2)
+    hdr_bits = hdr_lens.sum(dim=1)
+    body_bits = hdr_bits + mb_bits.sum(dim=1)
+    pad = (8 - ((body_bits + 1) % 8)) % 8
+    row_bytes = (body_bits + pad + 1) // 8
+    row_words = (row_bytes + 3) // 4
+    word_off = row_words.cumsum(dim=0) - row_words
+    total_words = row_words.sum()
+    overflow = ((blk_bits > BLOCK_CAP_BITS).any()
+                | (syn_bits > BLOCK_CAP_BITS).any()
+                | (mb_bits > MB_CAP_BITS).any()
+                | (total_words > FLAT_CAP_WORDS))
+
+    # every slot of a row in stream order: header, then per MB its syntax
+    # and 27 blocks, then the rbsp stop bit and alignment zeros
+    trail_v = (1 << pad)[:, None]
+    trail_l = (pad + 1)[:, None]
+    vals = torch.cat([hdr_vals.long() & 0xFFFFFFFF,
+                      torch.cat([syn_vals.long(),
+                                 values.long().reshape(nr, nc, -1)], dim=2
+                                ).reshape(nr, -1), trail_v], dim=1)
+    lens = torch.cat([hdr_lens, torch.cat([syn_lens, lengths.reshape(nr, nc, -1)],
+                                          dim=2).reshape(nr, -1), trail_l], dim=1)
+    pos = lens.cumsum(dim=1) - lens + 32 * word_off[:, None]
+    live = lens > 0
+    pos, lens, vals = pos[live], lens[live], vals[live]
+    w = pos >> 5
+    end = (pos & 31) + lens
+    hi = torch.where(end > 32, vals >> (end - 32).clamp(min=0),
+                     (vals << (32 - end).clamp(min=0)) & 0xFFFFFFFF)
+    lo = torch.where(end > 32, (vals << (64 - end).clamp(max=63)) & 0xFFFFFFFF, 0)
+    words = torch.zeros(FLAT_CAP_WORDS + 1, dtype=torch.int64, device=dev)
+    for idx, part in ((w, hi), (w + 1, lo)):
+        keep = idx < FLAT_CAP_WORDS
+        words.index_add_(0, idx[keep], part[keep])
+
+    meta = torch.zeros(META_WORDS, dtype=torch.int64, device=dev)
+    meta[0] = overflow.long()
+    meta[1] = total_words
+    meta[2:2 + nr] = row_bytes
+    meta[2 + MAX_META_ROWS:2 + MAX_META_ROWS + nr] = word_off
+    return _be_bytes(torch.cat([meta, words[:FLAT_CAP_WORDS]]))
+
+
+def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens):
+    """Codeword slots -> flat uint8 buffer of FLAT_BYTES (see module doc).
+
+    values/lengths (R, C, 27, 34), syn_vals/syn_lens (R, C, 20), hdr_vals/
+    hdr_lens (R, 3), all int32 (values are the uint32 bit patterns).  CUDA
+    tensors launch the packer: per-MB bit counts and overflow checks, a
+    scan along each row and over the rows, then one thread per coded
+    piece OR-ing its codewords into the big-endian words at their bit
+    offsets.  CPU tensors run the plain version."""
+    nr, nc = syn_vals.shape[:2]
+    dev = values.device
+    want = {"values": (values, (nr, nc, 27, 34)),
+            "lengths": (lengths, (nr, nc, 27, 34)),
+            "syn_vals": (syn_vals, (nr, nc, 20)),
+            "syn_lens": (syn_lens, (nr, nc, 20)),
+            "hdr_vals": (hdr_vals, (nr, 3)), "hdr_lens": (hdr_lens, (nr, 3))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape or t.dtype != torch.int32 or t.device != dev:
+            raise ValueError(f"{name}: want {shape} int32 on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if nr > MAX_META_ROWS:
+        raise ValueError(f"{nr} MB rows exceed the metadata header's "
+                         f"{MAX_META_ROWS}")
+    if dev.type == "cpu":
+        return pack_frame_plain(values, lengths, syn_vals, syn_lens,
+                                hdr_vals, hdr_lens)
+    flat = torch.empty(FLAT_BYTES, dtype=torch.uint8, device=dev)
+    scratch = torch.empty(nr * nc * 30 + 4 * nr + 8, dtype=torch.int32,
+                          device=dev)
+    _cuda.launch("pack", "pack_frame_launch",
+                 [values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
+                  flat, scratch], [nr, nc], dev)
+    pack_frame.launches += 1
+    return flat
+
+
+pack_frame.launches = 0

@@ -1,0 +1,202 @@
+"""Content statistics of one frame on the device (K4): the per-MB
+damage grid and count against the previous ingest luma, and the
+``mb_activity`` percentiles p50/p95.
+
+Replaces the reference's ``ops/content_stats.py`` ``frame_stats`` ->
+``_frame_vec`` on the path where no recon, MV field or residual is in
+reach (the all-intra encoder), so the vector is ``[-1, n_damage, -1, -1,
+-1, -1, -1, act_p50, act_p95, R*C]``.  The stats never feed back into the
+encode.  :func:`frame_stats` runs ``csrc/content.cu`` for CUDA tensors and
+:func:`frame_stats_plain` for CPU tensors; :func:`frame_stats_np` is the
+host oracle (float64).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import _cuda
+from .aq import mb_activity
+
+__all__ = ["VEC_LEN", "frame_stats", "frame_stats_plain", "frame_stats_np",
+           "mb_activity_np", "psnr_from_sse", "vec_to_stats"]
+
+# stats-vector slot layout (float32; -1.0 marks "not computed")
+VEC_LEN = 10
+IDX_SSE = 0        # luma SSE vs recon (-1 = no recon in reach)
+IDX_DAMAGE = 1     # damaged-MB count (-1 = no previous ingest)
+IDX_SKIP = 2       # skip-proxy MB count (-1 = no mode info)
+IDX_INTER = 3      # coded inter MB count
+IDX_INTRA = 4      # intra MB count
+IDX_MV_MEAN = 5    # mean |MV|, quarter-pel (-1 = no MV field)
+IDX_MV_P95 = 6     # p95 |MV|, quarter-pel
+IDX_ACT_P50 = 7    # ops/aq.mb_activity p50
+IDX_ACT_P95 = 8    # ops/aq.mb_activity p95
+IDX_MBS = 9        # macroblock count (denominator, sanity echo)
+
+# the activity sort runs in one CUDA block's shared memory
+MAX_MBS = 1 << 15
+
+
+def _percentiles_f32(act: torch.Tensor) -> torch.Tensor:
+    """p50 and p95 of int activity values, as jnp.percentile's linear
+    interpolation computes them in float32: q/100*(n-1), floor/ceil
+    neighbours, low*(1-w) + high*w."""
+    a = torch.sort(act.reshape(-1).to(torch.float32)).values
+    n = a.shape[0]
+    q = torch.tensor([50.0, 95.0], dtype=torch.float32, device=a.device)
+    q = (q / 100.0) * float(n - 1)
+    low, high = torch.floor(q), torch.ceil(q)
+    hw = q - low
+    lw = 1.0 - hw
+    lo_v = a[low.clamp(0, n - 1).long()]
+    hi_v = a[high.clamp(0, n - 1).long()]
+    return lo_v * lw + hi_v * hw
+
+
+def frame_stats_plain(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int):
+    """Plain PyTorch version of K4: (vec float32 (10,), grid uint8 (R, C))."""
+    h, w = y.shape
+    r, c = h // 16, w // 16
+    d = (y.to(torch.int32) - prev_y.to(torch.int32)).abs()
+    sad = d.reshape(r, 16, c, 16).sum(dim=(1, 3), dtype=torch.int32)
+    grid = (sad > thr_sad).to(torch.uint8)
+    vec = torch.full((VEC_LEN,), -1.0, dtype=torch.float32, device=y.device)
+    vec[IDX_DAMAGE] = grid.sum(dtype=torch.int32).to(torch.float32)
+    vec[IDX_ACT_P50:IDX_ACT_P95 + 1] = _percentiles_f32(mb_activity(y))
+    vec[IDX_MBS] = float(r * c)
+    return vec, grid
+
+
+def frame_stats(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int):
+    """Per-frame stats of an intra frame: ``(vec, grid)``, ``vec`` float32
+    ``(VEC_LEN,)`` and ``grid`` uint8 ``(R, C)`` (1 = the MB's summed
+    abs diff against ``prev_y`` exceeds ``thr_sad``).
+
+    CUDA tensors launch the kernel: one warp per MB for the damage SAD and
+    the activity sums, then one block sorting the activity values in
+    shared memory for the percentiles.  CPU tensors run the plain
+    version."""
+    if y.dtype != torch.uint8 or prev_y.dtype != torch.uint8:
+        raise TypeError("luma planes must be uint8")
+    if y.dim() != 2 or y.shape != prev_y.shape or y.shape[0] % 16 \
+            or y.shape[1] % 16:
+        raise ValueError("luma planes must be equal MB-aligned 2-D planes")
+    if y.device != prev_y.device:
+        raise ValueError("luma planes must share one device")
+    r, c = y.shape[0] // 16, y.shape[1] // 16
+    if y.device.type == "cpu":
+        return frame_stats_plain(y, prev_y, int(thr_sad))
+    if r * c > MAX_MBS:
+        raise ValueError(f"{r * c} MBs exceed the kernel's {MAX_MBS}")
+    vec = torch.empty(VEC_LEN, dtype=torch.float32, device=y.device)
+    grid = torch.empty((r, c), dtype=torch.uint8, device=y.device)
+    scratch = torch.empty(r * c + 1, dtype=torch.int32, device=y.device)
+    _cuda.launch("content", "frame_stats_launch",
+                 [y.contiguous(), prev_y.contiguous(), vec, grid, scratch],
+                 [r, c, int(thr_sad)], y.device)
+    frame_stats.launches += 1
+    return vec, grid
+
+
+frame_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# numpy oracle and host-side decoding (copied from the reference)
+# ---------------------------------------------------------------------------
+
+def mb_activity_np(y: np.ndarray) -> np.ndarray:
+    """Numpy twin of :func:`ops.aq.mb_activity` (int32-exact)."""
+    yi = np.asarray(y, np.int64)
+    h, w = yi.shape
+    t = yi.reshape(h // 16, 16, w // 16, 16)
+    s = t.sum(axis=(1, 3))
+    s2 = (t * t).sum(axis=(1, 3))
+    return np.maximum(256 * s2 - s * s, 0).astype(np.int64)
+
+
+def frame_stats_np(y, prev_y=None, recon_y=None, mv=None, resid=(),
+                   mb_intra=None, thr_sad: int = 512
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host oracle of :func:`frame_stats` — same vector layout, same
+    -1 sentinels, float64 accumulation (the tolerance the device's
+    float32 SSE sum is tested against)."""
+    y = np.asarray(y)
+    h, w = y.shape
+    r, c = h // 16, w // 16
+    vec = np.full(VEC_LEN, -1.0, np.float64)
+    vec[IDX_MBS] = r * c
+    if prev_y is not None:
+        d = np.abs(y.astype(np.int64) - np.asarray(prev_y, np.int64))
+        sad = d.reshape(r, 16, c, 16).sum(axis=(1, 3))
+        grid = (sad > thr_sad).astype(np.uint8)
+        vec[IDX_DAMAGE] = float(grid.sum())
+    else:
+        grid = np.zeros((r, c), np.uint8)
+    if recon_y is not None:
+        d = y.astype(np.int64) - np.asarray(recon_y, np.int64)
+        vec[IDX_SSE] = float((d * d).sum())
+    if mv is not None:
+        m = np.asarray(mv, np.float64)
+        mag = np.sqrt((m * m).sum(axis=-1)).reshape(-1)
+        vec[IDX_MV_MEAN] = float(mag.mean())
+        vec[IDX_MV_P95] = float(np.percentile(mag, 95.0))
+    if mv is not None and len(resid):
+        coded = np.zeros((r, c), bool)
+        for t in resid:
+            coded |= (np.asarray(t).reshape(r, c, -1) != 0).any(axis=-1)
+        zero_mv = (np.asarray(mv) == 0).all(axis=-1)
+        intra = (np.asarray(mb_intra, bool) if mb_intra is not None
+                 else np.zeros((r, c), bool))
+        vec[IDX_INTRA] = float(intra.sum())
+        vec[IDX_SKIP] = float(((~coded) & zero_mv & (~intra)).sum())
+        vec[IDX_INTER] = r * c - vec[IDX_INTRA] - vec[IDX_SKIP]
+    act = mb_activity_np(y).astype(np.float64).reshape(-1)
+    vec[IDX_ACT_P50] = float(np.percentile(act, 50.0))
+    vec[IDX_ACT_P95] = float(np.percentile(act, 95.0))
+    return vec, grid
+
+
+# ---------------------------------------------------------------------------
+# host-side decoding of the stats vector
+# ---------------------------------------------------------------------------
+
+def psnr_from_sse(sse: float, npix: int) -> Optional[float]:
+    """Luma PSNR in dB from a summed SSE; None when the sentinel says
+    no recon was in reach, 99.0 on an exact match (ops/aq convention)."""
+    if sse is None or sse < 0:
+        return None
+    if sse <= 0:
+        return 99.0
+    return float(10.0 * np.log10(255.0 * 255.0 * npix / sse))
+
+
+def vec_to_stats(vec: np.ndarray, grid: np.ndarray, npix: int) -> dict:
+    """Decode one fetched stats vector + grid into the plain dict the
+    content plane records (None for the -1 'not computed' slots)."""
+    vec = np.asarray(vec, np.float64)
+    mbs = max(int(vec[IDX_MBS]), 1)
+    out = {
+        "psnr_db": psnr_from_sse(float(vec[IDX_SSE]), npix),
+        "damage_fraction": (float(vec[IDX_DAMAGE]) / mbs
+                            if vec[IDX_DAMAGE] >= 0 else None),
+        "damage_grid": np.asarray(grid, np.uint8),
+        "mv_mean_qpel": (float(vec[IDX_MV_MEAN])
+                         if vec[IDX_MV_MEAN] >= 0 else None),
+        "mv_p95_qpel": (float(vec[IDX_MV_P95])
+                        if vec[IDX_MV_P95] >= 0 else None),
+        "act_p50": float(vec[IDX_ACT_P50]),
+        "act_p95": float(vec[IDX_ACT_P95]),
+        "mbs": mbs,
+    }
+    if vec[IDX_SKIP] >= 0:
+        out["mode"] = {"skip": float(vec[IDX_SKIP]) / mbs,
+                       "inter": float(vec[IDX_INTER]) / mbs,
+                       "intra": float(vec[IDX_INTRA]) / mbs}
+    else:
+        out["mode"] = None
+    return out

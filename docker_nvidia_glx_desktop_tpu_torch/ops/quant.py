@@ -1,0 +1,110 @@
+"""H.264 integer quant/dequant (JM/x264 MF/V fixed point; spec §8.5) on
+int32 tensors, for one slice qp (the tune=off path):
+
+    level  = sign(w) * ((|w| * MF[qp%6] + f) >> qbits),   qbits = 15 + qp//6
+    w'     = level * V[qp%6] << (qp//6)                    (AC dequant)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# MF (multiplication factor) per qp%6, by coefficient position class:
+#   a: (0,0),(0,2),(2,0),(2,2)   b: (1,1),(1,3),(3,1),(3,3)   c: others
+_MF_A = np.array([13107, 11916, 10082, 9362, 8192, 7282], dtype=np.int32)
+_MF_B = np.array([5243, 4660, 4194, 3647, 3355, 2893], dtype=np.int32)
+_MF_C = np.array([8066, 7490, 6554, 5825, 5243, 4559], dtype=np.int32)
+
+# V (dequant scale) per qp%6, same position classes.
+_V_A = np.array([10, 11, 13, 14, 16, 18], dtype=np.int32)
+_V_B = np.array([16, 18, 20, 23, 25, 29], dtype=np.int32)
+_V_C = np.array([13, 14, 16, 18, 20, 23], dtype=np.int32)
+
+
+def _position_table(vec_a, vec_b, vec_c) -> np.ndarray:
+    """(6, 4, 4) table from the three position-class vectors."""
+    i = np.arange(4)[:, None] % 2
+    j = np.arange(4)[None, :] % 2
+    cls = np.where((i == 0) & (j == 0), 0, np.where((i == 1) & (j == 1), 1, 2))
+    return np.stack([vec_a, vec_b, vec_c])[cls].transpose(2, 0, 1).copy()
+
+
+MF_TABLE = _position_table(_MF_A, _MF_B, _MF_C)   # (6, 4, 4)
+V_TABLE = _position_table(_V_A, _V_B, _V_C)       # (6, 4, 4)
+
+# Chroma QP mapping for QPy 30..51 (below 30, QPc == QPy).  Spec Table 8-15.
+_QPC_HIGH = np.array(
+    [29, 30, 31, 32, 32, 33, 34, 34, 35, 35, 36, 36, 37, 37, 37, 38, 38, 38, 39, 39, 39, 39],
+    dtype=np.int32,
+)
+
+
+def chroma_qp(qp_y: int, chroma_qp_index_offset: int = 0) -> int:
+    q = int(np.clip(qp_y + chroma_qp_index_offset, 0, 51))
+    return q if q < 30 else int(_QPC_HIGH[q - 30])
+
+
+def _table(tab: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(tab, dtype=torch.int32, device=like.device)
+
+
+def _signed(w: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
+    return (torch.sign(w) * level).to(torch.int32)
+
+
+def h264_quantize_4x4(coefs: torch.Tensor, qp: int,
+                      intra: bool = True) -> torch.Tensor:
+    """Quantize core-transform coefficients, trailing dims (4, 4)."""
+    w = coefs.to(torch.int32)
+    qbits = 15 + qp // 6
+    f = (1 << qbits) // 3 if intra else (1 << qbits) // 6
+    level = (w.abs() * _table(MF_TABLE[qp % 6], w) + f) >> qbits
+    return _signed(w, level)
+
+
+def h264_dequantize_4x4(levels: torch.Tensor, qp: int) -> torch.Tensor:
+    """Dequantize 4x4 AC levels per spec §8.5.12.1 (no rounding)."""
+    lv = levels.to(torch.int32)
+    return (lv * _table(V_TABLE[qp % 6], lv)) << (qp // 6)
+
+
+def h264_quantize_luma_dc(dc_hadamard: torch.Tensor, qp: int) -> torch.Tensor:
+    """Quantize the 4x4 Hadamard-transformed luma DC block (JM convention:
+    MF[qp%6][0,0] with an extra >>1 of headroom, qbits + 1)."""
+    w = dc_hadamard.to(torch.int32)
+    qbits = 15 + qp // 6
+    f = (1 << qbits) // 3
+    level = (w.abs() * int(_MF_A[qp % 6]) + 2 * f) >> (qbits + 1)
+    return _signed(w, level)
+
+
+def h264_dequantize_luma_dc(levels: torch.Tensor, qp: int) -> torch.Tensor:
+    """Dequantize luma DC *after* the inverse Hadamard (spec §8.5.10).
+
+    dcY = (f * V00 << (qp//6)) >> 2         if qp >= 12
+        = (f * V00 + 2^(1 - qp//6)) >> (2 - qp//6)   otherwise
+    """
+    f = levels.to(torch.int32)
+    v00 = int(_V_A[qp % 6])
+    if qp >= 12:
+        return (f * v00) << (qp // 6 - 2)
+    shift = 2 - qp // 6
+    return (f * v00 + (1 << (shift - 1))) >> shift
+
+
+def h264_quantize_chroma_dc(dc_hadamard: torch.Tensor, qp_c: int,
+                            intra: bool = True) -> torch.Tensor:
+    """Quantize the 2x2 Hadamard chroma DC (JM convention: qbits + 1)."""
+    w = dc_hadamard.to(torch.int32)
+    qbits = 15 + qp_c // 6
+    f = (1 << qbits) // 3 if intra else (1 << qbits) // 6
+    level = (w.abs() * int(_MF_A[qp_c % 6]) + 2 * f) >> (qbits + 1)
+    return _signed(w, level)
+
+
+def h264_dequantize_chroma_dc(levels: torch.Tensor, qp_c: int) -> torch.Tensor:
+    """Dequantize chroma DC after inverse 2x2 Hadamard (spec §8.5.11):
+    dcC = ((f * V00) << (qp_c//6)) >> 1."""
+    f = levels.to(torch.int32)
+    return ((f * int(_V_A[qp_c % 6])) << (qp_c // 6)) >> 1

@@ -1,0 +1,107 @@
+"""The PyTorch/CUDA port stands alone: it imports with JAX blocked, never
+touches the JAX package, and its entry points refuse to run on the CPU
+unless asked to."""
+
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "docker_nvidia_glx_desktop_tpu_torch"
+
+_BLOCKED_IMPORT = """
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, {repo!r})
+import numpy as np
+from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+enc, codec = make_encoder(from_env({{"SIZEW": "64", "SIZEH": "48",
+                                     "ENCODER_GOP": "1"}}), 64, 48,
+                          device="cpu")
+ef = enc.encode(np.full((48, 64, 3), 90, np.uint8))
+assert ef.data.startswith(b"\\x00\\x00\\x00\\x01") and ef.keyframe
+bad = sorted(m for m in sys.modules
+             if m == "docker_nvidia_glx_desktop_tpu"
+             or m.startswith("docker_nvidia_glx_desktop_tpu."))
+print("LEAKED", bad)
+"""
+
+
+def _run(code: str, cwd=None, timeout=120):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_encodes_with_jax_blocked_and_no_reference_module():
+    out = _run(_BLOCKED_IMPORT.format(repo=str(REPO)), cwd=str(REPO.parent))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LEAKED []" in out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"])
+def test_no_port_source_imports_jax_or_the_reference(path):
+    src = (REPO / path).read_text()
+    assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M), path
+    assert not re.search(
+        r"^\s*(import|from)\s+docker_nvidia_glx_desktop_tpu(?!_torch)\b",
+        src, re.M), path
+    assert "import_module" not in src and "__import__" not in src, path
+
+
+def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models import (H264Encoder,
+                                                           make_encoder)
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = from_env({"SIZEW": "64", "SIZEH": "48", "ENCODER_GOP": "1"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_encoder(cfg, 64, 48)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        H264Encoder(64, 48, device=None)
+    enc, _ = make_encoder(cfg, 64, 48, device="cpu")
+    assert enc.device.type == "cpu"
+
+
+@pytest.mark.parametrize("env,item", [
+    ({"ENCODER_GOP": "60"}, "item 4"),
+    ({"ENCODER_GOP": "1", "ENCODER_ENTROPY": "cabac"}, "item 7"),
+    ({"ENCODER_GOP": "1", "ENCODER_TUNE": "hq"}, "item 10"),
+    ({"ENCODER_GOP": "1", "ENCODER_SUPERSTEP_CHUNK": "4"}, "item 8"),
+    ({"ENCODER_GOP": "1", "ENCODER_SPATIAL_SHARDS": "2"}, "item 11"),
+    ({"ENCODER_GOP": "1", "ENCODER_INTRA_MODES": "full"}, "item 17"),
+])
+def test_unported_settings_raise_naming_the_roadmap_item(env, item):
+    from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    cfg = from_env(dict({"SIZEW": "64", "SIZEH": "48"}, **env))
+    with pytest.raises(NotImplementedError, match=item):
+        make_encoder(cfg, 64, 48, device="cpu")
+
+
+def test_chip_smoke_fails_without_cuda_and_outside_the_repo(tmp_path):
+    out = _run(f"import runpy, sys; sys.argv = ['chip_smoke.py']; "
+               f"runpy.run_path({str(REPO / 'chip_smoke.py')!r}, "
+               f"run_name='__main__')", cwd=str(tmp_path))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(REPO / "chip_smoke.py", alone / "chip_smoke.py")
+    out = _run("import runpy, sys; sys.argv = ['chip_smoke.py']; "
+               "runpy.run_path('chip_smoke.py', run_name='__main__')",
+               cwd=str(alone))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
