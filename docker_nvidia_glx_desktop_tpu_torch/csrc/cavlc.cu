@@ -1,10 +1,15 @@
 // K2 — CAVLC slot coder: the intra core's level tensors -> (value, length)
 // codeword slots for the 27 residual blocks of every MB (34 slots each)
 // and the 20 MB-syntax slots.
+// K6 — the same for P slices: 26 residual blocks per MB, the 7 MB-header
+// slots (skip run, mb_type, mvd, cbp, mb_qp_delta), each row's trailing
+// skip run and the per-4x4 coded flags the loop filter takes.
 //
-// Replaces docker_nvidia_glx_desktop_tpu/ops/cavlc_device.py:416
+// K2 replaces docker_nvidia_glx_desktop_tpu/ops/cavlc_device.py:416
 // frame_block_slots (code_blocks :247, nc_grid :388,
-// intra_mb_syntax_slots :548); the slots are equal to it.
+// intra_mb_syntax_slots :548); K6 replaces ops/cavlc_p_device.py:158
+// p_frame_block_slots (inter MBs), :77 p_mb_header_slots and the nnz
+// flags of _finish_p :425.  The slots are equal to theirs.
 //
 // What bounds it: the sequential per-block CAVLC loops (level VLC with
 // adaptive suffixLength, run_before with zerosLeft), not bytes: it reads
@@ -25,6 +30,7 @@ __constant__ int c_tz[16 * 16];
 __constant__ int c_tzc[3 * 4];
 __constant__ int c_rb[57];
 __constant__ int c_cbp_cn[48];
+__constant__ int c_cbp_cn_inter[48];
 
 struct Levels {
   const int *luma_dc, *luma_ac, *cb_dc, *cb_ac, *cr_dc, *cr_ac, *pred_mode;
@@ -272,16 +278,147 @@ __global__ void slots_kernel(Levels L, const int* info, int* values, int* length
   code_block(lv, nc_ctx, is_cdc, max_coeff, gate, values + base, lengths + base);
 }
 
+// --- K6: P slices -------------------------------------------------------
+
+constexpr int P_BLOCKS = 26, P_HDR = 7;
+
+struct PLevels {
+  const int *mv, *luma, *cb_dc, *cb_ac, *cr_dc, *cr_ac;
+};
+
+// scratch word layout per MB (P pass 1 -> pass 2); TC_* as the intra's
+enum { P_CBP = 24, P_CBP_CHROMA = 25, P_GRP = 26 };
+
+__global__ void p_info_kernel(PLevels L, int* info, uint8_t* nnz, int nmb) {
+  const int mb = blockIdx.x * blockDim.x + threadIdx.x;
+  if (mb >= nmb) return;
+  int* o = info + mb * INFO;
+  int grp = 0;
+  for (int b = 0; b < 16; ++b) {        // blkIdx order
+    int tc = 0;
+    for (int k = 0; k < 16; ++k) tc += L.luma[(mb * 16 + b) * 16 + k] != 0;
+    o[TC_LUMA + c_blk_y[b] * 4 + c_blk_x[b]] = tc;
+    nnz[mb * 16 + c_blk_y[b] * 4 + c_blk_x[b]] = tc > 0;
+    if (tc) grp |= 1 << (b >> 2);
+  }
+  bool ac_any = false, dc_any = false;
+  for (int k = 0; k < 60; ++k)
+    ac_any |= (L.cb_ac[mb * 60 + k] != 0) | (L.cr_ac[mb * 60 + k] != 0);
+  for (int k = 0; k < 4; ++k)
+    dc_any |= (L.cb_dc[mb * 4 + k] != 0) | (L.cr_dc[mb * 4 + k] != 0);
+  const int cbp_c = ac_any ? 2 : (dc_any ? 1 : 0);
+  for (int q = 0; q < 4; ++q) {
+    int tcb = 0, tcr = 0;
+    if (cbp_c == 2) {
+      for (int k = 0; k < 15; ++k) {
+        tcb += L.cb_ac[(mb * 4 + q) * 15 + k] != 0;
+        tcr += L.cr_ac[(mb * 4 + q) * 15 + k] != 0;
+      }
+    }
+    o[TC_CB + q] = tcb;
+    o[TC_CR + q] = tcr;
+  }
+  o[P_CBP] = grp + 16 * cbp_c;
+  o[P_CBP_CHROMA] = cbp_c;
+  o[P_GRP] = grp;
+}
+
+__device__ __forceinline__ bool p_coded(const PLevels& L, const int* info, int mb) {
+  return L.mv[mb * 2] != 0 || L.mv[mb * 2 + 1] != 0 || info[mb * INFO + P_CBP] != 0;
+}
+
+__device__ __forceinline__ void ue_slot(int v, int* val, int* len) {
+  *val = v + 1;
+  *len = ue_len(v);
+}
+
+__device__ __forceinline__ void se_slot(int v, int* val, int* len) {
+  ue_slot(v > 0 ? 2 * v - 1 : -2 * v, val, len);
+}
+
+// MB header slots; the last MB of a row also codes the row's trailing run.
+__device__ void p_header(const PLevels& L, const int* info, int mb, int c, int nc, int* vals,
+                         int* lens, int* trail_val, int* trail_len) {
+  int prev = -1;                        // last coded MB strictly before c
+  for (int k = c - 1; k >= 0; --k)
+    if (p_coded(L, info, mb - c + k)) { prev = k; break; }
+  const bool coded = p_coded(L, info, mb);
+  const int cbp = info[mb * INFO + P_CBP];
+  const int lx = c ? L.mv[mb * 2 - 1] : 0, ly = c ? L.mv[mb * 2 - 2] : 0;
+  ue_slot(c - prev - 1, vals + 0, lens + 0);
+  ue_slot(0, vals + 1, lens + 1);
+  se_slot(L.mv[mb * 2 + 1] - lx, vals + 2, lens + 2);
+  se_slot(L.mv[mb * 2] - ly, vals + 3, lens + 3);
+  ue_slot(c_cbp_cn_inter[cbp], vals + 4, lens + 4);
+  vals[5] = 1; lens[5] = 0;
+  se_slot(0, vals + 6, lens + 6);
+  if (cbp == 0) lens[6] = 0;
+  if (!coded)
+    for (int k = 0; k < P_HDR; ++k) lens[k] = 0;
+  if (c == nc - 1) {
+    const int last = coded ? c : prev;
+    const int trail = nc - 1 - last;
+    int v, l;
+    ue_slot(trail, &v, &l);
+    *trail_val = v;
+    *trail_len = trail > 0 ? l : 0;
+  }
+}
+
+__global__ void p_slots_kernel(PLevels L, const int* info, int* values, int* lengths,
+                               int* hdr_vals, int* hdr_lens, int* trail_vals, int* trail_lens,
+                               int nmb, int nc) {
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= nmb * (P_BLOCKS + 1)) return;
+  const int mb = gid / (P_BLOCKS + 1), j = gid % (P_BLOCKS + 1), c = mb % nc;
+  if (j == P_BLOCKS) {
+    const int r = mb / nc;
+    p_header(L, info, mb, c, nc, hdr_vals + mb * P_HDR, hdr_lens + mb * P_HDR,
+             trail_vals + r, trail_lens + r);
+    return;
+  }
+  const int* inf = info + mb * INFO;
+  const int* linf = c ? info + (mb - 1) * INFO : nullptr;
+  const int cbp_c = inf[P_CBP_CHROMA];
+  int lv[16];
+  for (int k = 0; k < 16; ++k) lv[k] = 0;
+  int nc_ctx = 0, max_coeff = 15;
+  bool is_cdc = false, gate;
+  if (j < 16) {                                   // luma, blkIdx order
+    for (int k = 0; k < 16; ++k) lv[k] = L.luma[(mb * 16 + j) * 16 + k];
+    nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, c_blk_y[j], c_blk_x[j]);
+    max_coeff = 16;
+    gate = (inf[P_GRP] >> (j >> 2)) & 1;
+  } else if (j < 18) {                            // chroma DC
+    const int* dc = j == 16 ? L.cb_dc : L.cr_dc;
+    for (int k = 0; k < 4; ++k) lv[k] = dc[mb * 4 + k];
+    is_cdc = true;
+    max_coeff = 4;
+    gate = cbp_c > 0;
+  } else {                                        // chroma AC
+    const int p = (j - 18) >> 2, q = (j - 18) & 3;
+    const int* ac = p ? L.cr_ac : L.cb_ac;
+    for (int k = 0; k < 15; ++k) lv[k] = ac[(mb * 4 + q) * 15 + k];
+    const int off = p ? TC_CR : TC_CB;
+    nc_ctx = nc_of(inf + off, linf ? linf + off : nullptr, 2, q >> 1, q & 1);
+    gate = cbp_c == 2;
+  }
+  const int base = (mb * P_BLOCKS + j) * SLOTS;
+  code_block(lv, nc_ctx, is_cdc, max_coeff, gate, values + base, lengths + base);
+}
+
 }  // namespace
 
 extern "C" int cavlc_upload_tables(const int* ct, const int* tz, const int* tzc,
-                                   const int* rb, const int* cbp_cn) {
+                                   const int* rb, const int* cbp_cn,
+                                   const int* cbp_cn_inter) {
   cudaError_t e;
   if ((e = cudaMemcpyToSymbol(c_ct, ct, sizeof(c_ct))) != cudaSuccess) return e;
   if ((e = cudaMemcpyToSymbol(c_tz, tz, sizeof(c_tz))) != cudaSuccess) return e;
   if ((e = cudaMemcpyToSymbol(c_tzc, tzc, sizeof(c_tzc))) != cudaSuccess) return e;
   if ((e = cudaMemcpyToSymbol(c_rb, rb, sizeof(c_rb))) != cudaSuccess) return e;
-  return cudaMemcpyToSymbol(c_cbp_cn, cbp_cn, sizeof(c_cbp_cn));
+  if ((e = cudaMemcpyToSymbol(c_cbp_cn, cbp_cn, sizeof(c_cbp_cn))) != cudaSuccess) return e;
+  return cudaMemcpyToSymbol(c_cbp_cn_inter, cbp_cn_inter, sizeof(c_cbp_cn_inter));
 }
 
 extern "C" int cavlc_slots_launch(
@@ -299,5 +436,22 @@ extern "C" int cavlc_slots_launch(
   const int n = nmb * (BLOCKS + 1);
   slots_kernel<<<(n + 127) / 128, 128, 0, stream>>>(L, scratch, values, lengths,
                                                     syn_vals, syn_lens, nmb, nc);
+  return dngd_last_error();
+}
+
+extern "C" int cavlc_p_slots_launch(const int* mv, const int* luma, const int* cb_dc,
+                                    const int* cb_ac, const int* cr_dc, const int* cr_ac,
+                                    int* values, int* lengths, int* hdr_vals, int* hdr_lens,
+                                    int* trail_vals, int* trail_lens, uint8_t* nnz,
+                                    int* scratch, int nr, int nc, cudaStream_t stream) {
+  const int nmb = nr * nc;
+  if (nmb <= 0) return 0;
+  const PLevels L{mv, luma, cb_dc, cb_ac, cr_dc, cr_ac};
+  p_info_kernel<<<(nmb + 127) / 128, 128, 0, stream>>>(L, scratch, nnz, nmb);
+  int e = dngd_last_error();
+  if (e) return e;
+  const int n = nmb * (P_BLOCKS + 1);
+  p_slots_kernel<<<(n + 127) / 128, 128, 0, stream>>>(L, scratch, values, lengths, hdr_vals,
+                                                      hdr_lens, trail_vals, trail_lens, nmb, nc);
   return dngd_last_error();
 }

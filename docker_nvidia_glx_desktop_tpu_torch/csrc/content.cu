@@ -1,18 +1,25 @@
 // K4 — content stats of one frame: per-MB damage (summed abs diff against
-// the previous ingest luma above a threshold), its count, and the p50/p95
-// of the per-MB luma activity (256 * sum of squared deviation).
+// the previous ingest luma above a threshold), its count, the p50/p95 of
+// the per-MB luma activity (256 * sum of squared deviation), and where
+// the encoder passes them the luma SSE against the recon, the mean and
+// p95 of |MV| and the skip/inter/intra MB counts.
 //
 // Replaces docker_nvidia_glx_desktop_tpu/ops/content_stats.py:156
-// frame_stats -> _frame_vec :120 (with ops/aq.py:77 mb_activity) where
-// no recon, MV field or residual is passed: the vector is
-// [-1, n_damage, -1, -1, -1, -1, -1, act_p50, act_p95, R*C].
+// frame_stats -> _frame_vec :120 (with ops/aq.py:77 mb_activity,
+// _luma_sse :79, _mv_stats :93, _mode_counts :100); absent inputs pin
+// their slots at -1 as there.
 //
-// What bounds it: bytes for the reduction (two luma planes, read once),
-// then one block's sort.  Pass 1 gives each MB one warp (8 pixels a lane,
-// shuffle reductions).  Pass 2 is one block of 1024 threads that
+// What bounds it: bytes for the reduction (luma planes and the residual
+// tensors, read once), then one block's sorts.  Pass 1 gives each MB one
+// warp (8 pixels a lane, shuffle reductions; the residual's any-nonzero
+// by a warp vote).  Pass 2 is one block of 1024 threads that
 // bitonic-sorts the activity values in shared memory (padded to a power
 // of two) and applies jnp.percentile's linear interpolation in float32
-// with round-to-nearest operations (no contraction into FMAs).
+// with round-to-nearest operations (no contraction into FMAs).  Only
+// when the encoder passes a recon or an MV field, pass 3 (one block)
+// sums the SSE exactly in 64 bits and the |MV| in float64, each rounded
+// once, counts the modes and sorts the |MV| for its p95 the same way; the
+// intra form runs passes 1 and 2 only.
 #include <climits>
 
 #include "common.cuh"
@@ -22,8 +29,27 @@ namespace {
 constexpr int MBS_PER_BLOCK = 8;
 constexpr int SORT_THREADS = 1024;
 
+// the optional inputs; null pointers mark what the caller did not pass
+struct Optional {
+  const uint8_t* recon;
+  const int *mv, *luma, *cb_dc, *cb_ac, *cr_dc, *cr_ac;
+};
+
+// scratch: per-MB activity, SSE and |MV| (float bits), then the counts
+struct Scratch {
+  int *act, *sse, *mag, *n_damage, *n_skip;
+  Scratch(int* s, int n)
+      : act(s), sse(s + n), mag(s + 2 * n), n_damage(s + 3 * n), n_skip(s + 3 * n + 1) {}
+};
+
+__device__ __forceinline__ bool any_nonzero(const int* a, int n, int lane) {
+  bool nz = false;
+  for (int k = lane; k < n; k += 32) nz |= a[k] != 0;
+  return __any_sync(0xffffffffu, nz);
+}
+
 __global__ void mb_reduce_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ prev,
-                                 uint8_t* grid, int* act, int* n_damage, int nr, int nc,
+                                 Optional O, uint8_t* grid, Scratch S, int nr, int nc,
                                  int thr_sad) {
   const int mb = blockIdx.x * MBS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -31,42 +57,61 @@ __global__ void mb_reduce_kernel(const uint8_t* __restrict__ y, const uint8_t* _
   const int W = nc * 16;
   const int r = mb / nc, c = mb % nc;
   const int row = r * 16 + (lane >> 1), col = c * 16 + (lane & 1) * 8;
-  int sad = 0, s = 0, s2 = 0;
+  int sad = 0, s = 0, s2 = 0, sse = 0;
   for (int k = 0; k < 8; ++k) {
     const int v = y[row * W + col + k];
     sad += abs(v - (int)prev[row * W + col + k]);
     s += v;
     s2 += v * v;
+    if (O.recon) {
+      const int d = v - (int)O.recon[row * W + col + k];
+      sse += d * d;
+    }
   }
   for (int o = 16; o > 0; o >>= 1) {
     sad += __shfl_down_sync(0xffffffffu, sad, o);
     s += __shfl_down_sync(0xffffffffu, s, o);
     s2 += __shfl_down_sync(0xffffffffu, s2, o);
   }
+  if (O.recon)
+    for (int o = 16; o > 0; o >>= 1) sse += __shfl_down_sync(0xffffffffu, sse, o);
+  bool coded = false;
+  if (O.luma) {
+    coded = any_nonzero(O.luma + mb * 256, 256, lane) | any_nonzero(O.cb_ac + mb * 60, 60, lane) |
+            any_nonzero(O.cr_ac + mb * 60, 60, lane) | any_nonzero(O.cb_dc + mb * 4, 4, lane) |
+            any_nonzero(O.cr_dc + mb * 4, 4, lane);
+  }
   if (lane == 0) {
     // 256*s2 and s*s wrap in 32 bits; their difference (< 2^31) does not
     const int a = (int)(256u * (unsigned)s2 - (unsigned)s * (unsigned)s);
-    act[mb] = max(a, 0);
+    S.act[mb] = max(a, 0);
+    S.sse[mb] = sse;
     const int dmg = sad > thr_sad;
     grid[mb] = (uint8_t)dmg;
-    if (dmg) atomicAdd(n_damage, 1);
+    if (dmg) atomicAdd(S.n_damage, 1);
+    if (O.mv) {
+      const float fy = (float)O.mv[mb * 2], fx = (float)O.mv[mb * 2 + 1];
+      S.mag[mb] = __float_as_int(__fsqrt_rn(__fadd_rn(__fmul_rn(fy, fy), __fmul_rn(fx, fx))));
+      const bool zero_mv = O.mv[mb * 2] == 0 && O.mv[mb * 2 + 1] == 0;
+      if (O.luma && !coded && zero_mv) atomicAdd(S.n_skip, 1);
+    }
   }
 }
 
-__device__ float percentile(const int* sorted, int n, float q) {
+__device__ __forceinline__ float to_f(int v) { return __int2float_rn(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+
+template <class T>
+__device__ float percentile(const T* sorted, int n, float q) {
   const float pos = __fmul_rn(__fdiv_rn(q, 100.0f), (float)(n - 1));
   const float low = floorf(pos), high = ceilf(pos);
   const float hw = __fsub_rn(pos, low), lw = __fsub_rn(1.0f, hw);
   const int li = min(max((int)low, 0), n - 1), hi = min(max((int)high, 0), n - 1);
-  return __fadd_rn(__fmul_rn(__int2float_rn(sorted[li]), lw),
-                   __fmul_rn(__int2float_rn(sorted[hi]), hw));
+  return __fadd_rn(__fmul_rn(to_f(sorted[li]), lw), __fmul_rn(to_f(sorted[hi]), hw));
 }
 
-__global__ void __launch_bounds__(SORT_THREADS) sort_pct_kernel(
-    const int* act, const int* n_damage, float* vec, int n, int n_pad) {
-  extern __shared__ int s[];
-  for (int i = threadIdx.x; i < n_pad; i += blockDim.x) s[i] = i < n ? act[i] : INT_MAX;
-  __syncthreads();
+// Ascending bitonic sort of s[0:n_pad] in shared memory (whole block).
+__device__ __forceinline__ void bitonic_sort(int* s, int n_pad) {
   for (int k = 2; k <= n_pad; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       for (int i = threadIdx.x; i < n_pad; i += blockDim.x) {
@@ -80,6 +125,14 @@ __global__ void __launch_bounds__(SORT_THREADS) sort_pct_kernel(
       __syncthreads();
     }
   }
+}
+
+__global__ void __launch_bounds__(SORT_THREADS) sort_pct_kernel(
+    const int* act, const int* n_damage, float* vec, int n, int n_pad) {
+  extern __shared__ int s[];
+  for (int i = threadIdx.x; i < n_pad; i += blockDim.x) s[i] = i < n ? act[i] : INT_MAX;
+  __syncthreads();
+  bitonic_sort(s, n_pad);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 10; ++i) vec[i] = -1.0f;
     vec[1] = (float)*n_damage;
@@ -89,26 +142,82 @@ __global__ void __launch_bounds__(SORT_THREADS) sort_pct_kernel(
   }
 }
 
+// The recon / MV / mode slots, after sort_pct_kernel on the same stream.
+__global__ void __launch_bounds__(SORT_THREADS) extras_kernel(
+    Scratch S, Optional O, float* vec, int n, int n_pad) {
+  extern __shared__ int s[];
+  __shared__ long long sse_part[SORT_THREADS / 32];
+  __shared__ double mag_part[SORT_THREADS / 32];
+  const int t = threadIdx.x;
+  long long sse = 0;
+  double mag = 0.0;
+  for (int i = t; i < n; i += blockDim.x) {
+    if (O.recon) sse += S.sse[i];
+    if (O.mv) mag += (double)__int_as_float(S.mag[i]);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    sse += __shfl_down_sync(0xffffffffu, sse, o);
+    mag += __shfl_down_sync(0xffffffffu, mag, o);
+  }
+  if ((t & 31) == 0) {
+    sse_part[t >> 5] = sse;
+    mag_part[t >> 5] = mag;
+  }
+  // |MV| >= 0: its float bits sort as ints
+  if (O.mv) {
+    for (int i = t; i < n_pad; i += blockDim.x) s[i] = i < n ? S.mag[i] : INT_MAX;
+    __syncthreads();
+    bitonic_sort(s, n_pad);
+  }
+  __syncthreads();
+  if (t == 0) {
+    long long sse_tot = 0;
+    double mag_tot = 0.0;
+    for (int w = 0; w < SORT_THREADS / 32; ++w) {
+      sse_tot += sse_part[w];
+      mag_tot += mag_part[w];
+    }
+    if (O.recon) vec[0] = (float)sse_tot;
+    if (O.luma) {
+      vec[2] = (float)*S.n_skip;
+      vec[3] = (float)(n - *S.n_skip);
+      vec[4] = 0.0f;
+    }
+    if (O.mv) {
+      vec[5] = (float)(mag_tot / n);
+      vec[6] = percentile(reinterpret_cast<const float*>(s), n, 95.0f);
+    }
+  }
+}
+
 }  // namespace
 
-extern "C" int frame_stats_launch(const uint8_t* y, const uint8_t* prev, float* vec,
-                                  uint8_t* grid, int* scratch, int nr, int nc, int thr_sad,
-                                  cudaStream_t stream) {
+extern "C" int frame_stats_launch(const uint8_t* y, const uint8_t* prev, const uint8_t* recon,
+                                  const int* mv, const int* luma, const int* cb_dc,
+                                  const int* cb_ac, const int* cr_dc, const int* cr_ac,
+                                  float* vec, uint8_t* grid, int* scratch, int nr, int nc,
+                                  int thr_sad, cudaStream_t stream) {
   const int n = nr * nc;
   if (n <= 0 || n > (1 << 15)) return cudaErrorInvalidValue;
   int n_pad = 1;
   while (n_pad < n) n_pad <<= 1;
-  int* n_damage = scratch + n;
+  const Optional O{recon, mv, luma, cb_dc, cb_ac, cr_dc, cr_ac};
+  const Scratch S(scratch, n);
   int e;
-  if ((e = cudaMemsetAsync(n_damage, 0, sizeof(int), stream))) return e;
+  if ((e = cudaMemsetAsync(S.n_damage, 0, 2 * sizeof(int), stream))) return e;
   mb_reduce_kernel<<<(n + MBS_PER_BLOCK - 1) / MBS_PER_BLOCK, 32 * MBS_PER_BLOCK, 0, stream>>>(
-      y, prev, grid, scratch, n_damage, nr, nc, thr_sad);
+      y, prev, O, grid, S, nr, nc, thr_sad);
   if ((e = dngd_last_error())) return e;
   const size_t smem = sizeof(int) * n_pad;
-  if (smem > 48 * 1024 &&
-      (e = cudaFuncSetAttribute(sort_pct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem)))
+  if (smem > 46 * 1024 &&
+      ((e = cudaFuncSetAttribute(sort_pct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem)) ||
+       (e = cudaFuncSetAttribute(extras_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem))))
     return e;
-  sort_pct_kernel<<<1, SORT_THREADS, smem, stream>>>(scratch, n_damage, vec, n, n_pad);
+  sort_pct_kernel<<<1, SORT_THREADS, smem, stream>>>(S.act, S.n_damage, vec, n, n_pad);
+  if ((e = dngd_last_error())) return e;
+  if (!recon && !mv) return 0;
+  extras_kernel<<<1, SORT_THREADS, smem, stream>>>(S, O, vec, n, n_pad);
   return dngd_last_error();
 }

@@ -1,12 +1,16 @@
 // K3 — bit packer: a frame's CAVLC codeword slots -> the flat buffer of
 // row RBSPs (4-byte aligned) behind a metadata header of big-endian words.
+// K7 — the same for P slices: the MB header piece in place of the MB
+// syntax, 26 blocks per MB, and each row's trailing skip-run piece after
+// its MBs.
 //
-// Replaces docker_nvidia_glx_desktop_tpu/ops/cavlc_device.py:629
+// K3 replaces docker_nvidia_glx_desktop_tpu/ops/cavlc_device.py:629
 // pack_frame with ops/bitmerge.py slots_to_words :87, merge_pieces_dense
-// :107, merge_pieces_tree :157, the row compaction and META :681-714.
+// :107, merge_pieces_tree :157, the row compaction and META :681-714;
+// K7 replaces ops/cavlc_p_device.py:298 pack_p_frame.
 // The bytes up to META_WORDS*4 + 4*total_words equal the reference's, and
-// the overflow flag trips at the same caps (256-bit block and MB syntax,
-// 2048-bit MB, FLAT_CAP_WORDS in all).
+// the overflow flag trips at the same caps (256-bit block and MB syntax
+// or header, 2048-bit MB, FLAT_CAP_WORDS in all).
 //
 // What bounds it: bytes.  It reads the slot arrays once (~60 MB at 1080p)
 // and writes ~0.5 MB.  No merge tree: per-MB bit counts (one thread per
@@ -19,15 +23,25 @@
 
 namespace {
 
-constexpr int BLOCKS = 27, SLOTS = 34, SYN = 20, HDR = 3;
-constexpr int PIECES = BLOCKS + 1;
+constexpr int SLOTS = 34, HDR = 3;
+constexpr int MAX_PIECES = 28;        // MB syntax or header + up to 27 blocks
+
+// The slice type's layout, a compile-time pair: blocks per MB and slots
+// of the MB's first piece (I: 27 blocks, 20 syntax slots; P: 26 blocks,
+// 7 header slots).
+template <int NB, int NS>
+struct Layout {
+  static constexpr int blocks = NB, syn = NS, pieces = NB + 1;
+};
+using ILayout = Layout<27, 20>;
+using PLayout = Layout<26, 7>;
 constexpr int BLOCK_CAP = 256, MB_CAP = 2048;
 constexpr int META_WORDS = 1024, MAX_META_ROWS = 510;
 constexpr int FLAT_CAP_WORDS = 1 << 17;
 constexpr int FLAT_BYTES = 4 * (META_WORDS + FLAT_CAP_WORDS);
 
 struct Scratch {
-  int* piece_off;   // [nmb * PIECES] bit offset of each piece in its MB
+  int* piece_off;   // [nmb * MAX_PIECES] bit offset of each piece in its MB
   int* mb_bits;     // [nmb]
   int* mb_off;      // [nmb] bit offset of each MB in its row
   int* body_bits;   // [nr] header + MBs
@@ -36,26 +50,27 @@ struct Scratch {
   int* word_off;    // [nr]
   int* flags;       // [0] overflow
   Scratch(int* s, int nmb, int nr)
-      : piece_off(s), mb_bits(s + nmb * PIECES), mb_off(mb_bits + nmb),
+      : piece_off(s), mb_bits(s + nmb * MAX_PIECES), mb_off(mb_bits + nmb),
         body_bits(mb_off + nmb), pad(body_bits + nr), row_bytes(pad + nr),
         word_off(row_bytes + nr), flags(word_off + nr) {}
 };
 
 __device__ __forceinline__ unsigned bswap(unsigned x) { return __byte_perm(x, 0, 0x0123); }
 
+template <class Y>
 __global__ void mb_bits_kernel(const int* lengths, const int* syn_lens, Scratch S, int nmb) {
   const int mb = blockIdx.x * blockDim.x + threadIdx.x;
   if (mb >= nmb) return;
   bool ovf = false;
   int bits = 0;
-  for (int k = 0; k < SYN; ++k) bits += syn_lens[mb * SYN + k];
+  for (int k = 0; k < Y::syn; ++k) bits += syn_lens[mb * Y::syn + k];
   ovf |= bits > BLOCK_CAP;
-  S.piece_off[mb * PIECES] = 0;
+  S.piece_off[mb * MAX_PIECES] = 0;
   int off = bits;
-  for (int j = 0; j < BLOCKS; ++j) {
-    S.piece_off[mb * PIECES + 1 + j] = off;
+  for (int j = 0; j < Y::blocks; ++j) {
+    S.piece_off[mb * MAX_PIECES + 1 + j] = off;
     int b = 0;
-    for (int k = 0; k < SLOTS; ++k) b += lengths[(mb * BLOCKS + j) * SLOTS + k];
+    for (int k = 0; k < SLOTS; ++k) b += lengths[(mb * Y::blocks + j) * SLOTS + k];
     ovf |= b > BLOCK_CAP;
     off += b;
   }
@@ -64,7 +79,9 @@ __global__ void mb_bits_kernel(const int* lengths, const int* syn_lens, Scratch 
   if (ovf) atomicOr(S.flags, 1);
 }
 
-__global__ void row_scan_kernel(const int* hdr_lens, Scratch S, int nr, int nc) {
+// run_lens: each row's trailing skip-run piece after its MBs (P), or null
+__global__ void row_scan_kernel(const int* hdr_lens, const int* run_lens, Scratch S, int nr,
+                                int nc) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= nr) return;
   int off = hdr_lens[r * HDR] + hdr_lens[r * HDR + 1] + hdr_lens[r * HDR + 2];
@@ -72,6 +89,7 @@ __global__ void row_scan_kernel(const int* hdr_lens, Scratch S, int nr, int nc) 
     S.mb_off[r * nc + c] = off;
     off += S.mb_bits[r * nc + c];
   }
+  if (run_lens) off += run_lens[r];
   const int pad = (8 - ((off + 1) % 8)) % 8;
   S.body_bits[r] = off;
   S.pad[r] = pad;
@@ -108,26 +126,28 @@ __device__ void place(unsigned* words, long long pos, unsigned v, int len) {
   }
 }
 
+template <class Y>
 __global__ void scatter_kernel(const int* values, const int* lengths, const int* syn_vals,
                                const int* syn_lens, const int* hdr_vals, const int* hdr_lens,
-                               Scratch S, uint8_t* flat, int nr, int nc) {
+                               const int* run_vals, const int* run_lens, Scratch S,
+                               uint8_t* flat, int nr, int nc) {
   unsigned* words = reinterpret_cast<unsigned*>(flat) + META_WORDS;
-  const int nmb = nr * nc;
+  const int nmb = nr * nc, np = Y::pieces;
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid < nmb * PIECES) {
-    const int mb = gid / PIECES, j = gid % PIECES, r = mb / nc;
-    long long pos = 32LL * S.word_off[r] + S.mb_off[mb] + S.piece_off[gid];
-    const int* v = j == 0 ? syn_vals + mb * SYN : values + (mb * BLOCKS + j - 1) * SLOTS;
-    const int* l = j == 0 ? syn_lens + mb * SYN : lengths + (mb * BLOCKS + j - 1) * SLOTS;
-    const int n = j == 0 ? SYN : SLOTS;
+  if (gid < nmb * np) {
+    const int mb = gid / np, j = gid % np, r = mb / nc;
+    long long pos = 32LL * S.word_off[r] + S.mb_off[mb] + S.piece_off[mb * MAX_PIECES + j];
+    const int* v = j == 0 ? syn_vals + mb * Y::syn : values + (mb * Y::blocks + j - 1) * SLOTS;
+    const int* l = j == 0 ? syn_lens + mb * Y::syn : lengths + (mb * Y::blocks + j - 1) * SLOTS;
+    const int n = j == 0 ? Y::syn : SLOTS;
     for (int k = 0; k < n; ++k) {
       if (l[k] > 0) {
         place(words, pos, (unsigned)v[k], l[k]);
         pos += l[k];
       }
     }
-  } else if (gid < nmb * PIECES + nr) {
-    const int r = gid - nmb * PIECES;
+  } else if (gid < nmb * np + nr) {
+    const int r = gid - nmb * np;
     long long pos = 32LL * S.word_off[r];
     for (int k = 0; k < HDR; ++k) {
       const int len = hdr_lens[r * HDR + k];
@@ -136,9 +156,36 @@ __global__ void scatter_kernel(const int* values, const int* lengths, const int*
         pos += len;
       }
     }
-    // rbsp trailing bits: the stop bit '1', then zeros to the byte
+    // the trailing skip run (a zero-length piece is skipped: a shift by
+    // 32 is undefined), then the rbsp stop bit '1' and zeros to the byte
+    const int rl = run_lens ? run_lens[r] : 0;
+    if (rl > 0) place(words, 32LL * S.word_off[r] + S.body_bits[r] - rl, (unsigned)run_vals[r], rl);
     place(words, 32LL * S.word_off[r] + S.body_bits[r], 1u << S.pad[r], S.pad[r] + 1);
   }
+}
+
+template <class Y>
+int pack_launch(const int* values, const int* lengths, const int* syn_vals, const int* syn_lens,
+                const int* run_vals, const int* run_lens, const int* hdr_vals,
+                const int* hdr_lens, uint8_t* flat, int* scratch, int nr, int nc,
+                cudaStream_t stream) {
+  const int nmb = nr * nc;
+  if (nmb <= 0 || nr > MAX_META_ROWS) return cudaErrorInvalidValue;
+  Scratch S(scratch, nmb, nr);
+  int e;
+  if ((e = cudaMemsetAsync(flat, 0, FLAT_BYTES, stream))) return e;
+  if ((e = cudaMemsetAsync(S.flags, 0, 8 * sizeof(int), stream))) return e;
+  mb_bits_kernel<Y><<<(nmb + 127) / 128, 128, 0, stream>>>(lengths, syn_lens, S, nmb);
+  if ((e = dngd_last_error())) return e;
+  row_scan_kernel<<<(nr + 63) / 64, 64, 0, stream>>>(hdr_lens, run_lens, S, nr, nc);
+  if ((e = dngd_last_error())) return e;
+  meta_kernel<<<1, 1, 0, stream>>>(S, flat, nr);
+  if ((e = dngd_last_error())) return e;
+  const int n = nmb * (Y::blocks + 1) + nr;
+  scatter_kernel<Y><<<(n + 127) / 128, 128, 0, stream>>>(values, lengths, syn_vals, syn_lens,
+                                                         hdr_vals, hdr_lens, run_vals, run_lens,
+                                                         S, flat, nr, nc);
+  return dngd_last_error();
 }
 
 }  // namespace
@@ -147,20 +194,14 @@ extern "C" int pack_frame_launch(const int* values, const int* lengths, const in
                                  const int* syn_lens, const int* hdr_vals, const int* hdr_lens,
                                  uint8_t* flat, int* scratch, int nr, int nc,
                                  cudaStream_t stream) {
-  const int nmb = nr * nc;
-  if (nmb <= 0 || nr > MAX_META_ROWS) return cudaErrorInvalidValue;
-  Scratch S(scratch, nmb, nr);
-  int e;
-  if ((e = cudaMemsetAsync(flat, 0, FLAT_BYTES, stream))) return e;
-  if ((e = cudaMemsetAsync(S.flags, 0, 8 * sizeof(int), stream))) return e;
-  mb_bits_kernel<<<(nmb + 127) / 128, 128, 0, stream>>>(lengths, syn_lens, S, nmb);
-  if ((e = dngd_last_error())) return e;
-  row_scan_kernel<<<(nr + 63) / 64, 64, 0, stream>>>(hdr_lens, S, nr, nc);
-  if ((e = dngd_last_error())) return e;
-  meta_kernel<<<1, 1, 0, stream>>>(S, flat, nr);
-  if ((e = dngd_last_error())) return e;
-  const int n = nmb * PIECES + nr;
-  scatter_kernel<<<(n + 127) / 128, 128, 0, stream>>>(values, lengths, syn_vals, syn_lens,
-                                                      hdr_vals, hdr_lens, S, flat, nr, nc);
-  return dngd_last_error();
+  return pack_launch<ILayout>(values, lengths, syn_vals, syn_lens, nullptr, nullptr, hdr_vals,
+                              hdr_lens, flat, scratch, nr, nc, stream);
+}
+
+extern "C" int pack_p_frame_launch(const int* values, const int* lengths, const int* mbh_vals,
+                                   const int* mbh_lens, const int* run_vals, const int* run_lens,
+                                   const int* hdr_vals, const int* hdr_lens, uint8_t* flat,
+                                   int* scratch, int nr, int nc, cudaStream_t stream) {
+  return pack_launch<PLayout>(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens, hdr_vals,
+                              hdr_lens, flat, scratch, nr, nc, stream);
 }

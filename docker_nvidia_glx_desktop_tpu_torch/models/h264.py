@@ -1,18 +1,30 @@
-"""H.264 encoder, all-intra device-entropy path (``gop == 1``).
+"""H.264 encoder, device-entropy CAVLC: all-intra (``gop == 1``) and the
+GOP path (an IDR, then P frames, with the in-loop deblocking filter).
 
 Per frame: cv2 (or numpy where cv2 is absent) converts RGB to padded
-BT.601 YUV 4:2:0 on the host; one submit uploads the planes and runs the
-intra core (K1, ``ops/h264_device``), the CAVLC slot coder (K2,
-``ops/cavlc_device``), the bit packer (K3, ``ops/bitmerge``) and the
-content stats (K4, ``ops/content_stats``) on the card; collect pulls a
-bucketed prefix of the flat buffer and builds the Annex-B access unit.
-A frame whose bits overflow the packer's static caps is coded on the host
-(``_encode_host_entropy``).  The bytes equal the reference encoder's
+BT.601 YUV 4:2:0 on the host; one submit uploads the planes and launches
+the device stage on the card:
+
+- an IDR runs the intra core (K1, ``ops/h264_device``), the CAVLC slot
+  coder (K2, ``ops/cavlc_device``) and the bit packer (K3,
+  ``ops/bitmerge``);
+- a P frame runs the P core (K5, ``ops/h264_inter``), the P slot coder
+  (K6) and the P packer (K7, ``ops/cavlc_p_device``);
+- in GOP mode the recon, loop-filtered (K8, ``ops/h264_deblock``) when
+  ``deblock`` is on, becomes the next frame's reference at submit time,
+  so frame N+1 may be submitted before frame N is collected;
+- every frame runs the content stats (K4, ``ops/content_stats``).
+
+Collect pulls a bucketed prefix of the flat buffer and builds the Annex-B
+access unit.  A frame whose bits overflow the packer's static caps is
+coded on the host: an IDR by running the intra core again on the same
+planes, a P frame from the level tensors its device stage produced.  The
+bytes equal the reference encoder's
 (``docker_nvidia_glx_desktop_tpu/models/h264.py``) frame by frame.
 
-Every other setting of the reference encoder — ``gop > 1``, host or CABAC
-entropy, ``tune != "off"``, the super-step chunk ring, spatial shards,
-the damage mask, the non-default intra mode sets, device colour — raises
+Every other setting of the reference encoder — host or CABAC entropy,
+``tune != "off"``, the super-step chunk ring, spatial shards, the damage
+mask, the non-default intra mode sets, device colour — raises
 NotImplementedError naming its ROADMAP item; nothing falls back quietly.
 """
 
@@ -28,7 +40,8 @@ import torch
 from ..bitstream import h264 as syn
 from ..bitstream import h264_entropy
 from ..obs import content as obsc
-from ..ops import cavlc_device, content_stats, h264_device
+from ..ops import (cavlc_device, cavlc_p_device, content_stats, h264_deblock,
+                   h264_device)
 from ..utils.hostcolor import rgb_to_yuv420_host
 from ..utils.mathutil import round_up
 from .base import EncodedFrame, Encoder
@@ -248,7 +261,7 @@ class H264Encoder(Encoder):
                  superstep_chunk: int = None, spatial_shards=None,
                  tune: str = None, damage_mask: bool = None, device=None):
         """Same arguments as the reference encoder, plus ``device``
-        (``None`` = the card).  Only the all-intra device-entropy path is
+        (``None`` = the card).  Only the device-entropy CAVLC path is
         built: see the module docstring for what raises."""
         super().__init__(width, height)
         if mode != "cavlc":
@@ -257,8 +270,6 @@ class H264Encoder(Encoder):
             raise _not_ported("entropy='cabac'", "7")
         if entropy != "device":
             raise _not_ported(f"entropy={entropy!r}", "17")
-        if int(gop) > 1:
-            raise _not_ported(f"gop={gop} (P frames)", "4")
         if intra_modes not in (None, "auto"):
             raise _not_ported(f"intra_modes={intra_modes!r}", "17")
         if not host_color:
@@ -286,11 +297,12 @@ class H264Encoder(Encoder):
         self.mode = mode
         self.entropy = entropy
         self.keep_recon = keep_recon
-        self.gop = 1
+        self.gop = max(int(gop), 1)
         self.deblock = bool(deblock)
         self._deblock_idc = 2 if self.deblock else 1
         self.tune = self._ktune = "off"
         self.last_recon = None
+        self.last_mv = None
         self.pad_w = round_up(width, 16)
         self.pad_h = round_up(height, 16)
         self.mb_w = self.pad_w // 16
@@ -298,8 +310,9 @@ class H264Encoder(Encoder):
         self._sps = syn.sps_rbsp(width, height, profile="baseline")
         self._pps = syn.pps_rbsp(init_qp=qp, cabac=False)
         self._hdr_slots_cache = {}
-        # lineage state carried by export_state/import_state (the GOP
-        # fields stay at their all-intra values)
+        # GOP / reference state: the reference planes live on the device
+        # and advance at submit time
+        self._ref = None
         self._frame_num = 0
         self._gop_pos = 0
         self._force_idr = False
@@ -310,6 +323,7 @@ class H264Encoder(Encoder):
         # recent pull sizes -> decaying max: the pull prefix must cover
         # the largest recent frame, or a mispredict costs a second pull
         self._pull_hist = collections.deque(maxlen=8)
+        self._p_pull_hist = collections.deque(maxlen=8)
         self._pull_guess = None
         self._p_pull_guess = None
         # content plane: previous ingest luma, per-frame stats handles
@@ -326,10 +340,13 @@ class H264Encoder(Encoder):
 
     # -- content & quality telemetry -----------------------------------
 
-    def _content_submit(self, y: torch.Tensor) -> None:
+    def _content_submit(self, y: torch.Tensor, recon_y=None, mv=None,
+                        resid=None, frame_type: str = "p") -> None:
         """Launch the stats kernel for one frame; sets ``_content_last``
         to a device-handle dict (None when disabled or cadence-skipped).
-        A kernel fault raises and fails the frame."""
+        ``recon_y`` (and for a P frame ``mv`` and the residual tensors)
+        select the full form.  A kernel fault raises and fails the
+        frame."""
         self._content_last = None
         if not obsc.enabled():
             self._content_prev_y = None
@@ -344,10 +361,15 @@ class H264Encoder(Encoder):
         # the first ingest has no reference: self-diff so activity still
         # lands, and null the damage fields at finish
         first = prev is None or tuple(prev.shape) != tuple(y.shape)
-        vec, grid = content_stats.frame_stats(
-            y, y if first else prev, obsc.damage_thr_sad())
+        if recon_y is None:
+            vec, grid = content_stats.frame_stats(
+                y, y if first else prev, obsc.damage_thr_sad())
+        else:
+            vec, grid = content_stats.frame_stats_full(
+                y, y if first else prev, obsc.damage_thr_sad(), recon_y,
+                mv, resid)
         self._content_last = {"vec": vec, "grid": grid,
-                              "frame_type": "intra", "first": first}
+                              "frame_type": frame_type, "first": first}
 
     def _content_stash(self, idx: int) -> None:
         h = self._content_last
@@ -398,8 +420,8 @@ class H264Encoder(Encoder):
         return rgb_to_yuv420_host(rgb, self.pad_h, self.pad_w,
                                   float_fallback=True)
 
-    def _eff_qp(self) -> int:
-        qp = self.qp if self._rate is None else self._rate.qp_for(True)
+    def _eff_qp(self, keyframe: bool = True) -> int:
+        qp = self.qp if self._rate is None else self._rate.qp_for(keyframe)
         off = self.degrade_qp_offset
         return min(51, max(0, qp + off)) if off else qp
 
@@ -415,9 +437,29 @@ class H264Encoder(Encoder):
             self._hdr_slots_cache[key] = slots
         return slots
 
+    def _p_hdr_slots(self, frame_num: int, qp_delta: int):
+        key = ("p", frame_num, qp_delta)
+        slots = self._hdr_slots_cache.get(key)
+        if slots is None:
+            hv, hl = cavlc_device.slice_header_slots(
+                self.mb_h, self.mb_w, frame_num=frame_num,
+                qp_delta=qp_delta, slice_type=5, idr=False,
+                deblocking_idc=self._deblock_idc)
+            slots = (torch.from_numpy(hv.view(np.int32)).to(self.device),
+                     torch.from_numpy(hl).to(self.device))
+            self._hdr_slots_cache[key] = slots
+        return slots
+
     def _upload(self, planes):
         return tuple(torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
                      for p in planes)
+
+    def _set_ref(self, recon, qp: int, nnz=None, mv=None) -> None:
+        """The next frame's reference: the recon, loop-filtered when
+        deblocking is on (new planes; the recon itself stays as it is)."""
+        self._ref = (h264_deblock.deblock_frame(*recon, qp, nnz_blk=nnz,
+                                                mv=mv)
+                     if self.deblock else tuple(recon))
 
     def _submit_device(self, rgb, idr_pic_id: int):
         """Launch the device stage without waiting for it."""
@@ -428,17 +470,25 @@ class H264Encoder(Encoder):
         levels = h264_device.encode_intra_frame_yuv(y, cb, cr, qp)
         flat = cavlc_device.pack_frame(
             *cavlc_device.frame_block_slots(levels), hv, hl)
-        self._content_submit(y)
-        recon = None
-        if self.keep_recon:
-            recon = tuple(levels[k].cpu().numpy()
-                          for k in ("recon_y", "recon_cb", "recon_cr"))
+        recon = tuple(levels[k] for k in ("recon_y", "recon_cb", "recon_cr"))
+        if self.gop > 1:
+            # the reference advances at SUBMIT time: a pipelined P frame
+            # submitted before this IDR is collected must see it
+            self._set_ref(recon, qp)
+        with_recon = self.keep_recon or self.gop > 1
+        self._content_submit(y, recon_y=recon[0] if with_recon else None,
+                             frame_type="intra")
+        # the pre-deblock recon, pulled at submit
+        recon = (tuple(p.cpu().numpy() for p in recon) if self.keep_recon
+                 else None)
         guess = self._pull_guess or 4 * self._PULL_BUCKET
         prefix = _pinned_prefetch(flat[:cavlc_device.META_WORDS * 4 + guess])
         return (rgb, idr_pic_id, qp, planes, flat, prefix, recon)
 
-    def _collect_device(self, submitted) -> bytes:
-        """Wait for the device stage and assemble the Annex-B access unit."""
+    def _collect_device(self, submitted, in_pipeline: bool = False) -> bytes:
+        """Wait for the device stage and assemble the Annex-B access unit.
+        ``in_pipeline``: a later frame may already have been submitted, so
+        an overflow fallback must not move the reference chain."""
         rgb, idr_pic_id, qp, planes, flat, (prefix, ev), recon = submitted
         if recon is not None:
             self.last_recon = recon
@@ -449,7 +499,8 @@ class H264Encoder(Encoder):
         meta = cavlc_device.FlatMeta(buf, self.mb_h)
         if meta.overflow:
             # reuse the exact device inputs (planes + rate-controlled qp)
-            return self._encode_host_entropy(idr_pic_id, planes, qp)
+            return self._encode_host_entropy(idr_pic_id, planes, qp,
+                                             update_ref=not in_pipeline)
         need = 4 * meta.total_words
         bucket = self._PULL_BUCKET
         self._pull_hist.append(need)
@@ -459,10 +510,15 @@ class H264Encoder(Encoder):
             buf = flat[:base + extra].cpu().numpy()
         return cavlc_device.assemble_annexb(buf, meta, headers=self.headers())
 
-    def _encode_host_entropy(self, idr_pic_id: int, planes, qp: int) -> bytes:
+    def _encode_host_entropy(self, idr_pic_id: int, planes, qp: int,
+                             update_ref: bool = True) -> bytes:
         """Overflow fallback: the intra core again on the same planes and
-        qp, then the Python CAVLC coder on the host."""
+        qp, then the Python CAVLC coder on the host.  ``update_ref=False``
+        leaves a pipeline's reference chain as the submit set it."""
         levels = h264_device.encode_intra_frame_yuv(*self._upload(planes), qp)
+        if self.gop > 1 and update_ref:
+            self._set_ref(tuple(levels[k] for k in
+                                ("recon_y", "recon_cb", "recon_cr")), qp)
         if self.keep_recon:
             self.last_recon = tuple(levels[k].cpu().numpy()
                                     for k in ("recon_y", "recon_cb",
@@ -475,8 +531,102 @@ class H264Encoder(Encoder):
             qp_delta=qp - self.qp, deblocking_idc=self._deblock_idc,
             qp_map=None, slice_qp=qp)
 
+    # -- P frames --------------------------------------------------------
+
+    def _encode_p(self, rgb) -> bytes:
+        qp = self._eff_qp(keyframe=False)
+        return self._collect_p_device(
+            self._submit_p_device(self._host_yuv420(rgb), qp))
+
+    def _submit_p_device(self, planes, qp: int):
+        """Launch the P stage without waiting for it; ``self._ref``
+        advances now, so the next frame can submit before this one is
+        collected.  The old reference is only read: the recon goes to
+        new planes."""
+        frame_num = self._frame_num
+        hv, hl = self._p_hdr_slots(frame_num, qp - self.qp)
+        y, cb, cr = self._upload(planes)
+        flat, ry, rcb, rcr, mv, nnz, levels = \
+            cavlc_p_device.encode_p_cavlc_frame(y, cb, cr, *self._ref, hv, hl,
+                                                qp)
+        self._content_submit(
+            y, recon_y=ry, mv=mv,
+            resid=tuple(levels[k] for k in ("luma", "cb_dc", "cb_ac",
+                                            "cr_dc", "cr_ac")),
+            frame_type="p")
+        self._set_ref((ry, rcb, rcr), qp, nnz, mv)
+        recon = None
+        if self.keep_recon:
+            # THIS frame's pre-deblock recon, pulled at submit
+            recon = (tuple(p.cpu().numpy() for p in (ry, rcb, rcr)),
+                     mv.cpu().numpy())
+        guess = self._p_pull_guess or 2 * self._PULL_BUCKET
+        prefix = _pinned_prefetch(flat[:cavlc_device.META_WORDS * 4 + guess])
+        return (qp, frame_num, levels, recon, flat, prefix, mv)
+
+    def _collect_p_device(self, submitted) -> bytes:
+        qp, frame_num, levels, recon, flat, (prefix, ev), mv = submitted
+        if recon is not None:
+            self.last_recon, self.last_mv = recon
+        if ev is not None:
+            ev.synchronize()
+        base = cavlc_device.META_WORDS * 4
+        buf = prefix.numpy()
+        meta = cavlc_device.FlatMeta(buf, self.mb_h)
+        if meta.overflow:
+            # host-code the SAME level tensors the device stage produced:
+            # the reference chain already moved past this frame
+            pulled = {k: v.cpu().numpy() for k, v in levels.items()}
+            pulled["mv"] = mv.cpu().numpy()
+            self.last_mv = pulled["mv"]
+            return h264_entropy.encode_p_picture(
+                pulled, frame_num=frame_num, qp_delta=qp - self.qp,
+                deblocking_idc=self._deblock_idc, qp_map=None, slice_qp=qp)
+        need = 4 * meta.total_words
+        bucket = self._PULL_BUCKET
+        self._p_pull_hist.append(need)
+        self._p_pull_guess = -(-max(self._p_pull_hist) // bucket) * bucket
+        if need > len(buf) - base:
+            extra = -(-need // bucket) * bucket
+            buf = flat[:base + extra].cpu().numpy()
+        return cavlc_device.assemble_annexb(buf, meta, nal_type=syn.NAL_SLICE,
+                                            ref_idc=2)
+
+    def _next_is_idr(self) -> bool:
+        return self._gop_pos == 0 or self._force_idr or self._ref is None
+
+    def _start_idr(self) -> int:
+        """GOP state of a new IDR; returns its idr_pic_id (consecutive
+        IDRs must differ)."""
+        self._force_idr = False
+        self._gop_pos = 0
+        self._frame_num = 0
+        self._idr_count += 1
+        return self._idr_count % 2
+
+    def _gop_step(self, rgb):
+        """One GOP state-machine step -> (data, keyframe)."""
+        idr = self._next_is_idr()
+        n0 = self._rate.mark() if self._rate is not None else 0
+        try:
+            if idr:
+                data = self._collect_device(
+                    self._submit_device(rgb, self._start_idr()))
+            else:
+                self._frame_num = (self._frame_num + 1) % 16
+                data = self._encode_p(rgb)
+        except Exception:
+            if self._rate is not None:
+                self._rate.rollback_to(n0)
+            self._force_idr = True   # ref chain may be ahead of the client
+            raise
+        self._gop_pos = (self._gop_pos + 1) % self.gop
+        if self._rate is not None:
+            self._rate.update(len(data) * 8)
+        return data, idr
+
     def request_keyframe(self) -> None:
-        """Every frame of the all-intra path is an IDR already."""
+        """Resume semantics: the next frame becomes an IDR."""
         self._force_idr = True
 
     # -- checkpoint/restore --------------------------------------------
@@ -501,6 +651,8 @@ class H264Encoder(Encoder):
                 "step_idx": self._rate._step_idx,
                 "avg": self._rate._avg,
             }
+        if self._ref is not None and self.gop > 1:
+            st["ref"] = tuple(p.cpu().numpy() for p in self._ref)
         return st
 
     def import_state(self, state: dict) -> None:
@@ -521,23 +673,30 @@ class H264Encoder(Encoder):
             self._rate._step_idx = int(rate["step_idx"])
             self._rate._avg = rate["avg"]
             self._rate._pending.clear()    # in-flight frames are gone
+        ref = state.get("ref")
+        if ref is not None and self.gop > 1:
+            self._ref = self._upload([np.array(p) for p in ref])
 
     # -- entry points ----------------------------------------------------
 
     def encode(self, rgb) -> EncodedFrame:
         t0 = time.perf_counter()
-        n0 = self._rate.mark() if self._rate is not None else 0
-        try:
-            data = self._collect_device(
-                self._submit_device(rgb, self.frame_index % 2))
-        except Exception:
+        if self.gop > 1:
+            data, key = self._gop_step(rgb)
+        else:
+            n0 = self._rate.mark() if self._rate is not None else 0
+            try:
+                data = self._collect_device(
+                    self._submit_device(rgb, self.frame_index % 2))
+            except Exception:
+                if self._rate is not None:
+                    self._rate.rollback_to(n0)
+                raise
+            key = True
             if self._rate is not None:
-                self._rate.rollback_to(n0)
-            raise
-        if self._rate is not None:
-            self._rate.update(len(data) * 8)
+                self._rate.update(len(data) * 8)
         ms = (time.perf_counter() - t0) * 1e3
-        ef = EncodedFrame(data=data, keyframe=True,
+        ef = EncodedFrame(data=data, keyframe=key,
                           frame_index=self.frame_index, codec=self.codec,
                           width=self.width, height=self.height, encode_ms=ms)
         self.frame_index += 1
@@ -551,19 +710,35 @@ class H264Encoder(Encoder):
         t0 = time.perf_counter()
         n0 = self._rate.mark() if self._rate is not None else 0
         try:
-            sub = self._submit_device(rgb, idx % 2)
+            if self.gop == 1:
+                tok = ("intra", idx, t0, True, self._submit_device(rgb, idx % 2))
+            elif self._next_is_idr():
+                tok = ("intra", idx, t0, True,
+                       self._submit_device(rgb, self._start_idr()))
+            else:
+                self._frame_num = (self._frame_num + 1) % 16
+                qp = self._eff_qp(keyframe=False)
+                tok = ("p", idx, t0, False,
+                       self._submit_p_device(self._host_yuv420(rgb), qp))
         except Exception:
             if self._rate is not None:
                 self._rate.rollback_to(n0)
+            # a P submit may have advanced the reference already: the
+            # decoder never gets this frame, so resync with an IDR
             self._force_idr = True
             raise
+        if self.gop > 1:
+            self._gop_pos = (self._gop_pos + 1) % self.gop
         self._content_stash(idx)
-        return ("intra", idx, t0, True, sub)
+        return tok
 
     def encode_collect(self, token) -> EncodedFrame:
         kind, idx, t0, key, payload = token
         try:
-            data = self._collect_device(payload)
+            if kind == "p":
+                data = self._collect_p_device(payload)
+            else:
+                data = self._collect_device(payload, in_pipeline=self.gop > 1)
         except Exception:
             if self._rate is not None:
                 self._rate.drop_oldest_pending()

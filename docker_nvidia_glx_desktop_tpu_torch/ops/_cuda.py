@@ -22,7 +22,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-KERNEL_SOURCES = ("intra", "cavlc", "pack", "content")
+KERNEL_SOURCES = ("intra", "cavlc", "pack", "content", "inter", "deblock")
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -92,9 +92,10 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(lib_name: str, fn_name: str, tensors, ints, device) -> None:
     """Call ``fn_name(ptrs..., ints..., stream)`` of ``lib<lib_name>.so``
-    on the current stream of ``device``; raises on a non-zero return."""
+    on the current stream of ``device``; raises on a non-zero return.
+    A ``None`` tensor passes a null pointer (an absent optional input)."""
     for t in tensors:
-        if t.device != device or not t.is_contiguous():
+        if t is not None and (t.device != device or not t.is_contiguous()):
             raise ValueError(f"{fn_name}: every tensor must be contiguous "
                              f"on {device}")
     lib = library(lib_name)
@@ -104,7 +105,7 @@ def launch(lib_name: str, fn_name: str, tensors, ints, device) -> None:
                    + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = fn(*[t.data_ptr() for t in tensors], *[int(i) for i in ints],
+        err = fn(*[None if t is None else t.data_ptr() for t in tensors], *[int(i) for i in ints],
                  stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} "

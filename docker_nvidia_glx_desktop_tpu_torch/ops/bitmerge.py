@@ -1,9 +1,10 @@
-"""Bit packer (K3): a frame's CAVLC codeword slots -> one flat buffer of
-row RBSPs with a metadata header.
+"""Bit packers (K3 for I slices, K7 for P slices): a frame's CAVLC
+codeword slots -> one flat buffer of row RBSPs with a metadata header.
 
 Replaces the reference's ``ops/cavlc_device.py`` ``pack_frame`` and the
 ``ops/bitmerge.py`` hierarchy it runs (``slots_to_words``,
-``merge_pieces_dense``, ``merge_pieces_tree``, row compaction, META).
+``merge_pieces_dense``, ``merge_pieces_tree``, row compaction, META),
+and ``ops/cavlc_p_device.py`` ``pack_p_frame``.
 Only the output bytes carry over, not the TPU's scatter-free merge tree:
 every codeword's bit offset is a prefix sum of the slot lengths along its
 row, and the codeword is OR-ed into the row's words at that offset.
@@ -41,20 +42,28 @@ def _be_bytes(words: torch.Tensor) -> torch.Tensor:
     return b.reshape(-1).to(torch.uint8)
 
 
-def pack_frame_plain(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens):
-    """Plain PyTorch version of K3.  Slot values are placed at the prefix
-    sum of the lengths before them; OR equals ADD because the codewords
-    of a row never share a bit."""
+def _pack_plain(syn_vals, syn_lens, values, lengths, hdr_vals, hdr_lens,
+                run_vals=None, run_lens=None):
+    """Plain packer of either slice type.  Per row, in stream order: the
+    slice header, then per MB its syntax piece and its blocks, then (P
+    slices) the trailing skip-run piece, then the rbsp stop bit and the
+    alignment zeros.  Slot values are placed at the prefix sum of the
+    lengths before them; OR equals ADD because the codewords of a row
+    never share a bit."""
     dev = values.device
     nr, nc = syn_vals.shape[:2]
     lengths = lengths.long()
     syn_lens = syn_lens.long()
     hdr_lens = hdr_lens.long()
-    blk_bits = lengths.sum(dim=3)                           # (R, C, 27)
+    if run_vals is None:
+        run_vals = torch.zeros(nr, dtype=torch.int64, device=dev)
+        run_lens = torch.zeros(nr, dtype=torch.int64, device=dev)
+    run_lens = run_lens.long()
+    blk_bits = lengths.sum(dim=3)                           # (R, C, B)
     syn_bits = syn_lens.sum(dim=2)                          # (R, C)
     mb_bits = syn_bits + blk_bits.sum(dim=2)
     hdr_bits = hdr_lens.sum(dim=1)
-    body_bits = hdr_bits + mb_bits.sum(dim=1)
+    body_bits = hdr_bits + mb_bits.sum(dim=1) + run_lens
     pad = (8 - ((body_bits + 1) % 8)) % 8
     row_bytes = (body_bits + pad + 1) // 8
     row_words = (row_bytes + 3) // 4
@@ -65,16 +74,14 @@ def pack_frame_plain(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens):
                 | (mb_bits > MB_CAP_BITS).any()
                 | (total_words > FLAT_CAP_WORDS))
 
-    # every slot of a row in stream order: header, then per MB its syntax
-    # and 27 blocks, then the rbsp stop bit and alignment zeros
-    trail_v = (1 << pad)[:, None]
-    trail_l = (pad + 1)[:, None]
-    vals = torch.cat([hdr_vals.long() & 0xFFFFFFFF,
-                      torch.cat([syn_vals.long(),
-                                 values.long().reshape(nr, nc, -1)], dim=2
-                                ).reshape(nr, -1), trail_v], dim=1)
-    lens = torch.cat([hdr_lens, torch.cat([syn_lens, lengths.reshape(nr, nc, -1)],
-                                          dim=2).reshape(nr, -1), trail_l], dim=1)
+    mb_v = torch.cat([syn_vals.long(), values.long().reshape(nr, nc, -1)],
+                     dim=2).reshape(nr, -1)
+    mb_l = torch.cat([syn_lens, lengths.reshape(nr, nc, -1)],
+                     dim=2).reshape(nr, -1)
+    vals = torch.cat([hdr_vals.long() & 0xFFFFFFFF, mb_v,
+                      run_vals.long()[:, None], (1 << pad)[:, None]], dim=1)
+    lens = torch.cat([hdr_lens, mb_l, run_lens[:, None], (pad + 1)[:, None]],
+                     dim=1)
     pos = lens.cumsum(dim=1) - lens + 32 * word_off[:, None]
     live = lens > 0
     pos, lens, vals = pos[live], lens[live], vals[live]
@@ -96,6 +103,26 @@ def pack_frame_plain(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens):
     return _be_bytes(torch.cat([meta, words[:FLAT_CAP_WORDS]]))
 
 
+def pack_frame_plain(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens):
+    """Plain PyTorch version of K3 (I slices)."""
+    return _pack_plain(syn_vals, syn_lens, values, lengths, hdr_vals,
+                       hdr_lens)
+
+
+def pack_p_frame_plain(values, lengths, mbh_vals, mbh_lens, run_vals,
+                       run_lens, hdr_vals, hdr_lens):
+    """Plain PyTorch version of K7 (P slices)."""
+    return _pack_plain(mbh_vals, mbh_lens, values, lengths, hdr_vals,
+                       hdr_lens, run_vals, run_lens)
+
+
+def _check_slots(want: dict, dev) -> None:
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape or t.dtype != torch.int32 or t.device != dev:
+            raise ValueError(f"{name}: want {shape} int32 on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
 def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens):
     """Codeword slots -> flat uint8 buffer of FLAT_BYTES (see module doc).
 
@@ -112,10 +139,7 @@ def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens):
             "syn_vals": (syn_vals, (nr, nc, 20)),
             "syn_lens": (syn_lens, (nr, nc, 20)),
             "hdr_vals": (hdr_vals, (nr, 3)), "hdr_lens": (hdr_lens, (nr, 3))}
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape or t.dtype != torch.int32 or t.device != dev:
-            raise ValueError(f"{name}: want {shape} int32 on {dev}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    _check_slots(want, dev)
     if nr > MAX_META_ROWS:
         raise ValueError(f"{nr} MB rows exceed the metadata header's "
                          f"{MAX_META_ROWS}")
@@ -133,3 +157,41 @@ def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens):
 
 
 pack_frame.launches = 0
+
+
+def pack_p_frame(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
+                 hdr_vals, hdr_lens):
+    """A P frame's slots -> flat uint8 buffer of FLAT_BYTES, the layout
+    of :func:`pack_frame`.
+
+    values/lengths (R, C, 26, 34) block slots, mbh_vals/mbh_lens (R, C, 7)
+    MB header slots, run_vals/run_lens (R,) the trailing skip run of each
+    row, hdr_vals/hdr_lens (R, 3) slice headers, all int32.  The overflow
+    caps are K3's, with the MB header in place of the MB syntax piece.
+    CUDA tensors launch the packer; CPU tensors run the plain version."""
+    nr, nc = mbh_vals.shape[:2]
+    dev = values.device
+    _check_slots({"values": (values, (nr, nc, 26, 34)),
+                  "lengths": (lengths, (nr, nc, 26, 34)),
+                  "mbh_vals": (mbh_vals, (nr, nc, 7)),
+                  "mbh_lens": (mbh_lens, (nr, nc, 7)),
+                  "run_vals": (run_vals, (nr,)), "run_lens": (run_lens, (nr,)),
+                  "hdr_vals": (hdr_vals, (nr, 3)),
+                  "hdr_lens": (hdr_lens, (nr, 3))}, dev)
+    if nr > MAX_META_ROWS:
+        raise ValueError(f"{nr} MB rows exceed the metadata header's "
+                         f"{MAX_META_ROWS}")
+    if dev.type == "cpu":
+        return pack_p_frame_plain(values, lengths, mbh_vals, mbh_lens,
+                                  run_vals, run_lens, hdr_vals, hdr_lens)
+    flat = torch.empty(FLAT_BYTES, dtype=torch.uint8, device=dev)
+    scratch = torch.empty(nr * nc * 30 + 4 * nr + 8, dtype=torch.int32,
+                          device=dev)
+    _cuda.launch("pack", "pack_p_frame_launch",
+                 [values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
+                  hdr_vals, hdr_lens, flat, scratch], [nr, nc], dev)
+    pack_p_frame.launches += 1
+    return flat
+
+
+pack_p_frame.launches = 0

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from ..bitstream import cavlc as ref
-from ..bitstream.h264_entropy import _CBP_INTRA_TO_CODENUM
+from ..bitstream.h264_entropy import (_CBP_INTER_TO_CODENUM,
+                                      _CBP_INTRA_TO_CODENUM)
 from . import _cuda
 from .bitmerge import (FLAT_CAP_WORDS, MAX_META_ROWS,  # noqa: F401
                        META_QP_SUM_WORD, META_WORDS, pack_frame)
@@ -248,6 +249,20 @@ def code_blocks(levels, nc, is_cdc, max_coeff):
     return values, lengths
 
 
+def ue_slots(v: torch.Tensor):
+    """Unsigned Exp-Golomb ue(v) as (value, length) slot tensors, v >= 0:
+    the codeword is v + 1 written in 2 * bit_length(v + 1) - 1 bits."""
+    code = v.to(torch.int64) + 1
+    nbits = torch.frexp(code.to(torch.float64))[1].to(torch.int64)
+    return code, 2 * nbits - 1
+
+
+def se_slots(v: torch.Tensor):
+    """Signed Exp-Golomb se(v): ue of 2v - 1 (v > 0) or -2v."""
+    v = v.to(torch.int64)
+    return ue_slots(torch.where(v > 0, 2 * v - 1, -2 * v))
+
+
 def nc_grid(tc: torch.Tensor, left_from_prev_mb: torch.Tensor) -> torch.Tensor:
     """nC for (R, C, B, B) per-block total_coeff grids: the above
     neighbour exists only inside the MB (the MB above is another slice);
@@ -414,7 +429,7 @@ def _level_shapes(nr: int, nc: int) -> dict:
 def _upload_tables(lib) -> None:
     arrays = [np.ascontiguousarray(a, np.int32) for a in (
         _CT_PACKED, _TZ_PACKED, _TZC_PACKED, _RB_PACKED,
-        _CBP_INTRA_TO_CODENUM)]
+        _CBP_INTRA_TO_CODENUM, _CBP_INTER_TO_CODENUM)]
     fn = lib.cavlc_upload_tables
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * len(arrays)

@@ -1,0 +1,225 @@
+"""Device-side CAVLC for P frames: the P slot coder (K6) and the fused
+P stage around it (P core K5, slots K6, packer K7).
+
+Replaces the reference's ``ops/cavlc_p_device.py`` (``p_mb_header_slots``,
+``p_frame_block_slots`` for inter MBs, ``pack_p_frame``,
+``encode_p_cavlc_frame``, ``_finish_p``):
+
+- **mb_skip_run**: with slice-per-row a skipped MB is exactly ``mv ==
+  (0, 0) and cbp == 0``; each coded MB's header carries the run of
+  skipped MBs before it, and each row ends with its trailing run.
+- **mvd**: mvp is the left MB's MV (spec 8.4.1.3 with B/C in other
+  slices), so mvd = mv - left mv, x first.
+- **residual blocks**: 26 per MB (16 luma 16-coefficient blocks, 2
+  chroma DC, 8 chroma AC), gated by the inter CBP (a luma bit per 8x8
+  group, Table 9-4 inter codeNum).
+
+Slot layouts: block slots (R, C, 26, 34) as the intra coder's; MB header
+(R, C, 7) = skip_run, mb_type, mvd_x, mvd_y, cbp, intra_chroma_pred_mode
+(always length 0 here), mb_qp_delta — every length 0 for a skipped MB.
+:func:`p_frame_slots` launches ``csrc/cavlc.cu``'s P kernels for CUDA
+tensors and runs :func:`p_frame_slots_plain` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..bitstream.h264_entropy import _CBP_INTER_TO_CODENUM
+from . import _cuda, h264_inter
+from .bitmerge import pack_p_frame
+from .cavlc_device import (_BLK_X, _BLK_Y, BLOCK_SLOTS, _pad16, _tables_on,
+                           _upload_tables, code_blocks, nc_grid, se_slots,
+                           ue_slots)
+
+P_MB_BLOCKS = 26          # 16 luma + 2 chroma DC + 8 chroma AC
+HDR_SLOT_COUNT = 7        # skip_run, mb_type, mvd_x, mvd_y, cbp,
+                          # intra_chroma_pred_mode, qp_delta
+_CBP_TO_CODENUM = _CBP_INTER_TO_CODENUM      # cbp (0..47) -> inter codeNum
+
+_LEVEL_KEYS = ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
+
+
+def p_mb_header_slots(mv: torch.Tensor, cbp: torch.Tensor):
+    """Per-MB P-slice header slots and each row's trailing skip run.
+
+    mv (R, C, 2) quarter-pel (dy, dx); cbp (R, C).  Returns (vals (R, C, 7),
+    lens (R, C, 7) — all zero for skipped MBs —, trail_vals (R,),
+    trail_lens (R,), skip (R, C) bool), int64 slot tensors."""
+    nr, nc = cbp.shape
+    dev = cbp.device
+    skip = (mv == 0).all(dim=-1) & (cbp == 0)
+    coded = ~skip
+    idx = torch.arange(nc, device=dev)[None, :].expand(nr, nc)
+    # most recent coded MB at or before each position, -1 if none
+    prev_incl = torch.cummax(torch.where(coded, idx, -1), dim=1).values
+    prev_excl = torch.cat([torch.full((nr, 1), -1, dtype=prev_incl.dtype,
+                                      device=dev), prev_incl[:, :-1]], dim=1)
+    run = idx - prev_excl - 1
+    mvp = torch.cat([torch.zeros_like(mv[:, :1]), mv[:, :-1]], dim=1)
+    mvd = mv.long() - mvp.long()
+    v_run, l_run = ue_slots(run)
+    v_type, l_type = ue_slots(torch.zeros_like(run))          # P_L0_16x16
+    v_mx, l_mx = se_slots(mvd[..., 1])
+    v_my, l_my = se_slots(mvd[..., 0])
+    cn = torch.as_tensor(_CBP_TO_CODENUM, dtype=torch.int64, device=dev)
+    v_cbp, l_cbp = ue_slots(cn[cbp.long()])
+    ones = torch.ones_like(run)
+    v_qpd, l_qpd = se_slots(torch.zeros_like(run))
+    l_qpd = torch.where(cbp > 0, l_qpd, 0)
+    vals = torch.stack([v_run, v_type, v_mx, v_my, v_cbp, ones, v_qpd], dim=-1)
+    lens = torch.stack([l_run, l_type, l_mx, l_my, l_cbp, 0 * ones, l_qpd],
+                       dim=-1) * coded[:, :, None]
+    trail = nc - 1 - prev_incl[:, -1]
+    tv, tl = ue_slots(trail)
+    return vals, lens, tv, torch.where(trail > 0, tl, 0), skip
+
+
+def p_frame_block_slots(out: dict):
+    """Inter residual tensors (the P core's dict) -> (values, lengths)
+    (R, C, 26, 34) int64 block slots, cbp (R, C) and mv."""
+    luma = out["luma"].long()                                # (R, C, 16, 16)
+    cb_dc, cb_ac = out["cb_dc"].long(), out["cb_ac"].long()
+    cr_dc, cr_ac = out["cr_dc"].long(), out["cr_ac"].long()
+    dev = luma.device
+    nr, nc_mb = luma.shape[:2]
+    by = torch.as_tensor(_BLK_Y, dtype=torch.long, device=dev)
+    bx = torch.as_tensor(_BLK_X, dtype=torch.long, device=dev)
+
+    grp_any = (luma.reshape(nr, nc_mb, 4, 64) != 0).any(dim=3)   # (R, C, 4)
+    cbp_luma = (grp_any.long() << torch.arange(4, device=dev)).sum(dim=2)
+    chroma_ac_any = ((cb_ac != 0).any(dim=3).any(dim=2)
+                     | (cr_ac != 0).any(dim=3).any(dim=2))
+    chroma_dc_any = (cb_dc != 0).any(dim=2) | (cr_dc != 0).any(dim=2)
+    cbp_chroma = torch.where(chroma_ac_any, 2, torch.where(chroma_dc_any, 1, 0))
+    cbp = cbp_luma + 16 * cbp_chroma
+
+    grp_gate = grp_any.repeat_interleave(4, dim=2)              # (R, C, 16)
+    tc_blk = (luma != 0).sum(dim=3) * grp_gate
+    tc_luma = torch.zeros((nr, nc_mb, 4, 4), dtype=torch.int64, device=dev)
+    tc_luma[:, :, by, bx] = tc_blk
+
+    def chroma_tc(ac):
+        t = (ac != 0).sum(dim=3) * (cbp_chroma == 2)[:, :, None]
+        return t.reshape(nr, nc_mb, 2, 2)
+
+    tc_cb, tc_cr = chroma_tc(cb_ac), chroma_tc(cr_ac)
+    ncl = nc_grid(tc_luma, tc_luma[:, :, :, 3])
+    nccb = nc_grid(tc_cb, tc_cb[:, :, :, 1])
+    nccr = nc_grid(tc_cr, tc_cr[:, :, :, 1])
+
+    blk_levels = torch.cat([luma, _pad16(cb_dc)[:, :, None, :],
+                            _pad16(cr_dc)[:, :, None, :], _pad16(cb_ac),
+                            _pad16(cr_ac)], dim=2)           # (R, C, 26, 16)
+    blk_nc = torch.cat([ncl[:, :, by, bx],
+                        torch.zeros((nr, nc_mb, 2), dtype=torch.int64,
+                                    device=dev),             # chroma DC: -1
+                        nccb.reshape(nr, nc_mb, 4),
+                        nccr.reshape(nr, nc_mb, 4)], dim=2)
+    is_cdc = torch.zeros(P_MB_BLOCKS, dtype=torch.bool, device=dev)
+    is_cdc[16:18] = True
+    max_coeff = torch.full((P_MB_BLOCKS,), 15, dtype=torch.int64, device=dev)
+    max_coeff[:16] = 16
+    max_coeff[16:18] = 4
+    nmb = nr * nc_mb
+    values, lengths = code_blocks(blk_levels.reshape(nmb * P_MB_BLOCKS, 16),
+                                  blk_nc.reshape(-1), is_cdc.repeat(nmb),
+                                  max_coeff.repeat(nmb))
+    values = values.reshape(nr, nc_mb, P_MB_BLOCKS, BLOCK_SLOTS)
+    lengths = lengths.reshape(nr, nc_mb, P_MB_BLOCKS, BLOCK_SLOTS)
+    gate = torch.cat([grp_gate,
+                      (cbp_chroma > 0)[:, :, None].expand(nr, nc_mb, 2),
+                      (cbp_chroma == 2)[:, :, None].expand(nr, nc_mb, 8)],
+                     dim=2)
+    return values, lengths * gate[:, :, :, None], cbp, out["mv"]
+
+
+def nnz_raster(luma: torch.Tensor) -> torch.Tensor:
+    """(R, C, 16 blkIdx, 16) levels -> (R, C, 4, 4) bool coded-coefficient
+    flags in raster [by][bx] order (the loop filter's bS = 2 input)."""
+    nr, nc = luma.shape[:2]
+    nz = torch.zeros((nr, nc, 4, 4), dtype=torch.bool, device=luma.device)
+    by = torch.as_tensor(_BLK_Y, dtype=torch.long, device=luma.device)
+    bx = torch.as_tensor(_BLK_X, dtype=torch.long, device=luma.device)
+    nz[:, :, by, bx] = (luma != 0).any(dim=-1)
+    return nz
+
+
+def p_frame_slots_plain(out: dict):
+    """Plain PyTorch version of K6.  Same contract as
+    :func:`p_frame_slots`."""
+    values, lengths, cbp, mv = p_frame_block_slots(out)
+    hv, hl, tv, tl, _ = p_mb_header_slots(mv, cbp)
+    i32 = lambda a: a.to(torch.int32)
+    return (i32(values), i32(lengths), i32(hv), i32(hl), i32(tv), i32(tl),
+            nnz_raster(out["luma"]))
+
+
+def p_frame_slots(out: dict):
+    """The P core's tensors -> (values (R, C, 26, 34), lengths, mbh_vals
+    (R, C, 7), mbh_lens, run_vals (R,), run_lens (R,), nnz (R, C, 4, 4)
+    bool); slot tensors int32 (values are the uint32 bit patterns).
+
+    CUDA tensors launch the slot coder: a per-MB pass for cbp, gates,
+    total_coeff and the nnz flags, then one thread per 4x4 block and one
+    per MB header (the last MB of a row also codes its trailing run).
+    CPU tensors run the plain version."""
+    nr, nc = out["mv"].shape[:2]
+    dev = out["mv"].device
+    shapes = {"mv": (nr, nc, 2), "luma": (nr, nc, 16, 16),
+              "cb_dc": (nr, nc, 4), "cb_ac": (nr, nc, 4, 15),
+              "cr_dc": (nr, nc, 4), "cr_ac": (nr, nc, 4, 15)}
+    for k, shape in shapes.items():
+        t = out[k]
+        if tuple(t.shape) != shape or t.dtype != torch.int32 or t.device != dev:
+            raise ValueError(f"out[{k!r}]: want {shape} int32 on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if dev.type == "cpu":
+        return p_frame_slots_plain(out)
+    lib = _cuda.library("cavlc")
+    if dev not in _tables_on:
+        with torch.cuda.device(dev):
+            _upload_tables(lib)
+        _tables_on.add(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    res = (torch.empty((nr, nc, P_MB_BLOCKS, BLOCK_SLOTS), **i32),
+           torch.empty((nr, nc, P_MB_BLOCKS, BLOCK_SLOTS), **i32),
+           torch.empty((nr, nc, HDR_SLOT_COUNT), **i32),
+           torch.empty((nr, nc, HDR_SLOT_COUNT), **i32),
+           torch.empty((nr,), **i32), torch.empty((nr,), **i32),
+           torch.empty((nr, nc, 4, 4), dtype=torch.bool, device=dev))
+    scratch = torch.empty((nr * nc, 32), **i32)
+    _cuda.launch("cavlc", "cavlc_p_slots_launch",
+                 [out[k] for k in shapes] + list(res) + [scratch],
+                 [nr, nc], dev)
+    p_frame_slots.launches += 1
+    return res
+
+
+p_frame_slots.launches = 0
+
+
+def _finish_p(out: dict, hdr_vals, hdr_lens):
+    """P core output -> (flat, recon_y, recon_cb, recon_cr, mv, nnz,
+    levels); ``levels`` are the residual tensors the host coder takes on
+    an overflow."""
+    values, lengths, mbh_v, mbh_l, run_v, run_l, nnz = p_frame_slots(out)
+    flat = pack_p_frame(values, lengths, mbh_v, mbh_l, run_v, run_l,
+                        hdr_vals, hdr_lens)
+    return (flat, out["recon_y"], out["recon_cb"], out["recon_cr"],
+            out["mv"], nnz, {k: out[k] for k in _LEVEL_KEYS})
+
+
+def encode_p_cavlc_frame(y, cb, cr, ref_y, ref_cb, ref_cr, hdr_vals,
+                         hdr_lens, qp: int):
+    """Fused P stage: the P core (K5), the P slot coder (K6) and the P
+    packer (K7).  Returns (flat, recon_y, recon_cb, recon_cr, mv, nnz,
+    levels).  The reference planes are only read; the recon planes are
+    new tensors."""
+    out = h264_inter.encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp)
+    return _finish_p(out, hdr_vals, hdr_lens)
+
+
+__all__ = ["P_MB_BLOCKS", "HDR_SLOT_COUNT", "encode_p_cavlc_frame",
+           "nnz_raster", "p_frame_block_slots", "p_frame_slots",
+           "p_frame_slots_plain", "p_mb_header_slots", "pack_p_frame"]

@@ -1,14 +1,22 @@
 """Content statistics of one frame on the device (K4): the per-MB
-damage grid and count against the previous ingest luma, and the
-``mb_activity`` percentiles p50/p95.
+damage grid and count against the previous ingest luma, the
+``mb_activity`` percentiles p50/p95, and where the encoder has them the
+luma SSE against the recon, the mean and p95 of |MV| and the
+skip/inter/intra MB counts.
 
 Replaces the reference's ``ops/content_stats.py`` ``frame_stats`` ->
-``_frame_vec`` on the path where no recon, MV field or residual is in
-reach (the all-intra encoder), so the vector is ``[-1, n_damage, -1, -1,
--1, -1, -1, act_p50, act_p95, R*C]``.  The stats never feed back into the
-encode.  :func:`frame_stats` runs ``csrc/content.cu`` for CUDA tensors and
-:func:`frame_stats_plain` for CPU tensors; :func:`frame_stats_np` is the
-host oracle (float64).
+``_frame_vec``.  :func:`frame_stats` is the form without recon, MV field
+or residual (the all-intra encoder): ``[-1, n_damage, -1, -1, -1, -1,
+-1, act_p50, act_p95, R*C]``.  :func:`frame_stats_full` takes them (the
+GOP encoder: the IDR passes its recon, every P frame recon, MVs and
+residual).  The stats never feed back into the encode.  Both run
+``csrc/content.cu`` for CUDA tensors and their plain versions for CPU
+tensors; :func:`frame_stats_np` is the host oracle (float64).
+
+The float slots: the SSE is an exact integer sum rounded once to float32
+and the |MV| mean a float64 sum rounded once, where the reference sums in
+float32 (order-dependent, ~1e-7 relative); the percentiles repeat
+jnp.percentile's float32 interpolation.
 """
 
 from __future__ import annotations
@@ -21,7 +29,8 @@ import torch
 from . import _cuda
 from .aq import mb_activity
 
-__all__ = ["VEC_LEN", "frame_stats", "frame_stats_plain", "frame_stats_np",
+__all__ = ["VEC_LEN", "frame_stats", "frame_stats_full",
+           "frame_stats_full_plain", "frame_stats_plain", "frame_stats_np",
            "mb_activity_np", "psnr_from_sse", "vec_to_stats"]
 
 # stats-vector slot layout (float32; -1.0 marks "not computed")
@@ -41,13 +50,13 @@ IDX_MBS = 9        # macroblock count (denominator, sanity echo)
 MAX_MBS = 1 << 15
 
 
-def _percentiles_f32(act: torch.Tensor) -> torch.Tensor:
-    """p50 and p95 of int activity values, as jnp.percentile's linear
+def _percentiles_f32(act: torch.Tensor, qs=(50.0, 95.0)) -> torch.Tensor:
+    """Percentiles ``qs`` of the values, as jnp.percentile's linear
     interpolation computes them in float32: q/100*(n-1), floor/ceil
     neighbours, low*(1-w) + high*w."""
     a = torch.sort(act.reshape(-1).to(torch.float32)).values
     n = a.shape[0]
-    q = torch.tensor([50.0, 95.0], dtype=torch.float32, device=a.device)
+    q = torch.tensor(qs, dtype=torch.float32, device=a.device)
     q = (q / 100.0) * float(n - 1)
     low, high = torch.floor(q), torch.ceil(q)
     hw = q - low
@@ -57,8 +66,11 @@ def _percentiles_f32(act: torch.Tensor) -> torch.Tensor:
     return lo_v * lw + hi_v * hw
 
 
-def frame_stats_plain(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int):
-    """Plain PyTorch version of K4: (vec float32 (10,), grid uint8 (R, C))."""
+def frame_stats_full_plain(y, prev_y, thr_sad: int, recon_y=None, mv=None,
+                           resid=None):
+    """Plain PyTorch version of K4 in its full form: (vec float32 (10,),
+    grid uint8 (R, C)).  ``resid`` is the P core's five residual level
+    tensors; the mode counts need it and ``mv``."""
     h, w = y.shape
     r, c = h // 16, w // 16
     d = (y.to(torch.int32) - prev_y.to(torch.int32)).abs()
@@ -66,8 +78,72 @@ def frame_stats_plain(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int):
     grid = (sad > thr_sad).to(torch.uint8)
     vec = torch.full((VEC_LEN,), -1.0, dtype=torch.float32, device=y.device)
     vec[IDX_DAMAGE] = grid.sum(dtype=torch.int32).to(torch.float32)
+    if recon_y is not None:
+        e = y.to(torch.int32) - recon_y.to(torch.int32)
+        mb_sse = (e * e).reshape(r, 16, c, 16).sum(dim=(1, 3), dtype=torch.int32)
+        vec[IDX_SSE] = mb_sse.sum(dtype=torch.int64).to(torch.float32)
+    if mv is not None:
+        m = mv.to(torch.float32)
+        mag = torch.sqrt((m * m).sum(dim=-1)).reshape(-1)
+        vec[IDX_MV_MEAN] = (mag.to(torch.float64).sum() / mag.numel()).to(
+            torch.float32)
+        vec[IDX_MV_P95] = _percentiles_f32(mag, (95.0,))[0]
+        if resid:
+            coded = torch.zeros((r, c), dtype=torch.bool, device=y.device)
+            for t in resid:
+                coded |= (t.reshape(r, c, -1) != 0).any(dim=-1)
+            skip = ~coded & (mv == 0).all(dim=-1)
+            n_skip = skip.sum(dtype=torch.int32)
+            vec[IDX_SKIP] = n_skip.to(torch.float32)
+            vec[IDX_INTER] = (r * c - n_skip).to(torch.float32)
+            vec[IDX_INTRA] = 0.0
     vec[IDX_ACT_P50:IDX_ACT_P95 + 1] = _percentiles_f32(mb_activity(y))
     vec[IDX_MBS] = float(r * c)
+    return vec, grid
+
+
+def frame_stats_plain(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int):
+    """Plain PyTorch version of K4: (vec float32 (10,), grid uint8 (R, C))."""
+    return frame_stats_full_plain(y, prev_y, thr_sad)
+
+
+def _check(y, prev_y, recon_y=None, mv=None, resid=None):
+    if y.dtype != torch.uint8 or prev_y.dtype != torch.uint8:
+        raise TypeError("luma planes must be uint8")
+    if y.dim() != 2 or y.shape != prev_y.shape or y.shape[0] % 16 \
+            or y.shape[1] % 16:
+        raise ValueError("luma planes must be equal MB-aligned 2-D planes")
+    r, c = y.shape[0] // 16, y.shape[1] // 16
+    want = {"prev_y": (prev_y, torch.uint8, tuple(y.shape))}
+    if recon_y is not None:
+        want["recon_y"] = (recon_y, torch.uint8, tuple(y.shape))
+    if mv is not None:
+        want["mv"] = (mv, torch.int32, (r, c, 2))
+    if resid:
+        if mv is None or len(resid) != 5:
+            raise ValueError("the mode counts need the MV field and the "
+                             "five residual tensors")
+        for k, t, shape in zip(("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac"),
+                               resid, ((r, c, 16, 16), (r, c, 4),
+                                       (r, c, 4, 15), (r, c, 4),
+                                       (r, c, 4, 15))):
+            want[k] = (t, torch.int32, shape)
+    for k, (t, dt, shape) in want.items():
+        if t.dtype != dt or tuple(t.shape) != shape or t.device != y.device:
+            raise ValueError(f"{k}: want {shape} {dt} on {y.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if y.device.type != "cpu" and r * c > MAX_MBS:
+        raise ValueError(f"{r * c} MBs exceed the kernel's {MAX_MBS}")
+
+
+def _launch(y, prev_y, thr_sad, recon_y, mv, resid):
+    r, c = y.shape[0] // 16, y.shape[1] // 16
+    vec = torch.empty(VEC_LEN, dtype=torch.float32, device=y.device)
+    grid = torch.empty((r, c), dtype=torch.uint8, device=y.device)
+    scratch = torch.empty(3 * r * c + 2, dtype=torch.int32, device=y.device)
+    _cuda.launch("content", "frame_stats_launch",
+                 [y, prev_y, recon_y, mv] + list(resid or (None,) * 5)
+                 + [vec, grid, scratch], [r, c, int(thr_sad)], y.device)
     return vec, grid
 
 
@@ -80,29 +156,36 @@ def frame_stats(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int):
     the activity sums, then one block sorting the activity values in
     shared memory for the percentiles.  CPU tensors run the plain
     version."""
-    if y.dtype != torch.uint8 or prev_y.dtype != torch.uint8:
-        raise TypeError("luma planes must be uint8")
-    if y.dim() != 2 or y.shape != prev_y.shape or y.shape[0] % 16 \
-            or y.shape[1] % 16:
-        raise ValueError("luma planes must be equal MB-aligned 2-D planes")
-    if y.device != prev_y.device:
-        raise ValueError("luma planes must share one device")
-    r, c = y.shape[0] // 16, y.shape[1] // 16
+    _check(y, prev_y)
     if y.device.type == "cpu":
         return frame_stats_plain(y, prev_y, int(thr_sad))
-    if r * c > MAX_MBS:
-        raise ValueError(f"{r * c} MBs exceed the kernel's {MAX_MBS}")
-    vec = torch.empty(VEC_LEN, dtype=torch.float32, device=y.device)
-    grid = torch.empty((r, c), dtype=torch.uint8, device=y.device)
-    scratch = torch.empty(r * c + 1, dtype=torch.int32, device=y.device)
-    _cuda.launch("content", "frame_stats_launch",
-                 [y.contiguous(), prev_y.contiguous(), vec, grid, scratch],
-                 [r, c, int(thr_sad)], y.device)
+    out = _launch(y, prev_y, thr_sad, None, None, None)
     frame_stats.launches += 1
-    return vec, grid
+    return out
 
 
 frame_stats.launches = 0
+
+
+def frame_stats_full(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int,
+                     recon_y: torch.Tensor, mv=None, resid=None):
+    """Per-frame stats with the recon (luma SSE) and, for a P frame, the
+    MV field (|MV| mean and p95) and the residual level tensors ``resid``
+    = (luma, cb_dc, cb_ac, cr_dc, cr_ac) (skip/inter/intra counts).
+
+    CUDA tensors launch the kernel as :func:`frame_stats` does, with the
+    SSE, |MV| and coded flags in the per-MB pass and a second sort for
+    the |MV| p95.  CPU tensors run the plain version."""
+    _check(y, prev_y, recon_y, mv, resid)
+    if y.device.type == "cpu":
+        return frame_stats_full_plain(y, prev_y, int(thr_sad), recon_y, mv,
+                                      resid)
+    out = _launch(y, prev_y, thr_sad, recon_y, mv, resid)
+    frame_stats_full.launches += 1
+    return out
+
+
+frame_stats_full.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,351 @@
+"""H.264 P core (K5): motion estimation, motion compensation, inter
+residual transform/quant and the closed-loop reconstruction of one frame.
+
+Replaces the reference's ``ops/h264_inter.py`` ``encode_p_frame`` /
+``encode_p_frame_padded_ref`` for ``refine="alt"``, ``tune="off"``,
+``p_intra=False``.  Each MB row is its own slice, so the MV predictor is
+the left MB's MV and motion search has no cross-MB dependency.  Per MB:
+
+- coarse integer search: the 81 shifts of a step-2 grid over +-SEARCH_R
+  (dy outer, dx inner), SAD over the even luma lines, ZERO_MV_BIAS/2
+  off the (0, 0) candidate, first minimum wins;
+- +-1 integer re-rank around it (``[(0, 0)] + neighbours``), the zero
+  bias /2 on the centre only when the coarse MV is zero;
+- half-pel refinement over the normative 6-tap b/h/j planes, kept only
+  when ``min + HALF_BIAS/2 < current``; then quarter-pel refinement from
+  rounded averages of full/half samples (``QPEL``), kept only when
+  ``min + QUARTER_BIAS/2 < current`` — both on even lines;
+- the luma prediction at the final quarter-pel MV, chroma by the 1/8-pel
+  bilinear filter, 16 inter 4x4 luma blocks (no DC Hadamard), chroma
+  with the 2x2 DC Hadamard, inter rounding (f = 2^qbits / 6).
+
+The reference reads an edge-padded copy of the reference planes; every
+read the MV range reaches stays inside that padding, so the port clamps
+coordinates instead.  Outputs: ``mv`` (R, C, 2) quarter-pel (dy, dx),
+``luma`` (R, C, 16 blkIdx, 16 zigzag), ``cb_dc``/``cr_dc`` (R, C, 4),
+``cb_ac``/``cr_ac`` (R, C, 4, 15), all int32, and the uint8 recon
+planes.  :func:`encode_p_frame` launches ``csrc/inter.cu`` for CUDA
+tensors and runs :func:`encode_p_frame_plain` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _cuda, quant
+from .dct import fdct4x4, hadamard2x2, idct4x4
+from .h264_device import LUMA_BLOCK_ORDER, _blocks, _check_planes, _unblocks
+from .scan import ZIGZAG4
+
+SEARCH_R = 8          # +-8 luma pels integer search -> 17x17 candidates
+ZERO_MV_BIAS = 128    # SAD bonus for (0,0): prefer skip-able MBs
+HALF_BIAS = 96        # half-pel refine must beat integer by this margin
+QUARTER_BIAS = 64     # quarter-pel refine margin over the half-pel best
+_PAD = SEARCH_R + 5   # MV range + 6-tap reach + quarter-pel +1 neighbor
+
+# The refinement stages score every other luma line (refine="alt"), so
+# their SADs and biases are on half scale.
+_SCALE = 2
+
+# neighbours of a refinement centre, dy outer, dx inner
+NEIGHBORS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+             if (dy, dx) != (0, 0)]
+
+# Quarter-sample prediction per fraction (fy, fx): (plane, dy, dx) of one
+# or two samples to average, planes 0 = full, 1 = b (horizontal half),
+# 2 = h (vertical half), 3 = j (centre), offsets in integer pels.
+QPEL = {
+    (0, 0): ((0, 0, 0),),
+    (0, 1): ((0, 0, 0), (1, 0, 0)),       # a = (G + b + 1) >> 1
+    (0, 2): ((1, 0, 0),),                 # b
+    (0, 3): ((1, 0, 0), (0, 0, 1)),       # c = (b + H) — H right full
+    (1, 0): ((0, 0, 0), (2, 0, 0)),       # d
+    (1, 1): ((1, 0, 0), (2, 0, 0)),       # e = (b + h)
+    (1, 2): ((1, 0, 0), (3, 0, 0)),       # f = (b + j)
+    (1, 3): ((1, 0, 0), (2, 0, 1)),       # g = (b + m) — m right h
+    (2, 0): ((2, 0, 0),),                 # h
+    (2, 1): ((2, 0, 0), (3, 0, 0)),       # i = (h + j)
+    (2, 2): ((3, 0, 0),),                 # j
+    (2, 3): ((3, 0, 0), (2, 0, 1)),       # k = (j + m)
+    (3, 0): ((2, 0, 0), (0, 1, 0)),       # n = (h + M) — M below full
+    (3, 1): ((2, 0, 0), (1, 1, 0)),       # p = (h + s) — s below b
+    (3, 2): ((3, 0, 0), (1, 1, 0)),       # q = (j + s)
+    (3, 3): ((2, 0, 1), (1, 1, 0)),       # r = (m + s)
+}
+
+
+def _candidate_shifts() -> np.ndarray:
+    """Coarse stage: step-2 grid over the window, (81, 2) (dy, dx) with
+    dy outer."""
+    steps = np.arange(-SEARCH_R, SEARCH_R + 1, 2, dtype=np.int32)
+    dy, dx = np.meshgrid(steps, steps, indexing="ij")
+    return np.stack([dy.ravel(), dx.ravel()], axis=1)
+
+
+def _tap6(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The 6-tap half-pel filter (1, -5, 20, 20, -5, 1) along ``dim``,
+    unrounded (the b1/h1 intermediates); 5 samples shorter."""
+    n = x.shape[dim] - 5
+    s = lambda k: x.narrow(dim, k, n)
+    return s(0) - 5 * s(1) + 20 * s(2) + 20 * s(3) - 5 * s(4) + s(5)
+
+
+def _halfpel_planes(ref_pad: torch.Tensor):
+    """(b, h, j) half-sample planes of an edge-padded int32 reference,
+    aligned so index (y, x) of each is the half sample at (y + frac/2,
+    x + frac/2) of ``ref_pad[2:-3, 2:-3]``.  j is the vertical 6-tap over
+    the unrounded b1 intermediates."""
+    b1 = _tap6(ref_pad, 1)
+    b = torch.clamp((b1 + 16) >> 5, 0, 255)
+    h1 = _tap6(ref_pad, 0)
+    h = torch.clamp((h1 + 16) >> 5, 0, 255)
+    j = torch.clamp((_tap6(b1, 0) + 512) >> 10, 0, 255)
+    return b[2:-3, :], h[:, 2:-3], j
+
+
+def _edge_pad(plane: torch.Tensor, pad: int) -> torch.Tensor:
+    """Replicate the edges of a 2-D plane by ``pad`` on every side."""
+    h, w = plane.shape
+    iy = torch.arange(-pad, h + pad, device=plane.device).clamp(0, h - 1)
+    ix = torch.arange(-pad, w + pad, device=plane.device).clamp(0, w - 1)
+    return plane[iy][:, ix]
+
+
+def _windows(plane: torch.Tensor, base_y: torch.Tensor, base_x: torch.Tensor,
+             size: int) -> torch.Tensor:
+    """(R, C, size, size) per-MB windows ``plane[base_y + i, base_x + j]``."""
+    ar = torch.arange(size, device=plane.device)
+    iy = base_y[:, :, None, None] + ar[:, None]
+    ix = base_x[:, :, None, None] + ar[None, :]
+    return plane[iy, ix]
+
+
+def _first_argmin(sads: torch.Tensor):
+    """(index, value) of the first minimum along dim 0."""
+    idx = torch.argmin(sads, dim=0)
+    return idx, torch.gather(sads, 0, idx[None])[0]
+
+
+def encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int) -> dict:
+    """Plain PyTorch version of K5 (whole-frame tensor ops, the
+    reference's stage order).  Same contract as :func:`encode_p_frame`."""
+    y = y.to(torch.int32)
+    cb = cb.to(torch.int32)
+    cr = cr.to(torch.int32)
+    dev = y.device
+    pad_h, pad_w = y.shape
+    nr, nc = pad_h // 16, pad_w // 16
+    qp_c = quant.chroma_qp(qp)
+    ref_pad = _edge_pad(ref_y.to(torch.int32), _PAD)
+    rows = torch.arange(nr, device=dev)[:, None].expand(nr, nc)
+    cols = torch.arange(nc, device=dev)[None, :].expand(nr, nc)
+
+    # --- coarse grid: 81 even-line SADs per MB --------------------------
+    shifts = torch.as_tensor(_candidate_shifts(), device=dev)
+    y_alt = y[0::2]
+    sads = []
+    for dy, dx in _candidate_shifts().tolist():
+        sh = ref_pad[_PAD + dy:_PAD + dy + pad_h:2, _PAD + dx:_PAD + dx + pad_w]
+        sads.append((y_alt - sh).abs().reshape(nr, 8, nc, 16).sum(
+            dim=(1, 3), dtype=torch.int32))
+    sads = torch.stack(sads)
+    zero_idx = sads.shape[0] // 2
+    sads[zero_idx] -= ZERO_MV_BIAS // 2
+    best, _ = _first_argmin(sads)
+    mv_coarse = shifts[best]                                # (R, C, 2)
+
+    full_pl = ref_pad[2:-3, 2:-3]
+    planes = (full_pl,) + _halfpel_planes(ref_pad)
+    cur_y = y.reshape(nr, 16, nc, 16).permute(0, 2, 1, 3)
+    cur_cmp = cur_y[:, :, 0::2, :]
+
+    def sad(pred):
+        return (cur_cmp - pred).abs().sum(dim=(2, 3), dtype=torch.int32)
+
+    # --- +-1 integer re-rank: window one pel above-left of mv_coarse ------
+    # plane row r*16 + 10 + mv + i is luma row r*16 + mv - 1 + i
+    w18 = _windows(full_pl, rows * 16 + 10 + mv_coarse[..., 0],
+                   cols * 16 + 10 + mv_coarse[..., 1], 18)
+    cands = [(0, 0)] + NEIGHBORS
+    int_sads = torch.stack([sad(w18[:, :, 1 + oy:17 + oy:2, 1 + ox:17 + ox])
+                            for oy, ox in cands])
+    is_zero = (mv_coarse == 0).all(dim=-1)
+    int_sads[0] -= torch.where(is_zero, ZERO_MV_BIAS // _SCALE, 0).to(
+        torch.int32)
+    best_int, best_sad = _first_argmin(int_sads)
+    mv_int = mv_coarse + torch.as_tensor(cands, device=dev)[best_int]
+
+    # --- half-pel refinement over the b/h/j planes ------------------------
+    w = [_windows(p, rows * 16 + 10 + mv_int[..., 0],
+                  cols * 16 + 10 + mv_int[..., 1], 18) for p in planes]
+
+    def wslice(p, ry, rx):
+        return w[p][:, :, 1 + ry:17 + ry:2, 1 + rx:17 + rx]
+
+    nb = torch.as_tensor(NEIGHBORS, device=dev)
+    half_sads = torch.stack([
+        sad(wslice((oy & 1) * 2 + (ox & 1), oy >> 1, ox >> 1))
+        for oy, ox in NEIGHBORS])
+    best_half, half_min = _first_argmin(half_sads)
+    use_half = half_min + HALF_BIAS // _SCALE < best_sad
+    mv_h = mv_int * 2 + torch.where(use_half[..., None], nb[best_half], 0)
+    sad_h = torch.where(use_half, half_min, best_sad)
+
+    # --- quarter-pel refinement -------------------------------------------
+    def qpred(ry, rx, fy, fx):
+        parts = QPEL[(fy, fx)]
+        p0, dy0, dx0 = parts[0]
+        a = wslice(p0, ry + dy0, rx + dx0)
+        if len(parts) == 1:
+            return a
+        p1, dy1, dx1 = parts[1]
+        return (a + wslice(p1, ry + dy1, rx + dx1) + 1) >> 1
+
+    hdy = mv_h[..., 0] - 2 * mv_int[..., 0]                 # in {-1, 0, 1}
+    hdx = mv_h[..., 1] - 2 * mv_int[..., 1]
+    q_sads = []
+    for qy, qx in NEIGHBORS:
+        pk = torch.zeros_like(cur_cmp)
+        for hy in (-1, 0, 1):
+            ey = 2 * hy + qy
+            for hx in (-1, 0, 1):
+                ex = 2 * hx + qx
+                m = ((hdy == hy) & (hdx == hx))[..., None, None]
+                pk = torch.where(m, qpred(ey >> 2, ex >> 2, ey & 3, ex & 3), pk)
+        q_sads.append(sad(pk))
+    best_q, q_min = _first_argmin(torch.stack(q_sads))
+    use_q = q_min + QUARTER_BIAS // _SCALE < sad_h
+    mv = mv_h * 2 + torch.where(use_q[..., None], nb[best_q], 0)
+
+    # --- final luma prediction at the chosen quarter-pel MV ---------------
+    e = mv - 4 * mv_int                                     # in [-3, 3]
+    rel_y, rel_x = ((e[..., k] >> 2)[..., None, None] for k in (0, 1))
+    frac_y, frac_x = ((e[..., k] & 3)[..., None, None] for k in (0, 1))
+    nw = []
+    for t in w:
+        t = torch.where(rel_y == -1, t[:, :, 0:17, :], t[:, :, 1:18, :])
+        t = torch.where(rel_x == -1, t[..., 0:17], t[..., 1:18])
+        nw.append(t)
+    pred_y = torch.zeros_like(cur_y)
+    for fy in range(4):
+        for fx in range(4):
+            parts = QPEL[(fy, fx)]
+            p0, dy0, dx0 = parts[0]
+            a = nw[p0][:, :, dy0:dy0 + 16, dx0:dx0 + 16]
+            if len(parts) == 2:
+                p1, dy1, dx1 = parts[1]
+                a = (a + nw[p1][:, :, dy1:dy1 + 16, dx1:dx1 + 16] + 1) >> 1
+            pred_y = torch.where((frac_y == fy) & (frac_x == fx), a, pred_y)
+
+    # --- chroma MC: 1/8-pel bilinear at mv (eighth-chroma units) ----------
+    c_off = mv >> 3
+    c_frac = mv & 7
+
+    def mc_chroma(rp):
+        wc = _windows(_edge_pad(rp.to(torch.int32), _PAD),
+                      rows * 8 + _PAD + c_off[..., 0],
+                      cols * 8 + _PAD + c_off[..., 1], 9)
+        yf = c_frac[..., 0][..., None, None]
+        xf = c_frac[..., 1][..., None, None]
+        return ((8 - xf) * (8 - yf) * wc[:, :, :8, :8]
+                + xf * (8 - yf) * wc[:, :, :8, 1:9]
+                + (8 - xf) * yf * wc[:, :, 1:9, :8]
+                + xf * yf * wc[:, :, 1:9, 1:9] + 32) >> 6
+
+    # --- luma residual: 16 inter 4x4 blocks -------------------------------
+    lv = quant.h264_quantize_4x4(fdct4x4(_blocks(cur_y - pred_y, 4)), qp,
+                                 intra=False)
+    recon_y = torch.clamp(
+        pred_y + _unblocks(idct4x4(quant.h264_dequantize_4x4(lv, qp))),
+        0, 255)
+    zz = torch.as_tensor(ZIGZAG4, dtype=torch.long, device=dev)
+    blk_y = torch.as_tensor(LUMA_BLOCK_ORDER[:, 1], dtype=torch.long,
+                            device=dev)
+    blk_x = torch.as_tensor(LUMA_BLOCK_ORDER[:, 0], dtype=torch.long,
+                            device=dev)
+    luma = lv.reshape(nr, nc, 4, 4, 16)[..., zz][:, :, blk_y, blk_x]
+
+    def chroma(cur, pred):
+        w = fdct4x4(_blocks(cur - pred, 2))                 # (R,C,2,2,4,4)
+        ac = quant.h264_quantize_4x4(w, qp_c, intra=False)
+        ac[..., 0, 0] = 0
+        dcl = quant.h264_quantize_chroma_dc(hadamard2x2(w[..., 0, 0]), qp_c,
+                                            intra=False)
+        wr = quant.h264_dequantize_4x4(ac, qp_c)
+        wr[..., 0, 0] = quant.h264_dequantize_chroma_dc(hadamard2x2(dcl),
+                                                        qp_c)
+        rec = torch.clamp(pred + _unblocks(idct4x4(wr)), 0, 255)
+        return (ac.reshape(nr, nc, 4, 16)[..., zz[1:]], dcl.reshape(nr, nc, 4),
+                rec)
+
+    def mbs(plane, n):
+        return plane.reshape(nr, n, nc, n).permute(0, 2, 1, 3)
+
+    cb_ac, cb_dc, rec_cb = chroma(mbs(cb, 8), mc_chroma(ref_cb))
+    cr_ac, cr_dc, rec_cr = chroma(mbs(cr, 8), mc_chroma(ref_cr))
+
+    def plane(rec, n):
+        return rec.permute(0, 2, 1, 3).reshape(nr * n, nc * n).to(torch.uint8)
+
+    i32 = lambda a: a.to(torch.int32).contiguous()
+    return {
+        "mv": i32(mv), "luma": i32(luma),
+        "cb_dc": i32(cb_dc), "cb_ac": i32(cb_ac),
+        "cr_dc": i32(cr_dc), "cr_ac": i32(cr_ac),
+        "recon_y": plane(recon_y, 16), "recon_cb": plane(rec_cb, 8),
+        "recon_cr": plane(rec_cr, 8),
+    }
+
+
+_OUT_KEYS = ("mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac",
+             "recon_y", "recon_cb", "recon_cr")
+
+
+def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
+                   refine: str = "alt", tune: str = "off",
+                   p_intra: bool = False) -> dict:
+    """P core for one frame: current and reference uint8 YUV 4:2:0
+    planes (MB-padded) -> MVs, level tensors and recon planes.
+
+    The reference planes are only read: the recon goes to new buffers,
+    so a pipelined caller may keep them.  CUDA tensors launch the kernel
+    (one CUDA block per MB: every MB's search and residual is
+    independent); CPU tensors run the plain version."""
+    if refine != "alt":
+        raise NotImplementedError(
+            f"refine={refine!r} is not ported to the PyTorch/CUDA encoder "
+            "yet (ROADMAP queue 1 item 17)")
+    if tune != "off" or p_intra:
+        raise NotImplementedError(
+            f"tune={tune!r} / p_intra={p_intra} is not ported to the "
+            "PyTorch/CUDA encoder yet (ROADMAP queue 1 item 10)")
+    _check_planes(y, cb, cr)
+    _check_planes(ref_y, ref_cb, ref_cr)
+    if ref_y.shape != y.shape or ref_y.device != y.device:
+        raise ValueError("reference planes must match the current frame")
+    if not 0 <= int(qp) <= 51:
+        raise ValueError(f"qp {qp} outside 0..51")
+    if y.device.type == "cpu":
+        return encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, int(qp))
+    pad_h, pad_w = y.shape
+    nr, nc = pad_h // 16, pad_w // 16
+    dev = y.device
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    out = {"mv": i32(nr, nc, 2), "luma": i32(nr, nc, 16, 16),
+           "cb_dc": i32(nr, nc, 4), "cb_ac": i32(nr, nc, 4, 15),
+           "cr_dc": i32(nr, nc, 4), "cr_ac": i32(nr, nc, 4, 15),
+           "recon_y": torch.empty_like(y), "recon_cb": torch.empty_like(cb),
+           "recon_cr": torch.empty_like(cr)}
+    _cuda.launch("inter", "inter_frame_launch",
+                 [y, cb, cr, ref_y, ref_cb, ref_cr]
+                 + [out[k] for k in _OUT_KEYS],
+                 [nr, nc, int(qp), quant.chroma_qp(int(qp))], dev)
+    encode_p_frame.launches += 1
+    return out
+
+
+encode_p_frame.launches = 0

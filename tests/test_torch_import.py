@@ -33,6 +33,30 @@ print("LEAKED", bad)
 """
 
 
+_BLOCKED_GOP = """
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, {repo!r})
+import numpy as np
+from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+# the default configuration: GOP 60, deblock on, rate control on
+enc, codec = make_encoder(from_env({{"SIZEW": "64", "SIZEH": "48"}}), 64, 48,
+                          device="cpu")
+assert enc.gop == 60 and enc.deblock and enc._rate is not None
+frame = np.full((48, 64, 3), 90, np.uint8)
+keys = []
+for i in range(3):
+    frame[8:24, 4 * i:4 * i + 16] = 200
+    keys.append(enc.encode_collect(enc.encode_submit(frame)).keyframe)
+assert keys == [True, False, False], keys
+bad = sorted(m for m in sys.modules
+             if m == "docker_nvidia_glx_desktop_tpu"
+             or m.startswith("docker_nvidia_glx_desktop_tpu."))
+print("LEAKED", bad)
+"""
+
+
 def _run(code: str, cwd=None, timeout=120):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -42,6 +66,12 @@ def _run(code: str, cwd=None, timeout=120):
 
 def test_port_encodes_with_jax_blocked_and_no_reference_module():
     out = _run(_BLOCKED_IMPORT.format(repo=str(REPO)), cwd=str(REPO.parent))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LEAKED []" in out.stdout
+
+
+def test_port_encodes_a_gop_with_jax_blocked():
+    out = _run(_BLOCKED_GOP.format(repo=str(REPO)), cwd=str(REPO.parent))
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LEAKED []" in out.stdout
 
@@ -75,7 +105,7 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"ENCODER_GOP": "60"}, "item 4"),
+    ({"ENCODER_GOP": "60", "ENCODER_SUPERSTEP_CHUNK": "4"}, "item 8"),
     ({"ENCODER_GOP": "1", "ENCODER_ENTROPY": "cabac"}, "item 7"),
     ({"ENCODER_GOP": "1", "ENCODER_TUNE": "hq"}, "item 10"),
     ({"ENCODER_GOP": "1", "ENCODER_SUPERSTEP_CHUNK": "4"}, "item 8"),
