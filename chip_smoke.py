@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in two phases:
+seeded generator, in four phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -14,7 +14,16 @@ seeded generator, in two phases:
   text and a window dragged by a sub-pel displacement, a requested
   keyframe halfway (a second IDR through the intra loop filter), one
   full-noise P frame that overflows the packer and takes the P host
-  fallback, two frames in flight (K1-K3, K4 full form, K5-K8).
+  fallback, two frames in flight (K1-K3, K4 full form, K5-K8);
+- **colour**: the default configuration at an odd geometry
+  (1919x1079), which the host converter cannot take: the device colour
+  conversion (K9) on every frame, two frames in flight;
+- **cabac**: ``ENCODER_ENTROPY=cabac`` (GOP 60, deblock, rate control)
+  on both transports, ``ENCODER_CABAC_BINARIZE=host`` (K10, the native
+  level decoder and CABAC coder) and ``=device`` (K11i/K11p, the native
+  arithmetic engine), an IDR and P frames, two frames in flight (K1,
+  K4 full, K5, K8 and the route's kernels); at a low fixed qp a noise P
+  frame whose records overflow takes the dense coder.
 
 Checks, each of which fails the run:
 
@@ -26,12 +35,21 @@ Checks, each of which fails the run:
           stated relative tolerance), timed with CUDA events
   (b)     every access unit against the plain path on the card; in the
           GOP phase every deblocked reference against the plain chain
-  (c)     where cv2 decodes H.264, the decoded luma of the GOP stream
-          against the encoder's deblocked references
+  (c)     where cv2 decodes H.264, the decoded luma of the GOP and CABAC
+          streams against the encoder's deblocked references
+  colour  the odd-geometry stream against one whose colour conversion
+          is the plain version; K9 on 1080p and odd frames
+  cabac   both routes' access units byte-identical; every K10 and K11
+          transport of both runs against its plain version; the overflow
+          flags of K10, K11i and K11p on one giant level; the native
+          library built by g++ from the port's ``native/`` into its
+          ``build/``, and the native coder and engine, never the Python
+          coder, coded every frame
   check   NAL structure, recon PSNR, qp moved, no jax imported
 
 Prints the card's name and power limit, per-kernel times beside their
-bounds, the GOP path's frames/s, p50 frame ms, busy share and host spans,
+bounds, the GOP and CABAC paths' frames/s, p50 frame ms and host spans
+(the CABAC span per route), the GOP path's busy share,
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, without CUDA or
 outside a checkout of the repository.
@@ -63,6 +81,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SCALAR_OPS_PER_S = 67e12
 EXACT_REL_TOL = 1e-6       # activity percentiles (float32 interpolation)
 FLOAT_REL_TOL = 1e-5       # SSE, |MV| mean and p95 of the full K4 form
+COLOUR_FRAMES = 4          # colour phase: odd geometry, device colour (K9)
+ODD_W, ODD_H = 1919, 1079
+CABAC_FRAMES = 12          # CABAC phase: an IDR and P frames, per route
+CABAC_DENSE_QP = "8"       # a noise P frame at this qp passes the record budget
 
 
 class SmokeError(RuntimeError):
@@ -225,7 +247,8 @@ def kernel_row(name, src, replaces, launches, err, ms, plain_ms, nb, ops=0.0):
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
     return {"name": name, "route": "cuda",
             "source": "docker_nvidia_glx_desktop_tpu_torch/csrc/" + src,
-            "replaces": "docker_nvidia_glx_desktop_tpu/ops/" + replaces,
+            "replaces": "docker_nvidia_glx_desktop_tpu/" + (
+                replaces if replaces.startswith("models/") else "ops/" + replaces),
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
@@ -273,10 +296,34 @@ def run():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    # -- build -----------------------------------------------------------
+    # -- build: nvcc per CUDA source and g++ for the native library, at once
+    import threading
+
+    from docker_nvidia_glx_desktop_tpu_torch.native import lib as native_lib
+
     t0 = time.perf_counter()
+    native = {}
+
+    def build_native():
+        try:
+            native_lib.get_lib()
+            native["s"] = time.perf_counter() - t0
+        except RuntimeError as e:
+            native["error"] = str(e)
+
+    th = threading.Thread(target=build_native)
+    th.start()
     logs = _cuda.build(verbose=True)
     report["build_s"] = time.perf_counter() - t0
+    th.join()
+    check("error" not in native, f"native library: {native.get('error')}")
+    so = native_lib._so_path()
+    check(os.path.dirname(so) == os.path.join(HERE, "docker_nvidia_glx_desktop_tpu_torch",
+                                              "build") and os.path.exists(so),
+          f"the native library is not the port's own build: {so}")
+    report["native_build_s"] = native["s"]
+    print(f"native library: built with g++ from the port's native/ in "
+          f"{native['s']:.1f} s")
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
@@ -286,6 +333,10 @@ def run():
     print(f"intra phase done at {time.perf_counter() - t_start:.0f} s")
     rows += gop_phase(report)
     print(f"gop phase done at {time.perf_counter() - t_start:.0f} s")
+    rows += colour_phase(report)
+    print(f"colour phase done at {time.perf_counter() - t_start:.0f} s")
+    rows += cabac_phase(report)
+    print(f"cabac phase done at {time.perf_counter() - t_start:.0f} s")
     check("jax" not in sys.modules, "the port imported jax")
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
@@ -374,10 +425,8 @@ def intra_phase(report):
         t = time.perf_counter()
         rgb_to_yuv420_host(f, enc.pad_h, enc.pad_w, float_fallback=True)
         col.append((time.perf_counter() - t) * 1e3)
-    planes0 = tokens[0][4][3]
+    y0, cb0, cr0 = tokens[0][4][3]          # the submit's device planes
     hv, hl = enc._hdr_slots(0, tokens[0][4][2] - enc.qp)
-    y0, cb0, cr0 = (torch.from_numpy(np.ascontiguousarray(p)).to(dev)
-                    for p in planes0)
     flat0 = bitmerge.pack_frame(
         *cavlc_device.frame_block_slots(
             h264_device.encode_intra_frame_yuv(y0, cb0, cr0, tokens[0][4][2])),
@@ -402,9 +451,7 @@ def intra_phase(report):
     rows = []
     dirty = tokens[NOISY_AT][4]
     for label, tok in (("desktop", tokens[3][4]), ("overflow", dirty)):
-        _, idr, qp, planes, _, _, _ = tok
-        y, cb, cr = (torch.from_numpy(np.ascontiguousarray(p)).to(dev)
-                     for p in planes)
+        _, idr, qp, (y, cb, cr), _, _, _ = tok
         hv, hl = enc._hdr_slots(idr, qp - enc.qp)
         lv_k = h264_device.encode_intra_frame_yuv(y, cb, cr, qp)
         lv_p = h264_device.encode_intra_frame_yuv_plain(y, cb, cr, qp)
@@ -426,7 +473,7 @@ def intra_phase(report):
             check(not bool(fl_k[n:].any()), f"K3 {label}: tail not zero")
         check(m_k.overflow == (label == "overflow"),
               f"K3 {label}: overflow flag {m_k.overflow}")
-        prev = torch.from_numpy(np.ascontiguousarray(tokens[2][4][3][0])).to(dev)
+        prev = tokens[2][4][3][0]
         v_k, g_k = content_stats.frame_stats(y, prev, 512)
         v_p, g_p = content_stats.frame_stats_plain(y, prev, 512)
         check(torch.equal(g_k, g_p), f"K4 {label}: damage grid differs")
@@ -481,9 +528,7 @@ def intra_phase(report):
 
     # -- (b) every access unit against the plain path on the card ------------
     for i, tok in enumerate(tokens):
-        _, idr, qp, planes, _, _, _ = tok[4]
-        y, cb, cr = (torch.from_numpy(np.ascontiguousarray(p)).to(dev)
-                     for p in planes)
+        _, idr, qp, (y, cb, cr), _, _, _ = tok[4]
         hv, hl = enc._hdr_slots(idr, qp - enc.qp)
         lv = h264_device.encode_intra_frame_yuv_plain(y, cb, cr, qp)
         flat = bitmerge.pack_frame_plain(
@@ -842,6 +887,429 @@ def gop_phase(report):
                          submit_ms=sub, collect_ms=col,
                          colour_ms=statistics.median(colour),
                          nal_ms=statistics.median(nal), device_busy=busy)
+    return rows
+
+
+def colour_phase(report):
+    """Device colour (K9): an odd geometry, which the host converter
+    cannot take, through ``make_encoder`` (the default GOP configuration,
+    two frames in flight); the access units against an encoder whose
+    colour is the plain version; K9 against its plain version on 1080p
+    and odd frames, and against cv2's host conversion plus upload."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import color
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+    from docker_nvidia_glx_desktop_tpu_torch.utils.hostcolor import (
+        rgb_to_yuv420_host)
+
+    dev = torch.device("cuda")
+    frames = [np.ascontiguousarray(f[:ODD_H, :ODD_W])
+              for f in gop_frames(COLOUR_FRAMES, seed=3)]
+    cfg = from_env({"SIZEW": str(ODD_W), "SIZEH": str(ODD_H)})
+
+    def run_stream():
+        enc, _ = make_encoder(cfg, ODD_W, ODD_H)
+        aus, pending = [], []
+        for f in frames + [None]:
+            if f is not None:
+                pending.append(enc.encode_submit(f))
+            if len(pending) == 2 or (f is None and pending):
+                aus.append(enc.encode_collect(pending.pop(0)).data)
+        return enc, aus
+
+    # -- main path ----------------------------------------------------------
+    color.rgb_to_yuv420.launches = 0
+    enc, aus = run_stream()
+    torch.cuda.synchronize()
+    launches = color.rgb_to_yuv420.launches
+    print(f"colour main: {len(aus)} frames at {ODD_W}x{ODD_H} (host_color "
+          f"{enc.host_color}, no host planes for odd geometry), K9 launches "
+          f"{launches}")
+    check(launches == COLOUR_FRAMES, f"K9 launched {launches} times for "
+          f"{COLOUR_FRAMES} frames")
+    # (b) the same stream with the plain colour conversion
+    kernel = color.rgb_to_yuv420
+
+    def plain(rgb, pad_h, pad_w):
+        return color.rgb_to_yuv420_plain(rgb, pad_h, pad_w)
+
+    color.rgb_to_yuv420 = plain
+    try:
+        _, want = run_stream()
+    finally:
+        color.rgb_to_yuv420 = kernel
+    check(aus == want, "(b) colour: the AUs differ from those of the plain "
+          "colour conversion")
+    print(f"(b) colour: {len(aus)} access units equal to the plain colour's")
+
+    # -- (a) K9 against its plain version, exact -----------------------------
+    ph, pw = -(-H // 16) * 16, -(-W // 16) * 16
+    big = gop_frames(3, seed=4)
+    cases = [(f, ph, pw) for f in big] + [(frames[0], ph, pw)]
+    for f, ph, pw in cases:
+        t = torch.from_numpy(np.ascontiguousarray(f)).to(dev)
+        for a, b in zip(color.rgb_to_yuv420(t, ph, pw),
+                        color.rgb_to_yuv420_plain(t, ph, pw)):
+            check(torch.equal(a, b), f"K9 differs at {tuple(t.shape)}")
+    print(f"(a) colour: K9 equal to its plain version on {len(big)} {W}x{H} "
+          f"frames and a {ODD_W}x{ODD_H} frame")
+    rgb = torch.from_numpy(big[1]).to(dev)
+    y, cb, cr = color.rgb_to_yuv420(rgb, ph, pw)
+    ms = cuda_ms(lambda: color.rgb_to_yuv420(rgb, ph, pw), reps=20)
+    plain_ms = cuda_ms(lambda: color.rgb_to_yuv420_plain(rgb, ph, pw), reps=3)
+
+    # the two colour routes of a 1080p frame, host clock, synchronised
+    def host_route():
+        planes = rgb_to_yuv420_host(big[1], ph, pw, float_fallback=False)
+        out = [torch.from_numpy(p).to(dev) for p in planes]
+        torch.cuda.synchronize()
+        return out
+
+    def device_route():
+        out = color.rgb_to_yuv420(torch.from_numpy(big[1]).to(dev), ph, pw)
+        torch.cuda.synchronize()
+        return out
+
+    spans = {}
+    for name, fn in (("host", host_route), ("device", device_route)):
+        fn()
+        ts = []
+        for _ in range(7):
+            t = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t) * 1e3)
+        spans[name] = statistics.median(ts)
+    print(f"colour at {W}x{H}: cv2 on the host + plane upload "
+          f"{spans['host']:.2f} ms; RGB upload + K9 {spans['device']:.2f} ms "
+          f"(host clock, synchronised, median of 7)")
+    report["colour"] = {"launches": launches, "k9_ms": ms, "plain_ms": plain_ms,
+                        "host_route_ms": spans["host"],
+                        "device_route_ms": spans["device"]}
+    row = kernel_row("color", "color.cu",
+                     "models/h264.py:207 _yuv_stage (ops/color.py:90 "
+                     "rgb_to_yuv420)", launches, 0.0, ms, plain_ms,
+                     nbytes(rgb, y, cb, cr))
+    print(f"kernel color: {ms:.3f} ms (bound {row['bound_ms']:.4f} ms by "
+          f"bytes; plain {plain_ms:.2f} ms; 1 launch/frame)")
+    return [row]
+
+
+def cabac_phase(report):
+    """``ENCODER_ENTROPY=cabac`` at 1080p (GOP 60, deblock, rate control)
+    on both transports: ``ENCODER_CABAC_BINARIZE=host`` (K10) and
+    ``=device`` (K11i/K11p), two frames in flight."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.bitstream import h264 as syn
+    from docker_nvidia_glx_desktop_tpu_torch.bitstream import h264_cabac
+    from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.native import lib as native_lib
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        cabac_binarize, content_stats, h264_deblock, h264_device, h264_inter,
+        level_pack)
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    dev = torch.device("cuda")
+    frames = gop_frames(CABAC_FRAMES, seed=5)
+    env = {"SIZEW": str(W), "SIZEH": str(H), "ENCODER_ENTROPY": "cabac"}
+    common = {"intra": h264_device.encode_intra_frame_yuv,
+              "content_stats_full": content_stats.frame_stats_full,
+              "inter": h264_inter.encode_p_frame,
+              "deblock": h264_deblock.deblock_frame}
+    route_kernels = {"host": {"level_pack": level_pack.pack_levels},
+                     "device": {"binarize_intra": cabac_binarize.binarize_intra,
+                                "binarize_p": cabac_binarize.binarize_p}}
+
+    def encoder(route, **extra):
+        os.environ["ENCODER_CABAC_BINARIZE"] = route
+        enc, codec = make_encoder(from_env(dict(env, **extra)), W, H)
+        check(codec == "h264_cabac" and enc.cabac_device_binarize == (
+            route == "device"), f"not the CABAC {route} route")
+        return enc
+
+    def flag(tok):
+        """The transport's overflow flag, once its prefix has landed."""
+        host, ev = tok[4][3]
+        if ev is not None:
+            ev.synchronize()
+        return bool(host.numpy()[1])
+
+    # -- main path, per route ------------------------------------------------
+    runs = {}
+    for route in ("host", "device"):
+        enc = encoder(route)
+        check(enc.gop == 60 and enc.deblock and enc._rate is not None,
+              "not the default configuration")
+        wrappers = dict(common, **route_kernels[route])
+        for fn in wrappers.values():
+            fn.launches = 0
+        calls0, py0 = dict(native_lib.calls), h264_cabac.python_pictures
+        toks, refs, aus, overflow, pending = [], [], [], [], []
+        for f in frames + [None]:
+            if f is not None:
+                toks.append(enc.encode_submit(f))
+                refs.append(tuple(p.clone() for p in enc._ref))
+                pending.append(toks[-1])
+            if len(pending) == 2 or (f is None and pending):
+                tok = pending.pop(0)
+                overflow.append(flag(tok))
+                aus.append(enc.encode_collect(tok).data)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        calls = {k: native_lib.calls[k] - calls0.get(k, 0)
+                 for k in native_lib.calls}
+        qps = [t[4][5] for t in toks]
+        print(f"cabac main ({route}): {len(aus)} frames, qp {qps}, overflow "
+              f"at {[i for i, o in enumerate(overflow) if o]}, launches "
+              f"{launches}, native calls {calls}")
+        check(all(v >= 1 for v in launches.values()),
+              f"a kernel of the CABAC {route} path never launched: {launches}")
+        check(h264_cabac.python_pictures == py0,
+              f"the Python CABAC coder ran on the {route} route")
+        check(len(set(qps)) > 1, "the rate controller did not move qp")
+        check(not any(overflow), f"a {route} transport overflowed")
+        # each route's own native entry points coded every frame and the
+        # other route's never ran: no device-route frame went dense
+        n = len(frames)
+        want = ({"level_unpack_rows": n, "h264_cabac_intra_slices": 1,
+                 "h264_cabac_p_slices": n - 1, "h264_cabac_engine_rows": 0}
+                if route == "host" else
+                {"level_unpack_rows": 0, "h264_cabac_intra_slices": 0,
+                 "h264_cabac_p_slices": 0, "h264_cabac_engine_rows": n})
+        got = {k: calls.get(k, 0) for k in want}
+        check(got == want, f"the {route} route's native calls {got}, not {want}")
+        runs[route] = {"enc": enc, "toks": toks, "refs": refs, "aus": aus,
+                       "launches": launches, "calls": calls, "qps": qps}
+    check(runs["host"]["aus"] == runs["device"]["aus"],
+          "the two CABAC routes' access units differ")
+    for a, b in zip(runs["host"]["refs"], runs["device"]["refs"]):
+        check(all(torch.equal(p, q) for p, q in zip(a, b)),
+              "the two CABAC routes' references differ")
+    aus = runs["host"]["aus"]
+    nr, nc = runs["host"]["enc"].mb_h, runs["host"]["enc"].mb_w
+    types = [[n[0] & 0x1F for n in au.split(syn.START_CODE)[1:]] for au in aus]
+    check(types[0] == [syn.NAL_SPS, syn.NAL_PPS] + [syn.NAL_IDR] * nr
+          and all(t == [syn.NAL_SLICE] * nr for t in types[1:]),
+          f"CABAC NAL types {types[0][:4]}...")
+    check(aus[0].split(syn.START_CODE)[1][1] == 77, "the SPS is not Main profile")
+    print(f"cabac: the host and device routes' {len(aus)} access units are "
+          f"byte-identical ({sum(map(len, aus))} bytes)")
+
+    # -- (a) every transport against its plain version at the run's inputs ---
+    t_a = time.perf_counter()
+    for route, r in runs.items():
+        enc = r["enc"]
+        for i, tok in enumerate(r["toks"]):
+            kind, lv, buf = tok[0], tok[4][1], tok[4][2]
+            if route == "host":
+                keys = (level_pack.INTRA_KEYS if kind == "cabac_intra"
+                        else level_pack.P_KEYS)
+                want = level_pack.pack_slots_plain(level_pack.mb_slots(lv, keys))
+            elif kind == "cabac_intra":
+                want = cabac_binarize.binarize_intra_plain(
+                    *(lv[k] for k in enc._BIN_INTRA_KEYS))
+            else:
+                want = cabac_binarize.binarize_p_plain(
+                    *(lv[k] for k in enc._BIN_P_KEYS))
+            check(torch.equal(buf, want), f"(a) cabac {route} frame {i} "
+                  f"({kind}): the transport differs from the plain version")
+    # the overflow flags on one giant value, at the main path's shapes
+    def zeros(keys):
+        return {k: torch.zeros((nr, nc) + shape, dtype=torch.int32, device=dev)
+                for k, _, shape in keys}
+
+    lp = zeros(level_pack.P_KEYS)
+    lp["luma"][0, 0, 0, 0] = 20000
+    got = level_pack.pack_levels(lp, level_pack.P_KEYS)
+    want = level_pack.pack_slots_plain(level_pack.mb_slots(lp, level_pack.P_KEYS))
+    check(torch.equal(got, want) and int(got[1]) == 1, "K10 overflow flag")
+    lp["luma"][0, 0, 0, 0] = 500
+    mv = torch.zeros((nr, nc, 2), dtype=torch.int32, device=dev)
+    args = [mv] + [lp[k] for k, _, _ in level_pack.P_KEYS]
+    got = cabac_binarize.binarize_p(*args)
+    check(torch.equal(got, cabac_binarize.binarize_p_plain(*args))
+          and int(got[1]) == 1, "K11p overflow flag")
+    li = zeros(level_pack.INTRA_KEYS)
+    li["luma_i4"][0, 1, 2, 0] = -500
+    mb_i4 = torch.zeros((nr, nc), dtype=torch.bool, device=dev)
+    mb_i4[0, 1] = True
+    i32 = lambda *s: torch.zeros((nr, nc) + s, dtype=torch.int32, device=dev)
+    args = [li[k] for k in ("luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc",
+                            "cr_ac")] + [i32(), mb_i4, i32(16), li["luma_i4"]]
+    got = cabac_binarize.binarize_intra(*args)
+    check(torch.equal(got, cabac_binarize.binarize_intra_plain(*args))
+          and int(got[1]) == 1, "K11i overflow flag")
+    print(f"(a) cabac: every K10, K11i and K11p transport of both runs equal "
+          f"to its plain version ({time.perf_counter() - t_a:.0f} s); the "
+          "overflow flags of K10, K11p and K11i set and equal on one giant level")
+
+    # -- the dense fallback: a noise P frame past the record budget ----------
+    dense_frames = [frames[0], np.random.default_rng(6).integers(
+        0, 256, (H, W, 3), dtype=np.uint8), frames[2]]
+    dense = {}
+    for route in ("device", "host"):
+        enc = encoder(route, ENCODER_BITRATE_KBPS="0", ENCODER_QP=CABAC_DENSE_QP)
+        calls0 = dict(native_lib.calls)
+        toks = [enc.encode_submit(f) for f in dense_frames]
+        flags = [flag(t) for t in toks]
+        dense[route] = ([enc.encode_collect(t).data for t in toks], flags, {
+            k: native_lib.calls[k] - calls0.get(k, 0) for k in native_lib.calls})
+    d_aus, d_flags, d_calls = dense["device"]
+    check(d_flags[1] and d_calls.get("h264_cabac_p_slices", 0) >= 1,
+          f"the noise P frame did not take the dense coder: {d_flags} {d_calls}")
+    check(d_aus == dense["host"][0], "the dense fallback's AUs differ from the "
+          "host route's")
+    print(f"cabac dense fallback: at qp {CABAC_DENSE_QP} the noise P frame's "
+          f"records overflowed (flags {d_flags}), the native coder coded it from "
+          f"the dense levels, AUs equal to the host route's (flags "
+          f"{dense['host'][1]})")
+
+    # -- (c) a decoder's view ------------------------------------------------
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is None:
+        print("(c) cabac cv2 decode: not run (no cv2 on this machine)")
+    else:
+        path = os.path.join(HERE, "chiprun_out", "cabac.264")
+        with open(path, "wb") as f:
+            f.write(b"".join(aus))
+        cap = cv2.VideoCapture(path)
+        cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+        for i, ref in enumerate(runs["host"]["refs"]):
+            ok, img = cap.read()
+            check(ok, f"(c) cv2 stopped decoding the CABAC stream at frame {i}")
+            check(np.array_equal(np.asarray(img).reshape(H, W),
+                                 ref[0][:H, :W].cpu().numpy()),
+                  f"(c) CABAC frame {i}: decoded luma differs from the "
+                  "deblocked reference")
+        cap.release()
+        os.remove(path)
+        print(f"(c) cabac cv2 decode: ran; {len(aus)} decoded luma planes equal "
+              "to the deblocked references")
+
+    # -- kernel times at the main path's inputs ------------------------------
+    pi = 3
+    h_tok, d_tok = runs["host"]["toks"], runs["device"]["toks"]
+    out_p, lv_i = h_tok[pi][4][1], d_tok[0][4][1]
+    enc_d = runs["device"]["enc"]
+    p_args = [out_p[k] for k in enc_d._BIN_P_KEYS]
+    i_args = [lv_i[k] for k in enc_d._BIN_INTRA_KEYS]
+
+    def out_bytes(buf):
+        return 4 * (nr + 8 + int(buf[2]))
+
+    b10, b11p, b11i = h_tok[pi][4][2], d_tok[pi][4][2], d_tok[0][4][2]
+    lv_p = [out_p[k] for k, _, _ in level_pack.P_KEYS]
+    specs = [
+        ("level_pack", "levelpack.cu", "level_pack.py:131 pack_levels (_pack :83)",
+         runs["host"]["launches"]["level_pack"],
+         lambda: level_pack.pack_levels(out_p, level_pack.P_KEYS),
+         lambda: level_pack.pack_slots_plain(level_pack.mb_slots(
+             out_p, level_pack.P_KEYS)),
+         nbytes(*lv_p) + out_bytes(b10)),
+        ("binarize_intra", "cabac.cu", "cabac_binarize.py:490 binarize_intra",
+         runs["device"]["launches"]["binarize_intra"],
+         lambda: cabac_binarize.binarize_intra(*i_args),
+         lambda: cabac_binarize.binarize_intra_plain(*i_args),
+         nbytes(*i_args) + out_bytes(b11i)),
+        ("binarize_p", "cabac.cu", "cabac_binarize.py:415 binarize_p",
+         runs["device"]["launches"]["binarize_p"],
+         lambda: cabac_binarize.binarize_p(*p_args),
+         lambda: cabac_binarize.binarize_p_plain(*p_args),
+         nbytes(*p_args) + out_bytes(b11p)),
+    ]
+    rows = []
+    for name, src, replaces, launches, fk, fp, nb in specs:
+        rows.append(kernel_row(name, src, replaces, launches, 0.0,
+                               cuda_ms(fk, reps=20), cuda_ms(fp, reps=3), nb))
+    k10_intra_ms = cuda_ms(lambda: level_pack.pack_levels(
+        lv_i, level_pack.INTRA_KEYS), reps=20)
+    for r in rows:
+        print(f"kernel {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
+              f"{r['launches'] / len(frames):.2f} launches/frame)")
+    print(f"kernel level_pack (IDR levels): {k10_intra_ms:.3f} ms; payload words "
+          f"K10 P {int(b10[2])}, K11p {int(b11p[2])}, K11i {int(b11i[2])}")
+
+    # -- each route timed with one frame in flight ---------------------------
+    # host spans of a collect: "decode" the level transport's decode
+    # (native decoder + NumPy unpacking), "code" the CABAC picture coder
+    # (NumPy preparation, native coder or engine, slice headers, EPB and
+    # NAL), "native" the native entry points alone (inside the other two)
+    timed = gop_frames(CABAC_FRAMES, seed=6)
+    hooks = ([(native_lib, n, "native") for n in
+              ("cabac_slices", "cabac_engine_rows", "level_unpack")]
+             + [(level_pack, "unpack_levels", "decode")]
+             + [(h264_cabac, n, "code") for n in
+                ("encode_intra_picture", "encode_p_picture",
+                 "encode_intra_from_binstream", "encode_p_from_binstream")])
+    originals = [getattr(mod, n) for mod, n, _ in hooks]
+    span = {"native": 0.0, "decode": 0.0, "code": 0.0}
+
+    def timed_fn(fn, key):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                span[key] += (time.perf_counter() - t) * 1e3
+        return call
+
+    report["cabac"] = {}
+    for route in ("host", "device"):
+        enc = encoder(route)
+        lat, sub, col = [], [], []
+        spans = {k: [] for k in span}
+        for (mod, n, key), fn in zip(hooks, originals):
+            setattr(mod, n, timed_fn(fn, key))
+        try:
+            torch.cuda.synchronize()
+            t_run = time.perf_counter()
+            for f in timed:
+                for k in span:
+                    span[k] = 0.0
+                ts = time.perf_counter()
+                tok = enc.encode_submit(f)
+                tc = time.perf_counter()
+                enc.encode_collect(tok)
+                te = time.perf_counter()
+                sub.append((tc - ts) * 1e3)
+                col.append((te - tc) * 1e3)
+                lat.append((te - ts) * 1e3)
+                for k in span:
+                    spans[k].append(span[k])
+            run_s = time.perf_counter() - t_run
+        finally:
+            for (mod, n, _), fn in zip(hooks, originals):
+                setattr(mod, n, fn)
+        fps = len(timed) / run_s
+        med = {k: statistics.median(v[1:]) for k, v in spans.items()}
+        wait = statistics.median(c - d - e for c, d, e in zip(
+            col[1:], spans["decode"][1:], spans["code"][1:]))
+        print(f"cabac e2e ({route}, one frame in flight): {fps:.2f} frames/s over "
+              f"{len(timed)} frames, p50 {statistics.median(lat):.2f} ms, P p50 "
+              f"{statistics.median(lat[1:]):.2f} ms, IDR {lat[0]:.2f} ms; submit "
+              f"p50 {statistics.median(sub):.2f} ms, collect p50 "
+              f"{statistics.median(col):.2f} ms")
+        print(f"cabac host spans ({route}, P frames, p50 ms): wait + pull "
+              f"{wait:.2f}, transport decode {med['decode']:.2f}, picture coder "
+              f"{med['code']:.2f}; host CABAC span (the native "
+              f"{'level decoder and coder' if route == 'host' else 'engine'}) "
+              f"{med['native']:.2f} (IDR {spans['native'][0]:.2f})")
+        report["cabac"][route] = {
+            "fps": fps, "p50_ms": statistics.median(lat),
+            "p50_p_ms": statistics.median(lat[1:]), "lat_ms": lat,
+            "submit_ms": sub, "collect_ms": col, "spans_ms": spans,
+            "qps": runs[route]["qps"], "launches": runs[route]["launches"],
+            "native_calls": runs[route]["calls"]}
+    os.environ.pop("ENCODER_CABAC_BINARIZE", None)
+    report["cabac"]["au_bytes"] = [len(a) for a in aus]
     return rows
 
 

@@ -65,8 +65,13 @@ def emulation_prevention(rbsp: bytes) -> bytes:
 
 def nal_unit(nal_type: int, rbsp: bytes, ref_idc: int = 3) -> bytes:
     """Annex-B NAL unit: start code + header byte + EPB-escaped RBSP."""
+    from ..native import lib as native_lib
     header = bytes([(ref_idc << 5) | nal_type])
-    return START_CODE + header + emulation_prevention(rbsp)
+    if len(rbsp) > 4096 and native_lib.available():
+        escaped = native_lib.emulation_prevention(rbsp)
+    else:
+        escaped = emulation_prevention(rbsp)
+    return START_CODE + header + escaped
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ from .h264 import H264Encoder, resolve_device  # noqa: F401
 def make_encoder(cfg, width: int, height: int, device=None):
     """Codec from the config surface (WEBRTC_ENCODER + ENCODER_* knobs),
     on the card unless ``device`` says otherwise.  Returns (encoder,
-    codec_name).  Only ``tpuh264enc`` with device entropy is ported; the
-    other codecs raise NotImplementedError."""
+    codec_name).  Only ``tpuh264enc`` with device (CAVLC) or CABAC
+    entropy is ported; the other codecs and entropy modes raise
+    NotImplementedError."""
     codec = cfg.codec
     if codec == "tpuh264enc":
         entropy = cfg.encoder_entropy
@@ -25,7 +26,7 @@ def make_encoder(cfg, width: int, height: int, device=None):
                               cfg, "encoder_spatial_shards", None),
                           tune=getattr(cfg, "encoder_tune", None),
                           device=device)
-        return enc, "h264_cavlc"
+        return enc, f"h264_{'cabac' if entropy == 'cabac' else 'cavlc'}"
     if codec in ("tpumjpegenc", "tpuvp8enc"):
         raise NotImplementedError(
             f"{codec} is not ported to the PyTorch/CUDA package yet "

@@ -1,30 +1,40 @@
-"""H.264 encoder, device-entropy CAVLC: all-intra (``gop == 1``) and the
-GOP path (an IDR, then P frames, with the in-loop deblocking filter).
+"""H.264 encoder: device-entropy CAVLC or CABAC, all-intra (``gop ==
+1``) or the GOP path (an IDR, then P frames, with the in-loop
+deblocking filter).
 
-Per frame: cv2 (or numpy where cv2 is absent) converts RGB to padded
-BT.601 YUV 4:2:0 on the host; one submit uploads the planes and launches
-the device stage on the card:
+Per frame one submit launches the device stage on the card:
 
-- an IDR runs the intra core (K1, ``ops/h264_device``), the CAVLC slot
-  coder (K2, ``ops/cavlc_device``) and the bit packer (K3,
-  ``ops/bitmerge``);
-- a P frame runs the P core (K5, ``ops/h264_inter``), the P slot coder
-  (K6) and the P packer (K7, ``ops/cavlc_p_device``);
+- colour: with ``host_color`` (the serving default of ``make_encoder``)
+  cv2 converts RGB to padded BT.601 YUV 4:2:0 on the host and the planes
+  are uploaded; otherwise, and where cv2 is absent or the geometry is
+  odd, the RGB frame is uploaded and converted on the card (K9,
+  ``ops/color``);
+- an IDR runs the intra core (K1, ``ops/h264_device``); a P frame the P
+  core (K5, ``ops/h264_inter``);
+- CAVLC: the slot coders and bit packers (K2/K3, K6/K7) write the slice
+  bits on the card;
+- CABAC (``entropy="cabac"``, Main profile): the levels are compacted on
+  the card (K10, ``ops/level_pack``; ``ENCODER_CABAC_BINARIZE=host``,
+  the default) or binarized into (bin, ctxIdx) records there (K11,
+  ``ops/cabac_binarize``; ``=device``), and the port's native C++ coder
+  (``native/cabac.cpp``) or arithmetic engine codes the slices on the
+  host at collect;
 - in GOP mode the recon, loop-filtered (K8, ``ops/h264_deblock``) when
   ``deblock`` is on, becomes the next frame's reference at submit time,
   so frame N+1 may be submitted before frame N is collected;
 - every frame runs the content stats (K4, ``ops/content_stats``).
 
-Collect pulls a bucketed prefix of the flat buffer and builds the Annex-B
-access unit.  A frame whose bits overflow the packer's static caps is
-coded on the host: an IDR by running the intra core again on the same
-planes, a P frame from the level tensors its device stage produced.  The
-bytes equal the reference encoder's
-(``docker_nvidia_glx_desktop_tpu/models/h264.py``) frame by frame.
+Collect pulls a bucketed prefix of the transport and builds the Annex-B
+access unit.  A frame whose bits overflow the device stage's static caps
+is coded on the host from its dense levels: a CAVLC IDR by running the
+intra core again on the same planes, a CAVLC P frame and every CABAC
+frame from the level tensors its device stage produced.  The bytes equal
+the reference encoder's (``docker_nvidia_glx_desktop_tpu/models/
+h264.py``) frame by frame.
 
-Every other setting of the reference encoder — host or CABAC entropy,
-``tune != "off"``, the super-step chunk ring, spatial shards, the damage
-mask, the non-default intra mode sets, device colour — raises
+Every other setting of the reference encoder — native or Python CAVLC,
+``mode="pcm"``, ``tune != "off"``, the super-step chunk ring, spatial
+shards, the damage mask, the non-default intra mode sets — raises
 NotImplementedError naming its ROADMAP item; nothing falls back quietly.
 """
 
@@ -38,10 +48,11 @@ import numpy as np
 import torch
 
 from ..bitstream import h264 as syn
-from ..bitstream import h264_entropy
+from ..bitstream import h264_cabac, h264_entropy
 from ..obs import content as obsc
-from ..ops import (cavlc_device, cavlc_p_device, content_stats, h264_deblock,
-                   h264_device)
+from ..ops import (cabac_binarize, cavlc_device, cavlc_p_device, color,
+                   content_stats, h264_deblock, h264_device, h264_inter,
+                   level_pack)
 from ..utils.hostcolor import rgb_to_yuv420_host
 from ..utils.mathutil import round_up
 from .base import EncodedFrame, Encoder
@@ -250,30 +261,35 @@ def _pinned_prefetch(t: torch.Tensor):
     return host, ev
 
 
+def _wait(prefetched) -> np.ndarray:
+    """The host array of a :func:`_pinned_prefetch`, once it landed."""
+    host, ev = prefetched
+    if ev is not None:
+        ev.synchronize()
+    return host.numpy()
+
+
 class H264Encoder(Encoder):
     codec = "h264"
 
     def __init__(self, width: int, height: int, qp: int = 26,
                  mode: str = "cavlc", entropy: str = "device",
-                 keep_recon: bool = False, host_color: bool = True,
+                 keep_recon: bool = False, host_color: bool = False,
                  gop: int = 1, bitrate_kbps: int = 0, fps: float = 60.0,
                  deblock: bool = False, intra_modes: str = None,
                  superstep_chunk: int = None, spatial_shards=None,
                  tune: str = None, damage_mask: bool = None, device=None):
         """Same arguments as the reference encoder, plus ``device``
-        (``None`` = the card).  Only the device-entropy CAVLC path is
-        built: see the module docstring for what raises."""
+        (``None`` = the card).  The device-entropy CAVLC and the CABAC
+        paths are built (``mode`` stays ``"cavlc"`` by default until
+        ``"pcm"`` is ported): see the module docstring for what raises."""
         super().__init__(width, height)
         if mode != "cavlc":
             raise _not_ported(f"h264 mode {mode!r}", "17")
-        if entropy == "cabac":
-            raise _not_ported("entropy='cabac'", "7")
-        if entropy != "device":
+        if entropy not in ("device", "cabac"):
             raise _not_ported(f"entropy={entropy!r}", "17")
         if intra_modes not in (None, "auto"):
             raise _not_ported(f"intra_modes={intra_modes!r}", "17")
-        if not host_color:
-            raise _not_ported("device colour conversion", "17")
         if tune is None:
             tune = os.environ.get("ENCODER_TUNE", "off") or "off"
         if tune != "off":
@@ -297,6 +313,7 @@ class H264Encoder(Encoder):
         self.mode = mode
         self.entropy = entropy
         self.keep_recon = keep_recon
+        self.host_color = bool(host_color)
         self.gop = max(int(gop), 1)
         self.deblock = bool(deblock)
         self._deblock_idc = 2 if self.deblock else 1
@@ -307,8 +324,16 @@ class H264Encoder(Encoder):
         self.pad_h = round_up(height, 16)
         self.mb_w = self.pad_w // 16
         self.mb_h = self.pad_h // 16
-        self._sps = syn.sps_rbsp(width, height, profile="baseline")
-        self._pps = syn.pps_rbsp(init_qp=qp, cabac=False)
+        cabac = entropy == "cabac"
+        if cabac:
+            # fail at construction, not frame by frame in the serving
+            # loop: the native coder must build (the reference checks its
+            # CABAC tables here for the same reason)
+            from ..native import lib as native_lib
+            native_lib.get_lib()
+        self._sps = syn.sps_rbsp(width, height,
+                                 profile="main" if cabac else "baseline")
+        self._pps = syn.pps_rbsp(init_qp=qp, cabac=cabac)
         self._hdr_slots_cache = {}
         # GOP / reference state: the reference planes live on the device
         # and advance at submit time
@@ -326,6 +351,12 @@ class H264Encoder(Encoder):
         self._p_pull_hist = collections.deque(maxlen=8)
         self._pull_guess = None
         self._p_pull_guess = None
+        # the same for the four CABAC transports, in words
+        self._cabac_dev_bin = None
+        for kind in ("", "_bin", "_p", "_p_bin"):
+            setattr(self, f"_cabac{kind}_pull_hist",
+                    collections.deque(maxlen=8))
+            setattr(self, f"_cabac{kind}_pull_guess", None)
         # content plane: previous ingest luma, per-frame stats handles
         # keyed by frame index, the last collected frame's stats dict
         self._content_prev_y = None
@@ -411,14 +442,33 @@ class H264Encoder(Encoder):
     # Pull granularity for the flat buffer (64 KiB prefix buckets).
     _PULL_BUCKET = 1 << 16
 
+    _host_yuv_ok = None                            # class-level cv2 probe
+
     def _host_yuv420(self, rgb):
-        """Padded (y, cb, cr) uint8 planes from the host converter: cv2
-        where present, numpy where not."""
+        """Padded (y, cb, cr) uint8 planes from the host converter (cv2),
+        or None when cv2 is unavailable or the geometry resists 4:2:0 (the
+        device conversion takes over)."""
+        cls = type(self)
+        if cls._host_yuv_ok is False:
+            return None
         h, w = rgb.shape[:2]
         if h % 2 or w % 2:
-            raise _not_ported("odd frame geometry (device colour)", "17")
-        return rgb_to_yuv420_host(rgb, self.pad_h, self.pad_w,
-                                  float_fallback=True)
+            return None
+        planes = rgb_to_yuv420_host(rgb, self.pad_h, self.pad_w,
+                                    float_fallback=False)
+        cls._host_yuv_ok = planes is not None
+        return planes
+
+    def _planes_device(self, rgb):
+        """The frame as padded YUV planes on the encoder's device: the
+        host converter's, uploaded, under ``host_color``; else (and where
+        the host gives none) the device conversion (K9) of the uploaded
+        RGB frame."""
+        planes = self._host_yuv420(rgb) if self.host_color else None
+        if planes is not None:
+            return self._upload(planes)
+        rgb_t = torch.from_numpy(np.ascontiguousarray(rgb)).to(self.device)
+        return color.rgb_to_yuv420(rgb_t, self.pad_h, self.pad_w)
 
     def _eff_qp(self, keyframe: bool = True) -> int:
         qp = self.qp if self._rate is None else self._rate.qp_for(keyframe)
@@ -465,8 +515,7 @@ class H264Encoder(Encoder):
         """Launch the device stage without waiting for it."""
         qp = self._eff_qp()
         hv, hl = self._hdr_slots(idr_pic_id, qp_delta=qp - self.qp)
-        planes = self._host_yuv420(rgb)
-        y, cb, cr = self._upload(planes)
+        planes = y, cb, cr = self._planes_device(rgb)
         levels = h264_device.encode_intra_frame_yuv(y, cb, cr, qp)
         flat = cavlc_device.pack_frame(
             *cavlc_device.frame_block_slots(levels), hv, hl)
@@ -512,10 +561,11 @@ class H264Encoder(Encoder):
 
     def _encode_host_entropy(self, idr_pic_id: int, planes, qp: int,
                              update_ref: bool = True) -> bytes:
-        """Overflow fallback: the intra core again on the same planes and
-        qp, then the Python CAVLC coder on the host.  ``update_ref=False``
-        leaves a pipeline's reference chain as the submit set it."""
-        levels = h264_device.encode_intra_frame_yuv(*self._upload(planes), qp)
+        """Overflow fallback: the intra core again on the same device
+        planes and qp, then the Python CAVLC coder on the host.
+        ``update_ref=False`` leaves a pipeline's reference chain as the
+        submit set it."""
+        levels = h264_device.encode_intra_frame_yuv(*planes, qp)
         if self.gop > 1 and update_ref:
             self._set_ref(tuple(levels[k] for k in
                                 ("recon_y", "recon_cb", "recon_cr")), qp)
@@ -531,21 +581,187 @@ class H264Encoder(Encoder):
             qp_delta=qp - self.qp, deblocking_idc=self._deblock_idc,
             qp_map=None, slice_qp=qp)
 
+    # -- CABAC path ------------------------------------------------------
+    # The device stage's levels leave the card compacted (K10) or
+    # binarized into records (K11); the native coder or engine codes the
+    # slices on the host at collect, so the session loop overlaps the
+    # next frame's device stage with this frame's entropy coding.
+
+    _CABAC_PULL_WORDS = 1 << 14          # pull-guess bucket, in words
+    _RECON_KEYS = ("recon_y", "recon_cb", "recon_cr")
+    _BIN_INTRA_KEYS = ("luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc",
+                       "cr_ac", "pred_mode", "mb_i4", "i4_modes", "luma_i4")
+    _BIN_P_KEYS = ("mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
+
+    @property
+    def cabac_device_binarize(self) -> bool:
+        """Binarize on the card (K11, ``ENCODER_CABAC_BINARIZE=device``)
+        instead of compacting the levels (K10, ``host``, the default);
+        read once per encoder.  Both routes give the same bytes."""
+        if self._cabac_dev_bin is None:
+            self._cabac_dev_bin = os.environ.get(
+                "ENCODER_CABAC_BINARIZE", "host") == "device"
+        return self._cabac_dev_bin
+
+    def _cabac_prefix(self, buf, hdr_words: int, kind: str, default: int):
+        """Start the pull of a transport's header and guessed payload."""
+        guess = getattr(self, f"_cabac{kind}_pull_guess") or default
+        return _pinned_prefetch(buf[:hdr_words + guess])
+
+    def _pull_transport(self, buf, prefix, hdr_words: int, kind: str):
+        """Wait for a transport's prefix; re-pull on a short read.  Returns
+        the host uint32 words covering header + payload, or None on the
+        overflow flag.  The next guess is the decaying max of recent
+        payloads, ceiled to the bucket."""
+        host, ev = prefix
+        if ev is not None:
+            ev.synchronize()
+        head = host.numpy().view(np.uint32)
+        if head[1]:
+            return None
+        total = int(head[2])
+        hist = getattr(self, f"_cabac{kind}_pull_hist")
+        bucket = self._CABAC_PULL_WORDS
+        hist.append(total)
+        setattr(self, f"_cabac{kind}_pull_guess",
+                -(-max(hist) // bucket) * bucket)
+        if hdr_words + total > len(head):
+            extra = -(-total // bucket) * bucket
+            head = buf[:hdr_words + extra].cpu().numpy().view(np.uint32)
+        return head
+
+    def _pull_packed(self, buf, prefix, keys, kind: str):
+        """Dense level arrays from a K10 transport, or None on overflow."""
+        head = self._pull_transport(buf, prefix,
+                                    level_pack.header_words(self.mb_h), kind)
+        if head is None:
+            return None
+        return level_pack.unpack_levels(head, self.mb_h, self.mb_w, keys)
+
+    def _pull_binstream(self, buf, prefix, kind: str):
+        """A K11 transport on the host, or None on overflow."""
+        return self._pull_transport(
+            buf, prefix, cabac_binarize.header_words(self.mb_h), kind)
+
+    def _submit_cabac_intra(self, rgb, idr_pic_id: int):
+        qp = self._eff_qp()
+        y, cb, cr = self._planes_device(rgb)
+        levels = h264_device.encode_intra_frame_yuv(y, cb, cr, qp)
+        if self.gop > 1:
+            self._set_ref(tuple(levels[k] for k in self._RECON_KEYS), qp)
+        self._content_submit(y, recon_y=levels["recon_y"],
+                             frame_type="intra")
+        if self.cabac_device_binarize:
+            buf = cabac_binarize.binarize_intra(
+                *(levels[k] for k in self._BIN_INTRA_KEYS))
+            prefix = self._cabac_prefix(
+                buf, cabac_binarize.header_words(self.mb_h), "_bin",
+                8 * self._CABAC_PULL_WORDS)
+            return ("bin", levels, buf, prefix, None, qp, idr_pic_id)
+        buf = level_pack.pack_levels(levels, level_pack.INTRA_KEYS)
+        small = {k: _pinned_prefetch(levels[k].to(torch.int8))
+                 for k in ("pred_mode", "mb_i4", "i4_modes")}
+        prefix = self._cabac_prefix(buf, level_pack.header_words(self.mb_h),
+                                    "", 8 * self._CABAC_PULL_WORDS)
+        return ("lv", levels, buf, prefix, small, qp, idr_pic_id)
+
+    def _collect_cabac_intra(self, submitted) -> bytes:
+        kind, levels, buf, prefix, small, qp, idr_pic_id = submitted
+        if self.keep_recon:
+            self.last_recon = tuple(levels[k].cpu().numpy()
+                                    for k in self._RECON_KEYS)
+        args = dict(qp=qp, frame_num=0, idr_pic_id=idr_pic_id, sps=self._sps,
+                    pps=self._pps, with_headers=True, qp_delta=qp - self.qp,
+                    deblocking_idc=self._deblock_idc)
+        dense = None
+        if kind == "bin":
+            head = self._pull_binstream(buf, prefix, "_bin")
+            if head is not None:
+                au = h264_cabac.encode_intra_from_binstream(
+                    head, nr=self.mb_h, nc_mb=self.mb_w, **args)
+                if au is not None:
+                    return au
+            modes = {k: levels[k].cpu().numpy()
+                     for k in ("pred_mode", "mb_i4", "i4_modes")}
+        else:
+            dense = self._pull_packed(buf, prefix, level_pack.INTRA_KEYS, "")
+            modes = {k: _wait(v) for k, v in small.items()}
+        if dense is None:      # overflow: the dense levels
+            dense = {k: levels[k].cpu().numpy()
+                     for k, _, _ in level_pack.INTRA_KEYS}
+        dense.update(modes)
+        return h264_cabac.encode_intra_picture(dense, **args)
+
+    def _submit_cabac_p(self, planes, qp: int):
+        """The P core (K5), the reference's loop filter (K8) and the
+        level transport (K10) or records (K11p), without waiting."""
+        frame_num = self._frame_num
+        y, cb, cr = planes
+        out = h264_inter.encode_p_frame(y, cb, cr, *self._ref, qp)
+        self._content_submit(
+            y, recon_y=out["recon_y"], mv=out["mv"],
+            resid=tuple(out[k] for k in ("luma", "cb_dc", "cb_ac", "cr_dc",
+                                         "cr_ac")),
+            frame_type="p")
+        nnz = cavlc_p_device.nnz_raster(out["luma"]) if self.deblock else None
+        self._set_ref(tuple(out[k] for k in self._RECON_KEYS), qp, nnz,
+                      out["mv"])
+        if self.cabac_device_binarize:
+            buf = cabac_binarize.binarize_p(
+                *(out[k] for k in self._BIN_P_KEYS))
+            prefix = self._cabac_prefix(
+                buf, cabac_binarize.header_words(self.mb_h), "_p_bin",
+                4 * self._CABAC_PULL_WORDS)
+            return ("bin", out, buf, prefix, None, qp, frame_num)
+        buf = level_pack.pack_levels(out, level_pack.P_KEYS)
+        mv = _pinned_prefetch(out["mv"])
+        prefix = self._cabac_prefix(buf, level_pack.header_words(self.mb_h),
+                                    "_p", 4 * self._CABAC_PULL_WORDS)
+        return ("lv", out, buf, prefix, mv, qp, frame_num)
+
+    def _collect_cabac_p(self, submitted) -> bytes:
+        kind, out, buf, prefix, mv, qp, frame_num = submitted
+        if self.keep_recon:
+            self.last_recon = tuple(out[k].cpu().numpy()
+                                    for k in self._RECON_KEYS)
+            self.last_mv = out["mv"].cpu().numpy()
+        args = dict(qp=qp, frame_num=frame_num, qp_delta=qp - self.qp,
+                    deblocking_idc=self._deblock_idc)
+        dense = None
+        if kind == "bin":
+            head = self._pull_binstream(buf, prefix, "_p_bin")
+            if head is not None:
+                au = h264_cabac.encode_p_from_binstream(
+                    head, nr=self.mb_h, nc_mb=self.mb_w, **args)
+                if au is not None:
+                    return au
+            mv = out["mv"].cpu().numpy()
+        else:
+            dense = self._pull_packed(buf, prefix, level_pack.P_KEYS, "_p")
+            mv = _wait(mv)
+        if dense is None:      # overflow: the dense levels
+            dense = {k: out[k].cpu().numpy() for k, _, _ in level_pack.P_KEYS}
+        dense["mv"] = mv
+        return h264_cabac.encode_p_picture(dense, **args)
+
     # -- P frames --------------------------------------------------------
 
-    def _encode_p(self, rgb) -> bytes:
+    def _submit_p(self, rgb):
+        """(token kind, submitted) of a P frame."""
         qp = self._eff_qp(keyframe=False)
-        return self._collect_p_device(
-            self._submit_p_device(self._host_yuv420(rgb), qp))
+        planes = self._planes_device(rgb)
+        if self.entropy == "cabac":
+            return "cabac_p", self._submit_cabac_p(planes, qp)
+        return "p", self._submit_p_device(planes, qp)
 
     def _submit_p_device(self, planes, qp: int):
-        """Launch the P stage without waiting for it; ``self._ref``
-        advances now, so the next frame can submit before this one is
-        collected.  The old reference is only read: the recon goes to
-        new planes."""
+        """Launch the P stage on the device planes without waiting for
+        it; ``self._ref`` advances now, so the next frame can submit
+        before this one is collected.  The old reference is only read:
+        the recon goes to new planes."""
         frame_num = self._frame_num
         hv, hl = self._p_hdr_slots(frame_num, qp - self.qp)
-        y, cb, cr = self._upload(planes)
+        y, cb, cr = planes
         flat, ry, rcb, rcr, mv, nnz, levels = \
             cavlc_p_device.encode_p_cavlc_frame(y, cb, cr, *self._ref, hv, hl,
                                                 qp)
@@ -592,6 +808,21 @@ class H264Encoder(Encoder):
         return cavlc_device.assemble_annexb(buf, meta, nal_type=syn.NAL_SLICE,
                                             ref_idc=2)
 
+    def _collect(self, kind: str, payload, in_pipeline: bool = False):
+        if kind == "p":
+            return self._collect_p_device(payload)
+        if kind == "cabac_p":
+            return self._collect_cabac_p(payload)
+        if kind == "cabac_intra":
+            return self._collect_cabac_intra(payload)
+        return self._collect_device(payload, in_pipeline=in_pipeline)
+
+    def _submit_idr(self, rgb, idr_pic_id: int):
+        """(token kind, submitted) of an IDR."""
+        if self.entropy == "cabac":
+            return "cabac_intra", self._submit_cabac_intra(rgb, idr_pic_id)
+        return "intra", self._submit_device(rgb, idr_pic_id)
+
     def _next_is_idr(self) -> bool:
         return self._gop_pos == 0 or self._force_idr or self._ref is None
 
@@ -610,11 +841,10 @@ class H264Encoder(Encoder):
         n0 = self._rate.mark() if self._rate is not None else 0
         try:
             if idr:
-                data = self._collect_device(
-                    self._submit_device(rgb, self._start_idr()))
+                data = self._collect(*self._submit_idr(rgb, self._start_idr()))
             else:
                 self._frame_num = (self._frame_num + 1) % 16
-                data = self._encode_p(rgb)
+                data = self._collect(*self._submit_p(rgb))
         except Exception:
             if self._rate is not None:
                 self._rate.rollback_to(n0)
@@ -686,8 +916,8 @@ class H264Encoder(Encoder):
         else:
             n0 = self._rate.mark() if self._rate is not None else 0
             try:
-                data = self._collect_device(
-                    self._submit_device(rgb, self.frame_index % 2))
+                data = self._collect(*self._submit_idr(rgb,
+                                                       self.frame_index % 2))
             except Exception:
                 if self._rate is not None:
                     self._rate.rollback_to(n0)
@@ -710,16 +940,14 @@ class H264Encoder(Encoder):
         t0 = time.perf_counter()
         n0 = self._rate.mark() if self._rate is not None else 0
         try:
-            if self.gop == 1:
-                tok = ("intra", idx, t0, True, self._submit_device(rgb, idx % 2))
-            elif self._next_is_idr():
-                tok = ("intra", idx, t0, True,
-                       self._submit_device(rgb, self._start_idr()))
+            if self.gop == 1 or self._next_is_idr():
+                pic_id = idx % 2 if self.gop == 1 else self._start_idr()
+                kind, sub = self._submit_idr(rgb, pic_id)
+                tok = (kind, idx, t0, True, sub)
             else:
                 self._frame_num = (self._frame_num + 1) % 16
-                qp = self._eff_qp(keyframe=False)
-                tok = ("p", idx, t0, False,
-                       self._submit_p_device(self._host_yuv420(rgb), qp))
+                kind, sub = self._submit_p(rgb)
+                tok = (kind, idx, t0, False, sub)
         except Exception:
             if self._rate is not None:
                 self._rate.rollback_to(n0)
@@ -735,10 +963,7 @@ class H264Encoder(Encoder):
     def encode_collect(self, token) -> EncodedFrame:
         kind, idx, t0, key, payload = token
         try:
-            if kind == "p":
-                data = self._collect_p_device(payload)
-            else:
-                data = self._collect_device(payload, in_pipeline=self.gop > 1)
+            data = self._collect(kind, payload, in_pipeline=self.gop > 1)
         except Exception:
             if self._rate is not None:
                 self._rate.drop_oldest_pending()

@@ -1,0 +1,193 @@
+"""Build-on-demand loader of the port's native host library.
+
+Compiles ``cabac.cpp``, ``levelpack.cpp`` and ``entropy.cpp`` of this
+directory with ``g++`` into one shared object in the package's
+git-ignored ``build/`` (named by a hash of the sources and flags, so a
+changed source builds anew), then exposes ctypes bindings with the
+reference's signatures and ABI-version checks (``docker_nvidia_glx_desktop_tpu/
+native/lib.py``).  Nothing is built when the module is imported.
+
+A failed build or load raises: the CABAC coders of the port have no
+quiet Python fallback (the pure-Python coders of ``bitstream/`` run only
+when a caller asks for them, as the tests do).  Only the EPB escaper of
+``bitstream/h264.nal_unit`` asks :func:`available` and keeps the Python
+escaper where the library cannot be built, as the reference does; the
+bytes are the same.
+
+``calls`` counts the native entry points that ran to a good end (a
+coder call that overran its output cap is not counted), so a caller can
+show that the native coder, and not a Python fallback, coded its
+frames.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_SRC_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD = os.path.join(os.path.dirname(_SRC_DIR), "build")
+SOURCES = ("cabac.cpp", "levelpack.cpp", "entropy.cpp")
+# no -march=native: a build/ carried to another host must still load
+_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+
+_LOCK = threading.Lock()
+_LIB = None
+_ERROR = None
+calls = collections.Counter()
+_CALLS_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _CALLS_LOCK:
+        calls[name] += 1
+
+
+def _so_path() -> str:
+    tag = hashlib.sha256(" ".join(_FLAGS).encode())
+    for name in SOURCES:
+        tag.update(name.encode())
+        with open(os.path.join(_SRC_DIR, name), "rb") as f:
+            tag.update(f.read())
+    return os.path.join(BUILD, f"libdngd_native_{tag.hexdigest()[:16]}.so")
+
+
+def _build() -> str:
+    so = _so_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD, exist_ok=True)
+    # a private temp name renamed into place: a crashed or concurrent
+    # build never leaves a truncated library at the final path
+    tmp = f"{so}.tmp{os.getpid()}"
+    cmd = (["g++", *_FLAGS, "-o", tmp]
+           + [os.path.join(_SRC_DIR, s) for s in SOURCES])
+    try:
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.SubprocessError) as e:
+        raise RuntimeError(f"native library build failed: {e}") from e
+    if p.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError("native library build failed:\n" + p.stderr)
+    os.replace(tmp, so)
+    return so
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    for probe in ("tpudesktop_entropy_abi_version",
+                  "tpudesktop_cabac_abi_version",
+                  "tpudesktop_levelpack_abi_version"):
+        fn = getattr(lib, probe)
+        fn.restype = ctypes.c_int32
+        if fn() != 1:
+            raise RuntimeError(f"native library ABI mismatch ({probe})")
+    i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+    i64, i32 = ctypes.c_int64, ctypes.c_int32
+    tables = [i8p, u8p, u8p, u8p]
+    lib.h264_emulation_prevention.argtypes = [u8p, i64, u8p, i64]
+    lib.h264_emulation_prevention.restype = i64
+    lib.h264_cabac_intra_slices.argtypes = (
+        [i32p] * 6 + [i32p, u8p, i32p, i32p] + [i64, i64, i32] + tables
+        + [u8p, i64p, i64])
+    lib.h264_cabac_intra_slices.restype = i64
+    lib.h264_cabac_p_slices.argtypes = (
+        [i32p] * 6 + [i64, i64, i32] + tables + [u8p, i64p, i64])
+    lib.h264_cabac_p_slices.restype = i64
+    lib.h264_cabac_engine_rows.argtypes = (
+        [u32p, i64p, i64p, i64, i32] + tables + [u8p, i64p, i64])
+    lib.h264_cabac_engine_rows.restype = i64
+    lib.level_unpack_rows.argtypes = [u32p, i64p, i64, i64, i32p]
+    lib.level_unpack_rows.restype = None
+
+
+def get_lib() -> ctypes.CDLL:
+    """The built library; raises RuntimeError if it cannot be built or
+    loaded (the first failure is remembered)."""
+    global _LIB, _ERROR
+    with _LOCK:
+        if _LIB is None and _ERROR is None:
+            try:
+                lib = ctypes.CDLL(_build())
+                _bind(lib)
+                _LIB = lib
+            except (OSError, RuntimeError, AttributeError) as e:
+                _ERROR = RuntimeError(f"native library unavailable: {e}")
+        if _ERROR is not None:
+            raise _ERROR
+        return _LIB
+
+
+def available() -> bool:
+    try:
+        get_lib()
+    except RuntimeError:
+        return False
+    return True
+
+
+def cabac_slices(symbol: str, arrays, nr: int, nc: int, qp: int, tables,
+                 out: np.ndarray, lens: np.ndarray, cap: int) -> int:
+    """Run ``h264_cabac_intra_slices`` or ``h264_cabac_p_slices``: one
+    slice payload per MB row at ``out[row*cap:]``; returns the C code
+    (0 = done, -1 = a row overran ``cap``)."""
+    fn = getattr(get_lib(), symbol)
+    rc = int(fn(*arrays, nr, nc, int(qp), *tables, out, lens, cap))
+    if rc == 0:
+        _count(symbol)
+    return rc
+
+
+def cabac_engine_rows(payload: np.ndarray, row_off: np.ndarray,
+                      row_bits: np.ndarray, rows: int, qp: int,
+                      ctx_init, rng, tmps, tlps, cap: int):
+    """Run the arithmetic engine over per-row record streams.
+
+    Returns the per-row slice payload bytes, or the int failure code:
+    -1 = output cap overflow (caller may retry with a larger cap),
+    -2 = malformed record stream (retrying cannot help)."""
+    lib = get_lib()
+    out = np.empty(rows * cap, np.uint8)
+    lens = np.zeros(rows, np.int64)
+    rc = lib.h264_cabac_engine_rows(
+        np.ascontiguousarray(payload, np.uint32),
+        np.ascontiguousarray(row_off, np.int64),
+        np.ascontiguousarray(row_bits, np.int64),
+        rows, int(qp), ctx_init, rng, tmps, tlps, out, lens, cap)
+    if rc != 0:
+        return int(rc)
+    _count("h264_cabac_engine_rows")
+    return [out[r * cap:r * cap + lens[r]].tobytes() for r in range(rows)]
+
+
+def level_unpack(payload: np.ndarray, row_off: np.ndarray, rows: int,
+                 slots_per_row: int) -> np.ndarray:
+    """Threaded C decode of the level-pack transport (rows parallel)."""
+    lib = get_lib()
+    _count("level_unpack_rows")
+    out = np.empty(rows * slots_per_row, np.int32)
+    lib.level_unpack_rows(np.ascontiguousarray(payload, np.uint32),
+                          np.ascontiguousarray(row_off, np.int64),
+                          rows, slots_per_row, out)
+    return out
+
+
+def emulation_prevention(rbsp: bytes) -> bytes:
+    """H.264 EPB escaping via C."""
+    lib = get_lib()
+    src = np.frombuffer(rbsp, np.uint8)
+    out = np.empty(len(src) * 3 // 2 + 16, np.uint8)
+    n = lib.h264_emulation_prevention(src, len(src), out, len(out))
+    if n < 0:
+        raise RuntimeError("EPB output buffer too small")
+    return out[:n].tobytes()

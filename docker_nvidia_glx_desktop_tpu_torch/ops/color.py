@@ -1,0 +1,107 @@
+"""RGB -> studio-range BT.601 YUV 4:2:0 planes on the card (K9).
+
+Replaces the reference's ``models/h264.py`` ``_yuv_stage`` (``ops/
+color.py`` ``rgb_to_yuv420`` with ``matrix="video"``, then round and
+clip): an (H, W, 3) uint8 RGB frame is edge-padded to (pad_h, pad_w),
+each pixel's Y, Cb and Cr are float32 multiply-adds, chroma is the 2x2
+mean, and every value is rounded half-to-even and clipped to uint8.
+
+Bit-exact with the reference as XLA compiles it on the CPU, which
+contracts the multiply-adds into fused multiply-adds: per channel
+``fma(b, m2, fma(r, m0, g*m1)) + off``, then the 2x2 quad summed in row
+order (``((p00 + p01) + p10) + p11``) and divided by 4.  The tests pin
+both orders against the reference over every RGB triple (luma) and on
+random, flat and edge frames (chroma).  The plain version evaluates each
+fused step in float64 and rounds it to float32: a product of an 8-bit
+integer and a float32 constant plus a float32 is exact in float64, so
+that rounding is the single rounding of a fused multiply-add.
+
+:func:`rgb_to_yuv420` launches ``csrc/color.cu`` for a CUDA tensor and
+runs :func:`rgb_to_yuv420_plain` for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _cuda
+
+# BT.601 luma coefficients; full-range matrix scaled to studio range in
+# float32, as the reference builds it.
+_KR, _KG, _KB = 0.299, 0.587, 0.114
+_M_FULL = np.array([[_KR, _KG, _KB],
+                    [-_KR / 1.772, -_KG / 1.772, 0.5],
+                    [0.5, -_KG / 1.402, -_KB / 1.402]], dtype=np.float32)
+M_VIDEO = _M_FULL * np.array([[219.0 / 255.0], [224.0 / 255.0],
+                              [224.0 / 255.0]], dtype=np.float32)
+OFF_VIDEO = np.array([16.0, 128.0, 128.0], dtype=np.float32)
+# the kernel's arguments: the matrix row-major, then the offsets, as
+# float32 bit patterns
+_MATRIX_BITS = [int(v) for v in np.concatenate(
+    [M_VIDEO.ravel(), OFF_VIDEO]).view(np.int32)]
+
+
+def _channel(rgb64: torch.Tensor, d: int) -> torch.Tensor:
+    """float32 channel ``d`` of (..., 3) float64 RGB, fused order."""
+    m = [float(v) for v in M_VIDEO[d]]
+    r, g, b = rgb64.unbind(-1)
+    acc = (g * m[1]).to(torch.float32)
+    acc = (r * m[0] + acc.double()).to(torch.float32)
+    acc = (b * m[2] + acc.double()).to(torch.float32)
+    return acc + torch.tensor(float(OFF_VIDEO[d]), dtype=torch.float32)
+
+
+def _q(p: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(p), 0, 255).to(torch.uint8)
+
+
+def rgb_to_yuv420_plain(rgb: torch.Tensor, pad_h: int, pad_w: int):
+    """Plain PyTorch version of K9: same contract as :func:`rgb_to_yuv420`."""
+    h, w = rgb.shape[:2]
+    rows = torch.clamp(torch.arange(pad_h, device=rgb.device), max=h - 1)
+    cols = torch.clamp(torch.arange(pad_w, device=rgb.device), max=w - 1)
+    f = rgb[rows][:, cols].double()
+    y = _q(_channel(f, 0))
+    out = [y]
+    for d in (1, 2):
+        c = _channel(f, d)
+        s = ((c[0::2, 0::2] + c[0::2, 1::2]) + c[1::2, 0::2]) + c[1::2, 1::2]
+        out.append(_q(s / 4))
+    return tuple(out)
+
+
+def _check(rgb, pad_h, pad_w):
+    if rgb.dtype != torch.uint8 or rgb.dim() != 3 or rgb.shape[2] != 3:
+        raise ValueError("rgb must be an (H, W, 3) uint8 tensor")
+    h, w = rgb.shape[:2]
+    if pad_h % 16 or pad_w % 16 or pad_h < h or pad_w < w or not (h and w):
+        raise ValueError(f"padding ({pad_h}, {pad_w}) must be MB multiples "
+                         f"covering the frame ({h}, {w})")
+    if not rgb.is_contiguous():
+        raise ValueError("rgb must be contiguous")
+
+
+def rgb_to_yuv420(rgb: torch.Tensor, pad_h: int, pad_w: int):
+    """(H, W, 3) uint8 RGB -> (y (pad_h, pad_w), cb, cr (pad_h/2,
+    pad_w/2)) uint8 planes, edge-padded to MB multiples.  Any H and W,
+    odd ones too.
+
+    A CUDA tensor launches the kernel (one thread per 2x2 output quad:
+    four luma samples and one chroma sample of each plane); a CPU tensor
+    runs the plain version."""
+    _check(rgb, pad_h, pad_w)
+    if rgb.device.type == "cpu":
+        return rgb_to_yuv420_plain(rgb, pad_h, pad_w)
+    dev = rgb.device
+    y = torch.empty((pad_h, pad_w), dtype=torch.uint8, device=dev)
+    cb = torch.empty((pad_h // 2, pad_w // 2), dtype=torch.uint8, device=dev)
+    cr = torch.empty_like(cb)
+    _cuda.launch("color", "rgb_to_yuv420_launch", [rgb, y, cb, cr],
+                 [rgb.shape[0], rgb.shape[1], pad_h, pad_w] + _MATRIX_BITS,
+                 dev)
+    rgb_to_yuv420.launches += 1
+    return y, cb, cr
+
+
+rgb_to_yuv420.launches = 0

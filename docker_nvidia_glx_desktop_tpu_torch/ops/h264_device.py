@@ -364,3 +364,14 @@ def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
 
 
 encode_intra_frame_yuv.launches = 0
+
+
+def encode_intra_frame(rgb: torch.Tensor, pad_h: int, pad_w: int,
+                       qp: int) -> dict:
+    """RGB frame -> the intra core's output dict: the colour conversion
+    (K9, ``ops/color``) then K1 on its planes.  Replaces the reference's
+    ``ops/h264_device.py`` ``encode_intra_frame`` (no fused kernel: two
+    launches)."""
+    from .color import rgb_to_yuv420
+
+    return encode_intra_frame_yuv(*rgb_to_yuv420(rgb, pad_h, pad_w), qp)

@@ -57,6 +57,40 @@ print("LEAKED", bad)
 """
 
 
+_BLOCKED_CABAC = """
+import os, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {repo!r})
+import numpy as np
+from docker_nvidia_glx_desktop_tpu_torch.bitstream import h264_cabac
+from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder, make_encoder
+from docker_nvidia_glx_desktop_tpu_torch.native import lib
+from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+frame = np.full((48, 64, 3), 90, np.uint8)
+for route in ("host", "device"):
+    os.environ["ENCODER_CABAC_BINARIZE"] = route
+    enc, codec = make_encoder(from_env({{"SIZEW": "64", "SIZEH": "48",
+                                         "ENCODER_ENTROPY": "cabac"}}),
+                              64, 48, device="cpu")
+    assert codec == "h264_cabac"
+    for i in range(3):
+        frame[8:24, 4 * i:4 * i + 16] = 200
+        enc.encode_collect(enc.encode_submit(frame))
+# the reference's default colour path: the device conversion (K9)
+enc = H264Encoder(64, 48, gop=4, deblock=True, device="cpu")
+assert not enc.host_color
+for i in range(2):
+    enc.encode(frame)
+assert h264_cabac.python_pictures == 0 and lib.calls["h264_cabac_p_slices"]
+assert lib.calls["h264_cabac_engine_rows"] and lib.calls["level_unpack_rows"]
+print("SO", lib._so_path())
+bad = sorted(m for m in sys.modules
+             if m == "docker_nvidia_glx_desktop_tpu"
+             or m.startswith("docker_nvidia_glx_desktop_tpu."))
+print("LEAKED", bad)
+"""
+
+
 def _run(code: str, cwd=None, timeout=120):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -74,6 +108,26 @@ def test_port_encodes_a_gop_with_jax_blocked():
     out = _run(_BLOCKED_GOP.format(repo=str(REPO)), cwd=str(REPO.parent))
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LEAKED []" in out.stdout
+
+
+def test_port_encodes_cabac_and_device_colour_with_jax_blocked():
+    out = _run(_BLOCKED_CABAC.format(repo=str(REPO)), cwd=str(REPO.parent))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LEAKED []" in out.stdout
+    so = pathlib.Path(out.stdout.split("SO ")[1].split()[0])
+    assert so.parent == PORT / "build" and so.exists()
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in (PORT / "native").iterdir()
+    if p.suffix in (".cpp", ".py")))
+def test_native_sources_are_the_ports_own(path):
+    """The port's native library builds from its own sources into its
+    own build/, never the reference's (or its cache directory)."""
+    src = (REPO / path).read_text()
+    assert ".cache" not in src and "TPUDESKTOP_CACHE" not in src, path
+    for inc in re.findall(r'^#include\s+"([^"]+)"', src, re.M):
+        assert (REPO / path).parent.joinpath(inc).exists(), (path, inc)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -106,7 +160,7 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
 
 @pytest.mark.parametrize("env,item", [
     ({"ENCODER_GOP": "60", "ENCODER_SUPERSTEP_CHUNK": "4"}, "item 8"),
-    ({"ENCODER_GOP": "1", "ENCODER_ENTROPY": "cabac"}, "item 7"),
+    ({"ENCODER_GOP": "1", "ENCODER_ENTROPY": "native"}, "item 17"),
     ({"ENCODER_GOP": "1", "ENCODER_TUNE": "hq"}, "item 10"),
     ({"ENCODER_GOP": "1", "ENCODER_SUPERSTEP_CHUNK": "4"}, "item 8"),
     ({"ENCODER_GOP": "1", "ENCODER_SPATIAL_SHARDS": "2"}, "item 11"),
