@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in four phases:
+seeded generator, in six phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -23,7 +23,19 @@ seeded generator, in four phases:
   level decoder and CABAC coder) and ``=device`` (K11i/K11p, the native
   arithmetic engine), an IDR and P frames, two frames in flight (K1,
   K4 full, K5, K8 and the route's kernels); at a low fixed qp a noise P
-  frame whose records overflow takes the dense coder.
+  frame whose records overflow takes the dense coder;
+- **ring**: ``ENCODER_SUPERSTEP_CHUNK=4``, the deployed manifest's
+  setting (GOP 57 = 14x4+1, deblock, rate control), pipelined at the
+  encoder's depth: device CAVLC with a noise P frame inside a chunk (the
+  chunk's overflow fallback), a keyframe requested mid-chunk (a partial
+  chunk flushed per frame) and a drained chunk; then CABAC with
+  ``ENCODER_CABAC_BINARIZE=device``, and rgb ingest at the odd geometry
+  (K9's frame axis).  Every chunk runs as one replay of a captured CUDA
+  graph (``ops/devloop``), its stats as one K4c launch;
+- **damage**: ``DNGD_DAMAGE_MASK=true`` on a desktop with a blinking
+  cursor (1 MB row), a scrolling terminal pane (8 rows) and one
+  full-frame change, per frame and in the ring (K5r, K13, and K6-K8 on
+  the compacted rows).
 
 Checks, each of which fails the run:
 
@@ -45,11 +57,24 @@ Checks, each of which fails the run:
           library built by g++ from the port's ``native/`` into its
           ``build/``, and the native coder and engine, never the Python
           coder, coded every frame
+  ring    each stream's access units byte-identical to the per-frame
+          path's at the ring's qps (the ring holds one qp per chunk); one
+          chunk's graph replay equal to the eager body on the same inputs
+          (flats, references, MVs, levels); every kernel of the chunk
+          counted through the graph (direct launches, less those recorded
+          at capture, plus each graph's kernel nodes times its replays)
+  damage  the masked access units and references against the plain
+          chain on the card (plain K5r, K6-K8 and K13 from the IDR's
+          reference on), cv2's decode against the references, the masked
+          ring against the per-frame masked path at the ring's qps
   check   NAL structure, recon PSNR, qp moved, no jax imported
 
 Prints the card's name and power limit, per-kernel times beside their
 bounds, the GOP and CABAC paths' frames/s, p50 frame ms and host spans
-(the CABAC span per route), the GOP path's busy share,
+(the CABAC span per route), the GOP path's busy share, the ring against
+the per-frame path (frames/s and submit p50 in alternating runs), the
+masked P stage's device ms at 1, 8 and 68 damaged rows, the graphs'
+count and memory pools,
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, without CUDA or
 outside a checkout of the repository.
@@ -85,6 +110,13 @@ COLOUR_FRAMES = 4          # colour phase: odd geometry, device colour (K9)
 ODD_W, ODD_H = 1919, 1079
 CABAC_FRAMES = 12          # CABAC phase: an IDR and P frames, per route
 CABAC_DENSE_QP = "8"       # a noise P frame at this qp passes the record budget
+RING_FRAMES = 30           # ring phase: IDR, 7 chunks, a flushed and a drained one
+RING_KF_AT = 18            # a keyframe requested with a chunk half staged
+RING_NOISY_AT = 6          # a noise P frame inside the second chunk: overflow
+RING_CABAC_FRAMES = 10
+RING_RGB_FRAMES = 9
+RING_TIMED_FRAMES = 29     # IDR + 7 chunks a timed run
+DAMAGE_FRAMES = 12
 
 
 class SmokeError(RuntimeError):
@@ -193,6 +225,20 @@ def cuda_ms(fn, reps: int, warm: int = 1):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20):
+    """Median ms of ``fn`` captured once into a CUDA graph and replayed
+    (CUDA events): the kernels' device time without the host's launch
+    gaps, which ``cuda_ms`` of a short kernel includes."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return cuda_ms(g.replay, reps=reps)
 
 
 def device_busy(enc, frames, depth: int = 2):
@@ -337,6 +383,10 @@ def run():
     print(f"colour phase done at {time.perf_counter() - t_start:.0f} s")
     rows += cabac_phase(report)
     print(f"cabac phase done at {time.perf_counter() - t_start:.0f} s")
+    rows += ring_phase(report)
+    print(f"ring phase done at {time.perf_counter() - t_start:.0f} s")
+    rows += damage_phase(report)
+    print(f"damage phase done at {time.perf_counter() - t_start:.0f} s")
     check("jax" not in sys.modules, "the port imported jax")
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
@@ -370,7 +420,7 @@ def intra_phase(report):
         "intra": h264_device.encode_intra_frame_yuv,
         "cavlc_slots": cavlc_device.frame_block_slots,
         "pack": bitmerge.pack_frame,
-        "content_stats": content_stats.frame_stats,
+        "content_stats": content_stats.chunk_stats,
     }
 
     # -- main path ---------------------------------------------------------
@@ -475,7 +525,7 @@ def intra_phase(report):
               f"K3 {label}: overflow flag {m_k.overflow}")
         prev = tokens[2][4][3][0]
         v_k, g_k = content_stats.frame_stats(y, prev, 512)
-        v_p, g_p = content_stats.frame_stats_plain(y, prev, 512)
+        v_p, g_p = content_stats.frame_stats_full_plain(y, prev, 512)
         check(torch.equal(g_k, g_p), f"K4 {label}: damage grid differs")
         check(torch.equal(v_k[:7], v_p[:7]) and torch.equal(v_k[9:], v_p[9:]),
               f"K4 {label}: integer fields differ {v_k} {v_p}")
@@ -504,7 +554,7 @@ def intra_phase(report):
              nbytes(*sl_k, hv, hl) + total_bytes),
             ("content_stats", "content.cu", "content_stats.py:156 frame_stats",
              lambda: content_stats.frame_stats(y, prev, 512),
-             lambda: content_stats.frame_stats_plain(y, prev, 512),
+             lambda: content_stats.frame_stats_full_plain(y, prev, 512),
              nbytes(y, prev) + nbytes(v_k, g_k)),
         ]
         saved = {k: fn.launches for k, fn in wrappers.items()}
@@ -583,7 +633,7 @@ def gop_phase(report):
         "intra": h264_device.encode_intra_frame_yuv,
         "cavlc_slots": cavlc_device.frame_block_slots,
         "pack": bitmerge.pack_frame,
-        "content_stats_full": content_stats.frame_stats_full,
+        "content_stats_full": content_stats.chunk_stats,
         "inter": h264_inter.encode_p_frame,
         "cavlc_p_slots": cavlc_p_device.p_frame_slots,
         "pack_p": bitmerge.pack_p_frame,
@@ -921,10 +971,10 @@ def colour_phase(report):
         return enc, aus
 
     # -- main path ----------------------------------------------------------
-    color.rgb_to_yuv420.launches = 0
+    color.rgb_to_yuv420_frames.launches = 0
     enc, aus = run_stream()
     torch.cuda.synchronize()
-    launches = color.rgb_to_yuv420.launches
+    launches = color.rgb_to_yuv420_frames.launches
     print(f"colour main: {len(aus)} frames at {ODD_W}x{ODD_H} (host_color "
           f"{enc.host_color}, no host planes for odd geometry), K9 launches "
           f"{launches}")
@@ -1017,7 +1067,7 @@ def cabac_phase(report):
     frames = gop_frames(CABAC_FRAMES, seed=5)
     env = {"SIZEW": str(W), "SIZEH": str(H), "ENCODER_ENTROPY": "cabac"}
     common = {"intra": h264_device.encode_intra_frame_yuv,
-              "content_stats_full": content_stats.frame_stats_full,
+              "content_stats_full": content_stats.chunk_stats,
               "inter": h264_inter.encode_p_frame,
               "deblock": h264_deblock.deblock_frame}
     route_kernels = {"host": {"level_pack": level_pack.pack_levels},
@@ -1311,6 +1361,770 @@ def cabac_phase(report):
     os.environ.pop("ENCODER_CABAC_BINARIZE", None)
     report["cabac"]["au_bytes"] = [len(a) for a in aus]
     return rows
+
+# -- the chunk ring and damage-driven encode ------------------------------------
+
+class _Owner:
+    """Owner of a chunk step's outputs in a check run outside an encoder:
+    released, so the next replay may reuse them."""
+    released = True
+
+
+def drive(enc, frames, keyframe_at=(), depth=None, on_submit=None,
+          on_collect=None):
+    """The serving loop at ``depth`` frames in flight (the encoder's
+    preferred depth by default).  Returns (tokens, AUs, keyframe flags)."""
+    depth = depth or enc.pipeline_depth
+    toks, aus, keys, pend = [], [], [], []
+    for i, f in enumerate(list(frames) + [None]):
+        if f is not None:
+            if i in keyframe_at:
+                enc.request_keyframe()
+            pend.append(enc.encode_submit(f))
+            toks.append(pend[-1])
+            if on_submit is not None:
+                on_submit(enc, pend[-1])
+        while len(pend) >= depth or (f is None and pend):
+            ef = enc.encode_collect(pend.pop(0))
+            aus.append(ef.data)
+            keys.append(ef.keyframe)
+            if on_collect is not None:
+                on_collect(enc)
+    return toks, aus, keys
+
+
+def token_qp(tok) -> int:
+    kind, payload = tok[0], tok[4]
+    if kind == "ring":
+        return payload[0].qp
+    if kind == "intra":
+        return payload[2]
+    if kind in ("cabac_intra", "cabac_p"):
+        return payload[5]
+    return payload[0]
+
+
+def pinned_per_frame(env, w, h, qps):
+    """The per-frame path at the qps a ring run coded (the ring holds one
+    qp per chunk where the rate controller moves it per frame): chunk
+    off, rate control off, each frame's qp taken from ``qps``."""
+    from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    enc, _ = make_encoder(from_env(dict(env, ENCODER_SUPERSTEP_CHUNK="0",
+                                        ENCODER_BITRATE_KBPS="0")), w, h)
+    it = iter(qps)
+    enc._eff_qp = lambda keyframe=True: next(it)
+    return enc
+
+
+def zero_counts(named) -> None:
+    from docker_nvidia_glx_desktop_tpu_torch.ops import devloop
+
+    for fn in named.values():
+        fn.launches = 0
+    devloop.reset_counts()
+
+
+def path_launches(named) -> dict:
+    """Launches of each wrapper's kernel since the counts were zeroed:
+    direct launches, less those recorded into graphs at capture (which
+    never ran), plus the graphs' kernel nodes times their replays."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import devloop
+
+    graph_name = {id(fn): n for n, fn in devloop.wrappers().items()}
+    out = {}
+    for name, fn in named.items():
+        g = graph_name.get(id(fn))
+        out[name] = fn.launches + (devloop.replayed[g] - devloop.captured[g]
+                                   if g else 0)
+    return out
+
+
+def graph_stats(*encs) -> dict:
+    """The encoders' graph budgets: instances live, captured and evicted
+    over their lives, the pools' bytes now and at their peak, replays."""
+    bs = [e._graphs for e in encs]
+    return {"graphs": sum(len(b.live) for b in bs),
+            "captures": sum(b.captures for b in bs),
+            "evicted": sum(b.evicted for b in bs),
+            "pool_bytes": sum(b.pool_bytes for b in bs),
+            "peak_pool_bytes": sum(b.peak_bytes for b in bs),
+            "replays": sum(b.replays for b in bs)}
+
+
+def dispatched_chunks(toks) -> int:
+    rings = {id(t[4][0]): t[4][0] for t in toks if t[0] == "ring"}
+    return sum(1 for r in rings.values() if r.res is not None)
+
+
+def ring_phase(report):
+    """ENCODER_SUPERSTEP_CHUNK=4 through make_encoder: device CAVLC,
+    CABAC (device binarization) and rgb ingest, each against the
+    per-frame path at the ring's qps; one chunk's replay against the
+    eager body; K4c and K9's frame axis against their plain versions;
+    the ring against the per-frame path in alternating timed runs."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.bitstream import h264 as syn
+    from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        bitmerge, cavlc_device, color, content_stats, devloop, h264_device)
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    dev = torch.device("cuda")
+    named = dict(devloop.wrappers(),
+                 content_chunk=content_stats.chunk_stats,
+                 intra=h264_device.encode_intra_frame_yuv,
+                 cavlc_slots=cavlc_device.frame_block_slots,
+                 pack=bitmerge.pack_frame)
+    env = {"SIZEW": str(W), "SIZEH": str(H), "ENCODER_GOP": "57",
+           "ENCODER_SUPERSTEP_CHUNK": "4"}
+    frames = gop_frames(RING_FRAMES, seed=5, noisy_at=RING_NOISY_AT)
+    rep = report["ring"] = {}
+
+    # -- main path: device CAVLC ----------------------------------------------
+    zero_counts(named)
+    enc, _ = make_encoder(from_env(env), W, H)
+    check(enc._ring_chunk == 4 and enc.pipeline_depth == 5 and enc.deblock
+          and enc._rate is not None and enc.gop == 57,
+          "not the deployed ring configuration")
+    stats = []
+    t0 = time.perf_counter()
+    toks, aus, keys = drive(enc, frames, (RING_KF_AT,),
+                            on_collect=lambda e: stats.append(
+                                e.pop_content_stats()))
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = path_launches(named)
+    gs = graph_stats(enc)
+    kinds = [t[0] for t in toks]
+    qps = [token_qp(t) for t in toks]
+    chunks = dispatched_chunks(toks)
+    rep.update(kinds=kinds, qps=qps, launches=launches, chunks=chunks,
+               au_bytes=[len(a) for a in aus], graphs=gs)
+    print(f"ring main: {len(aus)} frames in {main_s:.2f} s (graph captures "
+          f"included), {chunks} chunks replayed, qp {qps}, launches "
+          f"{launches}, graphs {gs}")
+    check(all(launches[k] >= 1 for k in (
+        "inter", "cavlc_p_slots", "pack_p", "deblock", "content_chunk",
+        "intra", "cavlc_slots", "pack")),
+          f"a kernel of the ring path never launched: {launches}")
+    check(gs["replays"] == chunks, f"{gs['replays']} replays for {chunks} "
+          "chunks")
+    check(keys == [i in (0, RING_KF_AT) for i in range(RING_FRAMES)],
+          f"keyframes {keys}")
+    check(len(set(qps[1:])) > 1, "the rate controller did not move qp")
+    ring, slot = toks[RING_NOISY_AT][4]
+    check(ring.res is not None and cavlc_device.FlatMeta(
+        ring.prefix[slot][0].numpy(), enc.mb_h).overflow,
+          "the noise P frame did not overflow inside a chunk")
+    check(any(t[0] == "ring" and t[4][0].pf is not None for t in toks),
+          "no partial chunk went through the per-frame path")
+    check(all(s is not None for s in stats), "content stats missing")
+    check(any(s["psnr_db"] is not None and s["mode"] is not None
+              for s, k in zip(stats, kinds) if k == "ring"),
+          "no chunk slot carries PSNR and the mode mix")
+
+    # -- (b) the per-frame path at the ring's qps ------------------------------
+    per = pinned_per_frame(env, W, H, qps)
+    _, paus, _ = drive(per, frames, (RING_KF_AT,), depth=2)
+    check(aus == paus, "(b) ring: the AUs differ from the per-frame path's")
+    for i, au in enumerate(aus):
+        types = [n[0] & 0x1F for n in au.split(syn.START_CODE)[1:]]
+        check(types.count(syn.NAL_SLICE if not keys[i] else syn.NAL_IDR)
+              == enc.mb_h, f"ring frame {i}: NAL types {types[:4]}...")
+    print(f"(b) ring: {len(aus)} access units byte-identical to the per-frame "
+          "path at the ring's qps on the card")
+
+    # -- one chunk: the graph's replay against the eager body -----------------
+    step = enc._chunk_steps[("cavlc", "yuv", 0)]
+    host = [enc._host_yuv420(f) for f in frames[1:5]]
+    hv, hl = enc._chunk_hdr_slots((1, 2, 3, 4), 0)
+    refs = tuple(p.clone() for p in enc._ref)
+    qp0 = qps[1]
+    g = step(host, refs, hv, hl, None, qp0, owner=_Owner())
+    e = step.run_eager(host, refs, hv, hl, None, qp0)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(a, b) for a, b in zip(g.flats, e.flats))
+            and all(torch.equal(a, b) for a, b in zip(g.refs, e.refs))
+            and torch.equal(g.mvs, e.mvs) and torch.equal(g.ys, e.ys)
+            and all(torch.equal(g.lvs[k], e.lvs[k]) for k in e.lvs))
+    check(same, "a chunk's graph replay differs from the eager body")
+    inst = next(i for i in step.instances if i.out is g)
+    fr_t, refs_t, hv_t, hl_t, _, qp_t = inst.inputs
+    g_ms = cuda_ms(inst.graph.replay, reps=20)
+    e_ms = cuda_ms(lambda: step._body(fr_t, refs_t, hv_t, hl_t, None, qp0,
+                                      qp_t), reps=10)
+    nmb = enc.mb_h * enc.mb_w
+    chunk_bytes = (nbytes(*fr_t, *refs_t, hv_t, hl_t, g.mvs, *g.lvs.values(),
+                          *g.refs) + 4 * bitmerge.FLAT_BYTES)
+    g_row = kernel_row("chunk_step_graph", "", "devloop.py:226 "
+                       "build_p_chunk_step", chunks, 0.0, g_ms, e_ms,
+                       chunk_bytes, 4 * k5_ops(nmb))
+    g_row["source"] = "docker_nvidia_glx_desktop_tpu_torch/ops/devloop.py"
+    print(f"(a) ring: one chunk's replay equal to the eager body (flats, "
+          f"references, MVs, levels); replay {g_ms:.3f} ms, eager body "
+          f"{e_ms:.3f} ms a chunk of 4 (CUDA events)")
+
+    # -- (a) K5 and K8 reading qp from device memory, as the graph does, ----
+    # against their plain versions on the chunk's first frame, at a qp other
+    # than the one the host argument names
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        cavlc_p_device, h264_deblock, h264_inter)
+
+    qp_alt = qp0 + 5 if qp0 <= 46 else qp0 - 5
+    qp_t1 = torch.full((1,), qp_alt, dtype=torch.int32, device=dev)
+    cur = tuple(f[0] for f in fr_t)
+    o_k = h264_inter.encode_p_frame(*cur, *refs, qp0, qp_dev=qp_t1)
+    o_p = h264_inter.encode_p_frame_plain(*cur, *refs, qp_alt)
+    for k in o_p:
+        check(torch.equal(o_k[k], o_p[k]), f"K5 with qp_dev: {k} differs")
+    rec = (o_k["recon_y"], o_k["recon_cb"], o_k["recon_cr"])
+    d_k = h264_deblock.deblock_frame(*rec, qp0, mv=o_k["mv"],
+                                     luma=o_k["luma"], qp_dev=qp_t1)
+    d_p = h264_deblock.deblock_frame_plain(
+        *rec, qp_alt, nnz_blk=cavlc_p_device.nnz_raster(o_k["luma"]),
+        mv=o_k["mv"])
+    for plane, a, b in zip(("luma", "cb", "cr"), d_k, d_p):
+        check(torch.equal(a, b), f"K8 with luma= and qp_dev: {plane} differs")
+    print(f"(a) ring: K5 with qp_dev and K8 with luma= and qp_dev (qp {qp_alt} "
+          f"on the card, {qp0} named by the host) equal to their plain "
+          f"versions at qp {qp_alt} on the chunk's first frame (every output; "
+          "all three filtered planes)")
+
+    # -- (a) K4c against its plain version on the chunk's outputs -------------
+    resid = tuple(e.lvs[k] for k in ("luma", "cb_dc", "cb_ac", "cr_dc",
+                                     "cr_ac"))
+    prev = refs[0]
+    vk, gk = content_stats.chunk_stats(e.ys, prev, 512, e.refs[0], e.mvs,
+                                       resid)
+    vp, gp = content_stats.chunk_stats_plain(e.ys, prev, 512, e.refs[0],
+                                             e.mvs, resid)
+    ints = [1, 2, 3, 4, 9]
+    check(torch.equal(gk, gp) and torch.equal(vk[:, ints], vp[:, ints]),
+          "K4c: grids or integer fields differ")
+    rel = float(((vk - vp).abs() / vp.abs().clamp(min=1)).max())
+    check(rel <= FLOAT_REL_TOL, f"K4c: {vk} vs {vp}")
+    c_err = float((vk - vp).abs().max())
+    c_ms = cuda_ms(lambda: content_stats.chunk_stats(
+        e.ys, prev, 512, e.refs[0], e.mvs, resid), reps=20)
+    c_plain = cuda_ms(lambda: content_stats.chunk_stats_plain(
+        e.ys, prev, 512, e.refs[0], e.mvs, resid), reps=3)
+    c_row = kernel_row("content_chunk", "content.cu",
+                       "content_stats.py:169 chunk_stats",
+                       launches["content_chunk"], c_err, c_ms, c_plain,
+                       nbytes(e.ys, prev, e.refs[0], e.mvs, *resid, vk, gk))
+    print(f"(a) ring: K4c equal to its plain version over a chunk of 4 "
+          f"(grids and counts exact, floats within rel {FLOAT_REL_TOL}); "
+          f"max abs err {c_err:.3g}")
+
+    # -- CABAC with device binarization --------------------------------------
+    os.environ["ENCODER_CABAC_BINARIZE"] = "device"
+    try:
+        cenv = dict(env, ENCODER_ENTROPY="cabac")
+        cframes = gop_frames(RING_CABAC_FRAMES, seed=6)
+        zero_counts(named)
+        cenc, _ = make_encoder(from_env(cenv), W, H)
+        check(cenc._ring_chunk == 4, "the CABAC ring is off")
+        ctoks, caus, _ = drive(cenc, cframes)
+        torch.cuda.synchronize()
+        cl = path_launches(named)
+        check(all(cl[k] >= 1 for k in ("inter", "binarize_p", "deblock")),
+              f"a kernel of the CABAC ring never launched: {cl}")
+        cper = pinned_per_frame(cenv, W, H, [token_qp(t) for t in ctoks])
+        _, cpaus, _ = drive(cper, cframes, depth=2)
+        check(caus == cpaus, "(b) CABAC ring: the AUs differ from the "
+              "per-frame path's")
+    finally:
+        os.environ.pop("ENCODER_CABAC_BINARIZE", None)
+    print(f"ring cabac: {len(caus)} AUs byte-identical to the per-frame path "
+          f"({dispatched_chunks(ctoks)} chunks), launches {cl}")
+
+    # -- rgb ingest: K9's frame axis at the odd geometry -----------------------
+    renv = dict(env, SIZEW=str(ODD_W), SIZEH=str(ODD_H))
+    rframes = [np.ascontiguousarray(f[:ODD_H, :ODD_W])
+               for f in gop_frames(RING_RGB_FRAMES, seed=7)]
+    zero_counts(named)
+    renc, _ = make_encoder(from_env(renv), ODD_W, ODD_H)
+    rtoks, raus, _ = drive(renc, rframes)
+    torch.cuda.synchronize()
+    rl = path_launches(named)
+    check(("cavlc", "rgb", 0) in renc._chunk_steps and rl["color_frames"] >= 1,
+          f"the rgb ring did not run K9's frame axis: {rl}")
+    rper = pinned_per_frame(renv, ODD_W, ODD_H, [token_qp(t) for t in rtoks])
+    _, rpaus, _ = drive(rper, rframes, depth=2)
+    check(raus == rpaus, "(b) rgb ring: the AUs differ from the per-frame "
+          "path's")
+    print(f"ring rgb ingest ({ODD_W}x{ODD_H}): {len(raus)} AUs byte-identical "
+          f"to the per-frame path, launches {rl}")
+    # K9's frame axis against its plain version on a 1080p chunk, exact
+    rgbs = torch.from_numpy(np.stack(gop_frames(4, seed=8))).to(dev)
+    ph, pw = enc.pad_h, enc.pad_w
+    k_out = color.rgb_to_yuv420_frames(rgbs, ph, pw)
+    p_out = color.rgb_to_yuv420_frames_plain(rgbs, ph, pw)
+    check(all(torch.equal(a, b) for a, b in zip(k_out, p_out)),
+          "K9 frame axis differs from its plain version")
+    k9_ms = cuda_ms(lambda: color.rgb_to_yuv420_frames(rgbs, ph, pw), reps=20)
+    k9_plain = cuda_ms(lambda: color.rgb_to_yuv420_frames_plain(rgbs, ph, pw),
+                       reps=3)
+    k9_row = kernel_row("color_frames", "color.cu",
+                        "models/h264.py:220 _stack_luma (and the ring's rgb "
+                        "ingest, ops/devloop.py:306)", rl["color_frames"], 0.0,
+                        k9_ms, k9_plain, nbytes(rgbs, *k_out))
+    print(f"(a) ring: K9's frame axis equal to its plain version on 4 {W}x{H} "
+          f"frames; {k9_ms:.3f} ms a chunk of 4")
+
+    # -- the ring against the per-frame path, alternating timed runs ---------
+    timed = gop_frames(RING_TIMED_FRAMES, seed=9)
+    encs = {"per-frame": make_encoder(from_env(
+        {"SIZEW": str(W), "SIZEH": str(H)}), W, H)[0],
+        "ring": make_encoder(from_env(env), W, H)[0]}
+    runs = {k: [] for k in encs}
+
+    def timed_run(name):
+        e = encs[name]
+        e.request_keyframe()
+        sub, pend = [], []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for f in timed:
+            ts = time.perf_counter()
+            pend.append(e.encode_submit(f))
+            sub.append((time.perf_counter() - ts) * 1e3)
+            while len(pend) >= e.pipeline_depth:
+                e.encode_collect(pend.pop(0))
+        while pend:
+            e.encode_collect(pend.pop(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return {"fps": len(timed) / wall, "submit_p50_ms":
+                statistics.median(sub[1:]), "submit_mean_ms":
+                statistics.mean(sub[1:]), "submit_ms": sub}
+
+    for name in encs:                        # warm: builds and graph captures
+        timed_run(name)
+    for name in ("per-frame", "ring", "ring", "per-frame") * 3:
+        runs[name].append(timed_run(name))
+    for name, rs in runs.items():
+        print(f"{name} e2e ({encs[name].pipeline_depth} in flight, "
+              f"{len(timed)} frames, IDR + {len(timed) - 1} P): frames/s "
+              + ", ".join(f"{r['fps']:.2f}" for r in rs) + "; submit p50 ms "
+              + ", ".join(f"{r['submit_p50_ms']:.2f}" for r in rs)
+              + "; submit mean ms "
+              + ", ".join(f"{r['submit_mean_ms']:.2f}" for r in rs))
+    busy = {name: device_busy(encs[name], timed[1:17],
+                              depth=encs[name].pipeline_depth)
+            for name in ("per-frame", "ring")}
+    gs_all = graph_stats(enc, cenc, renc, encs["ring"])
+    print(f"ring graphs: {gs_all['captures']} captured, {gs_all['graphs']} "
+          f"live, {gs_all['evicted']} evicted, pools "
+          f"{gs_all['pool_bytes'] / 2**20:.1f} MiB in all (peak "
+          f"{gs_all['peak_pool_bytes'] / 2**20:.1f}), {gs_all['replays']} "
+          "replays")
+    rep.update(timed={k: [{x: r[x] for x in ("fps", "submit_p50_ms",
+                                              "submit_mean_ms")} for r in rs]
+                      for k, rs in runs.items()},
+               graphs_all=gs_all, replay_ms=g_ms, eager_body_ms=e_ms,
+               cabac_launches=cl, rgb_launches=rl, device_busy=busy,
+               graph_ms={"content_chunk": graph_ms(lambda: content_stats
+                                                   .chunk_stats(e.ys, prev, 512,
+                                                                e.refs[0], e.mvs,
+                                                                resid)),
+                         "color_frames": graph_ms(lambda: color
+                                                  .rgb_to_yuv420_frames(
+                                                      rgbs, ph, pw))})
+    print("ring: device ms replayed from a captured graph: K4c "
+          f"{rep['graph_ms']['content_chunk']:.3f}, K9 frame axis "
+          f"{rep['graph_ms']['color_frames']:.3f}")
+    for r in (g_row, c_row, k9_row):
+        print(f"kernel {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.4f}"
+              f" ms by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
+              f"{r['launches']} launches)")
+    return [g_row, c_row, k9_row]
+
+
+def damage_frames(n: int, seed: int = 10):
+    """A desktop whose cursor blinks every frame (MB row 41), with a
+    terminal pane (MB rows 19-25) scrolling on frames 4-7 and the whole
+    screen changing at frame 8."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = desktop_base(rng)
+    term = base[304:416, 960:1700].copy()
+    frames = []
+    for i in range(n):
+        f = (255 - base) if i >= 8 else base.copy()
+        if 4 <= i < 8:
+            f[304:416, 960:1700] = np.roll(term, -18 * (i - 3), axis=0)
+        if i % 2:                                                  # cursor
+            f[658:670, 300:310] = 0 if f[658:670, 300:310].mean() > 127 else 255
+        frames.append(f)
+    return frames
+
+
+def damage_phase(report):
+    """DNGD_DAMAGE_MASK=true through make_encoder (the default
+    configuration), per frame and in the ring: the masked AUs and
+    references against the plain chain on the card, cv2's decode, the
+    masked ring against the per-frame masked path at the ring's qps,
+    K5r and K13 against their plain versions, and the masked P stage's
+    device ms at 1, 8 and 68 damaged rows."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.bitstream import h264_entropy
+    from docker_nvidia_glx_desktop_tpu_torch.bitstream import h264 as syn
+    from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        bitmerge, cavlc_device, cavlc_p_device, damage_mask as dmg, devloop,
+        h264_deblock, h264_inter)
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    dev = torch.device("cuda")
+    named = devloop.wrappers()
+    frames = damage_frames(DAMAGE_FRAMES)
+    env = {"SIZEW": str(W), "SIZEH": str(H)}
+    renv = dict(env, ENCODER_SUPERSTEP_CHUNK="4")
+    os.environ["DNGD_DAMAGE_MASK"] = "true"
+    try:
+        # -- main path: per frame, then in the ring ---------------------------
+        zero_counts(named)
+        enc, _ = make_encoder(from_env(env), W, H)
+        check(enc.damage_mask and enc._ring_chunk == 0, "mask off")
+        refs = []
+        toks, aus, keys = drive(enc, frames, depth=2, on_submit=lambda e, t:
+                                refs.append(tuple(p.clone() for p in e._ref)))
+        renc, _ = make_encoder(from_env(renv), W, H)
+        rtoks, raus, _ = drive(renc, frames)
+        torch.cuda.synchronize()
+        launches = path_launches(named)
+        kinds = [t[0] for t in toks]
+        buckets = [t[4][6].bucket if t[0] == "p_masked" else None
+                   for t in toks]
+        print(f"damage main: kinds {kinds}, buckets {buckets}, AU bytes "
+              f"{[len(a) for a in aus]}; ring steps "
+              f"{sorted(renc._chunk_steps)}, launches {launches}")
+        check(kinds == ["intra"] + ["p_masked"] * 7 + ["p"]
+              + ["p_masked"] * 3, f"kinds {kinds}")
+        check(buckets[1:4] == [1, 1, 1] and buckets[4:8] == [8] * 4,
+              f"buckets {buckets}")
+        check(all(launches[k] >= 1 for k in ("inter_rows", "scatter_rows",
+                                              "cavlc_p_slots", "pack_p",
+                                              "deblock", "inter")),
+              f"a kernel of the masked path never launched: {launches}")
+        check(("cavlc", "yuv", 8) in renc._chunk_steps,
+              f"no masked chunk: {sorted(renc._chunk_steps)}")
+        # the masked ring against the per-frame masked path at its qps and
+        # its worklists: a chunk shares its most damaged frame's bucket, and
+        # one whose bucket covers the frame runs the full-frame chunk
+        rper = pinned_per_frame(env, W, H, [token_qp(t) for t in rtoks])
+        plans = []
+        for t in rtoks:
+            if t[0] != "ring":
+                continue
+            ring, slot = t[4]
+            p = ring.plans[slot] if ring.plans else None
+            if ring.res is not None:
+                p = None if ring.dmg is None else dmg.RowPlan(
+                    p.rows, ring.dmg[1][slot], ring.dmg[0], enc.mb_h, p.frac)
+            plans.append(p)
+        it = iter(plans)
+        rper._damage_plan = lambda y: next(it)
+        _, rpaus, _ = drive(rper, frames, depth=2)
+        check(raus == rpaus, "(b) masked ring: the AUs differ from the "
+              "per-frame masked path's")
+        print(f"(b) damage: the masked ring's {len(raus)} AUs byte-identical "
+              "to the per-frame path at its qps and worklists (buckets "
+              f"{[None if p is None else p.bucket for p in plans]})")
+    finally:
+        os.environ.pop("DNGD_DAMAGE_MASK", None)
+    report["damage"] = {"kinds": kinds, "buckets": buckets,
+                        "launches": launches,
+                        "au_bytes": [len(a) for a in aus],
+                        "ring_au_bytes": [len(a) for a in raus],
+                        "ring_steps": [list(k) for k in renc._chunk_steps],
+                        "graphs": graph_stats(renc)}
+
+    # -- (b) the plain chain on the card, from the IDR's reference on --------
+    t_b = time.perf_counter()
+    ref = refs[0]
+    for i in range(1, len(frames)):
+        planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                  for p in enc._host_yuv420(frames[i])]
+        tok = toks[i]
+        if tok[0] == "p_masked":
+            qp, fn, plan = tok[4][0], tok[4][1], tok[4][6]
+            hv, hl = enc._p_hdr_slots_np(fn, qp - enc.qp)
+            rows = torch.from_numpy(plan.padded).to(dev)
+            hvr = torch.from_numpy(np.ascontiguousarray(hv[plan.padded])).to(dev)
+            hlr = torch.from_numpy(np.ascontiguousarray(hl[plan.padded])).to(dev)
+            out = h264_inter.encode_p_frame_rows_plain(*planes, *ref, rows, qp)
+            nb = plan.bucket
+        else:
+            qp, fn = tok[4][0], tok[4][1]
+            hvr, hlr = enc._p_hdr_slots(fn, qp - enc.qp)
+            out = h264_inter.encode_p_frame_plain(*planes, *ref, qp)
+            nb = enc.mb_h
+        sl = cavlc_p_device.p_frame_slots_plain(out)
+        flat = bitmerge.pack_p_frame_plain(*sl[:6], hvr, hlr).cpu().numpy()
+        rec = h264_deblock.deblock_frame_plain(
+            out["recon_y"], out["recon_cb"], out["recon_cr"], qp,
+            nnz_blk=sl[6], mv=out["mv"])
+        meta = cavlc_device.FlatMeta(flat, nb)
+        if tok[0] == "p_masked":
+            ref = dmg.scatter_rows_plain(*ref, *rec, rows)
+            if meta.overflow:
+                want = enc._masked_overflow(
+                    {k: out[k] for k in ("luma", "cb_dc", "cb_ac", "cr_dc",
+                                         "cr_ac")}, out["mv"], plan.padded,
+                    qp, fn)
+            else:
+                want = dmg.assemble_masked_au(
+                    flat, meta, plan.rows, enc.mb_h, enc.mb_w, frame_num=fn,
+                    qp_delta=qp - enc.qp, deblocking_idc=enc._deblock_idc)
+        else:
+            ref = rec
+            if meta.overflow:
+                lv = {k: out[k].cpu().numpy() for k in (
+                    "mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")}
+                want = h264_entropy.encode_p_picture(
+                    lv, frame_num=fn, qp_delta=qp - enc.qp,
+                    deblocking_idc=enc._deblock_idc, qp_map=None, slice_qp=qp)
+            else:
+                want = cavlc_device.assemble_annexb(
+                    flat, meta, nal_type=syn.NAL_SLICE, ref_idc=2)
+        check(aus[i] == want, f"(b) damage frame {i} ({tok[0]}): AU differs "
+              "from the plain chain")
+        for name, a, b in zip(("y", "cb", "cr"), refs[i], ref):
+            check(torch.equal(a, b), f"(b) damage frame {i}: {name} "
+                  "reference differs from the plain chain")
+    print(f"(b) damage: {len(aus) - 1} P access units and references equal to "
+          f"the plain chain on the card ({time.perf_counter() - t_b:.0f} s)")
+
+    # -- (c) cv2 decodes the masked stream to the references ------------------
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is None:
+        print("(c) damage cv2 decode: not run (no cv2 on this machine)")
+        report["damage"]["cv2_decode"] = "not run"
+    else:
+        path = os.path.join(HERE, "chiprun_out", "damage.264")
+        with open(path, "wb") as f:
+            f.write(b"".join(aus))
+        cap = cv2.VideoCapture(path)
+        cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+        for i, r in enumerate(refs):
+            ok, img = cap.read()
+            check(ok, f"(c) cv2 stopped decoding the masked stream at {i}")
+            check(np.array_equal(np.asarray(img).reshape(H, W),
+                                 r[0][:H, :W].cpu().numpy()),
+                  f"(c) masked frame {i}: decoded luma differs from the "
+                  "reference")
+        cap.release()
+        with open(path, "wb") as f:
+            f.write(b"".join(raus))
+        cap = cv2.VideoCapture(path)
+        n = 0
+        while cap.read()[0]:
+            n += 1
+        cap.release()
+        os.remove(path)
+        check(n == len(raus), f"(c) cv2 decoded {n} of the masked ring's "
+              f"{len(raus)} frames")
+        print(f"(c) damage cv2 decode: ran; {len(refs)} decoded luma planes "
+              "equal to the encoder's references; the masked ring's "
+              f"{n} frames decoded")
+        report["damage"]["cv2_decode"] = "ran"
+
+    # -- (a) K5r and K13 against their plain versions, and the masked stage --
+    planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+              for p in enc._host_yuv420(frames[4])]
+    ref = refs[3]
+    qp, fn, plan8 = toks[4][4][0], toks[4][4][1], toks[4][4][6]
+    hv, hl = enc._p_hdr_slots_np(fn, qp - enc.qp)
+    rows8 = torch.from_numpy(plan8.padded).to(dev)
+    o_k = h264_inter.encode_p_frame_rows(*planes, *ref, rows8, qp)
+    o_p = h264_inter.encode_p_frame_rows_plain(*planes, *ref, rows8, qp)
+    torch.cuda.synchronize()
+    for k in o_p:
+        check(torch.equal(o_k[k], o_p[k]), f"K5r: {k} differs")
+    rec = (o_k["recon_y"], o_k["recon_cb"], o_k["recon_cr"])
+    s_k = dmg.scatter_rows(*ref, *rec, rows8)
+    s_p = dmg.scatter_rows_plain(*ref, *rec, rows8)
+    for a, b in zip(s_k, s_p):
+        check(torch.equal(a, b), "K13 differs")
+    print(f"(a) damage: K5r and K13 equal to their plain versions on the "
+          f"{plan8.bucket}-row worklist {plan8.padded.tolist()} (qp {qp})")
+    nb = plan8.bucket
+    r5_ms = cuda_ms(lambda: h264_inter.encode_p_frame_rows(*planes, *ref,
+                                                           rows8, qp), reps=20)
+    r5_plain = cuda_ms(lambda: h264_inter.encode_p_frame_rows_plain(
+        *planes, *ref, rows8, qp), reps=3)
+    frac = nb / enc.mb_h
+    r5_row = kernel_row("inter_rows", "inter.cu",
+                        "damage_mask.py:170 row_core (its P core over the "
+                        "worklist)", launches["inter_rows"], 0.0, r5_ms,
+                        r5_plain, frac * nbytes(*planes, *ref)
+                        + nbytes(rows8, *o_k.values()),
+                        k5_ops(nb * enc.mb_w))
+    s_ms = cuda_ms(lambda: dmg.scatter_rows(*ref, *rec, rows8), reps=20)
+    s_plain = cuda_ms(lambda: dmg.scatter_rows_plain(*ref, *rec, rows8),
+                      reps=3)
+    s_row = kernel_row("scatter_rows", "damage.cu",
+                       "damage_mask.py:228 row_core's reference-row scatter",
+                       launches["scatter_rows"], 0.0, s_ms, s_plain,
+                       2 * nbytes(*s_k) + nbytes(rows8))
+    # the library yardstick: torch.index_copy, one call a plane
+    idx8 = rows8.long()
+    s_row["library_ms"] = cuda_ms(lambda: [
+        torch.index_copy(p.view(enc.mb_h, n, -1), 0, idx8, r.view(nb, n, -1))
+        for p, r, n in zip(ref, rec, (16, 8, 8))], reps=20)
+    # the masked P stage (K5r, K6, K7, K8, K13) at 1 and 8 rows; 68 rows is
+    # the full-frame stage (K5, K6, K7, K8), which a fully damaged frame runs
+    stage, stage_g = {}, {}
+    for b, r in ((1, toks[1][4][6]), (nb, plan8)):
+        rt = torch.from_numpy(r.padded).to(dev)
+        hvr = torch.from_numpy(np.ascontiguousarray(hv[r.padded])).to(dev)
+        hlr = torch.from_numpy(np.ascontiguousarray(hl[r.padded])).to(dev)
+
+        def masked_stage():
+            dmg.row_core(*planes, *ref, rt, hvr, hlr, qp, deblock=True)
+
+        stage[b] = cuda_ms(masked_stage, reps=20)
+        stage_g[b] = graph_ms(masked_stage)
+    hvf, hlf = enc._p_hdr_slots(fn, qp - enc.qp)
+
+    def full_stage():
+        st = cavlc_p_device.encode_p_cavlc_frame(*planes, *ref, hvf, hlf, qp)
+        h264_deblock.deblock_frame(*st[1:4], qp, nnz_blk=st[5], mv=st[4])
+
+    stage[enc.mb_h] = cuda_ms(full_stage, reps=20)
+    stage_g[enc.mb_h] = graph_ms(full_stage)
+    print("damage: masked P stage ms (CUDA events, median of 20), eager call "
+          "/ replay of its captured graph: " + ", ".join(
+              f"{b} rows {stage[b]:.3f} / {stage_g[b]:.3f}" for b in stage))
+    report["damage"].update(stage_ms={str(b): ms for b, ms in stage.items()},
+                            stage_graph_ms={str(b): ms
+                                            for b, ms in stage_g.items()})
+    k_g = {"inter_rows": graph_ms(lambda: h264_inter.encode_p_frame_rows(
+        *planes, *ref, rows8, qp)),
+        "scatter_rows": graph_ms(lambda: dmg.scatter_rows(*ref, *rec, rows8))}
+    report["damage"]["graph_ms"] = k_g
+    print(f"damage: device ms replayed from a captured graph: K5r "
+          f"{k_g['inter_rows']:.3f}, K13 {k_g['scatter_rows']:.3f}")
+    mask_serving_cost(report["damage"], planes[0].cpu().numpy(),
+                      ref[0].cpu().numpy())
+    for r in (r5_row, s_row):
+        print(f"kernel {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.4f}"
+              f" ms by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
+              f"{r['launches']} launches)")
+    print(f"library: torch.index_copy of the three planes (K13's function) "
+          f"{s_row['library_ms']:.3f} ms")
+    return [r5_row, s_row]
+
+
+def mask_serving_cost(rep, y, prev_y):
+    """What the mask costs a session to serve: the host damage grid's ms
+    on two 1080p luma planes, then masked and unmasked sessions, per
+    frame and in the ring, over three passes of the damage desktop (its
+    buckets 1, 8 and the full frame, and a full change where a pass
+    wraps): submit p50 and max and frames/s of two timed passes in
+    alternating order after a first pass (graph captures), and each ring
+    session's graph budget over its life (peak pool bytes).  First, a
+    masked ring under a budget of two graphs against one under the
+    default: evictions and recaptures leave the bytes as they were."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import damage_mask as dmg
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    grid_ms = []
+    for _ in range(21):
+        t = time.perf_counter()
+        dmg.damage_grid_np(y, prev_y, 512)
+        grid_ms.append((time.perf_counter() - t) * 1e3)
+    frames = damage_frames(DAMAGE_FRAMES) * 3
+
+    def make(chunk, mask):
+        os.environ["DNGD_DAMAGE_MASK"] = mask
+        try:
+            e = make_encoder(from_env({
+                "SIZEW": str(W), "SIZEH": str(H),
+                "ENCODER_SUPERSTEP_CHUNK": chunk}), W, H)[0]
+        finally:
+            os.environ.pop("DNGD_DAMAGE_MASK", None)
+        check(e.damage_mask == (mask == "true"), "mask switch ignored")
+        return e
+
+    # a masked ring held to two graph instances evicts idle buckets' graphs
+    # and captures them again: the same bytes as the default budget's
+    small, full = make("4", "true"), make("4", "true")
+    small._graphs.limit = 2
+    aus_small, aus_full = drive(small, frames)[1], drive(full, frames)[1]
+    gs_small = graph_stats(small)
+    check(gs_small["evicted"] >= 1 and aus_small == aus_full,
+          f"a masked ring under a two-graph budget: {gs_small}, AUs equal "
+          f"{aus_small == aus_full}")
+    print(f"damage: a masked ring held to 2 graphs evicted "
+          f"{gs_small['evicted']} and captured {gs_small['captures']} over "
+          f"{len(frames)} frames, its AUs equal to the default budget's "
+          f"({graph_stats(full)['captures']} captures)")
+    rep["budget_of_two"] = gs_small
+    del small, full
+    encs = {}
+    for chunk in ("0", "4"):
+        for mask in ("false", "true"):
+            encs[("ring" if chunk == "4" else "per-frame")
+                 + (" masked" if mask == "true" else "")] = make(chunk, mask)
+
+    def one_pass(e):
+        e.request_keyframe()
+        sub, pend = [], []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for f in frames:
+            ts = time.perf_counter()
+            pend.append(e.encode_submit(f))
+            sub.append((time.perf_counter() - ts) * 1e3)
+            while len(pend) >= e.pipeline_depth:
+                e.encode_collect(pend.pop(0))
+        while pend:
+            e.encode_collect(pend.pop(0))
+        torch.cuda.synchronize()
+        return len(frames) / (time.perf_counter() - t), sub[1:]
+
+    first = {k: one_pass(e) for k, e in encs.items()}
+    timed = {k: [] for k in encs}
+    for order in (list(encs), list(encs)[::-1]):
+        for k in order:
+            timed[k].append(one_pass(encs[k]))
+    out = {"grid_ms_p50": statistics.median(grid_ms),
+           "frames": len(frames)}
+    for k, e in encs.items():
+        sub = [m for _, ms in timed[k] for m in ms]
+        out[k] = {"fps": [f for f, _ in timed[k]],
+                  "submit_p50_ms": statistics.median(sub),
+                  "submit_max_ms": max(sub),
+                  "first_pass_submit_max_ms": max(first[k][1]),
+                  "graphs": graph_stats(e)}
+        g = out[k]["graphs"]
+        print(f"damage serving, {k} ({e.pipeline_depth} in flight, "
+              f"{len(frames)} frames a pass): frames/s "
+              + ", ".join(f"{f:.2f}" for f in out[k]["fps"])
+              + f"; submit p50 {out[k]['submit_p50_ms']:.2f} ms, max "
+              f"{out[k]['submit_max_ms']:.2f} ms (first pass "
+              f"{out[k]['first_pass_submit_max_ms']:.2f}); graphs "
+              f"{g['captures']} captured, {g['evicted']} evicted, pools peak "
+              f"{g['peak_pool_bytes'] / 2**20:.1f} MiB")
+    print(f"damage serving: host damage grid {out['grid_ms_p50']:.3f} ms a "
+          f"{W}x{H} frame (median of 21)")
+    rep["serving"] = out
 
 
 def main():

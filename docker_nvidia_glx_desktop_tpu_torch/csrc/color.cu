@@ -16,6 +16,11 @@
 // quad reads its 2 x 2 pixels (clamped to the frame: the edge padding)
 // and writes four luma samples and one sample of each chroma plane; no
 // shared memory, no reuse across threads.
+//
+// A frame axis (grid.z = K) converts a staged chunk of K frames in one
+// launch: the super-step ring's rgb ingest, whose luma is also the
+// content stats' input (docker_nvidia_glx_desktop_tpu/models/h264.py:220
+// _stack_luma and ops/devloop.py:306-316).
 #include <cstring>
 
 #include "common.cuh"
@@ -44,6 +49,11 @@ __global__ void color_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restric
   const int qy = blockIdx.y * blockDim.y + threadIdx.y;
   const int cw = pad_w / 2;
   if (qx >= cw || qy >= pad_h / 2) return;
+  const size_t f = blockIdx.z;
+  rgb += f * h * w * 3;
+  y += f * pad_h * pad_w;
+  cb += f * (pad_h / 2) * cw;
+  cr += f * (pad_h / 2) * cw;
   float c[2][2][2];  // [dy][dx][cb, cr]
   for (int dy = 0; dy < 2; ++dy) {
     const int sy = min(2 * qy + dy, h - 1);
@@ -65,12 +75,14 @@ __global__ void color_kernel(const uint8_t* __restrict__ rgb, uint8_t* __restric
 
 }  // namespace
 
+// k frames (K, h, w, 3) -> (K, pad_h, pad_w) and 2 x (K, pad_h/2, pad_w/2);
 // m: the 3x3 matrix row-major then the 3 offsets, as float32 bit patterns.
 extern "C" int rgb_to_yuv420_launch(const uint8_t* rgb, uint8_t* y, uint8_t* cb, uint8_t* cr,
-                                    int h, int w, int pad_h, int pad_w, int m00, int m01,
+                                    int k, int h, int w, int pad_h, int pad_w, int m00, int m01,
                                     int m02, int m10, int m11, int m12, int m20, int m21,
                                     int m22, int o0, int o1, int o2, cudaStream_t stream) {
-  if (pad_h <= 0 || pad_w <= 0) return 0;
+  if (pad_h <= 0 || pad_w <= 0 || k <= 0) return 0;
+  if (k > 65535) return cudaErrorInvalidValue;
   const int bits[12] = {m00, m01, m02, m10, m11, m12, m20, m21, m22, o0, o1, o2};
   Matrix M;
   for (int k = 0; k < 9; ++k) {
@@ -82,7 +94,7 @@ extern "C" int rgb_to_yuv420_launch(const uint8_t* rgb, uint8_t* y, uint8_t* cb,
     memcpy(&M.off[k], &v, 4);
   }
   const dim3 block(32, 8);
-  const dim3 grid((pad_w / 2 + block.x - 1) / block.x, (pad_h / 2 + block.y - 1) / block.y);
+  const dim3 grid((pad_w / 2 + block.x - 1) / block.x, (pad_h / 2 + block.y - 1) / block.y, k);
   color_kernel<<<grid, block, 0, stream>>>(rgb, y, cb, cr, h, w, pad_h, pad_w, M);
   return dngd_last_error();
 }

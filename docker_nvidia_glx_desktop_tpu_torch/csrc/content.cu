@@ -20,6 +20,16 @@
 // sums the SSE exactly in 64 bits and the |MV| in float64, each rounded
 // once, counts the modes and sorts the |MV| for its p95 the same way; the
 // intra form runs passes 1 and 2 only.
+//
+// K4c, the same three kernels with a frame axis, replaces
+// docker_nvidia_glx_desktop_tpu/ops/content_stats.py:169 chunk_stats:
+// K staged frames in one launch sequence (the frame is blockIdx.y of
+// pass 1 and blockIdx.x of passes 2 and 3).  Slot k diffs against slot
+// k-1 and slot 0 against `prev` (null: no damage in any slot, -1 and a
+// zero grid);
+// the recon is the chunk's last reference, so the SSE lands in slot K-1
+// only; the MV field and residuals are (K, ...) stacks.  One frame is
+// the K = 1 case.
 #include <climits>
 
 #include "common.cuh"
@@ -33,13 +43,24 @@ constexpr int SORT_THREADS = 1024;
 struct Optional {
   const uint8_t* recon;
   const int *mv, *luma, *cb_dc, *cb_ac, *cr_dc, *cr_ac;
+  // frame k of K (n MBs each): the recon belongs to the last frame only
+  __device__ Optional at(int k, int K, int n) const {
+    const size_t m = (size_t)k * n;
+    return Optional{k == K - 1 ? recon : nullptr, mv ? mv + 2 * m : nullptr,
+                    luma ? luma + 256 * m : nullptr, cb_dc ? cb_dc + 4 * m : nullptr,
+                    cb_ac ? cb_ac + 60 * m : nullptr, cr_dc ? cr_dc + 4 * m : nullptr,
+                    cr_ac ? cr_ac + 60 * m : nullptr};
+  }
 };
 
-// scratch: per-MB activity, SSE and |MV| (float bits), then the counts
+// scratch of frame k: per-MB activity, SSE and |MV| (float bits), then
+// the frame's two counts, which sit after all frames' per-MB arrays so
+// that one memset clears every count
 struct Scratch {
   int *act, *sse, *mag, *n_damage, *n_skip;
-  Scratch(int* s, int n)
-      : act(s), sse(s + n), mag(s + 2 * n), n_damage(s + 3 * n), n_skip(s + 3 * n + 1) {}
+  __device__ Scratch(int* s, int n, int k, int K)
+      : act(s + (size_t)3 * n * k), sse(act + n), mag(act + 2 * n),
+        n_damage(s + (size_t)3 * n * K + 2 * k), n_skip(n_damage + 1) {}
 };
 
 __device__ __forceinline__ bool any_nonzero(const int* a, int n, int lane) {
@@ -48,19 +69,25 @@ __device__ __forceinline__ bool any_nonzero(const int* a, int n, int lane) {
   return __any_sync(0xffffffffu, nz);
 }
 
-__global__ void mb_reduce_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ prev,
-                                 Optional O, uint8_t* grid, Scratch S, int nr, int nc,
+__global__ void mb_reduce_kernel(const uint8_t* __restrict__ ys, const uint8_t* __restrict__ prev0,
+                                 Optional OK, uint8_t* grids, int* scratch, int nr, int nc,
                                  int thr_sad) {
   const int mb = blockIdx.x * MBS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (mb >= nr * nc) return;
-  const int W = nc * 16;
+  const int W = nc * 16, n = nr * nc, f = blockIdx.y, K = gridDim.y;
+  const size_t plane = (size_t)n * 256;
+  const uint8_t* y = ys + f * plane;
+  const uint8_t* prev = !prev0 ? nullptr : f ? y - plane : prev0;
+  const Optional O = OK.at(f, K, n);
+  const Scratch S(scratch, n, f, K);
+  uint8_t* grid = grids + (size_t)f * n;
   const int r = mb / nc, c = mb % nc;
   const int row = r * 16 + (lane >> 1), col = c * 16 + (lane & 1) * 8;
   int sad = 0, s = 0, s2 = 0, sse = 0;
   for (int k = 0; k < 8; ++k) {
     const int v = y[row * W + col + k];
-    sad += abs(v - (int)prev[row * W + col + k]);
+    if (prev) sad += abs(v - (int)prev[row * W + col + k]);
     s += v;
     s2 += v * v;
     if (O.recon) {
@@ -86,7 +113,7 @@ __global__ void mb_reduce_kernel(const uint8_t* __restrict__ y, const uint8_t* _
     const int a = (int)(256u * (unsigned)s2 - (unsigned)s * (unsigned)s);
     S.act[mb] = max(a, 0);
     S.sse[mb] = sse;
-    const int dmg = sad > thr_sad;
+    const int dmg = prev && sad > thr_sad;
     grid[mb] = (uint8_t)dmg;
     if (dmg) atomicAdd(S.n_damage, 1);
     if (O.mv) {
@@ -127,25 +154,32 @@ __device__ __forceinline__ void bitonic_sort(int* s, int n_pad) {
   }
 }
 
+// one block per frame
 __global__ void __launch_bounds__(SORT_THREADS) sort_pct_kernel(
-    const int* act, const int* n_damage, float* vec, int n, int n_pad) {
+    int* scratch, bool has_prev, float* vecs, int n, int n_pad) {
   extern __shared__ int s[];
-  for (int i = threadIdx.x; i < n_pad; i += blockDim.x) s[i] = i < n ? act[i] : INT_MAX;
+  const Scratch S(scratch, n, blockIdx.x, gridDim.x);
+  float* vec = vecs + 10 * blockIdx.x;
+  for (int i = threadIdx.x; i < n_pad; i += blockDim.x) s[i] = i < n ? S.act[i] : INT_MAX;
   __syncthreads();
   bitonic_sort(s, n_pad);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 10; ++i) vec[i] = -1.0f;
-    vec[1] = (float)*n_damage;
+    vec[1] = has_prev ? (float)*S.n_damage : -1.0f;
     vec[7] = percentile(s, n, 50.0f);
     vec[8] = percentile(s, n, 95.0f);
     vec[9] = (float)n;
   }
 }
 
-// The recon / MV / mode slots, after sort_pct_kernel on the same stream.
+// The recon / MV / mode slots, after sort_pct_kernel on the same stream;
+// one block per frame.
 __global__ void __launch_bounds__(SORT_THREADS) extras_kernel(
-    Scratch S, Optional O, float* vec, int n, int n_pad) {
+    int* scratch, Optional OK, float* vecs, int n, int n_pad) {
   extern __shared__ int s[];
+  const Scratch S(scratch, n, blockIdx.x, gridDim.x);
+  const Optional O = OK.at(blockIdx.x, gridDim.x, n);
+  float* vec = vecs + 10 * blockIdx.x;
   __shared__ long long sse_part[SORT_THREADS / 32];
   __shared__ double mag_part[SORT_THREADS / 32];
   const int t = threadIdx.x;
@@ -192,21 +226,24 @@ __global__ void __launch_bounds__(SORT_THREADS) extras_kernel(
 
 }  // namespace
 
-extern "C" int frame_stats_launch(const uint8_t* y, const uint8_t* prev, const uint8_t* recon,
+// ys (K, H, W); prev the luma before slot 0 (null: no damage); recon the
+// last slot's; mv and the residuals (K, ...) stacks or null; vecs (K, 10),
+// grids (K, R, C), scratch 3 * K * R * C + 2 * K ints.
+extern "C" int chunk_stats_launch(const uint8_t* ys, const uint8_t* prev, const uint8_t* recon,
                                   const int* mv, const int* luma, const int* cb_dc,
                                   const int* cb_ac, const int* cr_dc, const int* cr_ac,
-                                  float* vec, uint8_t* grid, int* scratch, int nr, int nc,
-                                  int thr_sad, cudaStream_t stream) {
+                                  float* vecs, uint8_t* grids, int* scratch, int K, int nr,
+                                  int nc, int thr_sad, cudaStream_t stream) {
   const int n = nr * nc;
-  if (n <= 0 || n > (1 << 15)) return cudaErrorInvalidValue;
+  if (n <= 0 || n > (1 << 15) || K <= 0) return cudaErrorInvalidValue;
   int n_pad = 1;
   while (n_pad < n) n_pad <<= 1;
   const Optional O{recon, mv, luma, cb_dc, cb_ac, cr_dc, cr_ac};
-  const Scratch S(scratch, n);
   int e;
-  if ((e = cudaMemsetAsync(S.n_damage, 0, 2 * sizeof(int), stream))) return e;
-  mb_reduce_kernel<<<(n + MBS_PER_BLOCK - 1) / MBS_PER_BLOCK, 32 * MBS_PER_BLOCK, 0, stream>>>(
-      y, prev, O, grid, S, nr, nc, thr_sad);
+  if ((e = cudaMemsetAsync(scratch + (size_t)3 * n * K, 0, 2 * K * sizeof(int), stream)))
+    return e;
+  mb_reduce_kernel<<<dim3((n + MBS_PER_BLOCK - 1) / MBS_PER_BLOCK, K), 32 * MBS_PER_BLOCK, 0,
+                     stream>>>(ys, prev, O, grids, scratch, nr, nc, thr_sad);
   if ((e = dngd_last_error())) return e;
   const size_t smem = sizeof(int) * n_pad;
   if (smem > 46 * 1024 &&
@@ -215,9 +252,9 @@ extern "C" int frame_stats_launch(const uint8_t* y, const uint8_t* prev, const u
        (e = cudaFuncSetAttribute(extras_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem))))
     return e;
-  sort_pct_kernel<<<1, SORT_THREADS, smem, stream>>>(S.act, S.n_damage, vec, n, n_pad);
+  sort_pct_kernel<<<K, SORT_THREADS, smem, stream>>>(scratch, prev != nullptr, vecs, n, n_pad);
   if ((e = dngd_last_error())) return e;
   if (!recon && !mv) return 0;
-  extras_kernel<<<1, SORT_THREADS, smem, stream>>>(S, O, vec, n, n_pad);
+  extras_kernel<<<K, SORT_THREADS, smem, stream>>>(scratch, O, vecs, n, n_pad);
   return dngd_last_error();
 }

@@ -19,6 +19,17 @@
 // 16 threads each (a column per thread, a 16-lane shuffle sum), and
 // picks the first minimum with a strict '<' as jnp.argmin does.  No
 // float touches a SAD.
+//
+// K5r, the same kernel over a worklist of MB rows, replaces
+// docker_nvidia_glx_desktop_tpu/ops/damage_mask.py:170 row_core's P
+// core (its vmap of encode_p_frame_padded_ref over row bands cut from
+// the edge-padded reference): with a `rows` array of b MB rows the grid
+// is b * nc blocks, block i encodes frame row rows[i / nc] and writes
+// compacted (b, nc, ...) outputs and (16b, W) / (8b, W/2) recon planes.
+// A band's search window is clamped at the frame's edges, not the
+// band's, because the kernel reads the whole reference either way.
+// With `qp_dev` the slice qp (and its QPc) is read from device memory,
+// so a captured CUDA graph takes each chunk's qp without a new capture.
 #include "common.cuh"
 #include "transform.cuh"
 
@@ -124,12 +135,19 @@ __device__ __forceinline__ int first_argmin(const int* a, int n) {
 __global__ void __launch_bounds__(NT) inter_frame_kernel(
     const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
     const uint8_t* __restrict__ cr, const uint8_t* __restrict__ ref_y,
-    const uint8_t* __restrict__ ref_cb, const uint8_t* __restrict__ ref_cr, int* mv_out,
-    int* luma, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry, uint8_t* rcb,
-    uint8_t* rcr, int nr, int nc, int qp, int qpc) {
+    const uint8_t* __restrict__ ref_cb, const uint8_t* __restrict__ ref_cr,
+    const int* __restrict__ rows, const int* __restrict__ qp_dev, int* mv_out, int* luma,
+    int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr,
+    int nr, int nc, int qp, int qpc) {
   __shared__ Smem s;
   const int t = threadIdx.x;
-  const int mb = blockIdx.x, r = mb / nc, c = mb % nc;
+  // mb: the output MB (compacted order); r: the frame MB row it encodes
+  const int mb = blockIdx.x, orow = mb / nc, c = mb % nc;
+  const int r = rows ? rows[orow] : orow;
+  if (qp_dev) {
+    qp = *qp_dev;
+    qpc = dngd_chroma_qp(qp);
+  }
   const int H = nr * 16, W = nc * 16, Hc = nr * 8, Wc = nc * 8;
 
   for (int k = t; k < WIN * WIN; k += NT) {
@@ -248,7 +266,7 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
     idct4(w, rec);
     for (int k = 0; k < 16; ++k) {
       const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
-      ry[(r * 16 + i) * W + c * 16 + j] = (uint8_t)clip255(s.pred[i * 16 + j] + rec[k]);
+      ry[(orow * 16 + i) * W + c * 16 + j] = (uint8_t)clip255(s.pred[i * 16 + j] + rec[k]);
     }
   } else if (t < 24) {
     const int bx = q & 1, by = q >> 1;
@@ -282,22 +300,24 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
     uint8_t* rc = p ? rcr : rcb;
     for (int k = 0; k < 16; ++k) {
       const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
-      rc[(r * 8 + i) * Wc + c * 8 + j] = (uint8_t)clip255(s.predc[p][i * 8 + j] + rec[k]);
+      rc[(orow * 8 + i) * Wc + c * 8 + j] = (uint8_t)clip255(s.predc[p][i * 8 + j] + rec[k]);
     }
   }
 }
 
 }  // namespace
 
+// rows: null for the whole frame (nb = nr), else nb MB rows (K5r).
+// qp_dev: null to take qp/qpc as given, else the slice qp on the card.
 extern "C" int inter_frame_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
                                   const uint8_t* ref_y, const uint8_t* ref_cb,
-                                  const uint8_t* ref_cr, int* mv, int* luma, int* cb_dc,
-                                  int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry, uint8_t* rcb,
-                                  uint8_t* rcr, int nr, int nc, int qp, int qpc,
-                                  cudaStream_t stream) {
-  if (nr <= 0 || nc <= 0) return 0;
-  inter_frame_kernel<<<nr * nc, NT, 0, stream>>>(y, cb, cr, ref_y, ref_cb, ref_cr, mv, luma,
-                                                 cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr,
-                                                 nc, qp, qpc);
+                                  const uint8_t* ref_cr, const int* rows, const int* qp_dev,
+                                  int* mv, int* luma, int* cb_dc, int* cb_ac, int* cr_dc,
+                                  int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr, int nr,
+                                  int nc, int nb, int qp, int qpc, cudaStream_t stream) {
+  if (nr <= 0 || nc <= 0 || nb <= 0) return 0;
+  inter_frame_kernel<<<nb * nc, NT, 0, stream>>>(y, cb, cr, ref_y, ref_cb, ref_cr, rows,
+                                                 qp_dev, mv, luma, cb_dc, cb_ac, cr_dc, cr_ac,
+                                                 ry, rcb, rcr, nr, nc, qp, qpc);
   return dngd_last_error();
 }

@@ -24,6 +24,18 @@ Per frame one submit launches the device stage on the card:
   so frame N+1 may be submitted before frame N is collected;
 - every frame runs the content stats (K4, ``ops/content_stats``).
 
+With ``superstep_chunk`` (``ENCODER_SUPERSTEP_CHUNK``, 2-6) P frames
+are staged on the host and every K of them run as one replay of a
+captured CUDA graph (``ops/devloop``: K9 over the chunk under rgb
+ingest, then K5-K8 or K5/K11p/K8 per frame, the reference chained
+through), their stats as one K4c launch; a partial chunk (an IDR due,
+a drain) goes through the per-frame path, which gives the same bytes.
+With ``damage_mask`` (``DNGD_DAMAGE_MASK``, device CAVLC with host
+colour) a P frame's device work covers its damaged MB rows only
+(``ops/damage_mask``: K5r, K6-K8 on the compacted rows, the row scatter
+K13), per frame and inside the chunk; the other rows go out as cached
+all-skip slices.
+
 Collect pulls a bucketed prefix of the transport and builds the Annex-B
 access unit.  A frame whose bits overflow the device stage's static caps
 is coded on the host from its dense levels: a CAVLC IDR by running the
@@ -33,9 +45,9 @@ the reference encoder's (``docker_nvidia_glx_desktop_tpu/models/
 h264.py``) frame by frame.
 
 Every other setting of the reference encoder — native or Python CAVLC,
-``mode="pcm"``, ``tune != "off"``, the super-step chunk ring, spatial
-shards, the damage mask, the non-default intra mode sets — raises
-NotImplementedError naming its ROADMAP item; nothing falls back quietly.
+``mode="pcm"``, ``tune != "off"``, spatial shards, the non-default intra
+mode sets — raises NotImplementedError naming its ROADMAP item; nothing
+falls back quietly.
 """
 
 from __future__ import annotations
@@ -51,8 +63,9 @@ from ..bitstream import h264 as syn
 from ..bitstream import h264_cabac, h264_entropy
 from ..obs import content as obsc
 from ..ops import (cabac_binarize, cavlc_device, cavlc_p_device, color,
-                   content_stats, h264_deblock, h264_device, h264_inter,
-                   level_pack)
+                   content_stats, devloop, h264_deblock, h264_device,
+                   h264_inter, level_pack)
+from ..ops import damage_mask as dmg
 from ..utils.hostcolor import rgb_to_yuv420_host
 from ..utils.mathutil import round_up
 from .base import EncodedFrame, Encoder
@@ -269,6 +282,28 @@ def _wait(prefetched) -> np.ndarray:
     return host.numpy()
 
 
+def _np(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+class _Ring:
+    """A super-step chunk being staged, then its dispatched outputs.
+    ``frames`` the staged host frames (until dispatch), ``fns`` their
+    frame_nums, ``plans`` their damage worklists (masked chunks), ``res``
+    the step's :class:`devloop.ChunkOut`, ``prefix`` each slot's pull,
+    ``pf`` the per-frame tokens of a flushed ring.  ``released`` once
+    every slot was collected: the step may then overwrite the outputs."""
+
+    def __init__(self, kind: str, ingest: str, qp: int, plans):
+        self.kind, self.ingest, self.qp = kind, ingest, qp
+        self.frames, self.fns, self.plans = [], [], plans
+        self.res = self.prefix = self.pf = self.dmg = None
+        self.content = self.content_np = self.content_pf = None
+        self.error = False
+        self.collected = 0
+        self.released = False
+
+
 class H264Encoder(Encoder):
     codec = "h264"
 
@@ -297,17 +332,12 @@ class H264Encoder(Encoder):
         if superstep_chunk is None:
             superstep_chunk = int(
                 os.environ.get("ENCODER_SUPERSTEP_CHUNK", "0") or 0)
-        if int(superstep_chunk) >= 2:
-            raise _not_ported("the super-step chunk ring", "8")
         if spatial_shards is None:
             spatial_shards = os.environ.get("ENCODER_SPATIAL_SHARDS", "0")
         if (str(spatial_shards).strip() or "0") not in ("0", "1", "off"):
             raise _not_ported("spatial shards", "11")
         if damage_mask is None:
-            damage_mask = os.environ.get("DNGD_DAMAGE_MASK", "").strip() \
-                .lower() in ("1", "true", "yes", "on")
-        if damage_mask:
-            raise _not_ported("the damage mask", "9")
+            damage_mask = dmg.enabled()
         self.device = resolve_device(device)
         self.qp = qp
         self.mode = mode
@@ -364,6 +394,21 @@ class H264Encoder(Encoder):
         self._content_pending = {}
         self._content_meta = None
         self._content_n = 0
+        # super-step ring (ops/devloop): P frames staged on the host, a
+        # chunk of them dispatched as one graph replay; eligibility is
+        # resolved at first use (_ring_chunk)
+        self.superstep_chunk = int(superstep_chunk)
+        self._ring = None
+        self._ring_chunk_cached = None
+        self._chunk_hdr_cache = {}
+        self._chunk_steps = {}
+        self._graphs = devloop.GraphBudget()
+        # damage-driven encode (ops/damage_mask): the host luma chain the
+        # gating grid diffs, advanced on every host-converted frame
+        self.damage_mask = bool(damage_mask)
+        self._damage_prev_y = None
+        self._damage_cur_y = None
+        self._damage_frac = None
 
     def headers(self) -> bytes:
         return (syn.nal_unit(syn.NAL_SPS, self._sps)
@@ -410,17 +455,47 @@ class H264Encoder(Encoder):
                 self._content_pending.clear()
             self._content_pending[idx] = h
 
+    def _content_ring_dispatch(self, ring, out, masked: bool) -> None:
+        """Chunk twin of :meth:`_content_submit`: one K4c launch for the
+        chunk's ingest luma, the SSE against its last reference, and
+        (unmasked chunks) the MV and mode fields per slot.  A kernel
+        fault raises and fails the chunk."""
+        if not obsc.enabled():
+            self._content_prev_y = None
+            return
+        prev = self._content_prev_y
+        # a copy: the next replay overwrites the step's static input
+        self._content_prev_y = out.ys[-1].clone()
+        self._content_n += len(ring.fns)
+        if prev is None or tuple(prev.shape) != tuple(out.ys.shape[1:]):
+            return
+        ring.content = content_stats.chunk_stats(
+            out.ys, prev, obsc.damage_thr_sad(), out.refs[0],
+            None if masked else out.mvs,
+            None if masked else tuple(out.lvs[k] for k in (
+                "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")))
+
     def _content_finish(self, token, data: bytes) -> None:
         self._content_meta = None
         if not obsc.enabled():
             return
-        h = self._content_pending.pop(token[1], None)
+        if token[0] == "ring":
+            ring, slot = token[4]
+            h = None
+            if ring.pf is not None:
+                h = ring.content_pf[slot]
+            elif ring.content is not None:
+                if ring.content_np is None:
+                    ring.content_np = tuple(_np(t) for t in ring.content)
+                h = {"vec": ring.content_np[0][slot],
+                     "grid": ring.content_np[1][slot], "frame_type": "p"}
+        else:
+            h = self._content_pending.pop(token[1], None)
         if h is None:
             return
-        stats = content_stats.vec_to_stats(h["vec"].cpu().numpy(),
-                                           h["grid"].cpu().numpy(),
+        stats = content_stats.vec_to_stats(_np(h["vec"]), _np(h["grid"]),
                                            self.pad_h * self.pad_w)
-        if h["first"]:
+        if h.get("first"):
             stats["damage_fraction"] = None
             stats["damage_grid"] = None
         if stats.get("mode") is None and stats.get("mbs"):
@@ -457,7 +532,18 @@ class H264Encoder(Encoder):
         planes = rgb_to_yuv420_host(rgb, self.pad_h, self.pad_w,
                                     float_fallback=False)
         cls._host_yuv_ok = planes is not None
+        if planes is not None and self.damage_mask:
+            # the damage gating's luma chain advances on every
+            # host-converted frame (IDR, staged, per-frame alike), so the
+            # grid always diffs frame to frame
+            self._damage_prev_y = self._damage_cur_y
+            self._damage_cur_y = np.array(planes[0], copy=True)
         return planes
+
+    def _device_colour(self, rgb):
+        """K9 on the uploaded RGB frame."""
+        rgb_t = torch.from_numpy(np.ascontiguousarray(rgb)).to(self.device)
+        return color.rgb_to_yuv420(rgb_t, self.pad_h, self.pad_w)
 
     def _planes_device(self, rgb):
         """The frame as padded YUV planes on the encoder's device: the
@@ -467,8 +553,7 @@ class H264Encoder(Encoder):
         planes = self._host_yuv420(rgb) if self.host_color else None
         if planes is not None:
             return self._upload(planes)
-        rgb_t = torch.from_numpy(np.ascontiguousarray(rgb)).to(self.device)
-        return color.rgb_to_yuv420(rgb_t, self.pad_h, self.pad_w)
+        return self._device_colour(rgb)
 
     def _eff_qp(self, keyframe: bool = True) -> int:
         qp = self.qp if self._rate is None else self._rate.qp_for(keyframe)
@@ -491,12 +576,8 @@ class H264Encoder(Encoder):
         key = ("p", frame_num, qp_delta)
         slots = self._hdr_slots_cache.get(key)
         if slots is None:
-            hv, hl = cavlc_device.slice_header_slots(
-                self.mb_h, self.mb_w, frame_num=frame_num,
-                qp_delta=qp_delta, slice_type=5, idr=False,
-                deblocking_idc=self._deblock_idc)
-            slots = (torch.from_numpy(hv.view(np.int32)).to(self.device),
-                     torch.from_numpy(hl).to(self.device))
+            slots = tuple(torch.from_numpy(a).to(self.device) for a in
+                          self._p_hdr_slots_np(frame_num, qp_delta))
             self._hdr_slots_cache[key] = slots
         return slots
 
@@ -504,11 +585,14 @@ class H264Encoder(Encoder):
         return tuple(torch.from_numpy(np.ascontiguousarray(p)).to(self.device)
                      for p in planes)
 
-    def _set_ref(self, recon, qp: int, nnz=None, mv=None) -> None:
+    def _set_ref(self, recon, qp: int, nnz=None, mv=None,
+                 luma=None) -> None:
         """The next frame's reference: the recon, loop-filtered when
-        deblocking is on (new planes; the recon itself stays as it is)."""
+        deblocking is on (new planes; the recon itself stays as it is).
+        A P frame's coded blocks come as ``nnz`` or as its ``luma``
+        levels."""
         self._ref = (h264_deblock.deblock_frame(*recon, qp, nnz_blk=nnz,
-                                                mv=mv)
+                                                mv=mv, luma=luma)
                      if self.deblock else tuple(recon))
 
     def _submit_device(self, rgb, idr_pic_id: int):
@@ -692,10 +776,10 @@ class H264Encoder(Encoder):
         dense.update(modes)
         return h264_cabac.encode_intra_picture(dense, **args)
 
-    def _submit_cabac_p(self, planes, qp: int):
+    def _submit_cabac_p(self, planes, qp: int, frame_num: int = None):
         """The P core (K5), the reference's loop filter (K8) and the
         level transport (K10) or records (K11p), without waiting."""
-        frame_num = self._frame_num
+        frame_num = self._frame_num if frame_num is None else frame_num
         y, cb, cr = planes
         out = h264_inter.encode_p_frame(y, cb, cr, *self._ref, qp)
         self._content_submit(
@@ -703,9 +787,8 @@ class H264Encoder(Encoder):
             resid=tuple(out[k] for k in ("luma", "cb_dc", "cb_ac", "cr_dc",
                                          "cr_ac")),
             frame_type="p")
-        nnz = cavlc_p_device.nnz_raster(out["luma"]) if self.deblock else None
-        self._set_ref(tuple(out[k] for k in self._RECON_KEYS), qp, nnz,
-                      out["mv"])
+        self._set_ref(tuple(out[k] for k in self._RECON_KEYS), qp,
+                      mv=out["mv"], luma=out["luma"])
         if self.cabac_device_binarize:
             buf = cabac_binarize.binarize_p(
                 *(out[k] for k in self._BIN_P_KEYS))
@@ -747,19 +830,31 @@ class H264Encoder(Encoder):
     # -- P frames --------------------------------------------------------
 
     def _submit_p(self, rgb):
-        """(token kind, submitted) of a P frame."""
+        """(token kind, submitted) of a P frame.  The damage plan is taken
+        from the host planes before they are uploaded."""
         qp = self._eff_qp(keyframe=False)
-        planes = self._planes_device(rgb)
+        host = self._host_yuv420(rgb) if self.host_color else None
+        plan = self._damage_plan(None if host is None else host[0])
+        planes = (self._upload(host) if host is not None
+                  else self._device_colour(rgb))
         if self.entropy == "cabac":
             return "cabac_p", self._submit_cabac_p(planes, qp)
-        return "p", self._submit_p_device(planes, qp)
+        return self._submit_p_cavlc(planes, qp, self._frame_num, plan)
 
-    def _submit_p_device(self, planes, qp: int):
+    def _submit_p_cavlc(self, planes, qp: int, frame_num: int, plan):
+        """A device-CAVLC P frame: masked over ``plan``'s rows where it
+        leaves some out, else the full frame."""
+        if plan is not None and not plan.full:
+            return "p_masked", self._submit_p_masked(planes, qp, frame_num,
+                                                     plan)
+        return "p", self._submit_p_device(planes, qp, frame_num)
+
+    def _submit_p_device(self, planes, qp: int, frame_num: int = None):
         """Launch the P stage on the device planes without waiting for
         it; ``self._ref`` advances now, so the next frame can submit
         before this one is collected.  The old reference is only read:
         the recon goes to new planes."""
-        frame_num = self._frame_num
+        frame_num = self._frame_num if frame_num is None else frame_num
         hv, hl = self._p_hdr_slots(frame_num, qp - self.qp)
         y, cb, cr = planes
         flat, ry, rcb, rcr, mv, nnz, levels = \
@@ -786,7 +881,6 @@ class H264Encoder(Encoder):
             self.last_recon, self.last_mv = recon
         if ev is not None:
             ev.synchronize()
-        base = cavlc_device.META_WORDS * 4
         buf = prefix.numpy()
         meta = cavlc_device.FlatMeta(buf, self.mb_h)
         if meta.overflow:
@@ -798,6 +892,82 @@ class H264Encoder(Encoder):
             return h264_entropy.encode_p_picture(
                 pulled, frame_num=frame_num, qp_delta=qp - self.qp,
                 deblocking_idc=self._deblock_idc, qp_map=None, slice_qp=qp)
+        buf = self._pull_flat(flat, buf, meta)
+        return cavlc_device.assemble_annexb(buf, meta, nal_type=syn.NAL_SLICE,
+                                            ref_idc=2)
+
+    # -- damage-driven encode (ops/damage_mask) --------------------------
+    # The host twin of the content plane's damage grid compacts a P frame
+    # to its damaged MB rows; the others go out as cached all-skip slices,
+    # which a decoder reconstructs as the reference rows.
+
+    def _damage_plan(self, y):
+        """RowPlan of the current host-converted frame ``y``, or None
+        where the masked path cannot serve it (mask off, device colour,
+        CABAC, ``keep_recon``).  Feeds the rate controller's damage
+        consumer."""
+        if (not self.damage_mask or self.entropy != "device"
+                or self.keep_recon or y is None
+                or self._damage_cur_y is None):
+            return None
+        prev = self._damage_prev_y
+        if prev is not None and prev.shape != y.shape:
+            prev = None                   # after a resize: all damaged
+        plan = dmg.plan_rows(dmg.damage_grid_np(np.asarray(y), prev))
+        self._damage_frac = plan.frac
+        if self._rate is not None:
+            self._rate.note_damage(plan.frac)
+        return plan
+
+    def _p_hdr_slots_np(self, frame_num: int, qp_delta: int):
+        """Host copies of the P slice-header slots (int32 views), for
+        gathering a worklist's rows before the upload."""
+        key = ("p_np", frame_num, qp_delta)
+        slots = self._hdr_slots_cache.get(key)
+        if slots is None:
+            hv, hl = cavlc_device.slice_header_slots(
+                self.mb_h, self.mb_w, frame_num=frame_num,
+                qp_delta=qp_delta, slice_type=5, idr=False,
+                deblocking_idc=self._deblock_idc)
+            slots = (hv.view(np.int32), hl)
+            self._hdr_slots_cache[key] = slots
+        return slots
+
+    def _submit_p_masked(self, planes, qp: int, frame_num: int, plan):
+        """The masked P stage over ``plan``'s worklist (damage_mask.
+        row_core); the scattered reference planes become the next
+        reference.  The content stats take the full luma and the new
+        reference (no MV or mode fields: the untouched rows are skip by
+        construction)."""
+        hv, hl = self._p_hdr_slots_np(frame_num, qp - self.qp)
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device)
+        y, cb, cr = planes
+        flat, ry, rcb, rcr, mv, _, levels = dmg.row_core(
+            y, cb, cr, *self._ref, up(plan.padded), up(hv[plan.padded]),
+            up(hl[plan.padded]), qp, deblock=self.deblock)
+        self._ref = (ry, rcb, rcr)
+        self._content_submit(y, recon_y=ry, frame_type="p")
+        guess = self._p_pull_guess or 2 * self._PULL_BUCKET
+        prefix = _pinned_prefetch(flat[:cavlc_device.META_WORDS * 4 + guess])
+        return (qp, frame_num, levels, flat, prefix, mv, plan)
+
+    def _masked_overflow(self, levels, mv, rows, qp: int,
+                         frame_num: int) -> bytes:
+        """A compacted frame past the flat cap: its levels scattered to
+        full-frame shapes (the other rows skip), coded on the host."""
+        full_lv, full_mv = dmg.scatter_levels_np(
+            {k: _np(v) for k, v in levels.items()}, _np(mv), rows,
+            self.mb_h)
+        full_lv["mv"] = full_mv
+        return h264_entropy.encode_p_picture(
+            full_lv, frame_num=frame_num, qp_delta=qp - self.qp,
+            deblocking_idc=self._deblock_idc, qp_map=None, slice_qp=qp)
+
+    def _pull_flat(self, flat, buf: np.ndarray, meta) -> np.ndarray:
+        """The P pull protocol: update the guess from this frame's size,
+        re-pull on a short prefix."""
+        base = cavlc_device.META_WORDS * 4
         need = 4 * meta.total_words
         bucket = self._PULL_BUCKET
         self._p_pull_hist.append(need)
@@ -805,10 +975,25 @@ class H264Encoder(Encoder):
         if need > len(buf) - base:
             extra = -(-need // bucket) * bucket
             buf = flat[:base + extra].cpu().numpy()
-        return cavlc_device.assemble_annexb(buf, meta, nal_type=syn.NAL_SLICE,
-                                            ref_idc=2)
+        return buf
+
+    def _collect_p_masked(self, submitted) -> bytes:
+        qp, frame_num, levels, flat, prefix, mv, plan = submitted
+        buf = _wait(prefix)
+        meta = cavlc_device.FlatMeta(buf, plan.bucket)
+        if meta.overflow:
+            return self._masked_overflow(levels, mv, plan.padded, qp,
+                                         frame_num)
+        buf = self._pull_flat(flat, buf, meta)
+        return dmg.assemble_masked_au(
+            buf, meta, plan.rows, self.mb_h, self.mb_w, frame_num=frame_num,
+            qp_delta=qp - self.qp, deblocking_idc=self._deblock_idc)
 
     def _collect(self, kind: str, payload, in_pipeline: bool = False):
+        if kind == "ring":
+            return self._ring_collect(payload)
+        if kind == "p_masked":
+            return self._collect_p_masked(payload)
         if kind == "p":
             return self._collect_p_device(payload)
         if kind == "cabac_p":
@@ -858,6 +1043,235 @@ class H264Encoder(Encoder):
     def request_keyframe(self) -> None:
         """Resume semantics: the next frame becomes an IDR."""
         self._force_idr = True
+
+    # -- super-step ring (ops/devloop) ---------------------------------
+    # P frames stage on the host without any device work; a full chunk
+    # runs as one replay of a captured graph.  The chunk's bytes equal the
+    # per-frame path's, so a partial chunk (an IDR due, a drain) flushes
+    # through the per-frame path with no trace in the stream.
+
+    @property
+    def _ring_chunk(self) -> int:
+        """Frames per chunk (0 = ring off): a GOP, device CAVLC or CABAC
+        with device binarization, and no per-frame recon pulls
+        (``keep_recon``).  At most 6, so ring and pipeline stay inside
+        the rate controller's in-flight window."""
+        c = self._ring_chunk_cached
+        if c is None:
+            c = 0
+            if (self.superstep_chunk >= 2 and self.gop > 1
+                    and not self.keep_recon
+                    and (self.entropy == "device"
+                         or self.cabac_device_binarize)):
+                c = max(2, min(self.superstep_chunk, 6))
+            self._ring_chunk_cached = c
+        return c
+
+    @property
+    def pipeline_depth(self) -> int:
+        """Frames a serving loop keeps in flight: chunk + 1 with the ring
+        (chunk N's collect overlaps chunk N+1's staging), else 2."""
+        c = self._ring_chunk
+        return c + 1 if c else 2
+
+    def _ring_stage(self, rgb, idx: int, t0: float):
+        """Stage one P frame; dispatch the chunk when it is full.
+        Returns the frame's token."""
+        ring = self._ring
+        if ring is None:
+            qp = self._eff_qp(keyframe=False)
+            planes = self._host_yuv420(rgb) if self.host_color else None
+            kind = "cabac" if self.entropy == "cabac" else "cavlc"
+            ingest = "yuv" if planes is not None else "rgb"
+            # a masked chunk takes each frame's plan while that frame is
+            # the newest of the host luma chain
+            plans = ([] if self.damage_mask and kind == "cavlc"
+                     and ingest == "yuv" else None)
+            ring = self._ring = _Ring(kind, ingest, qp, plans)
+        else:
+            planes = (self._host_yuv420(rgb) if ring.ingest == "yuv"
+                      else None)
+            if self._rate is not None:
+                # one qp for the chunk; a reservation per frame keeps the
+                # rate controller's per-frame updates aligned
+                self._rate.repeat_last_reservation()
+        ring.frames.append(planes if planes is not None
+                           else np.ascontiguousarray(rgb))
+        ring.fns.append(self._frame_num)
+        if ring.plans is not None:
+            if self._damage_cur_y is None:
+                ring.plans = None
+            else:
+                plan = dmg.plan_rows(dmg.damage_grid_np(
+                    self._damage_cur_y, self._damage_prev_y))
+                self._damage_frac = plan.frac
+                if self._rate is not None:
+                    self._rate.note_damage(plan.frac)
+                ring.plans.append(plan)
+        token = ("ring", idx, t0, False, (ring, len(ring.frames) - 1))
+        if len(ring.frames) >= self._ring_chunk:
+            try:
+                self._ring_dispatch(ring)
+            except Exception:
+                ring.error = ring.released = True
+                raise
+            finally:
+                self._ring = None
+        return token
+
+    def _chunk_hdr_slots(self, fns: tuple, qp_delta: int):
+        """The chunk's P slice-header slots, (K, R, 3) on the device,
+        cached (frame_num cycles mod 16)."""
+        key = (fns, qp_delta)
+        got = self._chunk_hdr_cache.get(key)
+        if got is None:
+            slots = [self._p_hdr_slots_np(fn, qp_delta) for fn in fns]
+            got = tuple(torch.from_numpy(np.stack([s[i] for s in slots])).to(
+                self.device) for i in (0, 1))
+            self._chunk_hdr_cache[key] = got
+        return got
+
+    def _chunk_step(self, kind: str, ingest: str, bucket: int):
+        key = (kind, ingest, bucket)
+        step = self._chunk_steps.get(key)
+        if step is None:
+            step = self._chunk_steps[key] = devloop.ChunkStep(
+                chunk=self._ring_chunk, pad_h=self.pad_h, pad_w=self.pad_w,
+                deblock=self.deblock, entropy=kind, ingest=ingest,
+                damage_bucket=bucket, device=self.device,
+                budget=self._graphs)
+        return step
+
+    def _ring_dispatch(self, ring) -> None:
+        """Run the chunk: one step call (a graph replay on the card), the
+        chunk's content stats, and each slot's prefix pull started."""
+        qp = ring.qp
+        hv = hl = rows = None
+        if ring.kind == "cavlc":
+            plen = (cavlc_device.META_WORDS * 4
+                    + (self._p_pull_guess or 2 * self._PULL_BUCKET))
+            hv, hl = self._chunk_hdr_slots(tuple(ring.fns), qp - self.qp)
+        else:
+            plen = (cabac_binarize.header_words(self.mb_h)
+                    + (self._cabac_p_bin_pull_guess
+                       or 4 * self._CABAC_PULL_WORDS))
+        # a masked chunk shares the bucket of its most damaged frame; one
+        # whose bucket covers the frame runs the full-frame chunk (the
+        # same bytes)
+        bucket = 0
+        if ring.plans and len(ring.plans) == len(ring.frames):
+            b = dmg._bucket_for(max(p.rows.size for p in ring.plans),
+                                self.mb_h)
+            if b < self.mb_h:
+                bucket = b
+        if bucket:
+            padded, hvs, hls = [], [], []
+            for p, fn in zip(ring.plans, ring.fns):
+                pr = np.concatenate([p.rows, np.full(
+                    bucket - p.rows.size, p.rows[-1], np.int32)])
+                v, l = self._p_hdr_slots_np(fn, qp - self.qp)
+                padded.append(pr)
+                hvs.append(v[pr])
+                hls.append(l[pr])
+            hv, hl, rows = np.stack(hvs), np.stack(hls), np.stack(padded)
+            ring.dmg = (bucket, padded)
+        step = self._chunk_step(ring.kind, ring.ingest, bucket)
+        out = step(ring.frames, self._ref, hv, hl, rows, qp, owner=ring)
+        self._ref = out.refs
+        self._content_ring_dispatch(ring, out, masked=bool(bucket))
+        ring.prefix = [_pinned_prefetch(f[:plen]) for f in out.flats]
+        ring.frames = None
+        ring.res = out
+
+    def _ring_flush(self) -> None:
+        """Push a partial chunk through the per-frame path (an IDR due, or
+        a collect reaching a frame whose chunk never filled)."""
+        ring = self._ring
+        self._ring = None
+        if ring is None or ring.res is not None:
+            return
+        toks, cstats = [], []
+        for i, fr in enumerate(ring.frames):
+            planes = (self._upload(fr) if ring.ingest == "yuv"
+                      else self._device_colour(fr))
+            fn = ring.fns[i]
+            if ring.kind == "cavlc":
+                plan = (ring.plans[i] if ring.plans and len(ring.plans) > i
+                        else None)
+                toks.append(self._submit_p_cavlc(planes, ring.qp, fn, plan))
+            else:
+                toks.append(("cabac_p", self._submit_cabac_p(
+                    planes, ring.qp, frame_num=fn)))
+            cstats.append(self._content_last)
+            self._content_last = None
+        ring.frames = None
+        ring.pf = toks
+        ring.content_pf = cstats
+
+    def _ring_collect(self, payload) -> bytes:
+        ring, slot = payload
+        try:
+            if ring.error:
+                raise RuntimeError("super-step chunk dispatch failed; frame "
+                                   "lost (an IDR resync follows)")
+            if ring.res is None and ring.pf is None:
+                self._ring_flush()       # the chunk never filled: drain
+            if ring.pf is not None:
+                return self._collect(*ring.pf[slot])
+            fn = ring.fns[slot]
+            if ring.kind == "cabac":
+                return self._ring_collect_cabac(ring, slot, fn)
+            if ring.dmg is not None:
+                return self._ring_collect_masked(ring, slot, fn)
+            return self._ring_collect_cavlc(ring, slot, fn)
+        finally:
+            ring.collected += 1
+            if ring.collected >= len(ring.fns):
+                ring.released = True
+
+    def _ring_collect_cavlc(self, ring, slot: int, frame_num: int) -> bytes:
+        qp, out = ring.qp, ring.res
+        buf = _wait(ring.prefix[slot])
+        meta = cavlc_device.FlatMeta(buf, self.mb_h)
+        if meta.overflow:
+            # the chunk's own level tensors of this frame, host-coded
+            pulled = {k: _np(v) for k, v in out.levels(slot).items()}
+            pulled["mv"] = _np(out.mvs[slot])
+            return h264_entropy.encode_p_picture(
+                pulled, frame_num=frame_num, qp_delta=qp - self.qp,
+                deblocking_idc=self._deblock_idc, qp_map=None, slice_qp=qp)
+        buf = self._pull_flat(out.flats[slot], buf, meta)
+        return cavlc_device.assemble_annexb(buf, meta, nal_type=syn.NAL_SLICE,
+                                            ref_idc=2)
+
+    def _ring_collect_masked(self, ring, slot: int, frame_num: int) -> bytes:
+        qp, out = ring.qp, ring.res
+        bucket, padded = ring.dmg
+        buf = _wait(ring.prefix[slot])
+        meta = cavlc_device.FlatMeta(buf, bucket)
+        if meta.overflow:
+            return self._masked_overflow(out.levels(slot), out.mvs[slot],
+                                         padded[slot], qp, frame_num)
+        buf = self._pull_flat(out.flats[slot], buf, meta)
+        return dmg.assemble_masked_au(
+            buf, meta, padded[slot], self.mb_h, self.mb_w,
+            frame_num=frame_num, qp_delta=qp - self.qp,
+            deblocking_idc=self._deblock_idc)
+
+    def _ring_collect_cabac(self, ring, slot: int, frame_num: int) -> bytes:
+        qp, out = ring.qp, ring.res
+        args = dict(qp=qp, frame_num=frame_num, qp_delta=qp - self.qp,
+                    deblocking_idc=self._deblock_idc)
+        head = self._pull_binstream(out.flats[slot], ring.prefix[slot],
+                                    "_p_bin")
+        if head is not None:
+            au = h264_cabac.encode_p_from_binstream(
+                head, nr=self.mb_h, nc_mb=self.mb_w, **args)
+            if au is not None:
+                return au
+        dense = {k: _np(v) for k, v in out.levels(slot).items()}
+        dense["mv"] = _np(out.mvs[slot])
+        return h264_cabac.encode_p_picture(dense, **args)
 
     # -- checkpoint/restore --------------------------------------------
 
@@ -941,13 +1355,20 @@ class H264Encoder(Encoder):
         n0 = self._rate.mark() if self._rate is not None else 0
         try:
             if self.gop == 1 or self._next_is_idr():
+                if self._ring is not None:
+                    # a partial chunk ahead of an IDR goes per frame: a
+                    # chunk never straddles a reference-chain reset
+                    self._ring_flush()
                 pic_id = idx % 2 if self.gop == 1 else self._start_idr()
                 kind, sub = self._submit_idr(rgb, pic_id)
                 tok = (kind, idx, t0, True, sub)
             else:
                 self._frame_num = (self._frame_num + 1) % 16
-                kind, sub = self._submit_p(rgb)
-                tok = (kind, idx, t0, False, sub)
+                if self._ring_chunk:
+                    tok = self._ring_stage(rgb, idx, t0)
+                else:
+                    kind, sub = self._submit_p(rgb)
+                    tok = (kind, idx, t0, False, sub)
         except Exception:
             if self._rate is not None:
                 self._rate.rollback_to(n0)

@@ -211,12 +211,14 @@ def _finish_p(out: dict, hdr_vals, hdr_lens):
 
 
 def encode_p_cavlc_frame(y, cb, cr, ref_y, ref_cb, ref_cr, hdr_vals,
-                         hdr_lens, qp: int):
+                         hdr_lens, qp: int, qp_dev=None, out=None):
     """Fused P stage: the P core (K5), the P slot coder (K6) and the P
     packer (K7).  Returns (flat, recon_y, recon_cb, recon_cr, mv, nnz,
     levels).  The reference planes are only read; the recon planes are
-    new tensors."""
-    out = h264_inter.encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp)
+    new tensors (``out``'s where given: see ``h264_inter.encode_p_frame``,
+    as for ``qp_dev``)."""
+    out = h264_inter.encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp,
+                                    qp_dev=qp_dev, out=out)
     return _finish_p(out, hdr_vals, hdr_lens)
 
 

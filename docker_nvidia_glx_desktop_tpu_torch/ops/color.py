@@ -16,8 +16,12 @@ fused step in float64 and rounds it to float32: a product of an 8-bit
 integer and a float32 constant plus a float32 is exact in float64, so
 that rounding is the single rounding of a fused multiply-add.
 
-:func:`rgb_to_yuv420` launches ``csrc/color.cu`` for a CUDA tensor and
-runs :func:`rgb_to_yuv420_plain` for a CPU tensor.
+:func:`rgb_to_yuv420_frames` converts a chunk of K frames in one launch
+of ``csrc/color.cu`` (the kernel's frame axis) for a CUDA tensor and
+runs :func:`rgb_to_yuv420_frames_plain` for a CPU tensor: the super-step
+ring's rgb ingest, and the luma stack its content stats take (the
+reference's ``models/h264.py`` ``_stack_luma``).  :func:`rgb_to_yuv420`
+is its one-frame call.
 """
 
 from __future__ import annotations
@@ -57,7 +61,8 @@ def _q(p: torch.Tensor) -> torch.Tensor:
 
 
 def rgb_to_yuv420_plain(rgb: torch.Tensor, pad_h: int, pad_w: int):
-    """Plain PyTorch version of K9: same contract as :func:`rgb_to_yuv420`."""
+    """One frame of K9's plain version: same contract as
+    :func:`rgb_to_yuv420`."""
     h, w = rgb.shape[:2]
     rows = torch.clamp(torch.arange(pad_h, device=rgb.device), max=h - 1)
     cols = torch.clamp(torch.arange(pad_w, device=rgb.device), max=w - 1)
@@ -71,37 +76,55 @@ def rgb_to_yuv420_plain(rgb: torch.Tensor, pad_h: int, pad_w: int):
     return tuple(out)
 
 
-def _check(rgb, pad_h, pad_w):
-    if rgb.dtype != torch.uint8 or rgb.dim() != 3 or rgb.shape[2] != 3:
-        raise ValueError("rgb must be an (H, W, 3) uint8 tensor")
-    h, w = rgb.shape[:2]
+def _check(rgbs, pad_h, pad_w):
+    if rgbs.dtype != torch.uint8 or rgbs.dim() != 4 or rgbs.shape[3] != 3 \
+            or not rgbs.shape[0]:
+        raise ValueError("rgb must be (H, W, 3) uint8, a chunk (K, H, W, 3) "
+                         "with K >= 1")
+    h, w = rgbs.shape[1:3]
     if pad_h % 16 or pad_w % 16 or pad_h < h or pad_w < w or not (h and w):
         raise ValueError(f"padding ({pad_h}, {pad_w}) must be MB multiples "
                          f"covering the frame ({h}, {w})")
-    if not rgb.is_contiguous():
+    if not rgbs.is_contiguous():
         raise ValueError("rgb must be contiguous")
 
 
 def rgb_to_yuv420(rgb: torch.Tensor, pad_h: int, pad_w: int):
     """(H, W, 3) uint8 RGB -> (y (pad_h, pad_w), cb, cr (pad_h/2,
     pad_w/2)) uint8 planes, edge-padded to MB multiples.  Any H and W,
-    odd ones too.
-
-    A CUDA tensor launches the kernel (one thread per 2x2 output quad:
-    four luma samples and one chroma sample of each plane); a CPU tensor
-    runs the plain version."""
-    _check(rgb, pad_h, pad_w)
-    if rgb.device.type == "cpu":
-        return rgb_to_yuv420_plain(rgb, pad_h, pad_w)
-    dev = rgb.device
-    y = torch.empty((pad_h, pad_w), dtype=torch.uint8, device=dev)
-    cb = torch.empty((pad_h // 2, pad_w // 2), dtype=torch.uint8, device=dev)
-    cr = torch.empty_like(cb)
-    _cuda.launch("color", "rgb_to_yuv420_launch", [rgb, y, cb, cr],
-                 [rgb.shape[0], rgb.shape[1], pad_h, pad_w] + _MATRIX_BITS,
-                 dev)
-    rgb_to_yuv420.launches += 1
-    return y, cb, cr
+    odd ones too: :func:`rgb_to_yuv420_frames` of a one-frame chunk."""
+    if rgb.dim() != 3:
+        raise ValueError("rgb must be an (H, W, 3) uint8 tensor")
+    y, cb, cr = rgb_to_yuv420_frames(rgb.unsqueeze(0), pad_h, pad_w)
+    return y[0], cb[0], cr[0]
 
 
-rgb_to_yuv420.launches = 0
+def rgb_to_yuv420_frames_plain(rgbs: torch.Tensor, pad_h: int, pad_w: int):
+    """Plain PyTorch version of K9: the frames one by one."""
+    planes = [rgb_to_yuv420_plain(f, pad_h, pad_w) for f in rgbs]
+    return tuple(torch.stack([p[i] for p in planes]) for i in range(3))
+
+
+def rgb_to_yuv420_frames(rgbs: torch.Tensor, pad_h: int, pad_w: int):
+    """(K, H, W, 3) uint8 RGB frames -> (ys (K, pad_h, pad_w), cbs, crs
+    (K, pad_h/2, pad_w/2)).
+
+    A CUDA tensor launches the kernel once for all K frames (one thread
+    per 2x2 output quad: four luma samples and one chroma sample of each
+    plane; grid.z = K); a CPU tensor runs the plain version."""
+    _check(rgbs, pad_h, pad_w)
+    if rgbs.device.type == "cpu":
+        return rgb_to_yuv420_frames_plain(rgbs, pad_h, pad_w)
+    k, dev = rgbs.shape[0], rgbs.device
+    ys = torch.empty((k, pad_h, pad_w), dtype=torch.uint8, device=dev)
+    cbs = torch.empty((k, pad_h // 2, pad_w // 2), dtype=torch.uint8,
+                      device=dev)
+    crs = torch.empty_like(cbs)
+    _cuda.launch("color", "rgb_to_yuv420_launch", [rgbs, ys, cbs, crs],
+                 [k, rgbs.shape[1], rgbs.shape[2], pad_h, pad_w]
+                 + _MATRIX_BITS, dev)
+    rgb_to_yuv420_frames.launches += 1
+    return ys, cbs, crs
+
+
+rgb_to_yuv420_frames.launches = 0

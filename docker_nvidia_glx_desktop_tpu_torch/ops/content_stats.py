@@ -5,13 +5,19 @@ luma SSE against the recon, the mean and p95 of |MV| and the
 skip/inter/intra MB counts.
 
 Replaces the reference's ``ops/content_stats.py`` ``frame_stats`` ->
-``_frame_vec``.  :func:`frame_stats` is the form without recon, MV field
-or residual (the all-intra encoder): ``[-1, n_damage, -1, -1, -1, -1,
--1, act_p50, act_p95, R*C]``.  :func:`frame_stats_full` takes them (the
-GOP encoder: the IDR passes its recon, every P frame recon, MVs and
-residual).  The stats never feed back into the encode.  Both run
-``csrc/content.cu`` for CUDA tensors and their plain versions for CPU
-tensors; :func:`frame_stats_np` is the host oracle (float64).
+``_frame_vec`` and ``chunk_stats``.  :func:`chunk_stats` (K4c) runs
+``csrc/content.cu``'s three kernels over a chunk of K frames (the frame
+as a grid axis) for CUDA tensors and its plain version
+(:func:`frame_stats_full_plain` slot by slot) for CPU tensors: each slot
+diffs against the one before it (slot 0 against ``prev_y``), the SSE
+lands in the last slot only (the ring keeps only the last reference),
+the |MV| and mode fields per slot where the MV field and residuals are
+given.  :func:`frame_stats_full` is its one-frame call (the GOP encoder:
+the IDR passes its recon, every P frame recon, MVs and residual) and
+:func:`frame_stats` the form without recon, MV field or residual (the
+all-intra encoder): ``[-1, n_damage, -1, -1, -1, -1, -1, act_p50,
+act_p95, R*C]``.  The stats never feed back into the encode;
+:func:`frame_stats_np` is the host oracle (float64).
 
 The float slots: the SSE is an exact integer sum rounded once to float32
 and the |MV| mean a float64 sum rounded once, where the reference sums in
@@ -29,8 +35,8 @@ import torch
 from . import _cuda
 from .aq import mb_activity
 
-__all__ = ["VEC_LEN", "frame_stats", "frame_stats_full",
-           "frame_stats_full_plain", "frame_stats_plain", "frame_stats_np",
+__all__ = ["VEC_LEN", "chunk_stats", "chunk_stats_plain", "frame_stats",
+           "frame_stats_full", "frame_stats_full_plain", "frame_stats_np",
            "mb_activity_np", "psnr_from_sse", "vec_to_stats"]
 
 # stats-vector slot layout (float32; -1.0 marks "not computed")
@@ -102,90 +108,118 @@ def frame_stats_full_plain(y, prev_y, thr_sad: int, recon_y=None, mv=None,
     return vec, grid
 
 
-def frame_stats_plain(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int):
-    """Plain PyTorch version of K4: (vec float32 (10,), grid uint8 (R, C))."""
-    return frame_stats_full_plain(y, prev_y, thr_sad)
-
-
-def _check(y, prev_y, recon_y=None, mv=None, resid=None):
-    if y.dtype != torch.uint8 or prev_y.dtype != torch.uint8:
+def _check(ys, prev_y, recon_y=None, mvs=None, resid=None):
+    """The contract of :func:`chunk_stats`'s inputs: ``ys`` (K, H, W)
+    and the (K, ...) MV and residual stacks, the 2-D ``prev_y`` and
+    ``recon_y``."""
+    if ys.dtype != torch.uint8 or (prev_y is not None
+                                   and prev_y.dtype != torch.uint8):
         raise TypeError("luma planes must be uint8")
-    if y.dim() != 2 or y.shape != prev_y.shape or y.shape[0] % 16 \
-            or y.shape[1] % 16:
-        raise ValueError("luma planes must be equal MB-aligned 2-D planes")
-    r, c = y.shape[0] // 16, y.shape[1] // 16
-    want = {"prev_y": (prev_y, torch.uint8, tuple(y.shape))}
+    if ys.dim() != 3 or not ys.shape[0] or ys.shape[1] % 16 \
+            or ys.shape[2] % 16:
+        raise ValueError("ys must be a (K, H, W) stack of MB-aligned luma "
+                         "planes, K >= 1")
+    k, h, w = ys.shape
+    r, c = h // 16, w // 16
+    want = {}
+    if prev_y is not None:
+        want["prev_y"] = (prev_y, torch.uint8, (h, w))
     if recon_y is not None:
-        want["recon_y"] = (recon_y, torch.uint8, tuple(y.shape))
-    if mv is not None:
-        want["mv"] = (mv, torch.int32, (r, c, 2))
+        want["recon_y"] = (recon_y, torch.uint8, (h, w))
+    if mvs is not None:
+        want["mv"] = (mvs, torch.int32, (k, r, c, 2))
     if resid:
-        if mv is None or len(resid) != 5:
+        if mvs is None or len(resid) != 5:
             raise ValueError("the mode counts need the MV field and the "
                              "five residual tensors")
-        for k, t, shape in zip(("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac"),
-                               resid, ((r, c, 16, 16), (r, c, 4),
-                                       (r, c, 4, 15), (r, c, 4),
-                                       (r, c, 4, 15))):
-            want[k] = (t, torch.int32, shape)
-    for k, (t, dt, shape) in want.items():
-        if t.dtype != dt or tuple(t.shape) != shape or t.device != y.device:
-            raise ValueError(f"{k}: want {shape} {dt} on {y.device}, got "
+        for name, t, shape in zip(("luma", "cb_dc", "cb_ac", "cr_dc",
+                                   "cr_ac"), resid,
+                                  ((16, 16), (4,), (4, 15), (4,), (4, 15))):
+            want[name] = (t, torch.int32, (k, r, c) + shape)
+    for name, (t, dt, shape) in want.items():
+        if t.dtype != dt or tuple(t.shape) != shape or t.device != ys.device:
+            raise ValueError(f"{name}: want {shape} {dt} on {ys.device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    if y.device.type != "cpu" and r * c > MAX_MBS:
+    if ys.device.type != "cpu" and r * c > MAX_MBS:
         raise ValueError(f"{r * c} MBs exceed the kernel's {MAX_MBS}")
-
-
-def _launch(y, prev_y, thr_sad, recon_y, mv, resid):
-    r, c = y.shape[0] // 16, y.shape[1] // 16
-    vec = torch.empty(VEC_LEN, dtype=torch.float32, device=y.device)
-    grid = torch.empty((r, c), dtype=torch.uint8, device=y.device)
-    scratch = torch.empty(3 * r * c + 2, dtype=torch.int32, device=y.device)
-    _cuda.launch("content", "frame_stats_launch",
-                 [y, prev_y, recon_y, mv] + list(resid or (None,) * 5)
-                 + [vec, grid, scratch], [r, c, int(thr_sad)], y.device)
-    return vec, grid
 
 
 def frame_stats(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int):
     """Per-frame stats of an intra frame: ``(vec, grid)``, ``vec`` float32
     ``(VEC_LEN,)`` and ``grid`` uint8 ``(R, C)`` (1 = the MB's summed
-    abs diff against ``prev_y`` exceeds ``thr_sad``).
-
-    CUDA tensors launch the kernel: one warp per MB for the damage SAD and
-    the activity sums, then one block sorting the activity values in
-    shared memory for the percentiles.  CPU tensors run the plain
-    version."""
-    _check(y, prev_y)
-    if y.device.type == "cpu":
-        return frame_stats_plain(y, prev_y, int(thr_sad))
-    out = _launch(y, prev_y, thr_sad, None, None, None)
-    frame_stats.launches += 1
-    return out
-
-
-frame_stats.launches = 0
+    abs diff against ``prev_y`` exceeds ``thr_sad``)."""
+    return frame_stats_full(y, prev_y, thr_sad)
 
 
 def frame_stats_full(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int,
-                     recon_y: torch.Tensor, mv=None, resid=None):
+                     recon_y=None, mv=None, resid=None):
     """Per-frame stats with the recon (luma SSE) and, for a P frame, the
     MV field (|MV| mean and p95) and the residual level tensors ``resid``
-    = (luma, cb_dc, cb_ac, cr_dc, cr_ac) (skip/inter/intra counts).
-
-    CUDA tensors launch the kernel as :func:`frame_stats` does, with the
-    SSE, |MV| and coded flags in the per-MB pass and a second sort for
-    the |MV| p95.  CPU tensors run the plain version."""
-    _check(y, prev_y, recon_y, mv, resid)
-    if y.device.type == "cpu":
-        return frame_stats_full_plain(y, prev_y, int(thr_sad), recon_y, mv,
-                                      resid)
-    out = _launch(y, prev_y, thr_sad, recon_y, mv, resid)
-    frame_stats_full.launches += 1
-    return out
+    = (luma, cb_dc, cb_ac, cr_dc, cr_ac) (skip/inter/intra counts):
+    :func:`chunk_stats` of a one-frame chunk."""
+    if y.dim() != 2:
+        raise ValueError("y must be a 2-D luma plane")
+    vecs, grids = chunk_stats(
+        y.unsqueeze(0), prev_y, thr_sad, recon_y,
+        None if mv is None else mv.unsqueeze(0),
+        None if not resid else tuple(t.unsqueeze(0) for t in resid))
+    return vecs[0], grids[0]
 
 
-frame_stats_full.launches = 0
+def chunk_stats_plain(ys, prev_y, thr_sad: int, recon_last_y=None, mvs=None,
+                      resid=None):
+    """Plain PyTorch version of K4c: :func:`frame_stats_full_plain` slot
+    by slot.  Same contract as :func:`chunk_stats`."""
+    vecs, grids = [], []
+    k = ys.shape[0]
+    for i in range(k):
+        # no previous luma: no damage in any slot
+        prev = None if prev_y is None else prev_y if i == 0 else ys[i - 1]
+        v, g = frame_stats_full_plain(
+            ys[i], ys[i] if prev is None else prev, thr_sad,
+            recon_last_y if i == k - 1 else None,
+            None if mvs is None else mvs[i],
+            None if mvs is None or not resid else tuple(t[i] for t in resid))
+        if prev is None:
+            v[IDX_DAMAGE] = -1.0
+        vecs.append(v)
+        grids.append(g)
+    return torch.stack(vecs), torch.stack(grids)
+
+
+def chunk_stats(ys, prev_y, thr_sad: int, recon_last_y=None, mvs=None,
+                resid=None):
+    """Stats of a chunk of K frames: ``ys`` the (K, H, W) uint8 luma
+    stack; ``prev_y`` the luma before slot 0, or None (no damage in any
+    slot: -1 and a zero grid); ``recon_last_y`` the last slot's
+    reconstruction (SSE in slot K-1 only, -1 elsewhere); ``mvs`` (K, R,
+    C, 2) and ``resid`` the
+    five (K, ...) residual stacks, or None.  Returns ``(vecs, grids)``,
+    float32 (K, VEC_LEN) and uint8 (K, R, C).
+
+    CUDA tensors launch the kernels once for the chunk (the frame as a
+    grid axis): one warp per MB for the damage SAD, the activity sums
+    and the SSE, |MV| and coded flags, then one block per frame sorting
+    the activity values in shared memory for the percentiles and a
+    second sort for the |MV| p95.  CPU tensors run the plain version."""
+    _check(ys, prev_y, recon_last_y, mvs, resid)
+    k = ys.shape[0]
+    if ys.device.type == "cpu":
+        return chunk_stats_plain(ys, prev_y, int(thr_sad), recon_last_y, mvs,
+                                 resid)
+    r, c = ys.shape[1] // 16, ys.shape[2] // 16
+    vecs = torch.empty((k, VEC_LEN), dtype=torch.float32, device=ys.device)
+    grids = torch.empty((k, r, c), dtype=torch.uint8, device=ys.device)
+    scratch = torch.empty(3 * k * r * c + 2 * k, dtype=torch.int32,
+                          device=ys.device)
+    _cuda.launch("content", "chunk_stats_launch",
+                 [ys, prev_y, recon_last_y, mvs] + list(resid or (None,) * 5)
+                 + [vecs, grids, scratch], [k, r, c, int(thr_sad)], ys.device)
+    chunk_stats.launches += 1
+    return vecs, grids
+
+
+chunk_stats.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,363 @@
+"""The super-step chunk: K P frames in one dispatch, as a captured CUDA
+graph (:class:`ChunkStep`, the port of the reference's ``ops/devloop.py``
+``build_p_chunk_step``).
+
+:func:`chunk_body` is the chunk as one Python function of the port's
+kernels: the ingest (under rgb ingest K9 converts all K frames in one
+launch), then per frame the P stage and the loop filter, the reference
+chained from each frame to the next.  Per frame the P stage is
+
+- device CAVLC: the P core (K5), slots (K6) and packer (K7);
+- CABAC: the P core and the record stream (K11p);
+- damage-masked (CAVLC, yuv ingest): ``damage_mask.row_core`` over the
+  frame's worklist of ``damage_bucket`` rows (K5r, K6, K7, K8 on the
+  compacted stack, the row scatter K13).
+
+:class:`ChunkStep` is one chunk configuration.  On the card the step
+captures the body once into a ``torch.cuda.CUDAGraph`` and replays
+it for each chunk: the staged frames, the reference, the slice-header
+slots, the worklists and the qp are static device tensors filled by
+``copy_`` before a replay (qp through device memory, which K5 and K8
+read, so one graph serves every qp).  Nothing in the body synchronises
+with the host, and the library loads, nvcc builds and the CAVLC table
+upload happen in a warm-up run of the body before the capture.  On the
+CPU the step runs the body eagerly: that is the plain version.
+
+A replay writes the same output tensors as the one before it, and the
+encoder's pipeline dispatches chunk N+1 before chunk N's last frame is
+collected; so each step keeps instances (a graph with its own static
+tensors and memory pool) and replays one whose previous owner has let
+its outputs go, capturing another when none has (at most
+``MAX_INSTANCES``).  An encoder's steps share one :class:`GraphBudget`,
+which holds their instances to ``MAX_GRAPHS`` together: a damage-masked
+session has a step per bucket it visits, and a capture past the budget
+first drops the least recently replayed free instance (an idle bucket's,
+before the active key's).  A failed capture or replay raises: no quiet
+eager or per-frame fallback.
+
+Launch accounting: a wrapper's ``launches`` also counts the launches it
+records into a graph at capture, which do not run.  :data:`captured`
+holds those, :data:`replayed` the kernel launches that the replays ran
+(a graph's nodes per wrapper, times its replays), so the kernels a run
+launched are ``launches - captured + replayed``.
+"""
+
+from __future__ import annotations
+
+import collections
+import weakref
+
+import numpy as np
+import torch
+
+MAX_INSTANCES = 4         # per step (graph key)
+MAX_GRAPHS = 6            # per budget: an encoder's steps together
+
+# wrapper name -> launches recorded at capture / run by replays
+captured: collections.Counter = collections.Counter()
+replayed: collections.Counter = collections.Counter()
+
+
+def wrappers() -> dict:
+    """The kernel wrappers a chunk body may call, by name."""
+    from . import (bitmerge, cabac_binarize, cavlc_p_device, color,
+                   damage_mask, h264_deblock, h264_inter)
+    return {"color_frames": color.rgb_to_yuv420_frames,
+            "inter": h264_inter.encode_p_frame,
+            "inter_rows": h264_inter.encode_p_frame_rows,
+            "cavlc_p_slots": cavlc_p_device.p_frame_slots,
+            "pack_p": bitmerge.pack_p_frame,
+            "binarize_p": cabac_binarize.binarize_p,
+            "deblock": h264_deblock.deblock_frame,
+            "scatter_rows": damage_mask.scatter_rows}
+
+
+def reset_counts() -> None:
+    captured.clear()
+    replayed.clear()
+
+
+class ChunkOut:
+    """One chunk's outputs: ``flats`` K transport buffers (CAVLC flats or
+    CABAC record streams), ``ys`` the (K, H, W) ingest luma, ``refs`` the
+    reference after the last frame, and the MVs (``mvs[i]``) and level
+    tensors (``levels(i)``) the host coder takes on an overflow.  Full
+    frames keep them as (K, ...) stacks (``mvs``, ``lvs``, the content
+    stats' inputs); a masked chunk's are per-frame compacted tensors."""
+
+    __slots__ = ("flats", "ys", "refs", "mvs", "lvs")
+
+    def __init__(self, flats, ys, refs, mvs, lvs):
+        self.flats, self.ys, self.refs, self.mvs, self.lvs = \
+            flats, ys, refs, mvs, lvs
+
+    def levels(self, i: int) -> dict:
+        if isinstance(self.lvs, dict):
+            return {k: v[i] for k, v in self.lvs.items()}
+        return self.lvs[i]
+
+
+_LEVEL_KEYS = ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
+
+
+def chunk_body(frames, ref_y, ref_cb, ref_cr, hv, hl, rows, qp: int, *,
+               deblock: bool, entropy: str, ingest: str, pad_h: int,
+               pad_w: int, qp_dev=None) -> ChunkOut:
+    """The chunk as the port's kernels: ``frames`` is ``(rgbs,)`` (K, h,
+    w, 3) under rgb ingest, else ``(ys, cbs, crs)`` padded planes;
+    ``hv``/``hl`` the K frames' slice-header slots (K, rows, 3) (None
+    under CABAC); ``rows`` (K, b) the damage worklists or None."""
+    from . import (cabac_binarize, cavlc_p_device, color, damage_mask,
+                   h264_deblock, h264_inter)
+
+    if ingest == "rgb":
+        ys, cbs, crs = color.rgb_to_yuv420_frames(frames[0], pad_h, pad_w)
+    else:
+        ys, cbs, crs = frames
+    k = ys.shape[0]
+    nr, nc = pad_h // 16, pad_w // 16
+    dev = ys.device
+    ry, rcb, rcr = ref_y, ref_cb, ref_cr
+    flats = []
+    if rows is not None:
+        mvs, lvs = [], []
+        for i in range(k):
+            flat, ry, rcb, rcr, mv, _, lv = damage_mask.row_core(
+                ys[i], cbs[i], crs[i], ry, rcb, rcr, rows[i], hv[i], hl[i],
+                qp, deblock=deblock, qp_dev=qp_dev)
+            flats.append(flat)
+            mvs.append(mv)
+            lvs.append(lv)
+        return ChunkOut(flats, ys, (ry, rcb, rcr), mvs, lvs)
+    i32 = dict(dtype=torch.int32, device=dev)
+    mvs = torch.empty((k, nr, nc, 2), **i32)
+    lvs = {"luma": torch.empty((k, nr, nc, 16, 16), **i32),
+           "cb_dc": torch.empty((k, nr, nc, 4), **i32),
+           "cb_ac": torch.empty((k, nr, nc, 4, 15), **i32),
+           "cr_dc": torch.empty((k, nr, nc, 4), **i32),
+           "cr_ac": torch.empty((k, nr, nc, 4, 15), **i32)}
+    for i in range(k):
+        out = dict({key: v[i] for key, v in lvs.items()}, mv=mvs[i])
+        if entropy == "cavlc":
+            flat, ny, ncb, ncr, mv, nnz, _ = \
+                cavlc_p_device.encode_p_cavlc_frame(
+                    ys[i], cbs[i], crs[i], ry, rcb, rcr, hv[i], hl[i], qp,
+                    qp_dev=qp_dev, out=out)
+            filt = dict(nnz_blk=nnz)
+        else:
+            o = h264_inter.encode_p_frame(ys[i], cbs[i], crs[i], ry, rcb,
+                                          rcr, qp, qp_dev=qp_dev, out=out)
+            flat = cabac_binarize.binarize_p(
+                o["mv"], *(o[key] for key in _LEVEL_KEYS))
+            ny, ncb, ncr, mv = (o["recon_y"], o["recon_cb"], o["recon_cr"],
+                                o["mv"])
+            filt = dict(luma=o["luma"])
+        if deblock:
+            ny, ncb, ncr = h264_deblock.deblock_frame(
+                ny, ncb, ncr, qp, mv=mv, qp_dev=qp_dev, **filt)
+        ry, rcb, rcr = ny, ncb, ncr
+        flats.append(flat)
+    return ChunkOut(flats, ys, (ry, rcb, rcr), mvs, lvs)
+
+
+class _Instance:
+    """A captured graph with its static inputs and outputs."""
+
+    def __init__(self, step):
+        self.step = step
+        self.graph = None
+        self.inputs = None       # (frames tuple, refs, hv, hl, rows, qp_t)
+        self.out = None
+        self.nodes = {}
+        self.pool_bytes = 0
+        self.owner = None        # weakref to the ring holding the outputs
+        self.replays = 0
+
+    def free(self) -> bool:
+        o = self.owner() if self.owner is not None else None
+        return o is None or getattr(o, "released", False)
+
+
+class GraphBudget:
+    """The captured instances of one encoder's steps, least recently
+    replayed first, at most ``limit`` of them.  ``peak_bytes`` is the
+    largest sum of their memory pools seen; ``captures``, ``replays``
+    and ``evicted`` count over the budget's life."""
+
+    def __init__(self, limit: int = MAX_GRAPHS):
+        self.limit = int(limit)
+        self.live = []
+        self.captures = self.replays = self.evicted = 0
+        self.peak_bytes = 0
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(i.pool_bytes for i in self.live)
+
+    def make_room(self) -> None:
+        """Drop free instances, least recently replayed first, until a
+        capture fits; raise when every instance is still held."""
+        while len(self.live) >= self.limit:
+            victim = next((i for i in self.live if i.free()), None)
+            if victim is None:
+                raise RuntimeError(
+                    f"{len(self.live)} chunk graphs are still held "
+                    "uncollected: collect (or drop) earlier tokens first")
+            self.live.remove(victim)
+            victim.step.instances.remove(victim)
+            victim.graph = victim.inputs = victim.out = None
+            self.evicted += 1
+
+    def add(self, inst) -> None:
+        self.live.append(inst)
+        self.captures += 1
+        self.peak_bytes = max(self.peak_bytes, self.pool_bytes)
+
+    def use(self, inst) -> None:
+        self.live.remove(inst)
+        self.live.append(inst)
+        self.replays += 1
+
+
+class ChunkStep:
+    """One chunk configuration's step: ``step(frames, refs, hv, hl, rows,
+    qp, owner)`` -> :class:`ChunkOut`.  ``frames`` holds the K staged
+    frames (host arrays: (y, cb, cr) padded planes under yuv ingest,
+    (h, w, 3) RGB under rgb); ``refs`` the device reference planes;
+    ``hv``/``hl`` the slots (K, rows, 3) and ``rows`` the worklists
+    (K, b), tensors or host arrays; ``owner`` the object whose
+    ``released`` attribute (or its end) frees the outputs for a later
+    replay.  The caller keeps the step: its graphs hold device memory,
+    within ``budget`` (a :class:`GraphBudget` shared by the caller's
+    steps; a step of its own by default)."""
+
+    def __init__(self, *, chunk: int, pad_h: int, pad_w: int,
+                 deblock: bool = True, entropy: str = "cavlc",
+                 ingest: str = "yuv", damage_bucket: int = 0, device=None,
+                 budget: GraphBudget = None):
+        if entropy not in ("cavlc", "cabac"):
+            raise ValueError(f"unknown chunk entropy {entropy!r}")
+        if ingest not in ("yuv", "rgb"):
+            raise ValueError(f"unknown chunk ingest {ingest!r}")
+        if damage_bucket > 0 and (entropy != "cavlc" or ingest != "yuv"):
+            raise ValueError("a masked chunk requires cavlc entropy and yuv "
+                             "ingest")
+        self.chunk = int(chunk)
+        self.pad_h, self.pad_w = pad_h, pad_w
+        self.deblock = bool(deblock)
+        self.entropy, self.ingest = entropy, ingest
+        self.damage_bucket = int(damage_bucket)
+        self.device = torch.device(device or "cpu")
+        self.budget = budget if budget is not None else GraphBudget()
+        self.instances = []
+
+    # -- inputs ----------------------------------------------------------
+
+    def _host_inputs(self, frames, hv, hl, rows):
+        """The step's inputs as CPU tensors."""
+        if self.ingest == "rgb":
+            fr = (torch.from_numpy(np.stack(frames)),)
+        else:
+            fr = tuple(torch.from_numpy(np.stack([f[i] for f in frames]))
+                       for i in range(3))
+        t = lambda a: None if a is None else torch.as_tensor(a)
+        return fr, t(hv), t(hl), t(rows)
+
+    def _body(self, frames, refs, hv, hl, rows, qp, qp_dev=None):
+        return chunk_body(frames, *refs, hv, hl, rows, qp,
+                          deblock=self.deblock, entropy=self.entropy,
+                          ingest=self.ingest, pad_h=self.pad_h,
+                          pad_w=self.pad_w, qp_dev=qp_dev)
+
+    def run_eager(self, frames, refs, hv, hl, rows, qp: int) -> ChunkOut:
+        """The body on the step's device without a graph (the plain
+        version on the CPU; on the card, the reference for a replay)."""
+        fr, hv, hl, rows = self._host_inputs(frames, hv, hl, rows)
+        to = lambda a: None if a is None else a.to(self.device)
+        return self._body(tuple(to(f) for f in fr), refs, to(hv), to(hl),
+                          to(rows), int(qp))
+
+    # -- the graph -------------------------------------------------------
+
+    def _load(self, inst: _Instance, frames, refs, hv, hl, rows, qp: int):
+        fr_t, refs_t, hv_t, hl_t, rows_t, qp_t = inst.inputs
+        if self.ingest == "rgb":
+            for i, f in enumerate(frames):
+                fr_t[0][i].copy_(torch.from_numpy(np.ascontiguousarray(f)))
+        else:
+            for i, f in enumerate(frames):
+                for p in range(3):
+                    fr_t[p][i].copy_(torch.from_numpy(
+                        np.ascontiguousarray(f[p])))
+        for dst, src in zip(refs_t, refs):
+            dst.copy_(src)
+        for dst, src in ((hv_t, hv), (hl_t, hl), (rows_t, rows)):
+            if dst is not None:
+                dst.copy_(torch.as_tensor(src))
+        qp_t.fill_(int(qp))
+
+    def _capture(self, frames, refs, hv, hl, rows, qp: int) -> _Instance:
+        dev = self.device
+        self.budget.make_room()
+        inst = _Instance(self)
+        fr, hv_h, hl_h, rows_h = self._host_inputs(frames, hv, hl, rows)
+        empty = lambda a: None if a is None else torch.empty(
+            a.shape, dtype=a.dtype, device=dev)
+        inst.inputs = (tuple(empty(f) for f in fr),
+                       tuple(torch.empty_like(p) for p in refs),
+                       empty(hv_h), empty(hl_h), empty(rows_h),
+                       torch.empty(1, dtype=torch.int32, device=dev))
+        self._load(inst, frames, refs, hv, hl, rows, qp)
+        fr_t, refs_t, hv_t, hl_t, rows_t, qp_t = inst.inputs
+        # warm-up: library loads, builds and table uploads run here, where
+        # they may synchronise; its outputs are dropped
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body(fr_t, refs_t, hv_t, hl_t, rows_t, qp, qp_t)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        named = wrappers()
+        before = {n: fn.launches for n, fn in named.items()}
+        # the capture empties the allocator's cache first; so does this,
+        # so that the growth below is the graph's pool
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            inst.out = self._body(fr_t, refs_t, hv_t, hl_t, rows_t, qp, qp_t)
+        inst.graph = g
+        inst.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        inst.nodes = {n: fn.launches - before[n] for n, fn in named.items()
+                      if fn.launches != before[n]}
+        captured.update(inst.nodes)
+        self.instances.append(inst)
+        self.budget.add(inst)
+        return inst
+
+    def __call__(self, frames, refs, hv, hl, rows, qp: int,
+                 owner) -> ChunkOut:
+        if len(frames) != self.chunk:
+            raise ValueError(f"{len(frames)} frames for a chunk of "
+                             f"{self.chunk}")
+        if self.device.type != "cuda":
+            return self.run_eager(frames, refs, hv, hl, rows, qp)
+        inst = next((i for i in self.instances if i.free()), None)
+        if inst is None:
+            if len(self.instances) >= MAX_INSTANCES:
+                raise RuntimeError(
+                    f"{MAX_INSTANCES} chunks of this step are still held "
+                    "uncollected: collect (or drop) earlier tokens first")
+            inst = self._capture(frames, refs, hv, hl, rows, qp)
+        else:
+            self._load(inst, frames, refs, hv, hl, rows, qp)
+        inst.graph.replay()
+        inst.replays += 1
+        self.budget.use(inst)
+        replayed.update({n: c for n, c in inst.nodes.items()})
+        inst.owner = weakref.ref(owner)
+        return inst.out
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(i.pool_bytes for i in self.instances)

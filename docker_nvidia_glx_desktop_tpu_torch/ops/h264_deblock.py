@@ -156,9 +156,13 @@ def bs_grids(nr: int, nc: int, nnz_blk=None, mv=None, device="cpu"):
     return bs_v, bs_h
 
 
-def deblock_frame_plain(y, cb, cr, qp: int, nnz_blk=None, mv=None):
+def deblock_frame_plain(y, cb, cr, qp: int, nnz_blk=None, mv=None,
+                        luma=None):
     """Plain PyTorch version of K8: a loop over MB columns, vectorized
     over MB rows and edge lines.  Same contract as :func:`deblock_frame`."""
+    if luma is not None:
+        from .cavlc_p_device import nnz_raster
+        nnz_blk = nnz_raster(luma)
     tl, tc = _tables(qp)
     h, w = y.shape
     nr, nc = h // 16, w // 16
@@ -184,36 +188,48 @@ def deblock_frame_plain(y, cb, cr, qp: int, nnz_blk=None, mv=None):
     return u8(yp, y.shape), u8(cp[0], cb.shape), u8(cp[1], cr.shape)
 
 
-def deblock_frame(y, cb, cr, qp: int, nnz_blk=None, mv=None):
+def deblock_frame(y, cb, cr, qp: int, nnz_blk=None, mv=None, luma=None,
+                  qp_dev=None):
     """Loop-filter one frame's uint8 recon planes (MB-padded) at slice
-    qp ``qp``: intra bS when ``nnz_blk`` is None, P bS from ``nnz_blk``
-    (R, C, 4, 4) bool and ``mv`` (R, C, 2) int32 otherwise.  Returns new
-    filtered planes.
+    qp ``qp``: intra bS when ``nnz_blk`` and ``luma`` are None, P bS from
+    ``mv`` (R, C, 2) int32 and either ``nnz_blk`` (R, C, 4, 4) bool or
+    the P core's ``luma`` levels (R, C, 16, 16) int32, whose nonzero
+    blocks are the coded ones.  Returns new filtered planes.
 
     CUDA tensors launch the kernel (one CUDA block per MB row, the row in
     shared memory, one warp walking its MBs); CPU tensors run the plain
-    version."""
+    version.  ``qp_dev`` (CUDA only: one int32 on the card) makes the
+    kernel take the slice qp, and its tables, from device memory."""
     from .h264_device import _check_planes
 
     _check_planes(y, cb, cr)
     if not 0 <= int(qp) <= 51:
         raise ValueError(f"qp {qp} outside 0..51")
     nr, nc = y.shape[0] // 16, y.shape[1] // 16
-    if nnz_blk is not None:
-        if (tuple(nnz_blk.shape) != (nr, nc, 4, 4) or nnz_blk.dtype != torch.bool
+    if nnz_blk is not None and luma is not None:
+        raise ValueError("pass nnz_blk or luma, not both")
+    if nnz_blk is not None or luma is not None:
+        if ((nnz_blk is not None and (tuple(nnz_blk.shape) != (nr, nc, 4, 4)
+                                      or nnz_blk.dtype != torch.bool))
+                or (luma is not None and (tuple(luma.shape) != (nr, nc, 16, 16)
+                                          or luma.dtype != torch.int32))
                 or mv is None or tuple(mv.shape) != (nr, nc, 2)
                 or mv.dtype != torch.int32):
-            raise ValueError("nnz_blk must be (R, C, 4, 4) bool and mv "
-                             "(R, C, 2) int32")
+            raise ValueError("nnz_blk must be (R, C, 4, 4) bool (or luma "
+                             "(R, C, 16, 16) int32) and mv (R, C, 2) int32")
+    if qp_dev is not None and (qp_dev.dtype != torch.int32
+                               or qp_dev.numel() != 1
+                               or qp_dev.device != y.device):
+        raise ValueError("qp_dev must be one int32 on the planes' device")
     if y.device.type == "cpu":
-        return deblock_frame_plain(y, cb, cr, int(qp), nnz_blk, mv)
+        return deblock_frame_plain(y, cb, cr, int(qp), nnz_blk, mv, luma)
     for t in (y, cb, cr):
         if t.data_ptr() % 16:
             raise ValueError("planes must be 16-byte aligned")
     tl, tc = _tables(int(qp))
     outs = [torch.empty_like(p) for p in (y, cb, cr)]
     _cuda.launch("deblock", "deblock_launch",
-                 [y, cb, cr, nnz_blk, mv] + outs,
+                 [y, cb, cr, nnz_blk, mv, luma, qp_dev] + outs,
                  [nr, nc, tl[0], tl[1], *tl[2], tc[0], tc[1], *tc[2]],
                  y.device)
     deblock_frame.launches += 1

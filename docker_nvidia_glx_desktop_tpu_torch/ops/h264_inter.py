@@ -26,6 +26,11 @@ coordinates instead.  Outputs: ``mv`` (R, C, 2) quarter-pel (dy, dx),
 ``cb_ac``/``cr_ac`` (R, C, 4, 15), all int32, and the uint8 recon
 planes.  :func:`encode_p_frame` launches ``csrc/inter.cu`` for CUDA
 tensors and runs :func:`encode_p_frame_plain` for CPU tensors.
+
+K5r, :func:`encode_p_frame_rows`, is the same kernel over a worklist of
+MB rows (damage-driven encode, the reference's ``ops/damage_mask.py``
+``row_core``): compacted outputs of the listed rows, each row searched
+against the whole reference exactly as the full frame's row is.
 """
 
 from __future__ import annotations
@@ -127,9 +132,36 @@ def _first_argmin(sads: torch.Tensor):
     return idx, torch.gather(sads, 0, idx[None])[0]
 
 
+def _padded_refs(ref_y, ref_cb, ref_cr):
+    return tuple(_edge_pad(p.to(torch.int32), _PAD)
+                 for p in (ref_y, ref_cb, ref_cr))
+
+
 def encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int) -> dict:
     """Plain PyTorch version of K5 (whole-frame tensor ops, the
     reference's stage order).  Same contract as :func:`encode_p_frame`."""
+    return _p_core_plain(y, cb, cr, *_padded_refs(ref_y, ref_cb, ref_cr), qp)
+
+
+def encode_p_frame_rows_plain(y, cb, cr, ref_y, ref_cb, ref_cr, rows,
+                              qp: int) -> dict:
+    """Plain PyTorch version of K5r, as the reference's ``row_core``
+    computes it: the edge-padded reference cut into one band of
+    ``16 + 2*_PAD`` lines per listed row, the P core run on each band,
+    the outputs concatenated in worklist order."""
+    pry, prcb, prcr = _padded_refs(ref_y, ref_cb, ref_cr)
+    outs = []
+    for r in rows.tolist():
+        outs.append(_p_core_plain(
+            y[r * 16:r * 16 + 16], cb[r * 8:r * 8 + 8], cr[r * 8:r * 8 + 8],
+            pry[r * 16:r * 16 + 16 + 2 * _PAD],
+            prcb[r * 8:r * 8 + 8 + 2 * _PAD],
+            prcr[r * 8:r * 8 + 8 + 2 * _PAD], qp))
+    return {k: torch.cat([o[k] for o in outs]) for k in _OUT_KEYS}
+
+
+def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int) -> dict:
+    """The P core over int32 references edge-padded by ``_PAD``."""
     y = y.to(torch.int32)
     cb = cb.to(torch.int32)
     cr = cr.to(torch.int32)
@@ -137,7 +169,6 @@ def encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int) -> dict:
     pad_h, pad_w = y.shape
     nr, nc = pad_h // 16, pad_w // 16
     qp_c = quant.chroma_qp(qp)
-    ref_pad = _edge_pad(ref_y.to(torch.int32), _PAD)
     rows = torch.arange(nr, device=dev)[:, None].expand(nr, nc)
     cols = torch.arange(nc, device=dev)[None, :].expand(nr, nc)
 
@@ -243,8 +274,7 @@ def encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int) -> dict:
     c_frac = mv & 7
 
     def mc_chroma(rp):
-        wc = _windows(_edge_pad(rp.to(torch.int32), _PAD),
-                      rows * 8 + _PAD + c_off[..., 0],
+        wc = _windows(rp, rows * 8 + _PAD + c_off[..., 0],
                       cols * 8 + _PAD + c_off[..., 1], 9)
         yf = c_frac[..., 0][..., None, None]
         xf = c_frac[..., 1][..., None, None]
@@ -282,8 +312,8 @@ def encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int) -> dict:
     def mbs(plane, n):
         return plane.reshape(nr, n, nc, n).permute(0, 2, 1, 3)
 
-    cb_ac, cb_dc, rec_cb = chroma(mbs(cb, 8), mc_chroma(ref_cb))
-    cr_ac, cr_dc, rec_cr = chroma(mbs(cr, 8), mc_chroma(ref_cr))
+    cb_ac, cb_dc, rec_cb = chroma(mbs(cb, 8), mc_chroma(ref_pad_cb))
+    cr_ac, cr_dc, rec_cr = chroma(mbs(cr, 8), mc_chroma(ref_pad_cr))
 
     def plane(rec, n):
         return rec.permute(0, 2, 1, 3).reshape(nr * n, nc * n).to(torch.uint8)
@@ -302,16 +332,50 @@ _OUT_KEYS = ("mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac",
              "recon_y", "recon_cb", "recon_cr")
 
 
+def _out_tensors(nb: int, nc: int, like: torch.Tensor, out=None) -> dict:
+    """The P core's output tensors for ``nb`` MB rows: ``out``'s where
+    the caller gives them (views of a chunk's stacks), checked, else new."""
+    dev = like.device
+    shapes = {"mv": (nb, nc, 2), "luma": (nb, nc, 16, 16),
+              "cb_dc": (nb, nc, 4), "cb_ac": (nb, nc, 4, 15),
+              "cr_dc": (nb, nc, 4), "cr_ac": (nb, nc, 4, 15),
+              "recon_y": (nb * 16, nc * 16), "recon_cb": (nb * 8, nc * 8),
+              "recon_cr": (nb * 8, nc * 8)}
+    res = {}
+    for k, shape in shapes.items():
+        dt = torch.uint8 if k.startswith("recon") else torch.int32
+        t = None if out is None else out.get(k)
+        if t is None:
+            t = torch.empty(shape, dtype=dt, device=dev)
+        elif (tuple(t.shape) != shape or t.dtype != dt or t.device != dev
+              or not t.is_contiguous()):
+            raise ValueError(f"out[{k!r}]: want contiguous {shape} {dt} on "
+                             f"{dev}")
+        res[k] = t
+    return res
+
+
+def _check_qp(qp, qp_dev, device) -> None:
+    if not 0 <= int(qp) <= 51:
+        raise ValueError(f"qp {qp} outside 0..51")
+    if qp_dev is not None and (qp_dev.dtype != torch.int32
+                               or qp_dev.numel() != 1
+                               or qp_dev.device != device):
+        raise ValueError("qp_dev must be one int32 on the planes' device")
+
+
 def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
                    refine: str = "alt", tune: str = "off",
-                   p_intra: bool = False) -> dict:
+                   p_intra: bool = False, qp_dev=None, out=None) -> dict:
     """P core for one frame: current and reference uint8 YUV 4:2:0
     planes (MB-padded) -> MVs, level tensors and recon planes.
 
-    The reference planes are only read: the recon goes to new buffers,
-    so a pipelined caller may keep them.  CUDA tensors launch the kernel
-    (one CUDA block per MB: every MB's search and residual is
-    independent); CPU tensors run the plain version."""
+    The reference planes are only read: the recon goes to new buffers
+    (``out``'s, where given), so a pipelined caller may keep them.  CUDA
+    tensors launch the kernel (one CUDA block per MB: every MB's search
+    and residual is independent); CPU tensors run the plain version.
+    ``qp_dev`` (CUDA only: one int32 on the card) makes the kernel read
+    the slice qp from device memory instead of ``qp``."""
     if refine != "alt":
         raise NotImplementedError(
             f"refine={refine!r} is not ported to the PyTorch/CUDA encoder "
@@ -324,28 +388,61 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
     _check_planes(ref_y, ref_cb, ref_cr)
     if ref_y.shape != y.shape or ref_y.device != y.device:
         raise ValueError("reference planes must match the current frame")
-    if not 0 <= int(qp) <= 51:
-        raise ValueError(f"qp {qp} outside 0..51")
+    _check_qp(qp, qp_dev, y.device)
+    nr, nc = y.shape[0] // 16, y.shape[1] // 16
     if y.device.type == "cpu":
-        return encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, int(qp))
-    pad_h, pad_w = y.shape
-    nr, nc = pad_h // 16, pad_w // 16
-    dev = y.device
-
-    def i32(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    out = {"mv": i32(nr, nc, 2), "luma": i32(nr, nc, 16, 16),
-           "cb_dc": i32(nr, nc, 4), "cb_ac": i32(nr, nc, 4, 15),
-           "cr_dc": i32(nr, nc, 4), "cr_ac": i32(nr, nc, 4, 15),
-           "recon_y": torch.empty_like(y), "recon_cb": torch.empty_like(cb),
-           "recon_cr": torch.empty_like(cr)}
-    _cuda.launch("inter", "inter_frame_launch",
-                 [y, cb, cr, ref_y, ref_cb, ref_cr]
-                 + [out[k] for k in _OUT_KEYS],
-                 [nr, nc, int(qp), quant.chroma_qp(int(qp))], dev)
+        plain = encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, int(qp))
+        if out is None:
+            return plain
+        res = _out_tensors(nr, nc, y, out)
+        return {k: res[k].copy_(plain[k]) for k in _OUT_KEYS}
+    res = _out_tensors(nr, nc, y, out)
+    _launch(y, cb, cr, ref_y, ref_cb, ref_cr, None, qp_dev, res, nr, nc, nr,
+            qp)
     encode_p_frame.launches += 1
-    return out
+    return res
 
 
 encode_p_frame.launches = 0
+
+
+def _launch(y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, res, nr, nc, nb,
+            qp):
+    _cuda.launch("inter", "inter_frame_launch",
+                 [y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev]
+                 + [res[k] for k in _OUT_KEYS],
+                 [nr, nc, nb, int(qp), quant.chroma_qp(int(qp))], y.device)
+
+
+def encode_p_frame_rows(y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp: int,
+                        qp_dev=None) -> dict:
+    """K5r: the P core over the MB rows ``rows`` (int32 (b,), each in
+    0..R-1, duplicates allowed) of a frame -> compacted outputs: ``mv``
+    (b, C, 2), the level tensors (b, C, ...) and recon planes (16b, W) /
+    (8b, W/2), row i of each from frame row ``rows[i]``.  Every row's
+    search reads the whole reference, clamped at the frame's edges.
+
+    CUDA tensors launch K5's kernel on b * C blocks; CPU tensors run
+    :func:`encode_p_frame_rows_plain`."""
+    _check_planes(y, cb, cr)
+    _check_planes(ref_y, ref_cb, ref_cr)
+    if ref_y.shape != y.shape or ref_y.device != y.device:
+        raise ValueError("reference planes must match the current frame")
+    _check_qp(qp, qp_dev, y.device)
+    nr, nc = y.shape[0] // 16, y.shape[1] // 16
+    if (rows.dim() != 1 or rows.dtype != torch.int32 or rows.device != y.device
+            or not 0 < rows.numel() <= nr):
+        raise ValueError(f"rows must be 1 to {nr} int32 on {y.device}")
+    if y.device.type == "cpu":
+        if bool((rows < 0).any()) or bool((rows >= nr).any()):
+            raise ValueError(f"rows outside 0..{nr - 1}")
+        return encode_p_frame_rows_plain(y, cb, cr, ref_y, ref_cb, ref_cr,
+                                         rows, int(qp))
+    res = _out_tensors(rows.numel(), nc, y)
+    _launch(y, cb, cr, ref_y, ref_cb, ref_cr, rows.contiguous(), qp_dev, res,
+            nr, nc, rows.numel(), qp)
+    encode_p_frame_rows.launches += 1
+    return res
+
+
+encode_p_frame_rows.launches = 0

@@ -141,10 +141,10 @@ class Config:
     # families) or "full" (nine-mode I4x4 — ~2x intra sequential depth
     # for measurably fewer bits on window-chrome content)
     encoder_intra_modes: str = "auto"
-    # GOP-chunk super-step (ops/devloop.build_p_chunk_step): stage this
-    # many P frames and dispatch them as ONE donated-ring XLA program —
-    # ~1 Python crossing per chunk instead of per frame, at chunk-1
-    # frames of added pipeline latency.  0 = classic per-frame dispatch.
+    # GOP-chunk super-step (ops/devloop.ChunkStep): stage this many P
+    # frames and run them as ONE replay of a captured CUDA graph — one
+    # dispatch per chunk instead of a dozen launches per frame, at
+    # chunk-1 frames of added pipeline latency.  0 = per-frame dispatch.
     # Best with ENCODER_GOP = k*chunk + 1 so whole P-runs chunk evenly.
     encoder_chunk: int = 0
     # Spatial mesh sharding of ONE session's frame (resolution ladder):

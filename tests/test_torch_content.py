@@ -28,9 +28,9 @@ def test_plain_stats_equal_reference(h, w, thr):
     y, prev = _pair(h, w, seed=h + w + thr)
     vj, gj = j_cs.frame_stats(y, prev, None, None, None, None, thr)
     vn, gn = j_cs.frame_stats_np(y, prev, thr_sad=thr)
-    before = t_cs.frame_stats.launches
+    before = t_cs.chunk_stats.launches
     vt, gt = t_cs.frame_stats(torch.from_numpy(y), torch.from_numpy(prev), thr)
-    assert t_cs.frame_stats.launches == before          # plain path on CPU
+    assert t_cs.chunk_stats.launches == before          # plain path on CPU
     vj, vt = np.asarray(vj), vt.numpy()
     assert vt.dtype == np.float32 and gt.dtype == torch.uint8
     np.testing.assert_array_equal(np.asarray(gj), gt.numpy())
@@ -101,10 +101,10 @@ def test_plain_full_stats_equal_reference(h, w, p_frame):
         vj, gj = j_cs.frame_stats(y, prev, recon, None, None, None, 512)
         vn, _ = j_cs.frame_stats_np(y, prev, recon, thr_sad=512)
         args = ()
-    before = t_cs.frame_stats_full.launches
+    before = t_cs.chunk_stats.launches
     vt, gt = t_cs.frame_stats_full(torch.from_numpy(y), torch.from_numpy(prev),
                                    512, torch.from_numpy(recon), *args)
-    assert t_cs.frame_stats_full.launches == before      # plain path
+    assert t_cs.chunk_stats.launches == before      # plain path
     vj, vt = np.asarray(vj), vt.numpy()
     np.testing.assert_array_equal(np.asarray(gj), gt.numpy())
     ints = [t_cs.IDX_DAMAGE, t_cs.IDX_SKIP, t_cs.IDX_INTER, t_cs.IDX_INTRA,

@@ -91,6 +91,38 @@ print("LEAKED", bad)
 """
 
 
+_BLOCKED_RING_DAMAGE = """
+import os, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {repo!r})
+import numpy as np
+from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+from docker_nvidia_glx_desktop_tpu_torch.ops import devloop
+from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+# the deployed manifest's chunk ring, then damage-driven encode in it
+for mask in ("false", "true"):
+    os.environ["DNGD_DAMAGE_MASK"] = mask
+    frame = np.full((48, 64, 3), 90, np.uint8)
+    enc, codec = make_encoder(from_env({{"SIZEW": "64", "SIZEH": "48",
+                                         "ENCODER_SUPERSTEP_CHUNK": "4"}}),
+                              64, 48, device="cpu")
+    assert enc._ring_chunk == 4 and enc.damage_mask == (mask == "true")
+    toks = []
+    for i in range(6):
+        frame[8:24, 4 * i:4 * i + 16] = 200
+        toks.append(enc.encode_submit(frame))
+    kinds = [t[0] for t in toks]
+    assert kinds == ["intra"] + ["ring"] * 5, kinds
+    assert all(enc.encode_collect(t).data for t in toks)
+    assert list(enc._chunk_steps) == [("cavlc", "yuv", 2 if mask == "true"
+                                       else 0)], enc._chunk_steps
+bad = sorted(m for m in sys.modules
+             if m == "docker_nvidia_glx_desktop_tpu"
+             or m.startswith("docker_nvidia_glx_desktop_tpu."))
+print("LEAKED", bad)
+"""
+
+
 def _run(code: str, cwd=None, timeout=120):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -106,6 +138,13 @@ def test_port_encodes_with_jax_blocked_and_no_reference_module():
 
 def test_port_encodes_a_gop_with_jax_blocked():
     out = _run(_BLOCKED_GOP.format(repo=str(REPO)), cwd=str(REPO.parent))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LEAKED []" in out.stdout
+
+
+def test_port_encodes_the_chunk_ring_and_the_damage_mask_with_jax_blocked():
+    out = _run(_BLOCKED_RING_DAMAGE.format(repo=str(REPO)),
+               cwd=str(REPO.parent))
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LEAKED []" in out.stdout
 
@@ -159,10 +198,12 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"ENCODER_GOP": "60", "ENCODER_SUPERSTEP_CHUNK": "4"}, "item 8"),
+    ({"ENCODER_GOP": "60", "ENCODER_SUPERSTEP_CHUNK": "4",
+      "ENCODER_TUNE": "hq"}, "item 10"),
     ({"ENCODER_GOP": "1", "ENCODER_ENTROPY": "native"}, "item 17"),
     ({"ENCODER_GOP": "1", "ENCODER_TUNE": "hq"}, "item 10"),
-    ({"ENCODER_GOP": "1", "ENCODER_SUPERSTEP_CHUNK": "4"}, "item 8"),
+    ({"ENCODER_GOP": "60", "ENCODER_SUPERSTEP_CHUNK": "4",
+      "ENCODER_SPATIAL_SHARDS": "2"}, "item 11"),
     ({"ENCODER_GOP": "1", "ENCODER_SPATIAL_SHARDS": "2"}, "item 11"),
     ({"ENCODER_GOP": "1", "ENCODER_INTRA_MODES": "full"}, "item 17"),
 ])

@@ -19,7 +19,12 @@ Round ``i`` runs the variants in order, round ``i + 1`` in reverse, so a
 drift of the host over the call reaches every variant alike.  Each run
 first encodes four warm-up frames (kernels loaded, caches filled), then
 times ``--frames`` fresh frames of ``chip_smoke.gop_frames`` (an IDR,
-then P frames), and cv2's host colour conversion alone on five of them.
+then P frames), cv2's host colour conversion alone on five of them, and
+the GOP path's per-frame kernels on one 1080p P frame: K4 (full form),
+K5, K8 and K9, each as one eager call timed by CUDA events (host launch
+work included) and as the replay of that call captured into a CUDA graph
+(the kernel's device time), medians of 50 (``chip_smoke.cuda_ms`` and
+``graph_ms``).
 
 Prints the card's name and power limit, one JSON line per run and, per
 variant, the medians over its runs; writes everything to
@@ -41,8 +46,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "docker_nvidia_glx_desktop_tpu_torch"
 W, H = 1920, 1080
 WARM_FRAMES = 4
+KERNELS = ("k4", "k5", "k8", "k9")
 METRICS = ("fps", "p50_ms", "p50_p_ms", "idr_ms", "submit_ms", "collect_ms",
-           "colour_ms")
+           "colour_ms") + tuple(f"{k}_{w}_ms" for k in KERNELS
+                                for w in ("event", "graph"))
 
 
 def _chip_smoke():
@@ -104,13 +111,48 @@ def child(tree: str, py_epb: bool, frames: int, build_only: bool) -> dict:
         t = time.perf_counter()
         enc._host_yuv420(f)
         colour.append((time.perf_counter() - t) * 1e3)
-    return {"fps": len(timed) / run_s, "p50_ms": statistics.median(lat),
-            "p50_p_ms": statistics.median(
-                [m for m, k in zip(lat, kinds) if k == "p"]),
-            "idr_ms": lat[0], "submit_ms": statistics.median(sub),
-            "collect_ms": statistics.median(col),
-            "colour_ms": statistics.median(colour),
-            "native_loaded": bool(native is not None and native._LIB is not None)}
+    return dict(kernel_ms(smoke, enc, timed[1]),
+                fps=len(timed) / run_s, p50_ms=statistics.median(lat),
+                p50_p_ms=statistics.median(
+                    [m for m, k in zip(lat, kinds) if k == "p"]),
+                idr_ms=lat[0], submit_ms=statistics.median(sub),
+                collect_ms=statistics.median(col),
+                colour_ms=statistics.median(colour),
+                native_loaded=bool(native is not None
+                                   and native._LIB is not None))
+
+
+def kernel_ms(smoke, enc, rgb) -> dict:
+    """K4 (full form), K5, K8 and K9 on the P frame ``rgb`` against the
+    encoder's reference, through the wrappers every checkout has."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        color, content_stats, h264_deblock, h264_inter)
+    from docker_nvidia_glx_desktop_tpu_torch.ops.cavlc_p_device import (
+        nnz_raster)
+
+    dev, qp = enc.device, 26
+    planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+              for p in enc._host_yuv420(rgb)]
+    ref = tuple(p.clone() for p in enc._ref)
+    o = h264_inter.encode_p_frame(*planes, *ref, qp)
+    rec = (o["recon_y"], o["recon_cb"], o["recon_cr"])
+    nnz = nnz_raster(o["luma"])
+    resid = tuple(o[k] for k in ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac"))
+    rgb_t = torch.from_numpy(np.ascontiguousarray(rgb)).to(dev)
+    calls = {"k4": lambda: content_stats.frame_stats_full(
+                 planes[0], ref[0], 512, rec[0], o["mv"], resid),
+             "k5": lambda: h264_inter.encode_p_frame(*planes, *ref, qp),
+             "k8": lambda: h264_deblock.deblock_frame(*rec, qp, nnz_blk=nnz,
+                                                      mv=o["mv"]),
+             "k9": lambda: color.rgb_to_yuv420(rgb_t, enc.pad_h, enc.pad_w)}
+    out = {}
+    for k, fn in calls.items():
+        out[f"{k}_event_ms"] = smoke.cuda_ms(fn, reps=50)
+        out[f"{k}_graph_ms"] = smoke.graph_ms(fn, reps=50)
+    return out
 
 
 def _run_child(tree, py_epb, frames, build_only=False):
