@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in six phases:
+seeded generator, in seven phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -35,7 +35,13 @@ seeded generator, in six phases:
 - **damage**: ``DNGD_DAMAGE_MASK=true`` on a desktop with a blinking
   cursor (1 MB row), a scrolling terminal pane (8 rows) and one
   full-frame change, per frame and in the ring (K5r, K13, and K6-K8 on
-  the compacted rows).
+  the compacted rows);
+- **tune**: ``ENCODER_TUNE=hq`` on both kernel tiers: the full tier
+  (``H264Encoder(..., deblock=False, tune="hq")``: the qp plane K14, the
+  hq forms of K1, K2, K3, K5 with its I16-in-P passes, K6, K7 and K4, rate
+  control), per frame and in the ring with the 1-frame lookahead; the
+  served tier (``make_encoder`` with ``ENCODER_TUNE=hq``: hq_noaq under
+  the loop filter), per frame, in the ring and on CABAC's two routes.
 
 Checks, each of which fails the run:
 
@@ -67,6 +73,12 @@ Checks, each of which fails the run:
           chain on the card (plain K5r, K6-K8 and K13 from the IDR's
           reference on), cv2's decode against the references, the masked
           ring against the per-frame masked path at the ring's qps
+  tune    K14 and every hq form against its plain version at 1080p, I16-
+          in-P fired, an IDR's and two P frames' AUs per tier against the
+          plain path, cv2's decode of both tiers, each ring against the
+          per-frame path at its qps (the full tier's with the lookahead),
+          CABAC's routes byte-identical under hq_noaq; the tune=off K1 and
+          K5 timed again beside the earlier phases' times
   check   NAL structure, recon PSNR, qp moved, no jax imported
 
 Prints the card's name and power limit, per-kernel times beside their
@@ -74,7 +86,8 @@ bounds, the GOP and CABAC paths' frames/s, p50 frame ms and host spans
 (the CABAC span per route), the GOP path's busy share, the ring against
 the per-frame path (frames/s and submit p50 in alternating runs), the
 masked P stage's device ms at 1, 8 and 68 damaged rows, the graphs'
-count and memory pools,
+count and memory pools, the hq tiers' K1 and K5 times and frames/s
+against tune=off, the script's total run time,
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, without CUDA or
 outside a checkout of the repository.
@@ -117,6 +130,11 @@ RING_CABAC_FRAMES = 10
 RING_RGB_FRAMES = 9
 RING_TIMED_FRAMES = 29     # IDR + 7 chunks a timed run
 DAMAGE_FRAMES = 12
+TUNE_FRAMES = 8            # tune phase: IDR + 7 P frames per tier
+TUNE_RING_FRAMES = 10      # IDR, two chunks of 4 and a drained frame
+TUNE_CABAC_FRAMES = 5
+TUNE_TIMED_FRAMES = 12     # frames a timed run, four configurations in turn
+TUNE_ROUNDS = 3
 
 
 class SmokeError(RuntimeError):
@@ -387,9 +405,12 @@ def run():
     print(f"ring phase done at {time.perf_counter() - t_start:.0f} s")
     rows += damage_phase(report)
     print(f"damage phase done at {time.perf_counter() - t_start:.0f} s")
+    rows += tune_phase(report, rows)
+    print(f"tune phase done at {time.perf_counter() - t_start:.0f} s")
     check("jax" not in sys.modules, "the port imported jax")
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
+    print(f"total run time: {report['wall_s']:.1f} s (build included)")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=float)
     print(json.dumps({"kernels": rows}))
@@ -2125,6 +2146,448 @@ def mask_serving_cost(rep, y, prev_y):
     print(f"damage serving: host damage grid {out['grid_ms_p50']:.3f} ms a "
           f"{W}x{H} frame (median of 21)")
     rep["serving"] = out
+
+
+def tune_frames(n: int, seed: int = 3):
+    """Tune phase: the GOP phase's desktop, and from frame 2 every third
+    frame a new flat panel over the scrolling text, content motion
+    estimation cannot track (where I16-in-P fires)."""
+    frames = gop_frames(n, seed=seed)
+    for i in range(2, n, 3):
+        frames[i][220:420, 940:1300] = (140 + 8 * i, 150, 160)
+    return frames
+
+
+def k5_hq_ops(nmb: int, p_intra: bool) -> float:
+    """K5's operations under tune=hq: ``k5_ops`` plus, per MB, the forced
+    skip's coded and skip SSDs (384 pels x 3 each) and bit estimates (384
+    levels x 4), and under I16-in-P the intra candidate (24 blocks x 256,
+    as the residual), its SSD and bit estimates and the gate."""
+    extra = 2 * 384 * 3 + 384 * 4
+    if p_intra:
+        extra += 24 * 256 + 384 * 3 + 384 * 4 + 8
+    return k5_ops(nmb) + float(extra * nmb)
+
+
+def flush_twin(enc):
+    """Make ``enc`` (a ring encoder) push each full chunk through its
+    per-frame flush instead of the graph: the per-frame path with the
+    chunk's lookahead shift, for the full tier's ring comparison."""
+    def dispatch(ring):
+        enc._ring = ring
+        enc._ring_flush()
+    enc._ring_dispatch = dispatch
+    return enc
+
+
+def tune_phase(report, rows_before):
+    """ENCODER_TUNE=hq: the full tier (deblock off: K14, K1/K2/K3/K5/K6/K7/
+    K4 hq forms, I16-in-P) and the served tier (make_encoder: hq_noaq
+    under the loop filter), per frame, in the ring and (served) on both
+    CABAC routes; kernels against their plain versions at 1080p, AUs
+    against the plain path, cv2's decode; times against tune=off."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.bitstream import h264 as syn
+    from docker_nvidia_glx_desktop_tpu_torch.bitstream import h264_entropy
+    from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder, make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        aq, bitmerge, cavlc_device, cavlc_p_device, color, content_stats, devloop,
+        h264_deblock, h264_device, h264_inter)
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    rep = report["tune"] = {}
+    t_phase = time.perf_counter()
+    frames = tune_frames(TUNE_FRAMES)
+    full_kw = dict(mode="cavlc", entropy="device", deblock=False, tune="hq",
+                   gop=60, bitrate_kbps=8000)
+    named = dict(devloop.wrappers(),
+                 intra_hq=h264_device.encode_intra_frame_yuv.hq,
+                 cavlc_slots=cavlc_device.frame_block_slots,
+                 cavlc_chain=cavlc_device.frame_block_slots.hq,
+                 pack_hq=bitmerge.pack_frame.hq,
+                 content_hq=content_stats.chunk_stats.hq,
+                 content=content_stats.chunk_stats,
+                 inter_off=h264_inter.encode_p_frame,
+                 cavlc_p_off=cavlc_p_device.p_frame_slots,
+                 pack_p_off=bitmerge.pack_p_frame,
+                 intra_off=h264_device.encode_intra_frame_yuv)
+    del named["inter"], named["cavlc_p_slots"], named["pack_p"]
+
+    def planes_of(enc, f):
+        return tuple(p.contiguous() for p in enc._planes_device(f))
+
+    # -- main path, full tier: K9 colour, K14, the hq forms, I16-in-P ----------
+    zero_counts(named)
+    enc = H264Encoder(W, H, **full_kw)
+    check(enc.device.type == "cuda" and enc._ktune == "hq" and enc._p_intra
+          and not enc.host_color, "not the full tier on the card")
+    refs, intra = [], []
+
+    def on_submit(e, tok):
+        refs.append(tuple(p.clone() for p in e._ref))
+        if tok[0] == "p":
+            intra.append(int(tok[4][2]["mb_intra"].sum()))
+
+    toks, aus, keys = drive(enc, frames, depth=2, on_submit=on_submit)
+    torch.cuda.synchronize()
+    launches = path_launches(named)
+    qps = [token_qp(t) for t in toks]
+    rep["full"] = {"qps": qps, "launches": launches, "mb_intra": intra,
+                   "au_bytes": [len(a) for a in aus]}
+    print(f"tune full main: {len(aus)} frames, qp {qps}, I16-in-P MBs a P "
+          f"frame {intra}, launches {launches}")
+    for k in ("color_frames", "qp_plane", "intra_hq", "cavlc_chain", "pack_hq",
+              "inter_hq", "inter_i16", "inter_merge", "cavlc_p_slots_hq",
+              "cavlc_p_chain", "pack_p_hq", "content_hq"):
+        check(launches[k] >= 1, f"tune full: {k} never launched: {launches}")
+    check(launches["inter_off"] == 0 and launches["intra_off"] == 0,
+          "the full tier ran a tune=off core")
+    check(sum(intra) > 0, "no I16-in-P MB in the full-tier run")
+    check(keys == [i == 0 for i in range(TUNE_FRAMES)], f"keyframes {keys}")
+
+    # -- (a) the full tier's kernels against their plain versions -------------
+    pi = next(i for i, n in enumerate(intra, 1) if n > 0)
+    pl = planes_of(enc, frames[pi])
+    nxt = planes_of(enc, frames[min(pi + 1, TUNE_FRAMES - 1)])[0]
+    ref, qp = refs[pi - 1], qps[pi]
+    hv, hl = enc._p_hdr_slots(toks[pi][4][1], qp - enc.qp)
+    m_k = aq.qp_plane(pl[0], qp, nxt)
+    check(torch.equal(m_k, aq.qp_plane_plain(pl[0], qp, nxt)), "K14 differs")
+    o_k = h264_inter.encode_p_frame(*pl, *ref, qp, tune="hq", p_intra=True)
+    o_p = h264_inter.encode_p_frame_plain(*pl, *ref, qp, "hq", o_k["qp_map"],
+                                          True)
+    for k in o_p:
+        check(torch.equal(o_k[k], o_p[k]), f"K5 hq: {k} differs")
+    check(bool(o_k["mb_intra"].any()), "K5 hq: no I16-in-P MB at the check")
+    s_k = cavlc_p_device.p_frame_slots(o_k, qp)
+    s_p = cavlc_p_device.p_frame_slots_plain(o_k, qp)
+    for i, (a, b) in enumerate(zip(s_k, s_p)):
+        check(torch.equal(a, b), f"K6 hq: output {i} differs")
+    f_k = bitmerge.pack_p_frame(*s_k[:6], hv, hl, qp_sum=s_k[7])
+    f_p = bitmerge.pack_p_frame_plain(*s_k[:6], hv, hl, qp_sum=s_k[7])
+    check(torch.equal(f_k, f_p), "K7 hq: flat differs")
+    resid = tuple(o_k[k] for k in ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac"))
+    c_args = (o_k["recon_y"], o_k["mv"], resid, o_k["mb_intra"])
+    v_k, g_k = content_stats.frame_stats_full(pl[0], ref[0], 512, *c_args)
+    v_p, g_p = content_stats.frame_stats_full_plain(pl[0], ref[0], 512, *c_args)
+    ints = [1, 2, 3, 4, 9]
+    check(torch.equal(g_k, g_p) and torch.equal(v_k[ints], v_p[ints]),
+          f"K4 hq: {v_k} vs {v_p}")
+    k4_err = float((v_k - v_p).abs().max())
+    check(float(((v_k - v_p).abs() / v_p.abs().clamp(min=1)).max())
+          <= FLOAT_REL_TOL, f"K4 hq: {v_k} vs {v_p}")
+    check(v_k[4] > 0, "K4 hq: no intra MB counted")
+    idr = planes_of(enc, frames[0])
+    qp0 = qps[0]
+    l_k = h264_device.encode_intra_frame_yuv(*idr, qp0, tune="hq")
+    t0 = time.perf_counter()
+    l_p = h264_device.encode_intra_frame_yuv_plain(*idr, qp0, "hq", l_k["qp_map"])
+    torch.cuda.synchronize()
+    k1_plain_ms = (time.perf_counter() - t0) * 1e3
+    for k in l_p:
+        check(torch.equal(l_k[k], l_p[k]), f"K1 hq: {k} differs")
+    sl_k = cavlc_device.frame_block_slots(l_k, qp0)
+    sl_p = cavlc_device.frame_block_slots_plain(l_k, qp0)
+    for i, (a, b) in enumerate(zip(sl_k, sl_p)):
+        check(torch.equal(a, b), f"K2 hq: output {i} differs")
+    hv0, hl0 = enc._hdr_slots(toks[0][4][1], qp0 - enc.qp)
+    fl_k = bitmerge.pack_frame(*sl_k[:4], hv0, hl0, qp_sum=sl_k[4])
+    fl_p = bitmerge.pack_frame_plain(*sl_k[:4], hv0, hl0, qp_sum=sl_k[4])
+    check(torch.equal(fl_k, fl_p), "K3 hq: flat differs")
+    print(f"(a) tune full: K14, K1, K2, K3, K5 (three passes, {int(o_k['mb_intra'].sum())} "
+          f"I16-in-P MBs), K6, K7 and K4 hq forms equal to their plain versions "
+          f"at frame {pi} (qp {qp}) and the IDR (qp {qp0})")
+
+    # -- (b) an IDR and two P frames against the plain path -------------------
+    def plain_au_p(planes, pref, q, frame_num, e):
+        hv_, hl_ = e._p_hdr_slots(frame_num, q - e.qp)
+        tune_ = e._ktune
+        qm = aq.qp_plane_plain(planes[0], q) if tune_ == "hq" else None
+        out = h264_inter.encode_p_frame_plain(*planes, *pref, q, tune_, qm,
+                                              e._p_intra)
+        sl = cavlc_p_device.p_frame_slots_plain(out, q)
+        flat = bitmerge.pack_p_frame_plain(
+            *sl[:6], hv_, hl_, qp_sum=sl[7] if len(sl) > 7 else None).cpu().numpy()
+        meta = cavlc_device.FlatMeta(flat, e.mb_h)
+        check(not meta.overflow, "(b) tune: a P frame overflowed")
+        au = cavlc_device.assemble_annexb(flat, meta, nal_type=syn.NAL_SLICE,
+                                          ref_idc=2)
+        return au, out, sl
+
+    def plain_au_idr(planes, q, idr_pic_id, e, lv=None):
+        hv_, hl_ = e._hdr_slots(idr_pic_id, q - e.qp)
+        if lv is None:
+            qm = aq.qp_plane_plain(planes[0], q) if e._ktune == "hq" else None
+            lv = h264_device.encode_intra_frame_yuv_plain(*planes, q, e._ktune, qm)
+        sl = cavlc_device.frame_block_slots_plain(lv, q)
+        flat = bitmerge.pack_frame_plain(
+            *sl[:4], hv_, hl_, qp_sum=sl[4] if len(sl) > 4 else None).cpu().numpy()
+        meta = cavlc_device.FlatMeta(flat, e.mb_h)
+        if meta.overflow:
+            lvn = {k: v.cpu().numpy() for k, v in lv.items()
+                   if not k.startswith("recon")}
+            qm = lvn.pop("qp_map", None)
+            return h264_entropy.encode_intra_picture(
+                lvn, frame_num=0, idr_pic_id=idr_pic_id, sps=e._sps, pps=e._pps,
+                with_headers=True, qp_delta=q - e.qp,
+                deblocking_idc=e._deblock_idc, qp_map=qm, slice_qp=q), lv
+        return cavlc_device.assemble_annexb(flat, meta, headers=e.headers()), lv
+
+    au0, _ = plain_au_idr(idr, qp0, toks[0][4][1], enc, l_p)
+    check(aus[0] == au0, "(b) tune full: the IDR differs from the plain path")
+    pref = (l_p["recon_y"], l_p["recon_cb"], l_p["recon_cr"])
+    for i in (1, 2):
+        au, out, _ = plain_au_p(planes_of(enc, frames[i]), pref, qps[i],
+                                toks[i][4][1], enc)
+        check(aus[i] == au, f"(b) tune full: P frame {i} differs from the plain path")
+        pref = (out["recon_y"], out["recon_cb"], out["recon_cr"])
+    print("(b) tune full: the IDR and two P frames equal to the plain path")
+
+    # -- (c) cv2 decodes the full tier's stream to its references --------------
+    def cv2_check(name, stream, want_refs):
+        try:
+            import cv2
+        except ImportError:
+            print(f"(c) {name}: cv2 decode not run (no cv2 on this machine)")
+            return "not run"
+        path = os.path.join(HERE, "chiprun_out", f"{name}.264")
+        with open(path, "wb") as f:
+            f.write(b"".join(stream))
+        cap = cv2.VideoCapture(path)
+        cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+        for i, r in enumerate(want_refs):
+            ok, img = cap.read()
+            check(ok, f"(c) {name}: cv2 stopped at frame {i}")
+            check(np.array_equal(np.asarray(img).reshape(H, W),
+                                 r[0][:H, :W].cpu().numpy()),
+                  f"(c) {name}: frame {i} decodes differently")
+        cap.release()
+        os.remove(path)
+        print(f"(c) {name}: cv2 decoded {len(want_refs)} frames to the references")
+        return "ran"
+
+    rep["full"]["cv2"] = cv2_check("tune_full", aus, refs)
+
+    # -- the full tier's ring with the lookahead -------------------------------
+    rframes = tune_frames(TUNE_RING_FRAMES, seed=4)
+    zero_counts(named)
+    ring = H264Encoder(W, H, superstep_chunk=4, **full_kw)
+    check(ring._ring_chunk == 4, "the full tier's ring is off")
+    rtoks, raus, _ = drive(ring, rframes)
+    torch.cuda.synchronize()
+    r_launch = path_launches(named)
+    check(dispatched_chunks(rtoks) == 2, "the full tier's ring did not replay two chunks")
+    for k in ("qp_plane", "inter_hq", "inter_i16", "inter_merge", "cavlc_p_chain"):
+        check(r_launch[k] >= 1, f"tune ring: {k} never launched {r_launch}")
+    rqps = [token_qp(t) for t in rtoks]
+    twin = flush_twin(H264Encoder(W, H, superstep_chunk=4,
+                                  **dict(full_kw, bitrate_kbps=0)))
+    # a ring asks for one qp a chunk: each frame's, by its index
+    twin._eff_qp = lambda keyframe=True: rqps[twin.frame_index - 1]
+    _, taus, _ = drive(twin, rframes)
+    check(raus == taus, "(b) tune full ring: the AUs differ from the per-frame "
+          "path with the lookahead at the ring's qps")
+    print(f"(b) tune full ring: {len(raus)} AUs (two replayed chunks, a drained "
+          f"frame) equal to the per-frame path with the lookahead; launches "
+          f"through the graph {r_launch}")
+    rep["full_ring"] = {"qps": rqps, "launches": r_launch}
+
+    # -- main path, served tier: make_encoder with ENCODER_TUNE=hq --------------
+    env = {"SIZEW": str(W), "SIZEH": str(H), "ENCODER_TUNE": "hq"}
+    zero_counts(named)
+    srv, _ = make_encoder(from_env(env), W, H)
+    check(srv._ktune == "hq_noaq" and srv.deblock and not srv._p_intra,
+          "make_encoder did not serve the hq_noaq tier")
+    srefs = []
+    stoks, saus, _ = drive(srv, frames, depth=2, on_submit=lambda e, t: srefs.append(
+        tuple(p.clone() for p in e._ref)))
+    torch.cuda.synchronize()
+    s_launch = path_launches(named)
+    sqps = [token_qp(t) for t in stoks]
+    for k in ("intra_hq", "inter_hq", "cavlc_p_off", "pack_p_off", "deblock",
+              "content"):
+        check(s_launch[k] >= 1, f"tune served: {k} never launched {s_launch}")
+    check(s_launch["qp_plane"] == 0 and s_launch["inter_i16"] == 0,
+          f"the served tier ran the full tier's kernels {s_launch}")
+    print(f"tune served main: {len(saus)} frames, qp {sqps}, launches {s_launch}")
+    # (a) K1 and K5 at hq_noaq against their plain versions
+    sidr = planes_of(srv, frames[0])
+    sl_k1 = h264_device.encode_intra_frame_yuv(*sidr, sqps[0], tune="hq_noaq")
+    t0 = time.perf_counter()
+    sl_p1 = h264_device.encode_intra_frame_yuv_plain(*sidr, sqps[0], "hq_noaq")
+    torch.cuda.synchronize()
+    k1n_plain_ms = (time.perf_counter() - t0) * 1e3
+    for k in sl_p1:
+        check(torch.equal(sl_k1[k], sl_p1[k]), f"K1 hq_noaq: {k} differs")
+    spl = planes_of(srv, frames[pi])
+    so_k = h264_inter.encode_p_frame(*spl, *srefs[pi - 1], sqps[pi], tune="hq_noaq")
+    so_p = h264_inter.encode_p_frame_plain(*spl, *srefs[pi - 1], sqps[pi], "hq_noaq")
+    for k in so_p:
+        check(torch.equal(so_k[k], so_p[k]), f"K5 hq_noaq: {k} differs")
+    # (b) the IDR and two P frames against the plain path (deblocked refs)
+    au0, lv0 = plain_au_idr(sidr, sqps[0], stoks[0][4][1], srv, sl_p1)
+    check(saus[0] == au0, "(b) tune served: the IDR differs from the plain path")
+    pref = h264_deblock.deblock_frame_plain(lv0["recon_y"], lv0["recon_cb"],
+                                            lv0["recon_cr"], sqps[0])
+    for i in (1, 2):
+        au, out, sl = plain_au_p(planes_of(srv, frames[i]), pref, sqps[i],
+                                 stoks[i][4][1], srv)
+        check(saus[i] == au, f"(b) tune served: P frame {i} differs")
+        pref = h264_deblock.deblock_frame_plain(
+            out["recon_y"], out["recon_cb"], out["recon_cr"], sqps[i],
+            nnz_blk=sl[6], mv=out["mv"])
+    print("(a)/(b) tune served: K1 and K5 hq_noaq equal to their plain versions; "
+          "the IDR and two P frames equal to the plain path")
+    rep["served"] = {"qps": sqps, "launches": s_launch,
+                     "cv2": cv2_check("tune_served", saus, srefs)}
+
+    # the served tier's ring against the per-frame path at its qps
+    renv = dict(env, ENCODER_SUPERSTEP_CHUNK="4")
+    sring, _ = make_encoder(from_env(renv), W, H)
+    check(sring._ring_chunk == 4, "the served tier's ring is off")
+    srtoks, sraus, _ = drive(sring, rframes)
+    check(dispatched_chunks(srtoks) == 2, "the served ring did not replay two chunks")
+    per = pinned_per_frame(renv, W, H, [token_qp(t) for t in srtoks])
+    _, spaus, _ = drive(per, rframes, depth=2)
+    check(sraus == spaus, "(b) tune served ring: the AUs differ from the per-frame path")
+    print(f"(b) tune served ring: {len(sraus)} AUs equal to the per-frame path")
+
+    # CABAC's two routes under hq_noaq
+    cab = {}
+    for route in ("host", "device"):
+        os.environ["ENCODER_CABAC_BINARIZE"] = route
+        try:
+            ce, codec = make_encoder(from_env(dict(env, ENCODER_ENTROPY="cabac")), W, H)
+            check(codec == "h264_cabac" and ce._ktune == "hq_noaq"
+                  and ce.cabac_device_binarize == (route == "device"),
+                  f"CABAC {route} route not set up")
+            crefs = []
+            _, cab[route], _ = drive(ce, frames[:TUNE_CABAC_FRAMES], depth=2,
+                                     on_submit=lambda e, t: crefs.append(
+                                         tuple(p.clone() for p in e._ref)))
+        finally:
+            os.environ.pop("ENCODER_CABAC_BINARIZE", None)
+    check(cab["host"] == cab["device"], "(b) tune CABAC: the routes differ")
+    rep["cabac_cv2"] = cv2_check("tune_cabac", cab["device"], crefs)
+    print(f"(b) tune CABAC: both routes byte-identical over {TUNE_CABAC_FRAMES} frames")
+
+    # -- times: K14; K1 and K5 per tier beside tune=off ------------------------
+    out_rows = []
+    nmb = enc.mb_h * enc.mb_w
+    t_k1 = {t: cuda_ms(lambda t=t: h264_device.encode_intra_frame_yuv(
+        *idr, qp0, tune=t), reps=10) for t in ("off", "hq_noaq", "hq")}
+    t_k5 = {}
+    for name, t, pi_ in (("off", "off", False), ("hq_noaq", "hq_noaq", False),
+                         ("hq", "hq", False), ("hq+i16", "hq", True)):
+        t_k5[name] = cuda_ms(lambda t=t, pi_=pi_: h264_inter.encode_p_frame(
+            *pl, *ref, qp, tune=t, p_intra=pi_), reps=20)
+    earlier = {r["name"]: r["ms"] for r in rows_before}
+    print("tune times (CUDA events, ms): K1 " + ", ".join(
+        f"{k} {v:.3f}" for k, v in t_k1.items()) + "; K5 " + ", ".join(
+        f"{k} {v:.3f}" for k, v in t_k5.items()))
+    print(f"tune ratios: K1 hq_noaq/off {t_k1['hq_noaq'] / t_k1['off']:.2f}, "
+          f"hq/off {t_k1['hq'] / t_k1['off']:.2f}; K5 hq_noaq/off "
+          f"{t_k5['hq_noaq'] / t_k5['off']:.2f}, hq/off {t_k5['hq'] / t_k5['off']:.2f}, "
+          f"hq+I16-in-P/off {t_k5['hq+i16'] / t_k5['off']:.2f}")
+    print(f"tune=off now against the earlier phases: K1 {t_k1['off']:.3f} vs "
+          f"{earlier.get('intra', float('nan')):.3f} ms, K5 {t_k5['off']:.3f} vs "
+          f"{earlier.get('inter', float('nan')):.3f} ms")
+    rep.update(k1_ms=t_k1, k5_ms=t_k5, off_earlier={
+        "intra": earlier.get("intra"), "inter": earlier.get("inter")})
+    saved = {k: fn.launches for k, fn in named.items()}
+    plain = lambda fn, reps=3: cuda_ms(fn, reps=reps)
+    specs = [
+        ("qp_plane", "aq.cu", "aq.py:115 qp_plane (:87 aq_offsets, :103 lookahead_bias)",
+         lambda: aq.qp_plane(pl[0], qp, nxt), lambda: aq.qp_plane_plain(pl[0], qp, nxt),
+         nbytes(pl[0], nxt, m_k), 0.0, 0.0, launches["qp_plane"]),
+        ("intra_hq", "intra.cu", "h264_device.py:555 encode_intra_frame_yuv (tune=hq)",
+         lambda: h264_device.encode_intra_frame_yuv(*idr, qp0, tune="hq"), None,
+         nbytes(*idr) + nbytes(*l_k.values()), 0.0, 0.0, launches["intra_hq"]),
+        ("cavlc_slots_hq", "cavlc.cu", "cavlc_device.py:416 frame_block_slots (qp chain :527-545)",
+         lambda: cavlc_device.frame_block_slots(l_k, qp0),
+         lambda: cavlc_device.frame_block_slots_plain(l_k, qp0),
+         nbytes(*[l_k[k] for k in l_k if not k.startswith("recon")]) + nbytes(*sl_k),
+         0.0, 0.0, launches["cavlc_chain"]),
+        ("pack_hq", "pack.cu", "cavlc_device.py:629 pack_frame (qp_sum :707-708)",
+         lambda: bitmerge.pack_frame(*sl_k[:4], hv0, hl0, qp_sum=sl_k[4]),
+         lambda: bitmerge.pack_frame_plain(*sl_k[:4], hv0, hl0, qp_sum=sl_k[4]),
+         nbytes(*sl_k, hv0, hl0) + 4096 + 4 * cavlc_device.FlatMeta(
+             fl_k[:4096].cpu().numpy(), enc.mb_h).total_words, 0.0, 0.0,
+         launches["pack_hq"]),
+        ("inter_hq", "inter.cu", "h264_inter.py:300 encode_p_frame_padded_ref (tune=hq, p_intra)",
+         lambda: h264_inter.encode_p_frame(*pl, *ref, qp, tune="hq", p_intra=True),
+         lambda: h264_inter.encode_p_frame_plain(*pl, *ref, qp, "hq", o_k["qp_map"], True),
+         nbytes(*pl, *ref, *o_k.values()), k5_hq_ops(nmb, True), 0.0,
+         launches["inter_hq"]),
+        ("cavlc_p_slots_hq", "cavlc.cu", "cavlc_p_device.py:158 p_frame_block_slots (27 blocks, qp chain)",
+         lambda: cavlc_p_device.p_frame_slots(o_k, qp),
+         lambda: cavlc_p_device.p_frame_slots_plain(o_k, qp),
+         nbytes(*[o_k[k] for k in o_k if not k.startswith("recon")], *s_k), 0.0, 0.0,
+         launches["cavlc_p_slots_hq"]),
+        ("pack_p_hq", "pack.cu", "cavlc_p_device.py:298 pack_p_frame (27 blocks, qp_sum)",
+         lambda: bitmerge.pack_p_frame(*s_k[:6], hv, hl, qp_sum=s_k[7]),
+         lambda: bitmerge.pack_p_frame_plain(*s_k[:6], hv, hl, qp_sum=s_k[7]),
+         nbytes(*s_k[:6], hv, hl) + 4096 + 4 * cavlc_device.FlatMeta(
+             f_k[:4096].cpu().numpy(), enc.mb_h).total_words, 0.0, 0.0,
+         launches["pack_p_hq"]),
+        ("content_stats_hq", "content.cu", "content_stats.py:156 frame_stats (mb_intra :100-120)",
+         lambda: content_stats.frame_stats_full(pl[0], ref[0], 512, *c_args),
+         lambda: content_stats.frame_stats_full_plain(pl[0], ref[0], 512, *c_args),
+         nbytes(pl[0], ref[0], o_k["recon_y"], o_k["mv"], *resid, o_k["mb_intra"],
+                v_k, g_k), 0.0, k4_err, launches["content_hq"]),
+        ("intra_hq_noaq", "intra.cu", "h264_device.py:555 encode_intra_frame_yuv (tune=hq_noaq)",
+         lambda: h264_device.encode_intra_frame_yuv(*sidr, sqps[0], tune="hq_noaq"),
+         None, nbytes(*sidr) + nbytes(*sl_k1.values()), 0.0, 0.0, s_launch["intra_hq"]),
+        ("inter_hq_noaq", "inter.cu", "h264_inter.py:300 encode_p_frame_padded_ref (tune=hq_noaq)",
+         lambda: h264_inter.encode_p_frame(*spl, *srefs[pi - 1], sqps[pi], tune="hq_noaq"),
+         lambda: h264_inter.encode_p_frame_plain(*spl, *srefs[pi - 1], sqps[pi], "hq_noaq"),
+         nbytes(*spl, *srefs[pi - 1], *so_k.values()), k5_hq_ops(nmb, False), 0.0,
+         s_launch["inter_hq"]),
+    ]
+    k1_plain = {"intra_hq": k1_plain_ms, "intra_hq_noaq": k1n_plain_ms}
+    for name, src, replaces, fk, fp, nb, ops, err, n in specs:
+        pm = plain(fp) if fp is not None else k1_plain[name]
+        out_rows.append(kernel_row(name, src, replaces, n, err,
+                                   cuda_ms(fk, reps=10), pm, nb, ops))
+    for k, fn in named.items():
+        fn.launches = saved[k]
+    k14 = next(r for r in out_rows if r["name"] == "qp_plane")
+    for r in out_rows:
+        print(f"kernel {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
+              f"{r['launches']} launches on its tier's main path)")
+    print(f"kernel qp_plane against its bound: {k14['ms'] / k14['bound_ms']:.1f}x")
+
+    # -- frames/s of each tier against tune=off, alternating runs -------------
+    confs = {
+        "off": lambda: make_encoder(from_env({"SIZEW": str(W), "SIZEH": str(H)}),
+                                    W, H)[0],
+        "hq_noaq": lambda: make_encoder(from_env(env), W, H)[0],
+        "off_nodeblock": lambda: H264Encoder(W, H, **dict(full_kw, tune="off")),
+        "hq": lambda: H264Encoder(W, H, **full_kw),
+    }
+    timed = tune_frames(TUNE_TIMED_FRAMES, seed=6)
+    fps = {k: [] for k in confs}
+    for rnd in range(TUNE_ROUNDS):
+        order = list(confs) if rnd % 2 == 0 else list(confs)[::-1]
+        for k in order:
+            e = confs[k]()
+            drive(e, timed[:2], depth=2)            # warm: an IDR and a P
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drive(e, timed, depth=2)
+            torch.cuda.synchronize()
+            fps[k].append(len(timed) / (time.perf_counter() - t0))
+    med = {k: statistics.median(v) for k, v in fps.items()}
+    print("tune e2e frames/s (median of " + f"{TUNE_ROUNDS} alternating runs, "
+          f"{TUNE_TIMED_FRAMES} frames, 2 in flight): " + ", ".join(
+              f"{k} {v:.2f} {[round(x, 2) for x in fps[k]]}" for k, v in med.items())
+          + f"; hq_noaq/off {med['hq_noaq'] / med['off']:.3f}, "
+          f"hq/off(no deblock) {med['hq'] / med['off_nodeblock']:.3f}")
+    rep.update(fps=fps, fps_median=med, phase_s=time.perf_counter() - t_phase)
+    return out_rows
 
 
 def main():

@@ -3,7 +3,15 @@
 // and the 20 MB-syntax slots.
 // K6 — the same for P slices: 26 residual blocks per MB, the 7 MB-header
 // slots (skip run, mb_type, mvd, cbp, mb_qp_delta), each row's trailing
-// skip run and the per-4x4 coded flags the loop filter takes.
+// skip run and the per-4x4 coded flags the loop filter takes.  Its
+// I16-in-P form (tune=hq, a template instantiation) codes 27 blocks, the
+// Intra16x16DCLevel first and an intra MB's 15-coefficient luma AC, and
+// an intra MB's header (cavlc_p_device.py:77-158, :160-290).
+// The qp chain (tune=hq's full tier) is a pass of its own after either
+// slot coder: one warp per MB row scans cummax(codes ? c : -1) along
+// the row (aq.py:151 qp_chain, cavlc_device.py:527-545 / cavlc_p_device
+// :427-437), writes the mb_qp_delta slots and adds the effective qps
+// into the frame's qp sum.
 //
 // K2 replaces docker_nvidia_glx_desktop_tpu/ops/cavlc_device.py:416
 // frame_block_slots (code_blocks :247, nc_grid :388,
@@ -284,11 +292,14 @@ constexpr int P_BLOCKS = 26, P_HDR = 7;
 
 struct PLevels {
   const int *mv, *luma, *cb_dc, *cb_ac, *cr_dc, *cr_ac;
+  const int *i16_dc, *i16_ac;       // I16-in-P (tune=hq), else null
+  const uint8_t* mb_intra;
 };
 
 // scratch word layout per MB (P pass 1 -> pass 2); TC_* as the intra's
-enum { P_CBP = 24, P_CBP_CHROMA = 25, P_GRP = 26 };
+enum { P_CBP = 24, P_CBP_CHROMA = 25, P_GRP = 26, P_INTRA = 27, P_CL15 = 28 };
 
+template <bool INTRA>
 __global__ void p_info_kernel(PLevels L, int* info, uint8_t* nnz, int nmb) {
   const int mb = blockIdx.x * blockDim.x + threadIdx.x;
   if (mb >= nmb) return;
@@ -300,6 +311,22 @@ __global__ void p_info_kernel(PLevels L, int* info, uint8_t* nnz, int nmb) {
     o[TC_LUMA + c_blk_y[b] * 4 + c_blk_x[b]] = tc;
     nnz[mb * 16 + c_blk_y[b] * 4 + c_blk_x[b]] = tc > 0;
     if (tc) grp |= 1 << (b >> 2);
+  }
+  bool intra = false, cl15 = false;
+  if constexpr (INTRA) {
+    // an intra MB's 4x4 counts come from its (cbp-gated) AC blocks
+    intra = L.mb_intra[mb] != 0;
+    if (intra) {
+      for (int k = 0; k < 16 * 15; ++k) cl15 |= L.i16_ac[mb * 240 + k] != 0;
+      for (int b = 0; b < 16; ++b) {
+        int tc = 0;
+        if (cl15)
+          for (int k = 0; k < 15; ++k) tc += L.i16_ac[(mb * 16 + b) * 15 + k] != 0;
+        o[TC_LUMA + c_blk_y[b] * 4 + c_blk_x[b]] = tc;
+      }
+    }
+    o[P_INTRA] = intra;
+    o[P_CL15] = cl15;
   }
   bool ac_any = false, dc_any = false;
   for (int k = 0; k < 60; ++k)
@@ -318,13 +345,17 @@ __global__ void p_info_kernel(PLevels L, int* info, uint8_t* nnz, int nmb) {
     o[TC_CB + q] = tcb;
     o[TC_CR + q] = tcr;
   }
-  o[P_CBP] = grp + 16 * cbp_c;
+  // an intra MB's cbp is its I16 pattern (the core zeroed its inter luma)
+  o[P_CBP] = (intra ? (cl15 ? 15 : 0) : grp) + 16 * cbp_c;
   o[P_CBP_CHROMA] = cbp_c;
   o[P_GRP] = grp;
 }
 
+template <bool INTRA>
 __device__ __forceinline__ bool p_coded(const PLevels& L, const int* info, int mb) {
-  return L.mv[mb * 2] != 0 || L.mv[mb * 2 + 1] != 0 || info[mb * INFO + P_CBP] != 0;
+  bool coded = L.mv[mb * 2] != 0 || L.mv[mb * 2 + 1] != 0 || info[mb * INFO + P_CBP] != 0;
+  if constexpr (INTRA) coded |= info[mb * INFO + P_INTRA] != 0;
+  return coded;
 }
 
 __device__ __forceinline__ void ue_slot(int v, int* val, int* len) {
@@ -337,12 +368,13 @@ __device__ __forceinline__ void se_slot(int v, int* val, int* len) {
 }
 
 // MB header slots; the last MB of a row also codes the row's trailing run.
+template <bool INTRA>
 __device__ void p_header(const PLevels& L, const int* info, int mb, int c, int nc, int* vals,
                          int* lens, int* trail_val, int* trail_len) {
   int prev = -1;                        // last coded MB strictly before c
   for (int k = c - 1; k >= 0; --k)
-    if (p_coded(L, info, mb - c + k)) { prev = k; break; }
-  const bool coded = p_coded(L, info, mb);
+    if (p_coded<INTRA>(L, info, mb - c + k)) { prev = k; break; }
+  const bool coded = p_coded<INTRA>(L, info, mb);
   const int cbp = info[mb * INFO + P_CBP];
   const int lx = c ? L.mv[mb * 2 - 1] : 0, ly = c ? L.mv[mb * 2 - 2] : 0;
   ue_slot(c - prev - 1, vals + 0, lens + 0);
@@ -353,6 +385,17 @@ __device__ void p_header(const PLevels& L, const int* info, int mb, int c, int n
   vals[5] = 1; lens[5] = 0;
   se_slot(0, vals + 6, lens + 6);
   if (cbp == 0) lens[6] = 0;
+  if constexpr (INTRA) {
+    if (info[mb * INFO + P_INTRA]) {
+      // I_16x16 in a P slice: ue(5 + the I16 type), DC prediction with
+      // the cbp folded in; no mvd, no cbp; chroma mode DC; a qp delta
+      ue_slot(8 + 4 * (cbp >> 4) + ((cbp & 15) ? 12 : 0), vals + 1, lens + 1);
+      lens[2] = lens[3] = lens[4] = 0;
+      vals[4] = c_cbp_cn_inter[0] + 1;
+      lens[5] = 1;
+      lens[6] = 1;
+    }
+  }
   if (!coded)
     for (int k = 0; k < P_HDR; ++k) lens[k] = 0;
   if (c == nc - 1) {
@@ -365,16 +408,19 @@ __device__ void p_header(const PLevels& L, const int* info, int mb, int c, int n
   }
 }
 
+template <bool INTRA>
 __global__ void p_slots_kernel(PLevels L, const int* info, int* values, int* lengths,
                                int* hdr_vals, int* hdr_lens, int* trail_vals, int* trail_lens,
                                int nmb, int nc) {
+  constexpr int NB = P_BLOCKS + (INTRA ? 1 : 0);
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= nmb * (P_BLOCKS + 1)) return;
-  const int mb = gid / (P_BLOCKS + 1), j = gid % (P_BLOCKS + 1), c = mb % nc;
-  if (j == P_BLOCKS) {
+  if (gid >= nmb * (NB + 1)) return;
+  const int mb = gid / (NB + 1), c = mb % nc;
+  const int jb = gid % (NB + 1);           // block slot (NB: the header)
+  if (jb == NB) {
     const int r = mb / nc;
-    p_header(L, info, mb, c, nc, hdr_vals + mb * P_HDR, hdr_lens + mb * P_HDR,
-             trail_vals + r, trail_lens + r);
+    p_header<INTRA>(L, info, mb, c, nc, hdr_vals + mb * P_HDR, hdr_lens + mb * P_HDR,
+                    trail_vals + r, trail_lens + r);
     return;
   }
   const int* inf = info + mb * INFO;
@@ -384,7 +430,18 @@ __global__ void p_slots_kernel(PLevels L, const int* info, int* values, int* len
   for (int k = 0; k < 16; ++k) lv[k] = 0;
   int nc_ctx = 0, max_coeff = 15;
   bool is_cdc = false, gate;
-  if (j < 16) {                                   // luma, blkIdx order
+  const int j = INTRA ? jb - 1 : jb;       // the 26-block layout's index
+  if (INTRA && jb == 0) {                         // Intra16x16DCLevel
+    for (int k = 0; k < 16; ++k) lv[k] = L.i16_dc[mb * 16 + k];
+    nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, 0, 0);
+    max_coeff = 16;
+    gate = inf[P_INTRA] != 0;
+  } else if (INTRA && j < 16 && inf[P_INTRA]) {   // an intra MB's luma AC
+    for (int k = 0; k < 15; ++k) lv[k] = L.i16_ac[(mb * 16 + j) * 15 + k];
+    nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, c_blk_y[j], c_blk_x[j]);
+    max_coeff = 15;
+    gate = inf[P_CL15] != 0;
+  } else if (j < 16) {                            // luma, blkIdx order
     for (int k = 0; k < 16; ++k) lv[k] = L.luma[(mb * 16 + j) * 16 + k];
     nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, c_blk_y[j], c_blk_x[j]);
     max_coeff = 16;
@@ -403,8 +460,56 @@ __global__ void p_slots_kernel(PLevels L, const int* info, int* values, int* len
     nc_ctx = nc_of(inf + off, linf ? linf + off : nullptr, 2, q >> 1, q & 1);
     gate = cbp_c == 2;
   }
-  const int base = (mb * P_BLOCKS + j) * SLOTS;
+  const int base = (mb * NB + jb) * SLOTS;
   code_block(lv, nc_ctx, is_cdc, max_coeff, gate, values + base, lengths + base);
+}
+
+// --- the qp chain (tune=hq full tier) -----------------------------------
+
+// kind 0: intra slots (codes: I16, or cbp != 0), slot 19 of 20;
+// kind 1: P headers (codes: cbp != 0 or I16-in-P), slot 6 of 7.
+__global__ void qp_chain_kernel(const int* __restrict__ qp_map, const uint8_t* __restrict__ flag,
+                                const int* __restrict__ info, int* vals, int* lens, int* qp_sum,
+                                const int* __restrict__ qp_dev, int nr, int nc, int slice_qp,
+                                int kind) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (row >= nr) return;                  // whole warps: blockDim is a multiple of 32
+  const int sq = qp_dev ? *qp_dev : slice_qp;
+  const int stride = kind ? P_HDR : SYN, slot = kind ? 6 : 19;
+  const int per = (nc + 31) / 32, c0 = min(lane * per, nc), c1 = min(c0 + per, nc);
+  auto codes = [&](int c) {
+    const int mb = row * nc + c;
+    const int* inf = info + mb * INFO;
+    if (kind) return inf[P_CBP] > 0 || (flag && flag[mb]);
+    const bool i4 = flag[mb] != 0;
+    const bool any = (i4 ? inf[CBP_LUMA4] > 0 : inf[CBP_LUMA] != 0) || inf[CBP_CHROMA] > 0;
+    return !i4 || any;
+  };
+  // the last coding MB of each lane's segment, max-scanned over the lanes
+  int last = -1;
+  for (int c = c0; c < c1; ++c)
+    if (codes(c)) last = c;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, last, o);
+    if (lane >= o) last = max(last, v);
+  }
+  int j = __shfl_up_sync(0xffffffffu, last, 1);
+  if (lane == 0) j = -1;
+  const int* q = qp_map + row * nc;
+  int sum = 0;
+  for (int c = c0; c < c1; ++c) {
+    const int prev = j >= 0 ? q[j] : sq;
+    const bool cd = codes(c);
+    if (cd) j = c;
+    sum += j >= 0 ? q[j] : sq;
+    const int d = q[c] - prev;
+    int v, l;
+    se_slot(d, &v, &l);
+    vals[(row * nc + c) * stride + slot] = v;
+    lens[(row * nc + c) * stride + slot] = cd ? l : 0;
+  }
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  if (lane == 0) atomicAdd(qp_sum, sum);
 }
 
 }  // namespace
@@ -446,12 +551,50 @@ extern "C" int cavlc_p_slots_launch(const int* mv, const int* luma, const int* c
                                     int* scratch, int nr, int nc, cudaStream_t stream) {
   const int nmb = nr * nc;
   if (nmb <= 0) return 0;
-  const PLevels L{mv, luma, cb_dc, cb_ac, cr_dc, cr_ac};
-  p_info_kernel<<<(nmb + 127) / 128, 128, 0, stream>>>(L, scratch, nnz, nmb);
+  const PLevels L{mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, nullptr, nullptr, nullptr};
+  p_info_kernel<false><<<(nmb + 127) / 128, 128, 0, stream>>>(L, scratch, nnz, nmb);
   int e = dngd_last_error();
   if (e) return e;
   const int n = nmb * (P_BLOCKS + 1);
-  p_slots_kernel<<<(n + 127) / 128, 128, 0, stream>>>(L, scratch, values, lengths, hdr_vals,
-                                                      hdr_lens, trail_vals, trail_lens, nmb, nc);
+  p_slots_kernel<false><<<(n + 127) / 128, 128, 0, stream>>>(
+      L, scratch, values, lengths, hdr_vals, hdr_lens, trail_vals, trail_lens, nmb, nc);
+  return dngd_last_error();
+}
+
+// The I16-in-P form: 27 block slots per MB.
+extern "C" int cavlc_p_slots_i_launch(const int* mv, const int* luma, const int* cb_dc,
+                                      const int* cb_ac, const int* cr_dc, const int* cr_ac,
+                                      const int* i16_dc, const int* i16_ac,
+                                      const uint8_t* mb_intra, int* values, int* lengths,
+                                      int* hdr_vals, int* hdr_lens, int* trail_vals,
+                                      int* trail_lens, uint8_t* nnz, int* scratch, int nr,
+                                      int nc, cudaStream_t stream) {
+  const int nmb = nr * nc;
+  if (nmb <= 0) return 0;
+  const PLevels L{mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, i16_dc, i16_ac, mb_intra};
+  p_info_kernel<true><<<(nmb + 127) / 128, 128, 0, stream>>>(L, scratch, nnz, nmb);
+  int e = dngd_last_error();
+  if (e) return e;
+  const int n = nmb * (P_BLOCKS + 2);
+  p_slots_kernel<true><<<(n + 127) / 128, 128, 0, stream>>>(
+      L, scratch, values, lengths, hdr_vals, hdr_lens, trail_vals, trail_lens, nmb, nc);
+  return dngd_last_error();
+}
+
+// After the slot coder of `kind` (0 intra, 1 P) on the same stream and
+// scratch: flag is mb_i4 (intra) or mb_intra (P, may be null); vals/lens
+// the MB syntax or header slots; qp_sum one int; qp_dev the slice qp on
+// the card, or null for slice_qp.
+extern "C" int cavlc_qp_chain_launch(const int* qp_map, const uint8_t* flag, const int* scratch,
+                                     int* vals, int* lens, int* qp_sum, const int* qp_dev,
+                                     int nr, int nc, int slice_qp, int kind,
+                                     cudaStream_t stream) {
+  if (nr <= 0 || nc <= 0) return 0;
+  if (!kind && !flag) return cudaErrorInvalidValue;
+  int e;
+  if ((e = cudaMemsetAsync(qp_sum, 0, sizeof(int), stream))) return e;
+  const int threads = 128, rows_per_block = threads / 32;
+  qp_chain_kernel<<<(nr + rows_per_block - 1) / rows_per_block, threads, 0, stream>>>(
+      qp_map, flag, scratch, vals, lens, qp_sum, qp_dev, nr, nc, slice_qp, kind);
   return dngd_last_error();
 }

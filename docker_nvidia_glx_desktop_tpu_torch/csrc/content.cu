@@ -29,7 +29,9 @@
 // zero grid);
 // the recon is the chunk's last reference, so the SSE lands in slot K-1
 // only; the MV field and residuals are (K, ...) stacks.  One frame is
-// the K = 1 case.
+// the K = 1 case.  tune=hq's I16-in-P MBs (`mb_intra`, content_stats.py
+// :100-120) count as intra and never as skip: a template instance of
+// passes 1 and 3, chosen by whether the caller passes them.
 #include <climits>
 
 #include "common.cuh"
@@ -43,13 +45,14 @@ constexpr int SORT_THREADS = 1024;
 struct Optional {
   const uint8_t* recon;
   const int *mv, *luma, *cb_dc, *cb_ac, *cr_dc, *cr_ac;
+  const uint8_t* mb_intra;
   // frame k of K (n MBs each): the recon belongs to the last frame only
   __device__ Optional at(int k, int K, int n) const {
     const size_t m = (size_t)k * n;
     return Optional{k == K - 1 ? recon : nullptr, mv ? mv + 2 * m : nullptr,
                     luma ? luma + 256 * m : nullptr, cb_dc ? cb_dc + 4 * m : nullptr,
                     cb_ac ? cb_ac + 60 * m : nullptr, cr_dc ? cr_dc + 4 * m : nullptr,
-                    cr_ac ? cr_ac + 60 * m : nullptr};
+                    cr_ac ? cr_ac + 60 * m : nullptr, mb_intra ? mb_intra + m : nullptr};
   }
 };
 
@@ -57,10 +60,11 @@ struct Optional {
 // the frame's two counts, which sit after all frames' per-MB arrays so
 // that one memset clears every count
 struct Scratch {
-  int *act, *sse, *mag, *n_damage, *n_skip;
+  int *act, *sse, *mag, *n_damage, *n_skip, *n_intra;
   __device__ Scratch(int* s, int n, int k, int K)
       : act(s + (size_t)3 * n * k), sse(act + n), mag(act + 2 * n),
-        n_damage(s + (size_t)3 * n * K + 2 * k), n_skip(n_damage + 1) {}
+        n_damage(s + (size_t)3 * n * K + 3 * k), n_skip(n_damage + 1),
+        n_intra(n_damage + 2) {}
 };
 
 __device__ __forceinline__ bool any_nonzero(const int* a, int n, int lane) {
@@ -69,6 +73,7 @@ __device__ __forceinline__ bool any_nonzero(const int* a, int n, int lane) {
   return __any_sync(0xffffffffu, nz);
 }
 
+template <bool INTRA>
 __global__ void mb_reduce_kernel(const uint8_t* __restrict__ ys, const uint8_t* __restrict__ prev0,
                                  Optional OK, uint8_t* grids, int* scratch, int nr, int nc,
                                  int thr_sad) {
@@ -120,7 +125,13 @@ __global__ void mb_reduce_kernel(const uint8_t* __restrict__ ys, const uint8_t* 
       const float fy = (float)O.mv[mb * 2], fx = (float)O.mv[mb * 2 + 1];
       S.mag[mb] = __float_as_int(__fsqrt_rn(__fadd_rn(__fmul_rn(fy, fy), __fmul_rn(fx, fx))));
       const bool zero_mv = O.mv[mb * 2] == 0 && O.mv[mb * 2 + 1] == 0;
-      if (O.luma && !coded && zero_mv) atomicAdd(S.n_skip, 1);
+      if constexpr (INTRA) {
+        const bool intra = O.mb_intra[mb] != 0;
+        if (O.luma && intra) atomicAdd(S.n_intra, 1);
+        if (O.luma && !coded && zero_mv && !intra) atomicAdd(S.n_skip, 1);
+      } else {
+        if (O.luma && !coded && zero_mv) atomicAdd(S.n_skip, 1);
+      }
     }
   }
 }
@@ -174,6 +185,7 @@ __global__ void __launch_bounds__(SORT_THREADS) sort_pct_kernel(
 
 // The recon / MV / mode slots, after sort_pct_kernel on the same stream;
 // one block per frame.
+template <bool INTRA>
 __global__ void __launch_bounds__(SORT_THREADS) extras_kernel(
     int* scratch, Optional OK, float* vecs, int n, int n_pad) {
   extern __shared__ int s[];
@@ -213,9 +225,15 @@ __global__ void __launch_bounds__(SORT_THREADS) extras_kernel(
     }
     if (O.recon) vec[0] = (float)sse_tot;
     if (O.luma) {
-      vec[2] = (float)*S.n_skip;
-      vec[3] = (float)(n - *S.n_skip);
-      vec[4] = 0.0f;
+      if constexpr (INTRA) {
+        vec[2] = (float)*S.n_skip;
+        vec[3] = (float)(n - *S.n_intra - *S.n_skip);
+        vec[4] = (float)*S.n_intra;
+      } else {
+        vec[2] = (float)*S.n_skip;
+        vec[3] = (float)(n - *S.n_skip);
+        vec[4] = 0.0f;
+      }
     }
     if (O.mv) {
       vec[5] = (float)(mag_tot / n);
@@ -224,37 +242,50 @@ __global__ void __launch_bounds__(SORT_THREADS) extras_kernel(
   }
 }
 
-}  // namespace
-
-// ys (K, H, W); prev the luma before slot 0 (null: no damage); recon the
-// last slot's; mv and the residuals (K, ...) stacks or null; vecs (K, 10),
-// grids (K, R, C), scratch 3 * K * R * C + 2 * K ints.
-extern "C" int chunk_stats_launch(const uint8_t* ys, const uint8_t* prev, const uint8_t* recon,
-                                  const int* mv, const int* luma, const int* cb_dc,
-                                  const int* cb_ac, const int* cr_dc, const int* cr_ac,
-                                  float* vecs, uint8_t* grids, int* scratch, int K, int nr,
-                                  int nc, int thr_sad, cudaStream_t stream) {
+template <bool INTRA>
+int stats_launch(const uint8_t* ys, const uint8_t* prev, const Optional& O, float* vecs,
+                 uint8_t* grids, int* scratch, int K, int nr, int nc, int thr_sad,
+                 cudaStream_t stream) {
   const int n = nr * nc;
-  if (n <= 0 || n > (1 << 15) || K <= 0) return cudaErrorInvalidValue;
   int n_pad = 1;
   while (n_pad < n) n_pad <<= 1;
-  const Optional O{recon, mv, luma, cb_dc, cb_ac, cr_dc, cr_ac};
   int e;
-  if ((e = cudaMemsetAsync(scratch + (size_t)3 * n * K, 0, 2 * K * sizeof(int), stream)))
+  if ((e = cudaMemsetAsync(scratch + (size_t)3 * n * K, 0, 3 * K * sizeof(int), stream)))
     return e;
-  mb_reduce_kernel<<<dim3((n + MBS_PER_BLOCK - 1) / MBS_PER_BLOCK, K), 32 * MBS_PER_BLOCK, 0,
-                     stream>>>(ys, prev, O, grids, scratch, nr, nc, thr_sad);
+  mb_reduce_kernel<INTRA><<<dim3((n + MBS_PER_BLOCK - 1) / MBS_PER_BLOCK, K),
+                            32 * MBS_PER_BLOCK, 0, stream>>>(ys, prev, O, grids, scratch, nr,
+                                                             nc, thr_sad);
   if ((e = dngd_last_error())) return e;
   const size_t smem = sizeof(int) * n_pad;
   if (smem > 46 * 1024 &&
       ((e = cudaFuncSetAttribute(sort_pct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem)) ||
-       (e = cudaFuncSetAttribute(extras_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem))))
+       (e = cudaFuncSetAttribute(extras_kernel<INTRA>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))))
     return e;
   sort_pct_kernel<<<K, SORT_THREADS, smem, stream>>>(scratch, prev != nullptr, vecs, n, n_pad);
   if ((e = dngd_last_error())) return e;
-  if (!recon && !mv) return 0;
-  extras_kernel<<<K, SORT_THREADS, smem, stream>>>(scratch, O, vecs, n, n_pad);
+  if (!O.recon && !O.mv) return 0;
+  extras_kernel<INTRA><<<K, SORT_THREADS, smem, stream>>>(scratch, O, vecs, n, n_pad);
   return dngd_last_error();
+}
+
+}  // namespace
+
+// ys (K, H, W); prev the luma before slot 0 (null: no damage); recon the
+// last slot's; mv and the residuals (K, ...) stacks or null; mb_intra the
+// (K, R, C) I16-in-P flags or null; vecs (K, 10), grids (K, R, C),
+// scratch 3 * K * R * C + 3 * K ints.
+extern "C" int chunk_stats_launch(const uint8_t* ys, const uint8_t* prev, const uint8_t* recon,
+                                  const int* mv, const int* luma, const int* cb_dc,
+                                  const int* cb_ac, const int* cr_dc, const int* cr_ac,
+                                  const uint8_t* mb_intra, float* vecs, uint8_t* grids,
+                                  int* scratch, int K, int nr, int nc, int thr_sad,
+                                  cudaStream_t stream) {
+  const int n = nr * nc;
+  if (n <= 0 || n > (1 << 15) || K <= 0) return cudaErrorInvalidValue;
+  const Optional O{recon, mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, mb_intra};
+  if (mb_intra)
+    return stats_launch<true>(ys, prev, O, vecs, grids, scratch, K, nr, nc, thr_sad, stream);
+  return stats_launch<false>(ys, prev, O, vecs, grids, scratch, K, nr, nc, thr_sad, stream);
 }

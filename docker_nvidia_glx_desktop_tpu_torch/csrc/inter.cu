@@ -30,6 +30,21 @@
 // band's, because the kernel reads the whole reference either way.
 // With `qp_dev` the slice qp (and its QPc) is read from device memory,
 // so a captured CUDA graph takes each chunk's qp without a new capture.
+//
+// tune=hq (h264_inter.py:346-366, the TIER template parameter: 1
+// hq_noaq, 2 hq with the qp plane): the motion margins become
+// (int)(lam_mv * bits) per qp (host tables, :388-393, :444-447, :480-483,
+// :545-548), TIER 2 quantises at the MB's qp, and a zero-MV MB whose
+// skip SSD is at most its coded SSD + lam * (bits + 12) is coded as
+// P_Skip (:651-686: levels zeroed, the recon is the prediction), the
+// float32 sums and the fused multiply-add in the reference's order.
+// With I16-in-P (:688-782) two more launches follow: every MB's I16 DC
+// candidate from its left neighbour's skip-merged inter recon (written by
+// this kernel) scored against the inter score this kernel leaves, then
+// per MB row the run-parity gate (one warp a row, a cummax scan) and a
+// block per MB merging the kept candidates' levels, MVs and recon.
+#include <type_traits>
+
 #include "common.cuh"
 #include "transform.cuh"
 
@@ -69,6 +84,22 @@ struct Smem {
   int cdcc[2][4];             // dequantised chroma DC after it
 };
 
+// tune=hq: the residual kept in shared memory until the forced-skip
+// decision
+struct SmemHq : Smem {
+  int hlv[16][16];            // luma levels, raster coefficient order
+  int hrec[256];
+  int hcac[2][4][16];         // chroma AC levels (DC position 0)
+  int hdcl[2][4];
+  int hrecc[2][64];
+  int hbits[24], hbits_dc[2];
+  int hssd_c[24], hssd_s[24]; // coded / skip SSD per 4x4 block
+  int force;
+};
+
+template <int TIER>
+using SmemT = typename std::conditional<TIER == 0, Smem, SmemHq>::type;
+
 __device__ __forceinline__ int clip255(int v) { return min(max(v, 0), 255); }
 
 // 6-tap (1, -5, 20, 20, -5, 1) over six samples, unrounded
@@ -76,14 +107,16 @@ __device__ __forceinline__ int tap6(int a, int b, int c, int d, int e, int f) {
   return a - 5 * b + 20 * c + 20 * d - 5 * e + f;
 }
 
-__device__ __forceinline__ int b1_at(const Smem& s, int u, int v) {
+template <class S>
+__device__ __forceinline__ int b1_at(const S& s, int u, int v) {
   return tap6(s.win[u][v - 2], s.win[u][v - 1], s.win[u][v], s.win[u][v + 1],
               s.win[u][v + 2], s.win[u][v + 3]);
 }
 
 // sample of plane p at window position (u, v): full, half right (b),
 // half below (h), or the centre (j, vertical 6-tap over unrounded b1)
-__device__ int plane_sample(const Smem& s, int p, int u, int v) {
+template <class S>
+__device__ int plane_sample(const S& s, int p, int u, int v) {
   switch (p) {
     case 0:
       return s.win[u][v];
@@ -100,7 +133,8 @@ __device__ int plane_sample(const Smem& s, int p, int u, int v) {
 }
 
 // quarter-fraction sample at integer offset (ry, rx) from mv_int
-__device__ __forceinline__ int qsample(const Smem& s, int ry, int rx, int fy, int fx, int i,
+template <class S>
+__device__ __forceinline__ int qsample(const S& s, int ry, int rx, int fy, int fx, int i,
                                        int j) {
   const int* q = c_qpel[fy * 4 + fx];
   const int a = s.pl[q[1]][1 + ry + q[2] + i][1 + rx + q[3] + j];
@@ -111,8 +145,8 @@ __device__ __forceinline__ int qsample(const Smem& s, int ry, int rx, int fy, in
 // SADs of n candidates over the even lines of the MB: 16 threads per
 // candidate (one column each), 16 candidates per pass.  f(k, i, j) is
 // candidate k's prediction at MB row i, column j.
-template <class F>
-__device__ void stage_sads(Smem& s, int n, F f) {
+template <class S, class F>
+__device__ void stage_sads(S& s, int n, F f) {
   const int t = threadIdx.x, j = t & 15;
   for (int base = 0; base < n; base += NT / 16) {
     const int k = base + (t >> 4);
@@ -132,14 +166,140 @@ __device__ __forceinline__ int first_argmin(const int* a, int n) {
   return best;
 }
 
+// tune=hq's residual: computed into shared memory, then the forced skip,
+// then the outputs; score_out (I16-in-P) gets the inter candidate's score.
+template <class S>
+__device__ void hq_residual(S& s, int mb, int orow, int c, int W, int Wc, int qm, float lam,
+                            int* luma, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac,
+                            uint8_t* ry, uint8_t* rcb, uint8_t* rcr, float* score_out) {
+  const int t = threadIdx.x;
+  const Qp Q(qm, false), QC(dngd_chroma_qp(qm), false);
+  int blk[16], w[16], lv[16], rec[16];
+  const int p = (t - 16) >> 2, q = (t - 16) & 3;      // chroma plane, block
+  if (t < 16) {
+    const int bx = c_blk_x[t], by = c_blk_y[t];
+    for (int k = 0; k < 16; ++k) {
+      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
+      blk[k] = s.cur[i * 16 + j] - s.pred[i * 16 + j];
+    }
+    fdct4(blk, w);
+    for (int k = 0; k < 16; ++k) lv[k] = Q.q(w[k], k);
+    for (int k = 0; k < 16; ++k) s.hlv[t][k] = lv[k];
+    s.hbits[t] = level_bits(lv);
+    for (int k = 0; k < 16; ++k) w[k] = Q.dq(lv[k], k);
+    idct4(w, rec);
+    int sc = 0, ss = 0;
+    for (int k = 0; k < 16; ++k) {
+      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
+      const int cur = s.cur[i * 16 + j], pr = s.pred[i * 16 + j];
+      const int v = clip255(pr + rec[k]);
+      s.hrec[i * 16 + j] = v;
+      sc += (v - cur) * (v - cur);
+      ss += (pr - cur) * (pr - cur);
+    }
+    s.hssd_c[t] = sc;
+    s.hssd_s[t] = ss;
+  } else if (t < 24) {
+    const int bx = q & 1, by = q >> 1;
+    for (int k = 0; k < 16; ++k) {
+      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
+      blk[k] = s.curc[p][i * 8 + j] - s.predc[p][i * 8 + j];
+    }
+    fdct4(blk, w);
+    s.cdc[p][q] = w[0];
+    lv[0] = 0;
+    for (int k = 1; k < 16; ++k) lv[k] = QC.q(w[k], k);
+    for (int k = 0; k < 16; ++k) s.hcac[p][q][k] = lv[k];
+    s.hbits[t] = level_bits(lv);
+  }
+  __syncthreads();
+  if (t == 16 || t == 20) {             // 2x2 DC Hadamard, one per plane
+    int hd[4], dcl[4], f[4];
+    had2(s.cdc[p], hd);
+    for (int k = 0; k < 4; ++k) dcl[k] = s.hdcl[p][k] = QC.q_dc(hd[k]);
+    s.hbits_dc[p] = level_bits(dcl, 4);
+    had2(dcl, f);
+    for (int k = 0; k < 4; ++k) s.cdcc[p][k] = ((f[k] * c_v[0][QC.m]) << QC.s) >> 1;
+  }
+  __syncthreads();
+  if (t >= 16 && t < 24) {
+    const int bx = q & 1, by = q >> 1;
+    for (int k = 1; k < 16; ++k) w[k] = QC.dq(lv[k], k);
+    w[0] = s.cdcc[p][q];
+    idct4(w, rec);
+    int sc = 0, ss = 0;
+    for (int k = 0; k < 16; ++k) {
+      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
+      const int cur = s.curc[p][i * 8 + j], pr = s.predc[p][i * 8 + j];
+      const int v = clip255(pr + rec[k]);
+      s.hrecc[p][i * 8 + j] = v;
+      sc += (v - cur) * (v - cur);
+      ss += (pr - cur) * (pr - cur);
+    }
+    s.hssd_c[t] = sc;
+    s.hssd_s[t] = ss;
+  }
+  __syncthreads();
+  if (t == 0) {
+    int bits = s.hbits_dc[0] + s.hbits_dc[1];
+    for (int k = 0; k < 24; ++k) bits += s.hbits[k];
+    int yc = 0, ys = 0, bc = 0, bs = 0, rc = 0, rs = 0;
+    for (int k = 0; k < 16; ++k) {
+      yc += s.hssd_c[k];
+      ys += s.hssd_s[k];
+    }
+    for (int k = 16; k < 20; ++k) {
+      bc += s.hssd_c[k];
+      bs += s.hssd_s[k];
+      rc += s.hssd_c[k + 4];
+      rs += s.hssd_s[k + 4];
+    }
+    // (Y + Cb) + Cr in float32; d_skip <= d_coded + lam * (bits + 12)
+    const float d_coded = __fadd_rn(__fadd_rn((float)yc, (float)bc), (float)rc);
+    const float d_skip = __fadd_rn(__fadd_rn((float)ys, (float)bs), (float)rs);
+    const float coded = __fmaf_rn(lam, __fadd_rn((float)bits, 12.0f), d_coded);
+    const bool force = s.mv[0] == 0 && s.mv[1] == 0 && d_skip <= coded;
+    s.force = force;
+    if (score_out) score_out[mb] = force ? __fadd_rn(d_skip, lam) : coded;
+  }
+  __syncthreads();
+  const bool force = s.force;
+  if (t < 16) {
+    const int bx = c_blk_x[t], by = c_blk_y[t];
+    for (int k = 0; k < 16; ++k) luma[(mb * 16 + t) * 16 + k] = force ? 0 : s.hlv[t][c_zz[k]];
+    for (int k = 0; k < 16; ++k) {
+      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
+      ry[(orow * 16 + i) * W + c * 16 + j] =
+          (uint8_t)(force ? s.pred[i * 16 + j] : s.hrec[i * 16 + j]);
+    }
+  } else if (t < 24) {
+    const int bx = q & 1, by = q >> 1;
+    int* ac = p ? cr_ac : cb_ac;
+    for (int k = 1; k < 16; ++k) ac[(mb * 4 + q) * 15 + k - 1] = force ? 0 : s.hcac[p][q][c_zz[k]];
+    uint8_t* rc = p ? rcr : rcb;
+    for (int k = 0; k < 16; ++k) {
+      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
+      rc[(orow * 8 + i) * Wc + c * 8 + j] =
+          (uint8_t)(force ? s.predc[p][i * 8 + j] : s.hrecc[p][i * 8 + j]);
+    }
+    if (q == 0) {
+      int* dc = p ? cr_dc : cb_dc;
+      for (int k = 0; k < 4; ++k) dc[mb * 4 + k] = force ? 0 : s.hdcl[p][k];
+    }
+  }
+}
+
+template <int TIER>
 __global__ void __launch_bounds__(NT) inter_frame_kernel(
     const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
     const uint8_t* __restrict__ cr, const uint8_t* __restrict__ ref_y,
     const uint8_t* __restrict__ ref_cb, const uint8_t* __restrict__ ref_cr,
-    const int* __restrict__ rows, const int* __restrict__ qp_dev, int* mv_out, int* luma,
+    const int* __restrict__ rows, const int* __restrict__ qp_dev,
+    const int* __restrict__ qp_map, const float* __restrict__ lam_tab,
+    const int* __restrict__ marg, float* score_out, int* mv_out, int* luma,
     int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr,
     int nr, int nc, int qp, int qpc) {
-  __shared__ Smem s;
+  __shared__ SmemT<TIER> s;
   const int t = threadIdx.x;
   // mb: the output MB (compacted order); r: the frame MB row it encodes
   const int mb = blockIdx.x, orow = mb / nc, c = mb % nc;
@@ -149,6 +309,15 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
     qpc = dngd_chroma_qp(qp);
   }
   const int H = nr * 16, W = nc * 16, Hc = nr * 8, Wc = nc * 8;
+  // tune=hq: the MB's qp (the qp plane's under the full tier) and the
+  // lambda-scaled motion margins at it
+  const int qm = TIER == 2 ? qp_map[mb] : qp;
+  int zb = ZERO_MV_BIAS / 2, hb = HALF_BIAS / SCALE, qb = QUARTER_BIAS / SCALE;
+  if constexpr (TIER != 0) {
+    zb = marg[qm];
+    hb = marg[52 + qm];
+    qb = marg[104 + qm];
+  }
 
   for (int k = t; k < WIN * WIN; k += NT) {
     const int u = k / WIN, v = k % WIN;
@@ -169,7 +338,7 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
     return s.win[i + WO - 8 + 2 * (k / 9)][j + WO - 8 + 2 * (k % 9)];
   });
   if (t == 0) {
-    s.sads[40] -= ZERO_MV_BIAS / 2;
+    s.sads[40] -= zb;
     const int b = first_argmin(s.sads, 81);
     s.mvc[0] = -8 + 2 * (b / 9);
     s.mvc[1] = -8 + 2 * (b % 9);
@@ -183,7 +352,7 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
     return s.win[i + WO + cy + oy][j + WO + cx + ox];
   });
   if (t == 0) {
-    if (cy == 0 && cx == 0) s.sads[0] -= ZERO_MV_BIAS / SCALE;
+    if (cy == 0 && cx == 0) s.sads[0] -= zb;
     const int b = first_argmin(s.sads, 9);
     s.best_sad = s.sads[b];
     s.mvi[0] = cy + (b ? c_nb[b - 1][0] : 0);
@@ -207,7 +376,7 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
   });
   if (t == 0) {
     const int b = first_argmin(s.sads, 8);
-    const bool use = s.sads[b] + HALF_BIAS / SCALE < s.best_sad;
+    const bool use = s.sads[b] + hb < s.best_sad;
     s.mvh[0] = 2 * iy + (use ? c_nb[b][0] : 0);
     s.mvh[1] = 2 * ix + (use ? c_nb[b][1] : 0);
     s.sad_h = use ? s.sads[b] : s.best_sad;
@@ -222,7 +391,7 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
   });
   if (t == 0) {
     const int b = first_argmin(s.sads, 8);
-    const bool use = s.sads[b] + QUARTER_BIAS / SCALE < s.sad_h;
+    const bool use = s.sads[b] + qb < s.sad_h;
     s.mv[0] = 2 * s.mvh[0] + (use ? c_nb[b][0] : 0);
     s.mv[1] = 2 * s.mvh[1] + (use ? c_nb[b][1] : 0);
     mv_out[mb * 2] = s.mv[0];
@@ -248,6 +417,12 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
                      (8 - xf) * yf * rp[y1 * Wc + x0] + xf * yf * rp[y1 * Wc + x1] + 32) >> 6;
   }
   __syncthreads();
+
+  if constexpr (TIER != 0) {
+    hq_residual(s, mb, orow, c, W, Wc, qm, lam_tab[qm], luma, cb_dc, cb_ac, cr_dc, cr_ac, ry,
+                rcb, rcr, score_out);
+    return;
+  }
 
   // --- residual: 16 luma blocks (threads 0-15), 8 chroma (16-23) ---------
   const Qp Q(qp, false), QC(qpc, false);
@@ -305,6 +480,212 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
   }
 }
 
+// --- I16-in-P, pass 2: every MB's I16 DC candidate -----------------------
+
+constexpr int NT_I = 64;
+
+struct I16Smem {
+  int cur[256], curc[2][64];
+  int yl[16], cl[2][8];        // the left MB's skip-merged inter recon
+  int dcraw[16], ac[16][16], bits_ac[16];
+  int dcl[16], dcy[16], bits_dc;
+  int rec[256];
+  int dcrawc[2][4], acc[2][4][16], dclc[2][4], dcc[2][4], bits_c[8], bits_cdc[2];
+  int recc[2][64];
+  int ssd[24];
+};
+
+template <int TIER>
+__global__ void __launch_bounds__(NT_I) inter_i16_kernel(
+    const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
+    const uint8_t* __restrict__ cr, const uint8_t* __restrict__ ry,
+    const uint8_t* __restrict__ rcb, const uint8_t* __restrict__ rcr,
+    const int* __restrict__ qp_dev, const int* __restrict__ qp_map,
+    const float* __restrict__ lam_tab, const float* __restrict__ score_inter, uint8_t* want,
+    int* i16_dc, int* cand_ac, int* cand_cac, int* cand_cdc, uint8_t* cand_ry,
+    uint8_t* cand_rc, int nc, int qp) {
+  __shared__ I16Smem s;
+  const int mb = blockIdx.x, r = mb / nc, c = mb % nc, t = threadIdx.x;
+  const int W = nc * 16, Wc = nc * 8;
+  if (qp_dev) qp = *qp_dev;
+  const int qm = TIER == 2 ? qp_map[mb] : qp;
+  const Qp Q(qm), QC(dngd_chroma_qp(qm));
+  const bool has_left = c > 0;
+  for (int i = t; i < 256; i += NT_I) s.cur[i] = y[(r * 16 + (i >> 4)) * W + c * 16 + (i & 15)];
+  for (int i = t; i < 128; i += NT_I) {
+    const int p = i >> 6, k = i & 63;
+    s.curc[p][k] = (p ? cr : cb)[(r * 8 + (k >> 3)) * Wc + c * 8 + (k & 7)];
+  }
+  if (t < 16) {
+    s.yl[t] = has_left ? ry[(r * 16 + t) * W + c * 16 - 1] : 0;
+  } else if (t < 32) {
+    const int p = (t - 16) >> 3, k = (t - 16) & 7;
+    s.cl[p][k] = has_left ? (p ? rcr : rcb)[(r * 8 + k) * Wc + c * 8 - 1] : 0;
+  }
+  __syncthreads();
+  int pred_dc = 128;
+  if (has_left) {
+    int sum = 0;
+    for (int i = 0; i < 16; ++i) sum += s.yl[i];
+    pred_dc = (sum + 8) >> 4;
+  }
+  const int p = (t - 16) >> 2, q = (t - 16) & 3;
+  int cpred = 128;
+  if (t >= 16 && t < 24 && has_left) {
+    const int* l = s.cl[p] + 4 * (q >> 1);
+    cpred = (l[0] + l[1] + l[2] + l[3] + 2) >> 2;
+  }
+  int x[16], w[16];
+  if (t < 16) {
+    const int by = t >> 2, bx = t & 3;
+    for (int i = 0; i < 16; ++i) x[i] = s.cur[(by * 4 + (i >> 2)) * 16 + bx * 4 + (i & 3)] - pred_dc;
+    fdct4(x, w);
+    s.dcraw[t] = w[0];
+    s.ac[t][0] = 0;
+    for (int i = 1; i < 16; ++i) s.ac[t][i] = Q.q(w[i], i);
+    s.bits_ac[t] = level_bits(s.ac[t]);
+  } else if (t < 24) {
+    const int by = q >> 1, bx = q & 1;
+    for (int i = 0; i < 16; ++i)
+      x[i] = s.curc[p][(by * 4 + (i >> 2)) * 8 + bx * 4 + (i & 3)] - cpred;
+    fdct4(x, w);
+    s.dcrawc[p][q] = w[0];
+    s.acc[p][q][0] = 0;
+    for (int i = 1; i < 16; ++i) s.acc[p][q][i] = QC.q(w[i], i);
+    s.bits_c[t - 16] = level_bits(s.acc[p][q]);
+  }
+  __syncthreads();
+  if (t == 0) {
+    int wd2[16], fd[16];
+    had4(s.dcraw, wd2);
+    for (int i = 0; i < 16; ++i) {
+      const int a = abs(wd2[i]) >> 1;
+      s.dcl[i] = Q.q_dc(wd2[i] < 0 ? -a : a);
+    }
+    s.bits_dc = level_bits(s.dcl);
+    had4(s.dcl, fd);
+    const int v00 = c_v[0][Q.m];
+    for (int i = 0; i < 16; ++i)
+      s.dcy[i] = qm >= 12 ? fd[i] * v00 * (1 << (Q.s - 2))
+                          : (fd[i] * v00 + (1 << (1 - Q.s))) >> (2 - Q.s);
+  } else if (t < 3) {
+    const int pc = t - 1;
+    int wd[4], fd[4];
+    had2(s.dcrawc[pc], wd);
+    for (int k = 0; k < 4; ++k) s.dclc[pc][k] = QC.q_dc(wd[k]);
+    s.bits_cdc[pc] = level_bits(s.dclc[pc], 4);
+    had2(s.dclc[pc], fd);
+    for (int k = 0; k < 4; ++k) s.dcc[pc][k] = (fd[k] * c_v[0][QC.m] * (1 << QC.s)) >> 1;
+  }
+  __syncthreads();
+  if (t < 16) {
+    const int by = t >> 2, bx = t & 3;
+    int wr[16], res[16], ssd = 0;
+    wr[0] = s.dcy[t];
+    for (int i = 1; i < 16; ++i) wr[i] = Q.dq(s.ac[t][i], i);
+    idct4(wr, res);
+    for (int i = 0; i < 16; ++i) {
+      const int k = (by * 4 + (i >> 2)) * 16 + bx * 4 + (i & 3);
+      const int v = min(max(pred_dc + res[i], 0), 255);
+      s.rec[k] = v;
+      ssd += (v - s.cur[k]) * (v - s.cur[k]);
+    }
+    s.ssd[t] = ssd;
+  } else if (t < 24) {
+    const int by = q >> 1, bx = q & 1;
+    int wr[16], res[16], ssd = 0;
+    wr[0] = s.dcc[p][q];
+    for (int i = 1; i < 16; ++i) wr[i] = QC.dq(s.acc[p][q][i], i);
+    idct4(wr, res);
+    for (int i = 0; i < 16; ++i) {
+      const int k = (by * 4 + (i >> 2)) * 8 + bx * 4 + (i & 3);
+      const int v = min(max(cpred + res[i], 0), 255);
+      s.recc[p][k] = v;
+      ssd += (v - s.curc[p][k]) * (v - s.curc[p][k]);
+    }
+    s.ssd[t] = ssd;
+  }
+  __syncthreads();
+  if (t == 0) {
+    int bits = s.bits_dc + s.bits_cdc[0] + s.bits_cdc[1];
+    for (int k = 0; k < 16; ++k) bits += s.bits_ac[k];
+    for (int k = 0; k < 8; ++k) bits += s.bits_c[k];
+    int sy = 0, sb = 0, sr = 0;
+    for (int k = 0; k < 16; ++k) sy += s.ssd[k];
+    for (int k = 16; k < 20; ++k) {
+      sb += s.ssd[k];
+      sr += s.ssd[k + 4];
+    }
+    // (Y + Cb) + Cr + lam * (bits + 11) against the inter score
+    const float d = __fadd_rn(__fadd_rn((float)sy, (float)sb), (float)sr);
+    const float si = __fmaf_rn(lam_tab[qm], __fadd_rn((float)bits, 11.0f), d);
+    want[mb] = si < score_inter[mb];
+  }
+  if (t < 16) i16_dc[mb * 16 + t] = s.dcl[c_zz[t]];
+  for (int i = t; i < 240; i += NT_I) {
+    const int blk = i / 15, k = i % 15 + 1;
+    cand_ac[mb * 240 + i] = s.ac[c_blk_y[blk] * 4 + c_blk_x[blk]][c_zz[k]];
+  }
+  for (int i = t; i < 120; i += NT_I) {
+    const int pc = i / 60, qc = (i % 60) / 15, k = i % 15 + 1;
+    cand_cac[mb * 120 + i] = s.acc[pc][qc][c_zz[k]];
+  }
+  if (t < 8) cand_cdc[mb * 8 + t] = s.dclc[t >> 2][t & 3];
+  for (int i = t; i < 256; i += NT_I) cand_ry[mb * 256 + i] = (uint8_t)s.rec[i];
+  for (int i = t; i < 128; i += NT_I) cand_rc[mb * 128 + i] = (uint8_t)s.recc[i >> 6][i & 63];
+}
+
+// --- I16-in-P, pass 3: run-parity gate, then the merge ---------------------
+
+// one warp per MB row: keep the even positions of each run of wanting MBs
+__global__ void i16_gate_kernel(const uint8_t* __restrict__ want, uint8_t* mb_intra, int nr,
+                                int nc) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (row >= nr) return;
+  const int per = (nc + 31) / 32, c0 = min(lane * per, nc), c1 = min(c0 + per, nc);
+  const uint8_t* wr = want + row * nc;
+  int last = -1;                          // the last non-wanting MB
+  for (int c = c0; c < c1; ++c)
+    if (!wr[c]) last = c;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, last, o);
+    if (lane >= o) last = max(last, v);
+  }
+  int ln = __shfl_up_sync(0xffffffffu, last, 1);
+  if (lane == 0) ln = -1;
+  for (int c = c0; c < c1; ++c) {
+    if (!wr[c]) ln = c;
+    mb_intra[row * nc + c] = wr[c] && ((c - ln - 1) % 2 == 0);
+  }
+}
+
+// one block per MB: a kept candidate replaces the inter MB's levels, MV
+// and recon; everywhere else the I16 outputs are zero
+__global__ void __launch_bounds__(NT) i16_merge_kernel(
+    const uint8_t* __restrict__ mb_intra, const int* __restrict__ cand_ac,
+    const int* __restrict__ cand_cac, const int* __restrict__ cand_cdc,
+    const uint8_t* __restrict__ cand_ry, const uint8_t* __restrict__ cand_rc, int* mv,
+    int* luma, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry, uint8_t* rcb,
+    uint8_t* rcr, int* i16_dc, int* i16_ac, int nc) {
+  const int mb = blockIdx.x, r = mb / nc, c = mb % nc, t = threadIdx.x;
+  const int W = nc * 16, Wc = nc * 8;
+  if (!mb_intra[mb]) {
+    if (t < 16) i16_dc[mb * 16 + t] = 0;
+    if (t < 240) i16_ac[mb * 240 + t] = 0;
+    return;
+  }
+  luma[mb * 256 + t] = 0;
+  if (t < 2) mv[mb * 2 + t] = 0;
+  if (t < 240) i16_ac[mb * 240 + t] = cand_ac[mb * 240 + t];
+  if (t < 120) ((t < 60) ? cb_ac : cr_ac)[mb * 60 + t % 60] = cand_cac[mb * 120 + t];
+  if (t < 8) ((t < 4) ? cb_dc : cr_dc)[mb * 4 + (t & 3)] = cand_cdc[mb * 8 + t];
+  ry[(r * 16 + (t >> 4)) * W + c * 16 + (t & 15)] = cand_ry[mb * 256 + t];
+  if (t < 128) {
+    const int p = t >> 6, k = t & 63;
+    (p ? rcr : rcb)[(r * 8 + (k >> 3)) * Wc + c * 8 + (k & 7)] = cand_rc[mb * 128 + t];
+  }
+}
+
 }  // namespace
 
 // rows: null for the whole frame (nb = nr), else nb MB rows (K5r).
@@ -316,8 +697,83 @@ extern "C" int inter_frame_launch(const uint8_t* y, const uint8_t* cb, const uin
                                   int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr, int nr,
                                   int nc, int nb, int qp, int qpc, cudaStream_t stream) {
   if (nr <= 0 || nc <= 0 || nb <= 0) return 0;
-  inter_frame_kernel<<<nb * nc, NT, 0, stream>>>(y, cb, cr, ref_y, ref_cb, ref_cr, rows,
-                                                 qp_dev, mv, luma, cb_dc, cb_ac, cr_dc, cr_ac,
-                                                 ry, rcb, rcr, nr, nc, qp, qpc);
+  inter_frame_kernel<0><<<nb * nc, NT, 0, stream>>>(
+      y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, nullptr, nullptr, nullptr, nullptr, mv,
+      luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+  return dngd_last_error();
+}
+
+// tune=hq, the whole frame: tier 1 (hq_noaq) or 2 (hq, qp_map the qp
+// plane); lam the tier's lambda table (52), marg its motion margins
+// (3 x 52); score (I16-in-P) the inter score per MB, or null.
+extern "C" int inter_frame_hq_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
+                                     const uint8_t* ref_y, const uint8_t* ref_cb,
+                                     const uint8_t* ref_cr, const int* qp_dev,
+                                     const int* qp_map, const float* lam, const int* marg,
+                                     int* mv, int* luma, int* cb_dc, int* cb_ac, int* cr_dc,
+                                     int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr,
+                                     float* score, int nr, int nc, int qp, int qpc, int tier,
+                                     cudaStream_t stream) {
+  if (nr <= 0 || nc <= 0) return 0;
+  if (tier == 2) {
+    if (!qp_map) return cudaErrorInvalidValue;
+    inter_frame_kernel<2><<<nr * nc, NT, 0, stream>>>(
+        y, cb, cr, ref_y, ref_cb, ref_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
+        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+  } else if (tier == 1) {
+    inter_frame_kernel<1><<<nr * nc, NT, 0, stream>>>(
+        y, cb, cr, ref_y, ref_cb, ref_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
+        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return dngd_last_error();
+}
+
+// I16-in-P pass 2, after inter_frame_hq_launch on the same stream: ry/rcb/
+// rcr its recon; cand_* per MB (16 x 15 luma AC, 2 x 4 x 15 chroma AC,
+// 2 x 4 chroma DC, 256 + 128 recon samples); i16_dc written for every MB.
+extern "C" int inter_i16_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
+                                const uint8_t* ry, const uint8_t* rcb, const uint8_t* rcr,
+                                const int* qp_dev, const int* qp_map, const float* lam,
+                                const float* score, uint8_t* want, int* i16_dc, int* cand_ac,
+                                int* cand_cac, int* cand_cdc, uint8_t* cand_ry,
+                                uint8_t* cand_rc, int nr, int nc, int qp, int qpc, int tier,
+                                cudaStream_t stream) {
+  (void)qpc;
+  if (nr <= 0 || nc <= 0) return 0;
+  if (tier == 2) {
+    if (!qp_map) return cudaErrorInvalidValue;
+    inter_i16_kernel<2><<<nr * nc, NT_I, 0, stream>>>(y, cb, cr, ry, rcb, rcr, qp_dev, qp_map,
+                                                      lam, score, want, i16_dc, cand_ac,
+                                                      cand_cac, cand_cdc, cand_ry, cand_rc, nc,
+                                                      qp);
+  } else if (tier == 1) {
+    inter_i16_kernel<1><<<nr * nc, NT_I, 0, stream>>>(y, cb, cr, ry, rcb, rcr, qp_dev, qp_map,
+                                                      lam, score, want, i16_dc, cand_ac,
+                                                      cand_cac, cand_cdc, cand_ry, cand_rc, nc,
+                                                      qp);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return dngd_last_error();
+}
+
+// I16-in-P pass 3: the gate (one warp a row) and the merge (a block an MB).
+extern "C" int inter_merge_launch(const uint8_t* want, int* i16_dc,
+                                  const int* cand_ac, const int* cand_cac, const int* cand_cdc,
+                                  const uint8_t* cand_ry, const uint8_t* cand_rc, int* mv,
+                                  int* luma, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac,
+                                  uint8_t* ry, uint8_t* rcb, uint8_t* rcr, uint8_t* mb_intra,
+                                  int* i16_ac, int nr, int nc, cudaStream_t stream) {
+  if (nr <= 0 || nc <= 0) return 0;
+  const int threads = 128, rows_per_block = threads / 32;
+  i16_gate_kernel<<<(nr + rows_per_block - 1) / rows_per_block, threads, 0, stream>>>(
+      want, mb_intra, nr, nc);
+  int e;
+  if ((e = dngd_last_error())) return e;
+  i16_merge_kernel<<<nr * nc, NT, 0, stream>>>(mb_intra, cand_ac, cand_cac, cand_cdc, cand_ry,
+                                               cand_rc, mv, luma, cb_dc, cb_ac, cr_dc, cr_ac,
+                                               ry, rcb, rcr, i16_dc, i16_ac, nc);
   return dngd_last_error();
 }

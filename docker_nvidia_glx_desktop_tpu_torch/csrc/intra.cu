@@ -3,7 +3,18 @@
 // normative reconstruction of one frame.
 //
 // Replaces docker_nvidia_glx_desktop_tpu/ops/h264_device.py:555
-// encode_intra_frame_yuv (i16_modes="auto", tune="off"); bit-exact with it.
+// encode_intra_frame_yuv (i16_modes="auto"); bit-exact with it.
+//
+// The tune tier is a template parameter: TIER 0 ("off") picks every mode
+// by estimated bits; 1 ("hq_noaq") and 2 ("hq") by the Lagrangian
+// SSD + lam * bits in float32 (h264_device.py:99-135, :225-262), every
+// candidate reconstructed for its SSD, illegal I4 candidates +inf, the
+// first minimum kept, and the multiply-adds fused (__fmaf_rn) as XLA's
+// CPU backend fuses them; the I4 scores summed in the reference's order
+// (row 0 block by block, rows 1-3 a row's four blocks left to right).
+// TIER 2 quantises each MB at its qp from the qp plane (K14) and reads
+// lambda at it; TIER 1 at the slice qp.  I16 vs I4: bits4 + 44 < bits16,
+// or score4 + lam * 44 (fused under hq; hq_noaq's rounded constant).
 //
 // What bounds it: the dependency chain, not bytes or operations.  Every
 // MB row is its own slice, so rows are independent, but inside a row each
@@ -14,6 +25,8 @@
 // I4x4 rows 1-3: 4 blocks x 3 candidates), separated by __syncthreads.
 // Known limit: a 1080p frame has 68 MB rows, so 68 blocks run on 132 SMs
 // and each walks 120 MBs of ~20 barrier-separated stages.
+#include <type_traits>
+
 #include "common.cuh"
 #include "transform.cuh"
 
@@ -22,27 +35,13 @@ namespace {
 constexpr int NT = 64;               // threads per block (one MB row)
 constexpr int ILLEGAL = 1 << 30;     // bit estimate of an unavailable mode
 constexpr int I4_SIG_BITS = 44;      // I_NxN signalling bias vs I16
+constexpr float SCORE_CLAMP = 1e18f; // the reference's I4 score clamp
 
 // raster (by, bx) -> luma4x4BlkIdx
 __constant__ int c_raster_idx[16] = {0, 1, 4, 5, 2, 3, 6, 7,
                                      8, 9, 12, 13, 10, 11, 14, 15};
 __constant__ int c_mode_row0[3] = {1, 8, 2};    // H, HU, DC (left)
 __constant__ int c_mode_rows[3] = {0, 3, 7};    // V, DDL, VL
-
-// floor(log2(a)), a >= 1, as the reference computes it: XLA's float32
-// log2 on the CPU lands just below the integer at 8192 and 32768.
-__device__ __forceinline__ int flog2(int a) {
-  return 31 - __clz(a) - ((a == 8192 || a == 32768) ? 1 : 0);
-}
-
-__device__ int level_bits(const int* lv) {
-  int s = 0;
-  for (int k = 0; k < 16; ++k) {
-    const int a = abs(lv[k]);
-    if (a) s += 3 + 2 * flog2(a);
-  }
-  return s;
-}
 
 struct Smem {
   int ysrc[256];
@@ -74,7 +73,19 @@ struct Smem {
   int sel_h, use4;
 };
 
-__device__ void i4_finish(Smem& s, const Qp& Q, int k, int mode, int bx, int by) {
+// tune=hq's extra state: candidate SSDs and float32 scores
+struct SmemHq : Smem {
+  int ssd16[2][16];           // I16 [cand][raster block]
+  float cscore[12];           // I4 candidates
+  float bscore[4];            // rows 1-3: each block's kept score
+  float bits4f;               // the I4 score total
+};
+
+template <int TIER>
+using SmemT = typename std::conditional<TIER == 0, Smem, SmemHq>::type;
+
+template <class S>
+__device__ void i4_finish(S& s, const Qp& Q, int k, int mode, int bx, int by) {
   int wr[16], res[16];
   for (int i = 0; i < 16; ++i) wr[i] = Q.dq(s.clv[k][i], i);
   idct4(wr, res);
@@ -87,8 +98,9 @@ __device__ void i4_finish(Smem& s, const Qp& Q, int k, int mode, int bx, int by)
   for (int i = 0; i < 16; ++i) s.lvz4[rb][i] = s.clv[k][c_zz[i]];
 }
 
-__device__ void i4_candidate(Smem& s, const Qp& Q, int slot, int bx, int by,
-                             const int* pred, bool legal) {
+template <int TIER, class S>
+__device__ void i4_candidate(S& s, const Qp& Q, int slot, int bx, int by,
+                             const int* pred, bool legal, float lam) {
   int x[16], w[16];
   for (int i = 0; i < 16; ++i) {
     x[i] = s.ysrc[(by * 4 + (i >> 2)) * 16 + bx * 4 + (i & 3)] - pred[i];
@@ -97,18 +109,46 @@ __device__ void i4_candidate(Smem& s, const Qp& Q, int slot, int bx, int by,
   fdct4(x, w);
   for (int i = 0; i < 16; ++i) s.clv[slot][i] = Q.q(w[i], i);
   s.cbits[slot] = legal ? level_bits(s.clv[slot]) : ILLEGAL;
+  if constexpr (TIER != 0) {
+    // the candidate's reconstruction, for SSD + lam * bits
+    int wr[16], res[16], ssd = 0;
+    for (int i = 0; i < 16; ++i) wr[i] = Q.dq(s.clv[slot][i], i);
+    idct4(wr, res);
+    for (int i = 0; i < 16; ++i) {
+      const int d = min(max(pred[i] + res[i], 0), 255) - (pred[i] + x[i]);
+      ssd += d * d;
+    }
+    s.cscore[slot] = legal ? __fmaf_rn(lam, (float)s.cbits[slot], (float)ssd)
+                           : __int_as_float(0x7f800000);  // +inf
+  }
 }
 
+// first minimum of n candidate costs from k0, as argmin
+template <int TIER, class S>
+__device__ __forceinline__ int pick(const S& s, int k0, int n) {
+  int k = k0;
+  for (int j = k0 + 1; j < k0 + n; ++j) {
+    if constexpr (TIER == 0) {
+      if (s.cbits[j] < s.cbits[k]) k = j;
+    } else {
+      if (s.cscore[j] < s.cscore[k]) k = j;
+    }
+  }
+  return k;
+}
+
+template <int TIER>
 __global__ void __launch_bounds__(NT) intra_frame_kernel(
     const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
     const uint8_t* __restrict__ cr, int* luma_dc, int* luma_ac, int* cb_dc,
     int* cb_ac, int* cr_dc, int* cr_ac, int* pred_mode, uint8_t* mb_i4,
     int* i4_modes, int* luma_i4, uint8_t* ry, uint8_t* rcb, uint8_t* rcr,
-    int nc, int qp, int qpc) {
-  __shared__ Smem s;
+    const int* __restrict__ qp_map, const float* __restrict__ lam_tab,
+    const float* __restrict__ sig_tab, int nc, int qp, int qpc) {
+  __shared__ SmemT<TIER> s;
   const int r = blockIdx.x, t = threadIdx.x;
   const int W = nc * 16, Wc = nc * 8;
-  const Qp Q(qp), QC(qpc);
+  const Qp Q0(qp), QC0(qpc);
   uint8_t* const rc[2] = {rcb, rcr};
   int* const c_dc[2] = {cb_dc, cr_dc};
   int* const c_ac[2] = {cb_ac, cr_ac};
@@ -120,13 +160,21 @@ __global__ void __launch_bounds__(NT) intra_frame_kernel(
   for (int c = 0; c < nc; ++c) {
     const bool has_left = c > 0;
     const int mbi = r * nc + c;
+    // the MB's qp: the qp plane's under the full tier, else the slice's
+    const int qm = TIER == 2 ? qp_map[mbi] : qp;
+    const Qp Q = TIER == 2 ? Qp(qm) : Q0;
+    const Qp QC = TIER == 2 ? Qp(dngd_chroma_qp(qm)) : QC0;
+    const float lam = TIER != 0 ? lam_tab[qm] : 0.0f;
     for (int i = t; i < 256; i += NT)
       s.ysrc[i] = y[(r * 16 + (i >> 4)) * W + c * 16 + (i & 15)];
     for (int i = t; i < 128; i += NT) {
       const int p = i >> 6, k = i & 63;
       s.csrc[p][k] = (p ? cr : cb)[(r * 8 + (k >> 3)) * Wc + c * 8 + (k & 7)];
     }
-    if (t == 0) s.bits4 = 0;
+    if (t == 0) {
+      s.bits4 = 0;
+      if constexpr (TIER != 0) s.bits4f = 0.0f;
+    }
     __syncthreads();
 
     // --- I16 candidates and chroma: transform + AC quant -------------
@@ -178,7 +226,7 @@ __global__ void __launch_bounds__(NT) intra_frame_kernel(
       had4(dcl, fd);
       for (int i = 0; i < 16; ++i) {
         const int v00 = c_v[0][Q.m];
-        s.dcy[t][i] = qp >= 12 ? fd[i] * v00 * (1 << (Q.s - 2))
+        s.dcy[t][i] = qm >= 12 ? fd[i] * v00 * (1 << (Q.s - 2))
                                : (fd[i] * v00 + (1 << (1 - Q.s))) >> (2 - Q.s);
       }
     } else if (t < 4) {
@@ -212,6 +260,15 @@ __global__ void __launch_bounds__(NT) intra_frame_kernel(
         const int yy = by * 4 + (i >> 2);
         const int v = (cand ? s.yl[yy] : pred_dc) + res[i];
         s.rec16[cand][yy * 16 + bx * 4 + (i & 3)] = min(max(v, 0), 255);
+      }
+      if constexpr (TIER != 0) {
+        int ssd = 0;
+        for (int i = 0; i < 16; ++i) {
+          const int k = (by * 4 + (i >> 2)) * 16 + bx * 4 + (i & 3);
+          const int d = s.rec16[cand][k] - s.ysrc[k];
+          ssd += d * d;
+        }
+        s.ssd16[cand][b] = ssd;
       }
     } else if (t < 40) {
       const int p = (t - 32) >> 2, q = (t - 32) & 3, by = q >> 1, bx = q & 1;
@@ -251,15 +308,17 @@ __global__ void __launch_bounds__(NT) intra_frame_kernel(
           const int dc = avail ? (l[0] + l[1] + l[2] + l[3] + 2) >> 2 : 128;
           for (int i = 0; i < 16; ++i) pred[i] = dc;
         }
-        i4_candidate(s, Q, t, bx, 0, pred, t == 2 || avail);
+        i4_candidate<TIER>(s, Q, t, bx, 0, pred, t == 2 || avail, lam);
       }
       __syncthreads();
       if (t == 0) {
-        int k = 0;
-        for (int j = 1; j < 3; ++j)
-          if (s.cbits[j] < s.cbits[k]) k = j;
+        const int k = pick<TIER>(s, 0, 3);
         i4_finish(s, Q, k, c_mode_row0[k], bx, 0);
-        s.bits4 += min(s.cbits[k], 1 << 24);
+        if constexpr (TIER == 0) {
+          s.bits4 += min(s.cbits[k], 1 << 24);
+        } else {
+          s.bits4f = __fadd_rn(s.bits4f, fminf(s.cscore[k], SCORE_CLAMP));
+        }
       }
     }
 
@@ -291,15 +350,26 @@ __global__ void __launch_bounds__(NT) intra_frame_kernel(
                                : (p[j] + p[j + 1] + 1) >> 1;
           }
         }
-        i4_candidate(s, Q, t, bx, by, pred, true);
+        i4_candidate<TIER>(s, Q, t, bx, by, pred, true, lam);
       }
       __syncthreads();
       if (t < 4) {
-        int k = 3 * t;
-        for (int j = 1; j < 3; ++j)
-          if (s.cbits[3 * t + j] < s.cbits[k]) k = 3 * t + j;
+        const int k = pick<TIER>(s, 3 * t, 3);
         i4_finish(s, Q, k, c_mode_rows[k - 3 * t], t, by);
-        atomicAdd(&s.bits4, s.cbits[k]);
+        if constexpr (TIER == 0) {
+          atomicAdd(&s.bits4, s.cbits[k]);
+        } else {
+          s.bscore[t] = s.cscore[k];
+        }
+      }
+      if constexpr (TIER != 0) {
+        // the row's four scores, summed left to right as XLA reduces
+        __syncthreads();
+        if (t == 0)
+          s.bits4f = __fadd_rn(
+              s.bits4f,
+              __fadd_rn(__fadd_rn(__fadd_rn(s.bscore[0], s.bscore[1]), s.bscore[2]),
+                        s.bscore[3]));
       }
     }
     __syncthreads();
@@ -311,9 +381,24 @@ __global__ void __launch_bounds__(NT) intra_frame_kernel(
         b_dc += s.bits_ac[0][b];
         b_h += s.bits_ac[1][b];
       }
-      const bool use_h = has_left && b_h < b_dc;
-      s.sel_h = use_h;
-      s.use4 = s.bits4 + I4_SIG_BITS < (use_h ? b_h : b_dc);
+      if constexpr (TIER == 0) {
+        const bool use_h = has_left && b_h < b_dc;
+        s.sel_h = use_h;
+        s.use4 = s.bits4 + I4_SIG_BITS < (use_h ? b_h : b_dc);
+      } else {
+        int ssd_dc = 0, ssd_h = 0;
+        for (int b = 0; b < 16; ++b) {
+          ssd_dc += s.ssd16[0][b];
+          ssd_h += s.ssd16[1][b];
+        }
+        const float sc_dc = __fmaf_rn(lam, (float)b_dc, (float)ssd_dc);
+        const float sc_h = __fmaf_rn(lam, (float)b_h, (float)ssd_h);
+        const bool use_h = has_left && sc_h < sc_dc;
+        s.sel_h = use_h;
+        const float i4 = TIER == 2 ? __fmaf_rn(lam, (float)I4_SIG_BITS, s.bits4f)
+                                   : __fadd_rn(s.bits4f, sig_tab[qm]);
+        s.use4 = i4 < (use_h ? sc_h : sc_dc);
+      }
     }
     __syncthreads();
 
@@ -362,8 +447,32 @@ extern "C" int intra_frame_launch(
     uint8_t* rcb, uint8_t* rcr, int nr, int nc, int qp, int qpc,
     cudaStream_t stream) {
   if (nr <= 0 || nc <= 0) return 0;
-  intra_frame_kernel<<<nr, NT, 0, stream>>>(
+  intra_frame_kernel<0><<<nr, NT, 0, stream>>>(
       y, cb, cr, luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode,
-      mb_i4, i4_modes, luma_i4, ry, rcb, rcr, nc, qp, qpc);
+      mb_i4, i4_modes, luma_i4, ry, rcb, rcr, nullptr, nullptr, nullptr, nc, qp, qpc);
+  return dngd_last_error();
+}
+
+// tune=hq: tier 1 (hq_noaq) or 2 (hq, qp_map the qp plane); lam the
+// tier's lambda table (52 float32), sig hq_noaq's I4 signalling costs.
+extern "C" int intra_frame_hq_launch(
+    const uint8_t* y, const uint8_t* cb, const uint8_t* cr, int* luma_dc,
+    int* luma_ac, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac,
+    int* pred_mode, uint8_t* mb_i4, int* i4_modes, int* luma_i4, uint8_t* ry,
+    uint8_t* rcb, uint8_t* rcr, const int* qp_map, const float* lam, const float* sig,
+    int nr, int nc, int qp, int qpc, int tier, cudaStream_t stream) {
+  if (nr <= 0 || nc <= 0) return 0;
+  if (tier == 2) {
+    if (!qp_map) return cudaErrorInvalidValue;
+    intra_frame_kernel<2><<<nr, NT, 0, stream>>>(
+        y, cb, cr, luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode,
+        mb_i4, i4_modes, luma_i4, ry, rcb, rcr, qp_map, lam, sig, nc, qp, qpc);
+  } else if (tier == 1) {
+    intra_frame_kernel<1><<<nr, NT, 0, stream>>>(
+        y, cb, cr, luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode,
+        mb_i4, i4_modes, luma_i4, ry, rcb, rcr, qp_map, lam, sig, nc, qp, qpc);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return dngd_last_error();
 }

@@ -10,7 +10,9 @@
 // K7 replaces ops/cavlc_p_device.py:298 pack_p_frame.
 // The bytes up to META_WORDS*4 + 4*total_words equal the reference's, and
 // the overflow flag trips at the same caps (256-bit block and MB syntax
-// or header, 2048-bit MB, FLAT_CAP_WORDS in all).
+// or header, 2048-bit MB, FLAT_CAP_WORDS in all).  tune=hq: the frame's
+// qp sum, when given, goes to META_QP_SUM_WORD (cavlc_device.py:707-708),
+// and K7 takes the I16-in-P layout of 27 blocks (a template instance).
 //
 // What bounds it: bytes.  It reads the slot arrays once (~60 MB at 1080p)
 // and writes ~0.5 MB.  No merge tree: per-MB bit counts (one thread per
@@ -35,8 +37,10 @@ struct Layout {
 };
 using ILayout = Layout<27, 20>;
 using PLayout = Layout<26, 7>;
+using PILayout = Layout<27, 7>;      // P with the I16-in-P DC block (tune=hq)
 constexpr int BLOCK_CAP = 256, MB_CAP = 2048;
 constexpr int META_WORDS = 1024, MAX_META_ROWS = 510;
+constexpr int META_QP_SUM_WORD = 2 + 2 * MAX_META_ROWS;
 constexpr int FLAT_CAP_WORDS = 1 << 17;
 constexpr int FLAT_BYTES = 4 * (META_WORDS + FLAT_CAP_WORDS);
 
@@ -96,7 +100,7 @@ __global__ void row_scan_kernel(const int* hdr_lens, const int* run_lens, Scratc
   S.row_bytes[r] = (off + pad + 1) / 8;
 }
 
-__global__ void meta_kernel(Scratch S, uint8_t* flat, int nr) {
+__global__ void meta_kernel(Scratch S, uint8_t* flat, int nr, const int* qp_sum) {
   unsigned* meta = reinterpret_cast<unsigned*>(flat);
   long long total = 0;
   for (int r = 0; r < nr; ++r) {
@@ -108,6 +112,7 @@ __global__ void meta_kernel(Scratch S, uint8_t* flat, int nr) {
   const bool ovf = S.flags[0] != 0 || total > FLAT_CAP_WORDS;
   meta[0] = bswap(ovf ? 1u : 0u);
   meta[1] = bswap((unsigned)total);
+  if (qp_sum) meta[META_QP_SUM_WORD] = bswap((unsigned)*qp_sum);
 }
 
 __device__ __forceinline__ void or_word(unsigned* words, long long k, unsigned x) {
@@ -167,8 +172,8 @@ __global__ void scatter_kernel(const int* values, const int* lengths, const int*
 template <class Y>
 int pack_launch(const int* values, const int* lengths, const int* syn_vals, const int* syn_lens,
                 const int* run_vals, const int* run_lens, const int* hdr_vals,
-                const int* hdr_lens, uint8_t* flat, int* scratch, int nr, int nc,
-                cudaStream_t stream) {
+                const int* hdr_lens, uint8_t* flat, int* scratch, const int* qp_sum, int nr,
+                int nc, cudaStream_t stream) {
   const int nmb = nr * nc;
   if (nmb <= 0 || nr > MAX_META_ROWS) return cudaErrorInvalidValue;
   Scratch S(scratch, nmb, nr);
@@ -179,7 +184,7 @@ int pack_launch(const int* values, const int* lengths, const int* syn_vals, cons
   if ((e = dngd_last_error())) return e;
   row_scan_kernel<<<(nr + 63) / 64, 64, 0, stream>>>(hdr_lens, run_lens, S, nr, nc);
   if ((e = dngd_last_error())) return e;
-  meta_kernel<<<1, 1, 0, stream>>>(S, flat, nr);
+  meta_kernel<<<1, 1, 0, stream>>>(S, flat, nr, qp_sum);
   if ((e = dngd_last_error())) return e;
   const int n = nmb * (Y::blocks + 1) + nr;
   scatter_kernel<Y><<<(n + 127) / 128, 128, 0, stream>>>(values, lengths, syn_vals, syn_lens,
@@ -190,18 +195,25 @@ int pack_launch(const int* values, const int* lengths, const int* syn_vals, cons
 
 }  // namespace
 
+// qp_sum: one int on the card (tune=hq) or null.
 extern "C" int pack_frame_launch(const int* values, const int* lengths, const int* syn_vals,
                                  const int* syn_lens, const int* hdr_vals, const int* hdr_lens,
-                                 uint8_t* flat, int* scratch, int nr, int nc,
+                                 uint8_t* flat, int* scratch, const int* qp_sum, int nr, int nc,
                                  cudaStream_t stream) {
   return pack_launch<ILayout>(values, lengths, syn_vals, syn_lens, nullptr, nullptr, hdr_vals,
-                              hdr_lens, flat, scratch, nr, nc, stream);
+                              hdr_lens, flat, scratch, qp_sum, nr, nc, stream);
 }
 
+// nb: blocks per MB, 26, or 27 with the I16-in-P DC block.
 extern "C" int pack_p_frame_launch(const int* values, const int* lengths, const int* mbh_vals,
                                    const int* mbh_lens, const int* run_vals, const int* run_lens,
                                    const int* hdr_vals, const int* hdr_lens, uint8_t* flat,
-                                   int* scratch, int nr, int nc, cudaStream_t stream) {
+                                   int* scratch, const int* qp_sum, int nr, int nc, int nb,
+                                   cudaStream_t stream) {
+  if (nb == 27)
+    return pack_launch<PILayout>(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
+                                 hdr_vals, hdr_lens, flat, scratch, qp_sum, nr, nc, stream);
+  if (nb != 26) return cudaErrorInvalidValue;
   return pack_launch<PLayout>(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens, hdr_vals,
-                              hdr_lens, flat, scratch, nr, nc, stream);
+                              hdr_lens, flat, scratch, qp_sum, nr, nc, stream);
 }

@@ -1,6 +1,7 @@
 // H.264 4x4 integer transforms and the MF/V quantisation shared by the
 // intra (K1) and inter (K5) cores: the spec 8.5.12 butterflies, the 4x4
-// and 2x2 DC Hadamards, and JM/x264 fixed-point quant/dequant.
+// and 2x2 DC Hadamards, JM/x264 fixed-point quant/dequant, and the
+// reference's bit estimate that its mode decisions score.
 #pragma once
 
 namespace {
@@ -82,6 +83,23 @@ __device__ void had2(const int* x, int* w) {    // x = [a b; c d]
 __device__ __forceinline__ int quant(int w, int mf, int f, int qbits) {
   const int l = (abs(w) * mf + f) >> qbits;
   return w < 0 ? -l : l;
+}
+
+// floor(log2(a)), a >= 1, as the reference computes it: XLA's float32
+// log2 on the CPU lands just below the integer at 8192 and 32768.
+__device__ __forceinline__ int flog2(int a) {
+  return 31 - __clz(a) - ((a == 8192 || a == 32768) ? 1 : 0);
+}
+
+// The reference's CAVLC bit estimate of n levels (_level_bits_est): 3
+// bits a nonzero plus 2 a magnitude bit above the first.
+__device__ int level_bits(const int* lv, int n = 16) {
+  int s = 0;
+  for (int k = 0; k < n; ++k) {
+    const int a = abs(lv[k]);
+    if (a) s += 3 + 2 * flog2(a);
+  }
+  return s;
 }
 
 struct Qp {

@@ -44,15 +44,25 @@ frame from the level tensors its device stage produced.  The bytes equal
 the reference encoder's (``docker_nvidia_glx_desktop_tpu/models/
 h264.py``) frame by frame.
 
+``tune`` (``ENCODER_TUNE``) "hq" selects the reference's kernel tiers:
+with the loop filter on (the config surface's ``make_encoder``) the
+"hq_noaq" tier, Lagrangian mode decisions at the slice qp; with it off
+the full "hq" tier, which adds the per-MB qp plane (K14, ``ops/aq``) with
+the ring's 1-frame lookahead, the mb_qp_delta chain, the I16-in-P escape
+(device CAVLC), the keyframe qp bias ``I_QP_BIAS`` and the rate model's
+mean-coded-qp normalisation.  Full-tier CABAC takes the host transport
+(K10 plus the qp plane), as in the reference.
+
 Every other setting of the reference encoder — native or Python CAVLC,
-``mode="pcm"``, ``tune != "off"``, spatial shards, the non-default intra
-mode sets — raises NotImplementedError naming its ROADMAP item; nothing
-falls back quietly.
+``mode="pcm"``, spatial shards, tune=hq under the damage mask, the
+non-default intra mode sets — raises NotImplementedError naming its
+ROADMAP item; nothing falls back quietly.
 """
 
 from __future__ import annotations
 
 import collections
+import logging
 import os
 import time
 
@@ -69,6 +79,9 @@ from ..ops import damage_mask as dmg
 from ..utils.hostcolor import rgb_to_yuv420_host
 from ..utils.mathutil import round_up
 from .base import EncodedFrame, Encoder
+
+
+log = logging.getLogger(__name__)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -327,8 +340,6 @@ class H264Encoder(Encoder):
             raise _not_ported(f"intra_modes={intra_modes!r}", "17")
         if tune is None:
             tune = os.environ.get("ENCODER_TUNE", "off") or "off"
-        if tune != "off":
-            raise _not_ported(f"tune={tune!r}", "10")
         if superstep_chunk is None:
             superstep_chunk = int(
                 os.environ.get("ENCODER_SUPERSTEP_CHUNK", "0") or 0)
@@ -338,6 +349,31 @@ class H264Encoder(Encoder):
             raise _not_ported("spatial shards", "11")
         if damage_mask is None:
             damage_mask = dmg.enabled()
+        self.deblock = bool(deblock)
+        # the tuning tier: "hq" runs the kernel tier "hq_noaq" (lambda
+        # decisions at the slice qp) under the loop filter, whose
+        # thresholds are per slice qp; "hq_noaq" is also a tier of its
+        # own; anything else warns and serves "off"
+        if tune not in ("off", "hq", "hq_noaq"):
+            log.warning("unknown ENCODER_TUNE %r: serving tune=off", tune)
+            tune = "off"
+        self.tune = tune
+        if tune == "hq" and self.deblock:
+            log.warning(
+                "ENCODER_TUNE=hq with deblock on: per-MB adaptive "
+                "quantization is disabled (lambda mode decisions stay "
+                "active) — the loop-filter thresholds are per-slice-qp "
+                "in v1")
+            self._ktune = "hq_noaq"
+        else:
+            self._ktune = tune
+        if self._ktune != "off" and damage_mask and entropy == "device":
+            raise _not_ported("tune=hq with the damage mask",
+                              "10 (masked)")
+        # I16-in-P: device CAVLC with the loop filter off
+        self._p_intra = (self._ktune != "off" and not self.deblock
+                         and entropy == "device")
+        self._mean_qp_pending = None     # the frame's mean coded qp (hq)
         self.device = resolve_device(device)
         self.qp = qp
         self.mode = mode
@@ -345,9 +381,7 @@ class H264Encoder(Encoder):
         self.keep_recon = keep_recon
         self.host_color = bool(host_color)
         self.gop = max(int(gop), 1)
-        self.deblock = bool(deblock)
         self._deblock_idc = 2 if self.deblock else 1
-        self.tune = self._ktune = "off"
         self.last_recon = None
         self.last_mv = None
         self.pad_w = round_up(width, 16)
@@ -417,7 +451,8 @@ class H264Encoder(Encoder):
     # -- content & quality telemetry -----------------------------------
 
     def _content_submit(self, y: torch.Tensor, recon_y=None, mv=None,
-                        resid=None, frame_type: str = "p") -> None:
+                        resid=None, frame_type: str = "p",
+                        mb_intra=None) -> None:
         """Launch the stats kernel for one frame; sets ``_content_last``
         to a device-handle dict (None when disabled or cadence-skipped).
         ``recon_y`` (and for a P frame ``mv`` and the residual tensors)
@@ -443,7 +478,7 @@ class H264Encoder(Encoder):
         else:
             vec, grid = content_stats.frame_stats_full(
                 y, y if first else prev, obsc.damage_thr_sad(), recon_y,
-                mv, resid)
+                mv, resid, mb_intra)
         self._content_last = {"vec": vec, "grid": grid,
                               "frame_type": frame_type, "first": first}
 
@@ -555,8 +590,15 @@ class H264Encoder(Encoder):
             return self._upload(planes)
         return self._device_colour(rgb)
 
+    # tune=hq GOP-aware I/P split: the IDR is every P frame's transitive
+    # reference, so the full tier codes it I_QP_BIAS finer (gated on the
+    # kernel tier: hq_noaq has no qp-sum meta to normalise a biased IDR)
+    I_QP_BIAS = 3
+
     def _eff_qp(self, keyframe: bool = True) -> int:
         qp = self.qp if self._rate is None else self._rate.qp_for(keyframe)
+        if keyframe and self._ktune == "hq" and self.gop > 1:
+            qp = max(qp - self.I_QP_BIAS, 1)
         off = self.degrade_qp_offset
         return min(51, max(0, qp + off)) if off else qp
 
@@ -600,9 +642,9 @@ class H264Encoder(Encoder):
         qp = self._eff_qp()
         hv, hl = self._hdr_slots(idr_pic_id, qp_delta=qp - self.qp)
         planes = y, cb, cr = self._planes_device(rgb)
-        levels = h264_device.encode_intra_frame_yuv(y, cb, cr, qp)
-        flat = cavlc_device.pack_frame(
-            *cavlc_device.frame_block_slots(levels), hv, hl)
+        levels = h264_device.encode_intra_frame_yuv(y, cb, cr, qp,
+                                                    tune=self._ktune)
+        flat = cavlc_device.encode_levels(levels, hv, hl, qp)
         recon = tuple(levels[k] for k in ("recon_y", "recon_cb", "recon_cr"))
         if self.gop > 1:
             # the reference advances at SUBMIT time: a pipelined P frame
@@ -634,6 +676,7 @@ class H264Encoder(Encoder):
             # reuse the exact device inputs (planes + rate-controlled qp)
             return self._encode_host_entropy(idr_pic_id, planes, qp,
                                              update_ref=not in_pipeline)
+        self._note_qp_sum(meta.qp_sum)
         need = 4 * meta.total_words
         bucket = self._PULL_BUCKET
         self._pull_hist.append(need)
@@ -649,7 +692,8 @@ class H264Encoder(Encoder):
         planes and qp, then the Python CAVLC coder on the host.
         ``update_ref=False`` leaves a pipeline's reference chain as the
         submit set it."""
-        levels = h264_device.encode_intra_frame_yuv(*planes, qp)
+        levels = h264_device.encode_intra_frame_yuv(*planes, qp,
+                                                    tune=self._ktune)
         if self.gop > 1 and update_ref:
             self._set_ref(tuple(levels[k] for k in
                                 ("recon_y", "recon_cb", "recon_cr")), qp)
@@ -659,11 +703,40 @@ class H264Encoder(Encoder):
                                               "recon_cr"))
         levels = {k: v.cpu().numpy() for k, v in levels.items()
                   if not k.startswith("recon")}
+        qp_map = levels.pop("qp_map", None)
+        self._note_qp_map(qp_map, levels=levels, slice_qp=qp, intra=True)
         return h264_entropy.encode_intra_picture(
             levels, frame_num=0, idr_pic_id=idr_pic_id,
             sps=self._sps, pps=self._pps, with_headers=True,
             qp_delta=qp - self.qp, deblocking_idc=self._deblock_idc,
-            qp_map=None, slice_qp=qp)
+            qp_map=qp_map, slice_qp=qp)
+
+    # -- mean coded qp (tune=hq): the rate model's normalisation ---------
+
+    def _note_qp_sum(self, qp_sum: int) -> None:
+        """A frame's summed per-MB effective qp (the flat buffer's meta
+        word; 0 = the uniform slice qp of the other tiers)."""
+        if qp_sum:
+            self._mean_qp_pending = qp_sum / float(self.mb_w * self.mb_h)
+
+    def _note_qp_map(self, qp_map, levels=None, slice_qp=None,
+                     intra: bool = False) -> None:
+        """Host-path twin of :meth:`_note_qp_sum`: the mean effective qp
+        of the mb_qp_delta chain the levels emit (the plane's mean
+        without levels)."""
+        if qp_map is None:
+            return
+        if levels is None:
+            self._mean_qp_pending = float(np.mean(qp_map))
+            return
+        f = (h264_entropy.intra_mean_coded_qp if intra
+             else h264_entropy.p_mean_coded_qp)
+        self._mean_qp_pending = f(levels, qp_map, slice_qp)
+
+    def _take_mean_qp(self):
+        m = self._mean_qp_pending
+        self._mean_qp_pending = None
+        return m
 
     # -- CABAC path ------------------------------------------------------
     # The device stage's levels leave the card compacted (K10) or
@@ -683,8 +756,16 @@ class H264Encoder(Encoder):
         instead of compacting the levels (K10, ``host``, the default);
         read once per encoder.  Both routes give the same bytes."""
         if self._cabac_dev_bin is None:
-            self._cabac_dev_bin = os.environ.get(
-                "ENCODER_CABAC_BINARIZE", "host") == "device"
+            v = os.environ.get("ENCODER_CABAC_BINARIZE", "host") == "device"
+            if v and self._ktune == "hq":
+                # the record stream has no per-MB qp: the full tier
+                # codes CABAC through the level transport and the host
+                log.warning(
+                    "ENCODER_CABAC_BINARIZE=device has no per-MB qp "
+                    "plumbing; ENCODER_TUNE=hq uses the dense host CABAC "
+                    "path")
+                v = False
+            self._cabac_dev_bin = v
         return self._cabac_dev_bin
 
     def _cabac_prefix(self, buf, hdr_words: int, kind: str, default: int):
@@ -730,7 +811,8 @@ class H264Encoder(Encoder):
     def _submit_cabac_intra(self, rgb, idr_pic_id: int):
         qp = self._eff_qp()
         y, cb, cr = self._planes_device(rgb)
-        levels = h264_device.encode_intra_frame_yuv(y, cb, cr, qp)
+        levels = h264_device.encode_intra_frame_yuv(y, cb, cr, qp,
+                                                    tune=self._ktune)
         if self.gop > 1:
             self._set_ref(tuple(levels[k] for k in self._RECON_KEYS), qp)
         self._content_submit(y, recon_y=levels["recon_y"],
@@ -744,7 +826,8 @@ class H264Encoder(Encoder):
             return ("bin", levels, buf, prefix, None, qp, idr_pic_id)
         buf = level_pack.pack_levels(levels, level_pack.INTRA_KEYS)
         small = {k: _pinned_prefetch(levels[k].to(torch.int8))
-                 for k in ("pred_mode", "mb_i4", "i4_modes")}
+                 for k in ("pred_mode", "mb_i4", "i4_modes", "qp_map")
+                 if k in levels}
         prefix = self._cabac_prefix(buf, level_pack.header_words(self.mb_h),
                                     "", 8 * self._CABAC_PULL_WORDS)
         return ("lv", levels, buf, prefix, small, qp, idr_pic_id)
@@ -774,14 +857,21 @@ class H264Encoder(Encoder):
             dense = {k: levels[k].cpu().numpy()
                      for k, _, _ in level_pack.INTRA_KEYS}
         dense.update(modes)
-        return h264_cabac.encode_intra_picture(dense, **args)
+        qp_map = dense.pop("qp_map", None)
+        if qp_map is not None:
+            qp_map = qp_map.astype(np.int32)
+            self._note_qp_map(qp_map, levels=dense, slice_qp=qp, intra=True)
+        return h264_cabac.encode_intra_picture(dense, qp_map=qp_map, **args)
 
-    def _submit_cabac_p(self, planes, qp: int, frame_num: int = None):
+    def _submit_cabac_p(self, planes, qp: int, frame_num: int = None,
+                        next_y=None):
         """The P core (K5), the reference's loop filter (K8) and the
-        level transport (K10) or records (K11p), without waiting."""
+        level transport (K10) or records (K11p), without waiting.
+        ``next_y``: the full tier's lookahead luma (a ring flush)."""
         frame_num = self._frame_num if frame_num is None else frame_num
         y, cb, cr = planes
-        out = h264_inter.encode_p_frame(y, cb, cr, *self._ref, qp)
+        out = h264_inter.encode_p_frame(y, cb, cr, *self._ref, qp,
+                                        tune=self._ktune, next_y=next_y)
         self._content_submit(
             y, recon_y=out["recon_y"], mv=out["mv"],
             resid=tuple(out[k] for k in ("luma", "cb_dc", "cb_ac", "cr_dc",
@@ -825,7 +915,9 @@ class H264Encoder(Encoder):
         if dense is None:      # overflow: the dense levels
             dense = {k: out[k].cpu().numpy() for k, _, _ in level_pack.P_KEYS}
         dense["mv"] = mv
-        return h264_cabac.encode_p_picture(dense, **args)
+        qp_map = _np(out["qp_map"]) if "qp_map" in out else None
+        self._note_qp_map(qp_map, levels=dense, slice_qp=qp)
+        return h264_cabac.encode_p_picture(dense, qp_map=qp_map, **args)
 
     # -- P frames --------------------------------------------------------
 
@@ -841,30 +933,34 @@ class H264Encoder(Encoder):
             return "cabac_p", self._submit_cabac_p(planes, qp)
         return self._submit_p_cavlc(planes, qp, self._frame_num, plan)
 
-    def _submit_p_cavlc(self, planes, qp: int, frame_num: int, plan):
+    def _submit_p_cavlc(self, planes, qp: int, frame_num: int, plan,
+                        next_y=None):
         """A device-CAVLC P frame: masked over ``plan``'s rows where it
         leaves some out, else the full frame."""
         if plan is not None and not plan.full:
             return "p_masked", self._submit_p_masked(planes, qp, frame_num,
                                                      plan)
-        return "p", self._submit_p_device(planes, qp, frame_num)
+        return "p", self._submit_p_device(planes, qp, frame_num, next_y)
 
-    def _submit_p_device(self, planes, qp: int, frame_num: int = None):
+    def _submit_p_device(self, planes, qp: int, frame_num: int = None,
+                         next_y=None):
         """Launch the P stage on the device planes without waiting for
         it; ``self._ref`` advances now, so the next frame can submit
         before this one is collected.  The old reference is only read:
-        the recon goes to new planes."""
+        the recon goes to new planes.  ``next_y``: the full tier's
+        lookahead luma (a ring flush)."""
         frame_num = self._frame_num if frame_num is None else frame_num
         hv, hl = self._p_hdr_slots(frame_num, qp - self.qp)
         y, cb, cr = planes
         flat, ry, rcb, rcr, mv, nnz, levels = \
-            cavlc_p_device.encode_p_cavlc_frame(y, cb, cr, *self._ref, hv, hl,
-                                                qp)
+            cavlc_p_device.encode_p_cavlc_frame(
+                y, cb, cr, *self._ref, hv, hl, qp, tune=self._ktune,
+                next_y=next_y, p_intra=self._p_intra)
         self._content_submit(
             y, recon_y=ry, mv=mv,
             resid=tuple(levels[k] for k in ("luma", "cb_dc", "cb_ac",
                                             "cr_dc", "cr_ac")),
-            frame_type="p")
+            frame_type="p", mb_intra=levels.get("mb_intra"))
         self._set_ref((ry, rcb, rcr), qp, nnz, mv)
         recon = None
         if self.keep_recon:
@@ -889,12 +985,20 @@ class H264Encoder(Encoder):
             pulled = {k: v.cpu().numpy() for k, v in levels.items()}
             pulled["mv"] = mv.cpu().numpy()
             self.last_mv = pulled["mv"]
-            return h264_entropy.encode_p_picture(
-                pulled, frame_num=frame_num, qp_delta=qp - self.qp,
-                deblocking_idc=self._deblock_idc, qp_map=None, slice_qp=qp)
+            return self._encode_p_pulled(pulled, qp, frame_num)
+        self._note_qp_sum(meta.qp_sum)
         buf = self._pull_flat(flat, buf, meta)
         return cavlc_device.assemble_annexb(buf, meta, nal_type=syn.NAL_SLICE,
                                             ref_idc=2)
+
+    def _encode_p_pulled(self, pulled: dict, qp: int, frame_num: int):
+        """A P frame's pulled levels (with the full tier's qp plane and
+        the I16-in-P tensors) coded on the host."""
+        qp_map = pulled.pop("qp_map", None)
+        self._note_qp_map(qp_map, levels=pulled, slice_qp=qp)
+        return h264_entropy.encode_p_picture(
+            pulled, frame_num=frame_num, qp_delta=qp - self.qp,
+            deblocking_idc=self._deblock_idc, qp_map=qp_map, slice_qp=qp)
 
     # -- damage-driven encode (ops/damage_mask) --------------------------
     # The host twin of the content plane's damage grid compacts a P frame
@@ -1037,7 +1141,7 @@ class H264Encoder(Encoder):
             raise
         self._gop_pos = (self._gop_pos + 1) % self.gop
         if self._rate is not None:
-            self._rate.update(len(data) * 8)
+            self._rate.update(len(data) * 8, mean_qp=self._take_mean_qp())
         return data, idr
 
     def request_keyframe(self) -> None:
@@ -1132,6 +1236,8 @@ class H264Encoder(Encoder):
         return got
 
     def _chunk_step(self, kind: str, ingest: str, bucket: int):
+        # the kernel tier and p_intra are fixed for the encoder: each step
+        # is built with them, and the key needs only the rest
         key = (kind, ingest, bucket)
         step = self._chunk_steps.get(key)
         if step is None:
@@ -1139,7 +1245,8 @@ class H264Encoder(Encoder):
                 chunk=self._ring_chunk, pad_h=self.pad_h, pad_w=self.pad_w,
                 deblock=self.deblock, entropy=kind, ingest=ingest,
                 damage_bucket=bucket, device=self.device,
-                budget=self._graphs)
+                budget=self._graphs, tune=self._ktune,
+                p_intra=self._p_intra)
         return step
 
     def _ring_dispatch(self, ring) -> None:
@@ -1191,17 +1298,22 @@ class H264Encoder(Encoder):
         if ring is None or ring.res is not None:
             return
         toks, cstats = [], []
-        for i, fr in enumerate(ring.frames):
-            planes = (self._upload(fr) if ring.ingest == "yuv"
-                      else self._device_colour(fr))
+        planes = [self._upload(fr) if ring.ingest == "yuv"
+                  else self._device_colour(fr) for fr in ring.frames]
+        for i, pl in enumerate(planes):
             fn = ring.fns[i]
+            # the chunk's lookahead shift: frame k sees frame k + 1, the
+            # last staged frame itself
+            next_y = (planes[min(i + 1, len(planes) - 1)][0]
+                      if self._ktune == "hq" else None)
             if ring.kind == "cavlc":
                 plan = (ring.plans[i] if ring.plans and len(ring.plans) > i
                         else None)
-                toks.append(self._submit_p_cavlc(planes, ring.qp, fn, plan))
+                toks.append(self._submit_p_cavlc(pl, ring.qp, fn, plan,
+                                                 next_y))
             else:
                 toks.append(("cabac_p", self._submit_cabac_p(
-                    planes, ring.qp, frame_num=fn)))
+                    pl, ring.qp, frame_num=fn, next_y=next_y)))
             cstats.append(self._content_last)
             self._content_last = None
         ring.frames = None
@@ -1237,9 +1349,8 @@ class H264Encoder(Encoder):
             # the chunk's own level tensors of this frame, host-coded
             pulled = {k: _np(v) for k, v in out.levels(slot).items()}
             pulled["mv"] = _np(out.mvs[slot])
-            return h264_entropy.encode_p_picture(
-                pulled, frame_num=frame_num, qp_delta=qp - self.qp,
-                deblocking_idc=self._deblock_idc, qp_map=None, slice_qp=qp)
+            return self._encode_p_pulled(pulled, qp, frame_num)
+        self._note_qp_sum(meta.qp_sum)
         buf = self._pull_flat(out.flats[slot], buf, meta)
         return cavlc_device.assemble_annexb(buf, meta, nal_type=syn.NAL_SLICE,
                                             ref_idc=2)
@@ -1338,7 +1449,8 @@ class H264Encoder(Encoder):
                 raise
             key = True
             if self._rate is not None:
-                self._rate.update(len(data) * 8)
+                self._rate.update(len(data) * 8,
+                                  mean_qp=self._take_mean_qp())
         ms = (time.perf_counter() - t0) * 1e3
         ef = EncodedFrame(data=data, keyframe=key,
                           frame_index=self.frame_index, codec=self.codec,
@@ -1391,7 +1503,7 @@ class H264Encoder(Encoder):
             self._force_idr = True
             raise
         if self._rate is not None:
-            self._rate.update(len(data) * 8)
+            self._rate.update(len(data) * 8, mean_qp=self._take_mean_qp())
         self._content_finish(token, data)
         ms = (time.perf_counter() - t0) * 1e3
         return EncodedFrame(data=data, keyframe=key, frame_index=idx,

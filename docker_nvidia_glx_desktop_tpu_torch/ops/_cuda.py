@@ -23,12 +23,21 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 KERNEL_SOURCES = ("intra", "cavlc", "pack", "content", "inter", "deblock",
-                  "color", "levelpack", "cabac", "damage")
+                  "color", "levelpack", "cabac", "damage", "aq")
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: dict = {}
+
+
+class Counter:
+    """The launch count of a kernel form whose wrapper already counts
+    another form (``wrapper.hq``: the tune=hq instantiation)."""
+
+    def __init__(self):
+        self.launches = 0
+
 _lock = threading.Lock()
 
 

@@ -43,7 +43,7 @@ def _be_bytes(words: torch.Tensor) -> torch.Tensor:
 
 
 def _pack_plain(syn_vals, syn_lens, values, lengths, hdr_vals, hdr_lens,
-                run_vals=None, run_lens=None):
+                run_vals=None, run_lens=None, qp_sum=None):
     """Plain packer of either slice type.  Per row, in stream order: the
     slice header, then per MB its syntax piece and its blocks, then (P
     slices) the trailing skip-run piece, then the rbsp stop bit and the
@@ -100,20 +100,23 @@ def _pack_plain(syn_vals, syn_lens, values, lengths, hdr_vals, hdr_lens,
     meta[1] = total_words
     meta[2:2 + nr] = row_bytes
     meta[2 + MAX_META_ROWS:2 + MAX_META_ROWS + nr] = word_off
+    if qp_sum is not None:
+        meta[META_QP_SUM_WORD] = qp_sum.reshape(-1)[0].long() & 0xFFFFFFFF
     return _be_bytes(torch.cat([meta, words[:FLAT_CAP_WORDS]]))
 
 
-def pack_frame_plain(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens):
+def pack_frame_plain(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
+                     qp_sum=None):
     """Plain PyTorch version of K3 (I slices)."""
     return _pack_plain(syn_vals, syn_lens, values, lengths, hdr_vals,
-                       hdr_lens)
+                       hdr_lens, qp_sum=qp_sum)
 
 
 def pack_p_frame_plain(values, lengths, mbh_vals, mbh_lens, run_vals,
-                       run_lens, hdr_vals, hdr_lens):
+                       run_lens, hdr_vals, hdr_lens, qp_sum=None):
     """Plain PyTorch version of K7 (P slices)."""
     return _pack_plain(mbh_vals, mbh_lens, values, lengths, hdr_vals,
-                       hdr_lens, run_vals, run_lens)
+                       hdr_lens, run_vals, run_lens, qp_sum)
 
 
 def _check_slots(want: dict, dev) -> None:
@@ -123,11 +126,20 @@ def _check_slots(want: dict, dev) -> None:
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens):
+def _check_qp_sum(qp_sum, dev) -> None:
+    if qp_sum is not None and (qp_sum.dtype != torch.int32
+                               or qp_sum.numel() != 1
+                               or qp_sum.device != dev):
+        raise ValueError("qp_sum must be one int32 on the slots' device")
+
+
+def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
+               qp_sum=None):
     """Codeword slots -> flat uint8 buffer of FLAT_BYTES (see module doc).
 
     values/lengths (R, C, 27, 34), syn_vals/syn_lens (R, C, 20), hdr_vals/
-    hdr_lens (R, 3), all int32 (values are the uint32 bit patterns).  CUDA
+    hdr_lens (R, 3), all int32 (values are the uint32 bit patterns);
+    ``qp_sum`` (tune=hq: one int32 on the card) the META_QP_SUM_WORD.  CUDA
     tensors launch the packer: per-MB bit counts and overflow checks, a
     scan along each row and over the rows, then one thread per coded
     piece OR-ing its codewords into the big-endian words at their bit
@@ -140,39 +152,50 @@ def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens):
             "syn_lens": (syn_lens, (nr, nc, 20)),
             "hdr_vals": (hdr_vals, (nr, 3)), "hdr_lens": (hdr_lens, (nr, 3))}
     _check_slots(want, dev)
+    _check_qp_sum(qp_sum, dev)
     if nr > MAX_META_ROWS:
         raise ValueError(f"{nr} MB rows exceed the metadata header's "
                          f"{MAX_META_ROWS}")
     if dev.type == "cpu":
         return pack_frame_plain(values, lengths, syn_vals, syn_lens,
-                                hdr_vals, hdr_lens)
+                                hdr_vals, hdr_lens, qp_sum)
     flat = torch.empty(FLAT_BYTES, dtype=torch.uint8, device=dev)
     scratch = torch.empty(nr * nc * 30 + 4 * nr + 8, dtype=torch.int32,
                           device=dev)
     _cuda.launch("pack", "pack_frame_launch",
                  [values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
-                  flat, scratch], [nr, nc], dev)
-    pack_frame.launches += 1
+                  flat, scratch, qp_sum], [nr, nc], dev)
+    if qp_sum is None:
+        pack_frame.launches += 1
+    else:
+        pack_frame.hq.launches += 1
     return flat
 
 
 pack_frame.launches = 0
+pack_frame.hq = _cuda.Counter()          # with the qp sum (tune=hq)
 
 
 def pack_p_frame(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
-                 hdr_vals, hdr_lens):
+                 hdr_vals, hdr_lens, qp_sum=None):
     """A P frame's slots -> flat uint8 buffer of FLAT_BYTES, the layout
     of :func:`pack_frame`.
 
-    values/lengths (R, C, 26, 34) block slots, mbh_vals/mbh_lens (R, C, 7)
-    MB header slots, run_vals/run_lens (R,) the trailing skip run of each
-    row, hdr_vals/hdr_lens (R, 3) slice headers, all int32.  The overflow
-    caps are K3's, with the MB header in place of the MB syntax piece.
-    CUDA tensors launch the packer; CPU tensors run the plain version."""
+    values/lengths (R, C, 26, 34) block slots — (R, C, 27, 34) with the
+    I16-in-P DC block first (tune=hq, ``p_intra``) —, mbh_vals/mbh_lens
+    (R, C, 7) MB header slots, run_vals/run_lens (R,) the trailing skip
+    run of each row, hdr_vals/hdr_lens (R, 3) slice headers, all int32;
+    ``qp_sum`` as :func:`pack_frame`'s.  The overflow caps are K3's, with
+    the MB header in place of the MB syntax piece.  CUDA tensors launch
+    the packer; CPU tensors run the plain version."""
     nr, nc = mbh_vals.shape[:2]
     dev = values.device
-    _check_slots({"values": (values, (nr, nc, 26, 34)),
-                  "lengths": (lengths, (nr, nc, 26, 34)),
+    nb = values.shape[2] if values.dim() == 4 else 0
+    if nb not in (26, 27):
+        raise ValueError("values must be (R, C, 26 or 27, 34)")
+    _check_qp_sum(qp_sum, dev)
+    _check_slots({"values": (values, (nr, nc, nb, 34)),
+                  "lengths": (lengths, (nr, nc, nb, 34)),
                   "mbh_vals": (mbh_vals, (nr, nc, 7)),
                   "mbh_lens": (mbh_lens, (nr, nc, 7)),
                   "run_vals": (run_vals, (nr,)), "run_lens": (run_lens, (nr,)),
@@ -183,15 +206,21 @@ def pack_p_frame(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
                          f"{MAX_META_ROWS}")
     if dev.type == "cpu":
         return pack_p_frame_plain(values, lengths, mbh_vals, mbh_lens,
-                                  run_vals, run_lens, hdr_vals, hdr_lens)
+                                  run_vals, run_lens, hdr_vals, hdr_lens,
+                                  qp_sum)
     flat = torch.empty(FLAT_BYTES, dtype=torch.uint8, device=dev)
     scratch = torch.empty(nr * nc * 30 + 4 * nr + 8, dtype=torch.int32,
                           device=dev)
     _cuda.launch("pack", "pack_p_frame_launch",
                  [values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
-                  hdr_vals, hdr_lens, flat, scratch], [nr, nc], dev)
-    pack_p_frame.launches += 1
+                  hdr_vals, hdr_lens, flat, scratch, qp_sum], [nr, nc, nb],
+                 dev)
+    if nb == 27 or qp_sum is not None:
+        pack_p_frame.hq.launches += 1
+    else:
+        pack_p_frame.launches += 1
     return flat
 
 
 pack_p_frame.launches = 0
+pack_p_frame.hq = _cuda.Counter()        # 27 blocks or a qp sum (tune=hq)

@@ -27,7 +27,7 @@ import torch
 from ..bitstream import cavlc as ref
 from ..bitstream.h264_entropy import (_CBP_INTER_TO_CODENUM,
                                       _CBP_INTRA_TO_CODENUM)
-from . import _cuda
+from . import _cuda, aq
 from .bitmerge import (FLAT_CAP_WORDS, MAX_META_ROWS,  # noqa: F401
                        META_QP_SUM_WORD, META_WORDS, pack_frame)
 
@@ -333,10 +333,24 @@ def intra_mb_syntax_slots(pred_mode, mb_i4, i4_modes, cbp_luma, cbp_luma4,
     return syn_vals, syn_lens
 
 
-def frame_block_slots_plain(levels: dict):
+def qp_delta_slots(qp_map, codes, slice_qp: int):
+    """tune=hq's mb_qp_delta slots: the per-row chain from ``slice_qp``
+    (``aq.qp_chain``) as se(v) (value, length), length 0 where the MB
+    carries no delta (``codes`` false), and the frame's summed effective
+    qp as a (1,) int32 tensor (the flat buffer's META_QP_SUM_WORD)."""
+    eff, delta = aq.qp_chain(qp_map, codes, slice_qp)
+    v, ln = se_slots(delta)
+    qp_sum = eff.sum(dtype=torch.int64).reshape(1).to(torch.int32)
+    return v, torch.where(codes, ln, 0), qp_sum
+
+
+def frame_block_slots_plain(levels: dict, slice_qp: int = None):
     """Plain PyTorch version of K2: level tensors (the intra core's dict)
     -> (values, lengths, syn_vals, syn_lens), int32 (R, C, 27, 34) block
-    slots and (R, C, 20) MB-syntax slots."""
+    slots and (R, C, 20) MB-syntax slots; with the full tier's
+    ``qp_map`` in ``levels`` also the frame's qp sum (see
+    :func:`qp_delta_slots`), the mb_qp_delta slot chained from
+    ``slice_qp``."""
     luma_dc = levels["luma_dc"].long()
     luma_ac = levels["luma_ac"].long()
     cb_dc, cb_ac = levels["cb_dc"].long(), levels["cb_ac"].long()
@@ -407,7 +421,16 @@ def frame_block_slots_plain(levels: dict):
         levels["pred_mode"], mb_i4, levels["i4_modes"], cbp_luma, cbp_luma4,
         cbp_chroma)
     i32 = lambda a: a.to(torch.int32)
-    return i32(values), i32(lengths), i32(syn_vals), i32(syn_lens)
+    res = (i32(values), i32(lengths), i32(syn_vals), i32(syn_lens))
+    if "qp_map" not in levels:
+        return res
+    # the syntax exists for every I16 MB and for I_NxN with cbp != 0
+    cbp_any = torch.where(mb_i4, cbp_luma4 > 0, cbp_luma) | (cbp_chroma > 0)
+    v, ln, qp_sum = qp_delta_slots(levels["qp_map"], ~mb_i4 | cbp_any,
+                                   slice_qp)
+    res[2][:, :, 19] = v.to(torch.int32)
+    res[3][:, :, 19] = ln.to(torch.int32)
+    return res + (qp_sum,)
 
 
 # ---------------------------------------------------------------------------
@@ -441,13 +464,16 @@ def _upload_tables(lib) -> None:
 _tables_on: set = set()
 
 
-def frame_block_slots(levels: dict):
-    """Level tensors -> (values, lengths, syn_vals, syn_lens) CAVLC slots.
+def frame_block_slots(levels: dict, slice_qp: int = None):
+    """Level tensors -> (values, lengths, syn_vals, syn_lens) CAVLC slots;
+    with the full tier's ``qp_map`` in ``levels`` a fifth, the frame's
+    qp sum, and the mb_qp_delta slots chained from ``slice_qp``.
 
     CUDA tensors launch the slot coder: a per-MB pass for cbp, gates and
     total_coeff, then one thread per 4x4 block (plus one per MB for the
     syntax slots) running the sequential CAVLC loops in registers with
-    the tables in constant memory.  CPU tensors run the plain version."""
+    the tables in constant memory; under the full tier then one warp per
+    MB row scanning the qp chain.  CPU tensors run the plain version."""
     nr, nc = levels["luma_dc"].shape[:2]
     shapes = _level_shapes(nr, nc)
     dev = levels["luma_dc"].device
@@ -458,8 +484,11 @@ def frame_block_slots(levels: dict):
             raise ValueError(f"levels[{k!r}]: want {shapes[k]} {want} on "
                              f"{dev}, got {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}")
+    hq = "qp_map" in levels
+    if hq and slice_qp is None:
+        raise ValueError("a qp_map needs the slice qp")
     if dev.type == "cpu":
-        return frame_block_slots_plain(levels)
+        return frame_block_slots_plain(levels, slice_qp)
     lib = _cuda.library("cavlc")
     if dev not in _tables_on:
         with torch.cuda.device(dev):
@@ -476,10 +505,26 @@ def frame_block_slots(levels: dict):
                  + [values, lengths, syn_vals, syn_lens, scratch],
                  [nr, nc], dev)
     frame_block_slots.launches += 1
-    return values, lengths, syn_vals, syn_lens
+    if not hq:
+        return values, lengths, syn_vals, syn_lens
+    qp_sum = torch.empty(1, **i32)
+    _cuda.launch("cavlc", "cavlc_qp_chain_launch",
+                 [levels["qp_map"], levels["mb_i4"], scratch, syn_vals,
+                  syn_lens, qp_sum, None], [nr, nc, int(slice_qp), 0], dev)
+    frame_block_slots.hq.launches += 1
+    return values, lengths, syn_vals, syn_lens, qp_sum
 
 
 frame_block_slots.launches = 0
+frame_block_slots.hq = _cuda.Counter()      # the qp chain (full tier)
+
+
+def encode_levels(levels: dict, hdr_vals, hdr_lens, slice_qp: int):
+    """The intra core's dict -> the flat buffer: K2 then K3, the qp sum
+    riding in the metadata under the full tier."""
+    slots = frame_block_slots(levels, slice_qp)
+    return pack_frame(*slots[:4], hdr_vals, hdr_lens,
+                      qp_sum=slots[4] if len(slots) > 4 else None)
 
 
 # ---------------------------------------------------------------------------

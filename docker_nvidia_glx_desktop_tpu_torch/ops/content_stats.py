@@ -73,10 +73,11 @@ def _percentiles_f32(act: torch.Tensor, qs=(50.0, 95.0)) -> torch.Tensor:
 
 
 def frame_stats_full_plain(y, prev_y, thr_sad: int, recon_y=None, mv=None,
-                           resid=None):
+                           resid=None, mb_intra=None):
     """Plain PyTorch version of K4 in its full form: (vec float32 (10,),
     grid uint8 (R, C)).  ``resid`` is the P core's five residual level
-    tensors; the mode counts need it and ``mv``."""
+    tensors; the mode counts need it and ``mv``, and count the I16-in-P
+    MBs of ``mb_intra`` (tune=hq) as intra."""
     h, w = y.shape
     r, c = h // 16, w // 16
     d = (y.to(torch.int32) - prev_y.to(torch.int32)).abs()
@@ -98,17 +99,20 @@ def frame_stats_full_plain(y, prev_y, thr_sad: int, recon_y=None, mv=None,
             coded = torch.zeros((r, c), dtype=torch.bool, device=y.device)
             for t in resid:
                 coded |= (t.reshape(r, c, -1) != 0).any(dim=-1)
-            skip = ~coded & (mv == 0).all(dim=-1)
+            intra = (torch.zeros((r, c), dtype=torch.bool, device=y.device)
+                     if mb_intra is None else mb_intra.to(torch.bool))
+            skip = ~coded & (mv == 0).all(dim=-1) & ~intra
             n_skip = skip.sum(dtype=torch.int32)
+            n_intra = intra.sum(dtype=torch.int32)
             vec[IDX_SKIP] = n_skip.to(torch.float32)
-            vec[IDX_INTER] = (r * c - n_skip).to(torch.float32)
-            vec[IDX_INTRA] = 0.0
+            vec[IDX_INTER] = (r * c - n_intra - n_skip).to(torch.float32)
+            vec[IDX_INTRA] = n_intra.to(torch.float32)
     vec[IDX_ACT_P50:IDX_ACT_P95 + 1] = _percentiles_f32(mb_activity(y))
     vec[IDX_MBS] = float(r * c)
     return vec, grid
 
 
-def _check(ys, prev_y, recon_y=None, mvs=None, resid=None):
+def _check(ys, prev_y, recon_y=None, mvs=None, resid=None, mb_intra=None):
     """The contract of :func:`chunk_stats`'s inputs: ``ys`` (K, H, W)
     and the (K, ...) MV and residual stacks, the 2-D ``prev_y`` and
     ``recon_y``."""
@@ -136,6 +140,10 @@ def _check(ys, prev_y, recon_y=None, mvs=None, resid=None):
                                    "cr_ac"), resid,
                                   ((16, 16), (4,), (4, 15), (4,), (4, 15))):
             want[name] = (t, torch.int32, (k, r, c) + shape)
+    if mb_intra is not None:
+        if not resid:
+            raise ValueError("mb_intra needs the mode counts' inputs")
+        want["mb_intra"] = (mb_intra, torch.bool, (k, r, c))
     for name, (t, dt, shape) in want.items():
         if t.dtype != dt or tuple(t.shape) != shape or t.device != ys.device:
             raise ValueError(f"{name}: want {shape} {dt} on {ys.device}, got "
@@ -152,22 +160,24 @@ def frame_stats(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int):
 
 
 def frame_stats_full(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int,
-                     recon_y=None, mv=None, resid=None):
+                     recon_y=None, mv=None, resid=None, mb_intra=None):
     """Per-frame stats with the recon (luma SSE) and, for a P frame, the
     MV field (|MV| mean and p95) and the residual level tensors ``resid``
-    = (luma, cb_dc, cb_ac, cr_dc, cr_ac) (skip/inter/intra counts):
-    :func:`chunk_stats` of a one-frame chunk."""
+    = (luma, cb_dc, cb_ac, cr_dc, cr_ac) (skip/inter/intra counts, the
+    I16-in-P MBs of ``mb_intra`` intra): :func:`chunk_stats` of a
+    one-frame chunk."""
     if y.dim() != 2:
         raise ValueError("y must be a 2-D luma plane")
     vecs, grids = chunk_stats(
         y.unsqueeze(0), prev_y, thr_sad, recon_y,
         None if mv is None else mv.unsqueeze(0),
-        None if not resid else tuple(t.unsqueeze(0) for t in resid))
+        None if not resid else tuple(t.unsqueeze(0) for t in resid),
+        None if mb_intra is None else mb_intra.unsqueeze(0))
     return vecs[0], grids[0]
 
 
 def chunk_stats_plain(ys, prev_y, thr_sad: int, recon_last_y=None, mvs=None,
-                      resid=None):
+                      resid=None, mb_intra=None):
     """Plain PyTorch version of K4c: :func:`frame_stats_full_plain` slot
     by slot.  Same contract as :func:`chunk_stats`."""
     vecs, grids = [], []
@@ -179,7 +189,8 @@ def chunk_stats_plain(ys, prev_y, thr_sad: int, recon_last_y=None, mvs=None,
             ys[i], ys[i] if prev is None else prev, thr_sad,
             recon_last_y if i == k - 1 else None,
             None if mvs is None else mvs[i],
-            None if mvs is None or not resid else tuple(t[i] for t in resid))
+            None if mvs is None or not resid else tuple(t[i] for t in resid),
+            None if mb_intra is None else mb_intra[i])
         if prev is None:
             v[IDX_DAMAGE] = -1.0
         vecs.append(v)
@@ -188,13 +199,14 @@ def chunk_stats_plain(ys, prev_y, thr_sad: int, recon_last_y=None, mvs=None,
 
 
 def chunk_stats(ys, prev_y, thr_sad: int, recon_last_y=None, mvs=None,
-                resid=None):
+                resid=None, mb_intra=None):
     """Stats of a chunk of K frames: ``ys`` the (K, H, W) uint8 luma
     stack; ``prev_y`` the luma before slot 0, or None (no damage in any
     slot: -1 and a zero grid); ``recon_last_y`` the last slot's
     reconstruction (SSE in slot K-1 only, -1 elsewhere); ``mvs`` (K, R,
     C, 2) and ``resid`` the
-    five (K, ...) residual stacks, or None.  Returns ``(vecs, grids)``,
+    five (K, ...) residual stacks, or None; ``mb_intra`` (K, R, C) the
+    I16-in-P MBs (tune=hq), counted intra.  Returns ``(vecs, grids)``,
     float32 (K, VEC_LEN) and uint8 (K, R, C).
 
     CUDA tensors launch the kernels once for the chunk (the frame as a
@@ -202,24 +214,29 @@ def chunk_stats(ys, prev_y, thr_sad: int, recon_last_y=None, mvs=None,
     and the SSE, |MV| and coded flags, then one block per frame sorting
     the activity values in shared memory for the percentiles and a
     second sort for the |MV| p95.  CPU tensors run the plain version."""
-    _check(ys, prev_y, recon_last_y, mvs, resid)
+    _check(ys, prev_y, recon_last_y, mvs, resid, mb_intra)
     k = ys.shape[0]
     if ys.device.type == "cpu":
         return chunk_stats_plain(ys, prev_y, int(thr_sad), recon_last_y, mvs,
-                                 resid)
+                                 resid, mb_intra)
     r, c = ys.shape[1] // 16, ys.shape[2] // 16
     vecs = torch.empty((k, VEC_LEN), dtype=torch.float32, device=ys.device)
     grids = torch.empty((k, r, c), dtype=torch.uint8, device=ys.device)
-    scratch = torch.empty(3 * k * r * c + 2 * k, dtype=torch.int32,
+    scratch = torch.empty(3 * k * r * c + 3 * k, dtype=torch.int32,
                           device=ys.device)
     _cuda.launch("content", "chunk_stats_launch",
                  [ys, prev_y, recon_last_y, mvs] + list(resid or (None,) * 5)
-                 + [vecs, grids, scratch], [k, r, c, int(thr_sad)], ys.device)
-    chunk_stats.launches += 1
+                 + [mb_intra, vecs, grids, scratch], [k, r, c, int(thr_sad)],
+                 ys.device)
+    if mb_intra is None:
+        chunk_stats.launches += 1
+    else:
+        chunk_stats.hq.launches += 1
     return vecs, grids
 
 
 chunk_stats.launches = 0
+chunk_stats.hq = _cuda.Counter()         # with mb_intra (tune=hq)
 
 
 # ---------------------------------------------------------------------------

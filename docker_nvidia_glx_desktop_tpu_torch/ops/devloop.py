@@ -13,6 +13,12 @@ chained from each frame to the next.  Per frame the P stage is
   frame's worklist of ``damage_bucket`` rows (K5r, K6, K7, K8 on the
   compacted stack, the row scatter K13).
 
+Under ``tune`` (the kernel tier) the P stages run their hq forms; the
+full tier (CAVLC only) also runs the qp plane (K14) per frame with the
+1-frame lookahead over the staged luma (frame k sees frame k+1, the last
+frame itself), reading the slice qp from device memory like K5, and
+``p_intra`` (deblock off) the I16-in-P passes.
+
 :class:`ChunkStep` is one chunk configuration.  On the card the step
 captures the body once into a ``torch.cuda.CUDAGraph`` and replays
 it for each chunk: the staged frames, the reference, the slice-header
@@ -62,6 +68,7 @@ def wrappers() -> dict:
     """The kernel wrappers a chunk body may call, by name."""
     from . import (bitmerge, cabac_binarize, cavlc_p_device, color,
                    damage_mask, h264_deblock, h264_inter)
+    from . import aq
     return {"color_frames": color.rgb_to_yuv420_frames,
             "inter": h264_inter.encode_p_frame,
             "inter_rows": h264_inter.encode_p_frame_rows,
@@ -69,7 +76,14 @@ def wrappers() -> dict:
             "pack_p": bitmerge.pack_p_frame,
             "binarize_p": cabac_binarize.binarize_p,
             "deblock": h264_deblock.deblock_frame,
-            "scatter_rows": damage_mask.scatter_rows}
+            "scatter_rows": damage_mask.scatter_rows,
+            "qp_plane": aq.qp_plane,
+            "inter_hq": h264_inter.encode_p_frame.hq,
+            "inter_i16": h264_inter.encode_p_frame.i16,
+            "inter_merge": h264_inter.encode_p_frame.merge,
+            "cavlc_p_slots_hq": cavlc_p_device.p_frame_slots.hq,
+            "cavlc_p_chain": cavlc_p_device.p_frame_slots.chain,
+            "pack_p_hq": bitmerge.pack_p_frame.hq}
 
 
 def reset_counts() -> None:
@@ -102,11 +116,13 @@ _LEVEL_KEYS = ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
 
 def chunk_body(frames, ref_y, ref_cb, ref_cr, hv, hl, rows, qp: int, *,
                deblock: bool, entropy: str, ingest: str, pad_h: int,
-               pad_w: int, qp_dev=None) -> ChunkOut:
+               pad_w: int, qp_dev=None, tune: str = "off",
+               p_intra: bool = False) -> ChunkOut:
     """The chunk as the port's kernels: ``frames`` is ``(rgbs,)`` (K, h,
     w, 3) under rgb ingest, else ``(ys, cbs, crs)`` padded planes;
     ``hv``/``hl`` the K frames' slice-header slots (K, rows, 3) (None
-    under CABAC); ``rows`` (K, b) the damage worklists or None."""
+    under CABAC); ``rows`` (K, b) the damage worklists or None; ``tune``
+    and ``p_intra`` the P stage's kernel tier."""
     from . import (cabac_binarize, cavlc_p_device, color, damage_mask,
                    h264_deblock, h264_inter)
 
@@ -136,17 +152,28 @@ def chunk_body(frames, ref_y, ref_cb, ref_cr, hv, hl, rows, qp: int, *,
            "cb_ac": torch.empty((k, nr, nc, 4, 15), **i32),
            "cr_dc": torch.empty((k, nr, nc, 4), **i32),
            "cr_ac": torch.empty((k, nr, nc, 4, 15), **i32)}
+    if tune == "hq":
+        lvs["qp_map"] = torch.empty((k, nr, nc), **i32)
+    if p_intra:
+        lvs["mb_intra"] = torch.empty((k, nr, nc), dtype=torch.bool,
+                                      device=dev)
+        lvs["i16_dc"] = torch.empty((k, nr, nc, 16), **i32)
+        lvs["i16_ac"] = torch.empty((k, nr, nc, 16, 15), **i32)
     for i in range(k):
         out = dict({key: v[i] for key, v in lvs.items()}, mv=mvs[i])
+        # the full tier's lookahead: frame i sees i + 1, the last itself
+        next_y = ys[min(i + 1, k - 1)] if tune == "hq" else None
         if entropy == "cavlc":
             flat, ny, ncb, ncr, mv, nnz, _ = \
                 cavlc_p_device.encode_p_cavlc_frame(
                     ys[i], cbs[i], crs[i], ry, rcb, rcr, hv[i], hl[i], qp,
-                    qp_dev=qp_dev, out=out)
+                    qp_dev=qp_dev, out=out, tune=tune, next_y=next_y,
+                    p_intra=p_intra)
             filt = dict(nnz_blk=nnz)
         else:
             o = h264_inter.encode_p_frame(ys[i], cbs[i], crs[i], ry, rcb,
-                                          rcr, qp, qp_dev=qp_dev, out=out)
+                                          rcr, qp, qp_dev=qp_dev, out=out,
+                                          tune=tune)
             flat = cabac_binarize.binarize_p(
                 o["mv"], *(o[key] for key in _LEVEL_KEYS))
             ny, ncb, ncr, mv = (o["recon_y"], o["recon_cb"], o["recon_cr"],
@@ -234,7 +261,8 @@ class ChunkStep:
     def __init__(self, *, chunk: int, pad_h: int, pad_w: int,
                  deblock: bool = True, entropy: str = "cavlc",
                  ingest: str = "yuv", damage_bucket: int = 0, device=None,
-                 budget: GraphBudget = None):
+                 budget: GraphBudget = None, tune: str = "off",
+                 p_intra: bool = False):
         if entropy not in ("cavlc", "cabac"):
             raise ValueError(f"unknown chunk entropy {entropy!r}")
         if ingest not in ("yuv", "rgb"):
@@ -242,6 +270,21 @@ class ChunkStep:
         if damage_bucket > 0 and (entropy != "cavlc" or ingest != "yuv"):
             raise ValueError("a masked chunk requires cavlc entropy and yuv "
                              "ingest")
+        if tune not in ("off", "hq_noaq", "hq"):
+            raise ValueError(f"unknown tune {tune!r}")
+        if tune == "hq" and entropy == "cabac":
+            # the record stream has no qp plumbing: the encoder keeps
+            # full-tier CABAC on the per-frame host route
+            raise ValueError("a tune=hq chunk requires cavlc entropy")
+        if p_intra and (entropy != "cavlc" or deblock or tune == "off"):
+            raise ValueError("p_intra requires tune=hq/hq_noaq, cavlc "
+                             "entropy and deblock off")
+        if damage_bucket > 0 and tune != "off":
+            raise NotImplementedError(
+                "a damage-masked chunk with tune != 'off' is not ported to "
+                "the PyTorch/CUDA encoder yet (ROADMAP queue 1 item 10, "
+                "masked)")
+        self.tune, self.p_intra = tune, bool(p_intra)
         self.chunk = int(chunk)
         self.pad_h, self.pad_w = pad_h, pad_w
         self.deblock = bool(deblock)
@@ -267,7 +310,8 @@ class ChunkStep:
         return chunk_body(frames, *refs, hv, hl, rows, qp,
                           deblock=self.deblock, entropy=self.entropy,
                           ingest=self.ingest, pad_h=self.pad_h,
-                          pad_w=self.pad_w, qp_dev=qp_dev)
+                          pad_w=self.pad_w, qp_dev=qp_dev, tune=self.tune,
+                          p_intra=self.p_intra)
 
     def run_eager(self, frames, refs, hv, hl, rows, qp: int) -> ChunkOut:
         """The body on the step's device without a graph (the plain

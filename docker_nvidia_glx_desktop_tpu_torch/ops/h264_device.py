@@ -1,15 +1,20 @@
 """H.264 intra core (K1): I-slice transform/quant/recon of one frame.
 
 Replaces the reference's ``ops/h264_device.py`` ``encode_intra_frame_yuv``
-(``i16_modes="auto"``, ``tune="off"``).  Each macroblock row is its own
-slice, so intra prediction only references the MB to the left: the rows
-are independent and the left MB's reconstructed right column is the carry
-along a row.  Per MB the core codes I16x16 DC and Horizontal, the I4x4
-fast mode sets (row 0 of blocks: H / HU / DC-left, sequential along x;
-rows 1-3: V / DDL / VL, the four blocks of a row in parallel), picks by
-estimated CAVLC bits (``_level_bits_est``; I4 pays a 44-bit signalling
-bias), and codes chroma with DC prediction.  Outputs are the reference's
-dict: same keys, int32 levels, zigzag / luma4x4BlkIdx orders.
+(``i16_modes="auto"``; ``tune`` "off", "hq_noaq" and "hq").  Each
+macroblock row is its own slice, so intra prediction only references the
+MB to the left: the rows are independent and the left MB's reconstructed
+right column is the carry along a row.  Per MB the core codes I16x16 DC
+and Horizontal, the I4x4 fast mode sets (row 0 of blocks: H / HU /
+DC-left, sequential along x; rows 1-3: V / DDL / VL, the four blocks of a
+row in parallel), picks by estimated CAVLC bits (``_level_bits_est``; I4
+pays a 44-bit signalling bias), and codes chroma with DC prediction.
+Under tune=hq every choice minimises the Lagrangian ``SSD + lam * bits``
+in float32 instead, in the reference's order of operations (its
+multiply-adds are fused, as XLA's CPU backend contracts them); full
+``hq`` quantises each MB at its qp from the qp plane (K14, ``ops/aq``)
+and outputs that plane as ``qp_map``.  Outputs are the reference's dict:
+same keys, int32 levels, zigzag / luma4x4BlkIdx orders.
 
 ``encode_intra_frame_yuv`` runs the CUDA kernel (``csrc/intra.cu``) for
 CUDA tensors and :func:`encode_intra_frame_yuv_plain` for CPU tensors.
@@ -20,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _cuda, quant
+from . import _cuda, aq, quant
 from .dct import fdct4x4 as _fwd4x4
 from .dct import hadamard2x2 as _had2
 from .dct import hadamard4x4 as _had4
@@ -73,6 +78,27 @@ def _level_bits_est(lv: torch.Tensor, dims) -> torch.Tensor:
     return (3 * nz + 2 * extra).sum(dim=dims, dtype=torch.int32)
 
 
+def fma32(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once (a fused multiply-add): the
+    product is exact in float64, the sum's error is recovered (TwoSum)
+    and decides the one case float64 rounding could get wrong, a sum
+    exactly halfway between two float32 values."""
+    a64 = torch.as_tensor(a).to(torch.float64)
+    b64 = torch.as_tensor(b).to(torch.float64)
+    c64 = torch.as_tensor(c).to(torch.float64)
+    p = a64 * b64
+    s = p + c64
+    bp = s - p
+    err = (p - (s - bp)) + (c64 - bp)
+    r = s.to(torch.float32)
+    r64 = r.to(torch.float64)
+    inf = torch.full_like(r, float("inf"))
+    other = torch.nextafter(r, torch.where(s > r64, inf, -inf))
+    mid = (s != r64) & ((s - r64).abs() == (other.to(torch.float64) - s).abs())
+    toward = (err > 0) == (other > r)
+    return torch.where(mid & (err != 0) & toward, other, r)
+
+
 def _blocks(mb: torch.Tensor, n: int) -> torch.Tensor:
     """(..., 4n, 4n) MB -> (..., by, bx, 4, 4)."""
     s = mb.shape
@@ -103,16 +129,29 @@ def _i16_candidate(ymb, pred, qp):
     return ac, dcl, recon, bits
 
 
-def _luma_step(ymb, left_col, has_left, qp):
+def _ssd(recon, src, dims):
+    d = recon - src
+    return (d * d).sum(dim=dims, dtype=torch.int32)
+
+
+def _luma_step(ymb, left_col, has_left, qp, lam=None):
     """I16 DC and Horizontal for one MB column across all rows; keeps H
-    only where it has a left MB and strictly fewer estimated bits."""
+    only where it has a left MB and strictly fewer estimated bits, or
+    (``lam``, tune=hq: float32 (R,)) a strictly lower SSD + lam * bits."""
     psum = (left_col.sum(dim=-1, dtype=torch.int32) + 8) >> 4
     pred_dc = (psum if has_left else torch.full_like(psum, 128))
     pred_dc = pred_dc[:, None, None].expand(ymb.shape)
     ac, dcl, recon, bits = _i16_candidate(ymb, pred_dc, qp)
     pred_h = left_col[:, :, None].expand(ymb.shape)
     ac_h, dcl_h, recon_h, bits_h = _i16_candidate(ymb, pred_h, qp)
-    use_h = (bits_h < bits) & has_left
+    if lam is not None:
+        score = fma32(lam, bits.float(), _ssd(recon, ymb, (1, 2)).float())
+        score_h = fma32(lam, bits_h.float(),
+                        _ssd(recon_h, ymb, (1, 2)).float())
+        use_h = (score_h < score) & has_left
+        bits, bits_h = score, score_h
+    else:
+        use_h = (bits_h < bits) & has_left
     score = torch.where(use_h, bits_h, bits)
     sel = lambda a, b: torch.where(
         use_h.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
@@ -173,9 +212,36 @@ def _vert_preds(p8):
     return _grid(lambda y, x: p[x]), _grid(ddl), _grid(vl)
 
 
-def _i4_code_block(blk, preds, modes, legal, qp):
+def _i4_code_block(blk, preds, modes, legal, qp, lam=None):
     """Code every candidate, keep the cheapest by estimated bits (first on
-    ties).  Returns (mode, levels_zz (..., 16), recon (..., 4, 4), bits)."""
+    ties), or (``lam``, tune=hq) by SSD + lam * bits, where an illegal
+    candidate scores +inf.  Returns (mode, levels_zz (..., 16), recon
+    (..., 4, 4), bits or score)."""
+    zz = torch.as_tensor(ZIGZAG4, dtype=torch.long, device=blk.device)
+    if lam is not None:
+        qb = qp if not isinstance(qp, torch.Tensor) else \
+            qp.reshape(qp.shape + (1,) * (blk.dim() - 2 - qp.dim()))
+        lam_b = lam.reshape(lam.shape + (1,) * (blk.dim() - 2 - lam.dim()))
+        cands = []
+        for p, lg in zip(preds, legal):
+            lv = quant.h264_quantize_4x4(_fwd4x4(blk - p), qb, intra=True)
+            rec = torch.clamp(
+                p + _inv4x4(quant.h264_dequantize_4x4(lv, qb)), 0, 255)
+            c = fma32(lam_b, _level_bits_est(lv, (-2, -1)).float(),
+                      _ssd(rec, blk, (-2, -1)).float())
+            if lg is not True:
+                c = torch.where(lg, c, torch.full_like(c, float("inf")))
+            cands.append((lv, rec, c))
+        c = torch.stack([cd[2] for cd in cands])
+        k = torch.argmin(c, dim=0)
+        score = c.min(dim=0).values
+        lv, rec = cands[0][0], cands[0][1]
+        for i in range(1, len(cands)):
+            m = (k == i)[..., None, None]
+            lv = torch.where(m, cands[i][0], lv)
+            rec = torch.where(m, cands[i][1], rec)
+        mode = torch.as_tensor(modes, dtype=torch.int32, device=blk.device)[k]
+        return mode, lv.reshape(lv.shape[:-2] + (16,))[..., zz], rec, score
     cands = []
     for p, lg in zip(preds, legal):
         lv = quant.h264_quantize_4x4(_fwd4x4(blk - p), qp, intra=True)
@@ -194,19 +260,20 @@ def _i4_code_block(blk, preds, modes, legal, qp):
     mode = torch.as_tensor(modes, dtype=torch.int32, device=blk.device)[k]
     rec = torch.clamp(pred + _inv4x4(quant.h264_dequantize_4x4(lv, qp)),
                       0, 255)
-    zz = torch.as_tensor(ZIGZAG4, dtype=torch.long, device=blk.device)
     lvz = lv.reshape(lv.shape[:-2] + (16,))[..., zz]
     return mode, lvz, rec, bits
 
 
-def _luma_step_i4(ymb, left_col, has_left, qp):
+def _luma_step_i4(ymb, left_col, has_left, qp, lam=None):
     """I4x4 candidate for one MB column across all rows: (levels (R, 16
-    blkIdx, 16 zigzag), modes (R, 16 blkIdx), recon (R, 16, 16), bits)."""
+    blkIdx, 16 zigzag), modes (R, 16 blkIdx), recon (R, 16, 16), bits;
+    under tune=hq the float32 score, summed in the reference's order)."""
     nr = ymb.shape[0]
     dev = ymb.device
     rec = torch.zeros_like(ymb)
     raster_mode, raster_lvz = {}, {}
-    bits_total = torch.zeros((nr,), dtype=torch.int32, device=dev)
+    bits_total = torch.zeros((nr,), dtype=torch.int32 if lam is None
+                             else torch.float32, device=dev)
     avail_left = torch.full((nr,), bool(has_left), device=dev)
     for bx in range(4):                        # block row 0: left family
         blk = ymb[:, 0:4, bx * 4:bx * 4 + 4]
@@ -221,11 +288,12 @@ def _luma_step_i4(ymb, left_col, has_left, qp):
         pred_dc = dc[:, None, None].expand(nr, 4, 4)
         mode, lvz, rb, bits = _i4_code_block(
             blk, [pred_h, _hu_pred(left4), pred_dc], [1, 8, 2],
-            [avail, avail, True], qp)
+            [avail, avail, True], qp, lam)
         rec[:, 0:4, bx * 4:bx * 4 + 4] = rb
         raster_mode[(0, bx)] = mode
         raster_lvz[(0, bx)] = lvz
-        bits_total = bits_total + torch.clamp(bits, max=1 << 24)
+        bits_total = bits_total + torch.clamp(
+            bits, max=(1 << 24) if lam is None else 1e18)
     for by in range(1, 4):                     # rows 1-3: vertical family
         blks = ymb[:, by * 4:by * 4 + 4, :].reshape(nr, 4, 4, 4)
         blks = blks.permute(0, 2, 1, 3)                      # (R, bx, y, x)
@@ -235,12 +303,17 @@ def _luma_step_i4(ymb, left_col, has_left, qp):
         avail_tr = torch.as_tensor(_TR_AVAIL[by], device=dev)[None, :, None]
         p8 = torch.cat([trow, torch.where(avail_tr, tr, sub)], dim=2)
         mode, lvz, rb, bits = _i4_code_block(
-            blks, list(_vert_preds(p8)), [0, 3, 7], [True, True, True], qp)
+            blks, list(_vert_preds(p8)), [0, 3, 7], [True, True, True], qp,
+            lam)
         rec[:, by * 4:by * 4 + 4, :] = rb.permute(0, 2, 1, 3).reshape(nr, 4, 16)
         for bx in range(4):
             raster_mode[(by, bx)] = mode[:, bx]
             raster_lvz[(by, bx)] = lvz[:, bx]
-        bits_total = bits_total + bits.sum(dim=1, dtype=torch.int32)
+        if lam is None:
+            bits_total = bits_total + bits.sum(dim=1, dtype=torch.int32)
+        else:       # XLA reduces the four scores in order
+            bits_total = bits_total + (((bits[:, 0] + bits[:, 1])
+                                        + bits[:, 2]) + bits[:, 3])
     modes = torch.stack([raster_mode[(by, bx)]
                          for (bx, by) in LUMA_BLOCK_ORDER], dim=1)
     levels = torch.stack([raster_lvz[(by, bx)]
@@ -249,9 +322,11 @@ def _luma_step_i4(ymb, left_col, has_left, qp):
 
 
 def encode_intra_frame_yuv_plain(y: torch.Tensor, cb: torch.Tensor,
-                                 cr: torch.Tensor, qp: int) -> dict:
+                                 cr: torch.Tensor, qp: int,
+                                 tune: str = "off", qp_map=None) -> dict:
     """Plain PyTorch version of K1: a loop over MB columns, vectorized
-    over MB rows.  Same contract as :func:`encode_intra_frame_yuv`."""
+    over MB rows.  Same contract as :func:`encode_intra_frame_yuv`, with
+    the full tier's ``qp_map`` given."""
     y = y.to(torch.int32)
     cb = cb.to(torch.int32)
     cr = cr.to(torch.int32)
@@ -259,6 +334,17 @@ def encode_intra_frame_yuv_plain(y: torch.Tensor, cb: torch.Tensor,
     pad_h, pad_w = y.shape
     nr, nc = pad_h // 16, pad_w // 16
     qp_c = quant.chroma_qp(qp)
+    lam = sig = None
+    if tune != "off":
+        lam_tab, _, sig_tab = aq.lam_tables(tune)
+        lam_tab = torch.as_tensor(lam_tab, device=dev)
+        if tune == "hq":
+            qpm = qp_map.to(device=dev, dtype=torch.long)
+            lam_map = lam_tab[qpm]
+            qc_map = quant.chroma_qp_v(qp_map.to(dev))
+        else:
+            lam = lam_tab[int(qp)].expand(nr)
+            sig = torch.tensor(float(sig_tab[int(qp)]), dtype=torch.float32)
     ymbs = y.reshape(nr, 16, nc, 16).permute(2, 0, 1, 3)     # (C, R, 16, 16)
     cbmbs = cb.reshape(nr, 8, nc, 8).permute(2, 0, 1, 3)
     crmbs = cr.reshape(nr, 8, nc, 8).permute(2, 0, 1, 3)
@@ -269,12 +355,22 @@ def encode_intra_frame_yuv_plain(y: torch.Tensor, cb: torch.Tensor,
     for c in range(nc):
         has_left = c > 0
         ymb = ymbs[c]
-        y_ac, y_dc, y_rec, y_mode, bits16 = _luma_step(ymb, yl, has_left, qp)
-        lv4, modes4, rec4, bits4 = _luma_step_i4(ymb, yl, has_left, qp)
-        use4 = bits4 + I4_SIG_BITS < bits16
+        qp_s, qc_s = qp, qp_c
+        if tune == "hq":
+            qp_s, qc_s, lam = qp_map[:, c].to(dev), qc_map[:, c], lam_map[:, c]
+        y_ac, y_dc, y_rec, y_mode, bits16 = _luma_step(ymb, yl, has_left,
+                                                       qp_s, lam)
+        lv4, modes4, rec4, bits4 = _luma_step_i4(ymb, yl, has_left, qp_s,
+                                                 lam)
+        if lam is None:
+            use4 = bits4 + I4_SIG_BITS < bits16
+        elif sig is None:
+            use4 = fma32(lam, torch.tensor(float(I4_SIG_BITS)), bits4) < bits16
+        else:
+            use4 = bits4 + sig < bits16
         y_rec = torch.where(use4[:, None, None], rec4, y_rec)
-        cb_ac, cb_dc, cb_rec = _chroma_step(cbmbs[c], cbl, has_left, qp_c)
-        cr_ac, cr_dc, cr_rec = _chroma_step(crmbs[c], crl, has_left, qp_c)
+        cb_ac, cb_dc, cb_rec = _chroma_step(cbmbs[c], cbl, has_left, qc_s)
+        cr_ac, cr_dc, cr_rec = _chroma_step(crmbs[c], crl, has_left, qc_s)
         yl, cbl, crl = y_rec[:, :, 15], cb_rec[:, :, 7], cr_rec[:, :, 7]
         outs.append((y_ac, y_dc, cb_ac, cb_dc, cr_ac, cr_dc, y_rec, cb_rec,
                      cr_rec, y_mode, lv4, modes4, use4))
@@ -292,7 +388,7 @@ def encode_intra_frame_yuv_plain(y: torch.Tensor, cb: torch.Tensor,
     def plane(rec, n):
         return rec.permute(0, 2, 1, 3).reshape(nr * n, nc * n).to(torch.uint8)
 
-    return {
+    out = {
         "luma_dc": y_dc.reshape(nr, nc, 16)[..., zz],        # (R, C, 16)
         "luma_ac": y_acf,                                    # (R, C, 16, 15)
         "cb_dc": cb_dc.reshape(nr, nc, 4),                   # (R, C, 4)
@@ -307,6 +403,9 @@ def encode_intra_frame_yuv_plain(y: torch.Tensor, cb: torch.Tensor,
         "recon_cb": plane(cb_rec, 8),
         "recon_cr": plane(cr_rec, 8),
     }
+    if tune == "hq":
+        out["qp_map"] = qp_map.to(device=dev, dtype=torch.int32)
+    return out
 
 
 def _check_planes(y, cb, cr):
@@ -324,18 +423,28 @@ def _check_planes(y, cb, cr):
 
 
 def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
-                           cr: torch.Tensor, qp: int) -> dict:
+                           cr: torch.Tensor, qp: int, tune: str = "off",
+                           next_y=None) -> dict:
     """YUV 4:2:0 uint8 planes (padded to MB multiples) -> level tensors,
     modes and recon planes (the reference's output dict).
 
+    ``tune``: the kernel tier, "off", "hq_noaq" (Lagrangian decisions at
+    the slice qp) or "hq" (those at each MB's qp from the qp plane, K14,
+    biased by the next frame's luma ``next_y`` where given; the plane is
+    the output's ``qp_map``).
+
     CUDA tensors launch the kernel (one CUDA block per MB row: the left
-    MB's recon is the only dependency); CPU tensors run the plain version.
+    MB's recon is the only dependency; the tiers are compile-time forms
+    of it); CPU tensors run the plain version.
     """
     _check_planes(y, cb, cr)
     if not 0 <= int(qp) <= 51:
         raise ValueError(f"qp {qp} outside 0..51")
+    if tune not in aq.TIERS:
+        raise ValueError(f"unknown tune {tune!r}")
+    qp_map = aq.qp_plane(y, qp, next_y) if tune == "hq" else None
     if y.device.type == "cpu":
-        return encode_intra_frame_yuv_plain(y, cb, cr, int(qp))
+        return encode_intra_frame_yuv_plain(y, cb, cr, int(qp), tune, qp_map)
     pad_h, pad_w = y.shape
     nr, nc = pad_h // 16, pad_w // 16
     dev = y.device
@@ -356,14 +465,24 @@ def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
     keys = ("luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc", "cr_ac",
             "pred_mode", "mb_i4", "i4_modes", "luma_i4",
             "recon_y", "recon_cb", "recon_cr")
-    _cuda.launch("intra", "intra_frame_launch",
-                 [y, cb, cr] + [out[k] for k in keys],
-                 [nr, nc, int(qp), quant.chroma_qp(int(qp))], dev)
-    encode_intra_frame_yuv.launches += 1
+    ints = [nr, nc, int(qp), quant.chroma_qp(int(qp))]
+    if tune == "off":
+        _cuda.launch("intra", "intra_frame_launch",
+                     [y, cb, cr] + [out[k] for k in keys], ints, dev)
+        encode_intra_frame_yuv.launches += 1
+        return out
+    lam, sig, _ = aq.device_tables(tune, dev)
+    _cuda.launch("intra", "intra_frame_hq_launch",
+                 [y, cb, cr] + [out[k] for k in keys] + [qp_map, lam, sig],
+                 ints + [aq.TIERS.index(tune)], dev)
+    encode_intra_frame_yuv.hq.launches += 1
+    if qp_map is not None:
+        out["qp_map"] = qp_map
     return out
 
 
 encode_intra_frame_yuv.launches = 0
+encode_intra_frame_yuv.hq = _cuda.Counter()     # the tune=hq forms
 
 
 def encode_intra_frame(rgb: torch.Tensor, pad_h: int, pad_w: int,

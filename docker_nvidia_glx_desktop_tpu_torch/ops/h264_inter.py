@@ -2,8 +2,8 @@
 residual transform/quant and the closed-loop reconstruction of one frame.
 
 Replaces the reference's ``ops/h264_inter.py`` ``encode_p_frame`` /
-``encode_p_frame_padded_ref`` for ``refine="alt"``, ``tune="off"``,
-``p_intra=False``.  Each MB row is its own slice, so the MV predictor is
+``encode_p_frame_padded_ref`` for ``refine="alt"``, every ``tune`` tier
+and ``p_intra``.  Each MB row is its own slice, so the MV predictor is
 the left MB's MV and motion search has no cross-MB dependency.  Per MB:
 
 - coarse integer search: the 81 shifts of a step-2 grid over +-SEARCH_R
@@ -17,7 +17,14 @@ the left MB's MV and motion search has no cross-MB dependency.  Per MB:
   ``min + QUARTER_BIAS/2 < current`` — both on even lines;
 - the luma prediction at the final quarter-pel MV, chroma by the 1/8-pel
   bilinear filter, 16 inter 4x4 luma blocks (no DC Hadamard), chroma
-  with the 2x2 DC Hadamard, inter rounding (f = 2^qbits / 6).
+  with the 2x2 DC Hadamard, inter rounding (f = 2^qbits / 6);
+- under tune=hq (``_hq_decisions``): the margins above become
+  ``(int)(lam_mv * bits)`` per qp (``aq.margin_tables``), the full tier
+  quantises at each MB's qp, a zero-MV MB is forced to P_Skip where its
+  skip SSD is at most its coded SSD + lam * (bits + 12), and with
+  ``p_intra`` an MB becomes I16x16 (DC) where its SSD + lam * (bits + 11)
+  is below the inter score, kept only at the even positions of each run
+  of such MBs along a row (so no intra MB has an intra left neighbour).
 
 The reference reads an edge-padded copy of the reference planes; every
 read the MV range reaches stays inside that padding, so the port clamps
@@ -38,9 +45,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _cuda, quant
+from . import _cuda, aq, quant
 from .dct import fdct4x4, hadamard2x2, idct4x4
-from .h264_device import LUMA_BLOCK_ORDER, _blocks, _check_planes, _unblocks
+from .h264_device import (LUMA_BLOCK_ORDER, _blocks, _check_planes,
+                          _i16_candidate, _level_bits_est, _unblocks, fma32)
 from .scan import ZIGZAG4
 
 SEARCH_R = 8          # +-8 luma pels integer search -> 17x17 candidates
@@ -52,6 +60,11 @@ _PAD = SEARCH_R + 5   # MV range + 6-tap reach + quarter-pel +1 neighbor
 # The refinement stages score every other luma line (refine="alt"), so
 # their SADs and biases are on half scale.
 _SCALE = 2
+
+# tune=hq rate model (bits): the header bits a forced skip removes, and
+# the I16-in-P header (mb_type ue + chroma mode + qp delta)
+_RATE_SKIP_SIG_BITS = 12.0
+_RATE_I16_HDR_BITS = 11.0
 
 # neighbours of a refinement centre, dy outer, dx inner
 NEIGHBORS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
@@ -137,10 +150,14 @@ def _padded_refs(ref_y, ref_cb, ref_cr):
                  for p in (ref_y, ref_cb, ref_cr))
 
 
-def encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int) -> dict:
+def encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
+                         tune: str = "off", qp_map=None,
+                         p_intra: bool = False) -> dict:
     """Plain PyTorch version of K5 (whole-frame tensor ops, the
-    reference's stage order).  Same contract as :func:`encode_p_frame`."""
-    return _p_core_plain(y, cb, cr, *_padded_refs(ref_y, ref_cb, ref_cr), qp)
+    reference's stage order).  Same contract as :func:`encode_p_frame`,
+    with the full tier's ``qp_map`` given."""
+    return _p_core_plain(y, cb, cr, *_padded_refs(ref_y, ref_cb, ref_cr), qp,
+                         tune, qp_map, p_intra)
 
 
 def encode_p_frame_rows_plain(y, cb, cr, ref_y, ref_cb, ref_cr, rows,
@@ -160,7 +177,9 @@ def encode_p_frame_rows_plain(y, cb, cr, ref_y, ref_cb, ref_cr, rows,
     return {k: torch.cat([o[k] for o in outs]) for k in _OUT_KEYS}
 
 
-def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int) -> dict:
+def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int,
+                  tune: str = "off", qp_map=None,
+                  p_intra: bool = False) -> dict:
     """The P core over int32 references edge-padded by ``_PAD``."""
     y = y.to(torch.int32)
     cb = cb.to(torch.int32)
@@ -168,7 +187,20 @@ def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int) -> dict:
     dev = y.device
     pad_h, pad_w = y.shape
     nr, nc = pad_h // 16, pad_w // 16
-    qp_c = quant.chroma_qp(qp)
+    qp_q, qp_c = qp, quant.chroma_qp(qp)
+    lam_d = None
+    zb, hb, qb = ZERO_MV_BIAS // 2, HALF_BIAS // _SCALE, QUARTER_BIAS // _SCALE
+    if tune != "off":
+        lam_tab = torch.as_tensor(aq.lam_tables(tune)[0], device=dev)
+        marg = torch.as_tensor(aq.margin_tables(tune), device=dev)
+        qi = (qp_map.to(device=dev, dtype=torch.long) if tune == "hq"
+              else torch.full((nr, nc), int(qp), dtype=torch.long,
+                              device=dev))
+        lam_d = lam_tab[qi]
+        zb, hb, qb = (marg[i][qi] for i in range(3))
+        if tune == "hq":
+            qp_q = qp_map.to(device=dev, dtype=torch.int32)
+            qp_c = quant.chroma_qp_v(qp_q)
     rows = torch.arange(nr, device=dev)[:, None].expand(nr, nc)
     cols = torch.arange(nc, device=dev)[None, :].expand(nr, nc)
 
@@ -182,7 +214,7 @@ def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int) -> dict:
             dim=(1, 3), dtype=torch.int32))
     sads = torch.stack(sads)
     zero_idx = sads.shape[0] // 2
-    sads[zero_idx] -= ZERO_MV_BIAS // 2
+    sads[zero_idx] -= zb
     best, _ = _first_argmin(sads)
     mv_coarse = shifts[best]                                # (R, C, 2)
 
@@ -202,8 +234,7 @@ def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int) -> dict:
     int_sads = torch.stack([sad(w18[:, :, 1 + oy:17 + oy:2, 1 + ox:17 + ox])
                             for oy, ox in cands])
     is_zero = (mv_coarse == 0).all(dim=-1)
-    int_sads[0] -= torch.where(is_zero, ZERO_MV_BIAS // _SCALE, 0).to(
-        torch.int32)
+    int_sads[0] -= torch.where(is_zero, zb, 0).to(torch.int32)
     best_int, best_sad = _first_argmin(int_sads)
     mv_int = mv_coarse + torch.as_tensor(cands, device=dev)[best_int]
 
@@ -219,7 +250,7 @@ def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int) -> dict:
         sad(wslice((oy & 1) * 2 + (ox & 1), oy >> 1, ox >> 1))
         for oy, ox in NEIGHBORS])
     best_half, half_min = _first_argmin(half_sads)
-    use_half = half_min + HALF_BIAS // _SCALE < best_sad
+    use_half = half_min + hb < best_sad
     mv_h = mv_int * 2 + torch.where(use_half[..., None], nb[best_half], 0)
     sad_h = torch.where(use_half, half_min, best_sad)
 
@@ -246,7 +277,7 @@ def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int) -> dict:
                 pk = torch.where(m, qpred(ey >> 2, ex >> 2, ey & 3, ex & 3), pk)
         q_sads.append(sad(pk))
     best_q, q_min = _first_argmin(torch.stack(q_sads))
-    use_q = q_min + QUARTER_BIAS // _SCALE < sad_h
+    use_q = q_min + qb < sad_h
     mv = mv_h * 2 + torch.where(use_q[..., None], nb[best_q], 0)
 
     # --- final luma prediction at the chosen quarter-pel MV ---------------
@@ -284,10 +315,10 @@ def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int) -> dict:
                 + xf * yf * wc[:, :, 1:9, 1:9] + 32) >> 6
 
     # --- luma residual: 16 inter 4x4 blocks -------------------------------
-    lv = quant.h264_quantize_4x4(fdct4x4(_blocks(cur_y - pred_y, 4)), qp,
+    lv = quant.h264_quantize_4x4(fdct4x4(_blocks(cur_y - pred_y, 4)), qp_q,
                                  intra=False)
     recon_y = torch.clamp(
-        pred_y + _unblocks(idct4x4(quant.h264_dequantize_4x4(lv, qp))),
+        pred_y + _unblocks(idct4x4(quant.h264_dequantize_4x4(lv, qp_q))),
         0, 255)
     zz = torch.as_tensor(ZIGZAG4, dtype=torch.long, device=dev)
     blk_y = torch.as_tensor(LUMA_BLOCK_ORDER[:, 1], dtype=torch.long,
@@ -312,27 +343,161 @@ def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int) -> dict:
     def mbs(plane, n):
         return plane.reshape(nr, n, nc, n).permute(0, 2, 1, 3)
 
-    cb_ac, cb_dc, rec_cb = chroma(mbs(cb, 8), mc_chroma(ref_pad_cb))
-    cr_ac, cr_dc, rec_cr = chroma(mbs(cr, 8), mc_chroma(ref_pad_cr))
+    cur_cb, cur_cr = mbs(cb, 8), mbs(cr, 8)
+    pred_cb, pred_cr = mc_chroma(ref_pad_cb), mc_chroma(ref_pad_cr)
+    cb_ac, cb_dc, rec_cb = chroma(cur_cb, pred_cb)
+    cr_ac, cr_dc, rec_cr = chroma(cur_cr, pred_cr)
+    extra = {}
+    if lam_d is not None:
+        luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb, rec_cr, extra = \
+            _hq_decisions(mv, lv, luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y,
+                          rec_cb, rec_cr, pred_y, pred_cb, pred_cr, cur_y,
+                          cur_cb, cur_cr, lam_d, qp_q, p_intra)
+        mv = extra.pop("mv")
+        if tune == "hq":
+            extra["qp_map"] = qp_q
 
     def plane(rec, n):
         return rec.permute(0, 2, 1, 3).reshape(nr * n, nc * n).to(torch.uint8)
 
     i32 = lambda a: a.to(torch.int32).contiguous()
-    return {
+    res = {
         "mv": i32(mv), "luma": i32(luma),
         "cb_dc": i32(cb_dc), "cb_ac": i32(cb_ac),
         "cr_dc": i32(cr_dc), "cr_ac": i32(cr_ac),
         "recon_y": plane(recon_y, 16), "recon_cb": plane(rec_cb, 8),
         "recon_cr": plane(rec_cr, 8),
     }
+    res.update({k: i32(v) if v.dtype != torch.bool else v
+                for k, v in extra.items()})
+    return res
+
+
+def _mb_ssd(a, b) -> torch.Tensor:
+    d = a - b
+    return (d * d).sum(dim=(-2, -1), dtype=torch.int32).to(torch.float32)
+
+
+def _hq_decisions(mv, lv, luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb,
+                  rec_cr, pred_y, pred_cb, pred_cr, cur_y, cur_cb, cur_cr,
+                  lam_d, qp_q, p_intra: bool):
+    """tune=hq's decisions after the residual, as the reference takes
+    them: the Lagrangian forced skip of zero-MV MBs, then (``p_intra``)
+    the I16-in-P candidate of every MB from its left neighbour's
+    skip-merged recon, kept where it scores below the inter candidate and
+    the run-parity gate lets it (no intra MB has an intra left
+    neighbour).  MB-shaped (R, C, ...) tensors in and out; ``extra``
+    holds the new ``mv`` and the I16-in-P outputs."""
+    nr, nc = mv.shape[:2]
+    dev = mv.device
+    zero_mv = (mv == 0).all(dim=-1)
+    bits_mb = (_level_bits_est(lv, (2, 3, 4, 5))
+               + _level_bits_est(cb_ac, (2, 3)) + _level_bits_est(cb_dc, (2,))
+               + _level_bits_est(cr_ac, (2, 3))
+               + _level_bits_est(cr_dc, (2,))).to(torch.float32)
+    d_coded = (_mb_ssd(recon_y, cur_y) + _mb_ssd(rec_cb, cur_cb)
+               + _mb_ssd(rec_cr, cur_cr))
+    d_skip = (_mb_ssd(pred_y, cur_y) + _mb_ssd(pred_cb, cur_cb)
+              + _mb_ssd(pred_cr, cur_cr))
+    coded_score = fma32(lam_d, bits_mb + _RATE_SKIP_SIG_BITS, d_coded)
+    force = zero_mv & (d_skip <= coded_score)
+    f2 = force[:, :, None, None]
+    f1 = force[:, :, None]
+    luma = torch.where(f2, 0, luma)
+    cb_ac, cr_ac = torch.where(f2, 0, cb_ac), torch.where(f2, 0, cr_ac)
+    cb_dc, cr_dc = torch.where(f1, 0, cb_dc), torch.where(f1, 0, cr_dc)
+    recon_y = torch.where(f2, pred_y, recon_y)
+    rec_cb = torch.where(f2, pred_cb, rec_cb)
+    rec_cr = torch.where(f2, pred_cr, rec_cr)
+    extra = {"mv": mv}
+    if not p_intra:
+        return (luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb, rec_cr,
+                extra)
+
+    # --- the I16 (DC) candidate of every MB -----------------------------
+    n = nr * nc
+    has_left = (torch.arange(nc, device=dev) > 0)[None, :].expand(nr, nc)
+    hl = has_left.reshape(n)
+
+    def left_col(rec, k):
+        col = torch.zeros((nr, nc, k), dtype=rec.dtype, device=dev)
+        col[:, 1:] = rec[:, :-1, :, k - 1]
+        return col.reshape(n, k)
+
+    qp_i = qp_q.reshape(n) if isinstance(qp_q, torch.Tensor) else qp_q
+    qc_i = (quant.chroma_qp_v(qp_i) if isinstance(qp_i, torch.Tensor)
+            else quant.chroma_qp(qp_i))
+    psum = (left_col(recon_y, 16).sum(dim=-1, dtype=torch.int32) + 8) >> 4
+    pred_dc = torch.where(hl, psum, 128)[:, None, None].expand(n, 16, 16)
+    ymb = cur_y.reshape(n, 16, 16)
+    ac_i, dc_i, rec_i, bits_y = _i16_candidate(ymb, pred_dc, qp_i)
+
+    def chroma_i(cur, rec):
+        lsum = left_col(rec, 8).reshape(n, 2, 4).sum(dim=-1,
+                                                     dtype=torch.int32)
+        pq = torch.where(hl[:, None], (lsum + 2) >> 2, 128)
+        pred_q = pq[:, :, None, None, None]                # (n, by, 1, 1, 1)
+        w = fdct4x4(_blocks(cur.reshape(n, 8, 8), 2) - pred_q)
+        ac = quant.h264_quantize_4x4(w, qc_i, intra=True)
+        ac[..., 0, 0] = 0
+        dcl = quant.h264_quantize_chroma_dc(hadamard2x2(w[..., 0, 0]), qc_i)
+        wr = quant.h264_dequantize_4x4(ac, qc_i)
+        wr[..., 0, 0] = quant.h264_dequantize_chroma_dc(hadamard2x2(dcl),
+                                                        qc_i)
+        crec = torch.clamp(pred_q + idct4x4(wr), 0, 255)
+        return ac, dcl, _unblocks(crec)
+
+    cbi_ac, cbi_dc, cbi_rec = chroma_i(cur_cb, rec_cb)
+    cri_ac, cri_dc, cri_rec = chroma_i(cur_cr, rec_cr)
+    bits_i = (bits_y + _level_bits_est(cbi_ac, (1, 2, 3, 4))
+              + _level_bits_est(cbi_dc, (1, 2))
+              + _level_bits_est(cri_ac, (1, 2, 3, 4))
+              + _level_bits_est(cri_dc, (1, 2))).to(torch.float32)
+    d_intra = (_mb_ssd(rec_i, ymb) + _mb_ssd(cbi_rec, cur_cb.reshape(n, 8, 8))
+               + _mb_ssd(cri_rec, cur_cr.reshape(n, 8, 8)))
+    lam_f = lam_d.reshape(n)
+    score_intra = fma32(lam_f, bits_i + _RATE_I16_HDR_BITS, d_intra)
+    score_inter = torch.where(force, d_skip + lam_d, coded_score)
+    want = score_intra.reshape(nr, nc) < score_inter
+
+    # run-parity gate: keep the even positions of each run of wanting MBs
+    idx = torch.arange(nc, device=dev)[None, :].expand(nr, nc)
+    last_not = torch.cummax(torch.where(~want, idx, -1), dim=1).values
+    is_intra = want & ((idx - last_not - 1) % 2 == 0)
+
+    zz = torch.as_tensor(ZIGZAG4, dtype=torch.long, device=dev)
+    blk_y = torch.as_tensor(LUMA_BLOCK_ORDER[:, 1], dtype=torch.long,
+                            device=dev)
+    blk_x = torch.as_tensor(LUMA_BLOCK_ORDER[:, 0], dtype=torch.long,
+                            device=dev)
+    i2 = is_intra[:, :, None, None]
+    i1 = is_intra[:, :, None]
+    chroma_ac = lambda a: a.reshape(n, 4, 16)[..., zz[1:]].reshape(nr, nc, 4,
+                                                                   15)
+    luma = torch.where(i2, 0, luma)
+    extra["mv"] = torch.where(i1, 0, mv)
+    cb_ac = torch.where(i2, chroma_ac(cbi_ac), cb_ac)
+    cr_ac = torch.where(i2, chroma_ac(cri_ac), cr_ac)
+    cb_dc = torch.where(i1, cbi_dc.reshape(nr, nc, 4), cb_dc)
+    cr_dc = torch.where(i1, cri_dc.reshape(nr, nc, 4), cr_dc)
+    recon_y = torch.where(i2, rec_i.reshape(nr, nc, 16, 16), recon_y)
+    rec_cb = torch.where(i2, cbi_rec.reshape(nr, nc, 8, 8), rec_cb)
+    rec_cr = torch.where(i2, cri_rec.reshape(nr, nc, 8, 8), rec_cr)
+    i16_dc = dc_i.reshape(n, 16)[:, zz].reshape(nr, nc, 16)
+    i16_ac = ac_i.reshape(n, 4, 4, 16)[..., zz[1:]][:, blk_y, blk_x]
+    extra["mb_intra"] = is_intra
+    extra["i16_dc"] = torch.where(i1, i16_dc, 0)
+    extra["i16_ac"] = torch.where(i2, i16_ac.reshape(nr, nc, 16, 15), 0)
+    return luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb, rec_cr, extra
 
 
 _OUT_KEYS = ("mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac",
              "recon_y", "recon_cb", "recon_cr")
+_INTRA_KEYS = ("mb_intra", "i16_dc", "i16_ac")
 
 
-def _out_tensors(nb: int, nc: int, like: torch.Tensor, out=None) -> dict:
+def _out_tensors(nb: int, nc: int, like: torch.Tensor, out=None,
+                 keys=_OUT_KEYS) -> dict:
     """The P core's output tensors for ``nb`` MB rows: ``out``'s where
     the caller gives them (views of a chunk's stacks), checked, else new."""
     dev = like.device
@@ -340,10 +505,14 @@ def _out_tensors(nb: int, nc: int, like: torch.Tensor, out=None) -> dict:
               "cb_dc": (nb, nc, 4), "cb_ac": (nb, nc, 4, 15),
               "cr_dc": (nb, nc, 4), "cr_ac": (nb, nc, 4, 15),
               "recon_y": (nb * 16, nc * 16), "recon_cb": (nb * 8, nc * 8),
-              "recon_cr": (nb * 8, nc * 8)}
+              "recon_cr": (nb * 8, nc * 8), "qp_map": (nb, nc),
+              "mb_intra": (nb, nc), "i16_dc": (nb, nc, 16),
+              "i16_ac": (nb, nc, 16, 15)}
     res = {}
-    for k, shape in shapes.items():
-        dt = torch.uint8 if k.startswith("recon") else torch.int32
+    for k in keys:
+        shape = shapes[k]
+        dt = (torch.uint8 if k.startswith("recon") else
+              torch.bool if k == "mb_intra" else torch.int32)
         t = None if out is None else out.get(k)
         if t is None:
             t = torch.empty(shape, dtype=dt, device=dev)
@@ -366,45 +535,99 @@ def _check_qp(qp, qp_dev, device) -> None:
 
 def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
                    refine: str = "alt", tune: str = "off",
-                   p_intra: bool = False, qp_dev=None, out=None) -> dict:
+                   p_intra: bool = False, qp_dev=None, out=None,
+                   next_y=None) -> dict:
     """P core for one frame: current and reference uint8 YUV 4:2:0
     planes (MB-padded) -> MVs, level tensors and recon planes.
+
+    ``tune``: the kernel tier.  "hq_noaq" and "hq" scale the motion
+    margins by lambda, take the Lagrangian forced skip, and (``p_intra``)
+    code an MB I16x16 inside the P slice where that scores lower (the
+    outputs gain ``mb_intra``, ``i16_dc`` and ``i16_ac``); "hq" also
+    quantises at each MB's qp from the qp plane (K14, with the lookahead
+    bias of ``next_y``), output as ``qp_map``.
 
     The reference planes are only read: the recon goes to new buffers
     (``out``'s, where given), so a pipelined caller may keep them.  CUDA
     tensors launch the kernel (one CUDA block per MB: every MB's search
-    and residual is independent); CPU tensors run the plain version.
-    ``qp_dev`` (CUDA only: one int32 on the card) makes the kernel read
-    the slice qp from device memory instead of ``qp``."""
+    and residual is independent; under ``p_intra`` then a pass over every
+    MB's I16 candidate, which reads its left neighbour's recon, and a
+    pass per MB row that gates and merges them); CPU tensors run the
+    plain version.  ``qp_dev`` (CUDA only: one int32 on the card) makes
+    the kernels read the slice qp from device memory instead of ``qp``."""
     if refine != "alt":
         raise NotImplementedError(
             f"refine={refine!r} is not ported to the PyTorch/CUDA encoder "
             "yet (ROADMAP queue 1 item 17)")
-    if tune != "off" or p_intra:
-        raise NotImplementedError(
-            f"tune={tune!r} / p_intra={p_intra} is not ported to the "
-            "PyTorch/CUDA encoder yet (ROADMAP queue 1 item 10)")
+    if tune not in aq.TIERS:
+        raise ValueError(f"unknown tune {tune!r}")
+    if p_intra and tune == "off":
+        raise ValueError("p_intra requires tune=hq/hq_noaq")
     _check_planes(y, cb, cr)
     _check_planes(ref_y, ref_cb, ref_cr)
     if ref_y.shape != y.shape or ref_y.device != y.device:
         raise ValueError("reference planes must match the current frame")
     _check_qp(qp, qp_dev, y.device)
     nr, nc = y.shape[0] // 16, y.shape[1] // 16
+    keys = _OUT_KEYS + (("qp_map",) if tune == "hq" else ()) \
+        + (_INTRA_KEYS if p_intra else ())
+    qp_map = None
+    if tune == "hq":
+        qp_map = aq.qp_plane(y, qp, next_y, qp_dev,
+                             None if out is None else out.get("qp_map"))
     if y.device.type == "cpu":
-        plain = encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, int(qp))
+        plain = encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr,
+                                     int(qp), tune, qp_map, p_intra)
         if out is None:
             return plain
-        res = _out_tensors(nr, nc, y, out)
-        return {k: res[k].copy_(plain[k]) for k in _OUT_KEYS}
-    res = _out_tensors(nr, nc, y, out)
-    _launch(y, cb, cr, ref_y, ref_cb, ref_cr, None, qp_dev, res, nr, nc, nr,
-            qp)
-    encode_p_frame.launches += 1
+        res = _out_tensors(nr, nc, y, out, keys)
+        return {k: res[k].copy_(plain[k]) for k in keys}
+    res = _out_tensors(nr, nc, y, out, keys)
+    if tune == "off":
+        _launch(y, cb, cr, ref_y, ref_cb, ref_cr, None, qp_dev, res, nr, nc,
+                nr, qp)
+        encode_p_frame.launches += 1
+        return res
+    dev = y.device
+    lam, _, marg = aq.device_tables(tune, dev)
+    score = (torch.empty((nr, nc), dtype=torch.float32, device=dev)
+             if p_intra else None)
+    tier = aq.TIERS.index(tune)
+    ints = [nr, nc, int(qp), quant.chroma_qp(int(qp)), tier]
+    _cuda.launch("inter", "inter_frame_hq_launch",
+                 [y, cb, cr, ref_y, ref_cb, ref_cr, qp_dev, qp_map, lam, marg]
+                 + [res[k] for k in _OUT_KEYS] + [score], ints, dev)
+    encode_p_frame.hq.launches += 1
+    if p_intra:
+        n = nr * nc
+        cand = {"want": torch.empty((nr, nc), dtype=torch.uint8, device=dev),
+                "ac": torch.empty((n, 16, 15), dtype=torch.int32, device=dev),
+                "cac": torch.empty((n, 2, 4, 15), dtype=torch.int32,
+                                   device=dev),
+                "cdc": torch.empty((n, 2, 4), dtype=torch.int32, device=dev),
+                "ry": torch.empty((n, 256), dtype=torch.uint8, device=dev),
+                "rc": torch.empty((n, 2, 64), dtype=torch.uint8, device=dev)}
+        _cuda.launch("inter", "inter_i16_launch",
+                     [y, cb, cr, res["recon_y"], res["recon_cb"],
+                      res["recon_cr"], qp_dev, qp_map, lam, score,
+                      cand["want"], res["i16_dc"], cand["ac"], cand["cac"],
+                      cand["cdc"], cand["ry"], cand["rc"]], ints, dev)
+        encode_p_frame.i16.launches += 1
+        _cuda.launch("inter", "inter_merge_launch",
+                     [cand["want"], res["i16_dc"], cand["ac"], cand["cac"],
+                      cand["cdc"], cand["ry"], cand["rc"]]
+                     + [res[k] for k in _OUT_KEYS]
+                     + [res["mb_intra"], res["i16_ac"]], [nr, nc], dev)
+        encode_p_frame.merge.launches += 1
+    if qp_map is not None:
+        res["qp_map"] = qp_map
     return res
 
 
 encode_p_frame.launches = 0
-
+encode_p_frame.hq = _cuda.Counter()      # the tune=hq form (pass 1)
+encode_p_frame.i16 = _cuda.Counter()     # I16-in-P candidates (pass 2)
+encode_p_frame.merge = _cuda.Counter()   # run-parity gate and merge (pass 3)
 
 def _launch(y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, res, nr, nc, nb,
             qp):

@@ -1,8 +1,12 @@
 """H.264 integer quant/dequant (JM/x264 MF/V fixed point; spec §8.5) on
-int32 tensors, for one slice qp (the tune=off path):
+int32 tensors:
 
     level  = sign(w) * ((|w| * MF[qp%6] + f) >> qbits),   qbits = 15 + qp//6
     w'     = level * V[qp%6] << (qp//6)                    (AC dequant)
+
+``qp`` is a slice qp (an int: the tune=off path) or a per-MB int32
+tensor broadcastable to the coefficients' leading dims (tune=hq's qp
+plane); both give the same integers MB by MB.
 """
 
 from __future__ import annotations
@@ -40,9 +44,27 @@ _QPC_HIGH = np.array(
 )
 
 
+# Full 0..51 chroma-QP table (offset 0) for the per-MB qp path.
+QPC_TABLE = np.array([q if q < 30 else int(_QPC_HIGH[q - 30])
+                      for q in range(52)], dtype=np.int32)
+
+
 def chroma_qp(qp_y: int, chroma_qp_index_offset: int = 0) -> int:
     q = int(np.clip(qp_y + chroma_qp_index_offset, 0, 51))
     return q if q < 30 else int(_QPC_HIGH[q - 30])
+
+
+def chroma_qp_v(qp_y: torch.Tensor) -> torch.Tensor:
+    """Per-MB chroma qp: int32 tensor in, Table 8-15 mapped out."""
+    q = qp_y.to(torch.long).clamp(0, 51)
+    return torch.as_tensor(QPC_TABLE, device=qp_y.device)[q]
+
+
+def _vq(qp, ndim: int):
+    """A per-MB qp tensor reshaped to broadcast under ``ndim``-dim
+    coefficients: trailing unit dims."""
+    q = qp.to(torch.int32)
+    return q.reshape(q.shape + (1,) * (ndim - q.dim()))
 
 
 def _table(tab: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -57,6 +79,12 @@ def h264_quantize_4x4(coefs: torch.Tensor, qp: int,
                       intra: bool = True) -> torch.Tensor:
     """Quantize core-transform coefficients, trailing dims (4, 4)."""
     w = coefs.to(torch.int32)
+    if isinstance(qp, torch.Tensor):
+        q = _vq(qp, w.dim())
+        qbits = 15 + q // 6
+        mf = _table(MF_TABLE, w)[(q % 6)[..., 0, 0].long()]
+        f = (1 << qbits) // (3 if intra else 6)
+        return _signed(w, (w.abs() * mf + f) >> qbits)
     qbits = 15 + qp // 6
     f = (1 << qbits) // 3 if intra else (1 << qbits) // 6
     level = (w.abs() * _table(MF_TABLE[qp % 6], w) + f) >> qbits
@@ -66,6 +94,10 @@ def h264_quantize_4x4(coefs: torch.Tensor, qp: int,
 def h264_dequantize_4x4(levels: torch.Tensor, qp: int) -> torch.Tensor:
     """Dequantize 4x4 AC levels per spec §8.5.12.1 (no rounding)."""
     lv = levels.to(torch.int32)
+    if isinstance(qp, torch.Tensor):
+        q = _vq(qp, lv.dim())
+        v = _table(V_TABLE, lv)[(q % 6)[..., 0, 0].long()]
+        return (lv * v) << (q // 6)
     return (lv * _table(V_TABLE[qp % 6], lv)) << (qp // 6)
 
 
@@ -73,6 +105,12 @@ def h264_quantize_luma_dc(dc_hadamard: torch.Tensor, qp: int) -> torch.Tensor:
     """Quantize the 4x4 Hadamard-transformed luma DC block (JM convention:
     MF[qp%6][0,0] with an extra >>1 of headroom, qbits + 1)."""
     w = dc_hadamard.to(torch.int32)
+    if isinstance(qp, torch.Tensor):
+        q = _vq(qp, w.dim())
+        qbits = 15 + q // 6
+        mf00 = _table(_MF_A, w)[(q % 6).long()]
+        return _signed(w, (w.abs() * mf00 + 2 * ((1 << qbits) // 3))
+                       >> (qbits + 1))
     qbits = 15 + qp // 6
     f = (1 << qbits) // 3
     level = (w.abs() * int(_MF_A[qp % 6]) + 2 * f) >> (qbits + 1)
@@ -86,6 +124,13 @@ def h264_dequantize_luma_dc(levels: torch.Tensor, qp: int) -> torch.Tensor:
         = (f * V00 + 2^(1 - qp//6)) >> (2 - qp//6)   otherwise
     """
     f = levels.to(torch.int32)
+    if isinstance(qp, torch.Tensor):
+        q = _vq(qp, f.dim())
+        v00 = _table(_V_A, f)[(q % 6).long()]
+        hi = (f * v00) << torch.clamp(q // 6 - 2, min=0)
+        shift = torch.clamp(2 - q // 6, min=1)
+        lo = (f * v00 + (1 << (shift - 1))) >> shift
+        return torch.where(q >= 12, hi, lo)
     v00 = int(_V_A[qp % 6])
     if qp >= 12:
         return (f * v00) << (qp // 6 - 2)
@@ -97,6 +142,12 @@ def h264_quantize_chroma_dc(dc_hadamard: torch.Tensor, qp_c: int,
                             intra: bool = True) -> torch.Tensor:
     """Quantize the 2x2 Hadamard chroma DC (JM convention: qbits + 1)."""
     w = dc_hadamard.to(torch.int32)
+    if isinstance(qp_c, torch.Tensor):
+        q = _vq(qp_c, w.dim())
+        qbits = 15 + q // 6
+        mf00 = _table(_MF_A, w)[(q % 6).long()]
+        f = (1 << qbits) // (3 if intra else 6)
+        return _signed(w, (w.abs() * mf00 + 2 * f) >> (qbits + 1))
     qbits = 15 + qp_c // 6
     f = (1 << qbits) // 3 if intra else (1 << qbits) // 6
     level = (w.abs() * int(_MF_A[qp_c % 6]) + 2 * f) >> (qbits + 1)
@@ -107,4 +158,7 @@ def h264_dequantize_chroma_dc(levels: torch.Tensor, qp_c: int) -> torch.Tensor:
     """Dequantize chroma DC after inverse 2x2 Hadamard (spec §8.5.11):
     dcC = ((f * V00) << (qp_c//6)) >> 1."""
     f = levels.to(torch.int32)
+    if isinstance(qp_c, torch.Tensor):
+        q = _vq(qp_c, f.dim())
+        return ((f * _table(_V_A, f)[(q % 6).long()]) << (q // 6)) >> 1
     return ((f * int(_V_A[qp_c % 6])) << (qp_c // 6)) >> 1

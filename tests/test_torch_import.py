@@ -50,6 +50,19 @@ for i in range(3):
     frame[8:24, 4 * i:4 * i + 16] = 200
     keys.append(enc.encode_collect(enc.encode_submit(frame)).keyframe)
 assert keys == [True, False, False], keys
+# ENCODER_TUNE=hq: the kernel tier hq_noaq under the loop filter, and the
+# full tier (qp plane, qp chain, I16-in-P) with it off
+from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
+enc, codec = make_encoder(from_env({{"SIZEW": "64", "SIZEH": "48",
+                                     "ENCODER_TUNE": "hq"}}), 64, 48,
+                          device="cpu")
+full = H264Encoder(64, 48, deblock=False, tune="hq", gop=60,
+                   bitrate_kbps=300, device="cpu")
+assert (enc._ktune, full._ktune, full._p_intra) == ("hq_noaq", "hq", True)
+for e in (enc, full):
+    for i in range(3):
+        frame[24:40, 4 * i:4 * i + 16] = 30 + 40 * i
+        assert e.encode_collect(e.encode_submit(frame)).data
 bad = sorted(m for m in sys.modules
              if m == "docker_nvidia_glx_desktop_tpu"
              or m.startswith("docker_nvidia_glx_desktop_tpu."))
@@ -198,19 +211,24 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"ENCODER_GOP": "60", "ENCODER_SUPERSTEP_CHUNK": "4",
-      "ENCODER_TUNE": "hq"}, "item 10"),
+    ({"ENCODER_GOP": "60", "ENCODER_TUNE": "hq",
+      "DNGD_DAMAGE_MASK": "true"}, "item 10"),
     ({"ENCODER_GOP": "1", "ENCODER_ENTROPY": "native"}, "item 17"),
-    ({"ENCODER_GOP": "1", "ENCODER_TUNE": "hq"}, "item 10"),
+    ({"ENCODER_GOP": "60", "ENCODER_TUNE": "hq",
+      "ENCODER_SPATIAL_SHARDS": "2"}, "item 11"),
     ({"ENCODER_GOP": "60", "ENCODER_SUPERSTEP_CHUNK": "4",
       "ENCODER_SPATIAL_SHARDS": "2"}, "item 11"),
     ({"ENCODER_GOP": "1", "ENCODER_SPATIAL_SHARDS": "2"}, "item 11"),
     ({"ENCODER_GOP": "1", "ENCODER_INTRA_MODES": "full"}, "item 17"),
 ])
-def test_unported_settings_raise_naming_the_roadmap_item(env, item):
+def test_unported_settings_raise_naming_the_roadmap_item(env, item,
+                                                         monkeypatch):
     from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
     from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
 
+    for k, v in env.items():            # the process-wide knobs
+        if k.startswith("DNGD_"):
+            monkeypatch.setenv(k, v)
     cfg = from_env(dict({"SIZEW": "64", "SIZEH": "48"}, **env))
     with pytest.raises(NotImplementedError, match=item):
         make_encoder(cfg, 64, 48, device="cpu")

@@ -70,10 +70,10 @@ def test_options_outside_the_slice_raise():
     c = torch.zeros((16, 16), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="item 17"):
         t_inter.encode_p_frame(z, c, c, z, c, c, 26, refine="full")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_inter.encode_p_frame(z, c, c, z, c, c, 26, tune="hq")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="p_intra requires"):
         t_inter.encode_p_frame(z, c, c, z, c, c, 26, p_intra=True)
+    with pytest.raises(ValueError, match="unknown tune"):
+        t_inter.encode_p_frame(z, c, c, z, c, c, 26, tune="hq2")
     with pytest.raises(ValueError):
         t_inter.encode_p_frame(z, c, c, z[:16].contiguous(), c[:8], c[:8], 26)
 

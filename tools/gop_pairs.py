@@ -20,8 +20,9 @@ drift of the host over the call reaches every variant alike.  Each run
 first encodes four warm-up frames (kernels loaded, caches filled), then
 times ``--frames`` fresh frames of ``chip_smoke.gop_frames`` (an IDR,
 then P frames), cv2's host colour conversion alone on five of them, and
-the GOP path's per-frame kernels on one 1080p P frame: K4 (full form),
-K5, K8 and K9, each as one eager call timed by CUDA events (host launch
+the GOP path's per-frame kernels on one 1080p P frame: K1 (the intra
+core on its planes), K4 (full form), K5, K8 and K9, each as one eager
+call timed by CUDA events (host launch
 work included) and as the replay of that call captured into a CUDA graph
 (the kernel's device time), medians of 50 (``chip_smoke.cuda_ms`` and
 ``graph_ms``).
@@ -46,7 +47,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "docker_nvidia_glx_desktop_tpu_torch"
 W, H = 1920, 1080
 WARM_FRAMES = 4
-KERNELS = ("k4", "k5", "k8", "k9")
+KERNELS = ("k1", "k4", "k5", "k8", "k9")
 METRICS = ("fps", "p50_ms", "p50_p_ms", "idr_ms", "submit_ms", "collect_ms",
            "colour_ms") + tuple(f"{k}_{w}_ms" for k in KERNELS
                                 for w in ("event", "graph"))
@@ -123,13 +124,14 @@ def child(tree: str, py_epb: bool, frames: int, build_only: bool) -> dict:
 
 
 def kernel_ms(smoke, enc, rgb) -> dict:
-    """K4 (full form), K5, K8 and K9 on the P frame ``rgb`` against the
-    encoder's reference, through the wrappers every checkout has."""
+    """K1 on the P frame ``rgb``'s planes, and K4 (full form), K5, K8 and
+    K9 on it against the encoder's reference, through the wrappers every
+    checkout has."""
     import numpy as np
     import torch
 
     from docker_nvidia_glx_desktop_tpu_torch.ops import (
-        color, content_stats, h264_deblock, h264_inter)
+        color, content_stats, h264_deblock, h264_device, h264_inter)
     from docker_nvidia_glx_desktop_tpu_torch.ops.cavlc_p_device import (
         nnz_raster)
 
@@ -142,7 +144,8 @@ def kernel_ms(smoke, enc, rgb) -> dict:
     nnz = nnz_raster(o["luma"])
     resid = tuple(o[k] for k in ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac"))
     rgb_t = torch.from_numpy(np.ascontiguousarray(rgb)).to(dev)
-    calls = {"k4": lambda: content_stats.frame_stats_full(
+    calls = {"k1": lambda: h264_device.encode_intra_frame_yuv(*planes, qp),
+             "k4": lambda: content_stats.frame_stats_full(
                  planes[0], ref[0], 512, rec[0], o["mv"], resid),
              "k5": lambda: h264_inter.encode_p_frame(*planes, *ref, qp),
              "k8": lambda: h264_deblock.deblock_frame(*rec, qp, nnz_blk=nnz,
