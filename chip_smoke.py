@@ -135,6 +135,14 @@ TUNE_RING_FRAMES = 10      # IDR, two chunks of 4 and a drained frame
 TUNE_CABAC_FRAMES = 5
 TUNE_TIMED_FRAMES = 12     # frames a timed run, four configurations in turn
 TUNE_ROUNDS = 3
+MJPEG_STICKY_FRAMES = 24   # mjpeg phase: make_encoder's sticky tables
+MJPEG_PER_FRAME_FRAMES = 12  # then per-frame tables: K16b every frame
+MJPEG_PLAIN_FRAMES = 4     # frames also encoded through the plain versions
+RFB_FRAMES = 12            # Tight rects the raw-socket client receives
+RFB_QUALITY = 75           # RfbServer's JPEG quality
+BATCH_S, BATCH_NX = 4, 4   # the session batch: sessions x restart strips
+BATCH_H = 1088             # its frame height: 1080 edge-padded to 16 * nx
+MJPEG_MIN_PSNR = 30.0      # decoded desktop frames against their source (dB)
 
 
 class SmokeError(RuntimeError):
@@ -312,7 +320,8 @@ def kernel_row(name, src, replaces, launches, err, ms, plain_ms, nb, ops=0.0):
     return {"name": name, "route": "cuda",
             "source": "docker_nvidia_glx_desktop_tpu_torch/csrc/" + src,
             "replaces": "docker_nvidia_glx_desktop_tpu/" + (
-                replaces if replaces.startswith("models/") else "ops/" + replaces),
+                replaces if replaces.startswith(("models/", "parallel/"))
+                else "ops/" + replaces),
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
@@ -407,6 +416,8 @@ def run():
     print(f"damage phase done at {time.perf_counter() - t_start:.0f} s")
     rows += tune_phase(report, rows)
     print(f"tune phase done at {time.perf_counter() - t_start:.0f} s")
+    rows += mjpeg_phase(report)
+    print(f"mjpeg phase done at {time.perf_counter() - t_start:.0f} s")
     check("jax" not in sys.modules, "the port imported jax")
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
@@ -2587,6 +2598,385 @@ def tune_phase(report, rows_before):
           + f"; hq_noaq/off {med['hq_noaq'] / med['off']:.3f}, "
           f"hq/off(no deblock) {med['hq'] / med['off_nodeblock']:.3f}")
     rep.update(fps=fps, fps_median=med, phase_s=time.perf_counter() - t_phase)
+    return out_rows
+
+
+def mjpeg_frames(n: int, seed: int = 7):
+    """A desktop whose text pane scrolls 12 pels a frame, a window that
+    moves 16 pels a frame and a blinking cursor."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = desktop_base(rng)
+    text = base[200:600, 900:1500].copy()
+    frames = []
+    for i in range(n):
+        f = base.copy()
+        f[200:600, 900:1500] = np.roll(text, -12 * i, axis=0)
+        x0 = 100 + 16 * i
+        f[650:900, x0:x0 + 420] = (236, 236, 230)
+        f[650:674, x0:x0 + 420] = (50, 60, 140)
+        f[700:880:18, x0 + 20:x0 + 380:3] = 20
+        if i % 2:
+            f[960:980, 300:310] = 0
+        frames.append(f)
+    return frames
+
+
+def psnr(a, b) -> float:
+    import numpy as np
+
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+def decode_rgb(data: bytes):
+    import cv2
+    import numpy as np
+
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    check(bgr is not None, "cv2 could not decode a JPEG")
+    return bgr[..., ::-1]
+
+
+def hist_p50(name: str) -> float:
+    """The p50 of a histogram of the port's metrics registry, linearly
+    interpolated inside its bucket (as Prometheus' histogram_quantile)."""
+    from docker_nvidia_glx_desktop_tpu_torch.obs import metrics as obsm
+
+    (series,) = obsm.REGISTRY.snapshot()[name]["series"]
+    edges = [float(e) for e in series["buckets"]]
+    counts = list(series["buckets"].values())
+    half, cum, lo = series["count"] / 2.0, 0, 0.0
+    for e, c in zip(edges, counts):
+        if c and cum + c >= half:
+            return lo + (e - lo) * (half - cum) / c
+        cum, lo = cum + c, e
+    return float("inf")
+
+
+def rfb_client_run(port: int, src, frames, w: int, h: int):
+    """A raw-socket RFB 3.8 client: security None, SetEncodings [7, 0],
+    then per frame: push it, ask for a full update, read one rect.
+    Returns [(encoding, payload)] and the wall seconds of the updates."""
+    import socket
+    import struct
+
+    def read(n):
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = sock.recv(n - len(buf))
+            check(chunk, "the RFB server closed the connection")
+            buf += chunk
+        return bytes(buf)
+
+    sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+    try:
+        check(read(12).startswith(b"RFB 003.008"), "RFB version")
+        sock.sendall(b"RFB 003.008\n")
+        check(read(read(1)[0]) == b"\x01", "RFB security types")
+        sock.sendall(b"\x01")
+        check(struct.unpack(">I", read(4))[0] == 0, "RFB security result")
+        sock.sendall(b"\x01")
+        fw, fh = struct.unpack(">HH", read(4))
+        check((fw, fh) == (w, h), f"RFB framebuffer {fw}x{fh}")
+        read(16)
+        read(struct.unpack(">I", read(4))[0])
+        sock.sendall(struct.pack(">BxHii", 2, 2, 7, 0))
+        rects = []
+        t0 = time.perf_counter()
+        for i, f in enumerate(frames):
+            src.push(f)
+            sock.sendall(struct.pack(">BBHHHH", 3, int(i > 0), 0, 0, w, h))
+            check(read(4)[0] == 0, "not a FramebufferUpdate")
+            x, y, rw, rh, enc = struct.unpack(">HHHHi", read(12))
+            check((x, y, rw, rh) == (0, 0, w, h), "not a full-frame rect")
+            if enc == 7:
+                check(read(1)[0] == 0x90, "not a Tight-JPEG rect")
+                n, shift = 0, 0
+                for _ in range(3):
+                    b = read(1)[0]
+                    n |= (b & (0xFF if shift == 14 else 0x7F)) << shift
+                    shift += 7
+                    if not b & 0x80:
+                        break
+                rects.append((enc, read(n)))
+            else:
+                rects.append((enc, read(rw * rh * 4)))
+        return rects, time.perf_counter() - t0
+    finally:
+        sock.close()
+
+
+def mjpeg_phase(report):
+    """``WEBRTC_ENCODER=tpumjpegenc`` and the noVNC path's Tight-JPEG at
+    1080p: (a) make_encoder's sticky tables, then per-frame tables (K16b
+    every frame), each JPEG decoded by cv2, the first frames against the
+    plain versions' bytes, K16a-c against their plain versions on this
+    run's frames and levels; (b) RfbServer with a raw-socket client, each
+    Tight rect the JPEG of a second encoder fed the same frames; (c) the
+    session batch (S sessions x nx restart strips at 1920x1088) against
+    the plain batch, each session assembled and decoded."""
+    import asyncio
+    import threading
+
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.models.mjpeg import (
+        JpegEncoder, _tables_from_hists)
+    from docker_nvidia_glx_desktop_tpu_torch.obs import metrics as obsm
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+    from docker_nvidia_glx_desktop_tpu_torch.parallel import batch
+    from docker_nvidia_glx_desktop_tpu_torch.rfb.server import RfbServer
+    from docker_nvidia_glx_desktop_tpu_torch.rfb.source import NumpySource
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    rep = report["mjpeg"] = {}
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    kernels = {"transform": jd.jpeg_transform, "analyze": jd.jpeg_analyze,
+               "pack": jd.jpeg_pack}
+    frames = mjpeg_frames(MJPEG_STICKY_FRAMES)
+    pf_frames = mjpeg_frames(MJPEG_PER_FRAME_FRAMES, seed=8)
+
+    def counted():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def timed_encode(enc, fs):
+        out, ms = [], []
+        for f in fs:
+            t = time.perf_counter()
+            out.append(enc.encode(f).data)
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out, ms
+
+    # -- (a) main path: make_encoder (sticky tables), then per-frame tables --
+    zero_counts(kernels)
+    enc, codec = make_encoder(from_env({"SIZEW": str(W), "SIZEH": str(H),
+                                        "WEBRTC_ENCODER": "tpumjpegenc"}), W, H)
+    check(codec == "mjpeg" and isinstance(enc, JpegEncoder)
+          and enc.device.type == "cuda" and enc.entropy == "device",
+          "make_encoder(tpumjpegenc) is not the port's encoder on the card")
+    sticky, sticky_ms = timed_encode(enc, frames)
+    pf = JpegEncoder(W, H, table_mode="per_frame")
+    per_frame, pf_ms = timed_encode(pf, pf_frames)
+    torch.cuda.synchronize()
+    launches = counted()
+    n_all = len(frames) + len(pf_frames)
+    print(f"mjpeg main: {len(frames)} frames sticky ({enc.table_builds} table "
+          f"build), {len(pf_frames)} per frame ({pf.table_builds} builds) at "
+          f"{W}x{H}; launches {launches}")
+    check(launches == {"transform": n_all, "pack": n_all,
+                       "analyze": 1 + len(pf_frames)},
+          f"mjpeg launches {launches}")
+    check(enc.table_builds == 1 and pf.table_builds == len(pf_frames),
+          "table builds")
+    quality = []
+    for data, f in zip(sticky + per_frame, frames + pf_frames):
+        quality.append(psnr(decode_rgb(data), f))
+    check(min(quality) > MJPEG_MIN_PSNR, f"decoded PSNR {min(quality):.2f} dB")
+    print(f"(c) mjpeg: {len(quality)} JPEGs decoded by cv2, PSNR "
+          f"{min(quality):.2f}-{max(quality):.2f} dB, "
+          f"{np.mean([len(d) for d in sticky]) / 1e3:.1f} kB a sticky frame")
+
+    # (b) the same frames through the plain versions: the same bytes
+    jd.jpeg_transform, jd.jpeg_analyze, jd.jpeg_pack = (
+        jd.jpeg_transform_plain, jd.jpeg_analyze_plain, jd.jpeg_pack_plain)
+    try:
+        twin = JpegEncoder(W, H)
+        want = [twin.encode(f).data for f in frames[:MJPEG_PLAIN_FRAMES]]
+        twin_pf = JpegEncoder(W, H, table_mode="per_frame")
+        want_pf = [twin_pf.encode(f).data
+                   for f in pf_frames[:MJPEG_PLAIN_FRAMES]]
+    finally:
+        jd.jpeg_transform, jd.jpeg_analyze, jd.jpeg_pack = kernels.values()
+    check(want == sticky[:MJPEG_PLAIN_FRAMES]
+          and want_pf == per_frame[:MJPEG_PLAIN_FRAMES],
+          "(b) mjpeg: the JPEGs differ from the plain versions' JPEGs")
+    print(f"(b) mjpeg: {2 * MJPEG_PLAIN_FRAMES} JPEGs byte-identical to the "
+          f"plain versions' (sticky and per-frame tables)")
+
+    # (a) each kernel against its plain version on this run's inputs
+    lq, cq = enc.luma_q, enc.chroma_q
+    tabs = enc._table_dev
+    for f in (frames[0], frames[-1], pf_frames[-1]):
+        t = torch.from_numpy(f).to(dev)[None]
+        lv = jd.jpeg_transform(t, lq, cq, enc.pad_h, enc.pad_w)
+        lp = jd.jpeg_transform_plain(t, lq, cq, enc.pad_h, enc.pad_w)
+        check(all(torch.equal(a, b) for a, b in zip(lv, lp)),
+              "K16a differs from its plain version")
+        check(torch.equal(jd.jpeg_analyze(*lv), jd.jpeg_analyze_plain(*lv)),
+              "K16b differs from its plain version")
+        for tt in (tabs, pf._table_dev):
+            (got,), = jd.strip_bytes(*jd.jpeg_pack(*lv, tt))
+            (want,), = jd.strip_bytes(*jd.jpeg_pack_plain(*lv, tt))
+            check(got[1] == want[1] and np.array_equal(got[0], want[0]),
+                  "K16c differs from its plain version")
+    print("(a) mjpeg: K16a, K16b and K16c equal to their plain versions on 3 "
+          "frames of this run (K16c with the sticky and per-frame tables)")
+    st = sorted(sticky_ms[1:])
+    pm = sorted(pf_ms[1:])
+    rep.update(launches=launches, psnr_min=min(quality),
+               sticky_ms=sticky_ms, per_frame_ms=pf_ms,
+               sticky_p50_ms=statistics.median(st),
+               per_frame_p50_ms=statistics.median(pm),
+               sticky_fps=len(st) / (sum(st) / 1e3),
+               per_frame_fps=len(pm) / (sum(pm) / 1e3),
+               sticky_bytes=float(np.mean([len(d) for d in sticky])))
+    print(f"mjpeg e2e at {W}x{H} (host clock, first frame excluded): sticky "
+          f"{rep['sticky_fps']:.1f} frames/s, p50 encode "
+          f"{rep['sticky_p50_ms']:.2f} ms; per-frame tables "
+          f"{rep['per_frame_fps']:.1f} frames/s, p50 {rep['per_frame_p50_ms']:.2f} ms")
+    rep["busy"] = device_busy(JpegEncoder(W, H), frames[:8], depth=1)
+
+    # -- (b) RFB: Tight-JPEG rects through a raw-socket client ---------------
+    rfb_frames = mjpeg_frames(RFB_FRAMES, seed=9)
+    src = NumpySource(W, H)
+    server = RfbServer(source=src, jpeg_quality=RFB_QUALITY)
+    loop = asyncio.new_event_loop()
+    th = threading.Thread(target=loop.run_forever, daemon=True)
+    th.start()
+    snap = obsm.REGISTRY.snapshot
+
+    def route(name, *labels):
+        for s in snap().get(name, {}).get("series", []):
+            if tuple(s["labels"].values()) == labels:
+                return s["value"]
+        return 0.0
+
+    before = (route("dngd_rfb_jpeg_total", "cv2"),
+              route("dngd_rfb_jpeg_errors_total"))
+    try:
+        asyncio.run_coroutine_threadsafe(
+            server.start("127.0.0.1", 0), loop).result(60)
+        zero_counts(kernels)
+        rects, rfb_s = rfb_client_run(server.port, src, rfb_frames, W, H)
+        torch.cuda.synchronize()
+        rfb_launches = counted()
+    finally:
+        asyncio.run_coroutine_threadsafe(server.close(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(30)
+    tight = [d for e, d in rects if e == 7]
+    check(len(tight) == len(rfb_frames) >= 10,
+          f"{len(tight)} Tight rects of {len(rfb_frames)} updates")
+    check(server._jpeg_enc is not None
+          and server._jpeg_enc.device.type == "cuda"
+          and server._jpeg_enc.frame_index == len(tight),
+          "the Tight rects did not all come from the card's encoder")
+    check((route("dngd_rfb_jpeg_total", "cv2"),
+           route("dngd_rfb_jpeg_errors_total")) == before,
+          "cv2 or an encode error served a Tight rect")
+    check(all(v == len(tight) for k, v in rfb_launches.items()
+              if k != "analyze") and rfb_launches["analyze"] == 1,
+          f"RFB launches {rfb_launches}")
+    twin = JpegEncoder(W, H, quality=RFB_QUALITY)
+    for data, f in zip(tight, rfb_frames):
+        check(data == twin.encode(f).data, "a Tight rect differs from the "
+              "second encoder's JPEG of its frame")
+        check(psnr(decode_rgb(data), f) > MJPEG_MIN_PSNR - 3,
+              "a Tight rect decodes badly")
+    rfb_p50 = hist_p50("dngd_rfb_jpeg_encode_ms")
+    rep["rfb"] = {"rects": len(tight), "updates_per_s": len(tight) / rfb_s,
+                  "jpeg_encode_ms_p50": rfb_p50, "launches": rfb_launches,
+                  "bytes_mean": float(np.mean([len(d) for d in tight]))}
+    print(f"rfb: {len(tight)} Tight-JPEG rects at {W}x{H} (quality "
+          f"{RFB_QUALITY}) equal to a second encoder's JPEGs and decoded; "
+          f"{rep['rfb']['updates_per_s']:.1f} updates/s (request to rect "
+          f"read, raw socket on 127.0.0.1), dngd_rfb_jpeg_encode_ms p50 "
+          f"{rfb_p50:.2f} ms (bucket-interpolated); launches {rfb_launches}")
+
+    # -- (c) the session batch: S sessions x nx restart strips ----------------
+    bframes = np.stack([np.pad(f, ((0, BATCH_H - H), (0, 0), (0, 0)), "edge")
+                        for f in mjpeg_frames(BATCH_S, seed=10)])
+    step = batch.batch_encode_step(BATCH_H, W, quality=85, spatial=BATCH_NX)
+    lv0 = step.transform(bframes)
+    hist0 = jd.split_hists(jd.jpeg_analyze(*lv0, BATCH_NX))
+    tables = _tables_from_hists([h[0].cpu().numpy() for h in hist0],
+                                smooth=True)
+    arrays = jd.dense_tables(tables)
+    zero_counts(kernels)
+    packed, totals, hists = step(bframes, *arrays)
+    strips = jd.strip_bytes(packed, totals)
+    batch_launches = counted()
+    check(batch_launches == {"transform": 1, "analyze": 1, "pack": 1},
+          f"batch launches {batch_launches}")
+    frames_t = torch.from_numpy(bframes).to(dev)
+    lp = jd.jpeg_transform_plain(frames_t, step.luma_q, step.chroma_q,
+                                 BATCH_H, W)
+    tab_t = jd.table_tensor(arrays, dev)
+    pp, tp = jd.jpeg_pack_plain(*lp, tab_t, BATCH_NX)
+    check(all(torch.equal(a, b) for a, b in zip(lv0, lp)),
+          "batched K16a differs from its plain version")
+    check(torch.equal(torch.cat(hists, 1), jd.jpeg_analyze_plain(*lp, BATCH_NX)),
+          "batched K16b differs from its plain version")
+    plain_strips = jd.strip_bytes(pp, tp)
+    check(all(a[1] == b[1] and np.array_equal(a[0], b[0])
+              for ra, rb in zip(strips, plain_strips) for a, b in zip(ra, rb)),
+          "batched K16c differs from its plain version")
+    bq = []
+    for i in range(BATCH_S):
+        data = batch.assemble_session_jpeg([d for d, _ in strips[i]],
+                                           [b for _, b in strips[i]], tables,
+                                           W, BATCH_H, quality=85)
+        check(data.count(b"\xff\xdd") == 1, "no DRI in a session's JPEG")
+        bq.append(psnr(decode_rgb(data), bframes[i]))
+    check(min(bq) > MJPEG_MIN_PSNR, f"a session decodes at {min(bq):.2f} dB")
+    rep["batch"] = {"sessions": BATCH_S, "strips": BATCH_NX,
+                    "launches": batch_launches, "psnr_min": min(bq)}
+    print(f"(c) batch: {BATCH_S} sessions x {BATCH_NX} restart strips at "
+          f"{W}x{BATCH_H} equal to the plain batch (levels, histograms, "
+          f"strips); each session assembled with RSTn and decoded by cv2 at "
+          f">= {min(bq):.2f} dB")
+
+    # -- kernel rows: the single encoder's shapes, then the batch's ----------
+    t1 = torch.from_numpy(frames[1]).to(dev)[None]
+    lv = jd.jpeg_transform(t1, lq, cq, enc.pad_h, enc.pad_w)
+    pk, tk = jd.jpeg_pack(*lv, tabs)
+    scan_bytes = int((tk.sum() + 7) // 8)
+    bt_bytes = int(((totals.long() + 7) // 8).sum())
+    hist_b = 4 * jd.HIST_SYMBOLS
+    lv_b = nbytes(*lv)
+    blv_b = nbytes(*lv0)
+    specs = [
+        ("jpeg_transform", "models/mjpeg.py:36 _transform_stage",
+         lambda: jd.jpeg_transform(t1, lq, cq, enc.pad_h, enc.pad_w),
+         lambda: jd.jpeg_transform_plain(t1, lq, cq, enc.pad_h, enc.pad_w),
+         nbytes(t1) + lv_b, launches["transform"]),
+        ("jpeg_analyze", "jpeg_device.py:142 jpeg_analyze",
+         lambda: jd.jpeg_analyze(*lv), lambda: jd.jpeg_analyze_plain(*lv),
+         lv_b + hist_b, launches["analyze"]),
+        ("jpeg_pack", "jpeg_device.py:154 jpeg_pack (bitpack.py:24 pack_bits)",
+         lambda: jd.jpeg_pack(*lv, tabs), lambda: jd.jpeg_pack_plain(*lv, tabs),
+         lv_b + 2 * hist_b + scan_bytes + 4, launches["pack"]),
+        ("jpeg_transform_batch", "parallel/batch.py:173 _session_transform "
+         "(S=4 sessions)",
+         lambda: jd.jpeg_transform(frames_t, step.luma_q, step.chroma_q, BATCH_H, W),
+         lambda: jd.jpeg_transform_plain(frames_t, step.luma_q, step.chroma_q,
+                                         BATCH_H, W),
+         nbytes(frames_t) + blv_b, batch_launches["transform"]),
+        ("jpeg_analyze_batch", "parallel/batch.py:181 batch_encode_step "
+         "(jpeg_analyze + psum, S=4, nx=4)",
+         lambda: jd.jpeg_analyze(*lv0, BATCH_NX),
+         lambda: jd.jpeg_analyze_plain(*lv0, BATCH_NX),
+         blv_b + BATCH_S * hist_b, batch_launches["analyze"]),
+        ("jpeg_pack_batch", "parallel/batch.py:181 batch_encode_step "
+         "(jpeg_pack, S=4, nx=4)",
+         lambda: jd.jpeg_pack(*lv0, tab_t, BATCH_NX),
+         lambda: jd.jpeg_pack_plain(*lv0, tab_t, BATCH_NX),
+         blv_b + 2 * hist_b + bt_bytes + 4 * BATCH_S * BATCH_NX,
+         batch_launches["pack"]),
+    ]
+    out_rows = [kernel_row(name, "jpeg.cu", replaces, n, 0.0,
+                           cuda_ms(fk, reps=20), cuda_ms(fp, reps=3), nb)
+                for name, replaces, fk, fp, nb, n in specs]
+    for r in out_rows:
+        print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
+              f"{r['launches']} launches on its path)")
+    rep["phase_s"] = time.perf_counter() - t_phase
     return out_rows
 
 

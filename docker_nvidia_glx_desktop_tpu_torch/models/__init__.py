@@ -2,14 +2,15 @@
 
 from .base import EncodedFrame, Encoder  # noqa: F401
 from .h264 import H264Encoder, resolve_device  # noqa: F401
+from .mjpeg import JpegEncoder  # noqa: F401
 
 
 def make_encoder(cfg, width: int, height: int, device=None):
     """Codec from the config surface (WEBRTC_ENCODER + ENCODER_* knobs),
     on the card unless ``device`` says otherwise.  Returns (encoder,
-    codec_name).  Only ``tpuh264enc`` with device (CAVLC) or CABAC
-    entropy is ported; the other codecs and entropy modes raise
-    NotImplementedError."""
+    codec_name).  ``tpuh264enc`` with device (CAVLC) or CABAC entropy and
+    ``tpumjpegenc`` are ported; ``tpuvp8enc`` and the other entropy
+    modes raise NotImplementedError."""
     codec = cfg.codec
     if codec == "tpuh264enc":
         entropy = cfg.encoder_entropy
@@ -27,9 +28,11 @@ def make_encoder(cfg, width: int, height: int, device=None):
                           tune=getattr(cfg, "encoder_tune", None),
                           device=device)
         return enc, f"h264_{'cabac' if entropy == 'cabac' else 'cavlc'}"
-    if codec in ("tpumjpegenc", "tpuvp8enc"):
+    if codec == "tpumjpegenc":
+        return JpegEncoder(width, height, device=device), "mjpeg"
+    if codec == "tpuvp8enc":
         raise NotImplementedError(
             f"{codec} is not ported to the PyTorch/CUDA package yet "
-            "(ROADMAP queue 1 items 12-13)")
+            "(ROADMAP queue 1 item 13)")
     raise ValueError(f"unknown WEBRTC_ENCODER {cfg.webrtc_encoder!r} "
                      f"(resolved: {codec!r})")

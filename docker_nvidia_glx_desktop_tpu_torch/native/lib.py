@@ -14,6 +14,10 @@ when a caller asks for them, as the tests do).  Only the EPB escaper of
 escaper where the library cannot be built, as the reference does; the
 bytes are the same.
 
+The X capture shim ``xcapture.cpp`` builds apart from that library, with
+``-lX11 -lXext`` (:func:`open_xcapture`), and yields None where the X
+headers are missing.
+
 ``calls`` counts the native entry points that ran to a good end (a
 coder call that overran its output cap is not counted), so a caller can
 show that the native coder, and not a Python fallback, coded its
@@ -191,3 +195,93 @@ def emulation_prevention(rbsp: bytes) -> bytes:
     if n < 0:
         raise RuntimeError("EPB output buffer too small")
     return out[:n].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# X display capture (needs the X11 and Xext headers and libraries, which only
+# the container image has): built apart from the library above, so that a
+# host without them still builds the coders.
+
+_XCAP_LIB = None
+_XCAP_TRIED = False
+
+
+class XCapture:
+    """Handle over the xcapture.cpp shim: grab the root window as RGB."""
+
+    def __init__(self, lib: ctypes.CDLL, handle):
+        self._lib = lib
+        self._h = handle
+        self._w = lib.xcap_width(handle)
+        self._hgt = lib.xcap_height(handle)
+        self._buf = np.empty((self._hgt, self._w, 3), np.uint8)
+
+    def size(self):
+        return self._w, self._hgt
+
+    def grab(self) -> np.ndarray:
+        if self._lib.xcap_grab(self._h, self._buf) != 0:
+            raise RuntimeError("XShmGetImage/XGetImage failed")
+        return self._buf
+
+    def close(self) -> None:
+        if self._h is not None:
+            self._lib.xcap_close(self._h)
+            self._h = None
+
+
+def _xcap_lib():
+    """The capture shim, built with ``g++ ... -lX11 -lXext`` into
+    ``build/`` at first use; None where it cannot be built or loaded."""
+    global _XCAP_LIB, _XCAP_TRIED
+    with _LOCK:
+        if _XCAP_TRIED:
+            return _XCAP_LIB
+        _XCAP_TRIED = True
+        src = os.path.join(_SRC_DIR, "xcapture.cpp")
+        with open(src, "rb") as f:
+            tag = hashlib.sha256(f.read()).hexdigest()[:16]
+        so = os.path.join(BUILD, f"libdngd_xcap_{tag}.so")
+        if not os.path.exists(so):
+            os.makedirs(BUILD, exist_ok=True)
+            tmp = f"{so}.tmp{os.getpid()}"
+            cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", tmp,
+                   src, "-lX11", "-lXext"]
+            try:
+                p = subprocess.run(cmd, capture_output=True, timeout=120)
+            except (OSError, subprocess.SubprocessError):
+                return None
+            if p.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                return None
+            os.replace(tmp, so)
+        try:
+            lib = ctypes.CDLL(so)
+        except OSError:
+            return None
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        lib.xcap_open.argtypes = [ctypes.c_char_p]
+        lib.xcap_open.restype = ctypes.c_void_p
+        lib.xcap_width.argtypes = [ctypes.c_void_p]
+        lib.xcap_width.restype = ctypes.c_int
+        lib.xcap_height.argtypes = [ctypes.c_void_p]
+        lib.xcap_height.restype = ctypes.c_int
+        lib.xcap_grab.argtypes = [ctypes.c_void_p, u8p]
+        lib.xcap_grab.restype = ctypes.c_int
+        lib.xcap_close.argtypes = [ctypes.c_void_p]
+        lib.xcap_close.restype = None
+        _XCAP_LIB = lib
+        return lib
+
+
+def open_xcapture(display: str = ":0"):
+    """Open the X display for capture; None when the shim or the display
+    is unavailable (callers then serve the synthetic source)."""
+    lib = _xcap_lib()
+    if lib is None:
+        return None
+    handle = lib.xcap_open(display.encode())
+    if not handle:
+        return None
+    return XCapture(lib, handle)

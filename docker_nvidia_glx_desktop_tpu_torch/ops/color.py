@@ -1,4 +1,5 @@
-"""RGB -> studio-range BT.601 YUV 4:2:0 planes on the card (K9).
+"""RGB -> studio-range BT.601 YUV 4:2:0 planes on the card (K9), and the
+plain full-range (JFIF) conversion of the JPEG transform (K16a).
 
 Replaces the reference's ``models/h264.py`` ``_yuv_stage`` (``ops/
 color.py`` ``rgb_to_yuv420`` with ``matrix="video"``, then round and
@@ -44,6 +45,41 @@ OFF_VIDEO = np.array([16.0, 128.0, 128.0], dtype=np.float32)
 # float32 bit patterns
 _MATRIX_BITS = [int(v) for v in np.concatenate(
     [M_VIDEO.ravel(), OFF_VIDEO]).view(np.int32)]
+
+
+OFF_FULL = np.array([0.0, 128.0, 128.0], dtype=np.float32)
+
+
+def rgb_to_ycbcr_full(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 RGB -> (..., 3) full-range YCbCr in float64,
+    ``((r * m0 + g * m1) + b * m2) + off`` with the reference's float32
+    matrix.  Every step is exact in float64 (a product of an 8-bit
+    integer and a float32 constant has at most 32 significant bits, and
+    the sums span under 40), so any order gives these values; the
+    reference's float32 rounds them."""
+    f = rgb.to(torch.float64)
+    r, g, b = f.unbind(-1)
+    chans = []
+    for d in range(3):
+        m = [float(v) for v in _M_FULL[d]]
+        chans.append(((r * m[0] + g * m[1]) + b * m[2]) + float(OFF_FULL[d]))
+    return torch.stack(chans, dim=-1)
+
+
+def subsample_420(chroma: torch.Tensor) -> torch.Tensor:
+    """2x2 mean of a (..., H, W) plane, H and W even: the quad summed in
+    row order, ``((p00 + p01) + p10) + p11``, times 0.25."""
+    s = ((chroma[..., 0::2, 0::2] + chroma[..., 0::2, 1::2])
+         + chroma[..., 1::2, 0::2]) + chroma[..., 1::2, 1::2]
+    return s * 0.25
+
+
+def rgb_to_yuv420_full(rgb: torch.Tensor):
+    """(..., H, W, 3) uint8 RGB -> full-range (Y (..., H, W), Cb, Cr
+    (..., H/2, W/2)) float64 planes, unrounded (exact: see
+    :func:`rgb_to_ycbcr_full`; the quad mean is exact too)."""
+    ycc = rgb_to_ycbcr_full(rgb)
+    return ycc[..., 0], subsample_420(ycc[..., 1]), subsample_420(ycc[..., 2])
 
 
 def _channel(rgb64: torch.Tensor, d: int) -> torch.Tensor:

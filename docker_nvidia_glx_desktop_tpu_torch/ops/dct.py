@@ -1,5 +1,12 @@
-"""H.264 4x4 integer core transform (spec §8.5.12) and the 4x4 / 2x2
-Hadamard DC transforms, on int32 tensors.
+"""The JPEG 8x8 float DCT, the H.264 4x4 integer core transform (spec
+§8.5.12) and the 4x4 / 2x2 Hadamard DC transforms.
+
+:func:`dct8x8` is the plain version of the JPEG transform's DCT (K16a,
+``csrc/jpeg.cu``): the orthonormal DCT-II with the reference's float32
+matrix, summed in float64 in one fixed order (rows, then columns, terms
+in index order, no fused multiply-add) and rounded once to float32.  The
+kernel spells the same order, so the two agree bit for bit; the
+reference's float32 einsum agrees to ~4e-5 (its order is the compiler's).
 
 Plain integer butterflies along one axis at a time, so the same code runs
 on any device (CUDA has no integer matmul) and every sum is exact.  The
@@ -9,7 +16,45 @@ its ``>>1`` and final ``(x + 32) >> 6`` bit-exactly.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def _dct_matrix(n: int) -> np.ndarray:
+    k = np.arange(n)[:, None]
+    i = np.arange(n)[None, :]
+    m = np.cos((2 * i + 1) * k * np.pi / (2 * n)) * np.sqrt(2.0 / n)
+    m[0, :] = np.sqrt(1.0 / n)
+    return m.astype(np.float32)
+
+
+DCT8 = _dct_matrix(8)
+
+
+def to_blocks(plane: torch.Tensor, bh: int, bw: int) -> torch.Tensor:
+    """(..., H, W) -> (..., H/bh, W/bw, bh, bw)."""
+    h, w = plane.shape[-2], plane.shape[-1]
+    if h % bh or w % bw:
+        raise ValueError(f"plane ({h}, {w}) does not split into {bh}x{bw}")
+    p = plane.reshape(plane.shape[:-2] + (h // bh, bh, w // bw, bw))
+    return p.transpose(-3, -2)
+
+
+def dct8x8(blocks: torch.Tensor) -> torch.Tensor:
+    """Orthonormal 2-D DCT-II over trailing (8, 8) dims -> float32.
+
+    ``t[i][v] = sum_j x[i][j] * D[v][j]``, then ``c[u][v] = sum_i D[u][i]
+    * t[i][v]``, each sum from index 0 up, every product and sum rounded
+    to float64, the result rounded once to float32."""
+    x = blocks.to(torch.float64)
+    d = torch.as_tensor(DCT8, dtype=torch.float64, device=x.device)
+    t = x[..., :, 0, None] * d[:, 0]
+    for j in range(1, 8):
+        t = t + x[..., :, j, None] * d[:, j]
+    c = d[:, 0, None] * t[..., 0, None, :]
+    for i in range(1, 8):
+        c = c + d[:, i, None] * t[..., i, None, :]
+    return c.to(torch.float32)
 
 
 def _along(x: torch.Tensor, dim: int, f) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""H.264 integer quant/dequant (JM/x264 MF/V fixed point; spec §8.5) on
+"""JPEG quality tables and quantizer (T.81 Annex K, libjpeg scaling), and
+the H.264 integer quant/dequant (JM/x264 MF/V fixed point; spec §8.5) on
 int32 tensors:
 
     level  = sign(w) * ((|w| * MF[qp%6] + f) >> qbits),   qbits = 15 + qp//6
@@ -13,6 +14,42 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+# JPEG (ITU T.81 Annex K) base tables + libjpeg quality scaling
+JPEG_LUMA_Q = np.array(
+    [[16, 11, 10, 16, 24, 40, 51, 61],
+     [12, 12, 14, 19, 26, 58, 60, 55],
+     [14, 13, 16, 24, 40, 57, 69, 56],
+     [14, 17, 22, 29, 51, 87, 80, 62],
+     [18, 22, 37, 56, 68, 109, 103, 77],
+     [24, 35, 55, 64, 81, 104, 113, 92],
+     [49, 64, 78, 87, 103, 121, 120, 101],
+     [72, 92, 95, 98, 112, 100, 103, 99]], dtype=np.int32)
+
+JPEG_CHROMA_Q = np.array(
+    [[17, 18, 24, 47, 99, 99, 99, 99],
+     [18, 21, 26, 66, 99, 99, 99, 99],
+     [24, 26, 56, 99, 99, 99, 99, 99],
+     [47, 66, 99, 99, 99, 99, 99, 99]]
+    + [[99] * 8] * 4, dtype=np.int32)
+
+
+def jpeg_quality_tables(quality: int):
+    """libjpeg-style quality (1..100) scaling of the Annex-K tables:
+    (luma, chroma) int32 (8, 8)."""
+    quality = int(np.clip(quality, 1, 100))
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+    luma = np.clip((JPEG_LUMA_Q * scale + 50) // 100, 1, 255).astype(np.int32)
+    chroma = np.clip((JPEG_CHROMA_Q * scale + 50) // 100, 1, 255).astype(np.int32)
+    return luma, chroma
+
+
+def jpeg_quantize(coefs: torch.Tensor, table) -> torch.Tensor:
+    """float32 ``round(c / q)`` (IEEE divide, half to even) as int32."""
+    t = torch.as_tensor(np.asarray(table), dtype=torch.float32,
+                        device=coefs.device)
+    return torch.round(coefs.to(torch.float32) / t).to(torch.int32)
+
 
 # MF (multiplication factor) per qp%6, by coefficient position class:
 #   a: (0,0),(0,2),(2,0),(2,2)   b: (1,1),(1,3),(3,1),(3,3)   c: others

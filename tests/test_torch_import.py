@@ -136,6 +136,57 @@ print("LEAKED", bad)
 """
 
 
+_BLOCKED_MJPEG_RFB = """
+import asyncio, struct, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {repo!r})
+import numpy as np
+from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+from docker_nvidia_glx_desktop_tpu_torch.parallel import batch
+from docker_nvidia_glx_desktop_tpu_torch.rfb import server_main
+from docker_nvidia_glx_desktop_tpu_torch.rfb.server import RfbServer
+from docker_nvidia_glx_desktop_tpu_torch.rfb.source import NumpySource
+from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+enc, codec = make_encoder(from_env({{"SIZEW": "64", "SIZEH": "48",
+                                     "WEBRTC_ENCODER": "tpumjpegenc"}}),
+                          64, 48, device="cpu")
+frame = np.full((48, 64, 3), 90, np.uint8)
+frame[8:24, 4:20] = 200
+ef = enc.encode(frame)
+assert codec == "mjpeg" and ef.data[:2] == b"\\xff\\xd8" and ef.keyframe
+step = batch.batch_encode_step(64, 64, spatial=2, device="cpu")
+y, cb, cr = step.transform(np.zeros((2, 64, 64, 3), np.uint8))
+assert tuple(y.shape) == (2, 16, 4, 64)
+src = NumpySource(64, 48)
+src.push(frame)
+server = RfbServer(source=src, device="cpu")
+
+async def go():
+    await server.start(port=0)
+    r, w = await asyncio.open_connection("127.0.0.1", server.port)
+    await r.readexactly(12)
+    w.write(b"RFB 003.008\\n")
+    await r.readexactly(2)
+    w.write(b"\\x01")
+    await r.readexactly(4)
+    w.write(b"\\x01")
+    await r.readexactly(20)
+    await r.readexactly(struct.unpack(">I", await r.readexactly(4))[0])
+    w.write(struct.pack(">BxHii", 2, 2, 7, 0))
+    w.write(struct.pack(">BBHHHH", 3, 0, 0, 0, 64, 48))
+    head = await r.readexactly(16)
+    w.close()
+    await server.close()
+    return struct.unpack(">i", head[12:16])[0]
+
+assert asyncio.run(go()) == 7
+bad = sorted(m for m in sys.modules
+             if m == "docker_nvidia_glx_desktop_tpu"
+             or m.startswith("docker_nvidia_glx_desktop_tpu."))
+print("LEAKED", bad)
+"""
+
+
 def _run(code: str, cwd=None, timeout=120):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -158,6 +209,12 @@ def test_port_encodes_a_gop_with_jax_blocked():
 def test_port_encodes_the_chunk_ring_and_the_damage_mask_with_jax_blocked():
     out = _run(_BLOCKED_RING_DAMAGE.format(repo=str(REPO)),
                cwd=str(REPO.parent))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LEAKED []" in out.stdout
+
+
+def test_port_encodes_mjpeg_and_serves_rfb_with_jax_blocked():
+    out = _run(_BLOCKED_MJPEG_RFB.format(repo=str(REPO)), cwd=str(REPO.parent))
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LEAKED []" in out.stdout
 
@@ -220,6 +277,7 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
       "ENCODER_SPATIAL_SHARDS": "2"}, "item 11"),
     ({"ENCODER_GOP": "1", "ENCODER_SPATIAL_SHARDS": "2"}, "item 11"),
     ({"ENCODER_GOP": "1", "ENCODER_INTRA_MODES": "full"}, "item 17"),
+    ({"WEBRTC_ENCODER": "tpuvp8enc"}, "item 13"),
 ])
 def test_unported_settings_raise_naming_the_roadmap_item(env, item,
                                                          monkeypatch):
