@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in seven phases:
+seeded generator, in nine phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -41,7 +41,15 @@ seeded generator, in seven phases:
   hq forms of K1, K2, K3, K5 with its I16-in-P passes, K6, K7 and K4, rate
   control), per frame and in the ring with the 1-frame lookahead; the
   served tier (``make_encoder`` with ``ENCODER_TUNE=hq``: hq_noaq under
-  the loop filter), per frame, in the ring and on CABAC's two routes.
+  the loop filter), per frame, in the ring and on CABAC's two routes;
+- **mjpeg**: ``tpumjpegenc``, RFB's Tight rects and the MJPEG session
+  batch (K16a-c);
+- **sessions**: ``TPU_SESSIONS=10`` under ``BucketedStreamManager``
+  (eight 1080p sessions and two 720p ones in a second bucket) on its
+  encode threads, GOP 60 per tick and in chunk rings of 4, a hub's
+  keyframe request and a noise frame's overflow: the session steps 15b
+  (K1-K3), 15c (K5-K7, and K8 with ``deblock=True``) and 15d (their
+  captured graph), and the link probe (K17g).
 
 Checks, each of which fails the run:
 
@@ -79,6 +87,15 @@ Checks, each of which fails the run:
           per-frame path at its qps (the full tier's with the lookahead),
           CABAC's routes byte-identical under hq_noaq; the tune=off K1 and
           K5 timed again beside the earlier phases' times
+  sessions every recorded 15b/15c/15d call against S single-session
+          launches of the kernels on every session (flats, recon and
+          references), 15d against four 15c calls, 15c with the loop
+          filter against K5-K8, session 0 of an IDR and a P tick and
+          every session of a chunk against the plain versions, the
+          overflow dropping only its session's frames, the re-key, each
+          hub's fMP4 demuxed, equal to the checked AUs and decoded by cv2
+          to the recons; the ledger's link rtt set from the probe, and
+          the probe's kernel against its plain loop
   check   NAL structure, recon PSNR, qp moved, no jax imported
 
 Prints the card's name and power limit, per-kernel times beside their
@@ -87,7 +104,9 @@ bounds, the GOP and CABAC paths' frames/s, p50 frame ms and host spans
 the per-frame path (frames/s and submit p50 in alternating runs), the
 masked P stage's device ms at 1, 8 and 68 damaged rows, the graphs'
 count and memory pools, the hq tiers' K1 and K5 times and frames/s
-against tune=off, the script's total run time,
+against tune=off, the sessions' tick times and frames/s at S = 1-8,
+K1 and K5 batched against S single launches and the buckets' graph
+pools, the link rtt, the script's total run time,
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, without CUDA or
 outside a checkout of the repository.
@@ -143,6 +162,15 @@ RFB_QUALITY = 75           # RfbServer's JPEG quality
 BATCH_S, BATCH_NX = 4, 4   # the session batch: sessions x restart strips
 BATCH_H = 1088             # its frame height: 1080 edge-padded to 16 * nx
 MJPEG_MIN_PSNR = 30.0      # decoded desktop frames against their source (dB)
+SESS_S = 8                 # sessions phase: BASELINE config 5, eight 1080p sessions
+SESS_B2, SESS_B2_N = (1280, 720), 2   # a second bucket: two sessions at 720p
+H_PAD = 1088               # 1080 padded to MB rows
+SESS_TICKS = 18            # ticks a bucket and configuration
+SESS_CHUNK = 4             # the ring configuration (the deployed manifest's)
+SESS_KF_HUB, SESS_KF_AT = 3, 6   # hub 3 asks for a keyframe after tick 6
+SESS_NOISY = (5, 13)       # (session, tick): full noise, its P frame overflows
+SESS_TIMED_S = (1, 2, 4, 8)
+SESS_TIMED_TICKS = 13      # an IDR and 12 P ticks a timed run
 
 
 class SmokeError(RuntimeError):
@@ -312,6 +340,18 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def max_diff(pairs) -> float:
+    """The largest absolute difference over (a, b) tensor pairs (values
+    compared in float64 on the CPU; shapes must match)."""
+    worst = 0.0
+    for a, b in pairs:
+        check(tuple(a.shape) == tuple(b.shape),
+              f"shapes {tuple(a.shape)} and {tuple(b.shape)} differ")
+        d = (a.cpu().double() - b.cpu().double()).abs()
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return worst
+
+
 def kernel_row(name, src, replaces, launches, err, ms, plain_ms, nb, ops=0.0):
     """One entry of the kernels line: the bound is the larger of the
     bytes over the memory rate and the operations over the scalar rate."""
@@ -418,6 +458,8 @@ def run():
     print(f"tune phase done at {time.perf_counter() - t_start:.0f} s")
     rows += mjpeg_phase(report)
     print(f"mjpeg phase done at {time.perf_counter() - t_start:.0f} s")
+    rows += sessions_phase(report)
+    print(f"sessions phase done at {time.perf_counter() - t_start:.0f} s")
     check("jax" not in sys.modules, "the port imported jax")
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
@@ -2978,6 +3020,657 @@ def mjpeg_phase(report):
               f"{r['launches']} launches on its path)")
     rep["phase_s"] = time.perf_counter() - t_phase
     return out_rows
+
+
+# -- sessions phase: multi-session H.264 serving (TPU_SESSIONS > 1) -----------
+
+class SessionSource:
+    """A seeded desktop for one session at any geometry: windows with
+    glyph rows over a gradient, a text pane scrolling 6 pels a tick, a
+    window moving (1, 3) pels a tick and a cursor; tick ``noisy_at`` is
+    full noise (its P frame overflows the packer's caps).  ``frame()``
+    returns the next tick's frame and its index."""
+
+    def __init__(self, w: int, h: int, seed: int, noisy_at=None):
+        import numpy as np
+
+        self.width, self.height = w, h
+        self.seed, self.noisy_at, self.t = seed, noisy_at, 0
+        rng = np.random.default_rng(seed)
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = np.stack([(xx * 255 // (w - 1)), (yy * 255 // (h - 1)),
+                         ((xx + yy + 40 * seed) * 255 // (w + h)) % 256],
+                        axis=-1).astype(np.uint8)
+        for _ in range(4):
+            wh, ww = int(rng.integers(h // 6, h // 3)), int(rng.integers(w // 6, w // 3))
+            y0, x0 = int(rng.integers(0, h - wh)), int(rng.integers(0, w - ww))
+            base[y0:y0 + wh, x0:x0 + ww] = rng.integers(190, 250, 3)
+            base[y0:y0 + 20, x0:x0 + ww] = rng.integers(40, 90, 3)
+            for ty in range(y0 + 30, y0 + wh - 14, 16):
+                marks = rng.random((ww - 24) // 8) < 0.7
+                for j in np.flatnonzero(marks):
+                    tx = x0 + 10 + 8 * int(j)
+                    base[ty:ty + 8, tx:tx + 1 + int(rng.integers(1, 5))] = \
+                        int(rng.integers(0, 60))
+        self.base = base
+        self.pane = (h // 5, w // 2, h // 3, w // 3)
+        self.text = base[h // 5:h // 5 + h // 3, w // 2:w // 2 + w // 3].copy()
+        self.noise = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+    def render(self, t: int):
+        import numpy as np
+
+        if t == self.noisy_at:
+            return self.noise.copy()
+        f = self.base.copy()
+        y0, x0, ph, pw = self.pane
+        f[y0:y0 + ph, x0:x0 + pw] = np.roll(self.text, -6 * t, axis=0)
+        wy, wx = self.height // 2 + t, self.width // 8 + 3 * t
+        f[wy:wy + self.height // 5, wx:wx + self.width // 6] = (40, 60, 110 + self.seed)
+        f[wy + 24:wy + self.height // 5 - 8:6,
+          wx + 8:wx + self.width // 6 - 8] = 220
+        cy = (40 + 9 * t) % (self.height - 20)
+        f[cy:cy + 18, self.width - 200:self.width - 190] = 255
+        return f
+
+    def frame(self):
+        t = self.t
+        self.t += 1
+        return self.render(t), t
+
+
+class _StepRecorder:
+    """Wraps a manager's batched step: records each call's inputs (host
+    planes, cloned references and slots) and outputs (flats on the host,
+    cloned references) for the checks after the run."""
+
+    def __init__(self, step, kind: str, calls: list):
+        self.step, self.kind, self.calls = step, kind, calls
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        clone = lambda a: a.clone() if isinstance(a, torch.Tensor) else a.copy()
+        rec = {"kind": self.kind, "args": [clone(a) for a in args], "kw": kw}
+        out = self.step(*args, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        rec["flat"] = outs[0].cpu()
+        rec["refs"] = tuple(o.clone() for o in outs[1:])
+        self.calls.append(rec)
+        return out
+
+
+def demux_fmp4(init: bytes, frags):
+    """Annex-B access units from an fMP4 stream (``web/mp4``): the SPS
+    and PPS from the init segment's avcC box, ahead of each IDR; each
+    media segment's mdat of 4-byte length-prefixed NAL units."""
+    import struct
+
+    a = init.index(b"avcC") + 4
+    n_sps = init[a + 5] & 0x1F
+    q, params = a + 6, []
+    for _ in range(n_sps):
+        ln = struct.unpack(">H", init[q:q + 2])[0]
+        params.append(init[q + 2:q + 2 + ln])
+        q += 2 + ln
+    for _ in range(init[q]):
+        ln = struct.unpack(">H", init[q + 1:q + 3])[0]
+        params.append(init[q + 3:q + 3 + ln])
+        q += 2 + ln
+    sc = b"\x00\x00\x00\x01"
+    aus = []
+    for frag in frags:
+        pos, nals = 0, []
+        while pos < len(frag):
+            size, typ = struct.unpack(">I4s", frag[pos:pos + 8])
+            if typ == b"mdat":
+                body, q = frag[pos + 8:pos + size], 0
+                while q < len(body):
+                    n = struct.unpack(">I", body[q:q + 4])[0]
+                    nals.append(body[q + 4:q + 4 + n])
+                    q += 4 + n
+            pos += size
+        if nals and nals[0][0] & 0x1F == 5:
+            nals = params + nals
+        aus.append(b"".join(sc + x for x in nals))
+    return aus
+
+
+def sessions_run(chunk: int, ticks: int, kf_hub: int, kf_at: int):
+    """One BucketedStreamManager on the card: SESS_S sessions at W x H and
+    SESS_B2_N at SESS_B2, GOP 60, ``chunk`` (ENCODER_SUPERSTEP_CHUNK),
+    subscribed, started, run for ``ticks`` ticks a bucket on its own
+    encode threads, hub ``kf_hub`` asking for a keyframe after tick
+    ``kf_at``.  Returns (manager, recorded step calls per bucket, each
+    hub's received items, sources)."""
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+    from docker_nvidia_glx_desktop_tpu_torch.web import multisession as ms
+
+    n = SESS_S + SESS_B2_N
+    cfg = from_env({"SIZEW": str(W), "SIZEH": str(H), "TPU_SESSIONS": str(n),
+                    "ENCODER_GOP": "60", "ENCODER_SUPERSTEP_CHUNK": str(chunk),
+                    "REFRESH": "60"})
+    sources = ([SessionSource(W, H, 20 + i, SESS_NOISY[1] if i == SESS_NOISY[0]
+                              else None) for i in range(SESS_S)]
+               + [SessionSource(*SESS_B2, 40 + i) for i in range(SESS_B2_N)])
+    mgr = ms.BucketedStreamManager(cfg, sources)
+    check(len(mgr.managers) == 2 and [len(m.sources) for m in mgr.managers]
+          == [SESS_S, SESS_B2_N], "the sessions are not in two buckets")
+    check(all(m.mesh_shape == (1, 1) and m.device.type == "cuda"
+              for m in mgr.managers), "a bucket is not planned (1, 1) on the card")
+    queues = [mgr.session(i).subscribe(maxsize=4 * ticks + 8) for i in range(n)]
+    calls = []
+    for m in mgr.managers:
+        rec = []
+        calls.append(rec)
+        m.step = _StepRecorder(m.step, "intra", rec)
+        m.p_step = _StepRecorder(m.p_step, "p", rec)
+        if m.chunk_step is not None:
+            m.chunk_step = _StepRecorder(m.chunk_step, "chunk", rec)
+        orig, count = m._encode_tick, [0]
+
+        def tick(ys, cbs, crs, _m=m, _orig=orig, _count=count):
+            out = _orig(ys, cbs, crs)
+            _count[0] += 1
+            if _m is mgr.managers[0] and _count[0] == kf_at:
+                mgr.session(kf_hub).request_keyframe()
+            if _count[0] >= ticks:
+                _m._stop.set()
+            return out
+
+        m._encode_tick = tick
+        m._ticks = count
+    mgr.start()
+    t0 = time.perf_counter()
+    while any(m._ticks[0] < ticks for m in mgr.managers):
+        check(time.perf_counter() - t0 < 600, "the sessions run stalled")
+        check(all(m._thread is not None and m._thread.is_alive()
+                  or m._ticks[0] >= ticks for m in mgr.managers),
+              "an encode thread died")
+        time.sleep(0.05)
+    mgr.stop()
+    items = []
+    for q in queues:
+        got = []
+        while not q.empty():
+            got.append(q.get_nowait())
+        items.append(got)
+    return mgr, calls, items, sources
+
+
+def verify_bucket(m, calls, qp: int, dev, expect_aus):
+    """Every recorded batched call of one bucket against S single-session
+    launches of the kernels (K1-K3 for 15b, K5-K7 for 15c, four chained
+    K5-K7 per session for 15d, which must also equal four 15c calls);
+    ``expect_aus[i]`` gathers session i's (AU, luma) in stream order, an
+    overflowed frame left out.  Returns {kind: calls}."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.bitstream import h264 as syn
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (cavlc_device,
+                                                         cavlc_p_device,
+                                                         h264_device)
+
+    S = len(m.sources)
+    nr = m.rows_local
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    counts = {"intra": 0, "p": 0, "chunk": 0, "overflow": []}
+
+    def deliver(i, flat, idr, luma):
+        buf = flat.numpy()
+        meta = cavlc_device.FlatMeta(buf, nr)
+        if meta.overflow:
+            counts["overflow"].append(i)
+            return
+        au = cavlc_device.assemble_annexb(
+            buf, meta, headers=m._hub_headers[i] if idr else b"",
+            nal_type=None if idr else syn.NAL_SLICE, ref_idc=3 if idr else 2)
+        expect_aus[i].append((au, luma))
+
+    def single_p(y, cb, cr, ref, hv, hl):
+        flat, ny, ncb, ncr, _, _, _ = cavlc_p_device.encode_p_cavlc_frame(
+            y, cb, cr, *ref, hv, hl, qp)
+        return flat, (ny, ncb, ncr)
+
+    for c in calls:
+        counts[c["kind"]] += 1
+        if c["kind"] == "intra":
+            y, cb, cr = c["args"]
+            hv, hl = m.step.slots[c["kw"].get("idr_parity", 0) & 1]
+            for i in range(S):
+                pl = [up(a[i]) for a in (y, cb, cr)]
+                lv = h264_device.encode_intra_frame_yuv(*pl, qp)
+                flat = cavlc_device.encode_levels(lv, hv, hl, qp)
+                check(torch.equal(flat.cpu(), c["flat"][i, 0]),
+                      f"15b session {i}: flat differs from the single-session kernels")
+                rec = (lv["recon_y"], lv["recon_cb"], lv["recon_cr"])
+                check(all(torch.equal(a, b[i]) for a, b in zip(rec, c["refs"])),
+                      f"15b session {i}: recon differs")
+                deliver(i, c["flat"][i, 0], True, rec[0].cpu().numpy())
+        elif c["kind"] == "p":
+            y, cb, cr, ry, rcb, rcr, hv, hl = c["args"]
+            hv_t, hl_t = up(hv.view(np.int32)), up(hl)
+            for i in range(S):
+                pl = [up(a[i]) for a in (y, cb, cr)]
+                flat, ref = single_p(*pl, (ry[i], rcb[i], rcr[i]), hv_t, hl_t)
+                check(torch.equal(flat.cpu(), c["flat"][i, 0]),
+                      f"15c session {i}: flat differs from the single-session kernels")
+                check(all(torch.equal(a, b[i]) for a, b in zip(ref, c["refs"])),
+                      f"15c session {i}: reference differs")
+                deliver(i, c["flat"][i, 0], False, ref[0].cpu().numpy())
+        else:
+            ys, cbs, crs, ry, rcb, rcr, hv, hl = c["args"]
+            k = ys.shape[1]
+            # four 15c calls on the same inputs
+            refs = (ry, rcb, rcr)
+            for j in range(k):
+                f15c, *refs = m.p_step.step(ys[:, j], cbs[:, j], crs[:, j],
+                                            *refs, hv[j], hl[j])
+                check(torch.equal(f15c.cpu(), c["flat"][:, j]),
+                      f"15d frame {j}: flats differ from the 15c step's")
+            check(all(torch.equal(a, b) for a, b in zip(refs, c["refs"])),
+                  "15d: references differ from four 15c calls'")
+            for i in range(S):
+                ref = (ry[i], rcb[i], rcr[i])
+                for j in range(k):
+                    pl = [up(a[i, j]) for a in (ys, cbs, crs)]
+                    flat, ref = single_p(*pl, ref, up(hv[j].view(np.int32)),
+                                         up(hl[j]))
+                    check(torch.equal(flat.cpu(), c["flat"][i, j, 0]),
+                          f"15d session {i} frame {j}: flat differs from the "
+                          "single-session kernels")
+                    deliver(i, c["flat"][i, j, 0], False, ref[0].cpu().numpy())
+                check(all(torch.equal(a, b[i]) for a, b in zip(ref, c["refs"])),
+                      f"15d session {i}: references differ")
+    return counts
+
+
+def decode_session(items, expect, w: int, h: int, label: str) -> int:
+    """Session ``label``'s fMP4 fragments, demuxed to Annex-B: equal to
+    the expected access units, decoded by cv2 with each luma plane equal
+    to the expected reconstruction.  Returns the frames decoded."""
+    import numpy as np
+
+    init = next(it[1] for it in items if it[0] == "init")
+    frags = [it[1] for it in items if it[0] == "frag"]
+    aus = demux_fmp4(init, frags)
+    check(len(aus) == len(expect) and all(a == e[0] for a, e in zip(aus, expect)),
+          f"{label}: the hub's {len(aus)} access units differ from the "
+          f"{len(expect)} checked ones")
+    try:
+        import cv2
+    except ImportError:
+        return 0
+    path = os.path.join(HERE, "chiprun_out", f"session_{label}.264")
+    with open(path, "wb") as f:
+        f.write(b"".join(aus))
+    cap = cv2.VideoCapture(path)
+    cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+    for i, (_, luma) in enumerate(expect):
+        ok, img = cap.read()
+        check(ok, f"{label}: cv2 stopped decoding at frame {i}")
+        check(np.array_equal(np.asarray(img).reshape(h, w), luma[:h, :w]),
+              f"{label}: decoded luma {i} differs from the reconstruction")
+    cap.release()
+    os.remove(path)
+    return len(expect)
+
+
+def sessions_timed(s: int, chunk: int, ticks: int):
+    """A BatchStreamManager of ``s`` sessions at W x H driven tick by tick
+    on this thread (the body of its encode loop): tick submit and collect
+    ms (its histograms' samples), the host clock's split of a tick into
+    the synthetic sources' render, host colour and stacking, the step
+    with its pull, and AU assembly with the fMP4 fragments, and frames/s
+    with and without the render (which a real capture replaces); the
+    first tick (IDR, builds, the capture) excluded."""
+    import numpy as np
+
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+    from docker_nvidia_glx_desktop_tpu_torch.web import multisession as ms
+
+    class Tap:
+        def __init__(self):
+            self.v = []
+
+        def observe(self, x):
+            self.v.append(x)
+
+    cfg = from_env({"SIZEW": str(W), "SIZEH": str(H), "TPU_SESSIONS": str(s),
+                    "ENCODER_GOP": "60", "ENCODER_SUPERSTEP_CHUNK": str(chunk)})
+    srcs = [SessionSource(W, H, 60 + i) for i in range(s)]
+    m = ms.BatchStreamManager(cfg, srcs)
+    saved = ms._M_BATCH_SUBMIT, ms._M_BATCH_COLLECT
+    ms._M_BATCH_SUBMIT, ms._M_BATCH_COLLECT = sub, col = Tap(), Tap()
+    split = {"render": 0.0, "colour": 0.0, "step": 0.0, "deliver": 0.0}
+    try:
+        for t in range(ticks):
+            t0 = time.perf_counter()
+            frames = [src.frame()[0] for src in srcs]
+            t1 = time.perf_counter()
+            pl = [m._planes(f, i) for i, f in enumerate(frames)]
+            ys, cbs, crs = (np.stack([p[k] for p in pl]) for k in range(3))
+            t2 = time.perf_counter()
+            out = m._encode_tick(ys, cbs, crs)
+            t3 = time.perf_counter()
+            for flat, idr, jm in out:
+                m._deliver_tick(flat, idr, 1.0, jm)
+            t4 = time.perf_counter()
+            if t:
+                for k, v in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                    split[k] += v
+    finally:
+        ms._M_BATCH_SUBMIT, ms._M_BATCH_COLLECT = saved
+    pool = m.chunk_step.pool_bytes if m.chunk_step else 0
+    m.close()
+    n = (ticks - 1) * s
+    wall = sum(split.values())
+    return {"sessions": s, "chunk": chunk, "ticks": ticks,
+            "submit_p50_ms": statistics.median(sub.v[1:]),
+            "collect_p50_ms": statistics.median(col.v[1:]),
+            "tick_split_ms": {k: v / (ticks - 1) * 1e3 for k, v in split.items()},
+            "aggregate_fps": n / wall, "per_session_fps": n / wall / s,
+            "serving_fps": n / (wall - split["render"]), "pool_bytes": pool}
+
+
+def sessions_phase(report):
+    """``TPU_SESSIONS`` > 1 at 1080p (BASELINE config 5: eight sessions)
+    plus a second bucket of two 1280x720 sessions, served by
+    ``BucketedStreamManager`` on its encode threads, GOP 60 per tick
+    (chunk 0) and then in chunk rings of 4: every batched call held to
+    the single-session kernels on every session (15b, 15c, 15d, and 15d
+    to four 15c calls), the deblock form of 15c held the same way,
+    session 0 of an IDR and a P tick and every session of one chunk to
+    the plain versions, each hub's fMP4 stream demuxed, equal to the
+    checked access units and decoded by cv2; the link probe (K17g) sets
+    the ledger's rtt and is held to its plain loop."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.obs.budget import LEDGER
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (bitmerge, cavlc_device,
+                                                         cavlc_p_device, devloop,
+                                                         h264_deblock,
+                                                         h264_device, h264_inter)
+    from docker_nvidia_glx_desktop_tpu_torch.parallel import batch
+
+    rep = report["sessions"] = {}
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    steps = {"h264_batch_intra": batch.IntraBatchStep,
+             "h264_batch_p": batch.PBatchStep,
+             "h264_batch_p_chunk": batch.PChunkBatchStep,
+             "link_probe": devloop.probe_loop}
+    named = {"intra": h264_device.encode_intra_frame_yuv,
+             "cavlc_slots": cavlc_device.frame_block_slots,
+             "pack": bitmerge.pack_frame, "inter": h264_inter.encode_p_frame,
+             "cavlc_p_slots": cavlc_p_device.p_frame_slots,
+             "pack_p": bitmerge.pack_p_frame}
+
+    # -- main path: both configurations and the probe, counted -----------------
+    zero_counts(named)
+    zero_counts(steps)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for chunk in (0, SESS_CHUNK):
+        runs[chunk] = sessions_run(chunk, SESS_TICKS, SESS_KF_HUB, SESS_KF_AT)
+    probe = LEDGER.probe_link()
+    torch.cuda.synchronize()
+    launches = path_launches(named)
+    step_launches = {k: v.launches for k, v in steps.items()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    check(LEDGER.link_rtt_ms == probe["rtt_ms"], "the ledger's link rtt is not the probe's")
+    print(f"sessions main: {SESS_S} x {W}x{H} + {SESS_B2_N} x {SESS_B2[0]}x"
+          f"{SESS_B2[1]} sessions, {SESS_TICKS} ticks a bucket, chunk 0 and "
+          f"{SESS_CHUNK}; step launches {step_launches}; kernel launches "
+          f"{launches}; link rtt {probe['rtt_ms']:.3f} ms (step "
+          f"{probe['step_us']:.3f} us)")
+
+    # -- every batched call against the single-session kernels -----------------
+    qp = runs[0][0].managers[0].step.qp
+    totals = {"intra": 0, "p": 0, "chunk": 0}
+    decoded = 0
+    captures = 0
+    for chunk, (mgr, calls, items, sources) in runs.items():
+        for b, (m, c) in enumerate(zip(mgr.managers, calls)):
+            expect = [[] for _ in m.sources]
+            counts = verify_bucket(m, c, qp, dev, expect)
+            for k in totals:
+                totals[k] += counts[k]
+            if m.chunk_step is not None and m.chunk_step.graph is not None:
+                captures += 1
+            base = 0 if b == 0 else SESS_S
+            for i in range(len(m.sources)):
+                decoded += decode_session(items[base + i], expect[i],
+                                          m.sources[i].width,
+                                          m.sources[i].height,
+                                          f"c{chunk}b{b}s{i}")
+            if b == 0:
+                intras = counts["intra"]
+                check(intras >= 3, f"chunk {chunk}: bucket 0 ran {intras} IDR "
+                      "ticks (the join, the keyframe request, the overflow)")
+                # the noise frame overflows; in a chunk, so may the frames
+                # after it that predict from its recon (the re-key waits
+                # for the chunk's end, as in the reference)
+                ovf = counts["overflow"]
+                check(ovf and set(ovf) == {SESS_NOISY[0]}
+                      and (len(ovf) == 1 or chunk),
+                      f"chunk {chunk}: overflowed frames in sessions {ovf}")
+                n_frag = [sum(1 for it in items[i] if it[0] == "frag")
+                          for i in range(SESS_S)]
+                want_frag = [max(n_frag) - (len(ovf) if i == SESS_NOISY[0]
+                                            else 0) for i in range(SESS_S)]
+                check(n_frag == want_frag, f"chunk {chunk}: fragments per "
+                      f"hub {n_frag}: an overflow dropped another session's "
+                      "frame")
+            else:
+                check(counts["intra"] == 1 and not counts["overflow"],
+                      f"chunk {chunk}: the second bucket was re-keyed")
+            if chunk:
+                check(counts["chunk"] >= 2, f"bucket {b}: {counts['chunk']} chunks")
+        rep[f"chunk{chunk}"] = {
+            "pool_bytes": [m.chunk_step.pool_bytes if m.chunk_step else 0
+                           for m in mgr.managers]}
+    print(f"(a) sessions: {totals['intra']} 15b, {totals['p']} 15c and "
+          f"{totals['chunk']} 15d calls equal to the single-session kernels on "
+          f"every session (flats and references; 15d also to four 15c calls); "
+          f"{decoded} frames of {2 * (SESS_S + SESS_B2_N)} demuxed streams "
+          "decoded by cv2 equal to the reconstructions")
+    n_intra, n_p, n_chunk = totals["intra"], totals["p"], totals["chunk"]
+    want = {"intra": n_intra, "cavlc_slots": n_intra, "pack": n_intra,
+            "inter": n_p + SESS_CHUNK * (n_chunk + captures),
+            "cavlc_p_slots": n_p + SESS_CHUNK * (n_chunk + captures),
+            "pack_p": n_p + SESS_CHUNK * (n_chunk + captures)}
+    check(launches == want, f"sessions launches {launches}, want {want}")
+    check(step_launches["h264_batch_intra"] == n_intra
+          and step_launches["h264_batch_p"] == n_p
+          and step_launches["h264_batch_p_chunk"] == n_chunk
+          and step_launches["link_probe"] >= 9,
+          f"step launches {step_launches}")
+
+    # -- session 0 against the plain versions; the deblock form of 15c ---------
+    m0 = runs[0][0].managers[0]
+    c0 = runs[0][1][0]
+    ci = next(c for c in c0 if c["kind"] == "intra")
+    cp = next(c for c in c0 if c["kind"] == "p")
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    y8, cb8, cr8 = (up(a) for a in ci["args"])
+    hv_i, hl_i = m0.step.slots[ci["kw"].get("idr_parity", 0) & 1]
+    pi = batch.h264_intra_batch_plain(y8[:1], cb8[:1], cr8[:1], hv_i, hl_i, qp,
+                                      with_recon=True)
+    e15b = max_diff(zip(pi, [ci["flat"][:1]] + [r[:1] for r in ci["refs"]]))
+    check(e15b == 0, f"15b session 0 differs from the plain version by {e15b}")
+    py8, pcb8, pcr8, pry, prcb, prcr, phv, phl = cp["args"]
+    pargs = [up(a) for a in (py8, pcb8, pcr8)] + [pry, prcb, prcr] + [
+        up(phv.view(np.int32)), up(phl)]
+    pp = batch.h264_p_batch_plain(*[a[:1] for a in pargs[:6]], *pargs[6:], qp)
+    e15c = max_diff(zip(pp, [cp["flat"][:1]] + [r[:1] for r in cp["refs"]]))
+    check(e15c == 0, f"15c session 0 differs from the plain version by {e15c}")
+    dstep, _ = batch.h264_p_batch_step(H_PAD, W, qp=qp, deblock=True)
+    dflat, *drefs = dstep(*pargs)
+    for i in range(SESS_S):
+        flat, ny, ncb, ncr, mv, nnz, _ = cavlc_p_device.encode_p_cavlc_frame(
+            pargs[0][i], pargs[1][i], pargs[2][i], pry[i], prcb[i], prcr[i],
+            pargs[6], pargs[7], qp)
+        want_ref = h264_deblock.deblock_frame(ny, ncb, ncr, qp, nnz_blk=nnz, mv=mv)
+        check(torch.equal(flat, dflat[i, 0])
+              and all(torch.equal(a, b[i]) for a, b in zip(want_ref, drefs)),
+              f"15c deblock session {i}: differs from the single-session K5-K8")
+    # 15d: every session of one chunk through the plain 15c chain (timed
+    # as the row's plain version)
+    mc = runs[SESS_CHUNK][0].managers[0]
+    cc = next(c for c in runs[SESS_CHUNK][1][0] if c["kind"] == "chunk")
+    kys, kcbs, kcrs, kry, krcb, krcr, khv, khl = cc["args"]
+    chain = []
+
+    def plain_chain():
+        ref, flats = (kry, krcb, krcr), []
+        for j in range(SESS_CHUNK):
+            f, *ref = batch.h264_p_batch_plain(
+                up(kys[:, j]), up(kcbs[:, j]), up(kcrs[:, j]), *ref,
+                up(khv[j].view(np.int32)), up(khl[j]), qp)
+            flats.append(f)
+        chain[:] = [torch.stack(flats, 1)] + ref
+
+    d_plain = cuda_ms(plain_chain, reps=1, warm=0)
+    e15d = max_diff(zip(chain, [cc["flat"]] + list(cc["refs"])))
+    check(e15d == 0, f"15d differs from the plain 15c chain by {e15d}")
+    print("(b) sessions: session 0 of an IDR tick and a P tick, and every "
+          f"session of a chunk of {SESS_CHUNK}, equal to the plain versions; "
+          f"15c with deblock=True equal to K5-K8 on all {SESS_S} sessions")
+
+    # -- the encoder's prewarm: libraries loaded, the ring's graph captured
+    # at the IDR, before the first chunk; the stream equal to a twin's -----
+    from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    pcfg = from_env({"SIZEW": str(W), "SIZEH": str(H),
+                     "ENCODER_SUPERSTEP_CHUNK": str(SESS_CHUNK)})
+    warm, _ = make_encoder(pcfg, W, H)
+    twin, _ = make_encoder(pcfg, W, H)
+    th, stop = warm.prewarm_async()
+    th.join(300)
+    check(not th.is_alive() and warm._prewarm_ring
+          and all(n in _cuda._libs for n in _cuda.KERNEL_SOURCES),
+          "prewarm did not load every kernel library")
+    pframes = [SessionSource(W, H, 90).render(t) for t in range(1 + SESS_CHUNK)]
+    got = [warm.encode_submit(pframes[0])]
+    check(warm._graphs.captures == 1, "prewarm: no graph captured at the IDR")
+    got += [warm.encode_submit(f) for f in pframes[1:]]
+    check(warm._graphs.captures == 1 and warm._graphs.replays == 1,
+          "prewarm: the first chunk did not replay the prewarmed graph")
+    twin_toks = [twin.encode_submit(f) for f in pframes]
+    want = [twin.encode_collect(t).data for t in twin_toks]
+    check([warm.encode_collect(t).data for t in got] == want,
+          "prewarm: the stream differs from an encoder's without prewarm")
+    print(f"(e) sessions: prewarm loaded {len(_cuda.KERNEL_SOURCES)} kernel "
+          "libraries and captured the ring's graph at the IDR; the first "
+          "chunk replayed it; the AUs equal a twin's without prewarm")
+
+    # -- kernel rows at S = SESS_S, W x H_PAD --------------------------------
+    nmb = (H_PAD // 16) * (W // 16)
+    flat_used = lambda flats: sum(
+        4096 + 4 * cavlc_device.FlatMeta(f.numpy(), H_PAD // 16).total_words
+        for f in flats.reshape(-1, flats.shape[-1]))
+    k_ms = cuda_ms(lambda: m0.step.step(y8, cb8, cr8), reps=10)
+    k_plain = cuda_ms(lambda: batch.h264_intra_batch_plain(
+        y8, cb8, cr8, hv_i, hl_i, qp, with_recon=True), reps=1, warm=0)
+    r15b = kernel_row("h264_batch_intra", "", "parallel/batch.py:276 "
+                      f"h264_batch_encode_step (S={SESS_S}, with_recon)",
+                      step_launches["h264_batch_intra"], e15b, k_ms, k_plain,
+                      nbytes(y8, cb8, cr8, *ci["refs"]) + flat_used(ci["flat"]))
+    p_ms = cuda_ms(lambda: m0.p_step.step(*pargs), reps=10)
+    p_plain = cuda_ms(lambda: batch.h264_p_batch_plain(*pargs, qp), reps=1,
+                      warm=0)
+    p_bytes = (nbytes(*pargs[:6], *cp["refs"]) + flat_used(cp["flat"]))
+    r15c = kernel_row("h264_batch_p", "", "parallel/batch.py:376 "
+                      f"h264_p_batch_step (S={SESS_S})",
+                      step_launches["h264_batch_p"], e15c, p_ms, p_plain,
+                      p_bytes, SESS_S * k5_ops(nmb))
+    cstep = mc.chunk_step.step
+    cstep.release()
+    cstep(*cc["args"])
+    g_ms = cuda_ms(cstep.graph.replay, reps=10)
+    cys, ccbs, ccrs, chv, chl, cry, crcb, crcr = cstep.inputs
+    e_ms = cuda_ms(lambda: cstep.body(cys, ccbs, ccrs, cry, crcb, crcr, chv,
+                                      chl), reps=2)
+    cstep.release()
+    rep["eager_chunk_ms"] = e_ms
+    r15d = kernel_row("h264_batch_p_chunk", "", "parallel/batch.py:470 "
+                      f"h264_p_chunk_batch_step (S={SESS_S}, K={SESS_CHUNK}, "
+                      "graph replay; plain: the plain 15c chain)",
+                      step_launches["h264_batch_p_chunk"], e15d, g_ms, d_plain,
+                      nbytes(*cstep.inputs, *cc["refs"]) + flat_used(cc["flat"]),
+                      SESS_S * SESS_CHUNK * k5_ops(nmb))
+    x = torch.arange(64, dtype=torch.uint8, device=dev).reshape(8, 8)
+    xc = x.cpu()
+    e17g = max_diff((devloop.probe_loop(x, k), devloop.probe_loop_plain(xc, k))
+                    for k in (1, 9, 257))
+    check(e17g == 0, f"K17g differs from its plain loop by {e17g}")
+    pr_ms = cuda_ms(lambda: devloop.probe_loop(x, 1), reps=20)
+    t = time.perf_counter()
+    for _ in range(20):
+        devloop.probe_loop_plain(xc, 1)
+    pr_plain = (time.perf_counter() - t) / 20 * 1e3
+    r17g = kernel_row("link_probe", "probe.cu", "devloop.py:406 _probe_loop "
+                      "(:417 measure_link_rtt; ms includes the 4-byte pull)",
+                      step_launches["link_probe"], e17g, pr_ms, pr_plain,
+                      64 + 4, 1.0)
+    for r in (r15b, r15c, r15d):
+        r["source"] = "docker_nvidia_glx_desktop_tpu_torch/parallel/batch.py"
+    rows = [r15b, r15c, r15d, r17g]
+    for r in rows:
+        print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
+              f"{r['launches']} launches on its path; max abs err "
+              f"{r['max_abs_err']})")
+    print(f"kernel h264_batch_p_chunk: the eager body {e_ms:.4f} ms against "
+          f"the replay {g_ms:.4f} ms [{smi_line()}]")
+
+    # -- batched against S single-session launches: K1 and K5 ---------------------
+    k1_b = cuda_ms(lambda: h264_device.encode_intra_frame_yuv(y8, cb8, cr8, qp), reps=10)
+    k1_1 = cuda_ms(lambda: h264_device.encode_intra_frame_yuv(y8[0], cb8[0], cr8[0], qp),
+                   reps=10)
+    k5_b = cuda_ms(lambda: h264_inter.encode_p_frame(*pargs[:6], qp), reps=10)
+    k5_1 = cuda_ms(lambda: h264_inter.encode_p_frame(*[a[0] for a in pargs[:6]], qp),
+                   reps=10)
+    rep["k1"] = {"batched_ms": k1_b, "single_ms": k1_1, "blocks": SESS_S * H_PAD // 16}
+    rep["k5"] = {"batched_ms": k5_b, "single_ms": k5_1, "blocks": SESS_S * nmb}
+    print(f"sessions K1 at S={SESS_S}: {k1_b:.3f} ms against {SESS_S} x "
+          f"{k1_1:.3f} = {SESS_S * k1_1:.3f} ms single ({SESS_S * H_PAD // 16} "
+          f"blocks a launch against 132 SMs; one session: {H_PAD // 16}); K5: "
+          f"{k5_b:.3f} ms against {SESS_S} x {k5_1:.3f} = {SESS_S * k5_1:.3f} ms "
+          f"({SESS_S * nmb} blocks; one session: {nmb}) [{smi_line()}]")
+
+    # -- timed runs: S = 1, 2, 4, 8 per tick, and S = 8 in chunks ---------------
+    timed = [sessions_timed(s, 0, SESS_TIMED_TICKS) for s in SESS_TIMED_S]
+    timed.append(sessions_timed(SESS_S, SESS_CHUNK, 1 + 3 * SESS_CHUNK))
+    rep["timed"] = timed
+    card = smi_line()
+    for tr in timed:
+        sp = tr["tick_split_ms"]
+        print(f"sessions timed S={tr['sessions']} chunk {tr['chunk']}: tick submit "
+              f"p50 {tr['submit_p50_ms']:.2f} ms, collect p50 "
+              f"{tr['collect_p50_ms']:.2f} ms; {tr['aggregate_fps']:.1f} frames/s "
+              f"aggregate, {tr['per_session_fps']:.1f} per session, "
+              f"{tr['serving_fps']:.1f} without the sources' render; a tick: "
+              f"render {sp['render']:.2f}, colour {sp['colour']:.2f}, step "
+              f"{sp['step']:.2f}, deliver {sp['deliver']:.2f} ms (host clock, "
+              f"{tr['ticks'] - 1} ticks after the first) [{card}]")
+    pools = {k: v["pool_bytes"] for k, v in rep.items() if k.startswith("chunk")}
+    print(f"sessions: chunk graph pools per bucket {pools[f'chunk{SESS_CHUNK}']} "
+          f"bytes; peak device memory {peak_mem / 2**20:.1f} MiB over the main "
+          f"run; link rtt {probe['rtt_ms']:.3f} ms [{smi_line()}]")
+    rep.update(launches=launches, step_launches=step_launches, probe=probe,
+               peak_mem=peak_mem, decoded=decoded, phase_s=time.perf_counter() - t_phase)
+    for mgr, *_ in runs.values():
+        mgr.close()
+    return rows
 
 
 def main():

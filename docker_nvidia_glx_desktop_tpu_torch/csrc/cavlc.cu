@@ -50,9 +50,13 @@ struct Levels {
 enum { TC_LUMA = 0, TC_CB = 16, TC_CR = 20, CBP_LUMA = 24, CBP_LUMA4 = 25,
        CBP_CHROMA = 26, GRP_ANY = 27 };
 
+// blockIdx.y: the session.  Sessions' levels, slots and scratch are
+// stacked contiguously, nmb MBs each, so mb below is the stack's index;
+// an MB reads only its own row (slice per MB row), never another session.
 __global__ void mb_info_kernel(Levels L, int* info, int nmb) {
-  const int mb = blockIdx.x * blockDim.x + threadIdx.x;
-  if (mb >= nmb) return;
+  const int local = blockIdx.x * blockDim.x + threadIdx.x;
+  if (local >= nmb) return;
+  const int mb = blockIdx.y * nmb + local;
   int* o = info + mb * INFO;
   const bool i4 = L.mb_i4[mb];
   bool cbp_luma = false;
@@ -239,7 +243,7 @@ __global__ void slots_kernel(Levels L, const int* info, int* values, int* length
                              int* syn_vals, int* syn_lens, int nmb, int nc) {
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= nmb * (BLOCKS + 1)) return;
-  const int mb = gid / (BLOCKS + 1), j = gid % (BLOCKS + 1);
+  const int mb = blockIdx.y * nmb + gid / (BLOCKS + 1), j = gid % (BLOCKS + 1);
   const bool has_left = mb % nc != 0;
   const int* inf = info + mb * INFO;
   const int* linf = has_left ? info + (mb - 1) * INFO : nullptr;
@@ -301,8 +305,9 @@ enum { P_CBP = 24, P_CBP_CHROMA = 25, P_GRP = 26, P_INTRA = 27, P_CL15 = 28 };
 
 template <bool INTRA>
 __global__ void p_info_kernel(PLevels L, int* info, uint8_t* nnz, int nmb) {
-  const int mb = blockIdx.x * blockDim.x + threadIdx.x;
-  if (mb >= nmb) return;
+  const int local = blockIdx.x * blockDim.x + threadIdx.x;   // session blockIdx.y
+  if (local >= nmb) return;
+  const int mb = blockIdx.y * nmb + local;
   int* o = info + mb * INFO;
   int grp = 0;
   for (int b = 0; b < 16; ++b) {        // blkIdx order
@@ -415,7 +420,7 @@ __global__ void p_slots_kernel(PLevels L, const int* info, int* values, int* len
   constexpr int NB = P_BLOCKS + (INTRA ? 1 : 0);
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= nmb * (NB + 1)) return;
-  const int mb = gid / (NB + 1), c = mb % nc;
+  const int mb = blockIdx.y * nmb + gid / (NB + 1), c = mb % nc;   // session blockIdx.y
   const int jb = gid % (NB + 1);           // block slot (NB: the header)
   if (jb == NB) {
     const int r = mb / nc;
@@ -526,21 +531,24 @@ extern "C" int cavlc_upload_tables(const int* ct, const int* tz, const int* tzc,
   return cudaMemcpyToSymbol(c_cbp_cn_inter, cbp_cn_inter, sizeof(c_cbp_cn_inter));
 }
 
+// ns: sessions (1 = one frame), each nr x nc MBs, stacked on every
+// array's leading axis (scratch included).
 extern "C" int cavlc_slots_launch(
     const int* luma_dc, const int* luma_ac, const int* cb_dc, const int* cb_ac,
     const int* cr_dc, const int* cr_ac, const int* pred_mode, const uint8_t* mb_i4,
     const int* i4_modes, const int* luma_i4, int* values, int* lengths,
-    int* syn_vals, int* syn_lens, int* scratch, int nr, int nc, cudaStream_t stream) {
+    int* syn_vals, int* syn_lens, int* scratch, int nr, int nc, int ns,
+    cudaStream_t stream) {
   const int nmb = nr * nc;
-  if (nmb <= 0) return 0;
+  if (nmb <= 0 || ns <= 0) return 0;
   const Levels L{luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode,
                  mb_i4, i4_modes, luma_i4};
-  mb_info_kernel<<<(nmb + 127) / 128, 128, 0, stream>>>(L, scratch, nmb);
+  mb_info_kernel<<<dim3((nmb + 127) / 128, ns), 128, 0, stream>>>(L, scratch, nmb);
   int e = dngd_last_error();
   if (e) return e;
   const int n = nmb * (BLOCKS + 1);
-  slots_kernel<<<(n + 127) / 128, 128, 0, stream>>>(L, scratch, values, lengths,
-                                                    syn_vals, syn_lens, nmb, nc);
+  slots_kernel<<<dim3((n + 127) / 128, ns), 128, 0, stream>>>(L, scratch, values, lengths,
+                                                              syn_vals, syn_lens, nmb, nc);
   return dngd_last_error();
 }
 
@@ -548,15 +556,16 @@ extern "C" int cavlc_p_slots_launch(const int* mv, const int* luma, const int* c
                                     const int* cb_ac, const int* cr_dc, const int* cr_ac,
                                     int* values, int* lengths, int* hdr_vals, int* hdr_lens,
                                     int* trail_vals, int* trail_lens, uint8_t* nnz,
-                                    int* scratch, int nr, int nc, cudaStream_t stream) {
+                                    int* scratch, int nr, int nc, int ns,
+                                    cudaStream_t stream) {
   const int nmb = nr * nc;
-  if (nmb <= 0) return 0;
+  if (nmb <= 0 || ns <= 0) return 0;
   const PLevels L{mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, nullptr, nullptr, nullptr};
-  p_info_kernel<false><<<(nmb + 127) / 128, 128, 0, stream>>>(L, scratch, nnz, nmb);
+  p_info_kernel<false><<<dim3((nmb + 127) / 128, ns), 128, 0, stream>>>(L, scratch, nnz, nmb);
   int e = dngd_last_error();
   if (e) return e;
   const int n = nmb * (P_BLOCKS + 1);
-  p_slots_kernel<false><<<(n + 127) / 128, 128, 0, stream>>>(
+  p_slots_kernel<false><<<dim3((n + 127) / 128, ns), 128, 0, stream>>>(
       L, scratch, values, lengths, hdr_vals, hdr_lens, trail_vals, trail_lens, nmb, nc);
   return dngd_last_error();
 }

@@ -128,7 +128,10 @@ __global__ void __launch_bounds__(NT) deblock_kernel(
     const int* __restrict__ luma, const int* __restrict__ qp_dev, uint8_t* oy, uint8_t* ocb,
     uint8_t* ocr, int nc, Tables TL, Tables TC) {
   extern __shared__ uint4 smem4[];
-  const int W = nc * 16, Wc = nc * 8, r = blockIdx.x, t = threadIdx.x;
+  // r: the MB row of the stack; blockIdx.y is the session (sessions'
+  // planes, flags and MVs stacked contiguously, gridDim.x rows each)
+  const int W = nc * 16, Wc = nc * 8, r = blockIdx.y * gridDim.x + blockIdx.x;
+  const int t = threadIdx.x;
   uint8_t* sy = reinterpret_cast<uint8_t*>(smem4);           // 16 x W
   uint8_t* sc[2] = {sy + 16 * W, sy + 16 * W + 8 * Wc};     // 8 x Wc each
   const int ny = 16 * W / 16, nch = 8 * Wc / 16;             // uint4 counts
@@ -204,14 +207,15 @@ __global__ void __launch_bounds__(NT) deblock_kernel(
 // tables: alpha, beta, tc0[3] for luma (indexA = qp), then chroma
 // (indexA = QPc); qp_dev non-null replaces them by the tables at the qp
 // it holds.  nnz, mv and luma null for an intra frame; a P frame passes
-// mv and either nnz or luma.
+// mv and either nnz or luma.  ns: sessions (1 = one frame) stacked on
+// every array's leading axis.
 extern "C" int deblock_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
                               const uint8_t* nnz, const int* mv, const int* luma,
                               const int* qp_dev, uint8_t* oy, uint8_t* ocb, uint8_t* ocr,
                               int nr, int nc, int a_l, int b_l, int t_l0, int t_l1, int t_l2,
-                              int a_c, int b_c, int t_c0, int t_c1, int t_c2,
+                              int a_c, int b_c, int t_c0, int t_c1, int t_c2, int ns,
                               cudaStream_t stream) {
-  if (nr <= 0 || nc <= 0) return 0;
+  if (nr <= 0 || nc <= 0 || ns <= 0) return 0;
   const Tables TL{a_l, b_l, {t_l0, t_l1, t_l2}}, TC{a_c, b_c, {t_c0, t_c1, t_c2}};
   const size_t smem = 24 * (size_t)nc * 16 + (luma ? (size_t)nc * 16 : 0);
   // raised once per size, on the first (uncaptured) launch that needs it
@@ -223,7 +227,7 @@ extern "C" int deblock_launch(const uint8_t* y, const uint8_t* cb, const uint8_t
       return e;
     smem_set = smem;
   }
-  deblock_kernel<<<nr, NT, smem, stream>>>(y, cb, cr, nnz, mv, luma, qp_dev, oy, ocb, ocr, nc,
+  deblock_kernel<<<dim3(nr, ns), NT, smem, stream>>>(y, cb, cr, nnz, mv, luma, qp_dev, oy, ocb, ocr, nc,
                                            TL, TC);
   return dngd_last_error();
 }

@@ -289,7 +289,7 @@ __device__ void hq_residual(S& s, int mb, int orow, int c, int W, int Wc, int qm
   }
 }
 
-template <int TIER>
+template <int TIER, bool SESS = false>
 __global__ void __launch_bounds__(NT) inter_frame_kernel(
     const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
     const uint8_t* __restrict__ cr, const uint8_t* __restrict__ ref_y,
@@ -301,6 +301,30 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
     int nr, int nc, int qp, int qpc) {
   __shared__ SmemT<TIER> s;
   const int t = threadIdx.x;
+  if constexpr (SESS) {
+    // blockIdx.y: the session.  Sessions' frames, references (nr x nc
+    // MBs each) and outputs (gridDim.x MBs each) are stacked contiguously;
+    // a session's search clamps at its own frame's edges.  (One session
+    // launches the !SESS form: its pointers stay kernel parameters.)
+    const size_t sess = blockIdx.y, fl = sess * nr * nc * 256, om = sess * gridDim.x;
+    y += fl;
+    cb += fl / 4;
+    cr += fl / 4;
+    ref_y += fl;
+    ref_cb += fl / 4;
+    ref_cr += fl / 4;
+    mv_out += om * 2;
+    luma += om * 256;
+    cb_dc += om * 4;
+    cr_dc += om * 4;
+    cb_ac += om * 60;
+    cr_ac += om * 60;
+    ry += om * 256;
+    rcb += om * 64;
+    rcr += om * 64;
+    if (qp_map) qp_map += om;
+    if (score_out) score_out += om;
+  }
   // mb: the output MB (compacted order); r: the frame MB row it encodes
   const int mb = blockIdx.x, orow = mb / nc, c = mb % nc;
   const int r = rows ? rows[orow] : orow;
@@ -690,16 +714,23 @@ __global__ void __launch_bounds__(NT) i16_merge_kernel(
 
 // rows: null for the whole frame (nb = nr), else nb MB rows (K5r).
 // qp_dev: null to take qp/qpc as given, else the slice qp on the card.
+// ns: sessions (1 = one frame) stacked on every plane's and output's
+// leading axis, each searching its own reference.
 extern "C" int inter_frame_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
                                   const uint8_t* ref_y, const uint8_t* ref_cb,
                                   const uint8_t* ref_cr, const int* rows, const int* qp_dev,
                                   int* mv, int* luma, int* cb_dc, int* cb_ac, int* cr_dc,
                                   int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr, int nr,
-                                  int nc, int nb, int qp, int qpc, cudaStream_t stream) {
-  if (nr <= 0 || nc <= 0 || nb <= 0) return 0;
-  inter_frame_kernel<0><<<nb * nc, NT, 0, stream>>>(
-      y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, nullptr, nullptr, nullptr, nullptr, mv,
-      luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+                                  int nc, int nb, int qp, int qpc, int ns, cudaStream_t stream) {
+  if (nr <= 0 || nc <= 0 || nb <= 0 || ns <= 0) return 0;
+  if (ns == 1)
+    inter_frame_kernel<0><<<nb * nc, NT, 0, stream>>>(
+        y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, nullptr, nullptr, nullptr, nullptr, mv,
+        luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+  else
+    inter_frame_kernel<0, true><<<dim3(nb * nc, ns), NT, 0, stream>>>(
+        y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, nullptr, nullptr, nullptr, nullptr, mv,
+        luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
   return dngd_last_error();
 }
 

@@ -146,7 +146,10 @@ __global__ void __launch_bounds__(NT) intra_frame_kernel(
     const int* __restrict__ qp_map, const float* __restrict__ lam_tab,
     const float* __restrict__ sig_tab, int nc, int qp, int qpc) {
   __shared__ SmemT<TIER> s;
-  const int r = blockIdx.x, t = threadIdx.x;
+  // r: the MB row of the stack.  blockIdx.y is the session: sessions'
+  // planes and outputs are stacked contiguously, a session's stride is
+  // gridDim.x MB rows, and no row reads another (slice per MB row)
+  const int r = blockIdx.y * gridDim.x + blockIdx.x, t = threadIdx.x;
   const int W = nc * 16, Wc = nc * 8;
   const Qp Q0(qp), QC0(qpc);
   uint8_t* const rc[2] = {rcb, rcr};
@@ -440,14 +443,16 @@ __global__ void __launch_bounds__(NT) intra_frame_kernel(
 
 }  // namespace
 
+// ns: sessions (1 = one frame), each nr x nc MBs, stacked on the planes'
+// and outputs' leading axis.
 extern "C" int intra_frame_launch(
     const uint8_t* y, const uint8_t* cb, const uint8_t* cr, int* luma_dc,
     int* luma_ac, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac,
     int* pred_mode, uint8_t* mb_i4, int* i4_modes, int* luma_i4, uint8_t* ry,
-    uint8_t* rcb, uint8_t* rcr, int nr, int nc, int qp, int qpc,
+    uint8_t* rcb, uint8_t* rcr, int nr, int nc, int qp, int qpc, int ns,
     cudaStream_t stream) {
-  if (nr <= 0 || nc <= 0) return 0;
-  intra_frame_kernel<0><<<nr, NT, 0, stream>>>(
+  if (nr <= 0 || nc <= 0 || ns <= 0) return 0;
+  intra_frame_kernel<0><<<dim3(nr, ns), NT, 0, stream>>>(
       y, cb, cr, luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode,
       mb_i4, i4_modes, luma_i4, ry, rcb, rcr, nullptr, nullptr, nullptr, nc, qp, qpc);
   return dngd_last_error();

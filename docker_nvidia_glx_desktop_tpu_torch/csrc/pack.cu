@@ -57,14 +57,37 @@ struct Scratch {
       : piece_off(s), mb_bits(s + nmb * MAX_PIECES), mb_off(mb_bits + nmb),
         body_bits(mb_off + nmb), pad(body_bits + nr), row_bytes(pad + nr),
         word_off(row_bytes + nr), flags(word_off + nr) {}
+  // one session's words: sessions' scratches are stacked, words() apart
+  static __host__ __device__ size_t words(int nmb, int nr) {
+    return (size_t)nmb * (MAX_PIECES + 2) + 4 * (size_t)nr + 8;
+  }
+  __device__ Scratch at(size_t off) const {
+    Scratch o = *this;
+    o.piece_off += off; o.mb_bits += off; o.mb_off += off; o.body_bits += off;
+    o.pad += off; o.row_bytes += off; o.word_off += off; o.flags += off;
+    return o;
+  }
 };
+
+// Sessions: the SESS instantiations take the session from blockIdx.y (the
+// one-thread meta kernel: blockIdx.x); a session's slots, runs, flat
+// buffer and scratch follow the previous session's, the slice-header slots
+// are shared (one geometry).  One session launches the !SESS
+// instantiations, the kernels as they were before the session axis.
 
 __device__ __forceinline__ unsigned bswap(unsigned x) { return __byte_perm(x, 0, 0x0123); }
 
-template <class Y>
-__global__ void mb_bits_kernel(const int* lengths, const int* syn_lens, Scratch S, int nmb) {
+template <class Y, bool SESS>
+__global__ void mb_bits_kernel(const int* lengths, const int* syn_lens, Scratch S, int nmb,
+                               int nr) {
   const int mb = blockIdx.x * blockDim.x + threadIdx.x;
   if (mb >= nmb) return;
+  if constexpr (SESS) {
+    const size_t sess = blockIdx.y;
+    S = S.at(sess * Scratch::words(nmb, nr));
+    lengths += sess * nmb * Y::blocks * SLOTS;
+    syn_lens += sess * nmb * Y::syn;
+  }
   bool ovf = false;
   int bits = 0;
   for (int k = 0; k < Y::syn; ++k) bits += syn_lens[mb * Y::syn + k];
@@ -84,10 +107,16 @@ __global__ void mb_bits_kernel(const int* lengths, const int* syn_lens, Scratch 
 }
 
 // run_lens: each row's trailing skip-run piece after its MBs (P), or null
+template <bool SESS>
 __global__ void row_scan_kernel(const int* hdr_lens, const int* run_lens, Scratch S, int nr,
                                 int nc) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= nr) return;
+  if constexpr (SESS) {
+    const size_t sess = blockIdx.y;
+    S = S.at(sess * Scratch::words(nr * nc, nr));
+    if (run_lens) run_lens += sess * nr;
+  }
   int off = hdr_lens[r * HDR] + hdr_lens[r * HDR + 1] + hdr_lens[r * HDR + 2];
   for (int c = 0; c < nc; ++c) {
     S.mb_off[r * nc + c] = off;
@@ -100,7 +129,14 @@ __global__ void row_scan_kernel(const int* hdr_lens, const int* run_lens, Scratc
   S.row_bytes[r] = (off + pad + 1) / 8;
 }
 
-__global__ void meta_kernel(Scratch S, uint8_t* flat, int nr, const int* qp_sum) {
+template <bool SESS>
+__global__ void meta_kernel(Scratch S, uint8_t* flat, int nr, int nc, const int* qp_sum) {
+  if constexpr (SESS) {
+    const size_t sess = blockIdx.x;
+    S = S.at(sess * Scratch::words(nr * nc, nr));
+    flat += sess * FLAT_BYTES;
+    if (qp_sum) qp_sum += sess;
+  }
   unsigned* meta = reinterpret_cast<unsigned*>(flat);
   long long total = 0;
   for (int r = 0; r < nr; ++r) {
@@ -131,13 +167,26 @@ __device__ void place(unsigned* words, long long pos, unsigned v, int len) {
   }
 }
 
-template <class Y>
+template <class Y, bool SESS>
 __global__ void scatter_kernel(const int* values, const int* lengths, const int* syn_vals,
                                const int* syn_lens, const int* hdr_vals, const int* hdr_lens,
                                const int* run_vals, const int* run_lens, Scratch S,
                                uint8_t* flat, int nr, int nc) {
-  unsigned* words = reinterpret_cast<unsigned*>(flat) + META_WORDS;
   const int nmb = nr * nc, np = Y::pieces;
+  if constexpr (SESS) {
+    const size_t sess = blockIdx.y;
+    S = S.at(sess * Scratch::words(nmb, nr));
+    flat += sess * FLAT_BYTES;
+    values += sess * nmb * Y::blocks * SLOTS;
+    lengths += sess * nmb * Y::blocks * SLOTS;
+    syn_vals += sess * nmb * Y::syn;
+    syn_lens += sess * nmb * Y::syn;
+    if (run_lens) {
+      run_vals += sess * nr;
+      run_lens += sess * nr;
+    }
+  }
+  unsigned* words = reinterpret_cast<unsigned*>(flat) + META_WORDS;
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid < nmb * np) {
     const int mb = gid / np, j = gid % np, r = mb / nc;
@@ -169,39 +218,61 @@ __global__ void scatter_kernel(const int* values, const int* lengths, const int*
   }
 }
 
+template <class Y, bool SESS>
+int pack_kernels(const int* values, const int* lengths, const int* syn_vals, const int* syn_lens,
+                 const int* run_vals, const int* run_lens, const int* hdr_vals,
+                 const int* hdr_lens, uint8_t* flat, const Scratch& S, const int* qp_sum, int nr,
+                 int nc, int ns, cudaStream_t stream) {
+  const int nmb = nr * nc;
+  int e;
+  mb_bits_kernel<Y, SESS><<<dim3((nmb + 127) / 128, ns), 128, 0, stream>>>(lengths, syn_lens,
+                                                                            S, nmb, nr);
+  if ((e = dngd_last_error())) return e;
+  row_scan_kernel<SESS><<<dim3((nr + 63) / 64, ns), 64, 0, stream>>>(hdr_lens, run_lens, S, nr,
+                                                                      nc);
+  if ((e = dngd_last_error())) return e;
+  meta_kernel<SESS><<<ns, 1, 0, stream>>>(S, flat, nr, nc, qp_sum);
+  if ((e = dngd_last_error())) return e;
+  const int n = nmb * (Y::blocks + 1) + nr;
+  scatter_kernel<Y, SESS><<<dim3((n + 127) / 128, ns), 128, 0, stream>>>(
+      values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens, run_vals, run_lens, S, flat, nr,
+      nc);
+  return dngd_last_error();
+}
+
 template <class Y>
 int pack_launch(const int* values, const int* lengths, const int* syn_vals, const int* syn_lens,
                 const int* run_vals, const int* run_lens, const int* hdr_vals,
                 const int* hdr_lens, uint8_t* flat, int* scratch, const int* qp_sum, int nr,
-                int nc, cudaStream_t stream) {
+                int nc, int ns, cudaStream_t stream) {
   const int nmb = nr * nc;
-  if (nmb <= 0 || nr > MAX_META_ROWS) return cudaErrorInvalidValue;
-  Scratch S(scratch, nmb, nr);
+  if (nmb <= 0 || ns <= 0 || nr > MAX_META_ROWS) return cudaErrorInvalidValue;
+  const Scratch S(scratch, nmb, nr);
   int e;
-  if ((e = cudaMemsetAsync(flat, 0, FLAT_BYTES, stream))) return e;
-  if ((e = cudaMemsetAsync(S.flags, 0, 8 * sizeof(int), stream))) return e;
-  mb_bits_kernel<Y><<<(nmb + 127) / 128, 128, 0, stream>>>(lengths, syn_lens, S, nmb);
-  if ((e = dngd_last_error())) return e;
-  row_scan_kernel<<<(nr + 63) / 64, 64, 0, stream>>>(hdr_lens, run_lens, S, nr, nc);
-  if ((e = dngd_last_error())) return e;
-  meta_kernel<<<1, 1, 0, stream>>>(S, flat, nr, qp_sum);
-  if ((e = dngd_last_error())) return e;
-  const int n = nmb * (Y::blocks + 1) + nr;
-  scatter_kernel<Y><<<(n + 127) / 128, 128, 0, stream>>>(values, lengths, syn_vals, syn_lens,
-                                                         hdr_vals, hdr_lens, run_vals, run_lens,
-                                                         S, flat, nr, nc);
-  return dngd_last_error();
+  if ((e = cudaMemsetAsync(flat, 0, (size_t)ns * FLAT_BYTES, stream))) return e;
+  if (ns == 1) {
+    if ((e = cudaMemsetAsync(S.flags, 0, 8 * sizeof(int), stream))) return e;
+    return pack_kernels<Y, false>(values, lengths, syn_vals, syn_lens, run_vals, run_lens,
+                                  hdr_vals, hdr_lens, flat, S, qp_sum, nr, nc, 1, stream);
+  }
+  // each session's overflow flags: a strided column of the stack
+  const size_t per = Scratch::words(nmb, nr) * sizeof(int);
+  if ((e = cudaMemset2DAsync(S.flags, per, 0, 8 * sizeof(int), ns, stream))) return e;
+  return pack_kernels<Y, true>(values, lengths, syn_vals, syn_lens, run_vals, run_lens,
+                               hdr_vals, hdr_lens, flat, S, qp_sum, nr, nc, ns, stream);
 }
 
 }  // namespace
 
-// qp_sum: one int on the card (tune=hq) or null.
+// qp_sum: one int per session on the card (tune=hq) or null.  ns:
+// sessions (1 = one frame): slots, runs, flats (FLAT_BYTES each), qp sums
+// and scratches (Scratch::words each) stacked; one header-slot set.
 extern "C" int pack_frame_launch(const int* values, const int* lengths, const int* syn_vals,
                                  const int* syn_lens, const int* hdr_vals, const int* hdr_lens,
                                  uint8_t* flat, int* scratch, const int* qp_sum, int nr, int nc,
-                                 cudaStream_t stream) {
+                                 int ns, cudaStream_t stream) {
   return pack_launch<ILayout>(values, lengths, syn_vals, syn_lens, nullptr, nullptr, hdr_vals,
-                              hdr_lens, flat, scratch, qp_sum, nr, nc, stream);
+                              hdr_lens, flat, scratch, qp_sum, nr, nc, ns, stream);
 }
 
 // nb: blocks per MB, 26, or 27 with the I16-in-P DC block.
@@ -209,11 +280,11 @@ extern "C" int pack_p_frame_launch(const int* values, const int* lengths, const 
                                    const int* mbh_lens, const int* run_vals, const int* run_lens,
                                    const int* hdr_vals, const int* hdr_lens, uint8_t* flat,
                                    int* scratch, const int* qp_sum, int nr, int nc, int nb,
-                                   cudaStream_t stream) {
+                                   int ns, cudaStream_t stream) {
   if (nb == 27)
     return pack_launch<PILayout>(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
-                                 hdr_vals, hdr_lens, flat, scratch, qp_sum, nr, nc, stream);
+                                 hdr_vals, hdr_lens, flat, scratch, qp_sum, nr, nc, ns, stream);
   if (nb != 26) return cudaErrorInvalidValue;
   return pack_launch<PLayout>(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens, hdr_vals,
-                              hdr_lens, flat, scratch, qp_sum, nr, nc, stream);
+                              hdr_lens, flat, scratch, qp_sum, nr, nc, ns, stream);
 }

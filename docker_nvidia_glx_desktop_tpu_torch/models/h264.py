@@ -312,6 +312,7 @@ class _Ring:
         self.frames, self.fns, self.plans = [], [], plans
         self.res = self.prefix = self.pf = self.dmg = None
         self.content = self.content_np = self.content_pf = None
+        self.chunk_id = None         # set at dispatch (journey identity)
         self.error = False
         self.collected = 0
         self.released = False
@@ -443,10 +444,108 @@ class H264Encoder(Encoder):
         self._damage_prev_y = None
         self._damage_cur_y = None
         self._damage_frac = None
+        # dispatch accounting (obs/budget 'dispatch' stage) and the last
+        # collected frame's chunk identity (obs/journey), popped by the
+        # serving session once per frame
+        self._disp_count = 0
+        self._disp_gap_ms = 0.0
+        self._disp_seen = 0
+        self._disp_gap_seen = 0.0
+        self._journey_meta = None
+        self._chunk_seq = 0
+        self._prewarm_ring = False
 
     def headers(self) -> bytes:
         return (syn.nal_unit(syn.NAL_SPS, self._sps)
                 + syn.nal_unit(syn.NAL_PPS, self._pps))
+
+    # -- dispatch accounting and journey identity ----------------------
+
+    def _count_dispatch(self, t0: float) -> None:
+        """One host -> device dispatch (a frame's launches, or a chunk's
+        graph replay); ``t0`` the submit path's entry, so the summed gap
+        is the submit-to-launch cost."""
+        self._disp_count += 1
+        self._disp_gap_ms += (time.perf_counter() - t0) * 1e3
+
+    def pop_dispatch_sample(self):
+        """(dispatches, gap_ms) since the last pop: the session calls this
+        once per submitted frame and feeds the budget ledger.  A staged
+        ring frame costs 0 dispatches; the frame that fills the chunk
+        carries the chunk's one replay."""
+        delta = self._disp_count - self._disp_seen
+        gap = self._disp_gap_ms - self._disp_gap_seen
+        self._disp_seen = self._disp_count
+        self._disp_gap_seen = self._disp_gap_ms
+        return delta, gap
+
+    def pop_journey_meta(self):
+        """Chunk identity of the last collected frame (set by
+        encode_collect, cleared by this pop): ``chunk_id`` None for a
+        per-frame dispatch (a flushed partial ring included), ``chunk_len``
+        > 1 for a frame of a replayed chunk, ``shards`` 1 (one device)."""
+        meta = self._journey_meta
+        self._journey_meta = None
+        return meta
+
+    # -- prewarm -------------------------------------------------------
+
+    def prewarm(self, qps=None, stop=None) -> int:
+        """Build and load the CUDA kernel libraries (``ops/_cuda``; no
+        CUDA call, so it is safe beside a serving thread) and, with the
+        super-step ring on, ask the serving thread to capture the ring's
+        graph at the next IDR submit, before the first chunk.  The
+        kernels take the qp as an argument or from device memory, so
+        there is no qp ladder to walk (``qps`` is accepted for the
+        reference's signature).  Returns the number of libraries loaded;
+        on the CPU, 0."""
+        if self.device.type != "cuda":
+            return 0
+        from ..ops import _cuda
+
+        _cuda.build()
+        done = 0
+        for name in _cuda.KERNEL_SOURCES:
+            if stop is not None and stop.is_set():
+                break
+            _cuda.library(name)
+            done += 1
+        if self._ring_chunk:
+            self._prewarm_ring = True
+        return done
+
+    def prewarm_async(self, qps=None):
+        """Run :meth:`prewarm` in a daemon thread; returns (thread,
+        stop_event)."""
+        import threading
+        stop = threading.Event()
+        t = threading.Thread(target=self.prewarm, kwargs={
+            "qps": qps, "stop": stop}, daemon=True, name="h264-prewarm")
+        t.start()
+        return t, stop
+
+    def _capture_ring(self) -> None:
+        """Capture the unmasked ring step's graph on zero frames against
+        the reference just set (on the serving thread, at an IDR submit):
+        the first chunk then replays it."""
+        self._prewarm_ring = False
+        zero = np.zeros((self.height, self.width, 3), np.uint8)
+        planes = None
+        if self.host_color:
+            chain = (self._damage_prev_y, self._damage_cur_y)
+            planes = self._host_yuv420(zero)
+            # the damage chain must not see the zero frame
+            self._damage_prev_y, self._damage_cur_y = chain
+        kind = "cabac" if self.entropy == "cabac" else "cavlc"
+        frame, ingest = (planes, "yuv") if planes is not None \
+            else (zero, "rgb")
+        k = self._ring_chunk
+        hv = hl = None
+        if kind == "cavlc":
+            hv, hl = self._chunk_hdr_slots(tuple(range(1, k + 1)), 0)
+        step = self._chunk_step(kind, ingest, 0)
+        if not step.instances:
+            step.warm([frame] * k, self._ref, hv, hl, self.qp)
 
     # -- content & quality telemetry -----------------------------------
 
@@ -924,14 +1023,18 @@ class H264Encoder(Encoder):
     def _submit_p(self, rgb):
         """(token kind, submitted) of a P frame.  The damage plan is taken
         from the host planes before they are uploaded."""
+        t0 = time.perf_counter()
         qp = self._eff_qp(keyframe=False)
         host = self._host_yuv420(rgb) if self.host_color else None
         plan = self._damage_plan(None if host is None else host[0])
         planes = (self._upload(host) if host is not None
                   else self._device_colour(rgb))
         if self.entropy == "cabac":
-            return "cabac_p", self._submit_cabac_p(planes, qp)
-        return self._submit_p_cavlc(planes, qp, self._frame_num, plan)
+            got = "cabac_p", self._submit_cabac_p(planes, qp)
+        else:
+            got = self._submit_p_cavlc(planes, qp, self._frame_num, plan)
+        self._count_dispatch(t0)
+        return got
 
     def _submit_p_cavlc(self, planes, qp: int, frame_num: int, plan,
                         next_y=None):
@@ -1108,9 +1211,15 @@ class H264Encoder(Encoder):
 
     def _submit_idr(self, rgb, idr_pic_id: int):
         """(token kind, submitted) of an IDR."""
+        t0 = time.perf_counter()
         if self.entropy == "cabac":
-            return "cabac_intra", self._submit_cabac_intra(rgb, idr_pic_id)
-        return "intra", self._submit_device(rgb, idr_pic_id)
+            got = "cabac_intra", self._submit_cabac_intra(rgb, idr_pic_id)
+        else:
+            got = "intra", self._submit_device(rgb, idr_pic_id)
+        self._count_dispatch(t0)
+        if self._prewarm_ring and self.gop > 1 and self._ref is not None:
+            self._capture_ring()
+        return got
 
     def _next_is_idr(self) -> bool:
         return self._gop_pos == 0 or self._force_idr or self._ref is None
@@ -1252,6 +1361,7 @@ class H264Encoder(Encoder):
     def _ring_dispatch(self, ring) -> None:
         """Run the chunk: one step call (a graph replay on the card), the
         chunk's content stats, and each slot's prefix pull started."""
+        t0 = time.perf_counter()
         qp = ring.qp
         hv = hl = rows = None
         if ring.kind == "cavlc":
@@ -1289,6 +1399,9 @@ class H264Encoder(Encoder):
         ring.prefix = [_pinned_prefetch(f[:plen]) for f in out.flats]
         ring.frames = None
         ring.res = out
+        self._chunk_seq += 1
+        ring.chunk_id = self._chunk_seq
+        self._count_dispatch(t0)
 
     def _ring_flush(self) -> None:
         """Push a partial chunk through the per-frame path (an IDR due, or
@@ -1301,6 +1414,7 @@ class H264Encoder(Encoder):
         planes = [self._upload(fr) if ring.ingest == "yuv"
                   else self._device_colour(fr) for fr in ring.frames]
         for i, pl in enumerate(planes):
+            t0 = time.perf_counter()
             fn = ring.fns[i]
             # the chunk's lookahead shift: frame k sees frame k + 1, the
             # last staged frame itself
@@ -1314,6 +1428,7 @@ class H264Encoder(Encoder):
             else:
                 toks.append(("cabac_p", self._submit_cabac_p(
                     pl, ring.qp, frame_num=fn, next_y=next_y)))
+            self._count_dispatch(t0)
             cstats.append(self._content_last)
             self._content_last = None
         ring.frames = None
@@ -1505,6 +1620,15 @@ class H264Encoder(Encoder):
         if self._rate is not None:
             self._rate.update(len(data) * 8, mean_qp=self._take_mean_qp())
         self._content_finish(token, data)
+        # journey identity: a ring frame that rode a replayed chunk carries
+        # the chunk's; a flushed partial ring went per frame
+        chunked = (kind == "ring" and payload[0].pf is None
+                   and payload[0].chunk_id is not None)
+        self._journey_meta = {
+            "chunk_id": payload[0].chunk_id if chunked else None,
+            "slot": payload[1] if kind == "ring" else 0,
+            "chunk_len": len(payload[0].fns) if chunked else 1,
+            "shards": 1}
         ms = (time.perf_counter() - t0) * 1e3
         return EncodedFrame(data=data, keyframe=key, frame_index=idx,
                             codec=self.codec, width=self.width,

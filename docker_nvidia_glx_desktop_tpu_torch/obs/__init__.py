@@ -1,1 +1,3 @@
-"""Telemetry planes of the port (content-stats knobs so far)."""
+"""Telemetry planes of the port: metrics, traces, events, journeys, the
+serving-budget ledger, the flight recorder, process stats and the
+content plane."""

@@ -23,7 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 KERNEL_SOURCES = ("intra", "cavlc", "pack", "content", "inter", "deblock",
-                  "color", "levelpack", "cabac", "damage", "aq", "jpeg")
+                  "color", "levelpack", "cabac", "damage", "aq", "jpeg",
+                  "probe")
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]

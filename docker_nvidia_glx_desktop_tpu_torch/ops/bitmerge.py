@@ -119,6 +119,29 @@ def pack_p_frame_plain(values, lengths, mbh_vals, mbh_lens, run_vals,
                        hdr_lens, run_vals, run_lens, qp_sum)
 
 
+def _scratch_words(nr: int, nc: int) -> int:
+    """One session's packer scratch in int32 words (``Scratch::words``)."""
+    return nr * nc * 30 + 4 * nr + 8
+
+
+def _sessions(t, base_dims: int) -> tuple:
+    """The leading session axis of a stacked slot tensor: () or (S,)."""
+    lead = t.dim() - base_dims
+    if lead not in (0, 1):
+        raise ValueError(f"slots of {t.dim()} dims: want {base_dims} or "
+                         f"{base_dims + 1} (a leading session axis)")
+    return tuple(t.shape[:lead])
+
+
+def _plain_sessions(fn, lead, stacked, shared):
+    """A plain packer session by session: ``stacked`` tensors carry the
+    session axis, ``shared`` ones (the header slots) do not."""
+    if not lead:
+        return fn(*stacked, *shared)
+    return torch.stack([fn(*(t[i] for t in stacked), *shared)
+                        for i in range(lead[0])])
+
+
 def _check_slots(want: dict, dev) -> None:
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape or t.dtype != torch.int32 or t.device != dev:
@@ -143,28 +166,41 @@ def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
     tensors launch the packer: per-MB bit counts and overflow checks, a
     scan along each row and over the rows, then one thread per coded
     piece OR-ing its codewords into the big-endian words at their bit
-    offsets.  CPU tensors run the plain version."""
-    nr, nc = syn_vals.shape[:2]
+    offsets.  CPU tensors run the plain version.
+
+    Slots with a leading session axis (S, R, C, ...) pack S sessions'
+    frames under one set of header slots in one launch (the session the
+    grid's second axis): flat (S, FLAT_BYTES), each session's overflow
+    flag and caps its own."""
+    lead = _sessions(syn_vals, 3)
+    nr, nc = syn_vals.shape[len(lead):len(lead) + 2]
     dev = values.device
-    want = {"values": (values, (nr, nc, 27, 34)),
-            "lengths": (lengths, (nr, nc, 27, 34)),
-            "syn_vals": (syn_vals, (nr, nc, 20)),
-            "syn_lens": (syn_lens, (nr, nc, 20)),
+    want = {"values": (values, lead + (nr, nc, 27, 34)),
+            "lengths": (lengths, lead + (nr, nc, 27, 34)),
+            "syn_vals": (syn_vals, lead + (nr, nc, 20)),
+            "syn_lens": (syn_lens, lead + (nr, nc, 20)),
             "hdr_vals": (hdr_vals, (nr, 3)), "hdr_lens": (hdr_lens, (nr, 3))}
     _check_slots(want, dev)
     _check_qp_sum(qp_sum, dev)
+    if lead and qp_sum is not None:
+        raise ValueError("stacked sessions take no qp sum")
     if nr > MAX_META_ROWS:
         raise ValueError(f"{nr} MB rows exceed the metadata header's "
                          f"{MAX_META_ROWS}")
     if dev.type == "cpu":
+        if lead:
+            return _plain_sessions(pack_frame_plain, lead,
+                                   (values, lengths, syn_vals, syn_lens),
+                                   (hdr_vals, hdr_lens))
         return pack_frame_plain(values, lengths, syn_vals, syn_lens,
                                 hdr_vals, hdr_lens, qp_sum)
-    flat = torch.empty(FLAT_BYTES, dtype=torch.uint8, device=dev)
-    scratch = torch.empty(nr * nc * 30 + 4 * nr + 8, dtype=torch.int32,
-                          device=dev)
+    flat = torch.empty(lead + (FLAT_BYTES,), dtype=torch.uint8, device=dev)
+    scratch = torch.empty(lead + (_scratch_words(nr, nc),),
+                          dtype=torch.int32, device=dev)
     _cuda.launch("pack", "pack_frame_launch",
                  [values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
-                  flat, scratch, qp_sum], [nr, nc], dev)
+                  flat, scratch, qp_sum], [nr, nc, lead[0] if lead else 1],
+                 dev)
     if qp_sum is None:
         pack_frame.launches += 1
     else:
@@ -187,34 +223,45 @@ def pack_p_frame(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
     run of each row, hdr_vals/hdr_lens (R, 3) slice headers, all int32;
     ``qp_sum`` as :func:`pack_frame`'s.  The overflow caps are K3's, with
     the MB header in place of the MB syntax piece.  CUDA tensors launch
-    the packer; CPU tensors run the plain version."""
-    nr, nc = mbh_vals.shape[:2]
+    the packer; CPU tensors run the plain version.  A leading session
+    axis on every slot tensor but the header slots packs S sessions in
+    one launch, as :func:`pack_frame`'s."""
+    lead = _sessions(mbh_vals, 3)
+    nr, nc = mbh_vals.shape[len(lead):len(lead) + 2]
     dev = values.device
-    nb = values.shape[2] if values.dim() == 4 else 0
+    nb = values.shape[len(lead) + 2] if values.dim() == len(lead) + 4 else 0
     if nb not in (26, 27):
         raise ValueError("values must be (R, C, 26 or 27, 34)")
     _check_qp_sum(qp_sum, dev)
-    _check_slots({"values": (values, (nr, nc, nb, 34)),
-                  "lengths": (lengths, (nr, nc, nb, 34)),
-                  "mbh_vals": (mbh_vals, (nr, nc, 7)),
-                  "mbh_lens": (mbh_lens, (nr, nc, 7)),
-                  "run_vals": (run_vals, (nr,)), "run_lens": (run_lens, (nr,)),
+    if lead and (qp_sum is not None or nb != 26):
+        raise ValueError("stacked sessions take 26 blocks and no qp sum")
+    _check_slots({"values": (values, lead + (nr, nc, nb, 34)),
+                  "lengths": (lengths, lead + (nr, nc, nb, 34)),
+                  "mbh_vals": (mbh_vals, lead + (nr, nc, 7)),
+                  "mbh_lens": (mbh_lens, lead + (nr, nc, 7)),
+                  "run_vals": (run_vals, lead + (nr,)),
+                  "run_lens": (run_lens, lead + (nr,)),
                   "hdr_vals": (hdr_vals, (nr, 3)),
                   "hdr_lens": (hdr_lens, (nr, 3))}, dev)
     if nr > MAX_META_ROWS:
         raise ValueError(f"{nr} MB rows exceed the metadata header's "
                          f"{MAX_META_ROWS}")
     if dev.type == "cpu":
+        if lead:
+            return _plain_sessions(
+                pack_p_frame_plain, lead,
+                (values, lengths, mbh_vals, mbh_lens, run_vals, run_lens),
+                (hdr_vals, hdr_lens))
         return pack_p_frame_plain(values, lengths, mbh_vals, mbh_lens,
                                   run_vals, run_lens, hdr_vals, hdr_lens,
                                   qp_sum)
-    flat = torch.empty(FLAT_BYTES, dtype=torch.uint8, device=dev)
-    scratch = torch.empty(nr * nc * 30 + 4 * nr + 8, dtype=torch.int32,
-                          device=dev)
+    flat = torch.empty(lead + (FLAT_BYTES,), dtype=torch.uint8, device=dev)
+    scratch = torch.empty(lead + (_scratch_words(nr, nc),),
+                          dtype=torch.int32, device=dev)
     _cuda.launch("pack", "pack_p_frame_launch",
                  [values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
-                  hdr_vals, hdr_lens, flat, scratch, qp_sum], [nr, nc, nb],
-                 dev)
+                  hdr_vals, hdr_lens, flat, scratch, qp_sum],
+                 [nr, nc, nb, lead[0] if lead else 1], dev)
     if nb == 27 or qp_sum is not None:
         pack_p_frame.hq.launches += 1
     else:

@@ -473,9 +473,17 @@ def frame_block_slots(levels: dict, slice_qp: int = None):
     total_coeff, then one thread per 4x4 block (plus one per MB for the
     syntax slots) running the sequential CAVLC loops in registers with
     the tables in constant memory; under the full tier then one warp per
-    MB row scanning the qp chain.  CPU tensors run the plain version."""
-    nr, nc = levels["luma_dc"].shape[:2]
-    shapes = _level_shapes(nr, nc)
+    MB row scanning the qp chain.  CPU tensors run the plain version.
+
+    Levels with a leading session axis (the stacked intra core's, tune
+    "off") give slots with one: S sessions in one launch, the session
+    the grid's second axis."""
+    ns = levels["luma_dc"].dim() - 3          # 1 with a session axis
+    if ns not in (0, 1):
+        raise ValueError("levels must be (R, C, ...) or (S, R, C, ...)")
+    lead = tuple(levels["luma_dc"].shape[:ns])
+    nr, nc = levels["luma_dc"].shape[ns:ns + 2]
+    shapes = {k: lead + v for k, v in _level_shapes(nr, nc).items()}
     dev = levels["luma_dc"].device
     for k in _LEVEL_KEYS:
         t = levels[k]
@@ -487,7 +495,14 @@ def frame_block_slots(levels: dict, slice_qp: int = None):
     hq = "qp_map" in levels
     if hq and slice_qp is None:
         raise ValueError("a qp_map needs the slice qp")
+    if hq and lead:
+        raise ValueError("stacked sessions take no qp_map")
     if dev.type == "cpu":
+        if lead:
+            from .h264_device import stack_sessions
+            return stack_sessions([frame_block_slots_plain(
+                {k: levels[k][i] for k in _LEVEL_KEYS})
+                for i in range(lead[0])])
         return frame_block_slots_plain(levels, slice_qp)
     lib = _cuda.library("cavlc")
     if dev not in _tables_on:
@@ -495,15 +510,15 @@ def frame_block_slots(levels: dict, slice_qp: int = None):
             _upload_tables(lib)
         _tables_on.add(dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    values = torch.empty((nr, nc, MB_BLOCKS, BLOCK_SLOTS), **i32)
-    lengths = torch.empty((nr, nc, MB_BLOCKS, BLOCK_SLOTS), **i32)
-    syn_vals = torch.empty((nr, nc, MB_SYN_SLOTS), **i32)
-    syn_lens = torch.empty((nr, nc, MB_SYN_SLOTS), **i32)
-    scratch = torch.empty((nr * nc, 32), **i32)
+    values = torch.empty(lead + (nr, nc, MB_BLOCKS, BLOCK_SLOTS), **i32)
+    lengths = torch.empty(lead + (nr, nc, MB_BLOCKS, BLOCK_SLOTS), **i32)
+    syn_vals = torch.empty(lead + (nr, nc, MB_SYN_SLOTS), **i32)
+    syn_lens = torch.empty(lead + (nr, nc, MB_SYN_SLOTS), **i32)
+    scratch = torch.empty(lead + (nr * nc, 32), **i32)
     _cuda.launch("cavlc", "cavlc_slots_launch",
                  [levels[k] for k in _LEVEL_KEYS]
                  + [values, lengths, syn_vals, syn_lens, scratch],
-                 [nr, nc], dev)
+                 [nr, nc, lead[0] if lead else 1], dev)
     frame_block_slots.launches += 1
     if not hq:
         return values, lengths, syn_vals, syn_lens

@@ -230,8 +230,16 @@ def p_frame_slots(out: dict, slice_qp: int = None, qp_dev=None):
     per MB header (the last MB of a row also codes its trailing run); the
     tune=hq forms are the kernels' compile-time I16-in-P instantiation
     and a qp-chain pass (one warp per MB row).  CPU tensors run the plain
-    version."""
-    nr, nc = out["mv"].shape[:2]
+    version.
+
+    Tensors with a leading session axis (the stacked P core's, tune
+    "off") give outputs with one: S sessions in one launch, the session
+    the grid's second axis."""
+    ns = out["mv"].dim() - 3                  # 1 with a session axis
+    if ns not in (0, 1):
+        raise ValueError("out must be (R, C, ...) or (S, R, C, ...)")
+    lead = tuple(out["mv"].shape[:ns])
+    nr, nc = out["mv"].shape[ns:ns + 2]
     dev = out["mv"].device
     shapes = {"mv": (nr, nc, 2), "luma": (nr, nc, 16, 16),
               "cb_dc": (nr, nc, 4), "cb_ac": (nr, nc, 4, 15),
@@ -241,13 +249,21 @@ def p_frame_slots(out: dict, slice_qp: int = None, qp_dev=None):
         shapes.update({"i16_dc": (nr, nc, 16), "i16_ac": (nr, nc, 16, 15)})
     for k, shape in shapes.items():
         t = out[k]
-        if tuple(t.shape) != shape or t.dtype != torch.int32 or t.device != dev:
-            raise ValueError(f"out[{k!r}]: want {shape} int32 on {dev}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        if (tuple(t.shape) != lead + shape or t.dtype != torch.int32
+                or t.device != dev):
+            raise ValueError(f"out[{k!r}]: want {lead + shape} int32 on "
+                             f"{dev}, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
     hq = "qp_map" in out
     if hq and slice_qp is None:
         raise ValueError("a qp_map needs the slice qp")
+    if lead and (hq or intra):
+        raise ValueError("stacked sessions take tune='off' outputs")
     if dev.type == "cpu":
+        if lead:
+            from .h264_device import stack_sessions
+            return stack_sessions([p_frame_slots_plain(
+                {k: out[k][i] for k in shapes}) for i in range(lead[0])])
         return p_frame_slots_plain(out, slice_qp)
     lib = _cuda.library("cavlc")
     if dev not in _tables_on:
@@ -256,17 +272,17 @@ def p_frame_slots(out: dict, slice_qp: int = None, qp_dev=None):
         _tables_on.add(dev)
     i32 = dict(dtype=torch.int32, device=dev)
     nblk = P_MB_BLOCKS_I if intra else P_MB_BLOCKS
-    res = (torch.empty((nr, nc, nblk, BLOCK_SLOTS), **i32),
-           torch.empty((nr, nc, nblk, BLOCK_SLOTS), **i32),
-           torch.empty((nr, nc, HDR_SLOT_COUNT), **i32),
-           torch.empty((nr, nc, HDR_SLOT_COUNT), **i32),
-           torch.empty((nr,), **i32), torch.empty((nr,), **i32),
-           torch.empty((nr, nc, 4, 4), dtype=torch.bool, device=dev))
-    scratch = torch.empty((nr * nc, 32), **i32)
+    res = (torch.empty(lead + (nr, nc, nblk, BLOCK_SLOTS), **i32),
+           torch.empty(lead + (nr, nc, nblk, BLOCK_SLOTS), **i32),
+           torch.empty(lead + (nr, nc, HDR_SLOT_COUNT), **i32),
+           torch.empty(lead + (nr, nc, HDR_SLOT_COUNT), **i32),
+           torch.empty(lead + (nr,), **i32), torch.empty(lead + (nr,), **i32),
+           torch.empty(lead + (nr, nc, 4, 4), dtype=torch.bool, device=dev))
+    scratch = torch.empty(lead + (nr * nc, 32), **i32)
     if not intra:
         _cuda.launch("cavlc", "cavlc_p_slots_launch",
                      [out[k] for k in shapes] + list(res) + [scratch],
-                     [nr, nc], dev)
+                     [nr, nc, lead[0] if lead else 1], dev)
         p_frame_slots.launches += 1
     else:
         _cuda.launch("cavlc", "cavlc_p_slots_i_launch",

@@ -334,3 +334,22 @@ def vec_to_stats(vec: np.ndarray, grid: np.ndarray, npix: int) -> dict:
     else:
         out["mode"] = None
     return out
+
+
+def downsample_grid(grid: np.ndarray, max_w: int = 32,
+                    max_h: int = 18) -> np.ndarray:
+    """Block-mean a (R, C) 0/1 MB damage grid down to at most
+    ``max_h x max_w`` float cells for the /debug/content heatmap (a host
+    helper, the reference's ``downsample_grid``)."""
+    g = np.asarray(grid, np.float64)
+    r, c = g.shape
+    br = -(-r // max_h)
+    bc = -(-c // max_w)
+    if br > 1 or bc > 1:
+        pr = -(-r // br) * br - r
+        pc = -(-c // bc) * bc - c
+        g = np.pad(g, ((0, pr), (0, pc)), constant_values=np.nan)
+        g = np.nanmean(
+            g.reshape(g.shape[0] // br, br, g.shape[1] // bc, bc),
+            axis=(1, 3))
+    return g

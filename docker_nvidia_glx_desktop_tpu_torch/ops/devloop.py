@@ -41,6 +41,10 @@ first drops the least recently replayed free instance (an idle bucket's,
 before the active key's).  A failed capture or replay raises: no quiet
 eager or per-frame fallback.
 
+:func:`measure_link_rtt` is the link probe (row 17g): one-thread kernel
+launches of a trivial loop (K17g, ``csrc/probe.cu``), timed on the host
+with the 4-byte result pulled, as the reference's ``_probe_loop``.
+
 Launch accounting: a wrapper's ``launches`` also counts the launches it
 records into a graph at capture, which do not run.  :data:`captured`
 holds those, :data:`replayed` the kernel launches that the replays ran
@@ -51,6 +55,7 @@ launched are ``launches - captured + replayed``.
 from __future__ import annotations
 
 import collections
+import time
 import weakref
 
 import numpy as np
@@ -185,6 +190,37 @@ def chunk_body(frames, ref_y, ref_cb, ref_cr, hv, hl, rows, qp: int, *,
         ry, rcb, rcr = ny, ncb, ncr
         flats.append(flat)
     return ChunkOut(flats, ys, (ry, rcb, rcr), mvs, lvs)
+
+
+def capture_graph(device, run):
+    """Capture ``run()`` (a body of the kernel wrappers on static device
+    tensors) into a CUDA graph on ``device``: one uncaptured warm-up on a
+    side stream first, where the library loads, builds, table uploads and
+    K8's shared-memory attribute may synchronise (its outputs are
+    dropped).  Returns (graph, out, nodes, pool_bytes): the captured
+    outputs, the launches recorded per wrapper (added to
+    :data:`captured`) and the growth of the reserved memory, the graph's
+    pool."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    named = wrappers()
+    before = {n: fn.launches for n, fn in named.items()}
+    # the capture empties the allocator's cache first; so does this, so
+    # that the growth below is the graph's pool
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = run()
+    pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    nodes = {n: fn.launches - before[n] for n, fn in named.items()
+             if fn.launches != before[n]}
+    captured.update(nodes)
+    return g, out, nodes, pool_bytes
 
 
 class _Instance:
@@ -353,31 +389,19 @@ class ChunkStep:
                        torch.empty(1, dtype=torch.int32, device=dev))
         self._load(inst, frames, refs, hv, hl, rows, qp)
         fr_t, refs_t, hv_t, hl_t, rows_t, qp_t = inst.inputs
-        # warm-up: library loads, builds and table uploads run here, where
-        # they may synchronise; its outputs are dropped
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._body(fr_t, refs_t, hv_t, hl_t, rows_t, qp, qp_t)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        named = wrappers()
-        before = {n: fn.launches for n, fn in named.items()}
-        # the capture empties the allocator's cache first; so does this,
-        # so that the growth below is the graph's pool
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            inst.out = self._body(fr_t, refs_t, hv_t, hl_t, rows_t, qp, qp_t)
-        inst.graph = g
-        inst.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        inst.nodes = {n: fn.launches - before[n] for n, fn in named.items()
-                      if fn.launches != before[n]}
-        captured.update(inst.nodes)
+        inst.graph, inst.out, inst.nodes, inst.pool_bytes = capture_graph(
+            dev, lambda: self._body(fr_t, refs_t, hv_t, hl_t, rows_t, qp,
+                                    qp_t))
         self.instances.append(inst)
         self.budget.add(inst)
         return inst
+
+    def warm(self, frames, refs, hv, hl, qp: int) -> None:
+        """Capture an unmasked instance ahead of the first chunk (the
+        encoder's prewarm, on its serving thread; the card only): the
+        first call then replays it.  ``refs`` are only read."""
+        if self.device.type == "cuda" and not self.instances:
+            self._capture(frames, refs, hv, hl, None, qp)
 
     def __call__(self, frames, refs, hv, hl, rows, qp: int,
                  owner) -> ChunkOut:
@@ -405,3 +429,65 @@ class ChunkStep:
     @property
     def pool_bytes(self) -> int:
         return sum(i.pool_bytes for i in self.instances)
+
+
+# ---------------------------------------------------------------------------
+# The link probe (row 17g)
+# ---------------------------------------------------------------------------
+
+def probe_loop_plain(x: torch.Tensor, steps: int) -> torch.Tensor:
+    """Plain version of K17g: ``steps`` adds of ``x[i % 8, i % 8]`` into
+    a uint32 (as int64, masked), a one-element tensor on ``x``'s device."""
+    acc = 0
+    flat = x.reshape(-1).tolist()
+    for i in range(int(steps)):
+        acc += flat[(i % 8) * 8 + i % 8]
+    return torch.tensor([acc & 0xFFFFFFFF], dtype=torch.int64)
+
+
+def probe_loop(x: torch.Tensor, steps: int) -> torch.Tensor:
+    """K17g: the trivial device loop of the link probe over ``x`` (8, 8)
+    uint8 -> one uint32 sum (returned as int64).  CUDA tensors launch the
+    one-thread kernel and pull the 4-byte result; CPU tensors run the
+    plain version."""
+    if tuple(x.shape) != (8, 8) or x.dtype != torch.uint8:
+        raise ValueError("x must be (8, 8) uint8")
+    if x.device.type == "cpu":
+        return probe_loop_plain(x, steps)
+    from . import _cuda
+    out = torch.empty(1, dtype=torch.int32, device=x.device)
+    _cuda.launch("probe", "probe_loop_launch", [x.contiguous(), out],
+                 [int(steps)], x.device)
+    probe_loop.launches += 1
+    return out.cpu().to(torch.int64) & 0xFFFFFFFF
+
+
+probe_loop.launches = 0
+
+
+def measure_link_rtt(reps: int = 7, k_hi: int = 257, device=None) -> dict:
+    """The host<->device round trip of one dispatch and pull: the
+    reference's differencing, ``t(k) = rtt + k * step`` from a median of
+    ``reps`` k=1 calls and one k=``k_hi`` call.  ``device`` None is the
+    card (raises without CUDA); ``"cpu"`` times the plain loop.  Returns
+    {"rtt_ms", "step_us", "samples"}.  A failing launch raises."""
+    from ..models.h264 import resolve_device
+
+    dev = resolve_device(device)
+    x = torch.zeros((8, 8), dtype=torch.uint8, device=dev)
+    probe_loop(x, 1)                                  # build + warm
+    lo = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        probe_loop(x, 1)
+        lo.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    probe_loop(x, k_hi)
+    t_hi = time.perf_counter() - t0
+    lo_sorted = sorted(lo)
+    t_lo = lo_sorted[len(lo_sorted) // 2]             # median: RTT jitters
+    step_s = max((t_hi - t_lo) / (k_hi - 1), 0.0)
+    rtt_s = max(t_lo - step_s, 0.0)
+    return {"rtt_ms": round(rtt_s * 1e3, 3),
+            "step_us": round(step_s * 1e6, 3),
+            "samples": [round(v * 1e3, 3) for v in lo_sorted]}

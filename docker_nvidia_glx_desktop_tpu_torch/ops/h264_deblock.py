@@ -199,21 +199,28 @@ def deblock_frame(y, cb, cr, qp: int, nnz_blk=None, mv=None, luma=None,
     CUDA tensors launch the kernel (one CUDA block per MB row, the row in
     shared memory, one warp walking its MBs); CPU tensors run the plain
     version.  ``qp_dev`` (CUDA only: one int32 on the card) makes the
-    kernel take the slice qp, and its tables, from device memory."""
-    from .h264_device import _check_planes
+    kernel take the slice qp, and its tables, from device memory.
 
-    _check_planes(y, cb, cr)
+    Planes stacked (S, H, W), with the flags and MVs stacked alike, filter
+    S sessions' frames in one launch (the session the grid's second
+    axis)."""
+    from .h264_device import _check_planes, stack_sessions
+
+    ns = _check_planes(y, cb, cr, sessions=True)
     if not 0 <= int(qp) <= 51:
         raise ValueError(f"qp {qp} outside 0..51")
-    nr, nc = y.shape[0] // 16, y.shape[1] // 16
+    lead = tuple(y.shape[:-2])
+    nr, nc = y.shape[-2] // 16, y.shape[-1] // 16
     if nnz_blk is not None and luma is not None:
         raise ValueError("pass nnz_blk or luma, not both")
     if nnz_blk is not None or luma is not None:
-        if ((nnz_blk is not None and (tuple(nnz_blk.shape) != (nr, nc, 4, 4)
-                                      or nnz_blk.dtype != torch.bool))
-                or (luma is not None and (tuple(luma.shape) != (nr, nc, 16, 16)
-                                          or luma.dtype != torch.int32))
-                or mv is None or tuple(mv.shape) != (nr, nc, 2)
+        if ((nnz_blk is not None
+             and (tuple(nnz_blk.shape) != lead + (nr, nc, 4, 4)
+                  or nnz_blk.dtype != torch.bool))
+                or (luma is not None
+                    and (tuple(luma.shape) != lead + (nr, nc, 16, 16)
+                         or luma.dtype != torch.int32))
+                or mv is None or tuple(mv.shape) != lead + (nr, nc, 2)
                 or mv.dtype != torch.int32):
             raise ValueError("nnz_blk must be (R, C, 4, 4) bool (or luma "
                              "(R, C, 16, 16) int32) and mv (R, C, 2) int32")
@@ -222,6 +229,11 @@ def deblock_frame(y, cb, cr, qp: int, nnz_blk=None, mv=None, luma=None,
                                or qp_dev.device != y.device):
         raise ValueError("qp_dev must be one int32 on the planes' device")
     if y.device.type == "cpu":
+        if ns:
+            at = lambda t, i: None if t is None else t[i]
+            return stack_sessions([deblock_frame_plain(
+                y[i], cb[i], cr[i], int(qp), at(nnz_blk, i), at(mv, i),
+                at(luma, i)) for i in range(ns)])
         return deblock_frame_plain(y, cb, cr, int(qp), nnz_blk, mv, luma)
     for t in (y, cb, cr):
         if t.data_ptr() % 16:
@@ -230,8 +242,8 @@ def deblock_frame(y, cb, cr, qp: int, nnz_blk=None, mv=None, luma=None,
     outs = [torch.empty_like(p) for p in (y, cb, cr)]
     _cuda.launch("deblock", "deblock_launch",
                  [y, cb, cr, nnz_blk, mv, luma, qp_dev] + outs,
-                 [nr, nc, tl[0], tl[1], *tl[2], tc[0], tc[1], *tc[2]],
-                 y.device)
+                 [nr, nc, tl[0], tl[1], *tl[2], tc[0], tc[1], *tc[2],
+                  ns or 1], y.device)
     deblock_frame.launches += 1
     return tuple(outs)
 

@@ -408,18 +408,33 @@ def encode_intra_frame_yuv_plain(y: torch.Tensor, cb: torch.Tensor,
     return out
 
 
-def _check_planes(y, cb, cr):
+def _check_planes(y, cb, cr, sessions: bool = False) -> int:
+    """Check MB-padded uint8 4:2:0 planes, (H, W) or, where ``sessions``,
+    also (S, H, W) stacks; returns S (0 for unstacked planes)."""
     if not (y.dtype == cb.dtype == cr.dtype == torch.uint8):
         raise TypeError("planes must be uint8")
-    if y.dim() != 2 or y.shape[0] % 16 or y.shape[1] % 16:
+    lead = y.dim() - 2
+    if (lead not in ((0, 1) if sessions else (0,))
+            or y.shape[-2] % 16 or y.shape[-1] % 16):
         raise ValueError(f"luma plane {tuple(y.shape)} is not MB-aligned")
-    half = (y.shape[0] // 2, y.shape[1] // 2)
+    half = tuple(y.shape[:-2]) + (y.shape[-2] // 2, y.shape[-1] // 2)
     if tuple(cb.shape) != half or tuple(cr.shape) != half:
         raise ValueError("chroma planes must be half the luma size")
     if not (y.device == cb.device == cr.device):
         raise ValueError("planes must share one device")
     if not (y.is_contiguous() and cb.is_contiguous() and cr.is_contiguous()):
         raise ValueError("planes must be contiguous")
+    return y.shape[0] if lead else 0
+
+
+def stack_sessions(results):
+    """Per-session results (dicts or tuples of tensors) -> one result of
+    the same kind with a leading session axis: how the plain versions of
+    the session-stacked kernels run, session by session."""
+    first = results[0]
+    if isinstance(first, dict):
+        return {k: torch.stack([r[k] for r in results]) for k in first}
+    return tuple(torch.stack(list(col)) for col in zip(*results))
 
 
 def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
@@ -433,31 +448,41 @@ def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
     biased by the next frame's luma ``next_y`` where given; the plane is
     the output's ``qp_map``).
 
+    Planes stacked (S, H, W) code S sessions' frames in one launch (tune
+    "off"): every output gains the leading session axis.
+
     CUDA tensors launch the kernel (one CUDA block per MB row: the left
     MB's recon is the only dependency; the tiers are compile-time forms
-    of it); CPU tensors run the plain version.
+    of it; sessions are the grid's second axis); CPU tensors run the
+    plain version, session by session.
     """
-    _check_planes(y, cb, cr)
+    ns = _check_planes(y, cb, cr, sessions=True)
     if not 0 <= int(qp) <= 51:
         raise ValueError(f"qp {qp} outside 0..51")
     if tune not in aq.TIERS:
         raise ValueError(f"unknown tune {tune!r}")
+    if ns and tune != "off":
+        raise ValueError("stacked sessions take tune='off'")
     qp_map = aq.qp_plane(y, qp, next_y) if tune == "hq" else None
     if y.device.type == "cpu":
+        if ns:
+            return stack_sessions([encode_intra_frame_yuv_plain(
+                y[i], cb[i], cr[i], int(qp)) for i in range(ns)])
         return encode_intra_frame_yuv_plain(y, cb, cr, int(qp), tune, qp_map)
-    pad_h, pad_w = y.shape
+    pad_h, pad_w = y.shape[-2:]
     nr, nc = pad_h // 16, pad_w // 16
     dev = y.device
+    lead = tuple(y.shape[:-2])
 
     def i32(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
+        return torch.empty(lead + shape, dtype=torch.int32, device=dev)
 
     out = {
         "luma_dc": i32(nr, nc, 16), "luma_ac": i32(nr, nc, 16, 15),
         "cb_dc": i32(nr, nc, 4), "cb_ac": i32(nr, nc, 4, 15),
         "cr_dc": i32(nr, nc, 4), "cr_ac": i32(nr, nc, 4, 15),
         "pred_mode": i32(nr, nc),
-        "mb_i4": torch.empty((nr, nc), dtype=torch.bool, device=dev),
+        "mb_i4": torch.empty(lead + (nr, nc), dtype=torch.bool, device=dev),
         "i4_modes": i32(nr, nc, 16), "luma_i4": i32(nr, nc, 16, 16),
         "recon_y": torch.empty_like(y), "recon_cb": torch.empty_like(cb),
         "recon_cr": torch.empty_like(cr),
@@ -468,7 +493,8 @@ def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
     ints = [nr, nc, int(qp), quant.chroma_qp(int(qp))]
     if tune == "off":
         _cuda.launch("intra", "intra_frame_launch",
-                     [y, cb, cr] + [out[k] for k in keys], ints, dev)
+                     [y, cb, cr] + [out[k] for k in keys], ints + [ns or 1],
+                     dev)
         encode_intra_frame_yuv.launches += 1
         return out
     lam, sig, _ = aq.device_tables(tune, dev)

@@ -497,9 +497,10 @@ _INTRA_KEYS = ("mb_intra", "i16_dc", "i16_ac")
 
 
 def _out_tensors(nb: int, nc: int, like: torch.Tensor, out=None,
-                 keys=_OUT_KEYS) -> dict:
-    """The P core's output tensors for ``nb`` MB rows: ``out``'s where
-    the caller gives them (views of a chunk's stacks), checked, else new."""
+                 keys=_OUT_KEYS, lead: tuple = ()) -> dict:
+    """The P core's output tensors for ``nb`` MB rows (with the leading
+    session axis ``lead``): ``out``'s where the caller gives them (views
+    of a chunk's stacks), checked, else new."""
     dev = like.device
     shapes = {"mv": (nb, nc, 2), "luma": (nb, nc, 16, 16),
               "cb_dc": (nb, nc, 4), "cb_ac": (nb, nc, 4, 15),
@@ -510,7 +511,7 @@ def _out_tensors(nb: int, nc: int, like: torch.Tensor, out=None,
               "i16_ac": (nb, nc, 16, 15)}
     res = {}
     for k in keys:
-        shape = shapes[k]
+        shape = lead + shapes[k]
         dt = (torch.uint8 if k.startswith("recon") else
               torch.bool if k == "mb_intra" else torch.int32)
         t = None if out is None else out.get(k)
@@ -554,7 +555,12 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
     MB's I16 candidate, which reads its left neighbour's recon, and a
     pass per MB row that gates and merges them); CPU tensors run the
     plain version.  ``qp_dev`` (CUDA only: one int32 on the card) makes
-    the kernels read the slice qp from device memory instead of ``qp``."""
+    the kernels read the slice qp from device memory instead of ``qp``.
+
+    Planes stacked (S, H, W), frames and references alike, code S
+    sessions' P frames in one launch (tune "off"; the session the grid's
+    second axis, each session searching its own reference): every output
+    gains the leading session axis."""
     if refine != "alt":
         raise NotImplementedError(
             f"refine={refine!r} is not ported to the PyTorch/CUDA encoder "
@@ -563,12 +569,15 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
         raise ValueError(f"unknown tune {tune!r}")
     if p_intra and tune == "off":
         raise ValueError("p_intra requires tune=hq/hq_noaq")
-    _check_planes(y, cb, cr)
-    _check_planes(ref_y, ref_cb, ref_cr)
+    ns = _check_planes(y, cb, cr, sessions=True)
+    _check_planes(ref_y, ref_cb, ref_cr, sessions=True)
     if ref_y.shape != y.shape or ref_y.device != y.device:
         raise ValueError("reference planes must match the current frame")
+    if ns and tune != "off":
+        raise ValueError("stacked sessions take tune='off'")
     _check_qp(qp, qp_dev, y.device)
-    nr, nc = y.shape[0] // 16, y.shape[1] // 16
+    lead = tuple(y.shape[:-2])
+    nr, nc = y.shape[-2] // 16, y.shape[-1] // 16
     keys = _OUT_KEYS + (("qp_map",) if tune == "hq" else ()) \
         + (_INTRA_KEYS if p_intra else ())
     qp_map = None
@@ -576,16 +585,22 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
         qp_map = aq.qp_plane(y, qp, next_y, qp_dev,
                              None if out is None else out.get("qp_map"))
     if y.device.type == "cpu":
-        plain = encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr,
-                                     int(qp), tune, qp_map, p_intra)
+        if ns:
+            from .h264_device import stack_sessions
+            plain = stack_sessions([encode_p_frame_plain(
+                y[i], cb[i], cr[i], ref_y[i], ref_cb[i], ref_cr[i], int(qp))
+                for i in range(ns)])
+        else:
+            plain = encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr,
+                                         int(qp), tune, qp_map, p_intra)
         if out is None:
             return plain
-        res = _out_tensors(nr, nc, y, out, keys)
+        res = _out_tensors(nr, nc, y, out, keys, lead)
         return {k: res[k].copy_(plain[k]) for k in keys}
-    res = _out_tensors(nr, nc, y, out, keys)
+    res = _out_tensors(nr, nc, y, out, keys, lead)
     if tune == "off":
         _launch(y, cb, cr, ref_y, ref_cb, ref_cr, None, qp_dev, res, nr, nc,
-                nr, qp)
+                nr, qp, ns or 1)
         encode_p_frame.launches += 1
         return res
     dev = y.device
@@ -630,11 +645,11 @@ encode_p_frame.i16 = _cuda.Counter()     # I16-in-P candidates (pass 2)
 encode_p_frame.merge = _cuda.Counter()   # run-parity gate and merge (pass 3)
 
 def _launch(y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, res, nr, nc, nb,
-            qp):
+            qp, ns: int = 1):
     _cuda.launch("inter", "inter_frame_launch",
                  [y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev]
                  + [res[k] for k in _OUT_KEYS],
-                 [nr, nc, nb, int(qp), quant.chroma_qp(int(qp))], y.device)
+                 [nr, nc, nb, int(qp), quant.chroma_qp(int(qp)), ns], y.device)
 
 
 def encode_p_frame_rows(y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp: int,

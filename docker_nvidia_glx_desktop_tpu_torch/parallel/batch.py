@@ -1,8 +1,13 @@
-"""The MJPEG session batch on one card.
+"""Multi-session batches on one card: the MJPEG session batch and the
+H.264 session steps (rows 15b-15d).
 
-The port of the reference's ``parallel/batch.py`` MJPEG step
-(``_session_transform``, ``batch_encode_step``, ``assemble_session_jpeg``).
-There, sessions and restart strips are the axes of a device mesh; on one
+The port of the reference's ``parallel/batch.py``.  There, sessions and
+restart strips (or MB-row shards) are the axes of a device mesh; a
+single device plans the mesh (1, 1), every session on it.  Here the
+session axis is a grid axis of the kernels themselves.
+
+MJPEG (``_session_transform``, ``batch_encode_step``,
+``assemble_session_jpeg``): on one
 card they are grid axes of the same three kernels as the single encoder
 (``ops/jpeg_device``: K16a over S frames, K16b and K16c over S sessions
 of ``spatial`` strips each).  Each strip starts its DC predictors at 0 and
@@ -10,16 +15,145 @@ packs into its own buffer, exactly JPEG's restart-interval contract, so a
 session's JPEG is its strips joined with RSTn markers; the strips'
 histograms are summed per session (the reference's psum over its spatial
 axis), so every strip of a session packs with one set of tables.
+
+H.264 (``h264_batch_encode_step``, ``h264_p_batch_step``,
+``h264_p_chunk_batch_step``): S sessions' frames stacked (S, H, W) run
+through the single-session kernels with a session grid axis — the intra
+core K1, slot coder K2 and packer K3 for an IDR tick (15b); the P core
+K5, P slot coder K6, P packer K7 and, where asked, the loop filter K8
+for a P tick (15c) — and a chunk of K P ticks is one replay of a
+captured CUDA graph of K such bodies (15d).  Each session packs into its
+own flat buffer (its own overflow flag and caps) under one set of slice
+headers; on one device the reference's halo is edge padding, which is
+what the P core's clamped search already does.  The steps run at one
+fixed qp and no rate control or content stats, as the reference's.
+CPU tensors run the plain versions session by session
+(:func:`h264_intra_batch_plain`, :func:`h264_p_batch_plain`).
+
+The host helpers (``geometry_bucket`` ... ``feasible_spatial_shards``)
+are the reference's arithmetic, copied.
 """
 
 from __future__ import annotations
+
+import threading
+import time
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..models.h264 import resolve_device
 from ..models.mjpeg import headers
+from ..obs import metrics as obsm
+from ..obs.trace import next_frame_id, tracer
 from ..ops import bitpack, jpeg_device, quant
+
+# Per-step dispatch histogram: how long the host spends handing one
+# batched tick to the device (the first call includes the kernel build
+# and, for a chunk step, the graph capture).
+_M_DISPATCH = obsm.histogram(
+    "dngd_batch_step_dispatch_ms",
+    "Host-side dispatch time of one batched device step", ("step",))
+
+# Batched-path spans land in their own trace track ('batch'), which the
+# serving-budget ledger accounts when a batch path is what serves.
+_TRACER = tracer("batch")
+
+
+# One process, one card, one legacy default stream: a CUDA graph capture
+# fails if another thread launches or copies on the card meanwhile.  The
+# batch managers (one encode thread per geometry bucket) hold this lock
+# around each tick's launches and pulls; the buckets' device work
+# serializes anyway, their host work (capture, colour, muxing) does not.
+DEVICE_LOCK = threading.RLock()
+
+
+# -- degraded-geometry buckets (resilience/degrade) ----------------------
+# Batched serving groups sessions by PADDED geometry (one step per
+# bucket, see web/multisession.BucketedStreamManager), so degraded
+# geometries are drawn from a fixed scale ladder and snapped to the MB
+# grid: every session degraded to the same level shares one bucket.
+
+DEGRADE_SCALES: Tuple[float, ...] = (1.0, 0.75, 0.5)
+
+
+def geometry_bucket(width: int, height: int) -> Tuple[int, int]:
+    """The (pad_h, pad_w) bucket key a raw geometry encodes under —
+    the same MB padding the batch managers group sessions by."""
+    return (-(-height // 16) * 16, -(-width // 16) * 16)
+
+
+def degraded_geometry(width: int, height: int, level: int,
+                      min_dim: int = 64) -> Tuple[int, int]:
+    """The (w, h) for degradation ``level`` (0 = native) of a native
+    geometry: scaled by :data:`DEGRADE_SCALES`, floored to the MB grid,
+    and clamped to ``min_dim``."""
+    scale = DEGRADE_SCALES[max(0, min(level, len(DEGRADE_SCALES) - 1))]
+    if scale >= 1.0:
+        # level 0 IS the native geometry
+        return width, height
+    w = max(min_dim, int(width * scale) // 16 * 16)
+    h = max(min_dim, int(height * scale) // 16 * 16)
+    return w, h
+
+
+# -- elastic failover planning (resilience/continuity) --------------------
+
+def replan_mesh(n_sessions: int, n_devices: int, pad_h: int,
+                want_nx: int = 1) -> Tuple[int, int]:
+    """The N->N-1 re-bucketing rule: the largest (ns, nx) shape that
+    fits ``n_devices`` surviving devices, with ``ns`` dividing the
+    session batch and the MB rows splitting over ``nx``.  Prefers the
+    spatial extent the caller had (``want_nx``)."""
+    if n_devices < 1:
+        raise ValueError("no surviving devices to replan onto")
+    best = (1, 1)
+    for nx in range(min(max(want_nx, 1), n_devices), 0, -1):
+        if pad_h % (16 * nx):
+            continue
+        ns = n_devices // nx
+        while ns > 1 and n_sessions % ns:
+            ns -= 1
+        if ns * nx > best[0] * best[1]:
+            best = (ns, nx)
+    return best
+
+
+def elastic_degrade_level(n_sessions: int, n_chips: int) -> int:
+    """Recommended degradation-ladder level after device loss: 0 while
+    devices >= sessions; one level per halving of the device:session
+    ratio after that, capped at the ladder depth."""
+    if n_chips >= n_sessions or n_chips < 1:
+        return 0
+    level = 0
+    while n_chips * (2 ** level) < n_sessions \
+            and level < len(DEGRADE_SCALES) - 1:
+        level += 1
+    return level
+
+
+def p_halo_feasible(frame_h: int, nx: int) -> bool:
+    """True when every spatial shard is tall enough to donate the chroma
+    halo the P step's motion window needs."""
+    from ..ops.h264_inter import _PAD
+
+    rows_local = (frame_h // 16) // max(nx, 1)
+    return nx == 1 or 8 * rows_local >= _PAD
+
+
+def feasible_spatial_shards(pad_h: int, want: int,
+                            n_devices: int) -> int:
+    """Clamp a requested spatial shard count to what the geometry
+    supports: ``nx`` must divide the MB rows evenly and leave each shard
+    tall enough for the P halo.  Prefers the smallest feasible count >=
+    ``want``, else the largest feasible one below it."""
+    rows = max(pad_h // 16, 1)
+    want = max(int(want), 1)
+    cands = [n for n in range(1, max(int(n_devices), 1) + 1)
+             if rows % n == 0 and p_halo_feasible(pad_h, n)]
+    up = [n for n in cands if n >= want]
+    return min(up) if up else max(cands)
 
 
 class BatchStep:
@@ -92,4 +226,345 @@ def assemble_session_jpeg(packed_shards, totals, tables, width: int,
         if i < nx - 1:
             parts.append(bytes([0xFF, 0xD0 + (i % 8)]))
     parts.append(b"\xff\xd9")
+    return b"".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# H.264 session steps (rows 15b-15d)
+# ---------------------------------------------------------------------------
+
+class ShardOverflow(ValueError):
+    """A session's flat buffer overflowed the static caps: its AU cannot
+    be assembled from the device bits (the manager drops the frame)."""
+
+
+def _planes(a, device) -> torch.Tensor:
+    """A host array or tensor -> a contiguous uint8 tensor on ``device``."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a, np.uint8))
+    return t.to(device).contiguous()
+
+
+def _slots(a, device) -> torch.Tensor:
+    """Header slots (uint32 values or int32 lengths) -> int32 on
+    ``device`` (values keep their bit patterns)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.int32).contiguous()
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a.astype(np.int32, copy=False)).to(device)
+
+
+class _Step:
+    """A batched step: ``__call__`` times the dispatch into the
+    ``dngd_batch_step_dispatch_ms`` histogram and the 'batch' trace
+    track (the reference's ``_timed_step``)."""
+
+    kind = ""
+
+    def __init__(self, frame_h: int, frame_w: int, qp: int, device):
+        if frame_h % 16 or frame_w % 16:
+            raise ValueError("frame geometry must be MB-aligned")
+        if not 0 <= int(qp) <= 51:
+            raise ValueError(f"qp {qp} outside 0..51")
+        self.frame_h, self.frame_w, self.qp = frame_h, frame_w, int(qp)
+        self.nr, self.nc = frame_h // 16, frame_w // 16
+        self.device = resolve_device(device)
+        self._child = _M_DISPATCH.labels(self.kind)
+        self._stage = f"batch-dispatch-{self.kind}"
+
+    def _check(self, y) -> None:
+        want = (self.frame_h, self.frame_w)
+        if y.dim() != 3 or tuple(y.shape[1:]) != want:
+            raise ValueError(f"planes {tuple(y.shape)} are not (S, "
+                             f"{want[0]}, {want[1]})")
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self._run(*args, **kwargs)
+        dur = time.perf_counter() - t0
+        self._child.observe(dur * 1e3)
+        _TRACER.record_span(self._stage, t0, dur, next_frame_id())
+        return out
+
+
+def _intra_body(y, cb, cr, hv, hl, qp: int, with_recon: bool):
+    """15b on stacked planes: K1, K2 and K3 with the session axis."""
+    from ..ops import bitmerge, cavlc_device, h264_device
+
+    lv = h264_device.encode_intra_frame_yuv(y, cb, cr, qp)
+    slots = cavlc_device.frame_block_slots(
+        {k: lv[k] for k in cavlc_device._LEVEL_KEYS})
+    flat = bitmerge.pack_frame(*slots, hv, hl)[:, None]
+    if with_recon:
+        return flat, lv["recon_y"], lv["recon_cb"], lv["recon_cr"]
+    return flat
+
+
+def _p_body(y, cb, cr, ry, rcb, rcr, hv, hl, qp: int, deblock: bool):
+    """15c on stacked planes: K5, K6, K7 (and K8) with the session axis.
+    The references are only read; the new ones are new tensors."""
+    from ..ops import bitmerge, cavlc_p_device, h264_deblock, h264_inter
+
+    out = h264_inter.encode_p_frame(y, cb, cr, ry, rcb, rcr, qp)
+    slots = cavlc_p_device.p_frame_slots(out)
+    flat = bitmerge.pack_p_frame(*slots[:6], hv, hl)[:, None]
+    ny, ncb, ncr = out["recon_y"], out["recon_cb"], out["recon_cr"]
+    if deblock:
+        ny, ncb, ncr = h264_deblock.deblock_frame(
+            ny, ncb, ncr, qp, nnz_blk=slots[6], mv=out["mv"])
+    return flat, ny, ncb, ncr
+
+
+class IntraBatchStep(_Step):
+    """Row 15b: ``step(y, cb, cr, idr_parity=0)`` -> flats (S, 1, L)
+    uint8 — each session's flat buffer (``ops/bitmerge`` layout) — and,
+    ``with_recon``, the recon planes (S, H, W), (S, H/2, W/2) x 2 on the
+    device.  Two header-slot sets alternate ``idr_pic_id`` between
+    consecutive IDR ticks (``idr_parity``), both on the device."""
+
+    kind = "h264_intra"
+    launches = 0
+
+    def __init__(self, frame_h, frame_w, qp, with_recon, device):
+        super().__init__(frame_h, frame_w, qp, device)
+        from ..ops import cavlc_device
+
+        self.with_recon = bool(with_recon)
+        self.slots = []
+        for pid in (0, 1):
+            hv, hl = cavlc_device.slice_header_slots(
+                self.nr, self.nc, frame_num=0, idr_pic_id=pid)
+            self.slots.append((_slots(hv, self.device),
+                               _slots(hl, self.device)))
+
+    def _run(self, y, cb, cr, idr_parity: int = 0):
+        y, cb, cr = (_planes(a, self.device) for a in (y, cb, cr))
+        self._check(y)
+        hv, hl = self.slots[idr_parity & 1]
+        out = _intra_body(y, cb, cr, hv, hl, self.qp, self.with_recon)
+        if self.device.type == "cuda":
+            IntraBatchStep.launches += 1
+        return out
+
+
+class PBatchStep(_Step):
+    """Row 15c: ``step(y, cb, cr, ref_y, ref_cb, ref_cr, hv, hl)`` ->
+    (flats (S, 1, L), ref_y', ref_cb', ref_cr'): every session's P frame
+    against its own reference, the new references left on the device
+    (loop-filtered with ``deblock``)."""
+
+    kind = "h264_p"
+    launches = 0
+
+    def __init__(self, frame_h, frame_w, qp, deblock, device):
+        super().__init__(frame_h, frame_w, qp, device)
+        self.deblock = bool(deblock)
+
+    def _run(self, y, cb, cr, ref_y, ref_cb, ref_cr, hv, hl):
+        dev = self.device
+        y, cb, cr, ref_y, ref_cb, ref_cr = (
+            _planes(a, dev) for a in (y, cb, cr, ref_y, ref_cb, ref_cr))
+        self._check(y)
+        out = _p_body(y, cb, cr, ref_y, ref_cb, ref_cr, _slots(hv, dev),
+                      _slots(hl, dev), self.qp, self.deblock)
+        if dev.type == "cuda":
+            PBatchStep.launches += 1
+        return out
+
+
+class PChunkBatchStep(_Step):
+    """Row 15d: ``step(ys, cbs, crs, ref_y, ref_cb, ref_cr, hv, hl)`` ->
+    (flats (S, K, 1, L), ref_y', ref_cb', ref_cr'), ``ys`` (S, K, H, W)
+    and ``hv``/``hl`` the K frames' slots (K, R, 3); equal to K calls of
+    :class:`PBatchStep`.
+
+    On the card the K bodies are captured once into a CUDA graph (after
+    an uncaptured warm-up that builds and loads the kernels, uploads the
+    CAVLC tables and raises K8's shared-memory limit) and each call is a
+    replay: the frames, references and slots are copied into the graph's
+    static inputs first.  The references are double-buffered: the graph
+    reads its input planes and writes its output planes, never the same
+    memory.  A replay overwrites the previous replay's outputs, so a call
+    raises while the previous chunk is still held — its caller pulls the
+    flats and calls :meth:`release` first.  On the CPU the body runs
+    eagerly (the plain version)."""
+
+    kind = "h264_p_chunk"
+    launches = 0
+
+    def __init__(self, frame_h, frame_w, chunk, qp, deblock, device):
+        super().__init__(frame_h, frame_w, qp, device)
+        if int(chunk) < 1:
+            raise ValueError("a chunk takes at least one frame")
+        self.chunk = int(chunk)
+        self.deblock = bool(deblock)
+        self.graph = None
+        self.inputs = None
+        self.out = None
+        self.nodes = {}
+        self.pool_bytes = 0
+        self.replays = 0
+        self.held = False
+        self.sessions = None
+
+    def body(self, ys, cbs, crs, ry, rcb, rcr, hv, hl):
+        """The K bodies on the stacks ``ys`` (S, K, H, W): frame k's
+        planes are gathered into (S, H, W) on the device."""
+        flats = []
+        for k in range(ys.shape[1]):
+            flat, ry, rcb, rcr = _p_body(
+                ys[:, k].contiguous(), cbs[:, k].contiguous(),
+                crs[:, k].contiguous(), ry, rcb, rcr, hv[k], hl[k], self.qp,
+                self.deblock)
+            flats.append(flat)
+        return torch.stack(flats, 1), ry, rcb, rcr
+
+    def release(self) -> None:
+        """The caller has pulled the last chunk's flats: the next replay
+        may overwrite them."""
+        self.held = False
+
+    def _host(self, ys, cbs, crs, hv, hl):
+        """The host inputs as tensors: (S, K, ...) planes, int32 slots."""
+        fm = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.uint8))
+        if (np.shape(ys)[1] != self.chunk
+                or tuple(np.shape(ys)[2:]) != (self.frame_h, self.frame_w)):
+            raise ValueError(f"frames {np.shape(ys)} are not (S, "
+                             f"{self.chunk}, {self.frame_h}, "
+                             f"{self.frame_w})")
+        return (fm(ys), fm(cbs), fm(crs), _slots(hv, "cpu"),
+                _slots(hl, "cpu"))
+
+    def _capture(self, host, refs) -> None:
+        from ..ops import devloop
+
+        dev = self.device
+        self.inputs = tuple(torch.empty(h.shape, dtype=h.dtype, device=dev)
+                            for h in host) \
+            + tuple(torch.empty_like(r) for r in refs)
+        self._load(host, refs)
+        ys, cbs, crs, hv, hl, ry, rcb, rcr = self.inputs
+        self.graph, self.out, self.nodes, self.pool_bytes = \
+            devloop.capture_graph(dev, lambda: self.body(
+                ys, cbs, crs, ry, rcb, rcr, hv, hl))
+
+    def _load(self, host, refs) -> None:
+        for dst, src in zip(self.inputs, tuple(host) + tuple(refs)):
+            dst.copy_(src)
+
+    def _run(self, ys, cbs, crs, ref_y, ref_cb, ref_cr, hv, hl):
+        if self.held:
+            raise RuntimeError(
+                "the previous chunk's flats are still held: pull them and "
+                "release() the step before the next replay overwrites them")
+        host = self._host(ys, cbs, crs, hv, hl)
+        refs = tuple(_planes(r, self.device)
+                     for r in (ref_y, ref_cb, ref_cr))
+        if self.device.type != "cuda":
+            self.held = True
+            return self.body(*host[:3], *refs, *host[3:])
+        from ..ops import devloop
+
+        s = host[0].shape[0]
+        if self.graph is not None and s != self.sessions:
+            raise ValueError(f"{s} sessions for a step captured with "
+                             f"{self.sessions}")
+        if self.graph is None:
+            self._capture(host, refs)
+            self.sessions = s
+        else:
+            self._load(host, refs)
+        self.graph.replay()
+        self.replays += 1
+        devloop.replayed.update(self.nodes)
+        PChunkBatchStep.launches += 1
+        self.held = True
+        return self.out
+
+
+def h264_batch_encode_step(frame_h: int, frame_w: int, qp: int = 26,
+                           with_recon: bool = False, device=None):
+    """The multi-session H.264 CAVLC IDR step (row 15b) on one card (the
+    card by default; ``"cpu"`` runs the plain versions).  Returns
+    (step, rows_local): see :class:`IntraBatchStep`; ``rows_local`` is
+    every MB row (one device, one spatial shard)."""
+    step = IntraBatchStep(frame_h, frame_w, qp, with_recon, device)
+    return step, step.nr
+
+
+def h264_p_batch_step(frame_h: int, frame_w: int, qp: int = 26,
+                      deblock: bool = False, device=None):
+    """The multi-session P step (row 15c): (step, rows_local), see
+    :class:`PBatchStep`."""
+    step = PBatchStep(frame_h, frame_w, qp, deblock, device)
+    return step, step.nr
+
+
+def h264_p_chunk_batch_step(frame_h: int, frame_w: int, chunk: int,
+                            qp: int = 26, deblock: bool = False,
+                            device=None):
+    """The multi-session chunk step (row 15d): (step, rows_local), see
+    :class:`PChunkBatchStep`."""
+    step = PChunkBatchStep(frame_h, frame_w, chunk, qp, deblock, device)
+    return step, step.nr
+
+
+def h264_intra_batch_plain(y, cb, cr, hv, hl, qp: int,
+                           with_recon: bool = False):
+    """Plain version of 15b: the single-session plain functions session
+    by session, stacked (any device; the step's inputs and outputs)."""
+    from ..ops import bitmerge, cavlc_device, h264_device
+
+    flats, recon = [], []
+    for i in range(y.shape[0]):
+        lv = h264_device.encode_intra_frame_yuv_plain(y[i], cb[i], cr[i],
+                                                      int(qp))
+        slots = cavlc_device.frame_block_slots_plain(lv)
+        flats.append(bitmerge.pack_frame_plain(*slots, hv, hl)[None])
+        recon.append((lv["recon_y"], lv["recon_cb"], lv["recon_cr"]))
+    flat = torch.stack(flats)
+    if not with_recon:
+        return flat
+    return (flat,) + tuple(torch.stack(list(p)) for p in zip(*recon))
+
+
+def h264_p_batch_plain(y, cb, cr, ref_y, ref_cb, ref_cr, hv, hl, qp: int,
+                       deblock: bool = False):
+    """Plain version of 15c, session by session, stacked."""
+    from ..ops import bitmerge, cavlc_p_device, h264_deblock, h264_inter
+
+    flats, refs = [], []
+    for i in range(y.shape[0]):
+        out = h264_inter.encode_p_frame_plain(
+            y[i], cb[i], cr[i], ref_y[i], ref_cb[i], ref_cr[i], int(qp))
+        slots = cavlc_p_device.p_frame_slots_plain(out)
+        flats.append(bitmerge.pack_p_frame_plain(*slots[:6], hv, hl)[None])
+        rec = (out["recon_y"], out["recon_cb"], out["recon_cr"])
+        if deblock:
+            rec = h264_deblock.deblock_frame_plain(
+                *rec, int(qp), nnz_blk=slots[6], mv=out["mv"])
+        refs.append(rec)
+    return (torch.stack(flats),) + tuple(torch.stack(list(p))
+                                         for p in zip(*refs))
+
+
+def assemble_session_h264(flat_shards, rows_local: int,
+                          headers: bytes = b"", nal_type: int = None,
+                          ref_idc: int = 3) -> bytes:
+    """One session's Annex-B access unit from its flat buffer(s) (one per
+    spatial shard; one on one device).  Raises :class:`ShardOverflow`
+    when a buffer overflowed its static caps."""
+    from ..ops import cavlc_device
+
+    parts = [headers]
+    for shard in flat_shards:
+        buf = shard.cpu().numpy() if isinstance(shard, torch.Tensor) \
+            else np.asarray(shard)
+        meta = cavlc_device.FlatMeta(buf, rows_local)
+        if meta.overflow:
+            raise ShardOverflow("static cap overflow in batch encode")
+        parts.append(cavlc_device.assemble_annexb(
+            buf, meta, nal_type=nal_type, ref_idc=ref_idc))
     return b"".join(parts)

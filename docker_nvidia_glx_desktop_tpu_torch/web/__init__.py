@@ -1,1 +1,3 @@
-"""Web-facing pieces of the port (input injection so far)."""
+"""Web-facing pieces of the port: input injection, the fMP4 muxer, and
+the single- and multi-session serving core (``session``,
+``multisession``)."""

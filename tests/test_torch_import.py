@@ -187,6 +187,54 @@ print("LEAKED", bad)
 """
 
 
+_BLOCKED_SESSIONS = """
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, {repo!r})
+import numpy as np
+from docker_nvidia_glx_desktop_tpu_torch.obs import (budget, content, events,
+                                                     flight, journey, metrics,
+                                                     procstats, trace)
+from docker_nvidia_glx_desktop_tpu_torch.parallel import batch
+from docker_nvidia_glx_desktop_tpu_torch.resilience import (continuity, faults,
+                                                            handoff, policy)
+from docker_nvidia_glx_desktop_tpu_torch.utils import timing
+from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+from docker_nvidia_glx_desktop_tpu_torch.web import (clock, mp4, multisession,
+                                                     session)
+
+
+class Src:
+    def __init__(self, w, h):
+        self.width, self.height = w, h
+
+    def frame(self):
+        return np.full((self.height, self.width, 3), 90, np.uint8), 0
+
+
+cfg = from_env({{"SIZEW": "64", "SIZEH": "48", "TPU_SESSIONS": "3"}})
+mgr = multisession.BucketedStreamManager(
+    cfg, [Src(64, 48), Src(64, 48), Src(96, 64)], device="cpu")
+assert [len(m.sources) for m in mgr.managers] == [2, 1]
+for m in mgr.managers:
+    pl = [m._planes(s.frame()[0], i) for i, s in enumerate(m.sources)]
+    ys, cbs, crs = (np.stack([p[k] for p in pl]) for k in range(3))
+    (flat, idr, _), = m._encode_tick(ys, cbs, crs)
+    assert idr and flat.shape[:2] == (len(m.sources), 1)
+    assert m._deliver_tick(flat, idr, 1.0)
+mgr.close()
+sess = session.StreamSession(from_env({{"SIZEW": "64", "SIZEH": "48"}}),
+                             Src(64, 48), device="cpu")
+assert sess.codec_name == "h264_cavlc"
+sess.close()
+assert budget.LEDGER.probe_link(device="cpu")["rtt_ms"] >= 0
+bad = sorted(m for m in sys.modules
+             if m == "docker_nvidia_glx_desktop_tpu"
+             or m.startswith("docker_nvidia_glx_desktop_tpu."))
+print("LEAKED", bad)
+"""
+
+
 def _run(code: str, cwd=None, timeout=120):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -215,6 +263,14 @@ def test_port_encodes_the_chunk_ring_and_the_damage_mask_with_jax_blocked():
 
 def test_port_encodes_mjpeg_and_serves_rfb_with_jax_blocked():
     out = _run(_BLOCKED_MJPEG_RFB.format(repo=str(REPO)), cwd=str(REPO.parent))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LEAKED []" in out.stdout
+
+
+def test_port_serves_sessions_with_jax_blocked():
+    """Every module of the serving slice imports with JAX blocked, and a
+    two-bucket multi-session tick and a StreamSession run on the CPU."""
+    out = _run(_BLOCKED_SESSIONS.format(repo=str(REPO)), cwd=str(REPO.parent))
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LEAKED []" in out.stdout
 

@@ -21,7 +21,8 @@ first encodes four warm-up frames (kernels loaded, caches filled), then
 times ``--frames`` fresh frames of ``chip_smoke.gop_frames`` (an IDR,
 then P frames), cv2's host colour conversion alone on five of them, and
 the GOP path's per-frame kernels on one 1080p P frame: K1 (the intra
-core on its planes), K4 (full form), K5, K8 and K9, each as one eager
+core on its planes), K2 and K3 on K1's levels, K4 (full form), K5, K6
+and K7 on K5's outputs, K8 and K9, each as one eager
 call timed by CUDA events (host launch
 work included) and as the replay of that call captured into a CUDA graph
 (the kernel's device time), medians of 50 (``chip_smoke.cuda_ms`` and
@@ -47,7 +48,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "docker_nvidia_glx_desktop_tpu_torch"
 W, H = 1920, 1080
 WARM_FRAMES = 4
-KERNELS = ("k1", "k4", "k5", "k8", "k9")
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "k9")
 METRICS = ("fps", "p50_ms", "p50_p_ms", "idr_ms", "submit_ms", "collect_ms",
            "colour_ms") + tuple(f"{k}_{w}_ms" for k in KERNELS
                                 for w in ("event", "graph"))
@@ -124,14 +125,16 @@ def child(tree: str, py_epb: bool, frames: int, build_only: bool) -> dict:
 
 
 def kernel_ms(smoke, enc, rgb) -> dict:
-    """K1 on the P frame ``rgb``'s planes, and K4 (full form), K5, K8 and
-    K9 on it against the encoder's reference, through the wrappers every
+    """K1 on the P frame ``rgb``'s planes with K2 and K3 on its levels,
+    and K4 (full form), K5 (with K6 and K7 on its outputs), K8 and K9 on
+    it against the encoder's reference, through the wrappers every
     checkout has."""
     import numpy as np
     import torch
 
     from docker_nvidia_glx_desktop_tpu_torch.ops import (
-        color, content_stats, h264_deblock, h264_device, h264_inter)
+        bitmerge, cavlc_device, cavlc_p_device, color, content_stats,
+        h264_deblock, h264_device, h264_inter)
     from docker_nvidia_glx_desktop_tpu_torch.ops.cavlc_p_device import (
         nnz_raster)
 
@@ -144,7 +147,16 @@ def kernel_ms(smoke, enc, rgb) -> dict:
     nnz = nnz_raster(o["luma"])
     resid = tuple(o[k] for k in ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac"))
     rgb_t = torch.from_numpy(np.ascontiguousarray(rgb)).to(dev)
+    lv = h264_device.encode_intra_frame_yuv(*planes, qp)
+    hv, hl = enc._hdr_slots(0)
+    islots = cavlc_device.frame_block_slots(lv)
+    pslots = cavlc_p_device.p_frame_slots(o)
+    phv, phl = enc._p_hdr_slots(1, 0)
     calls = {"k1": lambda: h264_device.encode_intra_frame_yuv(*planes, qp),
+             "k2": lambda: cavlc_device.frame_block_slots(lv),
+             "k3": lambda: bitmerge.pack_frame(*islots, hv, hl),
+             "k6": lambda: cavlc_p_device.p_frame_slots(o),
+             "k7": lambda: bitmerge.pack_p_frame(*pslots[:6], phv, phl),
              "k4": lambda: content_stats.frame_stats_full(
                  planes[0], ref[0], 512, rec[0], o["mv"], resid),
              "k5": lambda: h264_inter.encode_p_frame(*planes, *ref, qp),
