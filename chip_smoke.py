@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in nine phases:
+seeded generator, in ten phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -49,7 +49,13 @@ seeded generator, in nine phases:
   encode threads, GOP 60 per tick and in chunk rings of 4, a hub's
   keyframe request and a noise frame's overflow: the session steps 15b
   (K1-K3), 15c (K5-K7, and K8 with ``deblock=True``) and 15d (their
-  captured graph), and the link probe (K17g).
+  captured graph), and the link probe (K17g);
+- **spatial**: ``ENCODER_SPATIAL_SHARDS`` on one card's default shard
+  devices (it serves unsharded, as the reference resolves one device),
+  then over ``spatial_devices=[cuda:0] * nx`` for nx = 2 and 4: CAVLC
+  and CABAC-device per frame and in chunk-4 rings, hq_noaq and the
+  masked row gate (the halo pad 15e, the padded-reference P core K5p,
+  the gate 13s, the steps 15f-15h).
 
 Checks, each of which fails the run:
 
@@ -96,6 +102,12 @@ Checks, each of which fails the run:
           hub's fMP4 demuxed, equal to the checked AUs and decoded by cv2
           to the recons; the ledger's link rtt set from the probe, and
           the probe's kernel against its plain loop
+  spatial every sharded stream byte-equal to the unsharded encoder's, one
+          decoded by cv2; 15e (nx 2 and 4, halo on and off), K5p (three
+          tiers) and 13s against their plain versions at 1080p; one IDR
+          of 15f, one P frame of 15g and of the masked 15g, and a chunk
+          of 15h against the plain steps; 15h's replay against its
+          eager body
   check   NAL structure, recon PSNR, qp moved, no jax imported
 
 Prints the card's name and power limit, per-kernel times beside their
@@ -106,7 +118,8 @@ masked P stage's device ms at 1, 8 and 68 damaged rows, the graphs'
 count and memory pools, the hq tiers' K1 and K5 times and frames/s
 against tune=off, the sessions' tick times and frames/s at S = 1-8,
 K1 and K5 batched against S single launches and the buckets' graph
-pools, the link rtt, the script's total run time,
+pools, the link rtt, the spatial shards' step and kernel times, K5p
+against K5 and frames/s at nx = 1, 2, 4, the script's total run time,
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, without CUDA or
 outside a checkout of the repository.
@@ -169,6 +182,11 @@ SESS_TICKS = 18            # ticks a bucket and configuration
 SESS_CHUNK = 4             # the ring configuration (the deployed manifest's)
 SESS_KF_HUB, SESS_KF_AT = 3, 6   # hub 3 asks for a keyframe after tick 6
 SESS_NOISY = (5, 13)       # (session, tick): full noise, its P frame overflows
+SP_FRAMES = 9              # spatial phase: IDR + 8 P frames (two chunks of 4)
+SP_NX = (2, 4)             # shard counts on one card (34 and 17 MB rows a shard)
+SP_TIMED_FRAMES = 17       # frames a timed run (nx = 1, 2, 4 in turn)
+SP_TIMED_ROUNDS = 2
+SP_DEVICE = "cuda"         # the shard devices are [SP_DEVICE] * nx
 SESS_TIMED_S = (1, 2, 4, 8)
 SESS_TIMED_TICKS = 13      # an IDR and 12 P ticks a timed run
 
@@ -460,6 +478,8 @@ def run():
     print(f"mjpeg phase done at {time.perf_counter() - t_start:.0f} s")
     rows += sessions_phase(report)
     print(f"sessions phase done at {time.perf_counter() - t_start:.0f} s")
+    rows += spatial_phase(report)
+    print(f"spatial phase done at {time.perf_counter() - t_start:.0f} s")
     check("jax" not in sys.modules, "the port imported jax")
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
@@ -3671,6 +3691,419 @@ def sessions_phase(report):
     for mgr, *_ in runs.values():
         mgr.close()
     return rows
+
+
+class StepRecorder:
+    """A spatial step that records each call's inputs (CUDA tensors and
+    host arrays, cloned) and outputs for the checks after the run."""
+
+    def __init__(self, step, calls: list):
+        self.step, self.calls = step, calls
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def __call__(self, *args):
+        import torch
+
+        clone = lambda a: a.clone() if isinstance(a, torch.Tensor) else a.copy()
+        rec = {"args": [clone(a) for a in args], "qp": self.step.qp}
+        out = self.step(*args)
+        rec["out"] = out[:5]
+        rec["levels"] = {k: v.clone() for k, v in out[5].items()}
+        self.calls.append(rec)
+        return out
+
+
+def spatial_env(nx: int, **extra) -> dict:
+    env = {"SIZEW": str(W), "SIZEH": str(H), "ENCODER_GOP": str(SP_FRAMES)}
+    if nx > 1:
+        env["ENCODER_SPATIAL_SHARDS"] = str(nx)
+    env.update(extra)
+    return env
+
+
+def spatial_encoder(nx: int, **extra):
+    """``make_encoder`` at 1080p with ENCODER_SPATIAL_SHARDS=nx over the
+    shard devices [cuda:0] * nx (nx = 1: the knob off)."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    from docker_nvidia_glx_desktop_tpu_torch.parallel.batch import indexed_device
+
+    dev = torch.device(SP_DEVICE)
+    enc, _ = make_encoder(from_env(spatial_env(nx, **extra)), W, H,
+                          device=dev, spatial_devices=[indexed_device(dev)] * nx)
+    check(enc._spatial_nx == nx, f"ENCODER_SPATIAL_SHARDS={nx}: the encoder "
+          f"resolved {enc._spatial_nx} shards")
+    return enc
+
+
+def spatial_run(nx: int, frames, env_knobs=None, **extra):
+    """One stream through a spatial encoder and through its unsharded
+    twin (the knob off); returns (encoder, AUs, the twin's AUs)."""
+    old = {k: os.environ.get(k) for k in (env_knobs or {})}
+    os.environ.update(env_knobs or {})
+    try:
+        enc = spatial_encoder(nx, **extra)
+        aus = drive(enc, frames)[1]
+        twin = spatial_encoder(1, **extra)
+        want = drive(twin, frames)[1]
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return enc, aus, want
+
+
+def decoded_frames(aus) -> int:
+    """Frames cv2 decodes from an Annex-B stream (-1 without cv2)."""
+    try:
+        import cv2
+    except ImportError:
+        return -1
+    path = os.path.join(HERE, "chiprun_out", "spatial.h264")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"".join(aus))
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def spatial_phase(report):
+    """``ENCODER_SPATIAL_SHARDS`` at 1080p: first on one card with the
+    default shard devices (the knob serves unsharded, as the reference's
+    resolution gives there), then over the shard devices [cuda:0] * nx
+    for nx = 2 and 4: CAVLC and CABAC with device binarization, deblock
+    on, per frame and in a chunk-of-4 ring, the served tune tier, and a
+    masked run on the damage frames — every stream byte-equal to the
+    unsharded encoder's, one decoded by cv2.  Then 15e, 13s and K5p
+    against their plain versions at 1080p shapes, one IDR of 15f, one P
+    frame of 15g (and of the masked 15g) and one chunk of 15h against
+    the plain steps, 15h's replay against its eager body, and frames/s
+    and p50 at nx = 1, 2, 4."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (damage_mask, devloop,
+                                                         h264_inter)
+    from docker_nvidia_glx_desktop_tpu_torch.parallel import batch
+    from docker_nvidia_glx_desktop_tpu_torch.utils.hostcolor import (
+        rgb_to_yuv420_host)
+
+    rep = report["spatial"] = {}
+    t_phase = time.perf_counter()
+    dev = torch.device(SP_DEVICE)
+    hp = -(-H // 16) * 16
+    frames = gop_frames(SP_FRAMES, seed=21)
+
+    # -- the repair: the knob on one card (the default shard devices) ------------
+    from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    one, _ = make_encoder(from_env(spatial_env(2)), W, H, device=dev)
+    check(one._spatial_nx == 1 and len(one.spatial_devices) == 1,
+          f"ENCODER_SPATIAL_SHARDS=2 on one card resolved {one._spatial_nx} "
+          f"shards over {one.spatial_devices}")
+    plain_enc, _ = make_encoder(from_env(spatial_env(1)), W, H, device=dev)
+    check(drive(one, frames[:3])[1] == drive(plain_enc, frames[:3])[1],
+          "ENCODER_SPATIAL_SHARDS=2 on one card: AUs differ from the knob off")
+    print("spatial: ENCODER_SPATIAL_SHARDS=2 on one card serves unsharded "
+          "(one shard device), its AUs equal to the knob off")
+
+    # -- main path: every configuration, counted -----------------------------
+    named = {"halo_pad": batch.spatial_halo_pad,
+             "force_skip": damage_mask.force_skip_rows,
+             "inter_padded": h264_inter.encode_p_frame_padded_ref,
+             "h264_sp_intra": batch.SpatialIntraStep,
+             "h264_sp_p": batch.SpatialPStep,
+             "h264_sp_chunk": devloop.ChunkStep.spatial}
+    zero_counts(named)
+    runs, masked_calls = {}, []
+    dmg_frames = damage_frames(DAMAGE_FRAMES)
+    for nx in SP_NX:
+        runs[f"cavlc{nx}"] = spatial_run(nx, frames)
+        runs[f"ring{nx}"] = spatial_run(nx, frames, ENCODER_SUPERSTEP_CHUNK="4")
+        runs[f"cabac{nx}"] = spatial_run(
+            nx, frames, {"ENCODER_CABAC_BINARIZE": "device"},
+            ENCODER_ENTROPY="cabac")
+    runs["cabac_ring2"] = spatial_run(
+        2, frames, {"ENCODER_CABAC_BINARIZE": "device"},
+        ENCODER_ENTROPY="cabac", ENCODER_SUPERSTEP_CHUNK="4")
+    runs["hq2"] = spatial_run(2, frames, ENCODER_TUNE="hq")
+
+    # the masked run records its P steps' calls
+    os.environ["DNGD_DAMAGE_MASK"] = "true"
+    try:
+        menc = spatial_encoder(2, ENCODER_GOP=str(DAMAGE_FRAMES))
+        orig = menc._sp_step
+
+        def recorded(kind, qp):
+            st = orig(kind, qp)
+            return StepRecorder(st, masked_calls) if kind == "p_masked" else st
+
+        menc._sp_step = recorded
+        m_aus = drive(menc, dmg_frames)[1]
+        mtwin = spatial_encoder(1, ENCODER_GOP=str(DAMAGE_FRAMES))
+        m_want = drive(mtwin, dmg_frames)[1]
+    finally:
+        os.environ.pop("DNGD_DAMAGE_MASK", None)
+    runs["masked2"] = (menc, m_aus, m_want)
+    torch.cuda.synchronize()
+    launches = path_launches(named)
+    print(f"spatial main: {W}x{H}, nx {SP_NX}, {len(runs)} streams; launches "
+          f"{launches}")
+    for name, (enc, aus, want) in runs.items():
+        check(len(aus) == len(want) and aus == want,
+              f"spatial {name}: AUs differ from the unsharded encoder's")
+    check(all(launches[k] > 0 for k in named), f"spatial: a kernel of the path "
+          f"was not launched: {launches}")
+    check(len(masked_calls) >= 2, f"spatial masked: {len(masked_calls)} masked P "
+          "steps (the gate never ran)")
+    n_dec = decoded_frames(runs["cavlc4"][1])
+    check(n_dec in (-1, SP_FRAMES), f"spatial: cv2 decoded {n_dec} of "
+          f"{SP_FRAMES} frames")
+    print(f"(b) spatial: {len(runs)} sharded streams (CAVLC and CABAC-device at "
+          f"nx {SP_NX}, per frame and in chunk-4 rings, hq_noaq, masked) "
+          f"byte-equal to the unsharded encoder's; cv2 decoded {n_dec} frames "
+          "of the nx=4 stream")
+
+    # -- 15e, 13s and K5p against their plain versions at 1080p ------------------
+    penc = runs["cavlc2"][0]
+    ry, rcb, rcr = (p.clone() for p in penc._ref)
+    cpu = lambda t: t.cpu()
+    e15e = 0.0
+    for nx in SP_NX:
+        for halo in (True, False):
+            got = batch.spatial_halo_pad(ry, rcb, rcr, nx, halo)
+            want = batch.spatial_halo_pad_plain(cpu(ry), cpu(rcb), cpu(rcr), nx,
+                                                halo)
+            e15e = max(e15e, max_diff(zip(got, want)))
+    check(e15e == 0, f"15e differs from its plain version by {e15e}")
+    nx = 2
+    pads = batch.spatial_halo_pad(ry, rcb, rcr, nx)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    y, cb, cr = (up(p) for p in rgb_to_yuv420_host(frames[-1], hp, W))
+    sv = lambda t: t.view((nx, t.shape[0] // nx) + tuple(t.shape[1:]))
+    qp = 26
+    e5p = 0.0
+    for tune, p_intra in (("off", False), ("hq_noaq", False), ("hq", True)):
+        got = h264_inter.encode_p_frame_padded_ref(
+            sv(y), sv(cb), sv(cr), *pads, qp, tune=tune, p_intra=p_intra)
+        qmap = got.get("qp_map")
+        want = [h264_inter.encode_p_frame_padded_ref_plain(
+            cpu(sv(y)[s]), cpu(sv(cb)[s]), cpu(sv(cr)[s]),
+            *(cpu(p[s]) for p in pads), qp, tune,
+            None if qmap is None else cpu(qmap[s]), p_intra) for s in range(nx)]
+        e5p = max(e5p, max_diff((got[k][s], want[s][k]) for k in want[0]
+                                for s in range(nx)))
+    check(e5p == 0, f"K5p differs from its plain version by {e5p}")
+    core = h264_inter.encode_p_frame_padded_ref(sv(y), sv(cb), sv(cr), *pads, qp)
+    out = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in core.items()}
+    keep = torch.tensor([(r // 3) % 2 == 0 for r in range(hp // 16)],
+                        device=dev)
+    got = damage_mask.force_skip_rows({k: v.clone() for k, v in out.items()},
+                                      keep, ry, rcb, rcr)
+    want = damage_mask.force_skip_rows_plain(
+        {k: cpu(v) for k, v in out.items()}, cpu(keep), cpu(ry), cpu(rcb),
+        cpu(rcr))
+    e13s = max_diff((got[k], want[k]) for k in want)
+    check(e13s == 0, f"13s differs from its plain version by {e13s}")
+    print(f"(a) spatial: 15e (nx {SP_NX}, halo on and off), K5p (tune off, "
+          "hq_noaq, hq with I16-in-P) and 13s equal to their plain versions "
+          "at 1080p")
+
+    # -- 15f, 15g (and masked) and 15h against the plain steps -------------------
+    mesh = batch.make_spatial_mesh(nx, [dev] * nx)
+    hv_i, hl_i = penc._sp_hdr_slots(True, 0, 1, 0)
+    hv_p, hl_p = penc._sp_hdr_slots(False, 1, 0, 0)
+    istep, _ = batch.h264_spatial_intra_step(mesh, hp, W, qp, deblock=True)
+    pstep, _ = batch.h264_spatial_step(mesh, hp, W, qp, deblock=True)
+    t0 = time.perf_counter()
+    iw = batch.h264_spatial_intra_plain(y, cb, cr, hv_i, hl_i, qp, nx,
+                                        deblock=True)
+    f_plain = (time.perf_counter() - t0) * 1e3
+    ig = istep(y, cb, cr, hv_i, hl_i)
+    e15f = max_diff(zip(ig, iw))
+    check(e15f == 0, f"15f differs from the plain step by {e15f}")
+    t0 = time.perf_counter()
+    pw = batch.h264_spatial_p_plain(y, cb, cr, ry, rcb, rcr, hv_p, hl_p, qp, nx,
+                                    deblock=True)
+    g_plain = (time.perf_counter() - t0) * 1e3
+    pg = pstep(y, cb, cr, ry, rcb, rcr, hv_p, hl_p)
+    e15g = max(max_diff(zip(pg[:5], pw[:5])),
+               max_diff((pg[5][k], pw[5][k]) for k in pw[5]))
+    check(e15g == 0, f"15g differs from the plain step by {e15g}")
+    mc = masked_calls[len(masked_calls) // 2]
+    mw = batch.h264_spatial_p_plain(*mc["args"][:8], mc["qp"], nx,
+                                    deblock=True, keep=mc["args"][8])
+    e15m = max(max_diff(zip(mc["out"], mw[:5])),
+               max_diff((mc["levels"][k], mw[5][k]) for k in mw[5]))
+    check(e15m == 0, f"the masked 15g differs from the plain step by {e15m}")
+    check(not bool(mc["args"][8].all()), "the checked masked step gated no row")
+
+    class Holder:
+        released = False
+
+    K = 4
+    cstep = batch.h264_spatial_chunk_step(mesh, hp, W, K, deblock=True)
+    kframes = [rgb_to_yuv420_host(f, hp, W) for f in frames[1:1 + K]]
+    khv, khl = penc._chunk_hdr_slots(tuple(range(1, K + 1)), 0)
+    holder = Holder()
+    devloop.ChunkStep.spatial.launches = 0
+    hout = cstep(kframes, (ry, rcb, rcr), khv, khl, None, qp, owner=holder)
+    check(devloop.ChunkStep.spatial.launches == 1 and cstep.instances,
+          "15h: the chunk did not replay a captured graph")
+    eout = cstep.run_eager(kframes, (ry, rcb, rcr), khv, khl, None, qp)
+    e_rep = max(max_diff(zip(hout.flats, eout.flats)),
+                max_diff(zip(hout.refs, eout.refs)),
+                max_diff([(hout.mvs, eout.mvs)]),
+                max_diff((hout.lvs[k], eout.lvs[k]) for k in eout.lvs))
+    check(e_rep == 0, f"15h's replay differs from its eager body by {e_rep}")
+    t0 = time.perf_counter()
+    ref = (ry, rcb, rcr)
+    chain = []
+    for k in range(K):
+        kp = [up(a) for a in kframes[k]]
+        f, *ref = batch.h264_spatial_p_plain(*kp, *ref, khv[k], khl[k], qp, nx,
+                                             deblock=True)[:4]
+        chain.append(f)
+    h_plain = (time.perf_counter() - t0) * 1e3
+    e15h = max(max_diff(zip(hout.flats, chain)), max_diff(zip(hout.refs, ref)))
+    check(e15h == 0, f"15h differs from the plain 15g chain by {e15h}")
+    print("(a) spatial: one IDR of 15f, one P frame of 15g and of the masked "
+          f"15g, and a chunk of {K} of 15h equal to the plain steps; 15h's "
+          "replay equal to its eager body")
+
+    # -- times against bounds ----------------------------------------------------
+    nmb = (hp // 16) * (W // 16)
+    flat_used = lambda flats: sum(
+        4096 + 4 * batch_meta_words(f) for f in flats.reshape(-1, flats.shape[-1]))
+    t0 = time.perf_counter()
+    batch.spatial_halo_pad_plain(cpu(ry), cpu(rcb), cpu(rcr), nx)
+    pad_plain = (time.perf_counter() - t0) * 1e3
+    pad_ms = graph_ms(lambda: batch.spatial_halo_pad(ry, rcb, rcr, nx))
+    k5p_ms = cuda_ms(lambda: h264_inter.encode_p_frame_padded_ref(
+        sv(y), sv(cb), sv(cr), *pads, qp), reps=10)
+    k5_ms = cuda_ms(lambda: h264_inter.encode_p_frame(y, cb, cr, ry, rcb, rcr, qp),
+                    reps=10)
+    t0 = time.perf_counter()
+    for s in range(nx):
+        h264_inter.encode_p_frame_padded_ref_plain(
+            cpu(sv(y)[s]), cpu(sv(cb)[s]), cpu(sv(cr)[s]),
+            *(cpu(p[s]) for p in pads), qp)
+    k5p_plain = (time.perf_counter() - t0) * 1e3
+    gate = {k: v.clone() for k, v in out.items()}
+    fs_ms = graph_ms(lambda: damage_mask.force_skip_rows(gate, keep, ry, rcb, rcr))
+    t0 = time.perf_counter()
+    damage_mask.force_skip_rows_plain({k: cpu(v) for k, v in out.items()},
+                                      cpu(keep), cpu(ry), cpu(rcb), cpu(rcr))
+    fs_plain = (time.perf_counter() - t0) * 1e3
+    frac = float((~keep).float().mean())
+    lv_bytes = nbytes(*(out[k] for k in ("mv", "luma", "cb_dc", "cb_ac",
+                                         "cr_dc", "cr_ac")))
+    fs_bytes = frac * (lv_bytes + 2 * nbytes(ry, rcb, rcr)) + keep.numel()
+    f_ms = cuda_ms(lambda: istep(y, cb, cr, hv_i, hl_i), reps=10)
+    g_ms = cuda_ms(lambda: pstep(y, cb, cr, ry, rcb, rcr, hv_p, hl_p), reps=10)
+    inst = cstep.instances[0]
+    h_ms = cuda_ms(inst.graph.replay, reps=10)
+    he_ms = cuda_ms(lambda: cstep.run_eager(kframes, (ry, rcb, rcr), khv, khl,
+                                            None, qp), reps=3)
+    holder.released = True
+    rows = [
+        kernel_row("halo_pad", "spatial.cu", "parallel/batch.py:609 "
+                   f"_spatial_halo_pad (nx={nx}, 1080p, graph replay)",
+                   launches["halo_pad"],
+                   e15e, pad_ms, pad_plain, nbytes(ry, rcb, rcr) + nbytes(*pads)),
+        kernel_row("force_skip", "spatial.cu", "damage_mask.py:312 "
+                   f"force_skip_rows (1080p, {frac:.2f} of the rows gated, "
+                   "graph replay)",
+                   launches["force_skip"], e13s, fs_ms, fs_plain, fs_bytes),
+        kernel_row("inter_padded", "inter.cu", "h264_inter.py:300 "
+                   f"encode_p_frame_padded_ref (nx={nx} shards, 1080p)",
+                   launches["inter_padded"], e5p, k5p_ms, k5p_plain,
+                   nbytes(y, cb, cr, *pads) + nbytes(*(core[k] for k in core)),
+                   k5_ops(nmb)),
+        kernel_row("h264_sp_intra", "", "parallel/batch.py:651 "
+                   f"h264_spatial_intra_step (nx={nx}, CAVLC, deblock)",
+                   launches["h264_sp_intra"], e15f, f_ms, f_plain,
+                   nbytes(y, cb, cr, *ig[1:]) + flat_used(ig[0])),
+        kernel_row("h264_sp_p", "", "parallel/batch.py:829 h264_spatial_step "
+                   f"(nx={nx}, CAVLC, deblock; max_abs_err also the masked "
+                   "form's)", launches["h264_sp_p"], max(e15g, e15m), g_ms,
+                   g_plain, nbytes(y, cb, cr, ry, rcb, rcr, *pg[1:4])
+                   + flat_used(pg[0]), k5_ops(nmb)),
+        kernel_row("h264_sp_chunk", "", "parallel/batch.py:908 "
+                   f"h264_spatial_chunk_step (nx={nx}, K={K}, graph replay; "
+                   "plain: the plain 15g chain)", launches["h264_sp_chunk"],
+                   max(e15h, e_rep), h_ms, h_plain,
+                   nbytes(*(up(a) for fr in kframes for a in fr), ry, rcb, rcr,
+                          *hout.refs) + flat_used(torch.stack(hout.flats)),
+                   K * k5_ops(nmb))]
+    for r in rows[3:]:
+        r["source"] = "docker_nvidia_glx_desktop_tpu_torch/parallel/batch.py"
+    card = smi_line()
+    for r in rows:
+        print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
+              f"{r['launches']} launches on its path; max abs err "
+              f"{r['max_abs_err']}) [{card}]")
+    print(f"spatial: K5p over {nx} shards {k5p_ms:.4f} ms against K5 on the "
+          f"frame {k5_ms:.4f} ms; 15h replay {h_ms:.4f} ms against its eager "
+          f"body {he_ms:.4f} ms [{card}]")
+    rep.update(k5p_ms=k5p_ms, k5_ms=k5_ms, replay_ms=h_ms, eager_ms=he_ms)
+
+    # -- frames/s and p50 at nx = 1, 2, 4 ------------------------------------
+    tframes = gop_frames(SP_TIMED_FRAMES, seed=22)
+    timed = {1: [], 2: [], 4: []}
+    for r in range(SP_TIMED_ROUNDS):
+        for n in ((1, 2, 4) if r % 2 == 0 else (4, 2, 1)):
+            timed[n].append(spatial_timed(n, tframes))
+    rep["timed"] = timed
+    for n, runs_n in timed.items():
+        print(f"spatial timed nx={n}: " + "; ".join(
+            f"{t['fps']:.1f} frames/s, p50 {t['p50_ms']:.2f} ms" for t in runs_n)
+            + f" ({SP_TIMED_FRAMES} frames, 2 in flight, host clock) [{card}]")
+    rep.update(launches=launches, phase_s=time.perf_counter() - t_phase)
+    return rows
+
+
+def batch_meta_words(flat) -> int:
+    """A flat buffer's total_words (its META word 1, big-endian)."""
+    b = flat[4:8].cpu().numpy().astype(int)
+    return int((b[0] << 24) | (b[1] << 16) | (b[2] << 8) | b[3])
+
+
+def spatial_timed(nx: int, frames) -> dict:
+    """One timed run: make_encoder at 1080p (GOP 60, CAVLC, deblock, rate
+    control) over [cuda:0] * nx, two frames in flight; frames/s over the
+    run and the p50 of submit-to-collect, host clock."""
+    enc = spatial_encoder(nx, ENCODER_GOP="60")
+    drive(enc, frames[:2])
+    import torch
+
+    torch.cuda.synchronize()
+    lat, pend = [], []
+    t0 = time.perf_counter()
+    for f in frames:
+        pend.append((time.perf_counter(), enc.encode_submit(f)))
+        if len(pend) >= 2:
+            ts, tok = pend.pop(0)
+            enc.encode_collect(tok)
+            lat.append(time.perf_counter() - ts)
+    for ts, tok in pend:
+        enc.encode_collect(tok)
+        lat.append(time.perf_counter() - ts)
+    wall = time.perf_counter() - t0
+    return {"fps": len(frames) / wall, "p50_ms": statistics.median(lat) * 1e3}
 
 
 def main():

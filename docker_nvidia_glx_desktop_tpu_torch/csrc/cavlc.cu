@@ -476,7 +476,7 @@ __global__ void p_slots_kernel(PLevels L, const int* info, int* values, int* len
 __global__ void qp_chain_kernel(const int* __restrict__ qp_map, const uint8_t* __restrict__ flag,
                                 const int* __restrict__ info, int* vals, int* lens, int* qp_sum,
                                 const int* __restrict__ qp_dev, int nr, int nc, int slice_qp,
-                                int kind) {
+                                int kind, int rows_per_sum) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
   if (row >= nr) return;                  // whole warps: blockDim is a multiple of 32
   const int sq = qp_dev ? *qp_dev : slice_qp;
@@ -514,7 +514,7 @@ __global__ void qp_chain_kernel(const int* __restrict__ qp_map, const uint8_t* _
     lens[(row * nc + c) * stride + slot] = cd ? l : 0;
   }
   for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  if (lane == 0) atomicAdd(qp_sum, sum);
+  if (lane == 0) atomicAdd(qp_sum + row / rows_per_sum, sum);
 }
 
 }  // namespace
@@ -592,18 +592,19 @@ extern "C" int cavlc_p_slots_i_launch(const int* mv, const int* luma, const int*
 
 // After the slot coder of `kind` (0 intra, 1 P) on the same stream and
 // scratch: flag is mb_i4 (intra) or mb_intra (P, may be null); vals/lens
-// the MB syntax or header slots; qp_sum one int; qp_dev the slice qp on
-// the card, or null for slice_qp.
+// the MB syntax or header slots; qp_sum nsum ints, the sum of each of nsum
+// equal bands of rows (the spatial shards'; 1 = the frame's); qp_dev the
+// slice qp on the card, or null for slice_qp.
 extern "C" int cavlc_qp_chain_launch(const int* qp_map, const uint8_t* flag, const int* scratch,
                                      int* vals, int* lens, int* qp_sum, const int* qp_dev,
-                                     int nr, int nc, int slice_qp, int kind,
+                                     int nr, int nc, int slice_qp, int kind, int nsum,
                                      cudaStream_t stream) {
   if (nr <= 0 || nc <= 0) return 0;
-  if (!kind && !flag) return cudaErrorInvalidValue;
+  if ((!kind && !flag) || nsum <= 0 || nr % nsum) return cudaErrorInvalidValue;
   int e;
-  if ((e = cudaMemsetAsync(qp_sum, 0, sizeof(int), stream))) return e;
+  if ((e = cudaMemsetAsync(qp_sum, 0, nsum * sizeof(int), stream))) return e;
   const int threads = 128, rows_per_block = threads / 32;
   qp_chain_kernel<<<(nr + rows_per_block - 1) / rows_per_block, threads, 0, stream>>>(
-      qp_map, flag, scratch, vals, lens, qp_sum, qp_dev, nr, nc, slice_qp, kind);
+      qp_map, flag, scratch, vals, lens, qp_sum, qp_dev, nr, nc, slice_qp, kind, nr / nsum);
   return dngd_last_error();
 }

@@ -43,6 +43,17 @@
 // this kernel) scored against the inter score this kernel leaves, then
 // per MB row the run-parity gate (one warp a row, a cummax scan) and a
 // block per MB merging the kept candidates' levels, MVs and recon.
+//
+// K5p, the padded-reference form (the PAD template flag), replaces
+// docker_nvidia_glx_desktop_tpu/ops/h264_inter.py:300
+// encode_p_frame_padded_ref as the spatial shards call it
+// (parallel/batch.py:756): each shard's reference arrives padded by _PAD
+// = WO pels on every side (csrc/spatial.cu's halo pad: the neighbour
+// shard's rows at a seam, edge copies at the frame's edges), so the
+// window and the chroma taps read the padded plane at +WO with no clamp.
+// The grid covers all shards' MBs as one frame's (a shard's rows are
+// frame rows s*nr .. s*nr + nr - 1), so only the reference pointer
+// depends on the shard; every tier comes with it.
 #include <type_traits>
 
 #include "common.cuh"
@@ -289,7 +300,7 @@ __device__ void hq_residual(S& s, int mb, int orow, int c, int W, int Wc, int qm
   }
 }
 
-template <int TIER, bool SESS = false>
+template <int TIER, bool SESS = false, bool PAD = false>
 __global__ void __launch_bounds__(NT) inter_frame_kernel(
     const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
     const uint8_t* __restrict__ cr, const uint8_t* __restrict__ ref_y,
@@ -328,6 +339,17 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
   // mb: the output MB (compacted order); r: the frame MB row it encodes
   const int mb = blockIdx.x, orow = mb / nc, c = mb % nc;
   const int r = rows ? rows[orow] : orow;
+  // PAD: the grid covers the shards' rows as one frame's (nr rows a
+  // shard); frame row r is row pr of its shard, whose padded references
+  // follow the previous shard's
+  int pr = r;
+  if constexpr (PAD) {
+    const int sh = r / nr;
+    pr = r - sh * nr;
+    ref_y += (size_t)sh * (nr * 16 + 2 * WO) * (nc * 16 + 2 * WO);
+    ref_cb += (size_t)sh * (nr * 8 + 2 * WO) * (nc * 8 + 2 * WO);
+    ref_cr += (size_t)sh * (nr * 8 + 2 * WO) * (nc * 8 + 2 * WO);
+  }
   if (qp_dev) {
     qp = *qp_dev;
     qpc = dngd_chroma_qp(qp);
@@ -345,9 +367,14 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
 
   for (int k = t; k < WIN * WIN; k += NT) {
     const int u = k / WIN, v = k % WIN;
-    const int gy = min(max(r * 16 - WO + u, 0), H - 1);
-    const int gx = min(max(c * 16 - WO + v, 0), W - 1);
-    s.win[u][v] = ref_y[gy * W + gx];
+    if constexpr (PAD) {
+      // padded row pr*16 + u is the shard's row pr*16 - WO + u
+      s.win[u][v] = ref_y[(size_t)(pr * 16 + u) * (W + 2 * WO) + c * 16 + v];
+    } else {
+      const int gy = min(max(r * 16 - WO + u, 0), H - 1);
+      const int gx = min(max(c * 16 - WO + v, 0), W - 1);
+      s.win[u][v] = ref_y[gy * W + gx];
+    }
   }
   s.cur[t] = y[(r * 16 + (t >> 4)) * W + c * 16 + (t & 15)];
   if (t < 128) {
@@ -433,12 +460,22 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
     const int p = t >> 6, k = t & 63, i = k >> 3, j = k & 7;
     const uint8_t* rp = p ? ref_cr : ref_cb;
     const int yf = mvy & 7, xf = mvx & 7;
-    const int y0 = min(max(r * 8 + (mvy >> 3) + i, 0), Hc - 1);
-    const int y1 = min(max(r * 8 + (mvy >> 3) + i + 1, 0), Hc - 1);
-    const int x0 = min(max(c * 8 + (mvx >> 3) + j, 0), Wc - 1);
-    const int x1 = min(max(c * 8 + (mvx >> 3) + j + 1, 0), Wc - 1);
-    s.predc[p][k] = ((8 - xf) * (8 - yf) * rp[y0 * Wc + x0] + xf * (8 - yf) * rp[y0 * Wc + x1] +
-                     (8 - xf) * yf * rp[y1 * Wc + x0] + xf * yf * rp[y1 * Wc + x1] + 32) >> 6;
+    int y0, y1, x0, x1, ws;
+    if constexpr (PAD) {
+      y0 = pr * 8 + (mvy >> 3) + i + WO;
+      x0 = c * 8 + (mvx >> 3) + j + WO;
+      y1 = y0 + 1;
+      x1 = x0 + 1;
+      ws = Wc + 2 * WO;
+    } else {
+      y0 = min(max(r * 8 + (mvy >> 3) + i, 0), Hc - 1);
+      y1 = min(max(r * 8 + (mvy >> 3) + i + 1, 0), Hc - 1);
+      x0 = min(max(c * 8 + (mvx >> 3) + j, 0), Wc - 1);
+      x1 = min(max(c * 8 + (mvx >> 3) + j + 1, 0), Wc - 1);
+      ws = Wc;
+    }
+    s.predc[p][k] = ((8 - xf) * (8 - yf) * rp[y0 * ws + x0] + xf * (8 - yf) * rp[y0 * ws + x1] +
+                     (8 - xf) * yf * rp[y1 * ws + x0] + xf * yf * rp[y1 * ws + x1] + 32) >> 6;
   }
   __syncthreads();
 
@@ -754,6 +791,41 @@ extern "C" int inter_frame_hq_launch(const uint8_t* y, const uint8_t* cb, const 
   } else if (tier == 1) {
     inter_frame_kernel<1><<<nr * nc, NT, 0, stream>>>(
         y, cb, cr, ref_y, ref_cb, ref_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
+        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return dngd_last_error();
+}
+
+// K5p: the P core over ns shards of nr MB rows each, every shard's
+// references padded by WO (pad_y (ns, 16 nr + 2 WO, 16 nc + 2 WO), chroma
+// (ns, 8 nr + 2 WO, 8 nc + 2 WO)); planes, outputs and qp_map stacked as
+// one frame of ns * nr MB rows.  tier 0 (tune=off), 1 (hq_noaq) or 2 (hq: qp_map the
+// stacked qp plane); lam/marg/score as inter_frame_hq_launch's (null at
+// tier 0).
+extern "C" int inter_frame_padded_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
+                                         const uint8_t* pad_y, const uint8_t* pad_cb,
+                                         const uint8_t* pad_cr, const int* qp_dev,
+                                         const int* qp_map, const float* lam, const int* marg,
+                                         int* mv, int* luma, int* cb_dc, int* cb_ac, int* cr_dc,
+                                         int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr,
+                                         float* score, int nr, int nc, int qp, int qpc, int tier,
+                                         int ns, cudaStream_t stream) {
+  if (nr <= 0 || nc <= 0 || ns <= 0) return 0;
+  const int grid = ns * nr * nc;
+  if (tier == 0) {
+    inter_frame_kernel<0, false, true><<<grid, NT, 0, stream>>>(
+        y, cb, cr, pad_y, pad_cb, pad_cr, nullptr, qp_dev, nullptr, nullptr, nullptr, nullptr,
+        mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+  } else if (tier == 1) {
+    inter_frame_kernel<1, false, true><<<grid, NT, 0, stream>>>(
+        y, cb, cr, pad_y, pad_cb, pad_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
+        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+  } else if (tier == 2) {
+    if (!qp_map) return cudaErrorInvalidValue;
+    inter_frame_kernel<2, false, true><<<grid, NT, 0, stream>>>(
+        y, cb, cr, pad_y, pad_cb, pad_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
         cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
   } else {
     return cudaErrorInvalidValue;

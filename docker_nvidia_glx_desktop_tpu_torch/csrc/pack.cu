@@ -72,8 +72,10 @@ struct Scratch {
 // Sessions: the SESS instantiations take the session from blockIdx.y (the
 // one-thread meta kernel: blockIdx.x); a session's slots, runs, flat
 // buffer and scratch follow the previous session's, the slice-header slots
-// are shared (one geometry).  One session launches the !SESS
-// instantiations, the kernels as they were before the session axis.
+// are shared (one geometry) or, with hdr_step = nr * HDR, stacked too (the
+// spatial shards: each shard's rows carry their own first_mb_in_slice).
+// One session launches the !SESS instantiations, the kernels as they were
+// before the session axis.
 
 __device__ __forceinline__ unsigned bswap(unsigned x) { return __byte_perm(x, 0, 0x0123); }
 
@@ -109,13 +111,14 @@ __global__ void mb_bits_kernel(const int* lengths, const int* syn_lens, Scratch 
 // run_lens: each row's trailing skip-run piece after its MBs (P), or null
 template <bool SESS>
 __global__ void row_scan_kernel(const int* hdr_lens, const int* run_lens, Scratch S, int nr,
-                                int nc) {
+                                int nc, int hdr_step) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= nr) return;
   if constexpr (SESS) {
     const size_t sess = blockIdx.y;
     S = S.at(sess * Scratch::words(nr * nc, nr));
     if (run_lens) run_lens += sess * nr;
+    hdr_lens += sess * hdr_step;
   }
   int off = hdr_lens[r * HDR] + hdr_lens[r * HDR + 1] + hdr_lens[r * HDR + 2];
   for (int c = 0; c < nc; ++c) {
@@ -171,7 +174,7 @@ template <class Y, bool SESS>
 __global__ void scatter_kernel(const int* values, const int* lengths, const int* syn_vals,
                                const int* syn_lens, const int* hdr_vals, const int* hdr_lens,
                                const int* run_vals, const int* run_lens, Scratch S,
-                               uint8_t* flat, int nr, int nc) {
+                               uint8_t* flat, int nr, int nc, int hdr_step) {
   const int nmb = nr * nc, np = Y::pieces;
   if constexpr (SESS) {
     const size_t sess = blockIdx.y;
@@ -185,6 +188,8 @@ __global__ void scatter_kernel(const int* values, const int* lengths, const int*
       run_vals += sess * nr;
       run_lens += sess * nr;
     }
+    hdr_vals += sess * hdr_step;
+    hdr_lens += sess * hdr_step;
   }
   unsigned* words = reinterpret_cast<unsigned*>(flat) + META_WORDS;
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -222,21 +227,21 @@ template <class Y, bool SESS>
 int pack_kernels(const int* values, const int* lengths, const int* syn_vals, const int* syn_lens,
                  const int* run_vals, const int* run_lens, const int* hdr_vals,
                  const int* hdr_lens, uint8_t* flat, const Scratch& S, const int* qp_sum, int nr,
-                 int nc, int ns, cudaStream_t stream) {
+                 int nc, int ns, int hdr_step, cudaStream_t stream) {
   const int nmb = nr * nc;
   int e;
   mb_bits_kernel<Y, SESS><<<dim3((nmb + 127) / 128, ns), 128, 0, stream>>>(lengths, syn_lens,
                                                                             S, nmb, nr);
   if ((e = dngd_last_error())) return e;
   row_scan_kernel<SESS><<<dim3((nr + 63) / 64, ns), 64, 0, stream>>>(hdr_lens, run_lens, S, nr,
-                                                                      nc);
+                                                                      nc, hdr_step);
   if ((e = dngd_last_error())) return e;
   meta_kernel<SESS><<<ns, 1, 0, stream>>>(S, flat, nr, nc, qp_sum);
   if ((e = dngd_last_error())) return e;
   const int n = nmb * (Y::blocks + 1) + nr;
   scatter_kernel<Y, SESS><<<dim3((n + 127) / 128, ns), 128, 0, stream>>>(
       values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens, run_vals, run_lens, S, flat, nr,
-      nc);
+      nc, hdr_step);
   return dngd_last_error();
 }
 
@@ -244,7 +249,7 @@ template <class Y>
 int pack_launch(const int* values, const int* lengths, const int* syn_vals, const int* syn_lens,
                 const int* run_vals, const int* run_lens, const int* hdr_vals,
                 const int* hdr_lens, uint8_t* flat, int* scratch, const int* qp_sum, int nr,
-                int nc, int ns, cudaStream_t stream) {
+                int nc, int ns, int hdr_sess, cudaStream_t stream) {
   const int nmb = nr * nc;
   if (nmb <= 0 || ns <= 0 || nr > MAX_META_ROWS) return cudaErrorInvalidValue;
   const Scratch S(scratch, nmb, nr);
@@ -253,26 +258,28 @@ int pack_launch(const int* values, const int* lengths, const int* syn_vals, cons
   if (ns == 1) {
     if ((e = cudaMemsetAsync(S.flags, 0, 8 * sizeof(int), stream))) return e;
     return pack_kernels<Y, false>(values, lengths, syn_vals, syn_lens, run_vals, run_lens,
-                                  hdr_vals, hdr_lens, flat, S, qp_sum, nr, nc, 1, stream);
+                                  hdr_vals, hdr_lens, flat, S, qp_sum, nr, nc, 1, 0, stream);
   }
   // each session's overflow flags: a strided column of the stack
   const size_t per = Scratch::words(nmb, nr) * sizeof(int);
   if ((e = cudaMemset2DAsync(S.flags, per, 0, 8 * sizeof(int), ns, stream))) return e;
   return pack_kernels<Y, true>(values, lengths, syn_vals, syn_lens, run_vals, run_lens,
-                               hdr_vals, hdr_lens, flat, S, qp_sum, nr, nc, ns, stream);
+                               hdr_vals, hdr_lens, flat, S, qp_sum, nr, nc, ns,
+                               hdr_sess ? nr * HDR : 0, stream);
 }
 
 }  // namespace
 
 // qp_sum: one int per session on the card (tune=hq) or null.  ns:
 // sessions (1 = one frame): slots, runs, flats (FLAT_BYTES each), qp sums
-// and scratches (Scratch::words each) stacked; one header-slot set.
+// and scratches (Scratch::words each) stacked; one header-slot set, or
+// (hdr_sess) one per session, stacked.
 extern "C" int pack_frame_launch(const int* values, const int* lengths, const int* syn_vals,
                                  const int* syn_lens, const int* hdr_vals, const int* hdr_lens,
                                  uint8_t* flat, int* scratch, const int* qp_sum, int nr, int nc,
-                                 int ns, cudaStream_t stream) {
+                                 int ns, int hdr_sess, cudaStream_t stream) {
   return pack_launch<ILayout>(values, lengths, syn_vals, syn_lens, nullptr, nullptr, hdr_vals,
-                              hdr_lens, flat, scratch, qp_sum, nr, nc, ns, stream);
+                              hdr_lens, flat, scratch, qp_sum, nr, nc, ns, hdr_sess, stream);
 }
 
 // nb: blocks per MB, 26, or 27 with the I16-in-P DC block.
@@ -280,11 +287,12 @@ extern "C" int pack_p_frame_launch(const int* values, const int* lengths, const 
                                    const int* mbh_lens, const int* run_vals, const int* run_lens,
                                    const int* hdr_vals, const int* hdr_lens, uint8_t* flat,
                                    int* scratch, const int* qp_sum, int nr, int nc, int nb,
-                                   int ns, cudaStream_t stream) {
+                                   int ns, int hdr_sess, cudaStream_t stream) {
   if (nb == 27)
     return pack_launch<PILayout>(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
-                                 hdr_vals, hdr_lens, flat, scratch, qp_sum, nr, nc, ns, stream);
+                                 hdr_vals, hdr_lens, flat, scratch, qp_sum, nr, nc, ns,
+                                 hdr_sess, stream);
   if (nb != 26) return cudaErrorInvalidValue;
   return pack_launch<PLayout>(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens, hdr_vals,
-                              hdr_lens, flat, scratch, qp_sum, nr, nc, ns, stream);
+                              hdr_lens, flat, scratch, qp_sum, nr, nc, ns, hdr_sess, stream);
 }

@@ -5,12 +5,15 @@ from .h264 import H264Encoder, resolve_device  # noqa: F401
 from .mjpeg import JpegEncoder  # noqa: F401
 
 
-def make_encoder(cfg, width: int, height: int, device=None):
+def make_encoder(cfg, width: int, height: int, device=None,
+                 spatial_devices=None):
     """Codec from the config surface (WEBRTC_ENCODER + ENCODER_* knobs),
     on the card unless ``device`` says otherwise.  Returns (encoder,
     codec_name).  ``tpuh264enc`` with device (CAVLC) or CABAC entropy and
     ``tpumjpegenc`` are ported; ``tpuvp8enc`` and the other entropy
-    modes raise NotImplementedError."""
+    modes raise NotImplementedError.  ``spatial_devices``: the devices
+    ``ENCODER_SPATIAL_SHARDS`` counts and shards over (see
+    :class:`H264Encoder`)."""
     codec = cfg.codec
     if codec == "tpuh264enc":
         entropy = cfg.encoder_entropy
@@ -26,7 +29,7 @@ def make_encoder(cfg, width: int, height: int, device=None):
                           spatial_shards=getattr(
                               cfg, "encoder_spatial_shards", None),
                           tune=getattr(cfg, "encoder_tune", None),
-                          device=device)
+                          device=device, spatial_devices=spatial_devices)
         return enc, f"h264_{'cabac' if entropy == 'cabac' else 'cavlc'}"
     if codec == "tpumjpegenc":
         return JpegEncoder(width, height, device=device), "mjpeg"

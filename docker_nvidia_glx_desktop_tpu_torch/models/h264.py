@@ -36,6 +36,15 @@ colour) a P frame's device work covers its damaged MB rows only
 K13), per frame and inside the chunk; the other rows go out as cached
 all-skip slices.
 
+``spatial_shards`` (``ENCODER_SPATIAL_SHARDS``) splits one frame's MB
+rows over the shard devices ``spatial_devices`` (every CUDA device by
+default, ``[device]`` on the CPU; a list may repeat one device), resolved
+as the reference resolves it: with one device the knob serves unsharded.
+Sharded, each frame runs the spatial steps of ``parallel/batch`` (rows
+15f-15h: per shard flats or record streams, the halo-padded P core, the
+forced-skip row gate under the damage mask), and the access units equal
+the unsharded ones byte for byte.
+
 Collect pulls a bucketed prefix of the transport and builds the Annex-B
 access unit.  A frame whose bits overflow the device stage's static caps
 is coded on the host from its dense levels: a CAVLC IDR by running the
@@ -54,9 +63,10 @@ mean-coded-qp normalisation.  Full-tier CABAC takes the host transport
 (K10 plus the qp plane), as in the reference.
 
 Every other setting of the reference encoder — native or Python CAVLC,
-``mode="pcm"``, spatial shards, tune=hq under the damage mask, the
-non-default intra mode sets — raises NotImplementedError naming its
-ROADMAP item; nothing falls back quietly.
+``mode="pcm"``, ``ENCODER_SPATIAL_SHARDS=auto`` over several devices,
+shards on distinct cards, tune=hq under the damage mask, the non-default
+intra mode sets — raises NotImplementedError naming its ROADMAP item;
+nothing falls back quietly.
 """
 
 from __future__ import annotations
@@ -98,6 +108,20 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch/CUDA encoder yet "
         f"(ROADMAP queue 1 item {item})")
+
+
+def spatial_auto_shards(width: int, height: int, fps: float = 60.0,
+                        n_devices: int = None) -> int:
+    """Devices ONE session of this geometry should spread across
+    (``ENCODER_SPATIAL_SHARDS=auto``).  With one device the answer is 1,
+    as the reference's; over more devices it needs the reference's fleet
+    capacity model, which is not ported (its prior is the TPU's)."""
+    if n_devices is None:
+        n_devices = max(torch.cuda.device_count(), 1)
+    if int(n_devices) <= 1:
+        return 1
+    raise _not_ported("ENCODER_SPATIAL_SHARDS=auto over several devices "
+                      "(the fleet capacity model)", "14")
 
 
 class RateController:
@@ -327,11 +351,16 @@ class H264Encoder(Encoder):
                  gop: int = 1, bitrate_kbps: int = 0, fps: float = 60.0,
                  deblock: bool = False, intra_modes: str = None,
                  superstep_chunk: int = None, spatial_shards=None,
-                 tune: str = None, damage_mask: bool = None, device=None):
+                 tune: str = None, damage_mask: bool = None, device=None,
+                 spatial_devices=None):
         """Same arguments as the reference encoder, plus ``device``
-        (``None`` = the card).  The device-entropy CAVLC and the CABAC
-        paths are built (``mode`` stays ``"cavlc"`` by default until
-        ``"pcm"`` is ported): see the module docstring for what raises."""
+        (``None`` = the card) and ``spatial_devices``, the devices
+        ``spatial_shards`` counts and shards over (every CUDA device for a
+        card encoder, ``[device]`` on the CPU; a list may repeat one
+        device, the counterpart of the reference's forced host-platform
+        devices).  The device-entropy CAVLC and the CABAC paths are built
+        (``mode`` stays ``"cavlc"`` by default until ``"pcm"`` is
+        ported): see the module docstring for what raises."""
         super().__init__(width, height)
         if mode != "cavlc":
             raise _not_ported(f"h264 mode {mode!r}", "17")
@@ -344,10 +373,6 @@ class H264Encoder(Encoder):
         if superstep_chunk is None:
             superstep_chunk = int(
                 os.environ.get("ENCODER_SUPERSTEP_CHUNK", "0") or 0)
-        if spatial_shards is None:
-            spatial_shards = os.environ.get("ENCODER_SPATIAL_SHARDS", "0")
-        if (str(spatial_shards).strip() or "0") not in ("0", "1", "off"):
-            raise _not_ported("spatial shards", "11")
         if damage_mask is None:
             damage_mask = dmg.enabled()
         self.deblock = bool(deblock)
@@ -454,6 +479,28 @@ class H264Encoder(Encoder):
         self._journey_meta = None
         self._chunk_seq = 0
         self._prewarm_ring = False
+        # spatial shards (ENCODER_SPATIAL_SHARDS): one frame's MB rows over
+        # the shard devices (parallel/batch rows 15f-15h); resolved here,
+        # so that what is not ported raises at construction
+        self.fps = float(fps)
+        self._spatial_req = spatial_shards
+        if spatial_devices is None:
+            spatial_devices = ([torch.device("cuda", i) for i in
+                                range(torch.cuda.device_count())]
+                               if self.device.type == "cuda"
+                               else [self.device])
+        self.spatial_devices = [torch.device(d) for d in spatial_devices]
+        self._spatial_nx_cached = None
+        self._sp_steps = {}
+        self._sp_hdr_cache = {}
+        self._sp_mesh = None
+        if self._spatial_nx > 1:
+            from ..parallel import batch
+            self._sp_mesh = batch.make_spatial_mesh(self._spatial_nx,
+                                                    self.spatial_devices)
+            if self._sp_mesh[0] != batch.indexed_device(self.device):
+                raise ValueError(f"shard devices {self._sp_mesh} for an "
+                                 f"encoder on {self.device}")
 
     def headers(self) -> bytes:
         return (syn.nal_unit(syn.NAL_SPS, self._sps)
@@ -483,10 +530,294 @@ class H264Encoder(Encoder):
         """Chunk identity of the last collected frame (set by
         encode_collect, cleared by this pop): ``chunk_id`` None for a
         per-frame dispatch (a flushed partial ring included), ``chunk_len``
-        > 1 for a frame of a replayed chunk, ``shards`` 1 (one device)."""
+        > 1 for a frame of a replayed chunk, ``shards`` the spatial shard
+        count (1 unsharded)."""
         meta = self._journey_meta
         self._journey_meta = None
         return meta
+
+    # -- spatial shards (parallel/batch rows 15f-15h) --------------------
+    # One session's frame over the shard devices: per shard CAVLC flats
+    # (joined NAL by NAL) or CABAC record streams (stitched row-wise), the
+    # reference advancing at submit time as on the unsharded path.
+
+    @property
+    def _spatial_nx(self) -> int:
+        """Resolved shard count (1 = off), the reference's rule: eligible
+        are device CAVLC and CABAC with device binarization without
+        ``keep_recon``; "0", "1" and "off" mean off; a value that does not
+        parse warns and serves unsharded; with one device the count is 1
+        (before ``auto`` would read the capacity model); otherwise
+        ``feasible_spatial_shards`` clamps the request to the geometry."""
+        n = self._spatial_nx_cached
+        if n is None:
+            n = 1
+            req = self._spatial_req
+            if req is None:
+                req = os.environ.get("ENCODER_SPATIAL_SHARDS", "0")
+            req = str(req).strip() or "0"
+            eligible = (self.mode == "cavlc" and not self.keep_recon
+                        and (self.entropy == "device"
+                             or (self.entropy == "cabac"
+                                 and self.cabac_device_binarize)))
+            if eligible and req not in ("0", "1", "off"):
+                ndev = len(self.spatial_devices)
+                if req == "auto":
+                    want = spatial_auto_shards(self.width, self.height,
+                                               self.fps, n_devices=ndev)
+                else:
+                    try:
+                        want = int(req)
+                    except ValueError:
+                        log.warning("ENCODER_SPATIAL_SHARDS=%r not "
+                                    "understood; spatial sharding off", req)
+                        want = 1
+                if want > 1 and ndev > 1:
+                    from ..parallel import batch
+                    n = batch.feasible_spatial_shards(self.pad_h, want, ndev)
+            self._spatial_nx_cached = n
+        return n
+
+    def _sp_rows_local(self) -> int:
+        return self.mb_h // self._spatial_nx
+
+    def _sp_step(self, kind: str, qp: int):
+        """The spatial step of ``kind`` ("intra", "p", "p_masked") at
+        ``qp``, built once."""
+        key = (kind, qp)
+        got = self._sp_steps.get(key)
+        if got is None:
+            from ..parallel import batch
+            ent = "cabac" if self.entropy == "cabac" else "cavlc"
+            if kind == "intra":
+                got, _ = batch.h264_spatial_intra_step(
+                    self._sp_mesh, self.pad_h, self.pad_w, qp, entropy=ent,
+                    deblock=self.deblock, with_recon=self.gop > 1,
+                    tune=self._ktune)
+            else:
+                got, _ = batch.h264_spatial_step(
+                    self._sp_mesh, self.pad_h, self.pad_w, qp,
+                    deblock=self.deblock, entropy=ent, tune=self._ktune,
+                    p_intra=self._p_intra, masked=kind == "p_masked")
+            self._sp_steps[key] = got
+        return got
+
+    def _sp_hdr_slots(self, idr: bool, frame_num: int, idr_pic_id: int,
+                      qp_delta: int):
+        """The frame's slice-header slots (R, 3) on the device, cached;
+        the steps give each shard its rows'."""
+        key = (idr, frame_num, idr_pic_id, qp_delta)
+        got = self._sp_hdr_cache.get(key)
+        if got is None:
+            if idr:
+                hv, hl = cavlc_device.slice_header_slots(
+                    self.mb_h, self.mb_w, frame_num=0,
+                    idr_pic_id=idr_pic_id, qp_delta=qp_delta,
+                    deblocking_idc=self._deblock_idc)
+                hv = hv.view(np.int32)
+            else:
+                hv, hl = self._p_hdr_slots_np(frame_num, qp_delta)
+            got = (torch.from_numpy(np.ascontiguousarray(hv)).to(self.device),
+                   torch.from_numpy(np.ascontiguousarray(hl)).to(self.device))
+            self._sp_hdr_cache[key] = got
+        return got
+
+    def _sp_record_stitch(self, t0: float) -> None:
+        """The host's shard assembly cost (obs/budget ``bitstream-stitch``
+        stage, ``dngd_stitch_ms``)."""
+        from ..obs.budget import LEDGER
+        LEDGER.record_spatial(stitch_ms=(time.perf_counter() - t0) * 1e3)
+
+    def _sp_prefix(self, buf, hdr: int, guess: int):
+        """Start the pull of every shard's header and guessed payload."""
+        return _pinned_prefetch(buf[:, :hdr + guess].contiguous())
+
+    def _sp_submit_intra(self, rgb, idr_pic_id: int):
+        qp = self._eff_qp()
+        step = self._sp_step("intra", qp)
+        y, cb, cr = self._planes_device(rgb)
+        if self.entropy == "cabac":
+            out = step(y, cb, cr)
+            if self.gop > 1:
+                buf, ry, rcb, rcr, lv = out
+                self._ref = (ry, rcb, rcr)
+            else:
+                buf, lv = out
+            # shard-local layouts: damage and activity only
+            self._content_submit(y, frame_type="intra")
+            hdrw = cabac_binarize.header_words(self._sp_rows_local())
+            prefix = self._sp_prefix(buf, hdrw, self._cabac_bin_pull_guess
+                                     or 8 * self._CABAC_PULL_WORDS)
+            return ("sp_bin", "intra", qp, idr_pic_id, 0, buf, prefix, lv)
+        hv, hl = self._sp_hdr_slots(True, 0, idr_pic_id, qp - self.qp)
+        out = step(y, cb, cr, hv, hl)
+        if self.gop > 1:
+            flat, ry, rcb, rcr = out
+            self._ref = (ry, rcb, rcr)
+        else:
+            flat = out
+        self._content_submit(y, frame_type="intra")
+        prefix = self._sp_prefix(flat, cavlc_device.META_WORDS * 4,
+                                 self._pull_guess or 4 * self._PULL_BUCKET)
+        return ("sp", "intra", qp, idr_pic_id, 0, flat, prefix, None)
+
+    def _sp_submit_p(self, planes, qp: int, frame_num: int = None):
+        frame_num = self._frame_num if frame_num is None else frame_num
+        y, cb, cr = planes
+        if self.entropy == "cabac":
+            buf, ry, rcb, rcr, mv, lv = self._sp_step("p", qp)(
+                y, cb, cr, *self._ref)
+            self._ref = (ry, rcb, rcr)
+            self._content_submit(y)
+            hdrw = cabac_binarize.header_words(self._sp_rows_local())
+            prefix = self._sp_prefix(buf, hdrw, self._cabac_p_bin_pull_guess
+                                     or 4 * self._CABAC_PULL_WORDS)
+            return ("sp_bin", "p", qp, 0, frame_num, buf, prefix, (lv, mv))
+        hv, hl = self._sp_hdr_slots(False, frame_num, 0, qp - self.qp)
+        keep = self._sp_damage_keep()
+        if keep is not None:
+            flat, ry, rcb, rcr, mv, lv = self._sp_step("p_masked", qp)(
+                y, cb, cr, *self._ref, hv, hl, keep)
+        else:
+            flat, ry, rcb, rcr, mv, lv = self._sp_step("p", qp)(
+                y, cb, cr, *self._ref, hv, hl)
+        self._ref = (ry, rcb, rcr)
+        self._content_submit(y)
+        prefix = self._sp_prefix(flat, cavlc_device.META_WORDS * 4,
+                                 self._p_pull_guess or 2 * self._PULL_BUCKET)
+        return ("sp", "p", qp, 0, frame_num, flat, prefix, (lv, mv))
+
+    def _sp_damage_keep(self):
+        """The masked spatial step's (R,) keep mask, or None for the
+        unmasked step (mask off, CABAC, no host luma chain, or every row
+        damaged: the bytes are the same).  Shards cannot compact a
+        worklist, so masking gates rows (K13s).  Feeds the rate
+        controller's damage consumer as :meth:`_damage_plan` does."""
+        if (not self.damage_mask or self.entropy == "cabac"
+                or self._damage_cur_y is None
+                or self._damage_cur_y.shape != (self.pad_h, self.pad_w)):
+            return None
+        grid = dmg.damage_grid_np(self._damage_cur_y, self._damage_prev_y)
+        self._damage_frac = float(grid.mean())
+        if self._rate is not None:
+            self._rate.note_damage(self._damage_frac)
+        rowmask = grid.any(axis=1)
+        return None if rowmask.all() else torch.from_numpy(rowmask).to(
+            self.device)
+
+    def _sp_collect(self, submitted) -> bytes:
+        marker, kind, qp, idr_pic_id, frame_num, buf, prefix, lv_mv = \
+            submitted
+        if marker == "sp":
+            return self._sp_collect_flat(kind, qp, idr_pic_id, frame_num,
+                                         buf, _wait(prefix), lv_mv)
+        return self._sp_collect_bin(kind, qp, idr_pic_id, frame_num, buf,
+                                    _wait(prefix), lv_mv)
+
+    def _sp_collect_flat(self, kind: str, qp: int, idr_pic_id: int,
+                         frame_num: int, flat, bufs, lv_mv) -> bytes:
+        """A sharded CAVLC AU: each shard's FlatMeta and NALs joined in
+        shard order (slice per MB row: the shards are self-contained), the
+        pull-guess, short-read and overflow protocol per shard."""
+        rows_l = self._sp_rows_local()
+        base = cavlc_device.META_WORDS * 4
+        t0 = time.perf_counter()
+        metas = [cavlc_device.FlatMeta(bufs[i], rows_l)
+                 for i in range(len(bufs))]
+        if any(m.overflow for m in metas):
+            if kind == "p" and lv_mv is not None:
+                # the sharded stage's own level tensors, coded on the host
+                lv, mv = lv_mv
+                pulled = {k: _np(v) for k, v in lv.items()}
+                pulled["mv"] = _np(mv)
+                return self._encode_p_pulled(pulled, qp, frame_num)
+            raise RuntimeError("spatial intra shard overflow")
+        self._note_qp_sum(sum(m.qp_sum for m in metas))
+        need = max(4 * m.total_words for m in metas)
+        bucket = self._PULL_BUCKET
+        hist = self._pull_hist if kind == "intra" else self._p_pull_hist
+        hist.append(need)
+        guess = -(-max(hist) // bucket) * bucket
+        if kind == "intra":
+            self._pull_guess = guess
+        else:
+            self._p_pull_guess = guess
+        full = None
+        parts = [self.headers()] if kind == "intra" else []
+        for i, m in enumerate(metas):
+            buf_i = bufs[i]
+            if 4 * m.total_words > len(buf_i) - base:
+                if full is None:
+                    extra = -(-need // bucket) * bucket
+                    full = flat[:, :base + extra].cpu().numpy()
+                buf_i = full[i]
+            parts.append(cavlc_device.assemble_annexb(
+                buf_i, m, nal_type=None if kind == "intra" else syn.NAL_SLICE,
+                ref_idc=3 if kind == "intra" else 2))
+        au = b"".join(parts)
+        self._sp_record_stitch(t0)
+        return au
+
+    def _sp_collect_bin(self, kind: str, qp: int, idr_pic_id: int,
+                        frame_num: int, buf, heads, lv_mv) -> bytes:
+        """A sharded CABAC AU: each shard's record stream pulled, the
+        streams stitched row-wise into one transport
+        (``cabac_binarize.stitch_rows``), then the unsharded engine."""
+        rows_l = self._sp_rows_local()
+        hdrw = cabac_binarize.header_words(rows_l)
+        heads = heads.view(np.uint32)
+        t0 = time.perf_counter()
+        kname = "_bin" if kind == "intra" else "_p_bin"
+        hist = getattr(self, f"_cabac{kname}_pull_hist")
+        bucket = self._CABAC_PULL_WORDS
+        shard_bufs, overflow, need_max = [], False, 0
+        for i in range(len(heads)):
+            head = heads[i]
+            if head[1]:
+                overflow = True
+                break
+            total = cabac_binarize.payload_words(head)
+            need_max = max(need_max, total)
+            if hdrw + total > head.shape[0]:
+                extra = -(-total // bucket) * bucket
+                head = buf[i, :hdrw + extra].cpu().numpy().view(np.uint32)
+            shard_bufs.append(head)
+        au = None
+        if not overflow:
+            hist.append(need_max)
+            setattr(self, f"_cabac{kname}_pull_guess",
+                    -(-max(hist) // bucket) * bucket)
+            stitched = cabac_binarize.stitch_rows(shard_bufs, rows_l)
+            if kind == "intra":
+                au = h264_cabac.encode_intra_from_binstream(
+                    stitched, nr=self.mb_h, nc_mb=self.mb_w, qp=qp,
+                    frame_num=0, idr_pic_id=idr_pic_id, sps=self._sps,
+                    pps=self._pps, with_headers=True, qp_delta=qp - self.qp,
+                    deblocking_idc=self._deblock_idc)
+            else:
+                au = h264_cabac.encode_p_from_binstream(
+                    stitched, nr=self.mb_h, nc_mb=self.mb_w, qp=qp,
+                    frame_num=frame_num, qp_delta=qp - self.qp,
+                    deblocking_idc=self._deblock_idc)
+        if au is not None:
+            self._sp_record_stitch(t0)
+            return au
+        # overflow (the packed stream or the engine's cap): the dense
+        # levels of the sharded stage
+        if kind == "intra":
+            dense = {k: _np(lv_mv[k]) for k, _, _ in level_pack.INTRA_KEYS}
+            dense.update({k: _np(lv_mv[k])
+                          for k in ("pred_mode", "mb_i4", "i4_modes")})
+            return h264_cabac.encode_intra_picture(
+                dense, qp=qp, frame_num=0, idr_pic_id=idr_pic_id,
+                sps=self._sps, pps=self._pps, with_headers=True,
+                qp_delta=qp - self.qp, deblocking_idc=self._deblock_idc)
+        lv, mv = lv_mv
+        dense = {k: _np(v) for k, v in lv.items()}
+        dense["mv"] = _np(mv).astype(np.int32)
+        return h264_cabac.encode_p_picture(
+            dense, qp=qp, frame_num=frame_num, qp_delta=qp - self.qp,
+            deblocking_idc=self._deblock_idc)
 
     # -- prewarm -------------------------------------------------------
 
@@ -602,6 +933,11 @@ class H264Encoder(Encoder):
         self._content_prev_y = out.ys[-1].clone()
         self._content_n += len(ring.fns)
         if prev is None or tuple(prev.shape) != tuple(out.ys.shape[1:]):
+            return
+        if self._spatial_nx > 1:
+            # as the reference's: damage and activity only under shards
+            ring.content = content_stats.chunk_stats(
+                out.ys, prev, obsc.damage_thr_sad())
             return
         ring.content = content_stats.chunk_stats(
             out.ys, prev, obsc.damage_thr_sad(), out.refs[0],
@@ -1026,6 +1362,12 @@ class H264Encoder(Encoder):
         t0 = time.perf_counter()
         qp = self._eff_qp(keyframe=False)
         host = self._host_yuv420(rgb) if self.host_color else None
+        if self._spatial_nx > 1:
+            planes = (self._upload(host) if host is not None
+                      else self._device_colour(rgb))
+            got = "sp", self._sp_submit_p(planes, qp)
+            self._count_dispatch(t0)
+            return got
         plan = self._damage_plan(None if host is None else host[0])
         planes = (self._upload(host) if host is not None
                   else self._device_colour(rgb))
@@ -1199,6 +1541,8 @@ class H264Encoder(Encoder):
     def _collect(self, kind: str, payload, in_pipeline: bool = False):
         if kind == "ring":
             return self._ring_collect(payload)
+        if kind == "sp":
+            return self._sp_collect(payload)
         if kind == "p_masked":
             return self._collect_p_masked(payload)
         if kind == "p":
@@ -1212,7 +1556,9 @@ class H264Encoder(Encoder):
     def _submit_idr(self, rgb, idr_pic_id: int):
         """(token kind, submitted) of an IDR."""
         t0 = time.perf_counter()
-        if self.entropy == "cabac":
+        if self._spatial_nx > 1:
+            got = "sp", self._sp_submit_intra(rgb, idr_pic_id)
+        elif self.entropy == "cabac":
             got = "cabac_intra", self._submit_cabac_intra(rgb, idr_pic_id)
         else:
             got = "intra", self._submit_device(rgb, idr_pic_id)
@@ -1294,6 +1640,13 @@ class H264Encoder(Encoder):
         if ring is None:
             qp = self._eff_qp(keyframe=False)
             planes = self._host_yuv420(rgb) if self.host_color else None
+            if self._spatial_nx > 1 and planes is None:
+                # the spatial chunk stages host YUV planes; without them
+                # the session serves per-frame spatial, as the reference's
+                self._ring_chunk_cached = 0
+                got = self._sp_submit_p(self._device_colour(rgb), qp)
+                self._count_dispatch(t0)
+                return ("sp", idx, t0, False, got)
             kind = "cabac" if self.entropy == "cabac" else "cavlc"
             ingest = "yuv" if planes is not None else "rgb"
             # a masked chunk takes each frame's plan while that frame is
@@ -1355,7 +1708,7 @@ class H264Encoder(Encoder):
                 deblock=self.deblock, entropy=kind, ingest=ingest,
                 damage_bucket=bucket, device=self.device,
                 budget=self._graphs, tune=self._ktune,
-                p_intra=self._p_intra)
+                p_intra=self._p_intra, spatial_shards=self._spatial_nx)
         return step
 
     def _ring_dispatch(self, ring) -> None:
@@ -1369,7 +1722,8 @@ class H264Encoder(Encoder):
                     + (self._p_pull_guess or 2 * self._PULL_BUCKET))
             hv, hl = self._chunk_hdr_slots(tuple(ring.fns), qp - self.qp)
         else:
-            plen = (cabac_binarize.header_words(self.mb_h)
+            plen = (cabac_binarize.header_words(self.mb_h
+                                                // self._spatial_nx)
                     + (self._cabac_p_bin_pull_guess
                        or 4 * self._CABAC_PULL_WORDS))
         # a masked chunk shares the bucket of its most damaged frame; one
@@ -1396,7 +1750,8 @@ class H264Encoder(Encoder):
         out = step(ring.frames, self._ref, hv, hl, rows, qp, owner=ring)
         self._ref = out.refs
         self._content_ring_dispatch(ring, out, masked=bool(bucket))
-        ring.prefix = [_pinned_prefetch(f[:plen]) for f in out.flats]
+        ring.prefix = [_pinned_prefetch(f[..., :plen].contiguous())
+                       for f in out.flats]
         ring.frames = None
         ring.res = out
         self._chunk_seq += 1
@@ -1420,7 +1775,11 @@ class H264Encoder(Encoder):
             # last staged frame itself
             next_y = (planes[min(i + 1, len(planes) - 1)][0]
                       if self._ktune == "hq" else None)
-            if ring.kind == "cavlc":
+            if self._spatial_nx > 1:
+                # as the reference's: the per-frame spatial step, no
+                # lookahead, the row gate from the host chain's newest pair
+                toks.append(("sp", self._sp_submit_p(pl, ring.qp, fn)))
+            elif ring.kind == "cavlc":
                 plan = (ring.plans[i] if ring.plans and len(ring.plans) > i
                         else None)
                 toks.append(self._submit_p_cavlc(pl, ring.qp, fn, plan,
@@ -1459,6 +1818,10 @@ class H264Encoder(Encoder):
     def _ring_collect_cavlc(self, ring, slot: int, frame_num: int) -> bytes:
         qp, out = ring.qp, ring.res
         buf = _wait(ring.prefix[slot])
+        if self._spatial_nx > 1:
+            return self._sp_collect_flat("p", qp, 0, frame_num,
+                                         out.flats[slot], buf,
+                                         (out.levels(slot), out.mvs[slot]))
         meta = cavlc_device.FlatMeta(buf, self.mb_h)
         if meta.overflow:
             # the chunk's own level tensors of this frame, host-coded
@@ -1486,6 +1849,11 @@ class H264Encoder(Encoder):
 
     def _ring_collect_cabac(self, ring, slot: int, frame_num: int) -> bytes:
         qp, out = ring.qp, ring.res
+        if self._spatial_nx > 1:
+            return self._sp_collect_bin("p", qp, 0, frame_num,
+                                        out.flats[slot],
+                                        _wait(ring.prefix[slot]),
+                                        (out.levels(slot), out.mvs[slot]))
         args = dict(qp=qp, frame_num=frame_num, qp_delta=qp - self.qp,
                     deblocking_idc=self._deblock_idc)
         head = self._pull_binstream(out.flats[slot], ring.prefix[slot],
@@ -1628,7 +1996,7 @@ class H264Encoder(Encoder):
             "chunk_id": payload[0].chunk_id if chunked else None,
             "slot": payload[1] if kind == "ring" else 0,
             "chunk_len": len(payload[0].fns) if chunked else 1,
-            "shards": 1}
+            "shards": self._spatial_nx}
         ms = (time.perf_counter() - t0) * 1e3
         return EncodedFrame(data=data, keyframe=key, frame_index=idx,
                             codec=self.codec, width=self.width,

@@ -133,13 +133,20 @@ def _sessions(t, base_dims: int) -> tuple:
     return tuple(t.shape[:lead])
 
 
-def _plain_sessions(fn, lead, stacked, shared):
+def _plain_sessions(fn, lead, stacked, hdr, qp_sum):
     """A plain packer session by session: ``stacked`` tensors carry the
-    session axis, ``shared`` ones (the header slots) do not."""
-    if not lead:
-        return fn(*stacked, *shared)
-    return torch.stack([fn(*(t[i] for t in stacked), *shared)
+    session axis, the header slots ``hdr`` one where they are per session
+    (else they are shared), the qp sums one each."""
+    per = hdr[0].dim() == 3
+    return torch.stack([fn(*(t[i] for t in stacked),
+                           *(h[i] if per else h for h in hdr),
+                           qp_sum=None if qp_sum is None else qp_sum[i:i + 1])
                         for i in range(lead[0])])
+
+
+def _hdr_shape(hdr_vals, lead, nr) -> tuple:
+    """The header slots' shape: shared (R, 3), or per session (S, R, 3)."""
+    return (lead + (nr, 3)) if lead and hdr_vals.dim() == 3 else (nr, 3)
 
 
 def _check_slots(want: dict, dev) -> None:
@@ -149,11 +156,11 @@ def _check_slots(want: dict, dev) -> None:
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _check_qp_sum(qp_sum, dev) -> None:
+def _check_qp_sum(qp_sum, dev, n: int = 1) -> None:
     if qp_sum is not None and (qp_sum.dtype != torch.int32
-                               or qp_sum.numel() != 1
+                               or qp_sum.numel() != n
                                or qp_sum.device != dev):
-        raise ValueError("qp_sum must be one int32 on the slots' device")
+        raise ValueError(f"qp_sum must be {n} int32 on the slots' device")
 
 
 def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
@@ -169,21 +176,22 @@ def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
     offsets.  CPU tensors run the plain version.
 
     Slots with a leading session axis (S, R, C, ...) pack S sessions'
-    frames under one set of header slots in one launch (the session the
-    grid's second axis): flat (S, FLAT_BYTES), each session's overflow
-    flag and caps its own."""
+    frames in one launch (the session the grid's second axis): flat (S,
+    FLAT_BYTES), each session's overflow flag and caps its own, under one
+    set of header slots (R, 3) or one per session (S, R, 3) — the spatial
+    shards' rows, each shard's first_mb_in_slice its own — and with
+    ``qp_sum`` (S,) each session's META word."""
     lead = _sessions(syn_vals, 3)
     nr, nc = syn_vals.shape[len(lead):len(lead) + 2]
     dev = values.device
+    hs = _hdr_shape(hdr_vals, lead, nr)
     want = {"values": (values, lead + (nr, nc, 27, 34)),
             "lengths": (lengths, lead + (nr, nc, 27, 34)),
             "syn_vals": (syn_vals, lead + (nr, nc, 20)),
             "syn_lens": (syn_lens, lead + (nr, nc, 20)),
-            "hdr_vals": (hdr_vals, (nr, 3)), "hdr_lens": (hdr_lens, (nr, 3))}
+            "hdr_vals": (hdr_vals, hs), "hdr_lens": (hdr_lens, hs)}
     _check_slots(want, dev)
-    _check_qp_sum(qp_sum, dev)
-    if lead and qp_sum is not None:
-        raise ValueError("stacked sessions take no qp sum")
+    _check_qp_sum(qp_sum, dev, lead[0] if lead else 1)
     if nr > MAX_META_ROWS:
         raise ValueError(f"{nr} MB rows exceed the metadata header's "
                          f"{MAX_META_ROWS}")
@@ -191,7 +199,7 @@ def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
         if lead:
             return _plain_sessions(pack_frame_plain, lead,
                                    (values, lengths, syn_vals, syn_lens),
-                                   (hdr_vals, hdr_lens))
+                                   (hdr_vals, hdr_lens), qp_sum)
         return pack_frame_plain(values, lengths, syn_vals, syn_lens,
                                 hdr_vals, hdr_lens, qp_sum)
     flat = torch.empty(lead + (FLAT_BYTES,), dtype=torch.uint8, device=dev)
@@ -199,8 +207,8 @@ def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
                           dtype=torch.int32, device=dev)
     _cuda.launch("pack", "pack_frame_launch",
                  [values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
-                  flat, scratch, qp_sum], [nr, nc, lead[0] if lead else 1],
-                 dev)
+                  flat, scratch, qp_sum],
+                 [nr, nc, lead[0] if lead else 1, len(hs) == 3], dev)
     if qp_sum is None:
         pack_frame.launches += 1
     else:
@@ -224,25 +232,24 @@ def pack_p_frame(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
     ``qp_sum`` as :func:`pack_frame`'s.  The overflow caps are K3's, with
     the MB header in place of the MB syntax piece.  CUDA tensors launch
     the packer; CPU tensors run the plain version.  A leading session
-    axis on every slot tensor but the header slots packs S sessions in
-    one launch, as :func:`pack_frame`'s."""
+    axis on every slot tensor packs S sessions in one launch, the header
+    slots and qp sums as :func:`pack_frame`'s."""
     lead = _sessions(mbh_vals, 3)
     nr, nc = mbh_vals.shape[len(lead):len(lead) + 2]
     dev = values.device
     nb = values.shape[len(lead) + 2] if values.dim() == len(lead) + 4 else 0
     if nb not in (26, 27):
         raise ValueError("values must be (R, C, 26 or 27, 34)")
-    _check_qp_sum(qp_sum, dev)
-    if lead and (qp_sum is not None or nb != 26):
-        raise ValueError("stacked sessions take 26 blocks and no qp sum")
+    _check_qp_sum(qp_sum, dev, lead[0] if lead else 1)
+    hs = _hdr_shape(hdr_vals, lead, nr)
     _check_slots({"values": (values, lead + (nr, nc, nb, 34)),
                   "lengths": (lengths, lead + (nr, nc, nb, 34)),
                   "mbh_vals": (mbh_vals, lead + (nr, nc, 7)),
                   "mbh_lens": (mbh_lens, lead + (nr, nc, 7)),
                   "run_vals": (run_vals, lead + (nr,)),
                   "run_lens": (run_lens, lead + (nr,)),
-                  "hdr_vals": (hdr_vals, (nr, 3)),
-                  "hdr_lens": (hdr_lens, (nr, 3))}, dev)
+                  "hdr_vals": (hdr_vals, hs),
+                  "hdr_lens": (hdr_lens, hs)}, dev)
     if nr > MAX_META_ROWS:
         raise ValueError(f"{nr} MB rows exceed the metadata header's "
                          f"{MAX_META_ROWS}")
@@ -251,7 +258,7 @@ def pack_p_frame(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
             return _plain_sessions(
                 pack_p_frame_plain, lead,
                 (values, lengths, mbh_vals, mbh_lens, run_vals, run_lens),
-                (hdr_vals, hdr_lens))
+                (hdr_vals, hdr_lens), qp_sum)
         return pack_p_frame_plain(values, lengths, mbh_vals, mbh_lens,
                                   run_vals, run_lens, hdr_vals, hdr_lens,
                                   qp_sum)
@@ -261,7 +268,7 @@ def pack_p_frame(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
     _cuda.launch("pack", "pack_p_frame_launch",
                  [values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
                   hdr_vals, hdr_lens, flat, scratch, qp_sum],
-                 [nr, nc, nb, lead[0] if lead else 1], dev)
+                 [nr, nc, nb, lead[0] if lead else 1, len(hs) == 3], dev)
     if nb == 27 or qp_sum is not None:
         pack_p_frame.hq.launches += 1
     else:

@@ -636,6 +636,42 @@ def payload_words(head: np.ndarray) -> int:
     return int(head[2])
 
 
+def stitch_rows(bufs, rows_each) -> np.ndarray:
+    """Per-shard transports (host uint32 words, each covering header and
+    payload) -> one whole-frame transport, the spatial shards' CABAC
+    collect.  Every cross-MB context is a left neighbour within a row
+    (slice per MB row), so a shard of consecutive MB rows records exactly
+    the rows a whole-frame binarize would: one header, the shards' row
+    bit tables back to back, then their row payloads back to back.
+    ``rows_each``: the MB rows of every shard (an int, or one per shard).
+    A shard's overflow flag gives a flag-only header, so the caller takes
+    the dense path without reading row tables."""
+    heads = [np.asarray(b).view(np.uint32) for b in bufs]
+    if isinstance(rows_each, int):
+        rows_each = [rows_each] * len(heads)
+    total_rows = int(sum(rows_each))
+    out_head = np.zeros(META_WORDS, np.uint32)
+    out_head[0] = 2
+    out_head[3] = total_rows
+    out_head[4] = heads[0][4]
+    if any(int(h[1]) for h in heads):
+        out_head[1] = 1
+        return np.concatenate([out_head, np.zeros(total_rows, np.uint32)])
+    bit_tables, payloads = [], []
+    total_words = 0
+    for h, r in zip(heads, rows_each):
+        if int(h[0]) != 2 or int(h[3]) != r:
+            raise ValueError("a shard's transport is not version 2 over "
+                             f"{r} rows")
+        row_bits = h[META_WORDS:META_WORDS + r]
+        n = int(((row_bits.astype(np.int64) + 31) >> 5).sum())
+        bit_tables.append(row_bits.astype(np.uint32))
+        payloads.append(h[META_WORDS + r:META_WORDS + r + n].astype(np.uint32))
+        total_words += n
+    out_head[2] = total_words
+    return np.concatenate([out_head] + bit_tables + payloads)
+
+
 def split_rows(buf: np.ndarray, rows: int):
     """Transport buffer (host array covering header + payload) ->
     (payload uint32, row_off int64 (rows+1,), row_bits int64) or None

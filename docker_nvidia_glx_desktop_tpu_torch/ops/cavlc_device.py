@@ -333,24 +333,28 @@ def intra_mb_syntax_slots(pred_mode, mb_i4, i4_modes, cbp_luma, cbp_luma4,
     return syn_vals, syn_lens
 
 
-def qp_delta_slots(qp_map, codes, slice_qp: int):
+def qp_delta_slots(qp_map, codes, slice_qp: int, shards: int = 1):
     """tune=hq's mb_qp_delta slots: the per-row chain from ``slice_qp``
     (``aq.qp_chain``) as se(v) (value, length), length 0 where the MB
     carries no delta (``codes`` false), and the frame's summed effective
-    qp as a (1,) int32 tensor (the flat buffer's META_QP_SUM_WORD)."""
+    qp as a (1,) int32 tensor (the flat buffer's META_QP_SUM_WORD); with
+    ``shards``, (shards,) sums of equal bands of rows (each spatial
+    shard's flat buffer carries its own)."""
     eff, delta = aq.qp_chain(qp_map, codes, slice_qp)
     v, ln = se_slots(delta)
-    qp_sum = eff.sum(dtype=torch.int64).reshape(1).to(torch.int32)
+    qp_sum = eff.reshape(shards, -1).sum(dim=1, dtype=torch.int64).to(
+        torch.int32)
     return v, torch.where(codes, ln, 0), qp_sum
 
 
-def frame_block_slots_plain(levels: dict, slice_qp: int = None):
+def frame_block_slots_plain(levels: dict, slice_qp: int = None,
+                            shards: int = 1):
     """Plain PyTorch version of K2: level tensors (the intra core's dict)
     -> (values, lengths, syn_vals, syn_lens), int32 (R, C, 27, 34) block
     slots and (R, C, 20) MB-syntax slots; with the full tier's
-    ``qp_map`` in ``levels`` also the frame's qp sum (see
-    :func:`qp_delta_slots`), the mb_qp_delta slot chained from
-    ``slice_qp``."""
+    ``qp_map`` in ``levels`` also the frame's qp sum (per band of rows
+    with ``shards``: see :func:`qp_delta_slots`), the mb_qp_delta slot
+    chained from ``slice_qp``."""
     luma_dc = levels["luma_dc"].long()
     luma_ac = levels["luma_ac"].long()
     cb_dc, cb_ac = levels["cb_dc"].long(), levels["cb_ac"].long()
@@ -427,7 +431,7 @@ def frame_block_slots_plain(levels: dict, slice_qp: int = None):
     # the syntax exists for every I16 MB and for I_NxN with cbp != 0
     cbp_any = torch.where(mb_i4, cbp_luma4 > 0, cbp_luma) | (cbp_chroma > 0)
     v, ln, qp_sum = qp_delta_slots(levels["qp_map"], ~mb_i4 | cbp_any,
-                                   slice_qp)
+                                   slice_qp, shards)
     res[2][:, :, 19] = v.to(torch.int32)
     res[3][:, :, 19] = ln.to(torch.int32)
     return res + (qp_sum,)
@@ -464,10 +468,13 @@ def _upload_tables(lib) -> None:
 _tables_on: set = set()
 
 
-def frame_block_slots(levels: dict, slice_qp: int = None):
+def frame_block_slots(levels: dict, slice_qp: int = None,
+                      shards: int = 1):
     """Level tensors -> (values, lengths, syn_vals, syn_lens) CAVLC slots;
     with the full tier's ``qp_map`` in ``levels`` a fifth, the frame's
-    qp sum, and the mb_qp_delta slots chained from ``slice_qp``.
+    qp sum ((shards,) sums of equal bands of rows with ``shards``, the
+    spatial shards' packers' META words), and the mb_qp_delta slots
+    chained from ``slice_qp``.
 
     CUDA tensors launch the slot coder: a per-MB pass for cbp, gates and
     total_coeff, then one thread per 4x4 block (plus one per MB for the
@@ -503,7 +510,7 @@ def frame_block_slots(levels: dict, slice_qp: int = None):
             return stack_sessions([frame_block_slots_plain(
                 {k: levels[k][i] for k in _LEVEL_KEYS})
                 for i in range(lead[0])])
-        return frame_block_slots_plain(levels, slice_qp)
+        return frame_block_slots_plain(levels, slice_qp, shards)
     lib = _cuda.library("cavlc")
     if dev not in _tables_on:
         with torch.cuda.device(dev):
@@ -522,10 +529,11 @@ def frame_block_slots(levels: dict, slice_qp: int = None):
     frame_block_slots.launches += 1
     if not hq:
         return values, lengths, syn_vals, syn_lens
-    qp_sum = torch.empty(1, **i32)
+    qp_sum = torch.empty(shards, **i32)
     _cuda.launch("cavlc", "cavlc_qp_chain_launch",
                  [levels["qp_map"], levels["mb_i4"], scratch, syn_vals,
-                  syn_lens, qp_sum, None], [nr, nc, int(slice_qp), 0], dev)
+                  syn_lens, qp_sum, None],
+                 [nr, nc, int(slice_qp), 0, shards], dev)
     frame_block_slots.hq.launches += 1
     return values, lengths, syn_vals, syn_lens, qp_sum
 
@@ -534,12 +542,26 @@ frame_block_slots.launches = 0
 frame_block_slots.hq = _cuda.Counter()      # the qp chain (full tier)
 
 
-def encode_levels(levels: dict, hdr_vals, hdr_lens, slice_qp: int):
+def encode_levels(levels: dict, hdr_vals, hdr_lens, slice_qp: int,
+                  shards: int = 1):
     """The intra core's dict -> the flat buffer: K2 then K3, the qp sum
-    riding in the metadata under the full tier."""
-    slots = frame_block_slots(levels, slice_qp)
-    return pack_frame(*slots[:4], hdr_vals, hdr_lens,
-                      qp_sum=slots[4] if len(slots) > 4 else None)
+    riding in the metadata under the full tier.  With ``shards`` (the
+    spatial shards) the frame's rows are split into that many equal
+    bands, each packed into its own flat buffer under its rows' header
+    slots ``hdr_vals``/``hdr_lens`` (shards, R / shards, 3): (shards,
+    FLAT_BYTES)."""
+    slots = frame_block_slots(levels, slice_qp, shards)
+    qp_sum = slots[4] if len(slots) > 4 else None
+    if shards == 1:
+        return pack_frame(*slots[:4], hdr_vals, hdr_lens, qp_sum=qp_sum)
+    return pack_frame(*(shard_view(t, shards) for t in slots[:4]),
+                      hdr_vals, hdr_lens, qp_sum=qp_sum)
+
+
+def shard_view(t: torch.Tensor, shards: int) -> torch.Tensor:
+    """A frame-shaped (R, ...) tensor as (shards, R / shards, ...): the
+    spatial shards' rows, a view."""
+    return t.view((shards, t.shape[0] // shards) + tuple(t.shape[1:]))
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ from . import _cuda, h264_inter
 from .bitmerge import pack_p_frame
 from .cavlc_device import (_BLK_X, _BLK_Y, BLOCK_SLOTS, _pad16, _tables_on,
                            _upload_tables, code_blocks, nc_grid,
-                           qp_delta_slots, se_slots, ue_slots)
+                           qp_delta_slots, se_slots, shard_view, ue_slots)
 
 P_MB_BLOCKS = 26          # 16 luma + 2 chroma DC + 8 chroma AC
 P_MB_BLOCKS_I = 27        # + Intra16x16DCLevel (tune=hq I16-in-P)
@@ -192,23 +192,23 @@ def nnz_raster(luma: torch.Tensor) -> torch.Tensor:
     return nz
 
 
-def _qp_se(out: dict, cbp: torch.Tensor, slice_qp: int):
+def _qp_se(out: dict, cbp: torch.Tensor, slice_qp: int, shards: int = 1):
     """tune=hq's mb_qp_delta slots and qp sum: cbp != 0 or I16 MBs carry
     the syntax (skipped MBs have cbp 0)."""
     codes = cbp > 0
     if "mb_intra" in out:
         codes = codes | out["mb_intra"].to(torch.bool)
-    v, ln, qp_sum = qp_delta_slots(out["qp_map"], codes, slice_qp)
+    v, ln, qp_sum = qp_delta_slots(out["qp_map"], codes, slice_qp, shards)
     return (v, ln), qp_sum
 
 
-def p_frame_slots_plain(out: dict, slice_qp: int = None):
+def p_frame_slots_plain(out: dict, slice_qp: int = None, shards: int = 1):
     """Plain PyTorch version of K6.  Same contract as
     :func:`p_frame_slots`."""
     values, lengths, cbp, mv = p_frame_block_slots(out)
     qp_se = qp_sum = None
     if "qp_map" in out:
-        qp_se, qp_sum = _qp_se(out, cbp, slice_qp)
+        qp_se, qp_sum = _qp_se(out, cbp, slice_qp, shards)
     hv, hl, tv, tl, _ = p_mb_header_slots(mv, cbp, qp_se, out.get("mb_intra"))
     i32 = lambda a: a.to(torch.int32)
     res = (i32(values), i32(lengths), i32(hv), i32(hl), i32(tv), i32(tl),
@@ -216,14 +216,16 @@ def p_frame_slots_plain(out: dict, slice_qp: int = None):
     return res if qp_sum is None else res + (qp_sum,)
 
 
-def p_frame_slots(out: dict, slice_qp: int = None, qp_dev=None):
+def p_frame_slots(out: dict, slice_qp: int = None, qp_dev=None,
+                  shards: int = 1):
     """The P core's tensors -> (values (R, C, 26, 34), lengths, mbh_vals
     (R, C, 7), mbh_lens, run_vals (R,), run_lens (R,), nnz (R, C, 4, 4)
     bool); slot tensors int32 (values are the uint32 bit patterns).
     tune=hq: 27 block slots with the I16-in-P outputs (``mb_intra``,
     ``i16_dc``, ``i16_ac``), and with ``qp_map`` the mb_qp_delta chain
     from ``slice_qp`` (read from ``qp_dev``, one int32 on the card, where
-    given) and an eighth output, the frame's qp sum.
+    given) and an eighth output, the frame's qp sum ((shards,) sums of
+    equal bands of rows with ``shards``: the spatial shards').
 
     CUDA tensors launch the slot coder: a per-MB pass for cbp, gates,
     total_coeff and the nnz flags, then one thread per 4x4 block and one
@@ -264,7 +266,7 @@ def p_frame_slots(out: dict, slice_qp: int = None, qp_dev=None):
             from .h264_device import stack_sessions
             return stack_sessions([p_frame_slots_plain(
                 {k: out[k][i] for k in shapes}) for i in range(lead[0])])
-        return p_frame_slots_plain(out, slice_qp)
+        return p_frame_slots_plain(out, slice_qp, shards)
     lib = _cuda.library("cavlc")
     if dev not in _tables_on:
         with torch.cuda.device(dev):
@@ -291,10 +293,11 @@ def p_frame_slots(out: dict, slice_qp: int = None, qp_dev=None):
         p_frame_slots.hq.launches += 1
     if not hq:
         return res
-    qp_sum = torch.empty(1, **i32)
+    qp_sum = torch.empty(shards, **i32)
     _cuda.launch("cavlc", "cavlc_qp_chain_launch",
                  [out["qp_map"], out.get("mb_intra"), scratch, res[2],
-                  res[3], qp_sum, qp_dev], [nr, nc, int(slice_qp), 1], dev)
+                  res[3], qp_sum, qp_dev],
+                 [nr, nc, int(slice_qp), 1, shards], dev)
     p_frame_slots.chain.launches += 1
     return res + (qp_sum,)
 
@@ -307,16 +310,23 @@ _LEVEL_KEYS_HQ = ("qp_map", "mb_intra", "i16_dc", "i16_ac")
 
 
 def _finish_p(out: dict, hdr_vals, hdr_lens, slice_qp: int = None,
-              qp_dev=None):
+              qp_dev=None, shards: int = 1):
     """P core output -> (flat, recon_y, recon_cb, recon_cr, mv, nnz,
     levels); ``levels`` are the residual tensors the host coder takes on
     an overflow (with the tune=hq qp plane and I16-in-P tensors, which
-    it must re-emit the same)."""
-    slots = p_frame_slots(out, slice_qp, qp_dev)
+    it must re-emit the same).  With ``shards`` (the spatial shards) the
+    frame-shaped slots are packed band by band of rows into (shards,
+    FLAT_BYTES) flats under the (shards, R / shards, 3) header slots."""
+    slots = p_frame_slots(out, slice_qp, qp_dev, shards)
     values, lengths, mbh_v, mbh_l, run_v, run_l, nnz = slots[:7]
-    flat = pack_p_frame(values, lengths, mbh_v, mbh_l, run_v, run_l,
-                        hdr_vals, hdr_lens,
-                        qp_sum=slots[7] if len(slots) > 7 else None)
+    qp_sum = slots[7] if len(slots) > 7 else None
+    if shards == 1:
+        flat = pack_p_frame(values, lengths, mbh_v, mbh_l, run_v, run_l,
+                            hdr_vals, hdr_lens, qp_sum=qp_sum)
+    else:
+        flat = pack_p_frame(*(shard_view(t, shards) for t in (
+            values, lengths, mbh_v, mbh_l, run_v, run_l)), hdr_vals,
+            hdr_lens, qp_sum=qp_sum)
     levels = {k: out[k] for k in _LEVEL_KEYS + _LEVEL_KEYS_HQ if k in out}
     return (flat, out["recon_y"], out["recon_cb"], out["recon_cr"],
             out["mv"], nnz, levels)

@@ -29,8 +29,11 @@ Knobs (warn and keep the default on a bad value):
 - ``DNGD_CONTENT_DAMAGE_THR`` (``obs/content``): the damage threshold
   shared with the content plane.
 
-Not ported yet: ``force_skip_rows``, the spatial mesh's row gate
-(ROADMAP queue 1 item 11).
+The spatial shards cannot compact a worklist (a shard's rows are fixed),
+so their masked P step gates instead (:func:`force_skip_rows`, K13s in
+``csrc/spatial.cu``): after the P core, every MB of an undamaged row
+becomes P_Skip with its recon the reference's, and the slot coder emits
+those rows as the same skip runs.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ __all__ = [
     "enabled", "cost_floor", "damage_factor", "damage_grid_np",
     "plan_rows", "RowPlan", "row_core", "scatter_rows",
     "scatter_rows_plain", "skip_slice_nal", "assemble_masked_au",
-    "scatter_levels_np",
+    "scatter_levels_np", "force_skip_rows", "force_skip_rows_plain",
 ]
 
 
@@ -225,6 +228,75 @@ def row_core(y, cb, cr, ref_y, ref_cb, ref_cr, rows, hv_r, hl_r, qp: int,
                                                   qp_dev=qp_dev)
     new = scatter_rows(ref_y, ref_cb, ref_cr, ry, rcb, rcr, rows)
     return (flat,) + new + (mv, nnz, levels)
+
+
+# ---------------------------------------------------------------------------
+# the forced-skip row gate (the spatial shards' masked P step)
+# ---------------------------------------------------------------------------
+
+_SKIP_ZERO = ("mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac", "mb_intra",
+              "i16_dc", "i16_ac")
+_SKIP_RECON = ("recon_y", "recon_cb", "recon_cr")
+
+
+def _check_skip(out: dict, keep, refs) -> int:
+    nr, nc = out["mv"].shape[:2]
+    dev = out["mv"].device
+    if (keep.dim() != 1 or keep.numel() != nr or keep.dtype != torch.bool
+            or keep.device != dev):
+        raise ValueError(f"keep must be ({nr},) bool on {dev}")
+    for k, ref in zip(_SKIP_RECON, refs):
+        if (ref.shape != out[k].shape or ref.dtype != torch.uint8
+                or ref.device != dev):
+            raise ValueError(f"reference {tuple(ref.shape)} does not match "
+                             f"{k} {tuple(out[k].shape)}")
+    return nr
+
+
+def force_skip_rows_plain(out: dict, keep, ref_y, ref_cb, ref_cr) -> dict:
+    """Plain PyTorch version of K13s, in the reference's order: where
+    ``keep`` is False, the MV and levels (and the I16-in-P outputs) are
+    zeroed and the recon rows are the reference's.  Gates ``out``'s
+    tensors in place and returns ``out``."""
+    _check_skip(out, keep, (ref_y, ref_cb, ref_cr))
+    drop = ~keep
+    for k in _SKIP_ZERO:
+        if k in out:
+            out[k][drop] = 0
+    for k, ref, n in zip(_SKIP_RECON, (ref_y, ref_cb, ref_cr), (16, 8, 8)):
+        rows = drop.repeat_interleave(n)
+        out[k][rows] = ref[rows]
+    return out
+
+
+def force_skip_rows(out: dict, keep, ref_y, ref_cb, ref_cr) -> dict:
+    """K13s, the reference's ``force_skip_rows``: every MB of the rows
+    where ``keep`` ((R,) bool) is False becomes P_Skip before entropy —
+    zero MV and levels (and ``mb_intra``/``i16_*`` where present), the
+    recon rows the UNPADDED reference's ``ref_*`` — so the P slot coder
+    emits those rows as pure skip runs, byte for byte the all-skip
+    slices.  ``out`` is the P core's dict (R, C, ...) and its tensors are
+    gated in place; returns ``out``.
+
+    CUDA tensors launch ``csrc/spatial.cu`` (one thread per element of
+    each gated tensor, the tensor the grid's second axis); CPU tensors
+    run the plain version."""
+    nr = _check_skip(out, keep, (ref_y, ref_cb, ref_cr))
+    if keep.device.type == "cpu":
+        return force_skip_rows_plain(out, keep, ref_y, ref_cb, ref_cr)
+    nc = out["mv"].shape[1]
+    if any(out[k].data_ptr() % 4 for k in _SKIP_RECON):
+        raise ValueError("recon planes must be 4-byte aligned")
+    _cuda.launch("spatial", "force_skip_launch",
+                 [out.get(k) for k in _SKIP_ZERO]
+                 + [out[k] for k in _SKIP_RECON]
+                 + [ref_y, ref_cb, ref_cr, keep.contiguous()], [nr, nc],
+                 keep.device)
+    force_skip_rows.launches += 1
+    return out
+
+
+force_skip_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,11 @@ chained from each frame to the next.  Per frame the P stage is
 - CABAC: the P core and the record stream (K11p);
 - damage-masked (CAVLC, yuv ingest): ``damage_mask.row_core`` over the
   frame's worklist of ``damage_bucket`` rows (K5r, K6, K7, K8 on the
-  compacted stack, the row scatter K13).
+  compacted stack, the row scatter K13);
+- spatially sharded (``spatial_shards`` > 1, yuv ingest, row 15h): the
+  spatial P body of ``parallel/batch`` (the halo pad 15e, K5p, K6 and K7
+  with the shard axis or K11p per shard, K8), each frame's transport
+  (nx, L), the reference's ``h264_spatial_chunk_step``.
 
 Under ``tune`` (the kernel tier) the P stages run their hq forms; the
 full tier (CAVLC only) also runs the qp plane (K14) per frame with the
@@ -61,6 +65,8 @@ import weakref
 import numpy as np
 import torch
 
+from . import _cuda
+
 MAX_INSTANCES = 4         # per step (graph key)
 MAX_GRAPHS = 6            # per budget: an encoder's steps together
 
@@ -74,9 +80,13 @@ def wrappers() -> dict:
     from . import (bitmerge, cabac_binarize, cavlc_p_device, color,
                    damage_mask, h264_deblock, h264_inter)
     from . import aq
+    from ..parallel import batch
     return {"color_frames": color.rgb_to_yuv420_frames,
             "inter": h264_inter.encode_p_frame,
             "inter_rows": h264_inter.encode_p_frame_rows,
+            "inter_padded": h264_inter.encode_p_frame_padded_ref,
+            "halo_pad": batch.spatial_halo_pad,
+            "force_skip": damage_mask.force_skip_rows,
             "cavlc_p_slots": cavlc_p_device.p_frame_slots,
             "pack_p": bitmerge.pack_p_frame,
             "binarize_p": cabac_binarize.binarize_p,
@@ -122,12 +132,13 @@ _LEVEL_KEYS = ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
 def chunk_body(frames, ref_y, ref_cb, ref_cr, hv, hl, rows, qp: int, *,
                deblock: bool, entropy: str, ingest: str, pad_h: int,
                pad_w: int, qp_dev=None, tune: str = "off",
-               p_intra: bool = False) -> ChunkOut:
+               p_intra: bool = False, spatial_shards: int = 1) -> ChunkOut:
     """The chunk as the port's kernels: ``frames`` is ``(rgbs,)`` (K, h,
     w, 3) under rgb ingest, else ``(ys, cbs, crs)`` padded planes;
     ``hv``/``hl`` the K frames' slice-header slots (K, rows, 3) (None
     under CABAC); ``rows`` (K, b) the damage worklists or None; ``tune``
-    and ``p_intra`` the P stage's kernel tier."""
+    and ``p_intra`` the P stage's kernel tier; ``spatial_shards`` the
+    shards of the spatial P body (1 = unsharded)."""
     from . import (cabac_binarize, cavlc_p_device, color, damage_mask,
                    h264_deblock, h264_inter)
 
@@ -164,10 +175,23 @@ def chunk_body(frames, ref_y, ref_cb, ref_cr, hv, hl, rows, qp: int, *,
                                       device=dev)
         lvs["i16_dc"] = torch.empty((k, nr, nc, 16), **i32)
         lvs["i16_ac"] = torch.empty((k, nr, nc, 16, 15), **i32)
+    spatial = None
+    if spatial_shards > 1:
+        from ..parallel import batch
+        spatial = batch._spatial_encode_frame(entropy, deblock, qp,
+                                              spatial_shards, tune=tune,
+                                              p_intra=p_intra)
     for i in range(k):
         out = dict({key: v[i] for key, v in lvs.items()}, mv=mvs[i])
         # the full tier's lookahead: frame i sees i + 1, the last itself
         next_y = ys[min(i + 1, k - 1)] if tune == "hq" else None
+        if spatial is not None:
+            flat, ry, rcb, rcr, _, _ = spatial(
+                ys[i], cbs[i], crs[i], ry, rcb, rcr,
+                None if hv is None else hv[i], None if hl is None else hl[i],
+                next_y=next_y, qp_dev=qp_dev, out=out)
+            flats.append(flat)
+            continue
         if entropy == "cavlc":
             flat, ny, ncb, ncr, mv, nnz, _ = \
                 cavlc_p_device.encode_p_cavlc_frame(
@@ -298,7 +322,7 @@ class ChunkStep:
                  deblock: bool = True, entropy: str = "cavlc",
                  ingest: str = "yuv", damage_bucket: int = 0, device=None,
                  budget: GraphBudget = None, tune: str = "off",
-                 p_intra: bool = False):
+                 p_intra: bool = False, spatial_shards: int = 1):
         if entropy not in ("cavlc", "cabac"):
             raise ValueError(f"unknown chunk entropy {entropy!r}")
         if ingest not in ("yuv", "rgb"):
@@ -315,12 +339,17 @@ class ChunkStep:
         if p_intra and (entropy != "cavlc" or deblock or tune == "off"):
             raise ValueError("p_intra requires tune=hq/hq_noaq, cavlc "
                              "entropy and deblock off")
+        if spatial_shards > 1 and (ingest != "yuv" or damage_bucket > 0):
+            raise ValueError("a spatial chunk requires yuv ingest and no "
+                             "damage bucket (a masked chunk takes a single "
+                             "shard)")
         if damage_bucket > 0 and tune != "off":
             raise NotImplementedError(
                 "a damage-masked chunk with tune != 'off' is not ported to "
                 "the PyTorch/CUDA encoder yet (ROADMAP queue 1 item 10, "
                 "masked)")
         self.tune, self.p_intra = tune, bool(p_intra)
+        self.spatial_shards = int(spatial_shards)
         self.chunk = int(chunk)
         self.pad_h, self.pad_w = pad_h, pad_w
         self.deblock = bool(deblock)
@@ -347,7 +376,8 @@ class ChunkStep:
                           deblock=self.deblock, entropy=self.entropy,
                           ingest=self.ingest, pad_h=self.pad_h,
                           pad_w=self.pad_w, qp_dev=qp_dev, tune=self.tune,
-                          p_intra=self.p_intra)
+                          p_intra=self.p_intra,
+                          spatial_shards=self.spatial_shards)
 
     def run_eager(self, frames, refs, hv, hl, rows, qp: int) -> ChunkOut:
         """The body on the step's device without a graph (the plain
@@ -421,6 +451,8 @@ class ChunkStep:
             self._load(inst, frames, refs, hv, hl, rows, qp)
         inst.graph.replay()
         inst.replays += 1
+        if self.spatial_shards > 1:
+            ChunkStep.spatial.launches += 1
         self.budget.use(inst)
         replayed.update({n: c for n, c in inst.nodes.items()})
         inst.owner = weakref.ref(owner)
@@ -429,6 +461,10 @@ class ChunkStep:
     @property
     def pool_bytes(self) -> int:
         return sum(i.pool_bytes for i in self.instances)
+
+
+# the spatial chunk's replays (row 15h): a graph of its bodies' kernels
+ChunkStep.spatial = _cuda.Counter()
 
 
 # ---------------------------------------------------------------------------

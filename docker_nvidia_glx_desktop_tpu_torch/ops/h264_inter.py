@@ -38,6 +38,12 @@ K5r, :func:`encode_p_frame_rows`, is the same kernel over a worklist of
 MB rows (damage-driven encode, the reference's ``ops/damage_mask.py``
 ``row_core``): compacted outputs of the listed rows, each row searched
 against the whole reference exactly as the full frame's row is.
+
+K5p, :func:`encode_p_frame_padded_ref`, is the reference's
+``encode_p_frame_padded_ref``: the same kernel reading references that
+the caller padded by ``_PAD`` (the spatial shards' halo pad, where a
+shard's padding rows are its neighbour's rows), with the shards stacked
+on the grid's second axis as sessions are, every tier included.
 """
 
 from __future__ import annotations
@@ -614,29 +620,38 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
                  + [res[k] for k in _OUT_KEYS] + [score], ints, dev)
     encode_p_frame.hq.launches += 1
     if p_intra:
-        n = nr * nc
-        cand = {"want": torch.empty((nr, nc), dtype=torch.uint8, device=dev),
-                "ac": torch.empty((n, 16, 15), dtype=torch.int32, device=dev),
-                "cac": torch.empty((n, 2, 4, 15), dtype=torch.int32,
-                                   device=dev),
-                "cdc": torch.empty((n, 2, 4), dtype=torch.int32, device=dev),
-                "ry": torch.empty((n, 256), dtype=torch.uint8, device=dev),
-                "rc": torch.empty((n, 2, 64), dtype=torch.uint8, device=dev)}
-        _cuda.launch("inter", "inter_i16_launch",
-                     [y, cb, cr, res["recon_y"], res["recon_cb"],
-                      res["recon_cr"], qp_dev, qp_map, lam, score,
-                      cand["want"], res["i16_dc"], cand["ac"], cand["cac"],
-                      cand["cdc"], cand["ry"], cand["rc"]], ints, dev)
-        encode_p_frame.i16.launches += 1
-        _cuda.launch("inter", "inter_merge_launch",
-                     [cand["want"], res["i16_dc"], cand["ac"], cand["cac"],
-                      cand["cdc"], cand["ry"], cand["rc"]]
-                     + [res[k] for k in _OUT_KEYS]
-                     + [res["mb_intra"], res["i16_ac"]], [nr, nc], dev)
-        encode_p_frame.merge.launches += 1
+        _i16_passes(y, cb, cr, res, qp_dev, qp_map, lam, score, nr, nc,
+                    ints[2:4], tier, dev)
     if qp_map is not None:
         res["qp_map"] = qp_map
     return res
+
+
+def _i16_passes(y, cb, cr, res, qp_dev, qp_map, lam, score, nr: int,
+                nc: int, qpi, tier: int, dev) -> None:
+    """I16-in-P after the hq form of K5 or K5p: every MB's I16 candidate
+    (pass 2), then per MB row the run-parity gate and the merge (pass 3),
+    over the nr x nc MBs of ``res`` (frame-shaped memory)."""
+    n = nr * nc
+    cand = {"want": torch.empty((nr, nc), dtype=torch.uint8, device=dev),
+            "ac": torch.empty((n, 16, 15), dtype=torch.int32, device=dev),
+            "cac": torch.empty((n, 2, 4, 15), dtype=torch.int32, device=dev),
+            "cdc": torch.empty((n, 2, 4), dtype=torch.int32, device=dev),
+            "ry": torch.empty((n, 256), dtype=torch.uint8, device=dev),
+            "rc": torch.empty((n, 2, 64), dtype=torch.uint8, device=dev)}
+    _cuda.launch("inter", "inter_i16_launch",
+                 [y, cb, cr, res["recon_y"], res["recon_cb"],
+                  res["recon_cr"], qp_dev, qp_map, lam, score,
+                  cand["want"], res["i16_dc"], cand["ac"], cand["cac"],
+                  cand["cdc"], cand["ry"], cand["rc"]],
+                 [nr, nc] + list(qpi) + [tier], dev)
+    encode_p_frame.i16.launches += 1
+    _cuda.launch("inter", "inter_merge_launch",
+                 [cand["want"], res["i16_dc"], cand["ac"], cand["cac"],
+                  cand["cdc"], cand["ry"], cand["rc"]]
+                 + [res[k] for k in _OUT_KEYS]
+                 + [res["mb_intra"], res["i16_ac"]], [nr, nc], dev)
+    encode_p_frame.merge.launches += 1
 
 
 encode_p_frame.launches = 0
@@ -684,3 +699,108 @@ def encode_p_frame_rows(y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp: int,
 
 
 encode_p_frame_rows.launches = 0
+
+
+def encode_p_frame_padded_ref_plain(y, cb, cr, ref_y_pad, ref_cb_pad,
+                                    ref_cr_pad, qp: int, tune: str = "off",
+                                    qp_map=None,
+                                    p_intra: bool = False) -> dict:
+    """Plain PyTorch version of K5p: the P core of one frame (H, W) over
+    references padded by ``_PAD`` ((H + 26, W + 26) and the chroma's),
+    with the full tier's ``qp_map`` given."""
+    return _p_core_plain(y, cb, cr, *(p.to(torch.int32) for p in (
+        ref_y_pad, ref_cb_pad, ref_cr_pad)), int(qp), tune, qp_map, p_intra)
+
+
+def encode_p_frame_padded_ref(y, cb, cr, ref_y_pad, ref_cb_pad, ref_cr_pad,
+                              qp: int, refine: str = "alt",
+                              tune: str = "off", next_y=None,
+                              p_intra: bool = False, qp_dev=None,
+                              out=None) -> dict:
+    """K5p: the P core over references already padded by ``_PAD`` on
+    every side (uint8: the spatial shards' halo pad, neighbour rows at
+    the seams) instead of the clamped reads of :func:`encode_p_frame`.
+
+    One frame: ``y`` (H, W) with ``ref_y_pad`` (H + 26, W + 26) and the
+    chroma's (H/2 + 26, W/2 + 26).  S shards stacked: ``y`` (S, h, W)
+    with pads (S, h + 26, W + 26), each shard searching its own padded
+    reference, every output with the leading shard axis (``out``'s
+    tensors likewise, where given).  ``tune``, ``p_intra``, ``qp_dev``
+    and ``next_y`` as :func:`encode_p_frame`'s; under the full tier the
+    qp plane (K14) and, with ``p_intra``, the I16-in-P passes run over
+    the shards' rows as one frame's (each is a function of an MB and its
+    left neighbour).  CUDA tensors launch the kernel, one CUDA block per
+    MB, the shard the grid's second axis; CPU tensors run the plain
+    version shard by shard."""
+    if refine != "alt":
+        raise NotImplementedError(
+            f"refine={refine!r} is not ported to the PyTorch/CUDA encoder "
+            "yet (ROADMAP queue 1 item 17)")
+    if tune not in aq.TIERS:
+        raise ValueError(f"unknown tune {tune!r}")
+    if p_intra and tune == "off":
+        raise ValueError("p_intra requires tune=hq/hq_noaq")
+    ns = _check_planes(y, cb, cr, sessions=True)
+    lead = tuple(y.shape[:-2])
+    h, w = y.shape[-2:]
+    want = (lead + (h + 2 * _PAD, w + 2 * _PAD),
+            lead + (h // 2 + 2 * _PAD, w // 2 + 2 * _PAD))
+    for p, shape in zip((ref_y_pad, ref_cb_pad, ref_cr_pad),
+                        (want[0], want[1], want[1])):
+        if (tuple(p.shape) != shape or p.dtype != torch.uint8
+                or p.device != y.device or not p.is_contiguous()):
+            raise ValueError(f"padded reference {tuple(p.shape)}: want "
+                             f"contiguous uint8 {shape} on {y.device}")
+    _check_qp(qp, qp_dev, y.device)
+    s = ns or 1
+    nr, nc = h // 16, w // 16
+    keys = _OUT_KEYS + (("qp_map",) if tune == "hq" else ()) \
+        + (_INTRA_KEYS if p_intra else ())
+    frame = lambda t: t.reshape((s * t.shape[-2],) + tuple(t.shape[-1:]))
+    qp_map = None
+    if tune == "hq":
+        q_out = None if out is None else out.get("qp_map")
+        qp_map = aq.qp_plane(frame(y), qp,
+                             None if next_y is None else frame(next_y),
+                             qp_dev, None if q_out is None
+                             else q_out.view(s * nr, nc))
+        qp_map = qp_map.view(lead + (nr, nc))
+    if y.device.type == "cpu":
+        one = lambda i: encode_p_frame_padded_ref_plain(
+            *(t[i] if ns else t for t in (y, cb, cr, ref_y_pad, ref_cb_pad,
+                                         ref_cr_pad)), int(qp), tune,
+            None if qp_map is None else (qp_map[i] if ns else qp_map),
+            p_intra)
+        if ns:
+            from .h264_device import stack_sessions
+            plain = stack_sessions([one(i) for i in range(ns)])
+        else:
+            plain = one(None)
+        if out is None:
+            return plain
+        res = _out_tensors(nr, nc, y, out, keys, lead)
+        return {k: res[k].copy_(plain[k]) for k in keys}
+    res = _out_tensors(nr, nc, y, out, keys, lead)
+    dev = y.device
+    lam = marg = score = None
+    tier = aq.TIERS.index(tune)
+    if tune != "off":
+        lam, _, marg = aq.device_tables(tune, dev)
+    if p_intra:
+        score = torch.empty(lead + (nr, nc), dtype=torch.float32, device=dev)
+    qpi = [int(qp), quant.chroma_qp(int(qp))]
+    _cuda.launch("inter", "inter_frame_padded_launch",
+                 [y, cb, cr, ref_y_pad, ref_cb_pad, ref_cr_pad, qp_dev, qp_map,
+                  lam, marg] + [res[k] for k in _OUT_KEYS] + [score],
+                 [nr, nc] + qpi + [tier, s], dev)
+    encode_p_frame_padded_ref.launches += 1
+    if p_intra:
+        _i16_passes(frame(y), frame(cb), frame(cr), res, qp_dev,
+                    None if qp_map is None else qp_map.view(s * nr, nc),
+                    lam, score, s * nr, nc, qpi, tier, dev)
+    if qp_map is not None:
+        res["qp_map"] = qp_map
+    return res
+
+
+encode_p_frame_padded_ref.launches = 0

@@ -30,6 +30,10 @@ fixed qp and no rate control or content stats, as the reference's.
 CPU tensors run the plain versions session by session
 (:func:`h264_intra_batch_plain`, :func:`h264_p_batch_plain`).
 
+Single-session spatial shards (rows 15e-15h, ``make_spatial_mesh`` ...
+``h264_spatial_chunk_step``): one frame's MB rows over shard devices
+that may repeat one card; see the section's comment below.
+
 The host helpers (``geometry_bucket`` ... ``feasible_spatial_shards``)
 are the reference's arithmetic, copied.
 """
@@ -47,7 +51,7 @@ from ..models.h264 import resolve_device
 from ..models.mjpeg import headers
 from ..obs import metrics as obsm
 from ..obs.trace import next_frame_id, tracer
-from ..ops import bitpack, jpeg_device, quant
+from ..ops import _cuda, bitpack, jpeg_device, quant
 
 # Per-step dispatch histogram: how long the host spends handing one
 # batched tick to the device (the first call includes the kernel build
@@ -568,3 +572,387 @@ def assemble_session_h264(flat_shards, rows_local: int,
         parts.append(cavlc_device.assemble_annexb(
             buf, meta, nal_type=nal_type, ref_idc=ref_idc))
     return b"".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# Single-session spatial shards (rows 15e-15h)
+# ---------------------------------------------------------------------------
+# The reference splits ONE frame's MB rows over nx devices: slice per MB
+# row makes each shard's rows a self-contained set of slices, the motion
+# search crosses a seam through the reference halo, the loop filter (idc
+# 2) never crosses a row, and each shard emits its own entropy (CAVLC
+# flats joined NAL by NAL, CABAC record streams stitched row-wise on the
+# host), so the access unit equals the unsharded one byte for byte.
+#
+# Here the shard devices may repeat one device, the port's counterpart of
+# the reference's forced host-platform devices; on one card the shard is a
+# grid axis.  A shard's rows are rows s * rows_local + r of the frame, so
+# the kernels whose MB rows are independent (the intra core K1, the slot
+# coders K2/K6 with the qp chain, the loop filter K8, the qp plane K14,
+# the I16-in-P passes) run once over the frame's rows; the packers K3/K7
+# take the shard axis as sessions (each shard's flat, META and header
+# slots its own); the P core runs in its padded-reference form K5p over
+# each shard's halo-padded reference (15e); K11 runs once per shard on
+# its row range; the masked step gates rows with K13s.  Shards on
+# distinct cards (the peer copy of the halo rows) are ROADMAP item 11m.
+
+def indexed_device(d) -> torch.device:
+    """``d`` as a torch.device, "cuda" without an index as the current
+    CUDA device's."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def make_spatial_mesh(nx: int, devices=None) -> list:
+    """The ``nx`` shard devices of one spatially sharded session: the
+    first ``nx`` of ``devices`` (every CUDA device by default).  The list
+    may repeat one device (``[torch.device("cpu")] * nx``, ``["cuda:0"] *
+    nx``); distinct CUDA devices raise, naming ROADMAP item 11m."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devs = [indexed_device(d) for d in list(devices)[:int(nx)]]
+    if nx < 1 or len(devs) < nx:
+        raise ValueError(f"{nx} spatial shards over {len(devs)} devices")
+    if len(set(devs)) > 1:
+        raise NotImplementedError(
+            "spatial shards on distinct devices (the peer copy of the halo "
+            "rows) are not ported to the PyTorch/CUDA encoder yet (ROADMAP "
+            "queue 1 item 11m)")
+    return devs
+
+
+def spatial_halo_pad_plain(ref_y, ref_cb, ref_cr, nx: int,
+                           halo: bool = True):
+    """Plain version of 15e, in the reference's order per shard: the
+    neighbour shards' ``_PAD`` rows above and below (edge copies at the
+    frame's top and bottom), or with ``halo=False`` the shard's own edge
+    rows, then ``_PAD`` edge columns at each side.  Returns the padded
+    luma (nx, H/nx + 26, W + 26) and chroma planes, uint8."""
+    from ..ops.h264_inter import _PAD
+
+    out = []
+    for ref in (ref_y, ref_cb, ref_cr):
+        h, w = ref.shape
+        hl = h // nx
+        shards = []
+        for s in range(nx):
+            local = ref[s * hl:(s + 1) * hl]
+            if halo and nx > 1:
+                top = (local[:1].expand(_PAD, w) if s == 0
+                       else ref[s * hl - _PAD:s * hl])
+                bot = (local[-1:].expand(_PAD, w) if s == nx - 1
+                       else ref[(s + 1) * hl:(s + 1) * hl + _PAD])
+            else:
+                top, bot = local[:1].expand(_PAD, w), local[-1:].expand(_PAD, w)
+            rows = torch.cat([top, local, bot])
+            shards.append(torch.cat([rows[:, :1].expand(-1, _PAD), rows,
+                                     rows[:, -1:].expand(-1, _PAD)], dim=1))
+        out.append(torch.stack(shards).contiguous())
+    return tuple(out)
+
+
+def spatial_halo_pad(ref_y, ref_cb, ref_cr, nx: int, halo: bool = True):
+    """Row 15e: each of ``nx`` shards' reference planes padded by
+    ``_PAD`` (the reference's ``_spatial_halo_pad``, whose shards'
+    ``P("spatial", None)`` layout is here ``cavlc_device.shard_view`` of
+    the frame's planes and rows): the neighbour
+    shard's rows at an interior seam, edge copies at the frame's edges;
+    ``halo=False`` (the measurement twin) copies the shard's own edge
+    rows at every seam.  ``ref_*`` are the whole frame's uint8 planes
+    (H, W), (H/2, W/2); returns (nx, H/nx + 26, W + 26) and (nx, H/(2 nx)
+    + 26, W/2 + 26) uint8 planes.  CUDA tensors launch ``csrc/spatial.cu``
+    (a thread per output byte); CPU tensors run the plain version."""
+    from ..ops.h264_device import _check_planes
+    from ..ops.h264_inter import _PAD
+
+    _check_planes(ref_y, ref_cb, ref_cr)
+    h, w = ref_y.shape
+    if nx < 1 or h % (16 * nx):
+        raise ValueError(f"{h} lines do not split into {nx} shards of MB "
+                         "rows")
+    if ref_y.device.type == "cpu":
+        return spatial_halo_pad_plain(ref_y, ref_cb, ref_cr, nx, halo)
+    dev = ref_y.device
+    out = (torch.empty((nx, h // nx + 2 * _PAD, w + 2 * _PAD),
+                       dtype=torch.uint8, device=dev),) + tuple(
+        torch.empty((nx, h // (2 * nx) + 2 * _PAD, w // 2 + 2 * _PAD),
+                    dtype=torch.uint8, device=dev) for _ in range(2))
+    _cuda.launch("spatial", "halo_pad_launch",
+                 [ref_y, ref_cb, ref_cr, *out], [h, w, nx, int(halo)], dev)
+    spatial_halo_pad.launches += 1
+    return out
+
+
+spatial_halo_pad.launches = 0
+
+
+def _frame_view(t: torch.Tensor) -> torch.Tensor:
+    """(nx, R/nx, ...) shard stacks -> the frame's (R, ...), a view."""
+    return t.reshape((t.shape[0] * t.shape[1],) + tuple(t.shape[2:]))
+
+
+# P-path levels keys: the host coder's overflow fallback tensors
+_P_LEVEL_KEYS = ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
+_INTRA_BIN_KEYS = ("luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc", "cr_ac",
+                   "pred_mode", "mb_i4", "i4_modes", "luma_i4")
+
+
+def _binarize_shards(fn, nx: int, tensors) -> torch.Tensor:
+    """K11 once per shard on its row range: the shards' record streams
+    (nx, words), each with its own header over its rows."""
+    rows = tensors[0].shape[0] // nx
+    return torch.stack([fn(*(t[s * rows:(s + 1) * rows] for t in tensors))
+                        for s in range(nx)])
+
+
+def _spatial_intra_body(y, cb, cr, hv, hl, qp: int, nx: int, entropy: str,
+                        deblock: bool, with_recon: bool, tune: str):
+    """15f on one frame's planes: the intra core (K1) over the frame's
+    rows, then per shard the CAVLC slots and packer (K2, K3 with the
+    shard axis, ``hv``/``hl`` the shards' (nx, R/nx, 3) header slots) or
+    the record stream (K11i), and the loop filter (K8)."""
+    from ..ops import cabac_binarize, cavlc_device, h264_deblock, h264_device
+
+    lv = h264_device.encode_intra_frame_yuv(y, cb, cr, qp, tune=tune)
+    recon = tuple(lv[k] for k in ("recon_y", "recon_cb", "recon_cr"))
+    if deblock and with_recon:
+        recon = h264_deblock.deblock_frame(*recon, qp)
+    if entropy == "cavlc":
+        flat = cavlc_device.encode_levels(lv, hv, hl, qp, shards=nx)
+        return (flat,) + recon if with_recon else flat
+    buf = _binarize_shards(cabac_binarize.binarize_intra, nx,
+                           [lv[k] for k in _INTRA_BIN_KEYS])
+    small = {k: lv[k] for k in _INTRA_BIN_KEYS}
+    return (buf,) + (recon if with_recon else ()) + (small,)
+
+
+def _spatial_encode_frame(entropy: str, deblock: bool, qp: int, nx: int,
+                          halo: bool = True, tune: str = "off",
+                          p_intra: bool = False):
+    """The P body both spatial builders run (the per-frame step and the
+    chunk graph): the halo pad (15e), the padded-reference P core (K5p)
+    with the shard axis, [the forced-skip gate (K13s)], per shard the
+    CAVLC slots and packer (K6 over the frame's rows, K7 with the shard
+    axis) or the record stream (K11p), and the loop filter (K8).
+
+    Returns fn(y, cb, cr, ry, rcb, rcr, hv, hl, next_y=None, keep=None,
+    qp_dev=None, out=None) -> (flat (nx, L), ry', rcb', rcr', mv, levels)
+    over the frame's (H, W) planes; ``hv``/``hl`` the frame's (R, 3)
+    header slots (CAVLC), ``keep`` the (R,) bool row gate (CAVLC, the
+    masked step), ``out`` frame-shaped tensors for the P core's MVs and
+    levels (a chunk's stacks)."""
+    from ..ops import (cabac_binarize, cavlc_p_device, damage_mask,
+                       h264_deblock, h264_inter)
+    from ..ops.cavlc_device import shard_view
+
+    if tune == "hq" and entropy == "cabac":
+        raise ValueError("tune=hq has no device-binarize qp plumbing (use "
+                         "dense CABAC)")
+    if p_intra and (entropy != "cavlc" or deblock):
+        raise ValueError("p_intra requires cavlc entropy, deblock off")
+    sv = lambda t: None if t is None else shard_view(t, nx)
+
+    def encode_one(y, cb, cr, ry, rcb, rcr, hv, hl, next_y=None, keep=None,
+                   qp_dev=None, out=None):
+        pads = spatial_halo_pad(ry, rcb, rcr, nx, halo)
+        o = h264_inter.encode_p_frame_padded_ref(
+            sv(y), sv(cb), sv(cr), *pads, qp, tune=tune, next_y=sv(next_y),
+            p_intra=p_intra, qp_dev=qp_dev,
+            out=None if out is None else {k: sv(v) for k, v in out.items()})
+        o = {k: _frame_view(v) for k, v in o.items()}
+        if entropy == "cavlc":
+            if keep is not None:
+                damage_mask.force_skip_rows(o, keep, ry, rcb, rcr)
+            flat, ny, ncb, ncr, mv, nnz, lv = cavlc_p_device._finish_p(
+                o, sv(hv), sv(hl), slice_qp=qp, qp_dev=qp_dev, shards=nx)
+            filt = dict(nnz_blk=nnz)
+        else:
+            mv = o["mv"]
+            flat = _binarize_shards(cabac_binarize.binarize_p, nx,
+                                    [mv] + [o[k] for k in _P_LEVEL_KEYS])
+            ny, ncb, ncr = o["recon_y"], o["recon_cb"], o["recon_cr"]
+            lv = {k: o[k] for k in _P_LEVEL_KEYS}
+            filt = dict(luma=o["luma"])
+        if deblock:
+            ny, ncb, ncr = h264_deblock.deblock_frame(
+                ny, ncb, ncr, qp, mv=mv, qp_dev=qp_dev, **filt)
+        return flat, ny, ncb, ncr, mv, lv
+
+    return encode_one
+
+
+def _check_spatial(mesh, frame_h: int, frame_w: int, entropy: str,
+                   tune: str, p: bool) -> int:
+    nx = len(mesh)
+    if frame_h % (16 * nx) or frame_w % 16:
+        raise ValueError("MB rows must split across the shards")
+    if p and not p_halo_feasible(frame_h, nx):
+        raise ValueError("shards too short for the halo")
+    if entropy not in ("cavlc", "cabac"):
+        raise ValueError(f"unknown spatial entropy {entropy!r}")
+    if tune == "hq" and entropy == "cabac":
+        raise ValueError("tune=hq has no device-binarize qp plumbing (use "
+                         "dense CABAC)")
+    return nx
+
+
+class SpatialIntraStep(_Step):
+    """Row 15f: ``step(y, cb, cr, hv, hl)`` (CAVLC) -> flats (nx, L)
+    [+ recon planes (H, W), (H/2, W/2) x 2, on the device, loop-filtered
+    with ``deblock``]; ``step(y, cb, cr)`` (CABAC) -> (record streams
+    (nx, Lb)[, recon planes], levels), the levels the frame's
+    (R, C, ...) tensors the dense fallback takes.  ``hv``/``hl`` are the
+    frame's (R, 3) slice-header slots; shard s packs rows s * R/nx ..."""
+
+    kind = "h264_sp_intra"
+    launches = 0
+
+    def __init__(self, mesh, frame_h, frame_w, qp, entropy, deblock,
+                 with_recon, tune):
+        super().__init__(frame_h, frame_w, qp, mesh[0])
+        self.nx = _check_spatial(mesh, frame_h, frame_w, entropy, tune,
+                                 False)
+        self.entropy, self.tune = entropy, tune
+        self.deblock, self.with_recon = bool(deblock), bool(with_recon)
+
+    def _run(self, y, cb, cr, hv=None, hl=None):
+        dev = self.device
+        y, cb, cr = (_planes(a, dev) for a in (y, cb, cr))
+        if tuple(y.shape) != (self.frame_h, self.frame_w):
+            raise ValueError(f"planes {tuple(y.shape)} are not "
+                             f"({self.frame_h}, {self.frame_w})")
+        view = lambda t: _slots(t, dev).view(self.nx, self.nr // self.nx, 3)
+        if self.entropy == "cavlc":
+            hv, hl = view(hv), view(hl)
+        out = _spatial_intra_body(y, cb, cr, hv, hl, self.qp, self.nx,
+                                  self.entropy, self.deblock,
+                                  self.with_recon, self.tune)
+        if dev.type == "cuda":
+            SpatialIntraStep.launches += 1
+        return out
+
+
+class SpatialPStep(_Step):
+    """Row 15g: ``step(y, cb, cr, ref_y, ref_cb, ref_cr, hv, hl[, keep])``
+    (CAVLC; ``keep`` the masked step's (R,) bool row gate) or ``step(y,
+    cb, cr, ref_y, ref_cb, ref_cr)`` (CABAC) -> (flats (nx, L) or record
+    streams (nx, Lb), ref_y', ref_cb', ref_cr', mv (R, C, 2), levels): the
+    P frame over the shards, the references only read, the new ones on
+    the device.  ``halo=False`` builds the measurement twin (edge copies
+    at the seams: other bytes, the same work)."""
+
+    kind = "h264_sp_p"
+    launches = 0
+
+    def __init__(self, mesh, frame_h, frame_w, qp, deblock, entropy, halo,
+                 tune, p_intra, masked):
+        super().__init__(frame_h, frame_w, qp, mesh[0])
+        self.nx = _check_spatial(mesh, frame_h, frame_w, entropy, tune, True)
+        if masked and entropy != "cavlc":
+            raise ValueError("the masked spatial step takes cavlc entropy")
+        self.entropy, self.masked = entropy, bool(masked)
+        self.body = _spatial_encode_frame(entropy, deblock, self.qp, self.nx,
+                                          halo=halo, tune=tune,
+                                          p_intra=p_intra)
+
+    def _run(self, y, cb, cr, ref_y, ref_cb, ref_cr, hv=None, hl=None,
+             keep=None):
+        dev = self.device
+        planes = [_planes(a, dev) for a in (y, cb, cr, ref_y, ref_cb,
+                                            ref_cr)]
+        if tuple(planes[0].shape) != (self.frame_h, self.frame_w):
+            raise ValueError(f"planes {tuple(planes[0].shape)} are not "
+                             f"({self.frame_h}, {self.frame_w})")
+        if self.entropy == "cavlc":
+            hv, hl = _slots(hv, dev), _slots(hl, dev)
+        if self.masked != (keep is not None):
+            raise ValueError("the masked step takes a keep mask, the "
+                             "others none")
+        if keep is not None:
+            if not isinstance(keep, torch.Tensor):
+                keep = torch.from_numpy(np.asarray(keep, bool))
+            keep = keep.to(dev, torch.bool)
+        out = self.body(*planes, hv, hl, keep=keep)
+        if dev.type == "cuda":
+            SpatialPStep.launches += 1
+        return out
+
+
+def h264_spatial_intra_step(mesh, frame_h: int, frame_w: int, qp: int = 26,
+                            entropy: str = "cavlc", i16_modes: str = "auto",
+                            deblock: bool = False, with_recon: bool = True,
+                            tune: str = "off"):
+    """The single-session spatial IDR step (row 15f) over the shard
+    devices ``mesh`` (:func:`make_spatial_mesh`): (step, rows_local), see
+    :class:`SpatialIntraStep`."""
+    if i16_modes != "auto":
+        raise NotImplementedError(
+            f"i16_modes={i16_modes!r} is not ported to the PyTorch/CUDA "
+            "encoder yet (ROADMAP queue 1 item 17)")
+    step = SpatialIntraStep(mesh, frame_h, frame_w, qp, entropy, deblock,
+                            with_recon, tune)
+    return step, step.nr // step.nx
+
+
+def h264_spatial_step(mesh, frame_h: int, frame_w: int, qp: int = 26,
+                      deblock: bool = False, entropy: str = "cavlc",
+                      halo: bool = True, tune: str = "off",
+                      p_intra: bool = False, masked: bool = False):
+    """The single-session spatial P step (row 15g): (step, rows_local),
+    see :class:`SpatialPStep`."""
+    step = SpatialPStep(mesh, frame_h, frame_w, qp, deblock, entropy, halo,
+                        tune, p_intra, masked)
+    return step, step.nr // step.nx
+
+
+def h264_spatial_chunk_step(mesh, frame_h: int, frame_w: int, chunk: int,
+                            deblock: bool = False, entropy: str = "cavlc",
+                            tune: str = "off", p_intra: bool = False,
+                            budget=None):
+    """The single-session spatial chunk step (row 15h): ``ops/devloop``'s
+    :class:`ChunkStep` with the spatial P body per frame (the reference's
+    ``h264_spatial_chunk_step``, to which its ``build_p_chunk_step``
+    delegates under ``spatial_shards > 1``).  On the card, one replay of a
+    captured CUDA graph of ``chunk`` bodies, the halo pad and the loop
+    filter inside; ``step(frames, refs, hv, hl, None, qp, owner)`` ->
+    ``ChunkOut`` whose ``flats[k]`` are frame k's (nx, L) shard buffers.
+    Unlike the reference's builder it takes the geometry and the chunk
+    (a graph is shape-specialized when it is captured) and the qp per
+    call (from device memory inside the graph)."""
+    from ..ops import devloop
+
+    nx = _check_spatial(mesh, frame_h, frame_w, entropy, tune, True)
+    return devloop.ChunkStep(
+        chunk=chunk, pad_h=frame_h, pad_w=frame_w, deblock=deblock,
+        entropy=entropy, ingest="yuv", device=mesh[0], budget=budget,
+        tune=tune, p_intra=p_intra, spatial_shards=nx)
+
+
+def h264_spatial_intra_plain(y, cb, cr, hv, hl, qp: int, nx: int,
+                             entropy: str = "cavlc", deblock: bool = False,
+                             with_recon: bool = True, tune: str = "off"):
+    """Plain version of 15f: the same body with every kernel's plain
+    version (the planes moved to the CPU)."""
+    cpu = lambda t: None if t is None else t.cpu()
+    return _spatial_intra_body(
+        *(cpu(t) for t in (y, cb, cr)),
+        None if hv is None else cpu(hv).view(nx, -1, 3),
+        None if hl is None else cpu(hl).view(nx, -1, 3), int(qp), nx,
+        entropy, deblock, with_recon, tune)
+
+
+def h264_spatial_p_plain(y, cb, cr, ref_y, ref_cb, ref_cr, hv, hl, qp: int,
+                         nx: int, entropy: str = "cavlc",
+                         deblock: bool = False, halo: bool = True,
+                         tune: str = "off", p_intra: bool = False,
+                         keep=None, next_y=None):
+    """Plain version of 15g (and of one body of 15h): the same body with
+    every kernel's plain version, on the CPU."""
+    cpu = lambda t: None if t is None else t.cpu()
+    body = _spatial_encode_frame(entropy, deblock, int(qp), nx, halo=halo,
+                                 tune=tune, p_intra=p_intra)
+    return body(*(cpu(t) for t in (y, cb, cr, ref_y, ref_cb, ref_cr, hv,
+                                    hl)), next_y=cpu(next_y), keep=cpu(keep))

@@ -235,6 +235,34 @@ print("LEAKED", bad)
 """
 
 
+_BLOCKED_SPATIAL = """
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
+# two shards on the CPU, per frame and in the chunk ring, CAVLC and the
+# masked row gate
+for chunk, mask in ((0, False), (4, False), (0, True)):
+    enc = H264Encoder(64, 64, gop=9, deblock=True, host_color=True,
+                      superstep_chunk=chunk, spatial_shards=2,
+                      damage_mask=mask, device="cpu",
+                      spatial_devices=[torch.device("cpu")] * 2)
+    assert enc._spatial_nx == 2
+    frame = np.full((64, 64, 3), 90, np.uint8)
+    toks = []
+    for i in range(5):
+        frame[8:24, 4 * i:4 * i + 16] = 200
+        toks.append(enc.encode_submit(frame))
+    assert all(enc.encode_collect(t).data for t in toks)
+bad = sorted(m for m in sys.modules
+             if m == "docker_nvidia_glx_desktop_tpu"
+             or m.startswith("docker_nvidia_glx_desktop_tpu."))
+print("LEAKED", bad)
+"""
+
+
 def _run(code: str, cwd=None, timeout=120):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -257,6 +285,12 @@ def test_port_encodes_a_gop_with_jax_blocked():
 def test_port_encodes_the_chunk_ring_and_the_damage_mask_with_jax_blocked():
     out = _run(_BLOCKED_RING_DAMAGE.format(repo=str(REPO)),
                cwd=str(REPO.parent))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LEAKED []" in out.stdout
+
+
+def test_port_encodes_spatial_shards_with_jax_blocked():
+    out = _run(_BLOCKED_SPATIAL.format(repo=str(REPO)), cwd=str(REPO.parent))
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LEAKED []" in out.stdout
 
@@ -327,25 +361,59 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
     ({"ENCODER_GOP": "60", "ENCODER_TUNE": "hq",
       "DNGD_DAMAGE_MASK": "true"}, "item 10"),
     ({"ENCODER_GOP": "1", "ENCODER_ENTROPY": "native"}, "item 17"),
-    ({"ENCODER_GOP": "60", "ENCODER_TUNE": "hq",
-      "ENCODER_SPATIAL_SHARDS": "2"}, "item 11"),
-    ({"ENCODER_GOP": "60", "ENCODER_SUPERSTEP_CHUNK": "4",
-      "ENCODER_SPATIAL_SHARDS": "2"}, "item 11"),
-    ({"ENCODER_GOP": "1", "ENCODER_SPATIAL_SHARDS": "2"}, "item 11"),
+    # ENCODER_SPATIAL_SHARDS on one device: the reference resolves the
+    # knob to one shard there, so these serve (item None), their AUs equal
+    # the reference encoder's with the same knob (the ids are the ones the
+    # cases had when they pinned a refusal)
+    pytest.param({"ENCODER_GOP": "60", "ENCODER_TUNE": "hq",
+                  "ENCODER_BITRATE_KBPS": "0",
+                  "ENCODER_SPATIAL_SHARDS": "2"}, None, id="env2-item 11"),
+    pytest.param({"ENCODER_GOP": "60", "ENCODER_SUPERSTEP_CHUNK": "4",
+                  "ENCODER_BITRATE_KBPS": "0",
+                  "ENCODER_SPATIAL_SHARDS": "2"}, None, id="env3-item 11"),
+    pytest.param({"ENCODER_GOP": "1", "ENCODER_BITRATE_KBPS": "0",
+                  "ENCODER_SPATIAL_SHARDS": "2"}, None, id="env4-item 11"),
     ({"ENCODER_GOP": "1", "ENCODER_INTRA_MODES": "full"}, "item 17"),
     ({"WEBRTC_ENCODER": "tpuvp8enc"}, "item 13"),
+    # what stays unported over several shard devices
+    ({"ENCODER_GOP": "60", "ENCODER_SPATIAL_SHARDS": "auto",
+      "_devices": "cpu,cpu"}, "item 14"),
+    ({"ENCODER_GOP": "60", "ENCODER_SPATIAL_SHARDS": "2", "SIZEH": "64",
+      "_devices": "cuda:0,cuda:1"}, "item 11m"),
 ])
 def test_unported_settings_raise_naming_the_roadmap_item(env, item,
                                                          monkeypatch):
+    import numpy as np
+    import torch
+
     from docker_nvidia_glx_desktop_tpu_torch.models import make_encoder
     from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
 
+    env = dict(env)
+    devices = env.pop("_devices", None)
+    if devices is not None:
+        devices = [torch.device(d) for d in devices.split(",")]
     for k, v in env.items():            # the process-wide knobs
         if k.startswith("DNGD_"):
             monkeypatch.setenv(k, v)
-    cfg = from_env(dict({"SIZEW": "64", "SIZEH": "48"}, **env))
-    with pytest.raises(NotImplementedError, match=item):
-        make_encoder(cfg, 64, 48, device="cpu")
+    env = dict({"SIZEW": "64", "SIZEH": "48"}, **env)
+    w, h = int(env["SIZEW"]), int(env["SIZEH"])
+    cfg = from_env(env)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            make_encoder(cfg, w, h, device="cpu", spatial_devices=devices)
+        return
+    from docker_nvidia_glx_desktop_tpu.models import make_encoder as j_make
+    from docker_nvidia_glx_desktop_tpu.utils.config import from_env as j_env
+
+    enc, _ = make_encoder(cfg, w, h, device="cpu")
+    assert enc._spatial_nx == 1 and len(enc.spatial_devices) == 1
+    ref, _ = j_make(j_env(env), w, h)
+    rng = np.random.default_rng(8)
+    base = rng.integers(0, 256, (h, w, 3), np.uint8)
+    for i in range(5):
+        frame = np.ascontiguousarray(np.roll(base, 2 * i, axis=1))
+        assert enc.encode(frame).data == ref.encode(frame).data, i
 
 
 def test_chip_smoke_fails_without_cuda_and_outside_the_repo(tmp_path):
