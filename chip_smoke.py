@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in ten phases:
+seeded generator, in eleven phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -55,7 +55,13 @@ seeded generator, in ten phases:
   then over ``spatial_devices=[cuda:0] * nx`` for nx = 2 and 4: CAVLC
   and CABAC-device per frame and in chunk-4 rings, hq_noaq and the
   masked row gate (the halo pad 15e, the padded-reference P core K5p,
-  the gate 13s, the steps 15f-15h).
+  the gate 13s, the steps 15f-15h);
+- **bench**: the port's bench as its user runs it (``bench.main`` under a
+  shortened ``BENCH_TIMEOUT_S``: the all-intra headline, GOP, the
+  device-only timing loops at 1080p and 4K, CABAC's device and host
+  stages; ``bench.bdrate_main(quick=True)``): the SSE reduction K14d and
+  the loops' kernels K17p (input perturbation) and K17c (checksum carry),
+  each loop a captured graph replayed K times (rows 14d, 17a-f).
 
 Checks, each of which fails the run:
 
@@ -108,6 +114,12 @@ Checks, each of which fails the run:
           of 15f, one P frame of 15g and of the masked 15g, and a chunk
           of 15h against the plain steps; 15h's replay against its
           eager body
+  bench   the bench's JSON free of error keys (the item refusals are
+          values), every block run, K14d, K17p and K17c counted on its
+          path and equal to their plain versions at 1080p (the
+          full-scale SSE pair 65025), each loop's graph replay equal to
+          its eager kernel loop at 1080p and to its plain loop at
+          320x192 (checksum, last transport, chained planes)
   check   NAL structure, recon PSNR, qp moved, no jax imported
 
 Prints the card's name and power limit, per-kernel times beside their
@@ -119,7 +131,8 @@ count and memory pools, the hq tiers' K1 and K5 times and frames/s
 against tune=off, the sessions' tick times and frames/s at S = 1-8,
 K1 and K5 batched against S single launches and the buckets' graph
 pools, the link rtt, the spatial shards' step and kernel times, K5p
-against K5 and frames/s at nx = 1, 2, 4, the script's total run time,
+against K5 and frames/s at nx = 1, 2, 4, the bench's JSON lines and each
+timing loop's step ms at 1080p and 4K, the script's total run time,
 a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, without CUDA or
 outside a checkout of the repository.
@@ -313,6 +326,22 @@ def graph_ms(fn, reps: int = 20):
     return cuda_ms(g.replay, reps=reps)
 
 
+def graph_each_ms(fn, n: int = 32, reps: int = 10):
+    """Median ms of one call of ``fn`` out of ``n`` captured back to back
+    in one CUDA graph (CUDA events around a replay, over ``n``): a short
+    kernel's device time without the graph's own launch, which
+    ``graph_ms`` of one call includes."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return cuda_ms(g.replay, reps=reps) / n
+
+
 def device_busy(enc, frames, depth: int = 2):
     """Device busy share over a short window with ``depth`` frames in
     flight, from a torch.profiler trace (kernel and copy time over host
@@ -480,6 +509,8 @@ def run():
     print(f"sessions phase done at {time.perf_counter() - t_start:.0f} s")
     rows += spatial_phase(report)
     print(f"spatial phase done at {time.perf_counter() - t_start:.0f} s")
+    rows += bench_phase(report, rows)
+    print(f"bench phase done at {time.perf_counter() - t_start:.0f} s")
     check("jax" not in sys.modules, "the port imported jax")
     report["kernels"] = rows
     report["wall_s"] = time.perf_counter() - t_start
@@ -4104,6 +4135,355 @@ def spatial_timed(nx: int, frames) -> dict:
         lat.append(time.perf_counter() - ts)
     wall = time.perf_counter() - t0
     return {"fps": len(frames) / wall, "p50_ms": statistics.median(lat) * 1e3}
+
+
+# -- the bench phase: rows 14d and 17a-f -------------------------------------
+
+BENCH_TIMEOUT_S = 120       # the port's bench main under a shortened budget
+BENCH_DEVICE = "cuda"
+LOOP_SMALL = (320, 192)     # the loops against their plain versions
+LOOP_CASES = (              # (loop, options): every option on and off
+    ("intra", {}), ("p", {"deblock": True}), ("p", {"deblock": False}),
+    ("cabac_intra", {"binarize": False}), ("cabac_intra", {"binarize": True}),
+    ("inter", {}), ("deblock", {}),
+    ("cabac_p", {"deblock": True, "binarize": False}),
+    ("cabac_p", {"deblock": False, "binarize": True}))
+TIER_CLASSES = ("panning_motion", "scrolling")  # run_tier against plain
+TIER_QPS = (26, 38)
+# the options of the timed loops and of the 4K check
+LOOP_TIMED = {"p": {"deblock": True}, "cabac_p": {"deblock": True}}
+# steps of the 4K check: two for the loops that chain planes
+LOOP_4K_STEPS = {"intra": 1, "cabac_intra": 1}
+# each loop's body, as the kernel rows of the earlier phases (this run) that
+# bound it, and the reference's line
+LOOP_BODY = {
+    "intra": (("intra", "cavlc_slots", "pack"), "devloop.py:41 intra_loop"),
+    "p": (("inter", "cavlc_p_slots", "pack_p", "deblock"),
+          "devloop.py:60 p_loop (deblock=True)"),
+    "cabac_intra": (("intra", "level_pack"),
+                    "devloop.py:88 cabac_intra_loop (binarize=False)"),
+    "inter": (("inter",), "devloop.py:118 inter_loop"),
+    "deblock": (("deblock",), "devloop.py:140 deblock_loop"),
+    "cabac_p": (("inter", "deblock", "level_pack"),
+                "devloop.py:161 cabac_p_loop (deblock=True, binarize=False)"),
+}
+
+
+def loop_call(name, opts, cur, ref, slots, k, qp=26, **kw):
+    """One call of the port's loop ``name`` at ``k`` steps."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import devloop
+
+    fn = getattr(devloop, f"{name}_loop")
+    if name == "intra":
+        return fn(*cur, *slots[0], k, qp, **opts, **kw)
+    if name == "p":
+        return fn(*cur, *ref, *slots[1], k, qp, **opts, **kw)
+    if name in ("inter", "cabac_p"):
+        return fn(*cur, *ref, k, qp, **opts, **kw)
+    return fn(*cur, k, qp, **opts, **kw)
+
+
+def loop_inputs(w: int, h: int, dev, seed: int):
+    """A frame's planes (the bench frame's colour conversion, tiled to
+    the geometry), an unrelated reference and the encoder's slots."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch import bench
+    from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
+
+    f = np.tile(bench.make_frames()[0], (3, 2, 1))[:h, :w]
+    enc = H264Encoder(w, h, host_color=True, device=dev)
+    cur = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+           for p in enc._host_yuv420(f)]
+    rng = np.random.default_rng(seed)
+    ref = [torch.from_numpy(rng.integers(0, 256, tuple(p.shape), np.uint8)).to(dev)
+           for p in cur]
+    return cur, ref, (enc._hdr_slots(0, 0), enc._p_hdr_slots(1, 0))
+
+
+def walk_errors(obj, path=""):
+    """Every key of a bench result naming an error, with its value."""
+    out = []
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            if "error" in str(k):
+                out.append((path + str(k), v))
+            out += walk_errors(v, path + str(k) + ".")
+    return out
+
+
+def tiers_against_plain(bench, bd, dev) -> str:
+    """``run_tier`` at the ``--bdrate --quick`` geometry on the card and on
+    the host's CPU (the plain versions): every frame's bits and luma PSNR
+    equal at each tier (K1 and K5 in their off, hq_noaq and hq forms), and
+    the card's bits equal to the ``bdrate_main`` run's at that point."""
+    w, h = (int(v) for v in bd["bdrate"]["geometry"].split("x"))
+    n, qps = bd["bdrate"]["frames"], bd["bdrate"]["qps"]
+    done = []
+    for cls in TIER_CLASSES:
+        frames = bench._bdrate_frames(cls, w, h, n)
+        for qp in TIER_QPS:
+            for tier in ("off", "hq_noaq", "hq"):
+                g = bench.run_tier(frames, tier, qp, w, h, dev)
+                p = bench.run_tier(frames, tier, qp, w, h, "cpu")
+                check(g["frame_bits"] == p["frame_bits"],
+                      f"run_tier {cls} qp {qp} {tier}: bits {g['frame_bits']} "
+                      f"against the plain {p['frame_bits']}")
+                check(g["frame_psnr_y"] == p["frame_psnr_y"],
+                      f"run_tier {cls} qp {qp} {tier}: PSNR "
+                      f"{g['frame_psnr_y']} against the plain "
+                      f"{p['frame_psnr_y']}")
+                want = bd["bdrate"]["classes"][cls]["tiers"][tier][
+                    "rate_bits"][qps.index(qp)]
+                check(g["bits"] == want, f"run_tier {cls} qp {qp} {tier}: "
+                      f"{g['bits']} bits against the bdrate run's {want}")
+                done.append(g["bits"])
+    return (f"{len(done)} points ({', '.join(TIER_CLASSES)} x qp "
+            f"{', '.join(map(str, TIER_QPS))} x off, hq_noaq, hq; {w}x{h}, "
+            f"{n} frames) equal to the plain versions frame by frame, bits "
+            "and PSNR, and to the bdrate run's bits")
+
+
+def bench_phase(report, rows_before):
+    """The port's bench (``docker_nvidia_glx_desktop_tpu_torch.bench``) as
+    its user runs it: ``main`` under a shortened ``BENCH_TIMEOUT_S`` (the
+    headline, gop, the device-only loops, CABAC and 4k blocks) and
+    ``bdrate_main(quick=True)``, with K14d, K17p, K17c and each loop's
+    graph replays counted, and ``run_tier`` at that geometry on the card
+    against the plain versions; then K14d, K17p and K17c against their
+    plain versions at 1080p (the full-scale SSE pair included), each
+    loop's replay against its eager kernel loop at 1080p and against the
+    plain loop at 320x192, 1080p (one step) and 4K, and each loop's
+    device-only step ms at 1080p and 4K beside the sum of its body's
+    kernel times.  A loop's max_abs_err is the largest difference of
+    these comparisons, checksum included."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch import bench
+    from docker_nvidia_glx_desktop_tpu_torch.ops import aq, devloop
+
+    t_phase = time.perf_counter()
+    dev = torch.device(BENCH_DEVICE)
+    rep = report.setdefault("bench", {})
+    saved_env = {k: v for k, v in os.environ.items()
+                 if k.startswith(("ENCODER_", "DNGD_", "BENCH_"))}
+    for k in saved_env:
+        del os.environ[k]
+    os.environ["BENCH_TIMEOUT_S"] = str(BENCH_TIMEOUT_S)
+    named = {"perturb": devloop.perturb, "tick": devloop.tick,
+             "sse_planes": aq.sse_planes}
+    try:
+        # -- main: the bench as its user runs it, every count from 0 --------
+        zero_counts(named)
+        t0 = time.perf_counter()
+        res = json.loads(json.dumps(bench.main(dev)))
+        main_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bd = json.loads(json.dumps(bench.bdrate_main(quick=True, device=dev)))
+        bd_s = time.perf_counter() - t0
+        launches = path_launches(named)
+        replays = dict(devloop.loop_replays)
+        tiers = tiers_against_plain(bench, bd, dev)
+    finally:
+        del os.environ["BENCH_TIMEOUT_S"]
+        os.environ.update(saved_env)
+    print(f"bench main ({main_s:.1f} s, BENCH_TIMEOUT_S={BENCH_TIMEOUT_S}): "
+          + json.dumps(res))
+    print(f"bench --bdrate --quick ({bd_s:.1f} s): " + json.dumps(bd))
+    rep.update({"main": res, "bdrate": bd, "main_s": main_s, "bdrate_s": bd_s,
+                "launches": launches, "loop_replays": replays})
+    errs = walk_errors(res) + walk_errors(bd)
+    check(not errs, f"bench: error keys {errs}")
+    for block in ("gop", "device_only", "cabac", "4k"):
+        check(block in res, f"bench main: the {block} block was gated out")
+    check(res["cabac"]["cavlc_host"] == "not ported (item 17)"
+          and res["4k"]["profile"]["me_step_ms_r5_fullline"]
+          == "not ported (item 17)", "bench main: a refusal is missing")
+    check(res["device"]["kind"] == torch.cuda.get_device_name(0)
+          and res["device"]["smi"], "bench main: no card in its device key")
+    for name, n in launches.items():
+        check(n > 0, f"bench: {name} never launched on the bench's path")
+    for name in dict.fromkeys(n for n, _ in LOOP_CASES):
+        check(replays.get(name, 0) > 0,
+              f"bench: {name}_loop never replayed on the bench's path")
+    print(f"bench path launches: {launches}; loop replays: {replays}")
+    print(f"(d) run_tier at the --bdrate --quick geometry: {tiers}")
+
+    # -- (a) K14d, K17p, K17c against their plain versions at 1080p --------
+    cur, ref, slots = loop_inputs(W, H_PAD, dev, 5)
+    y = cur[0]
+    zeros = torch.zeros_like(y)
+    full = torch.full_like(y, 255)
+    odd = (torch.arange(17 * 23, device=dev) % 251).to(torch.uint8)
+    pairs = [(y, ref[0]), (zeros, full), (y.view(-1)[1:], ref[0].view(-1)[:-1]),
+             (odd.view(17, 23), odd.flip(0).view(17, 23))]
+    e14 = 0
+    for a, b in pairs:
+        got, want = int(aq.sse_planes(a, b)), int(aq.sse_planes_plain(a, b))
+        e14 = max(e14, abs(got - want))
+    check(e14 == 0, f"K14d differs from its plain version by {e14}")
+    check(aq.mse_planes(zeros, full) == 65025.0,
+          "K14d: the full-scale pair's MSE is not 65025")
+    i_dev = torch.zeros(1, dtype=torch.int32, device=dev)
+    sat = [p.clone() for p in cur]
+    sat[0][:16] = 255
+    e17p = 0.0
+    for i in (0, 1, 3):
+        i_dev.fill_(i)
+        e17p = max(e17p, max_diff(zip(devloop.perturb(*sat, i_dev),
+                                      devloop.perturb_plain(*sat, i))))
+        e17p = max(e17p, max_diff(zip(
+            devloop.perturb(odd.view(17, 23), odd[:40].view(5, 8),
+                            odd[40:80].view(5, 8), i_dev),
+            devloop.perturb_plain(odd.view(17, 23), odd[:40].view(5, 8),
+                                  odd[40:80].view(5, 8), i))))
+    check(e17p == 0, f"K17p differs from its plain version by {e17p}")
+    words = torch.tensor([-5, 7, 2 ** 31 - 1], dtype=torch.int32, device=dev)
+    acc_k, i_k = (torch.zeros(1, dtype=torch.int32, device=dev) for _ in "ab")
+    acc_p, i_p = (torch.zeros(1, dtype=torch.int32, device=dev) for _ in "ab")
+    for src, off in ((words, 0), (words, 2), (y, 5), (words, 1), (full, 9)):
+        devloop.tick(acc_k, src, off, i_k)
+        devloop.tick_plain(acc_p, int(src.reshape(-1)[off]), i_p)
+    e17c = max_diff([(acc_k, acc_p), (i_k, i_p)])
+    check(e17c == 0, f"K17c differs from its plain version by {e17c}")
+    print("(a) K14d (four pairs, the full-scale one 65025.0, a misaligned view, "
+          "17x23), K17p (i = 0, 1, 3; saturated rows; 17x23) and K17c (int32 "
+          "and uint8 words) equal their plain versions")
+    acc_t = torch.zeros(1, dtype=torch.int32, device=dev)
+    out_p = [torch.empty_like(p) for p in cur]
+    smi = smi_line()
+    tiny = {"sse_planes": lambda: aq.sse_planes(y, ref[0]),
+            "perturb": lambda: devloop.perturb(*cur, i_dev, out=out_p),
+            "tick": lambda: devloop.tick(acc_t, words, 0, i_dev)}
+    one = {k: graph_ms(fn) for k, fn in tiny.items()}
+    each = {k: graph_each_ms(fn) for k, fn in tiny.items()}
+    rows = [
+        kernel_row("sse_planes", "aq.cu", "aq.py:196 _mse_reduce (:204 "
+                   "mse_planes, :216 psnr_planes; 1088x1920; one of 32 "
+                   "launches in a graph)", launches["sse_planes"], float(e14),
+                   each["sse_planes"],
+                   cuda_ms(lambda: aq.sse_planes_plain(y, ref[0]), reps=5),
+                   nbytes(y, ref[0]) + 8),
+        kernel_row("perturb", "devloop.cu", "devloop.py:33 _perturb (three "
+                   "1080p planes; one of 32 launches in a graph)",
+                   launches["perturb"], e17p, each["perturb"],
+                   cuda_ms(lambda: devloop.perturb_plain(*cur, 1), reps=5),
+                   nbytes(*cur, *out_p)),
+        kernel_row("tick", "devloop.cu", "devloop.py:49 the loops' carry "
+                   "(acc + word.astype(uint32); one of 32 launches in a "
+                   "graph)", launches["tick"], e17c, each["tick"],
+                   cuda_ms(lambda: devloop.tick_plain(acc_t, -5, i_dev), reps=5),
+                   0),
+    ]
+    print("K14d / K17p / K17c: a graph of one launch " + ", ".join(
+        f"{k} {v:.4f}" for k, v in one.items()) + " ms; one of 32 in a graph "
+        + ", ".join(f"{k} {v:.4f}" for k, v in each.items()) + f" ms [{smi}]")
+    rep["tiny_one_ms"], rep["tiny_each_ms"] = one, each
+    by_name = {r["name"]: r for r in list(rows_before) + rows}
+
+    # -- (b) each loop's replay against its eager kernel loop at 1080p -------
+    loop_err = {}               # each loop's largest difference, checksum in
+
+    def held(name, opts, got, want, what):
+        d = max(float(abs(int(got[0]) - int(want[0]))),
+                max_diff([(got[1], want[1])] + list(zip(got[2], want[2]))))
+        loop_err[name] = max(loop_err.get(name, 0.0), d)
+        check(d == 0, f"{name}_loop {opts}: checksum {got[0]} against "
+              f"{want[0]} {what}, largest difference {d}")
+
+    def on_cpu(c, r, sl):
+        return ([p.cpu() for p in c], [p.cpu() for p in r],
+                tuple(tuple(t.cpu() for t in s) for s in sl))
+
+    for name, opts in LOOP_CASES:
+        held(name, opts, loop_call(name, opts, cur, ref, slots, 3, full=True),
+             loop_call(name, opts, cur, ref, slots, 3, full=True, eager=True),
+             "(replay against eager at 1080p)")
+    # ... and against the plain loop at 320x192 (the host's CPU)
+    sw, sh = LOOP_SMALL
+    s_cur, s_ref, s_slots = loop_inputs(sw, sh, dev, 6)
+    c_small = on_cpu(s_cur, s_ref, s_slots)
+    for name, opts in LOOP_CASES:
+        held(name, opts,
+             loop_call(name, opts, s_cur, s_ref, s_slots, 3, full=True),
+             loop_call(name, opts, *c_small, 3, full=True),
+             f"(replay against plain at {sw}x{sh})")
+    print(f"(b) each loop ({len(LOOP_CASES)} configurations) replayed 3 steps "
+          "equal to its eager kernel loop at 1080p and to its plain loop at "
+          f"{sw}x{sh}: checksum, last transport, chained planes")
+
+    # -- each loop's device-only step at 1080p and 4K, its plain step --------
+    # (the plain 1080p step is held against one replayed step, and each
+    # loop's replay against its plain loop at 4K, (c) below)
+    k_cur, k_ref, k_slots = loop_inputs(*bench.FOURK, dev, 7)
+    c_1080 = on_cpu(cur, ref, slots)
+    steps = {}
+    for name, _ in LOOP_CASES:
+        if name in steps:
+            continue
+        opts = LOOP_TIMED.get(name, {})
+        one = {}
+        for geo, (c, r, sl) in (("1080p", (cur, ref, slots)),
+                                ("4k", (k_cur, k_ref, k_slots))):
+            one[geo] = devloop.measure_steady_state(
+                lambda k: loop_call(name, opts, c, r, sl, k),
+                budget_s=2.0)["step_ms"]
+        one["eager_1080p"] = cuda_ms(lambda: loop_call(
+            name, opts, cur, ref, slots, 1, eager=True), reps=5)
+        t0 = time.perf_counter()
+        pl = loop_call(name, opts, *c_1080, 1, full=True)
+        one["plain_1080p"] = (time.perf_counter() - t0) * 1e3
+        held(name, opts, loop_call(name, opts, cur, ref, slots, 1, full=True),
+             pl, "(one replayed step against the plain step at 1080p)")
+        body, replaces = LOOP_BODY[name]
+        parts = [by_name.get(b) for b in body + ("perturb",)]
+        one["kernels_ms"] = sum(p["ms"] for p in parts if p)
+        bounds = [(p["bound_ms"], p["bound_by"]) for p in parts if p]
+        steps[name] = one
+        row = kernel_row(f"{name}_loop", "", replaces + " (1080p step, "
+                         "graph replays; plain: one step on the host's CPU)",
+                         replays.get(name, 0), None, one["1080p"],
+                         one["plain_1080p"], 0)
+        row.update({"source": "docker_nvidia_glx_desktop_tpu_torch/ops/devloop.py",
+                    "bound_ms": sum(b for b, _ in bounds),
+                    "bound_by": max(bounds)[1] if bounds else "bytes"})
+        if len(bounds) < len(parts):
+            print(f"kernel {name}_loop: bound counts {len(bounds)} of its "
+                  f"{len(parts)} kernels (the others' rows are not in this run)")
+        rows.append(row)
+        print(f"loop {name}: step {one['1080p']:.3f} ms at 1080p, "
+              f"{one['4k']:.3f} ms at 4K (replays, host-clock differencing); "
+              f"eager one step {one['eager_1080p']:.3f} ms; its kernels' rows "
+              f"{one['kernels_ms']:.3f} ms; plain one step "
+              f"{one['plain_1080p']:.1f} ms, equal to one replayed step [{smi}]")
+
+    # -- (c) each loop's replay against its plain loop at 4K ----------------
+    t0 = time.perf_counter()
+    c_4k = on_cpu(k_cur, k_ref, k_slots)
+    for name in steps:
+        opts, k = LOOP_TIMED.get(name, {}), LOOP_4K_STEPS.get(name, 2)
+        held(name, opts, loop_call(name, opts, k_cur, k_ref, k_slots, k,
+                                   full=True),
+             loop_call(name, opts, *c_4k, k, full=True),
+             f"(replay against plain at {k} steps, 4K)")
+    w4, h4 = bench.FOURK
+    print(f"(c) each loop replayed equal to its plain loop at {w4}x{h4} "
+          f"({', '.join(f'{n} {LOOP_4K_STEPS.get(n, 2)}' for n in steps)} "
+          f"steps): checksum, last transport, chained planes "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for r in rows:
+        if r["name"].endswith("_loop"):
+            r["max_abs_err"] = loop_err[r["name"][:-len("_loop")]]
+    rep["steps"] = steps
+    for r in rows:
+        print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
+              f"ms by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
+              f"{r['launches']} launches on the bench's path; max abs err "
+              f"{r['max_abs_err']})")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"bench phase: {rep['phase_s']:.1f} s")
+    return rows
 
 
 def main():

@@ -5,6 +5,15 @@ from .h264 import H264Encoder, resolve_device  # noqa: F401
 from .mjpeg import JpegEncoder  # noqa: F401
 
 
+def make_flagship_encoder(width: int, height: int, device=None):
+    """The bench's headline encoder, as the reference's: H.264 CAVLC with
+    device entropy and host colour, all-intra (``gop=1``), on the card
+    unless ``device`` says otherwise.  Returns (encoder, codec_name)."""
+    return (H264Encoder(width, height, mode="cavlc", entropy="device",
+                        host_color=True, device=device),
+            "h264_cavlc")
+
+
 def make_encoder(cfg, width: int, height: int, device=None,
                  spatial_devices=None):
     """Codec from the config surface (WEBRTC_ENCODER + ENCODER_* knobs),

@@ -24,7 +24,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 KERNEL_SOURCES = ("intra", "cavlc", "pack", "content", "inter", "deblock",
                   "color", "levelpack", "cabac", "damage", "aq", "jpeg",
-                  "probe", "spatial")
+                  "probe", "spatial", "devloop")
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]

@@ -40,7 +40,8 @@ from ..utils.env import env_float as _envf
 __all__ = ["mb_activity", "aq_offsets", "lookahead_bias", "qp_plane",
            "qp_plane_plain", "qp_chain", "qp_chain_np", "lam_tables",
            "margin_tables", "device_tables", "AQ_STRENGTH", "AQ_MAX_DELTA",
-           "AQ_MAX_UP", "LOOKAHEAD_BIAS", "TIERS"]
+           "AQ_MAX_UP", "LOOKAHEAD_BIAS", "TIERS", "sse_planes",
+           "sse_planes_plain", "mse_planes", "psnr_planes"]
 
 # Operator knobs, read once at import as the reference reads them: the
 # activity strength, the delta clamps and the lookahead reward.
@@ -341,3 +342,65 @@ def qp_chain_np(qp_map: np.ndarray, codes_delta: np.ndarray,
     prev = np.concatenate(
         [np.full((nr, 1), slice_qp, np.int32), eff[:, :-1]], axis=1)
     return eff, (qp_map - prev).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# The distortion reduction (row 14d): the BD-rate bench's PSNR input
+# ---------------------------------------------------------------------------
+
+def _plane_pair(a, b, device):
+    """Two uint8 planes of one shape as tensors on one device: tensors stay
+    where they are, numpy arrays go to ``device`` (None = the card)."""
+    if not isinstance(a, torch.Tensor) or not isinstance(b, torch.Tensor):
+        from ..models.h264 import resolve_device
+        dev = (a.device if isinstance(a, torch.Tensor) else
+               b.device if isinstance(b, torch.Tensor) else
+               resolve_device(device))
+        a, b = (t if isinstance(t, torch.Tensor) else
+                torch.from_numpy(np.ascontiguousarray(t)).to(dev)
+                for t in (a, b))
+    if a.dtype != torch.uint8 or b.dtype != torch.uint8:
+        raise ValueError("the planes must be uint8")
+    if a.shape != b.shape or a.device != b.device:
+        raise ValueError("the planes must match in shape and device")
+    return a.contiguous(), b.contiguous()
+
+
+def sse_planes_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of K14d: the int64 sum of squared differences."""
+    d = a.to(torch.int32) - b.to(torch.int32)
+    return (d * d).to(torch.int64).sum()
+
+
+def sse_planes(a, b, device=None) -> torch.Tensor:
+    """Exact sum of squared differences of two uint8 planes of one shape
+    (numpy arrays or tensors), a one-element int64 tensor on their device,
+    not synchronised.  CUDA tensors launch K14d (``csrc/aq.cu``), CPU
+    tensors run the plain version; numpy arrays go to ``device`` first
+    (None = the card: without CUDA that raises)."""
+    a, b = _plane_pair(a, b, device)
+    if a.device.type == "cpu":
+        return sse_planes_plain(a, b)
+    out = torch.empty(1, dtype=torch.int64, device=a.device)
+    _cuda.launch("aq", "sse_launch", [a, b, out], [a.numel()], a.device)
+    sse_planes.launches += 1
+    return out[0]
+
+
+sse_planes.launches = 0
+
+
+def mse_planes(a, b, device=None) -> float:
+    """Mean squared error of two planes from the exact int64 SSE (the
+    reference's ``mse_planes``; its JAX sum is int32 and wraps where this
+    one does not)."""
+    sse = int(sse_planes(a, b, device))
+    return sse / max(int(np.prod(a.shape)), 1)
+
+
+def psnr_planes(a, b, device=None) -> float:
+    """Luma PSNR in dB of two uint8 planes (99.0 when they are equal)."""
+    m = mse_planes(a, b, device)
+    if m <= 0:
+        return 99.0
+    return float(10.0 * np.log10(255.0 * 255.0 / m))

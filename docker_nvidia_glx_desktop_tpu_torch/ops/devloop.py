@@ -1,6 +1,7 @@
-"""The super-step chunk: K P frames in one dispatch, as a captured CUDA
-graph (:class:`ChunkStep`, the port of the reference's ``ops/devloop.py``
-``build_p_chunk_step``).
+"""The reference's ``ops/devloop.py`` on the card: the super-step chunk
+(K P frames in one dispatch, as a captured CUDA graph: :class:`ChunkStep`,
+the port of ``build_p_chunk_step``), the device-only timing loops and the
+link probe.
 
 :func:`chunk_body` is the chunk as one Python function of the port's
 kernels: the ingest (under rgb ingest K9 converts all K frames in one
@@ -45,6 +46,18 @@ first drops the least recently replayed free instance (an idle bucket's,
 before the active key's).  A failed capture or replay raises: no quiet
 eager or per-frame fallback.
 
+:func:`intra_loop`, :func:`p_loop`, :func:`cabac_intra_loop`,
+:func:`inter_loop`, :func:`deblock_loop` and :func:`cabac_p_loop` are the
+device-only timing loops (rows 17a-f, the reference's loops of the same
+names): ``steps`` encodes of one stage on the input planes perturbed by
+the loop index (K17p), a chained stage's output the next step's
+reference, and a uint32 checksum summed on the card (K17c) as the only
+result.  On the card one step is captured into a CUDA graph (two, one
+per direction of the chained planes' ping-pong) and replayed ``steps``
+times, and the checksum's 4 bytes are pulled; on the CPU the step runs
+as plain calls.  :func:`measure_steady_state` differences two trip
+counts into a step ms, as the reference does.
+
 :func:`measure_link_rtt` is the link probe (row 17g): one-thread kernel
 launches of a trivial loop (K17g, ``csrc/probe.cu``), timed on the host
 with the 4-byte result pulled, as the reference's ``_probe_loop``.
@@ -53,7 +66,8 @@ Launch accounting: a wrapper's ``launches`` also counts the launches it
 records into a graph at capture, which do not run.  :data:`captured`
 holds those, :data:`replayed` the kernel launches that the replays ran
 (a graph's nodes per wrapper, times its replays), so the kernels a run
-launched are ``launches - captured + replayed``.
+launched are ``launches - captured + replayed``; :data:`loop_replays`
+counts the timing loops' replayed steps by loop.
 """
 
 from __future__ import annotations
@@ -73,15 +87,26 @@ MAX_GRAPHS = 6            # per budget: an encoder's steps together
 # wrapper name -> launches recorded at capture / run by replays
 captured: collections.Counter = collections.Counter()
 replayed: collections.Counter = collections.Counter()
+# timing loop name ("intra", "p", ...) -> its captured steps replayed
+loop_replays: collections.Counter = collections.Counter()
 
 
 def wrappers() -> dict:
-    """The kernel wrappers a chunk body may call, by name."""
-    from . import (bitmerge, cabac_binarize, cavlc_p_device, color,
-                   damage_mask, h264_deblock, h264_inter)
+    """The kernel wrappers a captured graph (a chunk body, a timing
+    loop's step) may call, by name."""
+    from . import (bitmerge, cabac_binarize, cavlc_device, cavlc_p_device,
+                   color, damage_mask, h264_deblock, h264_device, h264_inter,
+                   level_pack)
     from . import aq
     from ..parallel import batch
-    return {"color_frames": color.rgb_to_yuv420_frames,
+    return {"intra": h264_device.encode_intra_frame_yuv,
+            "cavlc_slots": cavlc_device.frame_block_slots,
+            "pack": bitmerge.pack_frame,
+            "pack_levels": level_pack.pack_levels,
+            "binarize_intra": cabac_binarize.binarize_intra,
+            "perturb": perturb,
+            "tick": tick,
+            "color_frames": color.rgb_to_yuv420_frames,
             "inter": h264_inter.encode_p_frame,
             "inter_rows": h264_inter.encode_p_frame_rows,
             "inter_padded": h264_inter.encode_p_frame_padded_ref,
@@ -104,6 +129,7 @@ def wrappers() -> dict:
 def reset_counts() -> None:
     captured.clear()
     replayed.clear()
+    loop_replays.clear()
 
 
 class ChunkOut:
@@ -527,3 +553,341 @@ def measure_link_rtt(reps: int = 7, k_hi: int = 257, device=None) -> dict:
     return {"rtt_ms": round(rtt_s * 1e3, 3),
             "step_us": round(step_s * 1e6, 3),
             "samples": [round(v * 1e3, 3) for v in lo_sorted]}
+
+
+# ---------------------------------------------------------------------------
+# The device-only timing loops (rows 17a-f) and their kernels K17p, K17c
+# ---------------------------------------------------------------------------
+
+def perturb_plain(y, cb, cr, i: int, out=None):
+    """Plain version of K17p: ``(x + (i & 1)).clip(0, 255)`` per plane."""
+    res = tuple((p.to(torch.int32) + (int(i) & 1)).clamp(0, 255)
+                .to(torch.uint8) for p in (y, cb, cr))
+    if out is None:
+        return res
+    return tuple(o.copy_(r) for o, r in zip(out, res))
+
+
+def perturb(y, cb, cr, i_dev: torch.Tensor, out=None):
+    """K17p: the three uint8 planes with the loop index's low bit added
+    (saturating at 255), the index ``i_dev`` one int32 on the planes'
+    device.  Returns new planes (``out``'s where given).  CUDA tensors
+    launch the kernel; CPU tensors run the plain version."""
+    planes = (y, cb, cr)
+    if any(p.dtype != torch.uint8 or not p.is_contiguous()
+           or p.device != y.device for p in planes) or cb.shape != cr.shape:
+        raise ValueError("perturb takes three contiguous uint8 planes on one "
+                         "device, cb and cr of one shape")
+    if i_dev.dtype != torch.int32 or i_dev.numel() != 1 \
+            or i_dev.device != y.device:
+        raise ValueError("i_dev must be one int32 on the planes' device")
+    if y.device.type == "cpu":
+        return perturb_plain(y, cb, cr, int(i_dev.reshape(-1)[0]), out)
+    out = tuple(torch.empty_like(p) for p in planes) if out is None else out
+    _cuda.launch("devloop", "perturb_launch", [*planes, *out, i_dev],
+                 [y.numel(), cb.numel()], y.device)
+    perturb.launches += 1
+    return out
+
+
+perturb.launches = 0
+
+
+def tick_plain(acc: torch.Tensor, word: int, i_dev: torch.Tensor) -> None:
+    """Plain version of K17c, in place: ``acc += word`` as uint32 (``acc``
+    one int32 holding the bits) and ``i += 1``."""
+    v = (int(acc.reshape(-1)[0]) + int(word)) & 0xFFFFFFFF
+    acc.fill_(v - (1 << 32) if v >= 1 << 31 else v)
+    i_dev.add_(1)
+
+
+def tick(acc: torch.Tensor, src: torch.Tensor, offset: int,
+         i_dev: torch.Tensor) -> None:
+    """K17c: add element ``offset`` of the flattened ``src`` (uint8, or
+    int32 taken as uint32) into the uint32 accumulator ``acc`` and advance
+    the loop index ``i_dev`` (each one int32 on ``src``'s device).  CUDA
+    tensors launch the one-thread kernel; CPU tensors run the plain
+    version."""
+    if src.dtype not in (torch.uint8, torch.int32) or not src.is_contiguous():
+        raise ValueError("src must be a contiguous uint8 or int32 tensor")
+    if not 0 <= offset < src.numel():
+        raise ValueError(f"offset {offset} outside src")
+    if src.device.type == "cpu":
+        tick_plain(acc, int(src.reshape(-1)[offset]), i_dev)
+        return
+    _cuda.launch("devloop", "tick_launch", [src, acc, i_dev],
+                 [int(offset), int(src.dtype == torch.uint8)], src.device)
+    tick.launches += 1
+
+
+tick.launches = 0
+
+MAX_LOOP_GRAPHS = 8       # loop entries kept captured (LRU)
+_loop_graphs: collections.OrderedDict = collections.OrderedDict()
+_RECON = ("recon_y", "recon_cb", "recon_cr")
+
+
+def _planes_of(ts):
+    for t in ts:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError("the loops take tensors on the device they run on")
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError("every input must be on one device")
+    return dev
+
+
+def _run_loop(name: str, static: tuple, body, inputs, refs, steps: int,
+              eager: bool, full: bool):
+    """``steps`` runs of ``body(i_dev, acc, src_refs, dst_refs) ->
+    transport``, the chained planes ping-ponged between two sets (the
+    caller's ``refs``, copied first, are never written).  On the card one
+    step is captured as a CUDA graph (two, one per ping-pong direction,
+    for a chained loop), kept for later calls on the same tensors, and
+    replayed ``steps`` times; then the 4-byte checksum is pulled.  On the
+    CPU, or with ``eager``, the step runs as kernel (or plain) calls.
+    Returns the uint32 checksum; with ``full``, (checksum, the last
+    step's transport, the final chained planes), copies."""
+    steps = int(steps)
+    if steps < 0:
+        raise ValueError("steps must be >= 0")
+    dev = _planes_of(list(inputs) + list(refs))
+    i32 = dict(dtype=torch.int32, device=dev)
+    if dev.type == "cpu" or eager:
+        acc, i_dev = torch.zeros(1, **i32), torch.zeros(1, **i32)
+        sets = [tuple(r.clone() for r in refs),
+                tuple(torch.empty_like(r) for r in refs)]
+        last = None
+        for k in range(steps):
+            last = body(i_dev, acc, sets[k % 2], sets[(k + 1) % 2])
+        final = sets[steps % 2]
+    else:
+        key = (name, static, dev) + tuple(
+            (t.data_ptr(), tuple(t.shape), t.dtype)
+            for t in list(inputs) + list(refs))
+        entry = _loop_graphs.pop(key, None)
+        if entry is None:
+            while len(_loop_graphs) >= MAX_LOOP_GRAPHS:
+                _loop_graphs.popitem(last=False)
+            acc, i_dev = torch.zeros(1, **i32), torch.zeros(1, **i32)
+            sets = [tuple(torch.empty_like(r) for r in refs)
+                    for _ in range(2)]
+            graphs = []
+            for g in range(2 if refs else 1):
+                graphs.append(capture_graph(
+                    dev, lambda g=g: body(i_dev, acc, sets[g], sets[1 - g]))
+                    [:3])
+            # the inputs are held so that their addresses stay theirs
+            entry = (graphs, acc, i_dev, sets, tuple(inputs) + tuple(refs))
+        _loop_graphs[key] = entry
+        graphs, acc, i_dev, sets, _ = entry
+        acc.zero_()
+        i_dev.zero_()
+        for dst, src in zip(sets[0], refs):
+            dst.copy_(src)
+        for k in range(steps):
+            graphs[k % len(graphs)][0].replay()
+        loop_replays[name] += steps
+        for g, (_, _, nodes) in enumerate(graphs):
+            reps = (steps - g + len(graphs) - 1) // len(graphs)
+            replayed.update({n: c * reps for n, c in nodes.items()})
+        last = graphs[(steps - 1) % len(graphs)][1] if steps else None
+        final = sets[steps % 2]
+    value = np.uint32(int(acc.reshape(-1)[0]) & 0xFFFFFFFF)   # the pull
+    if full:
+        return (value, None if last is None else last.clone(),
+                tuple(t.clone() for t in final))
+    return value
+
+
+def _check_i16_modes(i16_modes: str) -> None:
+    if i16_modes != "auto":
+        raise NotImplementedError(
+            f"i16_modes={i16_modes!r} is not ported to the PyTorch/CUDA "
+            "encoder yet (ROADMAP queue 1 item 17)")
+
+
+def intra_loop(y, cb, cr, hv, hl, steps: int, qp: int,
+               i16_modes: str = "auto", *, eager: bool = False,
+               full: bool = False):
+    """Row 17a: ``steps`` intra CAVLC frame encodes (K17p, K1, K2, K3,
+    K17c a step) of the perturbed planes; returns the uint32 sum of each
+    step's flat byte ``META_WORDS * 4`` (the reference's checksum).
+    ``eager`` runs the kernels without the graph (on the card, the
+    replay's reference)."""
+    from . import cavlc_device, h264_device
+    from .bitmerge import META_WORDS
+
+    _check_i16_modes(i16_modes)
+
+    def body(i_dev, acc, src, dst):
+        lv = h264_device.encode_intra_frame_yuv(*perturb(y, cb, cr, i_dev),
+                                                qp)
+        flat = cavlc_device.encode_levels(lv, hv, hl, qp)
+        tick(acc, flat, META_WORDS * 4, i_dev)
+        return flat
+
+    return _run_loop("intra", (qp,), body, (y, cb, cr, hv, hl), (), steps,
+                     eager, full)
+
+
+def p_loop(y, cb, cr, ref_y, ref_cb, ref_cr, hv, hl, steps: int, qp: int,
+           deblock: bool = True, *, eager: bool = False,
+           full: bool = False):
+    """Row 17b: ``steps`` P CAVLC frame encodes (K17p, K5, K6, K7, K8
+    with ``deblock``, K17c a step), each step's (filtered) recon the next
+    step's reference; the checksum sums flat byte ``META_WORDS * 4``.
+    The caller's references are only read (the reference measures two
+    trip counts from the same ones)."""
+    from . import cavlc_p_device, h264_deblock
+    from .bitmerge import META_WORDS
+
+    def body(i_dev, acc, src, dst):
+        keep = None if deblock else dict(zip(_RECON, dst))
+        flat, ry, rcb, rcr, mv, nnz, _ = cavlc_p_device.encode_p_cavlc_frame(
+            *perturb(y, cb, cr, i_dev), *src, hv, hl, qp, out=keep)
+        if deblock:
+            h264_deblock.deblock_frame(ry, rcb, rcr, qp, nnz_blk=nnz, mv=mv,
+                                       out=dst)
+        tick(acc, flat, META_WORDS * 4, i_dev)
+        return flat
+
+    return _run_loop("p", (qp, bool(deblock)), body, (y, cb, cr, hv, hl),
+                     (ref_y, ref_cb, ref_cr), steps, eager, full)
+
+
+def cabac_intra_loop(y, cb, cr, steps: int, qp: int, i16_modes: str = "auto",
+                     binarize: bool = False, *, eager: bool = False,
+                     full: bool = False):
+    """Row 17c: ``steps`` CABAC device stages of an intra frame (K17p, K1,
+    then K10 ``pack_levels`` or, with ``binarize``, K11i, and K17c); the
+    checksum sums each transport's word 2 (its payload words)."""
+    from . import cabac_binarize, h264_device, level_pack
+
+    _check_i16_modes(i16_modes)
+
+    def body(i_dev, acc, src, dst):
+        lv = h264_device.encode_intra_frame_yuv(*perturb(y, cb, cr, i_dev),
+                                                qp)
+        if binarize:
+            buf = cabac_binarize.binarize_intra(
+                lv["luma_dc"], lv["luma_ac"], lv["cb_dc"], lv["cb_ac"],
+                lv["cr_dc"], lv["cr_ac"], lv["pred_mode"], lv["mb_i4"],
+                lv["i4_modes"], lv["luma_i4"])
+        else:
+            buf = level_pack.pack_levels(lv, level_pack.INTRA_KEYS)
+        tick(acc, buf, 2, i_dev)
+        return buf
+
+    return _run_loop("cabac_intra", (qp, bool(binarize)), body, (y, cb, cr),
+                     (), steps, eager, full)
+
+
+def inter_loop(y, cb, cr, ref_y, ref_cb, ref_cr, steps: int, qp: int,
+               refine: str = "alt", *, eager: bool = False,
+               full: bool = False):
+    """Row 17d: ``steps`` P cores alone (K17p, K5, K17c), the recon
+    chained as the next reference; the checksum sums each step's luma
+    level ``[0, 0, 0, 0]`` (MB (0, 0), 4x4 block 0, coefficient 0) as
+    uint32.  ``refine="full"`` (the reference's round-5 re-rank) raises,
+    as the P core does."""
+    from . import h264_inter
+
+    if refine != "alt":
+        raise NotImplementedError(
+            f"refine={refine!r} is not ported to the PyTorch/CUDA encoder "
+            "yet (ROADMAP queue 1 item 17)")
+
+    def body(i_dev, acc, src, dst):
+        out = h264_inter.encode_p_frame(*perturb(y, cb, cr, i_dev), *src, qp,
+                                        out=dict(zip(_RECON, dst)))
+        tick(acc, out["luma"], 0, i_dev)
+        return out["luma"]
+
+    return _run_loop("inter", (qp,), body, (y, cb, cr),
+                     (ref_y, ref_cb, ref_cr), steps, eager, full)
+
+
+def deblock_loop(y, cb, cr, steps: int, qp: int, group: int = 0, *,
+                 eager: bool = False, full: bool = False):
+    """Row 17e: ``steps`` loop-filter passes with intra bS (K17p, K8,
+    K17c), each on the previous pass's perturbed output; the checksum
+    sums each output's luma ``[0, 0]``.  ``group`` takes the reference's
+    values (0 auto, 1 the per-column scan, >1 a wavefront group): they
+    are TPU schedules of one function, and K8 has one schedule, so every
+    value gives the same output."""
+    from . import h264_deblock
+
+    if int(group) < 0:
+        raise ValueError("group must be >= 0")
+
+    def body(i_dev, acc, src, dst):
+        h264_deblock.deblock_frame(*perturb(*src, i_dev), qp, out=dst)
+        tick(acc, dst[0], 0, i_dev)
+        return dst[0]
+
+    return _run_loop("deblock", (qp,), body, (), (y, cb, cr), steps, eager,
+                     full)
+
+
+def cabac_p_loop(y, cb, cr, ref_y, ref_cb, ref_cr, steps: int, qp: int,
+                 deblock: bool = True, binarize: bool = False, *,
+                 eager: bool = False, full: bool = False):
+    """Row 17f: ``steps`` CABAC device stages of a P frame (K17p, K5, K8
+    with ``deblock``, then K10 or, with ``binarize``, K11p, and K17c),
+    recon-chained like :func:`p_loop`; the checksum sums each transport's
+    word 2."""
+    from . import cabac_binarize, h264_deblock, h264_inter, level_pack
+
+    def body(i_dev, acc, src, dst):
+        out = h264_inter.encode_p_frame(
+            *perturb(y, cb, cr, i_dev), *src, qp,
+            out=None if deblock else dict(zip(_RECON, dst)))
+        if deblock:
+            h264_deblock.deblock_frame(*(out[k] for k in _RECON), qp,
+                                       mv=out["mv"], luma=out["luma"],
+                                       out=dst)
+        if binarize:
+            buf = cabac_binarize.binarize_p(
+                out["mv"], out["luma"], out["cb_dc"], out["cb_ac"],
+                out["cr_dc"], out["cr_ac"])
+        else:
+            buf = level_pack.pack_levels(out, level_pack.P_KEYS)
+        tick(acc, buf, 2, i_dev)
+        return buf
+
+    return _run_loop("cabac_p", (qp, bool(deblock), bool(binarize)), body,
+                     (y, cb, cr), (ref_y, ref_cb, ref_cr), steps, eager,
+                     full)
+
+
+def measure_steady_state(loop_fn, *, budget_s: float = 60.0,
+                         k_lo: int = 4) -> dict:
+    """Run ``loop_fn(steps) -> checksum`` at two trip counts and difference
+    (the reference's host code): ``t(k) = fixed + k * step``.
+    ``loop_fn`` must block until the checksum is on the host.  Returns
+    {"step_ms", "fps", "k_hi"}; the trip counts fit ``budget_s``."""
+    loop_fn(1)                                   # build, capture, warm
+    t0 = time.perf_counter()
+    loop_fn(k_lo)
+    t_lo_probe = time.perf_counter() - t0
+    # the two timed() calls below run ~2 * 2 * k_hi steps: one k_hi call
+    # is sized at ~budget/5, never above what the budget buys
+    per_step_guess = max(t_lo_probe / k_lo, 1e-5)
+    k_budget = int(0.2 * budget_s / per_step_guess)
+    k_hi = max(k_lo + 1, min(k_budget, 4096))
+
+    def timed(k, reps=2):
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            loop_fn(k)
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    t_lo = timed(k_lo)
+    t_hi = timed(k_hi)
+    step_s = max((t_hi - t_lo) / (k_hi - k_lo), 1e-9)
+    return {"step_ms": round(step_s * 1e3, 3),
+            "fps": round(1.0 / step_s, 1),
+            "k_hi": k_hi}

@@ -189,12 +189,13 @@ def deblock_frame_plain(y, cb, cr, qp: int, nnz_blk=None, mv=None,
 
 
 def deblock_frame(y, cb, cr, qp: int, nnz_blk=None, mv=None, luma=None,
-                  qp_dev=None):
+                  qp_dev=None, out=None):
     """Loop-filter one frame's uint8 recon planes (MB-padded) at slice
     qp ``qp``: intra bS when ``nnz_blk`` and ``luma`` are None, P bS from
     ``mv`` (R, C, 2) int32 and either ``nnz_blk`` (R, C, 4, 4) bool or
     the P core's ``luma`` levels (R, C, 16, 16) int32, whose nonzero
-    blocks are the coded ones.  Returns new filtered planes.
+    blocks are the coded ones.  Returns new filtered planes, or ``out``'s
+    (three planes shaped as the input's, not the input's own) where given.
 
     CUDA tensors launch the kernel (one CUDA block per MB row, the row in
     shared memory, one warp walking its MBs); CPU tensors run the plain
@@ -228,18 +229,29 @@ def deblock_frame(y, cb, cr, qp: int, nnz_blk=None, mv=None, luma=None,
                                or qp_dev.numel() != 1
                                or qp_dev.device != y.device):
         raise ValueError("qp_dev must be one int32 on the planes' device")
+    if out is not None and any(
+            o.shape != p.shape or o.dtype != torch.uint8 or o.device != p.device
+            or not o.is_contiguous() or o.data_ptr() == p.data_ptr()
+            for o, p in zip(out, (y, cb, cr))):
+        raise ValueError("out must be three contiguous uint8 planes shaped "
+                         "as the input's, on its device, not the input")
     if y.device.type == "cpu":
         if ns:
             at = lambda t, i: None if t is None else t[i]
-            return stack_sessions([deblock_frame_plain(
+            res = stack_sessions([deblock_frame_plain(
                 y[i], cb[i], cr[i], int(qp), at(nnz_blk, i), at(mv, i),
                 at(luma, i)) for i in range(ns)])
-        return deblock_frame_plain(y, cb, cr, int(qp), nnz_blk, mv, luma)
-    for t in (y, cb, cr):
+        else:
+            res = deblock_frame_plain(y, cb, cr, int(qp), nnz_blk, mv, luma)
+        if out is None:
+            return res
+        return tuple(o.copy_(r) for o, r in zip(out, res))
+    outs = (list(out) if out is not None
+            else [torch.empty_like(p) for p in (y, cb, cr)])
+    for t in (y, cb, cr, *outs):
         if t.data_ptr() % 16:
             raise ValueError("planes must be 16-byte aligned")
     tl, tc = _tables(int(qp))
-    outs = [torch.empty_like(p) for p in (y, cb, cr)]
     _cuda.launch("deblock", "deblock_launch",
                  [y, cb, cr, nnz_blk, mv, luma, qp_dev] + outs,
                  [nr, nc, tl[0], tl[1], *tl[2], tc[0], tc[1], *tc[2],

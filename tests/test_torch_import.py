@@ -263,6 +263,36 @@ print("LEAKED", bad)
 """
 
 
+_BLOCKED_BENCH = """
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from docker_nvidia_glx_desktop_tpu_torch import bench
+from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
+from docker_nvidia_glx_desktop_tpu_torch.ops import aq, devloop
+enc = H264Encoder(64, 48, device="cpu")
+r = np.random.default_rng(0)
+cur = [torch.from_numpy(r.integers(0, 256, s, np.uint8))
+       for s in ((48, 64), (24, 32), (24, 32))]
+ref = [p.flip(0).contiguous() for p in cur]
+sums = [devloop.intra_loop(*cur, *enc._hdr_slots(0, 0), 1, 26),
+        devloop.p_loop(*cur, *ref, *enc._p_hdr_slots(1, 0), 1, 26),
+        devloop.cabac_intra_loop(*cur, 1, 26, binarize=True),
+        devloop.inter_loop(*cur, *ref, 1, 26),
+        devloop.deblock_loop(*cur, 1, 26),
+        devloop.cabac_p_loop(*cur, *ref, 1, 26)]
+assert all(isinstance(s, np.uint32) for s in sums), sums
+assert aq.psnr_planes(cur[0], ref[0]) > 0
+assert bench._bdrate_frames("scrolling", 64, 48, 2)[0].shape == (48, 64, 3)
+bad = sorted(m for m in sys.modules
+             if m == "docker_nvidia_glx_desktop_tpu"
+             or m.startswith("docker_nvidia_glx_desktop_tpu."))
+print("LEAKED", bad)
+"""
+
+
 def _run(code: str, cwd=None, timeout=120):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -305,6 +335,14 @@ def test_port_serves_sessions_with_jax_blocked():
     """Every module of the serving slice imports with JAX blocked, and a
     two-bucket multi-session tick and a StreamSession run on the CPU."""
     out = _run(_BLOCKED_SESSIONS.format(repo=str(REPO)), cwd=str(REPO.parent))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LEAKED []" in out.stdout
+
+
+def test_port_bench_loops_and_distortion_run_with_jax_blocked():
+    """The bench module imports, one step of each device-only loop and the
+    PSNR run on the CPU with JAX blocked."""
+    out = _run(_BLOCKED_BENCH.format(repo=str(REPO)), cwd=str(REPO.parent))
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LEAKED []" in out.stdout
 

@@ -12,6 +12,7 @@ import pathlib
 import pickle
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -55,9 +56,21 @@ class ScriptSource:
         return self.render(t), t
 
 
+def _published(sess) -> int:
+    return sum(d["t_publish"] is not None for d in sess.journeys.recent(64))
+
+
 def run_session(session_mod, from_env, budget, name: str, **kw) -> dict:
     """One StreamSession on its encode thread until every frame's AU came
-    out: the AUs, the dispatch samples and the journeys' chunk identity."""
+    out and its journey completed: the AUs, the dispatch samples and the
+    journeys' chunk identity.
+
+    The budget ledger is process-wide: another session of the same process
+    (one that an earlier test stopped while its thread was still inside a
+    submit) may record a dispatch at any time, so only the samples that
+    this session's encode thread records are kept; the rest go on to the
+    ledger.  The session calls its AU listeners before it completes the
+    frame's journey, so the run ends once both counts are ``n``."""
     env, n = CONFIGS[name]
     cfg = from_env(dict({"SIZEW": "64", "SIZEH": "48", "REFRESH": "60"}, **env))
     src = ScriptSource(64, 48, n)
@@ -65,15 +78,25 @@ def run_session(session_mod, from_env, budget, name: str, **kw) -> dict:
     aus, disp = [], []
     sess.add_au_listener(lambda au, key, pts: aus.append((bytes(au), key)))
     orig = budget.LEDGER.record_dispatch
-    budget.LEDGER.record_dispatch = lambda c, g: disp.append(int(c))
+
+    def record(c, g):
+        if threading.current_thread() is sess._thread:
+            disp.append(int(c))
+        else:
+            orig(c, g)
+
+    budget.LEDGER.record_dispatch = record
     try:
         sess.start()
         deadline = time.monotonic() + 300
-        while len(aus) < n and time.monotonic() < deadline:
+        while ((len(aus) < n or _published(sess) < n)
+               and time.monotonic() < deadline):
             time.sleep(0.02)
         sess.stop()
     finally:
         budget.LEDGER.record_dispatch = orig
+    # one sample a frame: the thread filter kept this session's dispatches
+    assert len(disp) == n, (name, disp)
     journeys = [(d.get("chunk_len", 1), d.get("slot", 0), d["shards"],
                  d.get("chunk_id") is not None)
                 for d in sess.journeys.recent(64)]
