@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in eleven phases:
+seeded generator, in twelve phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -15,6 +15,11 @@ seeded generator, in eleven phases:
   keyframe halfway (a second IDR through the intra loop filter), one
   full-noise P frame that overflows the packer and takes the P host
   fallback, two frames in flight (K1-K3, K4 full form, K5-K8);
+- **chain**: K1 and K6 against their plain versions on the inputs
+  their designs are sensitive to (K1: full noise at each tier, saturated
+  planes, 8 stacked sessions, 4K; K6: all-skip, full noise, I16-in-P, 8
+  sessions), with the two sources' ``-Xptxas -v`` lines and each
+  wrapper's kernels by device time;
 - **colour**: the default configuration at an odd geometry
   (1919x1079), which the host converter cannot take: the device colour
   conversion (K9) on every frame, two frames in flight;
@@ -75,6 +80,10 @@ Checks, each of which fails the run:
           GOP phase every deblocked reference against the plain chain
   (c)     where cv2 decodes H.264, the decoded luma of the GOP and CABAC
           streams against the encoder's deblocked references
+  chain   K1 (tiers 1, 2 on 1080p noise; bands of saturated planes at
+          each tier at 640x368; 8 stacked sessions at 320x192; 3840x2176)
+          and K6 (an all-skip and a full-noise P frame, I16-in-P with the
+          qp chain, 8 stacked 1080p sessions) equal to their plain versions
   colour  the odd-geometry stream against one whose colour conversion
           is the plain version; K9 on 1080p and odd frames
   cabac   both routes' access units byte-identical; every K10 and K11
@@ -137,7 +146,10 @@ a ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, without CUDA or
 outside a checkout of the repository.
 
-Run: ``python3 chip_smoke.py`` (details go to ``chiprun_out/``).
+Run: ``python3 chip_smoke.py`` (details go to ``chiprun_out/``).  Two
+measurement modes for the intra core and the P slot coder (see their
+section near the end): ``python3 chip_smoke.py k1k6-pairs --pairs 3
+parent=.tree/parent change=.`` and ``python3 chip_smoke.py k1-variants``.
 """
 
 from __future__ import annotations
@@ -493,6 +505,8 @@ def run():
     print(f"intra phase done at {time.perf_counter() - t_start:.0f} s")
     rows += gop_phase(report)
     print(f"gop phase done at {time.perf_counter() - t_start:.0f} s")
+    chain_phase(report, logs)
+    print(f"chain phase done at {time.perf_counter() - t_start:.0f} s")
     rows += colour_phase(report)
     print(f"colour phase done at {time.perf_counter() - t_start:.0f} s")
     rows += cabac_phase(report)
@@ -691,15 +705,15 @@ def intra_phase(report):
                                    nb))
         for k, fn in wrappers.items():
             fn.launches = saved[k]
-        # K1's chain: 120 MBs in order, ~21 barrier-separated stages each,
-        # ~0.5 us of dependent integer work per stage (estimate)
-        depth_ms = enc.mb_w * 21 * 0.5e-3
+        # K1's chain: 120 MBs in order, each 7 dependent I4 steps and the
+        # barrier with the decision, ~1 us a step (estimate)
+        depth_ms = enc.mb_w * 8 * 1.0e-3
         for r in rows:
             print(f"kernel {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.4f} ms "
                   f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
                   f"{r['launches'] / len(frames):.2f} launches/frame)")
         print(f"kernel intra: sequential-depth estimate {depth_ms:.2f} ms "
-              f"({enc.mb_w} MBs x 21 stages x ~0.5 us)")
+              f"({enc.mb_w} MBs x 8 steps x ~1 us)")
 
     # -- (b) every access unit against the plain path on the card ------------
     for i, tok in enumerate(tokens):
@@ -1063,6 +1077,160 @@ def gop_phase(report):
                          colour_ms=statistics.median(colour),
                          nal_ms=statistics.median(nal), device_busy=busy)
     return rows
+
+
+def kernel_split(fn, n: int = 10, tries: int = 2) -> dict:
+    """Mean device ms per call of each kernel ``fn`` launches, by name
+    (``torch.profiler``; a trace that comes back without device time is
+    taken once more), or {} where none holds any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(tries):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:       # no CUPTI tracing on this host
+            print(f"kernel split: not measured (profiler: {e})")
+            return {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0.0)
+            if us > 0:
+                name = e.key.replace("(anonymous namespace)::", "")
+                name = name.replace("void ", "").split("(")[0][:60]
+                out[name] = us / 1e3 / n
+        if out:
+            break
+    return out
+
+
+def saturated_planes(h: int, w: int, dev):
+    """Three bands of MB rows, luma and chroma alike: all 0, all 255 and
+    a 0/255 checkerboard (every MB row is its own slice in K1)."""
+    import torch
+
+    def one(hh, ww):
+        yy = torch.arange(hh, device=dev)[:, None]
+        xx = torch.arange(ww, device=dev)[None, :]
+        band = yy * 3 // hh
+        return torch.where(band == 0, 0, torch.where(
+            band == 1, 255, (yy + xx) % 2 * 255)).to(torch.uint8)
+    return [one(h, w), one(h // 2, w // 2), one(h // 2, w // 2)]
+
+
+def chain_phase(report, logs):
+    """K1 (the intra core's pre-pass and chain) and K6 (the one-pass P
+    slot coder) against their plain versions on the inputs their designs
+    are sensitive to: K1 on a full-noise 1080p frame at each tier, the
+    saturated planes at each tier, 8 stacked sessions and a 4K frame; K6
+    on an all-skip and a full-noise P frame, the I16-in-P form and 8
+    stacked sessions.  Prints the two sources' ``-Xptxas -v`` lines and
+    each wrapper's kernels by device time."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        cavlc_p_device, h264_device, h264_inter)
+    from docker_nvidia_glx_desktop_tpu_torch.utils.hostcolor import (
+        rgb_to_yuv420_host)
+
+    dev = torch.device("cuda")
+    for src in ("intra", "cavlc"):
+        for ln in logs.get(src, "").splitlines():
+            if "registers" in ln or "stack frame" in ln:
+                print(f"ptxas {src}: {ln.strip()}")
+    k1, k6 = h264_device.encode_intra_frame_yuv, cavlc_p_device.p_frame_slots
+    saved = (k1.launches, k1.hq.launches, k6.launches, k6.hq.launches,
+             k6.chain.launches)
+    rep = report.setdefault("chain", {})
+    t0 = time.perf_counter()
+
+    def up(rgb, ph, pw):
+        return [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                for p in rgb_to_yuv420_host(rgb, ph, pw)]
+
+    def same_k1(label, planes, qp, tune="off"):
+        got = k1(*planes, qp, tune)
+        want = h264_device.encode_intra_frame_yuv_plain(
+            *planes, qp, tune, got.get("qp_map"))
+        for k in want:
+            check(torch.equal(got[k], want[k]), f"K1 {label}: {k} differs")
+        return got
+
+    rng = np.random.default_rng(21)
+    noise = up(rng.integers(0, 256, (H, W, 3), dtype=np.uint8), H_PAD, W)
+    for tune in ("hq_noaq", "hq"):          # tier 0's noise: the intra phase
+        same_k1(f"noise {tune}", noise, 26, tune)
+    sat = saturated_planes(368, 640, dev)
+    for tune in ("off", "hq_noaq", "hq"):
+        same_k1(f"saturated {tune}", sat, 26, tune)
+    sh, sw = 192, 320
+    small = [up(f[:sh, :sw], sh, sw) for f in desktop_frames(8, seed=4)[:8]]
+    stacked = [torch.stack([p[i] for p in small]) for i in range(3)]
+    got = k1(*stacked, 30)
+    for i in range(8):
+        want = h264_device.encode_intra_frame_yuv_plain(*small[i], 30)
+        for k in want:
+            check(torch.equal(got[k][i], want[k]), f"K1 S=8 session {i}: {k}")
+    desk = desktop_frames(1, seed=5)[0]
+    big = up(np.tile(desk, (2, 2, 1)), 2 * H_PAD, 2 * W)
+    same_k1("4K", big, 26)
+    print("(a) chain: K1 equal to plain on 1080p noise (hq_noaq, hq), the "
+          "saturated bands at each tier (640x368), S = 8 (320x192) and a "
+          "3840x2176 frame")
+    planes = up(desk, H_PAD, W)
+    rep["k1_split"] = kernel_split(lambda: k1(*planes, 26))
+    rep["k1_4k_ms"] = cuda_ms(lambda: k1(*big, 26), reps=10)
+    s8 = [torch.stack([p[i] for p in [planes] * 8]) for i in range(3)]
+    rep["k1_s8_ms"] = cuda_ms(lambda: k1(*s8, 26), reps=10)
+
+    # K6 on the P core's outputs
+    lv = k1(*planes, 26)
+    ref = (lv["recon_y"], lv["recon_cb"], lv["recon_cr"])
+    moved = up(np.roll(desk, (2, 3), (0, 1)), H_PAD, W)
+    o = h264_inter.encode_p_frame(*moved, *ref, 26)
+    cases = {"all-skip": {k: torch.zeros_like(v) for k, v in o.items()},
+             "noise": h264_inter.encode_p_frame(*noise, *ref, 26)}
+    for label, out in cases.items():
+        a, b = k6(out), cavlc_p_device.p_frame_slots_plain(out)
+        for i, (x, y) in enumerate(zip(a, b)):
+            check(torch.equal(x, y), f"K6 {label}: output {i} differs")
+    check(int(k6(cases["all-skip"])[3].sum()) == 0,
+          "K6 all-skip: a header coded")
+    oh = h264_inter.encode_p_frame(*noise, *ref, 26, tune="hq", p_intra=True)
+    check(bool(oh["mb_intra"].any()), "K6 I16-in-P: no intra MB")
+    a, b = k6(oh, 26), cavlc_p_device.p_frame_slots_plain(oh, 26)
+    for i, (x, y) in enumerate(zip(a, b)):
+        check(torch.equal(x, y), f"K6 I16-in-P: output {i} differs")
+    keys = ("mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
+    outs = [h264_inter.encode_p_frame(*up(np.roll(desk, (i, 2 * i), (0, 1)),
+                                          H_PAD, W), *ref, 26)
+            for i in range(8)]
+    o8 = {k: torch.stack([x[k] for x in outs]) for k in keys}
+    a = k6(o8)
+    for i in range(8):
+        b = cavlc_p_device.p_frame_slots_plain({k: o8[k][i] for k in keys})
+        for j, (x, y) in enumerate(zip(a, b)):
+            check(torch.equal(x[i], y), f"K6 S=8 session {i}: output {j}")
+    print("(a) chain: K6 equal to plain on an all-skip and a full-noise P "
+          "frame, the I16-in-P form with the qp chain and S = 8 (1080p)")
+    rep["k6_split"] = kernel_split(lambda: k6(o))
+    rep["k6_i_split"] = kernel_split(lambda: k6(oh, 26))
+    rep["k6_s8_ms"] = cuda_ms(lambda: k6(o8), reps=10)
+    rep["s"] = time.perf_counter() - t0
+    (k1.launches, k1.hq.launches, k6.launches, k6.hq.launches,
+     k6.chain.launches) = saved
+    for name in ("k1_split", "k6_split", "k6_i_split"):
+        print(f"{name} (device ms): " + "; ".join(
+            f"{k} {v:.4f}" for k, v in rep[name].items()))
+    print(f"chain: K1 at S = 8 {rep['k1_s8_ms']:.3f} ms, at 4K "
+          f"{rep['k1_4k_ms']:.3f} ms; K6 at S = 8 {rep['k6_s8_ms']:.3f} ms; "
+          f"phase {rep['s']:.1f} s")
 
 
 def colour_phase(report):
@@ -4486,8 +4654,286 @@ def bench_phase(report, rows_before):
     return rows
 
 
-def main():
+# -- A/B timing of K1 and K6 across checkouts, and K1's chain by parts ------
+#
+# ``python3 chip_smoke.py k1k6-pairs [--pairs N] NAME=PATH ...`` compares
+# checkouts of the repository (say a commit's parent, unpacked with ``git
+# archive`` into the git-ignored ``.tree/``, and this tree): every run is a
+# fresh process that imports the port from PATH, round ``i`` runs the
+# variants in order and round ``i + 1`` in reverse.  A run times at 1080p on
+# this script's seeded desktops, medians of CUDA events over eager calls
+# through the wrappers every checkout has: K1 at each tier on a desktop
+# frame, tier 0 on a full-noise frame, on 8 stacked sessions and on a
+# 3840x2176 frame; K2 on K1's levels (it shares the block coder with K6),
+# also replayed; K6 on the P core's outputs of a moving desktop frame, of an
+# all-skip frame and a noise frame, on 8 sessions and in the I16-in-P form
+# without and with the qp chain; K1's and K6's kernels by device time
+# (``torch.profiler``); the device-only intra and P steps (rows 17a, 17b).
+# Each variant's build reports the intra and cavlc sources' ``-Xptxas -v``
+# lines.  Writes ``chiprun_out/k1k6_pairs.json``.
+#
+# ``python3 chip_smoke.py k1-variants`` builds copies of ``csrc/intra.cu``
+# with one part of the chain pass cut out (wrong outputs: timing only) into
+# ``.tree/k1_variants`` and times each copy's tier-0 launch at 1080p as
+# graph replays: ``base``; ``no_i4`` (the I4 warps skip the I4 chain);
+# ``noshfl_fwd`` / ``noshfl_inv`` (the I4 step's forward / inverse column
+# pass without shuffles); ``no_bits_shfl``; ``no_pick``; ``no_sync`` (the
+# I4 steps without syncs).  Writes ``chiprun_out/k1_variants.json``.
+
+PAIRS_QP = 26
+PAIRS_LOOP_BUDGET_S = 6.0
+PKG = "docker_nvidia_glx_desktop_tpu_torch"
+
+
+def ptxas_lines(log: str) -> list:
+    """The compiler's per-function resource lines of one source."""
+    keep = ("Compiling entry function", "bytes stack frame", "Used ", "spill")
+    return [ln.strip() for ln in log.splitlines() if any(k in ln for k in keep)]
+
+
+def k1k6_child(tree: str, build_only: bool) -> dict:
+    """One run of ``k1k6-pairs``: import the port from ``tree``, time K1,
+    K2, K6 and steps 17a-b."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeError("no CUDA device")
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+
+    mod = sys.modules[PKG]
+    check(mod.__file__.startswith(os.path.abspath(tree)),
+          f"imported {mod.__file__}, not the package of {tree}")
+    if build_only:
+        logs = _cuda.build(verbose=True)
+        return {"built": tree, "ptxas": {k: ptxas_lines(logs.get(k, ""))
+                                         for k in ("intra", "cavlc")}}
+
+    from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        cavlc_device, cavlc_p_device, devloop, h264_device, h264_inter)
+    from docker_nvidia_glx_desktop_tpu_torch.utils.hostcolor import (
+        rgb_to_yuv420_host)
+
+    dev, qp = torch.device("cuda"), PAIRS_QP
+
+    def planes(rgb, ph=H_PAD, pw=W):
+        return [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                for p in rgb_to_yuv420_host(rgb, ph, pw)]
+
+    gop = gop_frames(3, seed=2, noisy_at=2)
+    desk, moved, noise = planes(gop[0]), planes(gop[1]), planes(gop[2])
+    big = planes(np.tile(gop[0], (2, 2, 1)), 2 * H_PAD, 2 * W)
+    sess = [planes(f) for f in desktop_frames(8, seed=4)[:8]]
+    stacked = [torch.stack([s[i] for s in sess]) for i in range(3)]
+    ev = lambda fn: cuda_ms(fn, reps=20)
+    gr = lambda fn: graph_ms(fn, reps=20)
+    k1 = lambda p, tune="off": (
+        lambda: h264_device.encode_intra_frame_yuv(*p, qp, tune))
+    out = {"k1_t0_ms": ev(k1(desk)), "k1_t0_graph_ms": gr(k1(desk)),
+           "k1_t0_noise_ms": ev(k1(noise)), "k1_t1_ms": ev(k1(desk, "hq_noaq")),
+           "k1_t2_ms": ev(k1(desk, "hq")), "k1_s8_ms": ev(k1(stacked)),
+           "k1_4k_ms": ev(k1(big)), "k1_split": kernel_split(k1(desk))}
+    lv = h264_device.encode_intra_frame_yuv(*desk, qp)
+    out["k2_ms"] = ev(lambda: cavlc_device.frame_block_slots(lv))
+    out["k2_graph_ms"] = gr(lambda: cavlc_device.frame_block_slots(lv))
+
+    ref = (lv["recon_y"], lv["recon_cb"], lv["recon_cr"])
+    o = h264_inter.encode_p_frame(*moved, *ref, qp)
+    ohq = h264_inter.encode_p_frame(*moved, *ref, qp, tune="hq", p_intra=True)
+    keys = ("mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
+    os8 = [h264_inter.encode_p_frame(*s, *ref, qp) for s in sess]
+    o8 = {k: torch.stack([x[k] for x in os8]) for k in keys}
+    k6 = lambda x, q=None: (lambda: cavlc_p_device.p_frame_slots(x, q))
+    out.update(
+        k6_ms=ev(k6(o)), k6_graph_ms=gr(k6(o)),
+        k6_skip_ms=ev(k6(h264_inter.encode_p_frame(*ref, *ref, qp))),
+        k6_noise_ms=ev(k6(h264_inter.encode_p_frame(*noise, *ref, qp))),
+        k6_i_ms=ev(k6({k: v for k, v in ohq.items() if k != "qp_map"})),
+        k6_i_chain_ms=ev(k6(ohq, qp)), k6_s8_ms=ev(k6(o8)),
+        k6_intra_mbs=int(ohq["mb_intra"].sum()), k6_split=kernel_split(k6(o)),
+        k6_i_split=kernel_split(k6(ohq, qp)))
+
+    enc = H264Encoder(W, H, mode="cavlc", entropy="device", host_color=True,
+                      device=dev)
+    d = planes(gop_frames(1, seed=5)[0])
+    hv, hl = enc._hdr_slots(0, 0)
+    hvp, hlp = enc._p_hdr_slots(1, 0)
+    out["step17a_ms"] = devloop.measure_steady_state(
+        lambda k: devloop.intra_loop(*d, hv, hl, k, qp),
+        budget_s=PAIRS_LOOP_BUDGET_S)["step_ms"]
+    out["step17b_ms"] = devloop.measure_steady_state(
+        lambda k: devloop.p_loop(*d, *d, hvp, hlp, k, qp, deblock=True),
+        budget_s=PAIRS_LOOP_BUDGET_S)["step_ms"]
+    return out
+
+
+def k1k6_pairs(argv) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py k1k6-pairs")
+    ap.add_argument("variants", nargs="*", help="NAME=PATH")
+    ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--build-only", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        print(json.dumps(k1k6_child(args.child, args.build_only)))
+        return 0
+    check(torch.cuda.is_available(), "no CUDA device")
+    variants = []
+    for v in args.variants:
+        name, tree = v.split("=", 1)
+        check(os.path.isdir(os.path.join(tree, PKG)), f"bad variant {v!r}")
+        variants.append((name, tree))
+    check(bool(variants), "give at least one NAME=PATH")
+
+    def one(tree, build_only=False):
+        cmd = [sys.executable, os.path.abspath(__file__), "k1k6-pairs",
+               "--child", tree] + (["--build-only"] if build_only else [])
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                           cwd=HERE)
+        check(p.returncode == 0, f"run of {tree} failed:\n{p.stderr[-4000:]}")
+        return json.loads(p.stdout.strip().splitlines()[-1])
+
+    smi = smi_line()
+    print(smi, flush=True)
+    builds = {}
+    for name, tree in variants:                 # builds, untimed
+        builds[name] = one(tree, build_only=True)
+        for src, lines in builds[name]["ptxas"].items():
+            for ln in lines:
+                print(f"ptxas {name} {src}: {ln}", flush=True)
+    runs = []
+    for i in range(args.pairs):
+        for name, tree in (variants if i % 2 == 0 else variants[::-1]):
+            r = dict(one(tree), variant=name, round=i)
+            runs.append(r)
+            print(json.dumps(r), flush=True)
+    summary = {}
+    for name, _ in variants:
+        mine = [r for r in runs if r["variant"] == name]
+        summary[name] = {k: statistics.median(r[k] for r in mine)
+                         for k, v in mine[0].items() if isinstance(v, float)}
+    print(json.dumps({"card": smi, "summary": summary}))
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k1k6_pairs.json"), "w") as f:
+        json.dump({"card": smi, "builds": builds, "runs": runs,
+                   "summary": summary}, f, indent=1)
+    return 0
+
+
+_SHFL = "__shfl_sync(FULL, {x}[v], base{o})"
+
+
+def _quad(x: str) -> str:
+    """intra.cu's four shuffles of ``x[v]`` across a candidate's lanes."""
+    a = ", ".join(f"{x}{i} = " + _SHFL.format(x=x, o=f" + {i}" if i else "")
+                  for i in range(2))
+    b = ", ".join(f"{x}{i} = " + _SHFL.format(x=x, o=f" + {i}")
+                  for i in range(2, 4))
+    return f"      const int {a},\n                {b};"
+
+
+def _fake(x: str) -> str:
+    return (f"      const int {x}0 = {x}[v], {x}1 = {x}[v] + 1, "
+            f"{x}2 = {x}[v] - 1, {x}3 = {x}[v] * 3;")
+
+
+K1_VARIANTS = {
+    "base": [],
+    "no_i4": [("i4_mb<TIER>(s, par, left, has_left, Q, lam, i4);",
+               "if (i4 == 0) s.bits4[par] = 0;")],
+    "noshfl_fwd": [(_quad("t"), _fake("t"))],
+    "noshfl_inv": [(_quad("f"), _fake("f"))],
+    "no_bits_shfl": [("  bits += __shfl_xor_sync(FULL, bits, 1);\n"
+                      "  bits += __shfl_xor_sync(FULL, bits, 2);", "")],
+    "no_pick": [("    k = c1 < c0 ? 1 : 0;\n    k = c2 < (k ? c1 : c0) ? 2 : k;\n"
+                 "  } else {", "    k = (c0 + c1 + c2) & 0;\n  } else {")],
+    "no_sync": [("      __syncwarp();\n    }\n  }\n  i4_barrier();",
+                 "    }\n  }\n  i4_barrier();"),
+                ("lane < 24, left, has_left, Q, lam, lane);\n    i4_barrier();",
+                 "lane < 24, left, has_left, Q, lam, lane);")],
+}
+
+
+def k1_variants() -> int:
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, HERE)
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+    from docker_nvidia_glx_desktop_tpu_torch.ops.h264_device import PRE_WORDS
+    from docker_nvidia_glx_desktop_tpu_torch.utils.hostcolor import (
+        rgb_to_yuv420_host)
+
+    smi = smi_line()
+    print(smi, flush=True)
+    csrc, out_dir = _cuda.CSRC, os.path.join(HERE, ".tree", "k1_variants")
+    src = open(os.path.join(csrc, "intra.cu")).read()
+    procs = {}
+    for name, subs in K1_VARIANTS.items():
+        text = src
+        for old, new in subs:
+            check(old in text, f"{name}: pattern not in intra.cu: {old[:60]!r}")
+            text = text.replace(old, new)
+        d = os.path.join(out_dir, name)
+        os.makedirs(d, exist_ok=True)
+        for f in ("common.cuh", "transform.cuh"):
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(open(os.path.join(csrc, f)).read())
+        with open(os.path.join(d, "intra.cu"), "w") as fh:
+            fh.write(text)
+        procs[name] = subprocess.Popen(
+            [_cuda.nvcc()] + _cuda._NVCC_FLAGS
+            + ["-o", os.path.join(d, "lib.so"), os.path.join(d, "intra.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, p in procs.items():
+        log = p.communicate()[0]
+        check(p.returncode == 0, f"{name}: nvcc failed\n{log[-3000:]}")
+    dev = torch.device("cuda")
+    y, cb, cr = [torch.from_numpy(np.ascontiguousarray(p)).to(dev) for p in
+                 rgb_to_yuv420_host(desktop_frames(2)[0], H_PAD, W)]
+    nr, nc = H_PAD // 16, W // 16
+    i32 = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)
+    ptrs = [y, cb, cr, i32(nr, nc, 16), i32(nr, nc, 16, 15), i32(nr, nc, 4),
+            i32(nr, nc, 4, 15), i32(nr, nc, 4), i32(nr, nc, 4, 15),
+            i32(nr, nc), torch.empty((nr, nc), dtype=torch.uint8, device=dev),
+            i32(nr, nc, 16), i32(nr, nc, 16, 16), torch.empty_like(y),
+            torch.empty_like(cb), torch.empty_like(cr),
+            i32(nr * nc, PRE_WORDS)]
+    res = {}
+    for name in K1_VARIANTS:
+        fn = ctypes.CDLL(os.path.join(out_dir, name, "lib.so")).intra_frame_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+
+        def call():
+            err = fn(*[t.data_ptr() for t in ptrs], nr, nc, 26, 26, 1,
+                     torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"{name}: CUDA error {err}")
+        res[name] = graph_ms(call, reps=20)
+        print(f"{name}: {res[name]:.4f} ms", flush=True)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k1_variants.json"), "w") as f:
+        json.dump({"card": smi, "ms": res}, f, indent=1)
+    return 0
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     try:
+        if argv[:1] == ["k1k6-pairs"]:
+            return k1k6_pairs(argv[1:])
+        if argv[:1] == ["k1-variants"]:
+            return k1_variants()
         return run()
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

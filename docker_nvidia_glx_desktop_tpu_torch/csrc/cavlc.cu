@@ -19,12 +19,23 @@
 // p_frame_block_slots (inter MBs), :77 p_mb_header_slots and the nnz
 // flags of _finish_p :425.  The slots are equal to theirs.
 //
-// What bounds it: the sequential per-block CAVLC loops (level VLC with
-// adaptive suffixLength, run_before with zerosLeft), not bytes: it reads
-// ~4 KB and writes ~7.5 KB of slots per MB.  Pass 1 (one thread per MB)
-// counts total_coeff per block with the cbp gates; pass 2 runs one thread
-// per 4x4 block (27 per MB) with its loops in registers and the tables in
-// constant memory, plus one thread per MB for the syntax slots.
+// What bounds them: the bytes of the slots and how they are written, not
+// the coder's arithmetic.  A 1080p P frame reads ~12 MB of levels and
+// writes ~58 MB of slots (0.021 ms at 3.35 TB/s); the per-block loops
+// (level VLC with adaptive suffixLength, run_before with zerosLeft) are
+// ~10^3 instructions a block, ~7 us of issue over the card.
+// K2 (two passes): pass 1 (one thread per MB) counts total_coeff per
+// block with the cbp gates; pass 2 runs one thread per 4x4 block (27 per
+// MB), each storing its 34 slots straight to device memory (lanes 136
+// bytes apart), plus one thread per MB for the syntax slots.
+// K6 (one pass, below): a CTA per segment of a row stages its levels in
+// shared memory, codes each 4x4 block into a shared slot tile and writes
+// the tile out as one contiguous range of 16-byte stores; the skip runs
+// are a max-scan of coded MBs along the row.  The block coder walks its
+// nonzeros through a bit mask and keeps no dynamically indexed array (no
+// local memory).  This comes within ~3x of the bytes bound on an H100
+// (chip_smoke.py k1k6-pairs); TMA would replace the tile's copy-out loop,
+// whose stores are already coalesced.
 #include "common.cuh"
 
 namespace {
@@ -138,14 +149,26 @@ __device__ void level_vlc(int code, int sl, unsigned* val, int* len) {
   }
 }
 
-// Code one block's 16 scan-order levels into 34 slots.
-__device__ void code_block(const int* lv, int nc, bool is_cdc, int max_coeff,
+// Code one block's n <= 16 scan-order levels into 34 slots.  The levels
+// are read where they lie (shared memory for K6); the nonzeros are walked
+// from the highest frequency down through a bit mask, so the coder keeps
+// no dynamically indexed array of its own.
+__device__ void code_block(const int* lv, int n, int nc, bool is_cdc, int max_coeff,
                            bool gate, int* vals, int* lens) {
-  int rv[19], rp[16], total = 0;
-  for (int k = 15; k >= 0; --k)
-    if (lv[k] != 0) { rv[total] = lv[k]; rp[total] = k; ++total; }
-  for (int j = total; j < 16; ++j) { rv[j] = 0; rp[j] = 0; }
-  rv[16] = rv[17] = rv[18] = 0;
+  unsigned mask = 0;
+  for (int k = 0; k < n; ++k) mask |= (lv[k] != 0 ? 1u : 0u) << k;
+  const int total = __popc(mask);
+  // rv[0..2]: the three highest-frequency nonzeros (0 past total)
+  int rv[3] = {0, 0, 0};
+  unsigned m = mask;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    if (m) {
+      const int p = 31 - __clz(m);
+      rv[i] = lv[p];
+      m &= ~(1u << p);
+    }
+  }
   const bool c0 = total > 0 && abs(rv[0]) == 1;
   const bool c1 = c0 && total > 1 && abs(rv[1]) == 1;
   const bool c2 = c1 && total > 2 && abs(rv[2]) == 1;
@@ -156,15 +179,18 @@ __device__ void code_block(const int* lv, int nc, bool is_cdc, int max_coeff,
   const int s0 = rv[0] < 0, s1 = rv[1] < 0, s2 = rv[2] < 0;
   vals[1] = t1 == 0 ? 0 : (t1 == 1 ? s0 : (t1 == 2 ? (s0 << 1) | s1 : (s0 << 2) | (s1 << 1) | s2));
   lens[1] = t1;
-  // remaining levels, highest frequency first
+  // remaining levels, highest frequency first, past the trailing ones
+  m = mask;
+  for (int i = 0; i < t1; ++i) m &= ~(1u << (31 - __clz(m)));
   int sl = (total > 10 && t1 < 3) ? 1 : 0;
-  bool first = true;
   const int n_levels = total - t1;
   for (int j = 0; j < 16; ++j) {
     if (j >= n_levels) { vals[2 + j] = 0; lens[2 + j] = 0; continue; }
-    const int level = rv[t1 + j];
+    const int p = 31 - __clz(m);
+    m &= ~(1u << p);
+    const int level = lv[p];
     int code = level > 0 ? 2 * level - 2 : -2 * level - 1;
-    if (first && t1 < 3) code -= 2;
+    if (j == 0 && t1 < 3) code -= 2;
     unsigned v;
     int l;
     level_vlc(code, sl, &v, &l);
@@ -172,21 +198,23 @@ __device__ void code_block(const int* lv, int nc, bool is_cdc, int max_coeff,
     int sl_new = max(sl, 1);
     if (abs(level) > (3 << max(sl_new - 1, 0)) && sl_new < 6) ++sl_new;
     sl = sl_new;
-    first = false;
   }
   // total_zeros
-  const int tz = total > 0 ? rp[0] + 1 - total : 0;
+  const int top = total > 0 ? 31 - __clz(mask) : 0;     // rp[0]
+  const int tz = total > 0 ? top + 1 - total : 0;
   const int tzi = min(max(total - 1, 0), 15);
   const int tzp = is_cdc ? c_tzc[min(tzi, 2) * 4 + min(max(tz, 0), 3)]
                          : c_tz[tzi * 16 + min(max(tz, 0), 15)];
   const bool tz_emit = total > 0 && total < max_coeff;
   vals[18] = tz_emit ? tzp & 0xFFFF : 0;
   lens[18] = tz_emit ? tzp >> 16 : 0;
-  // run_before
-  int zeros_left = tz;
+  // run_before: cur = rp[k], next = rp[k + 1] (rp[j] = 0 for j >= total)
+  int zeros_left = tz, cur = top;
+  m = total > 0 ? mask & ~(1u << top) : 0u;
   for (int k = 0; k < 15; ++k) {
-    const int next = k + 1 < 16 ? rp[k + 1] : 0;
-    const int run = min(max(rp[k] - next - 1, 0), 14);
+    const int next = m ? 31 - __clz(m) : 0;
+    if (m) m &= ~(1u << next);
+    const int run = min(max(cur - next - 1, 0), 14);
     const bool active = k <= total - 2 && zeros_left > 0;
     int rbp = 0;
     if (active) {
@@ -196,6 +224,7 @@ __device__ void code_block(const int* lv, int nc, bool is_cdc, int max_coeff,
     vals[19 + k] = rbp & 0xFFFF;
     lens[19 + k] = rbp >> 16;
     zeros_left -= run;
+    cur = next;
   }
   if (!gate)
     for (int s = 0; s < SLOTS; ++s) lens[s] = 0;
@@ -253,7 +282,8 @@ __global__ void slots_kernel(Levels L, const int* info, int* values, int* length
   }
   const bool i4 = L.mb_i4[mb];
   const int cbp_c = inf[CBP_CHROMA];
-  int lv[16];
+  __shared__ int lvs[128][17];      // each thread's levels (blocks of 128; 17: no bank conflicts)
+  int* const lv = lvs[threadIdx.x];
   for (int k = 0; k < 16; ++k) lv[k] = 0;
   int nc_ctx = 0, max_coeff = 15;
   bool is_cdc = false, gate = true;
@@ -287,12 +317,29 @@ __global__ void slots_kernel(Levels L, const int* info, int* values, int* length
     gate = cbp_c == 2;
   }
   const int base = (mb * BLOCKS + j) * SLOTS;
-  code_block(lv, nc_ctx, is_cdc, max_coeff, gate, values + base, lengths + base);
+  code_block(lv, 16, nc_ctx, is_cdc, max_coeff, gate, values + base, lengths + base);
 }
 
 // --- K6: P slices -------------------------------------------------------
+//
+// One kernel.  A CTA takes a segment of one MB row (up to P_SEG_CHUNKS
+// chunks of P_G MBs; the session is blockIdx.y):
+//  A. the coded flag (mv != 0, any level, or intra) of every MB of the
+//     row up to the segment's end, from 16-byte loads, and the row's skip
+//     runs as a warp max-scan of the coded MBs' indices (as the qp chain);
+//  B. per chunk: the chunk's levels and the MB to its left (the halo, for
+//     the nC of its left column) staged in shared memory with 16-byte
+//     loads; per MB a warp counts total_coeff by ballots over the
+//     coefficients and derives the cbp, the gates and the nnz flags; a
+//     thread per 4x4 block codes its slots into a shared tile that goes
+//     out whole as 16-byte coalesced stores (a chunk's slots are one
+//     contiguous range), and a thread per MB writes its header.
 
 constexpr int P_BLOCKS = 26, P_HDR = 7;
+constexpr int P_G = 8;            // MBs a chunk
+constexpr int P_SEG_CHUNKS = 4;   // chunks a CTA
+constexpr int P_THREADS = 256;
+constexpr int P_MAX_NC = 512;     // MBs a row (8192 samples)
 
 struct PLevels {
   const int *mv, *luma, *cb_dc, *cb_ac, *cr_dc, *cr_ac;
@@ -300,67 +347,124 @@ struct PLevels {
   const uint8_t* mb_intra;
 };
 
-// scratch word layout per MB (P pass 1 -> pass 2); TC_* as the intra's
+// per-MB info words (smem), TC_* as the intra's; P_CBP is also the word
+// the qp chain reads from the scratch
 enum { P_CBP = 24, P_CBP_CHROMA = 25, P_GRP = 26, P_INTRA = 27, P_CL15 = 28 };
 
 template <bool INTRA>
-__global__ void p_info_kernel(PLevels L, int* info, uint8_t* nnz, int nmb) {
-  const int local = blockIdx.x * blockDim.x + threadIdx.x;   // session blockIdx.y
-  if (local >= nmb) return;
-  const int mb = blockIdx.y * nmb + local;
-  int* o = info + mb * INFO;
-  int grp = 0;
-  for (int b = 0; b < 16; ++b) {        // blkIdx order
-    int tc = 0;
-    for (int k = 0; k < 16; ++k) tc += L.luma[(mb * 16 + b) * 16 + k] != 0;
-    o[TC_LUMA + c_blk_y[b] * 4 + c_blk_x[b]] = tc;
-    nnz[mb * 16 + c_blk_y[b] * 4 + c_blk_x[b]] = tc > 0;
-    if (tc) grp |= 1 << (b >> 2);
-  }
-  bool intra = false, cl15 = false;
-  if constexpr (INTRA) {
-    // an intra MB's 4x4 counts come from its (cbp-gated) AC blocks
-    intra = L.mb_intra[mb] != 0;
-    if (intra) {
-      for (int k = 0; k < 16 * 15; ++k) cl15 |= L.i16_ac[mb * 240 + k] != 0;
-      for (int b = 0; b < 16; ++b) {
-        int tc = 0;
-        if (cl15)
-          for (int k = 0; k < 15; ++k) tc += L.i16_ac[(mb * 16 + b) * 15 + k] != 0;
-        o[TC_LUMA + c_blk_y[b] * 4 + c_blk_x[b]] = tc;
-      }
-    }
-    o[P_INTRA] = intra;
-    o[P_CL15] = cl15;
-  }
-  bool ac_any = false, dc_any = false;
-  for (int k = 0; k < 60; ++k)
-    ac_any |= (L.cb_ac[mb * 60 + k] != 0) | (L.cr_ac[mb * 60 + k] != 0);
-  for (int k = 0; k < 4; ++k)
-    dc_any |= (L.cb_dc[mb * 4 + k] != 0) | (L.cr_dc[mb * 4 + k] != 0);
-  const int cbp_c = ac_any ? 2 : (dc_any ? 1 : 0);
-  for (int q = 0; q < 4; ++q) {
-    int tcb = 0, tcr = 0;
-    if (cbp_c == 2) {
-      for (int k = 0; k < 15; ++k) {
-        tcb += L.cb_ac[(mb * 4 + q) * 15 + k] != 0;
-        tcr += L.cr_ac[(mb * 4 + q) * 15 + k] != 0;
-      }
-    }
-    o[TC_CB + q] = tcb;
-    o[TC_CR + q] = tcr;
-  }
-  // an intra MB's cbp is its I16 pattern (the core zeroed its inter luma)
-  o[P_CBP] = (intra ? (cl15 ? 15 : 0) : grp) + 16 * cbp_c;
-  o[P_CBP_CHROMA] = cbp_c;
-  o[P_GRP] = grp;
+struct PSmem {
+  static constexpr int NB = P_BLOCKS + (INTRA ? 1 : 0);
+  static constexpr int NI = INTRA ? P_G + 1 : 1;
+  alignas(16) int vals[P_G][NB][SLOTS];   // the chunk's slot tile
+  alignas(16) int lens[P_G][NB][SLOTS];
+  // levels of the chunk's MBs at 1..P_G, the halo MB at 0
+  alignas(16) int luma[P_G + 1][256];
+  alignas(16) int cbdc[P_G + 1][4];
+  alignas(16) int crdc[P_G + 1][4];
+  alignas(16) int cbac[P_G + 1][60];
+  alignas(16) int crac[P_G + 1][60];
+  alignas(16) int i16dc[NI][16];
+  alignas(16) int i16ac[NI][240];
+  int intra[NI];
+  int info[P_G + 1][INFO];
+  short prev[P_MAX_NC];             // last coded MB strictly before c, -1 if none
+  unsigned char coded[P_MAX_NC];
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// flags[c] = 1 where MB c's n levels (of a, MB-major, mbs MBs) hold a nonzero
+__device__ void mark_nonzero(const int* __restrict__ a, int n, int mbs, unsigned char* flags) {
+  if ((n & 3) == 0 && aligned16(a)) {
+    const int4* a4 = reinterpret_cast<const int4*>(a);
+    const int per = n >> 2;
+    for (int i = threadIdx.x; i < mbs * per; i += P_THREADS) {
+      const int4 v = a4[i];
+      if (v.x | v.y | v.z | v.w) flags[i / per] = 1;
+    }
+  } else {
+    for (int i = threadIdx.x; i < mbs * n; i += P_THREADS)
+      if (a[i]) flags[i / n] = 1;
+  }
+}
+
+// n ints from global to shared (16-byte loads where both are aligned)
+__device__ void stage(int* dst, const int* __restrict__ src, int n) {
+  if ((n & 3) == 0 && aligned16(src) && aligned16(dst)) {
+    for (int i = threadIdx.x; i < n / 4; i += P_THREADS)
+      reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
+  } else {
+    for (int i = threadIdx.x; i < n; i += P_THREADS) dst[i] = src[i];
+  }
+}
+
+// n ints from shared to global (16-byte stores where aligned)
+__device__ void copy_out(int* dst, const int* src, int n) {
+  if ((n & 3) == 0 && aligned16(dst)) {
+    for (int i = threadIdx.x; i < n / 4; i += P_THREADS)
+      reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
+  } else {
+    for (int i = threadIdx.x; i < n; i += P_THREADS) dst[i] = src[i];
+  }
+}
+
+// One MB's info by one warp: total_coeff per block (ballots over the
+// coefficients), cbp, gates; for a chunk MB (nnz non-null) its nnz flags
+// and the scratch's P_CBP word.
 template <bool INTRA>
-__device__ __forceinline__ bool p_coded(const PLevels& L, const int* info, int mb) {
-  bool coded = L.mv[mb * 2] != 0 || L.mv[mb * 2 + 1] != 0 || info[mb * INFO + P_CBP] != 0;
-  if constexpr (INTRA) coded |= info[mb * INFO + P_INTRA] != 0;
-  return coded;
+__device__ void p_mb_info(PSmem<INTRA>& s, int m, int lane, uint8_t* nnz, int* scratch) {
+  const int* lu = s.luma[m];
+  int tc = 0;                       // lane b < 16: luma block b (blkIdx)
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const unsigned bal = __ballot_sync(0xffffffffu, lu[k * 32 + lane] != 0);
+    if (lane == 2 * k) tc = __popc(bal & 0xffffu);
+    if (lane == 2 * k + 1) tc = __popc(bal >> 16);
+  }
+  const unsigned nzb = __ballot_sync(0xffffffffu, lane < 16 && tc > 0);
+  const int grp = ((nzb & 0xfu) ? 1 : 0) | ((nzb & 0xf0u) ? 2 : 0) |
+                  ((nzb & 0xf00u) ? 4 : 0) | ((nzb & 0xf000u) ? 8 : 0);
+  // chroma: lanes 0-7 count an AC block (cb then cr), lanes 8-15 read a DC level
+  int ctc = 0, dcv = 0;
+  if (lane < 8) {
+    const int* a = ((lane >> 2) ? s.crac[m] : s.cbac[m]) + (lane & 3) * 15;
+    for (int k = 0; k < 15; ++k) ctc += a[k] != 0;
+  } else if (lane < 16) {
+    dcv = ((lane >> 2) & 1 ? s.crdc[m] : s.cbdc[m])[lane & 3];
+  }
+  const bool ac_any = __ballot_sync(0xffffffffu, ctc > 0) != 0;
+  const bool dc_any = __ballot_sync(0xffffffffu, dcv != 0) != 0;
+  const int cbp_c = ac_any ? 2 : (dc_any ? 1 : 0);
+  bool intra = false, cl15 = false;
+  int itc = 0;
+  if constexpr (INTRA) {
+    // an intra MB's 4x4 counts come from its (cbp-gated) AC blocks
+    intra = s.intra[m] != 0;
+    if (intra) {
+      if (lane < 16)
+        for (int k = 0; k < 15; ++k) itc += s.i16ac[m][lane * 15 + k] != 0;
+      cl15 = __ballot_sync(0xffffffffu, itc > 0) != 0;
+    }
+  }
+  int* o = s.info[m];
+  if (lane < 16) {
+    const int rb = c_blk_y[lane] * 4 + c_blk_x[lane];
+    o[TC_LUMA + rb] = intra ? (cl15 ? itc : 0) : tc;
+    if (nnz) nnz[rb] = tc > 0;
+  }
+  if (lane < 8) o[((lane >> 2) ? TC_CR : TC_CB) + (lane & 3)] = cbp_c == 2 ? ctc : 0;
+  if (lane == 0) {
+    // an intra MB's cbp is its I16 pattern (the core zeroed its inter luma)
+    const int cbp = (intra ? (cl15 ? 15 : 0) : grp) + 16 * cbp_c;
+    o[P_CBP] = cbp;
+    o[P_CBP_CHROMA] = cbp_c;
+    o[P_GRP] = grp;
+    o[P_INTRA] = intra;
+    o[P_CL15] = cl15;
+    if (scratch) scratch[P_CBP] = cbp;
+  }
 }
 
 __device__ __forceinline__ void ue_slot(int v, int* val, int* len) {
@@ -372,15 +476,12 @@ __device__ __forceinline__ void se_slot(int v, int* val, int* len) {
   ue_slot(v > 0 ? 2 * v - 1 : -2 * v, val, len);
 }
 
-// MB header slots; the last MB of a row also codes the row's trailing run.
+// MB header slots (prev: the last coded MB before c in the row, or -1);
+// the last MB of a row also codes the row's trailing run.
 template <bool INTRA>
-__device__ void p_header(const PLevels& L, const int* info, int mb, int c, int nc, int* vals,
-                         int* lens, int* trail_val, int* trail_len) {
-  int prev = -1;                        // last coded MB strictly before c
-  for (int k = c - 1; k >= 0; --k)
-    if (p_coded<INTRA>(L, info, mb - c + k)) { prev = k; break; }
-  const bool coded = p_coded<INTRA>(L, info, mb);
-  const int cbp = info[mb * INFO + P_CBP];
+__device__ void p_header(const PLevels& L, const int* inf, int mb, int c, int nc, int prev,
+                         bool coded, int* vals, int* lens, int* trail_val, int* trail_len) {
+  const int cbp = inf[P_CBP];
   const int lx = c ? L.mv[mb * 2 - 1] : 0, ly = c ? L.mv[mb * 2 - 2] : 0;
   ue_slot(c - prev - 1, vals + 0, lens + 0);
   ue_slot(0, vals + 1, lens + 1);
@@ -391,7 +492,7 @@ __device__ void p_header(const PLevels& L, const int* info, int mb, int c, int n
   se_slot(0, vals + 6, lens + 6);
   if (cbp == 0) lens[6] = 0;
   if constexpr (INTRA) {
-    if (info[mb * INFO + P_INTRA]) {
+    if (inf[P_INTRA]) {
       // I_16x16 in a P slice: ue(5 + the I16 type), DC prediction with
       // the cbp folded in; no mvd, no cbp; chroma mode DC; a qp delta
       ue_slot(8 + 4 * (cbp >> 4) + ((cbp & 15) ? 12 : 0), vals + 1, lens + 1);
@@ -414,59 +515,147 @@ __device__ void p_header(const PLevels& L, const int* info, int mb, int c, int n
 }
 
 template <bool INTRA>
-__global__ void p_slots_kernel(PLevels L, const int* info, int* values, int* lengths,
-                               int* hdr_vals, int* hdr_lens, int* trail_vals, int* trail_lens,
-                               int nmb, int nc) {
-  constexpr int NB = P_BLOCKS + (INTRA ? 1 : 0);
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= nmb * (NB + 1)) return;
-  const int mb = blockIdx.y * nmb + gid / (NB + 1), c = mb % nc;   // session blockIdx.y
-  const int jb = gid % (NB + 1);           // block slot (NB: the header)
-  if (jb == NB) {
-    const int r = mb / nc;
-    p_header<INTRA>(L, info, mb, c, nc, hdr_vals + mb * P_HDR, hdr_lens + mb * P_HDR,
-                    trail_vals + r, trail_lens + r);
-    return;
+__global__ void __launch_bounds__(P_THREADS) p_slots_kernel(
+    PLevels L, int* scratch, uint8_t* nnz, int* values, int* lengths, int* hdr_vals,
+    int* hdr_lens, int* trail_vals, int* trail_lens, int nr, int nc, int segs) {
+  using S = PSmem<INTRA>;
+  constexpr int NB = S::NB;
+  extern __shared__ int4 p_dyn[];
+  S& s = *reinterpret_cast<S*>(p_dyn);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.x / segs, seg = blockIdx.x % segs;
+  const int trow = blockIdx.y * nr + row;           // the row of the stack
+  const int rowmb = trow * nc;                      // its first MB
+  const int nchunks = (nc + P_G - 1) / P_G;
+  const int ch0 = seg * P_SEG_CHUNKS, ch1 = min(ch0 + P_SEG_CHUNKS, nchunks);
+  if (ch0 >= ch1) return;
+  const int c_end = min(ch1 * P_G, nc);
+
+  // --- A: coded flags of MBs [0, c_end), the skip-run scan -------------
+  for (int c = tid; c < c_end; c += P_THREADS) {
+    const int mb = rowmb + c;
+    bool cd = L.mv[2 * mb] != 0 || L.mv[2 * mb + 1] != 0;
+    if constexpr (INTRA) cd = cd || L.mb_intra[mb] != 0;
+    s.coded[c] = cd;
   }
-  const int* inf = info + mb * INFO;
-  const int* linf = c ? info + (mb - 1) * INFO : nullptr;
-  const int cbp_c = inf[P_CBP_CHROMA];
-  int lv[16];
-  for (int k = 0; k < 16; ++k) lv[k] = 0;
-  int nc_ctx = 0, max_coeff = 15;
-  bool is_cdc = false, gate;
-  const int j = INTRA ? jb - 1 : jb;       // the 26-block layout's index
-  if (INTRA && jb == 0) {                         // Intra16x16DCLevel
-    for (int k = 0; k < 16; ++k) lv[k] = L.i16_dc[mb * 16 + k];
-    nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, 0, 0);
-    max_coeff = 16;
-    gate = inf[P_INTRA] != 0;
-  } else if (INTRA && j < 16 && inf[P_INTRA]) {   // an intra MB's luma AC
-    for (int k = 0; k < 15; ++k) lv[k] = L.i16_ac[(mb * 16 + j) * 15 + k];
-    nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, c_blk_y[j], c_blk_x[j]);
-    max_coeff = 15;
-    gate = inf[P_CL15] != 0;
-  } else if (j < 16) {                            // luma, blkIdx order
-    for (int k = 0; k < 16; ++k) lv[k] = L.luma[(mb * 16 + j) * 16 + k];
-    nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, c_blk_y[j], c_blk_x[j]);
-    max_coeff = 16;
-    gate = (inf[P_GRP] >> (j >> 2)) & 1;
-  } else if (j < 18) {                            // chroma DC
-    const int* dc = j == 16 ? L.cb_dc : L.cr_dc;
-    for (int k = 0; k < 4; ++k) lv[k] = dc[mb * 4 + k];
-    is_cdc = true;
-    max_coeff = 4;
-    gate = cbp_c > 0;
-  } else {                                        // chroma AC
-    const int p = (j - 18) >> 2, q = (j - 18) & 3;
-    const int* ac = p ? L.cr_ac : L.cb_ac;
-    for (int k = 0; k < 15; ++k) lv[k] = ac[(mb * 4 + q) * 15 + k];
-    const int off = p ? TC_CR : TC_CB;
-    nc_ctx = nc_of(inf + off, linf ? linf + off : nullptr, 2, q >> 1, q & 1);
-    gate = cbp_c == 2;
+  __syncthreads();
+  mark_nonzero(L.luma + (size_t)rowmb * 256, 256, c_end, s.coded);
+  mark_nonzero(L.cb_ac + (size_t)rowmb * 60, 60, c_end, s.coded);
+  mark_nonzero(L.cr_ac + (size_t)rowmb * 60, 60, c_end, s.coded);
+  mark_nonzero(L.cb_dc + (size_t)rowmb * 4, 4, c_end, s.coded);
+  mark_nonzero(L.cr_dc + (size_t)rowmb * 4, 4, c_end, s.coded);
+  __syncthreads();
+  if (warp == 0) {
+    // the last coded MB of each lane's slice, max-scanned over the lanes
+    const int per = (c_end + 31) / 32, a0 = min(lane * per, c_end), a1 = min(a0 + per, c_end);
+    int last = -1;
+    for (int c = a0; c < a1; ++c)
+      if (s.coded[c]) last = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, last, o);
+      if (lane >= o) last = max(last, v);
+    }
+    int j = __shfl_up_sync(0xffffffffu, last, 1);
+    if (lane == 0) j = -1;
+    for (int c = a0; c < a1; ++c) {
+      s.prev[c] = (short)j;
+      if (s.coded[c]) j = c;
+    }
   }
-  const int base = (mb * NB + jb) * SLOTS;
-  code_block(lv, nc_ctx, is_cdc, max_coeff, gate, values + base, lengths + base);
+
+  // --- B: the segment's chunks ----------------------------------------
+  for (int ch = ch0; ch < ch1; ++ch) {
+    const int c0 = ch * P_G, gc = min(P_G, nc - c0);
+    const int h = c0 > 0 ? 1 : 0;                   // a halo MB to the left
+    const int m0 = 1 - h, n = gc + h;               // smem slots m0 .. gc
+    const size_t first = (size_t)rowmb + c0 - h;
+    __syncthreads();                                // the previous chunk is out
+    stage(s.luma[m0], L.luma + first * 256, n * 256);
+    stage(s.cbdc[m0], L.cb_dc + first * 4, n * 4);
+    stage(s.crdc[m0], L.cr_dc + first * 4, n * 4);
+    stage(s.cbac[m0], L.cb_ac + first * 60, n * 60);
+    stage(s.crac[m0], L.cr_ac + first * 60, n * 60);
+    if constexpr (INTRA) {
+      stage(s.i16dc[m0], L.i16_dc + first * 16, n * 16);
+      stage(s.i16ac[m0], L.i16_ac + first * 240, n * 240);
+      for (int i = tid; i < n; i += P_THREADS) s.intra[m0 + i] = L.mb_intra[first + i];
+    }
+    __syncthreads();
+    for (int m = m0 + warp; m <= gc; m += P_THREADS / 32) {
+      const size_t mb = (size_t)rowmb + c0 + m - 1;
+      p_mb_info<INTRA>(s, m, lane, m ? nnz + mb * 16 : nullptr,
+                       m ? scratch + mb * INFO : nullptr);
+    }
+    __syncthreads();
+    if (tid < gc * NB) {
+      const int m = tid / NB + 1, jb = tid % NB, c = c0 + m - 1;
+      const int* inf = s.info[m];
+      const int* linf = c ? s.info[m - 1] : nullptr;
+      const int cbp_c = inf[P_CBP_CHROMA];
+      const int* lv;
+      int len = 15, nc_ctx = 0, max_coeff = 15;
+      bool is_cdc = false, gate;
+      const int j = INTRA ? jb - 1 : jb;            // the 26-block layout's index
+      if (INTRA && jb == 0) {                       // Intra16x16DCLevel
+        lv = s.i16dc[INTRA ? m : 0];
+        len = 16;
+        nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, 0, 0);
+        max_coeff = 16;
+        gate = inf[P_INTRA] != 0;
+      } else if (INTRA && j < 16 && inf[P_INTRA]) { // an intra MB's luma AC
+        lv = s.i16ac[INTRA ? m : 0] + j * 15;
+        nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, c_blk_y[j],
+                       c_blk_x[j]);
+        gate = inf[P_CL15] != 0;
+      } else if (j < 16) {                          // luma, blkIdx order
+        lv = s.luma[m] + j * 16;
+        len = 16;
+        nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, c_blk_y[j],
+                       c_blk_x[j]);
+        max_coeff = 16;
+        gate = (inf[P_GRP] >> (j >> 2)) & 1;
+      } else if (j < 18) {                          // chroma DC
+        lv = j == 16 ? s.cbdc[m] : s.crdc[m];
+        len = 4;
+        is_cdc = true;
+        max_coeff = 4;
+        gate = cbp_c > 0;
+      } else {                                      // chroma AC
+        const int p = (j - 18) >> 2, q = (j - 18) & 3;
+        lv = (p ? s.crac[m] : s.cbac[m]) + q * 15;
+        const int off = p ? TC_CR : TC_CB;
+        nc_ctx = nc_of(inf + off, linf ? linf + off : nullptr, 2, q >> 1, q & 1);
+        gate = cbp_c == 2;
+      }
+      code_block(lv, len, nc_ctx, is_cdc, max_coeff, gate, s.vals[m - 1][jb], s.lens[m - 1][jb]);
+    } else if (tid >= P_G * NB && tid < P_G * NB + gc) {
+      const int m = tid - P_G * NB + 1, c = c0 + m - 1, mb = rowmb + c;
+      p_header<INTRA>(L, s.info[m], mb, c, nc, s.prev[c], s.coded[c] != 0,
+                      hdr_vals + (size_t)mb * P_HDR, hdr_lens + (size_t)mb * P_HDR,
+                      trail_vals + trow, trail_lens + trow);
+    }
+    __syncthreads();
+    const size_t out0 = ((size_t)rowmb + c0) * NB * SLOTS;
+    copy_out(values + out0, &s.vals[0][0][0], gc * NB * SLOTS);
+    copy_out(lengths + out0, &s.lens[0][0][0], gc * NB * SLOTS);
+  }
+}
+
+template <bool INTRA>
+int launch_p_slots(const PLevels& L, int* scratch, uint8_t* nnz, int* values, int* lengths,
+                   int* hdr_vals, int* hdr_lens, int* trail_vals, int* trail_lens, int nr,
+                   int nc, int ns, cudaStream_t stream) {
+  if (nc > P_MAX_NC) return cudaErrorInvalidValue;
+  const int nchunks = (nc + P_G - 1) / P_G;
+  const int segs = (nchunks + P_SEG_CHUNKS - 1) / P_SEG_CHUNKS;
+  const int smem = (int)sizeof(PSmem<INTRA>);
+  const cudaError_t e = cudaFuncSetAttribute(
+      p_slots_kernel<INTRA>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  p_slots_kernel<INTRA><<<dim3(nr * segs, ns), P_THREADS, smem, stream>>>(
+      L, scratch, nnz, values, lengths, hdr_vals, hdr_lens, trail_vals, trail_lens, nr, nc,
+      segs);
+  return dngd_last_error();
 }
 
 // --- the qp chain (tune=hq full tier) -----------------------------------
@@ -558,16 +747,10 @@ extern "C" int cavlc_p_slots_launch(const int* mv, const int* luma, const int* c
                                     int* trail_vals, int* trail_lens, uint8_t* nnz,
                                     int* scratch, int nr, int nc, int ns,
                                     cudaStream_t stream) {
-  const int nmb = nr * nc;
-  if (nmb <= 0 || ns <= 0) return 0;
+  if (nr <= 0 || nc <= 0 || ns <= 0) return 0;
   const PLevels L{mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, nullptr, nullptr, nullptr};
-  p_info_kernel<false><<<dim3((nmb + 127) / 128, ns), 128, 0, stream>>>(L, scratch, nnz, nmb);
-  int e = dngd_last_error();
-  if (e) return e;
-  const int n = nmb * (P_BLOCKS + 1);
-  p_slots_kernel<false><<<dim3((n + 127) / 128, ns), 128, 0, stream>>>(
-      L, scratch, values, lengths, hdr_vals, hdr_lens, trail_vals, trail_lens, nmb, nc);
-  return dngd_last_error();
+  return launch_p_slots<false>(L, scratch, nnz, values, lengths, hdr_vals, hdr_lens,
+                               trail_vals, trail_lens, nr, nc, ns, stream);
 }
 
 // The I16-in-P form: 27 block slots per MB.
@@ -578,16 +761,10 @@ extern "C" int cavlc_p_slots_i_launch(const int* mv, const int* luma, const int*
                                       int* hdr_vals, int* hdr_lens, int* trail_vals,
                                       int* trail_lens, uint8_t* nnz, int* scratch, int nr,
                                       int nc, cudaStream_t stream) {
-  const int nmb = nr * nc;
-  if (nmb <= 0) return 0;
+  if (nr <= 0 || nc <= 0) return 0;
   const PLevels L{mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, i16_dc, i16_ac, mb_intra};
-  p_info_kernel<true><<<(nmb + 127) / 128, 128, 0, stream>>>(L, scratch, nnz, nmb);
-  int e = dngd_last_error();
-  if (e) return e;
-  const int n = nmb * (P_BLOCKS + 2);
-  p_slots_kernel<true><<<(n + 127) / 128, 128, 0, stream>>>(
-      L, scratch, values, lengths, hdr_vals, hdr_lens, trail_vals, trail_lens, nmb, nc);
-  return dngd_last_error();
+  return launch_p_slots<true>(L, scratch, nnz, values, lengths, hdr_vals, hdr_lens,
+                              trail_vals, trail_lens, nr, nc, 1, stream);
 }
 
 // After the slot coder of `kind` (0 intra, 1 P) on the same stream and

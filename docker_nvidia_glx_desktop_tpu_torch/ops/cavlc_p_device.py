@@ -227,12 +227,14 @@ def p_frame_slots(out: dict, slice_qp: int = None, qp_dev=None,
     given) and an eighth output, the frame's qp sum ((shards,) sums of
     equal bands of rows with ``shards``: the spatial shards').
 
-    CUDA tensors launch the slot coder: a per-MB pass for cbp, gates,
-    total_coeff and the nnz flags, then one thread per 4x4 block and one
-    per MB header (the last MB of a row also codes its trailing run); the
-    tune=hq forms are the kernels' compile-time I16-in-P instantiation
-    and a qp-chain pass (one warp per MB row).  CPU tensors run the plain
-    version.
+    CUDA tensors launch the slot coder, one pass: a CTA per segment of a
+    row takes the row's skip runs by a max-scan of its coded MBs, stages
+    each chunk of MBs' levels in shared memory, counts total_coeff, cbp,
+    gates and the nnz flags there, codes a thread per 4x4 block and per
+    MB header (the last MB of a row also codes its trailing run) into a
+    shared tile and writes it out coalesced; the tune=hq forms are the
+    kernel's compile-time I16-in-P instantiation and a qp-chain pass (one
+    warp per MB row).  CPU tensors run the plain version.
 
     Tensors with a leading session axis (the stacked P core's, tune
     "off") give outputs with one: S sessions in one launch, the session

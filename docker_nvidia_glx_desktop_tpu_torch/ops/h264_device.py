@@ -51,6 +51,10 @@ for _by in range(1, 4):
                                < _BLKIDX_RASTER[_by, _bx])
 del _i, _bx, _by
 
+# int32 words per MB that the CUDA pre-pass leaves for the chain pass
+# (csrc/intra.cu PRE_WORDS).
+PRE_WORDS = 352
+
 # I4's extra signalling against the I16 combined mb_type: 16 mode
 # elements (~1-4 b) + cbp ue, on the scale of _level_bits_est.
 I4_SIG_BITS = 44
@@ -451,10 +455,13 @@ def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
     Planes stacked (S, H, W) code S sessions' frames in one launch (tune
     "off"): every output gains the leading session axis.
 
-    CUDA tensors launch the kernel (one CUDA block per MB row: the left
-    MB's recon is the only dependency; the tiers are compile-time forms
-    of it; sessions are the grid's second axis); CPU tensors run the
-    plain version, session by session.
+    CUDA tensors launch the kernel: a parallel pre-pass (a warp per MB:
+    source transforms and every level that does not depend on the left
+    MB) into a scratch of ``PRE_WORDS`` a MB, then the chain pass (one
+    CUDA block per MB row: the left MB's recon is the only dependency; an
+    I4 warp, an I16 warp and a chroma warp).  The tiers are compile-time
+    forms of both; sessions are the chain's second grid axis.  CPU
+    tensors run the plain version, session by session.
     """
     ns = _check_planes(y, cb, cr, sessions=True)
     if not 0 <= int(qp) <= 51:
@@ -490,16 +497,20 @@ def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
     keys = ("luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc", "cr_ac",
             "pred_mode", "mb_i4", "i4_modes", "luma_i4",
             "recon_y", "recon_cb", "recon_cr")
+    # the pre-pass's words per MB, read back by the chain pass
+    scratch = torch.empty(((ns or 1) * nr * nc, PRE_WORDS),
+                          dtype=torch.int32, device=dev)
     ints = [nr, nc, int(qp), quant.chroma_qp(int(qp))]
     if tune == "off":
         _cuda.launch("intra", "intra_frame_launch",
-                     [y, cb, cr] + [out[k] for k in keys], ints + [ns or 1],
-                     dev)
+                     [y, cb, cr] + [out[k] for k in keys] + [scratch],
+                     ints + [ns or 1], dev)
         encode_intra_frame_yuv.launches += 1
         return out
     lam, sig, _ = aq.device_tables(tune, dev)
     _cuda.launch("intra", "intra_frame_hq_launch",
-                 [y, cb, cr] + [out[k] for k in keys] + [qp_map, lam, sig],
+                 [y, cb, cr] + [out[k] for k in keys]
+                 + [scratch, qp_map, lam, sig],
                  ints + [aq.TIERS.index(tune)], dev)
     encode_intra_frame_yuv.hq.launches += 1
     if qp_map is not None:

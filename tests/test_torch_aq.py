@@ -187,6 +187,26 @@ def test_plain_intra_core_equals_reference(tune, qp):
     assert got["mb_i4"].any() and (got["pred_mode"] == 1).any()
 
 
+def test_plain_intra_core_full_tier_with_a_new_qp_at_every_mb():
+    """tune=hq's per-MB qp: flat MBs against noise ones in a checkerboard
+    (aq and the lookahead bias move the qp at every MB)."""
+    rng = np.random.default_rng(9)
+    yy, xx = np.mgrid[0:H, 0:W]
+    flat = (yy // 16 + xx // 16) % 2 == 0
+    y = np.where(flat, 40 + 9 * (xx // 16) + 17 * (yy // 16),
+                 rng.integers(0, 256, (H, W))).astype(np.uint8)
+    cb = rng.integers(100, 160, (H // 2, W // 2)).astype(np.uint8)
+    cr = np.ascontiguousarray(cb[::-1])
+    nxt = np.roll(y, 1, axis=1)
+    ref = j_intra.encode_intra_frame_yuv(y, cb, cr, 30, tune="hq",
+                                         next_y=nxt)
+    got = t_intra.encode_intra_frame_yuv(*_t((y, cb, cr)), 30, tune="hq",
+                                         next_y=torch.from_numpy(nxt))
+    _same(ref, got, "K1 hq, a qp per MB")
+    q = got["qp_map"]
+    assert (q[:, 1:] != q[:, :-1]).all()
+
+
 @pytest.fixture(scope="module")
 def p_cases():
     """The P core's outputs at both tiers, with and without I16-in-P, for

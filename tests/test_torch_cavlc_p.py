@@ -150,3 +150,78 @@ def test_ue_se_slots_equal_reference():
         tv, tl = tf(torch.from_numpy(arg))
         np.testing.assert_array_equal(_u32(jv), tv.numpy())
         np.testing.assert_array_equal(np.asarray(jl), tl.numpy())
+
+
+def _crafted_levels(seed):
+    """Rows the one-pass CUDA coder is sensitive to: row 0 all skipped
+    (its trailing run is C), row 1 only its last MB coded, row 2 coded
+    and skipped MBs alternating, row 3 16-coefficient blocks and levels
+    that take the level_prefix 15, 16 and 17 escapes."""
+    rng = np.random.default_rng(seed)
+    lv = {k: np.zeros((R, C) + s, np.int32) for k, s in _SHAPES.items()}
+    mv = np.zeros((R, C, 2), np.int32)
+    lv["luma"][1, -1, 3, 7] = 1
+    mv[2, ::2] = (4, -3)
+    lv["cb_dc"][2, 2, 1] = -2
+    lv["luma"][2, 4, 6, :3] = (3, -1, 1)
+    lv["luma"][3, 0] = rng.choice([-1, 1], (16, 16))          # 16 nonzeros
+    lv["luma"][3, 1, 2] = rng.integers(-40, 41, 16) | 1
+    lv["luma"][3, 1, 5, 12:] = (9000, -3000, 20, 1)           # escapes
+    lv["cb_ac"][3, 2, 1] = rng.integers(-3, 4, 15) | 1        # 15 nonzeros
+    lv["cr_ac"][3, 2, 3, :4] = (-6000, 2500, -18, 2)
+    lv["cr_dc"][3, 3] = (4000, -17, 0, 1)
+    mv[3, 4] = (1, -1)
+    lv["mv"] = mv
+    return lv
+
+
+def _check_p_slots(lv, got, intra=False):
+    jl = {k: jnp.asarray(v) for k, v in lv.items()}
+    jv, jl_, jcbp, jmv = _j_block_slots(jl)
+    jhv, jhl, jtv, jtl, _ = _j_header_slots(
+        jmv, jcbp, mb_intra=jl["mb_intra"] if intra else None)
+    for name, a, b in zip(("values", "lengths", "mbh_vals", "mbh_lens",
+                           "run_vals", "run_lens"),
+                          (jv, jl_, jhv, jhl, jtv, jtl), got):
+        np.testing.assert_array_equal(_u32(a), _u32(b.numpy()), err_msg=name)
+    nnz = np.zeros((R, C, 4, 4), bool)
+    blk = LUMA_BLOCK_ORDER
+    nnz[:, :, blk[:, 1], blk[:, 0]] = (lv["luma"] != 0).any(axis=-1)
+    np.testing.assert_array_equal(nnz, got[6].numpy())
+
+
+@pytest.mark.parametrize("case", ["rows", "sessions", "intra"])
+def test_p_slots_on_the_one_pass_cases(case):
+    lv = _crafted_levels(4)
+    if case == "sessions":
+        lv2 = _levels(2, 0.3, 40)
+        got = t_cp.p_frame_slots({k: torch.stack([torch.from_numpy(lv[k]),
+                                                  torch.from_numpy(lv2[k])])
+                                  for k in lv})
+        for i, one in enumerate((lv, lv2)):
+            _check_p_slots(one, [g[i] for g in got])
+        return
+    if case == "intra":
+        rng = np.random.default_rng(5)
+        intra = np.zeros((R, C), bool)
+        intra[1, 2] = intra[2, 1] = intra[3, 0] = intra[3, 5] = True
+        for k in _SHAPES:
+            lv[k][intra] = 0 if k == "luma" else lv[k][intra]
+        lv["mv"][intra] = 0
+        lv["mb_intra"] = intra
+        lv["i16_dc"] = np.where(intra[..., None],
+                                rng.integers(-30, 31, (R, C, 16)), 0
+                                ).astype(np.int32)
+        ac = rng.integers(-2, 3, (R, C, 16, 15)) * (rng.random((R, C, 16, 15))
+                                                    < 0.3)
+        ac[3, 5] = 0                             # an intra MB with cbp 0
+        lv["i16_ac"] = np.where(intra[..., None, None], ac, 0).astype(np.int32)
+    got = t_cp.p_frame_slots({k: torch.from_numpy(v) for k, v in lv.items()})
+    assert got[0].shape[2] == (27 if case == "intra" else 26)
+    _check_p_slots(lv, got, intra=case == "intra")
+    if case == "rows":
+        assert (got[3][0].numpy() == 0).all() and got[4][0] == C + 1
+        assert (got[3][1, :-1].numpy() == 0).all() and got[2][1, -1, 0] == C
+        assert got[5][1] == 0
+        lens = got[1].numpy()
+        assert lens[3, 1].max() == 32                 # level_prefix 17
