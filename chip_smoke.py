@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in twelve phases:
+seeded generator, in thirteen phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -20,6 +20,12 @@ seeded generator, in twelve phases:
   planes, 8 stacked sessions, 4K; K6: all-skip, full noise, I16-in-P, 8
   sessions), with the two sources' ``-Xptxas -v`` lines and each
   wrapper's kernels by device time;
+- **modes**: K1's other mode sets (``ENCODER_INTRA_MODES`` full, i16,
+  dc) at each tier and K5's ``refine="full"`` (K5 and K5p) against their
+  plain versions at 1080p; the served knobs ``ENCODER_INTRA_MODES`` and
+  ``ENCODER_ENTROPY=native``/``python`` at 640x368 through
+  ``make_encoder``, the bench's full-line ME loop, ``mode="pcm"`` and
+  MJPEG's native coder;
 - **colour**: the default configuration at an odd geometry
   (1919x1079), which the host converter cannot take: the device colour
   conversion (K9) on every frame, two frames in flight;
@@ -83,7 +89,8 @@ Checks, each of which fails the run:
   chain   K1 (tiers 1, 2 on 1080p noise; bands of saturated planes at
           each tier at 640x368; 8 stacked sessions at 320x192; 3840x2176)
           and K6 (an all-skip and a full-noise P frame, I16-in-P with the
-          qp chain, 8 stacked 1080p sessions) equal to their plain versions
+          qp chain over 1 and 4 row bands, 8 stacked 1080p sessions)
+          equal to their plain versions
   colour  the odd-geometry stream against one whose colour conversion
           is the plain version; K9 on 1080p and odd frames
   cabac   both routes' access units byte-identical; every K10 and K11
@@ -129,6 +136,19 @@ Checks, each of which fails the run:
           full-scale SSE pair 65025), each loop's graph replay equal to
           its eager kernel loop at 1080p and to its plain loop at
           320x192 (checksum, last transport, chained planes)
+  modes   K1 full / i16 / dc at each tier on saturated bands and a frame
+          where full picks all nine I4 modes (each counted), at tiers 0
+          and 2 on 1080p noise,
+          K5 and K5p refine=full at each tier, equal to plain; an IDR and
+          two P frames of ENCODER_INTRA_MODES=full / dc and
+          ENCODER_ENTROPY=native / python equal to a twin on the host's
+          CPU, every stream decoded by cv2, the native coder counted; a
+          PCM frame decoded to its K9 planes; MJPEG native equal to the
+          Python coder on the same levels
+  gate    the bench's --bdrate --quick gate (hq never loses to off, its P
+          step at most 1.5x off's) printed as ``bdrate gate: ok`` or
+          ``FAILED`` on a line of its own; not a check while its host-clock
+          ratio flaps on this card (ROADMAP queue 3)
   check   NAL structure, recon PSNR, qp moved, no jax imported
 
 Prints the card's name and power limit, per-kernel times beside their
@@ -149,7 +169,9 @@ outside a checkout of the repository.
 Run: ``python3 chip_smoke.py`` (details go to ``chiprun_out/``).  Two
 measurement modes for the intra core and the P slot coder (see their
 section near the end): ``python3 chip_smoke.py k1k6-pairs --pairs 3
-parent=.tree/parent change=.`` and ``python3 chip_smoke.py k1-variants``.
+parent=.tree/parent change=.`` and ``python3 chip_smoke.py k1-variants``;
+the modes phase alone: ``python3 chip_smoke.py modes``.  The BD-rate gate
+in alternating fresh processes is ``tools/bdrate_pairs.py``.
 """
 
 from __future__ import annotations
@@ -330,10 +352,12 @@ def graph_ms(fn, reps: int = 20):
     gaps, which ``cuda_ms`` of a short kernel includes."""
     import torch
 
+    from docker_nvidia_glx_desktop_tpu_torch.ops.devloop import graph_capture
+
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with graph_capture(g):
         fn()
     return cuda_ms(g.replay, reps=reps)
 
@@ -345,10 +369,12 @@ def graph_each_ms(fn, n: int = 32, reps: int = 10):
     ``graph_ms`` of one call includes."""
     import torch
 
+    from docker_nvidia_glx_desktop_tpu_torch.ops.devloop import graph_capture
+
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with graph_capture(g):
         for _ in range(n):
             fn()
     return cuda_ms(g.replay, reps=reps) / n
@@ -507,6 +533,8 @@ def run():
     print(f"gop phase done at {time.perf_counter() - t_start:.0f} s")
     chain_phase(report, logs)
     print(f"chain phase done at {time.perf_counter() - t_start:.0f} s")
+    rows += modes_phase(report)
+    print(f"modes phase done at {time.perf_counter() - t_start:.0f} s")
     rows += colour_phase(report)
     print(f"colour phase done at {time.perf_counter() - t_start:.0f} s")
     rows += cabac_phase(report)
@@ -1204,9 +1232,11 @@ def chain_phase(report, logs):
           "K6 all-skip: a header coded")
     oh = h264_inter.encode_p_frame(*noise, *ref, 26, tune="hq", p_intra=True)
     check(bool(oh["mb_intra"].any()), "K6 I16-in-P: no intra MB")
-    a, b = k6(oh, 26), cavlc_p_device.p_frame_slots_plain(oh, 26)
-    for i, (x, y) in enumerate(zip(a, b)):
-        check(torch.equal(x, y), f"K6 I16-in-P: output {i} differs")
+    for sh in (1, 4):                   # the qp sums of 1 and 4 row bands
+        a = k6(oh, 26, shards=sh)
+        b = cavlc_p_device.p_frame_slots_plain(oh, 26, sh)
+        for i, (x, y) in enumerate(zip(a, b)):
+            check(torch.equal(x, y), f"K6 I16-in-P {sh}: output {i} differs")
     keys = ("mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
     outs = [h264_inter.encode_p_frame(*up(np.roll(desk, (i, 2 * i), (0, 1)),
                                           H_PAD, W), *ref, 26)
@@ -1218,7 +1248,8 @@ def chain_phase(report, logs):
         for j, (x, y) in enumerate(zip(a, b)):
             check(torch.equal(x[i], y), f"K6 S=8 session {i}: output {j}")
     print("(a) chain: K6 equal to plain on an all-skip and a full-noise P "
-          "frame, the I16-in-P form with the qp chain and S = 8 (1080p)")
+          "frame, the I16-in-P form with the qp chain (qp sums of 1 and 4 "
+          "row bands) and S = 8 (1080p)")
     rep["k6_split"] = kernel_split(lambda: k6(o))
     rep["k6_i_split"] = kernel_split(lambda: k6(oh, 26))
     rep["k6_s8_ms"] = cuda_ms(lambda: k6(o8), reps=10)
@@ -1231,6 +1262,347 @@ def chain_phase(report, logs):
     print(f"chain: K1 at S = 8 {rep['k1_s8_ms']:.3f} ms, at 4K "
           f"{rep['k1_4k_ms']:.3f} ms; K6 at S = 8 {rep['k6_s8_ms']:.3f} ms; "
           f"phase {rep['s']:.1f} s")
+
+
+def mode_planes(h: int, w: int, dev, seed: int = 31):
+    """A frame where the full I4 set picks each of its nine modes: per MB
+    a grating along one of eight directions (the I4 modes' angles) or a
+    flat patch; grey chroma."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    y = np.zeros((h, w))
+    dirs = [(0, 1), (1, 0), (1, 1), (1, -1), (2, 1), (1, 2), (2, -1), (1, -2)]
+    for r in range(h // 16):
+        for c in range(w // 16):
+            k = rng.integers(0, len(dirs) + 1)
+            sl = (slice(r * 16, r * 16 + 16), slice(c * 16, c * 16 + 16))
+            if k == len(dirs):
+                y[sl] = rng.integers(40, 220)
+                continue
+            a, b = dirs[k]
+            y[sl] = 128 + 90 * np.sin(rng.uniform(0.3, 1.2)
+                                      * (a * xx[sl] + b * yy[sl])
+                                      + rng.uniform(0, 6.3))
+    c = np.full((h // 2, w // 2), 128, np.uint8)
+    return [torch.from_numpy(np.ascontiguousarray(p)).to(dev) for p in
+            (np.clip(np.round(y), 0, 255).astype(np.uint8), c, c.copy())]
+
+
+def k5_full_ops(nmb: int, tier: int = 0) -> float:
+    """K5's operations under ``refine="full"``: ``k5_ops`` with the +-1,
+    half- and quarter-pel stages on all 256 luma lines instead of the 128
+    even ones; at the hq tiers ``k5_hq_ops``' extra (no I16-in-P)."""
+    full = k5_ops(nmb) + float((9 * 3 + 8 * 3 + 8 * 5) * 128 * nmb)
+    return full + (k5_hq_ops(nmb, False) - k5_ops(nmb) if tier else 0.0)
+
+
+MODES_SMALL = (368, 640)           # saturated bands, the nine-mode frame
+MODES_ENC_CROP = (560, 100)        # the encoders' 640x368 window of the GOP desktop
+MODES_ENC = {                      # name: the served knobs; the first four
+    "full": {"ENCODER_INTRA_MODES": "full"},      # held against the plain path
+    "dc": {"ENCODER_INTRA_MODES": "dc"},
+    # rate control off: the C coder takes only frames at the slice qp
+    "native": {"ENCODER_ENTROPY": "native", "ENCODER_BITRATE_KBPS": "0"},
+    "python": {"ENCODER_ENTROPY": "python"},
+    "i16": {"ENCODER_INTRA_MODES": "i16"},
+    "full_hq": {"ENCODER_INTRA_MODES": "full", "ENCODER_TUNE": "hq"},
+    "i16_hq": {"ENCODER_INTRA_MODES": "i16", "ENCODER_TUNE": "hq"},
+    "native_hq": {"ENCODER_ENTROPY": "native", "ENCODER_TUNE": "hq"},
+}
+MODES_PLAIN = ("full", "dc", "native", "python")
+
+
+def modes_phase(report):
+    """K1's other mode sets and K5's ``refine="full"``: K1 at
+    "full", "i16" and "dc", each at tiers 0-2, against its plain version
+    on the saturated bands and a frame where "full" picks each of the
+    nine I4 modes (the picks counted), and at tiers 0 and 2 on 1080p
+    noise; K5 and K5p in the FULL form at three tiers against plain at
+    1080p.  The main path: ``make_encoder`` at 640x368 under each of
+    ``MODES_ENC`` (an IDR and two P frames through
+    ``encode_submit``/``encode_collect``) and the bench's
+    ``devloop.inter_loop(refine="full")`` at 1080p, every count zeroed
+    before and read after (the FULL forms no caller reaches must read
+    0); the first four configurations' AUs against a
+    twin encoder on the host's CPU (the plain versions), every stream
+    decoded by cv2; a PCM frame decoded to its exact K9 planes; an MJPEG
+    ``entropy="native"`` frame byte-equal to the Python coder's on the
+    same levels.  Times each new form by CUDA events beside its bound."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models import (
+        H264Encoder, JpegEncoder, make_encoder)
+    from docker_nvidia_glx_desktop_tpu_torch.native import lib as native_lib
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        aq, color, devloop, h264_device, h264_inter)
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+    from docker_nvidia_glx_desktop_tpu_torch.utils.hostcolor import (
+        rgb_to_yuv420_host)
+
+    dev = torch.device("cuda")
+    rep = report.setdefault("modes", {})
+    t_phase = time.perf_counter()
+    laps = rep.setdefault("laps_s", {})
+
+    def lap(name):                    # seconds each section took
+        laps[name] = time.perf_counter() - t_phase - sum(laps.values())
+    k1, k5, k5p = (h264_device.encode_intra_frame_yuv,
+                   h264_inter.encode_p_frame,
+                   h264_inter.encode_p_frame_padded_ref)
+    tiers = ("off", "hq_noaq", "hq")
+
+    def up(rgb, ph, pw):
+        return [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                for p in rgb_to_yuv420_host(rgb, ph, pw)]
+
+    def same(label, got, want):
+        for k in want:
+            check(torch.equal(got[k], want[k]), f"{label}: {k} differs")
+
+    plain_s = {}
+
+    def held_k1(label, planes, qp, modes, tune):
+        got = k1(*planes, qp, tune, i16_modes=modes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = h264_device.encode_intra_frame_yuv_plain(
+            *planes, qp, tune, got.get("qp_map"), modes)
+        torch.cuda.synchronize()
+        plain_s.setdefault((modes, tune), (time.perf_counter() - t0) * 1e3)
+        same(f"K1 {modes} {tune} {label}", got, want)
+        return got
+
+    # -- (a) K1's mode sets against plain -------------------------------------
+    rng = np.random.default_rng(41)
+    noise = up(rng.integers(0, 256, (H, W, 3), dtype=np.uint8), H_PAD, W)
+    sat = saturated_planes(*MODES_SMALL, dev)
+    pick = mode_planes(*MODES_SMALL, dev)
+    picks = {}
+    for modes in ("full", "i16", "dc"):
+        for tune in tiers:
+            # 1080p at the two tiers the kernels line times (the plain
+            # full set takes ~20-30 s a 1080p frame); hq_noaq at 640x368
+            if tune != "hq_noaq":
+                held_k1("1080p noise", noise, 26, modes, tune)
+            held_k1("saturated", sat, 26, modes, tune)
+    for tune in tiers:
+        got = held_k1("nine-mode frame", pick, 26, "full", tune)
+        m = got["i4_modes"][got["mb_i4"]].reshape(-1)
+        picks[tune] = torch.bincount(m, minlength=9).tolist()
+        check(all(n > 0 for n in picks[tune]),
+              f"K1 full {tune}: a mode never picked: {picks[tune]}")
+        check(not bool(got["mb_i4"].all()), "K1 full: no I16 MB")
+    rep["full_picks"] = picks
+    print("(a) modes: K1 full / i16 / dc at each tier equal to plain on the "
+          "saturated bands (640x368), at off and hq on 1080p noise; full "
+          "picks every I4 mode "
+          "(V, H, DC, DDL, DDR, VR, HD, VL, HU counts per tier): "
+          + "; ".join(f"{t} {picks[t]}" for t in tiers))
+
+    lap("k1_checks")
+    # -- (a) K5 / K5p FULL at three tiers against plain (1080p) ----------------
+    gop = gop_frames(3, seed=12)
+    cur, ref = up(gop[1], H_PAD, W), up(gop[0], H_PAD, W)
+    pad = [h264_inter._edge_pad(p.to(torch.int32), h264_inter._PAD)
+           .to(torch.uint8).contiguous() for p in ref]
+    for tune in tiers:
+        pi = tune != "off"
+        qm = aq.qp_plane(cur[0], 26) if tune == "hq" else None
+        got = k5(*cur, *ref, 26, refine="full", tune=tune, p_intra=pi)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = h264_inter.encode_p_frame_plain(*cur, *ref, 26, tune, qm, pi,
+                                               refine="full")
+        torch.cuda.synchronize()
+        plain_s[("k5", tune)] = (time.perf_counter() - t0) * 1e3
+        same(f"K5 full {tune}", got, want)
+        alt = k5(*cur, *ref, 26, tune=tune)
+        rep.setdefault("k5_full_mv_differs", {})[tune] = not torch.equal(
+            alt["mv"], got["mv"])
+        got = k5p(*cur, *pad, 26, refine="full", tune=tune, p_intra=pi)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = h264_inter.encode_p_frame_padded_ref_plain(
+            *cur, *pad, 26, tune, qm, pi, refine="full")
+        torch.cuda.synchronize()
+        plain_s[("k5p", tune)] = (time.perf_counter() - t0) * 1e3
+        same(f"K5p full {tune}", got, want)
+    print("(a) modes: K5 and K5p (refine=full) equal to plain at each tier "
+          "(the hq tiers with I16-in-P) at 1080p; MVs differ from refine=alt: "
+          + str(rep["k5_full_mv_differs"]))
+
+    lap("k5_checks")
+    # -- main path: the served knobs and the bench's full-line loop ----------
+    # No caller reaches K5's FULL form at the hq tiers or K5p's FULL form
+    # (the reference runs refine="full" only in the bench's inter_loop, at
+    # tune=off): those rows carry 0 launches on the path, and (a) holds them.
+    named = {f"intra_{m}{t}": getattr(getattr(k1, m), "hq") if t else getattr(k1, m)
+             for m in ("full", "i16", "dc") for t in ("", "_hq")}
+    named["inter_full"] = k5.full
+    no_path = {"inter_full_hq": k5.full.hq, "inter_padded_full": k5p.full,
+               "inter_padded_full_hq": k5p.full.hq}
+    y0, x0 = MODES_ENC_CROP
+    eh, ew = MODES_SMALL
+    efr = [np.ascontiguousarray(f[y0:y0 + eh, x0:x0 + ew])
+           for f in gop_frames(3, seed=13)]
+    d = up(gop[2], H_PAD, W)
+    zero_counts({**named, **no_path})
+    n0 = dict(native_lib.calls)
+    streams = {}
+    for name, knobs in MODES_ENC.items():
+        env = dict(SIZEW=str(ew), SIZEH=str(eh), **knobs)
+        enc, _ = make_encoder(from_env(env), ew, eh)
+        _, aus, keys = drive(enc, efr)
+        check(keys == [True, False, False], f"modes {name}: keyframes {keys}")
+        streams[name] = (env, aus, enc)
+    loop_sum = devloop.inter_loop(*d, *d, 4, 26, refine="full")
+    torch.cuda.synchronize()
+    launches = path_launches({**named, **no_path})
+    native_calls = {k: v - n0.get(k, 0) for k, v in native_lib.calls.items()}
+    rep["launches"], rep["native_calls"] = launches, native_calls
+    for name in named:
+        check(launches[name] > 0, f"modes main path: {name} never launched")
+    for name in no_path:
+        check(launches[name] == 0, f"modes main path: {name} launched")
+    check(native_calls.get("h264_encode_intra_picture", 0) >= 1,
+          "modes: the native CAVLC coder coded no IDR")
+    check(streams["native"][2].i16_modes == "dc"
+          and not streams["native"][2].deblock, "native: dc / no deblock")
+    print("main modes: launches on the path (make_encoder under each of "
+          "MODES_ENC, the _hq counts at hq_noaq; inter_loop(refine=full)): "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f" (no caller reaches {', '.join(no_path)}); native coder calls "
+          f"{native_calls}")
+    # the same step eager (direct launches) against the replays
+    check(devloop.inter_loop(*d, *d, 4, 26, refine="full", eager=True)
+          == loop_sum, "inter_loop(refine=full): replay differs from eager")
+
+    lap("main_path")
+    # -- (b) AUs against the plain path; (c) cv2 ---------------------------------
+    for name in MODES_PLAIN:
+        env, aus, _ = streams[name]
+        twin, _ = make_encoder(from_env(env), ew, eh, device="cpu")
+        _, taus, _ = drive(twin, efr)
+        for i, (a, b) in enumerate(zip(aus, taus)):
+            check(a == b, f"(b) modes {name}: frame {i} differs from the plain path")
+    src_y = [rgb_to_yuv420_host(f, eh, ew)[0][:eh, :ew] for f in efr]
+    rep["psnr"] = {}
+    for name, (_, aus, _) in streams.items():
+        dec = cv2_luma(f"modes_{name}", aus, eh, ew)
+        if dec is None:
+            rep["psnr"][name] = "not run"
+            continue
+        check(len(dec) == len(aus), f"(c) modes {name}: cv2 decoded {len(dec)}")
+        p = min(psnr(a, b) for a, b in zip(dec, src_y))
+        check(p > 30.0, f"(c) modes {name}: PSNR {p:.2f} dB")
+        rep["psnr"][name] = p
+    print(f"(b) modes: {', '.join(MODES_PLAIN)}: an IDR and two P frames equal "
+          "to the plain path (a twin on the host's CPU); (c) cv2 decoded every "
+          "stream, min luma PSNR " + ", ".join(
+              f"{k} {v if isinstance(v, str) else round(v, 2)}"
+              for k, v in rep["psnr"].items()))
+
+    lap("twins_cv2")
+    # PCM: lossless, so cv2 gives back K9's planes exactly
+    pcm = H264Encoder(W, H, device=dev)
+    check(pcm.mode == "pcm", "the default mode is not pcm")
+    au = pcm.encode(gop[0]).data
+    check(au == H264Encoder(W, H, device="cpu").encode(gop[0]).data,
+          "(b) pcm: the frame differs from the plain path")
+    ky = color.rgb_to_yuv420(torch.from_numpy(gop[0]).to(dev), H_PAD, W)[0]
+    dec = cv2_luma("modes_pcm", [au], H, W)
+    if dec is not None:
+        check(len(dec) == 1 and np.array_equal(dec[0], ky[:H].cpu().numpy()),
+              "(c) pcm: cv2 did not give back the source planes")
+    print("(b) pcm: a 1080p frame equal to the plain path; (c) cv2 decoded it "
+          "to its K9 luma exactly" if dec is not None else
+          "(c) pcm: cv2 decode not run (no cv2)")
+
+    # MJPEG native against the Python coder on the same levels
+    mj = JpegEncoder(ew, eh, entropy="native", device=dev)
+    lv = mj.transform(efr[0])
+    a = mj.entropy_encode(*lv)
+    b = JpegEncoder(ew, eh, entropy="python", device=dev).entropy_encode(*lv)
+    check(a == b, "mjpeg native: bytes differ from the Python coder's")
+    check(mj.encode(efr[0]).data == a, "mjpeg native: encode differs")
+    print(f"(b) mjpeg native: {len(a)} bytes equal to the Python coder's on "
+          "the same levels")
+
+    lap("pcm_mjpeg")
+    # -- timing: each new form beside its bound (1080p desktop) ---------------
+    desk = up(gop[0], H_PAD, W)
+    nb1 = nbytes(*desk) + nbytes(*k1(*desk, 26).values())
+    rows, times = [], {}
+    for modes in ("full", "i16", "dc"):
+        for tune in tiers:
+            times[(modes, tune)] = cuda_ms(
+                lambda: k1(*desk, 26, tune, i16_modes=modes), reps=10)
+        for suffix, tune in (("", "off"), ("_hq", "hq")):
+            rows.append(kernel_row(
+                f"intra_{modes}{suffix}", "intra.cu", "h264_device.py:555",
+                launches[f"intra_{modes}{suffix}"], 0.0, times[(modes, tune)],
+                plain_s[(modes, tune)], nb1))
+    nmb = (H_PAD // 16) * (W // 16)
+    nb5 = nbytes(*cur, *ref) + nbytes(*k5(*cur, *ref, 26).values())
+    for kind, fn, src, args in (("inter_full", k5, "h264_inter.py:272", ref),
+                                ("inter_padded_full", k5p, "h264_inter.py:300",
+                                 pad)):
+        for tune in tiers:
+            times[(kind, tune)] = cuda_ms(
+                lambda: fn(*cur, *args, 26, refine="full", tune=tune), reps=20)
+        for suffix, tune, tier in (("", "off", 0), ("_hq", "hq", 2)):
+            rows.append(kernel_row(
+                kind + suffix, "inter.cu", src, launches[kind + suffix], 0.0,
+                times[(kind, tune)],
+                plain_s[("k5" if kind == "inter_full" else "k5p", tune)], nb5,
+                k5_full_ops(nmb, tier)))
+    rep["ms"] = {f"{k[0]} {k[1]}": v for k, v in times.items()}
+    rep["plain_ms"] = {f"{k[0]} {k[1]}": v for k, v in plain_s.items()}
+    rep["k1_auto_ms"] = cuda_ms(lambda: k1(*desk, 26), reps=10)
+    rep["k5_alt_ms"] = cuda_ms(lambda: k5(*cur, *ref, 26), reps=20)
+    for (what, tune), ms in times.items():
+        print(f"kernel {what} {tune}: {ms:.3f} ms")
+    print(f"modes: K1 auto {rep['k1_auto_ms']:.3f} ms, K5 alt "
+          f"{rep['k5_alt_ms']:.3f} ms beside them (same call)")
+    for r in rows:
+        print(f"kernel {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.4f} "
+              f"ms by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
+              + ("no caller reaches it)" if r["name"] in no_path else
+                 f"{r['launches']} launches on the path)"))
+    lap("timing")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"modes phase: {rep['phase_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in laps.items()) + ")")
+    return rows
+
+
+def cv2_luma(name: str, aus, h: int, w: int):
+    """The luma planes cv2 decodes from an Annex-B stream (None without
+    cv2)."""
+    import numpy as np
+    try:
+        import cv2
+    except ImportError:
+        return None
+    path = os.path.join(HERE, "chiprun_out", f"{name}.264")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"".join(aus))
+    cap = cv2.VideoCapture(path)
+    cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+    out = []
+    while True:
+        ok, img = cap.read()
+        if not ok:
+            break
+        out.append(np.asarray(img).reshape(-1, w)[:h])
+    cap.release()
+    os.remove(path)
+    return out
 
 
 def colour_phase(report):
@@ -2035,7 +2407,49 @@ def ring_phase(report):
         print(f"kernel {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.4f}"
               f" ms by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
               f"{r['launches']} launches)")
+    dead_graph_capture(dev)
     return [g_row, c_row, k9_row]
+
+
+class _Cycle:
+    def __init__(self, payload):
+        self.payload, self.me = payload, self
+
+
+def dead_graph_capture(dev) -> None:
+    """A capture through ``devloop.capture_graph`` survives the cycle
+    collector's automatic runs while a dead graph (one held only by a
+    reference cycle, as a dropped encoder's steps are) waits to be
+    collected: destroying it mid-capture would invalidate the capture."""
+    import gc
+
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import devloop
+
+    x = torch.arange(1 << 16, dtype=torch.int32, device=dev)
+    _Cycle(devloop.capture_graph(dev, lambda: x + 1)[:2])
+    threshold = gc.get_threshold()
+    calls = []
+
+    def body():
+        calls.append(1)
+        if len(calls) == 2:             # the capture, after the warm-up
+            gc.set_threshold(1)
+            try:
+                for _ in range(1000):
+                    _Cycle(None)
+            finally:
+                gc.set_threshold(*threshold)
+        return x * 2
+
+    g, out = devloop.capture_graph(dev, body)[:2]
+    g.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(out, x * 2), "the capture beside a dead graph differs")
+    gc.collect()
+    print("ring: a capture survived automatic collections with a dead graph "
+          "waiting in a reference cycle")
 
 
 def damage_frames(n: int, seed: int = 10):
@@ -4361,7 +4775,7 @@ def loop_inputs(w: int, h: int, dev, seed: int):
     from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
 
     f = np.tile(bench.make_frames()[0], (3, 2, 1))[:h, :w]
-    enc = H264Encoder(w, h, host_color=True, device=dev)
+    enc = H264Encoder(w, h, mode="cavlc", host_color=True, device=dev)
     cur = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
            for p in enc._host_yuv420(f)]
     rng = np.random.default_rng(seed)
@@ -4465,9 +4879,19 @@ def bench_phase(report, rows_before):
     check(not errs, f"bench: error keys {errs}")
     for block in ("gop", "device_only", "cabac", "4k"):
         check(block in res, f"bench main: the {block} block was gated out")
-    check(res["cabac"]["cavlc_host"] == "not ported (item 17)"
-          and res["4k"]["profile"]["me_step_ms_r5_fullline"]
-          == "not ported (item 17)", "bench main: a refusal is missing")
+    check(res["cabac"]["cavlc_host_code_ms"] > 0
+          and res["4k"]["profile"]["me_step_ms_r5_fullline"] > 0,
+          "bench main: the native CAVLC or full-line ME timing is missing")
+    # the bench's own gate (hq never loses to off, its P step at most 1.5x
+    # off's) on a line of its own, failed or not: its step cost ratio, a
+    # host-clock ratio of ~1 ms P frames, flaps on this card around a
+    # steady ~1.2 (ROADMAP queue 3, open fault 1; tools/bdrate_pairs.py
+    # splits it), so it is printed and recorded, not checked
+    gate = bd["bdrate"]
+    rep["gate_ok"] = gate["ok"]
+    print(f"bdrate gate: {'ok' if gate['ok'] else 'FAILED'} (worst gain "
+          f"{gate['worst_gain_pct']}%, max step cost ratio "
+          f"{gate['max_step_cost_ratio']}, bound 1.5)")
     check(res["device"]["kind"] == torch.cuda.get_device_name(0)
           and res["device"]["smi"], "bench main: no card in its device key")
     for name, n in launches.items():
@@ -4845,7 +5269,7 @@ def _fake(x: str) -> str:
 
 K1_VARIANTS = {
     "base": [],
-    "no_i4": [("i4_mb<TIER>(s, par, left, has_left, Q, lam, i4);",
+    "no_i4": [("i4_mb<MODES, TIER>(s, par, left, has_left, Q, lam, i4);",
                "if (i4 == 0) s.bits4[par] = 0;")],
     "noshfl_fwd": [(_quad("t"), _fake("t"))],
     "noshfl_inv": [(_quad("f"), _fake("f"))],
@@ -4855,7 +5279,7 @@ K1_VARIANTS = {
                  "  } else {", "    k = (c0 + c1 + c2) & 0;\n  } else {")],
     "no_sync": [("      __syncwarp();\n    }\n  }\n  i4_barrier();",
                  "    }\n  }\n  i4_barrier();"),
-                ("lane < 24, left, has_left, Q, lam, lane);\n    i4_barrier();",
+                ("lane < 24, left, has_left, Q, lam, lane);\n      i4_barrier();",
                  "lane < 24, left, has_left, Q, lam, lane);")],
 }
 
@@ -4912,11 +5336,11 @@ def k1_variants() -> int:
     for name in K1_VARIANTS:
         fn = ctypes.CDLL(os.path.join(out_dir, name, "lib.so")).intra_frame_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
 
         def call():
-            err = fn(*[t.data_ptr() for t in ptrs], nr, nc, 26, 26, 1,
+            err = fn(*[t.data_ptr() for t in ptrs], nr, nc, 26, 26, 0, 1,
                      torch.cuda.current_stream().cuda_stream)
             check(err == 0, f"{name}: CUDA error {err}")
         res[name] = graph_ms(call, reps=20)
@@ -4927,9 +5351,41 @@ def k1_variants() -> int:
     return 0
 
 
+def modes_alone() -> int:
+    """``python3 chip_smoke.py modes``: the build, then the modes phase
+    alone; writes ``chiprun_out/modes.json``."""
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, HERE)
+    from docker_nvidia_glx_desktop_tpu_torch.native import lib as native_lib
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+
+    smi = smi_line()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    logs = _cuda.build(verbose=True)
+    native_lib.get_lib()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    for src in ("intra", "inter"):
+        for ln in ptxas_lines(logs.get(src, "")):
+            print(f"ptxas {src}: {ln}")
+    report = {}
+    rows = modes_phase(report)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "modes.json"), "w") as f:
+        json.dump({"card": smi, "modes": report["modes"], "kernels": rows}, f,
+                  indent=1, default=float)
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    return 0
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     try:
+        if argv[:1] == ["modes"]:
+            return modes_alone()
         if argv[:1] == ["k1k6-pairs"]:
             return k1k6_pairs(argv[1:])
         if argv[:1] == ["k1-variants"]:

@@ -23,11 +23,12 @@ watchdog and the blocks' time gates), ``BENCH_FRAMES``,
 - ``device_only``: :func:`ops.devloop.intra_loop` and ``p_loop`` (with the
   loop filter), differenced into a step ms by ``measure_steady_state``;
 - ``cabac``: the CABAC device loops on both transports and the host
-  stages (the native level decoder, ``encode_intra_picture`` and the
-  arithmetic engine ``encode_intra_from_binstream``) on the bench frame
-  and on a calm desktop;
-- ``4k``: the intra and P loops at 3840x2160, the P core and loop-filter
-  profile, written into the budget ledger's device profile.
+  stages (the native level decoder, ``encode_intra_picture``, the
+  arithmetic engine ``encode_intra_from_binstream`` and the native CAVLC
+  coder) on the bench frame and on a calm desktop;
+- ``4k``: the intra and P loops at 3840x2160, the P core (also with the
+  round-5 ``refine="full"``) and loop-filter profile, written into the
+  budget ledger's device profile.
 
 :func:`bdrate_main` is the reference's ``bdrate_main``: four synthetic
 content classes over a qp ladder at the three tune tiers, each frame's
@@ -38,10 +39,8 @@ the exit code is 1 when tune=hq loses to tune=off on a class.
 The JSON carries the card's name and power limit as ``nvidia-smi`` reports
 them.  The reference's other modes raise naming their ROADMAP item:
 ``--spatial`` (11m), ``--serving-budget`` and ``--chaos`` (6b),
-``--fleet`` (14), bare ``--quick`` (15b, the profiler's stage gates).
-Where the reference times its native CAVLC host coder or the P core's
-``refine="full"``, the JSON says "not ported (item 17)"; the
-observability stamp (``_stamp_obs``) waits for 15b.
+``--fleet`` (14), bare ``--quick`` (15b, the profiler's stage gates);
+the observability stamp (``_stamp_obs``) waits for 15b.
 """
 
 from __future__ import annotations
@@ -381,10 +380,22 @@ def _cabac_block(cab: dict, frames, dev, budget_s: float, elapsed) -> None:
             cab["split"] = "host-coder"
     except Exception as e:
         cab["binarize_error"] = _err(e)
-    # the reference's native CAVLC host coder (native/cavlc.cpp) is not
-    # in the port: its block is skipped as the reference skips it without
-    # the library
-    cab["cavlc_host"] = _refusal("17")
+    # the native CAVLC host coder (native/cavlc.cpp) on the same levels'
+    # luma/chroma DC and AC arrays: the per-row host stage of
+    # ENCODER_ENTROPY=native, timed as the reference times it
+    from .native import lib as native_lib
+
+    lv_dc = {k: np.ascontiguousarray(lvn[k], np.int32)
+             for k in ("luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc",
+                       "cr_ac")}
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        native_lib.h264_encode_intra_picture(lv_dc, frame_num=0, idr_pic_id=0)
+        times.append((time.perf_counter() - t0) * 1e3)
+    cab["cavlc_host_code_ms"] = _p(times, 50)
+    cab["cavlc_host_code_ms_per_row"] = round(
+        cab["cavlc_host_code_ms"] / nrows, 3)
     # the P device stage: inter + deblock + compaction, recon-chained
     resp = devloop.measure_steady_state(
         lambda k: devloop.cabac_p_loop(*d, *d, k, qp), budget_s=sub_budget)
@@ -430,21 +441,25 @@ def _fourk_block(fourk: dict, frames, dev, budget_s: float, elapsed) -> None:
         fourk["meets_4k30"] = rp4["step_ms"] <= 33.3
     except Exception as e:
         fourk["p_error"] = _err(e, 200)
-    # the P core and loop-filter stages alone; the reference's round-5
-    # forms are TPU schedules: refine="full" is item 17, and K8 has one
-    # schedule for every wavefront group, so the reference's
-    # deblock_step_ms_r5_column and _wavefront_g8 keys would repeat
-    # deblock_step_ms and are left out
+    # the P core (and its round-5 full-line refinement) and the loop
+    # filter alone; K8 has one schedule for every wavefront group, so the
+    # reference's deblock_step_ms_r5_column and _wavefront_g8 keys would
+    # repeat deblock_step_ms and are left out
     try:
         prof = {}
         fourk["profile"] = prof
         pb = min(30.0, max(8.0, (budget_s - elapsed()) * 0.04))
         me = devloop.measure_steady_state(
             lambda k: devloop.inter_loop(*d, *d, k, qp), budget_s=pb)
+        me_old = devloop.measure_steady_state(
+            lambda k: devloop.inter_loop(*d, *d, k, qp, refine="full"),
+            budget_s=pb)
         db = devloop.measure_steady_state(
             lambda k: devloop.deblock_loop(*d, k, qp), budget_s=pb)
         prof["me_step_ms"] = me["step_ms"]
-        prof["me_step_ms_r5_fullline"] = _refusal("17")
+        prof["me_step_ms_r5_fullline"] = me_old["step_ms"]
+        prof["me_improvement_pct"] = round(
+            (1 - me["step_ms"] / me_old["step_ms"]) * 100, 1)
         prof["deblock_step_ms"] = db["step_ms"]
         if "p_step_ms" in fourk:
             prof["entropy_step_ms_est"] = round(max(

@@ -785,3 +785,20 @@ extern "C" int cavlc_qp_chain_launch(const int* qp_map, const uint8_t* flag, con
       qp_map, flag, scratch, vals, lens, qp_sum, qp_dev, nr, nc, slice_qp, kind, nr / nsum);
   return dngd_last_error();
 }
+
+// The full tier's P slots in one host call: the I16-in-P form, then the
+// qp chain (kind 1, nsum sums as cavlc_qp_chain_launch's) on the same
+// stream and scratch.
+extern "C" int cavlc_p_slots_i_chain_launch(
+    const int* mv, const int* luma, const int* cb_dc, const int* cb_ac, const int* cr_dc,
+    const int* cr_ac, const int* i16_dc, const int* i16_ac, const uint8_t* mb_intra,
+    int* values, int* lengths, int* hdr_vals, int* hdr_lens, int* trail_vals,
+    int* trail_lens, uint8_t* nnz, int* scratch, const int* qp_map, int* qp_sum,
+    const int* qp_dev, int nr, int nc, int slice_qp, int nsum, cudaStream_t stream) {
+  const int e = cavlc_p_slots_i_launch(mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, i16_dc, i16_ac,
+                                       mb_intra, values, lengths, hdr_vals, hdr_lens,
+                                       trail_vals, trail_lens, nnz, scratch, nr, nc, stream);
+  if (e) return e;
+  return cavlc_qp_chain_launch(qp_map, mb_intra, scratch, hdr_vals, hdr_lens, qp_sum, qp_dev,
+                               nr, nc, slice_qp, 1, nsum, stream);
+}

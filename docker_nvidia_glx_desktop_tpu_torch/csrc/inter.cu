@@ -5,7 +5,11 @@
 //
 // Replaces docker_nvidia_glx_desktop_tpu/ops/h264_inter.py:272
 // encode_p_frame / :300 encode_p_frame_padded_ref (refine="alt",
-// tune="off", p_intra=False); bit-exact with it.
+// tune="off", p_intra=False); bit-exact with it.  refine="full" (:428-447,
+// :453-528, the round-5 refinement the bench times) is the FULL template
+// flag: the +-1 re-rank and both subpel stages score every luma line with
+// full-strength margins (128 / 96 / 64, or the full-line lambda tables),
+// the coarse stage stays on even lines at /2.
 //
 // What bounds it: integer operations, not bytes.  It reads the two
 // frames once (~6 MB at 1080p) but every MB scores 81 coarse candidates
@@ -153,17 +157,17 @@ __device__ __forceinline__ int qsample(const S& s, int ry, int rx, int fy, int f
   return (a + s.pl[q[4]][1 + ry + q[5] + i][1 + rx + q[6] + j] + 1) >> 1;
 }
 
-// SADs of n candidates over the even lines of the MB: 16 threads per
-// candidate (one column each), 16 candidates per pass.  f(k, i, j) is
-// candidate k's prediction at MB row i, column j.
-template <class S, class F>
+// SADs of n candidates over every STEP-th line of the MB (2: the even
+// lines): 16 threads per candidate (one column each), 16 candidates per
+// pass.  f(k, i, j) is candidate k's prediction at MB row i, column j.
+template <int STEP, class S, class F>
 __device__ void stage_sads(S& s, int n, F f) {
   const int t = threadIdx.x, j = t & 15;
   for (int base = 0; base < n; base += NT / 16) {
     const int k = base + (t >> 4);
     int acc = 0;
     if (k < n)
-      for (int i = 0; i < 16; i += SCALE) acc += abs(s.cur[i * 16 + j] - f(k, i, j));
+      for (int i = 0; i < 16; i += STEP) acc += abs(s.cur[i * 16 + j] - f(k, i, j));
     for (int o = 8; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (k < n && j == 0) s.sads[k] = acc;
   }
@@ -300,7 +304,7 @@ __device__ void hq_residual(S& s, int mb, int orow, int c, int W, int Wc, int qm
   }
 }
 
-template <int TIER, bool SESS = false, bool PAD = false>
+template <int TIER, bool SESS = false, bool PAD = false, bool FULL = false>
 __global__ void __launch_bounds__(NT) inter_frame_kernel(
     const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
     const uint8_t* __restrict__ cr, const uint8_t* __restrict__ ref_y,
@@ -358,11 +362,17 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
   // tune=hq: the MB's qp (the qp plane's under the full tier) and the
   // lambda-scaled motion margins at it
   const int qm = TIER == 2 ? qp_map[mb] : qp;
-  int zb = ZERO_MV_BIAS / 2, hb = HALF_BIAS / SCALE, qb = QUARTER_BIAS / SCALE;
+  // RS: the refinement stages' line step and SAD scale (FULL: every
+  // line, full-strength margins); the coarse stage's zbc stays at /2
+  constexpr int RS = FULL ? 1 : SCALE;
+  int zb = ZERO_MV_BIAS / RS, hb = HALF_BIAS / RS, qb = QUARTER_BIAS / RS;
+  int zbc = ZERO_MV_BIAS / 2;
   if constexpr (TIER != 0) {
-    zb = marg[qm];
+    zb = marg[qm];                    // the tables at the RS scale
     hb = marg[52 + qm];
     qb = marg[104 + qm];
+    // (int)(lam * 8) == (int)(lam * 16) >> 1: float32 scaling by 2 is exact
+    zbc = FULL ? zb >> 1 : zb;
   }
 
   for (int k = t; k < WIN * WIN; k += NT) {
@@ -385,11 +395,11 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
   __syncthreads();
 
   // --- coarse grid: 81 shifts, dy outer, dx inner ----------------------
-  stage_sads(s, 81, [&](int k, int i, int j) {
+  stage_sads<2>(s, 81, [&](int k, int i, int j) {
     return s.win[i + WO - 8 + 2 * (k / 9)][j + WO - 8 + 2 * (k % 9)];
   });
   if (t == 0) {
-    s.sads[40] -= zb;
+    s.sads[40] -= zbc;
     const int b = first_argmin(s.sads, 81);
     s.mvc[0] = -8 + 2 * (b / 9);
     s.mvc[1] = -8 + 2 * (b % 9);
@@ -398,7 +408,7 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
 
   // --- +-1 integer re-rank: [(0, 0)] + neighbours ----------------------
   const int cy = s.mvc[0], cx = s.mvc[1];
-  stage_sads(s, 9, [&](int k, int i, int j) {
+  stage_sads<RS>(s, 9, [&](int k, int i, int j) {
     const int oy = k ? c_nb[k - 1][0] : 0, ox = k ? c_nb[k - 1][1] : 0;
     return s.win[i + WO + cy + oy][j + WO + cx + ox];
   });
@@ -421,7 +431,7 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
   __syncthreads();
 
   // --- half-pel refinement ---------------------------------------------
-  stage_sads(s, 8, [&](int k, int i, int j) {
+  stage_sads<RS>(s, 8, [&](int k, int i, int j) {
     const int oy = c_nb[k][0], ox = c_nb[k][1];
     return s.pl[(oy & 1) * 2 + (ox & 1)][1 + (oy >> 1) + i][1 + (ox >> 1) + j];
   });
@@ -436,7 +446,7 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
 
   // --- quarter-pel refinement: fractions from the signed half offset ----
   const int hdy = s.mvh[0] - 2 * iy, hdx = s.mvh[1] - 2 * ix;
-  stage_sads(s, 8, [&](int k, int i, int j) {
+  stage_sads<RS>(s, 8, [&](int k, int i, int j) {
     const int ey = 2 * hdy + c_nb[k][0], ex = 2 * hdx + c_nb[k][1];
     return qsample(s, ey >> 2, ex >> 2, ey & 3, ex & 3, i, j);
   });
@@ -771,9 +781,40 @@ extern "C" int inter_frame_launch(const uint8_t* y, const uint8_t* cb, const uin
   return dngd_last_error();
 }
 
-// tune=hq, the whole frame: tier 1 (hq_noaq) or 2 (hq, qp_map the qp
-// plane); lam the tier's lambda table (52), marg its motion margins
-// (3 x 52); score (I16-in-P) the inter score per MB, or null.
+// One frame's (or, PAD, the stacked shards') P core at tier 0, 1 or 2, in
+// the FULL (refine="full") form or not: every pointer as
+// inter_frame_hq_launch's below, lam/marg/score null at tier 0.
+template <bool PAD, bool FULL>
+int launch_tiers(const uint8_t* y, const uint8_t* cb, const uint8_t* cr, const uint8_t* ref_y,
+                 const uint8_t* ref_cb, const uint8_t* ref_cr, const int* qp_dev,
+                 const int* qp_map, const float* lam, const int* marg, int* mv, int* luma,
+                 int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry, uint8_t* rcb,
+                 uint8_t* rcr, float* score, int nr, int nc, int qp, int qpc, int tier, int grid,
+                 cudaStream_t stream) {
+  if (tier == 0) {
+    inter_frame_kernel<0, false, PAD, FULL><<<grid, NT, 0, stream>>>(
+        y, cb, cr, ref_y, ref_cb, ref_cr, nullptr, qp_dev, nullptr, nullptr, nullptr, nullptr,
+        mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+  } else if (tier == 1) {
+    inter_frame_kernel<1, false, PAD, FULL><<<grid, NT, 0, stream>>>(
+        y, cb, cr, ref_y, ref_cb, ref_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
+        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+  } else if (tier == 2) {
+    if (!qp_map) return cudaErrorInvalidValue;
+    inter_frame_kernel<2, false, PAD, FULL><<<grid, NT, 0, stream>>>(
+        y, cb, cr, ref_y, ref_cb, ref_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
+        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return dngd_last_error();
+}
+
+// The whole frame at tune=hq, tier 1 (hq_noaq) or 2 (hq, qp_map the qp
+// plane), or with full (refine="full": the +-1 re-rank and both subpel
+// stages on every line, marg the full-line margins) also at tier 0 (lam,
+// marg, score null); lam the tier's lambda table (52), marg its motion
+// margins (3 x 52); score (I16-in-P) the inter score per MB, or null.
 extern "C" int inter_frame_hq_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
                                      const uint8_t* ref_y, const uint8_t* ref_cb,
                                      const uint8_t* ref_cr, const int* qp_dev,
@@ -781,21 +822,12 @@ extern "C" int inter_frame_hq_launch(const uint8_t* y, const uint8_t* cb, const 
                                      int* mv, int* luma, int* cb_dc, int* cb_ac, int* cr_dc,
                                      int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr,
                                      float* score, int nr, int nc, int qp, int qpc, int tier,
-                                     cudaStream_t stream) {
+                                     int full, cudaStream_t stream) {
   if (nr <= 0 || nc <= 0) return 0;
-  if (tier == 2) {
-    if (!qp_map) return cudaErrorInvalidValue;
-    inter_frame_kernel<2><<<nr * nc, NT, 0, stream>>>(
-        y, cb, cr, ref_y, ref_cb, ref_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
-        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
-  } else if (tier == 1) {
-    inter_frame_kernel<1><<<nr * nc, NT, 0, stream>>>(
-        y, cb, cr, ref_y, ref_cb, ref_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
-        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return dngd_last_error();
+  if (tier == 0 && !full) return cudaErrorInvalidValue;  // inter_frame_launch's form
+  return (full ? launch_tiers<false, true> : launch_tiers<false, false>)(
+      y, cb, cr, ref_y, ref_cb, ref_cr, qp_dev, qp_map, lam, marg, mv, luma, cb_dc, cb_ac,
+      cr_dc, cr_ac, ry, rcb, rcr, score, nr, nc, qp, qpc, tier, nr * nc, stream);
 }
 
 // K5p: the P core over ns shards of nr MB rows each, every shard's
@@ -803,7 +835,7 @@ extern "C" int inter_frame_hq_launch(const uint8_t* y, const uint8_t* cb, const 
 // (ns, 8 nr + 2 WO, 8 nc + 2 WO)); planes, outputs and qp_map stacked as
 // one frame of ns * nr MB rows.  tier 0 (tune=off), 1 (hq_noaq) or 2 (hq: qp_map the
 // stacked qp plane); lam/marg/score as inter_frame_hq_launch's (null at
-// tier 0).
+// tier 0); full: refine="full" (marg then the full-line margins).
 extern "C" int inter_frame_padded_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
                                          const uint8_t* pad_y, const uint8_t* pad_cb,
                                          const uint8_t* pad_cr, const int* qp_dev,
@@ -811,32 +843,18 @@ extern "C" int inter_frame_padded_launch(const uint8_t* y, const uint8_t* cb, co
                                          int* mv, int* luma, int* cb_dc, int* cb_ac, int* cr_dc,
                                          int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr,
                                          float* score, int nr, int nc, int qp, int qpc, int tier,
-                                         int ns, cudaStream_t stream) {
+                                         int ns, int full, cudaStream_t stream) {
   if (nr <= 0 || nc <= 0 || ns <= 0) return 0;
   const int grid = ns * nr * nc;
-  if (tier == 0) {
-    inter_frame_kernel<0, false, true><<<grid, NT, 0, stream>>>(
-        y, cb, cr, pad_y, pad_cb, pad_cr, nullptr, qp_dev, nullptr, nullptr, nullptr, nullptr,
-        mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
-  } else if (tier == 1) {
-    inter_frame_kernel<1, false, true><<<grid, NT, 0, stream>>>(
-        y, cb, cr, pad_y, pad_cb, pad_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
-        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
-  } else if (tier == 2) {
-    if (!qp_map) return cudaErrorInvalidValue;
-    inter_frame_kernel<2, false, true><<<grid, NT, 0, stream>>>(
-        y, cb, cr, pad_y, pad_cb, pad_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
-        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return dngd_last_error();
+  return (full ? launch_tiers<true, true> : launch_tiers<true, false>)(
+      y, cb, cr, pad_y, pad_cb, pad_cr, qp_dev, qp_map, lam, marg, mv, luma, cb_dc, cb_ac,
+      cr_dc, cr_ac, ry, rcb, rcr, score, nr, nc, qp, qpc, tier, grid, stream);
 }
 
 // I16-in-P pass 2, after inter_frame_hq_launch on the same stream: ry/rcb/
 // rcr its recon; cand_* per MB (16 x 15 luma AC, 2 x 4 x 15 chroma AC,
 // 2 x 4 chroma DC, 256 + 128 recon samples); i16_dc written for every MB.
-extern "C" int inter_i16_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
+static int inter_i16_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
                                 const uint8_t* ry, const uint8_t* rcb, const uint8_t* rcr,
                                 const int* qp_dev, const int* qp_map, const float* lam,
                                 const float* score, uint8_t* want, int* i16_dc, int* cand_ac,
@@ -863,7 +881,7 @@ extern "C" int inter_i16_launch(const uint8_t* y, const uint8_t* cb, const uint8
 }
 
 // I16-in-P pass 3: the gate (one warp a row) and the merge (a block an MB).
-extern "C" int inter_merge_launch(const uint8_t* want, int* i16_dc,
+static int inter_merge_launch(const uint8_t* want, int* i16_dc,
                                   const int* cand_ac, const int* cand_cac, const int* cand_cdc,
                                   const uint8_t* cand_ry, const uint8_t* cand_rc, int* mv,
                                   int* luma, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac,
@@ -879,4 +897,27 @@ extern "C" int inter_merge_launch(const uint8_t* want, int* i16_dc,
                                                cand_rc, mv, luma, cb_dc, cb_ac, cr_dc, cr_ac,
                                                ry, rcb, rcr, i16_dc, i16_ac, nc);
   return dngd_last_error();
+}
+
+// I16-in-P passes 2 and 3 in one host call, after inter_frame_hq_launch or
+// the padded form on the same stream: every MB's candidate, then the gate
+// and the merge.  mv .. rcr are the P core's outputs (the candidates read
+// its recon, the merge overwrites the MBs that turn intra); the rest as
+// the two passes above take them.
+extern "C" int inter_intra_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
+                                  const int* qp_dev, const int* qp_map, const float* lam,
+                                  const float* score, uint8_t* want, int* i16_dc,
+                                  int* cand_ac, int* cand_cac, int* cand_cdc,
+                                  uint8_t* cand_ry, uint8_t* cand_rc, int* mv, int* luma,
+                                  int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry,
+                                  uint8_t* rcb, uint8_t* rcr, uint8_t* mb_intra, int* i16_ac,
+                                  int nr, int nc, int qp, int qpc, int tier,
+                                  cudaStream_t stream) {
+  const int e = inter_i16_launch(y, cb, cr, ry, rcb, rcr, qp_dev, qp_map, lam, score, want,
+                                 i16_dc, cand_ac, cand_cac, cand_cdc, cand_ry, cand_rc, nr, nc,
+                                 qp, qpc, tier, stream);
+  if (e) return e;
+  return inter_merge_launch(want, i16_dc, cand_ac, cand_cac, cand_cdc, cand_ry, cand_rc, mv,
+                            luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, mb_intra, i16_ac,
+                            nr, nc, stream);
 }

@@ -3,8 +3,13 @@
 // normative reconstruction of one frame.
 //
 // Replaces docker_nvidia_glx_desktop_tpu/ops/h264_device.py:555
-// encode_intra_frame_yuv (i16_modes="auto"), whose MB columns run as the
-// 120-step lax.scan at :656; bit-exact with it.
+// encode_intra_frame_yuv, whose MB columns run as the 120-step lax.scan at
+// :656, at each of its mode sets (i16_modes; bit-exact with every one):
+// "auto" (I16 DC/H and the I4 fast sets), "full" (:427
+// _luma_step_i4_full: all nine I4 modes on block rows 1-3), "i16" (:590
+// allow_i4 off: I16 DC/H only) and "dc" (:630 allow_h off: I16 DC only).
+// The mode set is the chain pass's MODES template argument beside TIER,
+// so each (MODES, TIER) pair is one instantiation; the pre-pass is shared.
 //
 // The tune tier is a template parameter: TIER 0 ("off") picks every mode
 // by estimated bits; 1 ("hq_noaq") and 2 ("hq") by the Lagrangian
@@ -46,6 +51,25 @@
 //       reconstruction, and the sums of bits (and SSDs) by shuffles;
 //     - warp 3, chroma's DC chain, on its own along the row (chroma's
 //       mode is always DC and never waits on luma).
+//     Under "full", block rows 1-3 take H, HU, DDR, VR, HD and two-sided
+//     DC, which read the left block's reconstruction, so they run block
+//     by block: twelve dependent steps of nine candidates (sixteen steps
+//     an MB against the fast sets' seven).  Nine candidates of four lanes
+//     are 36 lanes, more than a warp, so both I4 warps take every step:
+//     warp 0 V, DDL, VL, DC, H and warp 1 HU, DDR, VR, HD (each warp's
+//     prediction arithmetic is its own family's, with no divergence
+//     inside a warp), each warp's first minimum by shuffles, and the two
+//     met at the 64-thread barrier, twice a step (the pick, then the
+//     kept block's writes before the next block reads them).  Four lanes
+//     a candidate keep the fast sets' transform by shuffles (i4_eval);
+//     a lane a candidate over the whole block would need one warp only
+//     but four times the instructions a lane.  Under hq the full set's
+//     block scores are summed one at a time in block order, as the
+//     reference's _acc_score sums them.
+//     "i16" and "dc" leave the I4 warps idle but for the MB's barrier and
+//     their outputs, the reference's constants (no I4, modes 2, levels 0);
+//     "dc" never takes the I16 warp's H candidate (its lanes run beside
+//     DC's, so skipping them would save no time).
 //     The luma warps then take the decision, write their outputs, and
 //     read the next MB's left column from the chosen reconstruction
 //     (double-buffered by MB parity, so one barrier an MB suffices).
@@ -59,7 +83,8 @@
 // warps' seven dependent block steps (four in row 0, one per row after),
 // each ~300 instructions a lane issued by one warp (~0.43 us on an H100,
 // chip_smoke.py k1-variants), then the barrier and the decision; times 120
-// MBs a row at 1080p (240 at 4K).  The I16 and chroma warps run beside
+// MBs a row at 1080p (240 at 4K).  "full" has sixteen such steps, twelve
+// of them with two barriers; "i16" and "dc" only the I16 warp's work.  The I16 and chroma warps run beside
 // it.  Bytes: ~3 MB of planes in, ~28 MB of levels and planes out a
 // 1080p frame (0.0083 ms at 3.35 TB/s).
 // Tensor cores do not help (a 9-bit residual does not fit int8 wgmma,
@@ -75,6 +100,8 @@ constexpr int ILLEGAL = 1 << 30;     // bit estimate of an unavailable mode
 constexpr int I4_SIG_BITS = 44;      // I_NxN signalling bias vs I16
 constexpr float SCORE_CLAMP = 1e18f; // the reference's I4 score clamp
 constexpr unsigned FULL = 0xffffffffu;
+// the mode sets (i16_modes), the chain pass's MODES template argument
+enum { MODES_AUTO = 0, MODES_FULL = 1, MODES_I16 = 2, MODES_DC = 3 };
 
 // The pre-pass's words per MB (int32; "packed": int16 pairs, low first).
 constexpr int PRE_WORDS = 352;
@@ -240,6 +267,8 @@ struct Chain {
   int t16[2][4];                // [parity] I16 DC, H bits; DC, H SSDs
   int bits4[2];                 // [parity] I4 bits (tier 0)
   float score4[2];              // [parity] I4 score (tiers 1, 2)
+  int xk[2], xb[2];             // full set: [warp] its first minimum, bits
+  float xs[2];                  // ... and score
 };
 
 // raster coefficient -> zigzag position
@@ -272,14 +301,74 @@ struct I4Lane {
   }
 };
 
-// One I4 step of the two I4 warps: a lane per candidate and row u of a
-// 4x4 block (a candidate's four lanes adjacent), every candidate
-// evaluated at once: its prediction row, fdct4(src) - fdct4(pred) with the
+// One candidate's row u of a 4x4 block on the lane (the candidate's four
+// lanes adjacent, from lane & ~3): fdct4(src) - fdct4(pred) with the
 // transform's row pass in the lane and its column pass by shuffles, quant,
-// bits summed over the four lanes, the reconstruction (the spec's inverse,
-// rows in the lane, columns by shuffles) and under hq the SSD; then the
-// first minimum of the block's three candidates (lanes g, g + 4, g + 8),
-// whose lanes keep their rows.
+// bits summed over the four lanes (ILLEGAL where the mode is not
+// available), the reconstruction (the spec's inverse, rows in the lane,
+// columns by shuffles) and under hq the SSD and score (+inf if illegal).
+template <int TIER>
+__device__ __forceinline__ void i4_eval(const Chain& s, int par, int by, int bx, int u,
+                                        const int* pred, bool legal, const I4Lane& Q,
+                                        float lam, int lane, int* lv, int* rec, int& bits,
+                                        float& score) {
+  const int base = lane & ~3;
+  // the prediction's transform: row pass here, column pass across the lanes
+  int t[4];
+  f1d(pred, t);
+  bits = 0;
+  {
+    const int* wp = s.w4[par] + (by * 4 + bx) * 8 + u * 2;
+    const int wsrc[4] = {(int)(short)(wp[0] & 0xffff), wp[0] >> 16,
+                         (int)(short)(wp[1] & 0xffff), wp[1] >> 16};
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int t0 = __shfl_sync(FULL, t[v], base), t1 = __shfl_sync(FULL, t[v], base + 1),
+                t2 = __shfl_sync(FULL, t[v], base + 2), t3 = __shfl_sync(FULL, t[v], base + 3);
+      const int tp = Q.k0 * t0 + Q.k1 * t1 + Q.k2 * t2 + Q.k3 * t3;
+      lv[v] = quant(wsrc[v] - tp, Q.mf[v], Q.f, Q.qbits);
+      bits += lvl_bits(lv[v]);
+    }
+  }
+  bits += __shfl_xor_sync(FULL, bits, 1);
+  bits += __shfl_xor_sync(FULL, bits, 2);
+  if (!legal) bits = ILLEGAL;
+  // the reconstruction: the spec's inverse, this row's pass, then columns
+  {
+    int d[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) d[v] = lv[v] * Q.vs[v];
+    const int e0 = d[0] + d[2], e1 = d[0] - d[2];
+    const int e2 = (d[1] >> 1) - d[3], e3 = d[1] + (d[3] >> 1);
+    const int f[4] = {e0 + e3, e1 + e2, e1 - e2, e0 - e3};
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int f0 = __shfl_sync(FULL, f[v], base), f1 = __shfl_sync(FULL, f[v], base + 1),
+                f2 = __shfl_sync(FULL, f[v], base + 2), f3 = __shfl_sync(FULL, f[v], base + 3);
+      const int g0 = f0 + f2, g1 = f0 - f2, g2 = (f1 >> 1) - f3, g3 = f1 + (f3 >> 1);
+      const int x = (u == 0 || u == 3) ? g0 : g1, y = (u == 0 || u == 3) ? g3 : g2;
+      const int r = ((u < 2 ? x + y : x - y) + 32) >> 6;
+      rec[v] = min(max(pred[v] + r, 0), 255);
+    }
+  }
+  score = 0.0f;
+  if constexpr (TIER != 0) {
+    int ssd = 0;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int dd = rec[v] - s.src[par][(by * 4 + u) * 16 + bx * 4 + v];
+      ssd += dd * dd;
+    }
+    ssd += __shfl_xor_sync(FULL, ssd, 1);
+    ssd += __shfl_xor_sync(FULL, ssd, 2);
+    score = legal ? __fmaf_rn(lam, (float)bits, (float)ssd) : __int_as_float(0x7f800000);
+  }
+}
+
+// One I4 step of the fast sets on the two I4 warps: a lane per candidate
+// and row u of a 4x4 block, every candidate evaluated at once (i4_eval);
+// then the first minimum of the block's three candidates (lanes g, g + 4,
+// g + 8), whose lanes keep their rows.
 template <int TIER>
 __device__ __forceinline__ void i4_step(Chain& s, int par, int by, int bx, int cand, int u,
                                         int g, bool active, const int* left, bool has_left,
@@ -331,57 +420,10 @@ __device__ __forceinline__ void i4_step(Chain& s, int par, int by, int bx, int c
     }
     mode = cand == 0 ? 0 : (cand == 1 ? 3 : 7);
   }
-  const int base = lane & ~3, rb = by * 4 + bx;
-  // the prediction's transform: row pass here, column pass across the lanes
-  int t[4];
-  f1d(pred, t);
-  int lv[4], rec[4], bits = 0;
-  {
-    const int* wp = s.w4[par] + rb * 8 + u * 2;
-    const int wsrc[4] = {(int)(short)(wp[0] & 0xffff), wp[0] >> 16,
-                         (int)(short)(wp[1] & 0xffff), wp[1] >> 16};
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int t0 = __shfl_sync(FULL, t[v], base), t1 = __shfl_sync(FULL, t[v], base + 1),
-                t2 = __shfl_sync(FULL, t[v], base + 2), t3 = __shfl_sync(FULL, t[v], base + 3);
-      const int tp = Q.k0 * t0 + Q.k1 * t1 + Q.k2 * t2 + Q.k3 * t3;
-      lv[v] = quant(wsrc[v] - tp, Q.mf[v], Q.f, Q.qbits);
-      bits += lvl_bits(lv[v]);
-    }
-  }
-  bits += __shfl_xor_sync(FULL, bits, 1);
-  bits += __shfl_xor_sync(FULL, bits, 2);
-  if (!legal) bits = ILLEGAL;
-  // the reconstruction: the spec's inverse, this row's pass, then columns
-  {
-    int d[4];
-#pragma unroll
-    for (int v = 0; v < 4; ++v) d[v] = lv[v] * Q.vs[v];
-    const int e0 = d[0] + d[2], e1 = d[0] - d[2];
-    const int e2 = (d[1] >> 1) - d[3], e3 = d[1] + (d[3] >> 1);
-    const int f[4] = {e0 + e3, e1 + e2, e1 - e2, e0 - e3};
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int f0 = __shfl_sync(FULL, f[v], base), f1 = __shfl_sync(FULL, f[v], base + 1),
-                f2 = __shfl_sync(FULL, f[v], base + 2), f3 = __shfl_sync(FULL, f[v], base + 3);
-      const int g0 = f0 + f2, g1 = f0 - f2, g2 = (f1 >> 1) - f3, g3 = f1 + (f3 >> 1);
-      const int x = (u == 0 || u == 3) ? g0 : g1, y = (u == 0 || u == 3) ? g3 : g2;
-      const int r = ((u < 2 ? x + y : x - y) + 32) >> 6;
-      rec[v] = min(max(pred[v] + r, 0), 255);
-    }
-  }
-  float score = 0.0f;
-  if constexpr (TIER != 0) {
-    int ssd = 0;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int dd = rec[v] - s.src[par][(by * 4 + u) * 16 + bx * 4 + v];
-      ssd += dd * dd;
-    }
-    ssd += __shfl_xor_sync(FULL, ssd, 1);
-    ssd += __shfl_xor_sync(FULL, ssd, 2);
-    score = legal ? __fmaf_rn(lam, (float)bits, (float)ssd) : __int_as_float(0x7f800000);
-  }
+  int lv[4], rec[4], bits;
+  float score;
+  i4_eval<TIER>(s, par, by, bx, u, pred, legal, Q, lam, lane, lv, rec, bits, score);
+  const int rb = by * 4 + bx;
   int k;
   if constexpr (TIER == 0) {
     const int c0 = __shfl_sync(FULL, bits, g), c1 = __shfl_sync(FULL, bits, g + 4),
@@ -413,11 +455,143 @@ __device__ __forceinline__ void i4_step(Chain& s, int par, int by, int bx, int c
 
 __device__ __forceinline__ void i4_barrier() { asm volatile("bar.sync 2, 64;" ::: "memory"); }
 
-// The two I4 warps (i4 = threadIdx.x, 0..63) through one MB's I4 chain:
-// row 0 on warp 0 (lanes 0-11), rows 1-3 on both (blocks 0-1 on warp 0,
-// 2-3 on warp 1, lanes 0-23); then the kept costs summed in the
-// reference's order into bits4 / score4.
+// i16_modes="full", block rows 1-3: one block step with all nine modes on
+// both I4 warps, a lane per candidate and row of the block: warp 0's
+// lanes 0-19 take V, DDL, VL, DC, H (candidates 0-4), warp 1's lanes 0-15
+// HU, DDR, VR, HD (5-8); the other lanes repeat their warp's last
+// candidate and write nothing.  Each warp takes its first minimum by
+// shuffles and publishes it; after a barrier both read the two, and warp
+// 1's wins only where strictly lower, so the first minimum in the
+// reference's candidate order wins.  The kept lanes write their rows, and
+// a second barrier orders them before the next block reads them.
+constexpr unsigned long long FULL_MODES = 0x654812730ull;  // candidate -> mode
+
 template <int TIER>
+__device__ __forceinline__ void i4_step_full(Chain& s, int par, int by, int bx, int warp,
+                                             int u, const int* left, bool has_left,
+                                             const I4Lane& Q, float lam, int lane) {
+  const int nloc = warp ? 4 : 5, q = min(lane >> 2, nloc - 1), cand = warp * 5 + q;
+  const int y0 = by * 4;
+  const int* rec4 = s.rec4[par];
+  // t8: the row above (and above-right, or p[3,-1] repeated); l4 and tl:
+  // the left column and the top-left sample (from the left MB at bx = 0)
+  const int* above = rec4 + (y0 - 1) * 16 + bx * 4;
+  const bool tr_avail = (TR_AVAIL_MASK >> (by * 4 + bx)) & 1;
+  int p[8], l[4], tl;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    p[k] = above[k];
+    p[4 + k] = tr_avail ? above[4 + k] : above[3];
+  }
+  if (bx == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) l[k] = left ? left[(y0 + k) * 16 + 15] : 0;
+    tl = left ? left[(y0 - 1) * 16 + 15] : 0;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) l[k] = rec4[(y0 + k) * 16 + bx * 4 - 1];
+    tl = rec4[(y0 - 1) * 16 + bx * 4 - 1];
+  }
+  const bool avail = bx > 0 || has_left;
+  int pred[4];
+  if (warp == 0) {                  // V / DDL / VL / DC / H
+    int d[7], a[5];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) d[j] = (p[j] + 2 * p[j + 1] + p[j + 2] + 2) >> 2;
+    d[6] = (p[6] + 3 * p[7] + 2) >> 2;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) a[j] = (p[j] + p[j + 1] + 1) >> 1;
+    const int top = p[0] + p[1] + p[2] + p[3];
+    const int dc = avail ? (top + l[0] + l[1] + l[2] + l[3] + 4) >> 3 : (top + 2) >> 2;
+    const int lu = sel4(u, l[0], l[1], l[2], l[3]);
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int ddl = sel4(u, d[v], d[v + 1], d[v + 2], d[v + 3]);
+      const int vl = (u & 1) ? ((u & 2) ? d[v + 1] : d[v]) : ((u & 2) ? a[v + 1] : a[v]);
+      pred[v] = q == 0 ? p[v] : q == 1 ? ddl : q == 2 ? vl : q == 3 ? dc : lu;
+    }
+  } else {                          // HU / DDR / VR / HD
+    // the edge e = l3 l2 l1 l0 tl p0 .. p7 and its (1, 2, 1) and (1, 1)
+    // filters f3[c] (centred on e[c]) and f2[c] (e[c], e[c + 1])
+    const int e[13] = {l[3], l[2], l[1], l[0], tl, p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7]};
+    int f3[13], f2[12];
+#pragma unroll
+    for (int c = 1; c < 12; ++c) f3[c] = (e[c - 1] + 2 * e[c] + e[c + 1] + 2) >> 2;
+    f3[0] = f3[12] = 0;
+#pragma unroll
+    for (int c = 0; c < 12; ++c) f2[c] = (e[c] + e[c + 1] + 1) >> 1;
+    const int z[8] = {(l[0] + l[1] + 1) >> 1, (l[0] + 2 * l[1] + l[2] + 2) >> 2,
+                      (l[1] + l[2] + 1) >> 1, (l[1] + 2 * l[2] + l[3] + 2) >> 2,
+                      (l[2] + l[3] + 1) >> 1, (l[2] + 3 * l[3] + 2) >> 2,
+                      l[3], l[3]};
+    // spec 8.3.1.2.5-6 at (y, x), both constant: VR z = 2x - y, HD z = 2y - x
+    auto vr = [&](int y, int x) {
+      const int zz = 2 * x - y, i = x - (y >> 1);
+      return zz < 0 ? f3[5 + zz] : (zz & 1) ? f3[4 + i] : f2[4 + i];
+    };
+    auto hd = [&](int y, int x) {
+      const int zz = 2 * y - x, i = y - (x >> 1);
+      return zz < 0 ? f3[3 - zz] : (zz & 1) ? f3[4 - i] : f2[3 - i];
+    };
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int hu = sel4(u, z[v], z[min(v + 2, 7)], z[min(v + 4, 7)], z[min(v + 6, 7)]);
+      const int ddr = sel4(u, f3[4 + v], f3[3 + v], f3[2 + v], f3[1 + v]);   // f3[4 + v - u]
+      const int vrv = sel4(u, vr(0, v), vr(1, v), vr(2, v), vr(3, v));
+      const int hdv = sel4(u, hd(0, v), hd(1, v), hd(2, v), hd(3, v));
+      pred[v] = q == 0 ? hu : q == 1 ? ddr : q == 2 ? vrv : hdv;
+    }
+  }
+  const bool legal = cand < 4 || avail;
+  int lv[4], rec[4], bits;
+  float score;
+  i4_eval<TIER>(s, par, by, bx, u, pred, legal, Q, lam, lane, lv, rec, bits, score);
+  // this warp's first minimum over its candidates (lanes 0, 4, ...)
+  int kl = 0, bb = __shfl_sync(FULL, bits, 0);
+  float bs = __shfl_sync(FULL, score, 0);
+#pragma unroll
+  for (int j = 1; j < 5; ++j) {
+    const int cb = __shfl_sync(FULL, bits, 4 * j);
+    const float cs = __shfl_sync(FULL, score, 4 * j);
+    const bool lower = j < nloc && (TIER == 0 ? cb < bb : cs < bs);
+    kl = lower ? j : kl;
+    bb = lower ? cb : bb;
+    bs = lower ? cs : bs;
+  }
+  if (lane == 0) {
+    s.xk[warp] = warp * 5 + kl;
+    s.xb[warp] = bb;
+    s.xs[warp] = bs;
+  }
+  i4_barrier();
+  const bool w1 = TIER == 0 ? s.xb[1] < s.xb[0] : s.xs[1] < s.xs[0];
+  const int k = s.xk[w1 ? 1 : 0];
+  if ((lane >> 2) < nloc && cand == k) {
+    const int rb = by * 4 + bx;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      s.rec4[par][(y0 + u) * 16 + bx * 4 + v] = rec[v];
+      s.lvz4[par][rb][izz_of(u * 4 + v)] = lv[v];
+    }
+    if (u == 0) {
+      s.mode4[par][rb] = (int)((FULL_MODES >> (4 * cand)) & 15);
+      if constexpr (TIER == 0) {
+        s.wbits[par][rb] = min(bits, 1 << 24);
+      } else {
+        s.wscore[par][rb] = fminf(score, SCORE_CLAMP);
+      }
+    }
+  }
+  i4_barrier();
+}
+
+// The two I4 warps (i4 = threadIdx.x, 0..63) through one MB's I4 chain:
+// row 0 on warp 0 (lanes 0-11); rows 1-3 on both, under the fast sets a
+// row at a time (blocks 0-1 on warp 0, 2-3 on warp 1, lanes 0-23), under
+// the full set a block at a time (i4_step_full); then the kept costs
+// summed in the reference's order into bits4 / score4 (the full set's
+// scores a block at a time, in block order).
+template <int MODES, int TIER>
 __device__ void i4_mb(Chain& s, int par, const int* left, bool has_left, const Qp& qp,
                       float lam, int i4) {
   const int warp = i4 >> 5, lane = i4 & 31, u = lane & 3;
@@ -430,17 +604,27 @@ __device__ void i4_mb(Chain& s, int par, const int* left, bool has_left, const Q
     }
   }
   i4_barrier();
-  const int q = min(lane >> 2, 5);            // lanes past 23 repeat block 1's VL
-  const int bl = q / 3, cand = q % 3, bx = warp * 2 + bl;
-  for (int by = 1; by < 4; ++by) {
-    i4_step<TIER>(s, par, by, bx, cand, u, bl * 12, lane < 24, left, has_left, Q, lam, lane);
-    i4_barrier();
+  if constexpr (MODES == MODES_FULL) {
+    for (int by = 1; by < 4; ++by)
+      for (int bx = 0; bx < 4; ++bx)
+        i4_step_full<TIER>(s, par, by, bx, warp, u, left, has_left, Q, lam, lane);
+  } else {
+    const int q = min(lane >> 2, 5);          // lanes past 23 repeat block 1's VL
+    const int bl = q / 3, cand = q % 3, bx = warp * 2 + bl;
+    for (int by = 1; by < 4; ++by) {
+      i4_step<TIER>(s, par, by, bx, cand, u, bl * 12, lane < 24, left, has_left, Q, lam, lane);
+      i4_barrier();
+    }
   }
   if (i4 == 0) {
     if constexpr (TIER == 0) {
       int b = 0;
       for (int k = 0; k < 16; ++k) b += s.wbits[par][k];
       s.bits4[par] = b;
+    } else if constexpr (MODES == MODES_FULL) {
+      float acc = 0.0f;
+      for (int k = 0; k < 16; ++k) acc = __fadd_rn(acc, s.wscore[par][k]);
+      s.score4[par] = acc;
     } else {
       float acc = 0.0f;
       for (int k = 0; k < 4; ++k) acc = __fadd_rn(acc, s.wscore[par][k]);
@@ -619,7 +803,7 @@ __device__ void chroma_row(const int* __restrict__ pre, int* cb_dc, int* cr_dc, 
   }
 }
 
-template <int TIER>
+template <int MODES, int TIER>
 __global__ void __launch_bounds__(128) intra_chain_kernel(
     const uint8_t* __restrict__ y, const int* __restrict__ pre, int* luma_dc, int* luma_ac,
     int* cb_dc, int* cr_dc, int* pred_mode, uint8_t* mb_i4, int* i4_modes, int* luma_i4,
@@ -639,14 +823,18 @@ __global__ void __launch_bounds__(128) intra_chain_kernel(
   const int W = nc * 16;
   const uint8_t* const yrow = y + (size_t)r * 16 * W;
   const int* const pre_row = pre + (size_t)r * nc * PRE_WORDS;
+  // the I4 warps have no candidate to code under "i16" and "dc"
+  constexpr bool I4 = MODES <= MODES_FULL;
   const bool is_i4 = warp < 2;
   const int i4 = threadIdx.x, b = lane & 15;
   int px[TIER != 0 ? 8 : 1];
   int4 w4n;
   I16In in16;
   if (is_i4) {
-    w4n = load_i4<TIER>(pre_row, yrow, W, i4, px);
-    put_i4<TIER>(s, 0, w4n, px, i4);
+    if constexpr (I4) {
+      w4n = load_i4<TIER>(pre_row, yrow, W, i4, px);
+      put_i4<TIER>(s, 0, w4n, px, i4);
+    }
   } else {
     in16 = load_i16<TIER>(pre_row, yrow, W, b);
   }
@@ -662,10 +850,12 @@ __global__ void __launch_bounds__(128) intra_chain_kernel(
     const int* left = has_left ? (use4 ? s.rec4[par ^ 1] : s.rec16[par ^ 1][sel]) : nullptr;
     int lvl[16];
     if (is_i4) {
-      if (more)
-        w4n = load_i4<TIER>(pre_row + (c + 1) * PRE_WORDS, yrow + (c + 1) * 16, W, i4, px);
-      i4_mb<TIER>(s, par, left, has_left, Q, lam, i4);
-      if (more) put_i4<TIER>(s, par ^ 1, w4n, px, i4);
+      if constexpr (I4) {
+        if (more)
+          w4n = load_i4<TIER>(pre_row + (c + 1) * PRE_WORDS, yrow + (c + 1) * 16, W, i4, px);
+        i4_mb<MODES, TIER>(s, par, left, has_left, Q, lam, i4);
+        if (more) put_i4<TIER>(s, par ^ 1, w4n, px, i4);
+      }
     } else {
       I16In nxt;
       if (more) nxt = load_i16<TIER>(pre_row + (c + 1) * PRE_WORDS, yrow + (c + 1) * 16, W, b);
@@ -676,28 +866,32 @@ __global__ void __launch_bounds__(128) intra_chain_kernel(
 
     // --- decisions: I16 DC vs H, then I16 vs I4 (all three warps) ------
     const int b_dc = s.t16[par][0], b_h = s.t16[par][1];
+    // ("dc": the H lanes of the I16 warp run beside DC's, never chosen)
     if constexpr (TIER == 0) {
-      const bool use_h = has_left && b_h < b_dc;
+      const bool use_h = MODES != MODES_DC && has_left && b_h < b_dc;
       sel = use_h;
-      use4 = s.bits4[par] + I4_SIG_BITS < (use_h ? b_h : b_dc);
+      if constexpr (I4) use4 = s.bits4[par] + I4_SIG_BITS < (use_h ? b_h : b_dc);
     } else {
       const float sc_dc = __fmaf_rn(lam, (float)b_dc, (float)s.t16[par][2]);
       const float sc_h = __fmaf_rn(lam, (float)b_h, (float)s.t16[par][3]);
-      const bool use_h = has_left && sc_h < sc_dc;
+      const bool use_h = MODES != MODES_DC && has_left && sc_h < sc_dc;
       sel = use_h;
-      const float i4s = TIER == 2 ? __fmaf_rn(lam, (float)I4_SIG_BITS, s.score4[par])
-                                  : __fadd_rn(s.score4[par], sig_tab[qm]);
-      use4 = i4s < (use_h ? sc_h : sc_dc);
+      if constexpr (I4) {
+        const float i4s = TIER == 2 ? __fmaf_rn(lam, (float)I4_SIG_BITS, s.score4[par])
+                                    : __fadd_rn(s.score4[par], sig_tab[qm]);
+        use4 = i4s < (use_h ? sc_h : sc_dc);
+      }
     }
 
     if (is_i4) {
+      // without I4: the reference's constants (levels 0, modes DC)
       const int* yrec = use4 ? s.rec4[par] : s.rec16[par][sel];
       for (int i = i4; i < 256; i += 64) {
         ry[(size_t)(r * 16 + (i >> 4)) * W + c * 16 + (i & 15)] = (uint8_t)yrec[i];
         const int blk = i >> 4, k = i & 15;
-        luma_i4[(mbi * 16 + blk) * 16 + k] = s.lvz4[par][raster_of_blk(blk)][k];
+        luma_i4[(mbi * 16 + blk) * 16 + k] = I4 ? s.lvz4[par][raster_of_blk(blk)][k] : 0;
       }
-      if (i4 < 16) i4_modes[mbi * 16 + i4] = s.mode4[par][raster_of_blk(i4)];
+      if (i4 < 16) i4_modes[mbi * 16 + i4] = I4 ? s.mode4[par][raster_of_blk(i4)] : 2;
     } else {
       if ((lane >> 4) == sel) {
         int* const ac = luma_ac + (size_t)(mbi * 16 + blk_of_raster(b)) * 15;
@@ -713,39 +907,56 @@ __global__ void __launch_bounds__(128) intra_chain_kernel(
   }
 }
 
-template <int TIER>
-int launch_intra(const uint8_t* y, const uint8_t* cb, const uint8_t* cr, int* luma_dc,
-                 int* luma_ac, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac,
-                 int* pred_mode, uint8_t* mb_i4, int* i4_modes, int* luma_i4, uint8_t* ry,
-                 uint8_t* rcb, uint8_t* rcr, int* pre, const int* qp_map, const float* lam,
-                 const float* sig, int nr, int nc, int qp, int qpc, int ns,
-                 cudaStream_t stream) {
+#define INTRA_PARAMS                                                                      \
+  const uint8_t *y, const uint8_t *cb, const uint8_t *cr, int *luma_dc, int *luma_ac,     \
+      int *cb_dc, int *cb_ac, int *cr_dc, int *cr_ac, int *pred_mode, uint8_t *mb_i4,     \
+      int *i4_modes, int *luma_i4, uint8_t *ry, uint8_t *rcb, uint8_t *rcr, int *pre,     \
+      const int *qp_map, const float *lam, const float *sig, int nr, int nc, int qp,      \
+      int qpc, int ns, cudaStream_t stream
+#define INTRA_ARGS                                                                     \
+  y, cb, cr, luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode, mb_i4, i4_modes, \
+      luma_i4, ry, rcb, rcr, pre, qp_map, lam, sig, nr, nc, qp, qpc, ns, stream
+
+template <int MODES, int TIER>
+int launch_intra(INTRA_PARAMS) {
   const int nmb = nr * nc * ns;
   intra_pre_kernel<TIER><<<(nmb + 3) / 4, 128, 0, stream>>>(y, cb, cr, cb_ac, cr_ac, pre,
                                                              qp_map, nmb, nc, qp, qpc);
   const int e = dngd_last_error();
   if (e) return e;
-  intra_chain_kernel<TIER><<<dim3(nr, ns), 128, 0, stream>>>(
+  intra_chain_kernel<MODES, TIER><<<dim3(nr, ns), 128, 0, stream>>>(
       y, pre, luma_dc, luma_ac, cb_dc, cr_dc, pred_mode, mb_i4, i4_modes, luma_i4, ry, rcb,
       rcr, qp_map, lam, sig, nc, qp, qpc);
   return dngd_last_error();
+}
+
+// modes: 0 auto, 1 full, 2 i16, 3 dc (each a form of the chain pass)
+template <int TIER>
+int launch_modes(int modes, INTRA_PARAMS) {
+  switch (modes) {
+    case MODES_AUTO: return launch_intra<MODES_AUTO, TIER>(INTRA_ARGS);
+    case MODES_FULL: return launch_intra<MODES_FULL, TIER>(INTRA_ARGS);
+    case MODES_I16: return launch_intra<MODES_I16, TIER>(INTRA_ARGS);
+    case MODES_DC: return launch_intra<MODES_DC, TIER>(INTRA_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // ns: sessions (1 = one frame), each nr x nc MBs, stacked on the planes'
 // and outputs' leading axis; scratch: ns * nr * nc * 352 int32 for the
-// pre-pass's words.
+// pre-pass's words; modes: the mode set (0 auto, 1 full, 2 i16, 3 dc).
 extern "C" int intra_frame_launch(
     const uint8_t* y, const uint8_t* cb, const uint8_t* cr, int* luma_dc,
     int* luma_ac, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac,
     int* pred_mode, uint8_t* mb_i4, int* i4_modes, int* luma_i4, uint8_t* ry,
-    uint8_t* rcb, uint8_t* rcr, int* scratch, int nr, int nc, int qp, int qpc, int ns,
-    cudaStream_t stream) {
+    uint8_t* rcb, uint8_t* rcr, int* scratch, int nr, int nc, int qp, int qpc, int modes,
+    int ns, cudaStream_t stream) {
   if (nr <= 0 || nc <= 0 || ns <= 0) return 0;
-  return launch_intra<0>(y, cb, cr, luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode,
-                         mb_i4, i4_modes, luma_i4, ry, rcb, rcr, scratch, nullptr, nullptr,
-                         nullptr, nr, nc, qp, qpc, ns, stream);
+  return launch_modes<0>(modes, y, cb, cr, luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac,
+                         pred_mode, mb_i4, i4_modes, luma_i4, ry, rcb, rcr, scratch, nullptr,
+                         nullptr, nullptr, nr, nc, qp, qpc, ns, stream);
 }
 
 // tune=hq: tier 1 (hq_noaq) or 2 (hq, qp_map the qp plane); lam the
@@ -755,17 +966,18 @@ extern "C" int intra_frame_hq_launch(
     int* luma_ac, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac,
     int* pred_mode, uint8_t* mb_i4, int* i4_modes, int* luma_i4, uint8_t* ry,
     uint8_t* rcb, uint8_t* rcr, int* scratch, const int* qp_map, const float* lam,
-    const float* sig, int nr, int nc, int qp, int qpc, int tier, cudaStream_t stream) {
+    const float* sig, int nr, int nc, int qp, int qpc, int modes, int tier,
+    cudaStream_t stream) {
   if (nr <= 0 || nc <= 0) return 0;
   if (tier == 2) {
     if (!qp_map) return cudaErrorInvalidValue;
-    return launch_intra<2>(y, cb, cr, luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode,
-                           mb_i4, i4_modes, luma_i4, ry, rcb, rcr, scratch, qp_map, lam, sig,
-                           nr, nc, qp, qpc, 1, stream);
+    return launch_modes<2>(modes, y, cb, cr, luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac,
+                           pred_mode, mb_i4, i4_modes, luma_i4, ry, rcb, rcr, scratch, qp_map,
+                           lam, sig, nr, nc, qp, qpc, 1, stream);
   }
   if (tier == 1)
-    return launch_intra<1>(y, cb, cr, luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode,
-                           mb_i4, i4_modes, luma_i4, ry, rcb, rcr, scratch, qp_map, lam, sig,
-                           nr, nc, qp, qpc, 1, stream);
+    return launch_modes<1>(modes, y, cb, cr, luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac,
+                           pred_mode, mb_i4, i4_modes, luma_i4, ry, rcb, rcr, scratch, qp_map,
+                           lam, sig, nr, nc, qp, qpc, 1, stream);
   return cudaErrorInvalidValue;
 }

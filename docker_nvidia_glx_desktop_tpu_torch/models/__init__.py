@@ -18,9 +18,9 @@ def make_encoder(cfg, width: int, height: int, device=None,
                  spatial_devices=None):
     """Codec from the config surface (WEBRTC_ENCODER + ENCODER_* knobs),
     on the card unless ``device`` says otherwise.  Returns (encoder,
-    codec_name).  ``tpuh264enc`` with device (CAVLC) or CABAC entropy and
-    ``tpumjpegenc`` are ported; ``tpuvp8enc`` and the other entropy
-    modes raise NotImplementedError.  ``spatial_devices``: the devices
+    codec_name).  ``tpuh264enc`` (every ``ENCODER_ENTROPY`` and
+    ``ENCODER_INTRA_MODES`` the reference serves) and ``tpumjpegenc`` are
+    ported; ``tpuvp8enc`` raises NotImplementedError.  ``spatial_devices``: the devices
     ``ENCODER_SPATIAL_SHARDS`` counts and shards over (see
     :class:`H264Encoder`)."""
     codec = cfg.codec

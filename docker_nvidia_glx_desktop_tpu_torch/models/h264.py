@@ -62,11 +62,21 @@ the ring's 1-frame lookahead, the mb_qp_delta chain, the I16-in-P escape
 mean-coded-qp normalisation.  Full-tier CABAC takes the host transport
 (K10 plus the qp plane), as in the reference.
 
-Every other setting of the reference encoder — native or Python CAVLC,
-``mode="pcm"``, ``ENCODER_SPATIAL_SHARDS=auto`` over several devices,
-shards on distinct cards, tune=hq under the damage mask, the non-default
-intra mode sets — raises NotImplementedError naming its ROADMAP item;
-nothing falls back quietly.
+``intra_modes`` (``ENCODER_INTRA_MODES``) picks K1's mode set: "auto",
+"full" (all nine I4 modes), "i16" or "dc".  ``entropy="native"`` and
+``"python"`` code CAVLC on the host, as the reference does (encode
+returns when the frame is coded, no pipelining): an IDR is the intra
+core on the device-converted frame, then the C coder
+(``native/cavlc.cpp``) where the reference uses it (I16 DC at the slice
+qp, no qp plane, no loop filter; ``native`` pins ``intra_modes="dc"``
+and the loop filter off) and the Python coder otherwise; a P frame is
+the P core, then the Python coder.  ``mode="pcm"`` (the reference's
+default) sends every frame as I_PCM macroblocks of the device-converted
+planes.
+
+``ENCODER_SPATIAL_SHARDS=auto`` over several devices, shards on distinct
+cards and tune=hq under the damage mask raise NotImplementedError naming
+their ROADMAP items; nothing falls back quietly.
 """
 
 from __future__ import annotations
@@ -346,7 +356,7 @@ class H264Encoder(Encoder):
     codec = "h264"
 
     def __init__(self, width: int, height: int, qp: int = 26,
-                 mode: str = "cavlc", entropy: str = "device",
+                 mode: str = "pcm", entropy: str = "device",
                  keep_recon: bool = False, host_color: bool = False,
                  gop: int = 1, bitrate_kbps: int = 0, fps: float = 60.0,
                  deblock: bool = False, intra_modes: str = None,
@@ -358,16 +368,21 @@ class H264Encoder(Encoder):
         ``spatial_shards`` counts and shards over (every CUDA device for a
         card encoder, ``[device]`` on the CPU; a list may repeat one
         device, the counterpart of the reference's forced host-platform
-        devices).  The device-entropy CAVLC and the CABAC paths are built
-        (``mode`` stays ``"cavlc"`` by default until ``"pcm"`` is
-        ported): see the module docstring for what raises."""
+        devices).  ``mode`` "pcm" (the default, as the reference's) or
+        "cavlc"; ``entropy`` "device", "cabac", "native" or "python";
+        ``intra_modes`` "auto", "full", "i16" or "dc": see the module
+        docstring for what raises."""
         super().__init__(width, height)
-        if mode != "cavlc":
-            raise _not_ported(f"h264 mode {mode!r}", "17")
-        if entropy not in ("device", "cabac"):
-            raise _not_ported(f"entropy={entropy!r}", "17")
-        if intra_modes not in (None, "auto"):
-            raise _not_ported(f"intra_modes={intra_modes!r}", "17")
+        if mode not in ("pcm", "cavlc"):
+            raise NotImplementedError(f"h264 mode {mode!r} not built yet")
+        if entropy not in ("device", "native", "python", "cabac"):
+            raise ValueError(f"unknown entropy {entropy!r}")
+        if mode == "pcm" and entropy == "cabac":
+            # I_PCM macroblocks are plain bits: a cabac=1 PPS would make
+            # the stream undecodable
+            raise ValueError("mode='pcm' does not support entropy='cabac'")
+        if intra_modes not in (None,) + h264_device.I16_MODES:
+            raise ValueError(f"unknown intra_modes {intra_modes!r}")
         if tune is None:
             tune = os.environ.get("ENCODER_TUNE", "off") or "off"
         if superstep_chunk is None:
@@ -375,7 +390,8 @@ class H264Encoder(Encoder):
                 os.environ.get("ENCODER_SUPERSTEP_CHUNK", "0") or 0)
         if damage_mask is None:
             damage_mask = dmg.enabled()
-        self.deblock = bool(deblock)
+        # the native C coder has no deblocking-idc plumbing
+        self.deblock = bool(deblock) and entropy != "native"
         # the tuning tier: "hq" runs the kernel tier "hq_noaq" (lambda
         # decisions at the slice qp) under the loop filter, whose
         # thresholds are per slice qp; "hq_noaq" is also a tier of its
@@ -396,9 +412,17 @@ class H264Encoder(Encoder):
         if self._ktune != "off" and damage_mask and entropy == "device":
             raise _not_ported("tune=hq with the damage mask",
                               "10 (masked)")
-        # I16-in-P: device CAVLC with the loop filter off
+        # I16-in-P: device or Python CAVLC with the loop filter off
         self._p_intra = (self._ktune != "off" and not self.deblock
-                         and entropy == "device")
+                         and mode == "cavlc"
+                         and entropy in ("device", "python"))
+        # the native C coder has no per-MB mode plumbing: it codes I16 DC
+        # pictures only, so "auto" (the config default) pins "dc" there
+        if entropy == "native" and intra_modes in (None, "auto"):
+            from ..native import lib as native_lib
+            self.i16_modes = "dc" if native_lib.has_cavlc() else "auto"
+        else:
+            self.i16_modes = intra_modes or "auto"
         self._mean_qp_pending = None     # the frame's mean coded qp (hq)
         self.device = resolve_device(device)
         self.qp = qp
@@ -593,7 +617,7 @@ class H264Encoder(Encoder):
                 got, _ = batch.h264_spatial_intra_step(
                     self._sp_mesh, self.pad_h, self.pad_w, qp, entropy=ent,
                     deblock=self.deblock, with_recon=self.gop > 1,
-                    tune=self._ktune)
+                    tune=self._ktune, i16_modes=self.i16_modes)
             else:
                 got, _ = batch.h264_spatial_step(
                     self._sp_mesh, self.pad_h, self.pad_w, qp,
@@ -1077,8 +1101,8 @@ class H264Encoder(Encoder):
         qp = self._eff_qp()
         hv, hl = self._hdr_slots(idr_pic_id, qp_delta=qp - self.qp)
         planes = y, cb, cr = self._planes_device(rgb)
-        levels = h264_device.encode_intra_frame_yuv(y, cb, cr, qp,
-                                                    tune=self._ktune)
+        levels = h264_device.encode_intra_frame_yuv(
+            y, cb, cr, qp, tune=self._ktune, i16_modes=self.i16_modes)
         flat = cavlc_device.encode_levels(levels, hv, hl, qp)
         recon = tuple(levels[k] for k in ("recon_y", "recon_cb", "recon_cr"))
         if self.gop > 1:
@@ -1123,12 +1147,17 @@ class H264Encoder(Encoder):
 
     def _encode_host_entropy(self, idr_pic_id: int, planes, qp: int,
                              update_ref: bool = True) -> bytes:
-        """Overflow fallback: the intra core again on the same device
-        planes and qp, then the Python CAVLC coder on the host.
+        """A host-entropy IDR (``entropy`` "native" or "python") and the
+        device path's overflow fallback: the intra core on the device
+        planes at ``qp``, then CAVLC on the host, by the C coder where the
+        reference takes it (qp delta 0, I16 DC only, no qp plane, no loop
+        filter; not under ``entropy="python"``), else the Python coder.
         ``update_ref=False`` leaves a pipeline's reference chain as the
         submit set it."""
-        levels = h264_device.encode_intra_frame_yuv(*planes, qp,
-                                                    tune=self._ktune)
+        from ..native import lib as native_lib
+
+        levels = h264_device.encode_intra_frame_yuv(
+            *planes, qp, tune=self._ktune, i16_modes=self.i16_modes)
         if self.gop > 1 and update_ref:
             self._set_ref(tuple(levels[k] for k in
                                 ("recon_y", "recon_cb", "recon_cr")), qp)
@@ -1140,11 +1169,61 @@ class H264Encoder(Encoder):
                   if not k.startswith("recon")}
         qp_map = levels.pop("qp_map", None)
         self._note_qp_map(qp_map, levels=levels, slice_qp=qp, intra=True)
+        uses_modes = bool((levels["pred_mode"] != 2).any()
+                          or levels["mb_i4"].any())
+        if (qp == self.qp and not uses_modes and self.entropy != "python"
+                and qp_map is None and not self.deblock
+                and native_lib.has_cavlc()):
+            return self.headers() + native_lib.h264_encode_intra_picture(
+                levels, frame_num=0, idr_pic_id=idr_pic_id)
         return h264_entropy.encode_intra_picture(
             levels, frame_num=0, idr_pic_id=idr_pic_id,
             sps=self._sps, pps=self._pps, with_headers=True,
             qp_delta=qp - self.qp, deblocking_idc=self._deblock_idc,
             qp_map=qp_map, slice_qp=qp)
+
+    def _encode_p_host(self, planes, qp: int) -> bytes:
+        """A P frame of the host-entropy modes: the P core on the device
+        planes, the next reference (loop-filtered with the deblock), then
+        the Python CAVLC coder on the pulled levels."""
+        out = h264_inter.encode_p_frame(*planes, *self._ref, qp,
+                                        tune=self._ktune,
+                                        p_intra=self._p_intra)
+        recon = tuple(out[k] for k in self._RECON_KEYS)
+        self._set_ref(recon, qp, mv=out["mv"], luma=out["luma"])
+        if self.keep_recon:
+            self.last_recon = tuple(p.cpu().numpy() for p in recon)
+        pulled = {k: v.cpu().numpy() for k, v in out.items()
+                  if not k.startswith("recon")}
+        self.last_mv = pulled["mv"]
+        return self._encode_p_pulled(pulled, qp, self._frame_num)
+
+    def _encode_pcm(self, rgb) -> bytes:
+        """An IDR of I_PCM macroblocks: the device colour conversion (K9),
+        then every MB's samples as bytes (the reference's
+        ``_encode_pcm``)."""
+        from ..bitstream.bitwriter import BitWriter
+
+        y, cb, cr = (p.cpu().numpy() for p in self._device_colour(rgb))
+        bw = BitWriter()
+        syn.slice_header(bw, first_mb=0, slice_type=7, frame_num=0,
+                         idr=True, idr_pic_id=self.frame_index % 2)
+        syn.write_ue(bw, 25)                   # mb_type I_PCM
+        bw.pad_to_byte(0)                      # pcm_alignment_zero_bits
+        head = bytes(bw.buf)
+
+        def tiles(plane, n):                   # (MBs, n * n), raster MBs
+            h, w = plane.shape
+            return plane.reshape(h // n, n, w // n, n).swapaxes(1, 2) \
+                .reshape(-1, n * n)
+        y_mb, cb_mb, cr_mb = tiles(y, 16), tiles(cb, 8), tiles(cr, 8)
+        # every later MB starts byte-aligned: ue(25) is 9 bits, then 7
+        # alignment zeros: the bytes 0x0D 0x00
+        prefix = np.tile(np.array([0x0D, 0x00], np.uint8), (len(y_mb), 1))
+        body = np.concatenate([prefix, y_mb, cb_mb, cr_mb],
+                              axis=1).reshape(-1)[2:]
+        rbsp = head + body.tobytes() + b"\x80"    # rbsp_trailing_bits
+        return self.headers() + syn.nal_unit(syn.NAL_IDR, rbsp)
 
     # -- mean coded qp (tune=hq): the rate model's normalisation ---------
 
@@ -1246,8 +1325,8 @@ class H264Encoder(Encoder):
     def _submit_cabac_intra(self, rgb, idr_pic_id: int):
         qp = self._eff_qp()
         y, cb, cr = self._planes_device(rgb)
-        levels = h264_device.encode_intra_frame_yuv(y, cb, cr, qp,
-                                                    tune=self._ktune)
+        levels = h264_device.encode_intra_frame_yuv(
+            y, cb, cr, qp, tune=self._ktune, i16_modes=self.i16_modes)
         if self.gop > 1:
             self._set_ref(tuple(levels[k] for k in self._RECON_KEYS), qp)
         self._content_submit(y, recon_y=levels["recon_y"],
@@ -1371,7 +1450,9 @@ class H264Encoder(Encoder):
         plan = self._damage_plan(None if host is None else host[0])
         planes = (self._upload(host) if host is not None
                   else self._device_colour(rgb))
-        if self.entropy == "cabac":
+        if self.entropy in ("native", "python"):
+            got = "host", self._encode_p_host(planes, qp)
+        elif self.entropy == "cabac":
             got = "cabac_p", self._submit_cabac_p(planes, qp)
         else:
             got = self._submit_p_cavlc(planes, qp, self._frame_num, plan)
@@ -1539,6 +1620,8 @@ class H264Encoder(Encoder):
             qp_delta=qp - self.qp, deblocking_idc=self._deblock_idc)
 
     def _collect(self, kind: str, payload, in_pipeline: bool = False):
+        if kind == "host":              # coded at submit
+            return payload
         if kind == "ring":
             return self._ring_collect(payload)
         if kind == "sp":
@@ -1558,6 +1641,10 @@ class H264Encoder(Encoder):
         t0 = time.perf_counter()
         if self._spatial_nx > 1:
             got = "sp", self._sp_submit_intra(rgb, idr_pic_id)
+        elif self.entropy in ("native", "python"):
+            # the reference codes these IDRs from its device colour stage
+            got = "host", self._encode_host_entropy(
+                idr_pic_id, self._device_colour(rgb), self._eff_qp())
         elif self.entropy == "cabac":
             got = "cabac_intra", self._submit_cabac_intra(rgb, idr_pic_id)
         else:
@@ -1919,7 +2006,9 @@ class H264Encoder(Encoder):
 
     def encode(self, rgb) -> EncodedFrame:
         t0 = time.perf_counter()
-        if self.gop > 1:
+        if self.mode == "pcm":
+            data, key = self._encode_pcm(rgb), True
+        elif self.gop > 1:
             data, key = self._gop_step(rgb)
         else:
             n0 = self._rate.mark() if self._rate is not None else 0
@@ -1943,7 +2032,13 @@ class H264Encoder(Encoder):
 
     def encode_submit(self, rgb):
         """Start encoding a frame; returns an opaque token.  The device
-        work runs while the caller prepares the next frame."""
+        work runs while the caller prepares the next frame.  PCM and the
+        host-entropy modes encode the frame here, as the reference does
+        (no stats contract on that path)."""
+        if self.mode != "cavlc" or self.entropy not in ("device", "cabac"):
+            ef = self.encode(rgb)
+            self._content_last = None
+            return ("sync", None, None, True, ef)
         idx = self.frame_index
         self.frame_index += 1
         t0 = time.perf_counter()
@@ -1978,6 +2073,8 @@ class H264Encoder(Encoder):
 
     def encode_collect(self, token) -> EncodedFrame:
         kind, idx, t0, key, payload = token
+        if kind == "sync":
+            return payload
         try:
             data = self._collect(kind, payload, in_pipeline=self.gop > 1)
         except Exception:

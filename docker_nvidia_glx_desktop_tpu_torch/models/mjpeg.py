@@ -10,7 +10,9 @@ the noVNC path's Tight-JPEG encoder (``rfb/server.py``) and
 ``WEBRTC_ENCODER=tpumjpegenc``.
 
 ``entropy="python"`` pulls the levels and codes them on the host (the
-reference's Python coder, the tests' oracle); ``"device"`` (``"auto"``)
+reference's Python coder, the tests' oracle), ``"native"`` likewise with
+the port's copy of the reference's C++ coder (``native/entropy.cpp``:
+the histograms and the scan; the same bytes); ``"device"`` (``"auto"``)
 is the path above.
 """
 
@@ -28,7 +30,7 @@ from ..ops import bitpack, jpeg_device, quant
 from ..ops.scan import ZIGZAG8
 from ..utils.mathutil import round_up
 from .base import EncodedFrame, Encoder
-from .h264 import _not_ported, resolve_device
+from .h264 import resolve_device
 
 
 def _marker(tag: int, payload: bytes) -> bytes:
@@ -79,9 +81,10 @@ class JpegEncoder(Encoder):
                  table_mode: str = "sticky", table_refresh: int = 300,
                  device=None):
         """entropy: "device" (histograms and pack on the card; only the
-        packed scan crosses to the host), "python" (the host's reference
-        coder) or "auto" (= "device").  "native" (the reference's C++ host
-        coder) is not ported.
+        packed scan crosses to the host), "native" (the C++ host coder),
+        "python" (the host's reference coder) or "auto" (= "device").
+        ``use_native`` (the reference's older knob) picks "native" or
+        "python".  A native library that does not build raises.
 
         table_mode: "per_frame" builds optimal Huffman tables from every
         frame's histograms; "sticky" builds +1-smoothed tables (every
@@ -100,13 +103,15 @@ class JpegEncoder(Encoder):
         if entropy == "auto":
             entropy = "device"
         if entropy == "native":
-            raise _not_ported("the native C++ JPEG host entropy coder", "17")
-        if entropy not in ("device", "python"):
+            from ..native import lib as native_lib
+            native_lib.get_lib()          # fail at construction, not per frame
+        if entropy not in ("device", "native", "python"):
             raise ValueError(f"unknown entropy mode {entropy!r}; expected "
                              "'auto', 'device', 'native', or 'python'")
         if table_mode not in ("sticky", "per_frame"):
             raise ValueError(f"unknown table_mode {table_mode!r}")
         self.entropy = entropy
+        self.use_native = entropy == "native"
         self.table_mode = table_mode
         self.table_refresh = table_refresh
         self._tables = None
@@ -138,6 +143,15 @@ class JpegEncoder(Encoder):
         scan (one symbol list feeds the histogram and the emission)."""
         nmcu = y_zz.shape[0]
         y_flat = np.asarray(y_zz).reshape(nmcu * 4, 64)
+        if self.use_native:
+            from ..native import lib as native_lib
+            dc_hist, ac_hist = native_lib.jpeg_histograms(y_flat, cb_zz, cr_zz)
+            tables = (jh.HuffmanTable(dc_hist[0][:12]),
+                      jh.HuffmanTable(ac_hist[0]),
+                      jh.HuffmanTable(dc_hist[1][:12]),
+                      jh.HuffmanTable(ac_hist[1]))
+            scan = native_lib.jpeg_encode_scan(y_flat, cb_zz, cr_zz, tables)
+            return self._headers(tables) + scan + b"\xff\xd9"
         symbols, dc_hist, ac_hist = jh.frame_symbols(
             [y_flat, cb_zz, cr_zz], [0, 1, 1])
         tables = (jh.HuffmanTable(dc_hist[0][:12]), jh.HuffmanTable(ac_hist[0]),

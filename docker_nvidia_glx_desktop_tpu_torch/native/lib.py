@@ -1,15 +1,16 @@
 """Build-on-demand loader of the port's native host library.
 
-Compiles ``cabac.cpp``, ``levelpack.cpp`` and ``entropy.cpp`` of this
-directory with ``g++`` into one shared object in the package's
+Compiles ``cabac.cpp``, ``levelpack.cpp``, ``entropy.cpp`` and
+``cavlc.cpp`` of this directory with ``g++`` into one shared object in
+the package's
 git-ignored ``build/`` (named by a hash of the sources and flags, so a
 changed source builds anew), then exposes ctypes bindings with the
 reference's signatures and ABI-version checks (``docker_nvidia_glx_desktop_tpu/
 native/lib.py``).  Nothing is built when the module is imported.
 
-A failed build or load raises: the CABAC coders of the port have no
-quiet Python fallback (the pure-Python coders of ``bitstream/`` run only
-when a caller asks for them, as the tests do).  Only the EPB escaper of
+A failed build or load raises: the CABAC, CAVLC and JPEG coders of the
+port have no quiet Python fallback (the pure-Python coders of
+``bitstream/`` run only when a caller asks for them, as the tests do).  Only the EPB escaper of
 ``bitstream/h264.nal_unit`` asks :func:`available` and keeps the Python
 escaper where the library cannot be built, as the reference does; the
 bytes are the same.
@@ -37,7 +38,12 @@ import numpy as np
 
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(os.path.dirname(_SRC_DIR), "build")
-SOURCES = ("cabac.cpp", "levelpack.cpp", "entropy.cpp")
+SOURCES = ("cabac.cpp", "levelpack.cpp", "entropy.cpp", "cavlc.cpp")
+# each source's ABI probe and the version this loader binds
+_ABI = {"tpudesktop_entropy_abi_version": 2,
+        "tpudesktop_cabac_abi_version": 1,
+        "tpudesktop_levelpack_abi_version": 1,
+        "tpudesktop_cavlc_abi_version": 1}
 # no -march=native: a build/ carried to another host must still load
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
@@ -85,12 +91,10 @@ def _build() -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    for probe in ("tpudesktop_entropy_abi_version",
-                  "tpudesktop_cabac_abi_version",
-                  "tpudesktop_levelpack_abi_version"):
+    for probe, version in _ABI.items():
         fn = getattr(lib, probe)
         fn.restype = ctypes.c_int32
-        if fn() != 1:
+        if fn() != version:
             raise RuntimeError(f"native library ABI mismatch ({probe})")
     i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -113,6 +117,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.h264_cabac_engine_rows.restype = i64
     lib.level_unpack_rows.argtypes = [u32p, i64p, i64, i64, i32p]
     lib.level_unpack_rows.restype = None
+    lib.h264_encode_intra_picture.argtypes = [i32p] * 6 + [i64, i64, i32, i32,
+                                                           u8p, i64]
+    lib.h264_encode_intra_picture.restype = i64
+    lib.jpeg_component_histogram.argtypes = [i32p, i64, i64p, i64p]
+    lib.jpeg_component_histogram.restype = None
+    lib.jpeg_encode_scan.argtypes = [i32p, i32p, i32p, i64] + [u32p, u8p] * 4 \
+        + [u8p, i64]
+    lib.jpeg_encode_scan.restype = i64
 
 
 def get_lib() -> ctypes.CDLL:
@@ -184,6 +196,80 @@ def level_unpack(payload: np.ndarray, row_off: np.ndarray, rows: int,
                           np.ascontiguousarray(row_off, np.int64),
                           rows, slots_per_row, out)
     return out
+
+
+def has_cavlc() -> bool:
+    """The native CAVLC coder is there: the library built (else this
+    raises, as :func:`get_lib` does; the reference answers False and
+    serves Python)."""
+    return hasattr(get_lib(), "h264_encode_intra_picture")
+
+
+def h264_encode_intra_picture(levels: dict, *, frame_num: int,
+                              idr_pic_id: int) -> bytes:
+    """Every row slice of an I_16x16 picture (the intra core's levels,
+    DC prediction, the slice qp, no deblocking) as Annex-B NAL units,
+    coded by the C CAVLC coder on a thread per row."""
+    lib = get_lib()
+    c = lambda k: np.ascontiguousarray(levels[k], np.int32)
+    luma_dc = c("luma_dc")
+    nr, nc = luma_dc.shape[:2]
+    cap = max(1 << 16, int(nr * nc) * 800)
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.h264_encode_intra_picture(
+            luma_dc, c("luma_ac"), c("cb_dc"), c("cb_ac"), c("cr_dc"),
+            c("cr_ac"), nr, nc, frame_num, idr_pic_id, out, cap)
+        if n >= 0:
+            _count("h264_encode_intra_picture")
+            return out[:n].tobytes()
+        cap *= 2
+
+
+def jpeg_histograms(y_flat: np.ndarray, cb: np.ndarray, cr: np.ndarray):
+    """DC/AC symbol histograms per table (0 luma, 1 chroma) of zigzagged
+    (n, 64) blocks, via C."""
+    lib = get_lib()
+    dc_hist = [np.zeros(17, np.int64), np.zeros(17, np.int64)]
+    ac_hist = [np.zeros(256, np.int64), np.zeros(256, np.int64)]
+    lib.jpeg_component_histogram(np.ascontiguousarray(y_flat, np.int32),
+                                 y_flat.shape[0], dc_hist[0], ac_hist[0])
+    for comp in (cb, cr):
+        lib.jpeg_component_histogram(np.ascontiguousarray(comp, np.int32),
+                                     comp.shape[0], dc_hist[1], ac_hist[1])
+    _count("jpeg_component_histogram")
+    return dc_hist, ac_hist
+
+
+def _table_arrays(table):
+    """HuffmanTable -> dense (codes uint32[256], lens uint8[256])."""
+    codes = np.zeros(256, np.uint32)
+    lens = np.zeros(256, np.uint8)
+    n = len(table.codes)
+    codes[:n] = table.codes.astype(np.uint32)
+    lens[:n] = table.lengths.astype(np.uint8)
+    return codes, lens
+
+
+def jpeg_encode_scan(y_flat, cb, cr, tables) -> bytes:
+    """The interleaved 4:2:0 scan (4 luma blocks, Cb, Cr per MCU), byte
+    stuffed, via C; ``tables`` = (dc_l, ac_l, dc_c, ac_c)."""
+    lib = get_lib()
+    nmcu = cb.shape[0]
+    args = []
+    for t in tables:
+        args.extend(_table_arrays(t))
+    cap = max(1 << 16, int(y_flat.size + cb.size + cr.size) * 4)
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.jpeg_encode_scan(np.ascontiguousarray(y_flat, np.int32),
+                                 np.ascontiguousarray(cb, np.int32),
+                                 np.ascontiguousarray(cr, np.int32),
+                                 nmcu, *args, out, cap)
+        if n >= 0:
+            _count("jpeg_encode_scan")
+            return out[:n].tobytes()
+        cap *= 2
 
 
 def emulation_prevention(rbsp: bytes) -> bytes:

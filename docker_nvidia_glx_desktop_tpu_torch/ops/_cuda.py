@@ -101,23 +101,52 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+_entries: dict = {}
+
+
+def _entry(lib_name: str, fn_name: str, nt: int, ni: int):
+    """``fn_name`` of ``lib<lib_name>.so`` as a ctypes function of ``nt``
+    pointers, ``ni`` ints and the stream, built once: a launch then pays
+    no signature set-up (a frame's host time is mostly its launches')."""
+    key = (lib_name, fn_name, nt, ni)
+    got = _entries.get(key)
+    if got is None:
+        lib = library(lib_name)
+        fn = lib[fn_name]               # a function object of its own
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * nt + [ctypes.c_int] * ni
+                       + [ctypes.c_void_p])
+        got = _entries[key] = (lib, fn)
+    return got
+
+
+def _stream(index: int) -> int:
+    """The current stream of device ``index`` as its raw handle."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(lib_name: str, fn_name: str, tensors, ints, device) -> None:
     """Call ``fn_name(ptrs..., ints..., stream)`` of ``lib<lib_name>.so``
     on the current stream of ``device``; raises on a non-zero return.
     A ``None`` tensor passes a null pointer (an absent optional input)."""
+    cur = torch.cuda.current_device()
+    index = cur if device.index is None else device.index
     for t in tensors:
-        if t is not None and (t.device != device or not t.is_contiguous()):
+        if t is not None and (t.get_device() != index
+                              or not t.is_contiguous()):
             raise ValueError(f"{fn_name}: every tensor must be contiguous "
                              f"on {device}")
-    lib = library(lib_name)
-    fn = getattr(lib, fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * len(tensors)
-                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(*[None if t is None else t.data_ptr() for t in tensors], *[int(i) for i in ints],
-                 stream)
+    lib, fn = _entry(lib_name, fn_name, len(tensors), len(ints))
+    args = ([None if t is None else t.data_ptr() for t in tensors]
+            + [int(i) for i in ints] + [_stream(index)])
+    if index == cur:
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} "
                            f"({lib.dngd_error_string(err).decode()})")

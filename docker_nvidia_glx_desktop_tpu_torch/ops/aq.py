@@ -274,35 +274,36 @@ def lam_tables(tune: str):
 
 
 # the P core's rate model (bits): the mvd+cbp a zero-MV skip saves, the
-# extra mvd precision bits of a half- / quarter-pel refinement, each on
-# the alternate-line SAD scale (/2)
-_MARGIN_BITS = (16.0 / 2, 4.0 / 2, 3.0 / 2)
+# extra mvd precision bits of a half- / quarter-pel refinement
+_MARGIN_BITS = (16.0, 4.0, 3.0)
 
 
-def margin_tables(tune: str) -> np.ndarray:
-    """(3, 52) int32 motion margins ``(int)(lam_mv[q] * bits)`` in float32
-    for the zero-MV, half-pel and quarter-pel stages."""
+def margin_tables(tune: str, scale: int = 2) -> np.ndarray:
+    """(3, 52) int32 motion margins ``(int)(lam_mv[q] * bits / scale)``
+    in float32 for the zero-MV, half-pel and quarter-pel stages: on the
+    alternate-line SAD scale (``scale`` 2, ``refine="alt"``) or the
+    full-line one (1, ``refine="full"``'s refinement stages)."""
     lam_v = lam_tables(tune)[1]
-    return np.stack([(lam_v * np.float32(b)).astype(np.float32)
+    return np.stack([(lam_v * np.float32(b / scale)).astype(np.float32)
                      .astype(np.int32) for b in _MARGIN_BITS])
 
 
 _tables_dev: dict = {}
 
 
-def device_tables(tune: str, dev) -> tuple:
+def device_tables(tune: str, dev, scale: int = 2) -> tuple:
     """The tier's tables on ``dev`` for the hq kernels, cached: lam_mode
     (52,) float32, the I16-vs-I4 signalling cost (52,) float32 (hq_noaq's
     rounded constants; under full hq lam_mode again, which K1 multiplies
-    by 44) and the motion margins (3, 52) int32."""
-    key = (tune, dev)
+    by 44) and the motion margins (3, 52) int32 at ``scale``."""
+    key = (tune, dev, scale)
     got = _tables_dev.get(key)
     if got is None:
         lam, _, sig = lam_tables(tune)
         got = _tables_dev[key] = (
             torch.from_numpy(lam.copy()).to(dev),
             torch.from_numpy((lam if sig is None else sig).copy()).to(dev),
-            torch.from_numpy(margin_tables(tune)).to(dev))
+            torch.from_numpy(margin_tables(tune, scale)).to(dev))
     return got
 
 

@@ -283,6 +283,16 @@ def p_frame_slots(out: dict, slice_qp: int = None, qp_dev=None,
            torch.empty(lead + (nr,), **i32), torch.empty(lead + (nr,), **i32),
            torch.empty(lead + (nr, nc, 4, 4), dtype=torch.bool, device=dev))
     scratch = torch.empty(lead + (nr * nc, 32), **i32)
+    if intra and hq:
+        # the full tier's slots and qp chain in one host call
+        qp_sum = torch.empty(shards, **i32)
+        _cuda.launch("cavlc", "cavlc_p_slots_i_chain_launch",
+                     [out[k] for k in shapes] + [out["mb_intra"]] + list(res)
+                     + [scratch, out["qp_map"], qp_sum, qp_dev],
+                     [nr, nc, int(slice_qp), shards], dev)
+        p_frame_slots.hq.launches += 1
+        p_frame_slots.chain.launches += 1
+        return res + (qp_sum,)
     if not intra:
         _cuda.launch("cavlc", "cavlc_p_slots_launch",
                      [out[k] for k in shapes] + list(res) + [scratch],
@@ -297,9 +307,8 @@ def p_frame_slots(out: dict, slice_qp: int = None, qp_dev=None,
         return res
     qp_sum = torch.empty(shards, **i32)
     _cuda.launch("cavlc", "cavlc_qp_chain_launch",
-                 [out["qp_map"], out.get("mb_intra"), scratch, res[2],
-                  res[3], qp_sum, qp_dev],
-                 [nr, nc, int(slice_qp), 1, shards], dev)
+                 [out["qp_map"], None, scratch, res[2], res[3], qp_sum,
+                  qp_dev], [nr, nc, int(slice_qp), 1, shards], dev)
     p_frame_slots.chain.launches += 1
     return res + (qp_sum,)
 

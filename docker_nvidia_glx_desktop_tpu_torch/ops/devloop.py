@@ -44,7 +44,11 @@ which holds their instances to ``MAX_GRAPHS`` together: a damage-masked
 session has a step per bucket it visits, and a capture past the budget
 first drops the least recently replayed free instance (an idle bucket's,
 before the active key's).  A failed capture or replay raises: no quiet
-eager or per-frame fallback.
+eager or per-frame fallback.  Every capture runs through
+:func:`graph_capture`, which holds Python's cycle collector off for its
+duration: a dead graph (one left in a reference cycle, as a dropped
+encoder's steps are) that a collection destroys mid-capture invalidates
+the capture.
 
 :func:`intra_loop`, :func:`p_loop`, :func:`cabac_intra_loop`,
 :func:`inter_loop`, :func:`deblock_loop` and :func:`cabac_p_loop` are the
@@ -73,6 +77,8 @@ counts the timing loops' replayed steps by loop.
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
 import time
 import weakref
 
@@ -123,7 +129,18 @@ def wrappers() -> dict:
             "inter_merge": h264_inter.encode_p_frame.merge,
             "cavlc_p_slots_hq": cavlc_p_device.p_frame_slots.hq,
             "cavlc_p_chain": cavlc_p_device.p_frame_slots.chain,
-            "pack_p_hq": bitmerge.pack_p_frame.hq}
+            "pack_p_hq": bitmerge.pack_p_frame.hq,
+            "intra_full": h264_device.encode_intra_frame_yuv.full,
+            "intra_full_hq": h264_device.encode_intra_frame_yuv.full.hq,
+            "intra_i16": h264_device.encode_intra_frame_yuv.i16,
+            "intra_i16_hq": h264_device.encode_intra_frame_yuv.i16.hq,
+            "intra_dc": h264_device.encode_intra_frame_yuv.dc,
+            "intra_dc_hq": h264_device.encode_intra_frame_yuv.dc.hq,
+            "inter_full": h264_inter.encode_p_frame.full,
+            "inter_full_hq": h264_inter.encode_p_frame.full.hq,
+            "inter_padded_full": h264_inter.encode_p_frame_padded_ref.full,
+            "inter_padded_full_hq":
+                h264_inter.encode_p_frame_padded_ref.full.hq}
 
 
 def reset_counts() -> None:
@@ -242,6 +259,22 @@ def chunk_body(frames, ref_y, ref_cb, ref_cr, hv, hl, rows, qp: int, *,
     return ChunkOut(flats, ys, (ry, rcb, rcr), mvs, lvs)
 
 
+@contextlib.contextmanager
+def graph_capture(g):
+    """``torch.cuda.graph(g)`` with the cycle collector off until the
+    capture ends: destroying a CUDA graph while a stream captures is not
+    permitted, and a collection that frees a dead one (held only by a
+    reference cycle) would invalidate this capture."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(g):
+            yield
+    finally:
+        if was_on:
+            gc.enable()
+
+
 def capture_graph(device, run):
     """Capture ``run()`` (a body of the kernel wrappers on static device
     tensors) into a CUDA graph on ``device``: one uncaptured warm-up on a
@@ -264,7 +297,7 @@ def capture_graph(device, run):
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with graph_capture(g):
         out = run()
     pool_bytes = torch.cuda.memory_reserved(device) - reserved
     nodes = {n: fn.launches - before[n] for n, fn in named.items()
@@ -700,35 +733,26 @@ def _run_loop(name: str, static: tuple, body, inputs, refs, steps: int,
     return value
 
 
-def _check_i16_modes(i16_modes: str) -> None:
-    if i16_modes != "auto":
-        raise NotImplementedError(
-            f"i16_modes={i16_modes!r} is not ported to the PyTorch/CUDA "
-            "encoder yet (ROADMAP queue 1 item 17)")
-
-
 def intra_loop(y, cb, cr, hv, hl, steps: int, qp: int,
                i16_modes: str = "auto", *, eager: bool = False,
                full: bool = False):
     """Row 17a: ``steps`` intra CAVLC frame encodes (K17p, K1, K2, K3,
     K17c a step) of the perturbed planes; returns the uint32 sum of each
     step's flat byte ``META_WORDS * 4`` (the reference's checksum).
-    ``eager`` runs the kernels without the graph (on the card, the
-    replay's reference)."""
+    ``i16_modes``: K1's mode set.  ``eager`` runs the kernels without the
+    graph (on the card, the replay's reference)."""
     from . import cavlc_device, h264_device
     from .bitmerge import META_WORDS
 
-    _check_i16_modes(i16_modes)
-
     def body(i_dev, acc, src, dst):
         lv = h264_device.encode_intra_frame_yuv(*perturb(y, cb, cr, i_dev),
-                                                qp)
+                                                qp, i16_modes=i16_modes)
         flat = cavlc_device.encode_levels(lv, hv, hl, qp)
         tick(acc, flat, META_WORDS * 4, i_dev)
         return flat
 
-    return _run_loop("intra", (qp,), body, (y, cb, cr, hv, hl), (), steps,
-                     eager, full)
+    return _run_loop("intra", (qp, i16_modes), body, (y, cb, cr, hv, hl), (),
+                     steps, eager, full)
 
 
 def p_loop(y, cb, cr, ref_y, ref_cb, ref_cr, hv, hl, steps: int, qp: int,
@@ -761,14 +785,13 @@ def cabac_intra_loop(y, cb, cr, steps: int, qp: int, i16_modes: str = "auto",
                      full: bool = False):
     """Row 17c: ``steps`` CABAC device stages of an intra frame (K17p, K1,
     then K10 ``pack_levels`` or, with ``binarize``, K11i, and K17c); the
-    checksum sums each transport's word 2 (its payload words)."""
+    checksum sums each transport's word 2 (its payload words);
+    ``i16_modes``: K1's mode set."""
     from . import cabac_binarize, h264_device, level_pack
-
-    _check_i16_modes(i16_modes)
 
     def body(i_dev, acc, src, dst):
         lv = h264_device.encode_intra_frame_yuv(*perturb(y, cb, cr, i_dev),
-                                                qp)
+                                                qp, i16_modes=i16_modes)
         if binarize:
             buf = cabac_binarize.binarize_intra(
                 lv["luma_dc"], lv["luma_ac"], lv["cb_dc"], lv["cb_ac"],
@@ -779,8 +802,8 @@ def cabac_intra_loop(y, cb, cr, steps: int, qp: int, i16_modes: str = "auto",
         tick(acc, buf, 2, i_dev)
         return buf
 
-    return _run_loop("cabac_intra", (qp, bool(binarize)), body, (y, cb, cr),
-                     (), steps, eager, full)
+    return _run_loop("cabac_intra", (qp, i16_modes, bool(binarize)), body,
+                     (y, cb, cr), (), steps, eager, full)
 
 
 def inter_loop(y, cb, cr, ref_y, ref_cb, ref_cr, steps: int, qp: int,
@@ -789,22 +812,18 @@ def inter_loop(y, cb, cr, ref_y, ref_cb, ref_cr, steps: int, qp: int,
     """Row 17d: ``steps`` P cores alone (K17p, K5, K17c), the recon
     chained as the next reference; the checksum sums each step's luma
     level ``[0, 0, 0, 0]`` (MB (0, 0), 4x4 block 0, coefficient 0) as
-    uint32.  ``refine="full"`` (the reference's round-5 re-rank) raises,
-    as the P core does."""
+    uint32.  ``refine="full"``: the reference's round-5 refinement (every
+    luma line in the re-rank and subpel stages)."""
     from . import h264_inter
-
-    if refine != "alt":
-        raise NotImplementedError(
-            f"refine={refine!r} is not ported to the PyTorch/CUDA encoder "
-            "yet (ROADMAP queue 1 item 17)")
 
     def body(i_dev, acc, src, dst):
         out = h264_inter.encode_p_frame(*perturb(y, cb, cr, i_dev), *src, qp,
+                                        refine=refine,
                                         out=dict(zip(_RECON, dst)))
         tick(acc, out["luma"], 0, i_dev)
         return out["luma"]
 
-    return _run_loop("inter", (qp,), body, (y, cb, cr),
+    return _run_loop("inter", (qp, refine), body, (y, cb, cr),
                      (ref_y, ref_cb, ref_cr), steps, eager, full)
 
 

@@ -1,14 +1,17 @@
 """H.264 intra core (K1): I-slice transform/quant/recon of one frame.
 
 Replaces the reference's ``ops/h264_device.py`` ``encode_intra_frame_yuv``
-(``i16_modes="auto"``; ``tune`` "off", "hq_noaq" and "hq").  Each
+(``i16_modes`` "auto", "full", "i16" and "dc"; ``tune`` "off",
+"hq_noaq" and "hq").  Each
 macroblock row is its own slice, so intra prediction only references the
 MB to the left: the rows are independent and the left MB's reconstructed
 right column is the carry along a row.  Per MB the core codes I16x16 DC
 and Horizontal, the I4x4 fast mode sets (row 0 of blocks: H / HU /
 DC-left, sequential along x; rows 1-3: V / DDL / VL, the four blocks of a
-row in parallel), picks by estimated CAVLC bits (``_level_bits_est``; I4
-pays a 44-bit signalling bias), and codes chroma with DC prediction.
+row in parallel; under ``i16_modes="full"`` rows 1-3 take all nine
+modes, block by block), picks by estimated CAVLC bits
+(``_level_bits_est``; I4 pays a 44-bit signalling bias), and codes chroma
+with DC prediction.  "i16" drops the I4 candidate, "dc" also I16 H.
 Under tune=hq every choice minimises the Lagrangian ``SSD + lam * bits``
 in float32 instead, in the reference's order of operations (its
 multiply-adds are fused, as XLA's CPU backend contracts them); full
@@ -138,24 +141,26 @@ def _ssd(recon, src, dims):
     return (d * d).sum(dim=dims, dtype=torch.int32)
 
 
-def _luma_step(ymb, left_col, has_left, qp, lam=None):
+def _luma_step(ymb, left_col, has_left, qp, lam=None, allow_h=True):
     """I16 DC and Horizontal for one MB column across all rows; keeps H
     only where it has a left MB and strictly fewer estimated bits, or
-    (``lam``, tune=hq: float32 (R,)) a strictly lower SSD + lam * bits."""
+    (``lam``, tune=hq: float32 (R,)) a strictly lower SSD + lam * bits.
+    Without ``allow_h`` (``i16_modes="dc"``) DC alone."""
     psum = (left_col.sum(dim=-1, dtype=torch.int32) + 8) >> 4
     pred_dc = (psum if has_left else torch.full_like(psum, 128))
     pred_dc = pred_dc[:, None, None].expand(ymb.shape)
     ac, dcl, recon, bits = _i16_candidate(ymb, pred_dc, qp)
+    if lam is not None:
+        bits = fma32(lam, bits.float(), _ssd(recon, ymb, (1, 2)).float())
+    if not allow_h:
+        mode = torch.full(bits.shape, 2, dtype=torch.int32, device=bits.device)
+        return ac, dcl, recon, mode, bits
     pred_h = left_col[:, :, None].expand(ymb.shape)
     ac_h, dcl_h, recon_h, bits_h = _i16_candidate(ymb, pred_h, qp)
     if lam is not None:
-        score = fma32(lam, bits.float(), _ssd(recon, ymb, (1, 2)).float())
-        score_h = fma32(lam, bits_h.float(),
-                        _ssd(recon_h, ymb, (1, 2)).float())
-        use_h = (score_h < score) & has_left
-        bits, bits_h = score, score_h
-    else:
-        use_h = (bits_h < bits) & has_left
+        bits_h = fma32(lam, bits_h.float(),
+                       _ssd(recon_h, ymb, (1, 2)).float())
+    use_h = (bits_h < bits) & has_left
     score = torch.where(use_h, bits_h, bits)
     sel = lambda a, b: torch.where(
         use_h.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
@@ -216,70 +221,111 @@ def _vert_preds(p8):
     return _grid(lambda y, x: p[x]), _grid(ddl), _grid(vl)
 
 
+def _diag_preds(t8, l4, tl):
+    """The both-neighbour diagonal modes (DDR, VR, HD) from top t8 (...,
+    8), left l4 (..., 4) and top-left tl (...,), spec 8.3.1.2.4-6."""
+    t, l_ = t8.unbind(-1), l4.unbind(-1)
+
+    def tt(i):                       # index -1: the top-left sample
+        return tl if i < 0 else t[i]
+
+    def ll(i):
+        return tl if i < 0 else l_[i]
+
+    def ddr(y, x):
+        d = x - y
+        if d > 0:
+            return (tt(d - 2) + 2 * tt(d - 1) + tt(d) + 2) >> 2
+        if d < 0:
+            return (ll(-d - 2) + 2 * ll(-d - 1) + ll(-d) + 2) >> 2
+        return (t[0] + 2 * tl + l_[0] + 2) >> 2
+
+    def vr(y, x):
+        z = 2 * x - y
+        if z >= 0:
+            i = x - (y >> 1)
+            if z % 2 == 0:
+                return (tt(i - 1) + tt(i) + 1) >> 1
+            return (tt(i - 2) + 2 * tt(i - 1) + tt(i) + 2) >> 2
+        if z == -1:
+            return (l_[0] + 2 * tl + t[0] + 2) >> 2
+        return (ll(y - 2 * x - 1) + 2 * ll(y - 2 * x - 2)
+                + ll(y - 2 * x - 3) + 2) >> 2
+
+    def hd(y, x):
+        z = 2 * y - x
+        if z >= 0:
+            i = y - (x >> 1)
+            if z % 2 == 0:
+                return (ll(i - 1) + ll(i) + 1) >> 1
+            return (ll(i - 2) + 2 * ll(i - 1) + ll(i) + 2) >> 2
+        if z == -1:
+            return (l_[0] + 2 * tl + t[0] + 2) >> 2
+        return (tt(x - 2 * y - 1) + 2 * tt(x - 2 * y - 2)
+                + tt(x - 2 * y - 3) + 2) >> 2
+
+    return _grid(ddr), _grid(vr), _grid(hd)
+
+
 def _i4_code_block(blk, preds, modes, legal, qp, lam=None):
     """Code every candidate, keep the cheapest by estimated bits (first on
     ties), or (``lam``, tune=hq) by SSD + lam * bits, where an illegal
-    candidate scores +inf.  Returns (mode, levels_zz (..., 16), recon
-    (..., 4, 4), bits or score)."""
-    zz = torch.as_tensor(ZIGZAG4, dtype=torch.long, device=blk.device)
+    candidate scores +inf.  The candidates run stacked on a leading axis
+    (one pass of tensor ops for all of them).  Returns (mode, levels_zz
+    (..., 16), recon (..., 4, 4), bits or score)."""
+    dev = blk.device
+    zz = torch.as_tensor(ZIGZAG4, dtype=torch.long, device=dev)
+    p = torch.stack(torch.broadcast_tensors(*preds))          # (K, ..., 4, 4)
+    batch = p.shape[1:-2]
+    ok = torch.stack([torch.ones(batch, dtype=torch.bool, device=dev)
+                      if lg is True else lg.expand(batch) for lg in legal])
+    # a per-MB qp (or lambda) over the candidates' axis too
+    qk = qp if not isinstance(qp, torch.Tensor) else \
+        qp.reshape((1,) + qp.shape + (1,) * (blk.dim() - 2 - qp.dim()))
+    lv = quant.h264_quantize_4x4(_fwd4x4(blk - p), qk, intra=True)
+    pick = lambda t, k: torch.take_along_dim(            # noqa: E731
+        t, k.reshape((1,) + k.shape + (1,) * (t.dim() - 1 - k.dim())),
+        dim=0)[0]
     if lam is not None:
-        qb = qp if not isinstance(qp, torch.Tensor) else \
-            qp.reshape(qp.shape + (1,) * (blk.dim() - 2 - qp.dim()))
-        lam_b = lam.reshape(lam.shape + (1,) * (blk.dim() - 2 - lam.dim()))
-        cands = []
-        for p, lg in zip(preds, legal):
-            lv = quant.h264_quantize_4x4(_fwd4x4(blk - p), qb, intra=True)
-            rec = torch.clamp(
-                p + _inv4x4(quant.h264_dequantize_4x4(lv, qb)), 0, 255)
-            c = fma32(lam_b, _level_bits_est(lv, (-2, -1)).float(),
-                      _ssd(rec, blk, (-2, -1)).float())
-            if lg is not True:
-                c = torch.where(lg, c, torch.full_like(c, float("inf")))
-            cands.append((lv, rec, c))
-        c = torch.stack([cd[2] for cd in cands])
+        lam_k = lam.reshape((1,) + lam.shape
+                            + (1,) * (blk.dim() - 2 - lam.dim()))
+        rec = torch.clamp(
+            p + _inv4x4(quant.h264_dequantize_4x4(lv, qk)), 0, 255)
+        c = fma32(lam_k, _level_bits_est(lv, (-2, -1)).float(),
+                  _ssd(rec, blk, (-2, -1)).float())
+        c = torch.where(ok, c, torch.full_like(c, float("inf")))
         k = torch.argmin(c, dim=0)
         score = c.min(dim=0).values
-        lv, rec = cands[0][0], cands[0][1]
-        for i in range(1, len(cands)):
-            m = (k == i)[..., None, None]
-            lv = torch.where(m, cands[i][0], lv)
-            rec = torch.where(m, cands[i][1], rec)
-        mode = torch.as_tensor(modes, dtype=torch.int32, device=blk.device)[k]
+        lv, rec = pick(lv, k), pick(rec, k)
+        mode = torch.as_tensor(modes, dtype=torch.int32, device=dev)[k]
         return mode, lv.reshape(lv.shape[:-2] + (16,))[..., zz], rec, score
-    cands = []
-    for p, lg in zip(preds, legal):
-        lv = quant.h264_quantize_4x4(_fwd4x4(blk - p), qp, intra=True)
-        b = _level_bits_est(lv, (-2, -1))
-        if lg is not True:
-            b = torch.where(lg, b, torch.full_like(b, 1 << 30))
-        cands.append((lv, p, b))
-    b = torch.stack([c[2] for c in cands])
+    b = _level_bits_est(lv, (-2, -1))
+    b = torch.where(ok, b, torch.full_like(b, 1 << 30))
     k = torch.argmin(b, dim=0)
     bits = b.min(dim=0).values
-    lv, pred = cands[0][0], cands[0][1]
-    for i in range(1, len(cands)):
-        m = (k == i)[..., None, None]
-        lv = torch.where(m, cands[i][0], lv)
-        pred = torch.where(m, cands[i][1], pred)
-    mode = torch.as_tensor(modes, dtype=torch.int32, device=blk.device)[k]
+    lv, pred = pick(lv, k), pick(p, k)
+    mode = torch.as_tensor(modes, dtype=torch.int32, device=dev)[k]
     rec = torch.clamp(pred + _inv4x4(quant.h264_dequantize_4x4(lv, qp)),
                       0, 255)
     lvz = lv.reshape(lv.shape[:-2] + (16,))[..., zz]
     return mode, lvz, rec, bits
 
 
-def _luma_step_i4(ymb, left_col, has_left, qp, lam=None):
-    """I4x4 candidate for one MB column across all rows: (levels (R, 16
-    blkIdx, 16 zigzag), modes (R, 16 blkIdx), recon (R, 16, 16), bits;
-    under tune=hq the float32 score, summed in the reference's order)."""
-    nr = ymb.shape[0]
-    dev = ymb.device
-    rec = torch.zeros_like(ymb)
-    raster_mode, raster_lvz = {}, {}
-    bits_total = torch.zeros((nr,), dtype=torch.int32 if lam is None
-                             else torch.float32, device=dev)
+def _acc_score(total, score, lam):
+    """Add a block's bits (score under tune=hq) to the MB's, clamped as
+    the reference clamps an illegal candidate's sentinel."""
+    return total + torch.clamp(score, max=(1 << 24) if lam is None else 1e18)
+
+
+def _i4_row0(ymb, left_col, has_left, qp, lam, rec, raster_mode, raster_lvz,
+             bits_total):
+    """Block row 0 (the top of the slice, nothing above): four blocks in
+    order along x with the left family {H, HU, DC (left)}, shared by the
+    fast and full I4 sets.  Writes ``rec`` and the raster dicts; returns
+    the MB's bits (score) so far."""
+    nr, dev = ymb.shape[0], ymb.device
     avail_left = torch.full((nr,), bool(has_left), device=dev)
-    for bx in range(4):                        # block row 0: left family
+    for bx in range(4):
         blk = ymb[:, 0:4, bx * 4:bx * 4 + 4]
         if bx == 0:
             left4, avail = left_col[:, 0:4], avail_left
@@ -296,8 +342,34 @@ def _luma_step_i4(ymb, left_col, has_left, qp, lam=None):
         rec[:, 0:4, bx * 4:bx * 4 + 4] = rb
         raster_mode[(0, bx)] = mode
         raster_lvz[(0, bx)] = lvz
-        bits_total = bits_total + torch.clamp(
-            bits, max=(1 << 24) if lam is None else 1e18)
+        bits_total = _acc_score(bits_total, bits, lam)
+    return bits_total
+
+
+def _i4_stack(raster_mode, raster_lvz):
+    """Raster dicts -> (levels (R, 16 blkIdx, 16), modes (R, 16 blkIdx))."""
+    modes = torch.stack([raster_mode[(by, bx)]
+                         for (bx, by) in LUMA_BLOCK_ORDER], dim=1)
+    levels = torch.stack([raster_lvz[(by, bx)]
+                          for (bx, by) in LUMA_BLOCK_ORDER], dim=1)
+    return levels, modes
+
+
+def _i4_start(ymb, lam):
+    return (torch.zeros_like(ymb), {}, {},
+            torch.zeros((ymb.shape[0],), dtype=torch.int32 if lam is None
+                        else torch.float32, device=ymb.device))
+
+
+def _luma_step_i4(ymb, left_col, has_left, qp, lam=None):
+    """I4x4 candidate for one MB column across all rows: (levels (R, 16
+    blkIdx, 16 zigzag), modes (R, 16 blkIdx), recon (R, 16, 16), bits;
+    under tune=hq the float32 score, summed in the reference's order)."""
+    nr = ymb.shape[0]
+    dev = ymb.device
+    rec, raster_mode, raster_lvz, bits_total = _i4_start(ymb, lam)
+    bits_total = _i4_row0(ymb, left_col, has_left, qp, lam, rec, raster_mode,
+                          raster_lvz, bits_total)
     for by in range(1, 4):                     # rows 1-3: vertical family
         blks = ymb[:, by * 4:by * 4 + 4, :].reshape(nr, 4, 4, 4)
         blks = blks.permute(0, 2, 1, 3)                      # (R, bx, y, x)
@@ -318,19 +390,72 @@ def _luma_step_i4(ymb, left_col, has_left, qp, lam=None):
         else:       # XLA reduces the four scores in order
             bits_total = bits_total + (((bits[:, 0] + bits[:, 1])
                                         + bits[:, 2]) + bits[:, 3])
-    modes = torch.stack([raster_mode[(by, bx)]
-                         for (bx, by) in LUMA_BLOCK_ORDER], dim=1)
-    levels = torch.stack([raster_lvz[(by, bx)]
-                          for (bx, by) in LUMA_BLOCK_ORDER], dim=1)
+    levels, modes = _i4_stack(raster_mode, raster_lvz)
+    return levels, modes, rec, bits_total
+
+
+# i16_modes="full": block rows 1-3 choose among all nine modes, in the
+# reference's candidate order (the first minimum in THIS order wins)
+FULL_I4_MODES = (0, 3, 7, 2, 1, 8, 4, 5, 6)   # V DDL VL DC H HU DDR VR HD
+
+
+def _luma_step_i4_full(ymb, left_col, has_left, qp, lam=None):
+    """I4x4 with the nine-mode set on block rows 1-3 (``i16_modes=
+    "full"``): H, HU, DDR, VR, HD and two-sided DC read the left block's
+    reconstruction, so those rows run block by block along x (16 steps
+    an MB against the fast set's 7).  Same contract as
+    :func:`_luma_step_i4`; under hq the score is summed a block at a
+    time in block order."""
+    nr, dev = ymb.shape[0], ymb.device
+    rec, raster_mode, raster_lvz, bits_total = _i4_start(ymb, lam)
+    bits_total = _i4_row0(ymb, left_col, has_left, qp, lam, rec, raster_mode,
+                          raster_lvz, bits_total)
+    avail_left = torch.full((nr,), bool(has_left), device=dev)
+    for by in range(1, 4):
+        y0 = by * 4
+        for bx in range(4):
+            blk = ymb[:, y0:y0 + 4, bx * 4:bx * 4 + 4]
+            trow = rec[:, y0 - 1, bx * 4:bx * 4 + 4]
+            tr = (rec[:, y0 - 1, bx * 4 + 4:bx * 4 + 8]
+                  if bx < 3 and _TR_AVAIL[by, bx]
+                  else trow[:, 3:4].expand(nr, 4))
+            t8 = torch.cat([trow, tr], dim=1)                   # (R, 8)
+            if bx == 0:
+                l4, tl, avail = left_col[:, y0:y0 + 4], left_col[:, y0 - 1], \
+                    avail_left
+            else:
+                l4, tl = rec[:, y0:y0 + 4, bx * 4 - 1], rec[:, y0 - 1, bx * 4 - 1]
+                avail = torch.ones((nr,), dtype=torch.bool, device=dev)
+            top = t8[:, :4].sum(dim=1, dtype=torch.int32)
+            # DC: top and left where the left is available, else top only
+            dc = torch.where(avail,
+                             (top + l4.sum(dim=1, dtype=torch.int32) + 4) >> 3,
+                             (top + 2) >> 2)
+            preds = (list(_vert_preds(t8))
+                     + [dc[:, None, None].expand(nr, 4, 4),
+                        l4[:, :, None].expand(nr, 4, 4), _hu_pred(l4)]
+                     + list(_diag_preds(t8, l4, tl)))
+            mode, lvz, rb, bits = _i4_code_block(
+                blk, preds, list(FULL_I4_MODES), [True] * 4 + [avail] * 5, qp,
+                lam)
+            rec[:, y0:y0 + 4, bx * 4:bx * 4 + 4] = rb
+            raster_mode[(by, bx)] = mode
+            raster_lvz[(by, bx)] = lvz
+            bits_total = _acc_score(bits_total, bits, lam)
+    levels, modes = _i4_stack(raster_mode, raster_lvz)
     return levels, modes, rec, bits_total
 
 
 def encode_intra_frame_yuv_plain(y: torch.Tensor, cb: torch.Tensor,
                                  cr: torch.Tensor, qp: int,
-                                 tune: str = "off", qp_map=None) -> dict:
+                                 tune: str = "off", qp_map=None,
+                                 i16_modes: str = "auto") -> dict:
     """Plain PyTorch version of K1: a loop over MB columns, vectorized
     over MB rows.  Same contract as :func:`encode_intra_frame_yuv`, with
     the full tier's ``qp_map`` given."""
+    _check_modes(i16_modes)
+    allow_i4 = i16_modes in ("auto", "full")
+    i4_step = _luma_step_i4_full if i16_modes == "full" else _luma_step_i4
     y = y.to(torch.int32)
     cb = cb.to(torch.int32)
     cr = cr.to(torch.int32)
@@ -362,17 +487,22 @@ def encode_intra_frame_yuv_plain(y: torch.Tensor, cb: torch.Tensor,
         qp_s, qc_s = qp, qp_c
         if tune == "hq":
             qp_s, qc_s, lam = qp_map[:, c].to(dev), qc_map[:, c], lam_map[:, c]
-        y_ac, y_dc, y_rec, y_mode, bits16 = _luma_step(ymb, yl, has_left,
-                                                       qp_s, lam)
-        lv4, modes4, rec4, bits4 = _luma_step_i4(ymb, yl, has_left, qp_s,
-                                                 lam)
-        if lam is None:
-            use4 = bits4 + I4_SIG_BITS < bits16
-        elif sig is None:
-            use4 = fma32(lam, torch.tensor(float(I4_SIG_BITS)), bits4) < bits16
-        else:
-            use4 = bits4 + sig < bits16
-        y_rec = torch.where(use4[:, None, None], rec4, y_rec)
+        y_ac, y_dc, y_rec, y_mode, bits16 = _luma_step(
+            ymb, yl, has_left, qp_s, lam, allow_h=i16_modes != "dc")
+        if allow_i4:
+            lv4, modes4, rec4, bits4 = i4_step(ymb, yl, has_left, qp_s, lam)
+            if lam is None:
+                use4 = bits4 + I4_SIG_BITS < bits16
+            elif sig is None:
+                use4 = fma32(lam, torch.tensor(float(I4_SIG_BITS)),
+                             bits4) < bits16
+            else:
+                use4 = bits4 + sig < bits16
+            y_rec = torch.where(use4[:, None, None], rec4, y_rec)
+        else:                   # "i16" / "dc": no I4 candidate
+            lv4 = torch.zeros((nr, 16, 16), dtype=torch.int32, device=dev)
+            modes4 = torch.full((nr, 16), 2, dtype=torch.int32, device=dev)
+            use4 = torch.zeros((nr,), dtype=torch.bool, device=dev)
         cb_ac, cb_dc, cb_rec = _chroma_step(cbmbs[c], cbl, has_left, qc_s)
         cr_ac, cr_dc, cr_rec = _chroma_step(crmbs[c], crl, has_left, qc_s)
         yl, cbl, crl = y_rec[:, :, 15], cb_rec[:, :, 7], cr_rec[:, :, 7]
@@ -412,6 +542,16 @@ def encode_intra_frame_yuv_plain(y: torch.Tensor, cb: torch.Tensor,
     return out
 
 
+# the reference's intra mode sets (``ENCODER_INTRA_MODES``), in the order
+# of the kernel's MODES template argument
+I16_MODES = ("auto", "full", "i16", "dc")
+
+
+def _check_modes(i16_modes: str) -> None:
+    if i16_modes not in I16_MODES:
+        raise ValueError(f"unknown i16_modes {i16_modes!r}")
+
+
 def _check_planes(y, cb, cr, sessions: bool = False) -> int:
     """Check MB-padded uint8 4:2:0 planes, (H, W) or, where ``sessions``,
     also (S, H, W) stacks; returns S (0 for unstacked planes)."""
@@ -443,7 +583,7 @@ def stack_sessions(results):
 
 def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
                            cr: torch.Tensor, qp: int, tune: str = "off",
-                           next_y=None) -> dict:
+                           next_y=None, i16_modes: str = "auto") -> dict:
     """YUV 4:2:0 uint8 planes (padded to MB multiples) -> level tensors,
     modes and recon planes (the reference's output dict).
 
@@ -451,6 +591,11 @@ def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
     the slice qp) or "hq" (those at each MB's qp from the qp plane, K14,
     biased by the next frame's luma ``next_y`` where given; the plane is
     the output's ``qp_map``).
+
+    ``i16_modes`` (``ENCODER_INTRA_MODES``): "auto", I16 DC/H and the I4
+    fast sets; "full", the same with all nine I4 modes on block rows 1-3;
+    "i16", I16 DC/H only; "dc", I16 DC only (the native CAVLC coder's
+    set).  Each is a compile-time form of the chain pass, at every tier.
 
     Planes stacked (S, H, W) code S sessions' frames in one launch (tune
     "off"): every output gains the leading session axis.
@@ -468,14 +613,17 @@ def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
         raise ValueError(f"qp {qp} outside 0..51")
     if tune not in aq.TIERS:
         raise ValueError(f"unknown tune {tune!r}")
+    _check_modes(i16_modes)
     if ns and tune != "off":
         raise ValueError("stacked sessions take tune='off'")
     qp_map = aq.qp_plane(y, qp, next_y) if tune == "hq" else None
     if y.device.type == "cpu":
         if ns:
             return stack_sessions([encode_intra_frame_yuv_plain(
-                y[i], cb[i], cr[i], int(qp)) for i in range(ns)])
-        return encode_intra_frame_yuv_plain(y, cb, cr, int(qp), tune, qp_map)
+                y[i], cb[i], cr[i], int(qp), i16_modes=i16_modes)
+                for i in range(ns)])
+        return encode_intra_frame_yuv_plain(y, cb, cr, int(qp), tune, qp_map,
+                                            i16_modes)
     pad_h, pad_w = y.shape[-2:]
     nr, nc = pad_h // 16, pad_w // 16
     dev = y.device
@@ -500,19 +648,23 @@ def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
     # the pre-pass's words per MB, read back by the chain pass
     scratch = torch.empty(((ns or 1) * nr * nc, PRE_WORDS),
                           dtype=torch.int32, device=dev)
-    ints = [nr, nc, int(qp), quant.chroma_qp(int(qp))]
+    ints = [nr, nc, int(qp), quant.chroma_qp(int(qp)),
+            I16_MODES.index(i16_modes)]
+    # each mode set counts on its own counter (tier 0) and its .hq
+    counter = (encode_intra_frame_yuv if i16_modes == "auto"
+               else getattr(encode_intra_frame_yuv, i16_modes))
     if tune == "off":
         _cuda.launch("intra", "intra_frame_launch",
                      [y, cb, cr] + [out[k] for k in keys] + [scratch],
                      ints + [ns or 1], dev)
-        encode_intra_frame_yuv.launches += 1
+        counter.launches += 1
         return out
     lam, sig, _ = aq.device_tables(tune, dev)
     _cuda.launch("intra", "intra_frame_hq_launch",
                  [y, cb, cr] + [out[k] for k in keys]
                  + [scratch, qp_map, lam, sig],
                  ints + [aq.TIERS.index(tune)], dev)
-    encode_intra_frame_yuv.hq.launches += 1
+    counter.hq.launches += 1
     if qp_map is not None:
         out["qp_map"] = qp_map
     return out
@@ -520,6 +672,10 @@ def encode_intra_frame_yuv(y: torch.Tensor, cb: torch.Tensor,
 
 encode_intra_frame_yuv.launches = 0
 encode_intra_frame_yuv.hq = _cuda.Counter()     # the tune=hq forms
+for _m in I16_MODES[1:]:        # "full", "i16", "dc": tier 0, and .hq
+    setattr(encode_intra_frame_yuv, _m, _cuda.Counter())
+    getattr(encode_intra_frame_yuv, _m).hq = _cuda.Counter()
+del _m
 
 
 def encode_intra_frame(rgb: torch.Tensor, pad_h: int, pad_w: int,

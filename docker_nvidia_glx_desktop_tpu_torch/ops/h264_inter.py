@@ -2,9 +2,10 @@
 residual transform/quant and the closed-loop reconstruction of one frame.
 
 Replaces the reference's ``ops/h264_inter.py`` ``encode_p_frame`` /
-``encode_p_frame_padded_ref`` for ``refine="alt"``, every ``tune`` tier
-and ``p_intra``.  Each MB row is its own slice, so the MV predictor is
-the left MB's MV and motion search has no cross-MB dependency.  Per MB:
+``encode_p_frame_padded_ref`` for ``refine`` "alt" and "full", every
+``tune`` tier and ``p_intra``.  Each MB row is its own slice, so the MV
+predictor is the left MB's MV and motion search has no cross-MB
+dependency.  Per MB:
 
 - coarse integer search: the 81 shifts of a step-2 grid over +-SEARCH_R
   (dy outer, dx inner), SAD over the even luma lines, ZERO_MV_BIAS/2
@@ -15,6 +16,9 @@ the left MB's MV and motion search has no cross-MB dependency.  Per MB:
   when ``min + HALF_BIAS/2 < current``; then quarter-pel refinement from
   rounded averages of full/half samples (``QPEL``), kept only when
   ``min + QUARTER_BIAS/2 < current`` — both on even lines;
+  ``refine="full"`` (the reference's round-5 refinement, which the bench
+  times) scores the +-1, half- and quarter-pel stages on every line with
+  the full biases (128 / 96 / 64, or the full-line lambda margins);
 - the luma prediction at the final quarter-pel MV, chroma by the 1/8-pel
   bilinear filter, 16 inter 4x4 luma blocks (no DC Hadamard), chroma
   with the 2x2 DC Hadamard, inter rounding (f = 2^qbits / 6);
@@ -63,9 +67,17 @@ HALF_BIAS = 96        # half-pel refine must beat integer by this margin
 QUARTER_BIAS = 64     # quarter-pel refine margin over the half-pel best
 _PAD = SEARCH_R + 5   # MV range + 6-tap reach + quarter-pel +1 neighbor
 
-# The refinement stages score every other luma line (refine="alt"), so
-# their SADs and biases are on half scale.
-_SCALE = 2
+# The refinement stages score every other luma line under refine="alt"
+# (the default), so their SADs and biases are on half scale; "full" (the
+# reference's round-5 refinement) scores every line at full biases.  The
+# coarse stage is on even lines either way.
+REFINES = {"alt": 2, "full": 1}
+
+
+def _refine_scale(refine: str) -> int:
+    if refine not in REFINES:
+        raise ValueError(f"unknown refine {refine!r}")
+    return REFINES[refine]
 
 # tune=hq rate model (bits): the header bits a forced skip removes, and
 # the I16-in-P header (mb_type ue + chroma mode + qp delta)
@@ -158,12 +170,12 @@ def _padded_refs(ref_y, ref_cb, ref_cr):
 
 def encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
                          tune: str = "off", qp_map=None,
-                         p_intra: bool = False) -> dict:
+                         p_intra: bool = False, refine: str = "alt") -> dict:
     """Plain PyTorch version of K5 (whole-frame tensor ops, the
     reference's stage order).  Same contract as :func:`encode_p_frame`,
     with the full tier's ``qp_map`` given."""
     return _p_core_plain(y, cb, cr, *_padded_refs(ref_y, ref_cb, ref_cr), qp,
-                         tune, qp_map, p_intra)
+                         tune, qp_map, p_intra, refine)
 
 
 def encode_p_frame_rows_plain(y, cb, cr, ref_y, ref_cb, ref_cr, rows,
@@ -185,7 +197,7 @@ def encode_p_frame_rows_plain(y, cb, cr, ref_y, ref_cb, ref_cr, rows,
 
 def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int,
                   tune: str = "off", qp_map=None,
-                  p_intra: bool = False) -> dict:
+                  p_intra: bool = False, refine: str = "alt") -> dict:
     """The P core over int32 references edge-padded by ``_PAD``."""
     y = y.to(torch.int32)
     cb = cb.to(torch.int32)
@@ -195,15 +207,19 @@ def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int,
     nr, nc = pad_h // 16, pad_w // 16
     qp_q, qp_c = qp, quant.chroma_qp(qp)
     lam_d = None
-    zb, hb, qb = ZERO_MV_BIAS // 2, HALF_BIAS // _SCALE, QUARTER_BIAS // _SCALE
+    # the refinement stages' line step and SAD scale ("full": every line)
+    srow = _refine_scale(refine)
+    zbc = ZERO_MV_BIAS // 2                 # the coarse stage's, always /2
+    zb, hb, qb = ZERO_MV_BIAS // srow, HALF_BIAS // srow, QUARTER_BIAS // srow
     if tune != "off":
         lam_tab = torch.as_tensor(aq.lam_tables(tune)[0], device=dev)
-        marg = torch.as_tensor(aq.margin_tables(tune), device=dev)
+        marg = torch.as_tensor(aq.margin_tables(tune, srow), device=dev)
         qi = (qp_map.to(device=dev, dtype=torch.long) if tune == "hq"
               else torch.full((nr, nc), int(qp), dtype=torch.long,
                               device=dev))
         lam_d = lam_tab[qi]
         zb, hb, qb = (marg[i][qi] for i in range(3))
+        zbc = torch.as_tensor(aq.margin_tables(tune), device=dev)[0][qi]
         if tune == "hq":
             qp_q = qp_map.to(device=dev, dtype=torch.int32)
             qp_c = quant.chroma_qp_v(qp_q)
@@ -220,14 +236,14 @@ def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int,
             dim=(1, 3), dtype=torch.int32))
     sads = torch.stack(sads)
     zero_idx = sads.shape[0] // 2
-    sads[zero_idx] -= zb
+    sads[zero_idx] -= zbc
     best, _ = _first_argmin(sads)
     mv_coarse = shifts[best]                                # (R, C, 2)
 
     full_pl = ref_pad[2:-3, 2:-3]
     planes = (full_pl,) + _halfpel_planes(ref_pad)
     cur_y = y.reshape(nr, 16, nc, 16).permute(0, 2, 1, 3)
-    cur_cmp = cur_y[:, :, 0::2, :]
+    cur_cmp = cur_y[:, :, 0::srow, :]
 
     def sad(pred):
         return (cur_cmp - pred).abs().sum(dim=(2, 3), dtype=torch.int32)
@@ -237,7 +253,7 @@ def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int,
     w18 = _windows(full_pl, rows * 16 + 10 + mv_coarse[..., 0],
                    cols * 16 + 10 + mv_coarse[..., 1], 18)
     cands = [(0, 0)] + NEIGHBORS
-    int_sads = torch.stack([sad(w18[:, :, 1 + oy:17 + oy:2, 1 + ox:17 + ox])
+    int_sads = torch.stack([sad(w18[:, :, 1 + oy:17 + oy:srow, 1 + ox:17 + ox])
                             for oy, ox in cands])
     is_zero = (mv_coarse == 0).all(dim=-1)
     int_sads[0] -= torch.where(is_zero, zb, 0).to(torch.int32)
@@ -249,7 +265,7 @@ def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int,
                   cols * 16 + 10 + mv_int[..., 1], 18) for p in planes]
 
     def wslice(p, ry, rx):
-        return w[p][:, :, 1 + ry:17 + ry:2, 1 + rx:17 + rx]
+        return w[p][:, :, 1 + ry:17 + ry:srow, 1 + rx:17 + rx]
 
     nb = torch.as_tensor(NEIGHBORS, device=dev)
     half_sads = torch.stack([
@@ -567,10 +583,7 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
     sessions' P frames in one launch (tune "off"; the session the grid's
     second axis, each session searching its own reference): every output
     gains the leading session axis."""
-    if refine != "alt":
-        raise NotImplementedError(
-            f"refine={refine!r} is not ported to the PyTorch/CUDA encoder "
-            "yet (ROADMAP queue 1 item 17)")
+    srow = _refine_scale(refine)
     if tune not in aq.TIERS:
         raise ValueError(f"unknown tune {tune!r}")
     if p_intra and tune == "off":
@@ -579,8 +592,8 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
     _check_planes(ref_y, ref_cb, ref_cr, sessions=True)
     if ref_y.shape != y.shape or ref_y.device != y.device:
         raise ValueError("reference planes must match the current frame")
-    if ns and tune != "off":
-        raise ValueError("stacked sessions take tune='off'")
+    if ns and (tune != "off" or refine != "alt"):
+        raise ValueError("stacked sessions take tune='off', refine='alt'")
     _check_qp(qp, qp_dev, y.device)
     lead = tuple(y.shape[:-2])
     nr, nc = y.shape[-2] // 16, y.shape[-1] // 16
@@ -598,27 +611,33 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
                 for i in range(ns)])
         else:
             plain = encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr,
-                                         int(qp), tune, qp_map, p_intra)
+                                         int(qp), tune, qp_map, p_intra,
+                                         refine)
         if out is None:
             return plain
         res = _out_tensors(nr, nc, y, out, keys, lead)
         return {k: res[k].copy_(plain[k]) for k in keys}
     res = _out_tensors(nr, nc, y, out, keys, lead)
-    if tune == "off":
+    if tune == "off" and srow == 2:
         _launch(y, cb, cr, ref_y, ref_cb, ref_cr, None, qp_dev, res, nr, nc,
                 nr, qp, ns or 1)
         encode_p_frame.launches += 1
         return res
     dev = y.device
-    lam, _, marg = aq.device_tables(tune, dev)
+    lam = marg = None
+    if tune != "off":
+        lam, _, marg = aq.device_tables(tune, dev, srow)
     score = (torch.empty((nr, nc), dtype=torch.float32, device=dev)
              if p_intra else None)
     tier = aq.TIERS.index(tune)
     ints = [nr, nc, int(qp), quant.chroma_qp(int(qp)), tier]
+    # refine="full": its own form of the kernel at every tier
     _cuda.launch("inter", "inter_frame_hq_launch",
                  [y, cb, cr, ref_y, ref_cb, ref_cr, qp_dev, qp_map, lam, marg]
-                 + [res[k] for k in _OUT_KEYS] + [score], ints, dev)
-    encode_p_frame.hq.launches += 1
+                 + [res[k] for k in _OUT_KEYS] + [score],
+                 ints + [int(srow == 1)], dev)
+    (encode_p_frame.hq if srow == 2 else encode_p_frame.full.hq
+     if tier else encode_p_frame.full).launches += 1
     if p_intra:
         _i16_passes(y, cb, cr, res, qp_dev, qp_map, lam, score, nr, nc,
                     ints[2:4], tier, dev)
@@ -639,18 +658,14 @@ def _i16_passes(y, cb, cr, res, qp_dev, qp_map, lam, score, nr: int,
             "cdc": torch.empty((n, 2, 4), dtype=torch.int32, device=dev),
             "ry": torch.empty((n, 256), dtype=torch.uint8, device=dev),
             "rc": torch.empty((n, 2, 64), dtype=torch.uint8, device=dev)}
-    _cuda.launch("inter", "inter_i16_launch",
-                 [y, cb, cr, res["recon_y"], res["recon_cb"],
-                  res["recon_cr"], qp_dev, qp_map, lam, score,
-                  cand["want"], res["i16_dc"], cand["ac"], cand["cac"],
-                  cand["cdc"], cand["ry"], cand["rc"]],
+    # both passes in one host call (two kernels and the gate)
+    _cuda.launch("inter", "inter_intra_launch",
+                 [y, cb, cr, qp_dev, qp_map, lam, score, cand["want"],
+                  res["i16_dc"], cand["ac"], cand["cac"], cand["cdc"],
+                  cand["ry"], cand["rc"]] + [res[k] for k in _OUT_KEYS]
+                 + [res["mb_intra"], res["i16_ac"]],
                  [nr, nc] + list(qpi) + [tier], dev)
     encode_p_frame.i16.launches += 1
-    _cuda.launch("inter", "inter_merge_launch",
-                 [cand["want"], res["i16_dc"], cand["ac"], cand["cac"],
-                  cand["cdc"], cand["ry"], cand["rc"]]
-                 + [res[k] for k in _OUT_KEYS]
-                 + [res["mb_intra"], res["i16_ac"]], [nr, nc], dev)
     encode_p_frame.merge.launches += 1
 
 
@@ -658,6 +673,8 @@ encode_p_frame.launches = 0
 encode_p_frame.hq = _cuda.Counter()      # the tune=hq form (pass 1)
 encode_p_frame.i16 = _cuda.Counter()     # I16-in-P candidates (pass 2)
 encode_p_frame.merge = _cuda.Counter()   # run-parity gate and merge (pass 3)
+encode_p_frame.full = _cuda.Counter()    # refine="full" (pass 1), tier 0
+encode_p_frame.full.hq = _cuda.Counter()  # ... tiers 1, 2
 
 def _launch(y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, res, nr, nc, nb,
             qp, ns: int = 1):
@@ -703,13 +720,14 @@ encode_p_frame_rows.launches = 0
 
 def encode_p_frame_padded_ref_plain(y, cb, cr, ref_y_pad, ref_cb_pad,
                                     ref_cr_pad, qp: int, tune: str = "off",
-                                    qp_map=None,
-                                    p_intra: bool = False) -> dict:
+                                    qp_map=None, p_intra: bool = False,
+                                    refine: str = "alt") -> dict:
     """Plain PyTorch version of K5p: the P core of one frame (H, W) over
     references padded by ``_PAD`` ((H + 26, W + 26) and the chroma's),
     with the full tier's ``qp_map`` given."""
     return _p_core_plain(y, cb, cr, *(p.to(torch.int32) for p in (
-        ref_y_pad, ref_cb_pad, ref_cr_pad)), int(qp), tune, qp_map, p_intra)
+        ref_y_pad, ref_cb_pad, ref_cr_pad)), int(qp), tune, qp_map, p_intra,
+        refine)
 
 
 def encode_p_frame_padded_ref(y, cb, cr, ref_y_pad, ref_cb_pad, ref_cr_pad,
@@ -732,10 +750,7 @@ def encode_p_frame_padded_ref(y, cb, cr, ref_y_pad, ref_cb_pad, ref_cr_pad,
     left neighbour).  CUDA tensors launch the kernel, one CUDA block per
     MB, the shard the grid's second axis; CPU tensors run the plain
     version shard by shard."""
-    if refine != "alt":
-        raise NotImplementedError(
-            f"refine={refine!r} is not ported to the PyTorch/CUDA encoder "
-            "yet (ROADMAP queue 1 item 17)")
+    srow = _refine_scale(refine)
     if tune not in aq.TIERS:
         raise ValueError(f"unknown tune {tune!r}")
     if p_intra and tune == "off":
@@ -770,7 +785,7 @@ def encode_p_frame_padded_ref(y, cb, cr, ref_y_pad, ref_cb_pad, ref_cr_pad,
             *(t[i] if ns else t for t in (y, cb, cr, ref_y_pad, ref_cb_pad,
                                          ref_cr_pad)), int(qp), tune,
             None if qp_map is None else (qp_map[i] if ns else qp_map),
-            p_intra)
+            p_intra, refine)
         if ns:
             from .h264_device import stack_sessions
             plain = stack_sessions([one(i) for i in range(ns)])
@@ -785,15 +800,17 @@ def encode_p_frame_padded_ref(y, cb, cr, ref_y_pad, ref_cb_pad, ref_cr_pad,
     lam = marg = score = None
     tier = aq.TIERS.index(tune)
     if tune != "off":
-        lam, _, marg = aq.device_tables(tune, dev)
+        lam, _, marg = aq.device_tables(tune, dev, srow)
     if p_intra:
         score = torch.empty(lead + (nr, nc), dtype=torch.float32, device=dev)
     qpi = [int(qp), quant.chroma_qp(int(qp))]
     _cuda.launch("inter", "inter_frame_padded_launch",
                  [y, cb, cr, ref_y_pad, ref_cb_pad, ref_cr_pad, qp_dev, qp_map,
                   lam, marg] + [res[k] for k in _OUT_KEYS] + [score],
-                 [nr, nc] + qpi + [tier, s], dev)
-    encode_p_frame_padded_ref.launches += 1
+                 [nr, nc] + qpi + [tier, s, int(srow == 1)], dev)
+    (encode_p_frame_padded_ref if srow == 2 else
+     encode_p_frame_padded_ref.full.hq if tier else
+     encode_p_frame_padded_ref.full).launches += 1
     if p_intra:
         _i16_passes(frame(y), frame(cb), frame(cr), res, qp_dev,
                     None if qp_map is None else qp_map.view(s * nr, nc),
@@ -804,3 +821,5 @@ def encode_p_frame_padded_ref(y, cb, cr, ref_y_pad, ref_cb_pad, ref_cr_pad,
 
 
 encode_p_frame_padded_ref.launches = 0
+encode_p_frame_padded_ref.full = _cuda.Counter()     # refine="full", tier 0
+encode_p_frame_padded_ref.full.hq = _cuda.Counter()  # ... tiers 1, 2

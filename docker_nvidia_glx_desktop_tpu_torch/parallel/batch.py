@@ -709,14 +709,17 @@ def _binarize_shards(fn, nx: int, tensors) -> torch.Tensor:
 
 
 def _spatial_intra_body(y, cb, cr, hv, hl, qp: int, nx: int, entropy: str,
-                        deblock: bool, with_recon: bool, tune: str):
-    """15f on one frame's planes: the intra core (K1) over the frame's
-    rows, then per shard the CAVLC slots and packer (K2, K3 with the
-    shard axis, ``hv``/``hl`` the shards' (nx, R/nx, 3) header slots) or
-    the record stream (K11i), and the loop filter (K8)."""
+                        deblock: bool, with_recon: bool, tune: str,
+                        i16_modes: str = "auto"):
+    """15f on one frame's planes: the intra core (K1, its mode set
+    ``i16_modes``) over the frame's rows, then per shard the CAVLC slots
+    and packer (K2, K3 with the shard axis, ``hv``/``hl`` the shards'
+    (nx, R/nx, 3) header slots) or the record stream (K11i), and the loop
+    filter (K8)."""
     from ..ops import cabac_binarize, cavlc_device, h264_deblock, h264_device
 
-    lv = h264_device.encode_intra_frame_yuv(y, cb, cr, qp, tune=tune)
+    lv = h264_device.encode_intra_frame_yuv(y, cb, cr, qp, tune=tune,
+                                            i16_modes=i16_modes)
     recon = tuple(lv[k] for k in ("recon_y", "recon_cb", "recon_cr"))
     if deblock and with_recon:
         recon = h264_deblock.deblock_frame(*recon, qp)
@@ -811,11 +814,11 @@ class SpatialIntraStep(_Step):
     launches = 0
 
     def __init__(self, mesh, frame_h, frame_w, qp, entropy, deblock,
-                 with_recon, tune):
+                 with_recon, tune, i16_modes="auto"):
         super().__init__(frame_h, frame_w, qp, mesh[0])
         self.nx = _check_spatial(mesh, frame_h, frame_w, entropy, tune,
                                  False)
-        self.entropy, self.tune = entropy, tune
+        self.entropy, self.tune, self.i16_modes = entropy, tune, i16_modes
         self.deblock, self.with_recon = bool(deblock), bool(with_recon)
 
     def _run(self, y, cb, cr, hv=None, hl=None):
@@ -829,7 +832,7 @@ class SpatialIntraStep(_Step):
             hv, hl = view(hv), view(hl)
         out = _spatial_intra_body(y, cb, cr, hv, hl, self.qp, self.nx,
                                   self.entropy, self.deblock,
-                                  self.with_recon, self.tune)
+                                  self.with_recon, self.tune, self.i16_modes)
         if dev.type == "cuda":
             SpatialIntraStep.launches += 1
         return out
@@ -888,12 +891,8 @@ def h264_spatial_intra_step(mesh, frame_h: int, frame_w: int, qp: int = 26,
     """The single-session spatial IDR step (row 15f) over the shard
     devices ``mesh`` (:func:`make_spatial_mesh`): (step, rows_local), see
     :class:`SpatialIntraStep`."""
-    if i16_modes != "auto":
-        raise NotImplementedError(
-            f"i16_modes={i16_modes!r} is not ported to the PyTorch/CUDA "
-            "encoder yet (ROADMAP queue 1 item 17)")
     step = SpatialIntraStep(mesh, frame_h, frame_w, qp, entropy, deblock,
-                            with_recon, tune)
+                            with_recon, tune, i16_modes)
     return step, step.nr // step.nx
 
 
@@ -933,7 +932,8 @@ def h264_spatial_chunk_step(mesh, frame_h: int, frame_w: int, chunk: int,
 
 def h264_spatial_intra_plain(y, cb, cr, hv, hl, qp: int, nx: int,
                              entropy: str = "cavlc", deblock: bool = False,
-                             with_recon: bool = True, tune: str = "off"):
+                             with_recon: bool = True, tune: str = "off",
+                             i16_modes: str = "auto"):
     """Plain version of 15f: the same body with every kernel's plain
     version (the planes moved to the CPU)."""
     cpu = lambda t: None if t is None else t.cpu()
@@ -941,7 +941,7 @@ def h264_spatial_intra_plain(y, cb, cr, hv, hl, qp: int, nx: int,
         *(cpu(t) for t in (y, cb, cr)),
         None if hv is None else cpu(hv).view(nx, -1, 3),
         None if hl is None else cpu(hl).view(nx, -1, 3), int(qp), nx,
-        entropy, deblock, with_recon, tune)
+        entropy, deblock, with_recon, tune, i16_modes)
 
 
 def h264_spatial_p_plain(y, cb, cr, ref_y, ref_cb, ref_cr, hv, hl, qp: int,

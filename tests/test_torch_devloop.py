@@ -144,12 +144,14 @@ def test_deblock_loop_final_planes_equal_the_reference_chain(data):
 
 def test_zero_steps_and_the_unported_options(data):
     assert int(t_loop.intra_loop(*data["t"], *data["t_i"], 0, QP)) == 0
-    with pytest.raises(NotImplementedError, match="item 17"):
-        t_loop.inter_loop(*data["t"], *data["tr"], 1, QP, refine="full")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        t_loop.intra_loop(*data["t"], *data["t_i"], 1, QP, i16_modes="full")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        t_loop.cabac_intra_loop(*data["t"], 1, QP, i16_modes="dc")
+    # the options serve now (tests/test_torch_intra_modes.py holds their
+    # checksums against the reference's loops); unknown values raise
+    with pytest.raises(ValueError, match="unknown refine"):
+        t_loop.inter_loop(*data["t"], *data["tr"], 1, QP, refine="half")
+    with pytest.raises(ValueError, match="unknown i16_modes"):
+        t_loop.intra_loop(*data["t"], *data["t_i"], 1, QP, i16_modes="nine")
+    with pytest.raises(ValueError, match="unknown i16_modes"):
+        t_loop.cabac_intra_loop(*data["t"], 1, QP, i16_modes="i4")
     with pytest.raises(TypeError):
         t_loop.deblock_loop(*[np.asarray(p) for p in data["t"]], 1, QP)
 
@@ -233,3 +235,34 @@ def test_the_distortion_needs_cuda_unless_the_cpu_is_asked_for(monkeypatch):
         t_aq.sse_planes(a.astype(np.int32), a, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         t_aq.sse_planes(a, a[:8], device="cpu")
+
+
+@pytest.mark.parametrize("fail", [False, True], ids=["ends", "raises"])
+def test_graph_capture_holds_the_cycle_collector_off(monkeypatch, fail):
+    """A collection inside a capture that destroys a dead CUDA graph (one
+    held only by a reference cycle) invalidates the capture, so every
+    capture runs with the collector off and turns it back on afterwards,
+    also when the body raises.  ``torch.cuda.graph`` is stood in for here:
+    the capture itself needs the card."""
+    import contextlib
+    import gc
+
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(g):
+        seen.append(("enter", g, gc.isenabled()))
+        yield
+        seen.append(("exit", g, gc.isenabled()))
+
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    assert gc.isenabled()
+    graph = object()
+    with contextlib.suppress(RuntimeError):
+        with t_loop.graph_capture(graph):
+            seen.append(("body", None, gc.isenabled()))
+            if fail:
+                raise RuntimeError("a kernel failed to launch")
+    assert gc.isenabled()
+    want = [("enter", graph, False), ("body", None, False)]
+    assert seen == (want if fail else want + [("exit", graph, False)])

@@ -56,13 +56,27 @@ from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
 enc, codec = make_encoder(from_env({{"SIZEW": "64", "SIZEH": "48",
                                      "ENCODER_TUNE": "hq"}}), 64, 48,
                           device="cpu")
-full = H264Encoder(64, 48, deblock=False, tune="hq", gop=60,
+full = H264Encoder(64, 48, mode="cavlc", deblock=False, tune="hq", gop=60,
                    bitrate_kbps=300, device="cpu")
 assert (enc._ktune, full._ktune, full._p_intra) == ("hq_noaq", "hq", True)
 for e in (enc, full):
     for i in range(3):
         frame[24:40, 4 * i:4 * i + 16] = 30 + 40 * i
         assert e.encode_collect(e.encode_submit(frame)).data
+# the other intra mode sets and the host CAVLC coders (the C coder for
+# ENCODER_ENTROPY=native's IDRs at the slice qp)
+from docker_nvidia_glx_desktop_tpu_torch.native import lib
+for knobs in ({{"ENCODER_INTRA_MODES": "full"}},
+              {{"ENCODER_ENTROPY": "native", "ENCODER_BITRATE_KBPS": "0"}}):
+    e, codec = make_encoder(from_env(dict({{"SIZEW": "64", "SIZEH": "48"}},
+                                          **knobs)), 64, 48, device="cpu")
+    assert codec == "h264_cavlc"
+    keys = []
+    for i in range(3):
+        frame[8:40, 4 * i:4 * i + 16] = 60 + 50 * i
+        keys.append(e.encode_collect(e.encode_submit(frame)).keyframe)
+    assert keys == [True, False, False], keys
+assert e.i16_modes == "dc" and lib.calls["h264_encode_intra_picture"] == 1
 bad = sorted(m for m in sys.modules
              if m == "docker_nvidia_glx_desktop_tpu"
              or m.startswith("docker_nvidia_glx_desktop_tpu."))
@@ -90,7 +104,7 @@ for route in ("host", "device"):
         frame[8:24, 4 * i:4 * i + 16] = 200
         enc.encode_collect(enc.encode_submit(frame))
 # the reference's default colour path: the device conversion (K9)
-enc = H264Encoder(64, 48, gop=4, deblock=True, device="cpu")
+enc = H264Encoder(64, 48, mode="cavlc", gop=4, deblock=True, device="cpu")
 assert not enc.host_color
 for i in range(2):
     enc.encode(frame)
@@ -245,7 +259,8 @@ from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
 # two shards on the CPU, per frame and in the chunk ring, CAVLC and the
 # masked row gate
 for chunk, mask in ((0, False), (4, False), (0, True)):
-    enc = H264Encoder(64, 64, gop=9, deblock=True, host_color=True,
+    enc = H264Encoder(64, 64, mode="cavlc", gop=9, deblock=True,
+                      host_color=True,
                       superstep_chunk=chunk, spatial_shards=2,
                       damage_mask=mask, device="cpu",
                       spatial_devices=[torch.device("cpu")] * 2)
@@ -272,7 +287,7 @@ import torch
 from docker_nvidia_glx_desktop_tpu_torch import bench
 from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
 from docker_nvidia_glx_desktop_tpu_torch.ops import aq, devloop
-enc = H264Encoder(64, 48, device="cpu")
+enc = H264Encoder(64, 48, mode="cavlc", device="cpu")
 r = np.random.default_rng(0)
 cur = [torch.from_numpy(r.integers(0, 256, s, np.uint8))
        for s in ((48, 64), (24, 32), (24, 32))]
@@ -398,7 +413,11 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
 @pytest.mark.parametrize("env,item", [
     ({"ENCODER_GOP": "60", "ENCODER_TUNE": "hq",
       "DNGD_DAMAGE_MASK": "true"}, "item 10"),
-    ({"ENCODER_GOP": "1", "ENCODER_ENTROPY": "native"}, "item 17"),
+    # the item 17 settings serve now, their AUs equal the reference
+    # encoder's (the ids are the ones the cases had when they pinned a
+    # refusal)
+    pytest.param({"ENCODER_GOP": "1", "ENCODER_ENTROPY": "native"}, None,
+                 id="env1-item 17"),
     # ENCODER_SPATIAL_SHARDS on one device: the reference resolves the
     # knob to one shard there, so these serve (item None), their AUs equal
     # the reference encoder's with the same knob (the ids are the ones the
@@ -411,7 +430,8 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
                   "ENCODER_SPATIAL_SHARDS": "2"}, None, id="env3-item 11"),
     pytest.param({"ENCODER_GOP": "1", "ENCODER_BITRATE_KBPS": "0",
                   "ENCODER_SPATIAL_SHARDS": "2"}, None, id="env4-item 11"),
-    ({"ENCODER_GOP": "1", "ENCODER_INTRA_MODES": "full"}, "item 17"),
+    pytest.param({"ENCODER_GOP": "1", "ENCODER_INTRA_MODES": "full"}, None,
+                 id="env5-item 17"),
     ({"WEBRTC_ENCODER": "tpuvp8enc"}, "item 13"),
     # what stays unported over several shard devices
     ({"ENCODER_GOP": "60", "ENCODER_SPATIAL_SHARDS": "auto",

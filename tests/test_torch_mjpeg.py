@@ -131,9 +131,9 @@ def test_card_by_default_and_native_not_ported(monkeypatch):
                     "WEBRTC_ENCODER": "tpumjpegenc"})
     with pytest.raises(RuntimeError, match="CUDA"):
         make_encoder(cfg, 64, 48)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TEnc(64, 48, entropy="native", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TEnc(64, 48, use_native=True, device="cpu")
+    # the native coder serves now (tests/test_torch_host_entropy.py
+    # holds its bytes against the reference's)
+    assert TEnc(64, 48, entropy="native", device="cpu").use_native
+    assert TEnc(64, 48, use_native=True, device="cpu").entropy == "native"
     with pytest.raises(ValueError):
         TEnc(64, 48, entropy="bogus", device="cpu")

@@ -254,7 +254,8 @@ def test_prewarm_and_the_link_probe_on_the_cpu(monkeypatch):
     from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
     from docker_nvidia_glx_desktop_tpu_torch.obs.budget import LEDGER
 
-    enc = H264Encoder(64, 48, gop=8, superstep_chunk=3, device="cpu")
+    enc = H264Encoder(64, 48, mode="cavlc", gop=8, superstep_chunk=3,
+                      device="cpu")
     th, stop = enc.prewarm_async()
     th.join(30)
     assert not th.is_alive() and enc.prewarm() == 0
@@ -334,8 +335,8 @@ def test_content_plane_takes_the_encoders_stats():
     from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
     from docker_nvidia_glx_desktop_tpu_torch.obs.content import PLANE
 
-    enc = H264Encoder(64, 48, gop=4, deblock=True, host_color=True,
-                      device="cpu")
+    enc = H264Encoder(64, 48, mode="cavlc", gop=4, deblock=True,
+                      host_color=True, device="cpu")
     src = ScriptSource(64, 48, 3)
     for t in range(3):
         enc.encode_collect(enc.encode_submit(src.render(t)))

@@ -334,11 +334,11 @@ def test_ring_eligibility_follows_the_reference():
     for kw in (dict(gop=1), dict(keep_recon=True), dict(superstep_chunk=1),
                dict(entropy="cabac")):
         args = dict(dict(gop=9, superstep_chunk=4, host_color=True), **kw)
-        te = TEnc(W, H, device="cpu", **args)
+        te = TEnc(W, H, mode="cavlc", device="cpu", **args)
         je = j_h264.H264Encoder(W, H, mode="cavlc", **args)
         if args.get("entropy") == "cabac":
             te._cabac_dev_bin = je._cabac_dev_bin = False
         assert te._ring_chunk == je._ring_chunk == 0, kw
         assert te.pipeline_depth == je.pipeline_depth == 2
-    te = TEnc(W, H, device="cpu", gop=9, superstep_chunk=9)
+    te = TEnc(W, H, mode="cavlc", device="cpu", gop=9, superstep_chunk=9)
     assert te._ring_chunk == 6 and te.pipeline_depth == 7
