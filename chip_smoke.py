@@ -46,7 +46,12 @@ seeded generator, in thirteen phases:
 - **damage**: ``DNGD_DAMAGE_MASK=true`` on a desktop with a blinking
   cursor (1 MB row), a scrolling terminal pane (8 rows) and one
   full-frame change, per frame and in the ring (K5r, K13, and K6-K8 on
-  the compacted rows);
+  the compacted rows); its tune-mask part adds ``ENCODER_TUNE=hq`` on
+  both kernel tiers (the served ``make_encoder``, hq_noaq under the loop
+  filter; the full ``H264Encoder(..., deblock=False, tune="hq")``: the qp
+  plane over the worklist K14r, K5r's hq form and its I16-in-P passes
+  over the rows), per frame, in the ring and in the masked spatial step
+  at nx = 2;
 - **tune**: ``ENCODER_TUNE=hq`` on both kernel tiers: the full tier
   (``H264Encoder(..., deblock=False, tune="hq")``: the qp plane K14, the
   hq forms of K1, K2, K3, K5 with its I16-in-P passes, K6, K7 and K4, rate
@@ -108,7 +113,14 @@ Checks, each of which fails the run:
   damage  the masked access units and references against the plain
           chain on the card (plain K5r, K6-K8 and K13 from the IDR's
           reference on), cv2's decode against the references, the masked
-          ring against the per-frame masked path at the ring's qps
+          ring against the per-frame masked path at the ring's qps; under
+          tune (both tiers) every masked P frame's AU and references
+          against the plain chain from the encoder's reference before it,
+          cv2's decode, each ring against the per-frame path with the
+          chunk's lookahead at its qps and worklists, the nx=2 masked
+          spatial streams against the unsharded masked ones, I16-in-P
+          fired, K5r tiers 1 and 2 with and without I16-in-P and K14r
+          with and without next_y against plain at 1, 8 and 64 rows
   tune    K14 and every hq form against its plain version at 1080p, I16-
           in-P fired, an IDR's and two P frames' AUs per tier against the
           plain path, cv2's decode of both tiers, each ring against the
@@ -155,7 +167,8 @@ Prints the card's name and power limit, per-kernel times beside their
 bounds, the GOP and CABAC paths' frames/s, p50 frame ms and host spans
 (the CABAC span per route), the GOP path's busy share, the ring against
 the per-frame path (frames/s and submit p50 in alternating runs), the
-masked P stage's device ms at 1, 8 and 68 damaged rows, the graphs'
+masked P stage's device ms at 1, 8 and 68 damaged rows (and per tune
+tier at 1, 8 and 64 rows, beside tune=off's), the graphs'
 count and memory pools, the hq tiers' K1 and K5 times and frames/s
 against tune=off, the sessions' tick times and frames/s at S = 1-8,
 K1 and K5 batched against S single launches and the buckets' graph
@@ -170,7 +183,8 @@ Run: ``python3 chip_smoke.py`` (details go to ``chiprun_out/``).  Two
 measurement modes for the intra core and the P slot coder (see their
 section near the end): ``python3 chip_smoke.py k1k6-pairs --pairs 3
 parent=.tree/parent change=.`` and ``python3 chip_smoke.py k1-variants``;
-the modes phase alone: ``python3 chip_smoke.py modes``.  The BD-rate gate
+the modes phase alone: ``python3 chip_smoke.py modes``; the damage phase's
+tune-mask part alone: ``python3 chip_smoke.py tune-mask`` (~75 s).  The BD-rate gate
 in alternating fresh processes is ``tools/bdrate_pairs.py``.
 """
 
@@ -542,6 +556,7 @@ def run():
     rows += ring_phase(report)
     print(f"ring phase done at {time.perf_counter() - t_start:.0f} s")
     rows += damage_phase(report)
+    rows += tune_mask_phase(report)
     print(f"damage phase done at {time.perf_counter() - t_start:.0f} s")
     rows += tune_phase(report, rows)
     print(f"tune phase done at {time.perf_counter() - t_start:.0f} s")
@@ -2528,16 +2543,8 @@ def damage_phase(report):
         # its worklists: a chunk shares its most damaged frame's bucket, and
         # one whose bucket covers the frame runs the full-frame chunk
         rper = pinned_per_frame(env, W, H, [token_qp(t) for t in rtoks])
-        plans = []
-        for t in rtoks:
-            if t[0] != "ring":
-                continue
-            ring, slot = t[4]
-            p = ring.plans[slot] if ring.plans else None
-            if ring.res is not None:
-                p = None if ring.dmg is None else dmg.RowPlan(
-                    p.rows, ring.dmg[1][slot], ring.dmg[0], enc.mb_h, p.frac)
-            plans.append(p)
+        plans = [p for t, p in zip(rtoks, ring_plans(rtoks, enc.mb_h))
+                 if t[0] == "ring"]
         it = iter(plans)
         rper._damage_plan = lambda y: next(it)
         _, rpaus, _ = drive(rper, frames, depth=2)
@@ -2834,6 +2841,432 @@ def mask_serving_cost(rep, y, prev_y):
     rep["serving"] = out
 
 
+TUNE_MASK_ROWS = (1, 8, 64)  # worklists the new forms are held and timed at
+
+
+def tune_mask_frames(n: int):
+    """The damage desktop with a new flat panel on frames 5 (in the
+    scrolling pane, MB rows 20-24) and 10 (MB row 41), content motion
+    estimation cannot track (where I16-in-P fires); the damaged rows and
+    the buckets stay the damage phase's."""
+    frames = damage_frames(n)
+    frames[5][320:400, 1000:1400] = (140, 150, 160)
+    frames[10][656:672, 400:800] = (90, 200, 60)
+    return frames
+
+
+def worklist_64(nr: int):
+    """64 distinct MB rows in a scattered order, the last a padded copy
+    of the first."""
+    import numpy as np
+
+    rows = np.array([(7 * i) % nr for i in range(64)], np.int32)
+    rows[-1] = rows[0]
+    return rows
+
+
+def i16_pass_ms(fn, reps: int = 20) -> float:
+    """Median device ms of the I16-in-P passes (2 and 3) inside ``fn()``:
+    CUDA events recorded on the stream just before and after the passes'
+    host call, one sample per call."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import h264_inter
+
+    orig, marks = h264_inter._i16_passes, []
+
+    def timed(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        orig(*a, **k)
+        ev[1].record()
+        marks.append(ev)
+
+    h264_inter._i16_passes = timed
+    try:
+        fn()
+        marks.clear()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        h264_inter._i16_passes = orig
+    check(len(marks) == reps, "the I16-in-P passes did not run")
+    return statistics.median(a.elapsed_time(b) for a, b in marks)
+
+
+def tune_mask_phase(report):
+    """The damage phase's tune-mask part: DNGD_DAMAGE_MASK=true with
+    ENCODER_TUNE=hq at 1080p, the served tier (make_encoder: hq_noaq under
+    the loop filter) and the full tier (``H264Encoder(..., deblock=False,
+    tune="hq")``: K14r, I16-in-P over the worklist), per frame and in the
+    ring; the masked AUs and references against the plain chain on the
+    card, cv2's decode, each ring against the per-frame path with the
+    chunk's lookahead at its qps, the masked spatial step at nx = 2 against
+    the unsharded masked path, the new forms (K5r tiers 1 and 2 with and
+    without I16-in-P, K14r with and without next_y) against their plain
+    versions at 1, 8 and 64 rows, and the masked stage's device ms per
+    tier."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.bitstream import h264 as syn
+    from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder, make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        aq, bitmerge, cavlc_device, cavlc_p_device, damage_mask as dmg, devloop,
+        h264_deblock, h264_inter)
+    from docker_nvidia_glx_desktop_tpu_torch.parallel.batch import indexed_device
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rep = report["tune_mask"] = {}
+    named = devloop.wrappers()
+    frames = tune_mask_frames(DAMAGE_FRAMES)
+    env = {"SIZEW": str(W), "SIZEH": str(H), "ENCODER_TUNE": "hq"}
+    full_kw = dict(mode="cavlc", entropy="device", deblock=False, tune="hq",
+                   gop=60, bitrate_kbps=8000, host_color=True,
+                   damage_mask=True)
+
+    def make(tier, chunk=0, pinned=False):
+        if tier == "served":
+            e = dict(env, ENCODER_SUPERSTEP_CHUNK=str(chunk))
+            if pinned:
+                e["ENCODER_BITRATE_KBPS"] = "0"
+            enc = make_encoder(from_env(e), W, H)[0]
+        else:
+            enc = H264Encoder(W, H, superstep_chunk=chunk,
+                              **dict(full_kw, bitrate_kbps=0 if pinned
+                                     else full_kw["bitrate_kbps"]))
+        check(enc.damage_mask and enc._ring_chunk == chunk,
+              f"{tier}: mask or ring not set up")
+        check((enc._ktune, enc._p_intra, enc.deblock) == (
+            ("hq_noaq", False, True) if tier == "served" else ("hq", True, False)),
+            f"{tier}: tier {enc._ktune} p_intra {enc._p_intra}")
+        return enc
+
+    # -- main path, per tier: per frame, then in the ring ------------------------
+    runs, windows = {}, {}
+    os.environ["DNGD_DAMAGE_MASK"] = "true"
+    try:
+        for tier in ("served", "full"):
+            zero_counts(named)
+            enc = make(tier)
+            refs, intra = [], []
+
+            def on_submit(e, tok, refs=refs, intra=intra):
+                refs.append(tuple(p.clone() for p in e._ref))
+                if tok[0] == "p_masked" and "mb_intra" in tok[4][2]:
+                    intra.append(int(tok[4][2]["mb_intra"].sum()))
+
+            toks, aus, keys = drive(enc, frames, depth=2, on_submit=on_submit)
+            ring = make(tier, chunk=4)
+            rtoks, raus, _ = drive(ring, frames)
+            torch.cuda.synchronize()
+            windows[tier] = path_launches(named)
+            runs[tier] = dict(enc=enc, toks=toks, aus=aus, refs=refs,
+                              intra=intra, ring=ring, rtoks=rtoks, raus=raus)
+        # the masked spatial step at nx = 2 (shard devices repeating the card)
+        zero_counts(named)
+        sp = {}
+        sdev = [indexed_device(dev)] * 2
+        for tier in ("served", "full"):
+            if tier == "served":
+                e = dict(env, ENCODER_SPATIAL_SHARDS="2")
+                senc = make_encoder(from_env(e), W, H, spatial_devices=sdev)[0]
+            else:
+                senc = H264Encoder(W, H, spatial_shards=2, spatial_devices=sdev,
+                                   **full_kw)
+            check(senc._spatial_nx == 2, f"spatial {tier}: not sharded")
+            sp[tier] = drive(senc, frames)[1]
+        torch.cuda.synchronize()
+        windows["spatial"] = path_launches(named)
+    finally:
+        os.environ.pop("DNGD_DAMAGE_MASK", None)
+
+    want_kinds = ["intra"] + ["p_masked"] * 7 + ["p"] + ["p_masked"] * 3
+    for tier, r in runs.items():
+        kinds = [t[0] for t in r["toks"]]
+        buckets = [t[4][6].bucket if t[0] == "p_masked" else None
+                   for t in r["toks"]]
+        check(kinds == want_kinds, f"tune-mask {tier}: kinds {kinds}")
+        check(buckets[1:4] == [1, 1, 1] and buckets[4:8] == [8] * 4,
+              f"tune-mask {tier}: buckets {buckets}")
+        check(dispatched_chunks(r["rtoks"]) == 2 and any(
+            k[2] > 0 for k in r["ring"]._chunk_steps),
+            f"tune-mask {tier}: no masked chunk replayed "
+            f"{sorted(r['ring']._chunk_steps)}")
+        r.update(kinds=kinds, buckets=buckets)
+        print(f"tune-mask {tier} main: kinds {kinds}, buckets {buckets}, AU "
+              f"bytes {[len(a) for a in r['aus']]}; ring steps "
+              f"{sorted(r['ring']._chunk_steps)}; launches {windows[tier]}")
+    ws, wf, wsp = windows["served"], windows["full"], windows["spatial"]
+    for k in ("inter_rows_hq", "scatter_rows", "cavlc_p_slots", "pack_p",
+              "deblock"):
+        check(ws[k] >= 1, f"tune-mask served: {k} never launched: {ws}")
+    check(ws["qp_plane_rows"] == ws["inter_rows_i16"] == ws["inter_rows"] == 0,
+          f"tune-mask served ran another tier's kernels: {ws}")
+    for k in ("inter_rows_hq", "inter_rows_i16", "qp_plane_rows", "scatter_rows",
+              "cavlc_p_chain", "pack_p_hq"):
+        check(wf[k] >= 1, f"tune-mask full: {k} never launched: {wf}")
+    check(wf["inter_rows"] == 0 and wf["inter"] == 0 and wf["deblock"] == 0,
+          f"tune-mask full ran a tune=off core or the loop filter: {wf}")
+    check(wsp["force_skip"] >= 1 and wsp["inter_padded"] >= 1,
+          f"tune-mask spatial: the row gate never ran: {wsp}")
+    check(sum(runs["full"]["intra"]) > 0,
+          f"tune-mask full: no I16-in-P MB in a masked frame {runs['full']['intra']}")
+    print(f"tune-mask full: I16-in-P MBs a masked frame {runs['full']['intra']}")
+
+    # -- (b) each ring against the per-frame path with the chunk's lookahead ------
+    for tier, r in runs.items():
+        rqps = [token_qp(t) for t in r["rtoks"]]
+        os.environ["DNGD_DAMAGE_MASK"] = "true"
+        try:
+            twin = flush_twin(make(tier, chunk=4, pinned=True),
+                              ring_plans(r["rtoks"], r["enc"].mb_h))
+            twin._eff_qp = lambda keyframe=True, twin=twin, rqps=rqps: \
+                rqps[twin.frame_index - 1]
+            taus = drive(twin, frames)[1]
+        finally:
+            os.environ.pop("DNGD_DAMAGE_MASK", None)
+        check(r["raus"] == taus, f"(b) tune-mask {tier} ring: the AUs differ "
+              "from the per-frame masked path at the ring's qps")
+        r["ring_graphs"] = graph_stats(r["ring"])
+        print(f"(b) tune-mask {tier} ring: {len(taus)} AUs equal to the per-frame "
+              f"masked path with the chunk's lookahead at its qps {rqps}; graphs "
+              f"{r['ring_graphs']['captures']} captured, pools peak "
+              f"{r['ring_graphs']['peak_pool_bytes'] / 2**20:.1f} MiB")
+    # the masked spatial step against the unsharded masked path
+    for tier in ("served", "full"):
+        check(sp[tier] == runs[tier]["aus"], f"(b) tune-mask spatial {tier}: the "
+              "nx=2 masked stream differs from the unsharded masked path's")
+    print("(b) tune-mask spatial: the nx=2 masked streams of both tiers equal to "
+          "the unsharded masked path's")
+
+    # -- (b) every masked P frame against the plain chain on the card --------------
+    t_b = time.perf_counter()
+    n_checked = 0
+    for tier, r in runs.items():
+        enc = r["enc"]
+        for i in range(1, len(frames)):
+            tok = r["toks"][i]
+            if tok[0] != "p_masked":
+                continue                  # the full frame: the tune phase's
+            ref = r["refs"][i - 1]
+            planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                      for p in enc._host_yuv420(frames[i])]
+            qp, fn, plan = tok[4][0], tok[4][1], tok[4][6]
+            hv, hl = enc._p_hdr_slots_np(fn, qp - enc.qp)
+            rows = torch.from_numpy(plan.padded).to(dev)
+            hvr = torch.from_numpy(np.ascontiguousarray(hv[plan.padded])).to(dev)
+            hlr = torch.from_numpy(np.ascontiguousarray(hl[plan.padded])).to(dev)
+            qm = (aq.qp_plane_plain(planes[0], qp, None, rows)
+                  if enc._ktune == "hq" else None)
+            out = h264_inter.encode_p_frame_rows_plain(
+                *planes, *ref, rows, qp, enc._ktune, qm, enc._p_intra)
+            sl = cavlc_p_device.p_frame_slots_plain(out, qp)
+            flat = bitmerge.pack_p_frame_plain(
+                *sl[:6], hvr, hlr, qp_sum=sl[7] if len(sl) > 7 else None
+            ).cpu().numpy()
+            rec = (out["recon_y"], out["recon_cb"], out["recon_cr"])
+            if enc.deblock:
+                rec = h264_deblock.deblock_frame_plain(*rec, qp, nnz_blk=sl[6],
+                                                       mv=out["mv"])
+            new = dmg.scatter_rows_plain(*ref, *rec, rows)
+            meta = cavlc_device.FlatMeta(flat, plan.bucket)
+            if meta.overflow:
+                want = enc._masked_overflow(
+                    {k: v for k, v in out.items() if not k.startswith("recon")
+                     and k != "mv"}, out["mv"], plan.padded, qp, fn)
+            else:
+                want = dmg.assemble_masked_au(
+                    flat, meta, plan.rows, enc.mb_h, enc.mb_w, frame_num=fn,
+                    qp_delta=qp - enc.qp, deblocking_idc=enc._deblock_idc)
+            check(r["aus"][i] == want, f"(b) tune-mask {tier} frame {i}: AU "
+                  "differs from the plain chain")
+            for name, a, b in zip(("y", "cb", "cr"), r["refs"][i], new):
+                check(torch.equal(a, b), f"(b) tune-mask {tier} frame {i}: {name} "
+                      "reference differs from the plain chain")
+            n_checked += 1
+    print(f"(b) tune-mask: {n_checked} masked P access units and references of "
+          f"both tiers equal to the plain chain on the card "
+          f"({time.perf_counter() - t_b:.0f} s)")
+
+    # -- (c) cv2 decodes both tiers' masked streams to their references ------------
+    for tier, r in runs.items():
+        r["cv2"] = cv2_luma_check(f"tune_mask_{tier}", r["aus"], r["refs"])
+
+    # -- (a) the new forms against their plain versions at 1, 8 and 64 rows --------
+    fenc = runs["full"]["enc"]
+    planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+              for p in fenc._host_yuv420(frames[5])]
+    nxt = torch.from_numpy(np.ascontiguousarray(
+        fenc._host_yuv420(frames[6])[0])).to(dev)
+    ref = runs["full"]["refs"][4]
+    qp = runs["full"]["toks"][5][4][0]
+    plan8 = runs["full"]["toks"][5][4][6]
+    lists = {1: np.array([41], np.int32), 8: plan8.padded,
+             64: worklist_64(fenc.mb_h)}
+    check(len(lists[8]) == 8, f"the 8-row worklist is {lists[8]}")
+    forms = (("hq_noaq", False), ("hq_noaq", True), ("hq", False), ("hq", True))
+    fired, worst = 0, 0.0
+    for b, rl in lists.items():
+        rt = torch.from_numpy(rl).to(dev)
+        for ny in (None, nxt):
+            got = aq.qp_plane(planes[0], qp, ny, rows=rt)
+            want = aq.qp_plane_plain(planes[0], qp, ny, rt)
+            check(torch.equal(got, want), f"K14r differs at {b} rows "
+                  f"(next_y {ny is not None})")
+        for tune, pi in forms:
+            ny = nxt if tune == "hq" else None
+            o_k = h264_inter.encode_p_frame_rows(*planes, *ref, rt, qp, tune=tune,
+                                                 next_y=ny, p_intra=pi)
+            qm = aq.qp_plane_plain(planes[0], qp, ny, rt) if tune == "hq" else None
+            o_p = h264_inter.encode_p_frame_rows_plain(*planes, *ref, rt, qp, tune,
+                                                       qm, pi)
+            check(set(o_k) == set(o_p), f"K5r {tune} {pi}: keys {set(o_k)}")
+            worst = max(worst, max_diff((o_k[k], o_p[k]) for k in o_p))
+            for k in o_p:
+                check(torch.equal(o_k[k], o_p[k]), f"K5r {tune} p_intra {pi} at "
+                      f"{b} rows: {k} differs")
+            if pi:
+                fired += int(o_k["mb_intra"].sum())
+    check(fired > 0, "K5r: no I16-in-P MB in the checks")
+    print(f"(a) tune-mask: K5r tiers 1 and 2, with and without I16-in-P ({fired} "
+          f"I16-in-P MBs), and K14r with and without next_y equal to their plain "
+          f"versions at {list(lists)} rows (qp {qp}; the 64-row worklist "
+          "unsorted with a padded copy)")
+
+    # -- the masked stage's device ms per tier at 1, 8 and 64 rows ----------------
+    hv, hl = fenc._p_hdr_slots_np(runs["full"]["toks"][5][4][1], qp - fenc.qp)
+    stages = {"off": ("off", False, True), "hq_noaq": ("hq_noaq", False, True),
+              "hq": ("hq", True, False)}
+    stage, stage_g = {}, {}
+    for b, rl in lists.items():
+        rt = torch.from_numpy(rl).to(dev)
+        hvr = torch.from_numpy(np.ascontiguousarray(hv[rl])).to(dev)
+        hlr = torch.from_numpy(np.ascontiguousarray(hl[rl])).to(dev)
+        for name, (tune, pi, db) in stages.items():
+            ny = nxt if tune == "hq" else None
+
+            def masked_stage(tune=tune, pi=pi, db=db, ny=ny):
+                dmg.row_core(*planes, *ref, rt, hvr, hlr, qp, tune=tune,
+                             next_y=ny, p_intra=pi, deblock=db)
+
+            stage[f"{name}/{b}"] = cuda_ms(masked_stage, reps=20)
+            stage_g[f"{name}/{b}"] = graph_ms(masked_stage)
+    print("tune-mask: masked P stage ms (CUDA events, median of 20), eager call / "
+          "replay of its captured graph, by tier (off, hq_noaq deblocked; hq with "
+          "I16-in-P, no deblock) at " + f"{list(lists)} rows: " + "; ".join(
+              f"{k} {stage[k]:.3f} / {stage_g[k]:.3f}" for k in stage))
+
+    # -- the kernels line's rows (8 rows; launches from the tiers' windows) --------
+    nb, nc = 8, fenc.mb_w
+    rt8 = torch.from_numpy(lists[8]).to(dev)
+    frac = nb / fenc.mb_h
+    in_bytes = frac * nbytes(*planes, *ref) + nbytes(rt8)
+    specs = (
+        ("inter_rows_hq_noaq", "hq_noaq", False, ws["inter_rows_hq"]),
+        ("inter_rows_hq_noaq_i16", "hq_noaq", True, 0),
+        ("inter_rows_hq", "hq", False, 0),
+        ("inter_rows_hq_i16", "hq", True, wf["inter_rows_i16"]),
+    )
+    out_rows = []
+    for name, tune, pi, n in specs:
+        ny = nxt if tune == "hq" else None
+        fk = lambda tune=tune, pi=pi, ny=ny: h264_inter.encode_p_frame_rows(
+            *planes, *ref, rt8, qp, tune=tune, next_y=ny, p_intra=pi)
+        o = fk()
+        qm = aq.qp_plane_plain(planes[0], qp, ny, rt8) if tune == "hq" else None
+        fp = lambda tune=tune, pi=pi, qm=qm: h264_inter.encode_p_frame_rows_plain(
+            *planes, *ref, rt8, qp, tune, qm, pi)
+        err = max_diff((o[k], v) for k, v in fp().items())
+        check(err == 0, f"{name}: max |kernel - plain| {err} at 8 rows")
+        extra = frac * nbytes(ny) if ny is not None else 0
+        out_rows.append(kernel_row(
+            name, "inter.cu", f"damage_mask.py:170 row_core (tune={tune}"
+            + (", p_intra: h264_inter.py:688-782" if pi else "") + ")", n, err,
+            cuda_ms(fk, reps=20), cuda_ms(fp, reps=3),
+            in_bytes + extra + nbytes(*o.values()), k5_hq_ops(nb * nc, pi)))
+    # the I16-in-P passes alone (2 and 3 over the worklist)
+    i16_ms = i16_pass_ms(lambda: h264_inter.encode_p_frame_rows(
+        *planes, *ref, rt8, qp, tune="hq", next_y=nxt, p_intra=True))
+    o = h264_inter.encode_p_frame_rows(*planes, *ref, rt8, qp, tune="hq",
+                                       next_y=nxt, p_intra=True)
+    qm8 = aq.qp_plane_plain(planes[0], qp, nxt, rt8)
+    fp = lambda: h264_inter.encode_p_frame_rows_plain(
+        *planes, *ref, rt8, qp, "hq", qm8, True)
+    # the passes write the I16 keys and merge into every other output
+    err = max_diff((o[k], v) for k, v in fp().items())
+    check(err == 0, f"inter_rows_i16: max |kernel - plain| {err} at 8 rows")
+    i16_row = kernel_row(
+        "inter_rows_i16", "inter.cu", "h264_inter.py:688-782 I16-in-P in "
+        "damage_mask.py:170 row_core (passes 2, 3 over the worklist)",
+        wf["inter_rows_i16"], err, i16_ms, cuda_ms(fp, reps=3),
+        frac * nbytes(*planes) + nbytes(rt8, *o.values()),
+        k5_hq_ops(nb * nc, True) - k5_hq_ops(nb * nc, False))
+    out_rows.append(i16_row)
+    k14 = lambda: aq.qp_plane(planes[0], qp, nxt, rows=rt8)
+    k14p = lambda: aq.qp_plane_plain(planes[0], qp, nxt, rt8)
+    err = max_diff([(k14(), k14p())])
+    check(err == 0, f"qp_plane_rows: max |kernel - plain| {err} at 8 rows")
+    out_rows.append(kernel_row(
+        "qp_plane_rows", "aq.cu", "aq.py:115 qp_plane per row band in "
+        "damage_mask.py:170 row_core", wf["qp_plane_rows"], err,
+        cuda_ms(k14, reps=20), cuda_ms(k14p, reps=3),
+        2 * frac * nbytes(planes[0]) + nbytes(rt8, k14())))
+    k_g = {"K5r hq_noaq": graph_ms(lambda: h264_inter.encode_p_frame_rows(
+        *planes, *ref, rt8, qp, tune="hq_noaq")),
+        "K5r hq + I16-in-P": graph_ms(lambda: h264_inter.encode_p_frame_rows(
+            *planes, *ref, rt8, qp, tune="hq", next_y=nxt, p_intra=True)),
+        "K14r": graph_ms(k14)}
+    print("tune-mask: device ms replayed from a captured graph at 8 rows: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in k_g.items()))
+    for r in out_rows:
+        print(f"kernel {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
+              f"{r['launches']} launches"
+              + ("; no caller reaches it)" if r["launches"] == 0 else ")"))
+    rep.update(
+        windows=windows, stage_ms=stage, stage_graph_ms=stage_g, graph_ms=k_g,
+        i16_ms=i16_ms, max_abs_err=worst,
+        tiers={t: {"kinds": r["kinds"], "buckets": r["buckets"],
+                   "mb_intra": r["intra"], "au_bytes": [len(a) for a in r["aus"]],
+                   "ring_au_bytes": [len(a) for a in r["raus"]],
+                   "ring_graphs": r["ring_graphs"], "cv2": r["cv2"]}
+               for t, r in runs.items()},
+        phase_s=time.perf_counter() - t_phase)
+    print(f"tune-mask part: {rep['phase_s']:.1f} s")
+    return out_rows
+
+
+def cv2_luma_check(name: str, aus, refs) -> str:
+    """cv2's decoded luma of ``aus`` against each reference's (frame for
+    frame); "not run" without cv2."""
+    import numpy as np
+
+    try:
+        import cv2
+    except ImportError:
+        print(f"(c) {name}: cv2 decode not run (no cv2 on this machine)")
+        return "not run"
+    path = os.path.join(HERE, "chiprun_out", f"{name}.264")
+    with open(path, "wb") as f:
+        f.write(b"".join(aus))
+    cap = cv2.VideoCapture(path)
+    cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+    for i, r in enumerate(refs):
+        ok, img = cap.read()
+        check(ok, f"(c) {name}: cv2 stopped at frame {i}")
+        check(np.array_equal(np.asarray(img).reshape(H, W),
+                             r[0][:H, :W].cpu().numpy()),
+              f"(c) {name}: frame {i} decodes differently")
+    cap.release()
+    os.remove(path)
+    print(f"(c) {name}: cv2 decoded {len(refs)} frames to the references")
+    return "ran"
+
+
 def tune_frames(n: int, seed: int = 3):
     """Tune phase: the GOP phase's desktop, and from frame 2 every third
     frame a new flat panel over the scrolling text, content motion
@@ -2855,15 +3288,43 @@ def k5_hq_ops(nmb: int, p_intra: bool) -> float:
     return k5_ops(nmb) + float(extra * nmb)
 
 
-def flush_twin(enc):
+def flush_twin(enc, plans=None):
     """Make ``enc`` (a ring encoder) push each full chunk through its
     per-frame flush instead of the graph: the per-frame path with the
-    chunk's lookahead shift, for the full tier's ring comparison."""
+    chunk's lookahead shift, for the full tier's ring comparison.
+    ``plans`` (one per frame index; masked rings): the worklists a
+    dispatched chunk's frames take in place of their own, None where the
+    chunk ran the full frame."""
+    pos = [1]                                   # frame 0 is the IDR
+
     def dispatch(ring):
+        if plans is not None:
+            ring.plans = plans[pos[0]:pos[0] + len(ring.frames)]
+            pos[0] += len(ring.frames)
         enc._ring = ring
         enc._ring_flush()
     enc._ring_dispatch = dispatch
     return enc
+
+
+def ring_plans(toks, mb_h: int) -> list:
+    """Each frame's worklist as a masked ring ran it (by frame index): a
+    dispatched chunk's shared bucket, None where the chunk ran the full
+    frame (or for a frame outside the ring), a flushed frame's own."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import damage_mask as dmg
+
+    plans = []
+    for t in toks:
+        if t[0] != "ring":
+            plans.append(None)
+            continue
+        ring, slot = t[4]
+        p = ring.plans[slot] if ring.plans else None
+        if ring.res is not None:
+            p = None if ring.dmg is None else dmg.RowPlan(
+                p.rows, ring.dmg[1][slot], ring.dmg[0], mb_h, p.frac)
+        plans.append(p)
+    return plans
 
 
 def tune_phase(report, rows_before):
@@ -3032,29 +3493,7 @@ def tune_phase(report, rows_before):
     print("(b) tune full: the IDR and two P frames equal to the plain path")
 
     # -- (c) cv2 decodes the full tier's stream to its references --------------
-    def cv2_check(name, stream, want_refs):
-        try:
-            import cv2
-        except ImportError:
-            print(f"(c) {name}: cv2 decode not run (no cv2 on this machine)")
-            return "not run"
-        path = os.path.join(HERE, "chiprun_out", f"{name}.264")
-        with open(path, "wb") as f:
-            f.write(b"".join(stream))
-        cap = cv2.VideoCapture(path)
-        cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
-        for i, r in enumerate(want_refs):
-            ok, img = cap.read()
-            check(ok, f"(c) {name}: cv2 stopped at frame {i}")
-            check(np.array_equal(np.asarray(img).reshape(H, W),
-                                 r[0][:H, :W].cpu().numpy()),
-                  f"(c) {name}: frame {i} decodes differently")
-        cap.release()
-        os.remove(path)
-        print(f"(c) {name}: cv2 decoded {len(want_refs)} frames to the references")
-        return "ran"
-
-    rep["full"]["cv2"] = cv2_check("tune_full", aus, refs)
+    rep["full"]["cv2"] = cv2_luma_check("tune_full", aus, refs)
 
     # -- the full tier's ring with the lookahead -------------------------------
     rframes = tune_frames(TUNE_RING_FRAMES, seed=4)
@@ -3127,7 +3566,7 @@ def tune_phase(report, rows_before):
     print("(a)/(b) tune served: K1 and K5 hq_noaq equal to their plain versions; "
           "the IDR and two P frames equal to the plain path")
     rep["served"] = {"qps": sqps, "launches": s_launch,
-                     "cv2": cv2_check("tune_served", saus, srefs)}
+                     "cv2": cv2_luma_check("tune_served", saus, srefs)}
 
     # the served tier's ring against the per-frame path at its qps
     renv = dict(env, ENCODER_SUPERSTEP_CHUNK="4")
@@ -3156,7 +3595,7 @@ def tune_phase(report, rows_before):
         finally:
             os.environ.pop("ENCODER_CABAC_BINARIZE", None)
     check(cab["host"] == cab["device"], "(b) tune CABAC: the routes differ")
-    rep["cabac_cv2"] = cv2_check("tune_cabac", cab["device"], crefs)
+    rep["cabac_cv2"] = cv2_luma_check("tune_cabac", cab["device"], crefs)
     print(f"(b) tune CABAC: both routes byte-identical over {TUNE_CABAC_FRAMES} frames")
 
     # -- times: K14; K1 and K5 per tier beside tune=off ------------------------
@@ -5351,9 +5790,10 @@ def k1_variants() -> int:
     return 0
 
 
-def modes_alone() -> int:
-    """``python3 chip_smoke.py modes``: the build, then the modes phase
-    alone; writes ``chiprun_out/modes.json``."""
+def phase_alone(key: str, phase, srcs) -> int:
+    """``python3 chip_smoke.py modes`` / ``tune-mask``: the build (with the
+    ptxas lines of ``srcs``), then the one phase alone; writes
+    ``chiprun_out/<key>.json``."""
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device")
@@ -5367,14 +5807,14 @@ def modes_alone() -> int:
     logs = _cuda.build(verbose=True)
     native_lib.get_lib()
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    for src in ("intra", "inter"):
+    for src in srcs:
         for ln in ptxas_lines(logs.get(src, "")):
             print(f"ptxas {src}: {ln}")
     report = {}
-    rows = modes_phase(report)
+    rows = phase(report)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out", "modes.json"), "w") as f:
-        json.dump({"card": smi, "modes": report["modes"], "kernels": rows}, f,
+    with open(os.path.join(HERE, "chiprun_out", f"{key}.json"), "w") as f:
+        json.dump({"card": smi, key: report[key], "kernels": rows}, f,
                   indent=1, default=float)
     print(json.dumps({"kernels": rows}))
     print(smi)
@@ -5385,7 +5825,9 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     try:
         if argv[:1] == ["modes"]:
-            return modes_alone()
+            return phase_alone("modes", modes_phase, ("intra", "inter"))
+        if argv[:1] == ["tune-mask"]:
+            return phase_alone("tune_mask", tune_mask_phase, ("inter", "aq"))
         if argv[:1] == ["k1k6-pairs"]:
             return k1k6_pairs(argv[1:])
         if argv[:1] == ["k1-variants"]:

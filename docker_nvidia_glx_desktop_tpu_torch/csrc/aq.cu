@@ -4,6 +4,10 @@
 //
 // Replaces docker_nvidia_glx_desktop_tpu/ops/aq.py:115 qp_plane with
 // :87 aq_offsets, :103 lookahead_bias and :77 mb_activity; equal to them.
+// K14r, the same kernel over a worklist of MB rows, is the qp plane that
+// docker_nvidia_glx_desktop_tpu/ops/damage_mask.py:170 row_core computes
+// band by band: the math is per MB, so it equals the frame's plane at
+// those rows, and the kernel reads only the listed rows.
 //
 // The reference's delta round(s * 0.5 * (log2(act/256 + 1) - 12)) is a
 // monotone step function of the integer activity act = 256 * s2 - s * s
@@ -46,10 +50,13 @@ __device__ __forceinline__ int warp_sum(int v) {
 
 __global__ void __launch_bounds__(NT) qp_plane_kernel(
     const uint8_t* __restrict__ y, const uint8_t* __restrict__ next_y,
-    const int* __restrict__ qp_dev, const int* __restrict__ steps, int* qp_map, int nc, int qp,
-    int first, int n_steps, int bias) {
+    const int* __restrict__ rows, const int* __restrict__ qp_dev,
+    const int* __restrict__ steps, int* qp_map, int nc, int qp, int first, int n_steps,
+    int bias) {
   __shared__ int part[3][NT / 32];
-  const int mb = blockIdx.x, r = mb / nc, c = mb % nc, t = threadIdx.x;
+  // mb: the output MB (row mb / nc of the worklist), r: the frame row read
+  const int mb = blockIdx.x, c = mb % nc, t = threadIdx.x;
+  const int r = rows ? rows[mb / nc] : mb / nc;
   const int W = nc * 16;
   const int idx = (r * 16 + (t >> 4)) * W + c * 16 + (t & 15);
   const int v = y[idx];
@@ -132,11 +139,16 @@ extern "C" int sse_launch(const uint8_t* a, const uint8_t* b, unsigned long long
 }
 
 // next_y, qp_dev: null when absent; steps: the delta's breakpoints.
-extern "C" int qp_plane_launch(const uint8_t* y, const uint8_t* next_y, const int* qp_dev,
-                               const int* steps, int* qp_map, int nr, int nc, int qp, int first,
-                               int n_steps, int bias, cudaStream_t stream) {
-  if (nr <= 0 || nc <= 0) return 0;
-  qp_plane_kernel<<<nr * nc, NT, 0, stream>>>(y, next_y, qp_dev, steps, qp_map, nc, qp, first,
-                                              n_steps, bias);
+// rows: null for the whole frame (nb = nr), else the nb MB rows of a
+// worklist (K14r): qp_map is then (nb, nc), row i from frame row rows[i]
+// of y and next_y.
+extern "C" int qp_plane_launch(const uint8_t* y, const uint8_t* next_y, const int* rows,
+                               const int* qp_dev, const int* steps, int* qp_map, int nr, int nc,
+                               int nb, int qp, int first, int n_steps, int bias,
+                               cudaStream_t stream) {
+  if (nr <= 0 || nc <= 0 || nb <= 0) return 0;
+  if (!rows && nb != nr) return cudaErrorInvalidValue;
+  qp_plane_kernel<<<nb * nc, NT, 0, stream>>>(y, next_y, rows, qp_dev, steps, qp_map, nc, qp,
+                                              first, n_steps, bias);
   return dngd_last_error();
 }

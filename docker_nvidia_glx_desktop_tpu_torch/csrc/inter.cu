@@ -31,7 +31,11 @@
 // is b * nc blocks, block i encodes frame row rows[i / nc] and writes
 // compacted (b, nc, ...) outputs and (16b, W) / (8b, W/2) recon planes.
 // A band's search window is clamped at the frame's edges, not the
-// band's, because the kernel reads the whole reference either way.
+// band's, because the kernel reads the whole reference either way.  At
+// every tier (row_core's `tune`): the qp plane arrives compacted (b, nc),
+// and the I16-in-P candidate pass reads the current frame at frame row
+// rows[i] but its left neighbour's recon, like every output, at stack
+// row i; the gate and the merge walk stack rows.
 // With `qp_dev` the slice qp (and its QPc) is read from device memory,
 // so a captured CUDA graph takes each chunk's qp without a new capture.
 //
@@ -574,18 +578,21 @@ __global__ void __launch_bounds__(NT_I) inter_i16_kernel(
     const int* __restrict__ qp_dev, const int* __restrict__ qp_map,
     const float* __restrict__ lam_tab, const float* __restrict__ score_inter, uint8_t* want,
     int* i16_dc, int* cand_ac, int* cand_cac, int* cand_cdc, uint8_t* cand_ry,
-    uint8_t* cand_rc, int nc, int qp) {
+    uint8_t* cand_rc, const int* __restrict__ rows, int nc, int qp) {
   __shared__ I16Smem s;
+  // r: the stack row (the recon's and every output's), fr: the frame row
+  // of the current planes (rows[r] over a worklist)
   const int mb = blockIdx.x, r = mb / nc, c = mb % nc, t = threadIdx.x;
+  const int fr = rows ? rows[r] : r;
   const int W = nc * 16, Wc = nc * 8;
   if (qp_dev) qp = *qp_dev;
   const int qm = TIER == 2 ? qp_map[mb] : qp;
   const Qp Q(qm), QC(dngd_chroma_qp(qm));
   const bool has_left = c > 0;
-  for (int i = t; i < 256; i += NT_I) s.cur[i] = y[(r * 16 + (i >> 4)) * W + c * 16 + (i & 15)];
+  for (int i = t; i < 256; i += NT_I) s.cur[i] = y[(fr * 16 + (i >> 4)) * W + c * 16 + (i & 15)];
   for (int i = t; i < 128; i += NT_I) {
     const int p = i >> 6, k = i & 63;
-    s.curc[p][k] = (p ? cr : cb)[(r * 8 + (k >> 3)) * Wc + c * 8 + (k & 7)];
+    s.curc[p][k] = (p ? cr : cb)[(fr * 8 + (k >> 3)) * Wc + c * 8 + (k & 7)];
   }
   if (t < 16) {
     s.yl[t] = has_left ? ry[(r * 16 + t) * W + c * 16 - 1] : 0;
@@ -784,25 +791,26 @@ extern "C" int inter_frame_launch(const uint8_t* y, const uint8_t* cb, const uin
 // One frame's (or, PAD, the stacked shards') P core at tier 0, 1 or 2, in
 // the FULL (refine="full") form or not: every pointer as
 // inter_frame_hq_launch's below, lam/marg/score null at tier 0.
+// rows: null, or the worklist of grid / nc MB rows (K5r; not with PAD).
 template <bool PAD, bool FULL>
 int launch_tiers(const uint8_t* y, const uint8_t* cb, const uint8_t* cr, const uint8_t* ref_y,
-                 const uint8_t* ref_cb, const uint8_t* ref_cr, const int* qp_dev,
-                 const int* qp_map, const float* lam, const int* marg, int* mv, int* luma,
-                 int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry, uint8_t* rcb,
-                 uint8_t* rcr, float* score, int nr, int nc, int qp, int qpc, int tier, int grid,
-                 cudaStream_t stream) {
+                 const uint8_t* ref_cb, const uint8_t* ref_cr, const int* rows,
+                 const int* qp_dev, const int* qp_map, const float* lam, const int* marg,
+                 int* mv, int* luma, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry,
+                 uint8_t* rcb, uint8_t* rcr, float* score, int nr, int nc, int qp, int qpc,
+                 int tier, int grid, cudaStream_t stream) {
   if (tier == 0) {
     inter_frame_kernel<0, false, PAD, FULL><<<grid, NT, 0, stream>>>(
-        y, cb, cr, ref_y, ref_cb, ref_cr, nullptr, qp_dev, nullptr, nullptr, nullptr, nullptr,
+        y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, nullptr, nullptr, nullptr, nullptr,
         mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
   } else if (tier == 1) {
     inter_frame_kernel<1, false, PAD, FULL><<<grid, NT, 0, stream>>>(
-        y, cb, cr, ref_y, ref_cb, ref_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
+        y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, qp_map, lam, marg, score, mv, luma,
         cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
   } else if (tier == 2) {
     if (!qp_map) return cudaErrorInvalidValue;
     inter_frame_kernel<2, false, PAD, FULL><<<grid, NT, 0, stream>>>(
-        y, cb, cr, ref_y, ref_cb, ref_cr, nullptr, qp_dev, qp_map, lam, marg, score, mv, luma,
+        y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, qp_map, lam, marg, score, mv, luma,
         cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
   } else {
     return cudaErrorInvalidValue;
@@ -810,24 +818,27 @@ int launch_tiers(const uint8_t* y, const uint8_t* cb, const uint8_t* cr, const u
   return dngd_last_error();
 }
 
-// The whole frame at tune=hq, tier 1 (hq_noaq) or 2 (hq, qp_map the qp
-// plane), or with full (refine="full": the +-1 re-rank and both subpel
-// stages on every line, marg the full-line margins) also at tier 0 (lam,
-// marg, score null); lam the tier's lambda table (52), marg its motion
-// margins (3 x 52); score (I16-in-P) the inter score per MB, or null.
+// The whole frame (rows null, nb = nr) or the nb MB rows of the worklist
+// rows (K5r: compacted outputs, qp_map and score (nb, nc)) at tune=hq,
+// tier 1 (hq_noaq) or 2 (hq, qp_map the qp plane), or with full
+// (refine="full": the +-1 re-rank and both subpel stages on every line,
+// marg the full-line margins) also at tier 0 (lam, marg, score null); lam
+// the tier's lambda table (52), marg its motion margins (3 x 52); score
+// (I16-in-P) the inter score per MB, or null.
 extern "C" int inter_frame_hq_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
                                      const uint8_t* ref_y, const uint8_t* ref_cb,
-                                     const uint8_t* ref_cr, const int* qp_dev,
+                                     const uint8_t* ref_cr, const int* rows, const int* qp_dev,
                                      const int* qp_map, const float* lam, const int* marg,
                                      int* mv, int* luma, int* cb_dc, int* cb_ac, int* cr_dc,
                                      int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr,
-                                     float* score, int nr, int nc, int qp, int qpc, int tier,
-                                     int full, cudaStream_t stream) {
-  if (nr <= 0 || nc <= 0) return 0;
+                                     float* score, int nr, int nc, int nb, int qp, int qpc,
+                                     int tier, int full, cudaStream_t stream) {
+  if (nr <= 0 || nc <= 0 || nb <= 0) return 0;
+  if (!rows && nb != nr) return cudaErrorInvalidValue;
   if (tier == 0 && !full) return cudaErrorInvalidValue;  // inter_frame_launch's form
   return (full ? launch_tiers<false, true> : launch_tiers<false, false>)(
-      y, cb, cr, ref_y, ref_cb, ref_cr, qp_dev, qp_map, lam, marg, mv, luma, cb_dc, cb_ac,
-      cr_dc, cr_ac, ry, rcb, rcr, score, nr, nc, qp, qpc, tier, nr * nc, stream);
+      y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, qp_map, lam, marg, mv, luma, cb_dc,
+      cb_ac, cr_dc, cr_ac, ry, rcb, rcr, score, nr, nc, qp, qpc, tier, nb * nc, stream);
 }
 
 // K5p: the P core over ns shards of nr MB rows each, every shard's
@@ -847,33 +858,35 @@ extern "C" int inter_frame_padded_launch(const uint8_t* y, const uint8_t* cb, co
   if (nr <= 0 || nc <= 0 || ns <= 0) return 0;
   const int grid = ns * nr * nc;
   return (full ? launch_tiers<true, true> : launch_tiers<true, false>)(
-      y, cb, cr, pad_y, pad_cb, pad_cr, qp_dev, qp_map, lam, marg, mv, luma, cb_dc, cb_ac,
-      cr_dc, cr_ac, ry, rcb, rcr, score, nr, nc, qp, qpc, tier, grid, stream);
+      y, cb, cr, pad_y, pad_cb, pad_cr, nullptr, qp_dev, qp_map, lam, marg, mv, luma, cb_dc,
+      cb_ac, cr_dc, cr_ac, ry, rcb, rcr, score, nr, nc, qp, qpc, tier, grid, stream);
 }
 
 // I16-in-P pass 2, after inter_frame_hq_launch on the same stream: ry/rcb/
 // rcr its recon; cand_* per MB (16 x 15 luma AC, 2 x 4 x 15 chroma AC,
 // 2 x 4 chroma DC, 256 + 128 recon samples); i16_dc written for every MB.
+// nr stack rows: the frame's, or (rows non-null) the worklist's, whose
+// current planes are read at frame row rows[i].
 static int inter_i16_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
                                 const uint8_t* ry, const uint8_t* rcb, const uint8_t* rcr,
-                                const int* qp_dev, const int* qp_map, const float* lam,
-                                const float* score, uint8_t* want, int* i16_dc, int* cand_ac,
-                                int* cand_cac, int* cand_cdc, uint8_t* cand_ry,
-                                uint8_t* cand_rc, int nr, int nc, int qp, int qpc, int tier,
-                                cudaStream_t stream) {
+                                const int* rows, const int* qp_dev, const int* qp_map,
+                                const float* lam, const float* score, uint8_t* want,
+                                int* i16_dc, int* cand_ac, int* cand_cac, int* cand_cdc,
+                                uint8_t* cand_ry, uint8_t* cand_rc, int nr, int nc, int qp,
+                                int qpc, int tier, cudaStream_t stream) {
   (void)qpc;
   if (nr <= 0 || nc <= 0) return 0;
   if (tier == 2) {
     if (!qp_map) return cudaErrorInvalidValue;
     inter_i16_kernel<2><<<nr * nc, NT_I, 0, stream>>>(y, cb, cr, ry, rcb, rcr, qp_dev, qp_map,
                                                       lam, score, want, i16_dc, cand_ac,
-                                                      cand_cac, cand_cdc, cand_ry, cand_rc, nc,
-                                                      qp);
+                                                      cand_cac, cand_cdc, cand_ry, cand_rc, rows,
+                                                      nc, qp);
   } else if (tier == 1) {
     inter_i16_kernel<1><<<nr * nc, NT_I, 0, stream>>>(y, cb, cr, ry, rcb, rcr, qp_dev, qp_map,
                                                       lam, score, want, i16_dc, cand_ac,
-                                                      cand_cac, cand_cdc, cand_ry, cand_rc, nc,
-                                                      qp);
+                                                      cand_cac, cand_cdc, cand_ry, cand_rc, rows,
+                                                      nc, qp);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -902,20 +915,21 @@ static int inter_merge_launch(const uint8_t* want, int* i16_dc,
 // I16-in-P passes 2 and 3 in one host call, after inter_frame_hq_launch or
 // the padded form on the same stream: every MB's candidate, then the gate
 // and the merge.  mv .. rcr are the P core's outputs (the candidates read
-// its recon, the merge overwrites the MBs that turn intra); the rest as
-// the two passes above take them.
+// its recon, the merge overwrites the MBs that turn intra); rows null for
+// the frame's nr rows, else the worklist of the nr stack rows (K5r); the
+// rest as the two passes above take them.
 extern "C" int inter_intra_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
-                                  const int* qp_dev, const int* qp_map, const float* lam,
-                                  const float* score, uint8_t* want, int* i16_dc,
-                                  int* cand_ac, int* cand_cac, int* cand_cdc,
+                                  const int* rows, const int* qp_dev, const int* qp_map,
+                                  const float* lam, const float* score, uint8_t* want,
+                                  int* i16_dc, int* cand_ac, int* cand_cac, int* cand_cdc,
                                   uint8_t* cand_ry, uint8_t* cand_rc, int* mv, int* luma,
                                   int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry,
                                   uint8_t* rcb, uint8_t* rcr, uint8_t* mb_intra, int* i16_ac,
                                   int nr, int nc, int qp, int qpc, int tier,
                                   cudaStream_t stream) {
-  const int e = inter_i16_launch(y, cb, cr, ry, rcb, rcr, qp_dev, qp_map, lam, score, want,
-                                 i16_dc, cand_ac, cand_cac, cand_cdc, cand_ry, cand_rc, nr, nc,
-                                 qp, qpc, tier, stream);
+  const int e = inter_i16_launch(y, cb, cr, ry, rcb, rcr, rows, qp_dev, qp_map, lam, score,
+                                 want, i16_dc, cand_ac, cand_cac, cand_cdc, cand_ry, cand_rc,
+                                 nr, nc, qp, qpc, tier, stream);
   if (e) return e;
   return inter_merge_launch(want, i16_dc, cand_ac, cand_cac, cand_cdc, cand_ry, cand_rc, mv,
                             luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, mb_intra, i16_ac,

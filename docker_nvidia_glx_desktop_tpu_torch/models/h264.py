@@ -32,9 +32,10 @@ through), their stats as one K4c launch; a partial chunk (an IDR due,
 a drain) goes through the per-frame path, which gives the same bytes.
 With ``damage_mask`` (``DNGD_DAMAGE_MASK``, device CAVLC with host
 colour) a P frame's device work covers its damaged MB rows only
-(``ops/damage_mask``: K5r, K6-K8 on the compacted rows, the row scatter
-K13), per frame and inside the chunk; the other rows go out as cached
-all-skip slices.
+(``ops/damage_mask``: K5r at the encoder's kernel tier, with the qp plane
+K14r and the I16-in-P passes over the rows where the tier has them,
+K6-K8 on the compacted rows, the row scatter K13), per frame and inside
+the chunk; the other rows go out as cached all-skip slices.
 
 ``spatial_shards`` (``ENCODER_SPATIAL_SHARDS``) splits one frame's MB
 rows over the shard devices ``spatial_devices`` (every CUDA device by
@@ -74,9 +75,9 @@ the P core, then the Python coder.  ``mode="pcm"`` (the reference's
 default) sends every frame as I_PCM macroblocks of the device-converted
 planes.
 
-``ENCODER_SPATIAL_SHARDS=auto`` over several devices, shards on distinct
-cards and tune=hq under the damage mask raise NotImplementedError naming
-their ROADMAP items; nothing falls back quietly.
+``ENCODER_SPATIAL_SHARDS=auto`` over several devices and shards on
+distinct cards raise NotImplementedError naming their ROADMAP items;
+nothing falls back quietly.
 """
 
 from __future__ import annotations
@@ -409,9 +410,6 @@ class H264Encoder(Encoder):
             self._ktune = "hq_noaq"
         else:
             self._ktune = tune
-        if self._ktune != "off" and damage_mask and entropy == "device":
-            raise _not_ported("tune=hq with the damage mask",
-                              "10 (masked)")
         # I16-in-P: device or Python CAVLC with the loop filter off
         self._p_intra = (self._ktune != "off" and not self.deblock
                          and mode == "cavlc"
@@ -1465,7 +1463,7 @@ class H264Encoder(Encoder):
         leaves some out, else the full frame."""
         if plan is not None and not plan.full:
             return "p_masked", self._submit_p_masked(planes, qp, frame_num,
-                                                     plan)
+                                                     plan, next_y)
         return "p", self._submit_p_device(planes, qp, frame_num, next_y)
 
     def _submit_p_device(self, planes, qp: int, frame_num: int = None,
@@ -1534,10 +1532,10 @@ class H264Encoder(Encoder):
     def _damage_plan(self, y):
         """RowPlan of the current host-converted frame ``y``, or None
         where the masked path cannot serve it (mask off, device colour,
-        CABAC, ``keep_recon``).  Feeds the rate controller's damage
-        consumer."""
-        if (not self.damage_mask or self.entropy != "device"
-                or self.keep_recon or y is None
+        PCM, host or CABAC entropy, ``keep_recon``: the frame is served
+        unmasked).  Feeds the rate controller's damage consumer."""
+        if (not self.damage_mask or self.mode != "cavlc"
+                or self.entropy != "device" or self.keep_recon or y is None
                 or self._damage_cur_y is None):
             return None
         prev = self._damage_prev_y
@@ -1563,36 +1561,60 @@ class H264Encoder(Encoder):
             self._hdr_slots_cache[key] = slots
         return slots
 
-    def _submit_p_masked(self, planes, qp: int, frame_num: int, plan):
+    def _submit_p_masked(self, planes, qp: int, frame_num: int, plan,
+                         next_y=None):
         """The masked P stage over ``plan``'s worklist (damage_mask.
-        row_core); the scattered reference planes become the next
-        reference.  The content stats take the full luma and the new
-        reference (no MV or mode fields: the untouched rows are skip by
-        construction)."""
+        row_core) at the encoder's kernel tier (``next_y``: the full
+        tier's lookahead luma, in a ring flush); the scattered reference
+        planes become the next reference.  The content stats take the
+        full luma and the new reference (no MV or mode fields: the
+        untouched rows are skip by construction)."""
         hv, hl = self._p_hdr_slots_np(frame_num, qp - self.qp)
         up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device)
         y, cb, cr = planes
         flat, ry, rcb, rcr, mv, _, levels = dmg.row_core(
             y, cb, cr, *self._ref, up(plan.padded), up(hv[plan.padded]),
-            up(hl[plan.padded]), qp, deblock=self.deblock)
+            up(hl[plan.padded]), qp, tune=self._ktune, next_y=next_y,
+            p_intra=self._p_intra, deblock=self.deblock)
         self._ref = (ry, rcb, rcr)
         self._content_submit(y, recon_y=ry, frame_type="p")
         guess = self._p_pull_guess or 2 * self._PULL_BUCKET
         prefix = _pinned_prefetch(flat[:cavlc_device.META_WORDS * 4 + guess])
         return (qp, frame_num, levels, flat, prefix, mv, plan)
 
-    def _masked_overflow(self, levels, mv, rows, qp: int,
-                         frame_num: int) -> bytes:
+    def _masked_overflow(self, levels, mv, rows, qp: int, frame_num: int,
+                         note_mv: bool = False) -> bytes:
         """A compacted frame past the flat cap: its levels scattered to
-        full-frame shapes (the other rows skip), coded on the host."""
-        full_lv, full_mv = dmg.scatter_levels_np(
-            {k: _np(v) for k, v in levels.items()}, _np(mv), rows,
-            self.mb_h)
+        full-frame shapes (the other rows skip), coded on the host.  The
+        full tier's qp plane becomes the frame's: the slice qp on the
+        untouched rows (they code no mb_qp_delta), the worklist's rows
+        where they lie.  ``note_mv`` (the per-frame path, as the
+        reference's) keeps the scattered MVs as ``last_mv``."""
+        pulled = {k: _np(v) for k, v in levels.items()}
+        qp_map = pulled.pop("qp_map", None)
+        full_lv, full_mv = dmg.scatter_levels_np(pulled, _np(mv), rows,
+                                                 self.mb_h)
         full_lv["mv"] = full_mv
+        if qp_map is not None:
+            fq = np.full((self.mb_h,) + qp_map.shape[1:], qp, qp_map.dtype)
+            fq[rows] = qp_map
+            qp_map = fq
+        if note_mv:
+            self.last_mv = full_mv
+        self._note_qp_map(qp_map, levels=full_lv, slice_qp=qp)
         return h264_entropy.encode_p_picture(
             full_lv, frame_num=frame_num, qp_delta=qp - self.qp,
-            deblocking_idc=self._deblock_idc, qp_map=None, slice_qp=qp)
+            deblocking_idc=self._deblock_idc, qp_map=qp_map, slice_qp=qp)
+
+    def _note_masked_qp_sum(self, qp_sum: int, qp: int, bucket: int) -> None:
+        """The rate model's mean coded qp of a masked frame: the meta sums
+        the worklist's rows (padded copies included, as the reference's
+        sum: they bias it by less than a row of qp), and the untouched
+        rows decode at the slice qp."""
+        if qp_sum:
+            self._note_qp_sum(int(qp_sum)
+                              + qp * self.mb_w * (self.mb_h - bucket))
 
     def _pull_flat(self, flat, buf: np.ndarray, meta) -> np.ndarray:
         """The P pull protocol: update the guess from this frame's size,
@@ -1613,7 +1635,8 @@ class H264Encoder(Encoder):
         meta = cavlc_device.FlatMeta(buf, plan.bucket)
         if meta.overflow:
             return self._masked_overflow(levels, mv, plan.padded, qp,
-                                         frame_num)
+                                         frame_num, note_mv=True)
+        self._note_masked_qp_sum(meta.qp_sum, qp, plan.bucket)
         buf = self._pull_flat(flat, buf, meta)
         return dmg.assemble_masked_au(
             buf, meta, plan.rows, self.mb_h, self.mb_w, frame_num=frame_num,
@@ -1928,6 +1951,7 @@ class H264Encoder(Encoder):
         if meta.overflow:
             return self._masked_overflow(out.levels(slot), out.mvs[slot],
                                          padded[slot], qp, frame_num)
+        self._note_masked_qp_sum(meta.qp_sum, qp, bucket)
         buf = self._pull_flat(out.flats[slot], buf, meta)
         return dmg.assemble_masked_au(
             buf, meta, padded[slot], self.mb_h, self.mb_w,

@@ -131,24 +131,32 @@ def lookahead_bias(y: torch.Tensor, next_y: torch.Tensor,
                        torch.where(sad >= 6 * 256, 1, 0)).to(torch.int32)
 
 
-def qp_plane_plain(y: torch.Tensor, qp: int, next_y=None) -> torch.Tensor:
-    """Plain PyTorch version of K14: the (R, C) int32 absolute qp map."""
+def qp_plane_plain(y: torch.Tensor, qp: int, next_y=None,
+                   rows=None) -> torch.Tensor:
+    """Plain PyTorch version of K14: the (R, C) int32 absolute qp map, or
+    its rows ``rows`` ((b,) int32 worklist) as a (b, C) map (K14r)."""
     d = aq_offsets(y)
     if next_y is not None:
         d = d + lookahead_bias(y, next_y)
-    return torch.clamp(int(qp) + d, 1, 51).to(torch.int32)
+    res = torch.clamp(int(qp) + d, 1, 51).to(torch.int32)
+    return res if rows is None else res[rows.long()]
 
 
 def qp_plane(y: torch.Tensor, qp: int, next_y=None, qp_dev=None,
-             out=None) -> torch.Tensor:
+             out=None, rows=None) -> torch.Tensor:
     """Per-MB qp plane of the uint8 luma ``y`` (the reference's
     ``qp_plane``), with the lookahead bias where ``next_y`` is given.
+    ``rows`` ((b,) int32, each in 0..R-1, duplicates allowed) asks for
+    the plane of those MB rows only, (b, C) (K14r: the damage mask's
+    worklist, whose bands the reference's ``row_core`` plans one by one;
+    the math is per MB, so a band's plane is the frame's at its row).
 
     CUDA tensors launch K14 (one block per MB: the activity sums, the
-    breakpoint compare, the lookahead SAD); ``qp_dev`` (one int32 on the
-    card) replaces ``qp`` for a captured graph, ``out`` is the (R, C)
-    int32 result tensor where the caller owns it.  CPU tensors run the
-    plain version."""
+    breakpoint compare, the lookahead SAD; over a worklist, a block per
+    listed MB, reading only those rows); ``qp_dev`` (one int32 on the
+    card) replaces ``qp`` for a captured graph, ``out`` is the int32
+    result tensor where the caller owns it.  CPU tensors run the plain
+    version."""
     if y.dtype != torch.uint8 or y.dim() != 2 or y.shape[0] % 16 \
             or y.shape[1] % 16 or not y.is_contiguous():
         raise ValueError("y must be a contiguous MB-aligned uint8 plane")
@@ -157,26 +165,36 @@ def qp_plane(y: torch.Tensor, qp: int, next_y=None, qp_dev=None,
                                or next_y.device != y.device):
         raise ValueError("next_y must match y")
     nr, nc = y.shape[0] // 16, y.shape[1] // 16
+    nb = nr
+    if rows is not None:
+        nb = rows.numel()
+        if (rows.dim() != 1 or rows.dtype != torch.int32
+                or rows.device != y.device or not 0 < nb <= nr):
+            raise ValueError(f"rows must be 1 to {nr} int32 on {y.device}")
+    if out is not None and (tuple(out.shape) != (nb, nc)
+                            or out.dtype != torch.int32
+                            or out.device != y.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be ({nb}, {nc}) int32 on y's device")
     if y.device.type == "cpu":
         if qp_dev is not None:
             qp = int(qp_dev.reshape(-1)[0])
-        res = qp_plane_plain(y, qp, next_y)
+        res = qp_plane_plain(y, qp, next_y, rows)
         return res if out is None else out.copy_(res)
     if out is None:
-        out = torch.empty((nr, nc), dtype=torch.int32, device=y.device)
-    elif (tuple(out.shape) != (nr, nc) or out.dtype != torch.int32
-          or out.device != y.device):
-        raise ValueError("out must be (R, C) int32 on y's device")
+        out = torch.empty((nb, nc), dtype=torch.int32, device=y.device)
     first, steps, st = _steps_on(y.device)
     _cuda.launch("aq", "qp_plane_launch",
-                 [y, next_y, qp_dev, st, out],
-                 [nr, nc, int(qp), first, len(steps), LOOKAHEAD_BIAS],
+                 [y, next_y, None if rows is None else rows.contiguous(),
+                  qp_dev, st, out],
+                 [nr, nc, nb, int(qp), first, len(steps), LOOKAHEAD_BIAS],
                  y.device)
-    qp_plane.launches += 1
+    (qp_plane if rows is None else qp_plane.rows).launches += 1
     return out
 
 
 qp_plane.launches = 0
+qp_plane.rows = _cuda.Counter()         # K14r: a worklist's rows
 
 _steps_dev: dict = {}
 

@@ -204,14 +204,19 @@ scatter_rows.launches = 0
 
 
 def row_core(y, cb, cr, ref_y, ref_cb, ref_cr, rows, hv_r, hl_r, qp: int,
+             tune: str = "off", next_y=None, p_intra: bool = False,
              deblock: bool = False, qp_dev=None):
     """Row-compacted P stage over the worklist ``rows`` (int32 (b,)), the
     per-frame masked step and the masked chunk's body alike (the
     reference's ``row_core`` and its jitted ``encode_p_rows``):
-    the P core (K5r), the P slot coder and packer (K6, K7) over the b
-    rows with their slice-header slots ``hv_r``/``hl_r`` (b, 3), the
-    loop filter on the compacted stack when ``deblock`` (K8: with idc=2
-    no edge crosses a row), and the filtered rows scattered into new
+    the P core (K5r) at the kernel tier ``tune`` (the full tier's qp plane
+    over the listed rows, K14r, biased by the same rows of ``next_y``;
+    ``p_intra``: I16-in-P over the stack), the P slot coder and packer
+    (K6, K7) over the b rows with their slice-header slots ``hv_r``/
+    ``hl_r`` (b, 3) (the full tier's qp chain restarting each row at the
+    slice qp, the flat's meta summing the rows' coded qps), the loop
+    filter on the compacted stack when ``deblock`` (K8: with idc=2 no
+    edge crosses a row), and the filtered rows scattered into new
     reference planes (K13).  Returns the unmasked stage's 7-tuple
     ``(flat, ref_y', ref_cb', ref_cr', mv, nnz, levels)``, the flat's
     meta describing the b rows.  ``qp_dev``: see
@@ -219,9 +224,10 @@ def row_core(y, cb, cr, ref_y, ref_cb, ref_cr, rows, hv_r, hl_r, qp: int,
     from . import cavlc_p_device, h264_deblock, h264_inter
 
     out = h264_inter.encode_p_frame_rows(y, cb, cr, ref_y, ref_cb, ref_cr,
-                                         rows, qp, qp_dev=qp_dev)
+                                         rows, qp, tune=tune, next_y=next_y,
+                                         p_intra=p_intra, qp_dev=qp_dev)
     flat, ry, rcb, rcr, mv, nnz, levels = cavlc_p_device._finish_p(
-        out, hv_r, hl_r)
+        out, hv_r, hl_r, slice_qp=qp, qp_dev=qp_dev)
     if deblock:
         ry, rcb, rcr = h264_deblock.deblock_frame(ry, rcb, rcr, qp,
                                                   nnz_blk=nnz, mv=mv,

@@ -11,8 +11,9 @@ chained from each frame to the next.  Per frame the P stage is
 - device CAVLC: the P core (K5), slots (K6) and packer (K7);
 - CABAC: the P core and the record stream (K11p);
 - damage-masked (CAVLC, yuv ingest): ``damage_mask.row_core`` over the
-  frame's worklist of ``damage_bucket`` rows (K5r, K6, K7, K8 on the
-  compacted stack, the row scatter K13);
+  frame's worklist of ``damage_bucket`` rows (K5r at the chunk's tier,
+  with K14r's qp plane and the I16-in-P passes over the rows where the
+  tier has them, K6, K7, K8 on the compacted stack, the row scatter K13);
 - spatially sharded (``spatial_shards`` > 1, yuv ingest, row 15h): the
   spatial P body of ``parallel/batch`` (the halo pad 15e, K5p, K6 and K7
   with the shard axis or K11p per shard, K8), each frame's transport
@@ -124,6 +125,9 @@ def wrappers() -> dict:
             "deblock": h264_deblock.deblock_frame,
             "scatter_rows": damage_mask.scatter_rows,
             "qp_plane": aq.qp_plane,
+            "qp_plane_rows": aq.qp_plane.rows,
+            "inter_rows_hq": h264_inter.encode_p_frame_rows.hq,
+            "inter_rows_i16": h264_inter.encode_p_frame_rows.i16,
             "inter_hq": h264_inter.encode_p_frame.hq,
             "inter_i16": h264_inter.encode_p_frame.i16,
             "inter_merge": h264_inter.encode_p_frame.merge,
@@ -197,9 +201,12 @@ def chunk_body(frames, ref_y, ref_cb, ref_cr, hv, hl, rows, qp: int, *,
     if rows is not None:
         mvs, lvs = [], []
         for i in range(k):
+            # the full tier's lookahead: frame i sees i + 1, the last itself
+            next_y = ys[min(i + 1, k - 1)] if tune == "hq" else None
             flat, ry, rcb, rcr, mv, _, lv = damage_mask.row_core(
                 ys[i], cbs[i], crs[i], ry, rcb, rcr, rows[i], hv[i], hl[i],
-                qp, deblock=deblock, qp_dev=qp_dev)
+                qp, tune=tune, next_y=next_y, p_intra=p_intra,
+                deblock=deblock, qp_dev=qp_dev)
             flats.append(flat)
             mvs.append(mv)
             lvs.append(lv)
@@ -402,11 +409,6 @@ class ChunkStep:
             raise ValueError("a spatial chunk requires yuv ingest and no "
                              "damage bucket (a masked chunk takes a single "
                              "shard)")
-        if damage_bucket > 0 and tune != "off":
-            raise NotImplementedError(
-                "a damage-masked chunk with tune != 'off' is not ported to "
-                "the PyTorch/CUDA encoder yet (ROADMAP queue 1 item 10, "
-                "masked)")
         self.tune, self.p_intra = tune, bool(p_intra)
         self.spatial_shards = int(spatial_shards)
         self.chunk = int(chunk)

@@ -41,7 +41,8 @@ tensors and runs :func:`encode_p_frame_plain` for CPU tensors.
 K5r, :func:`encode_p_frame_rows`, is the same kernel over a worklist of
 MB rows (damage-driven encode, the reference's ``ops/damage_mask.py``
 ``row_core``): compacted outputs of the listed rows, each row searched
-against the whole reference exactly as the full frame's row is.
+against the whole reference exactly as the full frame's row is, at every
+tier, with the qp plane of the listed rows and I16-in-P over the stack.
 
 K5p, :func:`encode_p_frame_padded_ref`, is the reference's
 ``encode_p_frame_padded_ref``: the same kernel reading references that
@@ -179,20 +180,24 @@ def encode_p_frame_plain(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
 
 
 def encode_p_frame_rows_plain(y, cb, cr, ref_y, ref_cb, ref_cr, rows,
-                              qp: int) -> dict:
+                              qp: int, tune: str = "off", qp_map=None,
+                              p_intra: bool = False) -> dict:
     """Plain PyTorch version of K5r, as the reference's ``row_core``
     computes it: the edge-padded reference cut into one band of
-    ``16 + 2*_PAD`` lines per listed row, the P core run on each band,
-    the outputs concatenated in worklist order."""
+    ``16 + 2*_PAD`` lines per listed row, the P core run on each band at
+    the kernel tier ``tune`` (the full tier quantising at the band's row
+    of the worklist's (b, C) ``qp_map``; ``p_intra``: I16-in-P within the
+    band), the outputs concatenated in worklist order."""
     pry, prcb, prcr = _padded_refs(ref_y, ref_cb, ref_cr)
     outs = []
-    for r in rows.tolist():
+    for i, r in enumerate(rows.tolist()):
         outs.append(_p_core_plain(
             y[r * 16:r * 16 + 16], cb[r * 8:r * 8 + 8], cr[r * 8:r * 8 + 8],
             pry[r * 16:r * 16 + 16 + 2 * _PAD],
             prcb[r * 8:r * 8 + 8 + 2 * _PAD],
-            prcr[r * 8:r * 8 + 8 + 2 * _PAD], qp))
-    return {k: torch.cat([o[k] for o in outs]) for k in _OUT_KEYS}
+            prcr[r * 8:r * 8 + 8 + 2 * _PAD], qp, tune,
+            None if qp_map is None else qp_map[i:i + 1], p_intra))
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
 def _p_core_plain(y, cb, cr, ref_pad, ref_pad_cb, ref_pad_cr, qp: int,
@@ -559,7 +564,7 @@ def _check_qp(qp, qp_dev, device) -> None:
 def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
                    refine: str = "alt", tune: str = "off",
                    p_intra: bool = False, qp_dev=None, out=None,
-                   next_y=None) -> dict:
+                   next_y=None, rows=None) -> dict:
     """P core for one frame: current and reference uint8 YUV 4:2:0
     planes (MB-padded) -> MVs, level tensors and recon planes.
 
@@ -582,7 +587,8 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
     Planes stacked (S, H, W), frames and references alike, code S
     sessions' P frames in one launch (tune "off"; the session the grid's
     second axis, each session searching its own reference): every output
-    gains the leading session axis."""
+    gains the leading session axis.  ``rows``: K5r's worklist, as
+    :func:`encode_p_frame_rows` checks and documents it."""
     srow = _refine_scale(refine)
     if tune not in aq.TIERS:
         raise ValueError(f"unknown tune {tune!r}")
@@ -597,14 +603,20 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
     _check_qp(qp, qp_dev, y.device)
     lead = tuple(y.shape[:-2])
     nr, nc = y.shape[-2] // 16, y.shape[-1] // 16
+    nb = nr if rows is None else rows.numel()
     keys = _OUT_KEYS + (("qp_map",) if tune == "hq" else ()) \
         + (_INTRA_KEYS if p_intra else ())
     qp_map = None
     if tune == "hq":
         qp_map = aq.qp_plane(y, qp, next_y, qp_dev,
-                             None if out is None else out.get("qp_map"))
+                             None if out is None else out.get("qp_map"),
+                             rows=rows)
     if y.device.type == "cpu":
-        if ns:
+        if rows is not None:
+            plain = encode_p_frame_rows_plain(y, cb, cr, ref_y, ref_cb,
+                                              ref_cr, rows, int(qp), tune,
+                                              qp_map, p_intra)
+        elif ns:
             from .h264_device import stack_sessions
             plain = stack_sessions([encode_p_frame_plain(
                 y[i], cb[i], cr[i], ref_y[i], ref_cb[i], ref_cr[i], int(qp))
@@ -615,42 +627,47 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
                                          refine)
         if out is None:
             return plain
-        res = _out_tensors(nr, nc, y, out, keys, lead)
+        res = _out_tensors(nb, nc, y, out, keys, lead)
         return {k: res[k].copy_(plain[k]) for k in keys}
-    res = _out_tensors(nr, nc, y, out, keys, lead)
-    if tune == "off" and srow == 2:
-        _launch(y, cb, cr, ref_y, ref_cb, ref_cr, None, qp_dev, res, nr, nc,
-                nr, qp, ns or 1)
-        encode_p_frame.launches += 1
-        return res
+    res = _out_tensors(nb, nc, y, out, keys, lead)
     dev = y.device
+    qpi = [int(qp), quant.chroma_qp(int(qp))]
+    if tune == "off" and srow == 2:
+        _cuda.launch("inter", "inter_frame_launch",
+                     [y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev]
+                     + [res[k] for k in _OUT_KEYS],
+                     [nr, nc, nb] + qpi + [ns or 1], dev)
+        (encode_p_frame if rows is None else encode_p_frame_rows).launches += 1
+        return res
     lam = marg = None
     if tune != "off":
         lam, _, marg = aq.device_tables(tune, dev, srow)
-    score = (torch.empty((nr, nc), dtype=torch.float32, device=dev)
+    score = (torch.empty((nb, nc), dtype=torch.float32, device=dev)
              if p_intra else None)
     tier = aq.TIERS.index(tune)
-    ints = [nr, nc, int(qp), quant.chroma_qp(int(qp)), tier]
     # refine="full": its own form of the kernel at every tier
     _cuda.launch("inter", "inter_frame_hq_launch",
-                 [y, cb, cr, ref_y, ref_cb, ref_cr, qp_dev, qp_map, lam, marg]
-                 + [res[k] for k in _OUT_KEYS] + [score],
-                 ints + [int(srow == 1)], dev)
-    (encode_p_frame.hq if srow == 2 else encode_p_frame.full.hq
-     if tier else encode_p_frame.full).launches += 1
+                 [y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, qp_map, lam,
+                  marg] + [res[k] for k in _OUT_KEYS] + [score],
+                 [nr, nc, nb] + qpi + [tier, int(srow == 1)], dev)
+    (encode_p_frame_rows.hq if rows is not None else encode_p_frame.hq
+     if srow == 2 else encode_p_frame.full.hq if tier
+     else encode_p_frame.full).launches += 1
     if p_intra:
-        _i16_passes(y, cb, cr, res, qp_dev, qp_map, lam, score, nr, nc,
-                    ints[2:4], tier, dev)
+        _i16_passes(y, cb, cr, res, qp_dev, qp_map, lam, score, nb, nc, qpi,
+                    tier, dev, rows=rows)
     if qp_map is not None:
         res["qp_map"] = qp_map
     return res
 
 
 def _i16_passes(y, cb, cr, res, qp_dev, qp_map, lam, score, nr: int,
-                nc: int, qpi, tier: int, dev) -> None:
-    """I16-in-P after the hq form of K5 or K5p: every MB's I16 candidate
-    (pass 2), then per MB row the run-parity gate and the merge (pass 3),
-    over the nr x nc MBs of ``res`` (frame-shaped memory)."""
+                nc: int, qpi, tier: int, dev, rows=None) -> None:
+    """I16-in-P after the hq form of K5, K5p or K5r: every MB's I16
+    candidate (pass 2), then per MB row the run-parity gate and the merge
+    (pass 3), over the nr x nc MBs of ``res`` (frame-shaped memory, or
+    the stack of the worklist ``rows``, whose current MBs lie at frame
+    row ``rows[i]``)."""
     n = nr * nc
     cand = {"want": torch.empty((nr, nc), dtype=torch.uint8, device=dev),
             "ac": torch.empty((n, 16, 15), dtype=torch.int32, device=dev),
@@ -660,13 +677,16 @@ def _i16_passes(y, cb, cr, res, qp_dev, qp_map, lam, score, nr: int,
             "rc": torch.empty((n, 2, 64), dtype=torch.uint8, device=dev)}
     # both passes in one host call (two kernels and the gate)
     _cuda.launch("inter", "inter_intra_launch",
-                 [y, cb, cr, qp_dev, qp_map, lam, score, cand["want"],
+                 [y, cb, cr, rows, qp_dev, qp_map, lam, score, cand["want"],
                   res["i16_dc"], cand["ac"], cand["cac"], cand["cdc"],
                   cand["ry"], cand["rc"]] + [res[k] for k in _OUT_KEYS]
                  + [res["mb_intra"], res["i16_ac"]],
                  [nr, nc] + list(qpi) + [tier], dev)
-    encode_p_frame.i16.launches += 1
-    encode_p_frame.merge.launches += 1
+    if rows is None:
+        encode_p_frame.i16.launches += 1
+        encode_p_frame.merge.launches += 1
+    else:
+        encode_p_frame_rows.i16.launches += 1
 
 
 encode_p_frame.launches = 0
@@ -676,15 +696,9 @@ encode_p_frame.merge = _cuda.Counter()   # run-parity gate and merge (pass 3)
 encode_p_frame.full = _cuda.Counter()    # refine="full" (pass 1), tier 0
 encode_p_frame.full.hq = _cuda.Counter()  # ... tiers 1, 2
 
-def _launch(y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, res, nr, nc, nb,
-            qp, ns: int = 1):
-    _cuda.launch("inter", "inter_frame_launch",
-                 [y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev]
-                 + [res[k] for k in _OUT_KEYS],
-                 [nr, nc, nb, int(qp), quant.chroma_qp(int(qp)), ns], y.device)
-
 
 def encode_p_frame_rows(y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp: int,
+                        tune: str = "off", next_y=None, p_intra: bool = False,
                         qp_dev=None) -> dict:
     """K5r: the P core over the MB rows ``rows`` (int32 (b,), each in
     0..R-1, duplicates allowed) of a frame -> compacted outputs: ``mv``
@@ -692,30 +706,32 @@ def encode_p_frame_rows(y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp: int,
     (8b, W/2), row i of each from frame row ``rows[i]``.  Every row's
     search reads the whole reference, clamped at the frame's edges.
 
-    CUDA tensors launch K5's kernel on b * C blocks; CPU tensors run
+    ``tune``, ``p_intra`` and ``next_y`` as :func:`encode_p_frame`'s, as
+    the reference's ``row_core`` runs them band by band: the full tier's
+    qp plane covers the listed rows (K14r, ``qp_map`` (b, C), the
+    lookahead bias from the same rows of ``next_y``), and I16-in-P adds
+    ``mb_intra``/``i16_dc``/``i16_ac`` (b, C, ...), each MB's candidate
+    predicted from its left neighbour in its own stack row.
+
+    CUDA tensors launch K5's kernel on b * C blocks (then, under
+    ``p_intra``, the I16-in-P passes over the b rows); CPU tensors run
     :func:`encode_p_frame_rows_plain`."""
     _check_planes(y, cb, cr)
-    _check_planes(ref_y, ref_cb, ref_cr)
-    if ref_y.shape != y.shape or ref_y.device != y.device:
-        raise ValueError("reference planes must match the current frame")
-    _check_qp(qp, qp_dev, y.device)
-    nr, nc = y.shape[0] // 16, y.shape[1] // 16
+    nr = y.shape[0] // 16
     if (rows.dim() != 1 or rows.dtype != torch.int32 or rows.device != y.device
             or not 0 < rows.numel() <= nr):
         raise ValueError(f"rows must be 1 to {nr} int32 on {y.device}")
-    if y.device.type == "cpu":
-        if bool((rows < 0).any()) or bool((rows >= nr).any()):
-            raise ValueError(f"rows outside 0..{nr - 1}")
-        return encode_p_frame_rows_plain(y, cb, cr, ref_y, ref_cb, ref_cr,
-                                         rows, int(qp))
-    res = _out_tensors(rows.numel(), nc, y)
-    _launch(y, cb, cr, ref_y, ref_cb, ref_cr, rows.contiguous(), qp_dev, res,
-            nr, nc, rows.numel(), qp)
-    encode_p_frame_rows.launches += 1
-    return res
+    if y.device.type == "cpu" and (bool((rows < 0).any())
+                                   or bool((rows >= nr).any())):
+        raise ValueError(f"rows outside 0..{nr - 1}")
+    return encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp, tune=tune,
+                          p_intra=p_intra, qp_dev=qp_dev, next_y=next_y,
+                          rows=rows.contiguous())
 
 
 encode_p_frame_rows.launches = 0
+encode_p_frame_rows.hq = _cuda.Counter()    # tiers 1, 2 (pass 1)
+encode_p_frame_rows.i16 = _cuda.Counter()   # I16-in-P passes 2, 3 over the rows
 
 
 def encode_p_frame_padded_ref_plain(y, cb, cr, ref_y_pad, ref_cb_pad,
