@@ -96,6 +96,14 @@ Checks, each of which fails the run:
           and K6 (an all-skip and a full-noise P frame, I16-in-P with the
           qp chain over 1 and 4 row bands, 8 stacked 1080p sessions)
           equal to their plain versions
+  k5k4    K5 against plain on moves of (+-9, +-9) (the MV at the window's
+          edge, every frame edge clamped), an unchanged flat frame, a
+          flat frame +3 and one over raised blocks (tied SADs: the first
+          minimum decides), noise and 4K at each tier, 8 stacked
+          sessions, K5p, refine=full and K5r at edge rows and 64 rows;
+          K4 on a flat frame, one texture everywhere, activity runs ending
+          at and holding the p50/p95 positions, 4K and K4c at K = 4 with
+          and without prev, in the intra, full and mb_intra forms
   colour  the odd-geometry stream against one whose colour conversion
           is the plain version; K9 on 1080p and odd frames
   cabac   both routes' access units byte-identical; every K10 and K11
@@ -183,7 +191,10 @@ Run: ``python3 chip_smoke.py`` (details go to ``chiprun_out/``).  Two
 measurement modes for the intra core and the P slot coder (see their
 section near the end): ``python3 chip_smoke.py k1k6-pairs --pairs 3
 parent=.tree/parent change=.`` and ``python3 chip_smoke.py k1-variants``;
-the modes phase alone: ``python3 chip_smoke.py modes``; the damage phase's
+the modes phase alone: ``python3 chip_smoke.py modes``; K5 and K4: ``python3
+chip_smoke.py pairs --set k5k4 --pairs 3 parent=.tree/parent change=.``,
+``python3 chip_smoke.py k5k4-split`` and the k5k4 phase alone ``python3
+chip_smoke.py k5k4``; the damage phase's
 tune-mask part alone: ``python3 chip_smoke.py tune-mask`` (~75 s).  The BD-rate gate
 in alternating fresh processes is ``tools/bdrate_pairs.py``.
 """
@@ -199,7 +210,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 W, H = 1920, 1080
-N_FRAMES = 12              # intra phase desktop frames; one noisy frame is added
+N_FRAMES = 6               # intra phase desktop frames; one noisy frame is added
 NOISY_AT = 1               # still at the first frames' qp: it overflows
 GOP_FRAMES = 26            # GOP phase: IDR, P frames, a second IDR at KF_AT
 GOP_KF_AT = 12
@@ -547,6 +558,8 @@ def run():
     print(f"gop phase done at {time.perf_counter() - t_start:.0f} s")
     chain_phase(report, logs)
     print(f"chain phase done at {time.perf_counter() - t_start:.0f} s")
+    k5k4_phase(report)
+    print(f"k5k4 phase done at {time.perf_counter() - t_start:.0f} s")
     rows += modes_phase(report)
     print(f"modes phase done at {time.perf_counter() - t_start:.0f} s")
     rows += colour_phase(report)
@@ -5517,9 +5530,11 @@ def bench_phase(report, rows_before):
     return rows
 
 
-# -- A/B timing of K1 and K6 across checkouts, and K1's chain by parts ------
+# -- A/B timing of kernel sets across checkouts, and kernels by parts -------
 #
-# ``python3 chip_smoke.py k1k6-pairs [--pairs N] NAME=PATH ...`` compares
+# ``python3 chip_smoke.py pairs --set SET [--pairs N] NAME=PATH ...`` times
+# one set of kernels (``PAIR_SETS``: ``k1k6``, ``k5k4``) on each checkout;
+# ``k1k6-pairs`` is ``pairs --set k1k6``.  For the k1k6 set it compares
 # checkouts of the repository (say a commit's parent, unpacked with ``git
 # archive`` into the git-ignored ``.tree/``, and this tree): every run is a
 # fresh process that imports the port from PATH, round ``i`` runs the
@@ -5533,7 +5548,12 @@ def bench_phase(report, rows_before):
 # without and with the qp chain; K1's and K6's kernels by device time
 # (``torch.profiler``); the device-only intra and P steps (rows 17a, 17b).
 # Each variant's build reports the intra and cavlc sources' ``-Xptxas -v``
-# lines.  Writes ``chiprun_out/k1k6_pairs.json``.
+# lines.  Writes ``chiprun_out/k1k6_pairs.json``.  The k5k4 set times
+# ``k5k4_times``'s list (K5 per tier on three frames, S = 8, 4K, K5p, K5r,
+# K4's forms, steps 17b and 17d, the GOP path) the same way and writes
+# ``chiprun_out/k5k4_pairs.json``; ``k5k4-split`` cuts K5's stages and
+# K4's last-block parts out of copies of their sources (``K5_VARIANTS``,
+# ``K4_VARIANTS``).
 #
 # ``python3 chip_smoke.py k1-variants`` builds copies of ``csrc/intra.cu``
 # with one part of the chain pass cut out (wrong outputs: timing only) into
@@ -5554,36 +5574,28 @@ def ptxas_lines(log: str) -> list:
     return [ln.strip() for ln in log.splitlines() if any(k in ln for k in keep)]
 
 
-def k1k6_child(tree: str, build_only: bool) -> dict:
-    """One run of ``k1k6-pairs``: import the port from ``tree``, time K1,
-    K2, K6 and steps 17a-b."""
-    sys.path.insert(0, os.path.abspath(tree))
+def pair_planes(rgb, ph=None, pw=None):
+    """A host RGB frame as the card's padded I420 planes."""
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        raise SmokeError("no CUDA device")
-    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+    from docker_nvidia_glx_desktop_tpu_torch.utils.hostcolor import (
+        rgb_to_yuv420_host)
+    return [torch.from_numpy(np.ascontiguousarray(p)).to(torch.device("cuda"))
+            for p in rgb_to_yuv420_host(rgb, ph or H_PAD, pw or W)]
 
-    mod = sys.modules[PKG]
-    check(mod.__file__.startswith(os.path.abspath(tree)),
-          f"imported {mod.__file__}, not the package of {tree}")
-    if build_only:
-        logs = _cuda.build(verbose=True)
-        return {"built": tree, "ptxas": {k: ptxas_lines(logs.get(k, ""))
-                                         for k in ("intra", "cavlc")}}
+
+def k1k6_times() -> dict:
+    """The ``k1k6`` set: K1, K2, K6 and steps 17a-b."""
+    import numpy as np
+    import torch
 
     from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
     from docker_nvidia_glx_desktop_tpu_torch.ops import (
         cavlc_device, cavlc_p_device, devloop, h264_device, h264_inter)
-    from docker_nvidia_glx_desktop_tpu_torch.utils.hostcolor import (
-        rgb_to_yuv420_host)
 
     dev, qp = torch.device("cuda"), PAIRS_QP
-
-    def planes(rgb, ph=H_PAD, pw=W):
-        return [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
-                for p in rgb_to_yuv420_host(rgb, ph, pw)]
+    planes = pair_planes
 
     gop = gop_frames(3, seed=2, noisy_at=2)
     desk, moved, noise = planes(gop[0]), planes(gop[1]), planes(gop[2])
@@ -5632,19 +5644,154 @@ def k1k6_child(tree: str, build_only: bool) -> dict:
     return out
 
 
-def k1k6_pairs(argv) -> int:
+def k5k4_times() -> dict:
+    """The ``k5k4`` set: K5 at each tier on a moving desktop, an unchanged
+    and a noise frame, hq with I16-in-P, on 8 stacked sessions and at 4K;
+    K5p at nx = 2; K5r at 1, 8 and 64 rows; K4 full, intra, ``mb_intra``
+    and K4c at K = 4 (eager and replayed); their kernels by device time;
+    steps 17b and 17d; the GOP path's frames/s and P p50 (one frame in
+    flight, host clock)."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder, make_encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        aq, content_stats, devloop, h264_device, h264_inter)
+    from docker_nvidia_glx_desktop_tpu_torch.utils.config import from_env
+
+    dev, qp = torch.device("cuda"), PAIRS_QP
+    ev = lambda fn: cuda_ms(fn, reps=20)
+    gr = lambda fn: graph_ms(fn, reps=20)
+    gop = gop_frames(3, seed=2, noisy_at=2)
+    desk, moving, noise = (pair_planes(f) for f in gop)
+    lv = h264_device.encode_intra_frame_yuv(*desk, qp)
+    ref = (lv["recon_y"], lv["recon_cb"], lv["recon_cr"])
+    k5 = lambda cur, tune="off", pi=False, r=ref: (
+        lambda: h264_inter.encode_p_frame(*cur, *r, qp, tune=tune, p_intra=pi))
+    out = {}
+    for label, cur in (("moving", moving), ("unchanged", ref), ("noise", noise)):
+        for t, tune in enumerate(aq.TIERS):
+            out[f"k5_t{t}_{label}_ms"] = ev(k5(cur, tune))
+    out["k5_t0_graph_ms"] = gr(k5(moving))
+    out["k5_t2_i16_ms"] = ev(k5(moving, "hq", True))
+    out["k5_t2_i16_graph_ms"] = gr(k5(moving, "hq", True))
+    sess = [pair_planes(f) for f in desktop_frames(8, seed=4)[:8]]
+    st = [torch.stack([s[i] for s in sess]) for i in range(3)]
+    sref = [torch.stack([p] * 8) for p in ref]
+    out["k5_s8_ms"] = ev(k5(st, r=sref))
+    big = pair_planes(np.tile(gop[1], (2, 2, 1)), 2 * H_PAD, 2 * W)
+    bref = pair_planes(np.tile(gop[0], (2, 2, 1)), 2 * H_PAD, 2 * W)
+    out["k5_4k_ms"] = ev(k5(big, r=bref))
+    # K5p: two shards of 34 MB rows, each reference edge-padded
+    shard = lambda p: torch.stack([p[:p.shape[0] // 2], p[p.shape[0] // 2:]])
+    pads = [torch.stack([h264_inter._edge_pad(x.to(torch.int32), h264_inter._PAD)
+                         .to(torch.uint8) for x in shard(p)]) for p in ref]
+    cur2 = [shard(p) for p in moving]
+    out["k5p_nx2_ms"] = ev(lambda: h264_inter.encode_p_frame_padded_ref(
+        *cur2, *pads, qp))
+    for n_rows in TUNE_MASK_ROWS:
+        rows = torch.arange(2, 2 + n_rows, dtype=torch.int32, device=dev)
+        fn = lambda rows=rows: h264_inter.encode_p_frame_rows(
+            *moving, *ref, rows, qp)
+        out[f"k5r_{n_rows}_ms"] = ev(fn)
+        out[f"k5r_{n_rows}_graph_ms"] = gr(fn)
+    out["k5_split"] = kernel_split(k5(moving))
+    o = h264_inter.encode_p_frame(*moving, *ref, qp)
+    ohq = h264_inter.encode_p_frame(*moving, *ref, qp, tune="hq", p_intra=True)
+    keys = ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
+    resid, resid_hq = (tuple(x[k] for k in keys) for x in (o, ohq))
+    y, py = moving[0], desk[0]
+    ys = torch.stack([py, y, py, y])
+    st4 = lambda t: torch.stack([t] * 4)
+    forms = {
+        "full": lambda: content_stats.frame_stats_full(
+            y, py, 512, o["recon_y"], o["mv"], resid),
+        "intra": lambda: content_stats.frame_stats(y, py, 512),
+        "mb_intra": lambda: content_stats.frame_stats_full(
+            y, py, 512, ohq["recon_y"], ohq["mv"], resid_hq, ohq["mb_intra"]),
+        "k4c": lambda: content_stats.chunk_stats(
+            ys, py, 512, o["recon_y"], st4(o["mv"]), tuple(map(st4, resid))),
+    }
+    for name, fn in forms.items():
+        out[f"k4_{name}_ms"] = ev(fn)
+        out[f"k4_{name}_graph_ms"] = gr(fn)
+    out["k4_split"] = kernel_split(forms["full"])
+    out["k4_intra_split"] = kernel_split(forms["intra"])
+
+    enc = H264Encoder(W, H, mode="cavlc", entropy="device", host_color=True,
+                      device=dev)
+    d = pair_planes(gop_frames(1, seed=5)[0])
+    hvp, hlp = enc._p_hdr_slots(1, 0)
+    out["step17b_ms"] = devloop.measure_steady_state(
+        lambda k: devloop.p_loop(*d, *d, hvp, hlp, k, qp, deblock=True),
+        budget_s=PAIRS_LOOP_BUDGET_S)["step_ms"]
+    out["step17d_ms"] = devloop.measure_steady_state(
+        lambda k: devloop.inter_loop(*d, *d, k, qp),
+        budget_s=PAIRS_LOOP_BUDGET_S)["step_ms"]
+    # the GOP path (default config, one frame in flight)
+    enc, _ = make_encoder(from_env({"SIZEW": str(W), "SIZEH": str(H)}), W, H)
+    frames = gop_frames(TIMED_FRAMES + 1, seed=2)
+    enc.encode_collect(enc.encode_submit(frames[0]))
+    lat, kinds = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames[1:]:
+        ts = time.perf_counter()
+        tok = enc.encode_submit(f)
+        enc.encode_collect(tok)
+        lat.append((time.perf_counter() - ts) * 1e3)
+        kinds.append(tok[0])
+    out["gop_fps"] = len(lat) / (time.perf_counter() - t0)
+    out["gop_p_p50_ms"] = statistics.median(
+        m for m, k in zip(lat, kinds) if k == "p")
+    return out
+
+
+# the measured sets: (timing function, the sources whose ptxas lines a
+# build prints, the output file's stem)
+PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
+             "k5k4": (k5k4_times, ("inter", "content"))}
+
+
+def pairs_child(set_name: str, tree: str, build_only: bool) -> dict:
+    """One run of a pairs set: import the port from ``tree``, then build
+    (printing the set's ``-Xptxas -v`` lines) or time the set."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeError("no CUDA device")
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+
+    mod = sys.modules[PKG]
+    check(mod.__file__.startswith(os.path.abspath(tree)),
+          f"imported {mod.__file__}, not the package of {tree}")
+    times, srcs = PAIR_SETS[set_name]
+    if build_only:
+        logs = _cuda.build(verbose=True)
+        return {"built": tree, "ptxas": {k: ptxas_lines(logs.get(k, ""))
+                                         for k in srcs}}
+    return times()
+
+
+def pairs(argv, set_name=None) -> int:
+    """``pairs --set NAME`` (``k1k6-pairs`` is ``--set k1k6``): the set's
+    timings of each NAME=PATH checkout in alternating fresh processes;
+    writes ``chiprun_out/<set>_pairs.json``."""
     import argparse
 
     import torch
 
-    ap = argparse.ArgumentParser(prog="chip_smoke.py k1k6-pairs")
+    prog = "k1k6-pairs" if set_name else "pairs"
+    ap = argparse.ArgumentParser(prog=f"chip_smoke.py {prog}")
     ap.add_argument("variants", nargs="*", help="NAME=PATH")
+    ap.add_argument("--set", choices=sorted(PAIR_SETS), default=set_name or "k1k6")
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--build-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        print(json.dumps(k1k6_child(args.child, args.build_only)))
+        print(json.dumps(pairs_child(args.set, args.child, args.build_only)))
         return 0
     check(torch.cuda.is_available(), "no CUDA device")
     variants = []
@@ -5655,8 +5802,8 @@ def k1k6_pairs(argv) -> int:
     check(bool(variants), "give at least one NAME=PATH")
 
     def one(tree, build_only=False):
-        cmd = [sys.executable, os.path.abspath(__file__), "k1k6-pairs",
-               "--child", tree] + (["--build-only"] if build_only else [])
+        cmd = [sys.executable, os.path.abspath(__file__), "pairs", "--set",
+               args.set, "--child", tree] + (["--build-only"] if build_only else [])
         p = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
                            cwd=HERE)
         check(p.returncode == 0, f"run of {tree} failed:\n{p.stderr[-4000:]}")
@@ -5683,7 +5830,8 @@ def k1k6_pairs(argv) -> int:
                          for k, v in mine[0].items() if isinstance(v, float)}
     print(json.dumps({"card": smi, "summary": summary}))
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out", "k1k6_pairs.json"), "w") as f:
+    with open(os.path.join(HERE, "chiprun_out", f"{args.set}_pairs.json"),
+              "w") as f:
         json.dump({"card": smi, "builds": builds, "runs": runs,
                    "summary": summary}, f, indent=1)
     return 0
@@ -5723,6 +5871,45 @@ K1_VARIANTS = {
 }
 
 
+def build_variants(src_name: str, variants: dict) -> dict:
+    """Copies of ``csrc/<src_name>.cu`` with each variant's (old, new)
+    substitutions, built at once into ``.tree/<src_name>_variants/<name>``
+    (timing only: a cut part leaves wrong outputs).  Returns {name: the
+    loaded library}."""
+    import ctypes
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+
+    csrc = _cuda.CSRC
+    out_dir = os.path.join(HERE, ".tree", f"{src_name}_variants")
+    src = open(os.path.join(csrc, f"{src_name}.cu")).read()
+    procs = {}
+    for name, subs in variants.items():
+        text = src
+        for old, new in subs:
+            check(old in text,
+                  f"{name}: pattern not in {src_name}.cu: {old[:60]!r}")
+            text = text.replace(old, new)
+        d = os.path.join(out_dir, name)
+        os.makedirs(d, exist_ok=True)
+        for f in ("common.cuh", "transform.cuh"):
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(open(os.path.join(csrc, f)).read())
+        with open(os.path.join(d, f"{src_name}.cu"), "w") as fh:
+            fh.write(text)
+        procs[name] = subprocess.Popen(
+            [_cuda.nvcc()] + _cuda._NVCC_FLAGS
+            + ["-o", os.path.join(d, "lib.so"),
+               os.path.join(d, f"{src_name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, p in procs.items():
+        log = p.communicate()[0]
+        check(p.returncode == 0, f"{name}: nvcc failed\n{log[-3000:]}")
+        libs[name] = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
+    return libs
+
+
 def k1_variants() -> int:
     import ctypes
 
@@ -5731,35 +5918,13 @@ def k1_variants() -> int:
 
     check(torch.cuda.is_available(), "no CUDA device")
     sys.path.insert(0, HERE)
-    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
     from docker_nvidia_glx_desktop_tpu_torch.ops.h264_device import PRE_WORDS
     from docker_nvidia_glx_desktop_tpu_torch.utils.hostcolor import (
         rgb_to_yuv420_host)
 
     smi = smi_line()
     print(smi, flush=True)
-    csrc, out_dir = _cuda.CSRC, os.path.join(HERE, ".tree", "k1_variants")
-    src = open(os.path.join(csrc, "intra.cu")).read()
-    procs = {}
-    for name, subs in K1_VARIANTS.items():
-        text = src
-        for old, new in subs:
-            check(old in text, f"{name}: pattern not in intra.cu: {old[:60]!r}")
-            text = text.replace(old, new)
-        d = os.path.join(out_dir, name)
-        os.makedirs(d, exist_ok=True)
-        for f in ("common.cuh", "transform.cuh"):
-            with open(os.path.join(d, f), "w") as fh:
-                fh.write(open(os.path.join(csrc, f)).read())
-        with open(os.path.join(d, "intra.cu"), "w") as fh:
-            fh.write(text)
-        procs[name] = subprocess.Popen(
-            [_cuda.nvcc()] + _cuda._NVCC_FLAGS
-            + ["-o", os.path.join(d, "lib.so"), os.path.join(d, "intra.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, p in procs.items():
-        log = p.communicate()[0]
-        check(p.returncode == 0, f"{name}: nvcc failed\n{log[-3000:]}")
+    libs = build_variants("intra", K1_VARIANTS)
     dev = torch.device("cuda")
     y, cb, cr = [torch.from_numpy(np.ascontiguousarray(p)).to(dev) for p in
                  rgb_to_yuv420_host(desktop_frames(2)[0], H_PAD, W)]
@@ -5773,7 +5938,7 @@ def k1_variants() -> int:
             i32(nr * nc, PRE_WORDS)]
     res = {}
     for name in K1_VARIANTS:
-        fn = ctypes.CDLL(os.path.join(out_dir, name, "lib.so")).intra_frame_launch
+        fn = libs[name].intra_frame_launch
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
@@ -5787,6 +5952,396 @@ def k1_variants() -> int:
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "k1_variants.json"), "w") as f:
         json.dump({"card": smi, "ms": res}, f, indent=1)
+    return 0
+
+
+K5K4_QP = 26
+
+
+def texture(h: int, w: int, dev, seed: int):
+    """A smooth seeded texture with fine noise (uint8 (h, w)): every
+    shift of it is distinct, so the search finds the true motion."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(seed)
+    lo = torch.randint(0, 256, (1, 1, h // 8 + 4, w // 8 + 4), generator=g)
+    t = F.interpolate(lo.float(), scale_factor=8, mode="bicubic",
+                      align_corners=False)[0, 0, :h, :w]
+    t = t + torch.randint(-6, 7, (h, w), generator=g)
+    return t.clamp(0, 255).to(torch.uint8).to(dev)
+
+
+def moved(p, dy: int, dx: int):
+    """``p`` moved by (dy, dx) pels, the edges replicated."""
+    import torch
+
+    h, w = p.shape
+    iy = (torch.arange(h, device=p.device) - dy).clamp(0, h - 1)
+    ix = (torch.arange(w, device=p.device) - dx).clamp(0, w - 1)
+    return p[iy][:, ix].contiguous()
+
+
+def k4_frame(nr: int, nc: int, kinds, dev, seed: int):
+    """A luma plane of nr x nc MBs whose MB i is flat (kind 0) or one of
+    two fixed textures (kinds 1, 2): three activity values, in the
+    numbers ``kinds`` gives, at shuffled places."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    tex = torch.randint(0, 256, (3, 16, 16), generator=g, dtype=torch.int64)
+    tex[0] = 77                                     # activity 0
+    tex[1] = tex[1] // 4 + 60                       # below kind 2's
+    order = torch.randperm(nr * nc, generator=g)
+    kind = torch.cat([torch.full((k,), i) for i, k in enumerate(kinds)])[order]
+    mbs = tex[kind].reshape(nr, nc, 16, 16).permute(0, 2, 1, 3)
+    return mbs.reshape(nr * 16, nc * 16).to(torch.uint8).to(dev)
+
+
+def k5k4_phase(report):
+    """K5 and K4 on the inputs that break their designs, against the plain
+    versions.  K5 (1080p unless said): textures moved by (+-9, +-9) (the
+    MV at the window's edge, every frame edge's window clamped), an
+    unchanged flat frame and one lifted by 3 (all 81 coarse SADs tie),
+    a flat frame over raised blocks (the four corner shifts tie: the first
+    minimum decides),
+    noise, 4K (3840x2176), each tier (I16-in-P at the hq tiers), eight
+    stacked sessions, the padded form (K5p), refine="full" and K5r's
+    worklists at the frame's edge rows and at 64 rows.  K4: a flat frame,
+    one texture everywhere (every activity equal), three activities placed
+    so that the p50 and p95 positions fall on either side of a run's end
+    or inside it, synthetic MV fields with repeated magnitudes, the
+    intra, full and mb_intra forms, 4K (n = 32640) and K4c at K = 4 with
+    and without ``prev``."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import aq, content_stats, h264_inter
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rep = report["k5k4"] = {}
+    qp = K5K4_QP
+    k5 = h264_inter.encode_p_frame
+    outs = ("mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac", "recon_y",
+            "recon_cb", "recon_cr")
+
+    def yuv(y, seed):
+        h, w = y.shape
+        return [y, texture(h // 2, w // 2, dev, seed),
+                texture(h // 2, w // 2, dev, seed + 1)]
+
+    def same(label, got, want):
+        for k in want:
+            check(torch.equal(got[k], want[k]), f"{label}: {k} differs")
+
+    def held(label, cur, ref, tune="off", qp_=qp, **kw):
+        pi = tune != "off"
+        got = k5(*cur, *ref, qp_, tune=tune, p_intra=pi, **kw)
+        qm = got.get("qp_map")
+        want = h264_inter.encode_p_frame_plain(*cur, *ref, qp_, tune, qm, pi,
+                                               **kw)
+        same(f"K5 {label} {tune}", got, want)
+        return got
+
+    base = texture(H_PAD, W, dev, 51)
+    ref = yuv(base, 52)
+    mvs = {}
+    for dy, dx in ((9, 9), (-9, -9), (9, -9), (-9, 9)):
+        cur = [moved(p, dy // (1 + (i > 0)), dx // (1 + (i > 0)))
+               for i, p in enumerate(ref)]
+        for tune in ("off",) if (dy, dx) != (9, 9) else aq.TIERS:
+            got = held(f"moved ({dy}, {dx})", cur, ref, tune)
+        # interior MBs find the move at the window's edge: -4 x (dy, dx)
+        inner = got["mv"][2:-2, 2:-2].reshape(-1, 2)
+        mvs[f"{dy},{dx}"] = float((inner == torch.tensor(
+            [-4 * dy, -4 * dx], device=dev)).all(dim=1).float().mean())
+    rep["moved_mv_share"] = mvs
+    check(min(mvs.values()) > 0.5, f"K5: the moves were not found: {mvs}")
+    flat = [torch.full_like(p, 128) for p in ref]
+    lifted = [p + 3 for p in flat]
+    held("unchanged flat", flat, flat)
+    # raised 16x16 blocks at the MBs of even row and column on a flat
+    # reference, a flat current frame: there the four corner shifts
+    # (+-8, +-8) tie as the smallest coarse SAD and the first decides
+    raised = flat[0].clone().view(H_PAD // 16, 16, W // 16, 16)
+    raised[0::2, :, 0::2, :] += 60
+    tie_ref = [raised.view(H_PAD, W)] + flat[1:]
+    for tune in aq.TIERS:
+        got = held("flat on raised blocks", flat, tie_ref, tune)
+        held("flat +3", lifted, flat, tune)
+        if tune == "off":
+            rep["tie_mv"] = got["mv"][2, 2].tolist()
+    g = torch.Generator().manual_seed(53)
+    noise = [torch.randint(0, 256, p.shape, generator=g, dtype=torch.uint8)
+             .to(dev) for p in ref]
+    for tune in ("off", "hq"):
+        held("noise", noise, ref, tune)
+    big = texture(2 * H_PAD, 2 * W, dev, 54)
+    bref = yuv(big, 55)
+    bcur = [moved(p, 5 // (1 + (i > 0)), -3) for i, p in enumerate(bref)]
+    held("4K", bcur, bref)
+    held("4K", bcur, bref, "hq")
+    # eight sessions stacked: the moves, the flat tie, noise and the desktop
+    sess_c, sess_r = [], []
+    for dy, dx in ((9, 9), (-9, -9), (9, -9), (-9, 9), (0, 0), (3, -2)):
+        sess_c.append([moved(p, dy // (1 + (i > 0)), dx // (1 + (i > 0)))
+                       for i, p in enumerate(ref)])
+        sess_r.append(ref)
+    sess_c += [lifted, noise]
+    sess_r += [flat, ref]
+    st = lambda ps, i: torch.stack([p[i] for p in ps])
+    got = k5(*(st(sess_c, i) for i in range(3)), *(st(sess_r, i) for i in range(3)), qp)
+    for s in range(8):
+        want = h264_inter.encode_p_frame_plain(*sess_c[s], *sess_r[s], qp)
+        same(f"K5 sessions, session {s}", {k: got[k][s] for k in outs}, want)
+    # the padded form, refine="full" and the worklists
+    cur = [moved(p, -9 // (1 + (i > 0)), 9 // (1 + (i > 0)))
+           for i, p in enumerate(ref)]
+    pads = [h264_inter._edge_pad(p.to(torch.int32), h264_inter._PAD)
+            .to(torch.uint8).contiguous() for p in ref]
+    for tune in aq.TIERS:
+        pi = tune != "off"
+        got = h264_inter.encode_p_frame_padded_ref(*cur, *pads, qp, tune=tune,
+                                                   p_intra=pi)
+        want = h264_inter.encode_p_frame_padded_ref_plain(
+            *cur, *pads, qp, tune, got.get("qp_map"), pi)
+        same(f"K5p {tune}", got, want)
+        held("moved, refine=full", cur, ref, tune, refine="full")
+    nr = H_PAD // 16
+    for rows in ([0, nr - 1, nr // 2, 0], list(range(max(nr - 64, 0), nr))):
+        rt = torch.tensor(rows, dtype=torch.int32, device=dev)
+        for tune in aq.TIERS:
+            pi = tune != "off"
+            got = h264_inter.encode_p_frame_rows(*cur, *ref, rt, qp, tune,
+                                                 p_intra=pi)
+            want = h264_inter.encode_p_frame_rows_plain(
+                *cur, *ref, rt, qp, tune, got.get("qp_map"), pi)
+            same(f"K5r {len(rows)} rows {tune}", got, want)
+    torch.cuda.synchronize()
+    print("(a) k5k4: K5 equal to plain on moves of (+-9, +-9) (interior MV "
+          f"at the window's edge: {mvs}), an unchanged flat frame, a flat "
+          "frame +3 (all coarse SADs tie) and a flat frame on raised blocks "
+          f"(four corner shifts tie; MV {rep['tie_mv']}), noise and 4K, at "
+          "each tier; 8 stacked "
+          "sessions; K5p, refine=full and K5r at edge rows and 64 rows at "
+          "each tier")
+
+    # -- K4 --------------------------------------------------------------
+    errs = []
+
+    def held4(label, ys, prev, recon=None, mvs=None, resid=None, mb_intra=None):
+        args = (recon, mvs, resid, mb_intra)
+        v_k, g_k = content_stats.chunk_stats(ys, prev, 512, *args)
+        v_p, g_p = content_stats.chunk_stats_plain(ys, prev, 512, *args)
+        check(torch.equal(g_k, g_p), f"K4 {label}: damage grid differs")
+        ints = [1, 2, 3, 4, 9]
+        check(torch.equal(v_k[:, ints], v_p[:, ints]),
+              f"K4 {label}: integer fields differ {v_k} {v_p}")
+        rel = ((v_k - v_p).abs() / v_p.abs().clamp(min=1)).max()
+        check(float(rel) <= EXACT_REL_TOL, f"K4 {label}: {v_k} vs {v_p}")
+        errs.append(float((v_k - v_p).abs().max()))
+        return v_k
+
+    def synth(nr, nc, seed):
+        """An MV field of few magnitudes and sparse residual levels."""
+        g = torch.Generator().manual_seed(seed)
+        mv = torch.tensor([0, 4, -4, 9, -36, 12], dtype=torch.int32)[
+            torch.randint(0, 6, (nr, nc, 2), generator=g)]
+        res = []
+        for shape in ((16, 16), (4,), (4, 15), (4,), (4, 15)):
+            t = torch.randint(-1, 2, (nr, nc) + shape, generator=g,
+                              dtype=torch.int32)
+            t *= torch.rand((nr, nc) + (1,) * len(shape), generator=g) < 0.3
+            res.append(t.to(dev))
+        intra = (torch.rand((nr, nc), generator=g) < 0.1).to(dev)
+        return mv.to(dev), tuple(res), intra
+
+    nr, nc = H_PAD // 16, W // 16
+    n = nr * nc
+    p50_lo = (n - 1) // 2                 # floor(0.5 (n - 1))
+    p95_lo = int(np.floor(np.float32(0.95) * np.float32(n - 1)))
+    cases = {
+        "flat": [n, 0, 0],
+        "one texture": [0, n, 0],
+        "runs end at both positions": [p50_lo + 1, p95_lo - p50_lo, n - p95_lo - 1],
+        "runs hold both positions": [p50_lo + 3, p95_lo - p50_lo - 5, n - p95_lo + 2],
+    }
+    mv, resid, intra = synth(nr, nc, 56)
+    prev = texture(H_PAD, W, dev, 57)
+    for i, (label, kinds) in enumerate(cases.items()):
+        y = k4_frame(nr, nc, kinds, dev, 60 + i)[None]
+        one = lambda t: t[None]
+        v = held4(f"{label}, intra form", y, prev)
+        held4(f"{label}, full form", y, prev, y[0] ^ 1, one(mv),
+              tuple(map(one, resid)))
+        held4(f"{label}, mb_intra", y, prev, y[0] ^ 1, one(mv),
+              tuple(map(one, resid)), one(intra))
+        held4(f"{label}, no prev", y, None)
+        rep.setdefault("act_pct", {})[label] = [float(v[0, 7]), float(v[0, 8])]
+    by = k4_frame(2 * nr, 2 * nc, [2 * n, 2 * n - 7, 7], dev, 65)
+    bmv, bres, bintra = synth(2 * nr, 2 * nc, 66)
+    held4("4K", by[None], moved(by, 1, 1), by ^ 2, bmv[None],
+          tuple(t[None] for t in bres), bintra[None])
+    ys = torch.stack([k4_frame(nr, nc, kinds, dev, 70 + i)
+                      for i, kinds in enumerate(cases.values())])
+    st4 = lambda t: torch.stack([t] * 4)
+    for pv in (None, prev):
+        held4("K4c, K = 4", ys, pv, ys[-1] ^ 3, st4(mv),
+              tuple(st4(t) for t in resid))
+        held4("K4c, K = 4, intra form", ys, pv)
+    rep["k4_max_abs_err"] = max(errs)
+    rep["s"] = time.perf_counter() - t_phase
+    print("(a) k5k4: K4 (intra, full, mb_intra, no prev) equal to plain on a "
+          "flat frame, one texture everywhere and three activities whose runs "
+          "end at or hold the p50/p95 positions (p50, p95: "
+          f"{rep['act_pct']}), 4K, K4c at K = 4 with and without prev; max "
+          f"abs err {max(errs):.3g}; {rep['s']:.1f} s")
+    return []
+
+
+# K5's stages cut out of copies of inter.cu, one stage a copy (timing
+# only: a cut stage leaves its outputs wrong but every index in range)
+K5_VARIANTS = {
+    "base": [],
+    "no_coarse": [("  if (lane < 27) {", "  if (lane < 0) {"),
+                  ("const int cy = -8 + 2 * (int)((key & 127) / 9), "
+                   "cx = -8 + 2 * (int)((key & 127) % 9);",
+                   "const int cy = 0, cx = 0;")],
+    "no_rerank": [("    if (k < 9) {\n      const int oy = k ? nb_y(k - 1) : 0",
+                   "    if (k < 0) {\n      const int oy = k ? nb_y(k - 1) : 0")],
+    "no_planes": [("  if (lane < SRC_H) {", "  if (lane < 0) {"),
+                  ("task < 4 * PW; task += 32)", "task < 0; task += 32)")],
+    "no_half": [("    for (int tt = 0; tt < 4 / RS; ++tt) {\n"
+                 "      const int i = RS * (g + 4 * tt);\n      uint32_t rw[4];",
+                 "    for (int tt = 0; tt < 0; ++tt) {\n"
+                 "      const int i = RS * (g + 4 * tt);\n      uint32_t rw[4];")],
+    "no_quarter": [("    for (int tt = 0; tt < 4 / RS; ++tt) {\n"
+                    "      const int i = RS * (g + 4 * tt);\n      uint4 pw;",
+                    "    for (int tt = 0; tt < 0; ++tt) {\n"
+                    "      const int i = RS * (g + 4 * tt);\n      uint4 pw;")],
+    "no_residual": [("  residual<TIER>(ws, lane,", "  if (0) residual<TIER>(ws, lane,")],
+}
+
+
+# K4's last-block work cut out of copies of content.cu (timing only)
+K4_VARIANTS = {
+    "base": [],
+    "no_select": [("  if (!last) return;\n", "  return;\n")],
+    "no_sums": [("  for (int i0 = t; i0 < n; i0 += NT * B) {\n    int g[B]",
+                 "  for (int i0 = t; i0 < 0; i0 += NT * B) {\n    int g[B]")],
+    "no_digits": [("  for (int d = 3; d >= 0; --d) {", "  for (int d = 3; d >= 4; --d) {")],
+}
+
+
+def k5k4_split() -> int:
+    """``python3 chip_smoke.py k5k4-split``: the inter and content sources'
+    ``-Xptxas -v`` lines, K5's tier-0 launch at 1080p with each stage cut
+    out (``K5_VARIANTS``, graph replays), and K4's kernels by device time
+    (``kernel_split``) in its full, intra and ``mb_intra`` forms and K4c
+    at K = 4, beside each form's CUDA-event ms.  Writes
+    ``chiprun_out/k5k4_split.json``."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, HERE)
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        _cuda, content_stats, h264_device, h264_inter)
+    from docker_nvidia_glx_desktop_tpu_torch.utils.hostcolor import (
+        rgb_to_yuv420_host)
+
+    smi = smi_line()
+    print(smi, flush=True)
+    logs = _cuda.build(verbose=True)
+    ptx = {k: ptxas_lines(logs.get(k, "")) for k in ("inter", "content")}
+    for src, lines in ptx.items():
+        for ln in lines:
+            print(f"ptxas {src}: {ln}", flush=True)
+    libs = build_variants("inter", K5_VARIANTS)
+    dev = torch.device("cuda")
+
+    def planes(rgb):
+        return [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                for p in rgb_to_yuv420_host(rgb, H_PAD, W)]
+
+    gop = gop_frames(3, seed=2)
+    prev, cur = planes(gop[0]), planes(gop[1])
+    lv = h264_device.encode_intra_frame_yuv(*prev, PAIRS_QP)
+    ref = (lv["recon_y"], lv["recon_cb"], lv["recon_cr"])
+    nr, nc = H_PAD // 16, W // 16
+    i32 = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)
+    ptrs = [*cur, *ref, None, None, i32(nr, nc, 2), i32(nr, nc, 16, 16),
+            i32(nr, nc, 4), i32(nr, nc, 4, 15), i32(nr, nc, 4),
+            i32(nr, nc, 4, 15), torch.empty_like(cur[0]),
+            torch.empty_like(cur[1]), torch.empty_like(cur[2])]
+    k5 = {}
+    for name in K5_VARIANTS:
+        fn = libs[name].inter_frame_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+
+        def call():
+            err = fn(*[None if t is None else t.data_ptr() for t in ptrs],
+                     nr, nc, nr, PAIRS_QP, PAIRS_QP, 1,
+                     torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"{name}: CUDA error {err}")
+        k5[name] = graph_ms(call, reps=20)
+        print(f"K5 {name}: {k5[name]:.4f} ms", flush=True)
+
+    o = h264_inter.encode_p_frame(*cur, *ref, PAIRS_QP)
+    k4libs = build_variants("content", K4_VARIANTS)
+    keys = ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
+    vecs = torch.empty((1, 10), dtype=torch.float32, device=dev)
+    grids = torch.empty((1, nr, nc), dtype=torch.uint8, device=dev)
+    scr = torch.empty(4 * nr * nc, dtype=torch.int32, device=dev)
+    k4cut = {}
+    for form, opt in (("full", [o["recon_y"], o["mv"]] + [o[k] for k in keys]),
+                      ("intra", [None] * 7)):
+        ptrs4 = [cur[0], prev[0]] + opt + [None, vecs, grids, scr]
+        for name in K4_VARIANTS:
+            fn = k4libs[name].chunk_stats_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * len(ptrs4) + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
+
+            def call4():
+                err = fn(*[None if t is None else t.data_ptr() for t in ptrs4],
+                         1, nr, nc, 512, torch.cuda.current_stream().cuda_stream)
+                check(err == 0, f"{name}: CUDA error {err}")
+            k4cut[f"{form}_{name}"] = graph_ms(call4, reps=20)
+            print(f"K4 {form} {name}: {k4cut[form + '_' + name]:.4f} ms",
+                  flush=True)
+
+    ohq = h264_inter.encode_p_frame(*cur, *ref, PAIRS_QP, tune="hq",
+                                    p_intra=True)
+    keys = ("luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
+    resid, resid_hq = (tuple(x[k] for k in keys) for x in (o, ohq))
+    y, py = cur[0], prev[0]
+    ys = torch.stack([py, y, py, y])
+    st = lambda t: torch.stack([t] * 4)
+    forms = {
+        "full": lambda: content_stats.frame_stats_full(
+            y, py, 512, o["recon_y"], o["mv"], resid),
+        "intra": lambda: content_stats.frame_stats(y, py, 512),
+        "mb_intra": lambda: content_stats.frame_stats_full(
+            y, py, 512, ohq["recon_y"], ohq["mv"], resid_hq, ohq["mb_intra"]),
+        "k4c": lambda: content_stats.chunk_stats(
+            ys, py, 512, o["recon_y"], st(o["mv"]),
+            tuple(st(t) for t in resid)),
+    }
+    k4 = {}
+    for name, fn in forms.items():
+        k4[name] = {"ms": cuda_ms(fn, reps=20), "graph_ms": graph_ms(fn),
+                    "split": kernel_split(fn)}
+        print(f"K4 {name}: {json.dumps(k4[name])}", flush=True)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k5k4_split.json"), "w") as f:
+        json.dump({"card": smi, "ptxas": ptx, "k5_cut_ms": k5,
+                   "k4_cut_ms": k4cut, "k4": k4}, f, indent=1)
     return 0
 
 
@@ -5829,9 +6384,15 @@ def main(argv=None):
         if argv[:1] == ["tune-mask"]:
             return phase_alone("tune_mask", tune_mask_phase, ("inter", "aq"))
         if argv[:1] == ["k1k6-pairs"]:
-            return k1k6_pairs(argv[1:])
+            return pairs(argv[1:], "k1k6")
+        if argv[:1] == ["pairs"]:
+            return pairs(argv[1:])
         if argv[:1] == ["k1-variants"]:
             return k1_variants()
+        if argv[:1] == ["k5k4-split"]:
+            return k5k4_split()
+        if argv[:1] == ["k5k4"]:
+            return phase_alone("k5k4", k5k4_phase, ("inter", "content"))
         return run()
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -14,23 +14,54 @@
 // What bounds it: integer operations, not bytes.  It reads the two
 // frames once (~6 MB at 1080p) but every MB scores 81 coarse candidates
 // plus 9 + 8 + 8 refinement candidates of 128 even-line pels each, and
-// builds 4 x 18 x 18 interpolated samples.  Every MB is independent
+// builds 3 x 18 x 18 interpolated samples.  Every MB is independent
 // (slice per MB row, left-only MV prediction, motion search reads only
-// the reference), so one CUDA block of 256 threads takes one MB: it
-// stages the reference window the MV range reaches (MB +- 13 pels,
-// coordinates clamped, which equals the reference's edge padding) and
-// the current MB in shared memory, scores each stage's candidates with
-// 16 threads each (a column per thread, a 16-lane shuffle sum), and
-// picks the first minimum with a strict '<' as jnp.argmin does.  No
-// float touches a SAD.
+// the reference).  At 1080p the operations bound is 0.0104 ms (tier 0,
+// chip_smoke.k5_ops over 67 T/s); the kernel's device time is 0.0310 ms
+// against the block-per-MB design's 0.1810 (H100 80GB HBM3, 700 W,
+// torch.profiler in chip_smoke.py's k5k4 pairs), 0.0376 against 0.1866
+// as a graph replay.
+//
+// Design (redesigned for Hopper; one launch a frame, plus two for
+// I16-in-P): a warp per MB, a block of eight warps per run of eight MBs
+// along a row.
+//  - The block stages the reference strip its eight windows share (MB
+//    +- 13 pels: 42 rows x 176 bytes) once, as bytes, with 16-byte
+//    cp.async copies; the chunks past the frame's left and right edges,
+//    and every chunk of the padded form, are copied byte by byte with the
+//    coordinates clamped as the reference's edge padding.  That is the
+//    kernel's only block barrier.
+//  - Pels stay bytes, four to a 32-bit word: a candidate's 16-pel row is
+//    five shared words funnel-shifted to its byte offset, and its SAD
+//    four __vsadu4.  SADs are integers throughout.
+//  - Coarse grid: 27 lanes, a lane per column shift dx and three row
+//    shifts dy; a lane walks its 16 reference rows once, each row
+//    serving the three shifts whose even line it is.  The +-1 re-rank
+//    takes two lanes a candidate, the subpel stages four.
+//  - Each stage's first minimum is one __reduce_min_sync over a key
+//    (SAD - bias + 2^16) << 7 | k: the smallest key is the smallest
+//    biased SAD with the lowest index, jnp.argmin's first minimum.  The
+//    biases and the subpel `use` rules are the reference's.
+//  - The b, h and j planes around mv_int are built as bytes in two warp
+//    passes: a lane per source row filters horizontally (b, and the
+//    unrounded b1 kept as 16-bit with 32 x the window's pels beside it),
+//    then a lane per column and half filters vertically (h from 32 x
+//    window, j from b1: the same (x + 512) >> 10).
+//  - The residual takes 24 lanes, one 4x4 block each (16 luma, 8 chroma)
+//    on one code path: transform, quant, dequant, inverse and recon in
+//    registers, the chroma DC Hadamards by shuffles among each plane's
+//    four lanes.  Under tune=hq the levels and recon stay in registers
+//    until the forced-skip decision; its sums are warp reductions of
+//    integers and the decision the reference's float32 order (__fadd_rn,
+//    __fmaf_rn).
 //
 // K5r, the same kernel over a worklist of MB rows, replaces
 // docker_nvidia_glx_desktop_tpu/ops/damage_mask.py:170 row_core's P
 // core (its vmap of encode_p_frame_padded_ref over row bands cut from
 // the edge-padded reference): with a `rows` array of b MB rows the grid
-// is b * nc blocks, block i encodes frame row rows[i / nc] and writes
-// compacted (b, nc, ...) outputs and (16b, W) / (8b, W/2) recon planes.
-// A band's search window is clamped at the frame's edges, not the
+// covers b rows of MB runs, stack row i encodes frame row rows[i] and
+// writes compacted (b, nc, ...) outputs and (16b, W) / (8b, W/2) recon
+// planes.  A band's search window is clamped at the frame's edges, not the
 // band's, because the kernel reads the whole reference either way.  At
 // every tier (row_core's `tune`): the qp plane arrives compacted (b, nc),
 // and the I16-in-P candidate pass reads the current frame at frame row
@@ -58,27 +89,31 @@
 // (parallel/batch.py:756): each shard's reference arrives padded by _PAD
 // = WO pels on every side (csrc/spatial.cu's halo pad: the neighbour
 // shard's rows at a seam, edge copies at the frame's edges), so the
-// window and the chroma taps read the padded plane at +WO with no clamp.
+// strip and the chroma taps read the padded plane at +WO with no clamp.
 // The grid covers all shards' MBs as one frame's (a shard's rows are
 // frame rows s*nr .. s*nr + nr - 1), so only the reference pointer
 // depends on the shard; every tier comes with it.
-#include <type_traits>
+#include <climits>
 
 #include "common.cuh"
 #include "transform.cuh"
 
 namespace {
 
+constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int NT = 256;
+constexpr int MPB = NT / 32;          // MBs a block, a warp each
 constexpr int ZERO_MV_BIAS = 128, HALF_BIAS = 96, QUARTER_BIAS = 64;
 constexpr int SCALE = 2;              // refinement SADs use even lines only
 constexpr int WO = 13;                // MB origin inside the window (_PAD)
 constexpr int WIN = 16 + 2 * WO;      // reference window side
 constexpr int PW = 18;                // interpolated window side (mv_int-1..+16)
+constexpr int SP = 16 * MPB + 48;     // strip row pitch (bytes): 16-byte chunks
+constexpr int CH = SP / 16;           // from the MB column before the run's
+constexpr int PP = 20;                // interpolated plane row pitch (bytes)
+constexpr int SRC_H = PW + 5;         // vertical filter pass: source rows
+constexpr int KEY_OFF = 1 << 16;      // argmin keys: biased SAD + KEY_OFF >= 0
 
-// neighbours of a refinement centre, dy outer, dx inner
-__constant__ int c_nb[8][2] = {{-1, -1}, {-1, 0}, {-1, 1}, {0, -1},
-                               {0, 1},   {1, -1}, {1, 0},  {1, 1}};
 // quarter-sample prediction per fraction fy*4+fx: part count, then
 // (plane, dy, dx) twice; planes 0 full, 1 b, 2 h, 3 j
 __constant__ int c_qpel[16][7] = {
@@ -89,35 +124,21 @@ __constant__ int c_qpel[16][7] = {
     {2, 2, 0, 0, 0, 1, 0}, {2, 2, 0, 0, 1, 1, 0}, {2, 3, 0, 0, 1, 1, 0},
     {2, 2, 0, 1, 1, 1, 0}};
 
-struct Smem {
-  int win[WIN][WIN];          // reference luma, MB origin at (WO, WO)
-  int cur[256];               // current MB luma
-  int curc[2][64];            // current MB chroma
-  int pl[4][PW][PW];          // full, b, h, j around mv_int
-  int pred[256];
-  int predc[2][64];
-  int sads[81];
-  int mvc[2], mvi[2], mvh[2], mv[2];
-  int best_sad, sad_h;
-  int cdc[2][4];              // chroma DC coefficients before the Hadamard
-  int cdcc[2][4];             // dequantised chroma DC after it
+// one warp's MB
+struct WarpSmem {
+  uint32_t cur[64];                   // current luma, 16 rows x 16 bytes
+  uint32_t curc[2][16];               // current chroma, 8 rows x 8 bytes
+  uint32_t pl[3][PW * PP / 4];        // b, h, j around mv_int, 18 x 20 bytes
+  uint32_t src[SRC_H][PW];            // 16-bit: 32 x window | b1, 23 x 36
+  uint32_t pred[64];
+  uint32_t predc[2][16];
 };
 
-// tune=hq: the residual kept in shared memory until the forced-skip
-// decision
-struct SmemHq : Smem {
-  int hlv[16][16];            // luma levels, raster coefficient order
-  int hrec[256];
-  int hcac[2][4][16];         // chroma AC levels (DC position 0)
-  int hdcl[2][4];
-  int hrecc[2][64];
-  int hbits[24], hbits_dc[2];
-  int hssd_c[24], hssd_s[24]; // coded / skip SSD per 4x4 block
-  int force;
+struct BlockSmem {
+  uint32_t strip[WIN * SP / 4];       // reference rows r*16-13.., bytes
+  int qpel[16][7];
+  WarpSmem w[MPB];
 };
-
-template <int TIER>
-using SmemT = typename std::conditional<TIER == 0, Smem, SmemHq>::type;
 
 __device__ __forceinline__ int clip255(int v) { return min(max(v, 0), 255); }
 
@@ -126,185 +147,238 @@ __device__ __forceinline__ int tap6(int a, int b, int c, int d, int e, int f) {
   return a - 5 * b + 20 * c + 20 * d - 5 * e + f;
 }
 
-template <class S>
-__device__ __forceinline__ int b1_at(const S& s, int u, int v) {
-  return tap6(s.win[u][v - 2], s.win[u][v - 1], s.win[u][v], s.win[u][v + 1],
-              s.win[u][v + 2], s.win[u][v + 3]);
+// neighbour k of a refinement centre (dy outer, dx inner, centre skipped)
+__device__ __forceinline__ int nb_y(int k) { return (k + (k >= 4)) / 3 - 1; }
+__device__ __forceinline__ int nb_x(int k) { return (k + (k >= 4)) % 3 - 1; }
+
+__device__ __forceinline__ uint32_t key_of(int sad, int k) {
+  return (static_cast<uint32_t>(sad + KEY_OFF) << 7) | static_cast<uint32_t>(k);
+}
+__device__ __forceinline__ int key_sad(uint32_t key) {
+  return static_cast<int>(key >> 7) - KEY_OFF;
 }
 
-// sample of plane p at window position (u, v): full, half right (b),
-// half below (h), or the centre (j, vertical 6-tap over unrounded b1)
-template <class S>
-__device__ int plane_sample(const S& s, int p, int u, int v) {
-  switch (p) {
-    case 0:
-      return s.win[u][v];
-    case 1:
-      return clip255((b1_at(s, u, v) + 16) >> 5);
-    case 2:
-      return clip255((tap6(s.win[u - 2][v], s.win[u - 1][v], s.win[u][v],
-                           s.win[u + 1][v], s.win[u + 2][v], s.win[u + 3][v]) + 16) >> 5);
-    default:
-      return clip255((tap6(b1_at(s, u - 2, v), b1_at(s, u - 1, v), b1_at(s, u, v),
-                           b1_at(s, u + 1, v), b1_at(s, u + 2, v), b1_at(s, u + 3, v)) +
-                      512) >> 10);
+// the 4 bytes at byte offset o of a word array
+__device__ __forceinline__ uint32_t word_at(const uint32_t* base, int o) {
+  const uint32_t* p = base + (o >> 2);
+  return __funnelshift_r(p[0], p[1], (o & 3) * 8);
+}
+
+// the 16 bytes at byte offset o of a word array, as four words
+__device__ __forceinline__ void row_at(const uint32_t* base, int o, uint32_t r[4]) {
+  const uint32_t* p = base + (o >> 2);
+  const int sh = (o & 3) * 8;
+  const uint32_t a0 = p[0], a1 = p[1], a2 = p[2], a3 = p[3], a4 = p[4];
+  r[0] = __funnelshift_r(a0, a1, sh);
+  r[1] = __funnelshift_r(a1, a2, sh);
+  r[2] = __funnelshift_r(a2, a3, sh);
+  r[3] = __funnelshift_r(a3, a4, sh);
+}
+
+__device__ __forceinline__ int sad16(const uint4 c, const uint32_t r[4]) {
+  return static_cast<int>(__vsadu4(c.x, r[0]) + __vsadu4(c.y, r[1]) + __vsadu4(c.z, r[2]) +
+                          __vsadu4(c.w, r[3]));
+}
+
+// The four planes around mv_int: plane 0 (full) is the strip itself, b, h
+// and j the warp's buffers; (a, x) is plane row a, byte column x, luma
+// position (mv_int - 1 + a, mv_int - 1 + x) relative to the MB.
+struct Planes {
+  const uint32_t* strip;
+  const uint32_t* pl;
+  int o0;                             // plane 0's (0, 0) in the strip
+  __device__ const uint32_t* base(int p) const {
+    return p ? pl + (p - 1) * (PW * PP / 4) : strip;
   }
-}
+  __device__ int off(int p, int a, int x) const { return p ? a * PP + x : o0 + a * SP + x; }
+};
 
-// quarter-fraction sample at integer offset (ry, rx) from mv_int
-template <class S>
-__device__ __forceinline__ int qsample(const S& s, int ry, int rx, int fy, int fx, int i,
-                                       int j) {
-  const int* q = c_qpel[fy * 4 + fx];
-  const int a = s.pl[q[1]][1 + ry + q[2] + i][1 + rx + q[3] + j];
+// the quarter-pel prediction of fraction f at integer offset (ry, rx) from
+// mv_int, plane row 1 + ry + i, as the word at byte column 1 + rx + j0
+__device__ __forceinline__ uint32_t qword(const Planes& P, const int* q, int ry, int rx, int i,
+                                          int j0) {
+  const uint32_t a = word_at(P.base(q[1]), P.off(q[1], 1 + ry + q[2] + i, 1 + rx + q[3] + j0));
   if (q[0] == 1) return a;
-  return (a + s.pl[q[4]][1 + ry + q[5] + i][1 + rx + q[6] + j] + 1) >> 1;
+  return __vavgu4(a, word_at(P.base(q[4]), P.off(q[4], 1 + ry + q[5] + i, 1 + rx + q[6] + j0)));
 }
 
-// SADs of n candidates over every STEP-th line of the MB (2: the even
-// lines): 16 threads per candidate (one column each), 16 candidates per
-// pass.  f(k, i, j) is candidate k's prediction at MB row i, column j.
-template <int STEP, class S, class F>
-__device__ void stage_sads(S& s, int n, F f) {
-  const int t = threadIdx.x, j = t & 15;
-  for (int base = 0; base < n; base += NT / 16) {
-    const int k = base + (t >> 4);
-    int acc = 0;
-    if (k < n)
-      for (int i = 0; i < 16; i += STEP) acc += abs(s.cur[i * 16 + j] - f(k, i, j));
-    for (int o = 8; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (k < n && j == 0) s.sads[k] = acc;
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
-__device__ __forceinline__ int first_argmin(const int* a, int n) {
-  int best = 0;
-  for (int k = 1; k < n; ++k)
-    if (a[k] < a[best]) best = k;
-  return best;
+// coefficient position class of i = row*4 + col, and the zigzag scan, as
+// compile-time functions of an unrolled index
+__device__ constexpr int cls(int i) {
+  return (((i >> 2) & 1) == 0 && (i & 1) == 0) ? 0 : ((((i >> 2) & 1) == 1 && (i & 1) == 1) ? 1 : 2);
+}
+__device__ constexpr int zz(int k) {
+  return static_cast<int>((0xfeb7adc963258410ull >> (4 * k)) & 15);
 }
 
-// tune=hq's residual: computed into shared memory, then the forced skip,
-// then the outputs; score_out (I16-in-P) gets the inter candidate's score.
-template <class S>
-__device__ void hq_residual(S& s, int mb, int orow, int c, int W, int Wc, int qm, float lam,
-                            int* luma, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac,
-                            uint8_t* ry, uint8_t* rcb, uint8_t* rcr, float* score_out) {
-  const int t = threadIdx.x;
-  const Qp Q(qm, false), QC(dngd_chroma_qp(qm), false);
-  int blk[16], w[16], lv[16], rec[16];
-  const int p = (t - 16) >> 2, q = (t - 16) & 3;      // chroma plane, block
-  if (t < 16) {
-    const int bx = c_blk_x[t], by = c_blk_y[t];
-    for (int k = 0; k < 16; ++k) {
-      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
-      blk[k] = s.cur[i * 16 + j] - s.pred[i * 16 + j];
+// inter quant at one qp, the class tables in registers
+struct QLane {
+  int mf[3], v[3], f, qbits, s;
+  __device__ explicit QLane(int qp) {
+    const int m = qp % 6;
+    s = qp / 6;
+    qbits = 15 + s;
+    f = (1 << qbits) / 6;
+    for (int c = 0; c < 3; ++c) {
+      mf[c] = c_mf[c][m];
+      v[c] = c_v[c][m];
     }
+  }
+};
+
+// The residual of one 4x4 block a lane (24 lanes: luma block `lane` in
+// luma4x4BlkIdx order, then Cb's four and Cr's four), with the MB's
+// outputs; TIER != 0 takes the forced-skip decision first.
+template <int TIER>
+__device__ void residual(WarpSmem& ws, int lane, int mb, int orow, int c, int W, int Wc,
+                         int qm, int qcm, int mvy, int mvx, float lam, int* luma, int* cb_dc,
+                         int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry, uint8_t* rcb,
+                         uint8_t* rcr, float* score_out) {
+  const bool is_c = lane >= 16, live = lane < 24;
+  const int L = min(lane, 23), cq = (L - 16) & 3, cp = (L - 16) >> 2;
+  int bx, by;
+  const uint32_t* cw;
+  uint32_t* pw;
+  int pitch;
+  if (!is_c) {
+    bx = (L & 1) + ((L >> 2) & 1) * 2;
+    by = ((L >> 1) & 1) + (L >> 3) * 2;
+    cw = ws.cur + by * 16 + bx;
+    pw = ws.pred + by * 16 + bx;
+    pitch = 4;
+  } else {
+    bx = cq & 1;
+    by = cq >> 1;
+    cw = ws.curc[cp] + by * 8 + bx;
+    pw = ws.predc[cp] + by * 8 + bx;
+    pitch = 2;
+  }
+  int x[16], pr[16], w[16], lv[16], rec[16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t a = cw[i * pitch], b = pw[i * pitch];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x[i * 4 + j] = (a >> (8 * j)) & 255;
+      pr[i * 4 + j] = (b >> (8 * j)) & 255;
+    }
+  }
+  {
+    int blk[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) blk[k] = x[k] - pr[k];
     fdct4(blk, w);
-    for (int k = 0; k < 16; ++k) lv[k] = Q.q(w[k], k);
-    for (int k = 0; k < 16; ++k) s.hlv[t][k] = lv[k];
-    s.hbits[t] = level_bits(lv);
-    for (int k = 0; k < 16; ++k) w[k] = Q.dq(lv[k], k);
-    idct4(w, rec);
-    int sc = 0, ss = 0;
-    for (int k = 0; k < 16; ++k) {
-      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
-      const int cur = s.cur[i * 16 + j], pr = s.pred[i * 16 + j];
-      const int v = clip255(pr + rec[k]);
-      s.hrec[i * 16 + j] = v;
-      sc += (v - cur) * (v - cur);
-      ss += (pr - cur) * (pr - cur);
-    }
-    s.hssd_c[t] = sc;
-    s.hssd_s[t] = ss;
-  } else if (t < 24) {
-    const int bx = q & 1, by = q >> 1;
-    for (int k = 0; k < 16; ++k) {
-      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
-      blk[k] = s.curc[p][i * 8 + j] - s.predc[p][i * 8 + j];
-    }
-    fdct4(blk, w);
-    s.cdc[p][q] = w[0];
-    lv[0] = 0;
-    for (int k = 1; k < 16; ++k) lv[k] = QC.q(w[k], k);
-    for (int k = 0; k < 16; ++k) s.hcac[p][q][k] = lv[k];
-    s.hbits[t] = level_bits(lv);
   }
-  __syncthreads();
-  if (t == 16 || t == 20) {             // 2x2 DC Hadamard, one per plane
-    int hd[4], dcl[4], f[4];
-    had2(s.cdc[p], hd);
-    for (int k = 0; k < 4; ++k) dcl[k] = s.hdcl[p][k] = QC.q_dc(hd[k]);
-    s.hbits_dc[p] = level_bits(dcl, 4);
-    had2(dcl, f);
-    for (int k = 0; k < 4; ++k) s.cdcc[p][k] = ((f[k] * c_v[0][QC.m]) << QC.s) >> 1;
+  const QLane Q(is_c ? qcm : qm);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) lv[k] = quant(w[k], Q.mf[cls(k)], Q.f, Q.qbits);
+  // chroma DC: the 2x2 Hadamard across the plane's four lanes, quantised,
+  // inverted and dequantised the same way
+  const int base = lane & ~3;
+  const int s1 = (cq & 1) ? -1 : 1, s2 = (cq & 2) ? -1 : 1;
+  int dcl, dcc;
+  {
+    const int x0 = __shfl_sync(FULL_MASK, w[0], base), x1 = __shfl_sync(FULL_MASK, w[0], base + 1),
+              x2 = __shfl_sync(FULL_MASK, w[0], base + 2),
+              x3 = __shfl_sync(FULL_MASK, w[0], base + 3);
+    dcl = quant(x0 + s1 * x1 + s2 * x2 + s1 * s2 * x3, Q.mf[0], 2 * Q.f, Q.qbits + 1);
+    const int y0 = __shfl_sync(FULL_MASK, dcl, base), y1 = __shfl_sync(FULL_MASK, dcl, base + 1),
+              y2 = __shfl_sync(FULL_MASK, dcl, base + 2),
+              y3 = __shfl_sync(FULL_MASK, dcl, base + 3);
+    dcc = ((y0 + s1 * y1 + s2 * y2 + s1 * s2 * y3) * Q.v[0] << Q.s) >> 1;
   }
-  __syncthreads();
-  if (t >= 16 && t < 24) {
-    const int bx = q & 1, by = q >> 1;
-    for (int k = 1; k < 16; ++k) w[k] = QC.dq(lv[k], k);
-    w[0] = s.cdcc[p][q];
-    idct4(w, rec);
-    int sc = 0, ss = 0;
-    for (int k = 0; k < 16; ++k) {
-      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
-      const int cur = s.curc[p][i * 8 + j], pr = s.predc[p][i * 8 + j];
-      const int v = clip255(pr + rec[k]);
-      s.hrecc[p][i * 8 + j] = v;
-      sc += (v - cur) * (v - cur);
-      ss += (pr - cur) * (pr - cur);
-    }
-    s.hssd_c[t] = sc;
-    s.hssd_s[t] = ss;
+  if (is_c) lv[0] = 0;
+  {
+    int d[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) d[k] = lv[k] * Q.v[cls(k)] * (1 << Q.s);
+    if (is_c) d[0] = dcc;
+    idct4(d, rec);
   }
-  __syncthreads();
-  if (t == 0) {
-    int bits = s.hbits_dc[0] + s.hbits_dc[1];
-    for (int k = 0; k < 24; ++k) bits += s.hbits[k];
-    int yc = 0, ys = 0, bc = 0, bs = 0, rc = 0, rs = 0;
+  int v[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) v[k] = clip255(pr[k] + rec[k]);
+
+  bool force = false;
+  if constexpr (TIER != 0) {
+    int sc = 0, ss = 0, bits = 0;
+#pragma unroll
     for (int k = 0; k < 16; ++k) {
-      yc += s.hssd_c[k];
-      ys += s.hssd_s[k];
+      sc += (v[k] - x[k]) * (v[k] - x[k]);
+      ss += (pr[k] - x[k]) * (pr[k] - x[k]);
     }
-    for (int k = 16; k < 20; ++k) {
-      bc += s.hssd_c[k];
-      bs += s.hssd_s[k];
-      rc += s.hssd_c[k + 4];
-      rs += s.hssd_s[k + 4];
-    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      if (lv[k]) bits += 3 + 2 * flog2(abs(lv[k]));
+    if (is_c && dcl) bits += 3 + 2 * flog2(abs(dcl));
+    const int ly = lane < 16, lb = lane >= 16 && lane < 20, lr = lane >= 20 && lane < 24;
+    const int yc = __reduce_add_sync(FULL_MASK, ly ? sc : 0);
+    const int ys = __reduce_add_sync(FULL_MASK, ly ? ss : 0);
+    const int bc = __reduce_add_sync(FULL_MASK, lb ? sc : 0);
+    const int bs = __reduce_add_sync(FULL_MASK, lb ? ss : 0);
+    const int rc = __reduce_add_sync(FULL_MASK, lr ? sc : 0);
+    const int rs = __reduce_add_sync(FULL_MASK, lr ? ss : 0);
+    const int nbits = __reduce_add_sync(FULL_MASK, live ? bits : 0);
     // (Y + Cb) + Cr in float32; d_skip <= d_coded + lam * (bits + 12)
     const float d_coded = __fadd_rn(__fadd_rn((float)yc, (float)bc), (float)rc);
     const float d_skip = __fadd_rn(__fadd_rn((float)ys, (float)bs), (float)rs);
-    const float coded = __fmaf_rn(lam, __fadd_rn((float)bits, 12.0f), d_coded);
-    const bool force = s.mv[0] == 0 && s.mv[1] == 0 && d_skip <= coded;
-    s.force = force;
-    if (score_out) score_out[mb] = force ? __fadd_rn(d_skip, lam) : coded;
+    const float coded = __fmaf_rn(lam, __fadd_rn((float)nbits, 12.0f), d_coded);
+    force = mvy == 0 && mvx == 0 && d_skip <= coded;
+    if (score_out && lane == 0) score_out[mb] = force ? __fadd_rn(d_skip, lam) : coded;
   }
-  __syncthreads();
-  const bool force = s.force;
-  if (t < 16) {
-    const int bx = c_blk_x[t], by = c_blk_y[t];
-    for (int k = 0; k < 16; ++k) luma[(mb * 16 + t) * 16 + k] = force ? 0 : s.hlv[t][c_zz[k]];
-    for (int k = 0; k < 16; ++k) {
-      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
-      ry[(orow * 16 + i) * W + c * 16 + j] =
-          (uint8_t)(force ? s.pred[i * 16 + j] : s.hrec[i * 16 + j]);
+  // the outputs through the warp's shared memory (the vertical filter's
+  // source, dead by now; the recon over the prediction, whose words every
+  // lane has read), then stored with 16-byte accesses: levels at a stride
+  // of 17 (luma) and 15 (chroma) words, one bank a lane
+  int* stage = reinterpret_cast<int*>(ws.src);
+  __syncwarp();
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        word |= static_cast<uint32_t>(force ? pr[i * 4 + j] : v[i * 4 + j]) << (8 * j);
+      pw[i * pitch] = word;
     }
-  } else if (t < 24) {
-    const int bx = q & 1, by = q >> 1;
-    int* ac = p ? cr_ac : cb_ac;
-    for (int k = 1; k < 16; ++k) ac[(mb * 4 + q) * 15 + k - 1] = force ? 0 : s.hcac[p][q][c_zz[k]];
-    uint8_t* rc = p ? rcr : rcb;
-    for (int k = 0; k < 16; ++k) {
-      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
-      rc[(orow * 8 + i) * Wc + c * 8 + j] =
-          (uint8_t)(force ? s.predc[p][i * 8 + j] : s.hrecc[p][i * 8 + j]);
+    if (!is_c) {
+#pragma unroll
+      for (int k = 0; k < 16; ++k) stage[L * 17 + k] = force ? 0 : lv[zz(k)];
+    } else {
+#pragma unroll
+      for (int k = 1; k < 16; ++k) stage[272 + (L - 16) * 15 + k - 1] = force ? 0 : lv[zz(k)];
+      stage[392 + L - 16] = force ? 0 : dcl;
     }
-    if (q == 0) {
-      int* dc = p ? cr_dc : cb_dc;
-      for (int k = 0; k < 4; ++k) dc[mb * 4 + k] = force ? 0 : s.hdcl[p][k];
-    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {       // luma levels: 64 int4
+    const int q = lane + 32 * h, b = q >> 2, k = 4 * (q & 3);
+    reinterpret_cast<int4*>(luma + mb * 256)[q] =
+        make_int4(stage[b * 17 + k], stage[b * 17 + k + 1], stage[b * 17 + k + 2],
+                  stage[b * 17 + k + 3]);
+  }
+  if (lane < 30) {                    // chroma AC: 15 int4 a plane
+    const int p = lane / 15, o = 272 + p * 60 + 4 * (lane - 15 * p);
+    reinterpret_cast<int4*>((p ? cr_ac : cb_ac) + mb * 60)[lane - 15 * p] =
+        make_int4(stage[o], stage[o + 1], stage[o + 2], stage[o + 3]);
+  } else {                            // chroma DC: one int4 a plane
+    const int p = lane - 30, o = 392 + 4 * p;
+    *reinterpret_cast<int4*>((p ? cr_dc : cb_dc) + mb * 4) =
+        make_int4(stage[o], stage[o + 1], stage[o + 2], stage[o + 3]);
+  }
+  if (lane < 16) {                    // recon: a luma row a lane, then chroma
+    *reinterpret_cast<uint4*>(ry + (size_t)(orow * 16 + lane) * W + c * 16) =
+        reinterpret_cast<const uint4*>(ws.pred)[lane];
+  } else {
+    const int p = (lane - 16) >> 3, i = lane & 7;
+    *reinterpret_cast<uint2*>((p ? rcr : rcb) + (size_t)(orow * 8 + i) * Wc + c * 8) =
+        reinterpret_cast<const uint2*>(ws.predc[p])[i];
   }
 }
 
@@ -317,15 +391,20 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
     const int* __restrict__ qp_map, const float* __restrict__ lam_tab,
     const int* __restrict__ marg, float* score_out, int* mv_out, int* luma,
     int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr,
-    int nr, int nc, int qp, int qpc) {
-  __shared__ SmemT<TIER> s;
-  const int t = threadIdx.x;
+    int nr, int nc, int qp, int qpc, int vec) {
+  __shared__ __align__(16) BlockSmem s;
+  const int t = threadIdx.x, lane = t & 31, m = t >> 5;
+  // block: the run of MPB MBs from column c0 of output row orow
+  const int ncg = (nc + MPB - 1) / MPB;
+  const int orow = blockIdx.x / ncg, c0 = (blockIdx.x - orow * ncg) * MPB, c = c0 + m;
   if constexpr (SESS) {
     // blockIdx.y: the session.  Sessions' frames, references (nr x nc
-    // MBs each) and outputs (gridDim.x MBs each) are stacked contiguously;
+    // MBs each) and outputs (a grid's rows of nc MBs each) are stacked
+    // contiguously;
     // a session's search clamps at its own frame's edges.  (One session
     // launches the !SESS form: its pointers stay kernel parameters.)
-    const size_t sess = blockIdx.y, fl = sess * nr * nc * 256, om = sess * gridDim.x;
+    const size_t sess = blockIdx.y, fl = sess * nr * nc * 256,
+                 om = sess * (gridDim.x / ncg) * nc;
     y += fl;
     cb += fl / 4;
     cr += fl / 4;
@@ -344,8 +423,7 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
     if (qp_map) qp_map += om;
     if (score_out) score_out += om;
   }
-  // mb: the output MB (compacted order); r: the frame MB row it encodes
-  const int mb = blockIdx.x, orow = mb / nc, c = mb % nc;
+  // r: the frame MB row the block encodes
   const int r = rows ? rows[orow] : orow;
   // PAD: the grid covers the shards' rows as one frame's (nr rows a
   // shard); frame row r is row pr of its shard, whose padded references
@@ -358,11 +436,53 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
     ref_cb += (size_t)sh * (nr * 8 + 2 * WO) * (nc * 8 + 2 * WO);
     ref_cr += (size_t)sh * (nr * 8 + 2 * WO) * (nc * 8 + 2 * WO);
   }
+  const int H = nr * 16, W = nc * 16, Hc = nr * 8, Wc = nc * 8;
+
+  // --- the strip: strip byte (u, x) is reference row r*16 - WO + u and
+  //     column (c0 - 1)*16 + x, clamped (PAD: padded row pr*16 + u, column
+  //     c0*16 - 3 + x); MB m's window column v is strip column 16m + 3 + v
+  uint8_t* strip_b = reinterpret_cast<uint8_t*>(s.strip);
+  for (int ch = t; ch < WIN * CH; ch += NT) {
+    const int u = ch / CH, j = ch - u * CH;
+    uint8_t* dst = strip_b + u * SP + 16 * j;
+    const uint8_t* row;
+    int x0, wl;
+    if constexpr (PAD) {
+      wl = W + 2 * WO;
+      row = ref_y + (size_t)(pr * 16 + u) * wl;
+      x0 = c0 * 16 - 3 + 16 * j;
+    } else {
+      wl = W;
+      row = ref_y + (size_t)min(max(r * 16 - WO + u, 0), H - 1) * W;
+      x0 = (c0 - 1 + j) * 16;
+    }
+    if (!PAD && vec && x0 >= 0 && x0 + 16 <= wl) {
+      cp_async16(dst, row + x0);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 16; ++b) dst[b] = row[min(max(x0 + b, 0), wl - 1)];
+    }
+  }
+  if (t < 16 * 7) s.qpel[t / 7][t % 7] = c_qpel[t / 7][t % 7];
+  WarpSmem& ws = s.w[m];
+  if (c < nc) {
+    for (int k = lane; k < 64; k += 32)
+      ws.cur[k] = *reinterpret_cast<const uint32_t*>(y + (size_t)(r * 16 + (k >> 2)) * W +
+                                                     c * 16 + 4 * (k & 3));
+    const int p = lane >> 4, k = lane & 15;
+    ws.curc[p][k] = *reinterpret_cast<const uint32_t*>((p ? cr : cb) +
+                                                       (size_t)(r * 8 + (k >> 1)) * Wc + c * 8 +
+                                                       4 * (k & 1));
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  if (c >= nc) return;                // the block's only barrier is behind
+
   if (qp_dev) {
     qp = *qp_dev;
     qpc = dngd_chroma_qp(qp);
   }
-  const int H = nr * 16, W = nc * 16, Hc = nr * 8, Wc = nc * 8;
+  const int mb = orow * nc + c;
   // tune=hq: the MB's qp (the qp plane's under the full tier) and the
   // lambda-scaled motion margins at it
   const int qm = TIER == 2 ? qp_map[mb] : qp;
@@ -378,181 +498,223 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
     // (int)(lam * 8) == (int)(lam * 16) >> 1: float32 scaling by 2 is exact
     zbc = FULL ? zb >> 1 : zb;
   }
+  const uint4* cur4 = reinterpret_cast<const uint4*>(ws.cur);
+  const int wc0 = 16 * m + 3;         // the window's column 0 in the strip
 
-  for (int k = t; k < WIN * WIN; k += NT) {
-    const int u = k / WIN, v = k % WIN;
-    if constexpr (PAD) {
-      // padded row pr*16 + u is the shard's row pr*16 - WO + u
-      s.win[u][v] = ref_y[(size_t)(pr * 16 + u) * (W + 2 * WO) + c * 16 + v];
-    } else {
-      const int gy = min(max(r * 16 - WO + u, 0), H - 1);
-      const int gx = min(max(c * 16 - WO + v, 0), W - 1);
-      s.win[u][v] = ref_y[gy * W + gx];
+  // --- coarse grid: 81 shifts (dy outer, dx inner) on the even lines; lane
+  //     (dx, g) takes dy = 3g .. 3g + 2, reference row 5 + 2 (3g + s) of
+  //     its window serving even line 2 (s - d) of shift dy = 3g + d -------
+  uint32_t key = UINT_MAX;
+  if (lane < 27) {
+    const int dx = lane % 9, g = lane / 9;
+    int sd[3] = {0, 0, 0};
+    const int ob = (5 + 6 * g) * SP + wc0 + 5 + 2 * dx;
+#pragma unroll
+    for (int st = 0; st < 10; ++st) {
+      uint32_t rw[4];
+      row_at(s.strip, ob + 2 * st * SP, rw);
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        if (st - d >= 0 && st - d < 8) sd[d] += sad16(cur4[2 * (st - d)], rw);
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int k = (3 * g + d) * 9 + dx;
+      key = min(key, key_of(sd[d] - (k == 40 ? zbc : 0), k));
     }
   }
-  s.cur[t] = y[(r * 16 + (t >> 4)) * W + c * 16 + (t & 15)];
-  if (t < 128) {
-    const int p = t >> 6, k = t & 63;
-    const uint8_t* src = p ? cr : cb;
-    s.curc[p][k] = src[(r * 8 + (k >> 3)) * Wc + c * 8 + (k & 7)];
-  }
-  __syncthreads();
+  key = __reduce_min_sync(FULL_MASK, key);
+  const int cy = -8 + 2 * (int)((key & 127) / 9), cx = -8 + 2 * (int)((key & 127) % 9);
 
-  // --- coarse grid: 81 shifts, dy outer, dx inner ----------------------
-  stage_sads<2>(s, 81, [&](int k, int i, int j) {
-    return s.win[i + WO - 8 + 2 * (k / 9)][j + WO - 8 + 2 * (k % 9)];
-  });
-  if (t == 0) {
-    s.sads[40] -= zbc;
-    const int b = first_argmin(s.sads, 81);
-    s.mvc[0] = -8 + 2 * (b / 9);
-    s.mvc[1] = -8 + 2 * (b % 9);
+  // --- +-1 integer re-rank: [(0, 0)] + neighbours, two lanes a candidate -
+  int part = 0;
+  {
+    const int k = lane >> 1, g = lane & 1;
+    if (k < 9) {
+      const int oy = k ? nb_y(k - 1) : 0, ox = k ? nb_x(k - 1) : 0;
+      const int o = (WO + cy + oy) * SP + wc0 + WO + cx + ox;
+#pragma unroll
+      for (int tt = 0; tt < 8 / RS; ++tt) {
+        const int i = RS * (g + 2 * tt);
+        uint32_t rw[4];
+        row_at(s.strip, o + i * SP, rw);
+        part += sad16(cur4[i], rw);
+      }
+    }
+    part += __shfl_xor_sync(FULL_MASK, part, 1);
+    key = (k < 9 && g == 0) ? key_of(part - (k == 0 && cy == 0 && cx == 0 ? zb : 0), k)
+                            : UINT_MAX;
+    key = __reduce_min_sync(FULL_MASK, key);
   }
-  __syncthreads();
+  const int b1i = key & 127, best_sad = key_sad(key);
+  const int iy = cy + (b1i ? nb_y(b1i - 1) : 0), ix = cx + (b1i ? nb_x(b1i - 1) : 0);
 
-  // --- +-1 integer re-rank: [(0, 0)] + neighbours ----------------------
-  const int cy = s.mvc[0], cx = s.mvc[1];
-  stage_sads<RS>(s, 9, [&](int k, int i, int j) {
-    const int oy = k ? c_nb[k - 1][0] : 0, ox = k ? c_nb[k - 1][1] : 0;
-    return s.win[i + WO + cy + oy][j + WO + cx + ox];
-  });
-  if (t == 0) {
-    if (cy == 0 && cx == 0) s.sads[0] -= zb;
-    const int b = first_argmin(s.sads, 9);
-    s.best_sad = s.sads[b];
-    s.mvi[0] = cy + (b ? c_nb[b - 1][0] : 0);
-    s.mvi[1] = cx + (b ? c_nb[b - 1][1] : 0);
+  // --- the b, h and j planes around mv_int ------------------------------
+  // pass 1, lane a < 23: window row 10 + iy + a (plane row a - 2), columns
+  // 10 + ix .. 33 + ix: b1 = the horizontal 6-tap, b = clip((b1 + 16) >> 5)
+  // for plane rows 0-17, and the vertical pass's source row: 32 x the
+  // window's columns 12 + ix .. 29 + ix, then b1 (16 bits each)
+  uint8_t* plb = reinterpret_cast<uint8_t*>(ws.pl);
+  if (lane < SRC_H) {
+    const int o = (10 + iy + lane) * SP + wc0 + 10 + ix;
+    const uint32_t* p = s.strip + (o >> 2);
+    const int sh = (o & 3) * 8;
+    int xv[24];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const uint32_t wd = __funnelshift_r(p[k], p[k + 1], sh);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xv[4 * k + j] = (wd >> (8 * j)) & 255;
+    }
+    int b1[PW];
+#pragma unroll
+    for (int j = 0; j < PW; ++j) b1[j] = tap6(xv[j], xv[j + 1], xv[j + 2], xv[j + 3], xv[j + 4], xv[j + 5]);
+#pragma unroll
+    for (int j = 0; j < PW / 2; ++j) {
+      ws.src[lane][j] = (uint32_t)(xv[2 * j + 2] << 5) | ((uint32_t)(xv[2 * j + 3] << 5) << 16);
+      ws.src[lane][PW / 2 + j] = ((uint32_t)b1[2 * j] & 0xffffu) | ((uint32_t)b1[2 * j + 1] << 16);
+    }
+    if (lane >= 2 && lane < PW + 2) {
+      uint32_t* brow = ws.pl[0] + (lane - 2) * (PP / 4);
+#pragma unroll
+      for (int q = 0; q < PP / 4; ++q) {
+        uint32_t wd = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (4 * q + j < PW) wd |= (uint32_t)clip255((b1[4 * q + j] + 16) >> 5) << (8 * j);
+        brow[q] = wd;
+      }
+    }
   }
-  __syncthreads();
+  __syncwarp();
+  // pass 2: task (column cc of the source, half hh): plane rows 9 hh ..
+  // 9 hh + 8 of h (cc < 18) or j, (tap6 + 512) >> 10 over source rows
+  {
+    const int16_t* src16 = reinterpret_cast<const int16_t*>(ws.src);
+    for (int task = lane; task < 4 * PW; task += 32) {
+      const int hh = task / (2 * PW), cc = task - hh * (2 * PW);
+      const int a0 = 9 * hh;
+      int sv[14];
+#pragma unroll
+      for (int k = 0; k < 14; ++k) sv[k] = src16[(a0 + k) * (2 * PW) + cc];
+      uint8_t* dst = plb + (cc < PW ? 1 : 2) * (PW * PP) + (cc < PW ? cc : cc - PW);
+#pragma unroll
+      for (int a = 0; a < 9; ++a)
+        dst[(a0 + a) * PP] =
+            (uint8_t)clip255((tap6(sv[a], sv[a + 1], sv[a + 2], sv[a + 3], sv[a + 4], sv[a + 5]) +
+                              512) >> 10);
+    }
+  }
+  __syncwarp();
+  const Planes P{s.strip, ws.pl[0], (WO + iy - 1) * SP + wc0 + WO + ix - 1};
 
-  // --- the four planes around mv_int: index (i, j) is luma position
-  //     (mv_int - 1 + i, mv_int - 1 + j) relative to the MB ---------------
-  const int iy = s.mvi[0], ix = s.mvi[1];
-  for (int k = t; k < 4 * PW * PW; k += NT) {
-    const int p = k / (PW * PW), i = (k / PW) % PW, j = k % PW;
-    s.pl[p][i][j] = plane_sample(s, p, WO + iy - 1 + i, WO + ix - 1 + j);
+  // --- half-pel refinement, four lanes a candidate ----------------------
+  int mhy, mhx, sad_h;
+  {
+    const int k = lane >> 2, g = lane & 3;
+    const int oy = nb_y(k), ox = nb_x(k), p = (oy & 1) * 2 + (ox & 1);
+    const uint32_t* bp = P.base(p);
+    part = 0;
+#pragma unroll
+    for (int tt = 0; tt < 4 / RS; ++tt) {
+      const int i = RS * (g + 4 * tt);
+      uint32_t rw[4];
+      row_at(bp, P.off(p, 1 + (oy >> 1) + i, 1 + (ox >> 1)), rw);
+      part += sad16(cur4[i], rw);
+    }
+    part += __shfl_xor_sync(FULL_MASK, part, 1);
+    part += __shfl_xor_sync(FULL_MASK, part, 2);
+    key = __reduce_min_sync(FULL_MASK, g == 0 ? key_of(part, k) : UINT_MAX);
+    const int b = key & 127, hv = key_sad(key);
+    const bool use = hv + hb < best_sad;
+    mhy = 2 * iy + (use ? nb_y(b) : 0);
+    mhx = 2 * ix + (use ? nb_x(b) : 0);
+    sad_h = use ? hv : best_sad;
   }
-  __syncthreads();
-
-  // --- half-pel refinement ---------------------------------------------
-  stage_sads<RS>(s, 8, [&](int k, int i, int j) {
-    const int oy = c_nb[k][0], ox = c_nb[k][1];
-    return s.pl[(oy & 1) * 2 + (ox & 1)][1 + (oy >> 1) + i][1 + (ox >> 1) + j];
-  });
-  if (t == 0) {
-    const int b = first_argmin(s.sads, 8);
-    const bool use = s.sads[b] + hb < s.best_sad;
-    s.mvh[0] = 2 * iy + (use ? c_nb[b][0] : 0);
-    s.mvh[1] = 2 * ix + (use ? c_nb[b][1] : 0);
-    s.sad_h = use ? s.sads[b] : s.best_sad;
-  }
-  __syncthreads();
 
   // --- quarter-pel refinement: fractions from the signed half offset ----
-  const int hdy = s.mvh[0] - 2 * iy, hdx = s.mvh[1] - 2 * ix;
-  stage_sads<RS>(s, 8, [&](int k, int i, int j) {
-    const int ey = 2 * hdy + c_nb[k][0], ex = 2 * hdx + c_nb[k][1];
-    return qsample(s, ey >> 2, ex >> 2, ey & 3, ex & 3, i, j);
-  });
-  if (t == 0) {
-    const int b = first_argmin(s.sads, 8);
-    const bool use = s.sads[b] + qb < s.sad_h;
-    s.mv[0] = 2 * s.mvh[0] + (use ? c_nb[b][0] : 0);
-    s.mv[1] = 2 * s.mvh[1] + (use ? c_nb[b][1] : 0);
-    mv_out[mb * 2] = s.mv[0];
-    mv_out[mb * 2 + 1] = s.mv[1];
+  int mvy, mvx;
+  {
+    const int k = lane >> 2, g = lane & 3;
+    const int ey = 2 * (mhy - 2 * iy) + nb_y(k), ex = 2 * (mhx - 2 * ix) + nb_x(k);
+    const int* q = s.qpel[(ey & 3) * 4 + (ex & 3)];
+    part = 0;
+#pragma unroll
+    for (int tt = 0; tt < 4 / RS; ++tt) {
+      const int i = RS * (g + 4 * tt);
+      uint4 pw;
+      pw.x = qword(P, q, ey >> 2, ex >> 2, i, 0);
+      pw.y = qword(P, q, ey >> 2, ex >> 2, i, 4);
+      pw.z = qword(P, q, ey >> 2, ex >> 2, i, 8);
+      pw.w = qword(P, q, ey >> 2, ex >> 2, i, 12);
+      const uint32_t rw[4] = {pw.x, pw.y, pw.z, pw.w};
+      part += sad16(cur4[i], rw);
+    }
+    part += __shfl_xor_sync(FULL_MASK, part, 1);
+    part += __shfl_xor_sync(FULL_MASK, part, 2);
+    key = __reduce_min_sync(FULL_MASK, g == 0 ? key_of(part, k) : UINT_MAX);
+    const int b = key & 127;
+    const bool use = key_sad(key) + qb < sad_h;
+    mvy = 2 * mhy + (use ? nb_y(b) : 0);
+    mvx = 2 * mhx + (use ? nb_x(b) : 0);
   }
-  __syncthreads();
+  if (lane == 0) {
+    mv_out[mb * 2] = mvy;
+    mv_out[mb * 2 + 1] = mvx;
+  }
 
-  // --- prediction: luma at the quarter-pel MV, chroma 1/8-pel bilinear --
-  const int mvy = s.mv[0], mvx = s.mv[1];
+  // --- prediction: luma at the quarter-pel MV (two words a lane), chroma
+  //     1/8-pel bilinear (four samples of a row a lane) --------------------
   {
     const int ey = mvy - 4 * iy, ex = mvx - 4 * ix;
-    s.pred[t] = qsample(s, ey >> 2, ex >> 2, ey & 3, ex & 3, t >> 4, t & 15);
+    const int* q = s.qpel[(ey & 3) * 4 + (ex & 3)];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int wd = lane + 32 * h;
+      ws.pred[wd] = qword(P, q, ey >> 2, ex >> 2, wd >> 2, 4 * (wd & 3));
+    }
   }
-  if (t < 128) {
-    const int p = t >> 6, k = t & 63, i = k >> 3, j = k & 7;
+  {
+    const int p = lane >> 4, i = (lane & 15) >> 1, j0 = 4 * (lane & 1);
     const uint8_t* rp = p ? ref_cr : ref_cb;
     const int yf = mvy & 7, xf = mvx & 7;
-    int y0, y1, x0, x1, ws;
+    int y0, y1, xs[5], ws_;
     if constexpr (PAD) {
       y0 = pr * 8 + (mvy >> 3) + i + WO;
-      x0 = c * 8 + (mvx >> 3) + j + WO;
       y1 = y0 + 1;
-      x1 = x0 + 1;
-      ws = Wc + 2 * WO;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) xs[k] = c * 8 + (mvx >> 3) + j0 + k + WO;
+      ws_ = Wc + 2 * WO;
     } else {
       y0 = min(max(r * 8 + (mvy >> 3) + i, 0), Hc - 1);
       y1 = min(max(r * 8 + (mvy >> 3) + i + 1, 0), Hc - 1);
-      x0 = min(max(c * 8 + (mvx >> 3) + j, 0), Wc - 1);
-      x1 = min(max(c * 8 + (mvx >> 3) + j + 1, 0), Wc - 1);
-      ws = Wc;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) xs[k] = min(max(c * 8 + (mvx >> 3) + j0 + k, 0), Wc - 1);
+      ws_ = Wc;
     }
-    s.predc[p][k] = ((8 - xf) * (8 - yf) * rp[y0 * ws + x0] + xf * (8 - yf) * rp[y0 * ws + x1] +
-                     (8 - xf) * yf * rp[y1 * ws + x0] + xf * yf * rp[y1 * ws + x1] + 32) >> 6;
+    const uint8_t* r0 = rp + (size_t)y0 * ws_;
+    const uint8_t* r1 = rp + (size_t)y1 * ws_;
+    int a[5], b[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      a[k] = r0[xs[k]];
+      b[k] = r1[xs[k]];
+    }
+    uint32_t wd = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int v = ((8 - xf) * (8 - yf) * a[k] + xf * (8 - yf) * a[k + 1] +
+                     (8 - xf) * yf * b[k] + xf * yf * b[k + 1] + 32) >> 6;
+      wd |= (uint32_t)v << (8 * k);
+    }
+    ws.predc[p][i * 2 + (lane & 1)] = wd;
   }
-  __syncthreads();
+  __syncwarp();
 
-  if constexpr (TIER != 0) {
-    hq_residual(s, mb, orow, c, W, Wc, qm, lam_tab[qm], luma, cb_dc, cb_ac, cr_dc, cr_ac, ry,
-                rcb, rcr, score_out);
-    return;
-  }
-
-  // --- residual: 16 luma blocks (threads 0-15), 8 chroma (16-23) ---------
-  const Qp Q(qp, false), QC(qpc, false);
-  int blk[16], w[16], lv[16], rec[16];
-  const int p = (t - 16) >> 2, q = (t - 16) & 3;      // chroma plane, block
-  if (t < 16) {
-    const int bx = c_blk_x[t], by = c_blk_y[t];
-    for (int k = 0; k < 16; ++k) {
-      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
-      blk[k] = s.cur[i * 16 + j] - s.pred[i * 16 + j];
-    }
-    fdct4(blk, w);
-    for (int k = 0; k < 16; ++k) lv[k] = Q.q(w[k], k);
-    for (int k = 0; k < 16; ++k) luma[(mb * 16 + t) * 16 + k] = lv[c_zz[k]];
-    for (int k = 0; k < 16; ++k) w[k] = Q.dq(lv[k], k);
-    idct4(w, rec);
-    for (int k = 0; k < 16; ++k) {
-      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
-      ry[(orow * 16 + i) * W + c * 16 + j] = (uint8_t)clip255(s.pred[i * 16 + j] + rec[k]);
-    }
-  } else if (t < 24) {
-    const int bx = q & 1, by = q >> 1;
-    for (int k = 0; k < 16; ++k) {
-      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
-      blk[k] = s.curc[p][i * 8 + j] - s.predc[p][i * 8 + j];
-    }
-    fdct4(blk, w);
-    s.cdc[p][q] = w[0];
-    lv[0] = 0;
-    for (int k = 1; k < 16; ++k) lv[k] = QC.q(w[k], k);
-    int* ac = p ? cr_ac : cb_ac;
-    for (int k = 1; k < 16; ++k) ac[(mb * 4 + q) * 15 + k - 1] = lv[c_zz[k]];
-  }
-  __syncthreads();
-  if (t == 16 || t == 20) {             // 2x2 DC Hadamard, one per plane
-    int hd[4], dcl[4], f[4];
-    had2(s.cdc[p], hd);
-    for (int k = 0; k < 4; ++k) dcl[k] = QC.q_dc(hd[k]);
-    int* dc = p ? cr_dc : cb_dc;
-    for (int k = 0; k < 4; ++k) dc[mb * 4 + k] = dcl[k];
-    had2(dcl, f);
-    for (int k = 0; k < 4; ++k) s.cdcc[p][k] = ((f[k] * c_v[0][QC.m]) << QC.s) >> 1;
-  }
-  __syncthreads();
-  if (t >= 16 && t < 24) {
-    const int bx = q & 1, by = q >> 1;
-    for (int k = 1; k < 16; ++k) w[k] = QC.dq(lv[k], k);
-    w[0] = s.cdcc[p][q];
-    idct4(w, rec);
-    uint8_t* rc = p ? rcr : rcb;
-    for (int k = 0; k < 16; ++k) {
-      const int i = by * 4 + (k >> 2), j = bx * 4 + (k & 3);
-      rc[(orow * 8 + i) * Wc + c * 8 + j] = (uint8_t)clip255(s.predc[p][i * 8 + j] + rec[k]);
-    }
-  }
+  const int qcm = TIER == 0 ? qpc : dngd_chroma_qp(qm);
+  residual<TIER>(ws, lane, mb, orow, c, W, Wc, qm, qcm, mvy, mvx,
+                 TIER != 0 ? lam_tab[qm] : 0.0f, luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb,
+                 rcr, score_out);
 }
 
 // --- I16-in-P, pass 2: every MB's I16 DC candidate -----------------------
@@ -766,6 +928,29 @@ __global__ void __launch_bounds__(NT) i16_merge_kernel(
 
 }  // namespace
 
+// Launch checks of every P core form: the current planes are read a
+// 32-bit word at a time, the levels and the luma recon written 16 bytes
+// at a time and the chroma recon 8; the reference strip is copied 16
+// bytes at a time where the reference is 16-byte aligned (else byte by
+// byte).
+static bool aligned(const void* p, uintptr_t n) {
+  return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
+}
+
+static bool outputs_aligned(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
+                            const int* luma, const int* cb_dc, const int* cb_ac,
+                            const int* cr_dc, const int* cr_ac, const uint8_t* ry,
+                            const uint8_t* rcb, const uint8_t* rcr) {
+  return aligned(y, 4) && aligned(cb, 4) && aligned(cr, 4) && aligned(luma, 16) &&
+         aligned(cb_dc, 16) && aligned(cb_ac, 16) && aligned(cr_dc, 16) &&
+         aligned(cr_ac, 16) && aligned(ry, 16) && aligned(rcb, 8) && aligned(rcr, 8);
+}
+
+static int vec_ok(const void* ref_y) { return aligned(ref_y, 16); }
+
+// blocks of one output row of nc MBs
+static int row_blocks(int nc) { return (nc + MPB - 1) / MPB; }
+
 // rows: null for the whole frame (nb = nr), else nb MB rows (K5r).
 // qp_dev: null to take qp/qpc as given, else the slice qp on the card.
 // ns: sessions (1 = one frame) stacked on every plane's and output's
@@ -777,41 +962,47 @@ extern "C" int inter_frame_launch(const uint8_t* y, const uint8_t* cb, const uin
                                   int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr, int nr,
                                   int nc, int nb, int qp, int qpc, int ns, cudaStream_t stream) {
   if (nr <= 0 || nc <= 0 || nb <= 0 || ns <= 0) return 0;
+  if (!outputs_aligned(y, cb, cr, luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr))
+    return cudaErrorMisalignedAddress;
+  const int grid = nb * row_blocks(nc), vec = vec_ok(ref_y);
   if (ns == 1)
-    inter_frame_kernel<0><<<nb * nc, NT, 0, stream>>>(
+    inter_frame_kernel<0><<<grid, NT, 0, stream>>>(
         y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, nullptr, nullptr, nullptr, nullptr, mv,
-        luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+        luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc, vec);
   else
-    inter_frame_kernel<0, true><<<dim3(nb * nc, ns), NT, 0, stream>>>(
+    inter_frame_kernel<0, true><<<dim3(grid, ns), NT, 0, stream>>>(
         y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, nullptr, nullptr, nullptr, nullptr, mv,
-        luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+        luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc, vec);
   return dngd_last_error();
 }
 
 // One frame's (or, PAD, the stacked shards') P core at tier 0, 1 or 2, in
 // the FULL (refine="full") form or not: every pointer as
 // inter_frame_hq_launch's below, lam/marg/score null at tier 0.
-// rows: null, or the worklist of grid / nc MB rows (K5r; not with PAD).
+// rows: null, or the worklist of nb MB rows (K5r; not with PAD).
 template <bool PAD, bool FULL>
 int launch_tiers(const uint8_t* y, const uint8_t* cb, const uint8_t* cr, const uint8_t* ref_y,
                  const uint8_t* ref_cb, const uint8_t* ref_cr, const int* rows,
                  const int* qp_dev, const int* qp_map, const float* lam, const int* marg,
                  int* mv, int* luma, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry,
                  uint8_t* rcb, uint8_t* rcr, float* score, int nr, int nc, int qp, int qpc,
-                 int tier, int grid, cudaStream_t stream) {
+                 int tier, int nb, cudaStream_t stream) {
+  if (!outputs_aligned(y, cb, cr, luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr))
+    return cudaErrorMisalignedAddress;
+  const int grid = nb * row_blocks(nc), vec = vec_ok(ref_y);
   if (tier == 0) {
     inter_frame_kernel<0, false, PAD, FULL><<<grid, NT, 0, stream>>>(
         y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, nullptr, nullptr, nullptr, nullptr,
-        mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+        mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc, vec);
   } else if (tier == 1) {
     inter_frame_kernel<1, false, PAD, FULL><<<grid, NT, 0, stream>>>(
         y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, qp_map, lam, marg, score, mv, luma,
-        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc, vec);
   } else if (tier == 2) {
     if (!qp_map) return cudaErrorInvalidValue;
     inter_frame_kernel<2, false, PAD, FULL><<<grid, NT, 0, stream>>>(
         y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, qp_map, lam, marg, score, mv, luma,
-        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc);
+        cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, nr, nc, qp, qpc, vec);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -838,7 +1029,7 @@ extern "C" int inter_frame_hq_launch(const uint8_t* y, const uint8_t* cb, const 
   if (tier == 0 && !full) return cudaErrorInvalidValue;  // inter_frame_launch's form
   return (full ? launch_tiers<false, true> : launch_tiers<false, false>)(
       y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp_dev, qp_map, lam, marg, mv, luma, cb_dc,
-      cb_ac, cr_dc, cr_ac, ry, rcb, rcr, score, nr, nc, qp, qpc, tier, nb * nc, stream);
+      cb_ac, cr_dc, cr_ac, ry, rcb, rcr, score, nr, nc, qp, qpc, tier, nb, stream);
 }
 
 // K5p: the P core over ns shards of nr MB rows each, every shard's
@@ -856,10 +1047,9 @@ extern "C" int inter_frame_padded_launch(const uint8_t* y, const uint8_t* cb, co
                                          float* score, int nr, int nc, int qp, int qpc, int tier,
                                          int ns, int full, cudaStream_t stream) {
   if (nr <= 0 || nc <= 0 || ns <= 0) return 0;
-  const int grid = ns * nr * nc;
   return (full ? launch_tiers<true, true> : launch_tiers<true, false>)(
       y, cb, cr, pad_y, pad_cb, pad_cr, nullptr, qp_dev, qp_map, lam, marg, mv, luma, cb_dc,
-      cb_ac, cr_dc, cr_ac, ry, rcb, rcr, score, nr, nc, qp, qpc, tier, grid, stream);
+      cb_ac, cr_dc, cr_ac, ry, rcb, rcr, score, nr, nc, qp, qpc, tier, ns * nr, stream);
 }
 
 // I16-in-P pass 2, after inter_frame_hq_launch on the same stream: ry/rcb/

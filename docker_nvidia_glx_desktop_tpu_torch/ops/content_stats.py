@@ -5,8 +5,8 @@ luma SSE against the recon, the mean and p95 of |MV| and the
 skip/inter/intra MB counts.
 
 Replaces the reference's ``ops/content_stats.py`` ``frame_stats`` ->
-``_frame_vec`` and ``chunk_stats``.  :func:`chunk_stats` (K4c) runs
-``csrc/content.cu``'s three kernels over a chunk of K frames (the frame
+``_frame_vec`` and ``chunk_stats``.  :func:`chunk_stats` (K4c) launches
+``csrc/content.cu``'s kernel once over a chunk of K frames (the frame
 as a grid axis) for CUDA tensors and its plain version
 (:func:`frame_stats_full_plain` slot by slot) for CPU tensors: each slot
 diffs against the one before it (slot 0 against ``prev_y``), the SSE
@@ -52,8 +52,10 @@ IDX_ACT_P50 = 7    # ops/aq.mb_activity p50
 IDX_ACT_P95 = 8    # ops/aq.mb_activity p95
 IDX_MBS = 9        # macroblock count (denominator, sanity echo)
 
-# the activity sort runs in one CUDA block's shared memory
+# the kernel's limits: MBs a frame (the size its selection is held at)
+# and frames a launch (a completion ticket each)
 MAX_MBS = 1 << 15
+MAX_FRAMES = 4096
 
 
 def _percentiles_f32(act: torch.Tensor, qs=(50.0, 95.0)) -> torch.Tensor:
@@ -150,6 +152,8 @@ def _check(ys, prev_y, recon_y=None, mvs=None, resid=None, mb_intra=None):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if ys.device.type != "cpu" and r * c > MAX_MBS:
         raise ValueError(f"{r * c} MBs exceed the kernel's {MAX_MBS}")
+    if ys.device.type != "cpu" and k > MAX_FRAMES:
+        raise ValueError(f"{k} frames exceed the kernel's {MAX_FRAMES}")
 
 
 def frame_stats(y: torch.Tensor, prev_y: torch.Tensor, thr_sad: int):
@@ -209,11 +213,11 @@ def chunk_stats(ys, prev_y, thr_sad: int, recon_last_y=None, mvs=None,
     I16-in-P MBs (tune=hq), counted intra.  Returns ``(vecs, grids)``,
     float32 (K, VEC_LEN) and uint8 (K, R, C).
 
-    CUDA tensors launch the kernels once for the chunk (the frame as a
+    CUDA tensors launch the kernel once for the chunk (the frame as a
     grid axis): one warp per MB for the damage SAD, the activity sums
-    and the SSE, |MV| and coded flags, then one block per frame sorting
-    the activity values in shared memory for the percentiles and a
-    second sort for the |MV| p95.  CPU tensors run the plain version."""
+    and the SSE, |MV| and coded flags, then each frame's last block to
+    finish sums them and radix-selects the percentiles' order
+    statistics.  CPU tensors run the plain version."""
     _check(ys, prev_y, recon_last_y, mvs, resid, mb_intra)
     k = ys.shape[0]
     if ys.device.type == "cpu":
@@ -222,7 +226,7 @@ def chunk_stats(ys, prev_y, thr_sad: int, recon_last_y=None, mvs=None,
     r, c = ys.shape[1] // 16, ys.shape[2] // 16
     vecs = torch.empty((k, VEC_LEN), dtype=torch.float32, device=ys.device)
     grids = torch.empty((k, r, c), dtype=torch.uint8, device=ys.device)
-    scratch = torch.empty(3 * k * r * c + 3 * k, dtype=torch.int32,
+    scratch = torch.empty(4 * k * r * c, dtype=torch.int32,
                           device=ys.device)
     _cuda.launch("content", "chunk_stats_launch",
                  [ys, prev_y, recon_last_y, mvs] + list(resid or (None,) * 5)

@@ -577,7 +577,8 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
 
     The reference planes are only read: the recon goes to new buffers
     (``out``'s, where given), so a pipelined caller may keep them.  CUDA
-    tensors launch the kernel (one CUDA block per MB: every MB's search
+    tensors launch the kernel (a warp per MB, a block per run of eight
+    MBs along a row sharing one staged reference strip: every MB's search
     and residual is independent; under ``p_intra`` then a pass over every
     MB's I16 candidate, which reads its left neighbour's recon, and a
     pass per MB row that gates and merges them); CPU tensors run the
@@ -713,7 +714,7 @@ def encode_p_frame_rows(y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp: int,
     ``mb_intra``/``i16_dc``/``i16_ac`` (b, C, ...), each MB's candidate
     predicted from its left neighbour in its own stack row.
 
-    CUDA tensors launch K5's kernel on b * C blocks (then, under
+    CUDA tensors launch K5's kernel over the b rows (then, under
     ``p_intra``, the I16-in-P passes over the b rows); CPU tensors run
     :func:`encode_p_frame_rows_plain`."""
     _check_planes(y, cb, cr)
@@ -763,9 +764,9 @@ def encode_p_frame_padded_ref(y, cb, cr, ref_y_pad, ref_cb_pad, ref_cr_pad,
     and ``next_y`` as :func:`encode_p_frame`'s; under the full tier the
     qp plane (K14) and, with ``p_intra``, the I16-in-P passes run over
     the shards' rows as one frame's (each is a function of an MB and its
-    left neighbour).  CUDA tensors launch the kernel, one CUDA block per
-    MB, the shard the grid's second axis; CPU tensors run the plain
-    version shard by shard."""
+    left neighbour).  CUDA tensors launch the kernel, a warp per MB over
+    the shards' rows as one frame's; CPU tensors run the plain version
+    shard by shard."""
     srow = _refine_scale(refine)
     if tune not in aq.TIERS:
         raise ValueError(f"unknown tune {tune!r}")
