@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in thirteen phases:
+seeded generator, in fourteen phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -20,6 +20,12 @@ seeded generator, in thirteen phases:
   planes, 8 stacked sessions, 4K; K6: all-skip, full noise, I16-in-P, 8
   sessions), with the two sources' ``-Xptxas -v`` lines and each
   wrapper's kernels by device time;
+- **k2k8**: K2 and K8 against their plain versions on the inputs that
+  break their designs (K8: qp 15, 30 and 51, random flags with MV steps
+  of 3 and 4 quarter pels, saturated and flat bands, the ``luma`` and
+  ``qp_dev`` forms, 8 sessions, worklists of 1, 8 and 68 rows, shard
+  rows, 4K; K2: zero, dense and escape-coded levels, I4 and I16 mixed,
+  chroma DC only and AC, 1 to 240 MBs wide, 8 sessions, the qp chain);
 - **modes**: K1's other mode sets (``ENCODER_INTRA_MODES`` full, i16,
   dc) at each tier and K5's ``refine="full"`` (K5 and K5p) against their
   plain versions at 1080p; the served knobs ``ENCODER_INTRA_MODES`` and
@@ -104,6 +110,16 @@ Checks, each of which fails the run:
           K4 on a flat frame, one texture everywhere, activity runs ending
           at and holding the p50/p95 positions, 4K and K4c at K = 4 with
           and without prev, in the intra, full and mb_intra forms
+  k2k8    K8 on intra frames at qp 15 (nothing filters), 30 and 51 over
+          bands of texture, noise, saturated 0/255 rows and flat areas
+          (strong filter, clips), a P frame with random coded flags and MV
+          steps of exactly 3 and 4 quarter pels, the luma and qp_dev forms
+          at a qp other than the host's, 8 stacked 1080p sessions,
+          worklist frames of 1, 8 and 68 rows, nx = 2 shard rows and 4K;
+          K2 on all-zero, sparse (I4 and I16 mixed in every row), dense
+          escape-coded, chroma-DC-only and chroma-AC levels at 1, 33, 120
+          and 240 MBs wide, K1's levels of noise at qp 4, 8 stacked
+          sessions and the qp chain over 1 and 4 bands; all equal to plain
   colour  the odd-geometry stream against one whose colour conversion
           is the plain version; K9 on 1080p and odd frames
   cabac   both routes' access units byte-identical; every K10 and K11
@@ -194,7 +210,10 @@ parent=.tree/parent change=.`` and ``python3 chip_smoke.py k1-variants``;
 the modes phase alone: ``python3 chip_smoke.py modes``; K5 and K4: ``python3
 chip_smoke.py pairs --set k5k4 --pairs 3 parent=.tree/parent change=.``,
 ``python3 chip_smoke.py k5k4-split`` and the k5k4 phase alone ``python3
-chip_smoke.py k5k4``; the damage phase's
+chip_smoke.py k5k4``; K2 and K8: ``python3 chip_smoke.py pairs --set k2k8
+--pairs 3 parent=.tree/parent change=.``, ``python3 chip_smoke.py
+k2k8-split`` and the k2k8 phase alone ``python3 chip_smoke.py k2k8``; the
+damage phase's
 tune-mask part alone: ``python3 chip_smoke.py tune-mask`` (~75 s).  The BD-rate gate
 in alternating fresh processes is ``tools/bdrate_pairs.py``.
 """
@@ -560,6 +579,8 @@ def run():
     print(f"chain phase done at {time.perf_counter() - t_start:.0f} s")
     k5k4_phase(report)
     print(f"k5k4 phase done at {time.perf_counter() - t_start:.0f} s")
+    k2k8_phase(report)
+    print(f"k2k8 phase done at {time.perf_counter() - t_start:.0f} s")
     rows += modes_phase(report)
     print(f"modes phase done at {time.perf_counter() - t_start:.0f} s")
     rows += colour_phase(report)
@@ -5533,7 +5554,8 @@ def bench_phase(report, rows_before):
 # -- A/B timing of kernel sets across checkouts, and kernels by parts -------
 #
 # ``python3 chip_smoke.py pairs --set SET [--pairs N] NAME=PATH ...`` times
-# one set of kernels (``PAIR_SETS``: ``k1k6``, ``k5k4``) on each checkout;
+# one set of kernels (``PAIR_SETS``: ``k1k6``, ``k5k4``, ``k2k8``) on each
+# checkout;
 # ``k1k6-pairs`` is ``pairs --set k1k6``.  For the k1k6 set it compares
 # checkouts of the repository (say a commit's parent, unpacked with ``git
 # archive`` into the git-ignored ``.tree/``, and this tree): every run is a
@@ -5553,7 +5575,11 @@ def bench_phase(report, rows_before):
 # K4's forms, steps 17b and 17d, the GOP path) the same way and writes
 # ``chiprun_out/k5k4_pairs.json``; ``k5k4-split`` cuts K5's stages and
 # K4's last-block parts out of copies of their sources (``K5_VARIANTS``,
-# ``K4_VARIANTS``).
+# ``K4_VARIANTS``).  The k2k8 set (``k2k8_times``: K2 and K8 in their
+# forms, eager, replayed and by device time, 8 sessions, 4K, steps 17a,
+# 17b and 17e) writes ``chiprun_out/k2k8_pairs.json``; ``k2k8-split`` cuts
+# K8's and K2's stages out of copies of their sources (``K8_VARIANTS``,
+# ``K2_VARIANTS``).
 #
 # ``python3 chip_smoke.py k1-variants`` builds copies of ``csrc/intra.cu``
 # with one part of the chain pass cut out (wrong outputs: timing only) into
@@ -5747,10 +5773,79 @@ def k5k4_times() -> dict:
     return out
 
 
+def k2k8_times() -> dict:
+    """The ``k2k8`` set at 1080p: K2 on a desktop IDR's levels (eager,
+    replayed, by device time), with the qp chain, on 8 stacked sessions
+    and on 4K levels; K8 in its intra, P (``nnz_blk``) and ``luma`` forms
+    (eager, replayed, by device time), with ``qp_dev``, on 8 stacked
+    sessions and at 4K; steps 17a, 17b and 17e."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        aq, cavlc_device, devloop, h264_deblock, h264_device)
+
+    dev, qp = torch.device("cuda"), PAIRS_QP
+    ev = lambda fn: cuda_ms(fn, reps=20)
+    gr = lambda fn: graph_ms(fn, reps=20)
+    x = k8_inputs(dev)
+    keys = cavlc_device._LEVEL_KEYS
+    lv = {k: x["levels"][k] for k in keys}
+    lvq = dict(lv, qp_map=aq.qp_plane(x["intra"][0], qp))
+    sess = [pair_planes(f) for f in desktop_frames(8, seed=4)[:8]]
+    st = [torch.stack([s[i] for s in sess]) for i in range(3)]
+    lv8 = h264_device.encode_intra_frame_yuv(*st, qp)
+    lv8 = {k: lv8[k] for k in keys}
+    big = pair_planes(np.tile(gop_frames(1, seed=2)[0], (2, 2, 1)), 2 * H_PAD, 2 * W)
+    lv4k = h264_device.encode_intra_frame_yuv(*big, qp)
+    rec4k = (lv4k["recon_y"], lv4k["recon_cb"], lv4k["recon_cr"])
+    lv4k = {k: lv4k[k] for k in keys}
+    k2 = cavlc_device.frame_block_slots
+    k8 = h264_deblock.deblock_frame
+    qd = torch.tensor([qp + 4], dtype=torch.int32, device=dev)
+    forms = {
+        "k2": lambda: k2(lv),
+        "k2_chain": lambda: k2(lvq, qp),
+        "k8_intra": lambda: k8(*x["intra"], qp),
+        "k8_p": lambda: k8(*x["p"], qp, nnz_blk=x["nnz"], mv=x["mv"]),
+        "k8_luma": lambda: k8(*x["p"], qp, luma=x["luma"], mv=x["mv"]),
+    }
+    out = {}
+    for name, fn in forms.items():
+        out[f"{name}_ms"] = ev(fn)
+        out[f"{name}_graph_ms"] = gr(fn)
+        split = kernel_split(fn)
+        out[f"{name}_device_ms"] = float(sum(split.values())) if split else -1.0
+        out[f"{name}_split"] = split
+    out["k2_s8_ms"] = ev(lambda: k2(lv8))
+    out["k2_4k_ms"] = ev(lambda: k2(lv4k))
+    out["k8_qp_dev_ms"] = ev(lambda: k8(*x["p"], qp, luma=x["luma"], mv=x["mv"],
+                                        qp_dev=qd))
+    out["k8_s8_ms"] = ev(lambda: k8(*st, qp))
+    out["k8_4k_ms"] = ev(lambda: k8(*rec4k, qp))
+    enc = H264Encoder(W, H, mode="cavlc", entropy="device", host_color=True,
+                      device=dev)
+    d = pair_planes(gop_frames(1, seed=5)[0])
+    hv, hl = enc._hdr_slots(0, 0)
+    hvp, hlp = enc._p_hdr_slots(1, 0)
+    out["step17a_ms"] = devloop.measure_steady_state(
+        lambda k: devloop.intra_loop(*d, hv, hl, k, qp),
+        budget_s=PAIRS_LOOP_BUDGET_S)["step_ms"]
+    out["step17b_ms"] = devloop.measure_steady_state(
+        lambda k: devloop.p_loop(*d, *d, hvp, hlp, k, qp, deblock=True),
+        budget_s=PAIRS_LOOP_BUDGET_S)["step_ms"]
+    out["step17e_ms"] = devloop.measure_steady_state(
+        lambda k: devloop.deblock_loop(*d, k, qp),
+        budget_s=PAIRS_LOOP_BUDGET_S)["step_ms"]
+    return out
+
+
 # the measured sets: (timing function, the sources whose ptxas lines a
 # build prints, the output file's stem)
 PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
-             "k5k4": (k5k4_times, ("inter", "content"))}
+             "k5k4": (k5k4_times, ("inter", "content")),
+             "k2k8": (k2k8_times, ("cavlc", "deblock"))}
 
 
 def pairs_child(set_name: str, tree: str, build_only: bool) -> dict:
@@ -6200,6 +6295,212 @@ def k5k4_phase(report):
     return []
 
 
+K2K8_QP = 30
+
+
+def k8_planes(h: int, w: int, dev, seed: int):
+    """Planes whose MB rows cycle through four bands: a smooth texture,
+    full noise, saturated 0/255 (alternate rows all 0, all 255, then a
+    0/255 checkerboard: the clips) and flat areas with small steps at the
+    4x4 and MB edges (the strong filter on both sides)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def one(hh, ww, mb, s):
+        yy = torch.arange(hh, device=dev)[:, None]
+        xx = torch.arange(ww, device=dev)[None, :]
+        tex = texture(hh, ww, dev, s).to(torch.int64)
+        noise = torch.randint(0, 256, (hh, ww), generator=g).to(dev)
+        sat = torch.where((yy // mb) % 8 < 2, 0, torch.where(
+            (yy // mb) % 8 < 4, 255, (yy + xx) % 2 * 255)).expand(hh, ww)
+        flat = (120 + (xx // mb) % 2 * 2 + (xx // (mb // 4)) % 2).expand(hh, ww)
+        band = ((yy // mb) % 4).expand(hh, ww)
+        out = torch.where(band == 0, tex, torch.where(
+            band == 1, noise, torch.where(band == 2, sat, flat)))
+        return out.to(torch.uint8).contiguous()
+    return [one(h, w, 16, seed), one(h // 2, w // 2, 8, seed + 1),
+            one(h // 2, w // 2, 8, seed + 2)]
+
+
+def k8_p_inputs(nr: int, nc: int, dev, seed: int, lead=()):
+    """P-frame K8 inputs: coded flags at random (30%), and MVs whose step
+    from the left MB is 0, 3 or 4 quarter pels in x or y (bS 1 exactly at
+    4), with the luma levels whose coded blocks are those flags."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops.cavlc_device import _BLK_X, _BLK_Y
+
+    g = torch.Generator().manual_seed(seed)
+    nz = torch.rand(lead + (nr, nc, 4, 4), generator=g) < 0.3
+    steps = torch.tensor([0, 3, -3, 4, -4], dtype=torch.int32)[
+        torch.randint(0, 5, lead + (nr, nc, 2), generator=g)]
+    steps *= torch.rand(lead + (nr, nc, 1), generator=g) < 0.5
+    mv = steps.cumsum(-2).to(torch.int32)
+    by, bx = torch.as_tensor(_BLK_Y).long(), torch.as_tensor(_BLK_X).long()
+    lv = torch.randint(-2, 3, lead + (nr, nc, 16, 16), generator=g,
+                       dtype=torch.int32)
+    lv[..., 0] = torch.where(lv[..., 0] == 0, 1, lv[..., 0])
+    lv *= nz[..., by, bx][..., None]
+    return nz.to(dev), mv.to(dev), lv.to(dev)
+
+
+def k2_levels(nr: int, nc: int, dev, seed: int, kind: str, lead=()):
+    """Synthetic level tensors for K2: ``rand`` (sparse small levels, I4
+    and I16 MBs mixed in every row), ``zero``, ``escape`` (every block
+    dense, a fifth of the levels large enough for the escape codes,
+    level_prefix 15-17), ``cdc`` (chroma DC only, no chroma AC) and
+    ``cac`` (chroma AC, no luma)."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import cavlc_device
+
+    g = torch.Generator().manual_seed(seed)
+    big = torch.tensor([1, -1, 2, 40, -300, 2000, -5000, 9000, -12000],
+                       dtype=torch.int32)
+    out = {}
+    for k, shape in cavlc_device._level_shapes(nr, nc).items():
+        shape = lead + shape
+        if k == "mb_i4":
+            out[k] = torch.rand(shape, generator=g) < 0.5
+        elif k == "i4_modes":
+            out[k] = torch.randint(0, 9, shape, generator=g, dtype=torch.int32)
+        elif k == "pred_mode":
+            out[k] = torch.randint(0, 4, shape, generator=g, dtype=torch.int32)
+        elif kind == "zero":
+            out[k] = torch.zeros(shape, dtype=torch.int32)
+        elif kind == "escape":
+            t = torch.randint(1, 4, shape, generator=g, dtype=torch.int32)
+            t *= torch.where(torch.rand(shape, generator=g) < 0.5, 1, -1).to(torch.int32)
+            out[k] = torch.where(torch.rand(shape, generator=g) < 0.2, big[
+                torch.randint(0, 9, shape, generator=g)], t)
+        else:
+            t = torch.randint(-2, 3, shape, generator=g, dtype=torch.int32)
+            t *= torch.rand(shape, generator=g) < 0.3
+            if (kind == "cdc" and k in ("cb_ac", "cr_ac")) or (
+                    kind == "cac" and k.startswith("luma")):
+                t.zero_()
+            out[k] = t
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def k2k8_phase(report):
+    """K2 and K8 on the inputs that break their designs, against the plain
+    versions.  K8: intra frames at qp 15 (alpha 0: nothing filters), 30
+    and 51 over bands of texture, noise, saturated 0/255 rows and flat
+    areas (640x1088); a P frame with random coded flags and MV steps of
+    exactly 3 and 4 quarter pels; the ``luma`` and ``qp_dev`` forms at a
+    qp other than the host's; 8 stacked 1080p sessions, worklist frames of
+    1, 8 and 68 rows and two shards of 34 rows (one plain pass over the
+    sessions' rows holds them all); 4K.  K2: all-zero levels, dense
+    levels with escape codes, rows mixing I4 and I16, chroma DC only and
+    chroma AC, at widths of 1, 33, 120 and 240 MBs; K1's levels of a noise
+    frame at qp 4; 8 stacked sessions; the qp chain over 1 and 4 bands."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        cavlc_device, h264_deblock, h264_device)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rep = report["k2k8"] = {}
+    k8, k8p = h264_deblock.deblock_frame, h264_deblock.deblock_frame_plain
+    k2, k2p = cavlc_device.frame_block_slots, cavlc_device.frame_block_slots_plain
+    saved = (k8.launches, k2.launches, k2.hq.launches)
+    qp = K2K8_QP
+
+    def same(label, got, want):
+        for i, (a, b) in enumerate(zip(got, want)):
+            check(torch.equal(a, b), f"{label}: output {i} differs")
+
+    # -- K8 --------------------------------------------------------------
+    narrow = k8_planes(1088, 640, dev, 80)
+    nr, nc = 1088 // 16, 640 // 16
+    for q in (15, 30, 51):
+        same(f"K8 intra qp {q}", k8(*narrow, q), k8p(*narrow, q))
+    nz, mv, lv = k8_p_inputs(nr, nc, dev, 81)
+    same("K8 P (random flags, MV steps 3 and 4)",
+         k8(*narrow, qp, nnz_blk=nz, mv=mv), k8p(*narrow, qp, nz, mv))
+    qd = torch.tensor([38], dtype=torch.int32, device=dev)
+    same("K8 luma + qp_dev 38 (host qp 30)",
+         k8(*narrow, qp, mv=mv, luma=lv, qp_dev=qd), k8p(*narrow, 38, None, mv, lv))
+    same("K8 intra + qp_dev 38", k8(*narrow, qp, qp_dev=qd), k8p(*narrow, 38))
+    # 8 stacked 1080p sessions; one plain pass over their rows
+    sess = [k8_planes(H_PAD, W, dev, 90 + i) for i in range(8)]
+    st = [torch.stack([p[i] for p in sess]) for i in range(3)]
+    nr, nc = H_PAD // 16, W // 16
+    nz8, mv8, lv8 = k8_p_inputs(nr, nc, dev, 82, lead=(8,))
+    tall = [t.reshape(-1, t.shape[-1]) for t in st]
+    want = k8p(*tall, qp, nz8.reshape(-1, nc, 4, 4), mv8.reshape(-1, nc, 2))
+    want = [w.reshape(t.shape) for w, t in zip(want, st)]
+    got = k8(*st, qp, nnz_blk=nz8, mv=mv8)
+    same("K8 8 sessions (nnz_blk)", got, want)
+    same("K8 8 sessions (luma)", k8(*st, qp, mv=mv8, luma=lv8), want)
+    for r0, b in ((5, 1), (20, 8), (0, 68)):      # worklist frames of b rows
+        planes = [st[0][3, r0 * 16:(r0 + b) * 16].contiguous(),
+                  st[1][3, r0 * 8:(r0 + b) * 8].contiguous(),
+                  st[2][3, r0 * 8:(r0 + b) * 8].contiguous()]
+        got = k8(*planes, qp, mv=mv8[3, r0:r0 + b].contiguous(),
+                 luma=lv8[3, r0:r0 + b].contiguous())
+        same(f"K8 worklist of {b} rows", got, [
+            want[0][3, r0 * 16:(r0 + b) * 16], want[1][3, r0 * 8:(r0 + b) * 8],
+            want[2][3, r0 * 8:(r0 + b) * 8]])
+    shards = [t[5].reshape(2, t.shape[1] // 2, t.shape[2]) for t in st]
+    got = k8(*shards, qp, nnz_blk=nz8[5].reshape(2, nr // 2, nc, 4, 4),
+             mv=mv8[5].reshape(2, nr // 2, nc, 2))
+    same("K8 nx = 2 shard rows", got, [w[5].reshape(g.shape) for w, g in zip(want, got)])
+    big = k8_planes(2 * H_PAD, 2 * W, dev, 83)
+    bnz, bmv, _ = k8_p_inputs(2 * nr, 2 * nc, dev, 84)
+    same("K8 4K P", k8(*big, qp, nnz_blk=bnz, mv=bmv), k8p(*big, qp, bnz, bmv))
+    torch.cuda.synchronize()
+    rep["k8_s"] = time.perf_counter() - t_phase
+    print("(a) k2k8: K8 equal to plain on intra frames at qp 15, 30 and 51 "
+          "(texture, noise, saturated and flat bands, 640x1088), a P frame "
+          "with random flags and MV steps of 3 and 4 quarter pels, the luma "
+          "and qp_dev forms at qp 38 on a host qp of 30, 8 stacked 1080p "
+          "sessions (nnz_blk and luma), worklist frames of 1, 8 and 68 rows, "
+          f"nx = 2 shard rows and 4K; {rep['k8_s']:.1f} s")
+
+    # -- K2 --------------------------------------------------------------
+    t0 = time.perf_counter()
+    n = 0
+    for width in (1, 33, 120, 240):
+        for i, kind in enumerate(("rand", "zero", "escape", "cdc", "cac")):
+            lv = k2_levels(8, width, dev, 100 + i + width, kind)
+            same(f"K2 {kind}, {width} MBs wide", k2(lv), k2p(lv))
+            n += 1
+    noise = [torch.randint(0, 256, p.shape, generator=torch.Generator()
+                           .manual_seed(101 + i), dtype=torch.uint8).to(dev)
+             for i, p in enumerate(pair_planes(gop_frames(1, seed=5)[0]))]
+    ilv = h264_device.encode_intra_frame_yuv(*noise, 4)
+    ilv = {k: ilv[k] for k in cavlc_device._LEVEL_KEYS}
+    got = k2(ilv)
+    same("K2 K1's levels of noise at qp 4", got, k2p(ilv))
+    rep["k2_noise_max_len"] = int(got[1].max())
+    lv8 = k2_levels(H_PAD // 16, W // 16, dev, 102, "rand", lead=(8,))
+    got = k2(lv8)
+    for i in range(8):
+        same(f"K2 8 sessions, session {i}", [t[i] for t in got],
+             k2p({k: v[i] for k, v in lv8.items()}))
+    lvq = k2_levels(H_PAD // 16, W // 16, dev, 103, "rand")
+    g = torch.Generator().manual_seed(104)
+    lvq["qp_map"] = torch.randint(20, 41, (H_PAD // 16, W // 16), generator=g,
+                                  dtype=torch.int32).to(dev)
+    for sh in (1, 4):
+        same(f"K2 with the qp chain, {sh} bands", k2(lvq, qp, sh), k2p(lvq, qp, sh))
+    torch.cuda.synchronize()
+    rep["k2_s"] = time.perf_counter() - t0
+    rep["s"] = time.perf_counter() - t_phase
+    k8.launches, k2.launches, k2.hq.launches = saved
+    print(f"(a) k2k8: K2 equal to plain on {n} synthetic frames (random with "
+          "I4 and I16 mixed, all-zero, escape codes, chroma DC only, chroma "
+          "AC) at 1, 33, 120 and 240 MBs wide, K1's levels of noise at qp 4 "
+          f"(longest slot {rep['k2_noise_max_len']} bits), 8 stacked 1080p "
+          f"sessions and the qp chain over 1 and 4 bands; {rep['k2_s']:.1f} s; "
+          f"phase {rep['s']:.1f} s")
+    return []
+
+
 # K5's stages cut out of copies of inter.cu, one stage a copy (timing
 # only: a cut stage leaves its outputs wrong but every index in range)
 K5_VARIANTS = {
@@ -6345,6 +6646,158 @@ def k5k4_split() -> int:
     return 0
 
 
+# K8's stages cut out of copies of deblock.cu (timing only: a cut stage
+# leaves its outputs wrong but every index in range).  The parent of the
+# redesign cut its staging, walk and write-back the same way (PERF.md).
+K8_VARIANTS = {
+    "base": [],
+    "no_prepass": [("    mb_bs(nz ? nz + c * 16 : nullptr, mv, r * nc + c, c, sbs + c * 8);\n",
+                    "")],
+    "no_filter": [("  const int p0 = pw >> 24, p1", "  return;\n  const int p0 = pw >> 24, p1")],
+    "no_transpose": [("      lines_to_columns(tb, k, w, col);",
+                      "      for (int q = 0; q < 4; ++q) col[q] = w[q];"),
+                     ("      columns_to_lines(tb, k, col, w);",
+                      "      for (int q = 0; q < 4; ++q) w[q] = col[q];")],
+    "no_walk": [("  if (warp) return;", "  return;")],
+}
+
+
+# K2's stages cut out of copies of cavlc.cu (timing only), and "g8": the
+# chunk of eight MBs at two CTAs an SM (outputs right, the other shape)
+K2_VARIANTS = {
+    "base": [],
+    "g8": [("constexpr int I_G = 6;", "constexpr int I_G = 8;"),
+           ("constexpr int I_MINB = 3;", "constexpr int I_MINB = 1;")],
+    "no_stage": [("    stage_i4(&s.li4[m0][0][0], L.luma_i4 + first * 256, n);\n"
+                  "    stage(s.lac[m0], L.luma_ac + first * 240, n * 240);\n", "")],
+    "no_code": [("      code_block(lv, len, nc_ctx, is_cdc, max_coeff, gate, s.vals[m - 1][j], "
+                 "s.lens[m - 1][j]);\n", "")],
+    "no_copy_out": [("        bulk_store(vdst, &s.vals[0][0][0], bytes);\n"
+                     "        bulk_store(ldst, &s.lens[0][0][0], bytes);\n", "")],
+}
+
+
+def k8_inputs(dev, qp: int = PAIRS_QP):
+    """A 1080p P frame's K8 inputs: the P core's recon of a moving desktop
+    frame, its MVs, coded flags and luma levels; and an IDR's recon."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import h264_device, h264_inter
+    from docker_nvidia_glx_desktop_tpu_torch.ops.cavlc_p_device import nnz_raster
+
+    gop = gop_frames(2, seed=2)
+    desk, moving = pair_planes(gop[0]), pair_planes(gop[1])
+    lv = h264_device.encode_intra_frame_yuv(*desk, qp)
+    ref = (lv["recon_y"], lv["recon_cb"], lv["recon_cr"])
+    o = h264_inter.encode_p_frame(*moving, *ref, qp)
+    rec = (o["recon_y"], o["recon_cb"], o["recon_cr"])
+    return {"levels": lv, "intra": ref, "p": rec, "mv": o["mv"],
+            "nnz": nnz_raster(o["luma"]), "luma": o["luma"]}
+
+
+def k8_launch_args(x: dict, form: str, dev, qp: int = PAIRS_QP):
+    """deblock_launch's tensors and ints for a form (intra, p, luma) of
+    ``k8_inputs``: the same arguments the wrapper passes."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import h264_deblock
+
+    planes = x["intra" if form == "intra" else "p"]
+    outs = [torch.empty_like(p) for p in planes]
+    opt = {"intra": [None, None, None], "p": [x["nnz"], x["mv"], None],
+           "luma": [None, x["mv"], x["luma"]]}[form]
+    tl, tc = h264_deblock._tables(qp)
+    nr, nc = planes[0].shape[0] // 16, planes[0].shape[1] // 16
+    return (list(planes) + opt + [None] + outs,
+            [nr, nc, tl[0], tl[1], *tl[2], tc[0], tc[1], *tc[2], 1])
+
+
+def k2k8_split() -> int:
+    """``python3 chip_smoke.py k2k8-split``: the cavlc and deblock sources'
+    ``-Xptxas -v`` lines; K2's and K8's kernels by device time
+    (``kernel_split``) beside each wrapper's CUDA-event and replayed ms,
+    at 1080p on a desktop IDR's levels (K2, and K2 with the qp chain) and
+    a P frame's recon (K8 intra, P with ``nnz_blk``, P with ``luma``);
+    K8's launch with each stage cut out of a copy of ``deblock.cu``
+    (``K8_VARIANTS``, graph replays).  Writes
+    ``chiprun_out/k2k8_split.json``."""
+    import ctypes
+
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, HERE)
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        _cuda, aq, cavlc_device, h264_deblock, h264_device)
+
+    smi = smi_line()
+    print(smi, flush=True)
+    logs = _cuda.build(verbose=True)
+    ptx = {k: ptxas_lines(logs.get(k, "")) for k in ("cavlc", "deblock")}
+    for src, lines in ptx.items():
+        for ln in lines:
+            print(f"ptxas {src}: {ln}", flush=True)
+    dev = torch.device("cuda")
+    x = k8_inputs(dev)
+    res = {"card": smi, "ptxas": ptx}
+    lv = x["levels"]
+    keys = cavlc_device._LEVEL_KEYS
+    lvk = {k: lv[k] for k in keys}
+    qmap = aq.qp_plane(x["intra"][0], PAIRS_QP)
+    lvq = dict(lvk, qp_map=qmap)
+    forms = {
+        "k2": lambda: cavlc_device.frame_block_slots(lvk),
+        "k2_chain": lambda: cavlc_device.frame_block_slots(lvq, PAIRS_QP),
+        "k8_intra": lambda: h264_deblock.deblock_frame(*x["intra"], PAIRS_QP),
+        "k8_p": lambda: h264_deblock.deblock_frame(
+            *x["p"], PAIRS_QP, nnz_blk=x["nnz"], mv=x["mv"]),
+        "k8_luma": lambda: h264_deblock.deblock_frame(
+            *x["p"], PAIRS_QP, luma=x["luma"], mv=x["mv"]),
+    }
+    for name, fn in forms.items():
+        res[name] = {"ms": cuda_ms(fn, reps=20), "graph_ms": graph_ms(fn),
+                     "split": kernel_split(fn)}
+        print(f"{name}: {json.dumps(res[name])}", flush=True)
+    libs = build_variants("deblock", K8_VARIANTS)
+    cut = {}
+    for form in ("intra", "p", "luma"):
+        ts, ints = k8_launch_args(x, form, dev)
+        for name in K8_VARIANTS:
+            fn = libs[name].deblock_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * len(ts) + [ctypes.c_int] * len(ints)
+                           + [ctypes.c_void_p])
+
+            def call(fn=fn, ts=ts, ints=ints, name=name):
+                err = fn(*[None if t is None else t.data_ptr() for t in ts],
+                         *ints, torch.cuda.current_stream().cuda_stream)
+                check(err == 0, f"{name}: CUDA error {err}")
+            cut[f"{form}_{name}"] = graph_ms(call, reps=20)
+            print(f"K8 {form} {name}: {cut[form + '_' + name]:.4f} ms", flush=True)
+    res["k8_cut_ms"] = cut
+    libs = build_variants("cavlc", K2_VARIANTS)
+    nr, nc = H_PAD // 16, W // 16
+    i32 = lambda *sh: torch.empty(sh, dtype=torch.int32, device=dev)
+    ts = [lvk[k] for k in keys] + [i32(nr, nc, 27, 34), i32(nr, nc, 27, 34),
+                                   i32(nr, nc, 20), i32(nr, nc, 20), None]
+    cut = {}
+    for name in K2_VARIANTS:
+        cavlc_device._upload_tables(libs[name])
+        fn = libs[name].cavlc_slots_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * len(ts) + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+        def call2(fn=fn, name=name):
+            err = fn(*[None if t is None else t.data_ptr() for t in ts], nr, nc, 1,
+                     torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"{name}: CUDA error {err}")
+        cut[name] = graph_ms(call2, reps=20)
+        print(f"K2 {name}: {cut[name]:.4f} ms", flush=True)
+    res["k2_cut_ms"] = cut
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k2k8_split.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
 def phase_alone(key: str, phase, srcs) -> int:
     """``python3 chip_smoke.py modes`` / ``tune-mask``: the build (with the
     ptxas lines of ``srcs``), then the one phase alone; writes
@@ -6391,6 +6844,10 @@ def main(argv=None):
             return k1_variants()
         if argv[:1] == ["k5k4-split"]:
             return k5k4_split()
+        if argv[:1] == ["k2k8-split"]:
+            return k2k8_split()
+        if argv[:1] == ["k2k8"]:
+            return phase_alone("k2k8", k2k8_phase, ("cavlc", "deblock"))
         if argv[:1] == ["k5k4"]:
             return phase_alone("k5k4", k5k4_phase, ("inter", "content"))
         return run()

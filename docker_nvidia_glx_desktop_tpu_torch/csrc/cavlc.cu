@@ -24,24 +24,21 @@
 // writes ~58 MB of slots (0.021 ms at 3.35 TB/s); the per-block loops
 // (level VLC with adaptive suffixLength, run_before with zerosLeft) are
 // ~10^3 instructions a block, ~7 us of issue over the card.
-// K2 (two passes): pass 1 (one thread per MB) counts total_coeff per
-// block with the cbp gates; pass 2 runs one thread per 4x4 block (27 per
-// MB), each storing its 34 slots straight to device memory (lanes 136
-// bytes apart), plus one thread per MB for the syntax slots.
-// K6 (one pass, below): a CTA per segment of a row stages its levels in
-// shared memory, codes each 4x4 block into a shared slot tile and writes
-// the tile out as one contiguous range of 16-byte stores; the skip runs
-// are a max-scan of coded MBs along the row.  The block coder walks its
-// nonzeros through a bit mask and keeps no dynamically indexed array (no
-// local memory).  This comes within ~3x of the bytes bound on an H100
-// (chip_smoke.py k1k6-pairs); TMA would replace the tile's copy-out loop,
-// whose stores are already coalesced.
+// K6 and K2 share one design (one pass each, below): a CTA per segment of
+// a row stages its levels in shared memory with 16-byte loads, a warp per
+// MB counts total_coeff by ballots, a thread per 4x4 block codes it into
+// a shared slot tile and the tile goes out as one contiguous range (K6:
+// 16-byte stores; K2: a TMA bulk store); K6's skip runs are a max-scan of
+// coded MBs along the row.  The block coder walks its nonzeros through a
+// bit mask and keeps no dynamically indexed array (no local memory).  K6
+// comes within ~3x of the bytes bound on an H100 (chip_smoke.py
+// k1k6-pairs).
 #include "common.cuh"
 
 namespace {
 
 constexpr int BLOCKS = 27, SLOTS = 34, SYN = 20;
-constexpr int INFO = 32;     // per-MB scratch words written by pass 1
+constexpr int INFO = 32;     // per-MB info words (shared memory, the qp chain's scratch)
 
 // (length << 16 | bits) tables, uploaded once by cavlc_upload_tables.
 __constant__ int c_ct[5 * 17 * 4];
@@ -57,60 +54,10 @@ struct Levels {
   const int *i4_modes, *luma_i4;
 };
 
-// scratch word layout per MB (pass 1 -> pass 2)
+// per-MB info words (shared memory; CBP_* also the scratch words the
+// qp chain reads)
 enum { TC_LUMA = 0, TC_CB = 16, TC_CR = 20, CBP_LUMA = 24, CBP_LUMA4 = 25,
        CBP_CHROMA = 26, GRP_ANY = 27 };
-
-// blockIdx.y: the session.  Sessions' levels, slots and scratch are
-// stacked contiguously, nmb MBs each, so mb below is the stack's index;
-// an MB reads only its own row (slice per MB row), never another session.
-__global__ void mb_info_kernel(Levels L, int* info, int nmb) {
-  const int local = blockIdx.x * blockDim.x + threadIdx.x;
-  if (local >= nmb) return;
-  const int mb = blockIdx.y * nmb + local;
-  int* o = info + mb * INFO;
-  const bool i4 = L.mb_i4[mb];
-  bool cbp_luma = false;
-  for (int k = 0; k < 16 * 15; ++k) cbp_luma |= L.luma_ac[mb * 240 + k] != 0;
-  int grp[4] = {0, 0, 0, 0}, cbp4 = 0;
-  for (int g = 0; g < 4; ++g) {
-    for (int k = 0; k < 64; ++k) grp[g] |= L.luma_i4[mb * 256 + g * 64 + k] != 0;
-    cbp4 |= grp[g] << g;
-  }
-  bool ac_any = false, dc_any = false;
-  for (int k = 0; k < 60; ++k)
-    ac_any |= (L.cb_ac[mb * 60 + k] != 0) | (L.cr_ac[mb * 60 + k] != 0);
-  for (int k = 0; k < 4; ++k)
-    dc_any |= (L.cb_dc[mb * 4 + k] != 0) | (L.cr_dc[mb * 4 + k] != 0);
-  const int cbp_c = ac_any ? 2 : (dc_any ? 1 : 0);
-  for (int b = 0; b < 16; ++b) {      // blkIdx -> raster position
-    int tc = 0;
-    const bool gate = i4 ? grp[b >> 2] : cbp_luma;
-    if (gate) {
-      if (i4) {
-        for (int k = 0; k < 16; ++k) tc += L.luma_i4[(mb * 16 + b) * 16 + k] != 0;
-      } else {
-        for (int k = 0; k < 15; ++k) tc += L.luma_ac[(mb * 16 + b) * 15 + k] != 0;
-      }
-    }
-    o[TC_LUMA + c_blk_y[b] * 4 + c_blk_x[b]] = tc;
-  }
-  for (int q = 0; q < 4; ++q) {
-    int tcb = 0, tcr = 0;
-    if (cbp_c == 2) {
-      for (int k = 0; k < 15; ++k) {
-        tcb += L.cb_ac[(mb * 4 + q) * 15 + k] != 0;
-        tcr += L.cr_ac[(mb * 4 + q) * 15 + k] != 0;
-      }
-    }
-    o[TC_CB + q] = tcb;
-    o[TC_CR + q] = tcr;
-  }
-  o[CBP_LUMA] = cbp_luma;
-  o[CBP_LUMA4] = cbp4;
-  o[CBP_CHROMA] = cbp_c;
-  o[GRP_ANY] = grp[0] | (grp[1] << 1) | (grp[2] << 2) | (grp[3] << 3);
-}
 
 // nC of the block at (by, bx) of a w x w total_coeff grid (spec 9.2.1):
 // above only inside the MB, left across into the previous MB.
@@ -232,94 +179,6 @@ __device__ void code_block(const int* lv, int n, int nc, bool is_cdc, int max_co
 
 __device__ int ue_len(int code_num) { return 2 * (32 - __clz(code_num + 1)) - 1; }
 
-__device__ int mode_raster(const Levels& L, int mb, int by, int bx) {
-  if (!L.mb_i4[mb]) return 2;
-  // raster (by, bx) -> blkIdx
-  const int blk = (by >> 1) * 8 + (bx >> 1) * 4 + (by & 1) * 2 + (bx & 1);
-  return L.i4_modes[mb * 16 + blk];
-}
-
-__device__ void syntax_slots(const Levels& L, const int* info, int mb, bool has_left,
-                             int* vals, int* lens) {
-  const bool i4 = L.mb_i4[mb];
-  for (int b = 0; b < 16; ++b) {
-    const int bx = c_blk_x[b], by = c_blk_y[b];
-    const bool a_ok = bx > 0 || has_left, b_ok = by > 0;
-    int pred = 2;
-    if (a_ok && b_ok) {
-      const int ma = bx > 0 ? mode_raster(L, mb, by, bx - 1) : mode_raster(L, mb - 1, by, 3);
-      pred = min(ma, mode_raster(L, mb, by - 1, bx));
-    }
-    const int m = L.i4_modes[mb * 16 + b];
-    const bool flag = m == pred;
-    vals[1 + b] = flag ? 1 : m - (m > pred);
-    lens[1 + b] = i4 ? (flag ? 1 : 4) : 0;
-  }
-  const int cl = info[CBP_LUMA], cc = info[CBP_CHROMA];
-  const int mbt16 = 1 + L.pred_mode[mb] + 4 * cc + 12 * cl;
-  vals[0] = i4 ? 1 : mbt16 + 1;
-  lens[0] = i4 ? 1 : ue_len(mbt16);
-  const int cbp = info[CBP_LUMA4] + 16 * cc;
-  const int cn = c_cbp_cn[cbp];
-  vals[17] = 1; lens[17] = 1;
-  vals[18] = cn + 1;
-  lens[18] = i4 ? ue_len(cn) : 0;
-  vals[19] = 1;
-  lens[19] = (i4 && cbp == 0) ? 0 : 1;
-}
-
-__global__ void slots_kernel(Levels L, const int* info, int* values, int* lengths,
-                             int* syn_vals, int* syn_lens, int nmb, int nc) {
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= nmb * (BLOCKS + 1)) return;
-  const int mb = blockIdx.y * nmb + gid / (BLOCKS + 1), j = gid % (BLOCKS + 1);
-  const bool has_left = mb % nc != 0;
-  const int* inf = info + mb * INFO;
-  const int* linf = has_left ? info + (mb - 1) * INFO : nullptr;
-  if (j == BLOCKS) {
-    syntax_slots(L, inf, mb, has_left, syn_vals + mb * SYN, syn_lens + mb * SYN);
-    return;
-  }
-  const bool i4 = L.mb_i4[mb];
-  const int cbp_c = inf[CBP_CHROMA];
-  __shared__ int lvs[128][17];      // each thread's levels (blocks of 128; 17: no bank conflicts)
-  int* const lv = lvs[threadIdx.x];
-  for (int k = 0; k < 16; ++k) lv[k] = 0;
-  int nc_ctx = 0, max_coeff = 15;
-  bool is_cdc = false, gate = true;
-  if (j == 0) {                                   // luma DC (I16)
-    for (int k = 0; k < 16; ++k) lv[k] = L.luma_dc[mb * 16 + k];
-    nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, 0, 0);
-    max_coeff = 16;
-    gate = !i4;
-  } else if (j <= 16) {                           // luma blocks, blkIdx order
-    const int b = j - 1;
-    if (i4) {
-      for (int k = 0; k < 16; ++k) lv[k] = L.luma_i4[(mb * 16 + b) * 16 + k];
-    } else {
-      for (int k = 0; k < 15; ++k) lv[k] = L.luma_ac[(mb * 16 + b) * 15 + k];
-    }
-    nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, c_blk_y[b], c_blk_x[b]);
-    max_coeff = i4 ? 16 : 15;
-    gate = i4 ? ((inf[GRP_ANY] >> (b >> 2)) & 1) : inf[CBP_LUMA];
-  } else if (j <= 18) {                           // chroma DC
-    const int* dc = j == 17 ? L.cb_dc : L.cr_dc;
-    for (int k = 0; k < 4; ++k) lv[k] = dc[mb * 4 + k];
-    is_cdc = true;
-    max_coeff = 4;
-    gate = cbp_c > 0;
-  } else {                                        // chroma AC
-    const int p = (j - 19) >> 2, q = (j - 19) & 3;
-    const int* ac = p ? L.cr_ac : L.cb_ac;
-    for (int k = 0; k < 15; ++k) lv[k] = ac[(mb * 4 + q) * 15 + k];
-    const int off = p ? TC_CR : TC_CB;
-    nc_ctx = nc_of(inf + off, linf ? linf + off : nullptr, 2, q >> 1, q & 1);
-    gate = cbp_c == 2;
-  }
-  const int base = (mb * BLOCKS + j) * SLOTS;
-  code_block(lv, 16, nc_ctx, is_cdc, max_coeff, gate, values + base, lengths + base);
-}
-
 // --- K6: P slices -------------------------------------------------------
 //
 // One kernel.  A CTA takes a segment of one MB row (up to P_SEG_CHUNKS
@@ -408,6 +267,46 @@ __device__ void copy_out(int* dst, const int* src, int n) {
   } else {
     for (int i = threadIdx.x; i < n; i += P_THREADS) dst[i] = src[i];
   }
+}
+
+// The tile's copy-out by the Tensor Memory Accelerator: one thread hands
+// a contiguous range of shared memory to a bulk store (16-byte aligned
+// ends, a multiple of 16 bytes) and the CTA goes on; the tile is written
+// again only after the copy has read it.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(static_cast<unsigned>(__cvta_generic_to_shared(src))), "r"(bytes)
+               : "memory");
+#else
+  for (unsigned i = 0; i < bytes; ++i)
+    static_cast<char*>(dst)[i] = static_cast<const char*>(src)[i];
+#endif
+}
+
+__device__ __forceinline__ void bulk_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+#endif
+}
+
+// wait until the committed bulk stores have read their sources (READ) or
+// finished
+template <bool READ>
+__device__ __forceinline__ void bulk_wait() {
+#if defined(__CUDA_ARCH__)
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+#endif
+}
+
+// this thread's shared-memory writes, seen by the bulk copies after a barrier
+__device__ __forceinline__ void fence_async_shared() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#endif
 }
 
 // One MB's info by one warp: total_coeff per block (ballots over the
@@ -658,6 +557,251 @@ int launch_p_slots(const PLevels& L, int* scratch, uint8_t* nnz, int* values, in
   return dngd_last_error();
 }
 
+// --- K2: intra slices (one pass, K6's design) ---------------------------
+//
+// A CTA takes a segment of one MB row (up to P_SEG_CHUNKS chunks of P_G
+// MBs; the session is blockIdx.y).  Per chunk: the chunk's levels and the
+// MB to its left (the halo: its total_coeff for the nC of the left
+// column, its I4 modes for the left predictors) staged in shared memory
+// with 16-byte loads; per MB a warp counts total_coeff by ballots over the
+// I4 levels (and a lane a block over the I16 AC) and derives the cbp and
+// the gates; a thread per 4x4 block codes its slots into a shared tile and
+// a thread per MB its 20 syntax slots.  A chunk's slots are one contiguous
+// range: the block slots' tiles go out by a bulk store of the Tensor
+// Memory Accelerator while the CTA stages and counts the next chunk
+// (16-byte coalesced stores where the range is not 16-byte aligned), the
+// syntax tile by 16-byte stores.  The qp chain's scratch words (CBP_*)
+// are written where a scratch is given.
+
+// Six MBs a chunk keep the CTA at ~65 KB of shared memory and 80
+// registers a thread, so three CTAs share an SM and one's copy-out and
+// staging overlap another's coding (eight MBs a chunk at two CTAs an SM
+// takes about twice as long: the "g8" cut of chip_smoke.py k2k8-split).
+constexpr int I_G = 6;            // MBs a chunk
+constexpr int I_SEG_CHUNKS = 4;   // chunks a CTA
+constexpr int I_MINB = 3;         // CTAs an SM
+
+struct ISmem {
+  alignas(16) int vals[I_G][BLOCKS][SLOTS];   // the chunk's slot tiles
+  alignas(16) int lens[I_G][BLOCKS][SLOTS];
+  alignas(16) int syn_vals[I_G][SYN];
+  alignas(16) int syn_lens[I_G][SYN];
+  // levels of the chunk's MBs at 1..I_G, the halo MB at 0
+  // I4 levels a 4x4 block a row of 17: the threads coding neighbouring
+  // blocks read distinct banks
+  alignas(16) int li4[I_G + 1][16][17];
+  alignas(16) int lac[I_G + 1][240];
+  alignas(16) int ldc[I_G + 1][16];
+  alignas(16) int cbdc[I_G + 1][4];
+  alignas(16) int crdc[I_G + 1][4];
+  alignas(16) int cbac[I_G + 1][60];
+  alignas(16) int crac[I_G + 1][60];
+  alignas(16) int modes[I_G + 1][16];
+  int pred[I_G + 1];
+  int i4[I_G + 1];
+  int info[I_G + 1][INFO];
+};
+
+// n MBs' I4 levels from global to the rows of 17 (16-byte loads where the
+// source is aligned)
+__device__ void stage_i4(int* dst, const int* __restrict__ src, int n) {
+  if (aligned16(src)) {
+    for (int i = threadIdx.x; i < n * 64; i += P_THREADS) {
+      const int4 v = reinterpret_cast<const int4*>(src)[i];
+      int* d = dst + (i >> 2) * 17 + (i & 3) * 4;
+      d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * 256; i += P_THREADS) dst[(i >> 4) * 17 + (i & 15)] = src[i];
+  }
+}
+
+// One MB's info by one warp (TC_* raster grids, cbp, gates); for a chunk
+// MB with a scratch, the qp chain's words.
+__device__ void i_mb_info(ISmem& s, int m, int lane, int* scratch) {
+  int tc4 = 0;                      // lane b < 16: I4 block b (blkIdx)
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const unsigned bal =
+        __ballot_sync(0xffffffffu, s.li4[m][2 * k + (lane >> 4)][lane & 15] != 0);
+    if (lane == 2 * k) tc4 = __popc(bal & 0xffffu);
+    if (lane == 2 * k + 1) tc4 = __popc(bal >> 16);
+  }
+  const unsigned nzb = __ballot_sync(0xffffffffu, lane < 16 && tc4 > 0);
+  const int grp = ((nzb & 0xfu) ? 1 : 0) | ((nzb & 0xf0u) ? 2 : 0) |
+                  ((nzb & 0xf00u) ? 4 : 0) | ((nzb & 0xf000u) ? 8 : 0);
+  const int* la = s.lac[m];
+  bool acn = false;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = k * 32 + lane;
+    acn |= i < 240 && la[i] != 0;
+  }
+  const bool cbp_luma = __ballot_sync(0xffffffffu, acn) != 0;
+  int tc16 = 0;                     // lane b < 16: I16 AC block b (stride 15: no conflicts)
+  if (lane < 16 && cbp_luma)
+    for (int k = 0; k < 15; ++k) tc16 += la[lane * 15 + k] != 0;
+  // chroma: lanes 0-7 count an AC block (cb then cr), lanes 8-15 read a DC level
+  int ctc = 0, dcv = 0;
+  if (lane < 8) {
+    const int* a = ((lane >> 2) ? s.crac[m] : s.cbac[m]) + (lane & 3) * 15;
+    for (int k = 0; k < 15; ++k) ctc += a[k] != 0;
+  } else if (lane < 16) {
+    dcv = ((lane >> 2) & 1 ? s.crdc[m] : s.cbdc[m])[lane & 3];
+  }
+  const bool ac_any = __ballot_sync(0xffffffffu, ctc > 0) != 0;
+  const bool dc_any = __ballot_sync(0xffffffffu, dcv != 0) != 0;
+  const int cbp_c = ac_any ? 2 : (dc_any ? 1 : 0);
+  int* o = s.info[m];
+  if (lane < 16) o[TC_LUMA + c_blk_y[lane] * 4 + c_blk_x[lane]] = s.i4[m] ? tc4 : tc16;
+  if (lane < 8) o[((lane >> 2) ? TC_CR : TC_CB) + (lane & 3)] = ctc;
+  if (lane == 0) {
+    o[CBP_LUMA] = cbp_luma;
+    o[CBP_LUMA4] = grp;
+    o[CBP_CHROMA] = cbp_c;
+    o[GRP_ANY] = grp;
+    if (scratch) {
+      scratch[CBP_LUMA] = cbp_luma;
+      scratch[CBP_LUMA4] = grp;
+      scratch[CBP_CHROMA] = cbp_c;
+    }
+  }
+}
+
+__device__ __forceinline__ int mode_raster(const ISmem& s, int m, int by, int bx) {
+  if (!s.i4[m]) return 2;
+  // raster (by, bx) -> blkIdx
+  return s.modes[m][(by >> 1) * 8 + (bx >> 1) * 4 + (by & 1) * 2 + (bx & 1)];
+}
+
+// MB m's 20 syntax slots (mb_type, the 16 I4 modes, chroma mode, cbp,
+// mb_qp_delta); m - 1 is its left MB where has_left.
+__device__ void syntax_slots(const ISmem& s, int m, bool has_left, int* vals, int* lens) {
+  const bool i4 = s.i4[m];
+  for (int b = 0; b < 16; ++b) {
+    const int bx = c_blk_x[b], by = c_blk_y[b];
+    const bool a_ok = bx > 0 || has_left, b_ok = by > 0;
+    int pred = 2;
+    if (a_ok && b_ok) {
+      const int ma = bx > 0 ? mode_raster(s, m, by, bx - 1) : mode_raster(s, m - 1, by, 3);
+      pred = min(ma, mode_raster(s, m, by - 1, bx));
+    }
+    const int md = s.modes[m][b];
+    const bool flag = md == pred;
+    vals[1 + b] = flag ? 1 : md - (md > pred);
+    lens[1 + b] = i4 ? (flag ? 1 : 4) : 0;
+  }
+  const int* info = s.info[m];
+  const int cl = info[CBP_LUMA], cc = info[CBP_CHROMA];
+  const int mbt16 = 1 + s.pred[m] + 4 * cc + 12 * cl;
+  vals[0] = i4 ? 1 : mbt16 + 1;
+  lens[0] = i4 ? 1 : ue_len(mbt16);
+  const int cbp = info[CBP_LUMA4] + 16 * cc;
+  const int cn = c_cbp_cn[cbp];
+  vals[17] = 1; lens[17] = 1;
+  vals[18] = cn + 1;
+  lens[18] = i4 ? ue_len(cn) : 0;
+  vals[19] = 1;
+  lens[19] = (i4 && cbp == 0) ? 0 : 1;
+}
+
+__global__ void __launch_bounds__(P_THREADS, I_MINB) i_slots_kernel(
+    Levels L, int* scratch, int* values, int* lengths, int* syn_vals, int* syn_lens, int nr,
+    int nc, int segs) {
+  extern __shared__ int4 i_dyn[];
+  ISmem& s = *reinterpret_cast<ISmem*>(i_dyn);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.x / segs, seg = blockIdx.x % segs;
+  const int rowmb = (blockIdx.y * nr + row) * nc;   // the first MB of the stack's row
+  const int nchunks = (nc + I_G - 1) / I_G;
+  const int ch0 = seg * I_SEG_CHUNKS, ch1 = min(ch0 + I_SEG_CHUNKS, nchunks);
+  for (int ch = ch0; ch < ch1; ++ch) {
+    const int c0 = ch * I_G, gc = min(I_G, nc - c0);
+    const int h = c0 > 0 ? 1 : 0;                   // a halo MB to the left
+    const int m0 = 1 - h, n = gc + h;               // smem slots m0 .. gc
+    const size_t first = (size_t)rowmb + c0 - h;
+    __syncthreads();                                // the previous chunk is out
+    stage_i4(&s.li4[m0][0][0], L.luma_i4 + first * 256, n);
+    stage(s.lac[m0], L.luma_ac + first * 240, n * 240);
+    stage(s.ldc[m0], L.luma_dc + first * 16, n * 16);
+    stage(s.cbdc[m0], L.cb_dc + first * 4, n * 4);
+    stage(s.crdc[m0], L.cr_dc + first * 4, n * 4);
+    stage(s.cbac[m0], L.cb_ac + first * 60, n * 60);
+    stage(s.crac[m0], L.cr_ac + first * 60, n * 60);
+    stage(s.modes[m0], L.i4_modes + first * 16, n * 16);
+    for (int i = tid; i < n; i += P_THREADS) {
+      s.pred[m0 + i] = L.pred_mode[first + i];
+      s.i4[m0 + i] = L.mb_i4[first + i];
+    }
+    __syncthreads();
+    for (int m = m0 + warp; m <= gc; m += P_THREADS / 32)
+      i_mb_info(s, m, lane, m && scratch ? scratch + (first + m - m0) * INFO : nullptr);
+    if (tid == 0) bulk_wait<true>();                // the last chunk's tiles were read
+    __syncthreads();
+    if (tid < gc * BLOCKS) {
+      const int m = tid / BLOCKS + 1, j = tid % BLOCKS, c = c0 + m - 1;
+      const int* inf = s.info[m];
+      const int* linf = c ? s.info[m - 1] : nullptr;
+      const bool i4 = s.i4[m];
+      const int cbp_c = inf[CBP_CHROMA];
+      const int* lv;
+      int len = 15, nc_ctx = 0, max_coeff = 15;
+      bool is_cdc = false, gate;
+      if (j == 0) {                                 // luma DC (I16)
+        lv = s.ldc[m];
+        len = 16;
+        nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, 0, 0);
+        max_coeff = 16;
+        gate = !i4;
+      } else if (j <= 16) {                         // luma blocks, blkIdx order
+        const int b = j - 1;
+        lv = i4 ? s.li4[m][b] : s.lac[m] + b * 15;
+        len = i4 ? 16 : 15;
+        nc_ctx = nc_of(inf + TC_LUMA, linf ? linf + TC_LUMA : nullptr, 4, c_blk_y[b],
+                       c_blk_x[b]);
+        max_coeff = len;
+        gate = i4 ? ((inf[GRP_ANY] >> (b >> 2)) & 1) : inf[CBP_LUMA];
+      } else if (j <= 18) {                         // chroma DC
+        lv = j == 17 ? s.cbdc[m] : s.crdc[m];
+        len = 4;
+        is_cdc = true;
+        max_coeff = 4;
+        gate = cbp_c > 0;
+      } else {                                      // chroma AC
+        const int p = (j - 19) >> 2, q = (j - 19) & 3;
+        lv = (p ? s.crac[m] : s.cbac[m]) + q * 15;
+        const int off = p ? TC_CR : TC_CB;
+        nc_ctx = nc_of(inf + off, linf ? linf + off : nullptr, 2, q >> 1, q & 1);
+        gate = cbp_c == 2;
+      }
+      code_block(lv, len, nc_ctx, is_cdc, max_coeff, gate, s.vals[m - 1][j], s.lens[m - 1][j]);
+    } else if (tid >= I_G * BLOCKS && tid < I_G * BLOCKS + gc) {
+      const int m = tid - I_G * BLOCKS + 1;
+      syntax_slots(s, m, c0 + m - 1 > 0, s.syn_vals[m - 1], s.syn_lens[m - 1]);
+    }
+    fence_async_shared();
+    __syncthreads();
+    const size_t out0 = (size_t)rowmb + c0;
+    int* const vdst = values + out0 * BLOCKS * SLOTS;
+    int* const ldst = lengths + out0 * BLOCKS * SLOTS;
+    const unsigned bytes = gc * BLOCKS * SLOTS * 4;
+    if (((reinterpret_cast<uintptr_t>(vdst) | reinterpret_cast<uintptr_t>(ldst) | bytes) & 15) ==
+        0) {
+      if (tid == 0) {
+        bulk_store(vdst, &s.vals[0][0][0], bytes);
+        bulk_store(ldst, &s.lens[0][0][0], bytes);
+        bulk_commit();
+      }
+    } else {
+      copy_out(vdst, &s.vals[0][0][0], gc * BLOCKS * SLOTS);
+      copy_out(ldst, &s.lens[0][0][0], gc * BLOCKS * SLOTS);
+    }
+    copy_out(syn_vals + out0 * SYN, &s.syn_vals[0][0], gc * SYN);
+    copy_out(syn_lens + out0 * SYN, &s.syn_lens[0][0], gc * SYN);
+  }
+  if (tid == 0) bulk_wait<false>();
+}
+
 // --- the qp chain (tune=hq full tier) -----------------------------------
 
 // kind 0: intra slots (codes: I16, or cbp != 0), slot 19 of 20;
@@ -721,23 +865,24 @@ extern "C" int cavlc_upload_tables(const int* ct, const int* tz, const int* tzc,
 }
 
 // ns: sessions (1 = one frame), each nr x nc MBs, stacked on every
-// array's leading axis (scratch included).
+// array's leading axis (scratch included; null when no qp chain follows).
 extern "C" int cavlc_slots_launch(
     const int* luma_dc, const int* luma_ac, const int* cb_dc, const int* cb_ac,
     const int* cr_dc, const int* cr_ac, const int* pred_mode, const uint8_t* mb_i4,
     const int* i4_modes, const int* luma_i4, int* values, int* lengths,
     int* syn_vals, int* syn_lens, int* scratch, int nr, int nc, int ns,
     cudaStream_t stream) {
-  const int nmb = nr * nc;
-  if (nmb <= 0 || ns <= 0) return 0;
+  if (nr <= 0 || nc <= 0 || ns <= 0) return 0;
   const Levels L{luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode,
                  mb_i4, i4_modes, luma_i4};
-  mb_info_kernel<<<dim3((nmb + 127) / 128, ns), 128, 0, stream>>>(L, scratch, nmb);
-  int e = dngd_last_error();
-  if (e) return e;
-  const int n = nmb * (BLOCKS + 1);
-  slots_kernel<<<dim3((n + 127) / 128, ns), 128, 0, stream>>>(L, scratch, values, lengths,
-                                                              syn_vals, syn_lens, nmb, nc);
+  const int nchunks = (nc + I_G - 1) / I_G;
+  const int segs = (nchunks + I_SEG_CHUNKS - 1) / I_SEG_CHUNKS;
+  const int smem = (int)sizeof(ISmem);
+  const cudaError_t e = cudaFuncSetAttribute(
+      i_slots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  i_slots_kernel<<<dim3(nr * segs, ns), P_THREADS, smem, stream>>>(
+      L, scratch, values, lengths, syn_vals, syn_lens, nr, nc, segs);
   return dngd_last_error();
 }
 

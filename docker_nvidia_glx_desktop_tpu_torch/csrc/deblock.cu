@@ -8,28 +8,45 @@
 // Replaces docker_nvidia_glx_desktop_tpu/ops/h264_deblock.py:225
 // deblock_frame (its line filters :122-220); bit-exact with it.
 //
-// What bounds it: the dependency chain.  MB rows are independent (the
-// filter never crosses a slice), but inside a row the x=0 edge of MB n
-// rewrites up to 3 columns of MB n-1 after n-1's horizontal pass, so the
-// MBs go in order.  One CUDA block per MB row copies the row (16 luma
-// and 2 x 8 chroma lines) into shared memory, then one warp walks the
-// MBs: first a thread per line filters the vertical edges left to right
-// (lines are independent), then a thread per column filters the
-// horizontal edges top to bottom; the block writes the row out.  Known
-// limit: a 1080p frame has 68 rows, so 68 blocks run on 132 SMs.
+// What bounds it: the dependency chain, not the bytes.  MB rows are
+// independent (the filter never crosses a slice), but inside a row the
+// x=0 edge of MB n+1 rewrites columns 13-15 of MB n after n's horizontal
+// edges, so the MBs go in order: each costs 4 vertical then 3 horizontal
+// dependent line filters, 840 a 1080p row.  The design keeps that chain
+// short and alone:
+//  - a pre-pass: all threads of the block (one block per MB row) work out
+//    the row's bS into shared memory first, 28 bytes an MB (the luma
+//    levels' coded flags by 16-byte loads and warp ballots), so the walk
+//    reads no flags or MVs from device memory;
+//  - one warp walks the row with the samples in registers: lanes 0-15
+//    hold luma lines 0-15, lanes 16-23 Cb lines and 24-31 Cr lines of the
+//    MB as 32-bit words, plus the previous MB's last word.  The filter is
+//    branch-free on packed words (selects where lanes differ: bS, the
+//    sample tests, a chroma lane's rules and its bS 0 at the luma-only
+//    edges), so luma and chroma run side by side with no divergent
+//    branch.  The kernel is compiled per form: intra computes the bS 4
+//    filter at x = 0 and the bS < 4 one elsewhere; a P frame only the
+//    bS < 4 one, and the warp skips, as one, a pass whose bS words are all
+//    0 (the words are the same for every lane);
+//  - the horizontal edges filter columns: a 16x16 byte transpose through
+//    a padded shared tile gives each lane a column, a second returns it;
+//  - the row streams: the warp loads MB n+3's lines (16-byte loads) while
+//    MB n filters, and stores MB n-1's lines once MB n's x=0 edge is done,
+//    so shared memory no longer grows with the width.
 //
 // Two optional inputs serve the captured chunk step (ops/devloop.py):
 // `qp_dev` puts the slice qp in device memory (the tables below are then
 // looked up on the card, so one graph serves every qp), and `luma` (the P
-// core's (R, C, 16 blkIdx, 16) levels) stands in for the nnz flags: the
-// block derives its row's coded-block flags into shared memory first.
-// The rows of a damage worklist filter as a frame of b rows: with idc=2
-// no edge crosses a row.
+// core's (R, C, 16 blkIdx, 16) levels) stands in for the nnz flags.  The
+// rows of a damage worklist filter as a frame of b rows: with idc=2 no
+// edge crosses a row.
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 128;
+constexpr int NT = 128;          // threads a block: the pre-pass; warp 0 walks
+constexpr int MAX_NC = 512;      // MBs a row (8192 samples)
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Tables {
   int alpha, beta, tc0[3];
@@ -60,146 +77,247 @@ __device__ __forceinline__ Tables tables_at(int index_a) {
 
 __device__ __forceinline__ int clip3(int lo, int hi, int x) { return min(max(x, lo), hi); }
 
-// Filter one edge line in place: q0 at p[0], p0 at p[-st] (spec 8.7.2.3,
-// 8.7.2.4).
-__device__ void filter_line(uint8_t* e, int st, int bs, const Tables& T, bool chroma) {
-  if (bs == 0) return;
-  const int p0 = e[-st], p1 = e[-2 * st], p2 = e[-3 * st], p3 = e[-4 * st];
-  const int q0 = e[0], q1 = e[st], q2 = e[2 * st], q3 = e[3 * st];
-  if (!(abs(p0 - q0) < T.alpha && abs(p1 - p0) < T.beta && abs(q1 - q0) < T.beta)) return;
+// Filter one edge line held in two packed words (spec 8.7.2.3, 8.7.2.4):
+// pw's bytes 0..3 are p3 p2 p1 p0, qw's q0 q1 q2 q3 (a line's words for a
+// vertical edge, a column's for a horizontal one).  Branch-free: where a
+// lane's bS or sample tests fail its samples stay as they were, by
+// selects.  CL: the filters the edge's lanes may need (1: bS 1-3, 2: bS
+// 4, 3: either), known when the kernel is compiled.
+template <int CL>
+__device__ __forceinline__ void filt(uint32_t& pw, uint32_t& qw, int bs, const Tables& T,
+                                     bool chroma) {
+  const int p0 = pw >> 24, p1 = (pw >> 16) & 255, p2 = (pw >> 8) & 255, p3 = pw & 255;
+  const int q0 = qw & 255, q1 = (qw >> 8) & 255, q2 = (qw >> 16) & 255, q3 = qw >> 24;
+  const int ad = abs(p0 - q0);
+  const bool fil = bs > 0 && ad < T.alpha && abs(p1 - p0) < T.beta && abs(q1 - q0) < T.beta;
   const bool ap = abs(p2 - p0) < T.beta, aq = abs(q2 - q0) < T.beta;
-  if (bs < 4) {
-    const int t0 = T.tc0[bs - 1];
+  const bool b4 = CL == 1 ? false : (CL == 2 ? true : bs == 4);
+  int o0 = p0, o1 = p1, o2 = p2, r0 = q0, r1 = q1, r2 = q2;
+  if (CL & 1) {                                   // bS < 4
+    const int t0 = bs >= 3 ? T.tc0[2] : (bs == 2 ? T.tc0[1] : T.tc0[0]);
     const int tc = chroma ? t0 + 1 : t0 + (int)ap + (int)aq;
     const int d = clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3);
-    e[-st] = (uint8_t)clip3(0, 255, p0 + d);
-    e[0] = (uint8_t)clip3(0, 255, q0 - d);
-    if (!chroma) {
-      const int avg = (p0 + q0 + 1) >> 1;
-      if (ap) e[-2 * st] = (uint8_t)clip3(0, 255, p1 + clip3(-t0, t0, (p2 + avg - 2 * p1) >> 1));
-      if (aq) e[st] = (uint8_t)clip3(0, 255, q1 + clip3(-t0, t0, (q2 + avg - 2 * q1) >> 1));
+    const int avg = (p0 + q0 + 1) >> 1;
+    if (fil && !b4) {
+      o0 = clip3(0, 255, p0 + d);
+      r0 = clip3(0, 255, q0 - d);
+      if (ap && !chroma) o1 = p1 + clip3(-t0, t0, (p2 + avg - 2 * p1) >> 1);
+      if (aq && !chroma) r1 = q1 + clip3(-t0, t0, (q2 + avg - 2 * q1) >> 1);
     }
-    return;
   }
-  const bool strong = abs(p0 - q0) < ((T.alpha >> 2) + 2);
-  if (!chroma && strong && ap) {
-    e[-st] = (uint8_t)((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
-    e[-2 * st] = (uint8_t)((p2 + p1 + p0 + q0 + 2) >> 2);
-    e[-3 * st] = (uint8_t)((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
-  } else {
-    e[-st] = (uint8_t)((2 * p1 + p0 + q1 + 2) >> 2);
+  if (CL & 2) {                                   // bS == 4
+    const bool strong = ad < ((T.alpha >> 2) + 2);
+    const bool sp = !chroma && strong && ap, sq = !chroma && strong && aq;
+    if (fil && b4) {
+      o0 = sp ? (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3 : (2 * p1 + p0 + q1 + 2) >> 2;
+      r0 = sq ? (q2 + 2 * q1 + 2 * q0 + 2 * p0 + p1 + 4) >> 3 : (2 * q1 + q0 + p1 + 2) >> 2;
+      if (sp) {
+        o1 = (p2 + p1 + p0 + q0 + 2) >> 2;
+        o2 = (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3;
+      }
+      if (sq) {
+        r1 = (q2 + q1 + q0 + p0 + 2) >> 2;
+        r2 = (2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3;
+      }
+    }
   }
-  if (!chroma && strong && aq) {
-    e[0] = (uint8_t)((q2 + 2 * q1 + 2 * q0 + 2 * p0 + p1 + 4) >> 3);
-    e[st] = (uint8_t)((q2 + q1 + q0 + p0 + 2) >> 2);
-    e[2 * st] = (uint8_t)((2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3);
-  } else {
-    e[0] = (uint8_t)((2 * q1 + q0 + p1 + 2) >> 2);
-  }
+  pw = (uint32_t)p3 | ((uint32_t)o2 << 8) | ((uint32_t)o1 << 16) | ((uint32_t)o0 << 24);
+  qw = (uint32_t)r0 | ((uint32_t)r1 << 8) | ((uint32_t)r2 << 16) | ((uint32_t)q3 << 24);
 }
 
-struct Bs {
-  const uint8_t* nnz;   // (R, C, 4, 4) raster [by][bx] from MB mb0 on; nullptr = intra
-  const int* mv;        // (R, C, 2)
-  int mb, c, mb0;
-  __device__ int nz(int m, int by, int bx) const {
-    return nnz[(m - mb0) * 16 + by * 4 + bx] != 0;
-  }
-  // vertical edge e (x = 4e) at luma line j
-  __device__ int v(int e, int j) const {
-    if (e == 0 && c == 0) return 0;
-    if (!nnz) return e == 0 ? 4 : 3;
-    const int by = j >> 2;
-    if (e > 0) return 2 * (nz(mb, by, e - 1) | nz(mb, by, e));
-    if (nz(mb - 1, by, 3) | nz(mb, by, 0)) return 2;
-    return (abs(mv[mb * 2] - mv[mb * 2 - 2]) >= 4 || abs(mv[mb * 2 + 1] - mv[mb * 2 - 1]) >= 4)
-               ? 1 : 0;
-  }
-  // horizontal edge y = 4e (e = 1..3) at luma column j
-  __device__ int h(int e, int j) const {
-    if (!nnz) return 3;
-    return 2 * (nz(mb, e - 1, j >> 2) | nz(mb, e, j >> 2));
-  }
-};
+// A 16x16 byte transpose through the lane's padded tile (lane k: line k
+// in, column k out), and back.  Luma lanes use all 16 rows, chroma lanes
+// rows 0-7 (their tiles keep 16 rows, so the unused ones stay apart).
+__device__ __forceinline__ void lines_to_columns(uint8_t* tb, int k, const uint32_t* w,
+                                                 uint32_t* col) {
+  *reinterpret_cast<uint4*>(tb + 16 * k) = make_uint4(w[0], w[1], w[2], w[3]);
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    col[q] = (uint32_t)tb[16 * (4 * q) + k] | ((uint32_t)tb[16 * (4 * q + 1) + k] << 8) |
+             ((uint32_t)tb[16 * (4 * q + 2) + k] << 16) |
+             ((uint32_t)tb[16 * (4 * q + 3) + k] << 24);
+}
 
+__device__ __forceinline__ void columns_to_lines(uint8_t* tb, int k, const uint32_t* col,
+                                                 uint32_t* w) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tb[16 * (4 * q + i) + k] = (uint8_t)(col[q] >> (8 * i));
+  __syncwarp();
+  const uint4 l = *reinterpret_cast<const uint4*>(tb + 16 * k);
+  __syncwarp();
+  w[0] = l.x; w[1] = l.y; w[2] = l.z; w[3] = l.w;
+}
+
+// The bS of one MB as 8 words: word e (0..3) the vertical edge x = 4e,
+// word 4 + e (0..2) the horizontal edge y = 4(e + 1); byte g of each the
+// edge's bS on 4-line (vertical) or 4-column (horizontal) group g.
+__device__ void mb_bs(const uint8_t* nz, const int* mv, int mb, int c, uint32_t* o) {
+  if (!nz) {                                     // intra
+    o[0] = c ? 0x04040404u : 0u;
+    o[1] = o[2] = o[3] = o[4] = o[5] = o[6] = 0x03030303u;
+    o[7] = 0;
+    return;
+  }
+  // the MB's flags and its left MB's, 16 bytes each ([by][bx])
+  uint8_t f[16], l[16];
+  if (!(reinterpret_cast<uintptr_t>(nz) & 15)) {
+    *reinterpret_cast<uint4*>(f) = *reinterpret_cast<const uint4*>(nz);
+    if (c) *reinterpret_cast<uint4*>(l) = *reinterpret_cast<const uint4*>(nz - 16);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      f[i] = nz[i];
+      l[i] = c ? nz[i - 16] : 0;
+    }
+  }
+  bool mvd = false;
+  if (c)
+    mvd = abs(mv[mb * 2] - mv[mb * 2 - 2]) >= 4 || abs(mv[mb * 2 + 1] - mv[mb * 2 - 1]) >= 4;
+  uint32_t w[7] = {0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const int sh = 8 * g;
+    const int e0 = !c ? 0 : ((l[g * 4 + 3] | f[g * 4]) ? 2 : (mvd ? 1 : 0));
+    w[0] |= (uint32_t)e0 << sh;
+#pragma unroll
+    for (int e = 1; e < 4; ++e) {
+      w[e] |= (uint32_t)(2 * ((f[g * 4 + e - 1] | f[g * 4 + e]) != 0)) << sh;
+      w[3 + e] |= (uint32_t)(2 * ((f[(e - 1) * 4 + g] | f[e * 4 + g]) != 0)) << sh;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 7; ++k) o[k] = w[k];
+  o[7] = 0;
+}
+
+template <bool INTRA>
 __global__ void __launch_bounds__(NT) deblock_kernel(
     const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
-    const uint8_t* __restrict__ cr, const uint8_t* nnz, const int* mv,
-    const int* __restrict__ luma, const int* __restrict__ qp_dev, uint8_t* oy, uint8_t* ocb,
-    uint8_t* ocr, int nc, Tables TL, Tables TC) {
-  extern __shared__ uint4 smem4[];
+    const uint8_t* __restrict__ cr, const uint8_t* __restrict__ nnz,
+    const int* __restrict__ mv, const int* __restrict__ luma, const int* __restrict__ qp_dev,
+    uint8_t* __restrict__ oy, uint8_t* __restrict__ ocb, uint8_t* __restrict__ ocr, int nc,
+    Tables TL, Tables TC) {
+  __shared__ __align__(16) uint32_t sbs[MAX_NC * 8];   // the row's bS, 8 words an MB
+  __shared__ __align__(16) uint8_t snz[MAX_NC * 16];   // luma form: coded flags, raster
+  __shared__ __align__(16) uint8_t tile[800];          // the walk's transposes
   // r: the MB row of the stack; blockIdx.y is the session (sessions'
   // planes, flags and MVs stacked contiguously, gridDim.x rows each)
   const int W = nc * 16, Wc = nc * 8, r = blockIdx.y * gridDim.x + blockIdx.x;
-  const int t = threadIdx.x;
-  uint8_t* sy = reinterpret_cast<uint8_t*>(smem4);           // 16 x W
-  uint8_t* sc[2] = {sy + 16 * W, sy + 16 * W + 8 * Wc};     // 8 x Wc each
-  const int ny = 16 * W / 16, nch = 8 * Wc / 16;             // uint4 counts
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+
+  // the walking warp's lane: its plane, its line (vertical edges) and
+  // column (horizontal edges) k, and the MBs' first three loads, issued
+  // before the pre-pass
+  const bool chroma = lane >= 16;
+  const int k = chroma ? (lane & 7) : lane;
+  const int plane = chroma ? 1 + ((lane >> 3) & 1) : 0;
+  const uint8_t* src = plane == 0 ? y + ((size_t)r * 16 + k) * W
+                                  : (plane == 1 ? cb : cr) + ((size_t)r * 8 + k) * Wc;
+  uint8_t* dst = plane == 0 ? oy + ((size_t)r * 16 + k) * W
+                            : (plane == 1 ? ocb : ocr) + ((size_t)r * 8 + k) * Wc;
+  auto load = [&](int c, uint32_t* w) {
+    if (chroma) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(src + 8 * c));
+      w[0] = v.x; w[1] = v.y; w[2] = 0; w[3] = 0;
+    } else {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + 16 * c));
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    }
+  };
+  uint32_t cur[4] = {0, 0, 0, 0}, n1[4] = {0, 0, 0, 0}, n2[4] = {0, 0, 0, 0};
+  if (warp == 0) {
+    load(0, cur);
+    if (nc > 1) load(1, n1);
+    if (nc > 2) load(2, n2);
+  }
+
+  // --- the pre-pass: the row's bS -------------------------------------
   if (qp_dev) {
     TL = tables_at(*qp_dev);
     TC = tables_at(dngd_chroma_qp(*qp_dev));
   }
-  int mb0 = 0;
+  const uint8_t* nz = nnz ? nnz + (size_t)r * nc * 16 : nullptr;
   if (luma) {
-    // this row's coded-block flags, raster [by][bx] per MB, from the
-    // levels' blkIdx order
-    uint8_t* snz = sy + 24 * W;
-    for (int k = t; k < nc * 16; k += NT) {
-      const int by = (k & 15) >> 2, bx = k & 3;
-      const int blk = ((by >> 1) << 3) | ((bx >> 1) << 2) | ((by & 1) << 1) | (bx & 1);
-      const int* lv = luma + ((size_t)(r * nc + (k >> 4)) * 16 + blk) * 16;
-      bool any = false;
-      for (int i = 0; i < 16; ++i) any |= lv[i] != 0;
-      snz[k] = any;
+    // a 4x4 block is coded where any of its 16 levels (4 int4) is nonzero
+    const int4* l4 = reinterpret_cast<const int4*>(luma + (size_t)r * nc * 256);
+    const int n4 = nc * 64;
+    constexpr int U = 8;
+    for (int i0 = warp * 32 * U; i0 < n4; i0 += NT * U) {
+      int4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * 32 + lane;
+        v[u] = i < n4 ? __ldg(l4 + i) : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * 32 + lane;
+        const unsigned bal = __ballot_sync(FULL, (v[u].x | v[u].y | v[u].z | v[u].w) != 0);
+        if ((lane & 3) == 0 && i < n4) {
+          const int blk = i >> 2, b = blk & 15;
+          snz[(blk & ~15) + c_blk_y[b] * 4 + c_blk_x[b]] = ((bal >> lane) & 15u) != 0;
+        }
+      }
     }
-    nnz = snz;
-    mb0 = r * nc;
+    __syncthreads();
+    nz = snz;
   }
-  const uint4* gy = reinterpret_cast<const uint4*>(y + (size_t)r * 16 * W);
-  const uint4* gc[2] = {reinterpret_cast<const uint4*>(cb + (size_t)r * 8 * Wc),
-                        reinterpret_cast<const uint4*>(cr + (size_t)r * 8 * Wc)};
-  for (int k = t; k < ny; k += NT) smem4[k] = gy[k];
-  for (int k = t; k < nch; k += NT) {
-    smem4[ny + k] = gc[0][k];
-    smem4[ny + nch + k] = gc[1][k];
+  for (int c = t; c < nc; c += NT) {
+    mb_bs(nz ? nz + c * 16 : nullptr, mv, r * nc + c, c, sbs + c * 8);
   }
   __syncthreads();
+  if (warp) return;
 
-  if (t < 32) {
-    const bool chroma = t >= 16;
-    const int p = (t - 16) >> 3, jc = t & 7;     // chroma plane and line
-    for (int c = 0; c < nc; ++c) {
-      const Bs B{nnz, mv, r * nc + c, c, mb0};
-      // vertical edges, left to right: one thread per line
-      if (!chroma) {
-        for (int e = 0; e < 4; ++e)
-          filter_line(sy + t * W + c * 16 + 4 * e, 1, B.v(e, t), TL, false);
-      } else {
-        uint8_t* line = sc[p] + jc * Wc + c * 8;
-        filter_line(line, 1, B.v(0, 2 * jc), TC, true);
-        filter_line(line + 4, 1, B.v(2, 2 * jc), TC, true);
-      }
-      __syncwarp();
-      // internal horizontal edges, top to bottom: one thread per column
-      if (!chroma) {
-        for (int e = 1; e < 4; ++e)
-          filter_line(sy + 4 * e * W + c * 16 + t, W, B.h(e, t), TL, false);
-      } else {
-        filter_line(sc[p] + 4 * Wc + c * 8 + jc, Wc, B.h(2, 2 * jc), TC, true);
-      }
-      __syncwarp();
+  // --- the walk -------------------------------------------------------
+  const Tables T = chroma ? TC : TL;
+  const int gsh = 8 * (chroma ? k >> 1 : k >> 2);     // this lane's byte of a bS word
+  uint8_t* tb = tile + (chroma ? ((lane >> 3) & 1 ? 544 : 272) : 0);
+  uint32_t pw = 0, s0 = 0, s1 = 0, s2 = 0;   // MB c-1: its line's words 0-2, last word
+  auto store = [&](int c) {
+    if (chroma)
+      *reinterpret_cast<uint2*>(dst + 8 * c) = make_uint2(s0, pw);
+    else
+      *reinterpret_cast<uint4*>(dst + 16 * c) = make_uint4(s0, s1, s2, pw);
+  };
+  for (int c = 0; c < nc; ++c) {
+    uint32_t w[4] = {cur[0], cur[1], cur[2], cur[3]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) { cur[i] = n1[i]; n1[i] = n2[i]; }
+    if (c + 3 < nc) load(c + 3, n2);
+    const uint4 a = *reinterpret_cast<const uint4*>(sbs + c * 8);
+    const uint4 b = *reinterpret_cast<const uint4*>(sbs + c * 8 + 4);
+    const int v0 = (a.x >> gsh) & 255, v1 = ((chroma ? a.z : a.y) >> gsh) & 255;
+    const int v2 = chroma ? 0 : (a.z >> gsh) & 255, v3 = chroma ? 0 : (a.w >> gsh) & 255;
+    const int h1 = ((chroma ? b.y : b.x) >> gsh) & 255;
+    const int h2 = chroma ? 0 : (b.y >> gsh) & 255, h3 = chroma ? 0 : (b.z >> gsh) & 255;
+    // vertical edges, left to right: a lane a line (x = 0 bS 0 in column
+    // 0).  Intra edges have bS 4 (x = 0) or 3; a P frame's bS 0-2, and the
+    // warp skips a pass whose bS words are all 0 (the same words for every
+    // lane: no lane diverges)
+    constexpr int V0 = INTRA ? 2 : 1;
+    if (INTRA || (a.x | a.y | a.z | a.w)) {
+      filt<V0>(pw, w[0], v0, T, chroma);
+      filt<1>(w[0], w[1], v1, T, chroma);
+      filt<1>(w[1], w[2], v2, T, chroma);
+      filt<1>(w[2], w[3], v3, T, chroma);
     }
+    if (c) store(c - 1);                      // MB c-1 is final
+    // horizontal edges, top to bottom: a lane a column
+    if (INTRA || (b.x | b.y | b.z)) {
+      uint32_t col[4];
+      lines_to_columns(tb, k, w, col);
+      filt<1>(col[0], col[1], h1, T, chroma);
+      filt<1>(col[1], col[2], h2, T, chroma);
+      filt<1>(col[2], col[3], h3, T, chroma);
+      columns_to_lines(tb, k, col, w);
+    }
+    s0 = w[0]; s1 = w[1]; s2 = w[2];
+    pw = chroma ? w[1] : w[3];
   }
-  __syncthreads();
-
-  uint4* oy4 = reinterpret_cast<uint4*>(oy + (size_t)r * 16 * W);
-  uint4* oc4[2] = {reinterpret_cast<uint4*>(ocb + (size_t)r * 8 * Wc),
-                   reinterpret_cast<uint4*>(ocr + (size_t)r * 8 * Wc)};
-  for (int k = t; k < ny; k += NT) oy4[k] = smem4[k];
-  for (int k = t; k < nch; k += NT) {
-    oc4[0][k] = smem4[ny + k];
-    oc4[1][k] = smem4[ny + nch + k];
-  }
+  store(nc - 1);
 }
 
 }  // namespace
@@ -208,7 +326,7 @@ __global__ void __launch_bounds__(NT) deblock_kernel(
 // (indexA = QPc); qp_dev non-null replaces them by the tables at the qp
 // it holds.  nnz, mv and luma null for an intra frame; a P frame passes
 // mv and either nnz or luma.  ns: sessions (1 = one frame) stacked on
-// every array's leading axis.
+// every array's leading axis.  Planes 16-byte aligned, luma too.
 extern "C" int deblock_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
                               const uint8_t* nnz, const int* mv, const int* luma,
                               const int* qp_dev, uint8_t* oy, uint8_t* ocb, uint8_t* ocr,
@@ -216,18 +334,18 @@ extern "C" int deblock_launch(const uint8_t* y, const uint8_t* cb, const uint8_t
                               int a_c, int b_c, int t_c0, int t_c1, int t_c2, int ns,
                               cudaStream_t stream) {
   if (nr <= 0 || nc <= 0 || ns <= 0) return 0;
+  if (nc > MAX_NC) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(luma) | reinterpret_cast<uintptr_t>(y) |
+       reinterpret_cast<uintptr_t>(oy) | reinterpret_cast<uintptr_t>(cb) |
+       reinterpret_cast<uintptr_t>(cr) | reinterpret_cast<uintptr_t>(ocb) |
+       reinterpret_cast<uintptr_t>(ocr)) & 15)
+    return cudaErrorMisalignedAddress;
   const Tables TL{a_l, b_l, {t_l0, t_l1, t_l2}}, TC{a_c, b_c, {t_c0, t_c1, t_c2}};
-  const size_t smem = 24 * (size_t)nc * 16 + (luma ? (size_t)nc * 16 : 0);
-  // raised once per size, on the first (uncaptured) launch that needs it
-  static size_t smem_set = 48 * 1024;
-  int e;
-  if (smem > smem_set) {
-    if ((e = cudaFuncSetAttribute(deblock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)))
-      return e;
-    smem_set = smem;
-  }
-  deblock_kernel<<<dim3(nr, ns), NT, smem, stream>>>(y, cb, cr, nnz, mv, luma, qp_dev, oy, ocb, ocr, nc,
-                                           TL, TC);
+  if (nnz || luma)
+    deblock_kernel<false><<<dim3(nr, ns), NT, 0, stream>>>(y, cb, cr, nnz, mv, luma, qp_dev,
+                                                           oy, ocb, ocr, nc, TL, TC);
+  else
+    deblock_kernel<true><<<dim3(nr, ns), NT, 0, stream>>>(y, cb, cr, nnz, mv, luma, qp_dev,
+                                                          oy, ocb, ocr, nc, TL, TC);
   return dngd_last_error();
 }

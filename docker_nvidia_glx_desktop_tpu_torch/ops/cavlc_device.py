@@ -476,11 +476,13 @@ def frame_block_slots(levels: dict, slice_qp: int = None,
     spatial shards' packers' META words), and the mb_qp_delta slots
     chained from ``slice_qp``.
 
-    CUDA tensors launch the slot coder: a per-MB pass for cbp, gates and
-    total_coeff, then one thread per 4x4 block (plus one per MB for the
-    syntax slots) running the sequential CAVLC loops in registers with
-    the tables in constant memory; under the full tier then one warp per
-    MB row scanning the qp chain.  CPU tensors run the plain version.
+    CUDA tensors launch the slot coder, one pass: a block per segment of
+    an MB row stages a chunk's levels in shared memory, a warp per MB
+    counts total_coeff and the cbp, one thread per 4x4 block (plus one per
+    MB for the syntax slots) runs the sequential CAVLC loops with the
+    tables in constant memory into a shared slot tile that goes out by a
+    bulk (TMA) store; under the full tier then one warp per MB row scans
+    the qp chain.  CPU tensors run the plain version.
 
     Levels with a leading session axis (the stacked intra core's, tune
     "off") give slots with one: S sessions in one launch, the session
@@ -521,7 +523,8 @@ def frame_block_slots(levels: dict, slice_qp: int = None,
     lengths = torch.empty(lead + (nr, nc, MB_BLOCKS, BLOCK_SLOTS), **i32)
     syn_vals = torch.empty(lead + (nr, nc, MB_SYN_SLOTS), **i32)
     syn_lens = torch.empty(lead + (nr, nc, MB_SYN_SLOTS), **i32)
-    scratch = torch.empty(lead + (nr * nc, 32), **i32)
+    # the qp chain's per-MB words, written by the slot coder
+    scratch = torch.empty(lead + (nr * nc, 32), **i32) if hq else None
     _cuda.launch("cavlc", "cavlc_slots_launch",
                  [levels[k] for k in _LEVEL_KEYS]
                  + [values, lengths, syn_vals, syn_lens, scratch],

@@ -44,6 +44,7 @@ TC0 = np.array(
        (6, 8, 13), (7, 10, 14), (8, 11, 16), (9, 12, 18), (10, 13, 20),
        (11, 15, 23), (13, 17, 25)], dtype=np.int32)
 assert ALPHA.shape == BETA.shape == (52,) and TC0.shape == (52, 3)
+_MAX_NC = 512               # MBs a row the kernel takes (csrc/deblock.cu MAX_NC)
 
 
 def _tables(qp: int):
@@ -197,10 +198,12 @@ def deblock_frame(y, cb, cr, qp: int, nnz_blk=None, mv=None, luma=None,
     blocks are the coded ones.  Returns new filtered planes, or ``out``'s
     (three planes shaped as the input's, not the input's own) where given.
 
-    CUDA tensors launch the kernel (one CUDA block per MB row, the row in
-    shared memory, one warp walking its MBs); CPU tensors run the plain
-    version.  ``qp_dev`` (CUDA only: one int32 on the card) makes the
-    kernel take the slice qp, and its tables, from device memory.
+    CUDA tensors launch the kernel (one CUDA block per MB row: its
+    threads work out the row's bS, then one warp walks its MBs with the
+    samples in registers, luma and chroma on separate lanes; rows of up
+    to 512 MBs); CPU tensors run the plain version.  ``qp_dev`` (CUDA
+    only: one int32 on the card) makes the kernel take the slice qp, and
+    its tables, from device memory.
 
     Planes stacked (S, H, W), with the flags and MVs stacked alike, filter
     S sessions' frames in one launch (the session the grid's second
@@ -248,9 +251,11 @@ def deblock_frame(y, cb, cr, qp: int, nnz_blk=None, mv=None, luma=None,
         return tuple(o.copy_(r) for o, r in zip(out, res))
     outs = (list(out) if out is not None
             else [torch.empty_like(p) for p in (y, cb, cr)])
-    for t in (y, cb, cr, *outs):
+    for t in (y, cb, cr, *outs) + ((luma,) if luma is not None else ()):
         if t.data_ptr() % 16:
-            raise ValueError("planes must be 16-byte aligned")
+            raise ValueError("planes (and luma) must be 16-byte aligned")
+    if nc > _MAX_NC:
+        raise ValueError(f"{nc} MBs a row: the kernel takes at most {_MAX_NC}")
     tl, tc = _tables(int(qp))
     _cuda.launch("deblock", "deblock_launch",
                  [y, cb, cr, nnz_blk, mv, luma, qp_dev] + outs,
