@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in fourteen phases:
+seeded generator, in fifteen phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -26,6 +26,13 @@ seeded generator, in fourteen phases:
   ``qp_dev`` forms, 8 sessions, worklists of 1, 8 and 68 rows, shard
   rows, 4K; K2: zero, dense and escape-coded levels, I4 and I16 mixed,
   chroma DC only and AC, 1 to 240 MBs wide, 8 sessions, the qp chain);
+- **k3k7**: K3 and K7 (26 blocks, and 27 with the qp sum) against
+  their plain versions, whole flat buffers, on synthetic slots that break
+  the segment design (widths of 1 MB to 240, all-zero blocks and all-skip
+  rows, 32-bit codewords, pieces and MBs at the caps and one bit over,
+  totals at FLAT_CAP_WORDS and one word over, pad 0 and 7, 8 sessions
+  with shared and per-session header slots, worklist frames, nx = 2
+  bands, 4K) and on 1080p slots of a desktop IDR and a moving P frame;
 - **modes**: K1's other mode sets (``ENCODER_INTRA_MODES`` full, i16,
   dc) at each tier and K5's ``refine="full"`` (K5 and K5p) against their
   plain versions at 1080p; the served knobs ``ENCODER_INTRA_MODES`` and
@@ -120,6 +127,14 @@ Checks, each of which fails the run:
           escape-coded, chroma-DC-only and chroma-AC levels at 1, 33, 120
           and 240 MBs wide, K1's levels of noise at qp 4, 8 stacked
           sessions and the qp chain over 1 and 4 bands; all equal to plain
+  k3k7    K3, K7 and K7's 27-block qp-sum form, whole flat buffers equal
+          to plain on 66 synthetic frames (``tests/pack_slots.py``: widths 1, 7, 9,
+          33, 120, 240; zero blocks, all-skip rows, 32-bit codewords,
+          pieces of 256 and 257 bits, MBs of 2048, 2049 and all 32-bit
+          slots, pad 0 and 7, totals at FLAT_CAP_WORDS and one over, 8
+          sessions with shared and own headers, 1, 8 and 68 rows, nx = 2
+          bands, 4K; the overflow flags where the caps say) and on the
+          1080p slots of ``k3k7_inputs``
   colour  the odd-geometry stream against one whose colour conversion
           is the plain version; K9 on 1080p and odd frames
   cabac   both routes' access units byte-identical; every K10 and K11
@@ -212,8 +227,10 @@ chip_smoke.py pairs --set k5k4 --pairs 3 parent=.tree/parent change=.``,
 ``python3 chip_smoke.py k5k4-split`` and the k5k4 phase alone ``python3
 chip_smoke.py k5k4``; K2 and K8: ``python3 chip_smoke.py pairs --set k2k8
 --pairs 3 parent=.tree/parent change=.``, ``python3 chip_smoke.py
-k2k8-split`` and the k2k8 phase alone ``python3 chip_smoke.py k2k8``; the
-damage phase's
+k2k8-split`` and the k2k8 phase alone ``python3 chip_smoke.py k2k8``; K3 and
+K7: ``python3 chip_smoke.py pairs --set k3k7 --pairs 3 parent=.tree/parent
+change=.``, ``python3 chip_smoke.py k3k7-split`` and the k3k7 phase alone
+``python3 chip_smoke.py k3k7``; the damage phase's
 tune-mask part alone: ``python3 chip_smoke.py tune-mask`` (~75 s).  The BD-rate gate
 in alternating fresh processes is ``tools/bdrate_pairs.py``.
 """
@@ -497,6 +514,29 @@ def kernel_row(name, src, replaces, launches, err, ms, plain_ms, nb, ops=0.0):
             "library_ms": None}
 
 
+def live_sector_bytes(vals, lens) -> int:
+    """The bytes of ``vals`` in the 32-byte sectors that hold a value whose
+    length in ``lens`` (same shape) is non-zero: all a packer that reads
+    only live values must fetch of them."""
+    import torch
+
+    live = lens.reshape(-1) != 0
+    lead = (vals.data_ptr() % 32) // vals.element_size()
+    per = 32 // vals.element_size()
+    live = torch.cat([live.new_zeros(lead), live,
+                      live.new_zeros(-(lead + live.numel()) % per)])
+    return 32 * int(live.view(-1, per).any(dim=1).sum())
+
+
+def pack_bytes(values, lengths, syn_vals, syn_lens, others, flat_bytes) -> int:
+    """The bytes K3 / K7 must move on these slots: every length and every
+    header, run and qp-sum slot (``others``) read once, the block and
+    syntax values only in the sectors that hold a live one, and the flat
+    written up to its last word (META and the rows)."""
+    return (nbytes(lengths, syn_lens, *others) + live_sector_bytes(values, lengths)
+            + live_sector_bytes(syn_vals, syn_lens) + flat_bytes)
+
+
 def k5_ops(nmb: int) -> float:
     """Integer operations of the P core (K5) per frame, counted from its
     stages (fixed work: no loop ends early):
@@ -581,6 +621,8 @@ def run():
     print(f"k5k4 phase done at {time.perf_counter() - t_start:.0f} s")
     k2k8_phase(report)
     print(f"k2k8 phase done at {time.perf_counter() - t_start:.0f} s")
+    k3k7_phase(report)
+    print(f"k3k7 phase done at {time.perf_counter() - t_start:.0f} s")
     rows += modes_phase(report)
     print(f"modes phase done at {time.perf_counter() - t_start:.0f} s")
     rows += colour_phase(report)
@@ -767,7 +809,7 @@ def intra_phase(report):
             ("pack", "pack.cu", "cavlc_device.py:629 pack_frame",
              lambda: bitmerge.pack_frame(*sl_k, hv, hl),
              lambda: bitmerge.pack_frame_plain(*sl_k, hv, hl),
-             nbytes(*sl_k, hv, hl) + total_bytes),
+             pack_bytes(*sl_k, (hv, hl), total_bytes)),
             ("content_stats", "content.cu", "content_stats.py:156 frame_stats",
              lambda: content_stats.frame_stats(y, prev, 512),
              lambda: content_stats.frame_stats_full_plain(y, prev, 512),
@@ -789,6 +831,8 @@ def intra_phase(report):
             print(f"kernel {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.4f} ms "
                   f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
                   f"{r['launches'] / len(frames):.2f} launches/frame)")
+        print(f"kernel pack: bound if every slot value were read (worst "
+              f"case) {(nbytes(*sl_k, hv, hl) + total_bytes) / HBM_BYTES_PER_S * 1e3:.4f} ms")
         print(f"kernel intra: sequential-depth estimate {depth_ms:.2f} ms "
               f"({enc.mb_w} MBs x 8 steps x ~1 us)")
 
@@ -1082,7 +1126,7 @@ def gop_phase(report):
         ("pack_p", "pack.cu", "cavlc_p_device.py:298 pack_p_frame",
          lambda: bitmerge.pack_p_frame(*s_k[:6], hv, hl),
          lambda: bitmerge.pack_p_frame_plain(*s_k[:6], hv, hl),
-         nbytes(*s_k[:6], hv, hl) + n_flat, 0.0, 0.0),
+         pack_bytes(*s_k[:4], (*s_k[4:6], hv, hl), n_flat), 0.0, 0.0),
         ("deblock", "deblock.cu", "h264_deblock.py:225 deblock_frame",
          lambda: h264_deblock.deblock_frame(*recon, qp, nnz_blk=nnz, mv=mv),
          lambda: h264_deblock.deblock_frame_plain(*recon, qp, nnz_blk=nnz,
@@ -1102,6 +1146,8 @@ def gop_phase(report):
         print(f"kernel {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
               f"{r['launches'] / GOP_FRAMES:.2f} launches/frame)")
+    print(f"kernel pack_p: bound if every slot value were read (worst case) "
+          f"{(nbytes(*s_k[:6], hv, hl) + n_flat) / HBM_BYTES_PER_S * 1e3:.4f} ms")
     print(f"kernel deblock (intra bS, IDR 0): {i_ms:.3f} ms")
     report["gop"]["deblock_intra_ms"] = i_ms
 
@@ -3672,8 +3718,8 @@ def tune_phase(report, rows_before):
         ("pack_hq", "pack.cu", "cavlc_device.py:629 pack_frame (qp_sum :707-708)",
          lambda: bitmerge.pack_frame(*sl_k[:4], hv0, hl0, qp_sum=sl_k[4]),
          lambda: bitmerge.pack_frame_plain(*sl_k[:4], hv0, hl0, qp_sum=sl_k[4]),
-         nbytes(*sl_k, hv0, hl0) + 4096 + 4 * cavlc_device.FlatMeta(
-             fl_k[:4096].cpu().numpy(), enc.mb_h).total_words, 0.0, 0.0,
+         pack_bytes(*sl_k[:4], (sl_k[4], hv0, hl0), 4096 + 4 * cavlc_device.FlatMeta(
+             fl_k[:4096].cpu().numpy(), enc.mb_h).total_words), 0.0, 0.0,
          launches["pack_hq"]),
         ("inter_hq", "inter.cu", "h264_inter.py:300 encode_p_frame_padded_ref (tune=hq, p_intra)",
          lambda: h264_inter.encode_p_frame(*pl, *ref, qp, tune="hq", p_intra=True),
@@ -3688,8 +3734,8 @@ def tune_phase(report, rows_before):
         ("pack_p_hq", "pack.cu", "cavlc_p_device.py:298 pack_p_frame (27 blocks, qp_sum)",
          lambda: bitmerge.pack_p_frame(*s_k[:6], hv, hl, qp_sum=s_k[7]),
          lambda: bitmerge.pack_p_frame_plain(*s_k[:6], hv, hl, qp_sum=s_k[7]),
-         nbytes(*s_k[:6], hv, hl) + 4096 + 4 * cavlc_device.FlatMeta(
-             f_k[:4096].cpu().numpy(), enc.mb_h).total_words, 0.0, 0.0,
+         pack_bytes(*s_k[:4], (*s_k[4:6], s_k[7], hv, hl), 4096 + 4 * cavlc_device.FlatMeta(
+             f_k[:4096].cpu().numpy(), enc.mb_h).total_words), 0.0, 0.0,
          launches["pack_p_hq"]),
         ("content_stats_hq", "content.cu", "content_stats.py:156 frame_stats (mb_intra :100-120)",
          lambda: content_stats.frame_stats_full(pl[0], ref[0], 512, *c_args),
@@ -5841,11 +5887,113 @@ def k2k8_times() -> dict:
     return out
 
 
+def k3k7_inputs(dev, qp: int = PAIRS_QP) -> dict:
+    """The packers' 1080p inputs: K2's slots of a desktop IDR (K3; with
+    the qp chain for the qp-sum form), K6's slots of a moving desktop P
+    frame (K7; its hq form I16-in-P with 27 blocks and the qp sum), 8
+    stacked sessions of each and K2's slots of a 4K IDR, with the
+    encoder's slice-header slots."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import (
+        aq, cavlc_device, cavlc_p_device, h264_device, h264_inter)
+
+    gop = gop_frames(2, seed=2)
+    desk, moving = pair_planes(gop[0]), pair_planes(gop[1])
+    lv = h264_device.encode_intra_frame_yuv(*desk, qp)
+    keys = cavlc_device._LEVEL_KEYS
+    lvk = {k: lv[k] for k in keys}
+    ref = (lv["recon_y"], lv["recon_cb"], lv["recon_cr"])
+    o = h264_inter.encode_p_frame(*moving, *ref, qp)
+    ohq = h264_inter.encode_p_frame(*moving, *ref, qp, tune="hq", p_intra=True)
+    big = pair_planes(np.tile(gop[0], (2, 2, 1)), 2 * H_PAD, 2 * W)
+    lv4k = h264_device.encode_intra_frame_yuv(*big, qp)
+    enc = H264Encoder(W, H, mode="cavlc", entropy="device", host_color=True,
+                      device=dev)
+    enc4k = H264Encoder(2 * W, 2 * H_PAD, mode="cavlc", entropy="device",
+                        host_color=True, device=dev)
+    x = {"i": cavlc_device.frame_block_slots(lvk)[:4],
+         "p": cavlc_p_device.p_frame_slots(o)[:6],
+         "hdr": enc._hdr_slots(0, 0), "hdr_p": enc._p_hdr_slots(1, 0),
+         "i4k": cavlc_device.frame_block_slots(
+             {k: lv4k[k] for k in keys})[:4],
+         "hdr4k": enc4k._hdr_slots(0, 0)}
+    slq = cavlc_device.frame_block_slots(
+        dict(lvk, qp_map=aq.qp_plane(desk[0], qp)), qp)
+    x["i_hq"], x["i_qp_sum"] = slq[:4], slq[4]
+    shq = cavlc_p_device.p_frame_slots(ohq, qp)
+    x["p_hq"], x["p_qp_sum"] = shq[:6], shq[7]
+    x["i8"] = [torch.stack([t] * 8) for t in x["i"]]
+    x["p8"] = [torch.stack([t] * 8) for t in x["p"]]
+    return x
+
+
+def k3k7_forms(x: dict) -> dict:
+    """The packers' forms on ``k3k7_inputs``, each a call of the wrapper
+    a user's path makes."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import bitmerge
+
+    pf, ppf = bitmerge.pack_frame, bitmerge.pack_p_frame
+    return {
+        "k3": lambda: pf(*x["i"], *x["hdr"]),
+        "k3_hq": lambda: pf(*x["i_hq"], *x["hdr"], qp_sum=x["i_qp_sum"]),
+        "k7": lambda: ppf(*x["p"], *x["hdr_p"]),
+        "k7_hq": lambda: ppf(*x["p_hq"], *x["hdr_p"], qp_sum=x["p_qp_sum"]),
+        "k3_s8": lambda: pf(*x["i8"], *x["hdr"]),
+        "k7_s8": lambda: ppf(*x["p8"], *x["hdr_p"]),
+        "k3_4k": lambda: pf(*x["i4k"], *x["hdr4k"]),
+    }
+
+
+def k3k7_form_times(x: dict) -> dict:
+    """Each of ``k3k7_forms(x)``: {"ms": CUDA-event ms of the wrapper's
+    call, "graph_ms": replayed, "device_ms": the profiler's device time,
+    "split": that time by kernel (the memset and each launch)}."""
+    out = {}
+    for name, fn in k3k7_forms(x).items():
+        r = out[name] = {"ms": cuda_ms(fn, reps=20), "graph_ms": graph_ms(fn, reps=20)}
+        split = kernel_split(fn)
+        r["device_ms"] = float(sum(split.values())) if split else -1.0
+        r["split"] = split
+    return out
+
+
+def k3k7_times() -> dict:
+    """The ``k3k7`` set at 1080p: K3 on a desktop IDR's slots and K7 on a
+    moving desktop P frame's, each plain and in its qp-sum form (K7's
+    with 27 blocks), eager, replayed and by device time; 8 stacked
+    sessions of each and K3 at 4K; steps 17a and 17b."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import devloop
+
+    dev, qp = torch.device("cuda"), PAIRS_QP
+    out = {f"{name}_{k}": v
+           for name, r in k3k7_form_times(k3k7_inputs(dev)).items()
+           for k, v in r.items()}
+    enc = H264Encoder(W, H, mode="cavlc", entropy="device", host_color=True,
+                      device=dev)
+    d = pair_planes(gop_frames(1, seed=5)[0])
+    hv, hl = enc._hdr_slots(0, 0)
+    hvp, hlp = enc._p_hdr_slots(1, 0)
+    out["step17a_ms"] = devloop.measure_steady_state(
+        lambda k: devloop.intra_loop(*d, hv, hl, k, qp),
+        budget_s=PAIRS_LOOP_BUDGET_S)["step_ms"]
+    out["step17b_ms"] = devloop.measure_steady_state(
+        lambda k: devloop.p_loop(*d, *d, hvp, hlp, k, qp, deblock=True),
+        budget_s=PAIRS_LOOP_BUDGET_S)["step_ms"]
+    return out
+
+
 # the measured sets: (timing function, the sources whose ptxas lines a
 # build prints, the output file's stem)
 PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
              "k5k4": (k5k4_times, ("inter", "content")),
-             "k2k8": (k2k8_times, ("cavlc", "deblock"))}
+             "k2k8": (k2k8_times, ("cavlc", "deblock")),
+             "k3k7": (k3k7_times, ("pack",))}
 
 
 def pairs_child(set_name: str, tree: str, build_only: bool) -> dict:
@@ -5969,7 +6117,8 @@ K1_VARIANTS = {
 def build_variants(src_name: str, variants: dict) -> dict:
     """Copies of ``csrc/<src_name>.cu`` with each variant's (old, new)
     substitutions, built at once into ``.tree/<src_name>_variants/<name>``
-    (timing only: a cut part leaves wrong outputs).  Returns {name: the
+    (timing only: a cut part leaves wrong outputs), each copy's
+    ``-Xptxas -v`` register and spill lines printed.  Returns {name: the
     loaded library}."""
     import ctypes
 
@@ -5993,7 +6142,7 @@ def build_variants(src_name: str, variants: dict) -> dict:
         with open(os.path.join(d, f"{src_name}.cu"), "w") as fh:
             fh.write(text)
         procs[name] = subprocess.Popen(
-            [_cuda.nvcc()] + _cuda._NVCC_FLAGS
+            [_cuda.nvcc()] + _cuda._NVCC_FLAGS + ["-Xptxas", "-v"]
             + ["-o", os.path.join(d, "lib.so"),
                os.path.join(d, f"{src_name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -6001,6 +6150,9 @@ def build_variants(src_name: str, variants: dict) -> dict:
     for name, p in procs.items():
         log = p.communicate()[0]
         check(p.returncode == 0, f"{name}: nvcc failed\n{log[-3000:]}")
+        for ln in ptxas_lines(log):
+            if "Used" in ln or "spill" in ln:
+                print(f"ptxas {src_name} {name}: {ln}", flush=True)
         libs[name] = ctypes.CDLL(os.path.join(out_dir, name, "lib.so"))
     return libs
 
@@ -6501,6 +6653,115 @@ def k2k8_phase(report):
     return []
 
 
+def k3k7_call(x: dict, p: bool, fn_i, fn_p, qp: bool = False, sess=None):
+    """A packer (``fn_i`` for K3, ``fn_p`` for K7) on ``k3k7_slots``'
+    tensors: the session axis dropped where ``sess`` is given, the header
+    slots squeezed where shared."""
+    pick = (lambda t: t[sess]) if sess is not None else (lambda t: t)
+    hv, hl = x["hdr_vals"], x["hdr_lens"]
+    if hv.shape[0] == 1 or sess is not None:
+        hv, hl = (h[0] if h.shape[0] == 1 else h[sess] for h in (hv, hl))
+    q = None
+    if qp:
+        q = x["qp_sum"][sess:sess + 1] if sess is not None else x["qp_sum"]
+    if p:
+        return fn_p(*(pick(x[k]) for k in ("values", "lengths", "syn_vals",
+                                            "syn_lens", "run_vals", "run_lens")),
+                    hv, hl, qp_sum=q)
+    return fn_i(*(pick(x[k]) for k in ("values", "lengths", "syn_vals",
+                                        "syn_lens")), hv, hl, qp_sum=q)
+
+
+def k3k7_phase(report):
+    """K3 and K7 (26 blocks, and 27 with the qp sum) on synthetic slots
+    that break the segment design (``tests/pack_slots.py``), against their plain
+    versions on the card, whole flat buffers: widths of 1, 7, 9, 33, 120
+    and 240 MBs; all-zero blocks and all-skip rows, 32-bit codewords,
+    pieces of 256 and 257 bits, MBs of 2048 and 2049 and of all 32-bit
+    slots, rows of pad 0 and 7; totals of exactly FLAT_CAP_WORDS and one
+    over; 8 sessions with shared and per-session header slots; worklist
+    frames of 1, 8 and 68 rows; nx = 2 bands; 4K; and the 1080p slots of
+    ``k3k7_inputs`` (a desktop IDR, a moving P frame, their hq forms, 8
+    sessions, a 4K IDR)."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import bitmerge
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from pack_slots import K3K7_FLAT_ROWS, k3k7_slots
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rep = report["k3k7"] = {}
+    pf, ppf = bitmerge.pack_frame, bitmerge.pack_p_frame
+    saved = (pf.launches, pf.hq.launches, ppf.launches, ppf.hq.launches)
+    forms = (("K3", 27, False, False), ("K7", 26, True, False),
+             ("K7 27 + qp sum", 27, True, True))
+    cases = [(w, 4, "rand", 1, False) for w in (1, 7, 9, 33, 120, 240)]
+    cases += [(120, 8, k, 1, False) for k in (
+        "zero", "wide32", "full", "cap256", "cap257", "mb2049", "pad")]
+    cases += [(K3K7_FLAT_ROWS[1], K3K7_FLAT_ROWS[0], k, 1, False)
+              for k in ("flat_cap", "flat_cap1")]
+    cases += [(40, 6, "rand", 8, False), (40, 6, "pad", 8, True),
+              (120, 1, "rand", 1, False), (120, 8, "rand", 1, False),
+              (120, 68, "rand", 1, False), (120, 34, "rand", 2, True),
+              (240, 136, "rand", 1, False)]
+    n, flags = 0, {}
+    for name, nb, p, qp in forms:
+        for i, (nc, nr, kind, ns, hs) in enumerate(cases):
+            x = k3k7_slots(nr, nc, nb, kind, 300 + i + 50 * nb + 7 * p, ns, hs, p)
+            x = {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+            if ns == 1:
+                x = {k: v if k.startswith("hdr") else v[0] for k, v in x.items()}
+            got = k3k7_call(x, p, pf, ppf, qp)
+            for s in range(ns):
+                want = k3k7_call(x, p, bitmerge.pack_frame_plain,
+                                 bitmerge.pack_p_frame_plain, qp,
+                                 s if ns > 1 else None)
+                g = got[s] if ns > 1 else got
+                check(torch.equal(g, want), f"{name} {kind} {nr}x{nc} "
+                      f"session {s} of {ns} (shared headers {not hs}): "
+                      "flat differs from plain")
+                flags[f"{name} {kind}"] = bool(g[3])
+            n += 1
+    check(flags["K3 flat_cap1"] and not flags["K3 flat_cap"]
+          and flags["K7 mb2049"] and flags["K7 cap257"]
+          and not flags["K7 cap256"] and flags["K3 full"],
+          f"the overflow flags: {flags}")
+    torch.cuda.synchronize()
+    rep["synthetic_s"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    x = k3k7_inputs(dev)
+    plain = {"k3": lambda: bitmerge.pack_frame_plain(*x["i"], *x["hdr"]),
+             "k3_hq": lambda: bitmerge.pack_frame_plain(
+                 *x["i_hq"], *x["hdr"], qp_sum=x["i_qp_sum"]),
+             "k7": lambda: bitmerge.pack_p_frame_plain(*x["p"], *x["hdr_p"]),
+             "k7_hq": lambda: bitmerge.pack_p_frame_plain(
+                 *x["p_hq"], *x["hdr_p"], qp_sum=x["p_qp_sum"]),
+             "k3_4k": lambda: bitmerge.pack_frame_plain(*x["i4k"], *x["hdr4k"])}
+    for name, fn in k3k7_forms(x).items():
+        got = fn()
+        if name.endswith("_s8"):
+            want = plain[name[:2]]()
+            check(all(torch.equal(got[s], want) for s in range(8)),
+                  f"{name}: a session's flat differs from plain")
+        else:
+            check(torch.equal(got, plain[name]()), f"{name}: flat differs from plain")
+    torch.cuda.synchronize()
+    rep["real_s"] = time.perf_counter() - t0
+    rep["s"] = time.perf_counter() - t_phase
+    pf.launches, pf.hq.launches, ppf.launches, ppf.hq.launches = saved
+    print(f"(a) k3k7: K3, K7 and K7's 27-block qp-sum form equal to plain "
+          f"(whole flat buffers) on {n} synthetic frames (widths 1, 7, 9, 33, "
+          "120 and 240 MBs; zero blocks and all-skip rows, 32-bit codewords, "
+          "pieces of 256 and 257 bits, MBs of 2048, 2049 and all 32-bit "
+          "slots, pad 0 and 7, totals at FLAT_CAP_WORDS and one over, 8 "
+          "sessions with shared and per-session headers, 1, 8 and 68 rows, "
+          f"nx = 2 bands, 4K; {rep['synthetic_s']:.1f} s) and on the 1080p "
+          "desktop IDR, moving P frame, hq forms, 8 sessions and a 4K IDR "
+          f"({rep['real_s']:.1f} s); phase {rep['s']:.1f} s")
+    return []
+
+
 # K5's stages cut out of copies of inter.cu, one stage a copy (timing
 # only: a cut stage leaves its outputs wrong but every index in range)
 K5_VARIANTS = {
@@ -6798,6 +7059,90 @@ def k2k8_split() -> int:
     return 0
 
 
+# The packer's stages cut out of copies of pack.cu (timing only: a cut
+# stage leaves its outputs wrong but every index in range).  The parent
+# of the redesign has none of these lines: its split times the wrappers
+# only.
+K3K7_MARK = "seg_kernel"
+K3K7_VARIANTS = {
+    "base": [],
+    "count_only": [("  if (warp == 0) {\n    const int b = lane < SEG",
+                    "  return;\n  if (warp == 0) {\n    const int b = lane < SEG")],
+    "no_wait": [("before += wait_for(seg_pub + q);", "before += q;"),
+                ("w += wait_for(row_pub + q);", "w += q;")],
+    "no_place": [("    if (own) {\n      // the live slots", "    if (false) {\n      // the live slots")],
+}
+
+
+def k3k7_split() -> int:
+    """``python3 chip_smoke.py k3k7-split``: the pack source's ``-Xptxas
+    -v`` lines; K3's and K7's forms (``k3k7_forms``) by device time
+    (``kernel_split``: the memset and each kernel) beside each wrapper's
+    CUDA-event and replayed ms, at 1080p; where ``csrc/pack.cu`` holds the
+    segment kernel, its launch with a stage cut out of a copy
+    (``K3K7_VARIANTS``, graph replays of K3 and K7).  Writes
+    ``chiprun_out/k3k7_split.json``."""
+    import ctypes
+
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, HERE)
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda, bitmerge
+
+    smi = smi_line()
+    print(smi, flush=True)
+    logs = _cuda.build(verbose=True)
+    ptx = ptxas_lines(logs.get("pack", ""))
+    for ln in ptx:
+        print(f"ptxas pack: {ln}", flush=True)
+    dev = torch.device("cuda")
+    x = k3k7_inputs(dev)
+    res = {"card": smi, "ptxas": ptx}
+    for name, r in k3k7_form_times(x).items():
+        res[name] = r
+        print(f"{name}: {json.dumps(r)}", flush=True)
+    if K3K7_MARK in open(os.path.join(_cuda.CSRC, "pack.cu")).read():
+        libs = build_variants("pack", K3K7_VARIANTS)
+        nr, nc = H_PAD // 16, W // 16
+        buf = lambda ns: torch.empty(bitmerge._buffer_bytes(nr, nc, ns),
+                                     dtype=torch.uint8, device=dev)
+        calls = {"k3": ("pack_frame_launch", [*x["i"], *x["hdr"], buf(1), None],
+                        [nr, nc, 1, 0]),
+                 "k7": ("pack_p_frame_launch", [*x["p"], *x["hdr_p"], buf(1), None],
+                        [nr, nc, 26, 1, 0]),
+                 "k3_s8": ("pack_frame_launch", [*x["i8"], *x["hdr"], buf(8), None],
+                           [nr, nc, 8, 0])}
+        cut = {}
+        for form, (entry, ts, ints) in calls.items():
+            for name in K3K7_VARIANTS:
+                fn = libs[name][entry]
+                fn.restype = ctypes.c_int
+                fn.argtypes = ([ctypes.c_void_p] * len(ts) + [ctypes.c_int] * len(ints)
+                               + [ctypes.c_void_p])
+
+                def call(fn=fn, ts=ts, ints=ints, name=name):
+                    err = fn(*[None if t is None else t.data_ptr() for t in ts],
+                             *ints, torch.cuda.current_stream().cuda_stream)
+                    check(err == 0, f"{name}: CUDA error {err}")
+                split = kernel_split(call)
+                cut[f"{form}_{name}"] = {"graph_ms": graph_ms(call, reps=20),
+                                         "device_ms": sum(split.values())}
+                print(f"{form} {name}: {json.dumps(cut[form + '_' + name])}", flush=True)
+        res["cut_ms"] = cut
+    # the library's stream over K3's lengths: one read, and a read and a write
+    lens = x["i"][1]
+    res["library"] = {"sum_ms": cuda_ms(lambda: lens.sum(), reps=20),
+                      "sum_device_ms": sum(kernel_split(lambda: lens.sum()).values()),
+                      "clone_device_ms": sum(kernel_split(lambda: lens.clone()).values()),
+                      "bytes": nbytes(lens)}
+    print(f"library on K3's lengths: {json.dumps(res['library'])}", flush=True)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k3k7_split.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
 def phase_alone(key: str, phase, srcs) -> int:
     """``python3 chip_smoke.py modes`` / ``tune-mask``: the build (with the
     ptxas lines of ``srcs``), then the one phase alone; writes
@@ -6848,6 +7193,10 @@ def main(argv=None):
             return k2k8_split()
         if argv[:1] == ["k2k8"]:
             return phase_alone("k2k8", k2k8_phase, ("cavlc", "deblock"))
+        if argv[:1] == ["k3k7-split"]:
+            return k3k7_split()
+        if argv[:1] == ["k3k7"]:
+            return phase_alone("k3k7", k3k7_phase, ("pack",))
         if argv[:1] == ["k5k4"]:
             return phase_alone("k5k4", k5k4_phase, ("inter", "content"))
         return run()

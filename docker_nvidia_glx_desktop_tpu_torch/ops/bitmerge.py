@@ -7,7 +7,11 @@ Replaces the reference's ``ops/cavlc_device.py`` ``pack_frame`` and the
 and ``ops/cavlc_p_device.py`` ``pack_p_frame``.
 Only the output bytes carry over, not the TPU's scatter-free merge tree:
 every codeword's bit offset is a prefix sum of the slot lengths along its
-row, and the codeword is OR-ed into the row's words at that offset.
+row, and the codeword is OR-ed into the row's words at that offset.  On
+the card (``csrc/pack.cu``) a memset and one launch: a CTA per segment of
+eight MBs of a row counts its slots, takes its place in the stream from
+the segments and rows before it (a look-back through a small state behind
+the flat buffers) and writes its words.
 
 The flat buffer is META_WORDS big-endian uint32 words — [0] overflow flag,
 [1] total_words, [2:2+R] row bytes, [2+MAX_META_ROWS:...+R] row word
@@ -21,6 +25,9 @@ buffer is zero.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -78,8 +85,8 @@ def _pack_plain(syn_vals, syn_lens, values, lengths, hdr_vals, hdr_lens,
                      dim=2).reshape(nr, -1)
     mb_l = torch.cat([syn_lens, lengths.reshape(nr, nc, -1)],
                      dim=2).reshape(nr, -1)
-    vals = torch.cat([hdr_vals.long() & 0xFFFFFFFF, mb_v,
-                      run_vals.long()[:, None], (1 << pad)[:, None]], dim=1)
+    vals = torch.cat([hdr_vals.long(), mb_v, run_vals.long()[:, None],
+                      (1 << pad)[:, None]], dim=1) & 0xFFFFFFFF
     lens = torch.cat([hdr_lens, mb_l, run_lens[:, None], (pad + 1)[:, None]],
                      dim=1)
     pos = lens.cumsum(dim=1) - lens + 32 * word_off[:, None]
@@ -119,9 +126,22 @@ def pack_p_frame_plain(values, lengths, mbh_vals, mbh_lens, run_vals,
                        hdr_lens, run_vals, run_lens, qp_sum)
 
 
-def _scratch_words(nr: int, nc: int) -> int:
-    """One session's packer scratch in int32 words (``Scratch::words``)."""
-    return nr * nc * 30 + 4 * nr + 8
+@functools.lru_cache(maxsize=None)
+def _buffer_bytes(nr: int, nc: int, ns: int) -> int:
+    """The packer's buffer: ``ns`` flats, then its look-back state, as
+    ``csrc/pack.cu``'s ``pack_buffer_bytes`` sizes it (the launch zeroes
+    all of it)."""
+    fn = _cuda.library("pack").pack_buffer_bytes
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 3
+    return int(fn(nr, nc, ns))
+
+
+def _flat_buffer(lead: tuple, nr: int, nc: int, dev):
+    """(buffer, the flats as its (*lead, FLAT_BYTES) view)."""
+    ns = lead[0] if lead else 1
+    buf = torch.empty(_buffer_bytes(nr, nc, ns), dtype=torch.uint8, device=dev)
+    return buf, buf[:ns * FLAT_BYTES].view(lead + (FLAT_BYTES,))
 
 
 def _sessions(t, base_dims: int) -> tuple:
@@ -170,17 +190,15 @@ def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
     values/lengths (R, C, 27, 34), syn_vals/syn_lens (R, C, 20), hdr_vals/
     hdr_lens (R, 3), all int32 (values are the uint32 bit patterns);
     ``qp_sum`` (tune=hq: one int32 on the card) the META_QP_SUM_WORD.  CUDA
-    tensors launch the packer: per-MB bit counts and overflow checks, a
-    scan along each row and over the rows, then one thread per coded
-    piece OR-ing its codewords into the big-endian words at their bit
-    offsets.  CPU tensors run the plain version.
+    tensors launch the packer (a memset and one launch, see the module
+    doc); CPU tensors run the plain version.
 
     Slots with a leading session axis (S, R, C, ...) pack S sessions'
-    frames in one launch (the session the grid's second axis): flat (S,
-    FLAT_BYTES), each session's overflow flag and caps its own, under one
-    set of header slots (R, 3) or one per session (S, R, 3) — the spatial
-    shards' rows, each shard's first_mb_in_slice its own — and with
-    ``qp_sum`` (S,) each session's META word."""
+    frames in one launch (a session's segments after the previous
+    session's): flat (S, FLAT_BYTES), each session's overflow flag and
+    caps its own, under one set of header slots (R, 3) or one per session
+    (S, R, 3) — the spatial shards' rows, each shard's first_mb_in_slice
+    its own — and with ``qp_sum`` (S,) each session's META word."""
     lead = _sessions(syn_vals, 3)
     nr, nc = syn_vals.shape[len(lead):len(lead) + 2]
     dev = values.device
@@ -202,12 +220,10 @@ def pack_frame(values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
                                    (hdr_vals, hdr_lens), qp_sum)
         return pack_frame_plain(values, lengths, syn_vals, syn_lens,
                                 hdr_vals, hdr_lens, qp_sum)
-    flat = torch.empty(lead + (FLAT_BYTES,), dtype=torch.uint8, device=dev)
-    scratch = torch.empty(lead + (_scratch_words(nr, nc),),
-                          dtype=torch.int32, device=dev)
+    buf, flat = _flat_buffer(lead, nr, nc, dev)
     _cuda.launch("pack", "pack_frame_launch",
                  [values, lengths, syn_vals, syn_lens, hdr_vals, hdr_lens,
-                  flat, scratch, qp_sum],
+                  buf, qp_sum],
                  [nr, nc, lead[0] if lead else 1, len(hs) == 3], dev)
     if qp_sum is None:
         pack_frame.launches += 1
@@ -262,12 +278,10 @@ def pack_p_frame(values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
         return pack_p_frame_plain(values, lengths, mbh_vals, mbh_lens,
                                   run_vals, run_lens, hdr_vals, hdr_lens,
                                   qp_sum)
-    flat = torch.empty(lead + (FLAT_BYTES,), dtype=torch.uint8, device=dev)
-    scratch = torch.empty(lead + (_scratch_words(nr, nc),),
-                          dtype=torch.int32, device=dev)
+    buf, flat = _flat_buffer(lead, nr, nc, dev)
     _cuda.launch("pack", "pack_p_frame_launch",
                  [values, lengths, mbh_vals, mbh_lens, run_vals, run_lens,
-                  hdr_vals, hdr_lens, flat, scratch, qp_sum],
+                  hdr_vals, hdr_lens, buf, qp_sum],
                  [nr, nc, nb, lead[0] if lead else 1, len(hs) == 3], dev)
     if nb == 27 or qp_sum is not None:
         pack_p_frame.hq.launches += 1
