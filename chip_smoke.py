@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in fifteen phases:
+seeded generator, in sixteen phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -33,6 +33,11 @@ seeded generator, in fifteen phases:
   totals at FLAT_CAP_WORDS and one word over, pad 0 and 7, 8 sessions
   with shared and per-session header slots, worklist frames, nx = 2
   bands, 4K) and on 1080p slots of a desktop IDR and a moving P frame;
+- **k11k16**: K16c (the JPEG bit pack) and K11p (the CABAC P binarizer)
+  against their plain versions, byte for byte, on crafted inputs that
+  break their segment designs (``tests/jpeg_levels.py``'s levels; skip
+  runs, dense levels, budget overflows and an MB over its cap) and on
+  every form of their main paths;
 - **modes**: K1's other mode sets (``ENCODER_INTRA_MODES`` full, i16,
   dc) at each tier and K5's ``refine="full"`` (K5 and K5p) against their
   plain versions at 1080p; the served knobs ``ENCODER_INTRA_MODES`` and
@@ -135,6 +140,17 @@ Checks, each of which fails the run:
           sessions with shared and own headers, 1, 8 and 68 rows, nx = 2
           bands, 4K; the overflow flags where the caps say) and on the
           1080p slots of ``k3k7_inputs``
+  k11k16  K16c's strips equal to plain on all-zero blocks, a nonzero
+          only at position 63, DC differences of size 11, negative
+          amplitudes, 32-bit blocks (``edge_tables``), noise at the worst
+          case of bits a block and random levels, at S = 1 x nx = 1 of
+          1080p, S = 4 x nx = 4 and S = 2 x 40 MCUs at nx = 1, 2, 4, and on
+          the single encoder's sticky and per-frame tables at 1080p,
+          1919x1079, RFB's encoder, the batch and 4K; K11p's header and
+          payload equal to plain on skip runs, dense levels, mvd and level
+          overflows (the flag set) at three shapes, an MB over a cap of 8
+          words (the flag set, the header otherwise plain's), a desktop P
+          frame, a noise frame and a shard's 34 rows
   colour  the odd-geometry stream against one whose colour conversion
           is the plain version; K9 on 1080p and odd frames
   cabac   both routes' access units byte-identical; every K10 and K11
@@ -230,7 +246,10 @@ chip_smoke.py k5k4``; K2 and K8: ``python3 chip_smoke.py pairs --set k2k8
 k2k8-split`` and the k2k8 phase alone ``python3 chip_smoke.py k2k8``; K3 and
 K7: ``python3 chip_smoke.py pairs --set k3k7 --pairs 3 parent=.tree/parent
 change=.``, ``python3 chip_smoke.py k3k7-split`` and the k3k7 phase alone
-``python3 chip_smoke.py k3k7``; the damage phase's
+``python3 chip_smoke.py k3k7``; K16c and K11p: ``python3 chip_smoke.py pairs
+--set k11k16 --pairs 3 parent=.tree/parent change=.``, ``python3
+chip_smoke.py k11k16-split`` and the k11k16 phase alone ``python3
+chip_smoke.py k11k16``; the damage phase's
 tune-mask part alone: ``python3 chip_smoke.py tune-mask`` (~75 s).  The BD-rate gate
 in alternating fresh processes is ``tools/bdrate_pairs.py``.
 """
@@ -257,6 +276,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # held against the 67 T/s non-tensor float32 rate (one operation per
 # add, subtract, absolute value, compare, multiply or shift).
 SCALAR_OPS_PER_S = 67e12
+# K16a's float64 work: the data sheet's 34 TFLOPS FP64 counts an FMA as
+# two operations; the kernel's unfused __dmul_rn / __dadd_rn issue one
+# instruction each, so its rate is half: 17 T/s.
+FP64_OPS_PER_S = 17e12
+# K16a's float64 operations an MCU: colour 256 x 3 x (3 mul + 3 add), the
+# chroma quad means 64 x 2 x 5, luma -128 256, two DCT passes 2 x 384 x 15
+K16A_FP64_OPS_PER_MCU = 256 * 3 * 6 + 64 * 2 * 5 + 256 + 2 * 384 * 15
 EXACT_REL_TOL = 1e-6       # activity percentiles (float32 interpolation)
 FLOAT_REL_TOL = 1e-5       # SSE, |MV| mean and p95 of the full K4 form
 COLOUR_FRAMES = 4          # colour phase: odd geometry, device colour (K9)
@@ -623,6 +649,8 @@ def run():
     print(f"k2k8 phase done at {time.perf_counter() - t_start:.0f} s")
     k3k7_phase(report)
     print(f"k3k7 phase done at {time.perf_counter() - t_start:.0f} s")
+    k11k16_phase(report)
+    print(f"k11k16 phase done at {time.perf_counter() - t_start:.0f} s")
     rows += modes_phase(report)
     print(f"modes phase done at {time.perf_counter() - t_start:.0f} s")
     rows += colour_phase(report)
@@ -1202,16 +1230,23 @@ def gop_phase(report):
     return rows
 
 
-def kernel_split(fn, n: int = 10, tries: int = 2) -> dict:
+def kernel_split(fn, n: int = 10, tries: int = 3, launches=None,
+                 strict: bool = False) -> dict:
     """Mean device ms per call of each kernel ``fn`` launches, by name
-    (``torch.profiler``; a trace that comes back without device time is
-    taken once more), or {} where none holds any."""
+    (``torch.profiler``): each kernel's mean over the events the trace
+    holds, times its launches per call (its events over ``n`` calls,
+    rounded up).  A trace in which some kernel's events are not a whole
+    multiple of ``n`` dropped events: it is taken again, up to ``tries``
+    traces.  Where none is whole, ``strict`` returns {}, else the last
+    trace's means, with a warning either way.  Where ``launches`` is
+    given, a trace whose kernels do not make up that many launches a call
+    is never used.  {} also where no trace holds device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    out = {}
+    why, est = "no device time in the trace", {}
     for _ in range(tries):
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1221,15 +1256,44 @@ def kernel_split(fn, n: int = 10, tries: int = 2) -> dict:
         except RuntimeError as e:       # no CUPTI tracing on this host
             print(f"kernel split: not measured (profiler: {e})")
             return {}
+        tot, counts = {}, {}
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", 0.0)
             if us > 0:
                 name = e.key.replace("(anonymous namespace)::", "")
                 name = name.replace("void ", "").split("(")[0][:60]
-                out[name] = us / 1e3 / n
-        if out:
-            break
-    return out
+                counts[name] = counts.get(name, 0) + e.count
+                tot[name] = tot.get(name, 0.0) + us / 1e3
+        per_call = {k: -(-c // n) for k, c in counts.items()}
+        if not tot:
+            continue
+        if launches is not None and sum(per_call.values()) != launches:
+            why = f"{per_call} launches a call, not {launches}"
+            continue
+        out = {k: v / counts[k] * per_call[k] for k, v in tot.items()}
+        dropped = {k: c for k, c in counts.items() if c % n}
+        if not dropped:
+            return out
+        why, est = f"events dropped: {dropped} for {n} calls", out
+    if est and not strict:
+        print(f"kernel split: means over the events held ({why})")
+        return est
+    print(f"kernel split: not measured ({why}, {tries} traces)")
+    return {}
+
+
+def device_ms(fn, name: str, bound_ms: float, launches: int):
+    """Device ms a call of ``fn`` (``kernel_split``'s sum over its
+    ``launches`` launches, a memset counting as one), or None where no
+    trace held them all; a time under ``bound_ms`` fails the run."""
+    split = kernel_split(fn, launches=launches, strict=True)
+    if not split:
+        print(f"warning: {name}: device time not measured")
+        return None
+    t = sum(split.values())
+    check(t >= bound_ms, f"{name}: device time {t:.4f} ms under its bound "
+          f"{bound_ms:.4f} ms")
+    return t
 
 
 def saturated_planes(h: int, w: int, dev):
@@ -1925,6 +1989,8 @@ def cabac_phase(report):
             else:
                 want = cabac_binarize.binarize_p_plain(
                     *(lv[k] for k in enc._BIN_P_KEYS))
+            if route == "device" and kind != "cabac_intra":
+                buf, want = k11_words(buf), k11_words(want)
             check(torch.equal(buf, want), f"(a) cabac {route} frame {i} "
                   f"({kind}): the transport differs from the plain version")
     # the overflow flags on one giant value, at the main path's shapes
@@ -1941,7 +2007,7 @@ def cabac_phase(report):
     mv = torch.zeros((nr, nc, 2), dtype=torch.int32, device=dev)
     args = [mv] + [lp[k] for k, _, _ in level_pack.P_KEYS]
     got = cabac_binarize.binarize_p(*args)
-    check(torch.equal(got, cabac_binarize.binarize_p_plain(*args))
+    check(torch.equal(k11_words(got), k11_words(cabac_binarize.binarize_p_plain(*args)))
           and int(got[1]) == 1, "K11p overflow flag")
     li = zeros(level_pack.INTRA_KEYS)
     li["luma_i4"][0, 1, 2, 0] = -500
@@ -2038,6 +2104,8 @@ def cabac_phase(report):
     for name, src, replaces, launches, fk, fp, nb in specs:
         rows.append(kernel_row(name, src, replaces, launches, 0.0,
                                cuda_ms(fk, reps=20), cuda_ms(fp, reps=3), nb))
+        if name == "binarize_p":           # beside the eager ms: the device time
+            rows[-1]["device_ms"] = device_ms(fk, name, rows[-1]["bound_ms"], 2)
     k10_intra_ms = cuda_ms(lambda: level_pack.pack_levels(
         lv_i, level_pack.INTRA_KEYS), reps=20)
     for r in rows:
@@ -4166,6 +4234,13 @@ def mjpeg_phase(report):
     out_rows = [kernel_row(name, "jpeg.cu", replaces, n, 0.0,
                            cuda_ms(fk, reps=20), cuda_ms(fp, reps=3), nb)
                 for name, replaces, fk, fp, nb, n in specs]
+    for r, t in ((out_rows[0], t1), (out_rows[3], frames_t)):   # K16a: FP64 too
+        ops = K16A_FP64_OPS_PER_MCU * t.shape[0] * (-(-t.shape[1] // 16)) * (-(-t.shape[2] // 16))
+        if ops / FP64_OPS_PER_S * 1e3 > r["bound_ms"]:
+            r["bound_ms"], r["bound_by"] = ops / FP64_OPS_PER_S * 1e3, "operations"
+    for r, (name, _, fk, *_) in zip(out_rows, specs):    # beside the eager ms
+        if name in ("jpeg_transform", "jpeg_pack", "jpeg_pack_batch"):   # memset + kernel
+            r["device_ms"] = device_ms(fk, name, r["bound_ms"], 1 if name == "jpeg_transform" else 2)
     for r in out_rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
@@ -5497,6 +5572,8 @@ def bench_phase(report, rows_before):
     loop_err = {}               # each loop's largest difference, checksum in
 
     def held(name, opts, got, want, what):
+        if name == "cabac_p" and opts.get("binarize"):   # K11p: header and payload
+            got, want = ((t[0], k11_words(t[1]), t[2]) for t in (got, want))
         d = max(float(abs(int(got[0]) - int(want[0]))),
                 max_diff([(got[1], want[1])] + list(zip(got[2], want[2]))))
         loop_err[name] = max(loop_err.get(name, 0.0), d)
@@ -5600,8 +5677,8 @@ def bench_phase(report, rows_before):
 # -- A/B timing of kernel sets across checkouts, and kernels by parts -------
 #
 # ``python3 chip_smoke.py pairs --set SET [--pairs N] NAME=PATH ...`` times
-# one set of kernels (``PAIR_SETS``: ``k1k6``, ``k5k4``, ``k2k8``) on each
-# checkout;
+# one set of kernels (``PAIR_SETS``: ``k1k6``, ``k5k4``, ``k2k8``, ``k3k7``,
+# ``k11k16``) on each checkout;
 # ``k1k6-pairs`` is ``pairs --set k1k6``.  For the k1k6 set it compares
 # checkouts of the repository (say a commit's parent, unpacked with ``git
 # archive`` into the git-ignored ``.tree/``, and this tree): every run is a
@@ -5625,7 +5702,10 @@ def bench_phase(report, rows_before):
 # forms, eager, replayed and by device time, 8 sessions, 4K, steps 17a,
 # 17b and 17e) writes ``chiprun_out/k2k8_pairs.json``; ``k2k8-split`` cuts
 # K8's and K2's stages out of copies of their sources (``K8_VARIANTS``,
-# ``K2_VARIANTS``).
+# ``K2_VARIANTS``).  The k11k16 set (``k11k16_times``: K16c and K11p in
+# each form and K16a, eager, replayed and by device time, each kernel's
+# device time) writes ``chiprun_out/k11k16_pairs.json``; ``k11k16-split``
+# cuts their stages out of copies (``K16C_VARIANTS``, ``K11P_VARIANTS``).
 #
 # ``python3 chip_smoke.py k1-variants`` builds copies of ``csrc/intra.cu``
 # with one part of the chain pass cut out (wrong outputs: timing only) into
@@ -5988,12 +6068,116 @@ def k3k7_times() -> dict:
     return out
 
 
+def k11k16_inputs(dev, qp: int = PAIRS_QP) -> dict:
+    """The K16c and K11p inputs at their main paths' shapes: K16a's levels
+    of a 1080p desktop with the single encoder's sticky and per-frame
+    tables, of the same desktop at 1919x1079, of S = 4 sessions x nx = 4
+    strips at 1920x1088 with the batch's tables, and of a 4K desktop; the
+    P core's outputs of a moving 1080p desktop frame (K11p's per-frame,
+    ring and 17f form), of a full-noise frame (dense levels) and of one
+    nx = 2 shard's 34 MB rows."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models.mjpeg import (
+        JpegEncoder, _tables_from_hists)
+    from docker_nvidia_glx_desktop_tpu_torch.ops import h264_device, h264_inter
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+    from docker_nvidia_glx_desktop_tpu_torch.parallel import batch
+
+    frames = mjpeg_frames(2)
+    x = {}
+    for name, mode, fw, fh in (("j", "sticky", W, H), ("j_pf", "per_frame", W, H),
+                               ("j_odd", "sticky", ODD_W, ODD_H)):
+        enc = JpegEncoder(fw, fh, table_mode=mode)
+        f = np.ascontiguousarray(frames[1][:fh, :fw])
+        enc.encode(np.ascontiguousarray(frames[0][:fh, :fw]))
+        enc.encode(f)
+        t = (torch.from_numpy(f).to(dev)[None], enc.luma_q, enc.chroma_q, enc.pad_h,
+             enc.pad_w)
+        x[name] = (jd.jpeg_transform(*t), enc._table_dev, 1)
+        if name == "j":
+            x["j_t"] = t
+    big = np.ascontiguousarray(np.tile(frames[1], (2, 2, 1)))
+    x["j_4k"] = (jd.jpeg_transform(torch.from_numpy(big).to(dev)[None], enc.luma_q,
+                                   enc.chroma_q, 2 * H, 2 * W), x["j"][1], 1)
+    bframes = np.stack([np.pad(f, ((0, BATCH_H - H), (0, 0), (0, 0)), "edge")
+                        for f in mjpeg_frames(BATCH_S, seed=10)])
+    step = batch.batch_encode_step(BATCH_H, W, quality=85, spatial=BATCH_NX)
+    lv = step.transform(bframes)
+    hist = jd.split_hists(jd.jpeg_analyze(*lv, BATCH_NX))
+    arrays = jd.dense_tables(_tables_from_hists([h[0].cpu().numpy() for h in hist],
+                                                smooth=True))
+    x["j_s4"] = (lv, jd.table_tensor(arrays, dev), BATCH_NX)
+
+    gop = gop_frames(2, seed=2)
+    desk, moving = pair_planes(gop[0]), pair_planes(gop[1])
+    lv = h264_device.encode_intra_frame_yuv(*desk, qp)
+    ref = (lv["recon_y"], lv["recon_cb"], lv["recon_cr"])
+    keys = ("mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac")
+    o = h264_inter.encode_p_frame(*moving, *ref, qp)
+    x["p"] = [o[k] for k in keys]
+    rng = np.random.default_rng(12)
+    noise = pair_planes(rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+    on = h264_inter.encode_p_frame(*noise, *ref, qp)
+    x["p_noise"] = [on[k] for k in keys]
+    x["p_band"] = [t[:H_PAD // 32].contiguous() for t in x["p"]]
+    return x
+
+
+def k11k16_forms(x: dict) -> dict:
+    """K16c's and K11p's forms on ``k11k16_inputs``, each a call of the
+    wrapper a user's path makes."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import cabac_binarize
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+
+    out = {}
+    for name in ("j", "j_pf", "j_odd", "j_s4", "j_4k"):
+        lv, tab, nx = x[name]
+        out["k16c" + name[1:]] = lambda lv=lv, tab=tab, nx=nx: jd.jpeg_pack(*lv, tab, nx)
+    for name in ("p", "p_noise", "p_band"):
+        out["k11" + name] = lambda a=x[name]: cabac_binarize.binarize_p(*a)
+    return out
+
+
+def k11k16_form_times(x: dict) -> dict:
+    """Each of ``k11k16_forms(x)``: eager, replayed and device ms, and the
+    device time by kernel (``kernel_split``); K16a's 1080p transform too
+    (its device time for the kernels line)."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+
+    forms = dict(k11k16_forms(x), k16a=lambda: jd.jpeg_transform(*x["j_t"]))
+    out = {}
+    for name, fn in forms.items():
+        r = out[name] = {"ms": cuda_ms(fn, reps=20), "graph_ms": graph_ms(fn, reps=20)}
+        split = kernel_split(fn)
+        r["device_ms"] = float(sum(split.values())) if split else -1.0
+        r["split"] = split
+    return out
+
+
+def k11k16_times() -> dict:
+    """The ``k11k16`` set: K16c and K11p in each form, eager, replayed and
+    by device time, and the device time of each of their kernels."""
+    import torch
+
+    out = {}
+    for name, r in k11k16_form_times(k11k16_inputs(torch.device("cuda"))).items():
+        for k, v in r.items():
+            if k == "split":
+                out.update({f"{name}_dev_{s}": float(t) for s, t in v.items()})
+            else:
+                out[f"{name}_{k}"] = v
+    return out
+
+
 # the measured sets: (timing function, the sources whose ptxas lines a
 # build prints, the output file's stem)
 PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
              "k5k4": (k5k4_times, ("inter", "content")),
              "k2k8": (k2k8_times, ("cavlc", "deblock")),
-             "k3k7": (k3k7_times, ("pack",))}
+             "k3k7": (k3k7_times, ("pack",)),
+             "k11k16": (k11k16_times, ("jpeg", "cabac"))}
 
 
 def pairs_child(set_name: str, tree: str, build_only: bool) -> dict:
@@ -6115,8 +6299,9 @@ K1_VARIANTS = {
 
 
 def build_variants(src_name: str, variants: dict) -> dict:
-    """Copies of ``csrc/<src_name>.cu`` with each variant's (old, new)
-    substitutions, built at once into ``.tree/<src_name>_variants/<name>``
+    """Copies of ``csrc/<src_name>.cu`` and the headers with each
+    variant's substitutions, (old, new) in the source or (header, old,
+    new), built at once into ``.tree/<src_name>_variants/<name>``
     (timing only: a cut part leaves wrong outputs), each copy's
     ``-Xptxas -v`` register and spill lines printed.  Returns {name: the
     loaded library}."""
@@ -6126,21 +6311,19 @@ def build_variants(src_name: str, variants: dict) -> dict:
 
     csrc = _cuda.CSRC
     out_dir = os.path.join(HERE, ".tree", f"{src_name}_variants")
-    src = open(os.path.join(csrc, f"{src_name}.cu")).read()
+    files = [f"{src_name}.cu"] + [f for f in os.listdir(csrc) if f.endswith(".cuh")]
     procs = {}
     for name, subs in variants.items():
-        text = src
-        for old, new in subs:
-            check(old in text,
-                  f"{name}: pattern not in {src_name}.cu: {old[:60]!r}")
-            text = text.replace(old, new)
+        texts = {f: open(os.path.join(csrc, f)).read() for f in files}
+        for sub in subs:
+            f, old, new = sub if len(sub) == 3 else (f"{src_name}.cu", *sub)
+            check(old in texts[f], f"{name}: pattern not in {f}: {old[:60]!r}")
+            texts[f] = texts[f].replace(old, new)
         d = os.path.join(out_dir, name)
         os.makedirs(d, exist_ok=True)
-        for f in ("common.cuh", "transform.cuh"):
+        for f, text in texts.items():
             with open(os.path.join(d, f), "w") as fh:
-                fh.write(open(os.path.join(csrc, f)).read())
-        with open(os.path.join(d, f"{src_name}.cu"), "w") as fh:
-            fh.write(text)
+                fh.write(text)
         procs[name] = subprocess.Popen(
             [_cuda.nvcc()] + _cuda._NVCC_FLAGS + ["-Xptxas", "-v"]
             + ["-o", os.path.join(d, "lib.so"),
@@ -6762,6 +6945,183 @@ def k3k7_phase(report):
     return []
 
 
+def k11_words(buf):
+    """A K11 transport's meaningful words on the host: the header and the
+    payload (the words past it are unspecified), clipped to the buffer."""
+    h = buf.cpu()
+    return h[:min(h.numel(), 8 + int(h[3]) + int(h[2]))]
+
+
+def k16c_strips(packed, totals) -> list:
+    """Each strip's (meaningful bytes, bits), as the encoders read them."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+
+    return [(b.tobytes(), n) for row in jd.strip_bytes(packed, totals) for b, n in row]
+
+
+def k11p_over_cap(args, cap: int):
+    """K11p launched with a per-MB cap of ``cap`` words (the launcher's
+    argument; the wrapper passes the static cap): its transport."""
+    import ctypes
+
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda, cabac_binarize
+
+    nr, nc = args[1].shape[:2]
+    slots = cabac_binarize.layout("p")[0]
+    out_words = 8 + nr + nr * nc * cap
+    fn = _cuda.library("cabac").binarize_p_buffer_words
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    buf = torch.empty(int(fn(out_words, nr, nc)), dtype=torch.int32, device=args[1].device)
+    _cuda.launch("cabac", "binarize_p_launch", list(args) + [buf], [nr, nc, slots, cap],
+                 args[1].device)
+    return buf[:out_words]
+
+
+def k11p_case(kind: str, nr: int, nc: int, dev, seed: int):
+    """K11p's crafted inputs at (nr, nc) MBs: ``skip`` (skip runs: most
+    MBs without levels and mv 0), ``dense`` (half the levels nonzero, up to
+    +-60), ``mvd`` (an mvd past its bypass budget), ``level`` (a level past
+    its suffix budget), ``cap`` (sparse levels, for a launch whose cap an
+    MB passes)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shapes = {"mv": (2,), "luma": (16, 16), "cb_dc": (4,), "cb_ac": (4, 15),
+              "cr_dc": (4,), "cr_ac": (4, 15)}
+    dens, mag = {"skip": (0.003, 3), "dense": (0.5, 60), "mvd": (0.02, 3),
+                 "level": (0.02, 3), "cap": (0.3, 60)}[kind]
+    d = {}
+    for k, shape in shapes.items():
+        a = rng.integers(-mag, mag + 1, (nr, nc) + shape)
+        d[k] = np.where(rng.random(a.shape) < dens, a, 0).astype(np.int32)
+    d["mv"] = rng.integers(-40, 41, (nr, nc, 2)).astype(np.int32)
+    d["mv"][rng.random((nr, nc)) < (0.97 if kind == "skip" else 0.4)] = 0
+    if kind == "skip":
+        keep = rng.random((nr, nc)) < 0.05
+        for k in shapes:
+            if k != "mv":
+                d[k][~keep] = 0
+    if kind == "mvd":
+        d["mv"][nr // 2, nc // 3] = (0, 600)
+    if kind == "level":
+        d["luma"][nr - 1, nc - 1, 3, 0] = 500
+    return [torch.from_numpy(d[k]).to(dev) for k in shapes]
+
+
+def k11k16_phase(report):
+    """K16c and K11p against their plain versions, byte for byte, on the
+    crafted inputs that break their segment designs and on every form of
+    their main paths.  K16c (``tests/jpeg_levels.py``): all-zero blocks,
+    a nonzero only at position 63, DC differences of size 11, negative
+    amplitudes, blocks of exactly 32 bits (``edge_tables``), noise at the
+    worst case of bits a block and sparse random levels, at S = 1 x nx = 1
+    of 1080p, S = 4 x nx = 4 of 1920x1088 and S = 2 x 40 MCUs at nx = 1, 2,
+    4 (segments that start inside strips); then the single encoder's
+    sticky and per-frame tables at 1080p, 1919x1079, RFB's encoder,
+    the session batch and 4K.  K11p: skip runs, dense levels, mvd and
+    level budget overflows (the flag set, the payload still equal) at
+    1080p and at 1 x 7 and 34 x 120 MBs, an MB over its cap (a launch at
+    a cap of 8 words: the header's flag set, its other words equal), and
+    its forms (a moving desktop P frame, a noise frame, a shard's 34
+    rows).  Launches made here leave the wrappers' counts as they were."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models.mjpeg import (
+        JpegEncoder, _tables_from_hists)
+    from docker_nvidia_glx_desktop_tpu_torch.ops import cabac_binarize
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from jpeg_levels import KINDS, edge_tables, k16c_levels
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rep = report["k11k16"] = {}
+    saved = (jd.jpeg_pack.launches, jd.jpeg_transform.launches,
+             jd.jpeg_analyze.launches, cabac_binarize.binarize_p.launches)
+
+    def k16c_equal(lv, tab, nx, label):
+        got = k16c_strips(*jd.jpeg_pack(*lv, tab, nx))
+        want = k16c_strips(*jd.jpeg_pack_plain(*lv, tab, nx))
+        check(got == want, f"K16c {label}: the strips differ from plain")
+        return sum(n for _, n in got)
+
+    n16 = 0
+    bits = {}
+    full = (H_PAD // 16) * (W // 16)            # 1080p's MCUs
+    for kind in KINDS:
+        for s, nmcu, nx in ((1, full, 1), (4, full, 4), (2, 40, 1), (2, 40, 2), (2, 40, 4)):
+            lv = [torch.from_numpy(a).to(dev) for a in k16c_levels(kind, nmcu, s, seed=s + nx)]
+            if kind == "edge":
+                tab = jd.table_tensor(edge_tables(), dev)
+            else:
+                h = jd.split_hists(jd.jpeg_analyze_plain(*lv, nx))
+                tab = jd.table_tensor(jd.dense_tables(_tables_from_hists(
+                    [x[0].cpu().numpy() for x in h], smooth=True)), dev)
+            bits[f"{kind} {s}x{nmcu}/{nx}"] = k16c_equal(lv, tab, nx, f"{kind} S={s} "
+                                                        f"nmcu={nmcu} nx={nx}")
+            n16 += 1
+    check(min(bits.values()) > 0, f"K16c crafted totals {bits}")
+    x = k11k16_inputs(dev)
+    enc = JpegEncoder(W, H, quality=RFB_QUALITY)
+    frame = mjpeg_frames(1, seed=9)[0]
+    enc.encode(frame)
+    x["j_rfb"] = (jd.jpeg_transform(torch.from_numpy(frame).to(dev)[None], enc.luma_q,
+                                    enc.chroma_q, enc.pad_h, enc.pad_w), enc._table_dev, 1)
+    for name in ("j", "j_pf", "j_odd", "j_rfb", "j_s4", "j_4k"):
+        k16c_equal(*x[name], name)
+        n16 += 1
+    rep["k16c_cases"] = n16
+    rep["k16c_s"] = time.perf_counter() - t_phase
+
+    t1 = time.perf_counter()
+    nr, nc = H_PAD // 16, W // 16
+    n11 = 0
+    flags = {}
+    for kind in ("skip", "dense", "mvd", "level"):
+        for i, (r, c) in enumerate(((nr, nc), (1, 7), (nr // 2, nc))):
+            args = k11p_case(kind, r, c, dev, 40 + i)
+            got = cabac_binarize.binarize_p(*args)
+            want = cabac_binarize.binarize_p_plain(*args)
+            check(torch.equal(k11_words(got), k11_words(want)),
+                  f"K11p {kind} {r}x{c}: the transport differs from plain")
+            flags[f"{kind} {r}x{c}"] = int(got[1])
+            n11 += 1
+    check(all(flags[f"{k} {nr}x{nc}"] for k in ("mvd", "level"))
+          and not flags[f"skip {nr}x{nc}"] and not flags[f"dense {nr}x{nc}"],
+          f"K11p overflow flags {flags}")
+    args = k11p_case("cap", nr, nc, dev, 47)
+    got, want = k11p_over_cap(args, 8), cabac_binarize.binarize_p_plain(*args)
+    keep = [0] + list(range(2, 8 + nr))
+    check(int(got[1]) == 1 and int(want[1]) == 0
+          and torch.equal(got[keep].cpu(), want[keep].cpu()),
+          "K11p over its cap: the flag is not set or the header differs from plain")
+    for name in ("p", "p_noise", "p_band"):
+        got = cabac_binarize.binarize_p(*x[name])
+        check(torch.equal(k11_words(got), k11_words(cabac_binarize.binarize_p_plain(*x[name]))),
+              f"K11p {name}: the transport differs from plain")
+        n11 += 1
+    torch.cuda.synchronize()
+    rep["k11p_cases"] = n11 + 1
+    rep["k11p_s"] = time.perf_counter() - t1
+    rep["s"] = time.perf_counter() - t_phase
+    (jd.jpeg_pack.launches, jd.jpeg_transform.launches, jd.jpeg_analyze.launches,
+     cabac_binarize.binarize_p.launches) = saved
+    print(f"(a) k11k16: K16c's strips equal to plain on {n16} inputs ({', '.join(KINDS)} "
+          "at S = 1 x nx = 1 of 1080p, S = 4 x nx = 4, S = 2 x 40 MCUs at nx = 1, 2, "
+          "4; the single encoder's sticky and per-frame tables at 1080p, 1919x1079, "
+          f"RFB's encoder, the batch and 4K; {rep['k16c_s']:.1f} s); K11p's header and "
+          f"payload equal to plain on {rep['k11p_cases']} inputs (skip runs, dense "
+          "levels, mvd and level overflows at 68x120, 1x7 and 34x120 MBs, an MB over "
+          "a cap of 8 words, a desktop P frame, a noise frame, a shard's 34 rows; "
+          f"{rep['k11p_s']:.1f} s); phase {rep['s']:.1f} s")
+    return []
+
+
 # K5's stages cut out of copies of inter.cu, one stage a copy (timing
 # only: a cut stage leaves its outputs wrong but every index in range)
 K5_VARIANTS = {
@@ -7143,6 +7503,143 @@ def k3k7_split() -> int:
     return 0
 
 
+# K16c's and K11p's stages cut out of copies of jpeg.cu and cabac.cu
+# (timing only: a cut stage leaves its outputs wrong but every index in
+# range).  The parent of the redesign has none of these lines: its split
+# times the wrappers only.
+K11K16_MARK = "look_back"
+_NO_FINISH = ("  if (tid == 0) out.finish(", "  if (false) out.finish(")
+# the DONE waits of SegmentStore::finish (lookback.cuh)
+_NO_DONE_WAIT = [("lookback.cuh", "      if (s > 0) wait_for(st + s - 1, DONE);\n", ""),
+                 ("lookback.cuh", "        wait_for(st + s - 1, DONE);\n", "")]
+K16C_VARIANTS = {
+    "base": [],
+    # counts and look-back; no words placed or stored
+    "no_write": [("for (int lo = 0; lo < out.nwords; lo += WIN_WORDS) {",
+                  "for (int lo = 0; lo < 0; lo += WIN_WORDS) {"), _NO_FINISH],
+    # staging, tables and look-back only
+    "stage_only": [("  for (int g = warp; g < nblk; g += PACK_WARPS) {\n    int prev;",
+                    "  for (int g = warp; g < 0; g += PACK_WARPS) {\n    int prev;"),
+                   ("for (int lo = 0; lo < out.nwords; lo += WIN_WORDS) {",
+                    "for (int lo = 0; lo < 0; lo += WIN_WORDS) {"), _NO_FINISH],
+    # no waits: made-up segment offsets, no DONE waits
+    "no_wait": [("excl = lookback::look_back(st, sg);", "excl = sg * 1000LL;")] + _NO_DONE_WAIT,
+    # the window loop without placing the codes (zeroed words stored)
+    "no_place": [("    for (int g = warp; g < nblk; g += PACK_WARPS) {\n      int prev;",
+                  "    for (int g = warp; g < 0; g += PACK_WARPS) {\n      int prev;")],
+}
+K11P_VARIANTS = {
+    "base": [],
+    "no_write": [("for (int lo = 0; lo < out.nwords; lo += P_WIN) {",
+                  "for (int lo = 0; lo < 0; lo += P_WIN) {"), _NO_FINISH],
+    "stage_only": [("for (int k = warp; k < ns; k += SEGP) {", "for (int k = warp; k < 0; k += SEGP) {"),
+                   ("  if (warp < n) {\n    bool ovf = false;", "  if (false) {\n    bool ovf = false;"),
+                   ("for (int lo = 0; lo < out.nwords; lo += P_WIN) {",
+                    "for (int lo = 0; lo < 0; lo += P_WIN) {"), _NO_FINISH],
+    "no_wait": [("excl = lookback::look_back(st, s);", "excl = s * 1000LL;"),
+                ("w += lookback::wait_for(row_pub + q, lookback::INCL) >> 2;", "w += q;")]
+               + _NO_DONE_WAIT,
+    # the window loop without the pieces' second walk; the second walk
+    # only counting (no positions, no shared atomics)
+    "no_place": [("    if (warp < n && lane < cabac_rec::P_PIECES && pbits > 0) {",
+                  "    if (false) {")],
+    "walk_count": [("        RunSink rs(sm.win, p, nwin);\n        cabac_rec::p_piece(x, lane, rs);\n"
+                    "        rs.flush();",
+                    "        CountSink rs;\n        cabac_rec::p_piece(x, lane, rs);\n"
+                    "        if (rs.n == 123457) sm.win[0] = 1u;")],
+}
+
+
+def k11k16_cuts(x: dict) -> dict:
+    """Each variant of ``K16C_VARIANTS`` / ``K11P_VARIANTS`` on the 1080p
+    forms (and K16c at S = 4 x nx = 4): device ms and graph replays."""
+    import ctypes
+
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda, cabac_binarize
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+
+    srcs = {"jpeg": K16C_VARIANTS, "cabac": K11P_VARIANTS}
+    if not all(K11K16_MARK in open(os.path.join(_cuda.CSRC, f"{s}.cu")).read()
+               for s in srcs):
+        return {}
+    calls = {}
+    for form in ("j", "j_s4"):
+        lv, tab, nx = x[form]
+        s_, nmcu = lv[1].shape[:2]
+        sw = jd.shard_words(nmcu // nx * 6)
+        calls["k16c" + form[1:]] = ("jpeg", "jpeg_pack_launch", list(lv) + [tab],
+                                    ("jpeg_pack_buffer_words", [s_, nmcu, nx, sw]),
+                                    [s_, nmcu, nx, sw])
+    for form in ("p", "p_noise"):
+        nr, nc = x[form][1].shape[:2]
+        slots, cap = cabac_binarize.layout("p")
+        calls["k11" + form] = ("cabac", "binarize_p_launch", list(x[form]),
+                               ("binarize_p_buffer_words",
+                                [cabac_binarize.buffer_words("p", nr, nc), nr, nc]),
+                               [nr, nc, slots, cap])
+    cut = {}
+    for src, variants in srcs.items():
+        libs = build_variants(src, variants)
+        for form, (lib_src, entry, ts, (size_fn, size_args), ints) in calls.items():
+            if lib_src != src:
+                continue
+            for name in variants:
+                sz = libs[name][size_fn]
+                sz.restype = ctypes.c_longlong
+                sz.argtypes = ([ctypes.c_longlong] if src == "cabac" else [ctypes.c_int]) \
+                    + [ctypes.c_int] * (len(size_args) - 1)
+                buf = torch.empty(int(sz(*size_args)), dtype=torch.int32, device=ts[0].device)
+                fn = libs[name][entry]
+                fn.restype = ctypes.c_int
+                fn.argtypes = ([ctypes.c_void_p] * (len(ts) + 1) + [ctypes.c_int] * len(ints)
+                               + [ctypes.c_void_p])
+
+                def call(fn=fn, ts=ts + [buf], ints=ints, name=name):
+                    err = fn(*[t.data_ptr() for t in ts], *ints,
+                             torch.cuda.current_stream().cuda_stream)
+                    check(err == 0, f"{name}: CUDA error {err}")
+                split = kernel_split(call)
+                cut[f"{form}_{name}"] = {"graph_ms": graph_ms(call, reps=20),
+                                         "device_ms": sum(split.values())}
+                print(f"{form} {name}: {json.dumps(cut[form + '_' + name])}", flush=True)
+    return cut
+
+
+def k11k16_split() -> int:
+    """``python3 chip_smoke.py k11k16-split``: the jpeg and cabac sources'
+    ``-Xptxas -v`` lines; K16c's and K11p's forms (``k11k16_forms``) and
+    K16a's 1080p transform by device time (``kernel_split``: each memset
+    and kernel) beside each wrapper's CUDA-event and replayed ms; where
+    the sources hold the segment kernels, their launches with a stage cut
+    out of a copy (``K11K16_VARIANTS``, device time and graph replays).
+    Writes ``chiprun_out/k11k16_split.json``."""
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, HERE)
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+
+    smi = smi_line()
+    print(smi, flush=True)
+    logs = _cuda.build(verbose=True)
+    res = {"card": smi, "ptxas": {}}
+    for src in ("jpeg", "cabac"):
+        res["ptxas"][src] = ptxas_lines(logs.get(src, ""))
+        for ln in res["ptxas"][src]:
+            print(f"ptxas {src}: {ln}", flush=True)
+    x = k11k16_inputs(torch.device("cuda"))
+    for name, r in k11k16_form_times(x).items():
+        res[name] = r
+        print(f"{name}: {json.dumps(r)}", flush=True)
+    res["cut_ms"] = k11k16_cuts(x)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k11k16_split.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
 def phase_alone(key: str, phase, srcs) -> int:
     """``python3 chip_smoke.py modes`` / ``tune-mask``: the build (with the
     ptxas lines of ``srcs``), then the one phase alone; writes
@@ -7197,6 +7694,10 @@ def main(argv=None):
             return k3k7_split()
         if argv[:1] == ["k3k7"]:
             return phase_alone("k3k7", k3k7_phase, ("pack",))
+        if argv[:1] == ["k11k16-split"]:
+            return k11k16_split()
+        if argv[:1] == ["k11k16"]:
+            return phase_alone("k11k16", k11k16_phase, ("jpeg", "cabac"))
         if argv[:1] == ["k5k4"]:
             return phase_alone("k5k4", k5k4_phase, ("inter", "content"))
         return run()

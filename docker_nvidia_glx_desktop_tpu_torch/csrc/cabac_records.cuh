@@ -19,11 +19,7 @@
 #pragma once
 #include <stdint.h>
 
-#ifdef __CUDACC__
-#define CR_HD __host__ __device__ __forceinline__
-#else
-#define CR_HD inline
-#endif
+#include "bitsink.cuh"
 
 namespace cabac_rec {
 
@@ -185,40 +181,46 @@ CR_HD Chroma chroma_of(const int* cb_dc, const int* cb_ac, const int* cr_dc, con
   return s;
 }
 
+// The coded_block_flag context increments of the chroma DC block (cat 3)
+// of plane p and of the AC block (cat 4) b of plane p; ``left`` null =
+// column 0.
+CR_HD int chroma_dc_inc(const Chroma* left, bool left_skip, int p, bool intra) {
+  const int una = intra ? 1 : 0;
+  const int a = !left ? una : (left_skip ? 0 : (p ? left->dcnz[1] : left->dcnz[0]));
+  return a + 2 * una;
+}
+
+CR_HD int chroma_ac_inc(const Chroma& cur, const Chroma* left, bool left_skip, int p, int b,
+                        bool intra) {
+  const int una = intra ? 1 : 0;
+  const int by = b >> 1, bx = b & 1;
+  const int av = bx ? (int)((cur.acnz >> (p * 4 + by * 2)) & 1u)
+                    : (!left ? una
+                             : (left_skip ? 0 : (int)((left->acnz >> (p * 4 + by * 2 + 1)) & 1u)));
+  const int bv = by ? (int)((cur.acnz >> (p * 4 + bx)) & 1u) : una;
+  return av + 2 * bv;
+}
+
 // Chroma DC (cat 3) then AC (cat 4) residuals; ``left`` null = column 0.
 template <class R>
 CR_HD bool chroma_residuals(R& rec, const Chroma& cur, const Chroma* left, bool left_skip,
                             const int* cb_dc, const int* cb_ac, const int* cr_dc,
                             const int* cr_ac, int mb, bool intra) {
-  const int una = intra ? 1 : 0;
   bool ovf = false;
   const int* dc[2] = {cb_dc + mb * 4, cr_dc + mb * 4};
   const int* ac[2] = {cb_ac + mb * 60, cr_ac + mb * 60};
-  for (int p = 0; p < 2; ++p) {
-    const int a = !left ? una : (left_skip ? 0 : left->dcnz[p]);
-    ovf |= residual(rec, dc[p], 4, 3, a + 2 * una, cur.cc > 0);
-  }
-  for (int p = 0; p < 2; ++p) {
-    for (int b = 0; b < 4; ++b) {
-      const int by = b >> 1, bx = b & 1;
-      const int av = bx ? (int)((cur.acnz >> (p * 4 + by * 2)) & 1u)
-                        : (!left ? una
-                                 : (left_skip ? 0 : (int)((left->acnz >> (p * 4 + by * 2 + 1)) & 1u)));
-      const int bv = by ? (int)((cur.acnz >> (p * 4 + bx)) & 1u) : una;
-      ovf |= residual(rec, ac[p] + b * 15, 15, 4, av + 2 * bv, cur.cc == 2);
-    }
-  }
+  for (int p = 0; p < 2; ++p)
+    ovf |= residual(rec, dc[p], 4, 3, chroma_dc_inc(left, left_skip, p, intra), cur.cc > 0);
+  for (int p = 0; p < 2; ++p)
+    for (int b = 0; b < 4; ++b)
+      ovf |= residual(rec, ac[p] + b * 15, 15, 4,
+                      chroma_ac_inc(cur, left, left_skip, p, b, intra), cur.cc == 2);
   return ovf;
 }
 
 // ---------------------------------------------------------------------------
 // P pictures
 // ---------------------------------------------------------------------------
-
-struct PIn {
-  const int *mv, *luma, *cb_dc, *cb_ac, *cr_dc, *cr_ac;
-  int nc;
-};
 
 struct PSum {
   bool skip;
@@ -228,69 +230,150 @@ struct PSum {
   int mv[2];       // (y, x) quarter-pel
 };
 
-CR_HD PSum p_summary(const PIn& in, int mb) {
+// An MB's nonzero flags as one word, bit for bit what a warp's ballot
+// gives with lane l on piece l: bits 0-15 the luma blocks, 16 and 17 the
+// Cb and Cr DC blocks, 18-21 the Cb AC blocks, 22-25 the Cr AC blocks.
+CR_HD uint32_t p_nz_bits(const int* luma, const int* cb_dc, const int* cb_ac, const int* cr_dc,
+                         const int* cr_ac) {
+  uint32_t b = 0;
+  for (int k = 0; k < 16; ++k) b |= any(luma + k * 16, 16) ? 1u << k : 0u;
+  b |= any(cb_dc, 4) ? 1u << 16 : 0u;
+  b |= any(cr_dc, 4) ? 1u << 17 : 0u;
+  for (int k = 0; k < 4; ++k) {
+    b |= any(cb_ac + k * 15, 15) ? 1u << (18 + k) : 0u;
+    b |= any(cr_ac + k * 15, 15) ? 1u << (22 + k) : 0u;
+  }
+  return b;
+}
+
+CR_HD PSum p_sum_from(uint32_t bits, int mv0, int mv1) {
   PSum s;
-  s.lnz = 0;
-  for (int b = 0; b < 16; ++b) s.lnz |= any(in.luma + (mb * 16 + b) * 16, 16) ? 1u << b : 0u;
+  s.lnz = bits & 0xFFFFu;
   s.cbp_luma = 0;
   for (int g = 0; g < 4; ++g) s.cbp_luma |= ((s.lnz >> (4 * g)) & 0xFu) ? 1 << g : 0;
-  s.ch = chroma_of(in.cb_dc, in.cb_ac, in.cr_dc, in.cr_ac, mb);
-  s.mv[0] = in.mv[mb * 2];
-  s.mv[1] = in.mv[mb * 2 + 1];
-  s.skip = s.mv[0] == 0 && s.mv[1] == 0 && s.cbp_luma == 0 && s.ch.cc == 0;
+  s.ch.dcnz[0] = (int)((bits >> 16) & 1u);
+  s.ch.dcnz[1] = (int)((bits >> 17) & 1u);
+  s.ch.acnz = (bits >> 18) & 0xFFu;
+  s.ch.cc = s.ch.acnz ? 2 : (s.ch.dcnz[0] | s.ch.dcnz[1]) ? 1 : 0;
+  s.mv[0] = mv0;
+  s.mv[1] = mv1;
+  s.skip = mv0 == 0 && mv1 == 0 && s.cbp_luma == 0 && s.ch.cc == 0;
   return s;
 }
 
-// Records of P MB (r, c); returns the value overflow.
+// What the pieces of one P MB read: its summary, its left MB's (col0:
+// none), the left MB's |mvd| (from the mv of the MB left of it), and the
+// MB's own levels.
+struct PCtx {
+  PSum cur, L;
+  bool col0, left_skip, last_col;
+  int mvp[2], labs[2];
+  const int *luma, *cb_dc, *cb_ac, *cr_dc, *cr_ac;
+};
+
+// ``left``/``ll_mv``: the left MB's summary and the mv of the MB left of
+// it (null where the MB has none); ``lv``: the MB's luma, cb_dc, cb_ac,
+// cr_dc, cr_ac.
+CR_HD PCtx p_ctx(const PSum& cur, const PSum* left, const int* ll_mv, bool last_col,
+                 const int* luma, const int* cb_dc, const int* cb_ac, const int* cr_dc,
+                 const int* cr_ac) {
+  PCtx x;
+  x.cur = cur;
+  x.L = left ? *left : PSum{};
+  x.col0 = !left;
+  x.left_skip = left && x.L.skip;
+  x.last_col = last_col;
+  x.mvp[0] = left ? x.L.mv[0] : 0;
+  x.mvp[1] = left ? x.L.mv[1] : 0;
+  x.labs[0] = x.labs[1] = 0;
+  if (left && !x.L.skip) {
+    x.labs[0] = iabs(x.L.mv[0] - (ll_mv ? ll_mv[0] : 0));
+    x.labs[1] = iabs(x.L.mv[1] - (ll_mv ? ll_mv[1] : 0));
+  }
+  x.luma = luma;
+  x.cb_dc = cb_dc;
+  x.cb_ac = cb_ac;
+  x.cr_dc = cr_dc;
+  x.cr_ac = cr_ac;
+  return x;
+}
+
+// A P MB's records in P_PIECES pieces, in stream order: 0 mb_skip_flag
+// and mb_type; 1, 2 the mvd's x and y components; 3 coded_block_pattern
+// and mb_qp_delta; 4-19 the luma 4x4 blocks (blkIdx order); 20, 21 the Cb
+// and Cr DC blocks; 22-29 the Cb then Cr AC blocks; 30 end_of_slice.
+// Returns the value overflow.
+constexpr int P_PIECES = 31;
+
 template <class Sink>
-CR_HD bool p_mb(const PIn& in, int r, int c, Sink& sink) {
+CR_HD bool p_piece(const PCtx& x, int k, Sink& sink) {
   Rec<Sink> rec{sink};
-  const int mb = r * in.nc + c;
-  const PSum cur = p_summary(in, mb);
-  PSum L{};
-  if (c > 0) L = p_summary(in, mb - 1);
-  const bool col0 = c == 0, left_skip = !col0 && L.skip;
-  bool ovf = false;
-  rec.dec(11 + ((!col0 && !left_skip) ? 1 : 0), cur.skip);
-  if (!cur.skip) {
-    rec.dec(14, 0);
-    rec.dec(15, 0);
-    rec.dec(16, 0);
-    // mvp = the left MB's mv; the left MB's |mvd| sums, 0 for a skip
-    const int mvp[2] = {col0 ? 0 : L.mv[0], col0 ? 0 : L.mv[1]};
-    int labs[2] = {0, 0};
-    if (!col0 && !L.skip) {
-      const int ll0 = c > 1 ? in.mv[(mb - 2) * 2] : 0, ll1 = c > 1 ? in.mv[(mb - 2) * 2 + 1] : 0;
-      labs[0] = iabs(L.mv[0] - ll0);
-      labs[1] = iabs(L.mv[1] - ll1);
+  const PSum& cur = x.cur;
+  if (k == 0) {
+    rec.dec(11 + ((!x.col0 && !x.left_skip) ? 1 : 0), cur.skip);
+    if (!cur.skip) {
+      rec.dec(14, 0);
+      rec.dec(15, 0);
+      rec.dec(16, 0);
     }
-    ovf |= mvd(rec, cur.mv[1] - mvp[1], labs[1], 40);
-    ovf |= mvd(rec, cur.mv[0] - mvp[0], labs[0], 47);
-    const int lcl = (col0 || L.skip) ? 0 : L.cbp_luma;
-    const int lcc = (col0 || L.skip) ? 0 : L.ch.cc;
+    return false;
+  }
+  if (k == P_PIECES - 1) {
+    rec.trm(x.last_col);
+    return false;
+  }
+  if (cur.skip) return false;
+  if (k < 3) {                               // one call site: one copy of the code
+    const bool xc = k == 1;                  // (selects, not indices: registers)
+    return mvd(rec, xc ? cur.mv[1] - x.mvp[1] : cur.mv[0] - x.mvp[0],
+               xc ? x.labs[1] : x.labs[0], xc ? 40 : 47);
+  }
+  if (k == 3) {
+    const int lcl = (x.col0 || x.L.skip) ? 0 : x.L.cbp_luma;
+    const int lcc = (x.col0 || x.L.skip) ? 0 : x.L.ch.cc;
     for (int b = 0; b < 4; ++b) {
       const int grp = (cur.cbp_luma >> b) & 1;
       const int a_n = (b & 1) ? 1 - ((cur.cbp_luma >> (b - 1)) & 1)
-                              : (col0 ? 0 : 1 - ((lcl >> (b + 1)) & 1));
+                              : (x.col0 ? 0 : 1 - ((lcl >> (b + 1)) & 1));
       const int b_n = (b & 2) ? 1 - ((cur.cbp_luma >> (b - 2)) & 1) : 0;
       rec.dec(73 + a_n + 2 * b_n, grp);
     }
     rec.dec(77 + (lcc > 0 ? 1 : 0), cur.ch.cc > 0);
     if (cur.ch.cc > 0) rec.dec(81 + (lcc == 2 ? 1 : 0), cur.ch.cc == 2);
     if (cur.cbp_luma > 0 || cur.ch.cc > 0) rec.dec(60, 0);
-    for (int blk = 0; blk < 16; ++blk) {
-      const int bx = blk_x(blk), by = blk_y(blk);
-      const int av = bx ? (int)((cur.lnz >> blk_of(bx - 1, by)) & 1u)
-                        : ((col0 || left_skip) ? 0 : (int)((L.lnz >> blk_of(3, by)) & 1u));
-      const int bv = by ? (int)((cur.lnz >> blk_of(bx, by - 1)) & 1u) : 0;
-      ovf |= residual(rec, in.luma + (mb * 16 + blk) * 16, 16, 2, av + 2 * bv,
-                      (cur.cbp_luma >> (blk >> 2)) & 1);
-    }
-    ovf |= chroma_residuals(rec, cur.ch, col0 ? nullptr : &L.ch, left_skip, in.cb_dc, in.cb_ac,
-                            in.cr_dc, in.cr_ac, mb, false);
+    return false;
   }
-  rec.trm(c == in.nc - 1);
-  return ovf;
+  // a residual block: its coefficients, category and context, then one
+  // call site of residual (the walk's code once, whatever the block)
+  const int* c;
+  int n, cat, inc;
+  bool emit;
+  const Chroma* left = x.col0 ? nullptr : &x.L.ch;
+  if (k < 20) {
+    const int blk = k - 4, bx = blk_x(blk), by = blk_y(blk);
+    const int av = bx ? (int)((cur.lnz >> blk_of(bx - 1, by)) & 1u)
+                      : ((x.col0 || x.left_skip) ? 0 : (int)((x.L.lnz >> blk_of(3, by)) & 1u));
+    const int bv = by ? (int)((cur.lnz >> blk_of(bx, by - 1)) & 1u) : 0;
+    c = x.luma + blk * 16;
+    n = 16;
+    cat = 2;
+    inc = av + 2 * bv;
+    emit = (cur.cbp_luma >> (blk >> 2)) & 1;
+  } else if (k < 22) {
+    c = k == 20 ? x.cb_dc : x.cr_dc;
+    n = 4;
+    cat = 3;
+    inc = chroma_dc_inc(left, x.left_skip, k - 20, false);
+    emit = cur.ch.cc > 0;
+  } else {
+    const int p = (k - 22) >> 2, b = (k - 22) & 3;
+    c = (p ? x.cr_ac : x.cb_ac) + b * 15;
+    n = 15;
+    cat = 4;
+    inc = chroma_ac_inc(cur.ch, left, x.left_skip, p, b, false);
+    emit = cur.ch.cc == 2;
+  }
+  return residual(rec, c, n, cat, inc, emit);
 }
 
 // ---------------------------------------------------------------------------

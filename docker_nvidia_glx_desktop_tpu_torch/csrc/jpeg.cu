@@ -27,16 +27,38 @@
 //       Integer work: exact.  Bound: bytes (12.5 MB of levels).
 // K16c  jpeg_pack_launch replaces ops/jpeg_device.py:154 jpeg_pack (:105
 //       component_entries, ops/bitpack.py:24 pack_bits) without its 254
-//       entry slots a block: pass 1 counts each block's bits with the
-//       Huffman tables in shared memory; an exclusive scan over the blocks
-//       in interleave order (Y x4, Cb, Cr per MCU), one thread block per
-//       strip, gives every block its bit offset and zeroes the two words
-//       it may share with a neighbour; pass 2 writes each block's codes
-//       into 32-bit words, plain stores for its own words and atomicOr on
-//       the shared first and last; a last pass swaps the used words to
-//       big-endian bytes.  Each strip's buffer holds the worst case, 1729
-//       bits a block.  Bound: bytes (12.5 MB of levels in, the scan out).
-#include "common.cuh"
+//       entry slots a block.  Bound: bytes (12.5 MB of levels read once at
+//       1080p, the scan written).  Design (redesigned for Hopper): one
+//       memset of the look-back state (a ticket and a status word a
+//       segment; never the words) and one launch.  A CTA takes a segment
+//       of SEGM MCUs of one strip by an atomic ticket (a segment never
+//       crosses a strip):
+//        - it stages the segment's levels (Y, Cb, Cr: three contiguous
+//          spans) by 16-byte cp.async, and the tables as (code, length)
+//          pairs into shared memory;
+//        - a warp a block (interleave order Y x4, Cb, Cr an MCU): lane l
+//          holds the coefficients at zigzag positions l and l + 32; two
+//          ballots give the block's 64-bit nonzero mask, and each nonzero's
+//          run since the previous one comes from the mask (__clzll), which
+//          gives its ZRLs, run/size symbol, code and amplitude bits; lane 0
+//          codes the DC difference against its chain's predecessor (0 at a
+//          strip's first MCU, as locate does), lane 31 the EOB when
+//          position 63 is zero; a warp scan gives the lanes' offsets;
+//        - warp 0 scans the blocks' bits, publishes the segment's bits and
+//          looks back over the strip's earlier segments (lookback.cuh);
+//          the strip's last segment writes its total;
+//        - each lane writes its two runs of codes into a window of the
+//          segment's words in shared memory (one window unless a segment
+//          passes WIN_WORDS; whole words stored, a run's edge words ORed:
+//          bitsink.cuh), and the CTA stores them coalesced, byte-swapped
+//          (a swap commutes with OR).
+//       Boundary words, in an order that needs no zeroed buffer: a
+//       segment plain-stores its last word (zeros past its bits) before it
+//       publishes DONE, and ORs into its first word, when that word holds
+//       earlier bits, only after its predecessor is DONE.  Words past the
+//       strip's shard_words are dropped (the total still counts them).
+#include "bitsink.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -187,130 +209,223 @@ __global__ void __launch_bounds__(256)
     if (h[i]) atomicAdd(&hist[s * kSyms + i], h[i]);
 }
 
-__device__ __forceinline__ void load_tables(const int* tables, int* sh) {
-  for (int i = threadIdx.x; i < kTableInts; i += blockDim.x) sh[i] = tables[i];
-  __syncthreads();
-}
+// ---------------------------------------------------------------------------
+// K16c: a segment of SEGM MCUs of one strip a CTA, a warp a block.
 
-__global__ void __launch_bounds__(256)
-    count_kernel(const int* __restrict__ y, const int* __restrict__ cb,
-                 const int* __restrict__ cr, const int* __restrict__ tables,
-                 int* __restrict__ counts, int nmcu, int mps) {
-  __shared__ int tb[kTableInts];
-  load_tables(tables, tb);
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t s = blockIdx.y;
-  if (g >= nmcu * 6) return;
-  const Block b = locate(y, cb, cr, s, nmcu, mps, g);
-  int bits = 0;
-  walk(b, [&](int t, int symbol, uint32_t, int size) { bits += tb[kSyms + t + symbol] + size; });
-  counts[s * nmcu * 6 + g] = bits;
-}
+constexpr int SEGM = 16;                  // MCUs a segment
+constexpr int SEG_BLOCKS = 6 * SEGM;
+constexpr int PACK_WARPS = 8, PACK_NT = 32 * PACK_WARPS;
+constexpr int WIN_WORDS = 4096;           // a window of the segment's words
+using lookback::FULL;
 
-// One block of 1024 threads per (session, strip): exclusive offsets of the
-// strip's blocks, its total, and its blocks' edge words zeroed.
-__global__ void __launch_bounds__(1024)
-    scan_kernel(const int* __restrict__ counts, int* __restrict__ offsets,
-                uint32_t* __restrict__ words, int* __restrict__ totals, int nmcu, int mps,
-                int nx, int shard_words) {
-  __shared__ int warp_sums[32];
-  const int sh = blockIdx.x, tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  const size_t s = blockIdx.y;
-  const int n = mps * 6;
-  const size_t base = s * nmcu * 6 + (size_t)sh * n;
-  uint32_t* wd = words + (s * nx + sh) * (size_t)shard_words;
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int lo = min(tid * per, n), hi = min(lo + per, n);
-  int local = 0;
-  for (int i = lo; i < hi; ++i) local += counts[base + i];
-  int incl = local;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += t;
-  }
-  if (lane == 31) warp_sums[wid] = incl;
-  __syncthreads();
-  if (wid == 0) {
-    int ws = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, ws, d);
-      if (lane >= d) ws += t;
-    }
-    warp_sums[lane] = ws;  // inclusive over warps
-  }
-  __syncthreads();
-  int run = incl - local + (wid > 0 ? warp_sums[wid - 1] : 0);
-  const long long cap = 32LL * shard_words;
-  for (int i = lo; i < hi; ++i) {
-    const int c = counts[base + i];
-    offsets[base + i] = run;
-    if (c > 0 && run + (long long)c <= cap) {
-      wd[run >> 5] = 0u;
-      wd[(run + c - 1) >> 5] = 0u;
-    }
-    run += c;
-  }
-  if (tid == blockDim.x - 1) totals[s * nx + sh] = run;
-}
+struct PackArgs {
+  const int *y, *cb, *cr, *tables;
+  unsigned* words;                        // (S, nx, shard_words), big-endian bytes
+  int* totals;                            // (S, nx) bits
+  unsigned long long* state;              // [0] the ticket, then a status a segment
+  int nmcu, nx, mps, nseg, shard_words;
+};
 
-__global__ void __launch_bounds__(256)
-    write_kernel(const int* __restrict__ y, const int* __restrict__ cb,
-                 const int* __restrict__ cr, const int* __restrict__ tables,
-                 const int* __restrict__ counts, const int* __restrict__ offsets,
-                 uint32_t* __restrict__ words, int nmcu, int mps, int nx, int shard_words) {
-  __shared__ int tb[kTableInts];
-  load_tables(tables, tb);
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t s = blockIdx.y;
-  if (g >= nmcu * 6) return;
-  const int cnt = counts[s * nmcu * 6 + g];
-  const int off = offsets[s * nmcu * 6 + g];
-  if (cnt <= 0 || off + (long long)cnt > 32LL * shard_words) return;
-  uint32_t* wd = words + (s * nx + (g / 6) / mps) * (size_t)shard_words;
-  const int first = off >> 5, last = (off + cnt - 1) >> 5;
-  int pos = off, cw = first;
-  uint32_t cur = 0;
-  auto flush = [&]() {
-    if (cw == first || cw == last)
-      atomicOr(wd + cw, cur);
-    else
-      wd[cw] = cur;
+struct PackSmem {
+  int ly[SEGM * 256 + 4];                 // the staged levels (stage: n + 3 ints)
+  int lcb[SEGM * 64 + 4], lcr[SEGM * 64 + 4];
+  int2 tb[kSyms];                         // (code, length) a symbol
+  unsigned win[WIN_WORDS];
+  int blk_bits[SEG_BLOCKS], blk_off[SEG_BLOCKS];
+  long long excl;
+  int ticket, seg_bits, prev_dc[3];
+};
+
+// One lane's codes in one block, scan order: item a at zigzag position
+// lane (lane 0: the DC difference), item b at lane + 32, then (lane 31)
+// the EOB.  z ZRL codes precede an item.
+struct Items {
+  unsigned long long va, vb;
+  int la, lb, za, zb, eob;
+};
+
+__device__ __forceinline__ Items block_items(const int* zz, int prev_dc, bool luma,
+                                             const int2* tb, int lane) {
+  const int a = zz[lane], b = zz[lane + 32];
+  const unsigned long long nz =
+      (static_cast<unsigned long long>(__ballot_sync(FULL, b != 0)) << 32) |
+      __ballot_sync(FULL, a != 0);
+  const unsigned long long ac = nz & ~1ull;
+  const int act = luma ? kAcL : kAcC;
+  Items it;
+  auto ac_item = [&](int k, int v, unsigned long long& val, int& len, int& zrl) {
+    val = 0;
+    len = zrl = 0;
+    if (v == 0) return;
+    const unsigned long long below = ac & ((1ull << k) - 1ull);
+    const int run = k - (below ? 63 - __clzll(static_cast<long long>(below)) : 0) - 1;
+    zrl = run >> 4;
+    const int size = bit_length(abs(v));
+    const int2 c = tb[act + ((((run & 15) << 4) | size) & 0xFF)];
+    val = (static_cast<unsigned long long>(static_cast<unsigned>(c.x)) << size) | amplitude(v, size);
+    len = c.y + size;
   };
-  auto put = [&](uint32_t v, int len) {
-    if (len == 0) return;
-    const int end = (pos & 31) + len;
-    if (end <= 32) {
-      cur |= v << (32 - end);
+  if (lane == 0) {
+    const int diff = a - prev_dc;
+    const int dsize = bit_length(abs(diff));
+    const int2 c = tb[(luma ? kDcL : kDcC) + min(dsize, 16)];
+    it.va = (static_cast<unsigned long long>(static_cast<unsigned>(c.x)) << dsize) |
+            amplitude(diff, dsize);
+    it.la = c.y + dsize;
+    it.za = 0;
+  } else {
+    ac_item(lane, a, it.va, it.la, it.za);
+  }
+  ac_item(lane + 32, b, it.vb, it.lb, it.zb);
+  it.eob = lane == 31 && !(ac >> 63) ? tb[act].y : 0;
+  return it;
+}
+
+// The block's bits and this lane's two item offsets within the block.
+__device__ __forceinline__ int block_offsets(const Items& it, int zrl_len, int lane, int& off_a,
+                                             int& off_b) {
+  const int bits_a = it.za * zrl_len + it.la;
+  const int bits_b = it.zb * zrl_len + it.lb + it.eob;
+  const int packed = bits_a | (bits_b << 16);   // each half below 2^16
+  int incl = packed;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const int total = __shfl_sync(FULL, incl, 31), excl = incl - packed;
+  off_a = excl & 0xFFFF;
+  off_b = (total & 0xFFFF) + (excl >> 16);
+  return (total & 0xFFFF) + (total >> 16);
+}
+
+// Block g of the segment (interleave order: Y x4, Cb, Cr an MCU): its
+// staged levels and DC predictor.
+__device__ __forceinline__ const int* seg_block(const PackSmem& sm, const int* ly,
+                                                const int* lcb, const int* lcr, int g,
+                                                int& prev_dc) {
+  const int m = g / 6, c = g - 6 * m;
+  if (c < 4) {
+    const int* zz = ly + (m * 4 + c) * 64;
+    prev_dc = c > 0 || m > 0 ? zz[-64] : sm.prev_dc[0];
+    return zz;
+  }
+  const int* zz = (c == 4 ? lcb : lcr) + m * 64;
+  prev_dc = m > 0 ? zz[-64] : sm.prev_dc[c - 3];
+  return zz;
+}
+
+__global__ void __launch_bounds__(PACK_NT, 4) pack_seg_kernel(const PackArgs a) {
+  __shared__ __align__(16) PackSmem sm;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) sm.ticket = static_cast<int>(atomicAdd(a.state, 1ull));
+  __syncthreads();
+  const int t = sm.ticket, strip = t / a.nseg, sg = t - strip * a.nseg;
+  const size_t sess = strip / a.nx;
+  const int m0 = (strip - static_cast<int>(sess) * a.nx) * a.mps + sg * SEGM;
+  const int n = min(SEGM, a.mps - sg * SEGM), nblk = 6 * n;
+  const size_t mb0 = sess * a.nmcu + m0;
+  const int* ly = lookback::stage(sm.ly, a.y + mb0 * 256, n * 256, PACK_NT);
+  const int* lcb = lookback::stage(sm.lcb, a.cb + mb0 * 64, n * 64, PACK_NT);
+  const int* lcr = lookback::stage(sm.lcr, a.cr + mb0 * 64, n * 64, PACK_NT);
+  for (int i = tid; i < kSyms; i += PACK_NT) sm.tb[i] = make_int2(a.tables[i], a.tables[kSyms + i]);
+  if (tid == 0) {
+    const bool first = sg == 0;       // a strip's first MCU: predictors at 0
+    sm.prev_dc[0] = first ? 0 : a.y[(mb0 * 4 - 1) * 64];
+    sm.prev_dc[1] = first ? 0 : a.cb[(mb0 - 1) * 64];
+    sm.prev_dc[2] = first ? 0 : a.cr[(mb0 - 1) * 64];
+  }
+  lookback::cp_async_wait();
+  __syncthreads();
+
+  // counts: a warp a block
+  for (int g = warp; g < nblk; g += PACK_WARPS) {
+    int prev;
+    const int* zz = seg_block(sm, ly, lcb, lcr, g, prev);
+    const bool luma = g % 6 < 4;
+    const Items it = block_items(zz, prev, luma, sm.tb, lane);
+    int oa, ob;
+    const int bits = block_offsets(it, sm.tb[(luma ? kAcL : kAcC) + 0xF0].y, lane, oa, ob);
+    if (lane == 0) sm.blk_bits[g] = bits;
+  }
+  __syncthreads();
+
+  unsigned long long* st = a.state + 1 + static_cast<size_t>(strip) * a.nseg;
+  if (warp == 0) {
+    int seg_bits = 0;                 // the blocks' offsets, 32 at a time
+    for (int i0 = 0; i0 < nblk; i0 += 32) {
+      const int x = i0 + lane < nblk ? sm.blk_bits[i0 + lane] : 0;
+      int ix = x;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(FULL, ix, o);
+        if (lane >= o) ix += u;
+      }
+      if (i0 + lane < nblk) sm.blk_off[i0 + lane] = seg_bits + ix - x;
+      seg_bits += __shfl_sync(FULL, ix, 31);
+    }
+    long long excl = 0;
+    if (sg == 0) {
+      if (lane == 0) lookback::publish(st, seg_bits, lookback::INCL);
     } else {
-      cur |= v >> (end - 32);
-      flush();
-      ++cw;
-      cur = v << (64 - end);
+      if (lane == 0) lookback::publish(st + sg, seg_bits, lookback::AGG);
+      excl = lookback::look_back(st, sg);
+      if (lane == 0) lookback::publish(st + sg, excl + seg_bits, lookback::INCL);
     }
-    pos += len;
-    if ((pos & 31) == 0) {
-      flush();
-      ++cw;
-      cur = 0;
+    if (lane == 0) {
+      if (sg == a.nseg - 1) a.totals[strip] = static_cast<int>(excl + seg_bits);
+      sm.excl = excl;
+      sm.seg_bits = seg_bits;
     }
-  };
-  const Block b = locate(y, cb, cr, s, nmcu, mps, g);
-  walk(b, [&](int t, int symbol, uint32_t amp, int size) {
-    put((uint32_t)tb[t + symbol], tb[kSyms + t + symbol]);
-    put(amp, size);
-  });
-  if (pos & 31) flush();
+  }
+  __syncthreads();
+
+  // the words: windows of WIN_WORDS, each lane's two runs of codes written
+  // in shared memory, stored byte-swapped with the edge words in
+  // SegmentStore's order
+  const long long excl = sm.excl;
+  lookback::SegmentStore<lookback::Bswap> out(
+      a.words + static_cast<size_t>(strip) * a.shard_words, a.shard_words, excl, sm.seg_bits);
+  for (int lo = 0; lo < out.nwords; lo += WIN_WORDS) {
+    const int nwin = min(out.nwords - lo, WIN_WORDS);
+    for (int i = tid; i < nwin; i += PACK_NT) sm.win[i] = 0;
+    __syncthreads();
+    for (int g = warp; g < nblk; g += PACK_WARPS) {
+      int prev;
+      const int* zz = seg_block(sm, ly, lcb, lcr, g, prev);
+      const bool luma = g % 6 < 4;
+      const int act = luma ? kAcL : kAcC;
+      const Items it = block_items(zz, prev, luma, sm.tb, lane);
+      const int2 zrl = sm.tb[act + 0xF0];
+      int oa, ob;
+      block_offsets(it, zrl.y, lane, oa, ob);
+      const long long base = out.lead + sm.blk_off[g] - 32LL * lo;
+      if (it.la) {                    // the lane's first run: ZRLs, then item a
+        RunSink r(sm.win, base + oa, nwin);
+        for (int k = 0; k < it.za; ++k) r.put(zrl.x, zrl.y);
+        r.put64(it.va, it.la);
+        r.flush();
+      }
+      if (it.lb || it.eob) {          // the second: ZRLs, item b, the EOB
+        RunSink r(sm.win, base + ob, nwin);
+        for (int k = 0; k < it.zb; ++k) r.put(zrl.x, zrl.y);
+        r.put64(it.vb, it.lb);
+        r.put(sm.tb[act].x, it.eob);
+        r.flush();
+      }
+    }
+    __syncthreads();
+    out.store(sm.win, lo, nwin, PACK_NT);
+    __syncthreads();
+  }
+  if (tid == 0) out.finish(st, sg, excl + sm.seg_bits);
 }
 
-__global__ void swap_kernel(uint32_t* __restrict__ words, const int* __restrict__ totals,
-                            int shard_words) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t strip = blockIdx.y;
-  const int used = (totals[strip] + 31) >> 5;
-  if (i < used && i < shard_words) {
-    uint32_t* w = words + strip * shard_words + i;
-    *w = __byte_perm(*w, 0, 0x0123);
-  }
+inline int pack_segments(int mps) { return (mps + SEGM - 1) / SEGM; }
+
+// The pack buffer's int32 layout: words, totals, then (8-byte aligned)
+// the look-back state.
+inline size_t pack_state_offset(int s, int nx, int shard_words) {
+  const size_t n = static_cast<size_t>(s) * nx * shard_words + static_cast<size_t>(s) * nx;
+  return (n + 1) & ~static_cast<size_t>(1);
 }
 
 }  // namespace
@@ -338,22 +453,41 @@ extern "C" int jpeg_analyze_launch(const int* y, const int* cb, const int* cr, i
   return dngd_last_error();
 }
 
+// The int32 words of the buffer jpeg_pack_launch takes (ops/jpeg_device.py
+// sizes its one allocation by this call): the strips' words (S, nx,
+// shard_words), the totals (S, nx), then the look-back state.
+extern "C" long long jpeg_pack_buffer_words(int s, int nmcu, int nx, int shard_words) {
+  if (s <= 0 || nmcu <= 0 || nx <= 0 || nmcu % nx) return 0;
+  return static_cast<long long>(pack_state_offset(s, nx, shard_words) +
+                                2 * (1 + static_cast<size_t>(s) * nx * pack_segments(nmcu / nx)));
+}
+
 // tables: 1092 int32 (codes then lengths, symbols as in analyze's hist);
-// counts, offsets: (S, nmcu * 6) int32 scratch; words: (S, nx, shard_words)
-// uint32; totals: (S, nx) int32 bits.
+// buf: jpeg_pack_buffer_words int32 (words, totals, state; only the state
+// is zeroed here, by one memset).
 extern "C" int jpeg_pack_launch(const int* y, const int* cb, const int* cr, const int* tables,
-                                int* counts, int* offsets, uint32_t* words, int* totals, int s,
-                                int nmcu, int nx, int shard_words, cudaStream_t stream) {
+                                int* buf, int s, int nmcu, int nx, int shard_words,
+                                cudaStream_t stream) {
   if (s <= 0 || nmcu <= 0) return 0;
-  if (s > 65535 || nx <= 0 || nmcu % nx || nx > 65535) return cudaErrorInvalidValue;
-  const int mps = nmcu / nx;
-  const dim3 grid((nmcu * 6 + 255) / 256, s);
-  count_kernel<<<grid, 256, 0, stream>>>(y, cb, cr, tables, counts, nmcu, mps);
-  scan_kernel<<<dim3(nx, s), 1024, 0, stream>>>(counts, offsets, words, totals, nmcu, mps, nx,
-                                                shard_words);
-  write_kernel<<<grid, 256, 0, stream>>>(y, cb, cr, tables, counts, offsets, words, nmcu, mps,
-                                         nx, shard_words);
-  swap_kernel<<<dim3((shard_words + 255) / 256, s * nx), 256, 0, stream>>>(words, totals,
-                                                                           shard_words);
+  if (nx <= 0 || nmcu % nx || shard_words <= 0) return cudaErrorInvalidValue;
+  PackArgs a;
+  a.y = y;
+  a.cb = cb;
+  a.cr = cr;
+  a.tables = tables;
+  a.words = reinterpret_cast<unsigned*>(buf);
+  a.totals = buf + static_cast<size_t>(s) * nx * shard_words;
+  a.state = reinterpret_cast<unsigned long long*>(buf + pack_state_offset(s, nx, shard_words));
+  if (reinterpret_cast<uintptr_t>(a.state) & 7) return cudaErrorMisalignedAddress;
+  a.nmcu = nmcu;
+  a.nx = nx;
+  a.mps = nmcu / nx;
+  a.nseg = pack_segments(a.mps);
+  a.shard_words = shard_words;
+  const long long ctas = static_cast<long long>(s) * nx * a.nseg;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int e;
+  if ((e = cudaMemsetAsync(a.state, 0, 8 * (1 + static_cast<size_t>(ctas)), stream))) return e;
+  pack_seg_kernel<<<static_cast<unsigned>(ctas), PACK_NT, 0, stream>>>(a);
   return dngd_last_error();
 }

@@ -50,8 +50,12 @@
 // The memset also resets the ticket and the look-back state, so a graph
 // replay starts clean.
 #include "common.cuh"
+#include "lookback.cuh"
 
 namespace {
+
+using lookback::bswap;
+using lookback::cp_async_wait;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int SLOTS = 34, HDR = 3;
@@ -102,42 +106,6 @@ struct Args {
   int* state;
   int nr, nc, nseg, hdr_step;
 };
-
-__device__ __forceinline__ unsigned bswap(unsigned x) { return __byte_perm(x, 0, 0x0123); }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-#if defined(__CUDA_ARCH__)
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-#endif
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-#if defined(__CUDA_ARCH__)
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-#endif
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-#endif
-}
-
-// n ints of global src into shared dst (16-byte aligned, n + 4 ints):
-// staged at the same offset within 16 bytes as src, so that all but a
-// ragged head and tail move as 16-byte copies.  Returns element 0.
-__device__ int* stage(int* dst, const int* src, int n) {
-  const int lead = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
-  int* d = dst + lead;
-  const int head = min(n, (4 - lead) & 3);
-  const int body = (n - head) >> 2;
-  for (int i = threadIdx.x; i < head; i += NT) cp_async4(d + i, src + i);
-  for (int i = threadIdx.x; i < body; i += NT) cp_async16(d + head + 4 * i, src + head + 4 * i);
-  for (int i = head + 4 * body + threadIdx.x; i < n; i += NT) cp_async4(d + i, src + i);
-  return d;
-}
 
 __device__ __forceinline__ void publish(int* p, int v) { atomicExch(p, v); }
 
@@ -370,8 +338,9 @@ __global__ void __launch_bounds__(NT, MIN_CTAS) seg_kernel(const Args a) {
   if (threadIdx.x == 0) sm.ticket = atomicAdd(a.state, 1);
   __syncthreads();
   const Seg g = locate(a, sm.ticket);
-  const int* L = stage(sm.len, a.lengths + g.g0 * Y::blocks * SLOTS, g.n * Y::blocks * SLOTS);
-  const int* SL = stage(sm.syn, a.syn_lens + g.g0 * Y::syn, g.n * Y::syn);
+  const int* L = lookback::stage(sm.len, a.lengths + g.g0 * Y::blocks * SLOTS,
+                                 g.n * Y::blocks * SLOTS, NT);
+  const int* SL = lookback::stage(sm.syn, a.syn_lens + g.g0 * Y::syn, g.n * Y::syn, NT);
   cp_async_wait();
   __syncthreads();
   segment(sm, a, g, L, SL);

@@ -5,11 +5,15 @@ bypass) record stream the host's arithmetic engine replays.
 Replaces the reference's ``ops/cabac_binarize.py`` ``binarize_intra``
 and ``binarize_p``.  Under slice-per-MB-row every context depends only
 on the MB itself and on its left MB's *inputs* (levels, mv, modes), so
-each MB's records are a function of two MBs' levels: the kernel
-(``csrc/cabac.cu``) gives each MB one thread that walks the syntax of
-spec 9.3.2/9.3.3 serially and writes the MB's records as a bit string;
-the packing then follows K10's (a scan along each row and over the
-rows, each MB's bits copied into place).
+each MB's records are a function of two MBs' levels.  In
+``csrc/cabac.cu`` K11i gives each MB one thread that walks the syntax
+of spec 9.3.2/9.3.3 serially and writes the MB's records as a bit
+string, then packs as K10 does (a scan along each row and over the
+rows, each MB's bits copied into place); K11p is one launch, a CTA a
+segment of a row's MBs, a warp an MB and a lane each of its pieces
+(header, mvd components, CBP, each residual block), placed by a
+look-back over the row's earlier segments.  K11p leaves the words past
+the payload as they were (nothing consumes them).
 
 Record wire format (MSB-first bits):
 
@@ -41,6 +45,7 @@ count and the static bit cap the kernel is launched with.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -569,12 +574,25 @@ def _launch(kind: str, fn_name: str, tensors, nr: int, nc: int, dev):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _p_buffer_words(nr: int, nc: int) -> int:
+    """int32 words of K11p's one buffer, as ``csrc/cabac.cu``'s
+    ``binarize_p_buffer_words`` lays it out: the transport
+    (:func:`buffer_words`), then the look-back state (the launch zeroes
+    only the state)."""
+    fn = _cuda.library("cabac").binarize_p_buffer_words
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    return int(fn(buffer_words("p", nr, nc), nr, nc))
+
+
 def binarize_p(mv, luma, cb_dc, cb_ac, cr_dc, cr_ac):
     """Record stream of a P picture (P_L0_16x16 + P_Skip): mv (R, C, 2)
     quarter-pel (y, x) and the P levels (``ops/h264_inter``'s output),
     all int32.  Returns the version-2 transport as a 1-D int32 tensor of
-    uint32 words.  CUDA tensors launch the kernel; CPU tensors run the
-    plain version."""
+    uint32 words (:func:`buffer_words` long; from the kernel, the words
+    past the payload are unspecified).  CUDA tensors launch the kernel;
+    CPU tensors run the plain version."""
     nr, nc = luma.shape[:2]
     dev = luma.device
     i32 = torch.int32
@@ -584,10 +602,13 @@ def binarize_p(mv, luma, cb_dc, cb_ac, cr_dc, cr_ac):
            nr, nc, dev)
     if dev.type == "cpu":
         return binarize_p_plain(mv, luma, cb_dc, cb_ac, cr_dc, cr_ac)
-    out = _launch("p", "binarize_p_launch",
-                  (mv, luma, cb_dc, cb_ac, cr_dc, cr_ac), nr, nc, dev)
+    slots, cap = layout("p")
+    buf = torch.empty(_p_buffer_words(nr, nc), dtype=torch.int32, device=dev)
+    _cuda.launch("cabac", "binarize_p_launch",
+                 [mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, buf],
+                 [nr, nc, slots, cap], dev)
     binarize_p.launches += 1
-    return out
+    return buf[:buffer_words("p", nr, nc)]
 
 
 binarize_p.launches = 0

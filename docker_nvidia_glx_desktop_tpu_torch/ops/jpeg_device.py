@@ -26,6 +26,9 @@ Layouts, S sessions of ``nmcu`` MCUs each:
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
@@ -309,6 +312,17 @@ def jpeg_pack_plain(y, cb, cr, tables: torch.Tensor, nx: int = 1):
             torch.stack(totals).reshape(s, nx))
 
 
+@functools.lru_cache(maxsize=None)
+def _pack_buffer_words(s: int, nmcu: int, nx: int) -> int:
+    """int32 words of K16c's one buffer, as ``csrc/jpeg.cu``'s
+    ``jpeg_pack_buffer_words`` lays it out: the strips' words, the totals,
+    then the look-back state (the launch zeroes only the state)."""
+    fn = _cuda.library("jpeg").jpeg_pack_buffer_words
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 4
+    return int(fn(s, nmcu, nx, shard_words(nmcu // nx * 6)))
+
+
 def jpeg_pack(y, cb, cr, tables: torch.Tensor, nx: int = 1):
     """Pack each session's strips with the (1092,) ``tables``: (packed
     (S, nx, nbytes) uint8, totals (S, nx) int32 bits); a strip's bytes
@@ -319,17 +333,15 @@ def jpeg_pack(y, cb, cr, tables: torch.Tensor, nx: int = 1):
     if cb.device.type == "cpu":
         return jpeg_pack_plain(y, cb, cr, tables, nx)
     s, nmcu = cb.shape[:2]
-    dev = cb.device
     sw = shard_words(nmcu // nx * 6)
-    counts = torch.empty((s, nmcu * 6), dtype=torch.int32, device=dev)
-    offsets = torch.empty_like(counts)
-    words = torch.empty((s, nx, sw), dtype=torch.int32, device=dev)
-    totals = torch.empty((s, nx), dtype=torch.int32, device=dev)
-    _cuda.launch("jpeg", "jpeg_pack_launch",
-                 [y, cb, cr, tables, counts, offsets, words, totals],
-                 [s, nmcu, nx, sw], dev)
+    buf = torch.empty(_pack_buffer_words(s, nmcu, nx), dtype=torch.int32,
+                      device=cb.device)
+    _cuda.launch("jpeg", "jpeg_pack_launch", [y, cb, cr, tables, buf],
+                 [s, nmcu, nx, sw], cb.device)
     jpeg_pack.launches += 1
-    return words.view(torch.uint8), totals
+    n = s * nx * sw              # the strips' words, then the totals
+    return (buf[:n].view(s, nx, sw).view(torch.uint8),
+            buf[n:n + s * nx].view(s, nx))
 
 
 jpeg_pack.launches = 0

@@ -5,6 +5,9 @@ and NumPy) and the record streams (plain K11i / K11p against
 ``ops/cabac_binarize.binarize_intra`` / ``binarize_p``), word for word
 over the header and the payload, overflow cases included."""
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -212,6 +215,31 @@ _HOST_WALK = r"""
 #include <vector>
 #include "cabac_records.cuh"
 using namespace cabac_rec;
+// A P frame's inputs, and each MB's records: its pieces in order, the
+// summaries from its levels (the kernel takes them from its warp's
+// ballots); returns the value overflow.
+struct PIn {
+  const int *mv, *luma, *cb_dc, *cb_ac, *cr_dc, *cr_ac;
+  int nc;
+};
+static PSum p_summary(const PIn& in, int mb) {
+  return p_sum_from(p_nz_bits(in.luma + mb * 256, in.cb_dc + mb * 4, in.cb_ac + mb * 60,
+                              in.cr_dc + mb * 4, in.cr_ac + mb * 60),
+                    in.mv[mb * 2], in.mv[mb * 2 + 1]);
+}
+template <class Sink>
+static bool p_mb(const PIn& in, int r, int c, Sink& sink) {
+  const int mb = r * in.nc + c;
+  const PSum cur = p_summary(in, mb);
+  PSum L{};
+  if (c > 0) L = p_summary(in, mb - 1);
+  const PCtx x = p_ctx(cur, c > 0 ? &L : nullptr, c > 1 ? in.mv + (mb - 2) * 2 : nullptr,
+                       c == in.nc - 1, in.luma + mb * 256, in.cb_dc + mb * 4, in.cb_ac + mb * 60,
+                       in.cr_dc + mb * 4, in.cr_ac + mb * 60);
+  bool ovf = false;
+  for (int k = 0; k < P_PIECES; ++k) ovf |= p_piece(x, k, sink);
+  return ovf;
+}
 template <class In, class Walk>
 static void run(const In& in, Walk walk, uint32_t* out, int nr, int nc,
                 int slots, int cap) {
@@ -255,6 +283,131 @@ extern "C" void walk_p(const int* mv, const int* luma, const int* cbd,
   PIn in{mv, luma, cbd, cba, crd, cra, nc};
   run(in, [](const PIn& i, int r, int c, WordSink& s) { return p_mb(i, r, c, s); },
       out, nr, nc, slots, cap);
+}
+// K11p's schedule (csrc/cabac.cu p_seg_kernel), sequential: each MB's
+// nonzero word (the warp's ballot), its pieces in lane order counted and
+// offset by a scan, segments of ``segp`` MBs of a row whose offsets come
+// from a look-back over random AGG / INCL states, the row's word offsets,
+// the header, then each segment's words built window by window (``win``
+// words, a RunSink a piece) and stored over ``out`` (which holds garbage)
+// in a random order: a segment's own words and last word, then it is
+// DONE; its first word, when it holds earlier bits, ORed once its
+// predecessor is DONE.
+extern "C" void walk_p_seg(const int* mv, const int* luma, const int* cbd,
+                           const int* cba, const int* crd, const int* cra,
+                           uint32_t* out, int nr, int nc, int slots, int cap,
+                           int segp, int win, unsigned seed) {
+  const long long out_words = 8 + nr + (long long)nr * nc * cap;
+  auto rnd = [&seed]() { seed = seed * 1103515245u + 12345u; return seed >> 8; };
+  std::vector<uint32_t> nz(nr * nc);
+  for (int mb = 0; mb < nr * nc; ++mb)
+    nz[mb] = p_nz_bits(luma + mb * 256, cbd + mb * 4, cba + mb * 60, crd + mb * 4, cra + mb * 60);
+  auto ctx = [&](int r, int c) {
+    const int mb = r * nc + c;
+    const PSum cur = p_sum_from(nz[mb], mv[2 * mb], mv[2 * mb + 1]);
+    PSum left{};
+    if (c > 0) left = p_sum_from(nz[mb - 1], mv[2 * mb - 2], mv[2 * mb - 1]);
+    return p_ctx(cur, c > 0 ? &left : nullptr, c > 1 ? mv + 2 * mb - 4 : nullptr, c == nc - 1,
+                 luma + mb * 256, cbd + mb * 4, cba + mb * 60, crd + mb * 4, cra + mb * 60);
+  };
+  const int nseg = (nc + segp - 1) / segp;
+  std::vector<long long> poff((size_t)nr * nc * P_PIECES), mb_off(nr * nc), seg_bits(nr * nseg),
+      excl(nr * nseg), row_w(nr + 1, 0);
+  int flags = 0;
+  for (int r = 0; r < nr; ++r) {
+    for (int s = 0; s < nseg; ++s) {
+      long long acc = 0;
+      for (int c = s * segp; c < nc && c < (s + 1) * segp; ++c) {
+        const PCtx x = ctx(r, c);
+        long long pos = 0;
+        for (int k = 0; k < P_PIECES; ++k) {
+          CountSink cs;
+          flags |= p_piece(x, k, cs) ? 1 : 0;
+          poff[(size_t)(r * nc + c) * P_PIECES + k] = pos;
+          pos += cs.n;
+        }
+        flags |= pos > 32LL * cap ? 2 : 0;
+        mb_off[r * nc + c] = acc;
+        acc += pos;
+      }
+      seg_bits[r * nseg + s] = acc;
+    }
+    // the look-back: predecessors publish AGG (their bits) or INCL
+    std::vector<int> state(nseg);
+    for (auto& st : state) st = 1 + (int)(rnd() % 2);
+    for (int s = 0; s < nseg; ++s) {
+      long long e = 0;
+      for (int q = s - 1; q >= 0; --q) {
+        if (state[q] == 2) {
+          long long incl = 0;
+          for (int t = 0; t <= q; ++t) incl += seg_bits[r * nseg + t];
+          e += incl;
+          break;
+        }
+        e += seg_bits[r * nseg + q];
+      }
+      excl[r * nseg + s] = e;
+    }
+    const long long row_bits = excl[r * nseg + nseg - 1] + seg_bits[r * nseg + nseg - 1];
+    out[8 + r] = (uint32_t)row_bits;
+    row_w[r + 1] = row_w[r] + ((row_bits + 31) >> 5);
+  }
+  out[0] = 2; out[1] = flags ? 1 : 0; out[2] = (uint32_t)row_w[nr]; out[3] = nr;
+  out[4] = slots; out[5] = out[6] = out[7] = 0;
+  struct Ev { int kind, r, s; };            // 0: own words + last, then DONE; 1: OR first
+  std::vector<Ev> pending;
+  std::vector<std::vector<uint32_t>> segw(nr * nseg);
+  std::vector<char> done(nr * nseg, 0);
+  for (int r = 0; r < nr; ++r) {
+    for (int s = 0; s < nseg; ++s) {
+      const long long e = excl[r * nseg + s], sb = seg_bits[r * nseg + s];
+      const int lead = (int)(e & 31);
+      const int nwords = sb > 0 ? (int)((lead + sb + 31) >> 5) : 0;
+      std::vector<uint32_t>& w = segw[r * nseg + s];
+      w.assign(nwords, 0u);
+      for (int lo = 0; lo < nwords; lo += win) {
+        const int n = nwords - lo < win ? nwords - lo : win;
+        std::vector<uint32_t> buf(n, 0u);
+        for (int c = s * segp; c < nc && c < (s + 1) * segp; ++c) {
+          const PCtx x = ctx(r, c);
+          for (int k = 0; k < P_PIECES; ++k) {
+            RunSink rs(buf.data(), lead + mb_off[r * nc + c]
+                                       + poff[(size_t)(r * nc + c) * P_PIECES + k] - 32LL * lo, n);
+            p_piece(x, k, rs);
+            rs.flush();
+          }
+        }
+        for (int i = 0; i < n; ++i) w[lo + i] = buf[i];
+      }
+      pending.push_back({0, r, s});
+    }
+  }
+  while (!pending.empty()) {
+    std::vector<size_t> ready;
+    for (size_t i = 0; i < pending.size(); ++i)
+      if (pending[i].kind == 0 || done[pending[i].r * nseg + pending[i].s - 1]) ready.push_back(i);
+    const size_t at = ready[rnd() % ready.size()];
+    const Ev ev = pending[at];
+    pending.erase(pending.begin() + at);
+    const int i = ev.r * nseg + ev.s;
+    const long long e = excl[i];
+    const long long w0 = 8 + nr + row_w[ev.r] + (e >> 5);
+    const std::vector<uint32_t>& w = segw[i];
+    const bool shared = (e & 31) != 0;
+    const int nw = (int)w.size();
+    if (ev.kind == 0) {
+      for (int j = 0; j < nw; ++j)
+        if (!(j == 0 && shared) && w0 + j < out_words) out[w0 + j] = w[j];
+      if (shared && nw > 0 && w0 < out_words) {
+        pending.push_back({1, ev.r, ev.s});
+        if (nw == 1) continue;
+      }
+      done[i] = 1;
+    } else {
+      out[w0] |= w[0];
+      done[i] = 1;
+    }
+  }
 }
 extern "C" void walk_intra(const int* ldc, const int* lac, const int* cbd,
                            const int* cba, const int* crd, const int* cra,
@@ -305,3 +458,46 @@ def test_kernel_record_walk_equals_the_plain_version_on_the_host(
     fn(*[a.ctypes.data_as(ctypes.c_void_p) for a in arrays + [got]],
        NR, NC, slots, cap)
     np.testing.assert_array_equal(want, got)
+
+
+_CABAC_CU = (pathlib.Path(cabac_binarize.__file__).parent.parent / "csrc"
+             / "cabac.cu").read_text()
+SEGP = int(re.search(r"constexpr int SEGP = (\d+);", _CABAC_CU).group(1))
+P_WIN = int(re.search(r"constexpr int P_WIN = (\d+);", _CABAC_CU).group(1))
+
+
+@pytest.mark.parametrize("segp,win", [(SEGP, P_WIN), (2, P_WIN), (3, 2)])
+@pytest.mark.parametrize("case", ["skip", "sparse", "dense", "extreme",
+                                  "level_overflow", "mvd_overflow",
+                                  "over_cap"])
+def test_segment_schedule_equals_the_plain_version_on_the_host(
+        host_walk, case, segp, win):
+    """K11p's pieces in the warp's lane order and its segment schedule
+    (segments of ``segp`` MBs, windows of ``win`` words, the boundary
+    words in random orders over a buffer of garbage): the header and
+    payload equal the plain version's.  ``over_cap``: the dense case
+    launched with a cap of 8 words an MB, which MBs pass: the flag set,
+    the header's other words the plain version's."""
+    import ctypes
+
+    d = _p_case("dense" if case == "over_cap" else case)
+    arrays = [np.ascontiguousarray(d[k], np.int32) for k in P_ORDER]
+    want = _words(cabac_binarize.binarize_p(
+        *[torch.from_numpy(d[k]) for k in P_ORDER]))
+    slots, cap = cabac_binarize.layout("p")
+    if case == "over_cap":
+        cap = 8
+    got = np.random.default_rng(segp).integers(
+        0, 1 << 32, 8 + NR + NR * NC * cap, dtype=np.uint64).astype(np.uint32)
+    host_walk.walk_p_seg(*[a.ctypes.data_as(ctypes.c_void_p)
+                           for a in arrays + [got]],
+                         NR, NC, slots, cap, segp, win, ctypes.c_uint(7 + segp))
+    head = 8 + NR
+    if case == "over_cap":
+        assert got[1] == 1 and want[1] == 0
+        np.testing.assert_array_equal(np.delete(got[:head], 1),
+                                      np.delete(want[:head], 1))
+        return
+    n = head + int(want[2])
+    np.testing.assert_array_equal(got[:n], want[:n])
+    assert bool(got[1]) == case.endswith("overflow")

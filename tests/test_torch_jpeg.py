@@ -21,6 +21,7 @@ from docker_nvidia_glx_desktop_tpu_torch.ops import color as t_color
 from docker_nvidia_glx_desktop_tpu_torch.ops import dct as t_dct
 from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as t_jd
 from docker_nvidia_glx_desktop_tpu_torch.ops import quant as t_quant
+from jpeg_levels import KINDS, edge_tables, k16c_levels
 
 # The contract: |coefficient - reference's| <= 1e-4 + 4 float32 ulps of
 # the coefficient.  The reference sums in float32 in the compiler's order;
@@ -100,7 +101,11 @@ def test_full_range_colour_is_the_reference_rounded():
 def crafted_levels(nmcu, seed):
     """Levels of nmcu MCUs covering: DC differences of every size to 11,
     AC amplitudes of every size to 10, gaps needing 1, 2 and 3 ZRLs,
-    all-zero blocks, a nonzero at position 63 (no EOB), and noise."""
+    all-zero blocks, a nonzero at position 63 (no EOB), and noise.  A
+    string ``seed`` names one of ``tests/jpeg_levels.py``'s kinds (the
+    cases that break the segment pack K16c)."""
+    if isinstance(seed, str):
+        return tuple(a[0] for a in k16c_levels(seed, nmcu))
     rng = np.random.default_rng(seed)
     nblk = nmcu * 6
     blocks = np.zeros((nblk, 64), np.int32)
@@ -135,12 +140,12 @@ def crafted_levels(nmcu, seed):
             np.ascontiguousarray(y[:, 5]))
 
 
-def _ref_entropy(y, cb, cr, smooth):
+def _ref_entropy(y, cb, cr, smooth, arrays=None):
     yf = jnp.asarray(y.reshape(-1, 64))
     hists = [np.asarray(a) for a in j_jd.jpeg_analyze(yf, jnp.asarray(cb),
                                                       jnp.asarray(cr))]
-    tables = t_mjpeg._tables_from_hists(hists, smooth)
-    arrays = t_jd.dense_tables(tables)
+    if arrays is None:
+        arrays = t_jd.dense_tables(t_mjpeg._tables_from_hists(hists, smooth))
     packed, total = j_jd.jpeg_pack(yf, jnp.asarray(cb), jnp.asarray(cr),
                                    *[jnp.asarray(a) for a in arrays])
     n = (int(total) + 7) // 8
@@ -149,11 +154,13 @@ def _ref_entropy(y, cb, cr, smooth):
 
 @pytest.mark.parametrize("nmcu,seed,smooth", [(1, 0, False), (1, 1, True),
                                               (7, 2, False), (40, 3, True),
-                                              (40, 4, False)])
+                                              (40, 4, False)]
+                         + [(40, kind, True) for kind in KINDS])
 def test_histograms_and_pack_equal_the_reference_on_its_levels(nmcu, seed,
                                                                smooth):
     y, cb, cr = crafted_levels(nmcu, seed)
-    hists, arrays, want, total = _ref_entropy(y, cb, cr, smooth)
+    hists, arrays, want, total = _ref_entropy(
+        y, cb, cr, smooth, edge_tables() if seed == "edge" else None)
     args = [torch.from_numpy(a)[None] for a in (y, cb, cr)]
     got = t_jd.split_hists(t_jd.jpeg_analyze(*args))
     for a, b in zip(hists, got):
