@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in sixteen phases:
+seeded generator, in seventeen phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -37,6 +37,12 @@ seeded generator, in sixteen phases:
   against their plain versions, byte for byte, on crafted inputs that
   break their segment designs (``tests/jpeg_levels.py``'s levels; skip
   runs, dense levels, budget overflows and an MB over its cap) and on
+  every form of their main paths;
+- **k10k11i**: K10 (the CABAC level transport) and K11i (the CABAC
+  intra binarizer) against their plain versions, header and payload word
+  for word, on crafted inputs that break their segment designs
+  (``tests/level_slots.py``'s slots; flat to dense levels, budget
+  overflows, all-I_NxN and checkerboard frames, an MB over its cap) and on
   every form of their main paths;
 - **modes**: K1's other mode sets (``ENCODER_INTRA_MODES`` full, i16,
   dc) at each tier and K5's ``refine="full"`` (K5 and K5p) against their
@@ -151,10 +157,21 @@ Checks, each of which fails the run:
           overflows (the flag set) at three shapes, an MB over a cap of 8
           words (the flag set, the header otherwise plain's), a desktop P
           frame, a noise frame and a shard's 34 rows
+  k10k11i K10's header and payload equal to plain on both key sets over
+          all-zero, all-nonzero, the range's edge values, one past it (the
+          flag set, and only there), zero and nonzero rows in turn and
+          sparse slots at 68x120, 1x7, 34x120 and 3x13 MBs, and on a
+          desktop and a noise IDR's intra keys and a desktop and a noise P
+          frame's P keys; K11i's on flat, sparse, dense and extreme levels,
+          a level past its budget (the flag), all I_NxN and an I_16x16 /
+          I_NxN checkerboard at three shapes, an MB over a cap of 8 words
+          (the flag, the header otherwise plain's), a desktop IDR, a noise
+          IDR at qp 18, all I_16x16, all I_NxN and a shard's 34 rows
   colour  the odd-geometry stream against one whose colour conversion
           is the plain version; K9 on 1080p and odd frames
   cabac   both routes' access units byte-identical; every K10 and K11
-          transport of both runs against its plain version; the overflow
+          transport of both runs against its plain version (header and
+          payload: the kernels leave the words past it unwritten); the overflow
           flags of K10, K11i and K11p on one giant level; the native
           library built by g++ from the port's ``native/`` into its
           ``build/``, and the native coder and engine, never the Python
@@ -202,7 +219,8 @@ Checks, each of which fails the run:
           path and equal to their plain versions at 1080p (the
           full-scale SSE pair 65025), each loop's graph replay equal to
           its eager kernel loop at 1080p and to its plain loop at
-          320x192 (checksum, last transport, chained planes)
+          320x192 (checksum, last transport's header and payload, chained
+          planes)
   modes   K1 full / i16 / dc at each tier on saturated bands and a frame
           where full picks all nine I4 modes (each counted), at tiers 0
           and 2 on 1080p noise,
@@ -249,7 +267,10 @@ change=.``, ``python3 chip_smoke.py k3k7-split`` and the k3k7 phase alone
 ``python3 chip_smoke.py k3k7``; K16c and K11p: ``python3 chip_smoke.py pairs
 --set k11k16 --pairs 3 parent=.tree/parent change=.``, ``python3
 chip_smoke.py k11k16-split`` and the k11k16 phase alone ``python3
-chip_smoke.py k11k16``; the damage phase's
+chip_smoke.py k11k16``; K10 and K11i: ``python3 chip_smoke.py pairs
+--set k10k11i --pairs 3 parent=.tree/parent change=.``, ``python3
+chip_smoke.py k10k11i-split`` and the k10k11i phase alone ``python3
+chip_smoke.py k10k11i``; the damage phase's
 tune-mask part alone: ``python3 chip_smoke.py tune-mask`` (~75 s).  The BD-rate gate
 in alternating fresh processes is ``tools/bdrate_pairs.py``.
 """
@@ -524,7 +545,8 @@ def max_diff(pairs) -> float:
     return worst
 
 
-def kernel_row(name, src, replaces, launches, err, ms, plain_ms, nb, ops=0.0):
+def kernel_row(name, src, replaces, launches, err, ms, plain_ms, nb, ops=0.0,
+               library_ms=None):
     """One entry of the kernels line: the bound is the larger of the
     bytes over the memory rate and the operations over the scalar rate."""
     t_bytes = nb / HBM_BYTES_PER_S * 1e3
@@ -537,7 +559,23 @@ def kernel_row(name, src, replaces, launches, err, ms, plain_ms, nb, ops=0.0):
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "library_ms": None}
+            "library_ms": library_ms}
+
+
+def halo_index(h: int, w: int, nx: int, dev):
+    """15e as one gather a plane: the flat index of each padded shard
+    byte in an (h, w) plane (rows past a shard reach into its neighbours,
+    clamped at the frame's edges; columns clamped), (nx, h/nx + 26, w +
+    26) int64."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops.h264_inter import _PAD
+
+    hl = h // nx
+    rows = (torch.arange(-_PAD, hl + _PAD, device=dev)[None]
+            + hl * torch.arange(nx, device=dev)[:, None]).clamp(0, h - 1)
+    cols = torch.arange(-_PAD, w + _PAD, device=dev).clamp(0, w - 1)
+    return rows[:, :, None] * w + cols
 
 
 def live_sector_bytes(vals, lens) -> int:
@@ -651,6 +689,8 @@ def run():
     print(f"k3k7 phase done at {time.perf_counter() - t_start:.0f} s")
     k11k16_phase(report)
     print(f"k11k16 phase done at {time.perf_counter() - t_start:.0f} s")
+    k10k11i_phase(report)
+    print(f"k10k11i phase done at {time.perf_counter() - t_start:.0f} s")
     rows += modes_phase(report)
     print(f"modes phase done at {time.perf_counter() - t_start:.0f} s")
     rows += colour_phase(report)
@@ -1989,8 +2029,8 @@ def cabac_phase(report):
             else:
                 want = cabac_binarize.binarize_p_plain(
                     *(lv[k] for k in enc._BIN_P_KEYS))
-            if route == "device" and kind != "cabac_intra":
-                buf, want = k11_words(buf), k11_words(want)
+            words = k10_words if route == "host" else k11_words
+            buf, want = words(buf), words(want)
             check(torch.equal(buf, want), f"(a) cabac {route} frame {i} "
                   f"({kind}): the transport differs from the plain version")
     # the overflow flags on one giant value, at the main path's shapes
@@ -2002,7 +2042,8 @@ def cabac_phase(report):
     lp["luma"][0, 0, 0, 0] = 20000
     got = level_pack.pack_levels(lp, level_pack.P_KEYS)
     want = level_pack.pack_slots_plain(level_pack.mb_slots(lp, level_pack.P_KEYS))
-    check(torch.equal(got, want) and int(got[1]) == 1, "K10 overflow flag")
+    check(torch.equal(k10_words(got), k10_words(want)) and int(got[1]) == 1,
+          "K10 overflow flag")
     lp["luma"][0, 0, 0, 0] = 500
     mv = torch.zeros((nr, nc, 2), dtype=torch.int32, device=dev)
     args = [mv] + [lp[k] for k, _, _ in level_pack.P_KEYS]
@@ -2017,7 +2058,7 @@ def cabac_phase(report):
     args = [li[k] for k in ("luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc",
                             "cr_ac")] + [i32(), mb_i4, i32(16), li["luma_i4"]]
     got = cabac_binarize.binarize_intra(*args)
-    check(torch.equal(got, cabac_binarize.binarize_intra_plain(*args))
+    check(torch.equal(k11_words(got), k11_words(cabac_binarize.binarize_intra_plain(*args)))
           and int(got[1]) == 1, "K11i overflow flag")
     print(f"(a) cabac: every K10, K11i and K11p transport of both runs equal "
           f"to its plain version ({time.perf_counter() - t_a:.0f} s); the "
@@ -2104,15 +2145,19 @@ def cabac_phase(report):
     for name, src, replaces, launches, fk, fp, nb in specs:
         rows.append(kernel_row(name, src, replaces, launches, 0.0,
                                cuda_ms(fk, reps=20), cuda_ms(fp, reps=3), nb))
-        if name == "binarize_p":           # beside the eager ms: the device time
-            rows[-1]["device_ms"] = device_ms(fk, name, rows[-1]["bound_ms"], 2)
-    k10_intra_ms = cuda_ms(lambda: level_pack.pack_levels(
-        lv_i, level_pack.INTRA_KEYS), reps=20)
+        # beside the eager ms: the device time (a memset and a launch)
+        rows[-1]["device_ms"] = device_ms(fk, name, rows[-1]["bound_ms"], 2)
+    k10_intra = lambda: level_pack.pack_levels(lv_i, level_pack.INTRA_KEYS)
+    k10_intra_ms = cuda_ms(k10_intra, reps=20)
+    k10_intra_bound = (nbytes(*(lv_i[k] for k, _, _ in level_pack.INTRA_KEYS))
+                       + out_bytes(k10_intra())) / HBM_BYTES_PER_S * 1e3
+    k10_intra_dev = device_ms(k10_intra, "level_pack (IDR levels)", k10_intra_bound, 2)
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
               f"{r['launches'] / len(frames):.2f} launches/frame)")
-    print(f"kernel level_pack (IDR levels): {k10_intra_ms:.3f} ms; payload words "
+    print(f"kernel level_pack (IDR levels): {k10_intra_ms:.3f} ms, device "
+          f"{k10_intra_dev} ms (bound {k10_intra_bound:.4f} ms by bytes); payload words "
           f"K10 P {int(b10[2])}, K11p {int(b11p[2])}, K11i {int(b11i[2])}")
 
     # -- each route timed with one frame in flight ---------------------------
@@ -2139,7 +2184,8 @@ def cabac_phase(report):
                 span[key] += (time.perf_counter() - t) * 1e3
         return call
 
-    report["cabac"] = {}
+    report["cabac"] = {"k10_intra": {"ms": k10_intra_ms, "device_ms": k10_intra_dev,
+                                     "bound_ms": k10_intra_bound}}
     for route in ("host", "device"):
         enc = encoder(route)
         lat, sub, col = [], [], []
@@ -5198,6 +5244,13 @@ def spatial_phase(report):
     batch.spatial_halo_pad_plain(cpu(ry), cpu(rcb), cpu(rcr), nx)
     pad_plain = (time.perf_counter() - t0) * 1e3
     pad_ms = graph_ms(lambda: batch.spatial_halo_pad(ry, rcb, rcr, nx))
+    # the library call: one gather a plane by PyTorch indexing, the index
+    # tensors built once
+    gidx = [halo_index(p.shape[0], p.shape[1], nx, dev) for p in (ry, rcb, rcr)]
+    gather = lambda: [p.reshape(-1)[i] for p, i in zip((ry, rcb, rcr), gidx)]
+    check(all(torch.equal(a, b) for a, b in zip(gather(), pads)),
+          "15e: the gather differs from the kernel")
+    pad_lib_ms = graph_ms(gather)
     k5p_ms = cuda_ms(lambda: h264_inter.encode_p_frame_padded_ref(
         sv(y), sv(cb), sv(cr), *pads, qp), reps=10)
     k5_ms = cuda_ms(lambda: h264_inter.encode_p_frame(y, cb, cr, ry, rcb, rcr, qp),
@@ -5229,7 +5282,8 @@ def spatial_phase(report):
         kernel_row("halo_pad", "spatial.cu", "parallel/batch.py:609 "
                    f"_spatial_halo_pad (nx={nx}, 1080p, graph replay)",
                    launches["halo_pad"],
-                   e15e, pad_ms, pad_plain, nbytes(ry, rcb, rcr) + nbytes(*pads)),
+                   e15e, pad_ms, pad_plain, nbytes(ry, rcb, rcr) + nbytes(*pads),
+                   library_ms=pad_lib_ms),
         kernel_row("force_skip", "spatial.cu", "damage_mask.py:312 "
                    f"force_skip_rows (1080p, {frac:.2f} of the rows gated, "
                    "graph replay)",
@@ -5449,9 +5503,15 @@ def bench_phase(report, rows_before):
     os.environ["BENCH_TIMEOUT_S"] = str(BENCH_TIMEOUT_S)
     named = {"perturb": devloop.perturb, "tick": devloop.tick,
              "sse_planes": aq.sse_planes}
+    # the loops' body kernels, counted the same way (graph nodes times
+    # replays) for the kernel table's launch column; not checks
+    every = devloop.wrappers()
+    body = {k: every[k] for k in ("intra", "cavlc_slots", "pack", "pack_levels",
+                                  "binarize_intra", "inter", "deblock", "cavlc_p_slots",
+                                  "pack_p", "binarize_p")}
     try:
         # -- main: the bench as its user runs it, every count from 0 --------
-        zero_counts(named)
+        zero_counts({**named, **body})
         t0 = time.perf_counter()
         res = json.loads(json.dumps(bench.main(dev)))
         main_s = time.perf_counter() - t0
@@ -5459,6 +5519,7 @@ def bench_phase(report, rows_before):
         bd = json.loads(json.dumps(bench.bdrate_main(quick=True, device=dev)))
         bd_s = time.perf_counter() - t0
         launches = path_launches(named)
+        rep["body_launches"] = path_launches(body)
         replays = dict(devloop.loop_replays)
         tiers = tiers_against_plain(bench, bd, dev)
     finally:
@@ -5493,7 +5554,8 @@ def bench_phase(report, rows_before):
     for name in dict.fromkeys(n for n, _ in LOOP_CASES):
         check(replays.get(name, 0) > 0,
               f"bench: {name}_loop never replayed on the bench's path")
-    print(f"bench path launches: {launches}; loop replays: {replays}")
+    print(f"bench path launches: {launches}; loop replays: {replays}; the loops' "
+          f"body kernels (graph nodes x replays): {rep['body_launches']}")
     print(f"(d) run_tier at the --bdrate --quick geometry: {tiers}")
 
     # -- (a) K14d, K17p, K17c against their plain versions at 1080p --------
@@ -5544,6 +5606,11 @@ def bench_phase(report, rows_before):
             "tick": lambda: devloop.tick(acc_t, words, 0, i_dev)}
     one = {k: graph_ms(fn) for k, fn in tiny.items()}
     each = {k: graph_each_ms(fn) for k, fn in tiny.items()}
+    # a graph kernel node's own floor: an empty one-thread kernel (PyTorch's
+    # spin kernel for 0 cycles), one of 32 in a graph (row 17k's bound)
+    rep["node_floor_ms"] = graph_each_ms(lambda: torch.cuda._sleep(0))
+    print(f"an empty one-thread kernel node, one of 32 in a graph: "
+          f"{rep['node_floor_ms']:.4f} ms [{smi}]")
     rows = [
         kernel_row("sse_planes", "aq.cu", "aq.py:196 _mse_reduce (:204 "
                    "mse_planes, :216 psnr_planes; 1088x1920; one of 32 "
@@ -5572,7 +5639,7 @@ def bench_phase(report, rows_before):
     loop_err = {}               # each loop's largest difference, checksum in
 
     def held(name, opts, got, want, what):
-        if name == "cabac_p" and opts.get("binarize"):   # K11p: header and payload
+        if name.startswith("cabac"):       # K10 and K11: header and payload
             got, want = ((t[0], k11_words(t[1]), t[2]) for t in (got, want))
         d = max(float(abs(int(got[0]) - int(want[0]))),
                 max_diff([(got[1], want[1])] + list(zip(got[2], want[2]))))
@@ -5678,7 +5745,7 @@ def bench_phase(report, rows_before):
 #
 # ``python3 chip_smoke.py pairs --set SET [--pairs N] NAME=PATH ...`` times
 # one set of kernels (``PAIR_SETS``: ``k1k6``, ``k5k4``, ``k2k8``, ``k3k7``,
-# ``k11k16``) on each checkout;
+# ``k11k16``, ``k10k11i``) on each checkout;
 # ``k1k6-pairs`` is ``pairs --set k1k6``.  For the k1k6 set it compares
 # checkouts of the repository (say a commit's parent, unpacked with ``git
 # archive`` into the git-ignored ``.tree/``, and this tree): every run is a
@@ -6171,13 +6238,132 @@ def k11k16_times() -> dict:
     return out
 
 
+# -- K10 and K11i (the CABAC level transport and intra binarizer) -----------
+#
+# ``k10k11i_inputs`` holds their main paths' inputs; ``pairs --set
+# k10k11i`` times ``k10k11i_times`` on each checkout (writes
+# ``chiprun_out/k10k11i_pairs.json``); ``k10k11i-split`` gives each form's
+# kernels by device time and, where the sources hold the segment kernels,
+# copies with a stage cut out (``K10_VARIANTS``, ``K11I_VARIANTS``;
+# ``chiprun_out/k10k11i_split.json``).  On the parent of the redesign the
+# split times the wrappers only.
+
+K11I_NOISE_QP = 18          # the noise IDR's qp: low, yet no MB over its cap
+I_BIN_KEYS = ("luma_dc", "luma_ac", "cb_dc", "cb_ac", "cr_dc", "cr_ac",
+              "pred_mode", "mb_i4", "i4_modes", "luma_i4")
+
+
+def k10k11i_inputs(dev, qp: int = PAIRS_QP) -> dict:
+    """K11i's and K10's inputs at their main paths' shapes: K1's levels of
+    a 1080p desktop IDR (K11i's per-frame, ring and 17c form; K10's intra
+    keys), of a full-noise IDR at ``K11I_NOISE_QP``, of the desktop with
+    K1's I16-only mode set (every MB I_16x16), of a noise IDR at ``qp``
+    with every MB made I_NxN (its I16 MBs' luma DC and AC zeroed; the
+    share that K1 coded I_NxN is kept as ``i4_share``), and one nx = 2
+    shard's 34 MB rows of the desktop; K10's intra keys of the noise IDR
+    at ``qp`` and its P keys of the P core's outputs for a moving desktop
+    frame and a full-noise frame."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import h264_device, h264_inter
+
+    enc = h264_device.encode_intra_frame_yuv
+    gop = gop_frames(2, seed=2)
+    desk, moving = pair_planes(gop[0]), pair_planes(gop[1])
+    rng = np.random.default_rng(12)
+    noise = pair_planes(rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+    lv = enc(*desk, qp)
+    lvq = enc(*noise, qp)
+    i4 = dict(lvq, mb_i4=torch.ones_like(lvq["mb_i4"]),
+              luma_dc=torch.zeros_like(lvq["luma_dc"]),
+              luma_ac=torch.zeros_like(lvq["luma_ac"]))
+    x = {"i4_share": float(lvq["mb_i4"].float().mean())}
+    for name, levels in (("i", lv), ("i_noise", enc(*noise, K11I_NOISE_QP)),
+                         ("i_i16", enc(*desk, qp, i16_modes="i16")), ("i_i4", i4)):
+        x[name] = [levels[k] for k in I_BIN_KEYS]
+    x["i_band"] = [t[:H_PAD // 32].contiguous() for t in x["i"]]
+    ref = (lv["recon_y"], lv["recon_cb"], lv["recon_cr"])
+    x["l_i"], x["l_i_noise"] = lv, lvq
+    x["l_p"] = h264_inter.encode_p_frame(*moving, *ref, qp)
+    x["l_p_noise"] = h264_inter.encode_p_frame(*noise, *ref, qp)
+    return x
+
+
+def k10k11i_forms(x: dict) -> dict:
+    """K11i's and K10's forms on ``k10k11i_inputs``, each a call of the
+    wrapper a user's path makes."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import cabac_binarize, level_pack
+
+    out = {}
+    for name in ("i", "i_noise", "i_i16", "i_i4", "i_band"):
+        out["k11" + name] = lambda a=x[name]: cabac_binarize.binarize_intra(*a)
+    for name in ("l_i", "l_i_noise", "l_p", "l_p_noise"):
+        keys = level_pack.INTRA_KEYS if name.startswith("l_i") else level_pack.P_KEYS
+        out["k10" + name[2:]] = lambda lv=x[name], keys=keys: level_pack.pack_levels(lv, keys)
+    return out
+
+
+def k10k11i_form_times(x: dict) -> dict:
+    """Each of ``k10k11i_forms(x)``: eager, replayed and device ms, the
+    device time by kernel (``kernel_split``), and its transport's payload
+    words and overflow flag."""
+    out = {}
+    for name, fn in k10k11i_forms(x).items():
+        r = out[name] = {"ms": cuda_ms(fn, reps=20), "graph_ms": graph_ms(fn, reps=20)}
+        split = kernel_split(fn)
+        r["device_ms"] = float(sum(split.values())) if split else -1.0
+        r["split"] = split
+        buf = fn()
+        r["words"], r["flag"] = float(buf[2]), float(buf[1])
+    return out
+
+
+def k10k11i_times() -> dict:
+    """The ``k10k11i`` set: K11i and K10 in each form (eager, replayed,
+    device time, each kernel's device time); steps 17c on both transports
+    and 17f on K10 and K11p (a desktop's planes, its own reference); the
+    bench's ``intra_device_binarize_step_ms`` (17c with K11i on the bench's
+    frame at its encoder's qp)."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch import bench
+    from docker_nvidia_glx_desktop_tpu_torch.models import H264Encoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import devloop
+
+    dev, qp = torch.device("cuda"), PAIRS_QP
+    out = {}
+    for name, r in k10k11i_form_times(k10k11i_inputs(dev)).items():
+        for k, v in r.items():
+            if k == "split":
+                out.update({f"{name}_dev_{s}": float(t) for s, t in v.items()})
+            else:
+                out[f"{name}_{k}"] = v
+    d = pair_planes(gop_frames(1, seed=5)[0])
+    steady = lambda fn: devloop.measure_steady_state(
+        fn, budget_s=PAIRS_LOOP_BUDGET_S)["step_ms"]
+    for binarize in (False, True):
+        tag = "bin" if binarize else "k10"
+        out[f"step17c_{tag}_ms"] = steady(
+            lambda k, b=binarize: devloop.cabac_intra_loop(*d, k, qp, binarize=b))
+        out[f"step17f_{tag}_ms"] = steady(
+            lambda k, b=binarize: devloop.cabac_p_loop(*d, *d, k, qp, binarize=b))
+    frames = bench.make_frames()
+    cenc = H264Encoder(W, H, mode="cavlc", entropy="cabac", host_color=True, device=dev)
+    db = bench._upload(cenc._host_yuv420(frames[0]), dev)
+    out["bench_intra_device_binarize_step_ms"] = steady(
+        lambda k: devloop.cabac_intra_loop(*db, k, cenc.qp, binarize=True))
+    return out
+
+
 # the measured sets: (timing function, the sources whose ptxas lines a
 # build prints, the output file's stem)
 PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
              "k5k4": (k5k4_times, ("inter", "content")),
              "k2k8": (k2k8_times, ("cavlc", "deblock")),
              "k3k7": (k3k7_times, ("pack",)),
-             "k11k16": (k11k16_times, ("jpeg", "cabac"))}
+             "k11k16": (k11k16_times, ("jpeg", "cabac")),
+             "k10k11i": (k10k11i_times, ("levelpack", "cabac"))}
 
 
 def pairs_child(set_name: str, tree: str, build_only: bool) -> dict:
@@ -6959,9 +7145,10 @@ def k16c_strips(packed, totals) -> list:
     return [(b.tobytes(), n) for row in jd.strip_bytes(packed, totals) for b, n in row]
 
 
-def k11p_over_cap(args, cap: int):
-    """K11p launched with a per-MB cap of ``cap`` words (the launcher's
-    argument; the wrapper passes the static cap): its transport."""
+def k11_over_cap(kind: str, args, cap: int):
+    """K11i or K11p (``kind`` "intra" or "p") launched with a per-MB cap of
+    ``cap`` words (the launcher's argument; the wrapper passes the static
+    cap): its transport."""
     import ctypes
 
     import torch
@@ -6969,13 +7156,13 @@ def k11p_over_cap(args, cap: int):
     from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda, cabac_binarize
 
     nr, nc = args[1].shape[:2]
-    slots = cabac_binarize.layout("p")[0]
+    slots = cabac_binarize.layout(kind)[0]
     out_words = 8 + nr + nr * nc * cap
-    fn = _cuda.library("cabac").binarize_p_buffer_words
+    fn = _cuda.library("cabac").binarize_buffer_words
     fn.restype = ctypes.c_longlong
     fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     buf = torch.empty(int(fn(out_words, nr, nc)), dtype=torch.int32, device=args[1].device)
-    _cuda.launch("cabac", "binarize_p_launch", list(args) + [buf], [nr, nc, slots, cap],
+    _cuda.launch("cabac", f"binarize_{kind}_launch", list(args) + [buf], [nr, nc, slots, cap],
                  args[1].device)
     return buf[:out_words]
 
@@ -7095,7 +7282,7 @@ def k11k16_phase(report):
           and not flags[f"skip {nr}x{nc}"] and not flags[f"dense {nr}x{nc}"],
           f"K11p overflow flags {flags}")
     args = k11p_case("cap", nr, nc, dev, 47)
-    got, want = k11p_over_cap(args, 8), cabac_binarize.binarize_p_plain(*args)
+    got, want = k11_over_cap("p", args, 8), cabac_binarize.binarize_p_plain(*args)
     keep = [0] + list(range(2, 8 + nr))
     check(int(got[1]) == 1 and int(want[1]) == 0
           and torch.equal(got[keep].cpu(), want[keep].cpu()),
@@ -7119,6 +7306,176 @@ def k11k16_phase(report):
           "levels, mvd and level overflows at 68x120, 1x7 and 34x120 MBs, an MB over "
           "a cap of 8 words, a desktop P frame, a noise frame, a shard's 34 rows; "
           f"{rep['k11p_s']:.1f} s); phase {rep['s']:.1f} s")
+    return []
+
+
+def k10_words(buf):
+    """A K10 transport's meaningful words on the host (the version-1
+    header has K11's layout: word 2 the payload words, word 3 the rows):
+    the header and the payload, clipped to the buffer."""
+    check(int(buf[0]) == 1, f"not a K10 transport: version {int(buf[0])}")
+    return k11_words(buf)
+
+
+def k11i_case(kind: str, nr: int, nc: int, dev, seed: int):
+    """K11i's crafted inputs at (nr, nc) MBs, in ``I_BIN_KEYS`` order:
+    ``flat`` (no levels), ``sparse``, ``dense`` (half the levels nonzero,
+    up to +-60), ``extreme`` (levels at the suffix budgets, a luma DC of
+    16000), ``level`` (an I4 level past its budget), ``all_i4`` (every MB
+    I_NxN), ``checker`` (I_16x16 and I_NxN MBs in a checkerboard, so every
+    left neighbour's summary is of the other type); the MBs' types at
+    random elsewhere, each type's other levels zero as K1 leaves them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dens, mag = {"flat": (0.0, 1), "sparse": (0.05, 3), "dense": (0.5, 60),
+                 "extreme": (0.3, 141), "level": (0.05, 3), "all_i4": (0.3, 20),
+                 "checker": (0.3, 20)}[kind]
+    shapes = {"luma_dc": (16,), "luma_ac": (16, 15), "cb_dc": (4,), "cb_ac": (4, 15),
+              "cr_dc": (4,), "cr_ac": (4, 15), "luma_i4": (16, 16)}
+    d = {}
+    for k, shape in shapes.items():
+        a = rng.integers(-mag, mag + 1, (nr, nc) + shape)
+        d[k] = np.where(rng.random(a.shape) < dens, a, 0).astype(np.int32)
+    i4 = rng.random((nr, nc)) < 0.5
+    if kind == "all_i4":
+        i4[:] = True
+    if kind == "checker":
+        i4 = np.add.outer(np.arange(nr), np.arange(nc)) % 2 == 0
+    i4[0, 0] = i4[0, 0] and kind != "extreme"      # an I_16x16 MB for the big DC
+    i4[-1, -1] = i4[-1, -1] or kind == "level"       # an I_NxN MB for the big level
+    d["luma_dc"][i4] = 0
+    d["luma_ac"][i4] = 0
+    d["luma_i4"][~i4] = 0
+    d["mb_i4"] = i4
+    d["pred_mode"] = rng.integers(0, 4, (nr, nc)).astype(np.int32)
+    d["i4_modes"] = rng.integers(0, 9, (nr, nc, 16)).astype(np.int32)
+    if kind == "extreme":
+        d["luma_dc"][0, 0, :3] = (16000, -3000, 700)
+    if kind == "level":
+        d["luma_i4"][-1, -1, 2, 0] = -400
+    return [torch.from_numpy(d[k]).to(dev) for k in I_BIN_KEYS]
+
+
+def k10k11i_phase(report):
+    """K11i and K10 against their plain versions, header and payload word
+    for word and the overflow flag, on the crafted inputs that break their
+    segment designs and on every form of their main paths.  K11i: flat,
+    sparse, dense and extreme levels, a level past its budget (the flag
+    set), an all-I_NxN frame and an I_16x16 / I_NxN checkerboard at 68 x
+    120, 1 x 7 and 34 x 120 MBs, an MB over its cap (a launch at a cap of 8
+    words: the flag set, the header's other words plain's), and
+    ``k10k11i_inputs``'s forms (a desktop IDR, a noise IDR at a low qp,
+    all I_16x16, all I_NxN, a shard's 34 rows).  K10, both key sets:
+    ``tests/level_slots.py``'s slots (all-zero, all-nonzero, the range's
+    edge values, values one past it (the flag set), zero and nonzero rows
+    in turn, sparse) at 68 x 120, 1 x 7, 34 x 120 and 3 x 13 MBs (widths
+    that are no multiple of a segment), sparse levels 4 bytes past a
+    16-byte boundary (the 4-byte staging), and the intra keys of a desktop
+    and a noise IDR, the P keys of a moving desktop and a noise P frame.
+    Launches made here leave the wrappers' counts as they were."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import cabac_binarize, level_pack
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from level_slots import K10_KINDS, k10_slots
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rep = report["k10k11i"] = {}
+    saved = (level_pack.pack_levels.launches, cabac_binarize.binarize_intra.launches)
+    nr, nc = H_PAD // 16, W // 16
+    shapes = ((nr, nc), (1, 7), (nr // 2, nc), (3, 13))
+
+    n10, flags10 = 0, {}
+    for keys in (level_pack.INTRA_KEYS, level_pack.P_KEYS):
+        s = sum(n for _, n, _ in keys)
+        for kind in K10_KINDS:
+            for i, (r, c) in enumerate(shapes):
+                sl = torch.from_numpy(k10_slots(kind, r, c, s, seed=50 + i)).to(dev)
+                lv, off = {}, 0
+                for k, n, shape in keys:
+                    lv[k] = sl[..., off:off + n].reshape((r, c) + shape).contiguous()
+                    off += n
+                got = level_pack.pack_levels(lv, keys)
+                want = level_pack.pack_slots_plain(sl)
+                label = f"K10 {s} slots {kind} {r}x{c}"
+                check(torch.equal(k10_words(got), k10_words(want)),
+                      f"{label}: the transport differs from plain")
+                flags10[label] = int(got[1])
+                check(int(got[1]) == int(kind == "over"), f"{label}: overflow flag {int(got[1])}")
+                n10 += 1
+    # levels 4 bytes past a 16-byte boundary (the staging's 4-byte path)
+    for keys in (level_pack.INTRA_KEYS, level_pack.P_KEYS):
+        s = sum(n for _, n, _ in keys)
+        sl = torch.from_numpy(k10_slots("sparse", nr // 2, nc, s, seed=58)).to(dev)
+        lv, off = {}, 0
+        for k, n, shape in keys:
+            t = torch.empty(sl[..., :n].numel() + 1, dtype=torch.int32, device=dev)[1:]
+            lv[k] = t.view((nr // 2, nc) + shape).copy_(sl[..., off:off + n].reshape(
+                (nr // 2, nc) + shape))
+            off += n
+        check(torch.equal(k10_words(level_pack.pack_levels(lv, keys)),
+                          k10_words(level_pack.pack_slots_plain(sl))),
+              f"K10 {s} slots off a 16-byte boundary: the transport differs from plain")
+        n10 += 1
+    x = k10k11i_inputs(dev)
+    for name, fn in k10k11i_forms(x).items():
+        if name.startswith("k10"):
+            keys = level_pack.INTRA_KEYS if name.startswith("k10i") else level_pack.P_KEYS
+            lv = x["l_" + name[3:]]
+            want = level_pack.pack_slots_plain(level_pack.mb_slots(lv, keys))
+            got = fn()
+            check(torch.equal(k10_words(got), k10_words(want)) and int(got[1]) == 0,
+                  f"K10 {name}: the transport differs from plain")
+            n10 += 1
+    rep["k10_cases"] = n10
+    rep["k10_s"] = time.perf_counter() - t_phase
+
+    t1 = time.perf_counter()
+    n11, flags = 0, {}
+    for kind in ("flat", "sparse", "dense", "extreme", "level", "all_i4", "checker"):
+        for i, (r, c) in enumerate(shapes[:3]):
+            args = k11i_case(kind, r, c, dev, 60 + i)
+            got = cabac_binarize.binarize_intra(*args)
+            want = cabac_binarize.binarize_intra_plain(*args)
+            check(torch.equal(k11_words(got), k11_words(want)),
+                  f"K11i {kind} {r}x{c}: the transport differs from plain")
+            flags[f"{kind} {r}x{c}"] = int(got[1])
+            n11 += 1
+    check(all(v == int(k.startswith("level")) for k, v in flags.items()),
+          f"K11i overflow flags {flags}")
+    args = k11i_case("dense", nr, nc, dev, 67)
+    got, want = k11_over_cap("intra", args, 8), cabac_binarize.binarize_intra_plain(*args)
+    keep = [0] + list(range(2, 8 + nr))
+    check(int(got[1]) == 1 and int(want[1]) == 0
+          and torch.equal(got[keep].cpu(), want[keep].cpu()),
+          "K11i over its cap: the flag is not set or the header differs from plain")
+    n11 += 1
+    for name, fn in k10k11i_forms(x).items():
+        if name.startswith("k11"):
+            got = fn()
+            want = cabac_binarize.binarize_intra_plain(*x[name[3:]])
+            check(torch.equal(k11_words(got), k11_words(want)) and int(got[1]) == 0,
+                  f"K11i {name}: the transport differs from plain")
+            n11 += 1
+    torch.cuda.synchronize()
+    rep["k11i_cases"] = n11
+    rep["k11i_s"] = time.perf_counter() - t1
+    rep["i4_share"] = x["i4_share"]
+    rep["s"] = time.perf_counter() - t_phase
+    level_pack.pack_levels.launches, cabac_binarize.binarize_intra.launches = saved
+    print(f"(a) k10k11i: K10's header and payload equal to plain on {n10} inputs (both key "
+          f"sets: {', '.join(K10_KINDS)} at 68x120, 1x7, 34x120 and 3x13 MBs, the flag set "
+          "on values one past the range only; levels off a 16-byte boundary; a desktop and "
+          "a noise IDR's intra keys, a "
+          f"moving desktop and a noise P frame's P keys; {rep['k10_s']:.1f} s); K11i's on "
+          f"{n11} inputs (flat, sparse, dense, extreme, a level past its budget, all "
+          "I_NxN and a checkerboard at 68x120, 1x7 and 34x120 MBs, an MB over a cap of 8 "
+          "words, a desktop IDR, a noise IDR at qp "
+          f"{K11I_NOISE_QP}, all I_16x16, all I_NxN, a shard's 34 rows; "
+          f"{rep['k11i_s']:.1f} s); phase {rep['s']:.1f} s")
     return []
 
 
@@ -7507,7 +7864,7 @@ def k3k7_split() -> int:
 # (timing only: a cut stage leaves its outputs wrong but every index in
 # range).  The parent of the redesign has none of these lines: its split
 # times the wrappers only.
-K11K16_MARK = "look_back"
+K11K16_MARK = "SegmentStore"
 _NO_FINISH = ("  if (tid == 0) out.finish(", "  if (false) out.finish(")
 # the DONE waits of SegmentStore::finish (lookback.cuh)
 _NO_DONE_WAIT = [("lookback.cuh", "      if (s > 0) wait_for(st + s - 1, DONE);\n", ""),
@@ -7530,14 +7887,17 @@ K16C_VARIANTS = {
 }
 K11P_VARIANTS = {
     "base": [],
-    "no_write": [("for (int lo = 0; lo < out.nwords; lo += P_WIN) {",
-                  "for (int lo = 0; lo < 0; lo += P_WIN) {"), _NO_FINISH],
-    "stage_only": [("for (int k = warp; k < ns; k += SEGP) {", "for (int k = warp; k < 0; k += SEGP) {"),
+    "no_write": [("for (int lo = 0; lo < st.nwords; lo += WIN) {",
+                  "for (int lo = 0; lo < 0; lo += WIN) {"),
+                 ("  if (tid == 0) st.finish(", "  if (false) st.finish(")],
+    "stage_only": [("for (int k = warp; k < ns; k += SEG) {\n    bool nz;",
+                    "for (int k = warp; k < 0; k += SEG) {\n    bool nz;"),
                    ("  if (warp < n) {\n    bool ovf = false;", "  if (false) {\n    bool ovf = false;"),
-                   ("for (int lo = 0; lo < out.nwords; lo += P_WIN) {",
-                    "for (int lo = 0; lo < 0; lo += P_WIN) {"), _NO_FINISH],
-    "no_wait": [("excl = lookback::look_back(st, s);", "excl = s * 1000LL;"),
-                ("w += lookback::wait_for(row_pub + q, lookback::INCL) >> 2;", "w += q;")]
+                   ("for (int lo = 0; lo < st.nwords; lo += WIN) {",
+                    "for (int lo = 0; lo < 0; lo += WIN) {"),
+                   ("  if (tid == 0) st.finish(", "  if (false) st.finish(")],
+    "no_wait": [("transport.cuh", "excl = look_back(st, s);", "excl = s * 1000LL;"),
+                ("transport.cuh", "w += wait_for(S.row_pub + q, INCL) >> 2;", "w += q;")]
                + _NO_DONE_WAIT,
     # the window loop without the pieces' second walk; the second walk
     # only counting (no positions, no shared atomics)
@@ -7550,13 +7910,48 @@ K11P_VARIANTS = {
 }
 
 
-def k11k16_cuts(x: dict) -> dict:
-    """Each variant of ``K16C_VARIANTS`` / ``K11P_VARIANTS`` on the 1080p
-    forms (and K16c at S = 4 x nx = 4): device ms and graph replays."""
+def variant_cut_times(srcs: dict, calls: dict) -> dict:
+    """Each variant of ``srcs`` ({source: {name: substitutions}}) launched
+    on the forms of ``calls`` ({form: (source, entry, tensors, (size
+    function, its args), ints)}; a None tensor is a null pointer; the size
+    function gives the one buffer's int32 words, from a length and ints):
+    device ms and graph replays."""
     import ctypes
 
     import torch
 
+    cut = {}
+    for src, variants in srcs.items():
+        libs = build_variants(src, variants)
+        for form, (lib_src, entry, ts, (size_fn, size_args), ints) in calls.items():
+            if lib_src != src:
+                continue
+            dev = next(t for t in ts if t is not None).device
+            for name in variants:
+                sz = libs[name][size_fn]
+                sz.restype = ctypes.c_longlong
+                sz.argtypes = ([ctypes.c_int] if src == "jpeg" else [ctypes.c_longlong]) \
+                    + [ctypes.c_int] * (len(size_args) - 1)
+                buf = torch.empty(int(sz(*size_args)), dtype=torch.int32, device=dev)
+                fn = libs[name][entry]
+                fn.restype = ctypes.c_int
+                fn.argtypes = ([ctypes.c_void_p] * (len(ts) + 1) + [ctypes.c_int] * len(ints)
+                               + [ctypes.c_void_p])
+
+                def call(fn=fn, ts=ts + [buf], ints=ints, name=name):
+                    err = fn(*[None if t is None else t.data_ptr() for t in ts], *ints,
+                             torch.cuda.current_stream().cuda_stream)
+                    check(err == 0, f"{name}: CUDA error {err}")
+                split = kernel_split(call)
+                cut[f"{form}_{name}"] = {"graph_ms": graph_ms(call, reps=20),
+                                         "device_ms": sum(split.values())}
+                print(f"{form} {name}: {json.dumps(cut[form + '_' + name])}", flush=True)
+    return cut
+
+
+def k11k16_cuts(x: dict) -> dict:
+    """Each variant of ``K16C_VARIANTS`` / ``K11P_VARIANTS`` on the 1080p
+    forms (and K16c at S = 4 x nx = 4): device ms and graph replays."""
     from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda, cabac_binarize
     from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
 
@@ -7576,35 +7971,10 @@ def k11k16_cuts(x: dict) -> dict:
         nr, nc = x[form][1].shape[:2]
         slots, cap = cabac_binarize.layout("p")
         calls["k11" + form] = ("cabac", "binarize_p_launch", list(x[form]),
-                               ("binarize_p_buffer_words",
+                               ("binarize_buffer_words",
                                 [cabac_binarize.buffer_words("p", nr, nc), nr, nc]),
                                [nr, nc, slots, cap])
-    cut = {}
-    for src, variants in srcs.items():
-        libs = build_variants(src, variants)
-        for form, (lib_src, entry, ts, (size_fn, size_args), ints) in calls.items():
-            if lib_src != src:
-                continue
-            for name in variants:
-                sz = libs[name][size_fn]
-                sz.restype = ctypes.c_longlong
-                sz.argtypes = ([ctypes.c_longlong] if src == "cabac" else [ctypes.c_int]) \
-                    + [ctypes.c_int] * (len(size_args) - 1)
-                buf = torch.empty(int(sz(*size_args)), dtype=torch.int32, device=ts[0].device)
-                fn = libs[name][entry]
-                fn.restype = ctypes.c_int
-                fn.argtypes = ([ctypes.c_void_p] * (len(ts) + 1) + [ctypes.c_int] * len(ints)
-                               + [ctypes.c_void_p])
-
-                def call(fn=fn, ts=ts + [buf], ints=ints, name=name):
-                    err = fn(*[t.data_ptr() for t in ts], *ints,
-                             torch.cuda.current_stream().cuda_stream)
-                    check(err == 0, f"{name}: CUDA error {err}")
-                split = kernel_split(call)
-                cut[f"{form}_{name}"] = {"graph_ms": graph_ms(call, reps=20),
-                                         "device_ms": sum(split.values())}
-                print(f"{form} {name}: {json.dumps(cut[form + '_' + name])}", flush=True)
-    return cut
+    return variant_cut_times(srcs, calls)
 
 
 def k11k16_split() -> int:
@@ -7636,6 +8006,110 @@ def k11k16_split() -> int:
     res["cut_ms"] = k11k16_cuts(x)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "k11k16_split.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
+# K10's and K11i's stages cut out of copies of levelpack.cu and cabac.cu
+# (timing only).  The waits sit in transport.cuh (the look-back and the
+# earlier rows' words) and lookback.cuh (the DONE waits).
+K10K11I_MARKS = {"levelpack": "place_segment", "cabac": "i_seg_kernel"}
+_NO_SEG_WAIT = [("transport.cuh", "excl = look_back(st, s);", "excl = s * 1000LL;"),
+                ("transport.cuh", "w += wait_for(S.row_pub + q, INCL) >> 2;", "w += q;")]
+_NO_ST_FINISH = ("  if (tid == 0) st.finish(", "  if (false) st.finish(")
+_NO_WINDOWS = ("for (int lo = 0; lo < st.nwords; lo += WIN) {", "for (int lo = 0; lo < 0; lo += WIN) {")
+K10_VARIANTS = {
+    "base": [],
+    # staging, counts and look-back; no codes placed, no words stored
+    "no_write": [_NO_WINDOWS, _NO_ST_FINISH],
+    # staging and look-back only
+    "stage_only": [("  if (warp < n) {\n    int bits = 0;", "  if (false) {\n    int bits = 0;"),
+                   _NO_WINDOWS, _NO_ST_FINISH],
+    # no waits: made-up segment and row offsets, no DONE waits
+    "no_wait": _NO_SEG_WAIT + _NO_DONE_WAIT,
+    # the zeroed windows stored, no codes ORed into them
+    "no_place": [("    if (warp < n) {\n      const int pos = st.lead",
+                  "    if (false) {\n      const int pos = st.lead")],
+    # a window that holds any segment, no occupancy bound (two waves)
+    "win_full": [("constexpr int WIN = 1280;", "constexpr int WIN = SEGL * MAX_SLOTS / 2 + 1;"),
+                 ("constexpr int MIN_CTAS = 8;", "constexpr int MIN_CTAS = 1;")],
+}
+K11I_VARIANTS = {
+    "base": [],
+    "no_write": [_NO_WINDOWS, _NO_ST_FINISH],
+    "stage_only": [("for (int k = warp; k < ns; k += SEG) {\n    const int* ldc",
+                    "for (int k = warp; k < 0; k += SEG) {\n    const int* ldc"),
+                   ("  if (warp < n) {\n    const cabac_rec::ICtx x",
+                    "  if (false) {\n    const cabac_rec::ICtx x"), _NO_WINDOWS, _NO_ST_FINISH],
+    "no_wait": _NO_SEG_WAIT + _NO_DONE_WAIT,
+    # the window loop without the pieces' second walk; the second walk
+    # only counting (no positions, no shared stores)
+    "no_place": [("    if (warp < n && pbits > 0) {", "    if (false) {")],
+    "walk_count": [("        RunSink rs(sm.win, p, nwin);\n        cabac_rec::i_piece(x, lane, rs);\n"
+                    "        rs.flush();",
+                    "        CountSink rs;\n        cabac_rec::i_piece(x, lane, rs);\n"
+                    "        if (rs.n == 123457) sm.win[0] = 1u;")],
+}
+
+
+def k10k11i_cuts(x: dict) -> dict:
+    """Each variant of ``K10_VARIANTS`` / ``K11I_VARIANTS`` on the 1080p
+    desktop and noise forms: device ms and graph replays."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda, cabac_binarize, level_pack
+
+    if not all(mark in open(os.path.join(_cuda.CSRC, f"{src}.cu")).read()
+               for src, mark in K10K11I_MARKS.items()):
+        return {}
+    calls = {}
+    for form in ("i", "i_noise"):
+        nr, nc = x[form][0].shape[:2]
+        slots, cap = cabac_binarize.layout("intra")
+        calls["k11" + form] = ("cabac", "binarize_intra_launch", list(x[form]),
+                               ("binarize_buffer_words",
+                                [cabac_binarize.buffer_words("intra", nr, nc), nr, nc]),
+                               [nr, nc, slots, cap])
+    for form, keys in (("l_i", level_pack.INTRA_KEYS), ("l_p", level_pack.P_KEYS)):
+        ts = [x[form][k] for k, _, _ in keys]
+        nr, nc = ts[0].shape[:2]
+        n = [k[1] for k in keys]
+        calls["k10" + form[2:]] = ("levelpack", "level_pack_launch",
+                                   ts + [None] * (7 - len(ts)),
+                                   ("level_pack_buffer_words",
+                                    [level_pack.buffer_words(nr, nc, sum(n)), nr, nc]),
+                                   [nr, nc] + n + [0] * (7 - len(n)))
+    return variant_cut_times({"levelpack": K10_VARIANTS, "cabac": K11I_VARIANTS}, calls)
+
+
+def k10k11i_split() -> int:
+    """``python3 chip_smoke.py k10k11i-split``: the levelpack and cabac
+    sources' ``-Xptxas -v`` lines; K11i's and K10's forms
+    (``k10k11i_forms``) by device time (``kernel_split``: each memset and
+    kernel) beside each wrapper's CUDA-event and replayed ms; where the
+    sources hold the segment kernels, their launches with a stage cut out
+    of a copy (``K10_VARIANTS``, ``K11I_VARIANTS``: device time and graph
+    replays).  Writes ``chiprun_out/k10k11i_split.json``."""
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, HERE)
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+
+    smi = smi_line()
+    print(smi, flush=True)
+    logs = _cuda.build(verbose=True)
+    res = {"card": smi, "ptxas": {}}
+    for src in ("levelpack", "cabac"):
+        res["ptxas"][src] = ptxas_lines(logs.get(src, ""))
+        for ln in res["ptxas"][src]:
+            print(f"ptxas {src}: {ln}", flush=True)
+    x = k10k11i_inputs(torch.device("cuda"))
+    res["i4_share"] = x["i4_share"]
+    for name, r in k10k11i_form_times(x).items():
+        res[name] = r
+        print(f"{name}: {json.dumps(r)}", flush=True)
+    res["cut_ms"] = k10k11i_cuts(x)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k10k11i_split.json"), "w") as f:
         json.dump(res, f, indent=1)
     return 0
 
@@ -7698,6 +8172,10 @@ def main(argv=None):
             return k11k16_split()
         if argv[:1] == ["k11k16"]:
             return phase_alone("k11k16", k11k16_phase, ("jpeg", "cabac"))
+        if argv[:1] == ["k10k11i-split"]:
+            return k10k11i_split()
+        if argv[:1] == ["k10k11i"]:
+            return phase_alone("k10k11i", k10k11i_phase, ("levelpack", "cabac"))
         if argv[:1] == ["k5k4"]:
             return phase_alone("k5k4", k5k4_phase, ("inter", "content"))
         return run()

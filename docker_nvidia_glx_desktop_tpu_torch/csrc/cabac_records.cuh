@@ -6,13 +6,16 @@
 // Mirrors docker_nvidia_glx_desktop_tpu/ops/cabac_binarize.py record by
 // record (_residual_slots :154, _mvd_slots :338, binarize_p :415,
 // binarize_intra :490): each slot of the reference is the concatenation
-// of the records emitted here in the same order.  Records (MSB first):
+// of the records emitted here in the same order.  An MB's records come in
+// pieces (p_piece, i_piece), one a lane of the MB's warp; the pieces in
+// order are the MB's stream.  Records (MSB first):
 //   DEC  0   + ctx(9) + bin(1)        RUN  10  + ctx(9) + cnt(4)
 //   BYP  110 + cnt(4) + bits(cnt)     TRM  111 + bin(1)
 // Every context depends on the MB itself and on its left MB's inputs
 // (slice per MB row: the top MB is never available), so the walk reads
-// the MB's levels and summaries of the left MB (and, for the left MB's
-// mvd, the mv of the MB left of it).
+// the MB's levels and summaries of the left MB (its nonzero flags, and
+// the I4 modes of an I MB's left MB; for a P MB's left mvd, the mv of the
+// MB left of it).
 //
 // Host and device code: the walk has no CUDA dependency, so it can be
 // compiled for the host too.
@@ -26,6 +29,14 @@ namespace cabac_rec {
 CR_HD int imin(int a, int b) { return a < b ? a : b; }
 CR_HD int imax(int a, int b) { return a > b ? a : b; }
 CR_HD int iabs(int a) { return a < 0 ? -a : a; }
+// floor(log2(x)), x >= 1
+CR_HD int ilog2(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return 31 - __clz(x);
+#else
+  return 31 - __builtin_clz(x);
+#endif
+}
 
 // luma4x4BlkIdx -> (x, y) in 4x4-block units, and back
 CR_HD int blk_x(int b) { return ((b >> 2) & 1) * 2 + (b & 1); }
@@ -35,34 +46,6 @@ CR_HD int blk_of(int x, int y) { return ((y >> 1) * 2 + (x >> 1)) * 4 + (y & 1) 
 CR_HD int cbf_off(int cat) { return cat * 4; }
 CR_HD int sig_off(int cat) { return cat == 0 ? 0 : cat == 1 ? 15 : cat == 2 ? 29 : cat == 3 ? 44 : 47; }
 CR_HD int abs_off(int cat) { return cat == 0 ? 0 : cat == 1 ? 10 : cat == 2 ? 20 : cat == 3 ? 30 : 39; }
-
-// Bits of a record stream, MSB-first into words; counts every bit but
-// writes only the first ``cap_words`` words.
-struct WordSink {
-  uint32_t* w;
-  int cap_words;
-  long long n;
-  unsigned long long acc;
-  int have, widx;
-  CR_HD WordSink(uint32_t* words, int cap) : w(words), cap_words(cap), n(0), acc(0), have(0), widx(0) {}
-  CR_HD void put(uint32_t v, int len) {
-    if (len <= 0) return;
-    if (len < 32) v &= (1u << len) - 1u;
-    acc = (acc << len) | v;
-    have += len;
-    n += len;
-    while (have >= 32) {
-      have -= 32;
-      const uint32_t word = (uint32_t)(acc >> have);
-      if (widx < cap_words) w[widx] = word;
-      ++widx;
-      acc &= (1ull << have) - 1ull;
-    }
-  }
-  CR_HD void flush() {
-    if (have > 0 && widx < cap_words) w[widx] = (uint32_t)(acc << (32 - have));
-  }
-};
 
 template <class Sink>
 struct Rec {
@@ -109,9 +92,7 @@ CR_HD bool residual(R& rec, const int* c, int n, int cat, int cbf_inc, bool emit
       if (prefix >= 2) rec.run(cn, imin(imax(prefix - 1, 1), 14));
       if (prefix >= 1 && prefix < 14) rec.dec(cn, 0);
       const int v = imax(lvl - 14, 0);
-      int u = 0;
-      for (int k = 1; k <= u_lim + 1; ++k) u += (v + 1 >= (1 << k)) ? 1 : 0;
-      u = imin(u, u_lim);
+      const int u = imin(ilog2(static_cast<uint32_t>(v) + 1u), u_lim);
       const int r = v - ((1 << u) - 1);
       const uint32_t sign = v0 < 0 ? 1u : 0u;
       const uint32_t suf = ((uint32_t)((1 << u) - 1) << (u + 1)) | (uint32_t)r;
@@ -144,8 +125,7 @@ CR_HD bool mvd(R& rec, int comp, int s_left, int base) {
       rec.dec(k == 0 ? base + inc : base + 2 + imin(k, 4), k < prefix);
   }
   const int v3 = imax(aa - 9, 0);
-  int u3 = 0;
-  for (int j = 1; j <= 6; ++j) u3 += (v3 >= 8 * ((1 << j) - 1)) ? 1 : 0;
+  const int u3 = imin(ilog2(static_cast<uint32_t>(v3 >> 3) + 1u), 6);  // v3 >= 8 (2^j - 1)
   const int r3 = v3 - 8 * ((1 << u3) - 1);
   const uint32_t suf3 = ((uint32_t)((1 << u3) - 1) << (u3 + 4)) | (uint32_t)r3;
   const uint32_t sign = comp < 0 ? 1u : 0u;
@@ -167,55 +147,24 @@ CR_HD bool any(const int* p, int n) {
   return false;
 }
 
-CR_HD Chroma chroma_of(const int* cb_dc, const int* cb_ac, const int* cr_dc, const int* cr_ac,
-                       int mb) {
-  Chroma s;
-  s.dcnz[0] = any(cb_dc + mb * 4, 4);
-  s.dcnz[1] = any(cr_dc + mb * 4, 4);
-  s.acnz = 0;
-  for (int b = 0; b < 4; ++b) {
-    s.acnz |= any(cb_ac + (mb * 4 + b) * 15, 15) ? 1u << b : 0u;
-    s.acnz |= any(cr_ac + (mb * 4 + b) * 15, 15) ? 1u << (4 + b) : 0u;
-  }
-  s.cc = s.acnz ? 2 : (s.dcnz[0] | s.dcnz[1]) ? 1 : 0;
-  return s;
-}
-
 // The coded_block_flag context increments of the chroma DC block (cat 3)
-// of plane p and of the AC block (cat 4) b of plane p; ``left`` null =
-// column 0.
-CR_HD int chroma_dc_inc(const Chroma* left, bool left_skip, int p, bool intra) {
+// of plane p and of the AC block (cat 4) b of plane p; ``has_left`` false
+// = column 0 (``left`` then unread).
+CR_HD int chroma_dc_inc(const Chroma& left, bool has_left, bool left_skip, int p, bool intra) {
   const int una = intra ? 1 : 0;
-  const int a = !left ? una : (left_skip ? 0 : (p ? left->dcnz[1] : left->dcnz[0]));
+  const int a = !has_left ? una : (left_skip ? 0 : (p ? left.dcnz[1] : left.dcnz[0]));
   return a + 2 * una;
 }
 
-CR_HD int chroma_ac_inc(const Chroma& cur, const Chroma* left, bool left_skip, int p, int b,
-                        bool intra) {
+CR_HD int chroma_ac_inc(const Chroma& cur, const Chroma& left, bool has_left, bool left_skip,
+                        int p, int b, bool intra) {
   const int una = intra ? 1 : 0;
   const int by = b >> 1, bx = b & 1;
   const int av = bx ? (int)((cur.acnz >> (p * 4 + by * 2)) & 1u)
-                    : (!left ? una
-                             : (left_skip ? 0 : (int)((left->acnz >> (p * 4 + by * 2 + 1)) & 1u)));
+                    : (!has_left ? una
+                                 : (left_skip ? 0 : (int)((left.acnz >> (p * 4 + by * 2 + 1)) & 1u)));
   const int bv = by ? (int)((cur.acnz >> (p * 4 + bx)) & 1u) : una;
   return av + 2 * bv;
-}
-
-// Chroma DC (cat 3) then AC (cat 4) residuals; ``left`` null = column 0.
-template <class R>
-CR_HD bool chroma_residuals(R& rec, const Chroma& cur, const Chroma* left, bool left_skip,
-                            const int* cb_dc, const int* cb_ac, const int* cr_dc,
-                            const int* cr_ac, int mb, bool intra) {
-  bool ovf = false;
-  const int* dc[2] = {cb_dc + mb * 4, cr_dc + mb * 4};
-  const int* ac[2] = {cb_ac + mb * 60, cr_ac + mb * 60};
-  for (int p = 0; p < 2; ++p)
-    ovf |= residual(rec, dc[p], 4, 3, chroma_dc_inc(left, left_skip, p, intra), cur.cc > 0);
-  for (int p = 0; p < 2; ++p)
-    for (int b = 0; b < 4; ++b)
-      ovf |= residual(rec, ac[p] + b * 15, 15, 4,
-                      chroma_ac_inc(cur, left, left_skip, p, b, intra), cur.cc == 2);
-  return ovf;
 }
 
 // ---------------------------------------------------------------------------
@@ -348,7 +297,6 @@ CR_HD bool p_piece(const PCtx& x, int k, Sink& sink) {
   const int* c;
   int n, cat, inc;
   bool emit;
-  const Chroma* left = x.col0 ? nullptr : &x.L.ch;
   if (k < 20) {
     const int blk = k - 4, bx = blk_x(blk), by = blk_y(blk);
     const int av = bx ? (int)((cur.lnz >> blk_of(bx - 1, by)) & 1u)
@@ -363,14 +311,14 @@ CR_HD bool p_piece(const PCtx& x, int k, Sink& sink) {
     c = k == 20 ? x.cb_dc : x.cr_dc;
     n = 4;
     cat = 3;
-    inc = chroma_dc_inc(left, x.left_skip, k - 20, false);
+    inc = chroma_dc_inc(x.L.ch, !x.col0, x.left_skip, k - 20, false);
     emit = cur.ch.cc > 0;
   } else {
     const int p = (k - 22) >> 2, b = (k - 22) & 3;
     c = (p ? x.cr_ac : x.cb_ac) + b * 15;
     n = 15;
     cat = 4;
-    inc = chroma_ac_inc(cur.ch, left, x.left_skip, p, b, false);
+    inc = chroma_ac_inc(cur.ch, x.L.ch, !x.col0, x.left_skip, p, b, false);
     emit = cur.ch.cc == 2;
   }
   return residual(rec, c, n, cat, inc, emit);
@@ -379,13 +327,6 @@ CR_HD bool p_piece(const PCtx& x, int k, Sink& sink) {
 // ---------------------------------------------------------------------------
 // I pictures
 // ---------------------------------------------------------------------------
-
-struct IIn {
-  const int *luma_dc, *luma_ac, *cb_dc, *cb_ac, *cr_dc, *cr_ac, *pred_mode;
-  const uint8_t* mb_i4;
-  const int *i4_modes, *luma_i4;
-  int nc;
-};
 
 struct ISum {
   bool i16, cl16;
@@ -396,58 +337,106 @@ struct ISum {
   Chroma ch;
 };
 
-CR_HD ISum i_summary(const IIn& in, int mb) {
+// What lane l of an I MB's warp tests for the MB's two nonzero words, so
+// that a ballot gives each word: word 0, lanes 0-15 the luma AC blocks
+// (I_16x16), 16 and 17 the Cb and Cr DC blocks, 18-21 the Cb AC blocks,
+// 22-25 the Cr AC blocks, 26 the luma DC block; word 1, lanes 0-15 the
+// I_NxN blocks.  The pointers are the MB's own levels.
+CR_HD bool i_lane_nz(int word, int lane, const int* luma_dc, const int* luma_ac,
+                     const int* luma_i4, const int* cb_dc, const int* cb_ac, const int* cr_dc,
+                     const int* cr_ac) {
+  if (word) return lane < 16 && any(luma_i4 + lane * 16, 16);
+  if (lane < 16) return any(luma_ac + lane * 15, 15);
+  if (lane < 18) return any(lane == 16 ? cb_dc : cr_dc, 4);
+  if (lane < 26) return any((lane < 22 ? cb_ac : cr_ac) + ((lane - 18) & 3) * 15, 15);
+  return lane == 26 && any(luma_dc, 16);
+}
+
+CR_HD ISum i_sum_from(uint32_t a, uint32_t b, bool i4) {
   ISum s;
-  s.i16 = !in.mb_i4[mb];
-  s.dcnz = any(in.luma_dc + mb * 16, 16);
-  s.i4nz = 0;
-  uint32_t acnz = 0;
-  for (int b = 0; b < 16; ++b) {
-    s.i4nz |= any(in.luma_i4 + (mb * 16 + b) * 16, 16) ? 1u << b : 0u;
-    acnz |= any(in.luma_ac + (mb * 16 + b) * 15, 15) ? 1u << b : 0u;
-  }
+  s.i16 = !i4;
+  s.dcnz = static_cast<int>((a >> 26) & 1u);
+  s.i4nz = b & 0xFFFFu;
+  const uint32_t acnz = a & 0xFFFFu;
   s.cl16 = acnz != 0;
   s.cbf = s.i16 ? acnz : s.i4nz;
   s.cbp4 = 0;
   for (int g = 0; g < 4; ++g) s.cbp4 |= ((s.i4nz >> (4 * g)) & 0xFu) ? 1 << g : 0;
-  s.ch = chroma_of(in.cb_dc, in.cb_ac, in.cr_dc, in.cr_ac, mb);
+  s.ch.dcnz[0] = static_cast<int>((a >> 16) & 1u);
+  s.ch.dcnz[1] = static_cast<int>((a >> 17) & 1u);
+  s.ch.acnz = (a >> 18) & 0xFFu;
+  s.ch.cc = s.ch.acnz ? 2 : (s.ch.dcnz[0] | s.ch.dcnz[1]) ? 1 : 0;
   return s;
 }
 
-// Intra4x4 mode of raster block (x, y) as the predictor sees it: 2 (DC)
-// for an I_16x16 MB.
-CR_HD int mode_at(const IIn& in, int mb, bool i16, int x, int y) {
-  return i16 ? 2 : in.i4_modes[mb * 16 + blk_of(x, y)];
+// What the pieces of one I MB read: its summary, its left MB's (col0:
+// none), its I_16x16 prediction mode, its I4 modes and its left MB's (null
+// in column 0), and its own levels.
+struct ICtx {
+  ISum cur, L;
+  bool col0, last_col;
+  int pm;
+  const int *modes, *lmodes;
+  const int *luma_dc, *luma_ac, *luma_i4, *cb_dc, *cb_ac, *cr_dc, *cr_ac;
+};
+
+CR_HD ICtx i_ctx(const ISum& cur, const ISum* left, bool last_col, int pm, const int* modes,
+                 const int* lmodes, const int* luma_dc, const int* luma_ac, const int* luma_i4,
+                 const int* cb_dc, const int* cb_ac, const int* cr_dc, const int* cr_ac) {
+  ICtx x;
+  x.cur = cur;
+  x.L = left ? *left : ISum{};
+  x.col0 = !left;
+  x.last_col = last_col;
+  x.pm = pm;
+  x.modes = modes;
+  x.lmodes = left ? lmodes : nullptr;
+  x.luma_dc = luma_dc;
+  x.luma_ac = luma_ac;
+  x.luma_i4 = luma_i4;
+  x.cb_dc = cb_dc;
+  x.cb_ac = cb_ac;
+  x.cr_dc = cr_dc;
+  x.cr_ac = cr_ac;
+  return x;
 }
 
-// Records of I MB (r, c); returns the value overflow.
+// An I MB's records in I_PIECES pieces, in stream order: 0 mb_type (and,
+// for I_16x16, the bins it carries); 1 the 16 I4 prediction modes (I_NxN);
+// 2 intra_chroma_pred_mode; 3 coded_block_pattern (I_NxN) and
+// mb_qp_delta; 4 the luma DC block (I_16x16); 5-20 the 16 luma blocks
+// (blkIdx order; AC of I_16x16 or I_NxN 4x4); 21, 22 the Cb and Cr DC
+// blocks; 23-30 the Cb then Cr AC blocks; 31 end_of_slice.  Returns the
+// value overflow.
+constexpr int I_PIECES = 32;
+
 template <class Sink>
-CR_HD bool intra_mb(const IIn& in, int r, int c, Sink& sink) {
+CR_HD bool i_piece(const ICtx& x, int k, Sink& sink) {
   Rec<Sink> rec{sink};
-  const int mb = r * in.nc + c;
-  const ISum cur = i_summary(in, mb);
-  ISum L{};
-  if (c > 0) L = i_summary(in, mb - 1);
-  const bool col0 = c == 0;
-  bool ovf = false;
-  rec.dec(3 + ((!col0 && L.i16) ? 1 : 0), cur.i16);
-  if (cur.i16) {
-    const int pm = in.pred_mode[mb];
-    rec.trm(0);
-    rec.dec(6, cur.cl16);
-    rec.dec(7, cur.ch.cc > 0);
-    if (cur.ch.cc > 0) rec.dec(8, cur.ch.cc == 2);
-    rec.dec(9, (pm >> 1) & 1);
-    rec.dec(10, pm & 1);
-  } else {
+  const ISum& cur = x.cur;
+  if (k == 0) {
+    rec.dec(3 + ((!x.col0 && x.L.i16) ? 1 : 0), cur.i16);
+    if (cur.i16) {
+      rec.trm(0);
+      rec.dec(6, cur.cl16);
+      rec.dec(7, cur.ch.cc > 0);
+      if (cur.ch.cc > 0) rec.dec(8, cur.ch.cc == 2);
+      rec.dec(9, (x.pm >> 1) & 1);
+      rec.dec(10, x.pm & 1);
+    }
+    return false;
+  }
+  if (k == 1) {
+    if (cur.i16) return false;
     for (int blk = 0; blk < 16; ++blk) {
       const int bx = blk_x(blk), by = blk_y(blk);
-      int pred = 2;
-      if (by > 0 && (bx > 0 || !col0)) {
-        const int ma = bx ? mode_at(in, mb, false, bx - 1, by) : mode_at(in, mb - 1, L.i16, 3, by);
-        pred = imin(ma, mode_at(in, mb, false, bx, by - 1));
+      int pred = 2;                        // the predictor's modes: 2 (DC) for I_16x16
+      if (by > 0 && (bx > 0 || !x.col0)) {
+        const int ma = bx ? x.modes[blk_of(bx - 1, by)]
+                          : (x.L.i16 ? 2 : x.lmodes[blk_of(3, by)]);
+        pred = imin(ma, x.modes[blk_of(bx, by - 1)]);
       }
-      const int mode = in.i4_modes[mb * 16 + blk];
+      const int mode = x.modes[blk];
       const bool eq = mode == pred;
       const int rem = mode > pred ? mode - 1 : mode;
       rec.dec(68, eq);
@@ -457,41 +446,76 @@ CR_HD bool intra_mb(const IIn& in, int r, int c, Sink& sink) {
         rec.dec(69, (rem >> 2) & 1);
       }
     }
+    return false;
   }
-  rec.dec(64, 0);
-  if (!cur.i16) {
-    const int lcl = col0 ? 0 : (L.i16 ? (L.cl16 ? 0xF : 0) : L.cbp4);
-    const int lcc = col0 ? 0 : L.ch.cc;
-    for (int b = 0; b < 4; ++b) {
-      const int grp = (cur.cbp4 >> b) & 1;
-      const int a_n = (b & 1) ? 1 - ((cur.cbp4 >> (b - 1)) & 1)
-                              : (col0 ? 0 : 1 - ((lcl >> (b + 1)) & 1));
-      const int b_n = (b & 2) ? 1 - ((cur.cbp4 >> (b - 2)) & 1) : 0;
-      rec.dec(73 + a_n + 2 * b_n, grp);
+  if (k == 2) {
+    rec.dec(64, 0);
+    return false;
+  }
+  if (k == 3) {
+    if (!cur.i16) {
+      const int lcl = x.col0 ? 0 : (x.L.i16 ? (x.L.cl16 ? 0xF : 0) : x.L.cbp4);
+      const int lcc = x.col0 ? 0 : x.L.ch.cc;
+      for (int b = 0; b < 4; ++b) {
+        const int grp = (cur.cbp4 >> b) & 1;
+        const int a_n = (b & 1) ? 1 - ((cur.cbp4 >> (b - 1)) & 1)
+                                : (x.col0 ? 0 : 1 - ((lcl >> (b + 1)) & 1));
+        const int b_n = (b & 2) ? 1 - ((cur.cbp4 >> (b - 2)) & 1) : 0;
+        rec.dec(73 + a_n + 2 * b_n, grp);
+      }
+      rec.dec(77 + (lcc > 0 ? 1 : 0), cur.ch.cc > 0);
+      if (cur.ch.cc > 0) rec.dec(81 + (lcc == 2 ? 1 : 0), cur.ch.cc == 2);
     }
-    rec.dec(77 + (lcc > 0 ? 1 : 0), cur.ch.cc > 0);
-    if (cur.ch.cc > 0) rec.dec(81 + (lcc == 2 ? 1 : 0), cur.ch.cc == 2);
+    if (cur.i16 || cur.cbp4 > 0 || cur.ch.cc > 0) rec.dec(60, 0);
+    return false;
   }
-  if (cur.i16 || cur.cbp4 > 0 || cur.ch.cc > 0) rec.dec(60, 0);
-  {
-    const int a = col0 ? 1 : (L.i16 ? L.dcnz : 0);
-    ovf |= residual(rec, in.luma_dc + mb * 16, 16, 0, a + 2, cur.i16);
+  if (k == I_PIECES - 1) {
+    rec.trm(x.last_col);
+    return false;
   }
-  for (int blk = 0; blk < 16; ++blk) {
-    const int bx = blk_x(blk), by = blk_y(blk);
+  // a residual block: its coefficients, category and context, then one
+  // call site of residual (the walk's code once, whatever the block)
+  const int* c;
+  int n, cat, inc;
+  bool emit;
+  if (k == 4) {
+    c = x.luma_dc;
+    n = 16;
+    cat = 0;
+    inc = (x.col0 ? 1 : (x.L.i16 ? x.L.dcnz : 0)) + 2;
+    emit = cur.i16;
+  } else if (k < 21) {
+    const int blk = k - 5, bx = blk_x(blk), by = blk_y(blk);
     const int av = bx ? (int)((cur.cbf >> blk_of(bx - 1, by)) & 1u)
-                      : (col0 ? 1 : (int)((L.cbf >> blk_of(3, by)) & 1u));
+                      : (x.col0 ? 1 : (int)((x.L.cbf >> blk_of(3, by)) & 1u));
     const int bv = by ? (int)((cur.cbf >> blk_of(bx, by - 1)) & 1u) : 1;
-    if (cur.i16)
-      ovf |= residual(rec, in.luma_ac + (mb * 16 + blk) * 15, 15, 1, av + 2 * bv, cur.cl16);
-    else
-      ovf |= residual(rec, in.luma_i4 + (mb * 16 + blk) * 16, 16, 2, av + 2 * bv,
-                      (cur.cbp4 >> (blk >> 2)) & 1);
+    inc = av + 2 * bv;
+    if (cur.i16) {
+      c = x.luma_ac + blk * 15;
+      n = 15;
+      cat = 1;
+      emit = cur.cl16;
+    } else {
+      c = x.luma_i4 + blk * 16;
+      n = 16;
+      cat = 2;
+      emit = (cur.cbp4 >> (blk >> 2)) & 1;
+    }
+  } else if (k < 23) {
+    c = k == 21 ? x.cb_dc : x.cr_dc;
+    n = 4;
+    cat = 3;
+    inc = chroma_dc_inc(x.L.ch, !x.col0, false, k - 21, true);
+    emit = cur.ch.cc > 0;
+  } else {
+    const int p = (k - 23) >> 2, b = (k - 23) & 3;
+    c = (p ? x.cr_ac : x.cb_ac) + b * 15;
+    n = 15;
+    cat = 4;
+    inc = chroma_ac_inc(cur.ch, x.L.ch, !x.col0, false, p, b, true);
+    emit = cur.ch.cc == 2;
   }
-  ovf |= chroma_residuals(rec, cur.ch, col0 ? nullptr : &L.ch, false, in.cb_dc, in.cb_ac,
-                          in.cr_dc, in.cr_ac, mb, true);
-  rec.trm(c == in.nc - 1);
-  return ovf;
+  return residual(rec, c, n, cat, inc, emit);
 }
 
 }  // namespace cabac_rec

@@ -6,14 +6,14 @@ Replaces the reference's ``ops/cabac_binarize.py`` ``binarize_intra``
 and ``binarize_p``.  Under slice-per-MB-row every context depends only
 on the MB itself and on its left MB's *inputs* (levels, mv, modes), so
 each MB's records are a function of two MBs' levels.  In
-``csrc/cabac.cu`` K11i gives each MB one thread that walks the syntax
-of spec 9.3.2/9.3.3 serially and writes the MB's records as a bit
-string, then packs as K10 does (a scan along each row and over the
-rows, each MB's bits copied into place); K11p is one launch, a CTA a
-segment of a row's MBs, a warp an MB and a lane each of its pieces
-(header, mvd components, CBP, each residual block), placed by a
-look-back over the row's earlier segments.  K11p leaves the words past
-the payload as they were (nothing consumes them).
+``csrc/cabac.cu`` both kinds are one launch after a memset of a small
+look-back state: a CTA a segment of a row's MBs, a warp an MB and a lane
+each of its pieces (K11i: mb_type, the I4 modes, the chroma mode, CBP,
+each residual block; K11p: header, mvd components, CBP, each residual
+block), placed by a look-back over the row's earlier segments.  The
+kernels leave the words past the payload as they were: every consumer
+(``split_rows``, ``stitch_rows``, ``models/h264.py``'s prefix pull and
+the native engine) reads the header and the payload only.
 
 Record wire format (MSB-first bits):
 
@@ -563,27 +563,26 @@ def _check(named: dict, nr: int, nc: int, dev) -> None:
                              f"{t.device}")
 
 
-def _launch(kind: str, fn_name: str, tensors, nr: int, nc: int, dev):
-    s, cap = layout(kind)
-    out = torch.empty(buffer_words(kind, nr, nc), dtype=torch.int32,
-                      device=dev)
-    scratch = torch.empty(nr * nc * cap + 2 * nr * nc + nr + 1,
-                          dtype=torch.int32, device=dev)
-    _cuda.launch("cabac", fn_name, list(tensors) + [out, scratch],
-                 [nr, nc, s, cap], dev)
-    return out
-
-
 @functools.lru_cache(maxsize=None)
-def _p_buffer_words(nr: int, nc: int) -> int:
-    """int32 words of K11p's one buffer, as ``csrc/cabac.cu``'s
-    ``binarize_p_buffer_words`` lays it out: the transport
+def _buffer_words(kind: str, nr: int, nc: int) -> int:
+    """int32 words of K11i's or K11p's one buffer, as ``csrc/cabac.cu``'s
+    ``binarize_buffer_words`` lays it out: the transport
     (:func:`buffer_words`), then the look-back state (the launch zeroes
     only the state)."""
-    fn = _cuda.library("cabac").binarize_p_buffer_words
+    fn = _cuda.library("cabac").binarize_buffer_words
     fn.restype = ctypes.c_longlong
     fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-    return int(fn(buffer_words("p", nr, nc), nr, nc))
+    return int(fn(buffer_words(kind, nr, nc), nr, nc))
+
+
+def _launch(kind: str, tensors, nr: int, nc: int, dev) -> torch.Tensor:
+    """K11i or K11p on one buffer: the transport's view of it."""
+    slots, cap = layout(kind)
+    buf = torch.empty(_buffer_words(kind, nr, nc), dtype=torch.int32,
+                      device=dev)
+    _cuda.launch("cabac", f"binarize_{kind}_launch", list(tensors) + [buf],
+                 [nr, nc, slots, cap], dev)
+    return buf[:buffer_words(kind, nr, nc)]
 
 
 def binarize_p(mv, luma, cb_dc, cb_ac, cr_dc, cr_ac):
@@ -602,13 +601,9 @@ def binarize_p(mv, luma, cb_dc, cb_ac, cr_dc, cr_ac):
            nr, nc, dev)
     if dev.type == "cpu":
         return binarize_p_plain(mv, luma, cb_dc, cb_ac, cr_dc, cr_ac)
-    slots, cap = layout("p")
-    buf = torch.empty(_p_buffer_words(nr, nc), dtype=torch.int32, device=dev)
-    _cuda.launch("cabac", "binarize_p_launch",
-                 [mv, luma, cb_dc, cb_ac, cr_dc, cr_ac, buf],
-                 [nr, nc, slots, cap], dev)
+    out = _launch("p", (mv, luma, cb_dc, cb_ac, cr_dc, cr_ac), nr, nc, dev)
     binarize_p.launches += 1
-    return buf[:buffer_words("p", nr, nc)]
+    return out
 
 
 binarize_p.launches = 0
@@ -618,8 +613,9 @@ def binarize_intra(luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac,
                    pred_mode, mb_i4, i4_modes, luma_i4):
     """Record stream of an I picture (I_16x16 + I_NxN): the intra core's
     output tensors (int32; ``mb_i4`` bool).  Returns the version-2
-    transport as a 1-D int32 tensor of uint32 words.  CUDA tensors launch
-    the kernel; CPU tensors run the plain version."""
+    transport as a 1-D int32 tensor of uint32 words (:func:`buffer_words`
+    long; from the kernel, the words past the payload are unspecified).
+    CUDA tensors launch the kernel; CPU tensors run the plain version."""
     nr, nc = luma_dc.shape[:2]
     dev = luma_dc.device
     i32 = torch.int32
@@ -635,9 +631,8 @@ def binarize_intra(luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac,
         return binarize_intra_plain(luma_dc, luma_ac, cb_dc, cb_ac, cr_dc,
                                     cr_ac, pred_mode, mb_i4, i4_modes,
                                     luma_i4)
-    out = _launch("intra", "binarize_intra_launch",
-                  (luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac, pred_mode,
-                   mb_i4, i4_modes, luma_i4), nr, nc, dev)
+    out = _launch("intra", (luma_dc, luma_ac, cb_dc, cb_ac, cr_dc, cr_ac,
+                            pred_mode, mb_i4, i4_modes, luma_i4), nr, nc, dev)
     binarize_intra.launches += 1
     return out
 

@@ -19,20 +19,29 @@ Transport layout (uint32 words, version 1):
   [META_WORDS .. META_WORDS+R)   per-row payload word counts
   [META_WORDS+R ..)              row payloads, each word-aligned
 
-The header and the payload prefix equal the reference's word for word;
-past ``META_WORDS + R + total`` the buffer is zero (its length is the
-largest payload the shapes allow, not the reference's).
+The header and the payload equal the reference's word for word (the
+buffer's length is the largest payload the shapes allow, not the
+reference's).  The plain version zeroes the words past the payload; the
+kernel leaves them as they were.  Every consumer reads the header and
+the payload only: ``models/h264.py``'s prefix pull (``_pull_transport``
+takes the header's total), :func:`unpack_levels` (slices the payload by
+the row word counts) and the native level decoder (given that payload).
 
 Only the output words carry over, not the TPU's bitmerge trees: the
-kernel (``csrc/levelpack.cu``) counts each MB's bits, scans them along
-each row and over the rows, and ORs each slot's code into place.
-:func:`pack_levels` launches it for CUDA tensors and runs
-:func:`pack_slots_plain` for CPU tensors.  The host decodes with the
-port's native decoder (``native/levelpack.cpp``) or, with
-``use_native=False``, a NumPy loop.
+kernel (``csrc/levelpack.cu``) is one launch after a memset of a small
+look-back state, a CTA a segment of a row's MBs with their levels staged
+once, a warp an MB counting its bits by ballots, a look-back over the
+row's earlier segments, then each nonzero slot's code ORed into a shared
+window of the segment's words and stored.  :func:`pack_levels` launches
+it for CUDA tensors and runs :func:`pack_slots_plain` for CPU tensors.
+The host decodes with the port's native decoder
+(``native/levelpack.cpp``) or, with ``use_native=False``, a NumPy loop.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -130,14 +139,26 @@ def pack_slots_plain(slots3: torch.Tensor) -> torch.Tensor:
     return to_words(torch.cat([hdr, payload]))
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_buffer_words(rows: int, cols: int, slots: int) -> int:
+    """int32 words of K10's one buffer, as ``csrc/levelpack.cu``'s
+    ``level_pack_buffer_words`` lays it out: the transport
+    (:func:`buffer_words`), then the look-back state (the launch zeroes
+    only the state)."""
+    fn = _cuda.library("levelpack").level_pack_buffer_words
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    return int(fn(buffer_words(rows, cols, slots), rows, cols))
+
+
 def pack_levels(levels: dict, keys) -> torch.Tensor:
     """Compact the level tensors named by ``keys`` (INTRA_KEYS/P_KEYS)
     into one transport buffer: a 1-D int32 tensor holding the uint32
-    words (``buffer_words`` long).  No host sync.
+    words (``buffer_words`` long; from the kernel, the words past the
+    payload are unspecified).  No host sync.
 
-    CUDA tensors launch the kernel (a warp per MB counts its bits; one
-    thread per row scans its MBs, one thread the rows and writes the
-    header; a warp per MB writes its codes into its bit range);
+    CUDA tensors launch the kernel (a CTA a segment of a row's MBs, a
+    warp an MB, placed by a look-back over the row's earlier segments);
     CPU tensors run the plain version."""
     ts = [levels[k] for k, _, _ in keys]
     r, c = ts[0].shape[:2]
@@ -150,14 +171,14 @@ def pack_levels(levels: dict, keys) -> torch.Tensor:
     if dev.type == "cpu":
         return pack_slots_plain(mb_slots(levels, keys))
     s = sum(n for _, n, _ in keys)
-    out = torch.empty(buffer_words(r, c, s), dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * r * c + r + 1, dtype=torch.int32, device=dev)
+    buf = torch.empty(_kernel_buffer_words(r, c, s), dtype=torch.int32,
+                      device=dev)
     ptrs = ts + [None] * (_MAX_KEYS - len(ts))
     counts = [n for _, n, _ in keys] + [0] * (_MAX_KEYS - len(ts))
-    _cuda.launch("levelpack", "level_pack_launch", ptrs + [out, scratch],
+    _cuda.launch("levelpack", "level_pack_launch", ptrs + [buf],
                  [r, c] + counts, dev)
     pack_levels.launches += 1
-    return out
+    return buf[:buffer_words(r, c, s)]
 
 
 pack_levels.launches = 0

@@ -119,9 +119,14 @@ def _p_case(case):
 def _i_case(case):
     rng = np.random.default_rng(len(case) + 100)
     dens, mag = {"flat": (0.0, 1), "sparse": (0.05, 3), "dense": (0.5, 60),
-                 "extreme": (0.3, 141), "level_overflow": (0.05, 3)}[case]
+                 "extreme": (0.3, 141), "level_overflow": (0.05, 3),
+                 "all_i4": (0.3, 20), "checker": (0.3, 20)}[case]
     lv = _levels(level_pack.INTRA_KEYS, dens, mag, seed=len(case))
     mb_i4 = rng.random((NR, NC)) < 0.5
+    if case == "all_i4":
+        mb_i4[:] = True
+    if case == "checker":                  # I16 and I4 left neighbours
+        mb_i4 = np.add.outer(np.arange(NR), np.arange(NC)) % 2 == 0
     lv["luma_ac"][mb_i4] = 0
     lv["luma_dc"][mb_i4] = 0
     lv["luma_i4"][~mb_i4] = 0
@@ -215,41 +220,102 @@ _HOST_WALK = r"""
 #include <vector>
 #include "cabac_records.cuh"
 using namespace cabac_rec;
-// A P frame's inputs, and each MB's records: its pieces in order, the
-// summaries from its levels (the kernel takes them from its warp's
-// ballots); returns the value overflow.
-struct PIn {
+// Bits of a record stream, MSB-first into words; counts every bit but
+// writes only the first ``cap_words`` words.
+struct WordSink {
+  uint32_t* w;
+  int cap_words;
+  long long n = 0;
+  unsigned long long acc = 0;
+  int have = 0, widx = 0;
+  WordSink(uint32_t* words, int cap) : w(words), cap_words(cap) {}
+  void put(uint32_t v, int len) {
+    if (len <= 0) return;
+    if (len < 32) v &= (1u << len) - 1u;
+    acc = (acc << len) | v;
+    have += len;
+    n += len;
+    while (have >= 32) {
+      have -= 32;
+      const uint32_t word = (uint32_t)(acc >> have);
+      if (widx < cap_words) w[widx] = word;
+      ++widx;
+      acc &= (1ull << have) - 1ull;
+    }
+  }
+  void flush() {
+    if (have > 0 && widx < cap_words) w[widx] = (uint32_t)(acc << (32 - have));
+  }
+};
+// A P frame's inputs and each MB's pieces' context: the summaries from
+// its nonzero word (the kernel's warp ballot).
+struct PKind {
   const int *mv, *luma, *cb_dc, *cb_ac, *cr_dc, *cr_ac;
   int nc;
+  static constexpr int pieces = P_PIECES;
+  PSum sum(int mb) const {
+    return p_sum_from(p_nz_bits(luma + mb * 256, cb_dc + mb * 4, cb_ac + mb * 60,
+                                cr_dc + mb * 4, cr_ac + mb * 60),
+                      mv[mb * 2], mv[mb * 2 + 1]);
+  }
+  PCtx ctx(int r, int c) const {
+    const int mb = r * nc + c;
+    const PSum cur = sum(mb);
+    PSum L{};
+    if (c > 0) L = sum(mb - 1);
+    return p_ctx(cur, c > 0 ? &L : nullptr, c > 1 ? mv + (mb - 2) * 2 : nullptr, c == nc - 1,
+                 luma + mb * 256, cb_dc + mb * 4, cb_ac + mb * 60, cr_dc + mb * 4,
+                 cr_ac + mb * 60);
+  }
+  template <class Sink> bool piece(const PCtx& x, int k, Sink& s) const {
+    return p_piece(x, k, s);
+  }
 };
-static PSum p_summary(const PIn& in, int mb) {
-  return p_sum_from(p_nz_bits(in.luma + mb * 256, in.cb_dc + mb * 4, in.cb_ac + mb * 60,
-                              in.cr_dc + mb * 4, in.cr_ac + mb * 60),
-                    in.mv[mb * 2], in.mv[mb * 2 + 1]);
-}
-template <class Sink>
-static bool p_mb(const PIn& in, int r, int c, Sink& sink) {
-  const int mb = r * in.nc + c;
-  const PSum cur = p_summary(in, mb);
-  PSum L{};
-  if (c > 0) L = p_summary(in, mb - 1);
-  const PCtx x = p_ctx(cur, c > 0 ? &L : nullptr, c > 1 ? in.mv + (mb - 2) * 2 : nullptr,
-                       c == in.nc - 1, in.luma + mb * 256, in.cb_dc + mb * 4, in.cb_ac + mb * 60,
-                       in.cr_dc + mb * 4, in.cr_ac + mb * 60);
-  bool ovf = false;
-  for (int k = 0; k < P_PIECES; ++k) ovf |= p_piece(x, k, sink);
-  return ovf;
-}
-template <class In, class Walk>
-static void run(const In& in, Walk walk, uint32_t* out, int nr, int nc,
-                int slots, int cap) {
+// An I frame's inputs; an MB's two nonzero words lane by lane, as the
+// kernel's two ballots give them.
+struct IKind {
+  const int *luma_dc, *luma_ac, *cb_dc, *cb_ac, *cr_dc, *cr_ac, *pred_mode;
+  const uint8_t* mb_i4;
+  const int *i4_modes, *luma_i4;
+  int nc;
+  static constexpr int pieces = I_PIECES;
+  ISum sum(int mb) const {
+    uint32_t w[2] = {0, 0};
+    for (int word = 0; word < 2; ++word)
+      for (int l = 0; l < 32; ++l)
+        w[word] |= i_lane_nz(word, l, luma_dc + mb * 16, luma_ac + mb * 240, luma_i4 + mb * 256,
+                             cb_dc + mb * 4, cb_ac + mb * 60, cr_dc + mb * 4, cr_ac + mb * 60)
+                       ? 1u << l : 0u;
+    return i_sum_from(w[0], w[1], mb_i4[mb]);
+  }
+  ICtx ctx(int r, int c) const {
+    const int mb = r * nc + c;
+    const ISum cur = sum(mb);
+    ISum L{};
+    if (c > 0) L = sum(mb - 1);
+    return i_ctx(cur, c > 0 ? &L : nullptr, c == nc - 1, pred_mode[mb], i4_modes + mb * 16,
+                 c > 0 ? i4_modes + (mb - 1) * 16 : nullptr, luma_dc + mb * 16,
+                 luma_ac + mb * 240, luma_i4 + mb * 256, cb_dc + mb * 4, cb_ac + mb * 60,
+                 cr_dc + mb * 4, cr_ac + mb * 60);
+  }
+  template <class Sink> bool piece(const ICtx& x, int k, Sink& s) const {
+    return i_piece(x, k, s);
+  }
+};
+// Each MB's records: its pieces in order; the packing done sequentially
+// (the first version of the kernels: a bit string an MB, a scan along
+// each row and over the rows, each MB's bits shifted into place).
+template <class Kind>
+static void run(const Kind& kind, uint32_t* out, int nr, int nc, int slots, int cap) {
   const int nmb = nr * nc;
   std::vector<uint32_t> words((size_t)nmb * cap);
   std::vector<long long> bits(nmb), mb_off(nmb), row_woff(nr);
   int flag = 0;
   for (int mb = 0; mb < nmb; ++mb) {
     WordSink s(words.data() + (size_t)mb * cap, cap);
-    const bool ovf = walk(in, mb / nc, mb % nc, s);
+    const auto x = kind.ctx(mb / nc, mb % nc);
+    bool ovf = false;
+    for (int k = 0; k < Kind::pieces; ++k) ovf |= kind.piece(x, k, s);
     s.flush();
     bits[mb] = s.n;
     flag |= (ovf ? 1 : 0) | (s.n > 32LL * cap ? 2 : 0);
@@ -280,12 +346,17 @@ static void run(const In& in, Walk walk, uint32_t* out, int nr, int nc,
 extern "C" void walk_p(const int* mv, const int* luma, const int* cbd,
                        const int* cba, const int* crd, const int* cra,
                        uint32_t* out, int nr, int nc, int slots, int cap) {
-  PIn in{mv, luma, cbd, cba, crd, cra, nc};
-  run(in, [](const PIn& i, int r, int c, WordSink& s) { return p_mb(i, r, c, s); },
-      out, nr, nc, slots, cap);
+  run(PKind{mv, luma, cbd, cba, crd, cra, nc}, out, nr, nc, slots, cap);
 }
-// K11p's schedule (csrc/cabac.cu p_seg_kernel), sequential: each MB's
-// nonzero word (the warp's ballot), its pieces in lane order counted and
+extern "C" void walk_intra(const int* ldc, const int* lac, const int* cbd,
+                           const int* cba, const int* crd, const int* cra,
+                           const int* pm, const uint8_t* i4, const int* modes,
+                           const int* li4, uint32_t* out, int nr, int nc,
+                           int slots, int cap) {
+  run(IKind{ldc, lac, cbd, cba, crd, cra, pm, i4, modes, li4, nc}, out, nr, nc, slots, cap);
+}
+// The segment schedule of K11p and K11i (csrc/cabac.cu p_seg_kernel,
+// i_seg_kernel), sequential: each MB's pieces in lane order counted and
 // offset by a scan, segments of ``segp`` MBs of a row whose offsets come
 // from a look-back over random AGG / INCL states, the row's word offsets,
 // the header, then each segment's words built window by window (``win``
@@ -293,37 +364,26 @@ extern "C" void walk_p(const int* mv, const int* luma, const int* cbd,
 // in a random order: a segment's own words and last word, then it is
 // DONE; its first word, when it holds earlier bits, ORed once its
 // predecessor is DONE.
-extern "C" void walk_p_seg(const int* mv, const int* luma, const int* cbd,
-                           const int* cba, const int* crd, const int* cra,
-                           uint32_t* out, int nr, int nc, int slots, int cap,
-                           int segp, int win, unsigned seed) {
+template <class Kind>
+static void seg_run(const Kind& kind, uint32_t* out, int nr, int nc, int slots, int cap,
+                    int segp, int win, unsigned seed) {
+  constexpr int NP = Kind::pieces;
   const long long out_words = 8 + nr + (long long)nr * nc * cap;
   auto rnd = [&seed]() { seed = seed * 1103515245u + 12345u; return seed >> 8; };
-  std::vector<uint32_t> nz(nr * nc);
-  for (int mb = 0; mb < nr * nc; ++mb)
-    nz[mb] = p_nz_bits(luma + mb * 256, cbd + mb * 4, cba + mb * 60, crd + mb * 4, cra + mb * 60);
-  auto ctx = [&](int r, int c) {
-    const int mb = r * nc + c;
-    const PSum cur = p_sum_from(nz[mb], mv[2 * mb], mv[2 * mb + 1]);
-    PSum left{};
-    if (c > 0) left = p_sum_from(nz[mb - 1], mv[2 * mb - 2], mv[2 * mb - 1]);
-    return p_ctx(cur, c > 0 ? &left : nullptr, c > 1 ? mv + 2 * mb - 4 : nullptr, c == nc - 1,
-                 luma + mb * 256, cbd + mb * 4, cba + mb * 60, crd + mb * 4, cra + mb * 60);
-  };
   const int nseg = (nc + segp - 1) / segp;
-  std::vector<long long> poff((size_t)nr * nc * P_PIECES), mb_off(nr * nc), seg_bits(nr * nseg),
+  std::vector<long long> poff((size_t)nr * nc * NP), mb_off(nr * nc), seg_bits(nr * nseg),
       excl(nr * nseg), row_w(nr + 1, 0);
   int flags = 0;
   for (int r = 0; r < nr; ++r) {
     for (int s = 0; s < nseg; ++s) {
       long long acc = 0;
       for (int c = s * segp; c < nc && c < (s + 1) * segp; ++c) {
-        const PCtx x = ctx(r, c);
+        const auto x = kind.ctx(r, c);
         long long pos = 0;
-        for (int k = 0; k < P_PIECES; ++k) {
+        for (int k = 0; k < NP; ++k) {
           CountSink cs;
-          flags |= p_piece(x, k, cs) ? 1 : 0;
-          poff[(size_t)(r * nc + c) * P_PIECES + k] = pos;
+          flags |= kind.piece(x, k, cs) ? 1 : 0;
+          poff[(size_t)(r * nc + c) * NP + k] = pos;
           pos += cs.n;
         }
         flags |= pos > 32LL * cap ? 2 : 0;
@@ -369,11 +429,11 @@ extern "C" void walk_p_seg(const int* mv, const int* luma, const int* cbd,
         const int n = nwords - lo < win ? nwords - lo : win;
         std::vector<uint32_t> buf(n, 0u);
         for (int c = s * segp; c < nc && c < (s + 1) * segp; ++c) {
-          const PCtx x = ctx(r, c);
-          for (int k = 0; k < P_PIECES; ++k) {
+          const auto x = kind.ctx(r, c);
+          for (int k = 0; k < NP; ++k) {
             RunSink rs(buf.data(), lead + mb_off[r * nc + c]
-                                       + poff[(size_t)(r * nc + c) * P_PIECES + k] - 32LL * lo, n);
-            p_piece(x, k, rs);
+                                       + poff[(size_t)(r * nc + c) * NP + k] - 32LL * lo, n);
+            kind.piece(x, k, rs);
             rs.flush();
           }
         }
@@ -409,14 +469,19 @@ extern "C" void walk_p_seg(const int* mv, const int* luma, const int* cbd,
     }
   }
 }
-extern "C" void walk_intra(const int* ldc, const int* lac, const int* cbd,
+extern "C" void walk_p_seg(const int* mv, const int* luma, const int* cbd,
                            const int* cba, const int* crd, const int* cra,
-                           const int* pm, const uint8_t* i4, const int* modes,
-                           const int* li4, uint32_t* out, int nr, int nc,
-                           int slots, int cap) {
-  IIn in{ldc, lac, cbd, cba, crd, cra, pm, i4, modes, li4, nc};
-  run(in, [](const IIn& i, int r, int c, WordSink& s) { return intra_mb(i, r, c, s); },
-      out, nr, nc, slots, cap);
+                           uint32_t* out, int nr, int nc, int slots, int cap,
+                           int segp, int win, unsigned seed) {
+  seg_run(PKind{mv, luma, cbd, cba, crd, cra, nc}, out, nr, nc, slots, cap, segp, win, seed);
+}
+extern "C" void walk_intra_seg(const int* ldc, const int* lac, const int* cbd,
+                               const int* cba, const int* crd, const int* cra,
+                               const int* pm, const uint8_t* i4, const int* modes,
+                               const int* li4, uint32_t* out, int nr, int nc,
+                               int slots, int cap, int segp, int win, unsigned seed) {
+  seg_run(IKind{ldc, lac, cbd, cba, crd, cra, pm, i4, modes, li4, nc}, out, nr, nc, slots, cap,
+          segp, win, seed);
 }
 """
 
@@ -440,7 +505,7 @@ def host_walk(tmp_path_factory):
     ("p", c) for c in ("skip", "sparse", "dense", "extreme", "level_overflow",
                        "mvd_overflow")] + [
     ("intra", c) for c in ("flat", "sparse", "dense", "extreme",
-                           "level_overflow")])
+                           "level_overflow", "all_i4", "checker")])
 def test_kernel_record_walk_equals_the_plain_version_on_the_host(
         host_walk, kind, case):
     import ctypes
@@ -462,38 +527,51 @@ def test_kernel_record_walk_equals_the_plain_version_on_the_host(
 
 _CABAC_CU = (pathlib.Path(cabac_binarize.__file__).parent.parent / "csrc"
              / "cabac.cu").read_text()
-SEGP = int(re.search(r"constexpr int SEGP = (\d+);", _CABAC_CU).group(1))
+SEG = int(re.search(r"constexpr int SEG = (\d+);", _CABAC_CU).group(1))
 P_WIN = int(re.search(r"constexpr int P_WIN = (\d+);", _CABAC_CU).group(1))
+I_WIN = int(re.search(r"constexpr int I_WIN = (\d+);", _CABAC_CU).group(1))
+I_CASES = ("flat", "sparse", "dense", "extreme", "level_overflow", "all_i4",
+           "checker", "over_cap")
 
 
-@pytest.mark.parametrize("segp,win", [(SEGP, P_WIN), (2, P_WIN), (3, 2)])
+@pytest.mark.parametrize("segp,win", [(SEG, P_WIN), (2, P_WIN), (3, 2)])
 @pytest.mark.parametrize("case", ["skip", "sparse", "dense", "extreme",
                                   "level_overflow", "mvd_overflow",
-                                  "over_cap"])
+                                  "over_cap"] + [f"intra_{c}" for c in I_CASES])
 def test_segment_schedule_equals_the_plain_version_on_the_host(
         host_walk, case, segp, win):
-    """K11p's pieces in the warp's lane order and its segment schedule
-    (segments of ``segp`` MBs, windows of ``win`` words, the boundary
-    words in random orders over a buffer of garbage): the header and
-    payload equal the plain version's.  ``over_cap``: the dense case
+    """K11p's and K11i's pieces in the warp's lane order and their segment
+    schedule (segments of ``segp`` MBs, windows of ``win`` words, the
+    boundary words in random orders over a buffer of garbage): the header
+    and payload equal the plain version's.  ``over_cap``: the dense case
     launched with a cap of 8 words an MB, which MBs pass: the flag set,
-    the header's other words the plain version's."""
+    the header's other words the plain version's.  An intra case's full
+    window is K11i's own (``I_WIN``); NC = 7 is a multiple of no
+    segment."""
     import ctypes
 
-    d = _p_case("dense" if case == "over_cap" else case)
-    arrays = [np.ascontiguousarray(d[k], np.int32) for k in P_ORDER]
-    want = _words(cabac_binarize.binarize_p(
-        *[torch.from_numpy(d[k]) for k in P_ORDER]))
-    slots, cap = cabac_binarize.layout("p")
-    if case == "over_cap":
+    kind = "intra" if case.startswith("intra_") else "p"
+    case = case.removeprefix("intra_")
+    over = case == "over_cap"
+    d = (_p_case if kind == "p" else _i_case)("dense" if over else case)
+    order = P_ORDER if kind == "p" else I_ORDER
+    arrays = [np.ascontiguousarray(d[k], np.uint8 if k == "mb_i4" else np.int32)
+              for k in order]
+    plain = (cabac_binarize.binarize_p if kind == "p"
+             else cabac_binarize.binarize_intra)
+    want = _words(plain(*[torch.from_numpy(d[k]) for k in order]))
+    slots, cap = cabac_binarize.layout(kind)
+    if over:
         cap = 8
+    if kind == "intra" and win == P_WIN:
+        win = I_WIN
     got = np.random.default_rng(segp).integers(
         0, 1 << 32, 8 + NR + NR * NC * cap, dtype=np.uint64).astype(np.uint32)
-    host_walk.walk_p_seg(*[a.ctypes.data_as(ctypes.c_void_p)
-                           for a in arrays + [got]],
-                         NR, NC, slots, cap, segp, win, ctypes.c_uint(7 + segp))
+    fn = host_walk.walk_p_seg if kind == "p" else host_walk.walk_intra_seg
+    fn(*[a.ctypes.data_as(ctypes.c_void_p) for a in arrays + [got]],
+       NR, NC, slots, cap, segp, win, ctypes.c_uint(7 + segp))
     head = 8 + NR
-    if case == "over_cap":
+    if over:
         assert got[1] == 1 and want[1] == 0
         np.testing.assert_array_equal(np.delete(got[:head], 1),
                                       np.delete(want[:head], 1))
