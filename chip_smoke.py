@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in seventeen phases:
+seeded generator, in eighteen phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -44,6 +44,14 @@ seeded generator, in seventeen phases:
   (``tests/level_slots.py``'s slots; flat to dense levels, budget
   overflows, all-I_NxN and checkerboard frames, an MB over its cap) and on
   every form of their main paths;
+- **i16halo**: the halo pad 15e and K5's I16-in-P passes against their
+  plain versions on crafted inputs that break their designs (15e: nx 1,
+  2, 4, halo on and off, 1080p and 4K, tail words, sources off a 16-byte
+  boundary; the passes: all, none, alternating, runs across segments and
+  random wanting MBs at 1, 7, 9 and 120 MBs a row, tiers 1 and 2, a
+  worklist with duplicate rows, ``qp_dev``) and on the P core's 1080p
+  forms with I16-in-P (desktop and noise P frames, worklist, ``qp_dev``,
+  K5p);
 - **modes**: K1's other mode sets (``ENCODER_INTRA_MODES`` full, i16,
   dc) at each tier and K5's ``refine="full"`` (K5 and K5p) against their
   plain versions at 1080p; the served knobs ``ENCODER_INTRA_MODES`` and
@@ -167,6 +175,16 @@ Checks, each of which fails the run:
           I_NxN checkerboard at three shapes, an MB over a cap of 8 words
           (the flag, the header otherwise plain's), a desktop IDR, a noise
           IDR at qp 18, all I_16x16, all I_NxN and a shard's 34 rows
+  i16halo 15e equal to plain at nx = 1, 2, 4, halo on and off, 1088x1920
+          and 2176x3840 (luma planes whose size is no multiple of 16 bytes)
+          and on sources 1 and 4 bytes off a 16-byte boundary; the I16-in-P
+          passes equal to ``i16_passes_plain`` on every output (the I16 keys
+          filled with garbage first) for inter scores that make all, no,
+          every other, runs of 3-19 and 60% random MBs want, at 1, 7, 9 and
+          120 MBs a row, tiers 1 and 2 (a random qp plane), frame and a
+          worklist with duplicate rows, with and without ``qp_dev``; K5 with
+          I16-in-P equal to plain on a 1080p desktop and a noise P frame at
+          both tiers, a worklist with duplicates, ``qp_dev``, K5p at nx = 2
   colour  the odd-geometry stream against one whose colour conversion
           is the plain version; K9 on 1080p and odd frames
   cabac   both routes' access units byte-identical; every K10 and K11
@@ -270,7 +288,10 @@ chip_smoke.py k11k16-split`` and the k11k16 phase alone ``python3
 chip_smoke.py k11k16``; K10 and K11i: ``python3 chip_smoke.py pairs
 --set k10k11i --pairs 3 parent=.tree/parent change=.``, ``python3
 chip_smoke.py k10k11i-split`` and the k10k11i phase alone ``python3
-chip_smoke.py k10k11i``; the damage phase's
+chip_smoke.py k10k11i``; 15e and K5's I16-in-P passes: ``python3
+chip_smoke.py pairs --set i16halo --pairs 3 parent=.tree/parent change=.``,
+``python3 chip_smoke.py i16halo-split`` and the i16halo phase alone ``python3
+chip_smoke.py i16halo``; the damage phase's
 tune-mask part alone: ``python3 chip_smoke.py tune-mask`` (~75 s).  The BD-rate gate
 in alternating fresh processes is ``tools/bdrate_pairs.py``.
 """
@@ -546,11 +567,13 @@ def max_diff(pairs) -> float:
 
 
 def kernel_row(name, src, replaces, launches, err, ms, plain_ms, nb, ops=0.0,
-               library_ms=None):
+               library_ms=None, floor_ms=0.0):
     """One entry of the kernels line: the bound is the larger of the
-    bytes over the memory rate and the operations over the scalar rate."""
+    bytes over the memory rate and the operations over the scalar rate,
+    or ``floor_ms`` where that is larger (a graph kernel node's own floor,
+    the least time one launch of any work takes: counted as operations)."""
     t_bytes = nb / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = max(ops / SCALAR_OPS_PER_S * 1e3, floor_ms)
     return {"name": name, "route": "cuda",
             "source": "docker_nvidia_glx_desktop_tpu_torch/csrc/" + src,
             "replaces": "docker_nvidia_glx_desktop_tpu/" + (
@@ -691,6 +714,8 @@ def run():
     print(f"k11k16 phase done at {time.perf_counter() - t_start:.0f} s")
     k10k11i_phase(report)
     print(f"k10k11i phase done at {time.perf_counter() - t_start:.0f} s")
+    i16halo_phase(report)
+    print(f"i16halo phase done at {time.perf_counter() - t_start:.0f} s")
     rows += modes_phase(report)
     print(f"modes phase done at {time.perf_counter() - t_start:.0f} s")
     rows += colour_phase(report)
@@ -3060,7 +3085,7 @@ def worklist_64(nr: int):
 
 
 def i16_pass_ms(fn, reps: int = 20) -> float:
-    """Median device ms of the I16-in-P passes (2 and 3) inside ``fn()``:
+    """Median device ms of the I16-in-P launches inside ``fn()``:
     CUDA events recorded on the stream just before and after the passes'
     host call, one sample per call."""
     import torch
@@ -3382,11 +3407,13 @@ def tune_mask_phase(report):
             + (", p_intra: h264_inter.py:688-782" if pi else "") + ")", n, err,
             cuda_ms(fk, reps=20), cuda_ms(fp, reps=3),
             in_bytes + extra + nbytes(*o.values()), k5_hq_ops(nb * nc, pi)))
-    # the I16-in-P passes alone (2 and 3 over the worklist)
-    i16_ms = i16_pass_ms(lambda: h264_inter.encode_p_frame_rows(
-        *planes, *ref, rt8, qp, tune="hq", next_y=nxt, p_intra=True))
-    o = h264_inter.encode_p_frame_rows(*planes, *ref, rt8, qp, tune="hq",
-                                       next_y=nxt, p_intra=True)
+    # the I16-in-P launches alone over the worklist: their host call by
+    # CUDA events, their kernels by device time
+    fk = lambda: h264_inter.encode_p_frame_rows(
+        *planes, *ref, rt8, qp, tune="hq", next_y=nxt, p_intra=True)
+    i16_ms = i16_pass_ms(fk)
+    split = kernel_split(fk)
+    o = fk()
     qm8 = aq.qp_plane_plain(planes[0], qp, nxt, rt8)
     fp = lambda: h264_inter.encode_p_frame_rows_plain(
         *planes, *ref, rt8, qp, "hq", qm8, True)
@@ -3395,10 +3422,15 @@ def tune_mask_phase(report):
     check(err == 0, f"inter_rows_i16: max |kernel - plain| {err} at 8 rows")
     i16_row = kernel_row(
         "inter_rows_i16", "inter.cu", "h264_inter.py:688-782 I16-in-P in "
-        "damage_mask.py:170 row_core (passes 2, 3 over the worklist)",
+        "damage_mask.py:170 row_core (the want and the gate and merge "
+        "launches over the worklist)",
         wf["inter_rows_i16"], err, i16_ms, cuda_ms(fp, reps=3),
-        frac * nbytes(*planes) + nbytes(rt8, *o.values()),
-        k5_hq_ops(nb * nc, True) - k5_hq_ops(nb * nc, False))
+        i16_bytes(planes, o, rt8) + nbytes(rt8),
+        I16_CAND_OPS * (nb * nc + float(o["mb_intra"].sum())))
+    i16_row["device_ms"] = (sum(v for k, v in split.items() if "i16" in k)
+                            if split else None)
+    check(i16_row["device_ms"] is None or i16_row["device_ms"] >= i16_row["bound_ms"],
+          f"inter_rows_i16: device time {i16_row['device_ms']} ms under its bound")
     out_rows.append(i16_row)
     k14 = lambda: aq.qp_plane(planes[0], qp, nxt, rows=rt8)
     k14p = lambda: aq.qp_plane_plain(planes[0], qp, nxt, rt8)
@@ -3471,6 +3503,11 @@ def tune_frames(n: int, seed: int = 3):
     return frames
 
 
+# an MB's I16-in-P candidate: 24 blocks x 256 (as the residual), its SSD
+# and bit estimates and the gate
+I16_CAND_OPS = 24 * 256 + 384 * 3 + 384 * 4 + 8
+
+
 def k5_hq_ops(nmb: int, p_intra: bool) -> float:
     """K5's operations under tune=hq: ``k5_ops`` plus, per MB, the forced
     skip's coded and skip SSDs (384 pels x 3 each) and bit estimates (384
@@ -3478,7 +3515,7 @@ def k5_hq_ops(nmb: int, p_intra: bool) -> float:
     as the residual), its SSD and bit estimates and the gate."""
     extra = 2 * 384 * 3 + 384 * 4
     if p_intra:
-        extra += 24 * 256 + 384 * 3 + 384 * 4 + 8
+        extra += I16_CAND_OPS
     return k5_ops(nmb) + float(extra * nmb)
 
 
@@ -3870,6 +3907,26 @@ def tune_phase(report, rows_before):
         pm = plain(fp) if fp is not None else k1_plain[name]
         out_rows.append(kernel_row(name, src, replaces, n, err,
                                    cuda_ms(fk, reps=10), pm, nb, ops))
+    # the I16-in-P launches alone, the frame form (the per-frame path and the
+    # ring's nodes): their host call by CUDA events, their kernels by device
+    # time; K5 hq with them was held equal to plain above (o_k)
+    fk = lambda: h264_inter.encode_p_frame(*pl, *ref, qp, tune="hq", p_intra=True)
+    kept = float(o_k["mb_intra"].sum())
+    row = kernel_row(
+        "inter_i16", "inter.cu", "h264_inter.py:688-782 I16-in-P (the frame form: "
+        "the want launch, then the gate and merge launch)",
+        launches["inter_i16"] + r_launch["inter_i16"], 0.0, i16_pass_ms(fk),
+        next(r for r in out_rows if r["name"] == "inter_hq")["plain_ms"], i16_bytes(pl, o_k),
+        I16_CAND_OPS * (o_k["mb_intra"].numel() + kept))
+    split = kernel_split(fk)
+    row["device_ms"] = sum(v for k, v in split.items() if "i16" in k) if split else None
+    check(row["device_ms"] is None or row["device_ms"] >= row["bound_ms"],
+          f"inter_i16: device time {row['device_ms']} ms under its bound")
+    print(f"kernel inter_i16: {row['ms']:.4f} ms a host call, device "
+          f"{row['device_ms'] if row['device_ms'] is None else round(row['device_ms'], 4)} "
+          f"ms (bound {row['bound_ms']:.4f} ms by {row['bound_by']}; {kept:.0f} kept MBs; "
+          f"{row['launches']} host calls on the full tier's path and ring)")
+    out_rows.append(row)
     for k, fn in named.items():
         fn.launches = saved[k]
     k14 = next(r for r in out_rows if r["name"] == "qp_plane")
@@ -5243,14 +5300,21 @@ def spatial_phase(report):
     t0 = time.perf_counter()
     batch.spatial_halo_pad_plain(cpu(ry), cpu(rcb), cpu(rcr), nx)
     pad_plain = (time.perf_counter() - t0) * 1e3
-    pad_ms = graph_ms(lambda: batch.spatial_halo_pad(ry, rcb, rcr, nx))
+    pad = lambda: batch.spatial_halo_pad(ry, rcb, rcr, nx)
     # the library call: one gather a plane by PyTorch indexing, the index
-    # tensors built once
+    # tensors built once; both one of 32 calls in a graph (a single replay
+    # adds the graph's own launch) and one replay alone
     gidx = [halo_index(p.shape[0], p.shape[1], nx, dev) for p in (ry, rcb, rcr)]
     gather = lambda: [p.reshape(-1)[i] for p, i in zip((ry, rcb, rcr), gidx)]
     check(all(torch.equal(a, b) for a, b in zip(gather(), pads)),
           "15e: the gather differs from the kernel")
-    pad_lib_ms = graph_ms(gather)
+    pad_ms, pad_lib_ms = graph_each_ms(pad), graph_each_ms(gather)
+    pad_one, lib_one = graph_ms(pad), graph_ms(gather)
+    pad_bytes = nbytes(ry, rcb, rcr) + nbytes(*pads)
+    pad_dev = device_ms(pad, "halo_pad", pad_bytes / HBM_BYTES_PER_S * 1e3, 1)
+    print(f"15e (nx={nx}, 1080p): one of 32 in a graph {pad_ms:.4f} ms, the gather "
+          f"{pad_lib_ms:.4f}; one replay {pad_one:.4f}, the gather {lib_one:.4f}; "
+          f"device {pad_dev} ms; bound {pad_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms [{smi_line()}]")
     k5p_ms = cuda_ms(lambda: h264_inter.encode_p_frame_padded_ref(
         sv(y), sv(cb), sv(cr), *pads, qp), reps=10)
     k5_ms = cuda_ms(lambda: h264_inter.encode_p_frame(y, cb, cr, ry, rcb, rcr, qp),
@@ -5279,11 +5343,11 @@ def spatial_phase(report):
                                             None, qp), reps=3)
     holder.released = True
     rows = [
-        kernel_row("halo_pad", "spatial.cu", "parallel/batch.py:609 "
-                   f"_spatial_halo_pad (nx={nx}, 1080p, graph replay)",
-                   launches["halo_pad"],
-                   e15e, pad_ms, pad_plain, nbytes(ry, rcb, rcr) + nbytes(*pads),
-                   library_ms=pad_lib_ms),
+        dict(kernel_row("halo_pad", "spatial.cu", "parallel/batch.py:609 "
+                        f"_spatial_halo_pad (nx={nx}, 1080p, one of 32 in a graph)",
+                        launches["halo_pad"], e15e, pad_ms, pad_plain, pad_bytes,
+                        library_ms=pad_lib_ms),
+             device_ms=pad_dev, replay_ms=pad_one, library_replay_ms=lib_one),
         kernel_row("force_skip", "spatial.cu", "damage_mask.py:312 "
                    f"force_skip_rows (1080p, {frac:.2f} of the rows gated, "
                    "graph replay)",
@@ -5627,7 +5691,7 @@ def bench_phase(report, rows_before):
                    "(acc + word.astype(uint32); one of 32 launches in a "
                    "graph)", launches["tick"], e17c, each["tick"],
                    cuda_ms(lambda: devloop.tick_plain(acc_t, -5, i_dev), reps=5),
-                   0),
+                   0, floor_ms=rep["node_floor_ms"]),
     ]
     print("K14d / K17p / K17c: a graph of one launch " + ", ".join(
         f"{k} {v:.4f}" for k, v in one.items()) + " ms; one of 32 in a graph "
@@ -6223,19 +6287,25 @@ def k11k16_form_times(x: dict) -> dict:
     return out
 
 
-def k11k16_times() -> dict:
-    """The ``k11k16`` set: K16c and K11p in each form, eager, replayed and
-    by device time, and the device time of each of their kernels."""
-    import torch
-
+def form_numbers(times: dict) -> dict:
+    """{form: {number: value, "split": {kernel: ms}}} as one flat dict of
+    ``<form>_<number>`` and ``<form>_dev_<kernel>``: a pairs run's line."""
     out = {}
-    for name, r in k11k16_form_times(k11k16_inputs(torch.device("cuda"))).items():
+    for name, r in times.items():
         for k, v in r.items():
             if k == "split":
                 out.update({f"{name}_dev_{s}": float(t) for s, t in v.items()})
             else:
                 out[f"{name}_{k}"] = v
     return out
+
+
+def k11k16_times() -> dict:
+    """The ``k11k16`` set: K16c and K11p in each form, eager, replayed and
+    by device time, and the device time of each of their kernels."""
+    import torch
+
+    return form_numbers(k11k16_form_times(k11k16_inputs(torch.device("cuda"))))
 
 
 # -- K10 and K11i (the CABAC level transport and intra binarizer) -----------
@@ -6332,13 +6402,7 @@ def k10k11i_times() -> dict:
     from docker_nvidia_glx_desktop_tpu_torch.ops import devloop
 
     dev, qp = torch.device("cuda"), PAIRS_QP
-    out = {}
-    for name, r in k10k11i_form_times(k10k11i_inputs(dev)).items():
-        for k, v in r.items():
-            if k == "split":
-                out.update({f"{name}_dev_{s}": float(t) for s, t in v.items()})
-            else:
-                out[f"{name}_{k}"] = v
+    out = form_numbers(k10k11i_form_times(k10k11i_inputs(dev)))
     d = pair_planes(gop_frames(1, seed=5)[0])
     steady = lambda fn: devloop.measure_steady_state(
         fn, budget_s=PAIRS_LOOP_BUDGET_S)["step_ms"]
@@ -6356,6 +6420,115 @@ def k10k11i_times() -> dict:
     return out
 
 
+
+
+def i16halo_inputs(dev, qp: int = PAIRS_QP) -> dict:
+    """The I16-in-P passes' and 15e's inputs at their main paths' shapes:
+    a moving desktop P frame and a full-noise P frame of 1080p over a
+    desktop IDR's recon, the worklists of 1, 8 and 64 MB rows
+    (``worklist_64``: scattered, the last a copy of the first), the IDR's
+    planes as the full tier's lookahead frame; 15e pads the recon."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import h264_device
+
+    gop = gop_frames(3, seed=2, noisy_at=2)
+    desk, moving, noise = (pair_planes(f) for f in gop)
+    lv = h264_device.encode_intra_frame_yuv(*desk, qp)
+    nr = H_PAD // 16
+    r0 = min(20, nr - 8)
+    lists = {1: [r0], 8: list(range(r0, r0 + 8)), 64: worklist_64(nr)}
+    return {"desk": moving, "noise": noise, "next": desk[0],
+            "ref": (lv["recon_y"], lv["recon_cb"], lv["recon_cr"]),
+            "rows": {n: torch.from_numpy(np.asarray(v, np.int32)).to(dev)
+                     for n, v in lists.items()}}
+
+
+def i16halo_forms(x: dict, qp: int = PAIRS_QP) -> dict:
+    """{form: (call, the call without I16-in-P or None)}: the P core with
+    its I16-in-P passes in the frame form at tiers 1 and 2 on the desktop
+    and the noise P frame and in the worklist form at tier 2 (the full
+    tier's masked path), and 15e at nx = 2 and 4, halo on and off."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import h264_inter
+    from docker_nvidia_glx_desktop_tpu_torch.parallel import batch
+
+    forms, ref = {}, x["ref"]
+    for label in ("desk", "noise"):
+        for t, tune in ((1, "hq_noaq"), (2, "hq")):
+            call = lambda pi, cur=x[label], tune=tune: h264_inter.encode_p_frame(
+                *cur, *ref, qp, tune=tune, p_intra=pi)
+            forms[f"i16_{label}_t{t}"] = (lambda c=call: c(True), lambda c=call: c(False))
+    for n, rows in x["rows"].items():
+        call = lambda pi, rows=rows: h264_inter.encode_p_frame_rows(
+            *x["desk"], *ref, rows, qp, tune="hq", next_y=x["next"], p_intra=pi)
+        forms[f"i16_rows{n}"] = (lambda c=call: c(True), lambda c=call: c(False))
+    for nx in (2, 4):
+        for halo in (True, False):
+            forms[f"halo_nx{nx}_{'on' if halo else 'off'}"] = (
+                lambda nx=nx, halo=halo: batch.spatial_halo_pad(*ref, nx, halo), None)
+    return forms
+
+
+def i16_bytes(cur, out: dict, rows=None) -> float:
+    """The bytes the I16-in-P passes must move: the current MBs, the inter
+    score, the qp plane and the left recon columns read once, ``mb_intra``
+    and the I16 keys written, and each kept MB's levels, MV and recon."""
+    nb, nc = out["mb_intra"].shape
+    frac = 1.0 if rows is None else nb / (cur[0].shape[0] // 16)
+    kept = int(out["mb_intra"].sum())
+    per_mb = 4 + (4 if "qp_map" in out else 0) + 32
+    return (frac * nbytes(*cur) + nb * nc * per_mb
+            + nbytes(out["mb_intra"], out["i16_dc"], out["i16_ac"])
+            + kept * (1024 + 8 + 2 * 64 * 4 + 384))
+
+
+def i16halo_form_times(x: dict) -> dict:
+    """Each of ``i16halo_forms(x)``.  The passes: the whole call eager and
+    replayed, the replay without I16-in-P, the passes' host call by CUDA
+    events (``i16_pass_ms``), their kernels by device time (the profiler's
+    kernels whose name holds ``i16``), the kept MBs and the bound.  15e:
+    eager, replayed, one of 32 in a graph, device time, the bound, and
+    (halo on) the gather a plane by PyTorch indexing, replayed."""
+    out = {}
+    for name, (fn, base) in i16halo_forms(x).items():
+        r = out[name] = {"ms": cuda_ms(fn, reps=20), "graph_ms": graph_ms(fn, reps=20)}
+        split = kernel_split(fn)
+        r["split"] = split
+        if base is not None:
+            r["base_graph_ms"] = graph_ms(base, reps=20)
+            r["pass_ms"] = i16_pass_ms(fn)
+            r["device_ms"] = float(sum(v for k, v in split.items() if "i16" in k)) \
+                if split else -1.0
+            o = fn()
+            rows = x["rows"].get(int(name[8:])) if name.startswith("i16_rows") else None
+            cur = x["desk"] if rows is not None or "desk" in name else x["noise"]
+            r["kept"] = float(o["mb_intra"].sum())
+            r["bound_ms"] = max(i16_bytes(cur, o, rows) / HBM_BYTES_PER_S,
+                                I16_CAND_OPS * (o["mb_intra"].numel() + r["kept"])
+                                / SCALAR_OPS_PER_S) * 1e3
+        else:
+            nx = int(name[7])
+            pads = fn()
+            r["each_ms"] = graph_each_ms(fn)
+            r["device_ms"] = float(sum(split.values())) if split else -1.0
+            r["bound_ms"] = (nbytes(*x["ref"]) + nbytes(*pads)) / HBM_BYTES_PER_S * 1e3
+            if name.endswith("_on"):
+                gidx = [halo_index(p.shape[0], p.shape[1], nx, p.device) for p in x["ref"]]
+                gather = lambda gidx=gidx: [p.reshape(-1)[i] for p, i in zip(x["ref"], gidx)]
+                check(all(a.equal(b) for a, b in zip(gather(), pads)),
+                      f"{name}: the gather differs from the kernel")
+                r["lib_graph_ms"] = graph_ms(gather, reps=20)
+    return out
+
+
+def i16halo_times() -> dict:
+    """The ``i16halo`` set: ``i16halo_form_times`` as ``form_numbers``."""
+    import torch
+
+    return form_numbers(i16halo_form_times(i16halo_inputs(torch.device("cuda"))))
+
+
 # the measured sets: (timing function, the sources whose ptxas lines a
 # build prints, the output file's stem)
 PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
@@ -6363,7 +6536,8 @@ PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
              "k2k8": (k2k8_times, ("cavlc", "deblock")),
              "k3k7": (k3k7_times, ("pack",)),
              "k11k16": (k11k16_times, ("jpeg", "cabac")),
-             "k10k11i": (k10k11i_times, ("levelpack", "cabac"))}
+             "k10k11i": (k10k11i_times, ("levelpack", "cabac")),
+             "i16halo": (i16halo_times, ("inter", "spatial"))}
 
 
 def pairs_child(set_name: str, tree: str, build_only: bool) -> dict:
@@ -7479,6 +7653,183 @@ def k10k11i_phase(report):
     return []
 
 
+I16_WIDTHS = (1, 7, 9, 120)       # MBs a row of the passes' crafted frames
+HALO_4K = (2176, 3840)            # 3840x2160 padded to MB rows of 16 * nx
+
+
+def i16halo_phase(report):
+    """15e and the I16-in-P passes against their plain versions on the
+    inputs that break their designs.  15e: nx = 1, 2 and 4, halo on and
+    off, at 1080p (1088 lines) and 4K (2176 lines), whose luma planes'
+    sizes are no multiple of 16 bytes at nx = 2 and 4 (the tail words),
+    and source planes 1 and 4 bytes off a 16-byte boundary (handled: the
+    kernel's loads are aligned words).  The passes: the P core's outputs
+    at tiers 1 and 2 (a random qp plane at tier 2) with inter scores that
+    make every MB want, none, every other, runs across the 8-MB segments
+    and random ones, at 1, 7, 9 and 120 MBs a row, in the frame form and
+    over a worklist with duplicate rows, with and without ``qp_dev``,
+    against ``i16_passes_plain`` (every output, the I16 keys first filled
+    with garbage; the rows ``tests/i16_wants.py``'s, as inter scores of
+    +inf where an MB wants and -inf where not); then the whole P core with I16-in-P against the plain
+    one on a 1080p desktop P frame and a noise P frame at both tiers, a
+    worklist with duplicate rows, ``qp_dev`` and K5p at nx = 2.  The
+    streams through the passes and 15e (the tune phase's full tier and its
+    ring, the masked hq stream, the spatial streams) are held byte-equal
+    to the plain path by their own phases.  Launches made here leave the
+    wrappers' counts as they were."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import aq, devloop, h264_inter, quant
+    from docker_nvidia_glx_desktop_tpu_torch.parallel import batch
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from i16_wants import WANT_KINDS, crafted_want
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rep = report["i16halo"] = {}
+    named = devloop.wrappers()
+    saved = {k: fn.launches for k, fn in named.items()}
+    rng = np.random.default_rng(18)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # -- 15e -----------------------------------------------------------------------
+    n15, tails = 0, set()
+    for h, w in ((H_PAD, W), HALO_4K):
+        ref = [up(rng.integers(0, 256, s, dtype=np.uint8))
+               for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+        cpu = [p.cpu() for p in ref]
+        for nx in (1, 2, 4):
+            for halo in (True, False):
+                got = batch.spatial_halo_pad(*ref, nx, halo)
+                want = batch.spatial_halo_pad_plain(*cpu, nx, halo)
+                check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+                      f"15e {w}x{h} nx={nx} halo={halo}: differs from plain")
+                tails |= {p.numel() % 16 for p in got}
+                n15 += 1
+    check(len(tails - {0}) > 0, "15e: no output plane with a tail word")
+    for off in (1, 4):                  # source views off a 16-byte boundary
+        ref = []
+        for s in ((H_PAD, W), (H_PAD // 2, W // 2), (H_PAD // 2, W // 2)):
+            buf = torch.empty(s[0] * s[1] + off, dtype=torch.uint8, device=dev)
+            ref.append(buf[off:].view(s).copy_(up(rng.integers(0, 256, s, dtype=np.uint8))))
+        check(ref[0].data_ptr() % 16 == off, "15e: the view is not off a 16-byte boundary")
+        for halo in (True, False):
+            got = batch.spatial_halo_pad(*ref, 2, halo)
+            want = batch.spatial_halo_pad_plain(*(p.cpu() for p in ref), 2, halo)
+            check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+                  f"15e: sources {off} bytes off a 16-byte boundary differ from plain")
+            n15 += 1
+    rep["halo_cases"], rep["halo_tails"] = n15, sorted(tails)
+    rep["halo_s"] = time.perf_counter() - t_phase
+
+    # -- the passes on crafted scores ----------------------------------------------
+    t1 = time.perf_counter()
+    qp, n16, kept = 26, 0, {}
+    for nc in I16_WIDTHS:
+        nr = H_PAD // 16 if nc == W // 16 else 8
+        hh, ww = nr * 16, nc * 16
+        cur = [up(rng.integers(0, 256, s, dtype=np.uint8))
+               for s in ((hh, ww), (hh // 2, ww // 2), (hh // 2, ww // 2))]
+        ref = [up(rng.integers(0, 256, tuple(p.shape), dtype=np.uint8)) for p in cur]
+        cur[0][:, :ww // 2] = 100 + cur[0][:, :ww // 2] % 5      # flat: intra wins
+        for tier, tune in ((1, "hq_noaq"), (2, "hq")):
+            lam = aq.device_tables(tune, dev, 2)[0]
+            for rows in (None, torch.tensor([nr - 1, 0, 0, 3 % nr, nr - 1],
+                                            dtype=torch.int32, device=dev)):
+                nb = nr if rows is None else rows.numel()
+                qmap = (up(rng.integers(0, 52, (nb, nc)).astype(np.int32))
+                        if tier == 2 else None)
+                if rows is None:
+                    res = h264_inter.encode_p_frame(*cur, *ref, qp, tune=tune)
+                else:
+                    res = h264_inter.encode_p_frame_rows(*cur, *ref, rows, qp, tune=tune)
+                res.pop("qp_map", None)
+                for qd in (None, 41):
+                    qpd = None if qd is None else torch.tensor([qd], dtype=torch.int32,
+                                                               device=dev)
+                    for k, kind in enumerate(WANT_KINDS):
+                        score = up(np.where(crafted_want(kind, nb, nc, seed=nc + k),
+                                            np.inf, -np.inf).astype(np.float32))
+                        out = {k2: v.clone() for k2, v in res.items()}
+                        out["mb_intra"] = torch.ones((nb, nc), dtype=torch.bool, device=dev)
+                        out["i16_dc"] = torch.full((nb, nc, 16), 12345, dtype=torch.int32,
+                                                   device=dev)
+                        out["i16_ac"] = torch.full((nb, nc, 16, 15), -777,
+                                                   dtype=torch.int32, device=dev)
+                        h264_inter._i16_passes(*cur, out, qpd, qmap, lam, score, nb, nc,
+                                               [qp, quant.chroma_qp(qp)], tier, dev,
+                                               rows=rows)
+                        want = h264_inter.i16_passes_plain(
+                            *cur, res, score, tune, qp if qd is None else qd, qmap, rows)
+                        for key, v in want.items():
+                            check(torch.equal(out[key], v),
+                                  f"I16-in-P {kind} {nr}x{nc} tier {tier} rows "
+                                  f"{rows is not None} qp_dev {qd}: {key} differs from plain")
+                        kept[f"{kind} {nc}"] = int(want["mb_intra"].sum())
+                        n16 += 1
+    rep["passes_crafted"], rep["passes_crafted_s"] = n16, time.perf_counter() - t1
+
+    # -- the whole P core with I16-in-P on 1080p frames -----------------------------
+    t2 = time.perf_counter()
+    x = i16halo_inputs(dev, qp)
+    ref, n_core, fired = x["ref"], 0, {}
+
+    def held(label, got, want):
+        for key, v in want.items():
+            check(torch.equal(got[key], v), f"I16-in-P {label}: {key} differs from plain")
+        fired[label] = int(got["mb_intra"].sum())
+
+    for label in ("desk", "noise"):
+        for tune in ("hq_noaq", "hq"):
+            o = h264_inter.encode_p_frame(*x[label], *ref, qp, tune=tune, p_intra=True)
+            held(f"{label} {tune}", o, h264_inter.encode_p_frame_plain(
+                *x[label], *ref, qp, tune, o.get("qp_map"), True))
+            n_core += 1
+    nr = H_PAD // 16
+    rows = torch.tensor([5, 0, 0, 5, nr - 1, nr // 2, 5], dtype=torch.int32, device=dev)
+    for tune in ("hq_noaq", "hq"):
+        ny = x["next"] if tune == "hq" else None
+        o = h264_inter.encode_p_frame_rows(*x["desk"], *ref, rows, qp, tune=tune,
+                                           next_y=ny, p_intra=True)
+        held(f"rows {tune}", o, h264_inter.encode_p_frame_rows_plain(
+            *x["desk"], *ref, rows, qp, tune, o.get("qp_map"), True))
+        n_core += 1
+    qpd = torch.tensor([33], dtype=torch.int32, device=dev)
+    for tune in ("hq_noaq", "hq"):
+        o = h264_inter.encode_p_frame(*x["desk"], *ref, qp, tune=tune, p_intra=True,
+                                      qp_dev=qpd)
+        held(f"qp_dev {tune}", o, h264_inter.encode_p_frame_plain(
+            *x["desk"], *ref, 33, tune, o.get("qp_map"), True))
+        n_core += 1
+    pads = batch.spatial_halo_pad(*ref, 2)
+    sv = lambda t: t.view((2, t.shape[0] // 2) + tuple(t.shape[1:]))
+    for tune in ("hq_noaq", "hq"):
+        o = h264_inter.encode_p_frame_padded_ref(*(sv(p) for p in x["desk"]), *pads, qp,
+                                                 tune=tune, p_intra=True)
+        for s in range(2):
+            held(f"K5p {tune} shard {s}", {k: v[s] for k, v in o.items()},
+                 h264_inter.encode_p_frame_padded_ref_plain(
+                     *(sv(p)[s] for p in x["desk"]), *(p[s] for p in pads), qp, tune,
+                     o["qp_map"][s] if tune == "hq" else None, True))
+        n_core += 1
+    torch.cuda.synchronize()
+    check(sum(fired.values()) > 0, f"I16-in-P never fired on the 1080p frames {fired}")
+    for k, fn in named.items():
+        fn.launches = saved[k]
+    rep.update(passes_core=n_core, fired=fired, kept=kept,
+               core_s=time.perf_counter() - t2, s=time.perf_counter() - t_phase)
+    print(f"(a) i16halo: 15e equal to plain on {n15} inputs (nx 1, 2, 4, halo on and off, "
+          f"1088x1920 and 2176x3840, plane sizes mod 16 {sorted(tails)}; sources 1 and 4 "
+          f"bytes off a 16-byte boundary; {rep['halo_s']:.1f} s); the I16-in-P passes equal "
+          f"to i16_passes_plain on {n16} crafted inputs ({', '.join(WANT_KINDS)} at "
+          f"{', '.join(map(str, I16_WIDTHS))} MBs a row, tiers 1 and 2, frame and a worklist "
+          f"with duplicate rows, with and without qp_dev; "
+          f"{rep['passes_crafted_s']:.1f} s); the P core with I16-in-P equal to plain on "
+          f"{n_core} 1080p forms (I16 MBs {fired}); phase {rep['s']:.1f} s")
+    return []
+
+
 # K5's stages cut out of copies of inter.cu, one stage a copy (timing
 # only: a cut stage leaves its outputs wrong but every index in range)
 K5_VARIANTS = {
@@ -8114,6 +8465,121 @@ def k10k11i_split() -> int:
     return 0
 
 
+I16_MARK = "i16_want_kernel"
+# the I16-in-P launches with a part cut out of a copy of inter.cu (timing
+# only: a cut part leaves the outputs wrong)
+I16_VARIANTS = {
+    "base": [],
+    # every MB takes the zero path: no kept MB builds its candidate again
+    "no_kept": [("  if (!keep) {                        // 60 + 4 zero int4",
+                 "  if (true) {                         // 60 + 4 zero int4")],
+    # the want launch alone
+    "want_only": [("  if (e) return e;\n  if (tier == 2)\n    i16_merge_kernel<2>",
+                   "  if (true) return e;\n  if (tier == 2)\n    i16_merge_kernel<2>")],
+}
+
+
+def kernel_lines(lines: list, marks) -> list:
+    """``ptxas_lines`` of the entry functions whose mangled name holds one
+    of ``marks``."""
+    out, on = [], False
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            on = any(m in ln for m in marks)
+        if on:
+            out.append(ln)
+    return out
+
+
+def i16_pass_args(fn):
+    """The arguments of the I16-in-P host call that ``fn()`` makes."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import h264_inter
+
+    orig, got = h264_inter._i16_passes, []
+
+    def rec(*a, **k):
+        got.append((a, k))
+        orig(*a, **k)
+
+    h264_inter._i16_passes = rec
+    try:
+        fn()
+    finally:
+        h264_inter._i16_passes = orig
+    return got[-1]
+
+
+def i16_cuts(x: dict) -> dict:
+    """Each of ``I16_VARIANTS`` launched on the passes' inputs of the
+    desktop and noise frames at tier 2 and the 64-row worklist: device ms
+    and graph replays."""
+    import ctypes
+
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda, h264_inter
+
+    if I16_MARK not in open(os.path.join(_cuda.CSRC, "inter.cu")).read():
+        return {}
+    libs = build_variants("inter", I16_VARIANTS)
+    forms = i16halo_forms(x)
+    cut = {}
+    for form in ("i16_desk_t2", "i16_noise_t2", "i16_rows64"):
+        (y, cb, cr, res, qpd, qmap, lam, score, nr, nc, qpi, tier, dev), kw = \
+            i16_pass_args(forms[form][0])
+        want = torch.empty((nr, nc), dtype=torch.uint8, device=dev)
+        ts = ([y, cb, cr, kw.get("rows"), qpd, qmap, lam, score, want]
+              + [res[k] for k in h264_inter._OUT_KEYS]
+              + [res["mb_intra"], res["i16_dc"], res["i16_ac"]])
+        for name, lib in libs.items():
+            fn = lib["inter_intra_launch"]
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * len(ts) + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+            def call(fn=fn, name=name):
+                err = fn(*[None if t is None else t.data_ptr() for t in ts],
+                         nr, nc, qpi[0], tier, torch.cuda.current_stream().cuda_stream)
+                check(err == 0, f"{name}: CUDA error {err}")
+            split = kernel_split(call)
+            cut[f"{form}_{name}"] = {"graph_ms": graph_ms(call, reps=20),
+                                     "device_ms": sum(split.values())}
+            print(f"{form} {name}: {json.dumps(cut[form + '_' + name])}", flush=True)
+    return cut
+
+
+def i16halo_split() -> int:
+    """``python3 chip_smoke.py i16halo-split``: the ``-Xptxas -v`` lines of
+    the I16-in-P and halo pad kernels; each of ``i16halo_forms`` by device
+    time (``kernel_split``: each kernel) beside its CUDA-event, replayed and
+    bound ms (``i16halo_form_times``); where inter.cu holds the two-launch
+    passes, their launches with a part cut out of a copy
+    (``I16_VARIANTS``).  Writes ``chiprun_out/i16halo_split.json``."""
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, HERE)
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+
+    smi = smi_line()
+    print(smi, flush=True)
+    logs = _cuda.build(verbose=True)
+    res = {"card": smi, "ptxas": {}}
+    for src in ("inter", "spatial"):
+        res["ptxas"][src] = kernel_lines(ptxas_lines(logs.get(src, "")),
+                                         ("i16", "halo_pad"))
+        for ln in res["ptxas"][src]:
+            print(f"ptxas {src}: {ln}", flush=True)
+    x = i16halo_inputs(torch.device("cuda"))
+    for name, r in i16halo_form_times(x).items():
+        res[name] = r
+        print(f"{name}: {json.dumps(r)}", flush=True)
+    res["cut_ms"] = i16_cuts(x)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "i16halo_split.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
 def phase_alone(key: str, phase, srcs) -> int:
     """``python3 chip_smoke.py modes`` / ``tune-mask``: the build (with the
     ptxas lines of ``srcs``), then the one phase alone; writes
@@ -8176,6 +8642,10 @@ def main(argv=None):
             return k10k11i_split()
         if argv[:1] == ["k10k11i"]:
             return phase_alone("k10k11i", k10k11i_phase, ("levelpack", "cabac"))
+        if argv[:1] == ["i16halo-split"]:
+            return i16halo_split()
+        if argv[:1] == ["i16halo"]:
+            return phase_alone("i16halo", i16halo_phase, ("inter", "spatial"))
         if argv[:1] == ["k5k4"]:
             return phase_alone("k5k4", k5k4_phase, ("inter", "content"))
         return run()

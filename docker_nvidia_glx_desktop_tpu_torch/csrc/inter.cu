@@ -77,11 +77,17 @@
 // skip SSD is at most its coded SSD + lam * (bits + 12) is coded as
 // P_Skip (:651-686: levels zeroed, the recon is the prediction), the
 // float32 sums and the fused multiply-add in the reference's order.
-// With I16-in-P (:688-782) two more launches follow: every MB's I16 DC
-// candidate from its left neighbour's skip-merged inter recon (written by
-// this kernel) scored against the inter score this kernel leaves, then
-// per MB row the run-parity gate (one warp a row, a cummax scan) and a
-// block per MB merging the kept candidates' levels, MVs and recon.
+// With I16-in-P (:688-782) two more launches follow, each a warp an MB and
+// a block a run of eight MBs along a row (redesigned for Hopper; what
+// bounds them: bytes, ~11.5 MB at 1080p, the current planes read and the
+// I16 keys written).  The first scores every MB's I16 DC candidate, built
+// from its left neighbour's skip-merged inter recon (written by this
+// kernel), against the inter score this kernel leaves and writes one
+// `want` byte an MB; the second gates each MB from its row's want bytes
+// (the run-parity gate) and only the kept MBs (a few percent on desktop
+// content) build their candidate again and merge its levels, MV and
+// recon; every other MB stores zero I16 keys.  No candidate goes through
+// device memory.
 //
 // K5p, the padded-reference form (the PAD template flag), replaces
 // docker_nvidia_glx_desktop_tpu/ops/h264_inter.py:300
@@ -717,212 +723,252 @@ __global__ void __launch_bounds__(NT) inter_frame_kernel(
                  rcr, score_out);
 }
 
-// --- I16-in-P, pass 2: every MB's I16 DC candidate -----------------------
+// --- I16-in-P: two launches, a warp an MB, a block a run of MPB MBs ------
 
-constexpr int NT_I = 64;
-
-struct I16Smem {
-  int cur[256], curc[2][64];
-  int yl[16], cl[2][8];        // the left MB's skip-merged inter recon
-  int dcraw[16], ac[16][16], bits_ac[16];
-  int dcl[16], dcy[16], bits_dc;
-  int rec[256];
-  int dcrawc[2][4], acc[2][4][16], dclc[2][4], dcc[2][4], bits_c[8], bits_cdc[2];
-  int recc[2][64];
-  int ssd[24];
+// One MB's I16 (DC) candidate on its warp: lanes 0-15 take luma block
+// `lane` in raster order (by = lane >> 2, bx = lane & 3), 16-23 Cb's and
+// Cr's four blocks; 24-31 repeat lane 23 (they take part in the shuffles,
+// their results unused).  The prediction reads the left MB's column of
+// the recon, which at this point is that MB's skip-merged inter recon
+// (128 at column 0).  Integer sums, so their order does not matter.
+struct I16Lane {
+  int lv[16];   // the block's levels, raster, lv[0] = 0
+  int dc;       // luma: DC level at raster position `lane`; chroma: the block's
+  int rec[16];  // the block's recon, raster
+  int bits;     // the lane's share of the bit estimate
+  int ssd;
 };
 
+__device__ __forceinline__ int pick16(const int* v, int i) {
+  int r = v[0];
+#pragma unroll
+  for (int k = 1; k < 16; ++k)
+    if (i == k) r = v[k];
+  return r;
+}
+
+__device__ __forceinline__ int lbits(int l) { return l ? 3 + 2 * flog2(abs(l)) : 0; }
+
+__device__ __forceinline__ void i16_candidate(I16Lane& o, int lane, const uint8_t* __restrict__ y,
+                              const uint8_t* __restrict__ cb, const uint8_t* __restrict__ cr,
+                              const uint8_t* ry, const uint8_t* rcb, const uint8_t* rcr, int fr,
+                              int r, int c, int W, int Wc, int qm) {
+  const bool is_c = lane >= 16;
+  const int L = min(lane, 23), cq = (L - 16) & 3, cp = (L - 16) >> 2;
+  const int by = is_c ? cq >> 1 : L >> 2, bx = is_c ? cq & 1 : L & 3;
+  const int pitch = is_c ? Wc : W;
+  const uint8_t* cur = is_c ? (cp ? cr : cb) + (size_t)(fr * 8 + by * 4) * Wc + c * 8 + bx * 4
+                            : y + (size_t)(fr * 16 + by * 4) * W + c * 16 + bx * 4;
+  int x[16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t a = *reinterpret_cast<const uint32_t*>(cur + (size_t)i * pitch);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[i * 4 + j] = (a >> (8 * j)) & 255;
+  }
+  int pred = 128;
+  if (c > 0) {
+    const int left = lane < 16 ? ry[(size_t)(r * 16 + lane) * W + c * 16 - 1] : 0;
+    const int sum = __reduce_add_sync(FULL_MASK, left);
+    if (!is_c) {
+      pred = (sum + 8) >> 4;
+    } else {
+      const uint8_t* l = (cp ? rcr : rcb) + (size_t)(r * 8 + 4 * by) * Wc + c * 8 - 1;
+      pred = (l[0] + l[Wc] + l[2 * Wc] + l[3 * Wc] + 2) >> 2;
+    }
+  }
+  int w[16];
+  {
+    int d[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) d[k] = x[k] - pred;
+    fdct4(d, w);
+  }
+  const Qp Q(is_c ? dngd_chroma_qp(qm) : qm);
+  o.lv[0] = 0;
+#pragma unroll
+  for (int k = 1; k < 16; ++k) o.lv[k] = Q.q(w[k], k);
+  // the DC transforms across lanes: luma's 4x4 Hadamard over lanes 0-15,
+  // each chroma plane's 2x2 over its four lanes
+  const int base = lane & ~3;
+  const int s1 = (cq & 1) ? -1 : 1, s2 = (cq & 2) ? -1 : 1;
+  int g[16], h[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) g[i] = __shfl_sync(FULL_MASK, w[0], i);
+  had4(g, h);
+  {
+    const int x0 = __shfl_sync(FULL_MASK, w[0], base), x1 = __shfl_sync(FULL_MASK, w[0], base + 1),
+              x2 = __shfl_sync(FULL_MASK, w[0], base + 2),
+              x3 = __shfl_sync(FULL_MASK, w[0], base + 3);
+    const int hd = pick16(h, L & 15), a = abs(hd) >> 1;
+    o.dc = is_c ? Q.q_dc(x0 + s1 * x1 + s2 * x2 + s1 * s2 * x3) : Q.q_dc(hd < 0 ? -a : a);
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) g[i] = __shfl_sync(FULL_MASK, o.dc, i);
+  had4(g, h);
+  int d[16];
+  {
+    const int y0 = __shfl_sync(FULL_MASK, o.dc, base), y1 = __shfl_sync(FULL_MASK, o.dc, base + 1),
+              y2 = __shfl_sync(FULL_MASK, o.dc, base + 2),
+              y3 = __shfl_sync(FULL_MASK, o.dc, base + 3);
+    const int v00 = c_v[0][Q.m];
+    if (is_c) {
+      d[0] = ((y0 + s1 * y1 + s2 * y2 + s1 * s2 * y3) * v00 * (1 << Q.s)) >> 1;
+    } else {
+      const int f = pick16(h, L & 15);
+      d[0] = qm >= 12 ? f * v00 * (1 << (Q.s - 2)) : (f * v00 + (1 << (1 - Q.s))) >> (2 - Q.s);
+    }
+  }
+#pragma unroll
+  for (int k = 1; k < 16; ++k) d[k] = Q.dq(o.lv[k], k);
+  int res[16];
+  idct4(d, res);
+  o.ssd = 0;
+  o.bits = lbits(o.dc);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int v = min(max(pred + res[k], 0), 255);
+    o.rec[k] = v;
+    o.ssd += (v - x[k]) * (v - x[k]);
+    o.bits += lbits(o.lv[k]);
+  }
+}
+
+// Launch 1: every MB's candidate scored as the reference scores it,
+// (Y + Cb) + Cr + lam * (bits + 11) in float32, against the inter score
+// pass 1 left; only the `want` byte is written.
 template <int TIER>
-__global__ void __launch_bounds__(NT_I) inter_i16_kernel(
+__global__ void __launch_bounds__(NT) i16_want_kernel(
     const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
     const uint8_t* __restrict__ cr, const uint8_t* __restrict__ ry,
     const uint8_t* __restrict__ rcb, const uint8_t* __restrict__ rcr,
-    const int* __restrict__ qp_dev, const int* __restrict__ qp_map,
-    const float* __restrict__ lam_tab, const float* __restrict__ score_inter, uint8_t* want,
-    int* i16_dc, int* cand_ac, int* cand_cac, int* cand_cdc, uint8_t* cand_ry,
-    uint8_t* cand_rc, const int* __restrict__ rows, int nc, int qp) {
-  __shared__ I16Smem s;
+    const int* __restrict__ rows, const int* __restrict__ qp_dev, const int* __restrict__ qp_map,
+    const float* __restrict__ lam_tab, const float* __restrict__ score, uint8_t* want, int nc,
+    int qp) {
+  const int lane = threadIdx.x & 31, rb = (nc + MPB - 1) / MPB;
   // r: the stack row (the recon's and every output's), fr: the frame row
   // of the current planes (rows[r] over a worklist)
-  const int mb = blockIdx.x, r = mb / nc, c = mb % nc, t = threadIdx.x;
-  const int fr = rows ? rows[r] : r;
+  const int r = blockIdx.x / rb, c = (blockIdx.x % rb) * MPB + (threadIdx.x >> 5);
+  if (c >= nc) return;
+  const int mb = r * nc + c, fr = rows ? rows[r] : r;
+  if (qp_dev) qp = *qp_dev;
+  const int qm = TIER == 2 ? qp_map[mb] : qp;
+  I16Lane o;
+  i16_candidate(o, lane, y, cb, cr, ry, rcb, rcr, fr, r, c, nc * 16, nc * 8, qm);
+  const int sy = __reduce_add_sync(FULL_MASK, lane < 16 ? o.ssd : 0);
+  const int sb = __reduce_add_sync(FULL_MASK, lane >= 16 && lane < 20 ? o.ssd : 0);
+  const int sr = __reduce_add_sync(FULL_MASK, lane >= 20 && lane < 24 ? o.ssd : 0);
+  const int bits = __reduce_add_sync(FULL_MASK, lane < 24 ? o.bits : 0);
+  if (lane == 0) {
+    const float d = __fadd_rn(__fadd_rn((float)sy, (float)sb), (float)sr);
+    const float si = __fmaf_rn(lam_tab[qm], __fadd_rn((float)bits, 11.0f), d);
+    want[mb] = si < score[mb];
+  }
+}
+
+// one warp's staged outputs of a kept MB (read back as 16-byte words)
+struct __align__(16) I16Stage {
+  int ac[240];        // i16_ac: 16 blocks (blkIdx) x 15 zigzag
+  int cac[120];       // cb_ac, cr_ac: 4 blocks x 15 zigzag each
+  int cdc[8];         // cb_dc, cr_dc
+  uint32_t ry[64];    // recon: 16 rows x 16 bytes
+  uint32_t rc[2][16]; // 8 rows x 8 bytes a chroma plane
+};
+
+// Launch 2: each MB's gate from its row's want bytes, the even positions
+// of each run of wanting MBs (counted from the last MB to its left that
+// does not want, found 32 at a time by ballots); a kept MB's left
+// neighbour is never kept, so the column its candidate reads is still
+// pass 1's.  A kept MB recomputes its candidate and writes its levels,
+// zero MV, recon and the I16 keys; every other MB writes zero I16 keys.
+template <int TIER>
+__global__ void __launch_bounds__(NT) i16_merge_kernel(
+    const uint8_t* __restrict__ y, const uint8_t* __restrict__ cb,
+    const uint8_t* __restrict__ cr, const int* __restrict__ rows, const int* __restrict__ qp_dev,
+    const int* __restrict__ qp_map, const uint8_t* __restrict__ want, int* mv, int* luma,
+    int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry, uint8_t* rcb, uint8_t* rcr,
+    uint8_t* mb_intra, int* i16_dc, int* i16_ac, int nc, int qp) {
+  __shared__ I16Stage stage[MPB];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, rb = (nc + MPB - 1) / MPB;
+  const int r = blockIdx.x / rb, c = (blockIdx.x % rb) * MPB + warp;
+  if (c >= nc) return;
+  const int mb = r * nc + c;
+  const uint8_t* wr = want + (size_t)r * nc;
+  bool keep = false;
+  if (wr[c]) {
+    int last = -2;                    // the last MB left of c that does not want
+    for (int e = c - 1; last == -2; e -= 32) {
+      const int p = e - lane;
+      const unsigned nw = __ballot_sync(FULL_MASK, p < 0 || !wr[p]);
+      if (nw) last = e - (__ffs(nw) - 1);
+    }
+    keep = ((c - last - 1) & 1) == 0;
+  }
+  if (lane == 0) mb_intra[mb] = keep;
+  int4* ac4 = reinterpret_cast<int4*>(i16_ac + (size_t)mb * 240);
+  if (!keep) {                        // 60 + 4 zero int4: the I16 keys
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = lane + 32 * h;
+      if (q < 60) ac4[q] = make_int4(0, 0, 0, 0);
+      else reinterpret_cast<int4*>(i16_dc + (size_t)mb * 16)[q - 60] = make_int4(0, 0, 0, 0);
+    }
+    return;
+  }
   const int W = nc * 16, Wc = nc * 8;
   if (qp_dev) qp = *qp_dev;
   const int qm = TIER == 2 ? qp_map[mb] : qp;
-  const Qp Q(qm), QC(dngd_chroma_qp(qm));
-  const bool has_left = c > 0;
-  for (int i = t; i < 256; i += NT_I) s.cur[i] = y[(fr * 16 + (i >> 4)) * W + c * 16 + (i & 15)];
-  for (int i = t; i < 128; i += NT_I) {
-    const int p = i >> 6, k = i & 63;
-    s.curc[p][k] = (p ? cr : cb)[(fr * 8 + (k >> 3)) * Wc + c * 8 + (k & 7)];
+  I16Lane o;
+  i16_candidate(o, lane, y, cb, cr, ry, rcb, rcr, rows ? rows[r] : r, r, c, W, Wc, qm);
+  I16Stage& st = stage[warp];
+  const int L = min(lane, 23), cq = (L - 16) & 3, cp = (L - 16) >> 2;
+  // the DC levels in zigzag order: lane k takes raster position zz(k)
+  const int dz = __shfl_sync(FULL_MASK, o.dc, zz(lane & 15));
+  if (lane < 16) {
+    const int by = lane >> 2, bx = lane & 3;
+    const int blk = (by >> 1) * 8 + (bx >> 1) * 4 + (by & 1) * 2 + (bx & 1);
+#pragma unroll
+    for (int k = 1; k < 16; ++k) st.ac[blk * 15 + k - 1] = o.lv[zz(k)];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      st.ry[(by * 4 + i) * 4 + bx] = o.rec[i * 4] | o.rec[i * 4 + 1] << 8 |
+                                     o.rec[i * 4 + 2] << 16 | o.rec[i * 4 + 3] << 24;
+  } else if (lane < 24) {
+    const int by = cq >> 1, bx = cq & 1;
+#pragma unroll
+    for (int k = 1; k < 16; ++k) st.cac[cp * 60 + cq * 15 + k - 1] = o.lv[zz(k)];
+    st.cdc[cp * 4 + cq] = o.dc;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      st.rc[cp][(by * 4 + i) * 2 + bx] = o.rec[i * 4] | o.rec[i * 4 + 1] << 8 |
+                                         o.rec[i * 4 + 2] << 16 | o.rec[i * 4 + 3] << 24;
   }
-  if (t < 16) {
-    s.yl[t] = has_left ? ry[(r * 16 + t) * W + c * 16 - 1] : 0;
-  } else if (t < 32) {
-    const int p = (t - 16) >> 3, k = (t - 16) & 7;
-    s.cl[p][k] = has_left ? (p ? rcr : rcb)[(r * 8 + k) * Wc + c * 8 - 1] : 0;
+  __syncwarp();
+  const int4 z4 = make_int4(0, 0, 0, 0);
+  int4* l4 = reinterpret_cast<int4*>(luma + (size_t)mb * 256);
+  l4[lane] = z4;
+  l4[lane + 32] = z4;
+  if (lane == 0) *reinterpret_cast<int2*>(mv + (size_t)mb * 2) = make_int2(0, 0);
+  if (lane < 16) i16_dc[(size_t)mb * 16 + lane] = dz;
+  const int4* sa = reinterpret_cast<const int4*>(st.ac);
+  ac4[lane] = sa[lane];
+  if (lane < 28) ac4[lane + 32] = sa[lane + 32];
+  if (lane < 30) {                    // chroma AC: 15 int4 a plane
+    const int p = lane / 15, q = lane - 15 * p;
+    reinterpret_cast<int4*>((p ? cr_ac : cb_ac) + (size_t)mb * 60)[q] =
+        reinterpret_cast<const int4*>(st.cac + p * 60)[q];
+  } else {                            // chroma DC: one int4 a plane
+    const int p = lane - 30;
+    *reinterpret_cast<int4*>((p ? cr_dc : cb_dc) + (size_t)mb * 4) =
+        reinterpret_cast<const int4*>(st.cdc)[p];
   }
-  __syncthreads();
-  int pred_dc = 128;
-  if (has_left) {
-    int sum = 0;
-    for (int i = 0; i < 16; ++i) sum += s.yl[i];
-    pred_dc = (sum + 8) >> 4;
-  }
-  const int p = (t - 16) >> 2, q = (t - 16) & 3;
-  int cpred = 128;
-  if (t >= 16 && t < 24 && has_left) {
-    const int* l = s.cl[p] + 4 * (q >> 1);
-    cpred = (l[0] + l[1] + l[2] + l[3] + 2) >> 2;
-  }
-  int x[16], w[16];
-  if (t < 16) {
-    const int by = t >> 2, bx = t & 3;
-    for (int i = 0; i < 16; ++i) x[i] = s.cur[(by * 4 + (i >> 2)) * 16 + bx * 4 + (i & 3)] - pred_dc;
-    fdct4(x, w);
-    s.dcraw[t] = w[0];
-    s.ac[t][0] = 0;
-    for (int i = 1; i < 16; ++i) s.ac[t][i] = Q.q(w[i], i);
-    s.bits_ac[t] = level_bits(s.ac[t]);
-  } else if (t < 24) {
-    const int by = q >> 1, bx = q & 1;
-    for (int i = 0; i < 16; ++i)
-      x[i] = s.curc[p][(by * 4 + (i >> 2)) * 8 + bx * 4 + (i & 3)] - cpred;
-    fdct4(x, w);
-    s.dcrawc[p][q] = w[0];
-    s.acc[p][q][0] = 0;
-    for (int i = 1; i < 16; ++i) s.acc[p][q][i] = QC.q(w[i], i);
-    s.bits_c[t - 16] = level_bits(s.acc[p][q]);
-  }
-  __syncthreads();
-  if (t == 0) {
-    int wd2[16], fd[16];
-    had4(s.dcraw, wd2);
-    for (int i = 0; i < 16; ++i) {
-      const int a = abs(wd2[i]) >> 1;
-      s.dcl[i] = Q.q_dc(wd2[i] < 0 ? -a : a);
-    }
-    s.bits_dc = level_bits(s.dcl);
-    had4(s.dcl, fd);
-    const int v00 = c_v[0][Q.m];
-    for (int i = 0; i < 16; ++i)
-      s.dcy[i] = qm >= 12 ? fd[i] * v00 * (1 << (Q.s - 2))
-                          : (fd[i] * v00 + (1 << (1 - Q.s))) >> (2 - Q.s);
-  } else if (t < 3) {
-    const int pc = t - 1;
-    int wd[4], fd[4];
-    had2(s.dcrawc[pc], wd);
-    for (int k = 0; k < 4; ++k) s.dclc[pc][k] = QC.q_dc(wd[k]);
-    s.bits_cdc[pc] = level_bits(s.dclc[pc], 4);
-    had2(s.dclc[pc], fd);
-    for (int k = 0; k < 4; ++k) s.dcc[pc][k] = (fd[k] * c_v[0][QC.m] * (1 << QC.s)) >> 1;
-  }
-  __syncthreads();
-  if (t < 16) {
-    const int by = t >> 2, bx = t & 3;
-    int wr[16], res[16], ssd = 0;
-    wr[0] = s.dcy[t];
-    for (int i = 1; i < 16; ++i) wr[i] = Q.dq(s.ac[t][i], i);
-    idct4(wr, res);
-    for (int i = 0; i < 16; ++i) {
-      const int k = (by * 4 + (i >> 2)) * 16 + bx * 4 + (i & 3);
-      const int v = min(max(pred_dc + res[i], 0), 255);
-      s.rec[k] = v;
-      ssd += (v - s.cur[k]) * (v - s.cur[k]);
-    }
-    s.ssd[t] = ssd;
-  } else if (t < 24) {
-    const int by = q >> 1, bx = q & 1;
-    int wr[16], res[16], ssd = 0;
-    wr[0] = s.dcc[p][q];
-    for (int i = 1; i < 16; ++i) wr[i] = QC.dq(s.acc[p][q][i], i);
-    idct4(wr, res);
-    for (int i = 0; i < 16; ++i) {
-      const int k = (by * 4 + (i >> 2)) * 8 + bx * 4 + (i & 3);
-      const int v = min(max(cpred + res[i], 0), 255);
-      s.recc[p][k] = v;
-      ssd += (v - s.curc[p][k]) * (v - s.curc[p][k]);
-    }
-    s.ssd[t] = ssd;
-  }
-  __syncthreads();
-  if (t == 0) {
-    int bits = s.bits_dc + s.bits_cdc[0] + s.bits_cdc[1];
-    for (int k = 0; k < 16; ++k) bits += s.bits_ac[k];
-    for (int k = 0; k < 8; ++k) bits += s.bits_c[k];
-    int sy = 0, sb = 0, sr = 0;
-    for (int k = 0; k < 16; ++k) sy += s.ssd[k];
-    for (int k = 16; k < 20; ++k) {
-      sb += s.ssd[k];
-      sr += s.ssd[k + 4];
-    }
-    // (Y + Cb) + Cr + lam * (bits + 11) against the inter score
-    const float d = __fadd_rn(__fadd_rn((float)sy, (float)sb), (float)sr);
-    const float si = __fmaf_rn(lam_tab[qm], __fadd_rn((float)bits, 11.0f), d);
-    want[mb] = si < score_inter[mb];
-  }
-  if (t < 16) i16_dc[mb * 16 + t] = s.dcl[c_zz[t]];
-  for (int i = t; i < 240; i += NT_I) {
-    const int blk = i / 15, k = i % 15 + 1;
-    cand_ac[mb * 240 + i] = s.ac[c_blk_y[blk] * 4 + c_blk_x[blk]][c_zz[k]];
-  }
-  for (int i = t; i < 120; i += NT_I) {
-    const int pc = i / 60, qc = (i % 60) / 15, k = i % 15 + 1;
-    cand_cac[mb * 120 + i] = s.acc[pc][qc][c_zz[k]];
-  }
-  if (t < 8) cand_cdc[mb * 8 + t] = s.dclc[t >> 2][t & 3];
-  for (int i = t; i < 256; i += NT_I) cand_ry[mb * 256 + i] = (uint8_t)s.rec[i];
-  for (int i = t; i < 128; i += NT_I) cand_rc[mb * 128 + i] = (uint8_t)s.recc[i >> 6][i & 63];
-}
-
-// --- I16-in-P, pass 3: run-parity gate, then the merge ---------------------
-
-// one warp per MB row: keep the even positions of each run of wanting MBs
-__global__ void i16_gate_kernel(const uint8_t* __restrict__ want, uint8_t* mb_intra, int nr,
-                                int nc) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
-  if (row >= nr) return;
-  const int per = (nc + 31) / 32, c0 = min(lane * per, nc), c1 = min(c0 + per, nc);
-  const uint8_t* wr = want + row * nc;
-  int last = -1;                          // the last non-wanting MB
-  for (int c = c0; c < c1; ++c)
-    if (!wr[c]) last = c;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, last, o);
-    if (lane >= o) last = max(last, v);
-  }
-  int ln = __shfl_up_sync(0xffffffffu, last, 1);
-  if (lane == 0) ln = -1;
-  for (int c = c0; c < c1; ++c) {
-    if (!wr[c]) ln = c;
-    mb_intra[row * nc + c] = wr[c] && ((c - ln - 1) % 2 == 0);
-  }
-}
-
-// one block per MB: a kept candidate replaces the inter MB's levels, MV
-// and recon; everywhere else the I16 outputs are zero
-__global__ void __launch_bounds__(NT) i16_merge_kernel(
-    const uint8_t* __restrict__ mb_intra, const int* __restrict__ cand_ac,
-    const int* __restrict__ cand_cac, const int* __restrict__ cand_cdc,
-    const uint8_t* __restrict__ cand_ry, const uint8_t* __restrict__ cand_rc, int* mv,
-    int* luma, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry, uint8_t* rcb,
-    uint8_t* rcr, int* i16_dc, int* i16_ac, int nc) {
-  const int mb = blockIdx.x, r = mb / nc, c = mb % nc, t = threadIdx.x;
-  const int W = nc * 16, Wc = nc * 8;
-  if (!mb_intra[mb]) {
-    if (t < 16) i16_dc[mb * 16 + t] = 0;
-    if (t < 240) i16_ac[mb * 240 + t] = 0;
-    return;
-  }
-  luma[mb * 256 + t] = 0;
-  if (t < 2) mv[mb * 2 + t] = 0;
-  if (t < 240) i16_ac[mb * 240 + t] = cand_ac[mb * 240 + t];
-  if (t < 120) ((t < 60) ? cb_ac : cr_ac)[mb * 60 + t % 60] = cand_cac[mb * 120 + t];
-  if (t < 8) ((t < 4) ? cb_dc : cr_dc)[mb * 4 + (t & 3)] = cand_cdc[mb * 8 + t];
-  ry[(r * 16 + (t >> 4)) * W + c * 16 + (t & 15)] = cand_ry[mb * 256 + t];
-  if (t < 128) {
-    const int p = t >> 6, k = t & 63;
-    (p ? rcr : rcb)[(r * 8 + (k >> 3)) * Wc + c * 8 + (k & 7)] = cand_rc[mb * 128 + t];
+  if (lane < 16) {                    // recon: a luma row a lane, then chroma
+    *reinterpret_cast<uint4*>(ry + (size_t)(r * 16 + lane) * W + c * 16) =
+        reinterpret_cast<const uint4*>(st.ry)[lane];
+  } else {
+    const int p = (lane - 16) >> 3, i = lane & 7;
+    *reinterpret_cast<uint2*>((p ? rcr : rcb) + (size_t)(r * 8 + i) * Wc + c * 8) =
+        reinterpret_cast<const uint2*>(st.rc[p])[i];
   }
 }
 
@@ -1052,76 +1098,43 @@ extern "C" int inter_frame_padded_launch(const uint8_t* y, const uint8_t* cb, co
       cb_ac, cr_dc, cr_ac, ry, rcb, rcr, score, nr, nc, qp, qpc, tier, ns * nr, stream);
 }
 
-// I16-in-P pass 2, after inter_frame_hq_launch on the same stream: ry/rcb/
-// rcr its recon; cand_* per MB (16 x 15 luma AC, 2 x 4 x 15 chroma AC,
-// 2 x 4 chroma DC, 256 + 128 recon samples); i16_dc written for every MB.
-// nr stack rows: the frame's, or (rows non-null) the worklist's, whose
-// current planes are read at frame row rows[i].
-static int inter_i16_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
-                                const uint8_t* ry, const uint8_t* rcb, const uint8_t* rcr,
-                                const int* rows, const int* qp_dev, const int* qp_map,
-                                const float* lam, const float* score, uint8_t* want,
-                                int* i16_dc, int* cand_ac, int* cand_cac, int* cand_cdc,
-                                uint8_t* cand_ry, uint8_t* cand_rc, int nr, int nc, int qp,
-                                int qpc, int tier, cudaStream_t stream) {
-  (void)qpc;
-  if (nr <= 0 || nc <= 0) return 0;
-  if (tier == 2) {
-    if (!qp_map) return cudaErrorInvalidValue;
-    inter_i16_kernel<2><<<nr * nc, NT_I, 0, stream>>>(y, cb, cr, ry, rcb, rcr, qp_dev, qp_map,
-                                                      lam, score, want, i16_dc, cand_ac,
-                                                      cand_cac, cand_cdc, cand_ry, cand_rc, rows,
-                                                      nc, qp);
-  } else if (tier == 1) {
-    inter_i16_kernel<1><<<nr * nc, NT_I, 0, stream>>>(y, cb, cr, ry, rcb, rcr, qp_dev, qp_map,
-                                                      lam, score, want, i16_dc, cand_ac,
-                                                      cand_cac, cand_cdc, cand_ry, cand_rc, rows,
-                                                      nc, qp);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return dngd_last_error();
-}
-
-// I16-in-P pass 3: the gate (one warp a row) and the merge (a block an MB).
-static int inter_merge_launch(const uint8_t* want, int* i16_dc,
-                                  const int* cand_ac, const int* cand_cac, const int* cand_cdc,
-                                  const uint8_t* cand_ry, const uint8_t* cand_rc, int* mv,
-                                  int* luma, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac,
-                                  uint8_t* ry, uint8_t* rcb, uint8_t* rcr, uint8_t* mb_intra,
-                                  int* i16_ac, int nr, int nc, cudaStream_t stream) {
-  if (nr <= 0 || nc <= 0) return 0;
-  const int threads = 128, rows_per_block = threads / 32;
-  i16_gate_kernel<<<(nr + rows_per_block - 1) / rows_per_block, threads, 0, stream>>>(
-      want, mb_intra, nr, nc);
-  int e;
-  if ((e = dngd_last_error())) return e;
-  i16_merge_kernel<<<nr * nc, NT, 0, stream>>>(mb_intra, cand_ac, cand_cac, cand_cdc, cand_ry,
-                                               cand_rc, mv, luma, cb_dc, cb_ac, cr_dc, cr_ac,
-                                               ry, rcb, rcr, i16_dc, i16_ac, nc);
-  return dngd_last_error();
-}
-
-// I16-in-P passes 2 and 3 in one host call, after inter_frame_hq_launch or
-// the padded form on the same stream: every MB's candidate, then the gate
-// and the merge.  mv .. rcr are the P core's outputs (the candidates read
-// its recon, the merge overwrites the MBs that turn intra); rows null for
-// the frame's nr rows, else the worklist of the nr stack rows (K5r); the
-// rest as the two passes above take them.
+// I16-in-P (two launches), after inter_frame_hq_launch or the padded form
+// on the same stream: want (nr x nc bytes) every MB's candidate against
+// the inter score `score` (i16_want_kernel), then the gate and the merge
+// (i16_merge_kernel).  mv .. rcr are the P core's outputs (the candidates
+// read its recon, the merge overwrites the MBs that turn intra); mb_intra,
+// i16_dc and i16_ac are written for every MB; rows null for the frame's nr
+// rows, else the worklist of the nr stack rows (K5r), whose current
+// planes are read at frame row rows[i].  tier 1 (qp or *qp_dev) or 2
+// (qp_map (nr, nc)); lam the tier's lambda table.
 extern "C" int inter_intra_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
                                   const int* rows, const int* qp_dev, const int* qp_map,
-                                  const float* lam, const float* score, uint8_t* want,
-                                  int* i16_dc, int* cand_ac, int* cand_cac, int* cand_cdc,
-                                  uint8_t* cand_ry, uint8_t* cand_rc, int* mv, int* luma,
-                                  int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac, uint8_t* ry,
-                                  uint8_t* rcb, uint8_t* rcr, uint8_t* mb_intra, int* i16_ac,
-                                  int nr, int nc, int qp, int qpc, int tier,
+                                  const float* lam, const float* score, uint8_t* want, int* mv,
+                                  int* luma, int* cb_dc, int* cb_ac, int* cr_dc, int* cr_ac,
+                                  uint8_t* ry, uint8_t* rcb, uint8_t* rcr, uint8_t* mb_intra,
+                                  int* i16_dc, int* i16_ac, int nr, int nc, int qp, int tier,
                                   cudaStream_t stream) {
-  const int e = inter_i16_launch(y, cb, cr, ry, rcb, rcr, rows, qp_dev, qp_map, lam, score,
-                                 want, i16_dc, cand_ac, cand_cac, cand_cdc, cand_ry, cand_rc,
-                                 nr, nc, qp, qpc, tier, stream);
+  if (nr <= 0 || nc <= 0) return 0;
+  if ((tier != 1 && tier != 2) || (tier == 2 && !qp_map)) return cudaErrorInvalidValue;
+  if (!outputs_aligned(y, cb, cr, luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr) ||
+      !aligned(mv, 8) || !aligned(i16_dc, 16) || !aligned(i16_ac, 16))
+    return cudaErrorMisalignedAddress;
+  const int grid = nr * row_blocks(nc);
+  if (tier == 2)
+    i16_want_kernel<2><<<grid, NT, 0, stream>>>(y, cb, cr, ry, rcb, rcr, rows, qp_dev, qp_map,
+                                                lam, score, want, nc, qp);
+  else
+    i16_want_kernel<1><<<grid, NT, 0, stream>>>(y, cb, cr, ry, rcb, rcr, rows, qp_dev, qp_map,
+                                                lam, score, want, nc, qp);
+  const int e = dngd_last_error();
   if (e) return e;
-  return inter_merge_launch(want, i16_dc, cand_ac, cand_cac, cand_cdc, cand_ry, cand_rc, mv,
-                            luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr, mb_intra, i16_ac,
-                            nr, nc, stream);
+  if (tier == 2)
+    i16_merge_kernel<2><<<grid, NT, 0, stream>>>(y, cb, cr, rows, qp_dev, qp_map, want, mv,
+                                                 luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr,
+                                                 mb_intra, i16_dc, i16_ac, nc, qp);
+  else
+    i16_merge_kernel<1><<<grid, NT, 0, stream>>>(y, cb, cr, rows, qp_dev, qp_map, want, mv,
+                                                 luma, cb_dc, cb_ac, cr_dc, cr_ac, ry, rcb, rcr,
+                                                 mb_intra, i16_dc, i16_ac, nc, qp);
+  return dngd_last_error();
 }

@@ -415,8 +415,6 @@ def _hq_decisions(mv, lv, luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb,
     the run-parity gate lets it (no intra MB has an intra left
     neighbour).  MB-shaped (R, C, ...) tensors in and out; ``extra``
     holds the new ``mv`` and the I16-in-P outputs."""
-    nr, nc = mv.shape[:2]
-    dev = mv.device
     zero_mv = (mv == 0).all(dim=-1)
     bits_mb = (_level_bits_est(lv, (2, 3, 4, 5))
                + _level_bits_est(cb_ac, (2, 3)) + _level_bits_est(cb_dc, (2,))
@@ -440,8 +438,29 @@ def _hq_decisions(mv, lv, luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb,
     if not p_intra:
         return (luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb, rec_cr,
                 extra)
+    score_inter = torch.where(force, d_skip + lam_d, coded_score)
+    return _i16_in_p(mv, luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb,
+                     rec_cr, cur_y, cur_cb, cur_cr, lam_d, qp_q, score_inter)
 
-    # --- the I16 (DC) candidate of every MB -----------------------------
+
+def _run_parity_gate(want: torch.Tensor) -> torch.Tensor:
+    """The reference's run-parity gate over (..., C) bool ``want``: keep
+    the even positions (0, 2, ...) of each run of wanting MBs along a
+    row, so no kept MB has a kept left neighbour."""
+    idx = torch.arange(want.shape[-1], device=want.device).expand(want.shape)
+    last_not = torch.cummax(torch.where(~want, idx, -1), dim=-1).values
+    return want & ((idx - last_not - 1) % 2 == 0)
+
+
+def _i16_in_p(mv, luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb, rec_cr,
+              cur_y, cur_cb, cur_cr, lam_d, qp_q, score_inter):
+    """I16-in-P after the forced skip: the I16 (DC) candidate of every MB
+    from its left neighbour's skip-merged recon, wanted where it scores
+    below ``score_inter``, kept where the run-parity gate lets it, and
+    merged.  MB-shaped (R, C, ...) tensors in and out, as
+    :func:`_hq_decisions` returns them."""
+    nr, nc = mv.shape[:2]
+    dev = mv.device
     n = nr * nc
     has_left = (torch.arange(nc, device=dev) > 0)[None, :].expand(nr, nc)
     hl = has_left.reshape(n)
@@ -484,13 +503,7 @@ def _hq_decisions(mv, lv, luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb,
                + _mb_ssd(cri_rec, cur_cr.reshape(n, 8, 8)))
     lam_f = lam_d.reshape(n)
     score_intra = fma32(lam_f, bits_i + _RATE_I16_HDR_BITS, d_intra)
-    score_inter = torch.where(force, d_skip + lam_d, coded_score)
-    want = score_intra.reshape(nr, nc) < score_inter
-
-    # run-parity gate: keep the even positions of each run of wanting MBs
-    idx = torch.arange(nc, device=dev)[None, :].expand(nr, nc)
-    last_not = torch.cummax(torch.where(~want, idx, -1), dim=1).values
-    is_intra = want & ((idx - last_not - 1) % 2 == 0)
+    is_intra = _run_parity_gate(score_intra.reshape(nr, nc) < score_inter)
 
     zz = torch.as_tensor(ZIGZAG4, dtype=torch.long, device=dev)
     blk_y = torch.as_tensor(LUMA_BLOCK_ORDER[:, 1], dtype=torch.long,
@@ -502,7 +515,6 @@ def _hq_decisions(mv, lv, luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb,
     chroma_ac = lambda a: a.reshape(n, 4, 16)[..., zz[1:]].reshape(nr, nc, 4,
                                                                    15)
     luma = torch.where(i2, 0, luma)
-    extra["mv"] = torch.where(i1, 0, mv)
     cb_ac = torch.where(i2, chroma_ac(cbi_ac), cb_ac)
     cr_ac = torch.where(i2, chroma_ac(cri_ac), cr_ac)
     cb_dc = torch.where(i1, cbi_dc.reshape(nr, nc, 4), cb_dc)
@@ -512,10 +524,54 @@ def _hq_decisions(mv, lv, luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb,
     rec_cr = torch.where(i2, cri_rec.reshape(nr, nc, 8, 8), rec_cr)
     i16_dc = dc_i.reshape(n, 16)[:, zz].reshape(nr, nc, 16)
     i16_ac = ac_i.reshape(n, 4, 4, 16)[..., zz[1:]][:, blk_y, blk_x]
-    extra["mb_intra"] = is_intra
-    extra["i16_dc"] = torch.where(i1, i16_dc, 0)
-    extra["i16_ac"] = torch.where(i2, i16_ac.reshape(nr, nc, 16, 15), 0)
+    extra = {"mv": torch.where(i1, 0, mv), "mb_intra": is_intra,
+             "i16_dc": torch.where(i1, i16_dc, 0),
+             "i16_ac": torch.where(i2, i16_ac.reshape(nr, nc, 16, 15), 0)}
     return luma, cb_ac, cb_dc, cr_ac, cr_dc, recon_y, rec_cb, rec_cr, extra
+
+
+def i16_passes_plain(y, cb, cr, res: dict, score, tune: str, qp: int,
+                     qp_map=None, rows=None) -> dict:
+    """Plain PyTorch version of the I16-in-P launches alone: the P core's
+    outputs ``res`` (frame-shaped, as :func:`encode_p_frame` returns them
+    before I16-in-P; over the worklist ``rows``, the current MBs of stack
+    row i at frame row ``rows[i]``) with the inter score ``score`` (R, C)
+    float32 -> every output with ``mb_intra``, ``i16_dc`` and ``i16_ac``,
+    at tier ``tune`` ("hq" quantising at ``qp_map``'s qps)."""
+    nr, nc = res["mv"].shape[:2]
+    dev = res["mv"].device
+    fr = (torch.arange(nr, device=dev) if rows is None
+          else rows.to(device=dev, dtype=torch.long))
+
+    def mbs(plane, k, lines):
+        p = plane.to(torch.int32)
+        if lines:
+            p = p.reshape(-1, k, p.shape[-1])[fr].reshape(nr * k, -1)
+        return p.reshape(nr, k, nc, k).permute(0, 2, 1, 3)
+
+    if tune == "hq":
+        qi = qp_map.to(device=dev, dtype=torch.long)
+        qp_q = qp_map.to(device=dev, dtype=torch.int32)
+    else:
+        qi = torch.full((nr, nc), int(qp), dtype=torch.long, device=dev)
+        qp_q = int(qp)
+    lam_d = torch.as_tensor(aq.lam_tables(tune)[0], device=dev)[qi]
+    i32 = lambda k: res[k].to(torch.int32)
+    out = _i16_in_p(i32("mv"), i32("luma"), i32("cb_ac"), i32("cb_dc"),
+                    i32("cr_ac"), i32("cr_dc"), mbs(res["recon_y"], 16, False),
+                    mbs(res["recon_cb"], 8, False),
+                    mbs(res["recon_cr"], 8, False), mbs(y, 16, True),
+                    mbs(cb, 8, True), mbs(cr, 8, True), lam_d, qp_q,
+                    score.to(device=dev, dtype=torch.float32))
+    luma, cb_ac, cb_dc, cr_ac, cr_dc, ry, rcb, rcr, extra = out
+    plane = lambda rec, k: rec.permute(0, 2, 1, 3).reshape(nr * k, nc * k).to(
+        torch.uint8)
+    c = lambda a: a.to(torch.int32).contiguous()
+    return {"mv": c(extra["mv"]), "luma": c(luma), "cb_dc": c(cb_dc),
+            "cb_ac": c(cb_ac), "cr_dc": c(cr_dc), "cr_ac": c(cr_ac),
+            "recon_y": plane(ry, 16), "recon_cb": plane(rcb, 8),
+            "recon_cr": plane(rcr, 8), "mb_intra": extra["mb_intra"],
+            "i16_dc": c(extra["i16_dc"]), "i16_ac": c(extra["i16_ac"])}
 
 
 _OUT_KEYS = ("mv", "luma", "cb_dc", "cb_ac", "cr_dc", "cr_ac",
@@ -579,11 +635,12 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
     (``out``'s, where given), so a pipelined caller may keep them.  CUDA
     tensors launch the kernel (a warp per MB, a block per run of eight
     MBs along a row sharing one staged reference strip: every MB's search
-    and residual is independent; under ``p_intra`` then a pass over every
-    MB's I16 candidate, which reads its left neighbour's recon, and a
-    pass per MB row that gates and merges them); CPU tensors run the
-    plain version.  ``qp_dev`` (CUDA only: one int32 on the card) makes
-    the kernels read the slice qp from device memory instead of ``qp``.
+    and residual is independent; under ``p_intra`` then a launch scoring
+    every MB's I16 candidate, which reads its left neighbour's recon, and
+    one that gates each MB from its row's scores and merges the kept
+    candidates); CPU tensors run the plain version.  ``qp_dev`` (CUDA
+    only: one int32 on the card) makes the kernels read the slice qp from
+    device memory instead of ``qp``.
 
     Planes stacked (S, H, W), frames and references alike, code S
     sessions' P frames in one launch (tune "off"; the session the grid's
@@ -664,25 +721,18 @@ def encode_p_frame(y, cb, cr, ref_y, ref_cb, ref_cr, qp: int,
 
 def _i16_passes(y, cb, cr, res, qp_dev, qp_map, lam, score, nr: int,
                 nc: int, qpi, tier: int, dev, rows=None) -> None:
-    """I16-in-P after the hq form of K5, K5p or K5r: every MB's I16
-    candidate (pass 2), then per MB row the run-parity gate and the merge
-    (pass 3), over the nr x nc MBs of ``res`` (frame-shaped memory, or
-    the stack of the worklist ``rows``, whose current MBs lie at frame
-    row ``rows[i]``)."""
-    n = nr * nc
-    cand = {"want": torch.empty((nr, nc), dtype=torch.uint8, device=dev),
-            "ac": torch.empty((n, 16, 15), dtype=torch.int32, device=dev),
-            "cac": torch.empty((n, 2, 4, 15), dtype=torch.int32, device=dev),
-            "cdc": torch.empty((n, 2, 4), dtype=torch.int32, device=dev),
-            "ry": torch.empty((n, 256), dtype=torch.uint8, device=dev),
-            "rc": torch.empty((n, 2, 64), dtype=torch.uint8, device=dev)}
-    # both passes in one host call (two kernels and the gate)
+    """I16-in-P after the hq form of K5, K5p or K5r, two launches in one
+    host call: every MB's I16 candidate scored against ``score`` into a
+    ``want`` byte an MB, then each MB's run-parity gate from its row's
+    want bytes and the merge of the kept candidates, over the nr x nc MBs
+    of ``res`` (frame-shaped memory, or the stack of the worklist
+    ``rows``, whose current MBs lie at frame row ``rows[i]``)."""
+    want = torch.empty((nr, nc), dtype=torch.uint8, device=dev)
     _cuda.launch("inter", "inter_intra_launch",
-                 [y, cb, cr, rows, qp_dev, qp_map, lam, score, cand["want"],
-                  res["i16_dc"], cand["ac"], cand["cac"], cand["cdc"],
-                  cand["ry"], cand["rc"]] + [res[k] for k in _OUT_KEYS]
-                 + [res["mb_intra"], res["i16_ac"]],
-                 [nr, nc] + list(qpi) + [tier], dev)
+                 [y, cb, cr, rows, qp_dev, qp_map, lam, score, want]
+                 + [res[k] for k in _OUT_KEYS]
+                 + [res["mb_intra"], res["i16_dc"], res["i16_ac"]],
+                 [nr, nc, qpi[0], tier], dev)
     if rows is None:
         encode_p_frame.i16.launches += 1
         encode_p_frame.merge.launches += 1
@@ -692,8 +742,8 @@ def _i16_passes(y, cb, cr, res, qp_dev, qp_map, lam, score, nr: int,
 
 encode_p_frame.launches = 0
 encode_p_frame.hq = _cuda.Counter()      # the tune=hq form (pass 1)
-encode_p_frame.i16 = _cuda.Counter()     # I16-in-P candidates (pass 2)
-encode_p_frame.merge = _cuda.Counter()   # run-parity gate and merge (pass 3)
+encode_p_frame.i16 = _cuda.Counter()     # I16-in-P: the want launch
+encode_p_frame.merge = _cuda.Counter()   # I16-in-P: the gate and merge launch
 encode_p_frame.full = _cuda.Counter()    # refine="full" (pass 1), tier 0
 encode_p_frame.full.hq = _cuda.Counter()  # ... tiers 1, 2
 
@@ -732,7 +782,7 @@ def encode_p_frame_rows(y, cb, cr, ref_y, ref_cb, ref_cr, rows, qp: int,
 
 encode_p_frame_rows.launches = 0
 encode_p_frame_rows.hq = _cuda.Counter()    # tiers 1, 2 (pass 1)
-encode_p_frame_rows.i16 = _cuda.Counter()   # I16-in-P passes 2, 3 over the rows
+encode_p_frame_rows.i16 = _cuda.Counter()   # I16-in-P's two launches over the rows
 
 
 def encode_p_frame_padded_ref_plain(y, cb, cr, ref_y_pad, ref_cb_pad,

@@ -663,8 +663,10 @@ def spatial_halo_pad(ref_y, ref_cb, ref_cr, nx: int, halo: bool = True):
     ``halo=False`` (the measurement twin) copies the shard's own edge
     rows at every seam.  ``ref_*`` are the whole frame's uint8 planes
     (H, W), (H/2, W/2); returns (nx, H/nx + 26, W + 26) and (nx, H/(2 nx)
-    + 26, W/2 + 26) uint8 planes.  CUDA tensors launch ``csrc/spatial.cu``
-    (a thread per output byte); CPU tensors run the plain version."""
+    + 26, W/2 + 26) uint8 planes, contiguous views of one buffer.  CUDA
+    tensors launch ``csrc/spatial.cu`` (one launch over the three planes,
+    a thread per 16-byte output word; the planes may start at any byte);
+    CPU tensors run the plain version."""
     from ..ops.h264_device import _check_planes
     from ..ops.h264_inter import _PAD
 
@@ -675,13 +677,19 @@ def spatial_halo_pad(ref_y, ref_cb, ref_cr, nx: int, halo: bool = True):
                          "rows")
     if ref_y.device.type == "cpu":
         return spatial_halo_pad_plain(ref_y, ref_cb, ref_cr, nx, halo)
-    dev = ref_y.device
-    out = (torch.empty((nx, h // nx + 2 * _PAD, w + 2 * _PAD),
-                       dtype=torch.uint8, device=dev),) + tuple(
-        torch.empty((nx, h // (2 * nx) + 2 * _PAD, w // 2 + 2 * _PAD),
-                    dtype=torch.uint8, device=dev) for _ in range(2))
+    shapes = ((nx, h // nx + 2 * _PAD, w + 2 * _PAD),) + 2 * (
+        (nx, h // (2 * nx) + 2 * _PAD, w // 2 + 2 * _PAD),)
+    sizes = [s[0] * s[1] * s[2] for s in shapes]
+    # each plane 16-byte aligned in the buffer: the kernel's word stores
+    starts = [0, -(-sizes[0] // 16) * 16]
+    starts.append(starts[1] + -(-sizes[1] // 16) * 16)
+    buf = torch.empty(starts[2] + sizes[2], dtype=torch.uint8,
+                      device=ref_y.device)
+    out = tuple(buf[a:a + n].view(s) for a, n, s in zip(starts, sizes,
+                                                         shapes))
     _cuda.launch("spatial", "halo_pad_launch",
-                 [ref_y, ref_cb, ref_cr, *out], [h, w, nx, int(halo)], dev)
+                 [ref_y, ref_cb, ref_cr, *out], [h, w, nx, int(halo)],
+                 ref_y.device)
     spatial_halo_pad.launches += 1
     return out
 
