@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in eighteen phases:
+seeded generator, in nineteen phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -52,6 +52,11 @@ seeded generator, in eighteen phases:
   worklist with duplicate rows, ``qp_dev``) and on the P core's 1080p
   forms with I16-in-P (desktop and noise P frames, worklist, ``qp_dev``,
   K5p);
+- **k16a14d**: K16a (the JPEG transform) and K14d (the SSE reduction)
+  against their plain versions on the inputs that break their designs
+  (K16a: S = 1 and 4, 1080p, 4K, 1919x1079, a ragged tile, 16x16 and
+  17x33, saturated and all-zero frames, rounding ties; K14d: short and
+  misaligned planes, the 4K full-scale pair, graph replays);
 - **modes**: K1's other mode sets (``ENCODER_INTRA_MODES`` full, i16,
   dc) at each tier and K5's ``refine="full"`` (K5 and K5p) against their
   plain versions at 1080p; the served knobs ``ENCODER_INTRA_MODES`` and
@@ -185,6 +190,17 @@ Checks, each of which fails the run:
           worklist with duplicate rows, with and without ``qp_dev``; K5 with
           I16-in-P equal to plain on a 1080p desktop and a noise P frame at
           both tiers, a worklist with duplicates, ``qp_dev``, K5p at nx = 2
+  k16a14d K16a equal to plain, every level of y, cb and cr, at S = 1 and 4
+          on 1080p, 4K, 1919x1079 (edge clamps) and the odd frame padded
+          past one MCU (a ragged tile), 16x16 and 17x33 frames, saturated
+          colours, checkerboards and all-zero frames, with quality 85's
+          tables and tables of ones, and on tests/test_torch_jpeg.py's
+          frames with tables that put a block on rounding ties; two 1080p
+          JPEGs and a 333x177 rect byte-equal to the plain transform's;
+          K14d's exact SSE equal to plain at 0, 1, 15, 16, 17, 4095 and
+          4097 bytes, 1088x1920 twice, a 4K plane of zeros against 255
+          (5.4e11), views 3 and 7 bytes off a 16-byte boundary, one graph
+          replayed 32 times on new planes and a graph of 32 launches
   colour  the odd-geometry stream against one whose colour conversion
           is the plain version; K9 on 1080p and odd frames
   cabac   both routes' access units byte-identical; every K10 and K11
@@ -291,7 +307,10 @@ chip_smoke.py k10k11i-split`` and the k10k11i phase alone ``python3
 chip_smoke.py k10k11i``; 15e and K5's I16-in-P passes: ``python3
 chip_smoke.py pairs --set i16halo --pairs 3 parent=.tree/parent change=.``,
 ``python3 chip_smoke.py i16halo-split`` and the i16halo phase alone ``python3
-chip_smoke.py i16halo``; the damage phase's
+chip_smoke.py i16halo``; K16a and K14d: ``python3 chip_smoke.py pairs --set
+k16a14d --pairs 3 parent=.tree/parent change=.``, ``python3 chip_smoke.py
+k16a14d-split`` and the k16a14d phase alone ``python3 chip_smoke.py
+k16a14d``; the damage phase's
 tune-mask part alone: ``python3 chip_smoke.py tune-mask`` (~75 s).  The BD-rate gate
 in alternating fresh processes is ``tools/bdrate_pairs.py``.
 """
@@ -716,6 +735,8 @@ def run():
     print(f"k10k11i phase done at {time.perf_counter() - t_start:.0f} s")
     i16halo_phase(report)
     print(f"i16halo phase done at {time.perf_counter() - t_start:.0f} s")
+    k16a14d_phase(report)
+    print(f"k16a14d phase done at {time.perf_counter() - t_start:.0f} s")
     rows += modes_phase(report)
     print(f"modes phase done at {time.perf_counter() - t_start:.0f} s")
     rows += colour_phase(report)
@@ -4342,8 +4363,10 @@ def mjpeg_phase(report):
         if ops / FP64_OPS_PER_S * 1e3 > r["bound_ms"]:
             r["bound_ms"], r["bound_by"] = ops / FP64_OPS_PER_S * 1e3, "operations"
     for r, (name, _, fk, *_) in zip(out_rows, specs):    # beside the eager ms
-        if name in ("jpeg_transform", "jpeg_pack", "jpeg_pack_batch"):   # memset + kernel
-            r["device_ms"] = device_ms(fk, name, r["bound_ms"], 1 if name == "jpeg_transform" else 2)
+        if name in ("jpeg_transform", "jpeg_transform_batch", "jpeg_pack",
+                    "jpeg_pack_batch"):       # the pack: memset + kernel
+            r["device_ms"] = device_ms(fk, name, r["bound_ms"],
+                                       1 if name.startswith("jpeg_transform") else 2)
     for r in out_rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
@@ -6529,6 +6552,88 @@ def i16halo_times() -> dict:
     return form_numbers(i16halo_form_times(i16halo_inputs(torch.device("cuda"))))
 
 
+# -- K16a and K14d (the JPEG transform and the SSE reduction) -----------------
+#
+# ``k16a14d_inputs`` holds their main paths' inputs; ``pairs --set k16a14d``
+# times ``k16a14d_times`` on each checkout (``chiprun_out/k16a14d_pairs.json``);
+# ``k16a14d-split`` adds K16a's stages cut out of copies of jpeg.cu
+# (``K16A_OLD_VARIANTS`` or ``K16A_VARIANTS``, by the layout the source
+# holds) and the device times of the next kernels of the ranking
+# (``next_rows``; ``chiprun_out/k16a14d_split.json``).
+
+K16A_FORMS = ("t1080", "t_s4", "t4k", "t_odd")
+SSE_FORMS = ("sse1080", "sse4k")
+
+
+def k16a14d_inputs(dev) -> dict:
+    """K16a's inputs at its main paths' shapes: a 1080p desktop frame with
+    quality 85's tables (``tpumjpegenc``, RFB), the session batch's S = 4
+    frames at 1920x1088, the desktop tiled to 4K and cut to 1919x1079 (edge
+    clamps); K14d's: a desktop IDR's luma against a moved frame's at
+    1088x1920 (the bench's PSNR) and both tiled to a 3840x2160 plane."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import quant
+
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    lq, cq = quant.jpeg_quality_tables(85)
+    f = mjpeg_frames(2)[1]
+    bframes = np.stack([np.pad(g, ((0, BATCH_H - H), (0, 0), (0, 0)), "edge")
+                        for g in mjpeg_frames(BATCH_S, seed=10)])
+    g = gop_frames(2, seed=2)
+    y0, y1 = pair_planes(g[0])[0], pair_planes(g[1])[0]
+    return {"t1080": (up(f)[None], lq, cq, H_PAD, W),
+            "t_s4": (up(bframes), lq, cq, BATCH_H, W),
+            "t4k": (up(np.tile(f, (2, 2, 1)))[None], lq, cq, 2 * H, 2 * W),
+            "t_odd": (up(f[:ODD_H, :ODD_W])[None], lq, cq, -(-ODD_H // 16) * 16,
+                      -(-ODD_W // 16) * 16),
+            "sse1080": (y0, y1),
+            "sse4k": (y0[:H].repeat(2, 2).contiguous(), y1[:H].repeat(2, 2).contiguous())}
+
+
+def k16a_bound_ms(t) -> float:
+    """K16a's bound on ``(rgbs, lq, cq, pad_h, pad_w)``: the larger of its
+    bytes (the frames read once, the levels written) and its float64
+    operations (``K16A_FP64_OPS_PER_MCU``) over the card's rate."""
+    rgbs, _, _, ph, pw = t
+    nmcu = rgbs.shape[0] * (ph // 16) * (pw // 16)
+    return max((nbytes(rgbs) + nmcu * 384 * 4) / HBM_BYTES_PER_S,
+               K16A_FP64_OPS_PER_MCU * nmcu / FP64_OPS_PER_S) * 1e3
+
+
+def k16a14d_form_times(x: dict) -> dict:
+    """K16a at each of ``K16A_FORMS`` and K14d at each of ``SSE_FORMS``:
+    eager (CUDA events around the wrapper), one replay of a graph of one
+    call, one of 32 calls in a graph, the profiler's device ms by kernel
+    (K14d's memset apart where the source still issues one) and the
+    bound."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import aq
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+
+    out = {}
+    for name in K16A_FORMS + SSE_FORMS:
+        fn = ((lambda t=x[name]: jd.jpeg_transform(*t)) if name in K16A_FORMS
+              else (lambda p=x[name]: aq.sse_planes(*p)))
+        r = out[name] = {"ms": cuda_ms(fn, reps=20), "graph_ms": graph_ms(fn, reps=20),
+                         "each_ms": graph_each_ms(fn)}
+        split = r["split"] = kernel_split(fn)
+        r["device_ms"] = float(sum(split.values())) if split else -1.0
+        if name in K16A_FORMS:
+            r["bound_ms"] = k16a_bound_ms(x[name])
+        else:
+            r["bound_ms"] = (nbytes(*x[name]) + 8) / HBM_BYTES_PER_S * 1e3
+            r["memset_ms"] = float(sum(v for k, v in split.items() if "emset" in k))
+    return out
+
+
+def k16a14d_times() -> dict:
+    """The ``k16a14d`` set: ``k16a14d_form_times`` as ``form_numbers``."""
+    import torch
+
+    return form_numbers(k16a14d_form_times(k16a14d_inputs(torch.device("cuda"))))
+
+
 # the measured sets: (timing function, the sources whose ptxas lines a
 # build prints, the output file's stem)
 PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
@@ -6537,7 +6642,8 @@ PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
              "k3k7": (k3k7_times, ("pack",)),
              "k11k16": (k11k16_times, ("jpeg", "cabac")),
              "k10k11i": (k10k11i_times, ("levelpack", "cabac")),
-             "i16halo": (i16halo_times, ("inter", "spatial"))}
+             "i16halo": (i16halo_times, ("inter", "spatial")),
+             "k16a14d": (k16a14d_times, ("jpeg", "aq"))}
 
 
 def pairs_child(set_name: str, tree: str, build_only: bool) -> dict:
@@ -7830,6 +7936,212 @@ def i16halo_phase(report):
     return []
 
 
+K16A_TIE_SIZES = ((48, 64), (50, 70), (160, 192))   # tests/test_torch_jpeg.py's
+SSE_SIZES = (0, 1, 15, 16, 17, 4095, 4097)          # K14d's short planes (bytes)
+
+
+def jpeg_test_frames(h: int, w: int, seed: int):
+    """``tests/test_torch_jpeg.py``'s frames: noise, a smooth gradient with
+    glyph strokes, and a flat frame."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    noise = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    grad = np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1),
+                     (xx + yy) * 127 // max(h + w, 1)], -1).astype(np.uint8)
+    grad[h // 4:h // 2:3, 5:w - 5:2] = rng.integers(0, 60)
+    return [noise, grad, np.full((h, w, 3), 200, np.uint8)]
+
+
+def tie_tables(rgb, block: int):
+    """Quant tables that put block ``block`` of the frame's Y and Cb
+    planes on or next to a rounding tie: q = 2|c| (c / q = +-0.5 exactly,
+    round half to even) and q = 2|c| / 3 rounded to float32 (c / q within
+    an ulp of +-1.5), c the plain version's float32 coefficients; q = 1
+    where 2|c| < 2^-14, so every level of the frame stays within 2^24."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import color, dct
+
+    h, w = rgb.shape[:2]
+    ph, pw = -(-h // 16) * 16, -(-w // 16) * 16
+    p = torch.from_numpy(np.pad(rgb, ((0, ph - h), (0, pw - w), (0, 0)), "edge"))
+    y, cb, _ = color.rgb_to_yuv420_full(p)
+    out = []
+    for div in (1.0, 3.0):
+        tabs = []
+        for plane in (y, cb):
+            c = dct.dct8x8(dct.to_blocks(plane - 128.0, 8, 8)).reshape(-1, 64)[block]
+            q = (2.0 * c.abs().double() / div).to(torch.float32).numpy()
+            tabs.append(np.where(q < 2.0 ** -14, np.float32(1), q).astype(np.float32)
+                        .reshape(8, 8))
+        out.append(tabs)
+    return out
+
+
+def k16a14d_phase(report):
+    """K16a and K14d against their plain versions on the inputs that
+    break their designs.  K16a, every level of y, cb and cr: S = 1 and 4 at
+    1080p, 4K and 1919x1079 (the right and bottom edge clamps), the odd
+    frame padded a further MCU row and two MCU columns (a ragged tile of
+    MCUs), 16x16 and 17x33 frames, saturated colours and checkerboards,
+    all-zero frames, each with quality 85's tables and with tables of
+    ones; ``tests/test_torch_jpeg.py``'s frames (noise, a gradient with
+    strokes, a flat frame) at its sizes with tables that put a block's
+    every coefficient on a tie (``tie_tables``); two 1080p frames and a
+    333x177 RFB rect through ``JpegEncoder`` byte-equal to the same
+    encoders with the plain transform (the mjpeg phase holds the served
+    streams, the Tight rects and the session batch likewise).  K14d, the
+    exact int64 SSE: 0, 1, 15, 16, 17, 4095 and 4097 bytes, 1088x1920, a
+    4K plane of zeros against 255 (5.4e11, past int32), views 3 and 7
+    bytes off a 16-byte boundary, two calls in a row, one graph replayed
+    32 times on new planes and a graph of 32 launches (the ticket resets).
+    Launches made here leave the wrappers' counts as they were."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.models.mjpeg import JpegEncoder
+    from docker_nvidia_glx_desktop_tpu_torch.ops import aq, quant
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+    from docker_nvidia_glx_desktop_tpu_torch.ops.devloop import graph_capture
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rep = report["k16a14d"] = {}
+    saved = (jd.jpeg_transform.launches, aq.sse_planes.launches)
+    rng = np.random.default_rng(19)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    lq, cq = quant.jpeg_quality_tables(85)
+    ones = np.ones((8, 8), np.float32)
+    n16 = 0
+
+    def held(label, rgbs, lq_, cq_, ph, pw):
+        nonlocal n16
+        got = jd.jpeg_transform(rgbs, lq_, cq_, ph, pw)
+        want = jd.jpeg_transform_plain(rgbs, lq_, cq_, ph, pw)
+        for a, b, k in zip(got, want, ("y", "cb", "cr")):
+            check(torch.equal(a, b), f"K16a {label}: {k} differs from plain in "
+                  f"{int((a != b).sum())} levels")
+        n16 += 1
+
+    # -- K16a ----------------------------------------------------------------------
+    x = k16a14d_inputs(dev)
+    for name in K16A_FORMS:
+        rgbs, _, _, ph, pw = x[name]
+        for tabs, tn in (((lq, cq), "q85"), ((ones, ones), "ones")):
+            held(f"{name} {tn}", rgbs, *tabs, ph, pw)
+    odd = x["t_odd"][0]
+    held("1919x1079 padded to 1104x1952", odd, lq, cq, 1104, 1952)
+    for h, w in ((16, 16), (17, 33)):
+        for s in (1, 4):
+            f = up(rng.integers(0, 256, (s, h, w, 3), dtype=np.uint8))
+            ph, pw = -(-h // 16) * 16, -(-w // 16) * 16
+            for tabs in ((lq, cq), (ones, ones)):
+                held(f"{w}x{h} S={s}", f, *tabs, ph, pw)
+    sat = np.zeros((4, 64, 96, 3), np.uint8)
+    cols = np.array([(255, 0, 0), (0, 255, 0), (0, 0, 255), (255, 255, 255),
+                     (0, 0, 0), (255, 255, 0), (0, 255, 255), (255, 0, 255)], np.uint8)
+    yy, xx = np.mgrid[0:64, 0:96]
+    sat[0] = cols[(yy // 16 * 6 + xx // 16) % 8]
+    sat[1] = ((yy + xx) % 2 * 255)[..., None]                          # checkerboard
+    sat[2] = rng.integers(0, 2, (64, 96, 3)).astype(np.uint8) * 255    # 0/255 noise
+    blk = (yy // 8 * 12 + xx // 8) % 8                                 # 8x8 blocks
+    sat[3] = np.where(((yy // 8 + xx // 8) % 2)[..., None] == 1, cols[blk], 255 - cols[blk])
+    for tabs in ((lq, cq), (ones, ones)):
+        held("saturated", up(sat), *tabs, 64, 96)
+        held("all zero", torch.zeros((2, 48, 80, 3), dtype=torch.uint8, device=dev),
+             *tabs, 48, 80)
+    n_ties = 0
+    for h, w in K16A_TIE_SIZES:
+        for k, rgb in enumerate(jpeg_test_frames(h, w, 7)):
+            for div, (tl, tc) in zip((1, 3), tie_tables(rgb, block=k)):
+                held(f"ties {w}x{h} frame {k} q=2|c|/{div}", up(rgb)[None], tl, tc,
+                     -(-h // 16) * 16, -(-w // 16) * 16)
+                n_ties += 1
+    f2 = mjpeg_frames(2)
+    rect = np.ascontiguousarray(f2[1][301:478, 517:850])
+    streams, kernel_transform = {}, jd.jpeg_transform
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            jd.jpeg_transform = jd.jpeg_transform_plain
+        try:
+            enc, enc_r = JpegEncoder(W, H), JpegEncoder(333, 177)
+            streams[route] = [enc.encode(f).data for f in f2] + [enc_r.encode(rect).data]
+        finally:
+            jd.jpeg_transform = kernel_transform
+    check(streams["kernel"] == streams["plain"],
+          "K16a: the JPEGs differ from the plain transform's")
+    rep["k16a_cases"], rep["k16a_ties"] = n16, n_ties
+    rep["k16a_s"] = time.perf_counter() - t_phase
+
+    # -- K14d ----------------------------------------------------------------------
+    t1 = time.perf_counter()
+    n14 = 0
+
+    def sse_held(label, a, b, want=None):
+        nonlocal n14
+        got = int(aq.sse_planes(a, b))
+        plain = int(aq.sse_planes_plain(a.cpu(), b.cpu()))
+        check(got == plain and (want is None or got == want),
+              f"K14d {label}: {got}, plain {plain}" + (f", want {want}" if want else ""))
+        n14 += 1
+        return got
+
+    for n in SSE_SIZES:
+        sse_held(f"{n} bytes", up(rng.integers(0, 256, n, dtype=np.uint8)),
+                 up(rng.integers(0, 256, n, dtype=np.uint8)))
+    a, b = x["sse1080"]
+    first = sse_held("1088x1920", a, b)
+    check(sse_held("1088x1920 again", a, b) == first, "K14d: two calls differ")
+    z4 = torch.zeros((2160, 3840), dtype=torch.uint8, device=dev)
+    full = sse_held("4K zeros against 255", z4, z4 + 255, want=2160 * 3840 * 255 ** 2)
+    check(full > 2 ** 31, "K14d: the full-scale 4K SSE does not pass int32")
+    for oa, ob in ((3, 3), (3, 7), (0, 5)):
+        n = H_PAD * W
+        ba = torch.empty(n + 16, dtype=torch.uint8, device=dev)
+        bb = torch.empty(n + 16, dtype=torch.uint8, device=dev)
+        va, vb = ba[oa:oa + n].view(H_PAD, W), bb[ob:ob + n].view(H_PAD, W)
+        va.copy_(a)
+        vb.copy_(b)
+        check((va.data_ptr() % 16, vb.data_ptr() % 16) == (oa, ob),
+              "K14d: the views are not where they should be")
+        check(sse_held(f"views {oa} and {ob} bytes off 16", va, vb) == first,
+              "K14d: a misaligned view differs")
+    ga, gb = a.clone(), b.clone()
+    g = torch.cuda.CUDAGraph()
+    aq.sse_planes(ga, gb)
+    torch.cuda.synchronize()
+    with graph_capture(g):
+        gout = aq.sse_planes(ga, gb)
+    for i in range(32):
+        ga.copy_(up(rng.integers(0, 256, (H_PAD, W), dtype=np.uint8)) if i % 2 else a)
+        gb.copy_(b if i % 3 else up(rng.integers(0, 256, (H_PAD, W), dtype=np.uint8)))
+        g.replay()
+        check(int(gout) == int(aq.sse_planes_plain(ga.cpu(), gb.cpu())),
+              f"K14d: replay {i} of one graph differs from plain")
+    g32 = torch.cuda.CUDAGraph()
+    with graph_capture(g32):
+        outs = [aq.sse_planes(a, b) for _ in range(32)]
+    for _ in range(2):
+        g32.replay()
+        check(all(int(o) == first for o in outs),
+              "K14d: a launch of a graph of 32 differs from plain")
+    torch.cuda.synchronize()
+    jd.jpeg_transform.launches, aq.sse_planes.launches = saved
+    rep.update(k14d_cases=n14, k14d_s=time.perf_counter() - t1,
+               s=time.perf_counter() - t_phase)
+    print(f"(a) k16a14d: K16a equal to plain, every level, on {n16} inputs (1080p, S = 4, "
+          f"4K, 1919x1079, a ragged tile, 16x16 and 17x33 at S = 1 and 4, saturated, "
+          f"all zero; quality 85 and tables of ones; {n_ties} at rounding ties), two "
+          f"1080p JPEGs and a 333x177 rect byte-equal to the plain transform's "
+          f"({rep['k16a_s']:.1f} s); K14d equal to plain on {n14} inputs ({SSE_SIZES} "
+          f"bytes, 1088x1920 twice, the 4K full-scale pair {full}, views off a 16-byte "
+          f"boundary), one graph replayed 32 times and a graph of 32 launches "
+          f"({rep['k14d_s']:.1f} s); phase {rep['s']:.1f} s")
+    return []
+
+
 # K5's stages cut out of copies of inter.cu, one stage a copy (timing
 # only: a cut stage leaves its outputs wrong but every index in range)
 K5_VARIANTS = {
@@ -8580,6 +8892,258 @@ def i16halo_split() -> int:
     return 0
 
 
+K16A_OLD_MARK = "__shared__ double pix[3][16][16];"
+_OLD_ROWS = ("    double acc = __dmul_rn(x[0], (double)dv[0]);\n"
+             "    for (int j = 1; j < 8; ++j) acc = __dadd_rn(acc, __dmul_rn(x[j], (double)dv[j]));\n"
+             "    tmp[bi][i * 8 + v] = acc;\n")
+_OLD_COLS = ("    double acc = __dmul_rn((double)du[0], tmp[bi][v]);\n"
+             "    for (int i = 1; i < 8; ++i) acc = __dadd_rn(acc, __dmul_rn((double)du[i], "
+             "tmp[bi][i * 8 + v]));\n")
+_OLD_WIDE = [("__shared__ float k[kConsts];", "__shared__ double k[kConsts];"),
+             ("const float* m = k + kMat", "const double* m = k + kMat"),
+             ("const float* dv = k + kDct", "const double* dv = k + kDct"),
+             ("const float* du = k + kDct", "const double* du = k + kDct"),
+             ("const float q = k[", "const float q = (float)k[")]
+# K16a's stages cut out of copies of the PR 6 layout of jpeg.cu (a CTA an
+# MCU; timing only, except ``widened``, whose levels are the same): the
+# colour alone (with the quantize and the stores), the colour and the row
+# pass, every stage with no store, and the constants widened to double
+# once in shared memory (no float-to-double conversion a product), then
+# also the pixels made double by an add instead of a conversion
+K16A_OLD_VARIANTS = {
+    "base": [],
+    "colour_only": [(_OLD_ROWS, "    tmp[bi][i * 8 + v] = x[v];\n"),
+                    (_OLD_COLS, "    double acc = tmp[bi][u * 8 + v];\n")],
+    "colour_rows": [(_OLD_COLS, "    double acc = tmp[bi][u * 8 + v];\n")],
+    "no_stores": [("    const int z = c_zpos[u * 8 + v];\n",
+                   "    const int z = c_zpos[u * 8 + v];\n    if (level != 0x12345678) continue;\n")],
+    "widened": _OLD_WIDE,
+    "widened_i2f": _OLD_WIDE + [(
+        "const double r = p[0], g = p[1], b = p[2];",
+        "const double r = __dadd_rn(__hiloint2double(0x43300000, p[0]), -0x1p52),\n"
+        "               g = __dadd_rn(__hiloint2double(0x43300000, p[1]), -0x1p52),\n"
+        "               b = __dadd_rn(__hiloint2double(0x43300000, p[2]), -0x1p52);")],
+}
+K16A_MARK = "K16A_TILE"
+_ROW_PASS = ("  for (int v = 0; v < 8; ++v) t[v] = __dmul_rn(x[0], c_dct[v * 8]);\n"
+             "#pragma unroll\n"
+             "  for (int j = 1; j < 8; ++j)\n"
+             "#pragma unroll\n"
+             "    for (int v = 0; v < 8; ++v) t[v] = __dadd_rn(t[v], __dmul_rn(x[j], "
+             "c_dct[v * 8 + j]));\n")
+_COL_PASS = ("      for (int u = 0; u < 8; ++u) c[u] = __dmul_rn(c_dct[u * 8], t[0]);\n"
+             "#pragma unroll\n"
+             "      for (int i = 1; i < 8; ++i)\n"
+             "#pragma unroll\n"
+             "        for (int u = 0; u < 8; ++u) c[u] = __dadd_rn(c[u], "
+             "__dmul_rn(c_dct[u * 8 + i], t[i]));\n")
+_NO_COLOUR = ("          double v = __dadd_rn(__dmul_rn(r, c_mat[3 * d]), __dmul_rn(g, "
+              "c_mat[3 * d + 1]));\n          v = __dadd_rn(v, __dmul_rn(b, "
+              "c_mat[3 * d + 2]));\n",
+              "          const double v = d == 0 ? r : d == 1 ? g : b;\n")
+# the same cuts of the redesigned layout (``transform_kernel``: a CTA a
+# tile of MCUs, warp-uniform constants): the colour alone (the quads, the
+# quantize and the stores kept), the colour and both row passes, and no
+# global store
+K16A_VARIANTS = {
+    "base": [],
+    "colour_only": [(_ROW_PASS, "  for (int v = 0; v < 8; ++v) t[v] = x[v];\n"),
+                    (_COL_PASS, "      for (int u = 0; u < 8; ++u) c[u] = t[u];\n")],
+    "colour_rows": [(_COL_PASS, "      for (int u = 0; u < 8; ++u) c[u] = t[u];\n")],
+    "no_stores": [("    *dst = make_int4(", "    if (src[0] == 0x12345678) *dst = make_int4(")],
+    # probes: the colour's products cut; no frame loads (the words made up);
+    # the memory and shared-memory work alone (no colour products, no DCT);
+    # three CTAs an SM (90 registers) in place of five (63)
+    "no_colour": [_NO_COLOUR],
+    "no_loads": [("        for (int i = 0; i < 6; ++i) wd[i] = __ldg(wp + i);\n"
+                  "        wd[6] = sh ? __ldg(wp + 6) : 0u;\n",
+                  "        for (int i = 0; i < 6; ++i) wd[i] = 0x01010101u * (i + x0);\n"
+                  "        wd[6] = 0u;\n")],
+    "memory_only": [_NO_COLOUR,
+                    (_ROW_PASS, "  for (int v = 0; v < 8; ++v) t[v] = x[v];\n"),
+                    (_COL_PASS, "      for (int u = 0; u < 8; ++u) c[u] = t[u];\n")],
+    "lb3": [("__launch_bounds__(k16a::NT, 5)", "__launch_bounds__(k16a::NT, 3)")],
+}
+
+
+def k16a_cuts(x: dict) -> dict:
+    """Each variant of K16a's layout (``K16A_OLD_VARIANTS`` or
+    ``K16A_VARIANTS``) launched on ``K16A_FORMS``: device ms and graph
+    replays, and whether its levels equal the source's (0 where a cut
+    part leaves them wrong by design)."""
+    import ctypes
+
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+
+    src = open(os.path.join(_cuda.CSRC, "jpeg.cu")).read()
+    variants = (K16A_OLD_VARIANTS if K16A_OLD_MARK in src
+                else K16A_VARIANTS if K16A_MARK in src else {})
+    if not variants:
+        return {}
+    libs = build_variants("jpeg", variants)
+    cut = {}
+    for form in K16A_FORMS:
+        rgbs, lq, cq, ph, pw = x[form]
+        want = jd.jpeg_transform(*x[form])
+        s, h, w = rgbs.shape[:3]
+        outs = [torch.empty_like(t) for t in want]
+        ts = [rgbs, jd._consts(lq, cq, rgbs.device)] + outs
+        for name, lib in libs.items():
+            fn = lib["jpeg_transform_launch"]
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+            def call(fn=fn, name=name):
+                err = fn(*[t.data_ptr() for t in ts], s, h, w, ph, pw,
+                         torch.cuda.current_stream().cuda_stream)
+                check(err == 0, f"{name}: CUDA error {err}")
+            call()
+            torch.cuda.synchronize()
+            split = kernel_split(call)
+            cut[f"{form}_{name}"] = {
+                "graph_ms": graph_ms(call, reps=20), "device_ms": sum(split.values()),
+                "equal": float(all(torch.equal(a, b) for a, b in zip(outs, want)))}
+            print(f"{form} {name}: {json.dumps(cut[form + '_' + name])}", flush=True)
+    return cut
+
+
+SSE_MARK = "SUM_BITS"
+# K14d's loads in flight a thread (``SSE_U``) in copies of aq.cu: 1, 2, 4
+# (the source's) and 8 16-byte loads of each plane
+SSE_VARIANTS = {f"u{u}": [("constexpr int SSE_U = 4;", f"constexpr int SSE_U = {u};")]
+                for u in (1, 2, 8)}
+SSE_VARIANTS["base"] = []
+
+
+def sse_cuts(x: dict) -> dict:
+    """Each of ``SSE_VARIANTS`` launched on ``SSE_FORMS``: device ms, one
+    of 32 launches in a graph and whether the sum equals the source's."""
+    import ctypes
+
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda, aq
+
+    if SSE_MARK not in open(os.path.join(_cuda.CSRC, "aq.cu")).read():
+        return {}
+    libs = build_variants("aq", SSE_VARIANTS)
+    cut = {}
+    for form in SSE_FORMS:
+        a, b = x[form]
+        want = int(aq.sse_planes(a, b))
+        for name, lib in libs.items():
+            fn = lib["sse_launch"]
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+            out = torch.empty(1, dtype=torch.int64, device=a.device)
+
+            def call(fn=fn, name=name, out=out):
+                err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
+                         torch.cuda.current_stream().cuda_stream)
+                check(err == 0, f"{name}: CUDA error {err}")
+            call()
+            split = kernel_split(call)
+            cut[f"{form}_{name}"] = {"each_ms": graph_each_ms(call),
+                                     "device_ms": sum(split.values()),
+                                     "equal": float(int(out) == want)}
+            print(f"{form} {name}: {json.dumps(cut[form + '_' + name])}", flush=True)
+    return cut
+
+
+def next_row_forms(dev) -> dict:
+    """The kernels the ranking takes next, each a call at its main path's
+    shapes: K13 (the
+    reference-row scatter of 8 rows of 1080p), K14r (the qp plane over
+    those rows with the lookahead frame), K14a (the qp plane with and
+    without it), K16b (a 1080p desktop's histograms), K9 (1919x1079 RGB to
+    padded I420), 9b (K9's frame axis, four 1080p frames) and 13s (the
+    forced-skip gate of every other MB row of a 1080p P frame)."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import aq, color, damage_mask
+    from docker_nvidia_glx_desktop_tpu_torch.ops import h264_device, h264_inter
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+    from docker_nvidia_glx_desktop_tpu_torch.ops import quant
+
+    qp, g = PAIRS_QP, gop_frames(4, seed=2)
+    desk, moving = pair_planes(g[0]), pair_planes(g[1])
+    rows8 = torch.arange(20, 28, dtype=torch.int32, device=dev)
+    lv = h264_device.encode_intra_frame_yuv(*desk, qp)
+    ref = (lv["recon_y"], lv["recon_cb"], lv["recon_cr"])
+    o8 = h264_inter.encode_p_frame_rows(*moving, *ref, rows8, qp)
+    rec = (o8["recon_y"], o8["recon_cb"], o8["recon_cr"])
+    out = h264_inter.encode_p_frame(*moving, *ref, qp)
+    keep = torch.arange(H_PAD // 16, device=dev) % 2 == 0
+    lq, cq = quant.jpeg_quality_tables(85)
+    levels = jd.jpeg_transform(torch.from_numpy(mjpeg_frames(2)[1]).to(dev)[None],
+                               lq, cq, H_PAD, W)
+    odd = torch.from_numpy(np.ascontiguousarray(g[2][:ODD_H, :ODD_W])).to(dev)
+    rgbs = torch.from_numpy(np.stack(g)).to(dev)
+    forms = {"k13": lambda: damage_mask.scatter_rows(*ref, *rec, rows8),
+             "k14r": lambda: aq.qp_plane(moving[0], qp, desk[0], rows=rows8),
+             "k14a": lambda: aq.qp_plane(moving[0], qp),
+             "k14a_next": lambda: aq.qp_plane(moving[0], qp, desk[0]),
+             "k16b": lambda: jd.jpeg_analyze(*levels),
+             "k9": lambda: color.rgb_to_yuv420(odd, H_PAD, W),
+             "k9b": lambda: color.rgb_to_yuv420_frames(rgbs, H_PAD, W),
+             "k13s": lambda: damage_mask.force_skip_rows(out, keep, *ref)}
+    return forms
+
+
+def next_rows(dev) -> dict:
+    """Each of ``next_row_forms``: the profiler's device ms by kernel
+    (``kernel_split``), one replay of a graph of one call and an eager
+    call."""
+    res = {}
+    for name, fn in next_row_forms(dev).items():
+        split = kernel_split(fn)
+        res[name] = {"device_ms": float(sum(split.values())) if split else -1.0,
+                     "split": split, "graph_ms": graph_ms(fn, reps=20),
+                     "ms": cuda_ms(fn, reps=20)}
+        print(f"next row {name}: {json.dumps(res[name])}", flush=True)
+    return res
+
+
+def k16a14d_split() -> int:
+    """``python3 chip_smoke.py k16a14d-split``: the ``-Xptxas -v`` lines of
+    K16a's and K14d's kernels; each of their forms (``k16a14d_form_times``)
+    by device time beside its CUDA-event, replayed and one-of-32 ms and its
+    bound; K16a's stages cut out of copies of jpeg.cu (``k16a_cuts``);
+    K14d's loads in flight (``sse_cuts``); the next kernels of the ranking
+    by device time (``next_rows``).  Writes
+    ``chiprun_out/k16a14d_split.json``."""
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, HERE)
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+
+    smi = smi_line()
+    print(smi, flush=True)
+    logs = _cuda.build(verbose=True)
+    res = {"card": smi, "ptxas": {}}
+    for src, marks in (("jpeg", ("transform",)), ("aq", ("sse",))):
+        res["ptxas"][src] = kernel_lines(ptxas_lines(logs.get(src, "")), marks)
+        for ln in res["ptxas"][src]:
+            print(f"ptxas {src}: {ln}", flush=True)
+    dev = torch.device("cuda")
+    x = k16a14d_inputs(dev)
+    for name, r in k16a14d_form_times(x).items():
+        res[name] = r
+        print(f"{name}: {json.dumps(r)}", flush=True)
+    res["cut_ms"] = k16a_cuts(x)
+    res["sse_cut_ms"] = sse_cuts(x)
+    res["next_rows"] = next_rows(dev)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k16a14d_split.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
 def phase_alone(key: str, phase, srcs) -> int:
     """``python3 chip_smoke.py modes`` / ``tune-mask``: the build (with the
     ptxas lines of ``srcs``), then the one phase alone; writes
@@ -8646,6 +9210,10 @@ def main(argv=None):
             return i16halo_split()
         if argv[:1] == ["i16halo"]:
             return phase_alone("i16halo", i16halo_phase, ("inter", "spatial"))
+        if argv[:1] == ["k16a14d-split"]:
+            return k16a14d_split()
+        if argv[:1] == ["k16a14d"]:
+            return phase_alone("k16a14d", k16a14d_phase, ("jpeg", "aq"))
         if argv[:1] == ["k5k4"]:
             return phase_alone("k5k4", k5k4_phase, ("inter", "content"))
         return run()

@@ -25,15 +25,24 @@
 // docker_nvidia_glx_desktop_tpu/ops/aq.py:196 _mse_reduce (:204
 // mse_planes, :216 psnr_planes).  The reference promises an exact int64
 // SSE, but JAX runs with x64 off, so its sum is int32 and wraps on large
-// planes; this kernel keeps the promise.  Each thread squares the
-// differences of one 16-byte vector load of each plane in int32 (at most
-// 16 x 255^2), adds them into a 64-bit sum over its grid-stride chunks,
-// a warp and then the block reduce, and each block adds its sum to one
-// unsigned long long with atomicAdd (zeroed on the stream first).  The
-// tail past the last whole vector, or the whole plane when a pointer is
-// not 16-byte aligned, takes the byte path.  What bounds it: bytes, two
-// planes read once (4.2 MB at 1088x1920, 0.0012 ms); at that size the
-// launch dominates.
+// planes; this kernel keeps the promise.  What bounds it: bytes, two
+// planes read once (4.2 MB at 1088x1920, 0.0012 ms), against a graph
+// kernel node's own floor (~0.0015 ms on an H100).  Design (redesigned
+// for Hopper): one kernel, one graph node, no memset.  The grid fits one
+// wave of the card (at most 8 CTAs an SM); each thread keeps SSE_U
+// 16-byte loads of each plane in flight, squares their byte differences
+// by __vabsdiffu4 and __dp4a in 32 bits (at most 4 x 16 x 255^2 a batch)
+// and widens each batch into a 64-bit sum; a warp and then the CTA
+// reduce.  Each CTA adds its partial and one arrival to one 64-bit word
+// (`g_sse_acc`: the sum below bit 53, the arrivals above) by a single
+// atomicAdd; the CTA whose add finds every other CTA arrived holds the
+// whole sum (integers: exact, in any order), writes `out` and zeroes the
+// word for the next launch.
+// The word is a __device__ variable, zero when the module loads on a
+// device, so a graph replays the launch as it is; launches of one device
+// must be stream-ordered (they share it).  The tail past the last whole
+// vector, or the whole plane when a pointer is not 16-byte aligned, takes
+// the byte path.
 #include <algorithm>
 
 #include "common.cuh"
@@ -85,56 +94,92 @@ __global__ void __launch_bounds__(NT) qp_plane_kernel(
   }
 }
 
-__device__ __forceinline__ int sq_diff4(unsigned a, unsigned b) {
-  int s = 0;
-#pragma unroll
-  for (int k = 0; k < 32; k += 8) {
-    const int d = (int)((a >> k) & 255u) - (int)((b >> k) & 255u);
-    s += d * d;
-  }
-  return s;
+constexpr int SSE_NT = 256;
+constexpr int SSE_U = 4;              // 16-byte loads of each plane in flight a thread
+constexpr int SSE_CTAS_PER_SM = 8;
+constexpr int SSE_MAX_CTAS = 2048;    // fits the arrival count's 11 bits
+constexpr int SUM_BITS = 53;          // n * 255^2 < 2^47 for n < 2^31
+// the running sum in the low SUM_BITS bits, the CTAs arrived above them;
+// 0 between launches
+__device__ unsigned long long g_sse_acc;
+
+// the squared differences of four byte pairs (at most 4 x 255^2)
+__device__ __forceinline__ unsigned sq4(unsigned a, unsigned b) {
+  const unsigned d = __vabsdiffu4(a, b);
+  return __dp4a(d, d, 0u);
 }
 
-__global__ void __launch_bounds__(NT) sse_kernel(const uint8_t* __restrict__ a,
-                                                 const uint8_t* __restrict__ b,
-                                                 unsigned long long* out, int n) {
-  __shared__ unsigned long long part[NT / 32];
-  const bool vec = ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0;
-  const int nvec = vec ? n / 16 : 0;
-  const int stride = gridDim.x * NT;
-  const int t0 = blockIdx.x * NT + threadIdx.x;
+__device__ __forceinline__ unsigned long long block_sum(unsigned long long s,
+                                                        unsigned long long* part) {
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
+  __syncthreads();
+  s = 0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < SSE_NT / 32; ++w) s += part[w];
+  return s;                           // thread 0's
+}
+
+__global__ void __launch_bounds__(SSE_NT) sse_kernel(const uint8_t* __restrict__ a,
+                                                     const uint8_t* __restrict__ b,
+                                                     unsigned long long* out, int n, int nvec) {
+  __shared__ unsigned long long part[SSE_NT / 32];
+  const int stride = gridDim.x * SSE_NT;
+  const int t0 = blockIdx.x * SSE_NT + threadIdx.x;
+  const uint4* va = reinterpret_cast<const uint4*>(a);
+  const uint4* vb = reinterpret_cast<const uint4*>(b);
   unsigned long long s = 0;
-  for (int v = t0; v < nvec; v += stride) {
-    const uint4 x = reinterpret_cast<const uint4*>(a)[v];
-    const uint4 y = reinterpret_cast<const uint4*>(b)[v];
-    s += (unsigned)(sq_diff4(x.x, y.x) + sq_diff4(x.y, y.y) + sq_diff4(x.z, y.z) +
-                    sq_diff4(x.w, y.w));
+  for (int v0 = t0; v0 < nvec; v0 += SSE_U * stride) {
+    uint4 x[SSE_U], y[SSE_U];
+#pragma unroll
+    for (int u = 0; u < SSE_U; ++u) {
+      const int v = v0 + u * stride;
+      x[u] = v < nvec ? __ldg(va + v) : make_uint4(0, 0, 0, 0);
+      y[u] = v < nvec ? __ldg(vb + v) : make_uint4(0, 0, 0, 0);
+    }
+    unsigned acc = 0;
+#pragma unroll
+    for (int u = 0; u < SSE_U; ++u)
+      acc += sq4(x[u].x, y[u].x) + sq4(x[u].y, y[u].y) + sq4(x[u].z, y[u].z) +
+             sq4(x[u].w, y[u].w);
+    s += acc;
   }
   for (int k = nvec * 16 + t0; k < n; k += stride) {
     const int d = (int)a[k] - (int)b[k];
     s += (unsigned)(d * d);
   }
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    s = 0;
-    for (int w = 0; w < NT / 32; ++w) s += part[w];
-    atomicAdd(out, s);
+  s = block_sum(s, part);
+  if (threadIdx.x == 0) {             // one atomic: the partial and the arrival
+    const unsigned long long old = atomicAdd(&g_sse_acc, s + (1ull << SUM_BITS));
+    if ((old >> SUM_BITS) == gridDim.x - 1) {   // the last CTA: every partial is in
+      *out = (old & ((1ull << SUM_BITS) - 1)) + s;
+      g_sse_acc = 0;                  // for the next launch (stream-ordered)
+    }
   }
 }
 
 }  // namespace
 
-// out: one unsigned long long, zeroed here before the reduction.
+// out: one unsigned long long, written by the launch's last CTA (no memset).
 extern "C" int sse_launch(const uint8_t* a, const uint8_t* b, unsigned long long* out, int n,
                           cudaStream_t stream) {
   if (n < 0) return cudaErrorInvalidValue;
-  cudaError_t e = cudaMemsetAsync(out, 0, sizeof(unsigned long long), stream);
+  static int sms[64];                 // per device, read once
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int vecs = (n + 15) / 16;
-  const int blocks = std::max(1, std::min((vecs + NT - 1) / NT, 132 * 8));
-  sse_kernel<<<blocks, NT, 0, stream>>>(a, b, out, n);
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!sms[dev]) {
+    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const bool vec = ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0;
+  const int nvec = vec ? n / 16 : 0;
+  const long long work = vec ? (nvec + SSE_U - 1) / SSE_U : n;   // a thread's first batch
+  const int cap = std::min(SSE_MAX_CTAS, sms[dev] * SSE_CTAS_PER_SM);
+  const int ctas = static_cast<int>(
+      std::max(1LL, std::min<long long>((work + SSE_NT - 1) / SSE_NT, cap)));
+  sse_kernel<<<ctas, SSE_NT, 0, stream>>>(a, b, out, n, nvec);
   return dngd_last_error();
 }
 

@@ -8,15 +8,21 @@
 //       padded to MCU multiples -> full-range YCbCr -> 2x2 chroma mean ->
 //       -128 -> 8x8 DCT -> round(c / q) -> zigzag; out y (S, nmcu, 4, 64),
 //       cb, cr (S, nmcu, 64) int32 in MCU order (Y00 Y01 Y10 Y11).
-//       One block per MCU, one thread per pixel; the colour, the quad mean
-//       and both DCT passes run in float64 in shared memory in one fixed
-//       order, every product and sum spelled with __dmul_rn/__dadd_rn so
-//       nvcc cannot contract them into FMAs, the coefficient rounded once
-//       to float32, then an IEEE float32 divide and round half to even.
+//       The colour, the quad mean and both DCT passes run in float64 in
+//       one fixed order, every product and sum spelled with
+//       __dmul_rn/__dadd_rn so nvcc cannot contract them into FMAs, the
+//       coefficient rounded once to float32, then the IEEE float32
+//       quotient by the quant step and round half to even.
 //       ops/jpeg_device.jpeg_transform_plain spells the same order, so the
-//       two agree bit for bit.  Bound: bytes (6.2 MB in, 12.5 MB out at
-//       1080p, ~5.6 us at 3.35 TB/s); this first version spends float64
-//       operations and a shared-memory round trip per pass instead.
+//       two agree bit for bit.  Bound:
+//       operations, 17,024 float64 adds and multiplies an MCU (0.0082 ms
+//       at 1080p at ~17 T/s; bytes: 6.2 MB in, 12.5 MB out, 0.0056 ms).
+//       Design (redesigned for Hopper): a CTA a tile of four MCUs of one
+//       MCU row, a thread a pixel half line for the colour and Y's row
+//       pass, a thread a chroma row for the quads and their row pass, every
+//       thread a block column for the column pass; the float64 constants
+//       are warp-uniform operands (no conversion a product), the frame read
+//       by aligned words, the levels stored as 16-byte words (below).
 // K16b  jpeg_analyze_launch replaces ops/jpeg_device.py:142 jpeg_analyze
 //       (:59 component_symbols, :94 component_histogram): one thread per
 //       8x8 block walks its coefficients (DC difference against the
@@ -62,72 +68,230 @@
 
 namespace {
 
-// natural 8x8 index -> zigzag position
-__constant__ int c_zpos[64] = {0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42,
-                               3,  8,  12, 17, 25, 30, 41, 43, 9,  11, 18, 24, 31, 40, 44, 53,
-                               10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60,
-                               21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
+// K16a (K16A_TILE): a CTA a tile of MT MCUs along one MCU row, NT = 48 MT
+// threads in two roles, then one:
+//  - luma threads (32 an MCU, warps 0-3): a half line of 8 pixels each, the
+//    tile's lines loaded coalesced (a line's 48 MT bytes by aligned words
+//    and funnel shifts; a half line past the frame's right edge byte by
+//    byte with its columns clamped, every line's row clamped); the colour
+//    of its 8 pixels, Cb and Cr into `craw`, then Y's row pass on its own
+//    8 values in registers;
+//  - chroma threads (16 an MCU, warps 4-5): a row of a Cb or Cr block each,
+//    after a named barrier the luma warps only arrive at: its 8 quads from
+//    `craw`, then the row pass;
+//  - all threads: a column of a block each (t[i][v], i = 0..7 from
+//    `tmp`), the column pass, the quantize, the level into `lev` in
+//    natural order; then the tile's levels go out as 16-byte words in
+//    zigzag and MCU order.
+// The DCT matrix, the colour matrix and the offsets are float64 constants
+// (`c_dct`, `c_mat`, `c_off`: the float32 values of dct.DCT8,
+// color._M_FULL and OFF_FULL, widened, which is exact), read as warp-
+// uniform operands: no conversion a product.  Pixels become doubles by an
+// add to 2^52 (exact).  The quotient: with c the coefficient rounded to
+// float32 and q a float32 step, RN32(RN64(c * RN64(1 / q))) is RN32(c / q),
+// the IEEE float32 divide's result: the double product is within 2^-52
+// (relative) of c / q, and c / q is at least 2^-49 (relative) away from any
+// midpoint of two float32 neighbours (a midpoint has a 25-bit odd
+// significand, so c - q * m is a nonzero multiple of its last bit).  So no
+// branching divide, and the eight quotients of a column overlap.
+// The shared pitches keep every half-warp's 8-byte accesses on 16 distinct
+// bank pairs (`tests/test_torch_k16a_k14d_order.py` holds the mapping).
+// 63 registers and 39.6 KB of shared memory let five CTAs share an SM (on
+// an H100, three CTAs an SM at 90 registers ran 13% slower at 1080p).
+namespace k16a {
 
-// float constants of K16a, in this order
-constexpr int kDct = 0, kMat = 64, kOff = 73, kLq = 76, kCq = 140, kConsts = 204;
+constexpr int MT = 4;                  // MCUs a tile
+constexpr int NL = 32 * MT;            // luma threads
+constexpr int NT = 48 * MT;            // all threads (the chroma threads: NT - NL)
+constexpr int RP = 17, RM = 16 * RP + 2, RC = MT * RM + 1;   // craw: line, MCU, plane
+constexpr int TI = 9, TB = 72, TM = 6 * TB + 2;               // tmp: row, block, MCU
+constexpr int LB = 72;                                         // lev: ints a block
 
-__global__ void __launch_bounds__(256)
-    transform_kernel(const uint8_t* __restrict__ rgb, const float* __restrict__ consts,
+// dct.DCT8 (D[k][i], row-major): float32 values, exact as doubles
+__constant__ double c_dct[64] = {
+    0x1.6a09e6p-2, 0x1.6a09e6p-2, 0x1.6a09e6p-2, 0x1.6a09e6p-2,
+    0x1.6a09e6p-2, 0x1.6a09e6p-2, 0x1.6a09e6p-2, 0x1.6a09e6p-2,
+    0x1.f6297cp-2, 0x1.a9b662p-2, 0x1.1c73b4p-2, 0x1.8f8b84p-4,
+    -0x1.8f8b84p-4, -0x1.1c73b4p-2, -0x1.a9b662p-2, -0x1.f6297cp-2,
+    0x1.d906bcp-2, 0x1.87de2ap-3, -0x1.87de2ap-3, -0x1.d906bcp-2,
+    -0x1.d906bcp-2, -0x1.87de2ap-3, 0x1.87de2ap-3, 0x1.d906bcp-2,
+    0x1.a9b662p-2, -0x1.8f8b84p-4, -0x1.f6297cp-2, -0x1.1c73b4p-2,
+    0x1.1c73b4p-2, 0x1.f6297cp-2, 0x1.8f8b84p-4, -0x1.a9b662p-2,
+    0x1.6a09e6p-2, -0x1.6a09e6p-2, -0x1.6a09e6p-2, 0x1.6a09e6p-2,
+    0x1.6a09e6p-2, -0x1.6a09e6p-2, -0x1.6a09e6p-2, 0x1.6a09e6p-2,
+    0x1.1c73b4p-2, -0x1.f6297cp-2, 0x1.8f8b84p-4, 0x1.a9b662p-2,
+    -0x1.a9b662p-2, -0x1.8f8b84p-4, 0x1.f6297cp-2, -0x1.1c73b4p-2,
+    0x1.87de2ap-3, -0x1.d906bcp-2, 0x1.d906bcp-2, -0x1.87de2ap-3,
+    -0x1.87de2ap-3, 0x1.d906bcp-2, -0x1.d906bcp-2, 0x1.87de2ap-3,
+    0x1.8f8b84p-4, -0x1.1c73b4p-2, 0x1.a9b662p-2, -0x1.f6297cp-2,
+    0x1.f6297cp-2, -0x1.a9b662p-2, 0x1.1c73b4p-2, -0x1.8f8b84p-4,
+};
+// color._M_FULL (rows Y, Cb, Cr) and color.OFF_FULL
+__constant__ double c_mat[9] = {
+    0x1.322d0ep-2, 0x1.2c8b44p-1, 0x1.d2f1aap-4,
+    -0x1.599234p-3, -0x1.5336e6p-2, 0x1p-1,
+    0x1p-1, -0x1.acbc70p-2, -0x1.4d0e3ep-4,
+};
+__constant__ double c_off[3] = {0.0, 128.0, 128.0};
+// zigzag position -> natural 8x8 index (scan.ZIGZAG8), read once a CTA
+__device__ const int g_nat[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+};
+
+__device__ __forceinline__ double u8d(unsigned v) {   // exact: 2^52 + v - 2^52
+  return __dadd_rn(__hiloint2double(0x43300000, static_cast<int>(v)), -0x1p52);
+}
+
+// t[v] = sum_j x[j] * D[v][j], each sum from j = 0 up, unfused
+__device__ __forceinline__ void row_pass(const double (&x)[8], double (&t)[8]) {
+#pragma unroll
+  for (int v = 0; v < 8; ++v) t[v] = __dmul_rn(x[0], c_dct[v * 8]);
+#pragma unroll
+  for (int j = 1; j < 8; ++j)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) t[v] = __dadd_rn(t[v], __dmul_rn(x[j], c_dct[v * 8 + j]));
+}
+
+struct Smem {
+  double craw[2 * RC];       // Cb, Cr of every pixel: [plane][MCU][line][column]
+  double tmp[MT * TM];       // the row pass's output: [MCU][block][row][v]
+  int lev[MT * 6 * LB];      // levels, natural order: [MCU][block][u * 8 + v]
+  double rq[128];            // RN64(1 / q) of the luma, then chroma quant table
+  int nat[64];
+};
+
+}  // namespace k16a
+
+__global__ void __launch_bounds__(k16a::NT, 5)
+    transform_kernel(const uint8_t* __restrict__ rgb, const float* __restrict__ qtab,
                      int* __restrict__ y_out, int* __restrict__ cb_out, int* __restrict__ cr_out,
-                     int h, int w) {
-  __shared__ double pix[3][16][16];
-  __shared__ double blk[6][64];
-  __shared__ double tmp[6][64];
-  __shared__ float k[kConsts];
-  const int tid = threadIdx.x, py = tid >> 4, px = tid & 15;
-  const int nmx = gridDim.x, mcu = blockIdx.y * nmx + blockIdx.x;
-  const size_t s = blockIdx.z, nmcu = (size_t)nmx * gridDim.y;
-  if (tid < kConsts) k[tid] = consts[tid];
-  const int sy = min((int)blockIdx.y * 16 + py, h - 1);
-  const int sx = min((int)blockIdx.x * 16 + px, w - 1);
-  const uint8_t* p = rgb + ((s * h + sy) * w + sx) * 3;
-  const double r = p[0], g = p[1], b = p[2];
-  __syncthreads();
-  for (int d = 0; d < 3; ++d) {
-    const float* m = k + kMat + 3 * d;
-    double v = __dadd_rn(__dmul_rn(r, (double)m[0]), __dmul_rn(g, (double)m[1]));
-    v = __dadd_rn(v, __dmul_rn(b, (double)m[2]));
-    pix[d][py][px] = __dadd_rn(v, (double)k[kOff + d]);
-  }
-  __syncthreads();
-  blk[(py >> 3) * 2 + (px >> 3)][(py & 7) * 8 + (px & 7)] = __dadd_rn(pix[0][py][px], -128.0);
-  if (tid < 64) {
-    const int cy = 2 * (tid >> 3), cx = 2 * (tid & 7);
-    for (int c = 1; c < 3; ++c) {
-      double q = __dadd_rn(pix[c][cy][cx], pix[c][cy][cx + 1]);
-      q = __dadd_rn(__dadd_rn(q, pix[c][cy + 1][cx]), pix[c][cy + 1][cx + 1]);
-      blk[3 + c][tid] = __dadd_rn(__dmul_rn(q, 0.25), -128.0);
+                     int h, int w, int nmx) {
+  using namespace k16a;
+  __shared__ __align__(16) Smem sm;
+  const int tid = threadIdx.x, my = blockIdx.y, mx0 = blockIdx.x * MT;
+  const int nm = min(MT, nmx - mx0);          // the tile's MCUs in the frame
+  const size_t s = blockIdx.z, nmcu = static_cast<size_t>(nmx) * gridDim.y;
+  const size_t mcu0 = s * nmcu + static_cast<size_t>(my) * nmx + mx0;
+  if (tid < 128) sm.rq[tid] = __drcp_rn(static_cast<double>(qtab[tid]));
+  else if (tid < 192) sm.nat[tid - 128] = g_nat[tid - 128];
+
+  if (tid < NL) {
+    // -- luma thread: line `line` of MCU `m`, columns 8 hf .. 8 hf + 7
+    const int line = tid / (2 * MT), m = (tid >> 1) % MT, hf = tid & 1;
+    double x[8];
+    if (m < nm) {
+      const int sy = min(my * 16 + line, h - 1), x0 = (mx0 + m) * 16 + 8 * hf;
+      const uint8_t* row = rgb + (s * h + sy) * static_cast<size_t>(w) * 3;
+      unsigned px[24];
+      if (x0 + 8 <= w) {          // 24 bytes from aligned words
+        const uint8_t* p = row + 3 * x0;
+        const int sh = 8 * static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+        const unsigned* wp = reinterpret_cast<const unsigned*>(p - (reinterpret_cast<uintptr_t>(p) & 3));
+        unsigned wd[7];
+#pragma unroll
+        for (int i = 0; i < 6; ++i) wd[i] = __ldg(wp + i);
+        wd[6] = sh ? __ldg(wp + 6) : 0u;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          const unsigned u = __funnelshift_r(wd[i], wd[i + 1], sh);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) px[4 * i + k] = (u >> (8 * k)) & 255u;
+        }
+      } else {                    // the frame's right edge: columns clamped
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const uint8_t* p = row + 3 * min(x0 + k, w - 1);
+          px[3 * k] = p[0];
+          px[3 * k + 1] = p[1];
+          px[3 * k + 2] = p[2];
+        }
+      }
+      double* cb = sm.craw + m * RM + line * RP + 8 * hf;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const double r = u8d(px[3 * k]), g = u8d(px[3 * k + 1]), b = u8d(px[3 * k + 2]);
+        double c[3];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          double v = __dadd_rn(__dmul_rn(r, c_mat[3 * d]), __dmul_rn(g, c_mat[3 * d + 1]));
+          v = __dadd_rn(v, __dmul_rn(b, c_mat[3 * d + 2]));
+          c[d] = __dadd_rn(v, c_off[d]);
+        }
+        x[k] = __dadd_rn(c[0], -128.0);
+        cb[k] = c[1];
+        cb[RC + k] = c[2];
+      }
+    }
+    asm volatile("bar.arrive 1, %0;" ::"n"(NT) : "memory");
+    if (m < nm) {
+      double t[8];
+      row_pass(x, t);
+      double* o = sm.tmp + m * TM + ((line >> 3) * 2 + hf) * TB + (line & 7) * TI;
+#pragma unroll
+      for (int v = 0; v < 8; ++v) o[v] = t[v];
+    }
+  } else {
+    // -- chroma thread: row i of plane pl's block of MCU m
+    const int c = tid - NL, m = c >> 4, pl = (c >> 3) & 1, i = c & 7;
+    asm volatile("bar.sync 1, %0;" ::"n"(NT) : "memory");
+    if (m < nm) {
+      const double* p0 = sm.craw + pl * RC + m * RM + 2 * i * RP;
+      const double* p1 = p0 + RP;
+      double x[8], t[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {   // ((p00 + p01) + p10) + p11, * 0.25, - 128
+        double q = __dadd_rn(p0[2 * j], p0[2 * j + 1]);
+        q = __dadd_rn(__dadd_rn(q, p1[2 * j]), p1[2 * j + 1]);
+        x[j] = __dadd_rn(__dmul_rn(q, 0.25), -128.0);
+      }
+      row_pass(x, t);
+      double* o = sm.tmp + m * TM + (4 + pl) * TB + i * TI;
+#pragma unroll
+      for (int v = 0; v < 8; ++v) o[v] = t[v];
     }
   }
   __syncthreads();
-  // rows: t[i][v] = sum_j x[i][j] * D[v][j]
-  for (int o = tid; o < 384; o += 256) {
-    const int bi = o >> 6, i = (o >> 3) & 7, v = o & 7;
-    const double* x = blk[bi] + i * 8;
-    const float* dv = k + kDct + v * 8;
-    double acc = __dmul_rn(x[0], (double)dv[0]);
-    for (int j = 1; j < 8; ++j) acc = __dadd_rn(acc, __dmul_rn(x[j], (double)dv[j]));
-    tmp[bi][i * 8 + v] = acc;
+
+  {  // -- column v of block b of MCU m: c[u][v] = sum_i D[u][i] * t[i][v]
+    const int m = tid / 48, b = (tid >> 3) % 6, v = tid & 7;
+    if (m < nm) {
+      const double* in = sm.tmp + m * TM + b * TB + v;
+      double t[8], c[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) t[i] = in[i * TI];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) c[u] = __dmul_rn(c_dct[u * 8], t[0]);
+#pragma unroll
+      for (int i = 1; i < 8; ++i)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) c[u] = __dadd_rn(c[u], __dmul_rn(c_dct[u * 8 + i], t[i]));
+      const double* rq = sm.rq + (b < 4 ? 0 : 64) + v;
+      int* o = sm.lev + (m * 6 + b) * LB + v;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        o[u * 8] = __float2int_rn(__double2float_rn(
+            __dmul_rn(static_cast<double>(__double2float_rn(c[u])), rq[u * 8])));
+    }
   }
   __syncthreads();
-  // columns: c[u][v] = sum_i D[u][i] * t[i][v]; quantize; zigzag
-  for (int o = tid; o < 384; o += 256) {
-    const int bi = o >> 6, u = (o >> 3) & 7, v = o & 7;
-    const float* du = k + kDct + u * 8;
-    double acc = __dmul_rn((double)du[0], tmp[bi][v]);
-    for (int i = 1; i < 8; ++i) acc = __dadd_rn(acc, __dmul_rn((double)du[i], tmp[bi][i * 8 + v]));
-    const float q = k[(bi < 4 ? kLq : kCq) + u * 8 + v];
-    const int level = __float2int_rn(__fdiv_rn(__double2float_rn(acc), q));
-    const int z = c_zpos[u * 8 + v];
-    if (bi < 4)
-      y_out[((s * nmcu + mcu) * 4 + bi) * 64 + z] = level;
-    else
-      (bi == 4 ? cb_out : cr_out)[(s * nmcu + mcu) * 64 + z] = level;
+
+  // -- the tile's levels as 16-byte words: Y (nm x 64 words), Cb, Cr (nm x 16)
+  for (int wd = tid; wd < nm * 96; wd += NT) {
+    int m, b, z;
+    int4* dst;
+    if (wd < nm * 64) {
+      m = wd >> 6, b = (wd >> 4) & 3, z = 4 * (wd & 15);
+      dst = reinterpret_cast<int4*>(y_out + ((mcu0 + m) * 4 + b) * 64 + z);
+    } else {
+      const int w2 = wd - nm * 64, pl = w2 >= nm * 16, w3 = w2 - pl * nm * 16;
+      m = w3 >> 4, b = 4 + pl, z = 4 * (w3 & 15);
+      dst = reinterpret_cast<int4*>((pl ? cr_out : cb_out) + (mcu0 + m) * 64 + z);
+    }
+    const int* src = sm.lev + (m * 6 + b) * LB;
+    *dst = make_int4(src[sm.nat[z]], src[sm.nat[z + 1]], src[sm.nat[z + 2]], src[sm.nat[z + 3]]);
   }
 }
 
@@ -430,15 +594,19 @@ inline size_t pack_state_offset(int s, int nx, int shard_words) {
 
 }  // namespace
 
-// s frames (S, h, w, 3) -> y (S, nmcu, 4, 64), cb, cr (S, nmcu, 64);
-// consts: 204 floats (DCT matrix, colour matrix, offsets, luma q, chroma q).
+// s frames (S, h, w, 3) -> y (S, nmcu, 4, 64), cb, cr (S, nmcu, 64), each
+// 16-byte aligned; consts: 128 floats (the luma, then the chroma quant table).
 extern "C" int jpeg_transform_launch(const uint8_t* rgb, const float* consts, int* y, int* cb,
                                      int* cr, int s, int h, int w, int pad_h, int pad_w,
                                      cudaStream_t stream) {
   if (s <= 0 || pad_h <= 0 || pad_w <= 0) return 0;
-  if (s > 65535 || pad_h % 16 || pad_w % 16) return cudaErrorInvalidValue;
-  const dim3 grid(pad_w / 16, pad_h / 16, s);
-  transform_kernel<<<grid, 256, 0, stream>>>(rgb, consts, y, cb, cr, h, w);
+  if (s > 65535 || pad_h % 16 || pad_w % 16 || h <= 0 || w <= 0) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(cb) |
+       reinterpret_cast<uintptr_t>(cr)) & 15)
+    return cudaErrorMisalignedAddress;
+  const int nmx = pad_w / 16;
+  const dim3 grid((nmx + k16a::MT - 1) / k16a::MT, pad_h / 16, s);
+  transform_kernel<<<grid, k16a::NT, 0, stream>>>(rgb, consts, y, cb, cr, h, w, nmx);
   return dngd_last_error();
 }
 

@@ -394,9 +394,12 @@ def sse_planes_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def sse_planes(a, b, device=None) -> torch.Tensor:
     """Exact sum of squared differences of two uint8 planes of one shape
     (numpy arrays or tensors), a one-element int64 tensor on their device,
-    not synchronised.  CUDA tensors launch K14d (``csrc/aq.cu``), CPU
-    tensors run the plain version; numpy arrays go to ``device`` first
-    (None = the card: without CUDA that raises)."""
+    not synchronised.  CUDA tensors launch K14d (``csrc/aq.cu``: one
+    kernel, one graph node, no memset; a CTA's partial to its slot, the
+    last CTA by a ticket sums them into the result), CPU tensors run the
+    plain version; numpy arrays go to ``device`` first (None = the card:
+    without CUDA that raises).  The slots and the ticket are the device's
+    own, so launches on one device must be stream-ordered."""
     a, b = _plane_pair(a, b, device)
     if a.device.type == "cpu":
         return sse_planes_plain(a, b)

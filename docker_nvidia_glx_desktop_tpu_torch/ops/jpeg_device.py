@@ -57,16 +57,18 @@ _CONSTS: dict = {}
 
 
 def _consts(luma_q, chroma_q, device) -> torch.Tensor:
-    """K16a's 204 float constants on ``device`` (DCT matrix, colour
-    matrix, offsets, the two quant tables), uploaded once per tables."""
+    """K16a's 128 float32 constants on ``device`` (the luma, then the
+    chroma quant table), uploaded once per tables.  The DCT matrix, the
+    colour matrix and its offsets are the kernel's own float64 constants
+    (``csrc/jpeg.cu`` ``c_dct``, ``c_mat``, ``c_off``: :data:`dct.DCT8`,
+    ``color._M_FULL`` and ``color.OFF_FULL`` widened, which
+    ``tests/test_torch_k16a_k14d_order.py`` holds)."""
     lq = np.asarray(luma_q, np.float32).reshape(64)
     cq = np.asarray(chroma_q, np.float32).reshape(64)
     key = (str(device), lq.tobytes(), cq.tobytes())
     t = _CONSTS.get(key)
     if t is None:
-        v = np.concatenate([dct.DCT8.ravel(), color._M_FULL.ravel(),
-                            color.OFF_FULL, lq, cq]).astype(np.float32)
-        t = _CONSTS[key] = torch.from_numpy(v).to(device)
+        t = _CONSTS[key] = torch.from_numpy(np.concatenate([lq, cq])).to(device)
     return t
 
 
