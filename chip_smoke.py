@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in nineteen phases:
+seeded generator, in twenty phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -57,6 +57,13 @@ seeded generator, in nineteen phases:
   (K16a: S = 1 and 4, 1080p, 4K, 1919x1079, a ragged tile, 16x16 and
   17x33, saturated and all-zero frames, rounding ties; K14d: short and
   misaligned planes, the 4K full-scale pair, graph replays);
+- **k16b14a**: K16b (the JPEG symbol histograms) and K14a/K14r (the qp
+  plane) against their plain versions on the inputs that break their
+  designs (K16b: S = 1, 4 and 65, nx = 1, 3 and 4, 1080p, 4K, 1919x1079,
+  all-zero and saturated levels, crafted zero runs, DC sizes past 16;
+  K14a: with and without the lookahead, ``qp_dev``, activities past
+  int32, the SAD thresholds, odd MB columns, planes off 16 bytes,
+  worklists of 1, 8 and 64 rows with duplicates, graph replays);
 - **modes**: K1's other mode sets (``ENCODER_INTRA_MODES`` full, i16,
   dc) at each tier and K5's ``refine="full"`` (K5 and K5p) against their
   plain versions at 1080p; the served knobs ``ENCODER_INTRA_MODES`` and
@@ -310,7 +317,10 @@ chip_smoke.py pairs --set i16halo --pairs 3 parent=.tree/parent change=.``,
 chip_smoke.py i16halo``; K16a and K14d: ``python3 chip_smoke.py pairs --set
 k16a14d --pairs 3 parent=.tree/parent change=.``, ``python3 chip_smoke.py
 k16a14d-split`` and the k16a14d phase alone ``python3 chip_smoke.py
-k16a14d``; the damage phase's
+k16a14d``; K16b and K14a/K14r: ``python3 chip_smoke.py pairs --set k16b14a
+--pairs 3 parent=.tree/parent change=.``, ``python3 chip_smoke.py
+k16b14a-split`` and the k16b14a phase alone ``python3 chip_smoke.py
+k16b14a``; the damage phase's
 tune-mask part alone: ``python3 chip_smoke.py tune-mask`` (~75 s).  The BD-rate gate
 in alternating fresh processes is ``tools/bdrate_pairs.py``.
 """
@@ -737,6 +747,8 @@ def run():
     print(f"i16halo phase done at {time.perf_counter() - t_start:.0f} s")
     k16a14d_phase(report)
     print(f"k16a14d phase done at {time.perf_counter() - t_start:.0f} s")
+    k16b14a_phase(report)
+    print(f"k16b14a phase done at {time.perf_counter() - t_start:.0f} s")
     rows += modes_phase(report)
     print(f"modes phase done at {time.perf_counter() - t_start:.0f} s")
     rows += colour_phase(report)
@@ -4363,10 +4375,8 @@ def mjpeg_phase(report):
         if ops / FP64_OPS_PER_S * 1e3 > r["bound_ms"]:
             r["bound_ms"], r["bound_by"] = ops / FP64_OPS_PER_S * 1e3, "operations"
     for r, (name, _, fk, *_) in zip(out_rows, specs):    # beside the eager ms
-        if name in ("jpeg_transform", "jpeg_transform_batch", "jpeg_pack",
-                    "jpeg_pack_batch"):       # the pack: memset + kernel
-            r["device_ms"] = device_ms(fk, name, r["bound_ms"],
-                                       1 if name.startswith("jpeg_transform") else 2)
+        r["device_ms"] = device_ms(fk, name, r["bound_ms"],    # the pack: memset + kernel
+                                   2 if name.startswith("jpeg_pack") else 1)
     for r in out_rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}; plain {r['plain_ms']:.2f} ms; "
@@ -6634,6 +6644,103 @@ def k16a14d_times() -> dict:
     return form_numbers(k16a14d_form_times(k16a14d_inputs(torch.device("cuda"))))
 
 
+# -- K16b and K14a/K14r (the JPEG histograms and the qp plane) --------------
+#
+# ``k16b14a_inputs`` holds their main paths' inputs; ``pairs --set k16b14a``
+# times ``k16b14a_times`` on each checkout (``chiprun_out/k16b14a_pairs.json``);
+# ``k16b14a-split`` adds their stages cut out of copies of jpeg.cu and aq.cu
+# (``K16B_VARIANTS``, ``K14A_VARIANTS``, where the sources hold the redesign)
+# and the device times of the next kernels of the ranking (``next_rows``;
+# ``chiprun_out/k16b14a_split.json``).
+
+K16B_FORMS = ("h1080", "h_s4", "h4k")
+K14A_FORMS = ("q1080", "q1080_next", "q_rows8", "q4k_next")
+
+
+def k16b14a_inputs(dev) -> dict:
+    """K16b's inputs at its main paths' shapes, each (y, cb, cr, nx): the
+    levels of a 1080p desktop at quality 85 (``tpumjpegenc``, RFB), the
+    session batch's S = 4 frames at 1920x1088 in nx = 4 strips, the
+    desktop tiled to 4K; K14a's, each (y, next_y, rows): a moved desktop
+    P frame's luma at 1088x1920 (tune=hq) without and with the lookahead
+    frame, over a worklist of 8 rows (K14r, the damage mask), and both
+    tiled to 4K with the lookahead."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+    from docker_nvidia_glx_desktop_tpu_torch.ops import quant
+
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    lq, cq = quant.jpeg_quality_tables(85)
+    f = mjpeg_frames(2)[1]
+    bframes = np.stack([np.pad(g, ((0, BATCH_H - H), (0, 0), (0, 0)), "edge")
+                        for g in mjpeg_frames(BATCH_S, seed=10)])
+    g = gop_frames(2, seed=2)
+    desk, moving = pair_planes(g[0])[0], pair_planes(g[1])[0]
+    tile = lambda t: t[:H].repeat(2, 2).contiguous()
+    lv = lambda rgbs, ph, pw: tuple(jd.jpeg_transform(rgbs, lq, cq, ph, pw))
+    return {"h1080": lv(up(f)[None], H_PAD, W) + (1,),
+            "h_s4": lv(up(bframes), BATCH_H, W) + (BATCH_NX,),
+            "h4k": lv(up(np.tile(f, (2, 2, 1)))[None], 2 * H, 2 * W) + (1,),
+            "q1080": (moving, None, None),
+            "q1080_next": (moving, desk, None),
+            "q_rows8": (moving, desk, torch.arange(20, 28, dtype=torch.int32, device=dev)),
+            "q4k_next": (tile(moving), tile(desk), None)}
+
+
+def k16b_bytes(t) -> int:
+    """K16b's bytes on ``(y, cb, cr, nx)``: the levels read once, the
+    histograms written."""
+    return nbytes(*t[:3]) + t[1].shape[0] * 4 * 546
+
+
+def k14a_bytes(t) -> int:
+    """K14a's bytes on ``(y, next_y, rows)``: the listed rows of the luma
+    (and of the next frame) read once, the rows read, the map written."""
+    y, nxt, rows = t
+    nb = y.shape[0] // 16 if rows is None else rows.numel()
+    return (nb * 16 * y.shape[1] * (1 if nxt is None else 2) + nb * (y.shape[1] // 16) * 4
+            + (0 if rows is None else nbytes(rows)))
+
+
+def k16b14a_call(name: str, t):
+    """The wrapper call of form ``name`` on its inputs ``t``: K16b's
+    histograms or K14a's qp plane at ``PAIRS_QP``."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import aq
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+
+    if name in K16B_FORMS:
+        return lambda: jd.jpeg_analyze(*t)
+    return lambda: aq.qp_plane(t[0], PAIRS_QP, t[1], rows=t[2])
+
+
+def k16b14a_form_times(x: dict) -> dict:
+    """K16b at each of ``K16B_FORMS`` and K14a at each of ``K14A_FORMS``:
+    eager (CUDA events around the wrapper), one replay of a graph of one
+    call, one of 32 calls in a graph, the profiler's device ms by kernel
+    (K16b's memset apart where the source still issues one) and the
+    bytes bound."""
+    out = {}
+    for name in K16B_FORMS + K14A_FORMS:
+        fn = k16b14a_call(name, x[name])
+        r = out[name] = {"ms": cuda_ms(fn, reps=20), "graph_ms": graph_ms(fn, reps=20),
+                         "each_ms": graph_each_ms(fn)}
+        split = r["split"] = kernel_split(fn)
+        r["device_ms"] = float(sum(split.values())) if split else -1.0
+        r["memset_ms"] = float(sum(v for k, v in split.items() if "emset" in k))
+        r["bound_ms"] = ((k16b_bytes if name in K16B_FORMS else k14a_bytes)(x[name])
+                         / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def k16b14a_times() -> dict:
+    """The ``k16b14a`` set: ``k16b14a_form_times`` as ``form_numbers``."""
+    import torch
+
+    return form_numbers(k16b14a_form_times(k16b14a_inputs(torch.device("cuda"))))
+
+
 # the measured sets: (timing function, the sources whose ptxas lines a
 # build prints, the output file's stem)
 PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
@@ -6643,7 +6750,8 @@ PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
              "k11k16": (k11k16_times, ("jpeg", "cabac")),
              "k10k11i": (k10k11i_times, ("levelpack", "cabac")),
              "i16halo": (i16halo_times, ("inter", "spatial")),
-             "k16a14d": (k16a14d_times, ("jpeg", "aq"))}
+             "k16a14d": (k16a14d_times, ("jpeg", "aq")),
+             "k16b14a": (k16b14a_times, ("jpeg", "aq"))}
 
 
 def pairs_child(set_name: str, tree: str, build_only: bool) -> dict:
@@ -8142,6 +8250,248 @@ def k16a14d_phase(report):
     return []
 
 
+K16B_RUNS = (0, 15, 16, 17, 31, 32, 47, 48, 62)     # zero runs before a nonzero
+
+
+def k16b_crafted(nmcu: int, seed: int):
+    """(y, cb, cr) int32 numpy levels, one session, that break K16b's
+    design, block by block in turn: a nonzero after each run of
+    ``K16B_RUNS`` (then a second nonzero), the last nonzero at 62 and at
+    63, every size 1-15 at random positions, all-zero blocks, all 63 ACs
+    at +-1023; DCs that step past size 16 (+-70000, +-2^20, +-2^30, the
+    int32 extremes, whose differences wrap) beside small ones."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    blocks = np.zeros((nmcu * 6, 64), np.int64)
+    big = np.array([70000, -70000, 1 << 20, -(1 << 20), 1 << 30, -(1 << 30),
+                    2 ** 31 - 1, -2 ** 31, 0, 5, -3, 1023])
+    for i in range(nmcu * 6):
+        blk, kind = blocks[i], i % 7
+        blk[0] = big[rng.integers(0, len(big))] if rng.random() < 0.5 else rng.integers(-50, 50)
+        if kind == 0:                                  # a run, then another nonzero
+            run = K16B_RUNS[(i // 7) % len(K16B_RUNS)]
+            k = 1 + run
+            blk[k] = rng.choice([-1, 1]) * rng.integers(1, 1 << 15)
+            if k + 1 + run < 64:
+                blk[k + 1 + run] = rng.choice([-7, 9])
+        elif kind == 1:
+            blk[62 + (i // 7) % 2] = rng.choice([-1, 2])  # the last nonzero at 62 or 63
+            blk[rng.integers(1, 40)] = 3
+        elif kind == 2:                                # sizes 1-15
+            for size in range(1, 16):
+                blk[rng.integers(1, 64)] = rng.choice([-1, 1]) * ((1 << size) - rng.integers(0, 2))
+        elif kind == 3:
+            blk[1:] = 0                                # all zero but the DC
+        elif kind == 4:
+            blk[1:] = np.where(np.arange(63) % 2, 1023, -1024)
+        elif kind == 5:                                # int32 extremes in the ACs
+            blk[rng.integers(1, 64, 5)] = rng.choice([2 ** 31 - 1, -2 ** 31], 5)
+        else:
+            m = rng.random(63) < 0.2
+            blk[1:] = np.where(m, rng.integers(-60, 61, 63), 0)
+    b = blocks.astype(np.int32).reshape(1, nmcu, 6, 64)
+    return (np.ascontiguousarray(b[:, :, :4]), np.ascontiguousarray(b[:, :, 4]),
+            np.ascontiguousarray(b[:, :, 5]))
+
+
+def sad_planes(dev):
+    """A 32x64 luma pair (2 x 4 MBs) whose MBs' SADs against the next
+    frame are 256, 257, 1535 and 1536 (the lookahead's thresholds, either
+    side of each), then 0, 255, 1537 and 65280."""
+    import torch
+
+    y = torch.full((32, 64), 100, dtype=torch.int32)
+    nxt = y.clone()
+    for k, sad in enumerate((256, 257, 1535, 1536, 0, 255, 1537, 65280)):
+        r, c = 16 * (k // 4), 16 * (k % 4)
+        d = torch.zeros(256, dtype=torch.int32)
+        if sad == 65280:
+            y[r:r + 16, c:c + 16], d[:] = 0, 255
+        else:
+            q, rem = divmod(sad, 256)
+            d[:] = q
+            d[:rem] += 1
+        nxt[r:r + 16, c:c + 16] = y[r:r + 16, c:c + 16] + d.view(16, 16)
+    return y.to(torch.uint8).to(dev), nxt.to(torch.uint8).to(dev)
+
+
+def k16b14a_phase(report):
+    """K16b and K14a/K14r against their plain versions on the inputs that
+    break their designs.  K16b, every bin: the forms' levels (1080p, the
+    batch's S = 4 at 1920x1088, 4K) at nx = 1, 3 and 4, a 1919x1079 frame
+    padded, all-zero and all-saturated levels, ``k16b_crafted``'s blocks
+    (runs of 0-62 zeros, the last nonzero at 62 and 63, sizes 1-15, int32
+    extremes, DC sizes past 16: counted nowhere) at 1, 3, 17 and 40 MCUs,
+    S = 65 (two launches), a call twice, a graph of one replayed on new
+    levels and a graph of 32 launches.  K14a, every MB: 1080p without and
+    with the lookahead and with ``qp_dev``, 4K, 1919x1079 padded, all-255
+    MBs and MBs of 200 +- 55 (256 s2 past int32), the SAD thresholds, odd
+    MB columns (1, 3 and 5), planes 3 and 7 bytes off 16, worklists of 1,
+    8 and 64 rows with duplicates (K14r), a graph of 32 launches replayed
+    with ``qp_dev`` changed.  Launches made here leave the wrappers' counts
+    as they were."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import aq, quant
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+    from docker_nvidia_glx_desktop_tpu_torch.ops.devloop import graph_capture
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rep = report["k16b14a"] = {}
+    saved = (jd.jpeg_analyze.launches, aq.qp_plane.launches, aq.qp_plane.rows.launches)
+    rng = np.random.default_rng(20)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    n16 = n14 = 0
+
+    def hheld(label, lv, nx=1, hist=None):
+        nonlocal n16
+        got = jd.jpeg_analyze(*lv, nx) if hist is None else hist
+        want = jd.jpeg_analyze_plain(*lv, nx)
+        check(torch.equal(got, want), f"K16b {label}: {int((got != want).sum())} bins "
+              "differ from plain")
+        n16 += 1
+        return got
+
+    # -- K16b ----------------------------------------------------------------------
+    x = k16b14a_inputs(dev)
+    for name in K16B_FORMS:
+        *lv, nx0 = x[name]
+        for nx in sorted({1, 3, 4, nx0}):
+            hheld(f"{name} nx={nx}", lv, nx)
+    lq, cq = quant.jpeg_quality_tables(85)
+    odd = up(np.ascontiguousarray(mjpeg_frames(2)[1][:ODD_H, :ODD_W]))[None]
+    hheld("1919x1079 padded", jd.jpeg_transform(odd, lq, cq, H_PAD, W))
+    z = torch.zeros((2, 8160, 4, 64), dtype=torch.int32, device=dev)
+    zc = torch.zeros((2, 8160, 64), dtype=torch.int32, device=dev)
+    hheld("all zero", (z, zc, zc.clone()), 4)
+    sat = lambda t, v: torch.where(torch.arange(64, device=dev) % 2 == 0, v, -v - 1).to(
+        torch.int32).expand_as(t).contiguous()
+    for v in (1023, 2 ** 31 - 1):
+        hheld(f"saturated +-{v}", (sat(z, v), sat(zc, v), sat(zc, v)), 3)
+    for nmcu, nx in ((1, 1), (3, 3), (17, 1), (40, 4), (40, 1)):
+        for seed in range(3):
+            lv = [up(a) for a in k16b_crafted(nmcu, seed + 7 * nmcu)]
+            hheld(f"crafted {nmcu} MCUs nx={nx} seed {seed}", lv, nx)
+    one = [up(a) for a in (np.array([[[[70000] + [0] * 63, [-70000] + [0] * 63,
+                                        [0] * 64, [0] * 64]]], np.int32),
+                            np.zeros((1, 1, 64), np.int32), np.zeros((1, 1, 64), np.int32))]
+    rep_dc = hheld("DC sizes past 16 on one MCU", one)
+    check(int(rep_dc[0, 0]) == 1 and int(rep_dc[0, 1:17].sum()) == 0,
+          f"K16b: dc_y {rep_dc[0, :17].tolist()}, not the reference's [1, 0, ...]")
+    big = [up(np.concatenate([a] * 65)) for a in k16b_crafted(3, 1)]
+    hheld("S = 65 (two launches)", big, 3)
+    lv = x["h1080"][:3]
+    first = hheld("1080p again", lv)
+    check(torch.equal(hheld("1080p a third time", lv), first), "K16b: two calls differ")
+    gl = [t.clone() for t in lv]
+    g = torch.cuda.CUDAGraph()
+    jd.jpeg_analyze(*gl)
+    torch.cuda.synchronize()
+    with graph_capture(g):
+        gout = jd.jpeg_analyze(*gl)
+    other = x["h_s4"][:3]
+    for i in range(4):
+        for dst, a, b in zip(gl, lv, other):
+            dst.copy_(a if i % 2 == 0 else b[i])
+        g.replay()
+        hheld(f"replay {i} of one graph", gl, 1, gout.clone())
+    g32 = torch.cuda.CUDAGraph()
+    with graph_capture(g32):
+        outs = [jd.jpeg_analyze(*lv) for _ in range(32)]
+    for _ in range(2):
+        g32.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(o, first) for o in outs),
+              "K16b: a launch of a graph of 32 differs from plain")
+    rep["k16b_cases"], rep["k16b_s"] = n16, time.perf_counter() - t_phase
+
+    # -- K14a / K14r ---------------------------------------------------------------
+    t1 = time.perf_counter()
+    qp = PAIRS_QP
+
+    def qheld(label, y, nxt=None, rows=None, qp_dev=None, out=None):
+        nonlocal n14
+        got = aq.qp_plane(y, qp, nxt, qp_dev, out, rows)
+        q = qp if qp_dev is None else int(qp_dev)
+        want = aq.qp_plane_plain(y, q, nxt, rows)
+        check(torch.equal(got, want), f"K14a {label}: {int((got != want).sum())} MBs "
+              "differ from plain")
+        n14 += 1
+        return got
+
+    qd = torch.tensor([38], dtype=torch.int32, device=dev)
+    for name in K14A_FORMS:
+        y, nxt, rows = x[name]
+        qheld(name, y, nxt, rows)
+        qheld(f"{name} qp_dev", y, nxt, rows, qd)
+    ri = torch.arange(H_PAD, device=dev).clamp(max=ODD_H - 1)
+    ci = torch.arange(W, device=dev).clamp(max=ODD_W - 1)
+    edge = lambda t: t[ri][:, ci].contiguous()       # 1919x1079, edge-padded
+    qheld("1919x1079 padded", edge(x["q1080"][0]), edge(x["q1080_next"][1]))
+    hi = torch.full((64, 96), 255, dtype=torch.uint8, device=dev)
+    pm = up((200 + 55 * rng.choice([-1, 1], (64, 96))).astype(np.uint8))
+    mix = torch.cat([hi, pm], 0).contiguous()
+    a = qheld("all-255 and 200 +- 55", mix, torch.flip(mix, [1]).contiguous())
+    check(int(a.min()) >= 1, "K14a: qp below 1")
+    sy, sn = sad_planes(dev)
+    qheld("SAD thresholds", sy, sn)
+    for nc in (1, 3, 5):
+        r = up(rng.integers(0, 256, (48, 16 * nc), dtype=np.uint8))
+        qheld(f"{nc} MB columns", r, up(rng.integers(0, 256, (48, 16 * nc), dtype=np.uint8)))
+        qheld(f"{nc} MB columns, 2 of 3 rows", r, None,
+              torch.tensor([2, 0], dtype=torch.int32, device=dev))
+    y0, n0 = x["q1080_next"][:2]
+    want = aq.qp_plane_plain(y0, qp, n0)
+    for oa, ob in ((3, 3), (3, 7), (0, 5)):
+        ba = torch.empty(y0.numel() + 16, dtype=torch.uint8, device=dev)
+        bb = torch.empty(n0.numel() + 16, dtype=torch.uint8, device=dev)
+        va, vb = ba[oa:oa + y0.numel()].view(y0.shape), bb[ob:ob + n0.numel()].view(n0.shape)
+        va.copy_(y0)
+        vb.copy_(n0)
+        check((va.data_ptr() % 16, vb.data_ptr() % 16) == (oa, ob),
+              "K14a: the views are not where they should be")
+        check(torch.equal(qheld(f"views {oa} and {ob} bytes off 16", va, vb), want),
+              "K14a: a view off 16 bytes differs")
+    nr = y0.shape[0] // 16
+    for nb in (1, 8, 64):
+        rows = up(rng.integers(0, nr, nb).astype(np.int32))
+        if nb > 1:
+            rows[1] = rows[0]                          # a duplicate
+        qheld(f"{nb} rows", y0, n0, rows)
+        qheld(f"{nb} rows, no lookahead, qp_dev", y0, None, rows, qd)
+    gq = torch.tensor([qp], dtype=torch.int32, device=dev)
+    gouts = [torch.empty((nr, y0.shape[1] // 16), dtype=torch.int32, device=dev)
+             for _ in range(32)]
+    aq.qp_plane(y0, qp, n0, gq, gouts[0])
+    torch.cuda.synchronize()
+    g32 = torch.cuda.CUDAGraph()
+    with graph_capture(g32):
+        for k, o in enumerate(gouts):
+            aq.qp_plane(y0, qp, n0 if k % 2 else None, gq, o)
+    for q in (qp, 12, 51):
+        gq.fill_(q)
+        g32.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(o, aq.qp_plane_plain(y0, q, n0 if k % 2 else None))
+                  for k, o in enumerate(gouts)),
+              f"K14a: a launch of a graph of 32 at qp {q} differs from plain")
+    torch.cuda.synchronize()
+    jd.jpeg_analyze.launches, aq.qp_plane.launches, aq.qp_plane.rows.launches = saved
+    rep.update(k14a_cases=n14, k14a_s=time.perf_counter() - t1,
+               s=time.perf_counter() - t_phase)
+    print(f"(a) k16b14a: K16b equal to plain, every bin, on {n16} inputs (1080p, S = 4, "
+          f"4K at nx 1, 3, 4; 1919x1079; all zero; saturated; crafted runs, sizes and DC "
+          f"sizes past 16 at 1-40 MCUs; S = 65; calls in a row, graph replays), dc_y of "
+          f"the one-MCU case {rep_dc[0, :3].tolist()}... ({rep['k16b_s']:.1f} s); K14a/K14r "
+          f"equal to plain on {n14} inputs (1080p with and without the lookahead, qp_dev, "
+          f"4K, 1919x1079, activities past int32, SAD thresholds, 1-5 MB columns, views off "
+          f"16 bytes, 1, 8 and 64 rows with duplicates), a graph of 32 launches at three "
+          f"qp_dev ({rep['k14a_s']:.1f} s); phase {rep['s']:.1f} s")
+    return []
+
+
 # K5's stages cut out of copies of inter.cu, one stage a copy (timing
 # only: a cut stage leaves its outputs wrong but every index in range)
 K5_VARIANTS = {
@@ -9094,12 +9444,14 @@ def next_row_forms(dev) -> dict:
     return forms
 
 
-def next_rows(dev) -> dict:
-    """Each of ``next_row_forms``: the profiler's device ms by kernel
-    (``kernel_split``), one replay of a graph of one call and an eager
-    call."""
+def next_rows(dev, names=None) -> dict:
+    """Each of ``next_row_forms`` (those in ``names`` where given): the
+    profiler's device ms by kernel (``kernel_split``), one replay of a
+    graph of one call and an eager call."""
     res = {}
     for name, fn in next_row_forms(dev).items():
+        if names is not None and name not in names:
+            continue
         split = kernel_split(fn)
         res[name] = {"device_ms": float(sum(split.values())) if split else -1.0,
                      "split": split, "graph_ms": graph_ms(fn, reps=20),
@@ -9140,6 +9492,120 @@ def k16a14d_split() -> int:
     res["next_rows"] = next_rows(dev)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "k16a14d_split.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
+# K16b's and K14a's stages cut out of, or sizes changed in, copies of the
+# redesigned sources (timing only: a cut leaves the outputs wrong)
+K16B_MARK = "HIST_CTAS_PER_SM"
+K16B_VARIANTS = {
+    "base": [],
+    "loads_only": [("    hist_count(cur, k, h, m, mps, lane);\n",
+                    "    for (int c = 0; c < 6; ++c) k.dcl += cur.a[c] ^ cur.b[c];\n")],
+    "no_syms": [("    if ((mk.lo >> lane) & 1) {", "    if (false) {"),
+                ("    if (v.b[c]) {", "    if (false) {")],
+    "no_flush": [("    if (h[i]) atomicAdd(acc + i, h[i]);", "    if (h[i] == 12345) acc[i] = 0;")],
+    "ctas2": [("HIST_CTAS_PER_SM = 4;", "HIST_CTAS_PER_SM = 2;")],
+    "ctas5": [("HIST_CTAS_PER_SM = 4;", "HIST_CTAS_PER_SM = 5;")],
+    "streaming": [("    v.a[c] = __ldg(py + 64 * c);\n    v.b[c] = __ldg(py + 64 * c + 32);",
+                   "    v.a[c] = __ldcs(py + 64 * c);\n    v.b[c] = __ldcs(py + 64 * c + 32);")],
+}
+K14A_MARK = "QP_WARPS"
+K14A_VARIANTS = {
+    "base": [],
+    "warps4": [("QP_WARPS = 8,", "QP_WARPS = 4,")],
+    "warps16": [("QP_WARPS = 8,", "QP_WARPS = 16,")],
+    "no_compare": [("k < min(n_steps, MAX_STEPS) && act_h >= __ldg(steps + k)",
+                    "k == 0 && act_h > 0")],
+}
+
+
+def k16b14a_cuts(x: dict) -> dict:
+    """Each of ``K16B_VARIANTS`` on ``K16B_FORMS`` and ``K14A_VARIANTS`` on
+    ``K14A_FORMS`` (where the sources hold the redesign): device ms, one
+    replay of a graph of one call, and whether the output equals the
+    source's (0 where a cut leaves it wrong by design)."""
+    import ctypes
+
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda, aq
+    from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
+
+    cut = {}
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for src, mark, variants, forms in (("jpeg", K16B_MARK, K16B_VARIANTS, K16B_FORMS),
+                                       ("aq", K14A_MARK, K14A_VARIANTS, K14A_FORMS)):
+        if mark not in open(os.path.join(_cuda.CSRC, f"{src}.cu")).read():
+            continue
+        libs = build_variants(src, variants)
+        for form in forms:
+            t = x[form]
+            want = k16b14a_call(form, t)()
+            out = torch.empty_like(want)
+            for name, lib in libs.items():
+                if src == "jpeg":
+                    fn = lib["jpeg_analyze_launch"]
+                    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                    args = ([a.data_ptr() for a in t[:3]] + [out.data_ptr(), t[1].shape[0],
+                                                              t[1].shape[1], t[3]])
+                else:
+                    y, nxt, rows = t
+                    first, steps, st = aq._steps_on(y.device)
+                    fn = lib["qp_plane_launch"]
+                    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+                    ptr = lambda a: None if a is None else a.data_ptr()
+                    args = ([ptr(y), ptr(nxt), ptr(rows), None, st.data_ptr(), out.data_ptr(),
+                             y.shape[0] // 16, y.shape[1] // 16, out.shape[0], PAIRS_QP,
+                             first, len(steps), aq.LOOKAHEAD_BIAS])
+                fn.restype = ctypes.c_int
+
+                def call(fn=fn, args=args, name=name):
+                    err = fn(*args, stream())
+                    check(err == 0, f"{name}: CUDA error {err}")
+                call()
+                torch.cuda.synchronize()
+                split = kernel_split(call)
+                key = f"{form}_{name}"
+                cut[key] = {"graph_ms": graph_ms(call, reps=20),
+                            "device_ms": sum(split.values()),
+                            "equal": float(torch.equal(out, want))}
+                print(f"{form} {name}: {json.dumps(cut[key])}", flush=True)
+    return cut
+
+
+def k16b14a_split() -> int:
+    """``python3 chip_smoke.py k16b14a-split``: the ``-Xptxas -v`` lines of
+    K16b's and K14a's kernels; each of their forms (``k16b14a_form_times``)
+    by device time beside its CUDA-event, replayed and one-of-32 ms and its
+    bound; their stages cut out of copies of the sources
+    (``k16b14a_cuts``); the next kernels of the ranking by device time
+    (``next_rows``: 13s, K13, 9b, K9).  Writes
+    ``chiprun_out/k16b14a_split.json``."""
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, HERE)
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+
+    smi = smi_line()
+    print(smi, flush=True)
+    logs = _cuda.build(verbose=True)
+    res = {"card": smi, "ptxas": {}}
+    for src, marks in (("jpeg", ("analyze",)), ("aq", ("qp_plane",))):
+        res["ptxas"][src] = kernel_lines(ptxas_lines(logs.get(src, "")), marks)
+        for ln in res["ptxas"][src]:
+            print(f"ptxas {src}: {ln}", flush=True)
+    dev = torch.device("cuda")
+    x = k16b14a_inputs(dev)
+    for name, r in k16b14a_form_times(x).items():
+        res[name] = r
+        print(f"{name}: {json.dumps(r)}", flush=True)
+    res["cut_ms"] = k16b14a_cuts(x)
+    res["next_rows"] = next_rows(dev, ("k13s", "k13", "k9b", "k9"))
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k16b14a_split.json"), "w") as f:
         json.dump(res, f, indent=1)
     return 0
 
@@ -9214,6 +9680,10 @@ def main(argv=None):
             return k16a14d_split()
         if argv[:1] == ["k16a14d"]:
             return phase_alone("k16a14d", k16a14d_phase, ("jpeg", "aq"))
+        if argv[:1] == ["k16b14a-split"]:
+            return k16b14a_split()
+        if argv[:1] == ["k16b14a"]:
+            return phase_alone("k16b14a", k16b14a_phase, ("jpeg", "aq"))
         if argv[:1] == ["k5k4"]:
             return phase_alone("k5k4", k5k4_phase, ("inter", "content"))
         return run()

@@ -15,10 +15,17 @@
 // passes its breakpoints, so the kernel compares integers and no float
 // log2 (XLA's differs from CUDA's) is evaluated.
 //
-// What bounds it: bytes.  One block of 256 threads per MB reads its 256
-// luma samples (and the next frame's), a pixel a thread, block-reduces
-// the sums and writes one int32.  At 1080p that is 2 x 2.1 MB in and
-// 33 KB out.
+// What bounds it: bytes, the luma (and the next frame's) read once: 2 x
+// 2.1 MB in and 33 KB out at 1080p (0.0013 ms), under a graph kernel
+// node's own floor (~0.0015 ms).  Design (redesigned for Hopper): a warp
+// two horizontally adjacent MBs of one row (QP_*), lane 2 row + m loading
+// row `row` of MB m as one 16-byte word (a lane pair reads one 32-byte
+// sector), and the next frame's word where one is staged; the sums by
+// __dp4a (s <= 65280, s2 <= 16,646,400 and the SAD <= 65280: exact in 32
+// bits), four xor-shuffles reduce each MB's 16 lanes; then lane k of
+// half-warp m compares MB m's activity with breakpoint k (lanes past the
+// breakpoints masked), and a ballot's popcount is the delta.  A plane off a
+// 16-byte boundary takes the same words byte by byte.
 //
 // K14d — the BD-rate bench's distortion: the sum of squared differences
 // of two uint8 planes as one device reduction.  Replaces
@@ -49,48 +56,71 @@
 
 namespace {
 
-constexpr int NT = 256;
+constexpr int QP_WARPS = 8, QP_NT = 32 * QP_WARPS;   // a warp two MBs
 constexpr int MAX_STEPS = 16;
 
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// 16 bytes from p: one load, or byte by byte where p may be off 16 bytes
+template <bool VEC>
+__device__ __forceinline__ uint4 load16(const uint8_t* p) {
+  if (VEC) return __ldg(reinterpret_cast<const uint4*>(p));
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    w[k] = static_cast<unsigned>(p[4 * k]) | (static_cast<unsigned>(p[4 * k + 1]) << 8) |
+           (static_cast<unsigned>(p[4 * k + 2]) << 16) | (static_cast<unsigned>(p[4 * k + 3]) << 24);
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-__global__ void __launch_bounds__(NT) qp_plane_kernel(
+__device__ __forceinline__ unsigned dp4(const uint4& a, const uint4& b) {
+  return __dp4a(a.x, b.x, __dp4a(a.y, b.y, __dp4a(a.z, b.z, __dp4a(a.w, b.w, 0u))));
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(QP_NT) qp_plane_kernel(
     const uint8_t* __restrict__ y, const uint8_t* __restrict__ next_y,
     const int* __restrict__ rows, const int* __restrict__ qp_dev,
-    const int* __restrict__ steps, int* qp_map, int nc, int qp, int first, int n_steps,
+    const int* __restrict__ steps, int* qp_map, int nb, int nc, int qp, int first, int n_steps,
     int bias) {
-  __shared__ int part[3][NT / 32];
-  // mb: the output MB (row mb / nc of the worklist), r: the frame row read
-  const int mb = blockIdx.x, c = mb % nc, t = threadIdx.x;
-  const int r = rows ? rows[mb / nc] : mb / nc;
-  const int W = nc * 16;
-  const int idx = (r * 16 + (t >> 4)) * W + c * 16 + (t & 15);
-  const int v = y[idx];
-  int s = warp_sum(v), s2 = warp_sum(v * v);
-  int sad = next_y ? warp_sum(abs(v - (int)next_y[idx])) : 0;
-  if ((t & 31) == 0) {
-    part[0][t >> 5] = s;
-    part[1][t >> 5] = s2;
-    part[2][t >> 5] = sad;
-  }
-  __syncthreads();
-  if (t == 0) {
-    s = s2 = sad = 0;
-    for (int w = 0; w < NT / 32; ++w) {
-      s += part[0][w];
-      s2 += part[1][w];
-      sad += part[2][w];
+  const int lane = threadIdx.x & 31, np = (nc + 1) >> 1;   // MB pairs a row
+  const int gw = blockIdx.x * QP_WARPS + (threadIdx.x >> 5);
+  const int i = gw / np;                     // the output row
+  if (i >= nb) return;                       // the whole warp
+  const int m = lane & 1, c = 2 * (gw - i * np) + m;
+  const bool valid = c < nc;                 // an odd row's last pair has one MB
+  const int r = rows ? __ldg(rows + i) : i;  // the frame row read
+  const size_t off = (static_cast<size_t>(r) * 16 + (lane >> 1)) * (static_cast<size_t>(nc) * 16) +
+                     static_cast<size_t>(c) * 16;
+  const uint4 ones = make_uint4(0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u);
+  unsigned s = 0, s2 = 0, sad = 0;
+  if (valid) {
+    const uint4 w = load16<VEC>(y + off);
+    s = dp4(w, ones);
+    s2 = dp4(w, w);
+    if (next_y) {
+      const uint4 n = load16<VEC>(next_y + off);
+      const uint4 d = make_uint4(__vabsdiffu4(w.x, n.x), __vabsdiffu4(w.y, n.y),
+                                 __vabsdiffu4(w.z, n.z), __vabsdiffu4(w.w, n.w));
+      sad = dp4(d, ones);
     }
-    // 256*s2 and s*s wrap in 32 bits, as the reference's int32 products
-    const int act = max((int)(256u * (unsigned)s2 - (unsigned)s * (unsigned)s), 0);
-    int d = first;
-    for (int k = 0; k < n_steps && k < MAX_STEPS; ++k) d += act >= steps[k];
+  }
+#pragma unroll
+  for (int o = 2; o < 32; o <<= 1) {         // the 16 lanes of MB m (lane parity m)
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    sad += __shfl_xor_sync(0xffffffffu, sad, o);
+  }
+  // 256*s2 and s*s wrap in 32 bits, as the reference's int32 products
+  const int act = max(static_cast<int>(256u * s2 - s * s), 0);
+  // lane k of half-warp h: MB h's activity against breakpoint k
+  const int h = lane >> 4, k = lane & 15;
+  const int act_h = __shfl_sync(0xffffffffu, act, h);
+  const unsigned up =
+      __ballot_sync(0xffffffffu, k < min(n_steps, MAX_STEPS) && act_h >= __ldg(steps + k));
+  if (lane < 2 && valid) {                   // lane m: MB m
+    int d = first + __popc(up & (0xffffu << (16 * m)));
     if (next_y) d += sad <= 256 ? -bias : (sad >= 6 * 256 ? 1 : 0);
     const int q = qp_dev ? *qp_dev : qp;
-    qp_map[mb] = min(max(q + d, 1), 51);
+    qp_map[static_cast<size_t>(i) * nc + c] = min(max(q + d, 1), 51);
   }
 }
 
@@ -164,19 +194,12 @@ __global__ void __launch_bounds__(SSE_NT) sse_kernel(const uint8_t* __restrict__
 extern "C" int sse_launch(const uint8_t* a, const uint8_t* b, unsigned long long* out, int n,
                           cudaStream_t stream) {
   if (n < 0) return cudaErrorInvalidValue;
-  static int sms[64];                 // per device, read once
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (!sms[dev]) {
-    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  int sms = 0;
+  if (const int e = dngd_sm_count(&sms)) return e;
   const bool vec = ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0;
   const int nvec = vec ? n / 16 : 0;
   const long long work = vec ? (nvec + SSE_U - 1) / SSE_U : n;   // a thread's first batch
-  const int cap = std::min(SSE_MAX_CTAS, sms[dev] * SSE_CTAS_PER_SM);
+  const int cap = std::min(SSE_MAX_CTAS, sms * SSE_CTAS_PER_SM);
   const int ctas = static_cast<int>(
       std::max(1LL, std::min<long long>((work + SSE_NT - 1) / SSE_NT, cap)));
   sse_kernel<<<ctas, SSE_NT, 0, stream>>>(a, b, out, n, nvec);
@@ -193,7 +216,15 @@ extern "C" int qp_plane_launch(const uint8_t* y, const uint8_t* next_y, const in
                                cudaStream_t stream) {
   if (nr <= 0 || nc <= 0 || nb <= 0) return 0;
   if (!rows && nb != nr) return cudaErrorInvalidValue;
-  qp_plane_kernel<<<nb * nc, NT, 0, stream>>>(y, next_y, rows, qp_dev, steps, qp_map, nc, qp,
-                                              first, n_steps, bias);
+  const long long warps = static_cast<long long>(nb) * ((nc + 1) / 2);
+  const long long ctas = (warps + QP_WARPS - 1) / QP_WARPS;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const bool vec = ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(next_y)) & 15) == 0;
+  if (vec)
+    qp_plane_kernel<true><<<static_cast<unsigned>(ctas), QP_NT, 0, stream>>>(
+        y, next_y, rows, qp_dev, steps, qp_map, nb, nc, qp, first, n_steps, bias);
+  else
+    qp_plane_kernel<false><<<static_cast<unsigned>(ctas), QP_NT, 0, stream>>>(
+        y, next_y, rows, qp_dev, steps, qp_map, nb, nc, qp, first, n_steps, bias);
   return dngd_last_error();
 }

@@ -14,6 +14,22 @@ static inline int dngd_last_error() {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The current device's SM count into *out, asked once a device; returns 0
+// or the CUDA error.
+static inline int dngd_sm_count(int* out) {
+  static int sms[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!sms[dev]) {
+    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  *out = sms[dev];
+  return 0;
+}
+
 // luma4x4BlkIdx -> (bx, by), spec 6.4.3; zigzag scan of a 4x4 block.
 __constant__ int c_blk_x[16] = {0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3};
 __constant__ int c_blk_y[16] = {0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3};

@@ -24,13 +24,19 @@
 //       are warp-uniform operands (no conversion a product), the frame read
 //       by aligned words, the levels stored as 16-byte words (below).
 // K16b  jpeg_analyze_launch replaces ops/jpeg_device.py:142 jpeg_analyze
-//       (:59 component_symbols, :94 component_histogram): one thread per
-//       8x8 block walks its coefficients (DC difference against the
-//       previous block of its chain and strip, run/size symbols, ZRLs,
-//       EOB) into shared histograms, atomically added to the session's
-//       global ones (dc_y 17, ac_y 256, dc_c 17, ac_c 256 int32): the
-//       restart strips' histograms summed, as the reference's psum.
-//       Integer work: exact.  Bound: bytes (12.5 MB of levels).
+//       (:59 component_symbols, :94 component_histogram): each block's
+//       symbols (DC size against the previous block of its chain and strip,
+//       run/size symbols, ZRLs, EOB) counted into the session's histograms
+//       (dc_y 17, ac_y 256, dc_c 17, ac_c 256 int32), the restart strips'
+//       summed as the reference's psum.  A DC size above 16 adds nothing, as
+//       the reference's scatter drops it.  Integer work: exact.  Bound: bytes
+//       (12.5 MB of levels at 1080p, 0.0037 ms).  Design (redesigned for
+//       Hopper): one wave of CTAs, a warp a block, two coalesced loads
+//       issued a step ahead and two ballots, the symbols from the 64-bit
+//       mask (as K16c's); the hot bins in registers, an AC symbol a shared
+//       add; one launch and no memset, the CTAs' bins summed in a
+//       __device__ accumulator that the last CTA of a session takes out and
+//       zeroes.
 // K16c  jpeg_pack_launch replaces ops/jpeg_device.py:154 jpeg_pack (:105
 //       component_entries, ops/bitpack.py:24 pack_bits) without its 254
 //       entry slots a block.  Bound: bytes (12.5 MB of levels read once at
@@ -48,7 +54,7 @@
 //          run since the previous one comes from the mask (__clzll), which
 //          gives its ZRLs, run/size symbol, code and amplitude bits; lane 0
 //          codes the DC difference against its chain's predecessor (0 at a
-//          strip's first MCU, as locate does), lane 31 the EOB when
+//          strip's first MCU), lane 31 the EOB when
 //          position 63 is zero; a warp scan gives the lanes' offsets;
 //        - warp 0 scans the blocks' bits, publishes the segment's bits and
 //          looks back over the strip's earlier segments (lookback.cuh);
@@ -63,6 +69,8 @@
 //       publishes DONE, and ORs into its first word, when that word holds
 //       earlier bits, only after its predecessor is DONE.  Words past the
 //       strip's shard_words are dropped (the total still counts them).
+#include <type_traits>
+
 #include "bitsink.cuh"
 #include "lookback.cuh"
 
@@ -296,11 +304,14 @@ __global__ void __launch_bounds__(k16a::NT, 5)
 }
 
 // ---------------------------------------------------------------------------
-// The entropy passes: one thread per 8x8 block, g = mcu * 6 + (0..3 Y, 4 Cb,
-// 5 Cr) inside a session: the scan's interleave order.
+// The entropy passes (K16b, K16c): a warp an 8x8 block, lane l holding the
+// levels at zigzag positions l and l + 32; blocks in the scan's interleave
+// order, Y00 Y01 Y10 Y11 Cb Cr an MCU.  Both kernels take a block's symbols
+// from the functions below, so they cannot disagree about one.
 
 constexpr int kDcL = 0, kAcL = 17, kDcC = 273, kAcC = 290, kSyms = 546;  // symbol offsets
 constexpr int kTableInts = 2 * kSyms;  // codes at [0, 546), lengths at [546, 1092)
+using lookback::FULL;
 
 __device__ __forceinline__ int bit_length(int v) { return 32 - __clz(v); }
 
@@ -308,69 +319,182 @@ __device__ __forceinline__ uint32_t amplitude(int v, int size) {
   return (uint32_t)(v >= 0 ? v : v + (1 << size) - 1) & ((1u << size) - 1u);
 }
 
-struct Block {
-  const int* zz;  // 64 zigzagged levels
-  int prev_dc;    // the predictor: 0 at a strip's first block of its chain
-  bool luma;
+// The DC difference against the chain's predecessor, wrapping in 32 bits as
+// the reference's int32 subtraction does.
+__device__ __forceinline__ int dc_diff(int dc, int prev) {
+  return static_cast<int>(static_cast<unsigned>(dc) - static_cast<unsigned>(prev));
+}
+
+// The block's AC nonzero mask, in two halves: bit k of lo (k >= 1) set where
+// zigzag position k holds a nonzero level, bit k of hi where position
+// 32 + k does (a: the lane's level at position lane, b: at lane + 32).
+struct Mask {
+  unsigned lo, hi;
 };
 
-__device__ __forceinline__ Block locate(const int* y, const int* cb, const int* cr, size_t s,
-                                        int nmcu, int mps, int g) {
-  const int mcu = g / 6, c = g - 6 * mcu;
-  const size_t m = s * nmcu + mcu;
-  const bool first = mcu % mps == 0;
-  Block b;
-  b.luma = c < 4;
-  if (c < 4) {
-    b.zz = y + (m * 4 + c) * 64;
-    b.prev_dc = c > 0 ? b.zz[-64] : (first ? 0 : y[(m * 4 - 1) * 64]);
-  } else {
-    const int* base = c == 4 ? cb : cr;
-    b.zz = base + m * 64;
-    b.prev_dc = first ? 0 : base[(m - 1) * 64];
-  }
-  return b;
+__device__ __forceinline__ Mask ac_mask(int a, int b) {
+  return {__ballot_sync(FULL, a != 0) & ~1u, __ballot_sync(FULL, b != 0)};
 }
 
-// Walks one block's symbols, calling sym(table_offset, symbol, amp, size)
-// in scan order: DC, then per nonzero AC its ZRLs and its symbol, then EOB.
-template <typename F>
-__device__ __forceinline__ void walk(const Block& b, F&& sym) {
-  const int dc_t = b.luma ? kDcL : kDcC, ac_t = b.luma ? kAcL : kAcC;
-  const int diff = b.zz[0] - b.prev_dc;
-  const int dsize = bit_length(abs(diff));
-  sym(dc_t, min(dsize, 16), amplitude(diff, dsize), dsize);
-  int run = 0, last = 0;
-  for (int i = 1; i < 64; ++i) {
-    const int v = b.zz[i];
-    if (v == 0) {
-      ++run;
-      continue;
+// The run/size symbol of the nonzero level v at zigzag position k = lane
+// (HI: lane + 32) >= 1: its run of zeros since the previous nonzero (or the
+// DC) is k less the mask's highest set bit below k, less one; zrl takes the
+// runs of 16 before it, size the level's bit length.  Below 256 for any
+// int32 level (size <= 32).
+template <bool HI>
+__device__ __forceinline__ int ac_symbol(Mask m, int lane, int v, int& zrl, int& size) {
+  const unsigned below = (HI ? m.hi : m.lo) & ((1u << lane) - 1u);
+  int prev = 31 - __clz(below);                      // -1 where no bit is below
+  if (HI) prev = below ? prev + 32 : 31 - __clz(m.lo);
+  const int run = (HI ? 32 + lane : lane) - max(prev, 0) - 1;
+  zrl = run >> 4;
+  size = bit_length(abs(v));
+  return ((run & 15) << 4) | size;
+}
+
+// A block ends with an EOB unless its position 63 is nonzero.
+__device__ __forceinline__ bool block_eob(Mask m) { return !(m.hi >> 31); }
+
+// K16b (HIST_*): a CTA of HIST_WARPS warps takes a contiguous span of MCUs
+// of one session (grid.y: the session), a warp a contiguous part of it, an
+// MCU at a time: the 6 blocks of the next MCU (two coalesced 128-byte loads
+// a block) are loaded while the warp counts this one (two MCUs a step, or
+// loads two or three MCUs ahead, took more registers, fewer CTAs an SM, and
+// were slower).  The grid is about HIST_CTAS_PER_SM CTAs an SM over all
+// sessions (one wave), so each CTA's flush is paid once.  The DC chain: a
+// warp carries each component's predecessor in a register across its MCUs
+// (0 at a strip's first MCU), reading it from memory only for its first
+// MCU.  Counting:
+//  - the bins every block hits stay in registers until the warp is done:
+//    lane k counts the blocks of DC size k (a size past 16 matches no lane
+//    below 17, so it is dropped, as the reference's scatter drops it), the
+//    EOBs are a warp-uniform count, the ZRLs a count a lane;
+//  - an AC symbol is one shared atomic add from its lane (merging a
+//    block's equal symbols first by __match_any_sync was slower);
+//  - the CTA adds its nonzero bins to the session's accumulator, a
+//    __device__ array zero between launches, then one arrival; the CTA that
+//    finds every other CTA of its session arrived takes the sums out (each
+//    bin swapped with 0), writes the histogram and resets the arrivals.
+// So one launch and no memset; launches of one device must be
+// stream-ordered (they share the accumulators).  A launch takes at most
+// HIST_MAX_S sessions; the launcher splits a larger S.
+constexpr int HIST_WARPS = 8, HIST_NT = 32 * HIST_WARPS;
+constexpr int HIST_CTAS_PER_SM = 4;
+constexpr int HIST_MAX_S = 64;
+__device__ int g_hist_acc[HIST_MAX_S * kSyms];
+__device__ unsigned g_hist_arrive[HIST_MAX_S];
+
+struct HistLevels {                       // an MCU's 6 blocks: lane l's positions l, l + 32
+  int a[6], b[6];
+};
+
+__device__ __forceinline__ void hist_load(HistLevels& v, const int* y, const int* cb,
+                                          const int* cr, size_t m, int lane) {
+  const int* py = y + m * 256 + lane;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    v.a[c] = __ldg(py + 64 * c);
+    v.b[c] = __ldg(py + 64 * c + 32);
+  }
+  v.a[4] = __ldg(cb + m * 64 + lane);
+  v.b[4] = __ldg(cb + m * 64 + lane + 32);
+  v.a[5] = __ldg(cr + m * 64 + lane);
+  v.b[5] = __ldg(cr + m * 64 + lane + 32);
+}
+
+struct HistCounts {                       // a warp's register counts
+  int dcl = 0, dcc = 0, zrl_l = 0, zrl_c = 0, eob_l = 0, eob_c = 0;
+  int py = 0, pb = 0, pr = 0;             // the chains' predecessors
+};
+
+// MCU m (of a session) into the counts and the CTA's AC bins h.
+__device__ __forceinline__ void hist_count(const HistLevels& v, HistCounts& k, int* h, int m,
+                                           int mps, int lane) {
+  if (m % mps == 0) k.py = k.pb = k.pr = 0;            // a strip's first MCU
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    const bool luma = c < 4;
+    const int dc = __shfl_sync(FULL, v.a[c], 0);
+    int& prev = luma ? k.py : (c == 4 ? k.pb : k.pr);
+    const int dsize = bit_length(abs(dc_diff(dc, prev)));
+    prev = dc;
+    (luma ? k.dcl : k.dcc) += dsize == lane;
+    const Mask mk = ac_mask(v.a[c], v.b[c]);
+    (luma ? k.eob_l : k.eob_c) += block_eob(mk);
+    int* hac = h + (luma ? kAcL : kAcC);
+    int& zrl = luma ? k.zrl_l : k.zrl_c;
+    int z, size;
+    if ((mk.lo >> lane) & 1) {                         // the item at position lane
+      atomicAdd(hac + ac_symbol<false>(mk, lane, v.a[c], z, size), 1);
+      zrl += z;
     }
-    for (; run >= 16; run -= 16) sym(ac_t, 0xF0, 0u, 0);
-    const int size = bit_length(abs(v));
-    sym(ac_t, ((run << 4) | size) & 0xFF, amplitude(v, size), size);
-    run = 0;
-    last = i;
+    if (v.b[c]) {                                      // at lane + 32
+      atomicAdd(hac + ac_symbol<true>(mk, lane, v.b[c], z, size), 1);
+      zrl += z;
+    }
   }
-  if (last < 63) sym(ac_t, 0x00, 0u, 0);
 }
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(HIST_NT)
     analyze_kernel(const int* __restrict__ y, const int* __restrict__ cb,
                    const int* __restrict__ cr, int* __restrict__ hist, int nmcu, int mps) {
   __shared__ int h[kSyms];
-  for (int i = threadIdx.x; i < kSyms; i += blockDim.x) h[i] = 0;
+  __shared__ bool last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, slot = blockIdx.y;
+  // the CTA's span, then the warp's part of it
+  const int per_cta = (nmcu + gridDim.x - 1) / gridDim.x;
+  const int c0 = blockIdx.x * per_cta, c1 = min(c0 + per_cta, nmcu);
+  const int per_warp = (per_cta + HIST_WARPS - 1) / HIST_WARPS;
+  const int w0 = c0 + warp * per_warp, w1 = min(w0 + per_warp, c1);
+  const size_t base = static_cast<size_t>(slot) * nmcu;
+  HistLevels cur, nxt;                                 // the MCU counted, the next one
+  HistCounts k;
+  if (w0 < w1) {
+    hist_load(cur, y, cb, cr, base + w0, lane);
+    if (w0 % mps) {
+      k.py = __ldg(y + (base + w0) * 256 - 64);
+      k.pb = __ldg(cb + (base + w0 - 1) * 64);
+      k.pr = __ldg(cr + (base + w0 - 1) * 64);
+    }
+  }
+  for (int i = tid; i < kSyms; i += HIST_NT) h[i] = 0;
   __syncthreads();
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t s = blockIdx.y;
-  if (g < nmcu * 6) {
-    const Block b = locate(y, cb, cr, s, nmcu, mps, g);
-    walk(b, [&](int t, int symbol, uint32_t, int) { atomicAdd(&h[t + symbol], 1); });
+
+  for (int m = w0; m < w1; ++m) {                      // warp-uniform
+    if (m + 1 < w1) hist_load(nxt, y, cb, cr, base + m + 1, lane);
+    hist_count(cur, k, h, m, mps, lane);
+    cur = nxt;
+  }
+
+  // the warp's registers, then the CTA's nonzero bins, then the arrival
+  if (w0 < w1) {
+    if (lane < 17) {
+      if (k.dcl) atomicAdd(h + kDcL + lane, k.dcl);
+      if (k.dcc) atomicAdd(h + kDcC + lane, k.dcc);
+    }
+    for (int o = 16; o; o >>= 1) {
+      k.zrl_l += __shfl_xor_sync(FULL, k.zrl_l, o);
+      k.zrl_c += __shfl_xor_sync(FULL, k.zrl_c, o);
+    }
+    if (lane == 0) {
+      if (k.eob_l) atomicAdd(h + kAcL, k.eob_l);
+      if (k.eob_c) atomicAdd(h + kAcC, k.eob_c);
+      if (k.zrl_l) atomicAdd(h + kAcL + 0xF0, k.zrl_l);
+      if (k.zrl_c) atomicAdd(h + kAcC + 0xF0, k.zrl_c);
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kSyms; i += blockDim.x)
-    if (h[i]) atomicAdd(&hist[s * kSyms + i], h[i]);
+  int* acc = g_hist_acc + slot * kSyms;
+  for (int i = tid; i < kSyms; i += HIST_NT)
+    if (h[i]) atomicAdd(acc + i, h[i]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(g_hist_arrive + slot, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();                                     // every other CTA's adds are in
+  for (int i = tid; i < kSyms; i += HIST_NT) hist[slot * kSyms + i] = atomicExch(acc + i, 0);
+  if (tid == 0) g_hist_arrive[slot] = 0;               // for the next launch (stream-ordered)
 }
 
 // ---------------------------------------------------------------------------
@@ -380,7 +504,6 @@ constexpr int SEGM = 16;                  // MCUs a segment
 constexpr int SEG_BLOCKS = 6 * SEGM;
 constexpr int PACK_WARPS = 8, PACK_NT = 32 * PACK_WARPS;
 constexpr int WIN_WORDS = 4096;           // a window of the segment's words
-using lookback::FULL;
 
 struct PackArgs {
   const int *y, *cb, *cr, *tables;
@@ -411,26 +534,20 @@ struct Items {
 __device__ __forceinline__ Items block_items(const int* zz, int prev_dc, bool luma,
                                              const int2* tb, int lane) {
   const int a = zz[lane], b = zz[lane + 32];
-  const unsigned long long nz =
-      (static_cast<unsigned long long>(__ballot_sync(FULL, b != 0)) << 32) |
-      __ballot_sync(FULL, a != 0);
-  const unsigned long long ac = nz & ~1ull;
+  const Mask mk = ac_mask(a, b);
   const int act = luma ? kAcL : kAcC;
   Items it;
-  auto ac_item = [&](int k, int v, unsigned long long& val, int& len, int& zrl) {
+  auto ac_item = [&](auto hi, int v, unsigned long long& val, int& len, int& zrl) {
     val = 0;
     len = zrl = 0;
     if (v == 0) return;
-    const unsigned long long below = ac & ((1ull << k) - 1ull);
-    const int run = k - (below ? 63 - __clzll(static_cast<long long>(below)) : 0) - 1;
-    zrl = run >> 4;
-    const int size = bit_length(abs(v));
-    const int2 c = tb[act + ((((run & 15) << 4) | size) & 0xFF)];
+    int size;
+    const int2 c = tb[act + ac_symbol<decltype(hi)::value>(mk, lane, v, zrl, size)];
     val = (static_cast<unsigned long long>(static_cast<unsigned>(c.x)) << size) | amplitude(v, size);
     len = c.y + size;
   };
   if (lane == 0) {
-    const int diff = a - prev_dc;
+    const int diff = dc_diff(a, prev_dc);
     const int dsize = bit_length(abs(diff));
     const int2 c = tb[(luma ? kDcL : kDcC) + min(dsize, 16)];
     it.va = (static_cast<unsigned long long>(static_cast<unsigned>(c.x)) << dsize) |
@@ -438,10 +555,10 @@ __device__ __forceinline__ Items block_items(const int* zz, int prev_dc, bool lu
     it.la = c.y + dsize;
     it.za = 0;
   } else {
-    ac_item(lane, a, it.va, it.la, it.za);
+    ac_item(std::false_type(), a, it.va, it.la, it.za);
   }
-  ac_item(lane + 32, b, it.vb, it.lb, it.zb);
-  it.eob = lane == 31 && !(ac >> 63) ? tb[act].y : 0;
+  ac_item(std::true_type(), b, it.vb, it.lb, it.zb);
+  it.eob = lane == 31 && block_eob(mk) ? tb[act].y : 0;
   return it;
 }
 
@@ -610,15 +727,26 @@ extern "C" int jpeg_transform_launch(const uint8_t* rgb, const float* consts, in
   return dngd_last_error();
 }
 
-// hist: (S, 546) int32, zeroed here: dc_y 17, ac_y 256, dc_c 17, ac_c 256.
+// hist: (S, 546) int32, every bin written: dc_y 17, ac_y 256, dc_c 17,
+// ac_c 256.  One launch a HIST_MAX_S sessions, no memset.
 extern "C" int jpeg_analyze_launch(const int* y, const int* cb, const int* cr, int* hist, int s,
                                    int nmcu, int nx, cudaStream_t stream) {
   if (s <= 0 || nmcu <= 0) return 0;
   if (s > 65535 || nx <= 0 || nmcu % nx) return cudaErrorInvalidValue;
-  cudaMemsetAsync(hist, 0, sizeof(int) * kSyms * (size_t)s, stream);
-  const dim3 grid((nmcu * 6 + 255) / 256, s);
-  analyze_kernel<<<grid, 256, 0, stream>>>(y, cb, cr, hist, nmcu, nmcu / nx);
-  return dngd_last_error();
+  int sms = 0;
+  if (const int e = dngd_sm_count(&sms)) return e;
+  for (int s0 = 0; s0 < s; s0 += HIST_MAX_S) {
+    const int ns = min(HIST_MAX_S, s - s0);
+    // about HIST_CTAS_PER_SM CTAs an SM over the launch, each warp at least an MCU
+    const int most = (nmcu + HIST_WARPS - 1) / HIST_WARPS;
+    const int ctas = max(1, min(most, (sms * HIST_CTAS_PER_SM + ns - 1) / ns));
+    const size_t m = static_cast<size_t>(s0) * nmcu;
+    analyze_kernel<<<dim3(ctas, ns), HIST_NT, 0, stream>>>(
+        y + m * 256, cb + m * 64, cr + m * 64, hist + static_cast<size_t>(s0) * kSyms, nmcu,
+        nmcu / nx);
+    if (const int e = dngd_last_error()) return e;
+  }
+  return 0;
 }
 
 // The int32 words of the buffer jpeg_pack_launch takes (ops/jpeg_device.py

@@ -151,9 +151,10 @@ def qp_plane(y: torch.Tensor, qp: int, next_y=None, qp_dev=None,
     worklist, whose bands the reference's ``row_core`` plans one by one;
     the math is per MB, so a band's plane is the frame's at its row).
 
-    CUDA tensors launch K14 (one block per MB: the activity sums, the
-    breakpoint compare, the lookahead SAD; over a worklist, a block per
-    listed MB, reading only those rows); ``qp_dev`` (one int32 on the
+    CUDA tensors launch K14 (a warp two MBs of a row, a lane a 16-byte
+    row word: the activity sums and the lookahead SAD by ``__dp4a``, the
+    breakpoints compared a lane each; over a worklist, only the listed
+    rows are read); ``qp_dev`` (one int32 on the
     card) replaces ``qp`` for a captured graph, ``out`` is the int32
     result tensor where the caller owns it.  CPU tensors run the plain
     version."""

@@ -199,8 +199,8 @@ def jpeg_analyze_plain(y, cb, cr, nx: int = 1) -> torch.Tensor:
         dy, ay = component_histogram(component_symbols(*yc))
         db, ab = component_histogram(component_symbols(*bc))
         dr, ar = component_histogram(component_symbols(*rc))
-        out.append(torch.cat([dy[:17], ay[:256], (db + dr)[:17],
-                              (ab + ar)[:256]]))
+        out.append(torch.cat([dy[:17], ay[:256], db[:17] + dr[:17],
+                              ab[:256] + ar[:256]]))
     return torch.stack(out).to(torch.int32)
 
 
@@ -218,7 +218,11 @@ def _check_levels(y, cb, cr, nx):
 
 def jpeg_analyze(y, cb, cr, nx: int = 1) -> torch.Tensor:
     """Symbol histograms of each session, its ``nx`` strips summed:
-    (S, 546) int32 (:func:`split_hists`)."""
+    (S, 546) int32 (:func:`split_hists`); a DC size above 16 is counted
+    nowhere, as the reference's scatter drops it.  CUDA tensors launch
+    K16b (one launch, no memset: a warp a block, the CTAs' bins summed in
+    the device's own accumulators, so launches on one device must be
+    stream-ordered); CPU tensors run the plain version."""
     _check_levels(y, cb, cr, nx)
     if cb.device.type == "cpu":
         return jpeg_analyze_plain(y, cb, cr, nx)
