@@ -4,7 +4,7 @@
 Drives the port's H.264 encoder through the entry points a serving
 session calls (``make_encoder(from_env(...))``, ``encode_submit`` /
 ``encode_collect``) at 1920x1080 on synthetic desktop-like frames from a
-seeded generator, in twenty phases:
+seeded generator, in twenty-one phases:
 
 - **intra**: ``ENCODER_GOP=1``, the default rate control, one frame
   noisy enough to overflow the packer and take the host fallback
@@ -64,6 +64,12 @@ seeded generator, in twenty phases:
   K14a: with and without the lookahead, ``qp_dev``, activities past
   int32, the SAD thresholds, odd MB columns, planes off 16 bytes,
   worklists of 1, 8 and 64 rows with duplicates, graph replays);
+- **k13s13**: 13s (the forced-skip row gate) and K13 (the reference-row
+  scatter) against their plain versions, ``torch.equal``, on the inputs
+  that break their designs (13s: gate patterns, I16-in-P, the shard frame
+  views, 4K, 81 MBs a row, tensors off 16 bytes; K13: 1, 8 and 68 rows,
+  duplicates, rows 0 and nr - 1, 4K, W = 16 x 81, planes and stacks off
+  16 bytes; graph replays of both);
 - **modes**: K1's other mode sets (``ENCODER_INTRA_MODES`` full, i16,
   dc) at each tier and K5's ``refine="full"`` (K5 and K5p) against their
   plain versions at 1080p; the served knobs ``ENCODER_INTRA_MODES`` and
@@ -208,6 +214,17 @@ Checks, each of which fails the run:
           4097 bytes, 1088x1920 twice, a 4K plane of zeros against 255
           (5.4e11), views 3 and 7 bytes off a 16-byte boundary, one graph
           replayed 32 times on new planes and a graph of 32 launches
+  k13s13  13s equal to plain on every tensor (in place, the reference
+          untouched) at S20's form, with I16-in-P and at 4K; the (r // 3)
+          % 2, every-other, all-kept (nothing written), all-gated and
+          first- or last-only gates at 1080p and 81 MBs a row with and
+          without I16-in-P; tensors 1-15 bytes off a 16-byte boundary;
+          the frame views of the padded-reference core at nx 2 and 4 and
+          two tiers; a graph replayed on new gates.  K13 equal to plain
+          (new planes, the old reference untouched) at 1, 8 and 68 rows
+          and 4K; rows 0, nr - 1, padded duplicates, a reversed full list
+          at 1080p, 1296x720 and 4K; planes and recon stacks off 16 bytes
+          and stacks that are views; a graph replayed on new worklists
   colour  the odd-geometry stream against one whose colour conversion
           is the plain version; K9 on 1080p and odd frames
   cabac   both routes' access units byte-identical; every K10 and K11
@@ -320,7 +337,10 @@ k16a14d-split`` and the k16a14d phase alone ``python3 chip_smoke.py
 k16a14d``; K16b and K14a/K14r: ``python3 chip_smoke.py pairs --set k16b14a
 --pairs 3 parent=.tree/parent change=.``, ``python3 chip_smoke.py
 k16b14a-split`` and the k16b14a phase alone ``python3 chip_smoke.py
-k16b14a``; the damage phase's
+k16b14a``; 13s and K13: ``python3 chip_smoke.py pairs --set k13s13
+--pairs 3 parent=.tree/parent change=.``, ``python3 chip_smoke.py
+k13s13-split`` and the k13s13 phase alone ``python3 chip_smoke.py
+k13s13``; the damage phase's
 tune-mask part alone: ``python3 chip_smoke.py tune-mask`` (~75 s).  The BD-rate gate
 in alternating fresh processes is ``tools/bdrate_pairs.py``.
 """
@@ -749,6 +769,8 @@ def run():
     print(f"k16a14d phase done at {time.perf_counter() - t_start:.0f} s")
     k16b14a_phase(report)
     print(f"k16b14a phase done at {time.perf_counter() - t_start:.0f} s")
+    k13s13_phase(report)
+    print(f"k13s13 phase done at {time.perf_counter() - t_start:.0f} s")
     rows += modes_phase(report)
     print(f"modes phase done at {time.perf_counter() - t_start:.0f} s")
     rows += colour_phase(report)
@@ -6741,6 +6763,146 @@ def k16b14a_times() -> dict:
     return form_numbers(k16b14a_form_times(k16b14a_inputs(torch.device("cuda"))))
 
 
+# -- 13s and K13 (the forced-skip row gate and the reference-row scatter) ----
+#
+# ``k13s13_inputs`` holds their main paths' inputs; ``pairs --set k13s13``
+# times ``k13s13_times`` on each checkout (``chiprun_out/k13s13_pairs.json``);
+# ``k13s13-split`` adds their sizes changed in copies of spatial.cu, damage.cu
+# and rowcopy.cuh (``K13S_VARIANTS``, ``K13_VARIANTS``, where the sources
+# hold the redesign) and the device times of the next kernels of the ranking
+# (``next_rows``; ``chiprun_out/k13s13_split.json``).
+
+K13S_FORMS = ("s1080", "s1080_i16", "s4k")
+K13_FORMS = ("r1", "r8", "r68", "r4k")
+
+
+def k13s13_inputs(dev) -> dict:
+    """13s's inputs at its main path's shapes, each (out, keep, refs): the
+    P core's outputs of a moved 1080p desktop P frame with every other MB
+    row gated (S20's form), the same at tune=hq with I16-in-P, and both
+    frames tiled to 4K; K13's, each (refs, recon stack, rows): an IDR's
+    reference planes with the P core's recon rows of 1 (row 33), 8 (rows
+    20-27) and all 68 MB rows of 1080p, and 8 rows of 4K."""
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import h264_device, h264_inter
+
+    qp, g = PAIRS_QP, gop_frames(2, seed=2)
+    desk, moving = pair_planes(g[0]), pair_planes(g[1])
+    tile = lambda ps: [p.repeat(2, 2).contiguous() for p in ps]
+    desk4, moving4 = tile(desk), tile(moving)
+
+    def refs_of(planes):
+        lv = h264_device.encode_intra_frame_yuv(*planes, qp)
+        return (lv["recon_y"], lv["recon_cb"], lv["recon_cr"])
+
+    ref, ref4 = refs_of(desk), refs_of(desk4)
+    keep = lambda nr: torch.arange(nr, device=dev) % 2 == 0
+    x = {"s1080": (h264_inter.encode_p_frame(*moving, *ref, qp), keep(H_PAD // 16), ref),
+         "s1080_i16": (h264_inter.encode_p_frame(*moving, *ref, qp, tune="hq", p_intra=True),
+                       keep(H_PAD // 16), ref),
+         "s4k": (h264_inter.encode_p_frame(*moving4, *ref4, qp), keep(H_PAD // 8), ref4)}
+    recon = lambda o: (o["recon_y"], o["recon_cb"], o["recon_cr"])
+    for name, rows, cur, rf in (("r1", [33], moving, ref), ("r8", range(20, 28), moving, ref),
+                                ("r4k", range(20, 28), moving4, ref4)):
+        rows = torch.tensor(list(rows), dtype=torch.int32, device=dev)
+        x[name] = (rf, recon(h264_inter.encode_p_frame_rows(*cur, *rf, rows, qp)), rows)
+    x["r68"] = (ref, recon(x["s1080"][0]),
+                torch.arange(H_PAD // 16, dtype=torch.int32, device=dev))
+    return x
+
+
+def k13s_bytes(t) -> int:
+    """13s's bytes on ``(out, keep, refs)``: each gated row's bytes of
+    every present tensor written once, its reference rows read once, keep
+    read."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import damage_mask
+
+    out, keep, refs = t
+    frame = (nbytes(*(out[k] for k in damage_mask._SKIP_ZERO if k in out))
+             + nbytes(*refs) + nbytes(*(out[k] for k in damage_mask._SKIP_RECON)))
+    return int((~keep).sum()) * frame // keep.numel() + keep.numel()
+
+
+def k13s_stores(t) -> int:
+    """The bytes 13s stores on ``(out, keep, refs)``: each gated row's
+    bytes of every present tensor."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import damage_mask
+
+    out, keep, _ = t
+    frame = nbytes(*(out[k] for k in damage_mask._SKIP_ZERO + damage_mask._SKIP_RECON
+                     if k in out))
+    return int((~keep).sum()) * frame // keep.numel()
+
+
+def k13_bytes(t) -> int:
+    """K13's bytes on ``(refs, recon stack, rows)``: every output byte
+    written once and read once (from the reference or the stack), the rows
+    read."""
+    return 2 * nbytes(*t[0]) + nbytes(t[2])
+
+
+def k13s13_call(name: str, t):
+    """The wrapper call of form ``name`` on its inputs ``t``: 13s gating
+    ``out`` in place, or K13's new planes."""
+    from docker_nvidia_glx_desktop_tpu_torch.ops import damage_mask
+
+    if name in K13S_FORMS:
+        return lambda: damage_mask.force_skip_rows(t[0], t[1], *t[2])
+    return lambda: damage_mask.scatter_rows(*t[0], *t[1], t[2])
+
+
+def k13_library_call(t):
+    """K13's yardstick: ``torch.index_copy`` (new planes), one call a
+    plane."""
+    import torch
+
+    refs, rec, rows = t
+    idx, nr, nb = rows.long(), refs[0].shape[0] // 16, rows.numel()
+    return lambda: [torch.index_copy(p.view(nr, n, -1), 0, idx, r.view(nb, n, -1))
+                    for p, r, n in zip(refs, rec, (16, 8, 8))]
+
+
+def k13s13_form_times(x: dict) -> dict:
+    """13s at each of ``K13S_FORMS`` and K13 at each of ``K13_FORMS``:
+    eager (CUDA events around the wrapper), one replay of a graph of one
+    call, one of 32 calls in a graph, the profiler's device ms by kernel
+    and the bytes bound; 13s's forms also a memset of the bytes it stores
+    (``zero_``), K13's ``torch.index_copy``, each by device ms and one of
+    32."""
+    import torch
+
+    out = {}
+    for name in K13S_FORMS + K13_FORMS:
+        fn = k13s13_call(name, x[name])
+        r = out[name] = {"ms": cuda_ms(fn, reps=20), "graph_ms": graph_ms(fn, reps=20),
+                         "each_ms": graph_each_ms(fn)}
+        split = r["split"] = kernel_split(fn)
+        r["device_ms"] = float(sum(split.values())) if split else -1.0
+        r["bound_ms"] = ((k13s_bytes if name in K13S_FORMS else k13_bytes)(x[name])
+                         / HBM_BYTES_PER_S * 1e3)
+        if name in K13S_FORMS:
+            # the stores' own floor: a memset of as many bytes as 13s stores
+            zero = torch.empty(k13s_stores(x[name]), dtype=torch.uint8, device=x[name][1].device)
+            ssplit = kernel_split(zero.zero_)
+            r["store_device_ms"] = float(sum(ssplit.values())) if ssplit else -1.0
+            r["store_each_ms"] = graph_each_ms(zero.zero_)
+        if name in K13_FORMS:
+            lib = k13_library_call(x[name])
+            lsplit = kernel_split(lib)
+            r["lib_device_ms"] = float(sum(lsplit.values())) if lsplit else -1.0
+            r["lib_each_ms"] = graph_each_ms(lib)
+            r["lib_ms"] = cuda_ms(lib, reps=20)
+    return out
+
+
+def k13s13_times() -> dict:
+    """The ``k13s13`` set: ``k13s13_form_times`` as ``form_numbers``."""
+    import torch
+
+    return form_numbers(k13s13_form_times(k13s13_inputs(torch.device("cuda"))))
+
+
 # the measured sets: (timing function, the sources whose ptxas lines a
 # build prints, the output file's stem)
 PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
@@ -6751,7 +6913,8 @@ PAIR_SETS = {"k1k6": (k1k6_times, ("intra", "cavlc")),
              "k10k11i": (k10k11i_times, ("levelpack", "cabac")),
              "i16halo": (i16halo_times, ("inter", "spatial")),
              "k16a14d": (k16a14d_times, ("jpeg", "aq")),
-             "k16b14a": (k16b14a_times, ("jpeg", "aq"))}
+             "k16b14a": (k16b14a_times, ("jpeg", "aq")),
+             "k13s13": (k13s13_times, ("spatial", "damage"))}
 
 
 def pairs_child(set_name: str, tree: str, build_only: bool) -> dict:
@@ -8492,6 +8655,233 @@ def k16b14a_phase(report):
     return []
 
 
+def skip_case(nr: int, nc: int, intra: bool, dev, rng, offs=None):
+    """13s's inputs at the P core's shapes with random contents: ``out``
+    (the I16-in-P tensors where ``intra``) and the reference planes, each
+    tensor ``offs.get(key, 0)`` bytes past a 16-byte boundary."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import damage_mask
+
+    offs = offs or {}
+    shapes = {"mv": (2,), "luma": (16, 16), "cb_dc": (4,), "cb_ac": (4, 15),
+              "cr_dc": (4,), "cr_ac": (4, 15), "mb_intra": (), "i16_dc": (16,),
+              "i16_ac": (16, 15)}
+    out = {}
+    for k in damage_mask._SKIP_ZERO:
+        if k in ("mb_intra", "i16_dc", "i16_ac") and not intra:
+            continue
+        v = torch.from_numpy(rng.integers(-60, 60, (nr, nc) + shapes[k]).astype(np.int32))
+        out[k] = at_offset(v > 0 if k == "mb_intra" else v, offs.get(k, 0), dev)
+    planes = lambda: [rng.integers(0, 256, s, dtype=np.uint8)
+                      for s in ((16 * nr, 16 * nc), (8 * nr, 8 * nc), (8 * nr, 8 * nc))]
+    for k, p in zip(damage_mask._SKIP_RECON, planes()):
+        out[k] = at_offset(torch.from_numpy(p), offs.get(k, 0), dev)
+    refs = [at_offset(torch.from_numpy(p), offs.get("ref" + k[5:], 0), dev)
+            for k, p in zip(damage_mask._SKIP_RECON, planes())]
+    return out, refs
+
+
+def at_offset(t, off: int, dev):
+    """A contiguous copy of ``t`` on ``dev`` starting ``off`` bytes past a
+    16-byte boundary (a view of a larger buffer)."""
+    import torch
+
+    n = t.numel() * t.element_size()
+    buf = torch.empty(n + 32, dtype=torch.uint8, device=dev)
+    base = (-buf.data_ptr()) % 16
+    v = buf[base + off:base + off + n].view(t.dtype).view(t.shape)
+    v.copy_(t.to(dev))
+    check(v.data_ptr() % 16 == off % 16, "a view is not where it should be")
+    return v
+
+
+def k13s13_phase(report):
+    """13s and K13 against their plain versions, ``torch.equal``, on the
+    inputs that break their designs.  13s (in place, every tensor): the
+    (r // 3) % 2 and every-other-row gates, all rows kept (nothing
+    written), all gated, only the first or only the last row gated, tune
+    off and tune=hq with I16-in-P, the frame view of nx = 2 and 4 shards of
+    the padded-reference P core, 4K, 81 MBs a row (1296x720: mv's rows off
+    16 bytes), tensors 1-15 bytes off a 16-byte boundary, a graph replayed
+    on new gates.  K13 (new planes, the old reference untouched): 1, 8 and
+    68 rows of 1080p, a worklist padded with duplicates, rows 0 and nr - 1,
+    4K, W = 16 odd (1296x720: chroma lines of 648 bytes), recon stacks and
+    planes that are views off 16 bytes, a graph replayed on new worklists.
+    Launches made here leave the wrappers' counts as they were."""
+    import numpy as np
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import damage_mask, h264_inter
+    from docker_nvidia_glx_desktop_tpu_torch.ops.devloop import graph_capture
+    from docker_nvidia_glx_desktop_tpu_torch.parallel import batch
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rep = report["k13s13"] = {}
+    saved = (damage_mask.force_skip_rows.launches, damage_mask.scatter_rows.launches)
+    rng = np.random.default_rng(21)
+    n13s = n13 = 0
+
+    def gate_held(label, out, keep, refs):
+        nonlocal n13s
+        want = damage_mask.force_skip_rows_plain({k: v.clone() for k, v in out.items()},
+                                                 keep, *(r.clone() for r in refs))
+        before = {k: v.clone() for k, v in out.items()}
+        snap = [r.clone() for r in refs]
+        got = damage_mask.force_skip_rows(out, keep, *refs)
+        check(got is out, f"13s {label}: the gate did not return out")
+        for k in want:
+            check(torch.equal(got[k], want[k]), f"13s {label}: {k} differs from plain in "
+                  f"{int((got[k] != want[k]).sum())} elements")
+        check(all(torch.equal(a, b) for a, b in zip(refs, snap)),
+              f"13s {label}: the reference changed")
+        n13s += 1
+        return before
+
+    # -- 13s -----------------------------------------------------------------------
+    x = k13s13_inputs(dev)
+    for name in K13S_FORMS:
+        out, keep, refs = x[name]
+        gate_held(name, {k: v.clone() for k, v in out.items()}, keep, refs)
+    patterns = {"(r // 3) % 2": lambda r, nr: (r // 3) % 2 == 0,
+                "every other row": lambda r, nr: r % 2 == 0,
+                "all kept": lambda r, nr: True, "all gated": lambda r, nr: False,
+                "only the first gated": lambda r, nr: r != 0,
+                "only the last gated": lambda r, nr: r != nr - 1}
+    for nr, nc, label in ((H_PAD // 16, W // 16, "1080p"), (45, 81, "1296x720")):
+        for intra in (False, True):
+            for pname, f in patterns.items():
+                out, refs = skip_case(nr, nc, intra, dev, rng)
+                keep = torch.tensor([f(r, nr) for r in range(nr)], device=dev)
+                before = gate_held(f"{label} {pname} i16={intra}", out, keep, refs)
+                if pname == "all kept":
+                    check(all(torch.equal(out[k], before[k]) for k in out),
+                          "13s: all rows kept, yet the gate wrote")
+    odd = {"mv": 4, "luma": 12, "cb_ac": 8, "mb_intra": 3, "i16_dc": 4, "i16_ac": 8,
+           "recon_y": 5, "refy": 9, "recon_cb": 8, "refcb": 8, "recon_cr": 1, "refcr": 15}
+    for nr, nc in ((H_PAD // 16, W // 16), (45, 81)):
+        out, refs = skip_case(nr, nc, True, dev, rng, odd)
+        keep = torch.tensor([(r // 3) % 2 == 0 for r in range(nr)], device=dev)
+        gate_held(f"{nr}x{nc} MBs, tensors off 16 bytes", out, keep, refs)
+    # the spatial step's frame view of the padded-reference core's shard stacks
+    g = gop_frames(2, seed=4)
+    cur, prev = pair_planes(g[1]), pair_planes(g[0])
+    for nx in SP_NX:
+        pads = batch.spatial_halo_pad(*prev, nx)
+        sv = lambda t: t.view((nx, t.shape[0] // nx) + tuple(t.shape[1:]))
+        for tune, p_intra in (("off", False), ("hq", True)):
+            core = h264_inter.encode_p_frame_padded_ref(*(sv(p) for p in cur), *pads,
+                                                        PAIRS_QP, tune=tune, p_intra=p_intra)
+            out = {k: batch._frame_view(v) for k, v in core.items()}
+            keep = torch.tensor([(r // 3) % 2 == 0 for r in range(H_PAD // 16)], device=dev)
+            gate_held(f"frame view nx={nx} tune={tune}", out, keep, prev)
+    # one graph, replayed on new gates and new outputs
+    out, refs = skip_case(H_PAD // 16, W // 16, True, dev, rng)
+    keep = torch.zeros(H_PAD // 16, dtype=torch.bool, device=dev)
+    damage_mask.force_skip_rows({k: v.clone() for k, v in out.items()}, keep, *refs)
+    torch.cuda.synchronize()
+    gr = torch.cuda.CUDAGraph()
+    with graph_capture(gr):
+        damage_mask.force_skip_rows(out, keep, *refs)
+    for i in range(3):
+        fresh, _ = skip_case(H_PAD // 16, W // 16, True, dev, rng)
+        for k in out:
+            out[k].copy_(fresh[k])
+        keep.copy_(torch.from_numpy(rng.random(H_PAD // 16) < 0.5))
+        want = damage_mask.force_skip_rows_plain({k: v.clone() for k, v in out.items()},
+                                                 keep, *refs)
+        gr.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(out[k], want[k]) for k in want),
+              f"13s: replay {i} of one graph differs from plain")
+        n13s += 1
+    rep["k13s_cases"], rep["k13s_s"] = n13s, time.perf_counter() - t_phase
+
+    # -- K13 -----------------------------------------------------------------------
+    t1 = time.perf_counter()
+
+    def scatter_held(label, refs, rec, rows):
+        nonlocal n13
+        snap = [r.clone() for r in refs]
+        got = damage_mask.scatter_rows(*refs, *rec, rows)
+        want = damage_mask.scatter_rows_plain(*refs, *rec, rows)
+        for p, a, b in zip(("y", "cb", "cr"), got, want):
+            check(torch.equal(a, b), f"K13 {label}: {p} differs from plain in "
+                  f"{int((a != b).sum())} bytes")
+        check(all(torch.equal(a, b) for a, b in zip(refs, snap)),
+              f"K13 {label}: the old reference changed")
+        n13 += 1
+
+    def k13_case(nr, nc, rows, offs=None):
+        """Random planes of nr MB rows of nc MBs and a recon stack for
+        ``rows`` (duplicates carry equal recon rows), each plane
+        ``offs.get(key, 0)`` bytes past a 16-byte boundary."""
+        offs = offs or {}
+        rows = np.asarray(rows, np.int32)
+        mk = lambda h, w, key, fill=None: at_offset(torch.from_numpy(
+            rng.integers(0, 256, (h, w), dtype=np.uint8) if fill is None else fill),
+            offs.get(key, 0), dev)
+        refs = [mk(16 * nr, 16 * nc, "ry"), mk(8 * nr, 8 * nc, "rcb"), mk(8 * nr, 8 * nc, "rcr")]
+        first = {int(r): i for i, r in reversed(list(enumerate(rows)))}
+        rec = []
+        for key, n, w in (("ey", 16, 16 * nc), ("ecb", 8, 8 * nc), ("ecr", 8, 8 * nc)):
+            own = rng.integers(0, 256, (len(rows), n, w), dtype=np.uint8)
+            own = own[[first[int(r)] for r in rows]].reshape(len(rows) * n, w)
+            rec.append(mk(len(rows) * n, w, key, own))
+        return refs, rec, torch.from_numpy(rows).to(dev)
+
+    for name in K13_FORMS:
+        scatter_held(name, *x[name])
+    nr1 = H_PAD // 16
+    for nr, nc, label in ((nr1, W // 16, "1080p"), (45, 81, "1296x720"),
+                          (H_PAD // 8, W // 8, "4K")):
+        for rows in ([0], [nr - 1], list(range(20, 28)), list(range(nr)),
+                     [5, 9, 9, 9], [nr - 1, 0, 3, 3, 3, 3, 3, 3], list(range(nr - 1, -1, -1))):
+            scatter_held(f"{label} rows {rows[:8]}", *k13_case(nr, nc, rows))
+        for offs in ({"ry": 4, "rcb": 8, "ey": 12, "ecr": 3},
+                     {"rcr": 1, "ecb": 7, "ey": 2, "ry": 15, "ecr": 8}):
+            scatter_held(f"{label} planes off 16 bytes {offs}",
+                         *k13_case(nr, nc, [nr - 1, 0, 7, 7], offs))
+    # a recon stack that is a view of a larger stack
+    refs, rec, rows = k13_case(nr1, W // 16, list(range(8)))
+    big = [torch.cat([r, r.flip(0)]) for r in rec]
+    scatter_held("recon stack a view of a larger one", refs,
+                 [b[:r.shape[0]] for b, r in zip(big, rec)], rows)
+    scatter_held("recon stack a view past its first half", refs,
+                 [b[r.shape[0]:] for b, r in zip(big, rec)], rows.flip(0).contiguous())
+    # one graph, replayed on new worklists and recon rows
+    refs, rec, rows = k13_case(nr1, W // 16, list(range(8)))
+    damage_mask.scatter_rows(*refs, *rec, rows)
+    torch.cuda.synchronize()
+    gr = torch.cuda.CUDAGraph()
+    with graph_capture(gr):
+        gout = damage_mask.scatter_rows(*refs, *rec, rows)
+    for i in range(3):
+        nrefs, nrec, nrows = k13_case(nr1, W // 16, sorted(rng.choice(nr1, 8, replace=False)))
+        for a, b in zip(refs + rec, nrefs + nrec):
+            a.copy_(b)
+        rows.copy_(nrows)
+        gr.replay()
+        torch.cuda.synchronize()
+        want = damage_mask.scatter_rows_plain(*refs, *rec, rows)
+        check(all(torch.equal(a, b) for a, b in zip(gout, want)),
+              f"K13: replay {i} of one graph differs from plain")
+        n13 += 1
+    torch.cuda.synchronize()
+    damage_mask.force_skip_rows.launches, damage_mask.scatter_rows.launches = saved
+    rep.update(k13_cases=n13, k13_s=time.perf_counter() - t1, s=time.perf_counter() - t_phase)
+    print(f"(a) k13s13: 13s equal to plain, every tensor, on {n13s} inputs (S20's form, "
+          f"I16-in-P, 4K; every-other, (r // 3) % 2, all kept (nothing written), all gated, "
+          f"first or last gated at 1080p and 81 MBs a row, with and without I16-in-P; "
+          f"tensors off 16 bytes; the frame views of nx {SP_NX} at two tiers; graph replays) "
+          f"({rep['k13s_s']:.1f} s); K13 equal to plain, the old reference untouched, on "
+          f"{n13} inputs (1, 8, 68 rows; duplicates; rows 0 and nr - 1; 4K; W = 16 x 81; "
+          f"planes and recon stacks off 16 bytes; stack views; graph replays) "
+          f"({rep['k13_s']:.1f} s); phase {rep['s']:.1f} s")
+    return []
+
+
 # K5's stages cut out of copies of inter.cu, one stage a copy (timing
 # only: a cut stage leaves its outputs wrong but every index in range)
 K5_VARIANTS = {
@@ -9409,12 +9799,14 @@ def next_row_forms(dev) -> dict:
     reference-row scatter of 8 rows of 1080p), K14r (the qp plane over
     those rows with the lookahead frame), K14a (the qp plane with and
     without it), K16b (a 1080p desktop's histograms), K9 (1919x1079 RGB to
-    padded I420), 9b (K9's frame axis, four 1080p frames) and 13s (the
-    forced-skip gate of every other MB row of a 1080p P frame)."""
+    padded I420), 9b (K9's frame axis, four 1080p frames), 13s (the
+    forced-skip gate of every other MB row of a 1080p P frame), K17p (the
+    loops' perturbation of a 1080p frame) and K17c (the loops' one-thread
+    carry, row 17k)."""
     import numpy as np
     import torch
 
-    from docker_nvidia_glx_desktop_tpu_torch.ops import aq, color, damage_mask
+    from docker_nvidia_glx_desktop_tpu_torch.ops import aq, color, damage_mask, devloop
     from docker_nvidia_glx_desktop_tpu_torch.ops import h264_device, h264_inter
     from docker_nvidia_glx_desktop_tpu_torch.ops import jpeg_device as jd
     from docker_nvidia_glx_desktop_tpu_torch.ops import quant
@@ -9433,6 +9825,9 @@ def next_row_forms(dev) -> dict:
                                lq, cq, H_PAD, W)
     odd = torch.from_numpy(np.ascontiguousarray(g[2][:ODD_H, :ODD_W])).to(dev)
     rgbs = torch.from_numpy(np.stack(g)).to(dev)
+    i_dev = torch.zeros(1, dtype=torch.int32, device=dev)
+    acc = torch.zeros(1, dtype=torch.int32, device=dev)
+    out_p = tuple(torch.empty_like(p) for p in desk)
     forms = {"k13": lambda: damage_mask.scatter_rows(*ref, *rec, rows8),
              "k14r": lambda: aq.qp_plane(moving[0], qp, desk[0], rows=rows8),
              "k14a": lambda: aq.qp_plane(moving[0], qp),
@@ -9440,14 +9835,16 @@ def next_row_forms(dev) -> dict:
              "k16b": lambda: jd.jpeg_analyze(*levels),
              "k9": lambda: color.rgb_to_yuv420(odd, H_PAD, W),
              "k9b": lambda: color.rgb_to_yuv420_frames(rgbs, H_PAD, W),
-             "k13s": lambda: damage_mask.force_skip_rows(out, keep, *ref)}
+             "k13s": lambda: damage_mask.force_skip_rows(out, keep, *ref),
+             "k17p": lambda: devloop.perturb(*desk, i_dev, out=out_p),
+             "k17k": lambda: devloop.tick(acc, desk[0], 0, i_dev)}
     return forms
 
 
 def next_rows(dev, names=None) -> dict:
     """Each of ``next_row_forms`` (those in ``names`` where given): the
     profiler's device ms by kernel (``kernel_split``), one replay of a
-    graph of one call and an eager call."""
+    graph of one call, one of 32 in a graph and an eager call."""
     res = {}
     for name, fn in next_row_forms(dev).items():
         if names is not None and name not in names:
@@ -9455,7 +9852,7 @@ def next_rows(dev, names=None) -> dict:
         split = kernel_split(fn)
         res[name] = {"device_ms": float(sum(split.values())) if split else -1.0,
                      "split": split, "graph_ms": graph_ms(fn, reps=20),
-                     "ms": cuda_ms(fn, reps=20)}
+                     "each_ms": graph_each_ms(fn), "ms": cuda_ms(fn, reps=20)}
         print(f"next row {name}: {json.dumps(res[name])}", flush=True)
     return res
 
@@ -9610,6 +10007,125 @@ def k16b14a_split() -> int:
     return 0
 
 
+# 13s's and K13's sizes changed in copies of the redesigned sources
+# (timing only: a cut leaves the outputs wrong)
+K13S_MARK = "SKIP_CHUNK"
+K13S_VARIANTS = {
+    "base": [],
+    "u1": [("SKIP_U = 2;", "SKIP_U = 1;")],
+    "u4": [("SKIP_U = 2;", "SKIP_U = 4;")],
+    "nt128": [("SKIP_NT = 256;", "SKIP_NT = 128;")],
+    "stream_stores": [("rowcopy.cuh", "    *reinterpret_cast<uint4*>(w.a) = v;\n",
+                       "    __stcs(reinterpret_cast<uint4*>(w.a), v);\n")],
+}
+K13_MARK = "copy_line"
+K13_VARIANTS = {
+    "base": [],
+    "line_u2": [("LINE_U = 4;", "LINE_U = 2;")],
+    "line_u8": [("LINE_U = 4;", "LINE_U = 8;")],
+    "nt128": [("SCATTER_NT = 256;", "SCATTER_NT = 128;")],
+    "stream_stores": [("rowcopy.cuh", "    *reinterpret_cast<uint4*>(w.a) = v;\n",
+                       "    __stcs(reinterpret_cast<uint4*>(w.a), v);\n")],
+}
+
+
+def k13s13_cuts(x: dict) -> dict:
+    """Each of ``K13S_VARIANTS`` on ``K13S_FORMS`` and ``K13_VARIANTS`` on
+    ``K13_FORMS`` (where the sources hold the redesign): device ms, one of
+    32 in a graph, and whether the output equals the wrapper's (0 where a
+    cut leaves it wrong by design)."""
+    import ctypes
+
+    import torch
+
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda, damage_mask
+
+    cut = {}
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    ptr = lambda a: None if a is None else a.data_ptr()
+    for src, mark, variants, forms in (("spatial", K13S_MARK, K13S_VARIANTS, K13S_FORMS),
+                                       ("damage", K13_MARK, K13_VARIANTS, K13_FORMS)):
+        if mark not in open(os.path.join(_cuda.CSRC, f"{src}.cu")).read():
+            continue
+        libs = build_variants(src, variants)
+        for form in forms:
+            t = x[form]
+            if src == "spatial":
+                out0, keep, refs = t
+                gated = damage_mask.force_skip_rows({k: v.clone() for k, v in out0.items()},
+                                                    keep, *refs)
+                out = {k: v.clone() for k, v in out0.items()}
+                args = ([ptr(out.get(k)) for k in damage_mask._SKIP_ZERO]
+                        + [ptr(out[k]) for k in damage_mask._SKIP_RECON]
+                        + [ptr(r) for r in refs] + [keep.data_ptr(), keep.numel(),
+                                                    out["mv"].shape[1]])
+                entry, nptr = "force_skip_launch", 16
+                pairs_ = [(out[k], gated[k], out0[k]) for k in gated]
+            else:
+                refs, rec, rows = t
+                want = damage_mask.scatter_rows(*refs, *rec, rows)
+                outs = [torch.empty_like(p) for p in refs]
+                args = ([ptr(a) for a in (*refs, *rec, rows, *outs)]
+                        + [refs[0].shape[0] // 16, rows.numel(), refs[0].shape[1]])
+                entry, nptr = "scatter_rows_launch", 10
+                pairs_ = [(o, w, torch.zeros_like(o)) for o, w in zip(outs, want)]
+            for name, lib in libs.items():
+                for o, _, first in pairs_:             # the inputs as they came
+                    o.copy_(first)
+                fn = lib[entry]
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * (len(args) - nptr) \
+                    + [ctypes.c_void_p]
+
+                def call(fn=fn, args=args, name=name):
+                    err = fn(*args, stream())
+                    check(err == 0, f"{name}: CUDA error {err}")
+                call()
+                torch.cuda.synchronize()
+                equal = float(all(torch.equal(o, w) for o, w, _ in pairs_))
+                split = kernel_split(call)
+                key = f"{form}_{name}"
+                cut[key] = {"each_ms": graph_each_ms(call), "device_ms": sum(split.values()),
+                            "equal": equal}
+                print(f"{form} {name}: {json.dumps(cut[key])}", flush=True)
+    return cut
+
+
+def k13s13_split() -> int:
+    """``python3 chip_smoke.py k13s13-split``: the ``-Xptxas -v`` lines of
+    13s's and K13's kernels; each of their forms (``k13s13_form_times``)
+    by device time beside its CUDA-event, replayed and one-of-32 ms, its
+    bound and K13's ``index_copy``; their sizes changed in copies of the
+    sources (``k13s13_cuts``); the next kernels of the ranking by device
+    time (``next_rows``: K9, 9b, 17p, 17k).  Writes
+    ``chiprun_out/k13s13_split.json``."""
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    sys.path.insert(0, HERE)
+    from docker_nvidia_glx_desktop_tpu_torch.ops import _cuda
+
+    smi = smi_line()
+    print(smi, flush=True)
+    logs = _cuda.build(verbose=True)
+    res = {"card": smi, "ptxas": {}}
+    for src, marks in (("spatial", ("force_skip",)), ("damage", ("scatter",))):
+        res["ptxas"][src] = kernel_lines(ptxas_lines(logs.get(src, "")), marks)
+        for ln in res["ptxas"][src]:
+            print(f"ptxas {src}: {ln}", flush=True)
+    dev = torch.device("cuda")
+    x = k13s13_inputs(dev)
+    for name, r in k13s13_form_times(x).items():
+        res[name] = r
+        print(f"{name}: {json.dumps(r)}", flush=True)
+    res["cut_ms"] = k13s13_cuts(x)
+    res["next_rows"] = next_rows(dev, ("k9", "k9b", "k17p", "k17k"))
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "k13s13_split.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
 def phase_alone(key: str, phase, srcs) -> int:
     """``python3 chip_smoke.py modes`` / ``tune-mask``: the build (with the
     ptxas lines of ``srcs``), then the one phase alone; writes
@@ -9684,6 +10200,10 @@ def main(argv=None):
             return k16b14a_split()
         if argv[:1] == ["k16b14a"]:
             return phase_alone("k16b14a", k16b14a_phase, ("jpeg", "aq"))
+        if argv[:1] == ["k13s13-split"]:
+            return k13s13_split()
+        if argv[:1] == ["k13s13"]:
+            return phase_alone("k13s13", k13s13_phase, ("spatial", "damage"))
         if argv[:1] == ["k5k4"]:
             return phase_alone("k5k4", k5k4_phase, ("inter", "content"))
         return run()

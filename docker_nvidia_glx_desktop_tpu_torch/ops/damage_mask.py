@@ -173,8 +173,11 @@ def scatter_rows(ref_y, ref_cb, ref_cr, rec_y, rec_cb, rec_cr, rows):
     Padded duplicates in ``rows`` must carry equal recon rows.  The old
     planes stay as they were.
 
-    CUDA tensors launch ``csrc/damage.cu`` (one thread per output word);
-    CPU tensors run the plain version."""
+    CUDA tensors launch ``csrc/damage.cu``: a warp an output line of the
+    frame (stored where its row is not in the worklist) or of the recon
+    stack (stored at its row's place), 16-byte words, no line waiting on
+    the worklist before its loads; planes at any byte offset.  CPU
+    tensors run the plain version."""
     from .h264_device import _check_planes
 
     _check_planes(ref_y, ref_cb, ref_cr)
@@ -189,12 +192,10 @@ def scatter_rows(ref_y, ref_cb, ref_cr, rec_y, rec_cb, rec_cr, rows):
     if ref_y.device.type == "cpu":
         return scatter_rows_plain(ref_y, ref_cb, ref_cr, rec_y, rec_cb,
                                   rec_cr, rows)
-    ts = (ref_y, ref_cb, ref_cr, rec_y, rec_cb, rec_cr)
-    if any(t.data_ptr() % 4 for t in ts):
-        raise ValueError("planes must be 4-byte aligned")
     out = [torch.empty_like(p) for p in (ref_y, ref_cb, ref_cr)]
     _cuda.launch("damage", "scatter_rows_launch",
-                 list(ts) + [rows.contiguous()] + out,
+                 [ref_y, ref_cb, ref_cr, rec_y, rec_cb, rec_cr,
+                  rows.contiguous()] + out,
                  [nr, b, ref_y.shape[1]], ref_y.device)
     scatter_rows.launches += 1
     return tuple(out)
@@ -284,15 +285,15 @@ def force_skip_rows(out: dict, keep, ref_y, ref_cb, ref_cr) -> dict:
     slices.  ``out`` is the P core's dict (R, C, ...) and its tensors are
     gated in place; returns ``out``.
 
-    CUDA tensors launch ``csrc/spatial.cu`` (one thread per element of
-    each gated tensor, the tensor the grid's second axis); CPU tensors
-    run the plain version."""
+    CUDA tensors launch ``csrc/spatial.cu``: a CTA a chunk of one
+    tensor's row (a grid of chunks by MB rows), 16-byte words, zero
+    words stored with no load; a kept row's CTAs return after reading
+    ``keep``, and tensors may start at any byte offset.  CPU tensors run
+    the plain version."""
     nr = _check_skip(out, keep, (ref_y, ref_cb, ref_cr))
     if keep.device.type == "cpu":
         return force_skip_rows_plain(out, keep, ref_y, ref_cb, ref_cr)
     nc = out["mv"].shape[1]
-    if any(out[k].data_ptr() % 4 for k in _SKIP_RECON):
-        raise ValueError("recon planes must be 4-byte aligned")
     _cuda.launch("spatial", "force_skip_launch",
                  [out.get(k) for k in _SKIP_ZERO]
                  + [out[k] for k in _SKIP_RECON]
